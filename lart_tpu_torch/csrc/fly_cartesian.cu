@@ -1,0 +1,181 @@
+// K5 fly_cartesian: the generic Cartesian flight, an Amanatides-Woo walk of
+// the grid one cell crossing at a time, with escape, periodic and reflect
+// boundaries and the comoving frequency update of a moving medium.
+//
+// Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
+// Cartesian DDA without dust, H2, line type 8, atmospheres, the shearing box,
+// CALCJ/Pnew or all-photons records; uniform temperature).  The TPU runs a
+// lax.while_loop of at most max_steps iterations over the whole batch; here
+// one thread walks its own lane, at most max_steps crossings (the loop
+// condition n < max_steps, no "+ 2" as in the slab), so a forced first
+// scattering that completes restarts from birth and keeps flying within the
+// same budget, as the while_loop counts it.  Every expression keeps the JAX
+// order, and the cell faces and advanced positions are fused multiply-adds
+// as XLA computes them (transport/flight.py); the opacity of the current
+// cell is rhokap * H(x, a_ref) (voigt.cuh inlined).  Escapes go to Jout/Jmu with f32 atomics at once (a lane escapes
+// at most once a call), weight outside the frequency grid through one block
+// sum.  Bound: the gathers.  Each crossing reads rhokap and, in a moving
+// medium, three velocity components of the old and new cell, 4-byte words
+// scattered over arrays of 4 nx ny nz bytes each (32 MB at 201^3, against a
+// 50 MB L2); the lane state is read and written once a call.
+#include "lart.cuh"
+#include "voigt.cuh"
+
+// engine._gather: flat C-order index, clamped like jnp.take(mode='clip')
+__device__ inline int flat_index(const FlightParams& p, int i, int j, int k) {
+  const int f = (i * p.n[1] + j) * p.n[2] + k;
+  return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
+}
+
+// u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot)
+__device__ inline float vel_dot(const FlightParams& p, const int c[3], const float k[3]) {
+  const int f = flat_index(p, c[0], c[1], c[2]);
+  return p.vfx[f] * k[0] + p.vfy[f] * k[1] + p.vfz[f] * k[2];
+}
+
+// distance to the exit face along one axis (engine.py:1075-1079)
+__device__ inline float face_dist(float pos, float k, int idx, float amin, float d) {
+  if (fabsf(k) < 1e-12f) return LART_BIG;
+  const float face = fmaf((float)(k > 0.0f ? idx + 1 : idx), d, amin);
+  return fmaxf((face - pos) / k, 0.0f);
+}
+
+// boundary op after stepping cell index idx along axis a (engine.py:
+// 1081-1104); returns whether the lane escaped.  Reflect mirrors the
+// position to -amin, restarts in cell cell0 - 1 and flips k; its upper face
+// escapes.
+__device__ inline bool cross_axis(const FlightParams& p, int a, int& idx, float& pos,
+                                  float& k) {
+  const int nidx = idx + (k > 0.0f ? 1 : -1);
+  const bool lo = nidx < 0, hi = nidx >= p.n[a];
+  if (p.bc[a] == BC_PERIODIC) {
+    idx = lo ? p.n[a] - 1 : (hi ? 0 : nidx);
+    pos = lo ? p.amax[a] : (hi ? p.amin[a] : pos);
+    return false;
+  }
+  if (p.bc[a] == BC_REFLECT) {
+    idx = lo ? p.cell0[a] - 1 : nidx;
+    if (lo) {
+      pos = p.neg_amin[a];
+      k = -k;
+    }
+    return hi;
+  }
+  idx = nidx;
+  return lo || hi;
+}
+
+__global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float oor = 0.0f;
+  int phase = i < B ? s.phase[i] : DEAD;
+  if (phase == FLYING || phase == FFS) {
+    float pos[3] = {s.x[i], s.y[i], s.z[i]};
+    float dir[3] = {s.kx[i], s.ky[i], s.kz[i]};
+    int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
+    float xfreq = s.xfreq[i], wgt = s.wgt[i];
+    float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
+    for (int n = 0; n < max_steps && (phase == FLYING || phase == FFS); ++n) {
+      const bool is_ffs = phase == FFS;
+      const float rho =
+          p.rhokap[flat_index(p, cell[0], cell[1], cell[2])] * voigt_h(xfreq, p.a_ref);
+      float t[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        t[a] = p.walk[a] ? face_dist(pos[a], dir[a], cell[a], p.amin[a], p.d[a]) : LART_BIG;
+      const float dmin = fminf(fminf(t[0], t[1]), t[2]);
+      const int axis = dmin == t[0] ? 0 : (dmin == t[1] ? 1 : 2);
+      const float tgt = is_ffs ? FFS_TAU_CAP : tau_target;
+      const float dtau = dmin * rho;
+      const bool hit = tau_run + dtau >= tgt;
+      const float d_adv = hit ? (tgt - tau_run) / fmaxf(rho, LART_TINY) : dmin;
+      float npos[3], ndir[3];
+      int ncell[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        npos[a] = fmaf(d_adv, dir[a], pos[a]);
+        ndir[a] = dir[a];
+        ncell[a] = cell[a];
+      }
+      const float tau_n = hit ? tgt : tau_run + dtau;
+      bool escaped = false;
+      if (!hit) escaped = cross_axis(p, axis, ncell[axis], npos[axis], ndir[axis]);
+      // velocity of the cell being left, along the direction flown
+      const float u_old = p.moving ? vel_dot(p, cell, dir) : 0.0f;
+
+      if (is_ffs && (escaped || hit)) {
+        // forced first scattering done: the escaped fraction at the birth
+        // lab frequency (birth cell, birth direction), then restart from
+        // birth with wgt *= 1 - exp(-tau0)
+        const float tau0 = tau_n;
+        const int bcell[3] = {s.bic[i], s.bjc[i], s.bkc[i]};
+        const float bdir[3] = {s.bkx[i], s.bky[i], s.bkz[i]};
+        const float bxfreq = s.bxfreq[i];
+        const float u_b = p.moving ? vel_dot(p, bcell, bdir) : 0.0f;
+        const float wgt_esc = wgt * expf(-tau0);
+        oor += tally_out(p, bxfreq + u_b, bdir[2], wgt_esc);
+        const float wgt1 = -expm1f(-tau0);
+        phase = tau0 <= 0.0f ? DEAD : FLYING;
+        pos[0] = s.bx[i];
+        pos[1] = s.by[i];
+        pos[2] = s.bz[i];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          cell[a] = bcell[a];
+          dir[a] = bdir[a];
+        }
+        xfreq = bxfreq;
+        wgt = wgt * wgt1;
+        tau_run = 0.0f;
+        // xi clamp margin 1e-5 (engine.py:1415-1428)
+        tau_target = -log1pf(-fminf(tau_target, 0.99999f) * wgt1);
+        continue;
+      }
+      if (escaped && phase == FLYING) {
+        // escape, binned at the lab frequency of the cell being left
+        oor += tally_out(p, xfreq + u_old, dir[2], wgt);
+        phase = DEAD;
+      } else if (hit) {
+        phase = AT_SCATTER;
+      } else if (!escaped && p.moving) {
+        // comoving frequency on a cell change: x' = (x + u1) D1/D2 - u2
+        const float u2 = vel_dot(p, ncell, ndir);
+        xfreq = (xfreq + u_old) * p.Dfreq / p.Dfreq - u2;
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        pos[a] = npos[a];
+        dir[a] = ndir[a];
+        cell[a] = ncell[a];
+      }
+      tau_run = tau_n;
+    }
+    s.phase[i] = phase;
+    s.x[i] = pos[0];
+    s.y[i] = pos[1];
+    s.z[i] = pos[2];
+    s.kx[i] = dir[0];
+    s.ky[i] = dir[1];
+    s.kz[i] = dir[2];
+    s.ic[i] = cell[0];
+    s.jc[i] = cell[1];
+    s.kc[i] = cell[2];
+    s.xfreq[i] = xfreq;
+    s.wgt[i] = wgt;
+    s.tau_target[i] = tau_target;
+    s.tau_run[i] = tau_run;
+  }
+  block_sum_atomic(oor, p.W_oor);
+}
+
+LART_API int lart_flight_params_size() { return (int)sizeof(FlightParams); }
+
+LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
+                                const FlightParams* p, void* stream) {
+  if (B > 0) {
+    const int threads = 256;
+    fly_cartesian_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
+        unpack_lanes(lanes), B, max_steps, *p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -16,17 +16,11 @@
 #include "lart.cuh"
 #include "voigt.cuh"
 
-#define FFS_TAU_CAP 25.0f
-
 // jnp.mod / torch.remainder for floats: the result takes the sign of b
 __device__ inline float floor_mod(float a, float b) {
   float r = fmodf(a, b);
   if (r != 0.0f && ((r < 0.0f) != (b < 0.0f))) r += b;
   return r;
-}
-
-__device__ inline int clamp_floor(float v, int n) {
-  return (int)fminf(fmaxf(floorf(v), 0.0f), (float)(n - 1));
 }
 
 __global__ void fly_slab_kernel(Lanes s, int B, int max_iter, float zmn, float zmx,

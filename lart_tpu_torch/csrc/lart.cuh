@@ -80,6 +80,65 @@ inline Lanes unpack_lanes(void* const* p) {
   return s;
 }
 
+#define FFS_TAU_CAP 25.0f
+
+// Constants and device pointers of the K5 (fly_cartesian) and K6
+// (fly_uniform_sphere) flights, passed by pointer from the host and by value
+// to the kernel.  lart_tpu_torch/transport/flight.py FlightParams mirrors this
+// layout field for field; lart_flight_params_size() lets it check the size.
+struct FlightParams {
+  const float* rhokap;  // (nx, ny, nz) f32, flat index (i*ny + j)*nz + k
+  const float* vfx;     // velocity in thermal units; null in a static medium
+  const float* vfy;
+  const float* vfz;
+  float* Jout;
+  float* Jmu;
+  float* W_oor;
+  int n[3];        // nx, ny, nz
+  int bc[3];       // BC_ESCAPE, BC_PERIODIC, BC_REFLECT per axis
+  int cell0[3];    // i0, j0, k0: reflect restarts in cell0 - 1
+  int walk[3];     // the axis' faces are walked (n > 1 or escape)
+  int moving;      // velocities present (comoving frequency updates)
+  int nxfreq;
+  int save_jmu;
+  int nmu;
+  int mu_abs;      // xyz_symmetry bins |kz|
+  float amin[3];   // xmin, ymin, zmin
+  float amax[3];   // amin + n d
+  float neg_amin[3];
+  float d[3];      // dx, dy, dz
+  float a_ref;     // Voigt damping parameter (uniform temperature)
+  float Dfreq;     // Doppler width of every cell (uniform temperature)
+  float xfreq_min;
+  float dxfreq;
+  float mu_min;
+  float dmu;
+  float sphere_R2;
+  float sphere_rho;
+  float sphere_rhoD;
+};
+
+enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };
+
+__device__ inline int clamp_floor(float v, int n) {
+  return (int)fminf(fmaxf(floorf(v), 0.0f), (float)(n - 1));
+}
+
+// Escape tally at lab frequency xfreq_lab and direction cosine kz: adds w to
+// Jout (and Jmu) when the bin is on the frequency grid, else returns w, the
+// weight the caller sums into W_oor.
+__device__ inline float tally_out(const FlightParams& p, float xfreq_lab, float kz,
+                                  float w) {
+  const float fx = floorf((xfreq_lab - p.xfreq_min) / p.dxfreq);
+  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return w;
+  atomicAdd(&p.Jout[(int)fx], w);
+  if (p.save_jmu) {
+    const float mu = p.mu_abs ? fabsf(kz) : kz;
+    atomicAdd(&p.Jmu[(int)fx * p.nmu + clamp_floor((mu - p.mu_min) / p.dmu, p.nmu)], w);
+  }
+  return 0.0f;
+}
+
 // Sum v over the block and add it to *dst with one atomic per block.
 // Every thread of the block must call it.
 __device__ inline void block_sum_atomic(float v, float* dst) {

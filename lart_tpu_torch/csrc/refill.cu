@@ -1,5 +1,6 @@
 // K2 refill_point: rebirth of dead lanes for a point source with a Voigt or
-// monochromatic input spectrum, with the forced-first-scattering snapshot.
+// monochromatic input spectrum, with the forced-first-scattering snapshot, in
+// a static or moving medium of uniform temperature.
 //
 // Replaces lart_tpu/transport/engine.py:2557 make_refill / :2689 refill
 // (source_geometry point, spectral_type voigt or monochromatic).  The TPU
@@ -11,7 +12,11 @@
 // atomicMin, so once the kernel ends n_launched == min(old + #dead, budget)
 // and exactly that many lanes were launched.  Which lanes launch when the
 // budget runs out depends on warp order; nothing downstream depends on lane
-// order.  Bound: one pass over the state (about 100 bytes a lane written),
+// order.  In a moving medium the drawn frequency is a lab-frame one: unless
+// comoving_source, the lane flies at xfreq - u1 with u1 = v(source cell) . k
+// (engine.py:2836-2841), and Jin is tallied at the lab frequency xfreq + u1;
+// the source cell's velocity (vsx, vsy, vsz) is 0 in a static medium.
+// Bound: one pass over the state (about 100 bytes a lane written),
 // memory-bound; the ticket atomics are one per warp.
 #include "lart.cuh"
 #include "philox.cuh"
@@ -20,7 +25,8 @@
 __global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
                                     uint32_t seed, uint32_t counter, float xs, float ys,
                                     float zs, int ic, int jc, int kc, float xfreq0,
-                                    int voigt_spectrum, float a, float xfreq_min,
+                                    int voigt_spectrum, float a, float vsx, float vsy,
+                                    float vsz, int comoving_source, float xfreq_min,
                                     float dxfreq, int nxfreq, float* Jin) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
@@ -49,8 +55,10 @@ __global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
   float xfreq = xfreq0;
   if (voigt_spectrum) xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0]);
 
-  // Jin tally at the birth frequency (static medium: lab == comoving)
-  const float fx = floorf((xfreq - xfreq_min) / dxfreq);
+  // lab-frame source -> comoving frequency; Jin at the lab frequency
+  const float u1 = vsx * kx + vsy * ky + vsz * kz;
+  if (!comoving_source) xfreq = xfreq - u1;
+  const float fx = floorf((xfreq + u1 - xfreq_min) / dxfreq);
   if (fx >= 0.0f && fx < (float)nxfreq) atomicAdd(&Jin[(int)fx], 1.0f);
 
   s.phase[i] = FFS;
@@ -83,13 +91,15 @@ __global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
 LART_API int lart_refill_point(void* const* lanes, int B, void* n_launched, int budget,
                                unsigned seed, unsigned counter, float xs, float ys,
                                float zs, int ic, int jc, int kc, float xfreq0,
-                               int voigt_spectrum, float a, float xfreq_min,
+                               int voigt_spectrum, float a, float vsx, float vsy,
+                               float vsz, int comoving_source, float xfreq_min,
                                float dxfreq, int nxfreq, void* Jin, void* stream) {
   if (B > 0) {
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         unpack_lanes(lanes), B, (int*)n_launched, budget, seed, counter, xs, ys, zs, ic,
-        jc, kc, xfreq0, voigt_spectrum, a, xfreq_min, dxfreq, nxfreq, (float*)Jin);
+        jc, kc, xfreq0, voigt_spectrum, a, vsx, vsy, vsz, comoving_source, xfreq_min,
+        dxfreq, nxfreq, (float*)Jin);
   }
   return (int)cudaGetLastError();
 }

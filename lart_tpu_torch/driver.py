@@ -62,7 +62,7 @@ def prepare(par: Params, *, seed: Optional[int] = None,
     meta, grid = build_cartesian(cfg, device=dev)
     p = Prepared()
     p.cfg, p.meta, p.grid, p.device = cfg, meta, grid, dev
-    p.chunk = make_chunk(cfg, meta)
+    p.chunk = make_chunk(cfg, meta, grid)
     p.budget = int(cfg.par.nphotons)
     p.seed = int(seed if seed is not None else cfg.par.iseed)
     p.state = init_state(cfg.par.batch_size, dev)

@@ -1,14 +1,15 @@
 """Build the CUDA kernels of csrc/ with nvcc and bind them with ctypes.
 
 The sources are compiled on first use into one shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds):
+C interface (no PyTorch headers, so a build takes seconds): one nvcc per
+source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC --fmad=false -Xptxas -v
-         -o build/cuda_kernels/liblart_tpu_torch_<hash>.so ...
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC --fmad=false -Xptxas -v -c -o <source>.o <source>
 
-It lands in build/cuda_kernels/ at the root of the checkout, named by a
-hash of the sources and flags, so an edit rebuilds.  No --use_fast_math:
+then one nvcc -shared links the objects into
+build/cuda_kernels/liblart_tpu_torch_<hash>.so at the root of the
+checkout, named by a hash of the sources and flags, so an edit rebuilds.  No --use_fast_math:
 tanf near the pole and atan2f must stay accurate for the far-wing sampler.
 --fmad=false keeps a kernel's arithmetic identical to its plain PyTorch
 version, which rounds every operation separately.
@@ -31,27 +32,34 @@ from pathlib import Path
 
 import torch
 
+from ..transport.flight import FlightParams
+
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
-SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu')
+SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
+           'fly_cartesian.cu', 'fly_sphere.cu')
 HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '--fmad=false',
-              '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
 LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'fly_uniform_slab': 0,
-            'scatter_lya': 0}
+            'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LANES = ctypes.POINTER(ctypes.c_void_p)    # the lane-field pointer table
+_FLIGHT = ctypes.POINTER(FlightParams)      # K5/K6 constants, by pointer
 _ARGTYPES = {
     'lart_voigt_h': [_P, _P, _P, _I, _P],
     'lart_refill_point': [_LANES, _I, _P, _I, _U, _U, _F, _F, _F, _I, _I, _I, _F,
-                          _I, _F, _F, _F, _I, _P, _P],
+                          _I, _F, _F, _F, _F, _I, _F, _F, _I, _P, _P],
     'lart_fly_uniform_slab': [_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _F,
                               _F, _F, _F, _I, _I, _I, _F, _F, _I, _P, _P, _P,
                               _P],
-    'lart_scatter_lya': [_LANES, _I, _U, _U, _I, _F, _F, _P, _P, _P],
+    'lart_scatter_lya': [_LANES, _I, _U, _U, _I, _F, _F, _I, _F, _F, _F, _P,
+                         _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P],
+    'lart_fly_cartesian': [_LANES, _I, _I, _FLIGHT, _P],
+    'lart_fly_uniform_sphere': [_LANES, _I, _I, _FLIGHT, _P],
+    'lart_flight_params_size': [],
 }
 
 _lib = None
@@ -83,6 +91,20 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; raise with the output of the first
+    that fails.  Returns their stderr, in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f'nvcc failed ({p.returncode}):\n'
+                               f'{" ".join(c)}\n{so}{se}')
+    return [se for _, se in outs]
+
+
 def build() -> Path:
     """Compile csrc/ into the shared library unless it already exists."""
     out = BUILD_DIR / f'liblart_tpu_torch_{_digest()}.so'
@@ -91,19 +113,18 @@ def build() -> Path:
         BUILD_INFO.setdefault('seconds', 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', tmp,
-           *[str(CSRC / s) for s in SOURCES]]
+    nvcc = find_nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
-                           f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-    os.replace(tmp, out)    # atomic: a concurrent build never sees half a file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s + '.o') for s in SOURCES]
+        ptxas = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', o, str(CSRC / s)]
+                          for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmpdir, out.name)
+        _run_all([[nvcc, '-shared', '-o', lib, *objs]])
+        # atomic: a concurrent build never sees half a file
+        os.replace(lib, out)
     BUILD_INFO.update(path=str(out), seconds=time.time() - t0,
-                      ptxas=proc.stderr)
+                      ptxas=''.join(ptxas))
     return out
 
 
@@ -116,6 +137,9 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        if lib.lart_flight_params_size() != ctypes.sizeof(FlightParams):
+            raise RuntimeError('FlightParams: csrc/lart.cuh and '
+                               'transport/flight.py disagree on its layout')
         _lib = lib
     return _lib
 

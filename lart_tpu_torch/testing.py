@@ -2,10 +2,14 @@
 
 Everything random here is drawn with numpy from a seed, so the JAX
 reference, the plain PyTorch versions and the CUDA kernels can be handed
-the identical input.
+the identical input.  The analytic sphere spectrum and its shape test are
+jax-free copies of tools/acceptance.py's (which imports lart_tpu.driver,
+and so jax).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,17 +33,75 @@ def slab_params(tau0: float = 100.0, nz: int = 101, nphotons: int = 10_000,
     return Params(**base)
 
 
+def sphere_params(tau0: float = 100.0, n: int = 33, nphotons: int = 10_000,
+                  batch: int = 4096, **kw) -> Params:
+    """A uniform static sphere (examples/sphere, the Dijkstra et al. 2006
+    family): Ly-alpha, T = 1e4 K, R = 1 in an n^3 box, a central point
+    source with a Voigt input spectrum."""
+    base = dict(nphotons=nphotons, temperature=1e4, taumax=tau0,
+                geometry='sphere', rmax=1.0, nx=n, ny=n, nz=n, xmax=1.0,
+                ymax=1.0, zmax=1.0, spectral_type='voigt',
+                source_geometry='point', save_Jmu=True, nmu=8,
+                batch_size=batch, fly_substeps=8, scatter_rounds=4,
+                chunk_cycles=16, refill_every=4)
+    base.update(kw)
+    return Params(**base)
+
+
+def hubble_params(tau0: float = 100.0, n: int = 17, Vexp: float = 200.0,
+                  nphotons: int = 10_000, batch: int = 4096, **kw) -> Params:
+    """An expanding Hubble-flow sphere like examples/vel_effect: Ly-alpha,
+    T = 1e4 K, R = 1, one octant of an n^3 grid reflected on all three
+    axes (xyz_symmetry), a point source at the centre whose drawn frequency
+    is a lab-frame one (comoving_source false)."""
+    base = dict(nphotons=nphotons, temperature=1e4, taumax=tau0,
+                velocity_type='hubble', Vexp=Vexp, xyz_symmetry=True,
+                comoving_source=False, rmax=1.0, nx=n, ny=n, nz=n, xmax=1.0,
+                ymax=1.0, zmax=1.0, spectral_type='voigt',
+                source_geometry='point', save_Jmu=True, nmu=8,
+                batch_size=batch, fly_substeps=8, scatter_rounds=4,
+                chunk_cycles=16, refill_every=4)
+    base.update(kw)
+    return Params(**base)
+
+
+def cells_of(meta, x, y, z):
+    """(ic, jc, kc) of f32 positions: the clamped floor of lart_tpu's
+    refill (engine.py:2760-2765), in f32."""
+    f32 = np.float32
+    out = []
+    for v, amin, d, n in ((x, meta.xmin, meta.dx, meta.nx),
+                          (y, meta.ymin, meta.dy, meta.ny),
+                          (z, meta.zmin, meta.dz, meta.nz)):
+        c = np.floor((np.asarray(v, f32) - f32(amin)) / f32(d))
+        out.append(np.clip(c, 0, n - 1).astype(np.int32))
+    return out
+
+
+def _positions(rng, meta, batch, r_max):
+    """Uniform in the box, or in the ball r < r_max (folded onto the
+    grid's octant where a symmetry axis starts at or near 0)."""
+    lo = (meta.xmin, meta.ymin, meta.zmin)
+    hi = (meta.xmax, meta.ymax, meta.zmax)
+    if r_max is None:
+        return [rng.uniform(a, b, batch) for a, b in zip(lo, hi)]
+    v = rng.normal(size=(3, batch))
+    v *= r_max * rng.random(batch) ** (1.0 / 3.0) / np.linalg.norm(v, axis=0)
+    return [np.abs(c) if a > -0.5 * b else c for c, a, b in zip(v, lo, hi)]
+
+
 def mixed_state(meta, batch: int, seed: int, device='cpu',
-                phases=(DEAD, FFS, FLYING, AT_SCATTER)) -> BatchState:
-    """A batch with lanes in every phase, inside the grid of `meta`: FFS
-    lanes sit at their birth snapshot with a stashed xi; 10% of the lanes
-    carry far-wing frequencies, some outside the frequency grid."""
+                phases=(DEAD, FFS, FLYING, AT_SCATTER),
+                r_max: Optional[float] = None) -> BatchState:
+    """A batch with lanes in every phase, inside the grid of `meta` (inside
+    the ball r < r_max when it is given): each lane's cell is the clamped
+    floor of its position, FFS lanes sit at their birth snapshot with a
+    stashed xi; 10% of the lanes carry far-wing frequencies, some outside
+    the frequency grid."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     phase = rng.choice(np.asarray(phases, np.int32), batch)
-    x = rng.uniform(meta.xmin, meta.xmax, batch)
-    y = rng.uniform(meta.ymin, meta.ymax, batch)
-    z = rng.uniform(meta.zmin, meta.zmax, batch)
+    x, y, z = _positions(rng, meta, batch, r_max)
     cost = rng.uniform(-1.0, 1.0, batch)
     cost[rng.random(batch) < 0.01] = 0.0          # flights parallel to z faces
     sint = np.sqrt(1.0 - cost * cost)
@@ -54,24 +116,20 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
     is_ffs = phase == FFS
     tau_target[is_ffs] = rng.uniform(1e-6, 1.0, is_ffs.sum())
     tau_run[is_ffs] = 0.0
-    kc = np.clip(np.floor((z - meta.zmin) / meta.dz), 0, meta.nz - 1)
+    ic, jc, kc = cells_of(meta, x, y, z)
     fields = dict(phase=phase, x=x, y=y, z=z, kx=kx, ky=ky, kz=kz,
-                  ic=np.zeros(batch), jc=np.zeros(batch), kc=kc,
+                  ic=ic, jc=jc, kc=kc,
                   xfreq=xfreq, wgt=rng.uniform(0.5, 1.0, batch),
                   tau_target=tau_target, tau_run=tau_run)
-    birth = dict(bx=rng.uniform(meta.xmin, meta.xmax, batch),
-                 by=rng.uniform(meta.ymin, meta.ymax, batch),
-                 bz=rng.uniform(meta.zmin, meta.zmax, batch),
-                 bxfreq=rng.normal(0.0, 3.0, batch))
+    bx, by, bz = _positions(rng, meta, batch, r_max)
+    birth = dict(bx=bx, by=by, bz=bz, bxfreq=rng.normal(0.0, 3.0, batch))
     bcost = rng.uniform(-1.0, 1.0, batch)
     bphi = rng.uniform(0.0, 2.0 * np.pi, batch)
     bsint = np.sqrt(1.0 - bcost * bcost)
     birth.update(bkx=bsint * np.cos(bphi), bky=bsint * np.sin(bphi),
                  bkz=bcost)
-    birth.update(bic=np.zeros(batch), bjc=np.zeros(batch),
-                 bkc=np.clip(np.floor((birth['bz'] - meta.zmin) / meta.dz),
-                             0, meta.nz - 1))
-    for k in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'kc', 'xfreq'):
+    birth.update(zip(('bic', 'bjc', 'bkc'), cells_of(meta, bx, by, bz)))
+    for k in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'ic', 'jc', 'kc', 'xfreq'):
         birth['b' + k] = np.where(is_ffs, fields[k], birth['b' + k])
     fields.update(birth)
     out = {f: torch.as_tensor(np.asarray(fields[f], np.int32 if f in
@@ -142,3 +200,40 @@ def compare_states(a: BatchState, b: BatchState, rtol: float = 1e-5,
             d = (getattr(a, f) - getattr(b, f)).abs()[good]
             err = max(err, float(d.max()))
     return float(bad.float().mean()), err
+
+
+# --- the Dijkstra sphere acceptance test (tools/acceptance.py:41-106)
+CHI2_DOF_MAX = 3.0
+XPEAK_RTOL = 0.12
+SYS_COEF = 0.8      # finite-(a tau0) model-error floor, in peak units
+
+
+def dijkstra_J(x, atau0):
+    """Dijkstra+2006 eq. A7 central-source uniform-sphere spectrum."""
+    c = np.sqrt(2.0 * np.pi ** 3 / 27.0)
+    return x ** 2 / (1.0 + np.cosh(np.clip(c * np.abs(x) ** 3 / atau0,
+                                           0, 700)))
+
+
+def _trapezoid(y, x):
+    dx = np.diff(x)
+    return float(np.sum(0.5 * (y[1:] + y[:-1]) * dx))
+
+
+def shape_chi2(x, J_model, J_analytic, n_eff, atau0=None):
+    """chi2/dof of the unit-area-normalized model vs analytic shape, with
+    the MC sigma under the analytic hypothesis and, when atau0 is given,
+    the SYS_COEF floor in quadrature.  Returns (chi2, chi2_raw, ndof, pm,
+    pa) with chi2_raw the MC-noise-only statistic."""
+    pa = J_analytic / _trapezoid(J_analytic, x)
+    norm = _trapezoid(J_model, x)
+    pm = J_model / norm if norm > 0 else J_model
+    dx = x[1] - x[0]
+    sel = pa > pa.max() * 3e-3
+    frac = np.maximum(pa * dx, 1e-12)           # expected prob. per bin
+    sig_mc = np.sqrt(frac / n_eff) / dx         # sigma of pm (density units)
+    chi2_raw = float(np.sum(((pm[sel] - pa[sel]) / sig_mc[sel]) ** 2))
+    sig_sys = SYS_COEF * atau0 ** (-1.0 / 3.0) * pa.max() if atau0 else 0.0
+    sigma = np.sqrt(sig_mc ** 2 + sig_sys ** 2)
+    chi2 = float(np.sum(((pm[sel] - pa[sel]) / sigma[sel]) ** 2))
+    return chi2, chi2_raw, int(sel.sum()), pm, pa

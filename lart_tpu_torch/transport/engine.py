@@ -3,20 +3,26 @@
 Counterpart of make_chunk / cycle (lart_tpu/transport/engine.py:2992,
 :3054).  The JAX chunk is one jitted fori_loop; here the host loops over
 the cycles and launches one kernel per step (K2 every refill_every-th
-cycle, then K3 and K4), all on the current stream.  Nothing inside the
-loop reads a value back, so the host runs ahead of the device; the only
-synchronisation is the caller's read of (tallies, alive, launched) once
-per chunk.
+cycle, then the flight and K4), all on the current stream.  Nothing inside
+the loop reads a value back, so the host runs ahead of the device; the
+only synchronisation is the caller's read of (tallies, alive, launched)
+once per chunk.
 
-Only the Neufeld-slab path is ported: uniform_slab_fastpath must hold and
-`check_supported` names whatever else a config asks for.
+The flight follows lart_tpu's make_fly (engine.py:1057-1066):
+force_generic_kernel takes the generic Cartesian walk K5; otherwise the
+uniform slab takes K3, the uniform sphere K6, and every other Cartesian
+grid K5.  `check_supported` names whatever a config asks for that is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
-from .fly_slab import SlabParams, fly
+from .fly_cartesian import CartesianFlight
+from .fly_slab import SlabParams
+from .fly_sphere import SphereFlight
 from .refill import RefillParams, refill
 from .scatter import ScatterParams, scatter
 from .state import DEAD, BatchState, zero_tallies
@@ -40,15 +46,37 @@ def uniform_slab_fastpath(cfg, meta) -> bool:
             and not par.save_all_photons)
 
 
+def uniform_sphere_fastpath(cfg, meta) -> bool:
+    """True when the medium is one constant-opacity static sphere in vacuum
+    (build_cartesian's detection; engine.py:854-868)."""
+    par = cfg.par
+    return (meta.grid_type == 'cartesian'
+            and meta.static_medium and meta.uniform_temperature
+            and meta.sphere_R > 0.0 and meta.sphere_rho > 0.0
+            and meta.bc_x == 'escape' and meta.bc_y == 'escape'
+            and meta.bc_z == 'escape'
+            and not meta.atmosphere and meta.omega_shear == 0.0
+            and cfg.line.line_type != 8
+            and par.h2_model.strip().lower() in ('', 'none')
+            and not (par.calcJ or par.calcPnew)
+            and not par.save_all_photons)
+
+
+def _grid_file(path: str) -> bool:
+    """A 3-D FITS/HDF5 grid file (1-D .txt/.dat profiles are ported)."""
+    path = path.strip()
+    return bool(path) and path.rsplit('.', 1)[-1].lower() not in ('txt',
+                                                                  'dat')
+
+
 def check_supported(cfg, meta=None) -> None:
     """Raise NotImplementedError naming every requested feature that
     lart_tpu_torch does not port yet."""
     par = cfg.par
+    geom = par.geometry.strip().lower()
     missing = [name for name, on in (
         ('use_amr_grid (AMR backend)', par.use_amr_grid),
         ('use_clump_medium (clump backend)', par.use_clump_medium),
-        ('force_generic_kernel (generic DDA flight)',
-         par.force_generic_kernel),
         (f'line_type {cfg.line.line_type} (only 1)', cfg.line.line_type != 1),
         ('dust (DGR > 0)', par.DGR > 0.0),
         ('h2_model', par.h2_model.strip().lower() not in ('', 'none')),
@@ -59,7 +87,15 @@ def check_supported(cfg, meta=None) -> None:
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
-        ('core_skip', par.core_skip), ('recoil', par.recoil),
+        ('recoil', par.recoil),
+        ('non-uniform temperature (temp_file)',
+         bool((par.temp_file or par.temperature_file).strip())),
+        ('3-D density file', _grid_file(par.dens_file or par.density_file)),
+        ('3-D velocity file', _grid_file(par.velo_file or par.velocity_file)),
+        (f'geometry {geom!r} (atmospheres)',
+         geom in ('plane_atmosphere', 'spherical_atmosphere')),
+        ('shearing box (Omega with xy_periodic)',
+         par.Omega != 0.0 and par.xy_periodic),
         ('out_merge', par.out_merge),
         ('save_input_grid', par.save_input_grid),
         ('save_sightline_tau', par.save_sightline_tau),
@@ -70,13 +106,26 @@ def check_supported(cfg, meta=None) -> None:
         ('spectral_type other than voigt/monochromatic',
          par.spectral_type.strip().lower() not in ('voigt',
                                                    'monochromatic'))) if on]
-    if meta is not None and not missing and \
-            not uniform_slab_fastpath(cfg, meta):
-        missing.append('a medium other than the uniform static xy-periodic '
-                       'slab (generic DDA / sphere flights)')
+    if meta is not None:
+        missing += [name for name, on in (
+            ('non-Cartesian grid', meta.grid_type != 'cartesian'),
+            ('non-uniform temperature', not meta.uniform_temperature),
+            ('dust', meta.has_dust), ('atmosphere', bool(meta.atmosphere)),
+            ('shearing box', meta.omega_shear != 0.0)) if on]
     if missing:
         raise NotImplementedError('lart_tpu_torch does not port yet: '
                                   + '; '.join(missing))
+
+
+def make_fly(cfg, meta, grid) -> Callable:
+    """The flight of lart_tpu's make_fly (engine.py:1057-1066), as a
+    callable flight(state, tallies, max_steps)."""
+    if not cfg.par.force_generic_kernel:
+        if uniform_slab_fastpath(cfg, meta):
+            return SlabParams.from_config(cfg, meta)
+        if uniform_sphere_fastpath(cfg, meta):
+            return SphereFlight.from_config(cfg, meta, grid)
+    return CartesianFlight.from_config(cfg, meta, grid)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,7 +136,7 @@ class Chunk:
     the Philox counter of the refill and scatter draws, so a run is
     reproducible from (seed, cycle index) whatever the device."""
     refill_params: RefillParams
-    slab_params: SlabParams
+    flight: Callable     # SlabParams, SphereFlight or CartesianFlight
     scatter_params: ScatterParams
     n_cycles: int
     refill_every: int
@@ -102,18 +151,19 @@ class Chunk:
             i = cycle0 + j
             if j % self.refill_every == 0:
                 refill(state, tallies, self.refill_params, seed, i, budget)
-            fly(state, tallies, self.slab_params, self.fly_substeps)
+            self.flight(state, tallies, self.fly_substeps)
             scatter(state, tallies, self.scatter_params, seed, i)
         alive = (state.phase != DEAD).sum()
         return tallies, alive, state.n_launched[0]
 
 
-def make_chunk(cfg, meta) -> Chunk:
+def make_chunk(cfg, meta, grid) -> Chunk:
     check_supported(cfg, meta)
     par = cfg.par
-    return Chunk(refill_params=RefillParams.from_config(cfg, meta),
-                 slab_params=SlabParams.from_config(cfg, meta),
-                 scatter_params=ScatterParams.from_config(cfg, meta),
+    return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid),
+                 flight=make_fly(cfg, meta, grid),
+                 scatter_params=ScatterParams.from_config(
+                     cfg, meta, grid, uniform_sphere_fastpath(cfg, meta)),
                  n_cycles=par.chunk_cycles,
                  refill_every=max(1, par.refill_every),
                  fly_substeps=par.fly_substeps, nxfreq=meta.nxfreq,

@@ -1,0 +1,196 @@
+"""What the flights share: the escape tally of the plain versions, and the
+constants of the two 3-D Cartesian flights (kernels K5 fly_cartesian and
+K6 fly_uniform_sphere) with their C layout.
+
+`FlightConsts` carries every constant of lart_tpu's make_fly (engine.py:
+1067-1140) and make_fly_uniform_sphere (:887-908) that this slice needs,
+plus the grid tensors the walk gathers from.  Numbers stay Python floats,
+so every operation of a plain version rounds them to f32 where JAX's weak
+types do; the kernels receive the same values as f32 through
+`FlightParams`, whose layout csrc/lart.cuh struct FlightParams repeats.
+
+XLA fuses a multiply that feeds an add into one fused multiply-add on the
+CPU.  Where that rounding reaches a lane's fate (a cell face, a position
+advanced along the ray: a one-ulp shift next to a face becomes a relative
+error of the distance to it, and of the optical depth in thick media) the
+flights compute with `fma` in their plain versions and fmaf in the kernels,
+so both match lart_tpu lane by lane; everywhere else they round each
+operation, and the kernels are built with --fmad=false to do the same.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+BIG = 3.0e38
+TINY = 1e-30
+FFS_TAU_CAP = 25.0    # 1 - exp(-25) == 1 in f32
+BC_CODES = {'escape': 0, 'periodic': 1, 'reflect': 2}
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class FlightParams(ctypes.Structure):
+    """csrc/lart.cuh struct FlightParams, field for field."""
+    _fields_ = [('rhokap', _P), ('vfx', _P), ('vfy', _P), ('vfz', _P),
+                ('Jout', _P), ('Jmu', _P), ('W_oor', _P),
+                ('n', _I * 3), ('bc', _I * 3), ('cell0', _I * 3),
+                ('walk', _I * 3), ('moving', _I), ('nxfreq', _I),
+                ('save_jmu', _I), ('nmu', _I), ('mu_abs', _I),
+                ('amin', _F * 3), ('amax', _F * 3), ('neg_amin', _F * 3),
+                ('d', _F * 3), ('a_ref', _F), ('Dfreq', _F),
+                ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
+                ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
+                ('sphere_rhoD', _F)]
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once, as the kernels' fmaf computes it and as
+    XLA contracts a multiply feeding an add on the CPU (lart_tpu's flights
+    compute cell faces and positions so).  The product of two f32 is exact
+    in f64; Python-float operands are rounded to f32 first, like JAX's weak
+    types."""
+    def d(v):
+        return v.double() if isinstance(v, torch.Tensor) \
+            else float(np.float32(v))
+    return (a.double() * d(b) + d(c)).float()
+
+
+def div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """a / b with b rounded to f32, correctly rounded as the kernels divide.
+    On CUDA, torch multiplies by the f32 reciprocal of a Python-scalar
+    divisor, which moves a bin edge or a cell index by one ulp now and then;
+    a 0-d tensor on a's device is divided by exactly (torch.full runs on the
+    device: no copy, no wait)."""
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def floor_bin(v: torch.Tensor, n: int) -> torch.Tensor:
+    """clip(floor(v), 0, n - 1) as int64 (clamped in float first)."""
+    return torch.clamp(torch.floor(v), 0, n - 1).long()
+
+
+def tally_plain(tallies, p, mask, xfreq_lab, wgt, kz) -> torch.Tensor:
+    """Add wgt to Jout (and Jmu) at lab frequency xfreq_lab for the masked
+    lanes whose bin is on the frequency grid; return the masked weight that
+    falls outside it (W_oor).  `p` has the bin fields xfreq_min, dxfreq,
+    nxfreq, save_Jmu, nmu, mu_min, dmu and mu_abs."""
+    fx = torch.floor(div(xfreq_lab - p.xfreq_min, p.dxfreq))
+    in_rng = (fx >= 0.0) & (fx < p.nxfreq)
+    zero = torch.zeros_like(wgt)
+    w = torch.where(mask & in_rng, wgt, zero)
+    ix = floor_bin(fx, p.nxfreq)
+    tallies.Jout.index_add_(0, ix, w)
+    if p.save_Jmu:
+        mu = torch.abs(kz) if p.mu_abs else kz
+        tallies.Jmu.index_add_(
+            0, ix * p.nmu + floor_bin(div(mu - p.mu_min, p.dmu), p.nmu), w)
+    return torch.where(mask & ~in_rng, wgt, zero)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class FlightConsts:
+    n: tuple                 # (nx, ny, nz)
+    bc: tuple                # per axis: 'escape' | 'periodic' | 'reflect'
+    cell0: tuple             # (i0, j0, k0)
+    walk: tuple              # the axis' faces are walked (engine.py:1179)
+    amin: tuple
+    amax: tuple
+    d: tuple
+    a_ref: float
+    Dfreq: float
+    xfreq_min: float
+    dxfreq: float
+    nxfreq: int
+    save_Jmu: bool
+    nmu: int
+    mu_min: float
+    dmu: float
+    mu_abs: bool             # xyz_symmetry bins |kz|
+    sphere_R2: float
+    sphere_rho: float
+    sphere_rhoD: float
+    rhokap: torch.Tensor     # flat (nx*ny*nz,) f32, C order
+    vel: Optional[tuple]     # flat (vfx, vfy, vfz); None in a static medium
+
+    @classmethod
+    def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
+        par = cfg.par
+        n = (meta.nx, meta.ny, meta.nz)
+        bc = (meta.bc_x, meta.bc_y, meta.bc_z)
+        amin = (meta.xmin, meta.ymin, meta.zmin)
+        d = (meta.dx, meta.dy, meta.dz)
+        mu_min = 0.0 if par.xyz_symmetry else -1.0
+        vel = None
+        if not meta.static_medium:
+            vel = tuple(v.reshape(-1).contiguous()
+                        for v in (grid.vfx, grid.vfy, grid.vfz))
+        return cls(
+            n=n, bc=bc, cell0=(meta.i0, meta.j0, meta.k0),
+            walk=(meta.nx > 1 or meta.bc_x == 'escape',
+                  meta.ny > 1 or meta.bc_y == 'escape', True),
+            amin=amin, amax=tuple(a + m * s for a, m, s in zip(amin, n, d)),
+            d=d, a_ref=meta.voigt_a_ref, Dfreq=meta.Dfreq_ref,
+            xfreq_min=meta.xfreq_min, dxfreq=meta.dxfreq,
+            nxfreq=meta.nxfreq, save_Jmu=bool(par.save_Jmu), nmu=par.nmu,
+            mu_min=mu_min, dmu=(1.0 - mu_min) / par.nmu,
+            mu_abs=bool(par.xyz_symmetry),
+            sphere_R2=meta.sphere_R * meta.sphere_R,
+            sphere_rho=meta.sphere_rho, sphere_rhoD=meta.sphere_rhoD,
+            rhokap=grid.rhokap.reshape(-1).contiguous(), vel=vel)
+
+    @property
+    def moving(self) -> bool:
+        return self.vel is not None
+
+    def flat(self, i, j, k) -> torch.Tensor:
+        """engine._gather's flat index, clamped like jnp.take mode='clip'."""
+        nx, ny, nz = self.n
+        f = (i.long() * ny + j) * nz + k
+        return torch.clamp(f, 0, nx * ny * nz - 1)
+
+    def vel_dot(self, cell, kx, ky, kz) -> torch.Tensor:
+        """u . k of the cells `cell` = (i, j, k) (engine.cell_velocity_dot)."""
+        f = self.flat(*cell)
+        vx, vy, vz = self.vel
+        return vx[f] * kx + vy[f] * ky + vz[f] * kz
+
+    @functools.cached_property
+    def _c_params(self) -> FlightParams:
+        c = FlightParams()
+        c.rhokap = self.rhokap.data_ptr()
+        if self.moving:
+            c.vfx, c.vfy, c.vfz = (v.data_ptr() for v in self.vel)
+        c.n[:] = self.n
+        c.bc[:] = [BC_CODES[b] for b in self.bc]
+        c.cell0[:] = self.cell0
+        c.walk[:] = [int(w) for w in self.walk]
+        c.moving = int(self.moving)
+        c.nxfreq, c.save_jmu, c.nmu = self.nxfreq, int(self.save_Jmu), self.nmu
+        c.mu_abs = int(self.mu_abs)
+        c.amin[:] = self.amin
+        c.amax[:] = self.amax
+        c.neg_amin[:] = [-a for a in self.amin]
+        c.d[:] = self.d
+        for f in ('a_ref', 'Dfreq', 'xfreq_min', 'dxfreq', 'mu_min', 'dmu',
+                  'sphere_R2', 'sphere_rho', 'sphere_rhoD'):
+            setattr(c, f, getattr(self, f))
+        return c
+
+    def c_params(self, tallies) -> FlightParams:
+        """The C struct with this call's tally pointers (the launch copies
+        it, so the next call may overwrite them)."""
+        c = self._c_params
+        c.Jout = tallies.Jout.data_ptr()
+        c.Jmu = tallies.Jmu.data_ptr()
+        c.W_oor = tallies.W_oor.data_ptr()
+        return c
+
+    def device_tensors(self):
+        return (self.rhokap,) + (self.vel or ())

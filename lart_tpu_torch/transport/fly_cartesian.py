@@ -1,0 +1,170 @@
+"""Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
+
+Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
+for a uniform-temperature grid without dust, H2, line type 8, atmospheres,
+the shearing box, CALCJ/Pnew or all-photons records.  Each step takes one
+lane across one cell: the opacity of its cell is rhokap * H(x, a_ref); the
+lane reaches its tau target (AT_SCATTER) or crosses the nearest face (axis
+tie-break x, y, z), where the boundary op of that axis applies (escape,
+periodic wrap, or reflect about the symmetry plane with the odd-n half
+cell).  In a moving medium a cell change shifts the comoving frequency,
+x' = (x + u1) D1/D2 - u2; an escape is binned at the lab frequency of the
+cell being left, a completed forced first scattering at the birth cell's
+lab frequency along the birth direction.  At most max_steps crossings a
+call (the while_loop's n < max_steps); a lane that completes its FFS
+restarts from birth within the same budget.  No random numbers are drawn.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from ..kernels import build as kbuild
+from ..physics.voigt import voigt_plain
+from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, div, fma,
+                     tally_plain)
+from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
+
+
+def _face_dist(pos, k, idx, amin, d):
+    """Distance to the exit face along one axis (engine.py:1075-1079)."""
+    flat = torch.abs(k) < 1e-12
+    face = fma(torch.where(k > 0.0, idx + 1, idx).to(torch.float32), d, amin)
+    t = (face - pos) / torch.where(flat, torch.ones_like(k), k)
+    return torch.where(flat, torch.full_like(k, BIG), torch.clamp_min(t, 0.0))
+
+
+def _cross_axis(p: FlightConsts, a: int, idx, pos, k):
+    """Boundary op after stepping idx by sign(k) (engine.py:1081-1104):
+    (idx, pos, k, escaped)."""
+    n = p.n[a]
+    nidx = idx + torch.where(k > 0.0, 1, -1).to(idx.dtype)
+    lo, hi = nidx < 0, nidx >= n
+    bc = p.bc[a]
+    if bc == 'escape':
+        return nidx, pos, k, lo | hi
+    if bc == 'periodic':
+        return (torch.where(lo, n - 1, torch.where(hi, 0, nidx)),
+                torch.where(lo, p.amax[a], torch.where(hi, p.amin[a], pos)),
+                k, torch.zeros_like(lo))
+    if bc == 'reflect':
+        return (torch.where(lo, p.cell0[a] - 1, nidx),
+                torch.where(lo, -p.amin[a], pos), torch.where(lo, -k, k), hi)
+    raise ValueError(bc)
+
+
+def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
+              max_steps: int) -> None:
+    """Plain PyTorch walk of every FLYING/FFS lane, in place."""
+    s = state
+    oor = torch.zeros_like(s.wgt)
+    for _ in range(max_steps):
+        is_ffs = s.phase == FFS
+        moving = (s.phase == FLYING) | is_ffs
+        if not bool(moving.any()):
+            break       # the remaining iterations would change nothing
+        pos, dirs = (s.x, s.y, s.z), (s.kx, s.ky, s.kz)
+        cell = (s.ic, s.jc, s.kc)
+        rho = p.rhokap[p.flat(*cell)] * voigt_plain(s.xfreq, p.a_ref)
+        t = [_face_dist(pos[a], dirs[a], cell[a], p.amin[a], p.d[a])
+             if p.walk[a] else torch.full_like(s.x, BIG) for a in range(3)]
+        dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
+        axis = torch.where(dmin == t[0], 0, torch.where(dmin == t[1], 1, 2))
+        tgt = torch.where(is_ffs, torch.full_like(s.tau_target, FFS_TAU_CAP),
+                          s.tau_target)
+        dtau = dmin * rho
+        hit = s.tau_run + dtau >= tgt
+        d_adv = torch.where(hit, (tgt - s.tau_run) / torch.clamp_min(rho, TINY),
+                            dmin)
+        npos = [fma(d_adv, dirs[a], pos[a]) for a in range(3)]
+        tau_n = torch.where(hit, tgt, s.tau_run + dtau)
+
+        crossed = moving & ~hit
+        escaped = torch.zeros_like(hit)
+        ncell, ndir = list(cell), list(dirs)
+        for a in range(3):
+            c2, p2, k2, esc = _cross_axis(p, a, cell[a], npos[a], dirs[a])
+            ca = crossed & (axis == a)
+            ncell[a] = torch.where(ca, c2, cell[a])
+            npos[a] = torch.where(ca, p2, npos[a])
+            ndir[a] = torch.where(ca, k2, dirs[a])
+            escaped = escaped | (ca & esc)
+
+        # comoving frequency update on a cell change (engine.py:1276-1295)
+        changed = crossed & ~escaped
+        if p.moving:
+            u1 = p.vel_dot(cell, *dirs)
+            u2 = p.vel_dot(ncell, *ndir)
+            xfreq_new = torch.where(
+                changed, div((s.xfreq + u1) * p.Dfreq, p.Dfreq) - u2,
+                s.xfreq)
+            u_b = p.vel_dot((s.bic, s.bjc, s.bkc), s.bkx, s.bky, s.bkz)
+        else:
+            u1 = u_b = torch.zeros_like(s.xfreq)
+            xfreq_new = s.xfreq
+
+        # escape at the lab frequency of the cell being left
+        esc_fly = escaped & (s.phase == FLYING)
+        oor = oor + tally_plain(tallies, p, esc_fly, s.xfreq + u1, s.wgt, s.kz)
+        # forced first scattering done: the escaped fraction at the birth
+        # lab frequency, restart from birth with wgt *= 1 - exp(-tau0)
+        ffs_done = (escaped & is_ffs) | (hit & is_ffs)
+        tau0 = tau_n
+        wgt_esc = s.wgt * torch.exp(-tau0)
+        oor = oor + tally_plain(tallies, p, ffs_done, s.bxfreq + u_b,
+                                wgt_esc, s.bkz)
+        wgt1 = -torch.expm1(-tau0)
+        ffs_vacuum = ffs_done & (tau0 <= 0.0)
+        phase_new = torch.where(
+            esc_fly | ffs_vacuum, DEAD,
+            torch.where(ffs_done, FLYING,
+                        torch.where(hit & ~is_ffs, AT_SCATTER, s.phase))
+        ).to(torch.int32)
+
+        def put(name, new, birth):
+            cur = getattr(s, name)
+            cur.copy_(torch.where(ffs_done, birth,
+                                  torch.where(moving, new, cur)))
+
+        new_target = torch.where(
+            ffs_done, -torch.log1p(-torch.clamp_max(s.tau_target, 0.99999)
+                                   * wgt1), s.tau_target)
+        s.phase.copy_(torch.where(moving, phase_new, s.phase))
+        for name, new in zip(('x', 'y', 'z', 'ic', 'jc', 'kc', 'kx', 'ky',
+                              'kz', 'xfreq'),
+                             (*npos, *ncell, *ndir, xfreq_new)):
+            put(name, new, getattr(s, 'b' + name))
+        s.wgt.copy_(torch.where(ffs_done, s.wgt * wgt1, s.wgt))
+        s.tau_run.copy_(torch.where(
+            ffs_done, torch.zeros_like(tau_n),
+            torch.where(moving, tau_n, s.tau_run)))
+        s.tau_target.copy_(new_target)
+    tallies.W_oor += oor.sum()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CartesianFlight(FlightConsts):
+    """The walk's constants and grid; calling it flies a batch (K5)."""
+
+    def __call__(self, state: BatchState, tallies: Tallies,
+                 max_steps: int) -> None:
+        fly(state, tallies, self, max_steps)
+
+
+def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
+        max_steps: int) -> None:
+    """Walk every FLYING/FFS lane, in place: kernel K5 for a CUDA state,
+    the plain version for a CPU state."""
+    if state.device.type == 'cpu':
+        fly_plain(state, tallies, p, max_steps)
+        return
+    kbuild.require_cuda('fly_cartesian', tallies.Jout, tallies.Jmu,
+                        tallies.W_oor, state.x, *p.device_tensors())
+    kbuild.check(kbuild.library().lart_fly_cartesian(
+        state.lane_pointers, state.batch, max_steps,
+        ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),
+        'fly_cartesian')
+    kbuild.LAUNCHES['fly_cartesian'] += 1

@@ -20,11 +20,8 @@ import torch
 
 from ..kernels import build as kbuild
 from ..physics.voigt import voigt_plain
+from .flight import BIG, FFS_TAU_CAP, TINY, div, floor_bin, tally_plain
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
-
-BIG = 3.0e38
-TINY = 1e-30
-FFS_TAU_CAP = 25.0    # 1 - exp(-25) == 1 in f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,33 +59,15 @@ class SlabParams:
                    dmu=(1.0 - mu_min) / par.nmu,
                    mu_abs=bool(par.xyz_symmetry))
 
-
-def _floor_bin(v: torch.Tensor, n: int) -> torch.Tensor:
-    """clip(floor(v), 0, n - 1) as int64 (clamped in float first)."""
-    return torch.clamp(torch.floor(v), 0, n - 1).long()
+    def __call__(self, state: BatchState, tallies: Tallies,
+                 max_steps: int) -> None:
+        fly(state, tallies, self, max_steps)
 
 
 def fly_plain(state: BatchState, tallies: Tallies, p: SlabParams,
               max_steps: int) -> None:
     """Plain PyTorch flight of every FLYING/FFS lane, in place."""
     s = state
-
-    def mu_bin(kz):
-        mu = torch.abs(kz) if p.mu_abs else kz
-        return _floor_bin((mu - p.mu_min) / p.dmu, p.nmu)
-
-    def tally(mask, ix_f, wgt, kz):
-        """Add wgt at bin ix_f of the masked lanes; return out-of-range
-        weight."""
-        in_rng = (ix_f >= 0.0) & (ix_f < p.nxfreq)
-        rec = mask & in_rng
-        w = torch.where(rec, wgt, torch.zeros_like(wgt))
-        ix = _floor_bin(ix_f, p.nxfreq)
-        tallies.Jout.index_add_(0, ix, w)
-        if p.save_Jmu:
-            tallies.Jmu.index_add_(0, ix * p.nmu + mu_bin(kz), w)
-        return torch.where(mask & ~in_rng, wgt, torch.zeros_like(wgt))
-
     oor = torch.zeros_like(s.wgt)
     for _ in range(max_steps + 2):
         is_ffs = s.phase == FFS
@@ -111,20 +90,19 @@ def fly_plain(state: BatchState, tallies: Tallies, p: SlabParams,
         x_new = p.xmn + torch.remainder(s.x + d_adv * s.kx - p.xmn, p.Lx)
         y_new = p.ymn + torch.remainder(s.y + d_adv * s.ky - p.ymn, p.Ly)
         z_new = s.z + d_adv * s.kz
-        kcn = _floor_bin((z_new - p.zmn) / p.dz, p.nz).to(torch.int32)
+        kcn = floor_bin(div(z_new - p.zmn, p.dz), p.nz).to(torch.int32)
         tau_n = torch.where(hit, tgt, s.tau_run + dtau_exit)
         escaped = moving & ~hit
         esc_fly = escaped & (s.phase == FLYING)
         ffs_done = moving & is_ffs
 
         # escape at the (lab == comoving) frequency
-        oor = oor + tally(esc_fly, torch.floor((s.xfreq - p.xfreq_min)
-                                               / p.dxfreq), s.wgt, s.kz)
+        oor = oor + tally_plain(tallies, p, esc_fly, s.xfreq, s.wgt, s.kz)
         # forced first scattering done: escaped fraction at birth frequency
         tau0 = tau_n
         wgt_esc = s.wgt * torch.exp(-tau0)
-        oor = oor + tally(ffs_done, torch.floor((s.bxfreq - p.xfreq_min)
-                                                / p.dxfreq), wgt_esc, s.bkz)
+        oor = oor + tally_plain(tallies, p, ffs_done, s.bxfreq, wgt_esc,
+                                s.bkz)
         wgt1 = -torch.expm1(-tau0)
         ffs_vacuum = ffs_done & (tau0 <= 0.0)
         phase_new = torch.where(

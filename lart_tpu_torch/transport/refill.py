@@ -2,10 +2,13 @@
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
 :2689) for a point source (source_geometry 'point' or '') with a Voigt or
-monochromatic input spectrum in a uniform-temperature static medium.  A
-launched lane gets the source position, an isotropic direction, its birth
-frequency (Jin tally), the forced-first-scattering phase FFS with its xi
-stashed in tau_target, and the birth snapshot.
+monochromatic input spectrum in a uniform-temperature medium, static or
+moving.  A launched lane gets the source position, an isotropic direction,
+its birth frequency, the forced-first-scattering phase FFS with its xi
+stashed in tau_target, and the birth snapshot.  In a moving medium the
+drawn frequency is a lab-frame one: unless comoving_source, the lane's
+comoving frequency is xfreq - u1 with u1 = v(source cell) . k
+(engine.py:2836-2841); Jin is tallied at the lab frequency xfreq + u1.
 
 `refill_plain` ranks dead lanes by a cumsum, as the JAX version does;
 kernel K2 (csrc/refill.cu) hands out tickets by warp instead, so when the
@@ -24,6 +27,7 @@ import torch
 from ..kernels import build as kbuild
 from ..physics.rng import STREAM_REFILL, uniforms
 from ..physics.samplers import TWOPI, rand_voigt_x
+from .flight import div
 from .state import DEAD, FFS, BatchState, Tallies
 
 
@@ -41,10 +45,13 @@ class RefillParams:
     xfreq_min: float
     dxfreq: float
     nxfreq: int
+    v_src: tuple = (0.0, 0.0, 0.0)   # the source cell's velocity (f32)
+    comoving_source: bool = True
 
     @classmethod
-    def from_config(cls, cfg, meta) -> 'RefillParams':
-        """Constants of a config that engine.check_supported accepted."""
+    def from_config(cls, cfg, meta, grid=None) -> 'RefillParams':
+        """Constants of a config that engine.check_supported accepted; the
+        source cell's velocity comes from `grid` in a moving medium."""
         par = cfg.par
         f32 = np.float32
         pos = [f32(par.xs_point), f32(par.ys_point), f32(par.zs_point)]
@@ -55,12 +62,17 @@ class RefillParams:
             # f32 cell index with the edge clamp, as the JAX refill computes it
             c = np.floor((p - f32(amin)) / f32(d))
             cells.append(int(min(max(c, 0), n - 1)))
+        v_src = (0.0, 0.0, 0.0)
+        if not meta.static_medium:
+            v_src = tuple(float(v[tuple(cells)])
+                          for v in (grid.vfx, grid.vfy, grid.vfz))
         return cls(xs=float(pos[0]), ys=float(pos[1]), zs=float(pos[2]),
                    ic=cells[0], jc=cells[1], kc=cells[2],
                    xfreq0=float(par.xfreq0),
                    voigt=par.spectral_type.strip().lower() == 'voigt',
                    a=float(meta.voigt_a_ref), xfreq_min=meta.xfreq_min,
-                   dxfreq=meta.dxfreq, nxfreq=meta.nxfreq)
+                   dxfreq=meta.dxfreq, nxfreq=meta.nxfreq, v_src=v_src,
+                   comoving_source=bool(par.comoving_source))
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -84,7 +96,11 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
         a = torch.full((B,), p.a, dtype=torch.float32, device=dev)
         xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0])
 
-    fx = torch.floor((xfreq - p.xfreq_min) / p.dxfreq)
+    # lab-frame source -> comoving frequency; Jin at the lab frequency
+    u1 = p.v_src[0] * kx + p.v_src[1] * ky + p.v_src[2] * kz
+    if not p.comoving_source:
+        xfreq = xfreq - u1
+    fx = torch.floor(div(xfreq + u1 - p.xfreq_min, p.dxfreq))
     inj = launch & (fx >= 0.0) & (fx < p.nxfreq)
     tallies.Jin.index_add_(0, torch.clamp(fx, 0, p.nxfreq - 1).long(),
                            inj.to(torch.float32))
@@ -125,6 +141,7 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         state.lane_pointers, state.batch, state.n_launched.data_ptr(),
         int(budget), seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
         p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, int(p.voigt), p.a,
-        p.xfreq_min, p.dxfreq, p.nxfreq, tallies.Jin.data_ptr(),
+        *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,
+        tallies.Jin.data_ptr(),
         kbuild.stream_of(state.x)), 'refill_point')
     kbuild.LAUNCHES['refill_point'] += 1

@@ -1,42 +1,101 @@
 """Resonant Ly-alpha scattering (kernel K4).
 
 Counterpart of make_scatter / scatter (lart_tpu/transport/engine.py:1838,
-:2087) for line_type 1 without dust, H2, Stokes, core-skip, recoil or
-peel-off (the config defaults, lart_tpu/config.py:105-106): the
+:2087) for line_type 1 without dust, H2, Stokes, recoil or peel-off: the
 redistribute branch of :1947-1953, rand_resonance_cost, phi = 2 pi xi, the
-perpendicular atom velocity, xfreq_new (:2205), rotate_direction (:1854)
-and the next optical depth.  scatter_rounds rejection rounds of the u_par
-sampler run per call; a lane still rejected stays AT_SCATTER and retries
-next cycle.  Uniforms come from Philox stream STREAM_SCATTER at counter
-(lane, counter, block): block r feeds round r, block `rounds` the angles,
-block rounds + 1 the next tau.
+perpendicular atom velocity with the core-skip boost (:2197-2205),
+xfreq_new, rotate_direction (:1854) and the next optical depth.
+
+Core-skip (local_xcrit, :1872-1905): a lane with |x| < xcrit draws its
+perpendicular speed as sqrt(xcrit^2 - log xi).  core_skip_global takes the
+grid's xcrit; the local one is cbrt(a rk dl) / 5 where a rk dl > 1, dl the
+distance to the nearest face of the lane's cell and rk the cell's rhokap,
+or the constant sphere_rho on the uniform-sphere fast path (the scatter
+point may sit in a voxel just outside the voxelized ball).
+
+scatter_rounds rejection rounds of the u_par sampler run per call; a lane
+still rejected stays AT_SCATTER and retries next cycle.  Uniforms come
+from Philox stream STREAM_SCATTER at counter (lane, counter, block): block
+r feeds round r, block `rounds` the angles, block rounds + 1 the next tau.
+Core-skip draws nothing new.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..kernels import build as kbuild
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
+from .flight import div
 from .state import AT_SCATTER, FLYING, BatchState, Tallies
 
 TINY = 1e-30
+CORE_SKIP_OFF, CORE_SKIP_LOCAL, CORE_SKIP_GLOBAL = 0, 1, 2
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class ScatterParams:
     a: float          # Voigt damping parameter (uniform temperature)
     E1: float         # dipole weight of the line's phase function
     rounds: int       # rejection rounds per call
+    core_skip: int = CORE_SKIP_OFF
+    xcrit: float = 0.0         # core_skip_global's threshold and its square
+    xcrit2: float = 0.0
+    rk_const: float = -1.0     # local: sphere_rho on the sphere fast path
+    rhokap: Optional[torch.Tensor] = None   # local: flat grid, else
+    n: tuple = (1, 1, 1)
+    amin: tuple = (0.0, 0.0, 0.0)
+    d: tuple = (1.0, 1.0, 1.0)
 
     @classmethod
-    def from_config(cls, cfg, meta) -> 'ScatterParams':
-        """Constants of a config that engine.check_supported accepted."""
+    def from_config(cls, cfg, meta, grid=None,
+                    uniform_sphere=False) -> 'ScatterParams':
+        """Constants of a config that engine.check_supported accepted;
+        `uniform_sphere` is engine.uniform_sphere_fastpath(cfg, meta)."""
+        par = cfg.par
+        mode = CORE_SKIP_OFF
+        if par.core_skip:
+            mode = CORE_SKIP_GLOBAL if par.core_skip_global \
+                else CORE_SKIP_LOCAL
+        local = mode == CORE_SKIP_LOCAL
         return cls(a=float(meta.voigt_a_ref), E1=float(cfg.line.E1),
-                   rounds=int(cfg.par.scatter_rounds))
+                   rounds=int(par.scatter_rounds), core_skip=mode,
+                   xcrit=float(meta.xcrit), xcrit2=float(meta.xcrit2),
+                   rk_const=float(meta.sphere_rho) if uniform_sphere
+                   else -1.0,
+                   rhokap=grid.rhokap.reshape(-1).contiguous()
+                   if local and not uniform_sphere else None,
+                   n=(meta.nx, meta.ny, meta.nz),
+                   amin=(meta.xmin, meta.ymin, meta.zmin),
+                   d=(meta.dx, meta.dy, meta.dz))
+
+
+def local_xcrit(s: BatchState, p: ScatterParams):
+    """(xcrit, xcrit^2) of every lane (engine.py:1872-1905)."""
+    if p.core_skip == CORE_SKIP_GLOBAL:
+        return (torch.full_like(s.x, p.xcrit),
+                torch.full_like(s.x, p.xcrit2))
+    dl = None
+    for pos, c, amin, d in zip((s.x, s.y, s.z), (s.ic, s.jc, s.kc), p.amin,
+                               p.d):
+        f = amin + c.to(torch.float32) * d
+        dla = torch.minimum(pos - f, f + d - pos)
+        dl = dla if dl is None else torch.minimum(dl, dla)
+    if p.rk_const > 0.0:
+        rk = torch.full_like(s.x, p.rk_const)
+    else:
+        nx, ny, nz = p.n
+        flat = (s.ic.long() * ny + s.jc) * nz + s.kc
+        rk = p.rhokap[torch.clamp(flat, 0, nx * ny * nz - 1)]
+    atau = p.a * rk * torch.clamp_min(dl, 0.0)
+    # torch has no cbrt: the f64 cube root rounded to f32
+    cbrt = torch.pow(atau.double(), 1.0 / 3.0).float()
+    xc = torch.where(atau > 1.0, div(cbrt, 5.0), torch.zeros_like(atau))
+    return xc, xc * xc
 
 
 def rotate_direction(kx, ky, kz, cost, sint, cosp, sinp):
@@ -74,7 +133,11 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     do_res = at_sc & acc
     cosp, sinp = torch.cos(phi), torch.sin(phi)
     phi2 = samplers.TWOPI * xi[2]
-    uxy = torch.sqrt(0.0 - torch.log(xi[3]))
+    boost = torch.zeros_like(s.xfreq)
+    if p.core_skip != CORE_SKIP_OFF:
+        xcrit, xcrit2 = local_xcrit(s, p)
+        boost = torch.where(torch.abs(s.xfreq) < xcrit, xcrit2, boost)
+    uxy = torch.sqrt(boost - torch.log(xi[3]))
     ux, uy = uxy * torch.cos(phi2), uxy * torch.sin(phi2)
     xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint
     kx_n, ky_n, kz_n = rotate_direction(s.kx, s.ky, s.kz, cost, sint,
@@ -101,11 +164,14 @@ def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
     if state.device.type == 'cpu':
         scatter_plain(state, tallies, p, seed, counter)
         return
+    grid = () if p.rhokap is None else (p.rhokap,)
     kbuild.require_cuda('scatter_lya', tallies.nscatt_gas,
-                        tallies.nscatt_events, state.x)
+                        tallies.nscatt_events, state.x, *grid)
     kbuild.check(kbuild.library().lart_scatter_lya(
         state.lane_pointers, state.batch, seed & 0xFFFFFFFF,
-        counter & 0xFFFFFFFF, p.rounds, p.a, p.E1,
-        tallies.nscatt_gas.data_ptr(), tallies.nscatt_events.data_ptr(),
-        kbuild.stream_of(state.x)), 'scatter_lya')
+        counter & 0xFFFFFFFF, p.rounds, p.a, p.E1, p.core_skip, p.xcrit,
+        p.xcrit2, p.rk_const, grid[0].data_ptr() if grid else None, *p.n,
+        *p.amin, *p.d, tallies.nscatt_gas.data_ptr(),
+        tallies.nscatt_events.data_ptr(), kbuild.stream_of(state.x)),
+        'scatter_lya')
     kbuild.LAUNCHES['scatter_lya'] += 1

@@ -7,13 +7,18 @@ lart_tpu_torch itself never imports jax.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
+import numpy as np
+import torch
 
 from lart_tpu.grid import cartesian as jcart
 from lart_tpu.transport import engine
+from lart_tpu_torch import convert, testing
 from lart_tpu_torch.convert import TALLY_FIELDS
 from lart_tpu_torch.grid.cartesian import GridDevice, GridMeta
-from lart_tpu_torch.transport.state import LANE_FIELDS, BatchState, Tallies
+from lart_tpu_torch.transport.state import (LANE_FIELDS, BatchState, Tallies,
+                                            zero_tallies)
 
 
 def grid_to_jax(meta: GridMeta, grid: GridDevice):
@@ -42,3 +47,63 @@ def tallies_to_jax(tallies: Tallies):
     return base._replace(**{
         k: jnp.asarray(getattr(tallies, k).cpu().numpy())
         for k in TALLY_FIELDS if k != 'Jmu' or nmu > 0})
+
+
+def fly_both(jax_fly, jgrid, port_fly, nxfreq, s0, max_steps, nmu=8):
+    """One call of lart_tpu's flight closure `jax_fly` (jitted here) and of
+    the port's `port_fly(state, tallies, max_steps)` from the same state
+    s0.  Returns (port state, port tallies, lart_tpu state, lart_tpu
+    tallies), all in the port's types; s0 is left as it was."""
+    js, jt = jax.jit(jax_fly, static_argnums=3)(
+        state_to_jax(s0), jgrid, engine.zero_tallies(nxfreq, nmu=nmu),
+        max_steps)
+    st = testing.clone_state(s0)
+    tl = zero_tallies(nxfreq, nmu, 'cpu')
+    port_fly(st, tl, max_steps)
+    return st, tl, convert.state_from_jax(js), convert.tallies_from_jax(jt)
+
+
+def assert_tallies_close(tl: Tallies, ref: Tallies, rel=1e-5):
+    """Jout, Jmu and W_oor to `rel` of their sum (f32 sums in another
+    order)."""
+    for f in ('Jout', 'Jmu', 'W_oor'):
+        a, b = getattr(tl, f), getattr(ref, f)
+        atol = rel * max(float(b.abs().sum()), 1.0)
+        torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f)
+
+
+def run_jax_chunks(par, seed, max_chunks=2000):
+    """lart_tpu's make_chunk from an empty batch until every photon of
+    par.nphotons has launched and died: (Jout, Jmu, <N_scatt>) in f64."""
+    cfg = par.resolve()
+    meta, grid = jcart.build_cartesian(cfg)
+    chunk = jax.jit(engine.make_chunk(cfg, meta))
+    state = jax.tree.map(jnp.asarray, engine.init_state(par.batch_size))
+    state = state._replace(n_launched=jnp.zeros((1,), jnp.int32))
+    n_shard = jnp.asarray([[par.nphotons, 0]], jnp.int32)
+    key0 = jax.random.PRNGKey(seed)
+    J = np.zeros(meta.nxfreq)
+    Jmu = np.zeros(meta.nxfreq * par.nmu)
+    ns = 0.0
+    for i in range(max_chunks):
+        state, tl, alive, launched = chunk(
+            state, grid, jax.random.fold_in(key0, i), n_shard, None, None)
+        J += np.asarray(tl.Jout, np.float64)
+        Jmu += np.asarray(tl.Jmu, np.float64)
+        ns += float(tl.nscatt_gas)
+        if int(alive) == 0 and int(launched) >= par.nphotons:
+            return J, Jmu, ns / par.nphotons
+    raise AssertionError(f'lart_tpu batch did not drain in {max_chunks} '
+                         f'chunks')
+
+
+def run_port_cpu(par, seed):
+    """lart_tpu_torch.driver.run on the CPU in one thread (B = 4096 gains
+    nothing from more): the RunResult."""
+    from lart_tpu_torch import driver
+    nthreads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return driver.run(par, device='cpu', seed=seed)
+    finally:
+        torch.set_num_threads(nthreads)

@@ -103,3 +103,73 @@ def test_state_and_tallies_round_trip():
     assert tb0.Jmu.shape == (0,) and tb0.Jout.shape == (meta.nxfreq,)
     assert bridge.tallies_to_jax(tb0).Jmu is None
     assert isinstance(jt.Jout, jnp.ndarray)
+
+
+def _example(rel, n=17, **over):
+    """examples/<rel> cut to an n^3 grid (build_cartesian holds every
+    cell in float64)."""
+    from pathlib import Path
+    par = Params.from_namelist(
+        str(Path(__file__).resolve().parents[1] / 'examples' / rel))
+    par.nx = par.ny = par.nz = n
+    for k, v in over.items():
+        setattr(par, k, v)
+    return par.resolve()
+
+
+SLICE = {'t4tau7': 'sphere/t4tau7.in',
+         'vel_effect_V0200': 'vel_effect/t4NHI2_20_V0200.in'}
+
+
+@pytest.mark.parametrize('case', sorted(SLICE))
+def test_grid_from_jax_carries_velocity_and_sphere(case):
+    """grid_from_jax hands the port lart_tpu's velocity field and the
+    uniform-sphere fields of GridMeta, equal to what the port builds."""
+    cfg = _example(SLICE[case])
+    jmeta, jgrid = jcart.build_cartesian(cfg)
+    tmeta, tgrid = convert.grid_from_jax(jmeta, jgrid)
+    bmeta, bgrid = tcart.build_cartesian(cfg)
+    assert tmeta == bmeta
+    _arrays_equal(tgrid, jgrid)
+    _arrays_equal(bgrid, jgrid)
+    if case == 't4tau7':
+        assert tmeta.static_medium and tgrid.vfx is None
+        assert (tmeta.sphere_R, tmeta.sphere_rho) == (jmeta.sphere_R,
+                                                      jmeta.sphere_rho)
+        assert tmeta.sphere_R == 1.0 and tmeta.sphere_rho > 0.0
+        assert tmeta.xcrit > 0.0
+    else:
+        assert not tmeta.static_medium and tmeta.sphere_R < 0.0
+        assert (tmeta.bc_x, tmeta.bc_y, tmeta.bc_z) == ('reflect',) * 3
+        for f in ('vfx', 'vfy', 'vfz'):
+            v = getattr(tgrid, f)
+            assert v.dtype == torch.float32 and v.shape == (17, 17, 17)
+            assert float(v.abs().max()) > 1.0
+
+
+@pytest.mark.parametrize('case', sorted(SLICE))
+def test_normalize_matches_jax(case):
+    """The port's tally.normalize against lart_tpu's on one raw tally: the
+    sphere's 4 pi R^2 and the box's 8 (xy + yz + zx) denominators."""
+    from lart_tpu import tally as jtally
+    from lart_tpu_torch import tally as ttally
+    cfg = _example(SLICE[case], save_Jmu=True)
+    jmeta, _ = jcart.build_cartesian(cfg)
+    tmeta, _ = tcart.build_cartesian(cfg)
+    rng = np.random.default_rng(2)
+    nx, nmu = jmeta.nxfreq, cfg.par.nmu
+    raw = dict(Jin=rng.random(nx), Jout=rng.random(nx),
+               Jmu=rng.random(nx * nmu), nscatt_gas=1234.5,
+               nscatt_dust=0.0, nscatt_events=1000.0, W_oor=0.25)
+    nph = 777
+    j = jtally.normalize(cfg, jmeta, dict(raw), nph)
+    t = ttally.normalize(cfg, tmeta, dict(raw), nph)
+    for f in ('xfreq', 'velocity', 'wavelength', 'Jin', 'Jout', 'Jmu'):
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f),
+                                      err_msg=f)
+    for f in ('nscatt_gas', 'nscatt_dust', 'nscatt_tot', 'nscatt_events',
+              'W_oor', 'W_escape', 'W_absorb'):
+        assert getattr(t, f) == getattr(j, f), f
+    # which denominator the case takes
+    sphere = cfg.par.geometry.strip().lower() == 'sphere'
+    assert sphere == (case == 't4tau7')

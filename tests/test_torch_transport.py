@@ -10,6 +10,8 @@ they are held to exact counts and invariants and, for the sampled values,
 to two-sample Kolmogorov-Smirnov tests (p > 1e-3) and accepted fractions
 within 0.01."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,9 +36,9 @@ P_MIN = 1e-3
 
 def _setup(**kw):
     cfg = testing.slab_params(**kw).resolve()
-    meta, _ = build_cartesian(cfg)
+    meta, grid = build_cartesian(cfg)
     jmeta, jgrid = jcart.build_cartesian(cfg)
-    return cfg, meta, jmeta, jgrid
+    return cfg, meta, jmeta, jgrid, grid
 
 
 def _jax_tallies(meta, nmu=8):
@@ -44,7 +46,7 @@ def _jax_tallies(meta, nmu=8):
 
 
 def test_fly_matches_jax_lane_by_lane():
-    cfg, meta, jmeta, jgrid = _setup(tau0=1e4)
+    cfg, meta, jmeta, jgrid, grid = _setup(tau0=1e4)
     B = 20_000
     s0 = testing.mixed_state(meta, B, seed=5)
     jfly = jax.jit(jeng.make_fly_uniform_slab(cfg, jmeta),
@@ -56,8 +58,9 @@ def test_fly_matches_jax_lane_by_lane():
 
     st = testing.clone_state(s0)
     tl = zero_tallies(meta.nxfreq, 8, 'cpu')
-    ch = teng.make_chunk(cfg, meta)
-    fly_slab.fly(st, tl, ch.slab_params, ch.fly_substeps)
+    ch = teng.make_chunk(cfg, meta, grid)
+    assert isinstance(ch.flight, fly_slab.SlabParams)
+    fly_slab.fly(st, tl, ch.flight, ch.fly_substeps)
 
     # The two H(x, a) agree to rtol 2e-5 (test_torch_voigt), so a flight
     # length does too, and x and y, which wrap with a floor-mod after a
@@ -88,8 +91,8 @@ def test_fly_matches_jax_lane_by_lane():
 
 
 def test_refill_launch_count_and_lanes():
-    cfg, meta, _, _ = _setup()
-    ch = teng.make_chunk(cfg, meta)
+    cfg, meta, _, _, grid = _setup()
+    ch = teng.make_chunk(cfg, meta, grid)
     p = ch.refill_params
     s0 = testing.mixed_state(meta, 4000, seed=3)
     n_dead = int((s0.phase == DEAD).sum())
@@ -127,10 +130,10 @@ def test_refill_launch_count_and_lanes():
 
 
 def test_refill_distributions_match_jax():
-    cfg, meta, jmeta, jgrid = _setup()
+    cfg, meta, jmeta, jgrid, grid = _setup()
     B = 100_000
     st = init_state(B, 'cpu')
-    ch = teng.make_chunk(cfg, meta)
+    ch = teng.make_chunk(cfg, meta, grid)
     refill.refill(st, zero_tallies(meta.nxfreq, 8, 'cpu'),
                   ch.refill_params, seed=11, counter=0, budget=10 ** 9)
     jrefill = jax.jit(jeng.make_refill(cfg, jmeta))
@@ -157,7 +160,7 @@ def test_refill_distributions_match_jax():
 
 @pytest.mark.parametrize('x', [0.0, 3.0, 30.0])
 def test_scatter_matches_jax(x):
-    cfg, meta, jmeta, jgrid = _setup()
+    cfg, meta, jmeta, jgrid, grid = _setup()
     B = 200_000
     s0 = testing.mixed_state(meta, B, seed=int(x) + 7)
     rng = np.random.default_rng(int(x))
@@ -169,7 +172,7 @@ def test_scatter_matches_jax(x):
 
     st = testing.clone_state(s0)
     tl = zero_tallies(meta.nxfreq, 8, 'cpu')
-    ch = teng.make_chunk(cfg, meta)
+    ch = teng.make_chunk(cfg, meta, grid)
     scatter.scatter(st, tl, ch.scatter_params, seed=3, counter=9)
 
     jscatter = jax.jit(jeng.make_scatter(cfg, jmeta))
@@ -218,3 +221,221 @@ def test_wrappers_raise_off_the_cpu_and_gpu():
         kb.check(2, 'voigt_h')
     assert isinstance(init_state(8, 'cpu'), BatchState)
 
+
+
+CORE_SKIP = {
+    # the uniform-sphere fast path: rk is the constant sphere_rho
+    'local_sphere': lambda: testing.sphere_params(tau0=1e6, n=17,
+                                                  core_skip=True),
+    'global_sphere': lambda: testing.sphere_params(
+        tau0=1e6, n=17, core_skip=True, core_skip_global=True),
+    # the generic walk in a moving medium: rk is the cell's rhokap gather
+    'local_hubble': lambda: testing.hubble_params(tau0=1e6, n=17,
+                                                  core_skip=True),
+}
+
+
+@pytest.mark.parametrize('case', sorted(CORE_SKIP))
+def test_scatter_core_skip_matches_jax(case):
+    """Core-skip boosts the perpendicular atom speed of in-core lanes
+    (|x| < xcrit); the outgoing frequency and direction of those lanes
+    follow lart_tpu's distributions."""
+    cfg = CORE_SKIP[case]().resolve()
+    meta, grid = build_cartesian(cfg)
+    jmeta, jgrid = jcart.build_cartesian(cfg)
+    ch = teng.make_chunk(cfg, meta, grid)
+    p = ch.scatter_params
+    assert p.core_skip == (scatter.CORE_SKIP_GLOBAL if 'global' in case
+                           else scatter.CORE_SKIP_LOCAL)
+    assert (p.rhokap is not None) == (case == 'local_hubble')
+    B = 200_000
+    s0 = testing.mixed_state(meta, B, seed=17, r_max=1.0)
+    rng = np.random.default_rng(17)
+    at = torch.from_numpy(rng.random(B) < 0.95)
+    s0.phase.copy_(torch.where(at, AT_SCATTER, s0.phase))
+    s0.xfreq.copy_(torch.from_numpy(rng.uniform(-3.0, 3.0, B)
+                                    .astype(np.float32)))
+    at_t = s0.phase == AT_SCATTER
+    xc, _ = scatter.local_xcrit(s0, p)
+    assert bool((xc > 0.0).any())
+    core = at_t & (s0.xfreq.abs() < xc)
+    assert float(core.float().mean()) > 0.05
+
+    st = testing.clone_state(s0)
+    scatter.scatter(st, zero_tallies(meta.nxfreq, 8, 'cpu'), p, seed=3,
+                    counter=9)
+    js, _ = jax.jit(jeng.make_scatter(cfg, jmeta))(
+        bridge.state_to_jax(s0), jgrid, _jax_tallies(meta),
+        jax.random.PRNGKey(5))
+    ref = convert.state_from_jax(js)
+
+    def cos_turn(out):
+        return out.kx * s0.kx + out.ky * s0.ky + out.kz * s0.kz
+
+    acc_t, acc_j = st.phase == FLYING, ref.phase == FLYING
+    for sel, what in ((core, 'in core'), (at_t & ~core, 'out of core')):
+        for name, f in (('xfreq', lambda o: o.xfreq),
+                        ('cos(k, k\')', cos_turn)):
+            a = f(st)[sel & acc_t].numpy()
+            b = f(ref)[sel & acc_j].numpy()
+            pv = ks_2samp(a, b).pvalue
+            assert pv > P_MIN, (case, what, name, pv)
+    # the boost widens the in-core redistribution: the same draws without
+    # core-skip move the in-core lanes less (sqrt(-log xi) against
+    # sqrt(xcrit^2 - log xi)) and leave the other lanes as they are
+    off = testing.clone_state(s0)
+    scatter.scatter(off, zero_tallies(meta.nxfreq, 8, 'cpu'),
+                    dataclasses.replace(p, core_skip=scatter.CORE_SKIP_OFF),
+                    seed=3, counter=9)
+    assert torch.equal(off.phase, st.phase)
+    moved = acc_t & ~core
+    # (to the last ulp: torch's CPU log/sqrt may take their vector or their
+    # scalar path for one element, as the threads split the batch)
+    torch.testing.assert_close(off.xfreq[moved], st.xfreq[moved],
+                               rtol=1e-6, atol=1e-6)
+    dx_on = (st.xfreq - s0.xfreq).abs()[core & acc_t]
+    dx_off = (off.xfreq - s0.xfreq).abs()[core & acc_t]
+    assert float(dx_on.mean()) > 1.05 * float(dx_off.mean())
+
+
+def test_refill_moving_medium_matches_jax():
+    """A point source in a moving medium (comoving_source false): the lane
+    flies at the comoving frequency x - v(source cell).k; Jin counts the
+    lab frequency."""
+    over = dict(xs_point=0.31, ys_point=0.17, zs_point=0.05)
+    cfg = testing.hubble_params(tau0=100.0, n=17, **over).resolve()
+    meta, grid = build_cartesian(cfg)
+    jmeta, jgrid = jcart.build_cartesian(cfg)
+    ch = teng.make_chunk(cfg, meta, grid)
+    v = ch.refill_params.v_src
+    assert all(c > 0.5 for c in v) and not ch.refill_params.comoving_source
+    B = 100_000
+    st, tl = init_state(B, 'cpu'), zero_tallies(meta.nxfreq, 8, 'cpu')
+    refill.refill(st, tl, ch.refill_params, seed=11, counter=0,
+                  budget=10 ** 9)
+    js, jt = jax.jit(jeng.make_refill(cfg, jmeta))(
+        jeng.init_state(B), jgrid, _jax_tallies(meta),
+        jax.random.PRNGKey(4), jnp.asarray([10 ** 9], jnp.int32))
+    assert int(st.n_launched[0]) == int(js.n_launched[0]) == B
+    for f in ('xfreq', 'kz'):
+        pv = ks_2samp(getattr(st, f).numpy(),
+                      np.asarray(getattr(js, f))).pvalue
+        assert pv > P_MIN, (f, pv)
+    a, b = tl.Jin.numpy(), np.asarray(jt.Jin)
+    assert a.sum() == pytest.approx(b.sum(), abs=50)
+    sel = (a + b) > 0
+    assert np.sum((a[sel] - b[sel]) ** 2 / (a[sel] + b[sel])) / sel.sum() < 3
+
+    # the same draws from a comoving source are the unshifted frequencies:
+    # x_moving = x_draw - u1 exactly, u1 = v(source cell) . k in f32
+    cfg_c = testing.hubble_params(tau0=100.0, n=17, comoving_source=True,
+                                  **over).resolve()
+    ch_c = teng.make_chunk(cfg_c, meta, grid)
+    st_c = init_state(B, 'cpu')
+    tl_c = zero_tallies(meta.nxfreq, 8, 'cpu')
+    refill.refill(st_c, tl_c, ch_c.refill_params, 11, 0, 10 ** 9)
+    for f in ('kx', 'ky', 'kz', 'bkx', 'bky', 'bkz'):
+        assert torch.equal(getattr(st, f), getattr(st_c, f)), f
+    u1 = v[0] * st.kx + v[1] * st.ky + v[2] * st.kz
+    assert float(u1.abs().max()) > 1.0
+    assert torch.equal(st.xfreq, st_c.xfreq - u1)
+    assert torch.equal(st.bxfreq, st.xfreq)
+    # Jin at the lab frequency x_moving + u1: the draw to within rounding,
+    # so its histogram is the draws' (up to a lane on a bin edge)
+    torch.testing.assert_close(st.xfreq + u1, st_c.xfreq, rtol=0,
+                               atol=1e-5)
+    ix = torch.floor((st_c.xfreq - meta.xfreq_min) / meta.dxfreq).long()
+    ok = (ix >= 0) & (ix < meta.nxfreq)
+    hist = torch.bincount(ix[ok], minlength=meta.nxfreq).float()
+    assert float((tl.Jin - hist).abs().sum()) <= 1e-4 * B
+
+
+ACCEPTED = {
+    'sphere/t4tau7.in': {},
+    'vel_effect/t4NHI2_20_V0000.in': {},
+    'vel_effect/t4NHI2_20_V0200.in': {},
+    'slab/t1tau6.in': dict(force_generic_kernel=True),
+}
+
+
+@pytest.mark.parametrize('example', sorted(ACCEPTED))
+def test_check_supported_accepts_the_slice(example):
+    """The examples of this slice pass the check at their full size, and
+    build a chunk with the flight of lart_tpu's make_fly dispatch (cut to
+    a 17^3 grid to build here)."""
+    from pathlib import Path
+
+    from lart_tpu.config import Params
+    from lart_tpu_torch.transport.fly_cartesian import CartesianFlight
+    from lart_tpu_torch.transport.fly_sphere import SphereFlight
+    path = Path(__file__).resolve().parents[1] / 'examples' / example
+    par = Params.from_namelist(str(path))
+    for k, v in ACCEPTED[example].items():
+        setattr(par, k, v)
+    teng.check_supported(par.resolve())
+    if par.nx > 1:
+        par.nx = par.ny = par.nz = 17
+    cfg = par.resolve()
+    meta, grid = build_cartesian(cfg)
+    flight = teng.make_chunk(cfg, meta, grid).flight
+    want = {'sphere/t4tau7.in': SphereFlight}.get(example, CartesianFlight)
+    assert type(flight) is want, (example, type(flight))
+
+
+OUT_OF_SLICE = {
+    'dust': dict(DGR=0.01),
+    'recoil': dict(recoil=True),
+    'h2_model': dict(h2_model='lyman_werner'),
+    'line_type': dict(line_id='MgII_2796'),
+    'peel-off observers': dict(save_peeloff=True, nobs=1),
+    'use_stokes': dict(use_stokes=True),
+    'calcJ/calcP/calcPnew': dict(calcJ=True),
+    'non-uniform temperature': dict(temp_file='temp.fits'),
+    'atmospheres': dict(geometry='plane_atmosphere'),
+    'shearing box': dict(xy_periodic=True, Omega=1.0),
+    'source_geometry other than point': dict(source_geometry='uniform'),
+    'spectral_type other than voigt/monochromatic': dict(
+        spectral_type='gaussian'),
+    '3-D density file': dict(dens_file='dens.fits'),
+    '3-D velocity file': dict(velo_file='velo.h5'),
+}
+
+
+@pytest.mark.parametrize('feature', sorted(OUT_OF_SLICE))
+def test_check_supported_raises_out_of_the_slice(feature):
+    par = testing.sphere_params(n=9)
+    for k, v in OUT_OF_SLICE[feature].items():
+        setattr(par, k, v)
+    key = feature.split(' ')[0].split('/')[0]
+    with pytest.raises(NotImplementedError, match=key):
+        teng.check_supported(par.resolve())
+
+
+def test_mixed_state_cells_on_a_3d_grid():
+    """Each lane's cell is the clamped floor of its position on any grid;
+    the old rule (ic = jc = 0) put most lanes of a 3-D grid in a cell that
+    does not hold them, and on the slab, where nx = ny = 1, the two agree."""
+    for par in (testing.hubble_params(n=17), testing.sphere_params(n=17),
+                testing.slab_params()):
+        meta, _ = build_cartesian(par.resolve())
+        for r_max in (None, 1.0):
+            st = testing.mixed_state(meta, 20_000, seed=3, r_max=r_max)
+            for pre in ('', 'b'):
+                pos = [getattr(st, pre + a).double() for a in 'xyz']
+                cells = [getattr(st, pre + c) for c in ('ic', 'jc', 'kc')]
+                for p, c, amin, d, n in zip(
+                        pos, cells, (meta.xmin, meta.ymin, meta.zmin),
+                        (meta.dx, meta.dy, meta.dz),
+                        (meta.nx, meta.ny, meta.nz)):
+                    assert bool(((c >= 0) & (c < n)).all())
+                    lo = amin + c.double() * d
+                    assert bool(((p >= lo - 1e-6) & (p <= lo + d + 1e-6))
+                                .all())
+                if r_max is not None:
+                    r = torch.sqrt(pos[0] ** 2 + pos[1] ** 2 + pos[2] ** 2)
+                    assert float(r.max()) <= r_max + 1e-6
+            old_wrong = (st.ic != 0) | (st.jc != 0)
+            if meta.nx == 1:
+                assert not bool(old_wrong.any())
+            else:
+                assert float(old_wrong.float().mean()) > 0.5
