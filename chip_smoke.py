@@ -2,36 +2,48 @@
 """Smoke test of lart_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, runs the slab, the uniform
 sphere and the expanding Hubble sphere end to end through the driver and
-the CLI, and measures their steady-state rates.
+the CLI, without and with peel-off images (Stokes), and measures their
+steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
 
 Phases (one line each, or more):
   0  card name and power limit (nvidia-smi), torch / CUDA / nvcc versions
-  1  build K1-K6 from lart_tpu_torch/csrc with nvcc (one per source, in
+  1  build K1-K7 from lart_tpu_torch/csrc with nvcc (one per source, in
      parallel)
   2  each kernel and branch against its plain version on the card at
      B = 131072: K1-K4 on the flagship slab; K5 on the 201^3 Hubble grid of
      examples/vel_effect/t4NHI2_20_V0200.in (reflect, moving) and on the
      slab with force_generic_kernel (periodic); K6 on the 129^3 sphere of
      examples/sphere/t4tau7.in; K4 core-skip, local and global, on that
-     sphere, and local on the Hubble grid; K2 in the moving medium
+     sphere, and local on the Hubble grid; K2 in the moving medium; K7
+     (direct and resonance) on the grids of the three peel-off examples as
+     written (slab_peel: the periodic slab walk with Stokes; sphere_peel:
+     the chord, with and without Stokes; vel_effect_peel: the 201^3 walk
+     in the Hubble flow), K4's Stokes branch with its peel record
+     (sphere_peel, slab_peel with core-skip) and K2's birth triad and
+     launch flags
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
-     (Vexp 200 km/s, tau0 = 100)
+     (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
+     tau0 = 100 uniform sphere with Stokes and a 17^3 Hubble sphere without
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
      Dijkstra acceptance case (taumax 1e5, 2e4 photons; shape chi2/dof,
      peak position, W_esc); examples/vel_effect/t4NHI2_20_V0200.in at its
-     201^3 grid cut to N_HI 2e18 and 1e4 photons (W_esc + W_oor)
+     201^3 grid cut to N_HI 2e18 and 1e4 photons (W_esc + W_oor); the
+     peel-off examples as written but for their photons: slab_peel 1e4,
+     sphere_peel 2e4 (flux closure), vel_effect_peel at N_HI 2e18 and 1e4
+     photons (weight, and the _peel3D files)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; 800 chunks),
      then one window of >= 1 s each of t4tau7 as written, vel_effect V0200
-     as written, and the flagship slab through K5 (force_generic_kernel);
-     a torch.profiler breakdown of each; each kernel's device time against
-     its plain version's at the steady-state shapes
+     as written, the flagship slab through K5 (force_generic_kernel), and
+     the three peel-off examples as written; a torch.profiler breakdown of
+     each; each kernel's device time against its plain version's at the
+     steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
 JSON object with the kernels of the main paths, and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
@@ -57,6 +69,11 @@ FLAGSHIP_CHUNKS = 800         # one timed window of 1-2 s at 40-80 us a cycle
 SPREAD_CHUNKS = 80
 WINDOW_S = 1.0                # the shortest timed window of the other cells
 LANE_RTOL, LANE_ATOL, MAX_FRAC = 1e-5, 1e-6, 1e-4
+HBM_BYTES_S = 3.35e12         # H100 SXM device memory, bytes/s
+F32_FLOP_S = 67e12            # H100 SXM f32 outside the tensor cores, flop/s
+PEEL_EXAMPLES = {'slab_peel': 'slab_peel/t1tau4.in',
+                 'sphere_peel': 'sphere_peel/t4tau4_peel.in',
+                 'vel_effect_peel': 'vel_effect_peel/t4NHI2_20_V0200_peel.in'}
 
 
 def log(phase, msg):
@@ -86,18 +103,73 @@ def cuda_time(fn, reps, before=None):
     return total / reps
 
 
-def turns(kernel, plain, reps, before=None):
+def turns(kernel, plain, reps, before=None, plain_reps=None):
     """(kernel ms, plain ms) measured in turns plain, kernel, kernel, plain."""
-    p1 = cuda_time(plain, reps, before)
+    pr = plain_reps or reps
+    p1 = cuda_time(plain, pr, before)
     k1 = cuda_time(kernel, reps, before)
     k2 = cuda_time(kernel, reps, before)
-    p2 = cuda_time(plain, reps, before)
+    p2 = cuda_time(plain, pr, before)
     return 0.5 * (k1 + k2), 0.5 * (p1 + p2)
+
+
+def bound(nbytes, flops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    for the work, the larger of its bytes over the memory rate and its f32
+    operations over the peak rate."""
+    tb, tf = nbytes / HBM_BYTES_S * 1e3, flops / F32_FLOP_S * 1e3
+    return (tb, 'bytes') if tb >= tf else (tf, 'operations')
+
+
+def kernel_work(name, pre, ch, meta, stats=None):
+    """(bytes, flops) that kernel `name` needs on the state `pre`, counted
+    from its source: every lane's phase read once, the fields of the lanes
+    it works on read and written once, each grid cell it gathers read once
+    (a sightline's crossings for the peel, stats from the plain version on
+    the same inputs; at least the lane's own cell for a flight, whose
+    crossings are not reported), its tallies written once and, for the
+    peel, each cube bin it deposits into written once.  The flops are
+    counted per lane (refill, scatter) or per pair and crossing (peel); the
+    flights' are left out, so their bound is their bytes."""
+    from lart_tpu_torch.transport.state import AT_SCATTER, DEAD, FFS, FLYING
+    B, ph = pre.batch, pre.phase
+    peel = ch.peel
+    rec = 17 * 4 if peel is not None else 0      # the peel record's fields
+    cells = meta.nx * meta.ny * meta.nz
+    if name == 'voigt_h':
+        # H(x, a) of every lane's xfreq: 4 bytes in and out, ~40 flops
+        return B * 8, B * 40
+    if name == 'refill_point':
+        k = int((ph == DEAD).sum())
+        return B * 4 + k * (33 * 4 + min(rec, 4)) + ch.nxfreq * 4, k * 60
+    if name == 'scatter_lya':
+        k = int((ph == AT_SCATTER).sum())
+        sp = ch.scatter_params
+        st = 9 if sp.stokes else 0
+        grid = min(cells, k) * 4 if sp.rhokap is not None else 0
+        per_lane = (10 + st + 7 + st) * 4 + rec
+        flops = sp.rounds * (60 + (40 if sp.stokes else 0)) + 120 + 60 * (st > 0)
+        return B * 4 + k * per_lane + grid, k * flops
+    if name == 'peel':
+        g = peel.grid
+        ncubes = 6 if peel.stokes else 2
+        walked = stats.get('crossings', 0) + stats['pairs']
+        grid = 0 if peel.chord else min(cells, walked) * 4 * (
+            4 if g.moving else 1)
+        k = stats['lanes']
+        return (B * 4 + k * (rec + 8 * 4) + grid
+                + min(peel.n_bins, stats['pairs']) * 4 * ncubes,
+                stats.get('crossings', 0) * 60 + stats['pairs'] * 150)
+    k = int(((ph == FLYING) | (ph == FFS)).sum())
+    grid = 0
+    if name == 'fly_cartesian':
+        grid = min(cells, k) * 4 * (4 if ch.flight.moving else 1)
+    return B * 4 + k * (24 + 12) * 4 + grid + ch.nxfreq * 4 * (1 + ch.nmu), 0
 
 
 def example_params(rel, **over):
     """examples/<rel> as Params, with the keys of `over` replaced."""
-    from lart_tpu.config import Params
+    from lart_tpu_torch.config import Params
     par = Params.from_namelist(str(ROOT / 'examples' / rel))
     for k, v in over.items():
         setattr(par, k, v)
@@ -346,7 +418,141 @@ def phase2(dev):
                f'on t4tau7 (xcrit {p.xcrit:.4f} global, rk_const '
                f'{p.rk_const:.4e}): {boosted:.3f} of the lanes in the core, '
                f'lanes differing {frac:.2e}, max abs err {err:.3e}')
+    del grid, ch
+    phase2_peel(dev, res)
     return res
+
+
+def peel_both(ch, meta, seed, mode, dev, r_max=None):
+    """K7 and its plain version on one mixed state with a record that
+    flags every lane; each (observer, lane) pair's optical depth and cube
+    bin are held against each other (a pair differs when its bin differs
+    or its tau misses rtol/atol), then the cubes, without the lanes of
+    differing pairs, to 1e-5 of their sum (atomics add in no fixed order).
+    Returns (pairs differing, pairs depositing, max abs error of the
+    cubes, max |d tau| of the other pairs)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.instruments import peel as tpeel
+    p = ch.peel
+    s = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=r_max)
+    rec = testing.peel_record(s, seed + 1)
+    n = p.nobs * B_MAIN
+
+    def run(kernel):
+        cubes = p.zero_cubes(dev)
+        tau = torch.full((n,), -1.0, device=dev)
+        bins = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        (tpeel.peel if kernel else tpeel.peel_plain)(s, cubes, rec, p, mode,
+                                                     tau, bins)
+        torch.cuda.synchronize()
+        return cubes, tau, bins
+
+    (ck, tk, bk), (cp, tp, bp) = run(True), run(False)
+    bad = (bk != bp) | ~torch.isclose(tk, tp, rtol=LANE_RTOL, atol=LANE_ATOL)
+    n_bad, n_dep = int(bad.sum()), int((bp >= 0).sum())
+    dtau = float((tk - tp).abs()[~bad].max())
+    if n_bad:
+        rec.flag.copy_((~bad.view(p.nobs, B_MAIN).any(0)).to(torch.int32))
+        (ck, _, _), (cp, _, _) = run(True), run(False)
+    err = 0.0
+    for (name, u), (_, v) in zip(ck.items(), cp.items()):
+        d = float((u - v).abs().max())
+        tol = 1e-5 * max(float(v.abs().sum()), 1e-30)
+        assert d <= tol, (name, d, tol)
+        err = max(err, d)
+    assert n_bad <= MAX_FRAC * n and n_dep > 0.05 * n, (n_bad, n_dep, n)
+    return n_bad, n_dep, err, dtau
+
+
+def record_diff(a, b):
+    """(lanes whose peel records differ, max abs error of the others): the
+    flag exactly, the event fields of the flagged lanes to rtol/atol."""
+    from lart_tpu_torch.instruments.peel import PEEL_RECORD_FIELDS
+    on = a.flag != 0
+    bad = a.flag != b.flag
+    for f in PEEL_RECORD_FIELDS[1:]:
+        bad |= on & ~torch.isclose(getattr(a, f), getattr(b, f),
+                                   rtol=LANE_RTOL, atol=LANE_ATOL)
+    good = on & ~bad
+    err = max((float((getattr(a, f) - getattr(b, f)).abs()[good].max())
+               for f in PEEL_RECORD_FIELDS[1:]), default=0.0) \
+        if bool(good.any()) else 0.0
+    return int(bad.sum()), err
+
+
+def phase2_peel(dev, res):
+    """K7 on the grids of the three peel-off examples as written, and K4
+    and K2 with their peel records on each."""
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport.engine import make_chunk
+    modes = (('direct', tpeel.DIRECT), ('resonance', tpeel.RESONANCE))
+    seed = 40
+    for name, over, r_max, what in (
+            ('slab_peel', {}, None, 'periodic slab walk, Stokes'),
+            ('sphere_peel', {}, 1.0, 'sphere chord, Stokes'),
+            ('sphere_peel', {'use_stokes': False}, 1.0,
+             'sphere chord, no Stokes'),
+            ('vel_effect_peel', {}, 1.0,
+             '201^3 walk, Hubble flow, no Stokes')):
+        t0 = time.time()
+        cfg = example_params(PEEL_EXAMPLES[name], batch_size=B_MAIN,
+                             **over).resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        t_grid = time.time() - t0
+        for label, mode in modes:
+            seed += 2
+            t1 = time.time()
+            n_bad, n_dep, err, dtau = peel_both(ch, meta, seed, mode, dev,
+                                                r_max)
+            _max_err(res, 'peel', err)
+            log(2, f'K7 peel {label}, {name} ({what}; {ch.peel.nobs} '
+                   f'observer, {ch.peel.obs_meta.nxim}x'
+                   f'{ch.peel.obs_meta.nyim} x {meta.nxfreq} bins): '
+                   f'{n_dep} of {ch.peel.nobs * B_MAIN} pairs deposit, '
+                   f'pairs differing {n_bad} (max {MAX_FRAC} of them), '
+                   f'max |d tau| {dtau:.3e}, cubes max abs err {err:.3e} '
+                   f'(atol 1e-5 x sum; {time.time() - t1:.1f} s, grid '
+                   f'{t_grid:.1f} s)')
+        if not over:
+            seed = k4_k2_with_record(name, ch, meta, dev, r_max, seed, res)
+        del grid, ch
+
+
+def k4_k2_with_record(name, ch, meta, dev, r_max, seed, res):
+    """K4 (its Stokes branch where the example sets use_stokes) and K2 (the
+    birth triad, the launch flags) against their plain versions, with the
+    peel record each writes."""
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport import refill, scatter
+    for kname in ('scatter_lya', 'refill_point'):
+        recs = {}
+
+        def step(s, t, kernel):
+            recs[kernel] = tpeel.PeelRecord.zeros(B_MAIN, dev)
+            if kname == 'scatter_lya':
+                (scatter.scatter if kernel else scatter.scatter_plain)(
+                    s, t, ch.scatter_params, 7, 99, recs[kernel])
+            else:
+                (refill.refill if kernel else refill.refill_plain)(
+                    s, t, ch.refill_params, 7, 12345, 10 ** 9, recs[kernel])
+        tal = (('nscatt_gas', 'nscatt_events') if kname == 'scatter_lya'
+               else ('Jin',))
+        seed += 1
+        _, _, frac, err, tdiff = both(meta, seed, step, tal, dev,
+                                      r_max=r_max)
+        n_rec, rerr = record_diff(recs[True], recs[False])
+        assert n_rec <= MAX_FRAC * B_MAIN, n_rec
+        _max_err(res, kname, max(err, rerr))
+        sp = ch.scatter_params
+        what = (f'Stokes {sp.stokes}, core-skip {sp.core_skip}'
+                if kname == 'scatter_lya' else 'birth triad, launch flags')
+        log(2, f'{kname} with the peel record on the {name} grid ({what}): '
+               f'lanes differing {frac:.2e}, max abs err {err:.3e}; record '
+               f'lanes differing {n_rec}, {int(recs[True].flag.sum())} '
+               f'flagged, max abs err {rerr:.3e}; tallies max |d| {tdiff}')
+    return seed
 
 
 def _in_core_fraction(s0, p):
@@ -381,7 +587,31 @@ def spectra_run(label, par, dev):
            f'{rc.nscatt_gas:.2f} ({tc:.1f} s), chi2/dof {chi2:.2f}, Jmu max '
            f'|d| {dmu:.4f}, W_esc + W_oor {rg.W_escape + rg.W_oor:.6f} / '
            f'{rc.W_escape + rc.W_oor:.6f}; launches {counts}')
+    if rg.peel is not None:
+        peel_agree(label, rg, rc, par.nphotons)
     return counts
+
+
+def peel_agree(label, rg, rc, nphotons):
+    """The peel cubes of a cuda and a cpu run agree statistically: each
+    observer's peeled flux within 3 sigma of the other's (sigma from
+    testing.PEEL_V_PHOTON), the normalized peel spectra's chi2/dof < 3
+    and, with Stokes, the ring profile of Q/I chi2/dof < 3."""
+    from lart_tpu_torch import testing
+    tol = 3.0 * np.sqrt(2.0 * testing.PEEL_V_PHOTON / nphotons)
+    cg, cc = testing.peel_closure(rg), testing.peel_closure(rc)
+    out = []
+    for o, (a, b) in enumerate(zip(cg, cc)):
+        chi2, nb = testing.peel_spectra_chi2(rg, rc, o, nphotons)
+        pol = testing.ring_polarization_chi2(rg, rc, o) \
+            if 'Q' in rg.peel else float('nan')
+        assert abs(a - b) <= tol and chi2 < 3.0 and not pol >= 3.0, (
+            o, a, b, tol, chi2, pol)
+        out.append(f'observer {o}: 4 pi d^2 flux / W_esc cuda {a:.4f} cpu '
+                   f'{b:.4f} (|d| <= {tol:.4f}), spectrum chi2/dof '
+                   f'{chi2:.2f} over {nb} bins, ring Q/I chi2/dof {pol:.2f}')
+    log(3, f'{label} peel: ' + '; '.join(out))
+    return cg
 
 
 def phase3(dev):
@@ -399,6 +629,20 @@ def phase3(dev):
                         tau0=100.0, n=33, nphotons=10_000, batch=4096), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
                                   'scatter_lya')), c
+    # peel-off to two observers (+z and oblique), 17 x 17 images
+    c = spectra_run('sphere 17^3 tau0=100 1e4 photons, Stokes peel',
+                    testing.peel_params(testing.sphere_params(
+                        tau0=100.0, n=17, nphotons=10_000, batch=4096),
+                        nim=17), dev)
+    assert all(c.get(k) for k in ('refill_point', 'fly_uniform_sphere',
+                                  'scatter_lya', 'peel')), c
+    c = spectra_run('Hubble sphere 17^3 xyz_symmetry tau0=100 1e4 photons, '
+                    'peel without Stokes', testing.peel_params(
+                        testing.hubble_params(tau0=100.0, n=17,
+                                              nphotons=10_000, batch=4096),
+                        stokes=False, nim=17), dev)
+    assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
+                                  'scatter_lya', 'peel')), c
 
 
 def run_cli(nml, out, device='cuda'):
@@ -434,10 +678,7 @@ def phase4(tauhomo=1e4, device='cuda'):
     total = {}
 
     def add(launches, need):
-        for k in need:
-            assert launches[k] > 0, (k, launches)
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        add_launches(total, launches, need)
 
     with tempfile.TemporaryDirectory() as tmp:
         # the Neufeld slab
@@ -507,7 +748,60 @@ def phase4(tauhomo=1e4, device='cuda'):
                f' + W_oor {res.W_oor:.6f} = {w:.6f}, share of escaped weight '
                f'at x < 0 (red) {red:.4f}, <N_scatt> {res.nscatt_gas:.2f}, '
                f'wall {wall:.1f} s; launches {launches}')
+
+        peel_cli(tmp, device, total)
     return total
+
+
+def add_launches(total, launches, need):
+    """Assert that each kernel in `need` was launched, and add the counts
+    into total."""
+    for k in need:
+        assert launches[k] > 0, (k, launches)
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def peel_cli(tmp, device, total):
+    """The three peel-off examples through the CLI, as written but for
+    their photons: weight, the _peel3D files, the sphere's flux closure."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.io.iofile import open_read
+    from lart_tpu_torch.io.writer import read_spectrum
+    for name, over, fly in (
+            ('slab_peel', dict(no_photons='1e4'), 'fly_uniform_slab'),
+            ('sphere_peel', dict(nphotons='2e4'), 'fly_uniform_sphere'),
+            ('vel_effect_peel', dict(N_HI='2.0e18', no_photons='1e4'),
+             'fly_cartesian')):
+        nml = namelist_variant(PEEL_EXAMPLES[name], tmp, **over)
+        out = Path(tmp) / f'{name}.fits'
+        rc, res, wall, launches = run_cli(nml, out, device)
+        assert rc == 0
+        spec = read_spectrum(str(out))
+        assert float(spec['W_esc']) == res.W_escape
+        w = res.W_escape + res.W_oor
+        assert abs(w - 1.0) < 1e-3, (name, res.W_escape, res.W_oor)
+        stokes = res.cfg.par.use_stokes
+        want = {'Scattered', 'Direct', 'RadialI'} | (
+            {'Stokes_I', 'Stokes_Q', 'Stokes_U', 'Stokes_V',
+             'Stokes_radial'} if stokes else set())
+        with open_read(str(Path(tmp) / f'{name}_peel3D.fits')) as f:
+            assert want <= set(f.keys()), (name, sorted(f.keys()))
+            shape = np.asarray(f['Scattered/data']).shape
+        om = res.obs_meta
+        assert shape == (res.meta.nxfreq, om.nxim, om.nyim), shape
+        closure = testing.peel_closure(res)
+        if name == 'sphere_peel':
+            # a central source in a uniform sphere: isotropic
+            assert abs(closure[0] - 1.0) < 0.05, closure
+        add_launches(total, launches, ('refill_point', fly, 'scatter_lya',
+                                      'peel'))
+        log(4, f'CLI {Path(PEEL_EXAMPLES[name]).name} ({over}, '
+               f'{res.nphotons} photons, Stokes {stokes}, FITS): W_esc '
+               f'{res.W_escape:.6f} + W_oor {res.W_oor:.6f} = {w:.6f}, '
+               f'<N_scatt> {res.nscatt_gas:.2f}, 4 pi d^2 peeled flux / '
+               f'W_esc {closure[0]:.4f}, _peel3D {shape}, wall '
+               f'{wall:.1f} s; launches {launches}')
 
 
 def device_ms(calls):
@@ -560,21 +854,32 @@ def profile_chunks(p, card, label, n_chunks=4):
 
 def kernel_times(p, card, label, res, names, record=(), reps=20):
     """Each kernel of the prepared run's cycle against its plain version,
-    on one cycle's inputs at the steady-state shapes; the times of the
-    kernels named in `record` go into res."""
+    on one cycle's inputs at the steady-state shapes, beside its bound; the
+    numbers of the kernels named in `record` go into res.  With peel-off
+    the refill and the scatter write a peel record as on the main path, and
+    K7 peels the cycle's scattering events (resonance mode)."""
     from lart_tpu_torch import testing
+    from lart_tpu_torch.instruments import peel as tpeel
     from lart_tpu_torch.physics.voigt import voigt, voigt_plain
     from lart_tpu_torch.transport import refill, scatter
     from lart_tpu_torch.transport.state import zero_tallies
     ch, st = p.chunk, p.state
     fmod = sys.modules[type(ch.flight).__module__]
     tl = zero_tallies(p.meta.nxfreq, 0, st.device)
+
+    def new_record():
+        return None if ch.peel is None else tpeel.PeelRecord.zeros(
+            st.batch, st.device)
+    rec, scratch = new_record(), new_record()
     pre_refill = testing.clone_state(st)
-    refill.refill(st, tl, ch.refill_params, p.seed, p.cycle, p.budget)
+    refill.refill(st, tl, ch.refill_params, p.seed, p.cycle, p.budget, rec)
     pre_fly = testing.clone_state(st)
     ch.flight(st, tl, ch.fly_substeps)
     pre_scatter = testing.clone_state(st)
     work = testing.clone_state(st)
+    # the cycle's scattering events, as K7 reads them on the main path
+    post = testing.clone_state(st)
+    scatter.scatter(post, tl, ch.scatter_params, p.seed, p.cycle, rec)
     torch.cuda.synchronize()
     c = p.cycle
     fly_name = {'fly_slab': 'fly_uniform_slab', 'fly_sphere':
@@ -583,17 +888,20 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
     steps = {
         'refill_point': (
             pre_refill,
-            lambda s: refill.refill(s, tl, ch.refill_params, 1, c, p.budget),
+            lambda s: refill.refill(s, tl, ch.refill_params, 1, c, p.budget,
+                                    scratch),
             lambda s: refill.refill_plain(s, tl, ch.refill_params, 1, c,
-                                          p.budget)),
+                                          p.budget, scratch)),
         fly_name: (
             pre_fly,
             lambda s: fmod.fly(s, tl, ch.flight, ch.fly_substeps),
             lambda s: fmod.fly_plain(s, tl, ch.flight, ch.fly_substeps)),
         'scatter_lya': (
             pre_scatter,
-            lambda s: scatter.scatter(s, tl, ch.scatter_params, 1, c),
-            lambda s: scatter.scatter_plain(s, tl, ch.scatter_params, 1, c)),
+            lambda s: scatter.scatter(s, tl, ch.scatter_params, 1, c,
+                                      scratch),
+            lambda s: scatter.scatter_plain(s, tl, ch.scatter_params, 1, c,
+                                            scratch)),
     }
     out = {}
     for k in names:
@@ -602,7 +910,27 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
             a_ref = ch.scatter_params.a
             out[k] = (device_ms([lambda: voigt(xs, a_ref)] * reps),
                       *turns(lambda: voigt(xs, a_ref),
-                             lambda: voigt_plain(xs, a_ref), reps))
+                             lambda: voigt_plain(xs, a_ref), reps),
+                      bound(*kernel_work(k, pre_fly, ch, p.meta)))
+            continue
+        if k == 'peel':
+            # the plain walk takes up to seconds a call: 2 calls a turn
+            cubes = ch.peel.zero_cubes(st.device)
+            stats = {'lanes': int(rec.flag.sum())}
+            tpeel.peel_plain(post, cubes, rec, ch.peel, tpeel.RESONANCE,
+                             stats=stats)
+
+            def kern():
+                tpeel.peel(post, cubes, rec, ch.peel, tpeel.RESONANCE)
+
+            def plain():
+                tpeel.peel_plain(post, cubes, rec, ch.peel, tpeel.RESONANCE)
+            out[k] = (device_ms([kern] * reps),
+                      *turns(kern, plain, reps, plain_reps=2),
+                      bound(*kernel_work(k, post, ch, p.meta, stats)))
+            log(5, f'{label} peel work: {stats["lanes"]} scattered lanes, '
+                   f'{stats["pairs"]} (observer, lane) pairs walked, '
+                   f'{stats.get("crossings", 0)} cell crossings')
             continue
         pre, kern, plain = steps[k]
         copies = [testing.clone_state(pre) for _ in range(reps)]
@@ -611,13 +939,16 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
         call_ms, plain_ms = turns(
             lambda: kern(work), lambda: plain(work), reps,
             lambda: testing.copy_state_(work, pre))
-        out[k] = dev_ms, call_ms, plain_ms
-    for k, (dev_ms, call_ms, plain_ms) in out.items():
+        out[k] = dev_ms, call_ms, plain_ms, bound(*kernel_work(
+            k, pre, ch, p.meta))
+    for k, (dev_ms, call_ms, plain_ms, bnd) in out.items():
         if k in record:
-            res.setdefault(k, {}).update(ms=dev_ms, plain_ms=plain_ms)
+            res.setdefault(k, {}).update(ms=dev_ms, plain_ms=plain_ms,
+                                         bound_ms=bnd[0], bound_by=bnd[1])
         log(5, f'{label} {k} at B={st.batch}: kernel {dev_ms:.6f} ms on the '
                f'device (back to back), {call_ms:.6f} ms a call with its '
-               f'launch; plain {plain_ms:.6f} ms a call [{card}]')
+               f'launch; plain {plain_ms:.6f} ms a call; bound {bnd[0]:.6f} '
+               f'ms ({bnd[1]}) [{card}]')
 
 
 def rate_window(label, par, dev, min_s=WINDOW_S):
@@ -709,6 +1040,24 @@ def phase5(dev, res):
                      record=(fly_name,))
         del p
 
+    # peel-off on: the three examples as written, K7 after K2 and K4
+    peel_cells = (
+        ('slab_peel (t1tau4: T 10 K, tau 1e4, 1x1x145, core-skip, Stokes, '
+         '65x65 image)', 'slab_peel', 'fly_uniform_slab'),
+        ('sphere_peel (t4tau4: tau 1e4, 65^3, Stokes, 65x65 image)',
+         'sphere_peel', 'fly_uniform_sphere'),
+        ('vel_effect_peel (V0200: N_HI 2e20, 201^3, Hubble, 500 x 65x65 '
+         'cube)', 'vel_effect_peel', 'fly_cartesian'))
+    for label, name, fly_name in peel_cells:
+        p, _ = rate_window(label, example_params(PEEL_EXAMPLES[name], **over),
+                           dev)
+        card = smi()
+        profile_chunks(p, card, name)
+        kernel_times(p, card, name, res, ('refill_point', fly_name,
+                                          'scatter_lya', 'peel'),
+                     record=('peel',) if name == 'vel_effect_peel' else ())
+        del p
+
 
 KERNELS = {
     'refill_point': ('lart_tpu_torch/csrc/refill.cu',
@@ -721,6 +1070,8 @@ KERNELS = {
                            'lart_tpu/transport/engine.py:887'),
     'scatter_lya': ('lart_tpu_torch/csrc/scatter_lya.cu',
                     'lart_tpu/transport/engine.py:1838'),
+    'peel': ('lart_tpu_torch/csrc/peel.cu',
+             'lart_tpu/instruments/peel.py:62'),
 }
 INLINES_VOIGT = ('fly_uniform_slab', 'fly_cartesian', 'fly_uniform_sphere')
 
@@ -751,9 +1102,11 @@ def main(argv=None):
             name=k, route='cuda', source=src, replaces=rep,
             launches=launches[k], max_abs_err=res[k]['max_abs_err'],
             ms=res[k]['ms'], plain_ms=res[k]['plain_ms'],
+            bound_ms=res[k]['bound_ms'], bound_by=res[k]['bound_by'],
+            library_ms=None,    # no one PyTorch call computes these
             **({'inlines': 'voigt_h (lart_tpu_torch/csrc/voigt.cuh, '
                            'replaces lart_tpu/physics/voigt.py:23)'}
-               if k in INLINES_VOIGT else {}))
+               if k in INLINES_VOIGT + ('peel',) else {}))
             for k, (src, rep) in KERNELS.items()]}
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)

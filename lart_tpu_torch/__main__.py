@@ -8,10 +8,9 @@ import argparse
 import sys
 import time
 
-from lart_tpu.config import Params
-from lart_tpu.io.iofile import default_extension
-
 from . import driver
+from .config import Params
+from .io.iofile import default_extension
 from .io.writer import write_output
 
 

@@ -16,6 +16,7 @@
 // no grid is read.
 #include "lart.cuh"
 #include "voigt.cuh"
+#include "walk.cuh"
 
 __global__ void fly_sphere_kernel(Lanes s, int B, int max_iter, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -30,18 +31,8 @@ __global__ void fly_sphere_kernel(Lanes s, int B, int max_iter, FlightParams p) 
     for (int n = 0; n < max_iter && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
       const float rho = p.sphere_rho * voigt_h(xfreq, p.a_ref) + p.sphere_rhoD;
-      // sphere_chord: the ray-parameter interval inside r < R, with the
-      // fused multiply-adds XLA computes it with (transport/flight.py)
-      const float b = fmaf(z, kz, fmaf(y, ky, x * kx));
-      const float r2 = fmaf(z, z, fmaf(y, y, x * x));
-      const float det = fmaf(b, b, -(r2 - p.sphere_R2));
-      const float sq = sqrtf(fmaxf(det, 0.0f));
-      float t_out = fmaxf(-b + sq, 0.0f);
-      float t_in = fminf(fmaxf(-b - sq, 0.0f), t_out);
-      if (!(det > 0.0f)) {
-        t_in = 0.0f;
-        t_out = 0.0f;
-      }
+      float t_in, t_out;
+      sphere_chord(p, x, y, z, kx, ky, kz, t_in, t_out);
       const float dtau_avail = (t_out - t_in) * rho;
       const float tgt = is_ffs ? FFS_TAU_CAP : tau_target;
       const bool hit = tau_run + dtau_avail >= tgt;

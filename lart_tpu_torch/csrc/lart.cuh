@@ -47,9 +47,19 @@ struct Lanes {
   float* bkx;
   float* bky;
   float* bkz;
+  // Stokes parameters (I == 1) and the reference triad (m, n) of k
+  float* Q;
+  float* U;
+  float* V;
+  float* mx;
+  float* my;
+  float* mz;
+  float* nnx;
+  float* nny;
+  float* nnz;
 };
 
-#define LART_N_LANE_FIELDS 24
+#define LART_N_LANE_FIELDS 33
 
 inline Lanes unpack_lanes(void* const* p) {
   Lanes s;
@@ -77,7 +87,65 @@ inline Lanes unpack_lanes(void* const* p) {
   s.bkx = (float*)p[21];
   s.bky = (float*)p[22];
   s.bkz = (float*)p[23];
+  s.Q = (float*)p[24];
+  s.U = (float*)p[25];
+  s.V = (float*)p[26];
+  s.mx = (float*)p[27];
+  s.my = (float*)p[28];
+  s.mz = (float*)p[29];
+  s.nnx = (float*)p[30];
+  s.nny = (float*)p[31];
+  s.nnz = (float*)p[32];
   return s;
+}
+
+// The peel record of one cycle, written by K2 (flag: launched by this
+// refill) and by K4 (flag: scattered; the pre-scatter direction, triad and
+// Stokes with this event's atom velocity), read by K7 right after.  The
+// host passes the pointers in the order of PEEL_RECORD_FIELDS in
+// lart_tpu_torch/instruments/peel.py; unpack_record keeps that order.
+struct PeelRecord {
+  int* flag;
+  float* kx;
+  float* ky;
+  float* kz;
+  float* mx;
+  float* my;
+  float* mz;
+  float* nnx;
+  float* nny;
+  float* nnz;
+  float* Q;
+  float* U;
+  float* V;
+  float* xatom;
+  float* ux;
+  float* uy;
+  float* uz;
+};
+
+// A null table (peel-off off) gives a record of null pointers.
+inline PeelRecord unpack_record(void* const* p) {
+  PeelRecord r = {};
+  if (!p) return r;
+  r.flag = (int*)p[0];
+  r.kx = (float*)p[1];
+  r.ky = (float*)p[2];
+  r.kz = (float*)p[3];
+  r.mx = (float*)p[4];
+  r.my = (float*)p[5];
+  r.mz = (float*)p[6];
+  r.nnx = (float*)p[7];
+  r.nny = (float*)p[8];
+  r.nnz = (float*)p[9];
+  r.Q = (float*)p[10];
+  r.U = (float*)p[11];
+  r.V = (float*)p[12];
+  r.xatom = (float*)p[13];
+  r.ux = (float*)p[14];
+  r.uy = (float*)p[15];
+  r.uz = (float*)p[16];
+  return r;
 }
 
 #define FFS_TAU_CAP 25.0f

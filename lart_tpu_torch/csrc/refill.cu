@@ -16,18 +16,23 @@
 // comoving_source, the lane flies at xfreq - u1 with u1 = v(source cell) . k
 // (engine.py:2836-2841), and Jin is tallied at the lab frequency xfreq + u1;
 // the source cell's velocity (vsx, vsy, vsz) is 0 in a static medium.
-// Bound: one pass over the state (about 100 bytes a lane written),
-// memory-bound; the ticket atomics are one per warp.
+// A launched lane is unpolarized (Q = U = V = 0) with the reference triad
+// m = (cos t cos p, cos t sin p, -sin t), n = (-sin p, cos p, 0) of its
+// direction (engine.py:2863-2873).  With peel-off on, the record's flag is
+// written on every lane: 1 where this call launched, else 0; K7 then peels
+// exactly those lanes (engine.py:2909-2913).
+// Bound: one pass over the state (about 130 bytes a launched lane written,
+// 4 a lane read), memory-bound; the ticket atomics are one per warp.
 #include "lart.cuh"
 #include "philox.cuh"
 #include "samplers.cuh"
 
-__global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
-                                    uint32_t seed, uint32_t counter, float xs, float ys,
-                                    float zs, int ic, int jc, int kc, float xfreq0,
-                                    int voigt_spectrum, float a, float vsx, float vsy,
-                                    float vsz, int comoving_source, float xfreq_min,
-                                    float dxfreq, int nxfreq, float* Jin) {
+__global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launched,
+                                    int budget, uint32_t seed, uint32_t counter, float xs,
+                                    float ys, float zs, int ic, int jc, int kc,
+                                    float xfreq0, int voigt_spectrum, float a, float vsx,
+                                    float vsy, float vsz, int comoving_source,
+                                    float xfreq_min, float dxfreq, int nxfreq, float* Jin) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -40,7 +45,9 @@ __global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
     if (base + n > budget) atomicMin(n_launched, budget);
   }
   base = __shfl_sync(full, base, 0);
-  if (!dead || base + __popc(mask & ((1u << lane) - 1u)) >= budget) return;
+  const bool launch = dead && base + __popc(mask & ((1u << lane) - 1u)) < budget;
+  if (rec.flag && i < B) rec.flag[i] = launch ? 1 : 0;
+  if (!launch) return;
 
   float u[4], v[4];
   uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 0u, u);
@@ -50,7 +57,8 @@ __global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
   const float cost = 2.0f * u[0] - 1.0f;
   const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
   const float phi = LART_TWOPI * u[1];
-  const float kx = sint * cosf(phi), ky = sint * sinf(phi), kz = cost;
+  const float cosp = cosf(phi), sinp = sinf(phi);
+  const float kx = sint * cosp, ky = sint * sinp, kz = cost;
 
   float xfreq = xfreq0;
   if (voigt_spectrum) xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0]);
@@ -86,20 +94,32 @@ __global__ void refill_point_kernel(Lanes s, int B, int* n_launched, int budget,
   s.bkx[i] = kx;
   s.bky[i] = ky;
   s.bkz[i] = kz;
+  // unpolarized, with the reference triad of the birth direction
+  s.Q[i] = 0.0f;
+  s.U[i] = 0.0f;
+  s.V[i] = 0.0f;
+  s.mx[i] = cost * cosp;
+  s.my[i] = cost * sinp;
+  s.mz[i] = -sint;
+  s.nnx[i] = -sinp;
+  s.nny[i] = cosp;
+  s.nnz[i] = 0.0f;
 }
 
-LART_API int lart_refill_point(void* const* lanes, int B, void* n_launched, int budget,
-                               unsigned seed, unsigned counter, float xs, float ys,
-                               float zs, int ic, int jc, int kc, float xfreq0,
-                               int voigt_spectrum, float a, float vsx, float vsy,
-                               float vsz, int comoving_source, float xfreq_min,
-                               float dxfreq, int nxfreq, void* Jin, void* stream) {
+// record: the PeelRecord pointer table, or null with peel-off off
+LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
+                               void* n_launched, int budget, unsigned seed,
+                               unsigned counter, float xs, float ys, float zs, int ic,
+                               int jc, int kc, float xfreq0, int voigt_spectrum, float a,
+                               float vsx, float vsy, float vsz, int comoving_source,
+                               float xfreq_min, float dxfreq, int nxfreq, void* Jin,
+                               void* stream) {
   if (B > 0) {
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), B, (int*)n_launched, budget, seed, counter, xs, ys, zs, ic,
-        jc, kc, xfreq0, voigt_spectrum, a, vsx, vsy, vsz, comoving_source, xfreq_min,
-        dxfreq, nxfreq, (float*)Jin);
+        unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
+        counter, xs, ys, zs, ic, jc, kc, xfreq0, voigt_spectrum, a, vsx, vsy, vsz,
+        comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin);
   }
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,71 @@
+// Grid helpers shared by the flights and the peel-off sightlines: the flat
+// gather index, the fluid velocity along a direction, the distance to a
+// cell's exit face, the boundary op of a crossing (K5 fly_cartesian and the
+// K7 peel walk, so both follow one set of conventions), and the chord
+// through the uniform sphere (K6 fly_uniform_sphere and the K7 chord).
+#pragma once
+
+#include "lart.cuh"
+
+// engine._gather: flat C-order index, clamped like jnp.take(mode='clip')
+__device__ inline int flat_index(const FlightParams& p, int i, int j, int k) {
+  const int f = (i * p.n[1] + j) * p.n[2] + k;
+  return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
+}
+
+// u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot)
+__device__ inline float vel_dot(const FlightParams& p, const int c[3], const float k[3]) {
+  const int f = flat_index(p, c[0], c[1], c[2]);
+  return p.vfx[f] * k[0] + p.vfy[f] * k[1] + p.vfz[f] * k[2];
+}
+
+// distance to the exit face along one axis (engine.py:1075-1079)
+__device__ inline float face_dist(float pos, float k, int idx, float amin, float d) {
+  if (fabsf(k) < 1e-12f) return LART_BIG;
+  const float face = fmaf((float)(k > 0.0f ? idx + 1 : idx), d, amin);
+  return fmaxf((face - pos) / k, 0.0f);
+}
+
+// boundary op after stepping cell index idx along axis a (engine.py:
+// 1081-1104); returns whether the lane escaped.  Reflect mirrors the
+// position to -amin, restarts in cell cell0 - 1 and flips k; its upper face
+// escapes.
+__device__ inline bool cross_axis(const FlightParams& p, int a, int& idx, float& pos,
+                                  float& k) {
+  const int nidx = idx + (k > 0.0f ? 1 : -1);
+  const bool lo = nidx < 0, hi = nidx >= p.n[a];
+  if (p.bc[a] == BC_PERIODIC) {
+    idx = lo ? p.n[a] - 1 : (hi ? 0 : nidx);
+    pos = lo ? p.amax[a] : (hi ? p.amin[a] : pos);
+    return false;
+  }
+  if (p.bc[a] == BC_REFLECT) {
+    idx = lo ? p.cell0[a] - 1 : nidx;
+    if (lo) {
+      pos = p.neg_amin[a];
+      k = -k;
+    }
+    return hi;
+  }
+  idx = nidx;
+  return lo || hi;
+}
+
+// sphere_chord (engine.py:871): the ray-parameter interval [t_in, t_out]
+// inside r < R, both 0 when the ray misses; the dot products and the
+// discriminant are the fused multiply-adds XLA computes them with
+// (transport/flight.py)
+__device__ inline void sphere_chord(const FlightParams& p, float x, float y, float z,
+                                    float kx, float ky, float kz, float& t_in,
+                                    float& t_out) {
+  const float b = fmaf(z, kz, fmaf(y, ky, x * kx));
+  const float r2 = fmaf(z, z, fmaf(y, y, x * x));
+  const float det = fmaf(b, b, -(r2 - p.sphere_R2));
+  const float sq = sqrtf(fmaxf(det, 0.0f));
+  t_out = fmaxf(-b + sq, 0.0f);
+  t_in = fminf(fmaxf(-b - sq, 0.0f), t_out);
+  if (!(det > 0.0f)) {
+    t_in = 0.0f;
+    t_out = 0.0f;
+  }
+}

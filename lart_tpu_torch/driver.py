@@ -4,7 +4,10 @@ Counterpart of prepare / run (lart_tpu/driver.py:50-377): resolve the
 config, build the grid, then loop chunks of refill/fly/scatter cycles on
 one device, adding each chunk's f32 tallies into f64 accumulators on the
 host, and normalize.  One host read per chunk: the tallies and the
-loop-control scalars travel back together.
+loop-control scalars travel back together.  The peel-off cubes (up to
+millions of bins) stay on the device: each chunk's f32 cubes are added
+into f64 accumulators there, as lart_tpu adds them on the host
+(driver.py:182-195, :324-335), and the host reads them once at the end.
 
 Tail control as in lart_tpu (driver.py:218-269): once the photon budget is
 launched, chunks grow by the drain factor (boost), and the batch shrinks
@@ -26,8 +29,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from lart_tpu.config import Params
-
+from .config import Params
 from .grid.cartesian import build_cartesian
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
@@ -110,11 +112,19 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
            'nscatt_dust': 0.0, 'nscatt_events': 0.0, 'W_oor': 0.0}
     if par.save_Jmu:
         acc['Jmu'] = np.zeros(meta.nxfreq * par.nmu)
+    peel = p.chunk.peel
+    peel_acc = {} if peel is None else {
+        'peel_' + k: torch.zeros_like(v, dtype=torch.float64)
+        for k, v in peel.zero_cubes(p.device).items()}
 
     t0 = time.time()
     cur_B, boost = B, 1
     for _ in range(max_chunks):
-        h = chunk_to_host(*p.run_chunk(par.chunk_cycles * boost))
+        out = p.run_chunk(par.chunk_cycles * boost)
+        if peel is not None:
+            for k, cube in out[0].peel.items():
+                peel_acc['peel_' + k] += cube
+        h = chunk_to_host(*out)
         for k in ('Jin', 'Jout', 'Jmu', 'nscatt_gas', 'nscatt_events',
                   'W_oor'):
             if k in acc:
@@ -134,5 +144,7 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
                     cur_B = Bt
     else:
         raise RuntimeError(f'batch did not drain in {max_chunks} chunks')
-    return normalize(cfg, meta, acc, nphotons, exetime_s=time.time() - t0)
+    acc.update({k: v.cpu().numpy() for k, v in peel_acc.items()})
+    return normalize(cfg, meta, acc, nphotons, exetime_s=time.time() - t0,
+                     obs_meta=None if peel is None else peel.obs_meta)
 

@@ -18,8 +18,8 @@ import numpy as np
 import torch
 from scipy.special import wofz
 
-from lart_tpu.config import ResolvedConfig
-from lart_tpu.constants import FOURPI, SPEEDC, UM2KM
+from ..config import ResolvedConfig
+from ..constants import FOURPI, SPEEDC, UM2KM
 
 
 def _voigt0(a: np.ndarray) -> np.ndarray:

@@ -1,20 +1,26 @@
 """Main output file with the LaRT section schema (HDF5 or FITS).
 
-Port of write_output / output_filename for the basic, non-peel output
-(lart_tpu/io/writer.py:40-64, :102-287): the Spectrum section with its
-keywords and the Jmu section.  It writes through lart_tpu.io.iofile, so
-the file has LaRT's schema and lart_tpu's readers read it.  FITS needs
-only numpy (lart_tpu/io/minifits.py); HDF5 needs h5py.  Merging into an
-existing output (out_merge) is not ported.
+Port of write_output / output_filename (lart_tpu/io/writer.py:40-64,
+:102-287): the Spectrum section with its keywords and the Jmu section, and
+with peel-off one _peel3D file per observer (Scattered/Direct cubes with
+spectral + TAN WCS keywords, RadialI, Stokes I/Q/U/V cubes and their
+Stokes_radial profiles; write_output_peeling_3D, :288-407) and, with
+save_peeloff_2D, one _peel2D file of frequency-integrated images (:66-99).
+It writes through the port's io/iofile.py, so the files have LaRT's schema
+and lart_tpu's readers read them.  FITS needs only numpy (io/minifits.py);
+HDF5 needs h5py.  Merging into an existing output (out_merge) is not
+ported.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-from lart_tpu.io.iofile import default_extension, open_read, open_write
-
+from ..instruments.profiles import radial_intensity, radial_stokes
 from ..tally import RunResult
+from .iofile import default_extension, open_read, open_write
 
 
 def _put_attrs(g, kv):
@@ -32,6 +38,110 @@ def _put_attrs(g, kv):
 
 
 def write_output(filename: str, res: RunResult) -> str:
+    """Write the main output and, with peel-off, the per-observer
+    _peel3D/_peel2D files beside it (write_output_outside,
+    write_output_rect.f90:24-46)."""
+    out = _write_basic(filename, res)
+    if res.peel is not None:
+        base, ext = os.path.splitext(filename)
+        nobs = res.obs_meta.nobs
+        for k in range(nobs):
+            suffix = '' if nobs == 1 else f'_{k + 1:03d}'
+            if res.cfg.par.save_peeloff_3D:
+                write_output_peeling_3D(f'{base}{suffix}_peel3D{ext}', res,
+                                        k)
+            if res.cfg.par.save_peeloff_2D:
+                write_output_peeling_2D(f'{base}{suffix}_peel2D{ext}', res,
+                                        k)
+    return out
+
+
+def _bin_unit(res: RunResult) -> float:
+    return res.meta.dwave if res.cfg.par.intensity_unit == 1 \
+        else res.meta.dxfreq
+
+
+def _bitpix(par):
+    return np.float32 if par.out_bitpix == -32 else np.float64
+
+
+def write_output_peeling_2D(filename: str, res: RunResult, iobs: int) -> str:
+    """Frequency-integrated peel images of observer iobs
+    (write_output_peeling_2D, write_output_rect.f90:742-1000)."""
+    par = res.cfg.par
+    pairs = [('Scattered', 'scatt'), ('Direct', 'direc')]
+    if 'I' in res.peel:
+        pairs += [(f'Stokes_{nm}', nm) for nm in 'IQUV']
+    hk = {'nphotons': float(res.nphotons), 'I_unit': par.intensity_unit}
+    with open_write(filename, par.file_format) as f:
+        for name, key in pairs:
+            g = f.create_group(name)
+            img = res.peel[key][iobs].sum(axis=0) * _bin_unit(res)
+            g.create_dataset('data', data=np.asarray(img, _bitpix(par)))
+            _put_attrs(g, dict(hk, EXTNAME=name))
+    return filename
+
+
+def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
+    """Spectral image cubes of observer iobs (write_output_peeling_3D,
+    write_output_rect.f90:1003-1352): Scattered/Direct cubes with spectral
+    + TAN WCS keywords, RadialI, and with Stokes the I/Q/U/V cubes and
+    Stokes_radial profiles."""
+    par = res.cfg.par
+    meta = res.meta
+    obs = res.obs_meta
+    bin_unit = _bin_unit(res)
+    bp = _bitpix(par)
+    cubes = {'Scattered': res.peel['scatt'][iobs],
+             'Direct': res.peel['direc'][iobs]}
+    if 'I' in res.peel:
+        for nm in 'IQUV':
+            cubes[f'Stokes_{nm}'] = res.peel[nm][iobs]
+    wcs = {
+        'CTYPE1': 'WAVE', 'CUNIT1': 'Angstrom',
+        'CRPIX1': 1.0, 'CRVAL1': float(res.wavelength[0]),
+        'CD1_1': float(res.wavelength[1] - res.wavelength[0])
+        if len(res.wavelength) > 1 else 0.0,
+        'CTYPE2': 'RA--TAN', 'CUNIT2': 'deg',
+        'CRPIX2': (obs.nxim + 1) / 2.0, 'CRVAL2': 0.0, 'CD2_2': obs.dxim,
+        'CTYPE3': 'DEC-TAN', 'CUNIT3': 'deg',
+        'CRPIX3': (obs.nyim + 1) / 2.0, 'CRVAL3': 0.0, 'CD3_3': obs.dyim,
+        'DISTANCE': obs.distance,
+        'Xfreq1': meta.xfreq_min, 'Xfreq2': meta.xfreq_max,
+        'Dxfreq': meta.dxfreq, 'Dwave': meta.dwave,
+        'I_unit': par.intensity_unit, 'Dfreq': meta.Dfreq_ref,
+        'nphotons': float(res.nphotons),
+    }
+    # observer position -> viewing mu (read_lart's PeelObservation.mu)
+    px, py, pz = (float(v) for v in obs.pos_host[iobs])
+    wcs.update(OBSX=px, OBSY=py, OBSZ=pz)
+    with open_write(filename, par.file_format) as f:
+        for name in ('Scattered', 'Direct'):
+            g = f.create_group(name)
+            g.create_dataset('data', data=np.asarray(cubes[name], bp))
+            _put_attrs(g, dict(wcs, EXTNAME=name))
+        r, rI = radial_intensity(cubes['Scattered'], cubes['Direct'],
+                                 bin_unit)
+        g = f.create_group('RadialI')
+        g.create_dataset('radius', data=r)
+        g.create_dataset('I', data=rI)
+        _put_attrs(g, {'EXTNAME': 'RadialI'})
+        if 'Stokes_I' in cubes:
+            for name in ('I', 'Q', 'U', 'V'):
+                g = f.create_group(f'Stokes_{name}')
+                g.create_dataset('data',
+                                 data=np.asarray(cubes[f'Stokes_{name}'], bp))
+                _put_attrs(g, dict(wcs, EXTNAME=f'Stokes_{name}'))
+            prof = radial_stokes(*(cubes[f'Stokes_{nm}'] for nm in 'IQUV'),
+                                 bin_unit)
+            g = f.create_group('Stokes_radial')
+            for nm, arr in zip(('radius', 'I', 'Q', 'U', 'V', 'pol'), prof):
+                g.create_dataset(nm, data=arr)
+            _put_attrs(g, {'EXTNAME': 'Stokes_radial'})
+    return filename
+
+
+def _write_basic(filename: str, res: RunResult) -> str:
     par = res.cfg.par
     meta = res.meta
     if par.out_merge:

@@ -37,29 +37,32 @@ from ..transport.flight import FlightParams
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
 SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
-           'fly_cartesian.cu', 'fly_sphere.cu')
-HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh')
+           'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu')
+HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
 LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'fly_uniform_slab': 0,
-            'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0}
+            'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0,
+            'peel': 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LANES = ctypes.POINTER(ctypes.c_void_p)    # the lane-field pointer table
-_FLIGHT = ctypes.POINTER(FlightParams)      # K5/K6 constants, by pointer
+_FLIGHT = ctypes.POINTER(FlightParams)      # K5/K6/K7 grid, by pointer
 _ARGTYPES = {
     'lart_voigt_h': [_P, _P, _P, _I, _P],
-    'lart_refill_point': [_LANES, _I, _P, _I, _U, _U, _F, _F, _F, _I, _I, _I, _F,
-                          _I, _F, _F, _F, _F, _I, _F, _F, _I, _P, _P],
+    'lart_refill_point': [_LANES, _LANES, _I, _P, _I, _U, _U, _F, _F, _F, _I, _I,
+                          _I, _F, _I, _F, _F, _F, _F, _I, _F, _F, _I, _P, _P],
     'lart_fly_uniform_slab': [_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _F,
                               _F, _F, _F, _I, _I, _I, _F, _F, _I, _P, _P, _P,
                               _P],
-    'lart_scatter_lya': [_LANES, _I, _U, _U, _I, _F, _F, _I, _F, _F, _F, _P,
-                         _I, _I, _I, _F, _F, _F, _F, _F, _F, _P, _P, _P],
+    'lart_scatter_lya': [_LANES, _LANES, _I, _U, _U, _I, _F, _F, _I, _F, _F,
+                         _I, _F, _F, _F, _P, _I, _I, _I, _F, _F, _F, _F, _F,
+                         _F, _P, _P, _P],
     'lart_fly_cartesian': [_LANES, _I, _I, _FLIGHT, _P],
     'lart_fly_uniform_sphere': [_LANES, _I, _I, _FLIGHT, _P],
     'lart_flight_params_size': [],
+    'lart_peel_params_size': [],
 }
 
 _lib = None
@@ -132,14 +135,23 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
+        # instruments.peel imports this module: its struct comes in here
+        from ..instruments.peel import PeelParams
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _ARGTYPES.items():
+        argtypes_of = dict(_ARGTYPES, lart_peel=[
+            _LANES, _LANES, _I, _I, _FLIGHT, ctypes.POINTER(PeelParams), _P])
+        for name, argtypes in argtypes_of.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        if lib.lart_flight_params_size() != ctypes.sizeof(FlightParams):
-            raise RuntimeError('FlightParams: csrc/lart.cuh and '
-                               'transport/flight.py disagree on its layout')
+        for fn, struct, where in (
+                (lib.lart_flight_params_size, FlightParams,
+                 'csrc/lart.cuh and transport/flight.py'),
+                (lib.lart_peel_params_size, PeelParams,
+                 'csrc/peel.cu and instruments/peel.py')):
+            if fn() != ctypes.sizeof(struct):
+                raise RuntimeError(f'{struct.__name__}: {where} disagree '
+                                   f'on its layout')
         _lib = lib
     return _lib
 

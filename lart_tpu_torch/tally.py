@@ -3,9 +3,9 @@
 Port of RunResult / spectral_axes / normalize (lart_tpu/tally.py:22-259),
 which cannot be imported here: lart_tpu/tally.py imports the grid module,
 which imports jax.  Only the outputs of the ported path are carried: the
-spectra Jin/Jout/Jabs, Jmu, the scattering counts and the weight budget.
-Peel cubes, CALCJ/P maps, the ly_beta and H2 sections come with their
-features.  The arithmetic is lart_tpu's, on host float64.
+spectra Jin/Jout/Jabs, Jmu, the scattering counts, the weight budget and
+the peel-off cubes (scattered, direct, Stokes I/Q/U/V).  CALCJ/P maps, the
+ly_beta and H2 sections come with their features.  The arithmetic is lart_tpu's, on host float64.
 """
 
 from __future__ import annotations
@@ -15,9 +15,8 @@ from typing import Optional
 
 import numpy as np
 
-from lart_tpu.config import ResolvedConfig
-from lart_tpu.constants import FOURPI, SPEEDC, TWOPI
-
+from .config import ResolvedConfig
+from .constants import FOURPI, SPEEDC, TWOPI
 from .grid.cartesian import GridMeta
 
 
@@ -42,6 +41,9 @@ class RunResult:
     # raw escaped / absorbed weight per launched photon (conservation)
     W_escape: float = 0.0
     W_absorb: float = 0.0
+    # peel cubes: name -> (nobs, nxfreq, nxim, nyim), normalized
+    peel: Optional[dict] = None
+    obs_meta: object = None      # instruments.observer.ObserverSetMeta
 
     @property
     def line(self):
@@ -58,8 +60,10 @@ def spectral_axes(cfg: ResolvedConfig, meta: GridMeta):
 
 
 def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
-              nphotons: int, exetime_s: float = 0.0) -> RunResult:
-    """raw: dict with f64 arrays Jin/Jout/Jabs (and Jmu) and scalars
+              nphotons: int, exetime_s: float = 0.0,
+              obs_meta=None) -> RunResult:
+    """raw: dict with f64 arrays Jin/Jout/Jabs (and Jmu, and the flat peel
+    cubes peel_scatt, peel_direc, peel_I, ...) and scalars
     nscatt_gas/nscatt_dust/nscatt_events/W_oor."""
     par = cfg.par
     xfreq, velocity, wavelength = spectral_axes(cfg, meta)
@@ -95,6 +99,16 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
             if Jabs is not None:
                 Jabs = Jabs / scale
 
+    # peel-off cube normalization (output_sum_rect.f90:427-450):
+    # scale = nphotons * steradian_pix * bin_unit * distance2cm^2
+    peel = None
+    if obs_meta is not None and 'peel_scatt' in raw:
+        shape = (obs_meta.nobs, meta.nxfreq, obs_meta.nxim, obs_meta.nyim)
+        scale = (nphotons * obs_meta.steradian_pix * bin_unit
+                 * distance2cm ** 2)
+        peel = {k[5:]: raw[k].reshape(shape) / scale
+                for k in raw if k.startswith('peel_')}
+
     # Jmu: each mu bin normalized to equal Jout for a homogeneous isotropic
     # field (output_sum_rect.f90:188-190)
     Jmu = None
@@ -110,6 +124,6 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
         nscatt_tot=(raw['nscatt_gas'] + raw['nscatt_dust']) / nphotons,
         nscatt_events=raw.get('nscatt_events', 0.0) / nphotons,
         W_oor=raw.get('W_oor', 0.0) / nphotons,
-        exetime_s=exetime_s, Jmu=Jmu,
+        exetime_s=exetime_s, Jmu=Jmu, peel=peel, obs_meta=obs_meta,
         W_escape=float(np.sum(raw['Jout'])) / nphotons,
         W_absorb=float(np.sum(raw.get('Jabs', 0.0))) / nphotons)

@@ -9,13 +9,13 @@ and so jax).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from lart_tpu.config import Params
-
+from .config import Params
 from .transport.state import (AT_SCATTER, DEAD, FFS, FLYING, INT_FIELDS,
                               LANE_FIELDS, BatchState)
 
@@ -63,6 +63,117 @@ def hubble_params(tau0: float = 100.0, n: int = 17, Vexp: float = 200.0,
                 chunk_cycles=16, refill_every=4)
     base.update(kw)
     return Params(**base)
+
+
+def peel_params(par: Params, stokes: bool = True, nim: int = 33,
+                **kw) -> Params:
+    """par with peel-off at test size: two external observers at distance
+    1e3, one on the +z axis and one oblique (alpha 30, beta 60 degrees),
+    nim x nim TAN images with the automatic field of view."""
+    return dataclasses.replace(par, save_peeloff=True, use_stokes=stokes,
+                               nxim=nim, nyim=nim, distance=1e3,
+                               alpha=(0.0, 30.0), beta=(0.0, 60.0), **kw)
+
+
+def peel_record(state: BatchState, seed: int):
+    """A PeelRecord that flags every lane of `state` with a resonance
+    event: the lane's direction, triad and Stokes vector (before the turn),
+    xfreq_atom = xfreq - u_par and a thermal atom velocity (u_par, ux, uy)
+    drawn with numpy from `seed`."""
+    from .instruments.peel import PeelRecord
+    rng = np.random.default_rng(seed)
+    B, dev = state.batch, state.device
+    rec = PeelRecord.zeros(B, dev)
+    rec.flag.fill_(1)
+    for f in ('kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz', 'Q',
+              'U', 'V'):
+        getattr(rec, f).copy_(getattr(state, f))
+    u = rng.normal(0.0, np.sqrt(0.5), (3, B))
+    rec.xatom.copy_(state.xfreq - torch.as_tensor(u[2], dtype=torch.float32,
+                                                  device=dev))
+    for f, v in zip(('ux', 'uy', 'uz'), u):
+        getattr(rec, f).copy_(torch.as_tensor(v, dtype=torch.float32,
+                                              device=dev))
+    return rec
+
+
+def peel_closure(res) -> list:
+    """Per observer of a RunResult with peel-off (either package's): 4 pi
+    d^2 times its peeled flux (scattered + direct, over the image and the
+    spectrum, undone of the cubes' normalization) over the escaped weight.
+    Where the source and the medium are isotropic (a central source in a
+    uniform sphere) each is 1 up to the Monte Carlo error."""
+    par, om = res.cfg.par, res.obs_meta
+    bin_unit = res.meta.dwave if par.intensity_unit == 1 else res.meta.dxfreq
+    d2c = par.distance2cm if par.distance2cm > 0.0 else 1.0
+    scale = om.steradian_pix * bin_unit * d2c ** 2 * 4.0 * np.pi \
+        * om.distance ** 2 / res.W_escape
+    return [float(res.peel['scatt'][o].sum() + res.peel['direc'][o].sum())
+            * scale for o in range(om.nobs)]
+
+
+# the per-photon variance of a peeled flux, in units of its mean squared:
+# a photon deposits at every scattering near the surface, so its share
+# varies (the 17^3 uniform sphere, tau0 = 100, of tests/
+# test_torch_peel_slice.py: the peeled flux of 2000 photons varied by 3.7%
+# over five seeded runs of the two packages)
+PEEL_V_PHOTON = 2.7
+
+
+def peel_spectra_chi2(r1, r2, o: int, nphotons: int):
+    """(chi2/dof, bins) of observer o's peeled Stokes-I (or scattered +
+    direct) spectra of two RunResults, each normalized to unit sum, over the
+    populated bins, with the counting variance: the normalization takes out
+    the photon-to-photon spread of the total (PEEL_V_PHOTON), which moves
+    every bin together."""
+    def spec(r):
+        c = r.peel['I'][o] if 'I' in r.peel else \
+            r.peel['scatt'][o] + r.peel['direc'][o]
+        p = c.sum(axis=(1, 2))
+        return p / p.sum()
+    p1, p2 = spec(r1), spec(r2)
+    sel = (p1 + p2) > (p1 + p2).max() * 1e-3
+    var = (p1 + p2) / nphotons
+    return float(np.sum((p1[sel] - p2[sel]) ** 2 / var[sel])
+                 / max(sel.sum(), 1)), int(sel.sum())
+
+
+def ring_polarization(res, o: int) -> list:
+    """(ring, q, error) per ring of observer o's frequency-integrated
+    image: q is the ring's tangential Stokes Q over its I (the frame of
+    instruments/profiles.radial_stokes) and the error comes from the
+    scatter of the ring's pixels about that ratio; rings of fewer than 8
+    pixels are left out."""
+    from .instruments.profiles import radial_axes
+    I, Q, U = (res.peel[k][o].sum(axis=0) for k in 'IQU')
+    n = I.shape[0]
+    nr, _ = radial_axes(n, n)
+    c = (n + 1.0) / 2.0
+    ii, jj = np.meshgrid(np.arange(1, n + 1) - c, np.arange(1, n + 1) - c,
+                         indexing='ij')
+    rr = np.sqrt(ii ** 2 + jj ** 2)
+    ring = (np.floor(rr + 0.5) if nr % 2 else np.floor(rr)).astype(int)
+    r2 = np.maximum(rr, 1e-9) ** 2
+    cos2 = np.where(rr > 0, (jj ** 2 - ii ** 2) / r2, 1.0)
+    sin2 = np.where(rr > 0, -2.0 * ii * jj / r2, 0.0)
+    Qt = Q * cos2 + U * sin2
+    out = []
+    for r in range(1, nr):
+        m = ring == r
+        if m.sum() < 8:
+            continue
+        q = Qt[m].sum() / I[m].sum()
+        err = np.sqrt(np.sum((Qt[m] - q * I[m]) ** 2)) / I[m].sum()
+        out.append((r, float(q), float(err)))
+    return out
+
+
+def ring_polarization_chi2(r1, r2, o: int) -> float:
+    """chi2 per ring of the two runs' ring_polarization profiles."""
+    p1, p2 = ring_polarization(r1, o), ring_polarization(r2, o)
+    assert [r for r, _, _ in p1] == [r for r, _, _ in p2] and len(p1) >= 5
+    return sum((q1 - q2) ** 2 / (e1 ** 2 + e2 ** 2)
+               for (_, q1, e1), (_, q2, e2) in zip(p1, p2)) / len(p1)
 
 
 def cells_of(meta, x, y, z):
@@ -132,11 +243,33 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
     for k in ('x', 'y', 'z', 'kx', 'ky', 'kz', 'ic', 'jc', 'kc', 'xfreq'):
         birth['b' + k] = np.where(is_ffs, fields[k], birth['b' + k])
     fields.update(birth)
+    fields.update(polarization(np.random.default_rng([seed, 1]), kx, ky, kz))
     out = {f: torch.as_tensor(np.asarray(fields[f], np.int32 if f in
                                          INT_FIELDS else f32),
                               device=device) for f in LANE_FIELDS}
     return BatchState(**out, n_launched=torch.zeros((1,), dtype=torch.int32,
                                                     device=device))
+
+
+def polarization(rng, kx, ky, kz) -> dict:
+    """Random Stokes (Q, U, V) inside the unit ball and a random reference
+    triad (m, n) of each direction k: m, n, k orthonormal, n = k x m."""
+    batch = len(kx)
+    stokes = rng.normal(size=(3, batch))
+    stokes *= rng.random(batch) ** (1.0 / 3.0) / np.linalg.norm(stokes,
+                                                                 axis=0)
+    k = np.stack([kx, ky, kz]).astype(np.float64)
+    k /= np.linalg.norm(k, axis=0)
+    a = np.where(np.abs(k[2]) < 0.9, 2, 0)       # an axis away from k
+    e = np.zeros_like(k)
+    e[a, np.arange(batch)] = 1.0
+    m = e - np.sum(e * k, axis=0) * k
+    m /= np.linalg.norm(m, axis=0)
+    n = np.cross(k, m, axis=0)
+    psi = rng.uniform(0.0, 2.0 * np.pi, batch)
+    m, n = np.cos(psi) * m + np.sin(psi) * n, np.cos(psi) * n - np.sin(psi) * m
+    return dict(Q=stokes[0], U=stokes[1], V=stokes[2], mx=m[0], my=m[1],
+                mz=m[2], nnx=n[0], nny=n[1], nnz=n[2])
 
 
 def clone_state(state: BatchState) -> BatchState:

@@ -8,6 +8,12 @@ the loop reads a value back, so the host runs ahead of the device; the
 only synchronisation is the caller's read of (tallies, alive, launched)
 once per chunk.
 
+With save_peeloff the cycle also peels (kernel K7, instruments/peel.py):
+right after a refill, the newborn photons to every observer (the direct
+peel, engine.py:2909-2913), and right after the scatter, each resonance
+event with its pre-scatter direction (:2207-2218); both read the
+PeelRecord that K2 and K4 fill, and deposit into the chunk's f32 cubes.
+
 The flight follows lart_tpu's make_fly (engine.py:1057-1066):
 force_generic_kernel takes the generic Cartesian walk K5; otherwise the
 uniform slab takes K3, the uniform sphere K6, and every other Cartesian
@@ -18,8 +24,9 @@ ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
+from ..instruments.peel import DIRECT, RESONANCE, Peel, PeelRecord, peel
 from .fly_cartesian import CartesianFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
@@ -80,8 +87,10 @@ def check_supported(cfg, meta=None) -> None:
         (f'line_type {cfg.line.line_type} (only 1)', cfg.line.line_type != 1),
         ('dust (DGR > 0)', par.DGR > 0.0),
         ('h2_model', par.h2_model.strip().lower() not in ('', 'none')),
-        ('peel-off observers', par.save_peeloff or par.nobs > 0),
-        ('use_stokes', par.use_stokes),
+        ('peel-off observers inside the grid (nside > 0, HEALPix)',
+         par.save_peeloff and par.nside > 0),
+        ('use_stokes with dust (Mueller tables)',
+         par.use_stokes and par.DGR > 0.0),
         ('calcJ/calcP/calcPnew', par.calcJ or par.calcP or par.calcPnew),
         ('save_all_photons', par.save_all_photons),
         ('checkpoint_file/resume_checkpoint',
@@ -143,16 +152,26 @@ class Chunk:
     fly_substeps: int
     nxfreq: int
     nmu: int
+    peel: Optional[Peel] = None     # the observers of save_peeloff
 
     def __call__(self, state: BatchState, seed: int, cycle0: int,
                  budget: int, n_cycles=None):
         tallies = zero_tallies(self.nxfreq, self.nmu, state.device)
+        p, rec = self.peel, None
+        if p is not None:
+            tallies.peel = p.zero_cubes(state.device)
+            rec = PeelRecord.zeros(state.batch, state.device)
         for j in range(n_cycles or self.n_cycles):
             i = cycle0 + j
             if j % self.refill_every == 0:
-                refill(state, tallies, self.refill_params, seed, i, budget)
+                refill(state, tallies, self.refill_params, seed, i, budget,
+                       rec)
+                if p is not None:
+                    peel(state, tallies.peel, rec, p, DIRECT)
             self.flight(state, tallies, self.fly_substeps)
-            scatter(state, tallies, self.scatter_params, seed, i)
+            scatter(state, tallies, self.scatter_params, seed, i, rec)
+            if p is not None:
+                peel(state, tallies.peel, rec, p, RESONANCE)
         alive = (state.phase != DEAD).sum()
         return tallies, alive, state.n_launched[0]
 
@@ -160,11 +179,13 @@ class Chunk:
 def make_chunk(cfg, meta, grid) -> Chunk:
     check_supported(cfg, meta)
     par = cfg.par
+    sphere = uniform_sphere_fastpath(cfg, meta)
     return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid),
                  flight=make_fly(cfg, meta, grid),
-                 scatter_params=ScatterParams.from_config(
-                     cfg, meta, grid, uniform_sphere_fastpath(cfg, meta)),
+                 scatter_params=ScatterParams.from_config(cfg, meta, grid,
+                                                          sphere),
                  n_cycles=par.chunk_cycles,
                  refill_every=max(1, par.refill_every),
                  fly_substeps=par.fly_substeps, nxfreq=meta.nxfreq,
-                 nmu=par.nmu if par.save_Jmu else 0)
+                 nmu=par.nmu if par.save_Jmu else 0,
+                 peel=Peel.from_config(cfg, meta, grid, sphere))

@@ -183,6 +183,12 @@ class FlightConsts:
             setattr(c, f, getattr(self, f))
         return c
 
+    @property
+    def c_grid_params(self) -> FlightParams:
+        """The C struct for a kernel that reads the grid and writes no
+        flight tallies (K7's sightline walk)."""
+        return self._c_params
+
     def c_params(self, tallies) -> FlightParams:
         """The C struct with this call's tally pointers (the launch copies
         it, so the next call may overwrite them)."""

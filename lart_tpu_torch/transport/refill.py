@@ -5,7 +5,10 @@ Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
 monochromatic input spectrum in a uniform-temperature medium, static or
 moving.  A launched lane gets the source position, an isotropic direction,
 its birth frequency, the forced-first-scattering phase FFS with its xi
-stashed in tau_target, and the birth snapshot.  In a moving medium the
+stashed in tau_target, the birth snapshot, and the unpolarized Stokes
+vector (Q = U = V = 0) with the reference triad m = (cos theta cos phi,
+cos theta sin phi, -sin theta), n = (-sin phi, cos phi, 0) of its
+direction (engine.py:2863-2873).  In a moving medium the
 drawn frequency is a lab-frame one: unless comoving_source, the lane's
 comoving frequency is xfreq - u1 with u1 = v(source cell) . k
 (engine.py:2836-2841); Jin is tallied at the lab frequency xfreq + u1.
@@ -15,6 +18,10 @@ kernel K2 (csrc/refill.cu) hands out tickets by warp instead, so when the
 budget runs out the two may launch different dead lanes, always the same
 number.  A launched lane draws its uniforms from Philox at counter
 (lane, counter, block), so both launch it with the same values.
+
+With peel-off on, the refill also writes the flag of a PeelRecord: 1 on
+the lanes it launched, 0 elsewhere, so that the direct peel of the
+newborn photons (kernel K7, engine.py:2909-2913) runs on exactly those.
 """
 
 from __future__ import annotations
@@ -76,8 +83,9 @@ class RefillParams:
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
-                 seed: int, counter: int, budget: int) -> None:
-    """Plain PyTorch refill, in place."""
+                 seed: int, counter: int, budget: int, record=None) -> None:
+    """Plain PyTorch refill, in place; `record.flag` marks the launched
+    lanes when a PeelRecord is given."""
     B, dev = state.batch, state.device
     dead = state.phase == DEAD
     rank = torch.cumsum(dead.to(torch.int32), 0) - 1
@@ -89,7 +97,8 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     cost = 2.0 * u[0] - 1.0
     sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
     phi = TWOPI * u[1]
-    kx, ky, kz = sint * torch.cos(phi), sint * torch.sin(phi), cost
+    cosp, sinp = torch.cos(phi), torch.sin(phi)
+    kx, ky, kz = sint * cosp, sint * sinp, cost
 
     xfreq = torch.full((B,), p.xfreq0, dtype=torch.float32, device=dev)
     if p.voigt:
@@ -123,22 +132,31 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     put('wgt', 1.0)
     put('tau_target', v[1])
     put('tau_run', 0.0)
+    for nm, val in (('Q', 0.0), ('U', 0.0), ('V', 0.0), ('mx', cost * cosp),
+                    ('my', cost * sinp), ('mz', -sint), ('nnx', -sinp),
+                    ('nny', cosp), ('nnz', 0.0)):
+        put(nm, val)
     state.n_launched += n_new
+    if record is not None:
+        record.flag.copy_(launch.to(torch.int32))
 
 
 def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
-           counter: int, budget: int) -> None:
+           counter: int, budget: int, record=None) -> None:
     """Launch min(#dead, budget - n_launched) lanes, in place: kernel K2
-    for a CUDA state, the plain version for a CPU state."""
+    for a CUDA state, the plain version for a CPU state.  `record`, a
+    PeelRecord of the batch's size, receives the launch flags."""
     if state.device.type == 'cpu':
-        refill_plain(state, tallies, p, seed, counter, budget)
+        refill_plain(state, tallies, p, seed, counter, budget, record)
         return
     if budget + state.batch >= 2 ** 31:
         raise ValueError('photon budget + batch must stay below 2^31')
     kbuild.require_cuda('refill_point', tallies.Jin, state.n_launched,
-                        *(getattr(state, f) for f in ('phase', 'x')))
+                        *(getattr(state, f) for f in ('phase', 'x')),
+                        *(() if record is None else (record.flag,)))
     kbuild.check(kbuild.library().lart_refill_point(
-        state.lane_pointers, state.batch, state.n_launched.data_ptr(),
+        state.lane_pointers, None if record is None else record.pointers,
+        state.batch, state.n_launched.data_ptr(),
         int(budget), seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
         p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, int(p.voigt), p.a,
         *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,

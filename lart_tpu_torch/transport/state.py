@@ -2,8 +2,11 @@
 
 Counterparts of BatchState / Tallies / init_state / zero_tallies
 (lart_tpu/transport/engine.py:47-146, :222-264), cut to the fields the
-Neufeld-slab path reads and writes.  The Stokes, triad, shear, all-photons
-and band fields come with the features that use them.
+ported paths read and write: the lane's position, direction, cell,
+frequency, weight and optical depths, the forced-first-scattering birth
+snapshot, and the Stokes parameters with the reference triad (m, n, k)
+that polarized peel-off carries (engine.py:80-90).  The shear,
+all-photons and band fields come with the features that use them.
 
 Unlike the JAX pytrees these are mutable: refill, fly and scatter update
 the tensors in place (kernels and plain versions alike), so one batch
@@ -16,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -26,7 +30,8 @@ DEAD, FFS, FLYING, AT_SCATTER = 0, 1, 2, 3
 LANE_FIELDS = ('phase', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'ic', 'jc', 'kc',
                'xfreq', 'wgt', 'tau_target', 'tau_run',
                'bx', 'by', 'bz', 'bic', 'bjc', 'bkc',
-               'bxfreq', 'bkx', 'bky', 'bkz')
+               'bxfreq', 'bkx', 'bky', 'bkz',
+               'Q', 'U', 'V', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz')
 INT_FIELDS = frozenset({'phase', 'ic', 'jc', 'kc', 'bic', 'bjc', 'bkc'})
 
 
@@ -57,6 +62,17 @@ class BatchState:
     bkx: torch.Tensor
     bky: torch.Tensor
     bkz: torch.Tensor
+    # Stokes parameters (normalized: I == 1) and the reference triad (m, n)
+    # of the direction k (engine.py:80-90)
+    Q: torch.Tensor
+    U: torch.Tensor
+    V: torch.Tensor
+    mx: torch.Tensor
+    my: torch.Tensor
+    mz: torch.Tensor
+    nnx: torch.Tensor
+    nny: torch.Tensor
+    nnz: torch.Tensor
     n_launched: torch.Tensor     # int32 (1,)
 
     @property
@@ -88,6 +104,7 @@ class Tallies:
     nscatt_gas: torch.Tensor     # () f32: scattered weight
     nscatt_events: torch.Tensor  # () f32: unweighted scatter events
     W_oor: torch.Tensor          # () f32: escaped weight outside the grid
+    peel: Optional[object] = None  # instruments.peel.PeelCubes (peel-off)
 
 
 def init_state(batch: int, device) -> BatchState:
@@ -98,8 +115,8 @@ def init_state(batch: int, device) -> BatchState:
         return torch.zeros((batch,), dtype=torch.int32, device=device)
 
     fields = {f: (zi() if f in INT_FIELDS else zf()) for f in LANE_FIELDS}
-    fields['kz'] = zf(1.0)
-    fields['bkz'] = zf(1.0)
+    for f in ('kz', 'bkz', 'mx', 'nny'):
+        fields[f] = zf(1.0)
     return BatchState(**fields,
                       n_launched=torch.zeros((1,), dtype=torch.int32,
                                              device=device))

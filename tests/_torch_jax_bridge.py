@@ -5,6 +5,7 @@ tests, the only code that runs both packages in one process, so that
 lart_tpu_torch itself never imports jax.
 """
 
+import copy
 import dataclasses
 
 import jax
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from lart_tpu import config as jconfig
 from lart_tpu.grid import cartesian as jcart
 from lart_tpu.transport import engine
 from lart_tpu_torch import convert, testing
@@ -19,6 +21,18 @@ from lart_tpu_torch.convert import TALLY_FIELDS
 from lart_tpu_torch.grid.cartesian import GridDevice, GridMeta
 from lart_tpu_torch.transport.state import (LANE_FIELDS, BatchState, Tallies,
                                             zero_tallies)
+
+
+def jax_params(par):
+    """The port's Params as lart_tpu's Params: the same namelist values,
+    so each package resolves the one namelist on its own."""
+    return jconfig.Params(**{f.name: copy.deepcopy(getattr(par, f.name))
+                             for f in dataclasses.fields(par)})
+
+
+def resolve_both(par):
+    """(the port's ResolvedConfig, lart_tpu's) of one namelist."""
+    return par.resolve(), jax_params(par).resolve()
 
 
 def grid_to_jax(meta: GridMeta, grid: GridDevice):
@@ -75,7 +89,7 @@ def assert_tallies_close(tl: Tallies, ref: Tallies, rel=1e-5):
 def run_jax_chunks(par, seed, max_chunks=2000):
     """lart_tpu's make_chunk from an empty batch until every photon of
     par.nphotons has launched and died: (Jout, Jmu, <N_scatt>) in f64."""
-    cfg = par.resolve()
+    cfg = jax_params(par).resolve()
     meta, grid = jcart.build_cartesian(cfg)
     chunk = jax.jit(engine.make_chunk(cfg, meta))
     state = jax.tree.map(jnp.asarray, engine.init_state(par.batch_size))

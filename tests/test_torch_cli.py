@@ -61,6 +61,87 @@ def test_cli_writes_output_that_lart_tpu_reads(tmp_path, fmt, ext):
     assert 5.0 < float(r.header['Nsc_gas']) < 200.0
 
 
+PEEL_LINES = """
+ par%save_peeloff = .true.
+ par%save_peeloff_2D = .true.
+ par%use_stokes = .true.
+ par%nxim = 21
+ par%nyim = 21
+ par%distance = 1e3
+ par%alpha(1) = 0.0
+ par%beta(1) = 0.0
+ par%alpha(2) = 30.0
+ par%beta(2) = 60.0
+/
+"""
+
+
+@pytest.mark.parametrize('fmt,ext', [('fits', '.fits'), ('hdf5', '.h5')])
+def test_cli_writes_peel_files_that_lart_tpu_reads(tmp_path, fmt, ext):
+    """Two observers with Stokes: per observer a _peel3D file (cubes, WCS,
+    radial profiles) that lart_tpu's read_lart finds beside the main
+    output, and a _peel2D file of frequency-integrated images."""
+    from lart_tpu.io.iofile import open_read
+    nml = tmp_path / 't.in'
+    text = NAMELIST.format(fmt=fmt).replace('2000', '150')
+    nml.write_text(text.replace('nz = 33', 'nz = 17').rstrip().rstrip('/')
+                   + PEEL_LINES)
+    out = tmp_path / ('t' + ext)
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    assert abs(float(r.header['W_esc']) - 1.0) < 1e-3
+    assert len(r.peel) == 2
+    for k, p in enumerate(r.peel):
+        assert p.filename == str(tmp_path / f't_{k + 1:03d}_peel3D{ext}')
+        assert p.scatt.shape == p.direc.shape == (r.xfreq.size, 21, 21)
+        assert sorted(p.stokes) == ['I', 'Q', 'U', 'V']
+        np.testing.assert_allclose(p.stokes['I'], p.scatt + p.direc,
+                                   rtol=1e-5, atol=1e-12)
+        assert p.scatt.sum() > 0.0 and p.direc.sum() > 0.0
+        assert np.all(np.isfinite(p.radial['stokes_pol']))
+        assert p.header['CTYPE2'].strip() == 'RA--TAN'
+        with open_read(str(tmp_path / f't_{k + 1:03d}_peel2D{ext}')) as f:
+            img = np.asarray(f['Scattered/data'], np.float64)
+            assert img.shape == (21, 21)
+            np.testing.assert_allclose(
+                img, p.scatt.sum(axis=0) * float(p.header['Dxfreq']),
+                rtol=1e-5)
+    # the oblique observer's viewing cosine, cos 60 deg
+    assert r.peel[1].mu == pytest.approx(0.5, abs=1e-6)
+
+
+# the three peel-off examples, cut to a few seconds on the CPU (photons,
+# optical depth, and the 3-D grids to 17^3); their images and frequency
+# axes as written
+PEEL_EXAMPLES = {
+    'slab_peel/t1tau4.in': dict(no_photons='200', taumax='10.0', nz='33'),
+    'sphere_peel/t4tau4_peel.in': dict(nphotons='200', taumax='10.0',
+                                       nx='17', ny='17', nz='17'),
+    'vel_effect_peel/t4NHI2_20_V0200_peel.in': dict(
+        no_photons='200', N_HI='2e14', nx='17', ny='17', nz='17'),
+}
+
+
+@pytest.mark.parametrize('example', sorted(PEEL_EXAMPLES))
+def test_cli_runs_the_peel_examples(tmp_path, example):
+    import chip_smoke
+    from lart_tpu_torch.config import Params
+    nml = chip_smoke.namelist_variant(example, tmp_path, batch_size='256',
+                                      **PEEL_EXAMPLES[example])
+    par = Params.from_namelist(str(nml))
+    out = tmp_path / 'out.fits'
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    assert abs(float(r.header['W_esc']) - 1.0) < 1e-3 or (
+        example.startswith('vel') and float(r.header['W_esc']) > 0.99)
+    (p,) = r.peel
+    assert p.filename == str(tmp_path / 'out_peel3D.fits')
+    assert p.scatt.shape == (r.xfreq.size, par.nxim, par.nyim)
+    assert p.direc.sum() > 0.0 and np.all(np.isfinite(p.scatt))
+    assert sorted(p.stokes) == (['I', 'Q', 'U', 'V'] if par.use_stokes
+                                else [])
+
+
 def test_cli_cuda_without_gpu_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
@@ -100,16 +181,15 @@ def test_port_never_imports_jax():
     assert int(n_mods) >= 20 and bad.strip() == '[]'
 
 
-# the lart_tpu modules that leave jax (and h5py) out of sys.modules
-JAX_FREE = ('lart_tpu.config', 'lart_tpu.lines', 'lart_tpu.constants',
-            'lart_tpu.io.iofile', 'lart_tpu.io.minifits')
-
-
 def test_port_sources_import_no_jax():
-    """Every import statement of the port, also those inside functions that
-    the subprocess run above never calls, names no jax module."""
+    """Every import statement of the port and of chip_smoke.py, also those
+    inside functions that the subprocess run above never calls, names no
+    jax or lart_tpu module, and h5py only in io/iofile.py (inside the
+    functions that open an HDF5 file): the port keeps its own copies of
+    the jax-free host modules."""
     bad = []
-    files = sorted((ROOT / 'lart_tpu_torch').rglob('*.py'))
+    files = sorted((ROOT / 'lart_tpu_torch').rglob('*.py')) + [
+        ROOT / 'chip_smoke.py']
     for fn in files:
         for node in ast.walk(ast.parse(fn.read_text())):
             if isinstance(node, ast.Import):
@@ -120,7 +200,7 @@ def test_port_sources_import_no_jax():
                 continue
             for m in mods:
                 top = m.split('.')[0]
-                if top in ('jax', 'jaxlib', 'h5py') or (
-                        top == 'lart_tpu' and m not in JAX_FREE):
+                if top in ('jax', 'jaxlib', 'lart_tpu') or (
+                        top == 'h5py' and fn.name != 'iofile.py'):
                     bad.append(f'{fn.relative_to(ROOT)}:{node.lineno} {m}')
     assert len(files) >= 20 and not bad, bad

@@ -39,14 +39,14 @@ CASES = {
 
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_fly_cartesian_matches_jax_lane_by_lane(case):
-    cfg = CASES[case]().resolve()
+    cfg, jcfg = bridge.resolve_both(CASES[case]())
     meta, grid = build_cartesian(cfg)
-    jmeta, jgrid = jcart.build_cartesian(cfg)
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
     flight = teng.make_fly(cfg, meta, grid)
     assert isinstance(flight, CartesianFlight)
     s0 = testing.mixed_state(meta, B, seed=31)
     st, tl, ref, ref_t = bridge.fly_both(
-        jeng.make_fly(cfg, jmeta), jgrid, flight, meta.nxfreq, s0,
+        jeng.make_fly(jcfg, jmeta), jgrid, flight, meta.nxfreq, s0,
         cfg.par.fly_substeps)
 
     frac, err = testing.compare_states(st, ref, rtol=1e-5, atol=1e-6)

@@ -26,19 +26,19 @@ import _torch_jax_bridge as bridge
 
 
 def _setup(**kw):
-    cfg = testing.sphere_params(**kw).resolve()
+    cfg, jcfg = bridge.resolve_both(testing.sphere_params(**kw))
     meta, grid = build_cartesian(cfg)
-    jmeta, jgrid = jcart.build_cartesian(cfg)
-    return cfg, meta, grid, jmeta, jgrid
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
+    return cfg, jcfg, meta, grid, jmeta, jgrid
 
 
 def test_fly_sphere_matches_jax_lane_by_lane():
-    cfg, meta, grid, jmeta, jgrid = _setup(tau0=100.0, n=17)
+    cfg, jcfg, meta, grid, jmeta, jgrid = _setup(tau0=100.0, n=17)
     flight = teng.make_fly(cfg, meta, grid)
     assert isinstance(flight, SphereFlight) and meta.sphere_R == 1.0
     s0 = testing.mixed_state(meta, 100_000, seed=41)
     st, tl, ref, ref_t = bridge.fly_both(
-        jeng.make_fly(cfg, jmeta), jgrid, flight, meta.nxfreq, s0,
+        jeng.make_fly(jcfg, jmeta), jgrid, flight, meta.nxfreq, s0,
         cfg.par.fly_substeps)
 
     frac, err = testing.compare_states(st, ref, rtol=1e-5, atol=1e-6)
@@ -67,7 +67,7 @@ def test_fly_sphere_matches_jax_lane_by_lane():
 
 def test_sphere_chord_geometry():
     """Chords of rays from outside, inside and missing the sphere."""
-    cfg, meta, grid, _, _ = _setup(tau0=10.0, n=9)
+    cfg, _, meta, grid, _, _ = _setup(tau0=10.0, n=9)
     p = teng.make_fly(cfg, meta, grid)
     f = torch.float32
     x = torch.tensor([-2.0, 0.0, 0.5, -2.0], dtype=f)

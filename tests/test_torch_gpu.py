@@ -31,7 +31,7 @@ def test_kernels_match_plain_versions(cuda):
     res = chip_smoke.phase2(cuda)
     assert set(res) == {'voigt_h', 'refill_point', 'fly_uniform_slab',
                         'fly_cartesian', 'fly_uniform_sphere',
-                        'scatter_lya'}
+                        'scatter_lya', 'peel'}
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -104,3 +104,74 @@ def test_driver_runs_the_sphere_kernels(cuda, helper, fly):
                                             'scatter_lya'))
     assert abs(res.W_escape + res.W_oor - 1.0) < 1e-5
     assert np.all(np.isfinite(res.Jout))
+
+
+PEEL = {    # case: (testing helper, overrides, Stokes, r_max)
+    'slab_stokes': ('slab_params', {'nz': 33}, True, None),
+    'hubble_reflect': ('hubble_params', {'n': 33}, False, 1.0),
+    'hubble_escape': ('hubble_params', {'n': 33, 'xyz_symmetry': False},
+                      True, 1.0),
+    'sphere_chord': ('sphere_params', {'n': 33}, True, 1.0),
+}
+
+
+@pytest.mark.parametrize('mode', ['direct', 'resonance'])
+@pytest.mark.parametrize('case', sorted(PEEL))
+def test_peel_kernel_matches_plain(cuda, case, mode):
+    """K7 against its plain version: per-pair optical depth and bin, then
+    the cubes to 1e-5 of their sum (chip_smoke.peel_both)."""
+    import chip_smoke
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.kernels import build as kb
+    from lart_tpu_torch.transport.engine import make_chunk
+    helper, over, stokes, r_max = PEEL[case]
+    par = testing.peel_params(getattr(testing, helper)(tau0=1e4, **over),
+                              stokes=stokes)
+    cfg = par.resolve()
+    meta, grid = build_cartesian(cfg, device=cuda)
+    ch = make_chunk(cfg, meta, grid)
+    chip_smoke.B_MAIN = 8192
+    n0 = kb.LAUNCHES['peel']
+    m = tpeel.DIRECT if mode == 'direct' else tpeel.RESONANCE
+    n_bad, n_dep, err, _ = chip_smoke.peel_both(ch, meta, 5, m, cuda, r_max)
+    assert kb.LAUNCHES['peel'] > n0 and n_dep > 0
+
+
+@pytest.mark.parametrize('helper', ['sphere_params', 'slab_params'])
+def test_stokes_scatter_and_refill_match_plain(cuda, helper):
+    """K4's Stokes branch and K2's birth triad, with their peel records."""
+    import chip_smoke
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.transport.engine import make_chunk
+    kw = {'n': 33} if helper == 'sphere_params' else {'core_skip': True}
+    par = testing.peel_params(getattr(testing, helper)(tau0=1e4, **kw))
+    cfg = par.resolve()
+    meta, grid = build_cartesian(cfg, device=cuda)
+    ch = make_chunk(cfg, meta, grid)
+    chip_smoke.B_MAIN = 8192
+    res = {}
+    chip_smoke.k4_k2_with_record(helper, ch, meta, cuda,
+                                 1.0 if helper == 'sphere_params' else None,
+                                 7, res)
+    assert set(res) == {'scatter_lya', 'refill_point'}
+
+
+def test_driver_runs_the_peel_kernel(cuda):
+    """Peel-off with Stokes through the driver on the card: K7 launched,
+    the f64 cubes read once at the end, the flux closure of a central
+    source in a uniform sphere."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    par = testing.peel_params(testing.sphere_params(
+        tau0=100.0, n=17, nphotons=10_000, batch=4096), nim=17)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=1)
+    assert all(kb.LAUNCHES[k] > 0 for k in ('refill_point',
+                                            'fly_uniform_sphere',
+                                            'scatter_lya', 'peel'))
+    assert abs(res.W_escape + res.W_oor - 1.0) < 1e-5
+    for c in testing.peel_closure(res):
+        assert abs(c - 1.0) < 0.05, c

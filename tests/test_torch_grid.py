@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from lart_tpu.config import Params
 from lart_tpu.grid import cartesian as jcart
 from lart_tpu.transport import engine as jeng
 from lart_tpu_torch import convert, testing
+from lart_tpu_torch.config import Params
 from lart_tpu_torch.grid import cartesian as tcart
 from lart_tpu_torch.transport.state import LANE_FIELDS, zero_tallies
 
@@ -46,9 +46,9 @@ def _arrays_equal(tgrid, jgrid):
 
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_build_cartesian_matches_jax(case):
-    cfg = Params(nphotons=1000, **CASES[case]).resolve()
+    cfg, jcfg = bridge.resolve_both(Params(nphotons=1000, **CASES[case]))
     tmeta, tgrid = tcart.build_cartesian(cfg, device='cpu')
-    jmeta, jgrid = jcart.build_cartesian(cfg)
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
     assert dataclasses.asdict(tmeta) == dataclasses.asdict(jmeta)
     _arrays_equal(tgrid, jgrid)
     assert tgrid.rhokap.dtype == torch.float32
@@ -59,8 +59,9 @@ def test_build_cartesian_matches_jax(case):
 
 
 def test_grid_round_trip():
-    cfg = Params(nphotons=1000, **CASES['sphere17_hubble_dust']).resolve()
-    jmeta, jgrid = jcart.build_cartesian(cfg)
+    cfg, jcfg = bridge.resolve_both(
+        Params(nphotons=1000, **CASES['sphere17_hubble_dust']))
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
     tmeta, tgrid = convert.grid_from_jax(jmeta, jgrid)
     assert tmeta == tcart.build_cartesian(cfg)[0]
     _arrays_equal(tgrid, jgrid)
@@ -107,14 +108,14 @@ def test_state_and_tallies_round_trip():
 
 def _example(rel, n=17, **over):
     """examples/<rel> cut to an n^3 grid (build_cartesian holds every
-    cell in float64)."""
+    cell in float64), resolved by the port and by lart_tpu."""
     from pathlib import Path
     par = Params.from_namelist(
         str(Path(__file__).resolve().parents[1] / 'examples' / rel))
     par.nx = par.ny = par.nz = n
     for k, v in over.items():
         setattr(par, k, v)
-    return par.resolve()
+    return bridge.resolve_both(par)
 
 
 SLICE = {'t4tau7': 'sphere/t4tau7.in',
@@ -125,8 +126,8 @@ SLICE = {'t4tau7': 'sphere/t4tau7.in',
 def test_grid_from_jax_carries_velocity_and_sphere(case):
     """grid_from_jax hands the port lart_tpu's velocity field and the
     uniform-sphere fields of GridMeta, equal to what the port builds."""
-    cfg = _example(SLICE[case])
-    jmeta, jgrid = jcart.build_cartesian(cfg)
+    cfg, jcfg = _example(SLICE[case])
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
     tmeta, tgrid = convert.grid_from_jax(jmeta, jgrid)
     bmeta, bgrid = tcart.build_cartesian(cfg)
     assert tmeta == bmeta
@@ -153,8 +154,8 @@ def test_normalize_matches_jax(case):
     sphere's 4 pi R^2 and the box's 8 (xy + yz + zx) denominators."""
     from lart_tpu import tally as jtally
     from lart_tpu_torch import tally as ttally
-    cfg = _example(SLICE[case], save_Jmu=True)
-    jmeta, _ = jcart.build_cartesian(cfg)
+    cfg, jcfg = _example(SLICE[case], save_Jmu=True)
+    jmeta, _ = jcart.build_cartesian(jcfg)
     tmeta, _ = tcart.build_cartesian(cfg)
     rng = np.random.default_rng(2)
     nx, nmu = jmeta.nxfreq, cfg.par.nmu
@@ -162,7 +163,7 @@ def test_normalize_matches_jax(case):
                Jmu=rng.random(nx * nmu), nscatt_gas=1234.5,
                nscatt_dust=0.0, nscatt_events=1000.0, W_oor=0.25)
     nph = 777
-    j = jtally.normalize(cfg, jmeta, dict(raw), nph)
+    j = jtally.normalize(jcfg, jmeta, dict(raw), nph)
     t = ttally.normalize(cfg, tmeta, dict(raw), nph)
     for f in ('xfreq', 'velocity', 'wavelength', 'Jin', 'Jout', 'Jmu'):
         np.testing.assert_array_equal(getattr(t, f), getattr(j, f),

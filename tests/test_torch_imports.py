@@ -1,0 +1,34 @@
+"""The port stands alone: every module of lart_tpu_torch, and
+chip_smoke.py, imports with lart_tpu and jax made unimportable."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CODE = """
+import importlib, pkgutil, sys
+sys.modules['lart_tpu'] = None     # any import of them raises ImportError
+sys.modules['jax'] = None
+import lart_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(lart_tpu_torch.__path__,
+                                               'lart_tpu_torch.')]
+for n in names:
+    importlib.import_module(n)
+import chip_smoke
+from lart_tpu_torch.config import Params
+cfg = Params.from_namelist('examples/sphere_peel/t4tau4_peel.in').resolve()
+assert cfg.par.use_stokes and cfg.par.save_peeloff
+print(len(names))
+"""
+
+
+def test_port_imports_without_lart_tpu_and_jax():
+    env = dict(os.environ)
+    env['PYTHONPATH'] = str(ROOT) + os.pathsep + env.get('PYTHONPATH', '')
+    proc = subprocess.run([sys.executable, '-c', CODE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25

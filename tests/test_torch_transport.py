@@ -35,10 +35,10 @@ P_MIN = 1e-3
 
 
 def _setup(**kw):
-    cfg = testing.slab_params(**kw).resolve()
+    cfg, jcfg = bridge.resolve_both(testing.slab_params(**kw))
     meta, grid = build_cartesian(cfg)
-    jmeta, jgrid = jcart.build_cartesian(cfg)
-    return cfg, meta, jmeta, jgrid, grid
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
+    return cfg, jcfg, meta, jmeta, jgrid, grid
 
 
 def _jax_tallies(meta, nmu=8):
@@ -46,10 +46,10 @@ def _jax_tallies(meta, nmu=8):
 
 
 def test_fly_matches_jax_lane_by_lane():
-    cfg, meta, jmeta, jgrid, grid = _setup(tau0=1e4)
+    cfg, jcfg, meta, jmeta, jgrid, grid = _setup(tau0=1e4)
     B = 20_000
     s0 = testing.mixed_state(meta, B, seed=5)
-    jfly = jax.jit(jeng.make_fly_uniform_slab(cfg, jmeta),
+    jfly = jax.jit(jeng.make_fly_uniform_slab(jcfg, jmeta),
                    static_argnums=3)
     js, jt = jfly(bridge.state_to_jax(s0), jgrid, _jax_tallies(meta),
                   cfg.par.fly_substeps)
@@ -91,7 +91,7 @@ def test_fly_matches_jax_lane_by_lane():
 
 
 def test_refill_launch_count_and_lanes():
-    cfg, meta, _, _, grid = _setup()
+    cfg, _, meta, _, _, grid = _setup()
     ch = teng.make_chunk(cfg, meta, grid)
     p = ch.refill_params
     s0 = testing.mixed_state(meta, 4000, seed=3)
@@ -130,13 +130,13 @@ def test_refill_launch_count_and_lanes():
 
 
 def test_refill_distributions_match_jax():
-    cfg, meta, jmeta, jgrid, grid = _setup()
+    cfg, jcfg, meta, jmeta, jgrid, grid = _setup()
     B = 100_000
     st = init_state(B, 'cpu')
     ch = teng.make_chunk(cfg, meta, grid)
     refill.refill(st, zero_tallies(meta.nxfreq, 8, 'cpu'),
                   ch.refill_params, seed=11, counter=0, budget=10 ** 9)
-    jrefill = jax.jit(jeng.make_refill(cfg, jmeta))
+    jrefill = jax.jit(jeng.make_refill(jcfg, jmeta))
     js, jt = jrefill(jeng.init_state(B), jgrid, _jax_tallies(meta),
                      jax.random.PRNGKey(4), jnp.asarray([10 ** 9], jnp.int32))
     assert int(st.n_launched[0]) == int(js.n_launched[0]) == B
@@ -160,7 +160,7 @@ def test_refill_distributions_match_jax():
 
 @pytest.mark.parametrize('x', [0.0, 3.0, 30.0])
 def test_scatter_matches_jax(x):
-    cfg, meta, jmeta, jgrid, grid = _setup()
+    cfg, jcfg, meta, jmeta, jgrid, grid = _setup()
     B = 200_000
     s0 = testing.mixed_state(meta, B, seed=int(x) + 7)
     rng = np.random.default_rng(int(x))
@@ -175,7 +175,7 @@ def test_scatter_matches_jax(x):
     ch = teng.make_chunk(cfg, meta, grid)
     scatter.scatter(st, tl, ch.scatter_params, seed=3, counter=9)
 
-    jscatter = jax.jit(jeng.make_scatter(cfg, jmeta))
+    jscatter = jax.jit(jeng.make_scatter(jcfg, jmeta))
     js, jt = jscatter(bridge.state_to_jax(s0), jgrid, _jax_tallies(meta),
                       jax.random.PRNGKey(int(x) + 1))
     ref = convert.state_from_jax(js)
@@ -240,9 +240,9 @@ def test_scatter_core_skip_matches_jax(case):
     """Core-skip boosts the perpendicular atom speed of in-core lanes
     (|x| < xcrit); the outgoing frequency and direction of those lanes
     follow lart_tpu's distributions."""
-    cfg = CORE_SKIP[case]().resolve()
+    cfg, jcfg = bridge.resolve_both(CORE_SKIP[case]())
     meta, grid = build_cartesian(cfg)
-    jmeta, jgrid = jcart.build_cartesian(cfg)
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
     ch = teng.make_chunk(cfg, meta, grid)
     p = ch.scatter_params
     assert p.core_skip == (scatter.CORE_SKIP_GLOBAL if 'global' in case
@@ -264,7 +264,7 @@ def test_scatter_core_skip_matches_jax(case):
     st = testing.clone_state(s0)
     scatter.scatter(st, zero_tallies(meta.nxfreq, 8, 'cpu'), p, seed=3,
                     counter=9)
-    js, _ = jax.jit(jeng.make_scatter(cfg, jmeta))(
+    js, _ = jax.jit(jeng.make_scatter(jcfg, jmeta))(
         bridge.state_to_jax(s0), jgrid, _jax_tallies(meta),
         jax.random.PRNGKey(5))
     ref = convert.state_from_jax(js)
@@ -303,9 +303,10 @@ def test_refill_moving_medium_matches_jax():
     flies at the comoving frequency x - v(source cell).k; Jin counts the
     lab frequency."""
     over = dict(xs_point=0.31, ys_point=0.17, zs_point=0.05)
-    cfg = testing.hubble_params(tau0=100.0, n=17, **over).resolve()
+    cfg, jcfg = bridge.resolve_both(
+        testing.hubble_params(tau0=100.0, n=17, **over))
     meta, grid = build_cartesian(cfg)
-    jmeta, jgrid = jcart.build_cartesian(cfg)
+    jmeta, jgrid = jcart.build_cartesian(jcfg)
     ch = teng.make_chunk(cfg, meta, grid)
     v = ch.refill_params.v_src
     assert all(c > 0.5 for c in v) and not ch.refill_params.comoving_source
@@ -313,7 +314,7 @@ def test_refill_moving_medium_matches_jax():
     st, tl = init_state(B, 'cpu'), zero_tallies(meta.nxfreq, 8, 'cpu')
     refill.refill(st, tl, ch.refill_params, seed=11, counter=0,
                   budget=10 ** 9)
-    js, jt = jax.jit(jeng.make_refill(cfg, jmeta))(
+    js, jt = jax.jit(jeng.make_refill(jcfg, jmeta))(
         jeng.init_state(B), jgrid, _jax_tallies(meta),
         jax.random.PRNGKey(4), jnp.asarray([10 ** 9], jnp.int32))
     assert int(st.n_launched[0]) == int(js.n_launched[0]) == B
@@ -355,6 +356,9 @@ ACCEPTED = {
     'vel_effect/t4NHI2_20_V0000.in': {},
     'vel_effect/t4NHI2_20_V0200.in': {},
     'slab/t1tau6.in': dict(force_generic_kernel=True),
+    'slab_peel/t1tau4.in': {},
+    'sphere_peel/t4tau4_peel.in': {},
+    'vel_effect_peel/t4NHI2_20_V0200_peel.in': {},
 }
 
 
@@ -365,8 +369,9 @@ def test_check_supported_accepts_the_slice(example):
     a 17^3 grid to build here)."""
     from pathlib import Path
 
-    from lart_tpu.config import Params
+    from lart_tpu_torch.config import Params
     from lart_tpu_torch.transport.fly_cartesian import CartesianFlight
+    from lart_tpu_torch.transport.fly_slab import SlabParams
     from lart_tpu_torch.transport.fly_sphere import SphereFlight
     path = Path(__file__).resolve().parents[1] / 'examples' / example
     par = Params.from_namelist(str(path))
@@ -378,7 +383,9 @@ def test_check_supported_accepts_the_slice(example):
     cfg = par.resolve()
     meta, grid = build_cartesian(cfg)
     flight = teng.make_chunk(cfg, meta, grid).flight
-    want = {'sphere/t4tau7.in': SphereFlight}.get(example, CartesianFlight)
+    want = {'sphere/t4tau7.in': SphereFlight,
+            'sphere_peel/t4tau4_peel.in': SphereFlight,
+            'slab_peel/t1tau4.in': SlabParams}.get(example, CartesianFlight)
     assert type(flight) is want, (example, type(flight))
 
 
@@ -387,8 +394,8 @@ OUT_OF_SLICE = {
     'recoil': dict(recoil=True),
     'h2_model': dict(h2_model='lyman_werner'),
     'line_type': dict(line_id='MgII_2796'),
-    'peel-off observers': dict(save_peeloff=True, nobs=1),
-    'use_stokes': dict(use_stokes=True),
+    'peel-off observers': dict(save_peeloff=True, nobs=1, nside=4),
+    'use_stokes': dict(use_stokes=True, DGR=0.01),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
     'non-uniform temperature': dict(temp_file='temp.fits'),
     'atmospheres': dict(geometry='plane_atmosphere'),
