@@ -38,7 +38,8 @@ Phases (one line each, or more):
      sphere_peel 2e4 (flux closure), vel_effect_peel at N_HI 2e18 and 1e4
      photons (weight, and the _peel3D files)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
-     the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; 800 chunks),
+     the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
+     chunks and >= 1 s),
      then one window of >= 1 s each of t4tau7 as written, vel_effect V0200
      as written, the flagship slab through K5 (force_generic_kernel), and
      the three peel-off examples as written; a torch.profiler breakdown of
@@ -65,7 +66,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 B_MAIN = 131072
 SLEEP_CYCLES = 20_000_000     # ~10 ms of GPU clock: covers 20 launches
-FLAGSHIP_CHUNKS = 800         # one timed window of 1-2 s at 40-80 us a cycle
+FLAGSHIP_CHUNKS = 800         # the flagship's window: at least this many chunks
 SPREAD_CHUNKS = 80
 WINDOW_S = 1.0                # the shortest timed window of the other cells
 LANE_RTOL, LANE_ATOL, MAX_FRAC = 1e-5, 1e-6, 1e-4
@@ -134,31 +135,44 @@ def kernel_work(name, pre, ch, meta, stats=None):
     from lart_tpu_torch.transport.state import AT_SCATTER, DEAD, FFS, FLYING
     B, ph = pre.batch, pre.phase
     peel = ch.peel
-    rec = 17 * 4 if peel is not None else 0      # the peel record's fields
+    flag = B * 4 if peel is not None else 0      # the record's flag, written
     cells = meta.nx * meta.ny * meta.nz
     if name == 'voigt_h':
         # H(x, a) of every lane's xfreq: 4 bytes in and out, ~40 flops
         return B * 8, B * 40
     if name == 'refill_point':
         k = int((ph == DEAD).sum())
-        return B * 4 + k * (33 * 4 + min(rec, 4)) + ch.nxfreq * 4, k * 60
+        return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4, k * 60
     if name == 'scatter_lya':
         k = int((ph == AT_SCATTER).sum())
         sp = ch.scatter_params
         st = 9 if sp.stokes else 0
         grid = min(cells, k) * 4 if sp.rhokap is not None else 0
+        # the record: k, xatom, u (and the triad, Q, U, V with Stokes)
+        rec = (7 + st) * 4 if peel is not None else 0
         per_lane = (10 + st + 7 + st) * 4 + rec
         flops = sp.rounds * (60 + (40 if sp.stokes else 0)) + 120 + 60 * (st > 0)
-        return B * 4 + k * per_lane + grid, k * flops
+        return B * 4 + flag + k * per_lane + grid, k * flops
     if name == 'peel':
+        # the flag of every lane; the position of each flagged lane; the
+        # cell and weight of each lane with a pair in an image ('seen'),
+        # with xfreq (and, lab_source, k) in mode direct or the record's
+        # k, xatom, u (and the triad, Q, U, V with Stokes) in mode
+        # resonance; each distinct grid cell read (rhokap, and the
+        # velocity in a moving medium); each distinct bin of the cubes the
+        # mode writes (direct: direc, and I with Stokes; resonance: scatt,
+        # and I, Q, U, V with Stokes); the observers
+        from lart_tpu_torch.instruments.peel import DIRECT
         g = peel.grid
-        ncubes = 6 if peel.stokes else 2
-        walked = stats.get('crossings', 0) + stats['pairs']
-        grid = 0 if peel.chord else min(cells, walked) * 4 * (
-            4 if g.moving else 1)
-        k = stats['lanes']
-        return (B * 4 + k * (rec + 8 * 4) + grid
-                + min(peel.n_bins, stats['pairs']) * 4 * ncubes,
+        if stats['mode'] == DIRECT:
+            per_seen = 4 * (4 + 1 + (3 if peel.lab_source else 0))
+            ncubes = 2 if peel.stokes else 1
+        else:
+            per_seen = 4 * (4 + 7 + (9 if peel.stokes else 0))
+            ncubes = 5 if peel.stokes else 1
+        grid = stats['cells'] * 4 * (4 if g.moving else 1)
+        return (B * 4 + stats['lanes'] * 12 + stats['seen'] * per_seen
+                + grid + stats['bins'] * 4 * ncubes + peel.nobs * 12 * 4,
                 stats.get('crossings', 0) * 60 + stats['pairs'] * 150)
     k = int(((ph == FLYING) | (ph == FFS)).sum())
     grid = 0
@@ -427,33 +441,56 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
     """K7 and its plain version on one mixed state with a record that
     flags every lane; each (observer, lane) pair's optical depth and cube
     bin are held against each other (a pair differs when its bin differs
-    or its tau misses rtol/atol), then the cubes, without the lanes of
-    differing pairs, to 1e-5 of their sum (atomics add in no fixed order).
-    Returns (pairs differing, pairs depositing, max abs error of the
-    cubes, max |d tau| of the other pairs)."""
+    or its tau misses rtol/atol), then each other pair's deposits (the
+    scatt or direc one, and Q, U, V of a Stokes resonance peel): the
+    plain version's, times exp(tau_plain - tau_kernel) for the last bits
+    of tau, to 1e-5 of the larger of the pair's scatt or direc deposit
+    and its unpolarized one, exp(-tau) wgt / (4 pi r^2) (the dipole's
+    I = S11 + S12 Q cancels toward 0, Q, U, V are bounded by I, and f32
+    rounds each term to its own scale), + 1e-37 (f32 subnormals); every
+    such pair must agree.  Then the cubes, without the lanes of differing
+    pairs, to 1e-5 of their sum (atomics add in no fixed order).  Returns
+    (pairs differing, pairs depositing, max abs error of the cubes, max
+    |d tau| and max |d w| over that scale of the other pairs)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.instruments import peel as tpeel
     p = ch.peel
     s = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=r_max)
     rec = testing.peel_record(s, seed + 1)
     n = p.nobs * B_MAIN
+    ncomp = 4 if p.stokes and mode == tpeel.RESONANCE else 1
 
     def run(kernel):
         cubes = p.zero_cubes(dev)
         tau = torch.full((n,), -1.0, device=dev)
         bins = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        w = torch.zeros((4 * n,), device=dev)
         (tpeel.peel if kernel else tpeel.peel_plain)(s, cubes, rec, p, mode,
-                                                     tau, bins)
+                                                     tau, bins, w)
         torch.cuda.synchronize()
-        return cubes, tau, bins
+        return cubes, tau, bins, w.view(4, n)[:ncomp].double()
 
-    (ck, tk, bk), (cp, tp, bp) = run(True), run(False)
+    (ck, tk, bk, wk), (cp, tp, bp, wp) = run(True), run(False)
     bad = (bk != bp) | ~torch.isclose(tk, tp, rtol=LANE_RTOL, atol=LANE_ATOL)
     n_bad, n_dep = int(bad.sum()), int((bp >= 0).sum())
-    dtau = float((tk - tp).abs()[~bad].max())
+    good = ~bad & (bp >= 0)
+    dtau = float((tk - tp).abs()[good].max())
+    # the plain version's deposits at the kernel's tau
+    shift = torch.exp(torch.clamp_max(tp.double(), 700.0)
+                      - torch.clamp_max(tk.double(), 700.0))
+    want = wp * shift
+    pos = torch.stack([s.x, s.y, s.z], 1).double()
+    r2 = ((p.pos.double()[:, None, :] - pos[None]) ** 2).sum(-1).reshape(n)
+    unpol = torch.exp(-torch.clamp_max(tk.double(), 700.0)) \
+        * s.wgt.double().repeat(p.nobs) / (4.0 * np.pi * r2)
+    scale = torch.maximum(want[0].abs(), unpol)
+    dw = (wk - want).abs().amax(0)
+    w_bad = good & (dw > 1e-5 * scale + 1e-37)
+    assert not bool(w_bad.any()), ('pair deposits differ', int(w_bad.sum()))
+    dw_rel = float((dw / scale.clamp_min(1e-37))[good].max())
     if n_bad:
         rec.flag.copy_((~bad.view(p.nobs, B_MAIN).any(0)).to(torch.int32))
-        (ck, _, _), (cp, _, _) = run(True), run(False)
+        ck, cp = run(True)[0], run(False)[0]
     err = 0.0
     for (name, u), (_, v) in zip(ck.items(), cp.items()):
         d = float((u - v).abs().max())
@@ -461,7 +498,7 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
         assert d <= tol, (name, d, tol)
         err = max(err, d)
     assert n_bad <= MAX_FRAC * n and n_dep > 0.05 * n, (n_bad, n_dep, n)
-    return n_bad, n_dep, err, dtau
+    return n_bad, n_dep, err, dtau, dw_rel
 
 
 def record_diff(a, b):
@@ -504,17 +541,18 @@ def phase2_peel(dev, res):
         for label, mode in modes:
             seed += 2
             t1 = time.time()
-            n_bad, n_dep, err, dtau = peel_both(ch, meta, seed, mode, dev,
-                                                r_max)
+            n_bad, n_dep, err, dtau, dw = peel_both(ch, meta, seed, mode,
+                                                    dev, r_max)
             _max_err(res, 'peel', err)
             log(2, f'K7 peel {label}, {name} ({what}; {ch.peel.nobs} '
                    f'observer, {ch.peel.obs_meta.nxim}x'
                    f'{ch.peel.obs_meta.nyim} x {meta.nxfreq} bins): '
                    f'{n_dep} of {ch.peel.nobs * B_MAIN} pairs deposit, '
                    f'pairs differing {n_bad} (max {MAX_FRAC} of them), '
-                   f'max |d tau| {dtau:.3e}, cubes max abs err {err:.3e} '
-                   f'(atol 1e-5 x sum; {time.time() - t1:.1f} s, grid '
-                   f'{t_grid:.1f} s)')
+                   f'max |d tau| {dtau:.3e}, per-pair deposits max rel '
+                   f'err {dw:.3e} (rtol 1e-5, all pairs), cubes max abs '
+                   f'err {err:.3e} (atol 1e-5 x sum; '
+                   f'{time.time() - t1:.1f} s, grid {t_grid:.1f} s)')
         if not over:
             seed = k4_k2_with_record(name, ch, meta, dev, r_max, seed, res)
         del grid, ch
@@ -916,7 +954,7 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
         if k == 'peel':
             # the plain walk takes up to seconds a call: 2 calls a turn
             cubes = ch.peel.zero_cubes(st.device)
-            stats = {'lanes': int(rec.flag.sum())}
+            stats = {'lanes': int(rec.flag.sum()), 'mode': tpeel.RESONANCE}
             tpeel.peel_plain(post, cubes, rec, ch.peel, tpeel.RESONANCE,
                              stats=stats)
 
@@ -928,9 +966,12 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
             out[k] = (device_ms([kern] * reps),
                       *turns(kern, plain, reps, plain_reps=2),
                       bound(*kernel_work(k, post, ch, p.meta, stats)))
-            log(5, f'{label} peel work: {stats["lanes"]} scattered lanes, '
+            log(5, f'{label} peel work: {stats["lanes"]} scattered lanes '
+                   f'({stats["seen"]} with a pair in an image), '
                    f'{stats["pairs"]} (observer, lane) pairs walked, '
-                   f'{stats.get("crossings", 0)} cell crossings')
+                   f'{stats.get("crossings", 0)} cell crossings over '
+                   f'{stats["cells"]} distinct cells, {stats["bins"]} '
+                   f'distinct cube bins')
             continue
         pre, kern, plain = steps[k]
         copies = [testing.clone_state(pre) for _ in range(reps)]
@@ -991,27 +1032,28 @@ def phase5(dev, res):
     for _ in range(3):
         driver.chunk_to_host(*p.run_chunk())
     card = smi()
-    # one window of FLAGSHIP_CHUNKS chunks (over a second), all scatterings
-    # over all its time; the rates of its parts are printed as the spread.
+    # one window of at least FLAGSHIP_CHUNKS chunks and WINDOW_S seconds,
+    # whole parts of SPREAD_CHUNKS chunks, all scatterings over all its
+    # time; the rates of its parts are printed as the spread.
     # chunk_to_host reads the device, so each mark follows a sync.
     torch.cuda.synchronize()
-    marks, parts, part = [time.perf_counter()], [], 0.0
-    for i in range(FLAGSHIP_CHUNKS):
+    marks, parts, part, n = [time.perf_counter()], [], 0.0, 0
+    while n < FLAGSHIP_CHUNKS or n % SPREAD_CHUNKS \
+            or marks[-1] - marks[0] < WINDOW_S:
         part += driver.chunk_to_host(*p.run_chunk())['nscatt_gas']
-        if (i + 1) % SPREAD_CHUNKS == 0:
+        n += 1
+        if n % SPREAD_CHUNKS == 0:
             marks.append(time.perf_counter())
             parts.append(part)
             part = 0.0
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - marks[0]
-    nsc = sum(parts) + part
+    dt = marks[-1] - marks[0]
+    nsc = sum(parts)
     rate = nsc / dt
-    spread = [n / (t1 - t0) for n, t0, t1 in zip(parts, marks, marks[1:])]
-    assert dt >= 1.0, dt
+    spread = [v / (t1 - t0) for v, t0, t1 in zip(parts, marks, marks[1:])]
     log(5, f'flagship tau0=1e6 nz=201 B={B_MAIN}: {nsc:.6e} gas scatterings'
-           f' in {dt:.6f} s over {FLAGSHIP_CHUNKS} chunks x '
-           f'{par.chunk_cycles} cycles = {rate:.6e} scatterings/s, '
-           f'{dt / (FLAGSHIP_CHUNKS * par.chunk_cycles) * 1e6:.3f} us a '
+           f' in {dt:.6f} s over {n} chunks x {par.chunk_cycles} cycles = '
+           f'{rate:.6e} scatterings/s, '
+           f'{dt / (n * par.chunk_cycles) * 1e6:.3f} us a '
            f'cycle; parts of {SPREAD_CHUNKS} chunks: min {min(spread):.6e} '
            f'max {max(spread):.6e} [{card}]')
     profile_chunks(p, card, 'flagship')

@@ -100,10 +100,11 @@ inline Lanes unpack_lanes(void* const* p) {
 }
 
 // The peel record of one cycle, written by K2 (flag: launched by this
-// refill) and by K4 (flag: scattered; the pre-scatter direction, triad and
-// Stokes with this event's atom velocity), read by K7 right after.  The
-// host passes the pointers in the order of PEEL_RECORD_FIELDS in
-// lart_tpu_torch/instruments/peel.py; unpack_record keeps that order.
+// refill) and by K4 (flag: scattered; the pre-scatter direction, and with
+// Stokes its triad and Stokes vector, with this event's xfreq_atom and atom
+// velocity), read by K7 right after.  The host passes the pointers in the
+// order of PEEL_RECORD_FIELDS in lart_tpu_torch/instruments/peel.py;
+// unpack_record keeps that order.
 struct PeelRecord {
   int* flag;
   float* kx;

@@ -25,9 +25,10 @@
 // grid (up to 201^3 x 4 fields, 130 MB) does not fit the 50 MB L2, so a long
 // sightline is latency-bound on its gathers, and a warp waits for its
 // longest pair.  The bound counted in chip_smoke.py is the flops of the
-// crossings this run's pairs made against 67 TFLOP/s, or the bytes of the
-// lane and record fields read once and the cubes written once, whichever is
-// larger.
+// crossings this run's pairs made against 67 TFLOP/s, or the bytes that the
+// mode reads and writes once (the flag, the lane and record fields it
+// reads, each distinct grid cell walked, each distinct cube bin of the 1-5
+// cubes it writes), whichever is larger.
 #include "lart.cuh"
 #include "voigt.cuh"
 #include "walk.cuh"
@@ -53,6 +54,8 @@ struct PeelParams {
   float* V;
   float* tau_out;  // optional (nobs * B): tau of each depositing pair
   int* bin_out;    // optional (nobs * B): its flat cube index
+  float* w_out;    // optional (4 * nobs * B): its deposits, I (scatt or
+                   //   direc), then Q, U, V of a Stokes resonance peel
   int nobs, nxim, nyim, nxfreq, max_steps;
   int chord;       // uniform sphere: tau is one chord
   int stokes;
@@ -166,17 +169,21 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     p.tau_out[t] = tau;
     p.bin_out[t] = idx;
   }
+  const long long n = (long long)B * p.nobs;
   const float wgt = s.wgt[i];
   if (mode == PEEL_DIRECT) {
     const float w = atten / (LART_FOURPI * r2) * wgt;
     atomicAdd(&p.direc[idx], w);
     if (p.stokes) atomicAdd(&p.I[idx], w);
+    if (p.w_out) p.w_out[t] = w;
     return;
   }
   const float cost2 = cost * cost;
   if (!p.stokes) {
     const float phase = 0.75f * p.E1 * (cost2 + 1.0f) + p.E2;
-    atomicAdd(&p.scatt[idx], phase / (LART_FOURPI * r2) * atten * wgt);
+    const float w = phase / (LART_FOURPI * r2) * atten * wgt;
+    atomicAdd(&p.scatt[idx], w);
+    if (p.w_out) p.w_out[t] = w;
     return;
   }
   // the scattered Stokes vector, rotated to the detector frame
@@ -204,11 +211,18 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   const float Qdet = cos2g * Qobs + sin2g * Uobs;
   const float Udet = -sin2g * Qobs + cos2g * Uobs;
   const float w = atten / r2 * wgt;
-  atomicAdd(&p.scatt[idx], w * Iobs);
-  atomicAdd(&p.I[idx], w * Iobs);
-  atomicAdd(&p.Q[idx], w * Qdet);
-  atomicAdd(&p.U[idx], w * Udet);
-  atomicAdd(&p.V[idx], w * Vobs);
+  const float wI = w * Iobs, wQ = w * Qdet, wU = w * Udet, wV = w * Vobs;
+  atomicAdd(&p.scatt[idx], wI);
+  atomicAdd(&p.I[idx], wI);
+  atomicAdd(&p.Q[idx], wQ);
+  atomicAdd(&p.U[idx], wU);
+  atomicAdd(&p.V[idx], wV);
+  if (p.w_out) {
+    p.w_out[t] = wI;
+    p.w_out[n + t] = wQ;
+    p.w_out[2 * n + t] = wU;
+    p.w_out[3 * n + t] = wV;
+  }
 }
 
 LART_API int lart_peel(void* const* lanes, void* const* record, int B, int mode,

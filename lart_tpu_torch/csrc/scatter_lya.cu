@@ -24,11 +24,11 @@
 // The direction then turns with the reference triad and the Stokes vector
 // (stokes_turn).  With peel-off on, the record's flag is written on every
 // lane (1 where this call scattered), and a scattered lane's pre-scatter
-// direction, triad and Stokes vector with xfreq_atom and the atom velocity
-// (engine.py:2207-2218), which K7 reads next.
+// direction with xfreq_atom and the atom velocity (engine.py:2207-2218),
+// with Stokes also its triad and Stokes vector, which K7 reads next.
 // Bound: arithmetic (tan/atan2/log/exp per round, pow/cos/sin after), with
 // the state read and written once (about 60 bytes a scattering lane, 100
-// with Stokes, plus 68 of record).
+// with Stokes, plus 28 of record, 64 with Stokes).
 #include "lart.cuh"
 #include "philox.cuh"
 #include "samplers.cuh"
@@ -122,21 +122,25 @@ __device__ inline void stokes_turn(const Lanes& s, int i, float cost, float sint
   s.V[i] = (S44 * V) / I1;
 }
 
-// the event as the resonance peel reads it: before the turn
+// the event as the resonance peel reads it: before the turn; the triad and
+// the Stokes vector only where the peel reads them, with Stokes
 __device__ inline void write_record(const PeelRecord& r, const Lanes& s, int i,
-                                    float xatom, float ux, float uy, float uz) {
+                                    float xatom, float ux, float uy, float uz,
+                                    int stokes) {
   r.kx[i] = s.kx[i];
   r.ky[i] = s.ky[i];
   r.kz[i] = s.kz[i];
-  r.mx[i] = s.mx[i];
-  r.my[i] = s.my[i];
-  r.mz[i] = s.mz[i];
-  r.nnx[i] = s.nnx[i];
-  r.nny[i] = s.nny[i];
-  r.nnz[i] = s.nnz[i];
-  r.Q[i] = s.Q[i];
-  r.U[i] = s.U[i];
-  r.V[i] = s.V[i];
+  if (stokes) {
+    r.mx[i] = s.mx[i];
+    r.my[i] = s.my[i];
+    r.mz[i] = s.mz[i];
+    r.nnx[i] = s.nnx[i];
+    r.nny[i] = s.nny[i];
+    r.nnz[i] = s.nnz[i];
+    r.Q[i] = s.Q[i];
+    r.U[i] = s.U[i];
+    r.V[i] = s.V[i];
+  }
   r.xatom[i] = xatom;
   r.ux[i] = ux;
   r.uy[i] = uy;
@@ -204,7 +208,7 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         const float ux = uxy * cosf(phi2), uy = uxy * sinf(phi2);
         const float xfreq_atom = xfreq - uz;
         const float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
-        if (rec.flag) write_record(rec, s, i, xfreq_atom, ux, uy, uz);
+        if (rec.flag) write_record(rec, s, i, xfreq_atom, ux, uy, uz, lw.stokes);
         if (lw.stokes) {
           stokes_turn(s, i, cost, sint, cosp, sinp, S11, S12, S22, S33, S44);
         } else {

@@ -116,6 +116,7 @@ class PeelParams(ctypes.Structure):
     _fields_ = [('obs_pos', _P), ('obs_rmat', _P),
                 ('scatt', _P), ('direc', _P), ('I', _P), ('Q', _P),
                 ('U', _P), ('V', _P), ('tau_out', _P), ('bin_out', _P),
+                ('w_out', _P),
                 ('nobs', _I), ('nxim', _I), ('nyim', _I), ('nxfreq', _I),
                 ('max_steps', _I), ('chord', _I), ('stokes', _I),
                 ('lab_source', _I), ('dxim', _F), ('dyim', _F),
@@ -190,17 +191,16 @@ class Peel:
         c.E1, c.E2, c.E3 = self.E1, self.E2, self.E3
         return c
 
-    def c_params(self, cubes: PeelCubes, tau_out=None, bin_out=None
-                 ) -> PeelParams:
+    def c_params(self, cubes: PeelCubes, pair_out=None) -> PeelParams:
         """The C struct with this call's cube pointers (the launch copies
-        it); tau_out/bin_out, when given, receive each (observer, lane)
-        pair's optical depth and flat cube index."""
+        it); pair_out, when given, is (tau_out, bin_out, w_out) of peel()."""
         c = self._c_params
         for f in CUBE_FIELDS:
             t = getattr(cubes, f)
             setattr(c, f, None if t is None else t.data_ptr())
-        c.tau_out = None if tau_out is None else tau_out.data_ptr()
-        c.bin_out = None if bin_out is None else bin_out.data_ptr()
+        for f, t in zip(('tau_out', 'bin_out', 'w_out'), pair_out or
+                        (None,) * 3):
+            setattr(c, f, None if t is None else t.data_ptr())
         return c
 
 
@@ -243,7 +243,8 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
     """Optical depth from pos along k to the grid's edge for the `active`
     lanes (0 elsewhere): the chord through the uniform sphere, or the
     lockstep DDA of tau_to_edge_cart with its early exit.  stats, a dict,
-    gains the count of cell crossings walked under 'crossings'."""
+    gains the count of cell crossings walked under 'crossings' and marks
+    the cells walked in its 'visited' mask."""
     g = p.grid
     if p.chord:
         rho = g.sphere_rho * voigt_plain(xf, g.a_ref) + g.sphere_rhoD
@@ -258,9 +259,11 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
     for _ in range(p.max_steps):
         if idx.numel() == 0:
             break
+        flat = g.flat(*cell)
         if stats is not None:
             stats['crossings'] = stats.get('crossings', 0) + idx.numel()
-        rho = g.rhokap[g.flat(*cell)] * voigt_plain(xf, g.a_ref)
+            _visit(stats, g, flat)
+        rho = g.rhokap[flat] * voigt_plain(xf, g.a_ref)
         t = [_face_dist(pos[a], k[a], cell[a], g.amin[a], g.d[a])
              if g.walk[a] else torch.full_like(xf, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
@@ -288,6 +291,14 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
         pos, cell, k = ([v[keep] for v in vs] for vs in (npos, ncell, ndir))
     tau[idx] = acc      # the pairs still live after max_steps
     return tau
+
+
+def _visit(stats, g, flat):
+    """Mark the flat cells in stats['visited'], a mask of the grid."""
+    if 'visited' not in stats:
+        stats['visited'] = torch.zeros(g.rhokap.numel(), dtype=torch.bool,
+                                       device=g.rhokap.device)
+    stats['visited'][flat] = True
 
 
 def _add(cube, idx, ok, w):
@@ -330,32 +341,49 @@ def event_frequency(p: Peel, mode: int, s, rec: PeelRecord, pk):
 
 
 def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
-               mode: int, tau_out=None, bin_out=None, stats=None) -> None:
-    """Plain PyTorch peel of the flagged lanes into `cubes`, in place;
-    stats (a dict) counts the pairs that walk ('pairs') and their cell
-    crossings ('crossings')."""
+               mode: int, tau_out=None, bin_out=None, w_out=None,
+               stats=None) -> None:
+    """Plain PyTorch peel of the flagged lanes into `cubes`, in place
+    (tau_out, bin_out, w_out as in peel()).  stats, a dict, gains the work
+    the call needed: the flagged lanes with a pair in an image ('seen'),
+    the pairs that walk ('pairs'), their cell crossings ('crossings'), the
+    distinct grid cells read ('cells': those walked and, in a moving
+    medium, the event cells of the pairs in an image) and the distinct cube
+    bins deposited into ('bins')."""
     s = state
     g = p.grid
     B = s.batch
     cell = (s.ic, s.jc, s.kc)
     flag = rec.flag != 0
     obs = p.obs_meta
+    seen = torch.zeros_like(flag)
+    n_bins = 0
+
+    def put(out, c, ok, w):
+        if out is not None:
+            sl = slice((c * p.nobs + o) * B, (c * p.nobs + o + 1) * B)
+            out[sl] = torch.where(ok, w, out[sl])
+
     for o in range(p.nobs):
         pk, r2, img, in_img = obs_geometry(p, o, s.x, s.y, s.z)
         xf, cost, cosp, sinp = event_frequency(p, mode, s, rec, pk)
         ixf, okf = freq_bin(p, cell, pk, xf)
         act = flag & in_img
-        if stats is not None:
-            stats['pairs'] = stats.get('pairs', 0) + int((act & okf).sum())
         tau = tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, act & okf,
                           stats)
         atten = torch.exp(-torch.clamp_max(tau, 700.0))
         idx = ((o * g.nxfreq + torch.clamp(ixf, 0, g.nxfreq - 1)).long()
                * (obs.nxim * obs.nyim) + img)
         ok = act & okf
-        if tau_out is not None:
+        if stats is not None:
+            seen |= act
+            stats['pairs'] = stats.get('pairs', 0) + int(ok.sum())
+            n_bins += int(torch.unique(idx[ok]).numel())
+            if g.moving:
+                _visit(stats, g, g.flat(*(c[act] for c in cell)))
+        put(tau_out, 0, ok, tau)
+        if bin_out is not None:
             sl = slice(o * B, (o + 1) * B)
-            tau_out[sl] = torch.where(ok, tau, tau_out[sl])
             bin_out[sl] = torch.where(ok, idx, bin_out[sl].long()).to(
                 bin_out.dtype)
         if mode == DIRECT:
@@ -363,11 +391,13 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
             _add(cubes.direc, idx, ok, w)
             if p.stokes:
                 _add(cubes.I, idx, ok, w)
+            put(w_out, 0, ok, w)
         elif not p.stokes:
             cost2 = cost * cost
             phase = 0.75 * p.E1 * (cost2 + 1.0) + p.E2
             w = phase / (FOURPI * r2) * atten * s.wgt
             _add(cubes.scatt, idx, ok, w)
+            put(w_out, 0, ok, w)
         else:
             cost2 = cost * cost
             S22 = 0.75 * p.E1 * (cost2 + 1.0)
@@ -395,29 +425,41 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
             Qdet = cos2g * Qobs + sin2g * Uobs
             Udet = -sin2g * Qobs + cos2g * Uobs
             w = atten / r2 * s.wgt
-            _add(cubes.scatt, idx, ok, w * Iobs)
-            _add(cubes.I, idx, ok, w * Iobs)
-            _add(cubes.Q, idx, ok, w * Qdet)
-            _add(cubes.U, idx, ok, w * Udet)
-            _add(cubes.V, idx, ok, w * Vobs)
+            wI = w * Iobs
+            _add(cubes.scatt, idx, ok, wI)
+            for c, (cube, wc) in enumerate(((cubes.I, wI),
+                                            (cubes.Q, w * Qdet),
+                                            (cubes.U, w * Udet),
+                                            (cubes.V, w * Vobs))):
+                _add(cube, idx, ok, wc)
+                put(w_out, c, ok, wc)
+    if stats is not None:
+        stats['seen'] = int(seen.sum())
+        stats['bins'] = n_bins
+        stats['cells'] = int(stats.pop('visited').sum()) \
+            if 'visited' in stats else 0
 
 
 def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
-         tau_out=None, bin_out=None) -> None:
+         tau_out=None, bin_out=None, w_out=None) -> None:
     """Peel the flagged lanes to every observer, in place: kernel K7 for a
-    CUDA state, the plain version for a CPU state.  tau_out (nobs*B f32)
-    and bin_out (nobs*B int32), when given, receive the optical depth and
-    flat cube index of each (observer, lane) pair that deposits."""
+    CUDA state, the plain version for a CPU state.  tau_out (nobs*B f32),
+    bin_out (nobs*B int32) and w_out (4*nobs*B f32), given together or not
+    at all, receive the optical depth, the flat cube index and the deposits
+    of each (observer, lane) pair that deposits: pair t = o*B + lane gets
+    its scatt (resonance) or direc (direct) deposit at w_out[t] and, in a
+    resonance peel with Stokes, its Q, U, V deposits at w_out[t + c*nobs*B],
+    c = 1, 2, 3."""
     if state.device.type == 'cpu':
-        peel_plain(state, cubes, rec, p, mode, tau_out, bin_out)
+        peel_plain(state, cubes, rec, p, mode, tau_out, bin_out, w_out)
         return
-    out = () if tau_out is None else (tau_out, bin_out)
+    out = () if tau_out is None else (tau_out, bin_out, w_out)
     kbuild.require_cuda('peel', state.x, rec.flag, p.pos, p.rmat,
                         *(t for _, t in cubes.items()),
                         *p.grid.device_tensors(), *out)
     kbuild.check(kbuild.library().lart_peel(
         state.lane_pointers, rec.pointers, state.batch, mode,
         ctypes.byref(p.grid.c_grid_params),
-        ctypes.byref(p.c_params(cubes, tau_out, bin_out)),
+        ctypes.byref(p.c_params(cubes, out)),
         kbuild.stream_of(state.x)), 'peel')
     kbuild.LAUNCHES['peel'] += 1

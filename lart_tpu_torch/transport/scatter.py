@@ -14,9 +14,9 @@ fails the u_par rounds does), and the direction, the reference triad
 against f32 drift in lart_tpu's order.
 
 With peel-off on, the scatter writes a PeelRecord: the flag of the lanes
-that scattered, and their pre-scatter direction, triad and Stokes vector
-with this event's xfreq_atom and atom velocity (:2207-2218), which the
-resonance peel (kernel K7) reads right after.
+that scattered, and their pre-scatter direction (with use_stokes also the
+triad and Stokes vector) with this event's xfreq_atom and atom velocity
+(:2207-2218), which the resonance peel (kernel K7) reads right after.
 
 Core-skip (local_xcrit, :1872-1905): a lane with |x| < xcrit draws its
 perpendicular speed as sqrt(xcrit^2 - log xi).  core_skip_global takes the
@@ -190,8 +190,9 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     if record is not None:
         # the event as the resonance peel sees it: before the turn
         record.flag.copy_(do_res.to(torch.int32))
-        for f in ('kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
-                  'Q', 'U', 'V'):
+        for f in ('kx', 'ky', 'kz') + (('mx', 'my', 'mz', 'nnx', 'nny',
+                                        'nnz', 'Q', 'U', 'V')
+                                       if p.stokes else ()):
             getattr(record, f).copy_(getattr(s, f))
         for f, v in (('xatom', xfreq_atom), ('ux', ux), ('uy', uy),
                      ('uz', uz)):

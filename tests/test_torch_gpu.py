@@ -118,8 +118,8 @@ PEEL = {    # case: (testing helper, overrides, Stokes, r_max)
 @pytest.mark.parametrize('mode', ['direct', 'resonance'])
 @pytest.mark.parametrize('case', sorted(PEEL))
 def test_peel_kernel_matches_plain(cuda, case, mode):
-    """K7 against its plain version: per-pair optical depth and bin, then
-    the cubes to 1e-5 of their sum (chip_smoke.peel_both)."""
+    """K7 against its plain version: per-pair optical depth, bin and
+    deposits, then the cubes to 1e-5 of their sum (chip_smoke.peel_both)."""
     import chip_smoke
     from lart_tpu_torch import testing
     from lart_tpu_torch.grid.cartesian import build_cartesian
@@ -135,7 +135,8 @@ def test_peel_kernel_matches_plain(cuda, case, mode):
     chip_smoke.B_MAIN = 8192
     n0 = kb.LAUNCHES['peel']
     m = tpeel.DIRECT if mode == 'direct' else tpeel.RESONANCE
-    n_bad, n_dep, err, _ = chip_smoke.peel_both(ch, meta, 5, m, cuda, r_max)
+    n_bad, n_dep, err, _, _ = chip_smoke.peel_both(ch, meta, 5, m, cuda,
+                                                   r_max)
     assert kb.LAUNCHES['peel'] > n0 and n_dep > 0
 
 

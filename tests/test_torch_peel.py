@@ -183,3 +183,59 @@ def test_peel_matches_make_peel(case, mode):
                                        f'out: tau {n_tau}, edge {n_edge})')
     deposited = cubes.direc if m == tpeel.DIRECT else cubes.scatt
     assert float(deposited.sum()) > 0.0
+
+
+# the cubes each component of a pair's deposits goes into (peel() w_out)
+PAIR_CUBES = {(tpeel.DIRECT, False): (('direc', 0),),
+              (tpeel.DIRECT, True): (('direc', 0), ('I', 0)),
+              (tpeel.RESONANCE, False): (('scatt', 0),),
+              (tpeel.RESONANCE, True): (('scatt', 0), ('I', 0), ('Q', 1),
+                                        ('U', 2), ('V', 3))}
+
+
+@pytest.mark.parametrize('mode', ['direct', 'resonance'])
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_pair_outputs_and_work_add_up(case, mode):
+    """The plain version's per-pair outputs (what the card's check holds
+    K7 to, pair by pair) add up to its cubes, and its work counts (K7's
+    bound in chip_smoke.py) agree with the pairs, bins and cells it used."""
+    make, r_max = CASES[case]
+    cfg = make().resolve()
+    meta, grid = build_cartesian(cfg)
+    p = teng.make_chunk(cfg, meta, grid).peel
+    m = tpeel.DIRECT if mode == 'direct' else tpeel.RESONANCE
+    s = testing.mixed_state(meta, 2048, seed=63, r_max=r_max)
+    rec = testing.peel_record(s, seed=64)
+    rec.flag.copy_(torch.as_tensor(
+        np.random.default_rng(65).random(s.batch) < 0.8, dtype=torch.int32))
+    n = p.nobs * s.batch
+    tau = torch.full((n,), -1.0)
+    bins = torch.full((n,), -1, dtype=torch.int32)
+    w = torch.zeros((4, n))
+    cubes = p.zero_cubes('cpu')
+    stats = {}
+    tpeel.peel_plain(s, cubes, rec, p, m, tau, bins, w.view(-1),
+                     stats=stats)
+    dep = bins >= 0
+    assert stats['pairs'] == int(dep.sum()) > 0
+    assert stats['bins'] == int(torch.unique(bins[dep]).numel())
+    assert 0 < stats['seen'] <= int(rec.flag.sum())
+    assert bool((tau[dep] >= 0.0).all())
+    comps = PAIR_CUBES[(m, p.stokes)]
+    for name, c in comps:
+        cube = getattr(cubes, name)
+        want = torch.zeros_like(cube).index_add_(0, bins[dep].long(),
+                                                 w[c][dep])
+        torch.testing.assert_close(cube, want, rtol=1e-6, atol=1e-6 * float(
+            want.abs().sum()), msg=f'{case} {mode} {name}')
+    used = max(c for _, c in comps) + 1
+    assert bool((w[used:] == 0.0).all()) and bool((w[:, ~dep] == 0.0).all())
+    if p.chord:
+        assert stats['cells'] == 0
+    else:
+        # every walking pair reads its own cell first
+        g = p.grid
+        lanes = torch.arange(n) % s.batch
+        start = g.flat(s.ic[lanes[dep]], s.jc[lanes[dep]], s.kc[lanes[dep]])
+        ncell = meta.nx * meta.ny * meta.nz
+        assert int(torch.unique(start).numel()) <= stats['cells'] <= ncell
