@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of lart_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, runs the slab, the uniform
-sphere and the expanding Hubble sphere end to end through the driver and
-the CLI, without and with peel-off images (Stokes), and measures their
-steady-state rates.
+sphere, the expanding Hubble sphere and the dusty expanding shell end to
+end through the driver and the CLI, without and with peel-off images
+(Stokes), and measures their steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
@@ -23,11 +23,16 @@ Phases (one line each, or more):
      the chord, with and without Stokes; vel_effect_peel: the 201^3 walk
      in the Hubble flow), K4's Stokes branch with its peel record
      (sphere_peel, slab_peel with core-skip) and K2's birth triad and
-     launch flags
+     launch flags; dust on the 201^3 grid of examples/DL2008/DL20e_dust.in
+     as written, with and without Stokes: K5 with rhokapD, K2's Gaussian
+     births, K4's dust branch (HG, Mueller +- use_reduced_wgt) with its
+     peel record, K7 in mode dust
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
-     tau0 = 100 uniform sphere with Stokes and a 17^3 Hubble sphere without
+     tau0 = 100 uniform sphere with Stokes and a 17^3 Hubble sphere without;
+     the 17^3 dusty shell of testing.dust_params with Mueller dust, Stokes
+     and one observer (absorbed weight, spectra, scatterings, peel)
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
@@ -36,13 +41,17 @@ Phases (one line each, or more):
      201^3 grid cut to N_HI 2e18 and 1e4 photons (W_esc + W_oor); the
      peel-off examples as written but for their photons: slab_peel 1e4,
      sphere_peel 2e4 (flux closure), vel_effect_peel at N_HI 2e18 and 1e4
-     photons (weight, and the _peel3D files)
+     photons (weight, and the _peel3D files); examples/DL2008/DL20e_dust.in
+     and DL20e.in as written but for their photons and N_HI 1e18 (with
+     DGR 100: the dust's tau as written) (W_esc + W_abs + W_oor, the
+     absorbed share, a red-dominated spectrum)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
      then one window of >= 1 s each of t4tau7 as written, vel_effect V0200
      as written, the flagship slab through K5 (force_generic_kernel), and
-     the three peel-off examples as written; a torch.profiler breakdown of
+     the three peel-off examples as written, DL20e_dust as written and with
+     one observer on +z; a torch.profiler breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
@@ -52,6 +61,7 @@ It imports neither jax nor h5py.
 """
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -75,6 +85,12 @@ F32_FLOP_S = 67e12            # H100 SXM f32 outside the tensor cores, flop/s
 PEEL_EXAMPLES = {'slab_peel': 'slab_peel/t1tau4.in',
                  'sphere_peel': 'sphere_peel/t4tau4_peel.in',
                  'vel_effect_peel': 'vel_effect_peel/t4NHI2_20_V0200_peel.in'}
+DL20E_DUST, DL20E = 'DL2008/DL20e_dust.in', 'DL2008/DL20e.in'
+DL_PHOTONS = 10000            # phase 4's cut of the DL2008 examples
+# one external observer on the +z axis; DL20e_dust.in sets its 129 x 129
+# image
+OBSERVER = dict(save_peeloff=True, nobs=1, distance=1e3, alpha=(0.0,),
+                beta=(0.0,))
 
 
 def log(phase, msg):
@@ -152,6 +168,13 @@ def kernel_work(name, pre, ch, meta, stats=None):
         rec = (7 + st) * 4 if peel is not None else 0
         per_lane = (10 + st + 7 + st) * 4 + rec
         flops = sp.rounds * (60 + (40 if sp.stokes else 0)) + 120 + 60 * (st > 0)
+        if sp.dust:
+            # each lane's event split: its cell's rhokapD (and velocity for
+            # Jabs in a moving medium), a Voigt and a Philox block; the
+            # Mueller table once; Jabs written once
+            grid += min(cells, k) * 4 * (1 + (3 if sp.vel else 0))
+            grid += (7 * sp.mueller.n * 4 if sp.mueller else 0) + ch.nxfreq * 4
+            flops += 80
         return B * 4 + flag + k * per_lane + grid, k * flops
     if name == 'peel':
         # the flag of every lane; the position of each flagged lane; the
@@ -162,22 +185,32 @@ def kernel_work(name, pre, ch, meta, stats=None):
         # velocity in a moving medium); each distinct bin of the cubes the
         # mode writes (direct: direc, and I with Stokes; resonance: scatt,
         # and I, Q, U, V with Stokes); the observers
+        # (mode dust: the record's k, triad, Q, U, V and the lane's xfreq,
+        # and the Mueller table with Stokes)
         from lart_tpu_torch.instruments.peel import DIRECT
         g = peel.grid
+        st = 9 if peel.stokes else 0
+        dust = stats.get('seen_dust', 0)
         if stats['mode'] == DIRECT:
             per_seen = 4 * (4 + 1 + (3 if peel.lab_source else 0))
+            seen = stats['seen'] * per_seen
             ncubes = 2 if peel.stokes else 1
         else:
-            per_seen = 4 * (4 + 7 + (9 if peel.stokes else 0))
+            seen = ((stats['seen'] - dust) * 4 * (4 + 7 + st)
+                    + dust * 4 * (4 + 4 + st))
             ncubes = 5 if peel.stokes else 1
-        grid = stats['cells'] * 4 * (4 if g.moving else 1)
-        return (B * 4 + stats['lanes'] * 12 + stats['seen'] * per_seen
+        table = 7 * peel.mueller.n * 4 if dust and peel.mueller else 0
+        grid = stats['cells'] * 4 * ((4 if g.moving else 1)
+                                     + (1 if g.rhokapD is not None else 0))
+        return (B * 4 + stats['lanes'] * 12 + seen + table
                 + grid + stats['bins'] * 4 * ncubes + peel.nobs * 12 * 4,
                 stats.get('crossings', 0) * 60 + stats['pairs'] * 150)
     k = int(((ph == FLYING) | (ph == FFS)).sum())
     grid = 0
     if name == 'fly_cartesian':
-        grid = min(cells, k) * 4 * (4 if ch.flight.moving else 1)
+        grid = min(cells, k) * 4 * ((4 if ch.flight.moving else 1)
+                                    + (1 if ch.flight.rhokapD is not None
+                                       else 0))
     return B * 4 + k * (24 + 12) * 4 + grid + ch.nxfreq * 4 * (1 + ch.nmu), 0
 
 
@@ -236,13 +269,16 @@ def phase1():
            f'(load {time.time() - t0:.1f} s); ptxas registers: {per}')
 
 
-def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8):
+def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8,
+         state=None):
     """step(state, tallies, kernel) through the kernel and through the
-    plain version from one mixed state; returns (s0, kernel state, fraction
-    of lanes differing, max abs error of the others, tallies' max |d|)."""
+    plain version from one mixed state (or `state`); returns (s0, kernel
+    state, fraction of lanes differing, max abs error of the others,
+    tallies' max |d|)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.transport.state import zero_tallies
-    s0 = testing.mixed_state(meta, B_MAIN, state_seed, dev, r_max=r_max)
+    s0 = state if state is not None else testing.mixed_state(
+        meta, B_MAIN, state_seed, dev, r_max=r_max)
     sk, sp = testing.clone_state(s0), testing.clone_state(s0)
     tk = zero_tallies(meta.nxfreq, nmu, dev)
     tp = zero_tallies(meta.nxfreq, nmu, dev)
@@ -266,6 +302,41 @@ def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8):
 def _max_err(res, name, err):
     res.setdefault(name, {'max_abs_err': 0.0})
     res[name]['max_abs_err'] = max(res[name]['max_abs_err'], err)
+
+
+def fly_step(chunk):
+    """step() of both(): the chunk's flight, kernel or plain version."""
+    def step(s, t, kernel):
+        mod = sys.modules[type(chunk.flight).__module__]
+        (mod.fly if kernel else mod.fly_plain)(
+            s, t, chunk.flight, chunk.fly_substeps)
+    return step
+
+
+def refill_step(chunk):
+    from lart_tpu_torch.transport import refill
+
+    def step(s, t, kernel):
+        (refill.refill if kernel else refill.refill_plain)(
+            s, t, chunk.refill_params, 7, 12345, 10 ** 9)
+    return step
+
+
+def scatter_step(chunk, params=None, recs=None):
+    """step() of both(): K4 or its plain version with `params` (the
+    chunk's by default); with `recs`, a dict, each writes a peel record
+    that lands in recs[kernel]."""
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport import scatter
+    sp = params or chunk.scatter_params
+
+    def step(s, t, kernel):
+        rec = None
+        if recs is not None:
+            rec = recs[kernel] = tpeel.PeelRecord.zeros(s.batch, s.device)
+        (scatter.scatter if kernel else scatter.scatter_plain)(
+            s, t, sp, 7, 99, rec)
+    return step
 
 
 def phase2(dev):
@@ -310,25 +381,12 @@ def phase2(dev):
     ch = make_chunk(cfg, meta, grid)
     nx = meta.nxfreq
 
-    def fly_step(chunk):
-        def step(s, t, kernel):
-            mod = sys.modules[type(chunk.flight).__module__]
-            (mod.fly if kernel else mod.fly_plain)(
-                s, t, chunk.flight, chunk.fly_substeps)
-        return step
-
     _, _, frac, err, tal = both(meta, 21, fly_step(ch),
                                 ('Jout', 'Jmu', 'W_oor'), dev)
     _max_err(res, 'fly_uniform_slab', err)
     log(2, f'K3 fly_uniform_slab: B={B_MAIN} mixed phases, lanes differing '
            f'{frac:.2e} (rtol {LANE_RTOL}, atol {LANE_ATOL}, max {MAX_FRAC}),'
            f' max abs err {err:.3e}; tallies max |d| {tal} (atol 1e-5 x sum)')
-
-    def refill_step(chunk):
-        def step(s, t, kernel):
-            (refill.refill if kernel else refill.refill_plain)(
-                s, t, chunk.refill_params, 7, 12345, 10 ** 9)
-        return step
 
     s0, sk, frac, err, tal = both(meta, 22, refill_step(ch), ('Jin',), dev)
     n_dead = int((s0.phase == DEAD).sum())
@@ -345,12 +403,6 @@ def phase2(dev):
     log(2, f'K2 refill_point: {n_dead} dead lanes all launched, lanes '
            f'differing {frac:.2e}, max abs err {err:.3e}, Jin max |d| '
            f'{tal["Jin"]:.3e}; budget-limited launch count exact')
-
-    def scatter_step(chunk):
-        def step(s, t, kernel):
-            (scatter.scatter if kernel else scatter.scatter_plain)(
-                s, t, chunk.scatter_params, 7, 99)
-        return step
 
     _, _, frac, err, tal = both(meta, 23, scatter_step(ch),
                                 ('nscatt_gas', 'nscatt_events'), dev)
@@ -434,6 +486,7 @@ def phase2(dev):
                f'lanes differing {frac:.2e}, max abs err {err:.3e}')
     del grid, ch
     phase2_peel(dev, res)
+    phase2_dust(dev, res)
     return res
 
 
@@ -457,8 +510,10 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
     p = ch.peel
     s = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=r_max)
     rec = testing.peel_record(s, seed + 1)
+    kind = max(mode, tpeel.RESONANCE)     # the flag of mode's events
+    rec.flag.fill_(kind)
     n = p.nobs * B_MAIN
-    ncomp = 4 if p.stokes and mode == tpeel.RESONANCE else 1
+    ncomp = 4 if p.stokes and mode != tpeel.DIRECT else 1
 
     def run(kernel):
         cubes = p.zero_cubes(dev)
@@ -489,7 +544,8 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
     assert not bool(w_bad.any()), ('pair deposits differ', int(w_bad.sum()))
     dw_rel = float((dw / scale.clamp_min(1e-37))[good].max())
     if n_bad:
-        rec.flag.copy_((~bad.view(p.nobs, B_MAIN).any(0)).to(torch.int32))
+        rec.flag.copy_((~bad.view(p.nobs, B_MAIN).any(0)).to(torch.int32)
+                       * kind)
         ck, cp = run(True)[0], run(False)[0]
     err = 0.0
     for (name, u), (_, v) in zip(ck.items(), cp.items()):
@@ -503,17 +559,19 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
 
 def record_diff(a, b):
     """(lanes whose peel records differ, max abs error of the others): the
-    flag exactly, the event fields of the flagged lanes to rtol/atol."""
-    from lart_tpu_torch.instruments.peel import PEEL_RECORD_FIELDS
-    on = a.flag != 0
+    flag exactly, the event fields of the flagged lanes to rtol/atol; a
+    dust event's (flag 2) are its direction, triad and Stokes vector."""
+    from lart_tpu_torch.instruments.peel import DUST, PEEL_RECORD_FIELDS
     bad = a.flag != b.flag
+    err = 0.0
     for f in PEEL_RECORD_FIELDS[1:]:
-        bad |= on & ~torch.isclose(getattr(a, f), getattr(b, f),
-                                   rtol=LANE_RTOL, atol=LANE_ATOL)
-    good = on & ~bad
-    err = max((float((getattr(a, f) - getattr(b, f)).abs()[good].max())
-               for f in PEEL_RECORD_FIELDS[1:]), default=0.0) \
-        if bool(good.any()) else 0.0
+        on = (a.flag != 0) if f not in ('xatom', 'ux', 'uy', 'uz') \
+            else (a.flag != 0) & (a.flag != DUST)
+        u, v = getattr(a, f), getattr(b, f)
+        off = on & ~torch.isclose(u, v, rtol=LANE_RTOL, atol=LANE_ATOL)
+        bad |= off
+        if bool((on & ~off).any()):
+            err = max(err, float((u - v).abs()[on & ~off].max()))
     return int(bad.sum()), err
 
 
@@ -593,6 +651,81 @@ def k4_k2_with_record(name, ch, meta, dev, r_max, seed, res):
     return seed
 
 
+def phase2_dust(dev, res):
+    """Dust on the grid of examples/DL2008/DL20e_dust.in as written (201^3,
+    the 0.9 < r < 1 shell moving out at 200 km/s, DGR 1, a Gaussian line),
+    with Stokes (the Mueller table) and without (Henyey-Greenstein), one
+    observer on +z: K5 with rhokapD, K2's Gaussian births, K4's dust branch
+    (+- use_reduced_wgt with Stokes) with its peel record, on lanes in the
+    shell with xfreq up to 300 (the wing, where the dust wins the event
+    split of this shell: rhokapD / rhokap = 2.7e-8), and K7 in mode dust,
+    pair by pair."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport.engine import make_chunk
+    from lart_tpu_torch.transport.scatter import EVENT_DUST, EVENT_RESONANCE
+    seed = 80
+    for stokes in (True, False):
+        t0 = time.time()
+        cfg = example_params(DL20E_DUST, batch_size=B_MAIN, use_stokes=stokes,
+                             **OBSERVER).resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        t_grid = time.time() - t0
+        what = 'Stokes, Mueller' if stokes else 'no Stokes, HG'
+        if stokes:
+            _, _, frac, err, tal = both(meta, seed, fly_step(ch),
+                                        ('Jout', 'Jmu', 'W_oor'), dev,
+                                        nmu=ch.nmu, r_max=1.0)
+            _max_err(res, 'fly_cartesian', err)
+            log(2, f'K5 fly_cartesian, DL20e_dust 201^3 with rhokapD (grid '
+                   f'built in {t_grid:.1f} s): lanes differing {frac:.2e}, '
+                   f'max abs err {err:.3e}; tallies max |d| {tal}')
+            _, sk, frac, err, tal = both(meta, seed + 1, refill_step(ch),
+                                         ('Jin',), dev)
+            _max_err(res, 'refill_point', err)
+            log(2, f'K2 refill_point, Gaussian spectrum (sigma_x '
+                   f'{ch.refill_params.sigma_x:.4f}): lanes differing '
+                   f'{frac:.2e}, max abs err {err:.3e}, Jin max |d| '
+                   f'{tal["Jin"]:.3e}')
+        for reduced in ((False, True) if stokes else (False,)):
+            seed += 2
+            sp = dataclasses.replace(ch.scatter_params, reduced_wgt=reduced)
+            recs = {}
+            state = testing.dust_state(meta, grid, B_MAIN, seed, 300.0, dev)
+            s0, sk, frac, err, tal = both(
+                meta, seed, scatter_step(ch, sp, recs),
+                ('nscatt_gas', 'nscatt_events', 'Jabs', 'nscatt_dust'), dev,
+                state=state)
+            n_rec, rerr = record_diff(recs[True], recs[False])
+            assert n_rec <= MAX_FRAC * B_MAIN, n_rec
+            _max_err(res, 'scatter_lya', max(err, rerr))
+            flag = recs[True].flag
+            n_dust, n_res = int((flag == EVENT_DUST).sum()), \
+                int((flag == EVENT_RESONANCE).sum())
+            n_abs = int((sk.phase == 0).sum())
+            assert n_dust > 0.05 * B_MAIN and n_res > 0.05 * B_MAIN and (
+                (n_abs == 0) == reduced), (n_dust, n_res, n_abs)
+            log(2, f'K4 scatter_lya dust ({what}, reduced_wgt {reduced}) on '
+                   f'the DL20e_dust grid: {n_res} resonance, {n_dust} dust '
+                   f'scatterings, {n_abs} absorbed of {B_MAIN}; lanes '
+                   f'differing {frac:.2e}, max abs err {err:.3e}; record '
+                   f'lanes differing {n_rec}, max abs err {rerr:.3e}; '
+                   f'tallies max |d| {tal}')
+        seed += 2
+        n_bad, n_dep, err, dtau, dw = peel_both(ch, meta, seed, tpeel.DUST,
+                                                dev, 1.0)
+        _max_err(res, 'peel', err)
+        log(2, f'K7 peel dust, DL20e_dust ({what}; 1 observer, '
+               f'{ch.peel.obs_meta.nxim}x{ch.peel.obs_meta.nyim} x '
+               f'{meta.nxfreq} bins): {n_dep} of {B_MAIN} pairs deposit, pairs '
+               f'differing {n_bad}, max |d tau| {dtau:.3e}, per-pair deposits '
+               f'max rel err {dw:.3e} (rtol 1e-5, all pairs), cubes max abs '
+               f'err {err:.3e} (atol 1e-5 x sum)')
+        del grid, ch
+
+
 def _in_core_fraction(s0, p):
     from lart_tpu_torch.transport.scatter import local_xcrit
     xc, _ = local_xcrit(s0, p)
@@ -652,6 +785,61 @@ def peel_agree(label, rg, rc, nphotons):
     return cg
 
 
+def dust_run(label, par, dev):
+    """driver.run on cuda and on cpu of a dusty config: the weight closes
+    in each (W_esc + W_abs + W_oor to 1e-3); the absorbed weight within 3
+    sigma of its binomial spread, the escaped and absorbed spectra's shapes
+    chi2/dof < 3, the gas and dust scatterings per photon and, with an
+    observer, the peeled flux closure and Stokes I within 3 sigma of their
+    per-photon spreads on the dusty shell (testing.DUST_V_*,
+    PEEL_V_DUST)."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    n = par.nphotons
+    kb.reset_launch_counts()
+    t0 = time.time()
+    rg = driver.run(par, device=dev, seed=5)
+    tg = time.time() - t0
+    counts = {k: v for k, v in kb.LAUNCHES.items() if v}
+    nthreads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.time()
+        rc = driver.run(par, device='cpu', seed=6)
+        tc = time.time() - t0
+    finally:
+        torch.set_num_threads(nthreads)
+    for r in (rg, rc):
+        w = r.W_escape + r.W_absorb + r.W_oor
+        assert abs(w - 1.0) < 1e-3, (r.W_escape, r.W_absorb, r.W_oor)
+    p = 0.5 * (rg.W_absorb + rc.W_absorb)
+    assert abs(rg.W_absorb - rc.W_absorb) <= 3 * np.sqrt(2 * p * (1 - p) / n)
+    chi2 = {k: testing.spectra_chi2(getattr(rg, k), getattr(rc, k),
+                                    n * getattr(rg, w), n * getattr(rc, w))[0]
+            for k, w in (('Jout', 'W_escape'), ('Jabs', 'W_absorb'))}
+    assert max(chi2.values()) < 3.0, chi2
+    for a, b, v in ((rg.nscatt_gas, rc.nscatt_gas, testing.DUST_V_NSCATT),
+                    (rg.nscatt_dust, rc.nscatt_dust, testing.DUST_V_NDUST)):
+        assert abs(a / b - 1.0) < 3.0 * np.sqrt(2.0 * v / n), (a, b)
+    peel = ''
+    if rg.peel is not None:
+        sig = np.sqrt(testing.PEEL_V_DUST / n)
+        cg, cc = testing.peel_closure(rg)[0], testing.peel_closure(rc)[0]
+        ig, ic = (float(r.peel['I'].sum()) for r in (rg, rc))
+        assert abs(cg - 1.0) < 3 * sig and abs(cc - 1.0) < 3 * sig, (cg, cc)
+        assert abs(ig / ic - 1.0) < 3 * np.sqrt(2.0) * sig, (ig, ic)
+        peel = (f'; 4 pi d^2 flux / W_esc cuda {cg:.4f} cpu {cc:.4f}, Stokes '
+                f'I {ig:.4f} / {ic:.4f} (3 sigma {3 * sig:.4f})')
+    log(3, f'{label}: W_esc + W_abs + W_oor cuda {rg.W_escape:.6f} + '
+           f'{rg.W_absorb:.6f} + {rg.W_oor:.6f} ({tg:.1f} s), cpu '
+           f'{rc.W_escape:.6f} + {rc.W_absorb:.6f} + {rc.W_oor:.6f} ('
+           f'{tc:.1f} s); <N> gas {rg.nscatt_gas:.3f} / {rc.nscatt_gas:.3f},'
+           f' dust {rg.nscatt_dust:.4f} / {rc.nscatt_dust:.4f}; chi2/dof '
+           f'Jout {chi2["Jout"]:.2f} Jabs {chi2["Jabs"]:.2f}{peel}; launches '
+           f'{counts}')
+    return counts
+
+
 def phase3(dev):
     from lart_tpu_torch import testing
     c = spectra_run('slab tau0=100 1e4 photons', testing.slab_params(
@@ -679,6 +867,14 @@ def phase3(dev):
                         testing.hubble_params(tau0=100.0, n=17,
                                               nphotons=10_000, batch=4096),
                         stokes=False, nim=17), dev)
+    assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
+                                  'scatter_lya', 'peel')), c
+    # the dusty expanding shell, Mueller dust with Stokes, one observer
+    par = dataclasses.replace(
+        testing.peel_params(testing.dust_params(nphotons=4000), nim=17),
+        alpha=(0.0,), beta=(0.0,))
+    c = dust_run('dusty shell 17^3 (testing.dust_params) 4000 photons, '
+                 'Mueller dust, Stokes peel', par, dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
                                   'scatter_lya', 'peel')), c
 
@@ -788,6 +984,7 @@ def phase4(tauhomo=1e4, device='cuda'):
                f'wall {wall:.1f} s; launches {launches}')
 
         peel_cli(tmp, device, total)
+        dl2008_cli(tmp, device, total)
     return total
 
 
@@ -840,6 +1037,45 @@ def peel_cli(tmp, device, total):
                f'<N_scatt> {res.nscatt_gas:.2f}, 4 pi d^2 peeled flux / '
                f'W_esc {closure[0]:.4f}, _peel3D {shape}, wall '
                f'{wall:.1f} s; launches {launches}')
+
+
+def dl2008_cli(tmp, device, total, nphotons=DL_PHOTONS):
+    """The Dijkstra & Loeb (2008) expanding shell as written (201^3, 200
+    km/s, a Gaussian line, Stokes) but for its photons and its column, with
+    dust (DL20e_dust.in) and without (DL20e.in): the weight closes and the
+    escaped spectrum is red-dominated (the receding far side of the
+    shell).  N_HI is cut from 1e20 to 1e18 (tau0 5.9e6 to 5.9e4) and DGR
+    raised from 1 to 100, so the dust's optical depth stays 0.16 as
+    written: as written, a few percent of the photons scatter into the
+    shell's line core and random-walk ~tau0 times, and 2000 photons still
+    had 12 alive after 200 s (even with core-skip) on an H100."""
+    for rel in (DL20E_DUST, DL20E):
+        over = {'no_photons': f'{nphotons:g}', 'N_HI': '1.0e18'}
+        if rel == DL20E_DUST:
+            over['DGR'] = '100.0'
+        nml = namelist_variant(rel, tmp, **over)
+        out = Path(tmp) / (Path(rel).stem + '.fits')
+        rc, res, wall, launches = run_cli(nml, out, device)
+        assert rc == 0
+        x, jout = res.xfreq, res.Jout
+        assert np.all(np.isfinite(jout)) and jout.shape == x.shape
+        w = res.W_escape + res.W_absorb + res.W_oor
+        assert abs(w - 1.0) < 1e-3, (rel, res.W_escape, res.W_absorb,
+                                     res.W_oor)
+        red = float(jout[x < 0].sum() / jout.sum())
+        assert red > 0.5, red
+        dust = res.cfg.par.DGR > 0.0
+        if dust:
+            assert res.W_absorb > 0.0 and res.Jabs is not None
+        add_launches(total, launches, ('refill_point', 'fly_cartesian',
+                                       'scatter_lya'))
+        log(4, f'CLI {Path(rel).name} ({res.nphotons} photons, 201^3, '
+               f'N_HI 1e18, DGR {res.cfg.par.DGR:g}, Stokes, FITS): W_esc {res.W_escape:.6f} + W_abs '
+               f'{res.W_absorb:.6f} + W_oor {res.W_oor:.6f} = {w:.6f}, '
+               f'absorbed share {res.W_absorb:.6f}, share of escaped weight '
+               f'at x < 0 (red) {red:.4f}, <N_scatt> {res.nscatt_gas:.2f}, '
+               f'dust events {res.nscatt_dust:.4f}, wall {wall:.1f} s; '
+               f'launches {launches}')
 
 
 def device_ms(calls):
@@ -895,7 +1131,8 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
     on one cycle's inputs at the steady-state shapes, beside its bound; the
     numbers of the kernels named in `record` go into res.  With peel-off
     the refill and the scatter write a peel record as on the main path, and
-    K7 peels the cycle's scattering events (resonance mode)."""
+    K7 peels the cycle's scattering events (resonance and, with dust, dust
+    events, one launch as the chunk loop makes it)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.instruments import peel as tpeel
     from lart_tpu_torch.physics.voigt import voigt, voigt_plain
@@ -954,20 +1191,21 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
         if k == 'peel':
             # the plain walk takes up to seconds a call: 2 calls a turn
             cubes = ch.peel.zero_cubes(st.device)
-            stats = {'lanes': int(rec.flag.sum()), 'mode': tpeel.RESONANCE}
-            tpeel.peel_plain(post, cubes, rec, ch.peel, tpeel.RESONANCE,
-                             stats=stats)
+            mode = ch.peel.scatter_mode
+            stats = {'lanes': int((rec.flag != 0).sum()), 'mode': mode}
+            tpeel.peel_plain(post, cubes, rec, ch.peel, mode, stats=stats)
 
             def kern():
-                tpeel.peel(post, cubes, rec, ch.peel, tpeel.RESONANCE)
+                tpeel.peel(post, cubes, rec, ch.peel, mode)
 
             def plain():
-                tpeel.peel_plain(post, cubes, rec, ch.peel, tpeel.RESONANCE)
+                tpeel.peel_plain(post, cubes, rec, ch.peel, mode)
             out[k] = (device_ms([kern] * reps),
                       *turns(kern, plain, reps, plain_reps=2),
                       bound(*kernel_work(k, post, ch, p.meta, stats)))
             log(5, f'{label} peel work: {stats["lanes"]} scattered lanes '
-                   f'({stats["seen"]} with a pair in an image), '
+                   f'({stats["seen"]} with a pair in an image, '
+                   f'{stats["seen_dust"]} of them at a dust event), '
                    f'{stats["pairs"]} (observer, lane) pairs walked, '
                    f'{stats.get("crossings", 0)} cell crossings over '
                    f'{stats["cells"]} distinct cells, {stats["bins"]} '
@@ -1098,6 +1336,24 @@ def phase5(dev, res):
         kernel_times(p, card, name, res, ('refill_point', fly_name,
                                           'scatter_lya', 'peel'),
                      record=('peel',) if name == 'vel_effect_peel' else ())
+        del p
+
+    # dust (the Dijkstra & Loeb 2008 shell as written: its Gaussian births,
+    # the walk with rhokapD, the scatter's Mueller dust branch), without and
+    # with one observer on +z (K7 peels both kinds of event)
+    dl_cells = (
+        ('DL20e_dust (N_HI 1e20, DGR 1, 201^3, outflow 200 km/s, Stokes)',
+         'DL20e_dust', {}),
+        ('DL20e_dust_peel (the same, one observer on +z, 231 x 129x129 '
+         'cube)', 'DL20e_dust_peel', OBSERVER))
+    for label, name, extra in dl_cells:
+        p, _ = rate_window(label, example_params(DL20E_DUST, **over, **extra),
+                           dev)
+        card = smi()
+        profile_chunks(p, card, name)
+        kernel_times(p, card, name, res, ('refill_point', 'fly_cartesian',
+                                          'scatter_lya') + (
+                                              ('peel',) if extra else ()))
         del p
 
 

@@ -17,7 +17,7 @@ from .grid.cartesian import GridDevice, GridMeta
 from .transport.state import LANE_FIELDS, BatchState, Tallies
 
 TALLY_FIELDS = ('Jin', 'Jout', 'Jmu', 'nscatt_gas', 'nscatt_events',
-                'W_oor')
+                'W_oor', 'Jabs', 'nscatt_dust')
 
 
 def _tensor(leaf, device):

@@ -3,7 +3,7 @@
 // boundaries and the comoving frequency update of a moving medium.
 //
 // Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
-// Cartesian DDA without dust, H2, line type 8, atmospheres, the shearing box,
+// Cartesian DDA without H2, line type 8, atmospheres, the shearing box,
 // CALCJ/Pnew or all-photons records; uniform temperature).  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch; here
 // one thread walks its own lane, at most max_steps crossings (the loop
@@ -12,9 +12,10 @@
 // same budget, as the while_loop counts it.  Every expression keeps the JAX
 // order, and the cell faces and advanced positions are fused multiply-adds
 // as XLA computes them (transport/flight.py); the opacity of the current
-// cell is rhokap * H(x, a_ref) (voigt.cuh inlined).  Escapes go to Jout/Jmu with f32 atomics at once (a lane escapes
+// cell is rhokap * H(x, a_ref) (voigt.cuh inlined), plus rhokapD with dust
+// (walk.cuh cell_opacity).  Escapes go to Jout/Jmu with f32 atomics at once (a lane escapes
 // at most once a call), weight outside the frequency grid through one block
-// sum.  Bound: the gathers.  Each crossing reads rhokap and, in a moving
+// sum.  Bound: the gathers.  Each crossing reads rhokap (and rhokapD) and, in a moving
 // medium, three velocity components of the old and new cell, 4-byte words
 // scattered over arrays of 4 nx ny nz bytes each (32 MB at 201^3, against a
 // 50 MB L2); the lane state is read and written once a call.
@@ -34,8 +35,7 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
     for (int n = 0; n < max_steps && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
-      const float rho =
-          p.rhokap[flat_index(p, cell[0], cell[1], cell[2])] * voigt_h(xfreq, p.a_ref);
+      const float rho = cell_opacity(p, flat_index(p, cell[0], cell[1], cell[2]), xfreq);
       float t[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)

@@ -100,9 +100,10 @@ inline Lanes unpack_lanes(void* const* p) {
 }
 
 // The peel record of one cycle, written by K2 (flag: launched by this
-// refill) and by K4 (flag: scattered; the pre-scatter direction, and with
-// Stokes its triad and Stokes vector, with this event's xfreq_atom and atom
-// velocity), read by K7 right after.  The host passes the pointers in the
+// refill) and by K4 (flag: the kind of event, 1 a resonance and 2 a dust
+// scattering; the pre-scatter direction, and with Stokes its triad and
+// Stokes vector, with a resonance's xfreq_atom and atom velocity), read by
+// K7 right after.  The host passes the pointers in the
 // order of PEEL_RECORD_FIELDS in lart_tpu_torch/instruments/peel.py;
 // unpack_record keeps that order.
 struct PeelRecord {
@@ -157,6 +158,7 @@ inline PeelRecord unpack_record(void* const* p) {
 // layout field for field; lart_flight_params_size() lets it check the size.
 struct FlightParams {
   const float* rhokap;  // (nx, ny, nz) f32, flat index (i*ny + j)*nz + k
+  const float* rhokapD; // dust opacity, the same layout; null without dust
   const float* vfx;     // velocity in thermal units; null in a static medium
   const float* vfy;
   const float* vfz;

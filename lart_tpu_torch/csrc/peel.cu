@@ -1,18 +1,27 @@
 // K7 peel: peeling-off to external observers at a photon's birth (direct) and
-// at each resonance scattering, with and without Stokes, on a Cartesian grid
-// (the DDA sightline) or on the uniform-sphere fast path (one chord).
+// at each resonance or dust scattering, with and without Stokes, on a
+// Cartesian grid (the DDA sightline) or on the uniform-sphere fast path (one
+// chord).
 //
 // Replaces lart_tpu/instruments/peel.py:62 make_peel: peel_direct (:446),
-// peel_resonance (:476) and their sightline optical depth tau_to_edge_cart
-// (:176-356) or the sphere chord (:367-382), with obs_geometry (TAN branch),
-// flat_idx and freq_bin (:394-441).  The TPU walks all (observer, lane)
+// peel_resonance (:476), peel_dust (:577) and their sightline optical depth
+// tau_to_edge_cart (:176-356; a cell's opacity rhokap H(x, a) + rhokapD) or
+// the sphere chord (:367-382), with obs_geometry (TAN branch), flat_idx and
+// freq_bin (:394-441).  The TPU walks all (observer, lane)
 // pairs in one lockstep while_loop over the whole batch until the last pair
 // leaves the grid; here one thread walks one (observer, lane) pair, thread
 // t = o * B + lane, and stops on its own.  The lanes to peel are those the
 // PeelRecord flags: K2 flags the lanes it launched (mode DIRECT reads their
-// newborn state), K4 the lanes it scattered (mode RESONANCE reads the
-// record's pre-scatter direction, triad, Stokes vector, xfreq_atom and atom
-// velocity, and the lane's unchanged position, cell and weight).  A pair
+// newborn state), K4 marks each lane's event with its kind, EVENT_RESONANCE
+// or EVENT_DUST (a scatter mode, a mask of the kinds it peels, reads the
+// record's pre-scatter direction, triad and Stokes vector, at a resonance
+// xfreq_atom and the atom velocity, and the lane's unchanged position, cell
+// and frequency and its weight).  The chunk loop peels both kinds in one
+// launch (mode SCATTERED): dust events are a small share of a cycle's
+// scatterings, too few to fill a launch of their own, and each pair takes
+// its lane's branch.  A dust pair peels at the lane's comoving frequency
+// with the Henyey-Greenstein phase, or with Stokes through the Mueller table
+// (mueller.cuh) and the detector-frame rotation.  A pair
 // whose pixel is outside the image or whose lab-frequency bin is outside the
 // grid walks nothing.  The walk follows the flight's boundary ops and, in a
 // moving medium, its comoving frequency update (walk.cuh, shared with K5);
@@ -30,10 +39,14 @@
 // reads, each distinct grid cell walked, each distinct cube bin of the 1-5
 // cubes it writes), whichever is larger.
 #include "lart.cuh"
+#include "mueller.cuh"
 #include "voigt.cuh"
 #include "walk.cuh"
 
-enum { PEEL_DIRECT = 0, PEEL_RESONANCE = 1 };
+// modes; a scatter mode is a mask of the record's kinds of event (K4's
+// EVENT_RESONANCE = 1, EVENT_DUST = 2)
+enum { PEEL_DIRECT = 0, PEEL_RESONANCE = 1, PEEL_DUST = 2 };
+enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
 
 #define LART_FOURPI 12.566370614359172f
 #define LART_RAD2DEG 57.29577951308232f
@@ -60,7 +73,10 @@ struct PeelParams {
   int chord;       // uniform sphere: tau is one chord
   int stokes;
   int lab_source;  // moving medium without comoving_source
+  int dust;        // DUST_OFF, DUST_HG or DUST_MUELLER
   float dxim, dyim, E1, E2, E3;
+  float hg_num, hg_1pg2, hg_2g;  // 1 - g^2, 1 + g^2 and 2 g, rounded from f64
+  MuellerTable mueller;          // DUST_MUELLER
 };
 
 // optical depth from pos along k to the grid's edge at comoving frequency xf
@@ -77,7 +93,7 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   int cell[3] = {cell0[0], cell0[1], cell0[2]};
   float tau = 0.0f;
   for (int n = 0; n < p.max_steps; ++n) {
-    const float rho = g.rhokap[flat_index(g, cell[0], cell[1], cell[2])] * voigt_h(xf, g.a_ref);
+    const float rho = cell_opacity(g, flat_index(g, cell[0], cell[1], cell[2]), xf);
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -106,7 +122,8 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)B * p.nobs) return;
   const int o = (int)(t / B), i = (int)(t % B);
-  if (!rec.flag[i]) return;
+  const int kind = rec.flag[i];
+  if (mode == PEEL_DIRECT ? kind == 0 : (kind & mode) == 0) return;
   const float pos[3] = {s.x[i], s.y[i], s.z[i]};
   const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
 
@@ -138,7 +155,9 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     const float kx = rec.kx[i], ky = rec.ky[i], kz = rec.kz[i];
     cost = kx * pk[0] + ky * pk[1] + kz * pk[2];
     const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
-    if (p.stokes) {
+    if (kind == PEEL_DUST && !p.stokes) {
+      // HG needs no azimuth
+    } else if (p.stokes) {
       // azimuth relative to the (m, n) triad
       const float ss = fmaxf(sint, 1e-20f);
       if (sint != 0.0f) {
@@ -154,7 +173,10 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
         sinp = inv * (kx * pk[1] - pk[0] * ky);
       }
     }
-    xf = rec.xatom[i] + (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
+    // dust scatters coherently in the comoving frame
+    xf = kind == PEEL_DUST
+             ? s.xfreq[i]
+             : rec.xatom[i] + (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
   }
 
   // freq_bin: the lab-frequency bin of xf at the event cell, along pk
@@ -180,27 +202,44 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   }
   const float cost2 = cost * cost;
   if (!p.stokes) {
-    const float phase = 0.75f * p.E1 * (cost2 + 1.0f) + p.E2;
-    const float w = phase / (LART_FOURPI * r2) * atten * wgt;
+    float w;
+    if (kind == PEEL_DUST) {
+      // Henyey-Greenstein (1 - g^2) / (1 + g^2 - 2 g cos)^1.5 / 4 pi
+      const float phase = p.hg_num / powf(p.hg_1pg2 - p.hg_2g * cost, 1.5f) / LART_FOURPI;
+      w = phase / r2 * atten * wgt;
+    } else {
+      const float phase = 0.75f * p.E1 * (cost2 + 1.0f) + p.E2;
+      w = phase / (LART_FOURPI * r2) * atten * wgt;
+    }
     atomicAdd(&p.scatt[idx], w);
     if (p.w_out) p.w_out[t] = w;
     return;
   }
   // the scattered Stokes vector, rotated to the detector frame
-  const float S22 = 0.75f * p.E1 * (cost2 + 1.0f);
-  const float S11 = S22 + p.E2;
-  const float S12 = 0.75f * p.E1 * (cost2 - 1.0f);
-  const float S33 = 1.5f * p.E1 * cost;
-  const float S44 = 1.5f * p.E3 * cost;
   const float cos2p = 2.0f * cosp * cosp - 1.0f;
   const float sin2p = 2.0f * cosp * sinp;
-  const float Q = rec.Q[i], U = rec.U[i];
+  const float Q = rec.Q[i], U = rec.U[i], V = rec.V[i];
   const float Q0 = cos2p * Q + sin2p * U;
   const float U0 = -sin2p * Q + cos2p * U;
-  const float Iobs = (S11 + S12 * Q0) / LART_FOURPI;
-  const float Qobs = (S12 + S22 * Q0) / LART_FOURPI;
-  const float Uobs = (S33 * U0) / LART_FOURPI;
-  const float Vobs = (S44 * rec.V[i]) / LART_FOURPI;
+  float Iobs, Qobs, Uobs, Vobs;
+  if (kind == PEEL_DUST) {
+    float S[4];  // S11, S12, S33, S34 at the angle to the observer
+    mueller_interp_S(p.mueller, cost, S);
+    Iobs = (S[0] + S[1] * Q0) / LART_TWOPI;
+    Qobs = (S[1] + S[0] * Q0) / LART_TWOPI;
+    Uobs = (S[2] * U0 + S[3] * V) / LART_TWOPI;
+    Vobs = (-S[3] * U0 + S[2] * V) / LART_TWOPI;
+  } else {
+    const float S22 = 0.75f * p.E1 * (cost2 + 1.0f);
+    const float S11 = S22 + p.E2;
+    const float S12 = 0.75f * p.E1 * (cost2 - 1.0f);
+    const float S33 = 1.5f * p.E1 * cost;
+    const float S44 = 1.5f * p.E3 * cost;
+    Iobs = (S11 + S12 * Q0) / LART_FOURPI;
+    Qobs = (S12 + S22 * Q0) / LART_FOURPI;
+    Uobs = (S33 * U0) / LART_FOURPI;
+    Vobs = (S44 * V) / LART_FOURPI;
+  }
   const float pnx = -sinp * rec.mx[i] + cosp * rec.nnx[i];
   const float pny = -sinp * rec.my[i] + cosp * rec.nny[i];
   const float pnz = -sinp * rec.mz[i] + cosp * rec.nnz[i];

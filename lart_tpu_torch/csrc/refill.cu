@@ -1,9 +1,9 @@
-// K2 refill_point: rebirth of dead lanes for a point source with a Voigt or
-// monochromatic input spectrum, with the forced-first-scattering snapshot, in
-// a static or moving medium of uniform temperature.
+// K2 refill_point: rebirth of dead lanes for a point source with a Voigt,
+// monochromatic or Gaussian input spectrum, with the forced-first-scattering
+// snapshot, in a static or moving medium of uniform temperature.
 //
 // Replaces lart_tpu/transport/engine.py:2557 make_refill / :2689 refill
-// (source_geometry point, spectral_type voigt or monochromatic).  The TPU
+// (source_geometry point, spectral_type voigt, monochromatic or gaussian).  The TPU
 // ranks dead lanes with a cumsum over the whole batch (:2700), a pass the
 // card would need a second kernel for.  Here each warp counts its dead
 // lanes with a ballot and takes a block of tickets from the device photon
@@ -16,6 +16,9 @@
 // comoving_source, the lane flies at xfreq - u1 with u1 = v(source cell) . k
 // (engine.py:2836-2841), and Jin is tallied at the lab frequency xfreq + u1;
 // the source cell's velocity (vsx, vsy, vsz) is 0 in a static medium.
+// The Gaussian spectrum (engine.py:2799-2803) adds a normal times sigma_x,
+// drawn by Box-Muller from block 2, which no other spectrum reads; the
+// D_loc / Dfreq_ref it is divided by is 1 at uniform temperature.
 // A launched lane is unpolarized (Q = U = V = 0) with the reference triad
 // m = (cos t cos p, cos t sin p, -sin t), n = (-sin p, cos p, 0) of its
 // direction (engine.py:2863-2873).  With peel-off on, the record's flag is
@@ -27,10 +30,13 @@
 #include "philox.cuh"
 #include "samplers.cuh"
 
+enum { SPECTRUM_MONO = 0, SPECTRUM_VOIGT = 1, SPECTRUM_GAUSS = 2 };
+
 __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launched,
                                     int budget, uint32_t seed, uint32_t counter, float xs,
                                     float ys, float zs, int ic, int jc, int kc,
-                                    float xfreq0, int voigt_spectrum, float a, float vsx,
+                                    float xfreq0, int spectrum, float sigma_x, float a,
+                                    float vsx,
                                     float vsy, float vsz, int comoving_source,
                                     float xfreq_min, float dxfreq, int nxfreq, float* Jin) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -61,7 +67,13 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   const float kx = sint * cosp, ky = sint * sinp, kz = cost;
 
   float xfreq = xfreq0;
-  if (voigt_spectrum) xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0]);
+  if (spectrum == SPECTRUM_VOIGT) {
+    xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0]);
+  } else if (spectrum == SPECTRUM_GAUSS) {
+    float w[4];
+    uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
+    xfreq = xfreq + box_muller(w[0], w[1]) * sigma_x;
+  }
 
   // lab-frame source -> comoving frequency; Jin at the lab frequency
   const float u1 = vsx * kx + vsy * ky + vsz * kz;
@@ -110,7 +122,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
 LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                void* n_launched, int budget, unsigned seed,
                                unsigned counter, float xs, float ys, float zs, int ic,
-                               int jc, int kc, float xfreq0, int voigt_spectrum, float a,
+                               int jc, int kc, float xfreq0, int spectrum, float sigma_x,
+                               float a,
                                float vsx, float vsy, float vsz, int comoving_source,
                                float xfreq_min, float dxfreq, int nxfreq, void* Jin,
                                void* stream) {
@@ -118,7 +131,7 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
-        counter, xs, ys, zs, ic, jc, kc, xfreq0, voigt_spectrum, a, vsx, vsy, vsz,
+        counter, xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz,
         comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin);
   }
   return (int)cudaGetLastError();

@@ -1,6 +1,7 @@
 // Per-lane twins of the batched samplers in lart_tpu/physics/samplers.py
 // (vz_envelope :70, vz_round_xi :128, rand_resonance_cost :210,
-// rand_voigt_x :237) and of make_scatter's rotate_direction
+// rand_voigt_x :237, rand_henyey_greenstein :247) and of make_scatter's
+// rotate_direction
 // (lart_tpu/transport/engine.py:1854).
 //
 // The JAX versions evaluate every branch for every lane and select with
@@ -127,11 +128,23 @@ __device__ inline float rand_resonance_cost(float xi, float E1) {
   return fminf(fmaxf(cost, -1.0f), 1.0f);
 }
 
+// a standard normal from two uniforms (Box-Muller)
+__device__ inline float box_muller(float u_g1, float u_g2) {
+  return sqrtf(-2.0f * logf(u_g1)) * cosf(LART_TWOPI * u_g2);
+}
+
 // Voigt-profile frequency: Cauchy(a) via tan plus a Box-Muller normal / sqrt2
 __device__ inline float rand_voigt_x(float a, float u_cauchy, float u_g1, float u_g2) {
   const float cauchy = tanf(LART_PI * u_cauchy - LART_HALF_PI);
-  const float g = sqrtf(-2.0f * logf(u_g1)) * cosf(LART_TWOPI * u_g2);
-  return a * cauchy + g * LART_INV_SQRT2;
+  return a * cauchy + box_muller(u_g1, u_g2) * LART_INV_SQRT2;
+}
+
+// Henyey-Greenstein cos(theta) by inversion; isotropic for |g| < 1e-8
+__device__ inline float rand_henyey_greenstein(float xi, float g) {
+  if (fabsf(g) < 1e-8f) return 2.0f * xi - 1.0f;
+  const float g2 = g * g;
+  const float q = (1.0f - g2) / (1.0f - g + 2.0f * g * xi);
+  return fminf(fmaxf(((1.0f + g2) - q * q) / (2.0f * g), -1.0f), 1.0f);
 }
 
 // New direction from scattering angles about (kx, ky, kz), renormalized

@@ -1,8 +1,10 @@
-// K4 scatter_lya: resonant scattering of Ly-alpha (line_type 1) without dust,
-// H2 or recoil, with or without core-skip, Stokes and the peel record.
+// K4 scatter_lya: resonant scattering of Ly-alpha (line_type 1) and dust events
+// (absorption, Henyey-Greenstein or Mueller-matrix scattering), without H2 or
+// recoil, with or without core-skip, Stokes and the peel record.
 //
 // Replaces lart_tpu/transport/engine.py:1838 make_scatter / :2087 scatter
-// (the line_type 1 branch of redistribute, :1947-1953).  The TPU runs
+// (the line_type 1 branch of redistribute, :1947-1953, and the dust branch,
+// :2111-2142, :2270-2381).  The TPU runs
 // scatter_rounds masked rejection rounds of the u_par sampler over the whole
 // batch; here each thread runs the rounds for its own lane and stops at the
 // first acceptance (the later rounds' uniforms would be ignored anyway).  A
@@ -23,33 +25,76 @@
 // lane that fails them stays AT_SCATTER like one that fails the u_par rounds.
 // The direction then turns with the reference triad and the Stokes vector
 // (stokes_turn).  With peel-off on, the record's flag is written on every
-// lane (1 where this call scattered), and a scattered lane's pre-scatter
-// direction with xfreq_atom and the atom velocity (engine.py:2207-2218),
-// with Stokes also its triad and Stokes vector, which K7 reads next.
+// lane (EVENT_RESONANCE where this call scattered resonantly, EVENT_DUST at
+// a dust scattering, else 0), and a scattered lane's pre-scatter direction,
+// with Stokes also its triad and Stokes vector, and at a resonance
+// xfreq_atom and the atom velocity (engine.py:2207-2218), which K7 reads
+// next.
+// With dust, block D = 2 rounds + 2 (after every block a lane without dust
+// draws) splits the event: dust with probability kap_D / (kap_HI + kap_D),
+// kap_HI = rk H(x, a) (voigt.cuh inlined) and kap_D the cell's rhokapD (the
+// constants on the sphere fast path).  A dust lane skips the resonance
+// rounds; it is absorbed where the block's second uniform exceeds the albedo
+// (never under use_reduced_wgt), else scatters: Henyey-Greenstein from the
+// block's third uniform with the resonance azimuth of block `rounds`, or the
+// Mueller table (mueller.cuh: cos(theta) from block D + 1, the azimuth by
+// rejection from blocks D + 2 + r; a lane that fails stays AT_SCATTER).  An
+// absorption (every dust event under use_reduced_wgt, with the weight times
+// 1 - albedo) adds to Jabs at the lab frequency of the lane's cell by one f32
+// atomic; nscatt_dust sums the weight of every dust event in the block.
 // Bound: arithmetic (tan/atan2/log/exp per round, pow/cos/sin after), with
 // the state read and written once (about 60 bytes a scattering lane, 100
-// with Stokes, plus 28 of record, 64 with Stokes).
+// with Stokes, plus 28 of record, 64 with Stokes); a dust event adds its
+// cell's two opacities, a few table reads and one Jabs atomic, and the
+// Jabs atomics of a shell's absorptions land on the few dozen bins of the
+// line, where they serialize.
 #include "lart.cuh"
+#include "mueller.cuh"
 #include "philox.cuh"
 #include "samplers.cuh"
+#include "voigt.cuh"
 
 enum { CORE_SKIP_OFF = 0, CORE_SKIP_LOCAL = 1, CORE_SKIP_GLOBAL = 2 };
+enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
+enum { EVENT_RESONANCE = 1, EVENT_DUST = 2 };
 
-struct CoreSkip {
-  int mode;
-  float xcrit, xcrit2;  // CORE_SKIP_GLOBAL
-  float rk_const;       // > 0: the uniform sphere's rhokap, else gather
-  const float* rhokap;  // flat (nx, ny, nz)
+// The scatter's constants, grid and tallies; the host passes it by pointer
+// and the kernel by value.  lart_tpu_torch/transport/scatter.py ScatterC
+// mirrors this layout field for field; lart_scatter_params_size() lets it
+// check the size.
+struct ScatterParams {
+  const float* rhokap;   // flat (nx, ny, nz): local core-skip and dust, off
+  const float* rhokapD;  //   the sphere fast path; rhokapD with dust only
+  const float* vfx;      // velocities for Jabs in a moving medium, else null
+  const float* vfy;
+  const float* vfz;
+  float* nscatt_gas;
+  float* nscatt_events;
+  float* Jabs;
+  float* nscatt_dust;
+  MuellerTable mueller;  // DUST_MUELLER
+  int rounds, stokes, core_skip, dust, reduced_wgt, nxfreq;
   int n[3];
+  float a, E1, E2, E3;
+  float xcrit, xcrit2;   // CORE_SKIP_GLOBAL
+  float rk_const;        // > 0: the uniform sphere's rhokap, else gather
+  float rkD_const;       //   and its rhokapD
+  float albedo, one_m_albedo, hgg;
+  float xfreq_min, dxfreq;
   float amin[3], d[3];
 };
 
+__device__ inline int scatter_cell(const ScatterParams& p, const Lanes& s, int i) {
+  const int f = (s.ic[i] * p.n[1] + s.jc[i]) * p.n[2] + s.kc[i];
+  return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
+}
+
 // the in-core boost xcrit^2 of lane i, or 0 outside the core
-__device__ inline float core_boost(const CoreSkip& c, const Lanes& s, int i, float xfreq,
-                                   float a) {
-  if (c.mode == CORE_SKIP_OFF) return 0.0f;
+__device__ inline float core_boost(const ScatterParams& c, const Lanes& s, int i,
+                                   float xfreq) {
+  if (c.core_skip == CORE_SKIP_OFF) return 0.0f;
   float xc = c.xcrit, xc2 = c.xcrit2;
-  if (c.mode == CORE_SKIP_LOCAL) {
+  if (c.core_skip == CORE_SKIP_LOCAL) {
     const float pos[3] = {s.x[i], s.y[i], s.z[i]};
     const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
     float dl = 0.0f;
@@ -59,12 +104,8 @@ __device__ inline float core_boost(const CoreSkip& c, const Lanes& s, int i, flo
       const float dla = fminf(pos[k] - f, f + c.d[k] - pos[k]);
       dl = k == 0 ? dla : fminf(dl, dla);
     }
-    float rk = c.rk_const;
-    if (!(rk > 0.0f)) {
-      const int f = (cell[0] * c.n[1] + cell[1]) * c.n[2] + cell[2];
-      rk = c.rhokap[min(max(f, 0), c.n[0] * c.n[1] * c.n[2] - 1)];
-    }
-    const float atau = a * rk * fmaxf(dl, 0.0f);
+    const float rk = c.rk_const > 0.0f ? c.rk_const : c.rhokap[scatter_cell(c, s, i)];
+    const float atau = c.a * rk * fmaxf(dl, 0.0f);
     xc = atau > 1.0f ? cbrtf(atau) / 5.0f : 0.0f;
     xc2 = xc * xc;
   }
@@ -122,11 +163,10 @@ __device__ inline void stokes_turn(const Lanes& s, int i, float cost, float sint
   s.V[i] = (S44 * V) / I1;
 }
 
-// the event as the resonance peel reads it: before the turn; the triad and
-// the Stokes vector only where the peel reads them, with Stokes
-__device__ inline void write_record(const PeelRecord& r, const Lanes& s, int i,
-                                    float xatom, float ux, float uy, float uz,
-                                    int stokes) {
+// the event as the peel reads it: before the turn; the triad and the Stokes
+// vector only where the peel reads them, with Stokes
+__device__ inline void write_record_dir(const PeelRecord& r, const Lanes& s, int i,
+                                        int stokes) {
   r.kx[i] = s.kx[i];
   r.ky[i] = s.ky[i];
   r.kz[i] = s.kz[i];
@@ -141,116 +181,218 @@ __device__ inline void write_record(const PeelRecord& r, const Lanes& s, int i,
     r.U[i] = s.U[i];
     r.V[i] = s.V[i];
   }
-  r.xatom[i] = xatom;
-  r.ux[i] = ux;
-  r.uy[i] = uy;
-  r.uz[i] = uz;
 }
 
-struct LineWeights {
-  float E1, E2, E3;
-  int stokes;
-};
+// azimuth by rejection from 1 + S12o (Q cos 2phi + U sin 2phi), round r from
+// block block0 + r; returns whether a round accepted (engine.py:2165-2190)
+__device__ inline bool azimuth_rounds(const Lanes& s, int i, uint32_t seed, uint32_t counter,
+                                      int block0, int rounds, float S12o, float& phi) {
+  const float Q = s.Q[i], U = s.U[i];
+  const float pmag = sqrtf(Q * Q + U * U);
+  for (int r = 0; r < rounds; ++r) {
+    float v[4];
+    uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(block0 + r), v);
+    const float phi_p = LART_TWOPI * v[0];
+    const float prand = (1.0f + fabsf(S12o) * pmag) * v[1];
+    const float pcomp = 1.0f + S12o * (Q * cosf(2.0f * phi_p) + U * sinf(2.0f * phi_p));
+    if (prand <= pcomp) {
+      phi = phi_p;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The triad and Stokes update of a Mueller dust scattering (engine.py:
+// 2309-2328): turned by phi about k and by theta in the (k, m) plane, not
+// re-orthonormalized, and the Stokes vector through S11, S12, S33, S34.
+__device__ inline void mueller_turn(const Lanes& s, int i, float cost, float sint,
+                                    float cosp, float sinp, const float S[4]) {
+  float* kk[3] = {s.kx, s.ky, s.kz};
+  float* mm[3] = {s.mx, s.my, s.mz};
+  float* nn[3] = {s.nnx, s.nny, s.nnz};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float k = kk[a][i], m = mm[a][i], n = nn[a][i];
+    const float p = cosp * m + sinp * n;
+    nn[a][i] = cosp * n - sinp * m;
+    mm[a][i] = cost * p - sint * k;
+    kk[a][i] = sint * p + cost * k;
+  }
+  const float Q = s.Q[i], U = s.U[i], V = s.V[i];
+  const float c2p = 2.0f * cosp * cosp - 1.0f;
+  const float s2p = 2.0f * sinp * cosp;
+  const float Q0 = c2p * Q + s2p * U;
+  const float U0 = -s2p * Q + c2p * U;
+  const float I1 = fmaxf(S[0] + S[1] * Q0, LART_TINY);
+  s.Q[i] = (S[1] + S[0] * Q0) / I1;
+  s.U[i] = (S[2] * U0 + S[3] * V) / I1;
+  s.V[i] = (-S[3] * U0 + S[2] * V) / I1;
+}
+
+// A dust event of lane i (engine.py:2270-2381): absorption or scattering,
+// the Jabs deposit; returns EVENT_DUST where the lane scattered, else 0.
+// d is block D's uniforms, cosp/sinp the resonance azimuth (HG's).
+__device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelRecord& rec,
+                          int i, uint32_t seed, uint32_t counter, const float d[4],
+                          float cosp, float sinp, float tau_u) {
+  const float wgt = s.wgt[i];
+  const bool absorbed = !p.reduced_wgt && d[1] > p.albedo;
+  if (absorbed || p.reduced_wgt) {
+    // Jabs at the lab frequency of the lane's cell
+    float xlab = s.xfreq[i];
+    if (p.vfx) {
+      const int f = scatter_cell(p, s, i);
+      xlab = xlab + (p.vfx[f] * s.kx[i] + p.vfy[f] * s.ky[i] + p.vfz[f] * s.kz[i]);
+    }
+    const float fx = floorf((xlab - p.xfreq_min) / p.dxfreq);
+    if (fx >= 0.0f && fx < (float)p.nxfreq)
+      atomicAdd(&p.Jabs[(int)fx], p.reduced_wgt ? wgt * p.one_m_albedo : wgt);
+  }
+  if (absorbed) {
+    // dead, with the next optical depth drawn as for any event (engine.py:
+    // 2475-2476), so the lane's fields match lart_tpu's
+    s.phase[i] = DEAD;
+    s.tau_target[i] = -logf(fmaxf(tau_u, 1e-12f));
+    s.tau_run[i] = 0.0f;
+    return 0;
+  }
+  float cost, phi = 0.0f, S[4];
+  const int D = 2 * p.rounds + 2;
+  if (p.dust == DUST_MUELLER) {
+    float m[4];
+    uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(D + 1), m);
+    cost = mueller_sample_cost(p.mueller, m[0], m[1], m[2]);
+    mueller_interp_S(p.mueller, cost, S);
+    if (!azimuth_rounds(s, i, seed, counter, D + 2, p.rounds, S[1] / fmaxf(S[0], LART_TINY),
+                        phi))
+      return 0;  // stays AT_SCATTER
+  } else {
+    cost = rand_henyey_greenstein(d[2], p.hgg);
+  }
+  const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+  if (rec.flag) write_record_dir(rec, s, i, p.stokes);
+  if (p.dust == DUST_MUELLER) {
+    mueller_turn(s, i, cost, sint, cosf(phi), sinf(phi), S);
+  } else {
+    float kx = s.kx[i], ky = s.ky[i], kz = s.kz[i];
+    rotate_direction(kx, ky, kz, cost, sint, cosp, sinp);
+    s.kx[i] = kx;
+    s.ky[i] = ky;
+    s.kz[i] = kz;
+  }
+  s.phase[i] = FLYING;
+  if (p.reduced_wgt) s.wgt[i] = wgt * p.albedo;
+  s.tau_target[i] = -logf(fmaxf(tau_u, 1e-12f));
+  s.tau_run[i] = 0.0f;
+  return EVENT_DUST;
+}
 
 __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed,
-                                   uint32_t counter, int rounds, float a, LineWeights lw,
-                                   CoreSkip cs, float* nscatt_gas, float* nscatt_events) {
+                                   uint32_t counter, ScatterParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float w_sum = 0.0f, n_sum = 0.0f;
-  bool done = false;
+  float w_sum = 0.0f, n_sum = 0.0f, wd_sum = 0.0f;
+  int kind = 0;
+  const int rounds = p.rounds;
   if (i < B && s.phase[i] == AT_SCATTER) {
     const float xfreq = s.xfreq[i];
-    const VzEnv env = vz_envelope(xfreq, a);
-    float u[4];
-    float uz = 0.0f;
-    bool acc = false;
-    for (int r = 0; r < rounds && !acc; ++r) {
-      uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)r, u);
-      acc = vz_round(u, env, &uz);
+    bool is_dust = false;
+    float d[4];
+    if (p.dust) {
+      // the event split: dust with probability kap_D / (kap_HI + kap_D)
+      uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(2 * rounds + 2), d);
+      float rk = p.rk_const, kD = p.rkD_const;
+      if (!(rk > 0.0f)) {
+        const int f = scatter_cell(p, s, i);
+        rk = p.rhokap[f];
+        kD = p.rhokapD[f];
+      }
+      const float kap_HI = rk * voigt_h(xfreq, p.a);
+      is_dust = d[0] <= kD / fmaxf(kap_HI + kD, LART_TINY);
     }
-    if (acc) {
+    float u[4];
+    if (is_dust) {
+      wd_sum = s.wgt[i];
+      float t[4];
       uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, u);
-      const float cost = rand_resonance_cost(u[0], lw.E1);
-      const float cost2 = cost * cost;
-      const float sint = sqrtf(fmaxf(1.0f - cost2, 0.0f));
-      float phi = LART_TWOPI * u[1];
-      float S11 = 0.0f, S12 = 0.0f, S22 = 0.0f, S33 = 0.0f, S44 = 0.0f;
-      if (lw.stokes) {
-        // azimuth by rejection from 1 + (S12/S11)(Q cos 2phi + U sin 2phi)
-        // (engine.py:2165-2190), round r from block rounds + 2 + r
-        S22 = 0.75f * lw.E1 * (cost2 + 1.0f);
-        S11 = S22 + lw.E2;
-        S12 = 0.75f * lw.E1 * (cost2 - 1.0f);
-        S33 = 1.5f * lw.E1 * cost;
-        S44 = 1.5f * lw.E3 * cost;
-        const float S12o = S12 / fmaxf(S11, LART_TINY);
-        const float Q = s.Q[i], U = s.U[i];
-        const float pmag = sqrtf(Q * Q + U * U);
-        acc = false;
-        for (int r = 0; r < rounds && !acc; ++r) {
-          float v[4];
-          uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 2 + r),
-                    v);
-          const float phi_p = LART_TWOPI * v[0];
-          const float prand = (1.0f + fabsf(S12o) * pmag) * v[1];
-          const float pcomp =
-              1.0f + S12o * (Q * cosf(2.0f * phi_p) + U * sinf(2.0f * phi_p));
-          if (prand <= pcomp) {
-            phi = phi_p;
-            acc = true;
-          }
-        }
+      uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), t);
+      const float phi = LART_TWOPI * u[1];
+      kind = dust_event(p, s, rec, i, seed, counter, d, cosf(phi), sinf(phi), t[0]);
+    } else {
+      const VzEnv env = vz_envelope(xfreq, p.a);
+      float uz = 0.0f;
+      bool acc = false;
+      for (int r = 0; r < rounds && !acc; ++r) {
+        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)r, u);
+        acc = vz_round(u, env, &uz);
       }
       if (acc) {
-        const float cosp = cosf(phi), sinp = sinf(phi);
-        const float phi2 = LART_TWOPI * u[2];
-        const float uxy = sqrtf(core_boost(cs, s, i, xfreq, a) - logf(u[3]));
-        const float ux = uxy * cosf(phi2), uy = uxy * sinf(phi2);
-        const float xfreq_atom = xfreq - uz;
-        const float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
-        if (rec.flag) write_record(rec, s, i, xfreq_atom, ux, uy, uz, lw.stokes);
-        if (lw.stokes) {
-          stokes_turn(s, i, cost, sint, cosp, sinp, S11, S12, S22, S33, S44);
-        } else {
-          float kx = s.kx[i], ky = s.ky[i], kz = s.kz[i];
-          rotate_direction(kx, ky, kz, cost, sint, cosp, sinp);
-          s.kx[i] = kx;
-          s.ky[i] = ky;
-          s.kz[i] = kz;
+        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, u);
+        const float cost = rand_resonance_cost(u[0], p.E1);
+        const float cost2 = cost * cost;
+        const float sint = sqrtf(fmaxf(1.0f - cost2, 0.0f));
+        float phi = LART_TWOPI * u[1];
+        float S11 = 0.0f, S12 = 0.0f, S22 = 0.0f, S33 = 0.0f, S44 = 0.0f;
+        if (p.stokes) {
+          // the line's scattering matrix (engine.py:2165-2190)
+          S22 = 0.75f * p.E1 * (cost2 + 1.0f);
+          S11 = S22 + p.E2;
+          S12 = 0.75f * p.E1 * (cost2 - 1.0f);
+          S33 = 1.5f * p.E1 * cost;
+          S44 = 1.5f * p.E3 * cost;
+          acc = azimuth_rounds(s, i, seed, counter, rounds + 2, rounds,
+                               S12 / fmaxf(S11, LART_TINY), phi);
         }
-        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), u);
-        s.phase[i] = FLYING;
-        s.xfreq[i] = xfreq_new;
-        s.tau_target[i] = -logf(fmaxf(u[0], 1e-12f));
-        s.tau_run[i] = 0.0f;
-        w_sum = s.wgt[i];
-        n_sum = 1.0f;
-        done = true;
+        if (acc) {
+          const float cosp = cosf(phi), sinp = sinf(phi);
+          const float phi2 = LART_TWOPI * u[2];
+          const float uxy = sqrtf(core_boost(p, s, i, xfreq) - logf(u[3]));
+          const float ux = uxy * cosf(phi2), uy = uxy * sinf(phi2);
+          const float xfreq_atom = xfreq - uz;
+          const float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
+          if (rec.flag) {
+            write_record_dir(rec, s, i, p.stokes);
+            rec.xatom[i] = xfreq_atom;
+            rec.ux[i] = ux;
+            rec.uy[i] = uy;
+            rec.uz[i] = uz;
+          }
+          if (p.stokes) {
+            stokes_turn(s, i, cost, sint, cosp, sinp, S11, S12, S22, S33, S44);
+          } else {
+            float kx = s.kx[i], ky = s.ky[i], kz = s.kz[i];
+            rotate_direction(kx, ky, kz, cost, sint, cosp, sinp);
+            s.kx[i] = kx;
+            s.ky[i] = ky;
+            s.kz[i] = kz;
+          }
+          uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), u);
+          s.phase[i] = FLYING;
+          s.xfreq[i] = xfreq_new;
+          s.tau_target[i] = -logf(fmaxf(u[0], 1e-12f));
+          s.tau_run[i] = 0.0f;
+          w_sum = s.wgt[i];
+          n_sum = 1.0f;
+          kind = EVENT_RESONANCE;
+        }
       }
     }
   }
-  if (rec.flag && i < B) rec.flag[i] = done ? 1 : 0;
-  block_sum_atomic(w_sum, nscatt_gas);
-  block_sum_atomic(n_sum, nscatt_events);
+  if (rec.flag && i < B) rec.flag[i] = kind;
+  block_sum_atomic(w_sum, p.nscatt_gas);
+  block_sum_atomic(n_sum, p.nscatt_events);
+  if (p.dust) block_sum_atomic(wd_sum, p.nscatt_dust);
 }
 
 // record: the PeelRecord pointer table, or null with peel-off off
 LART_API int lart_scatter_lya(void* const* lanes, void* const* record, int B, unsigned seed,
-                              unsigned counter, int rounds, float a, float E1, int stokes,
-                              float E2, float E3, int core_skip, float xcrit, float xcrit2,
-                              float rk_const, const void* rhokap, int nx, int ny, int nz,
-                              float xmin, float ymin, float zmin, float dx, float dy,
-                              float dz, void* nscatt_gas, void* nscatt_events,
-                              void* stream) {
+                              unsigned counter, const ScatterParams* p, void* stream) {
   if (B > 0) {
-    const CoreSkip cs = {core_skip, xcrit,         xcrit2,        rk_const,
-                         (const float*)rhokap, {nx, ny, nz}, {xmin, ymin, zmin},
-                         {dx, dy, dz}};
-    const LineWeights lw = {E1, E2, E3, stokes};
     const int threads = 256;
     scatter_lya_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), unpack_record(record), B, seed, counter, rounds, a, lw, cs,
-        (float*)nscatt_gas, (float*)nscatt_events);
+        unpack_lanes(lanes), unpack_record(record), B, seed, counter, *p);
   }
   return (int)cudaGetLastError();
 }
+
+LART_API int lart_scatter_params_size() { return (int)sizeof(ScatterParams); }

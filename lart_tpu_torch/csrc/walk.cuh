@@ -1,16 +1,25 @@
 // Grid helpers shared by the flights and the peel-off sightlines: the flat
-// gather index, the fluid velocity along a direction, the distance to a
+// gather index, a cell's opacity, the fluid velocity along a direction, the distance to a
 // cell's exit face, the boundary op of a crossing (K5 fly_cartesian and the
 // K7 peel walk, so both follow one set of conventions), and the chord
 // through the uniform sphere (K6 fly_uniform_sphere and the K7 chord).
 #pragma once
 
 #include "lart.cuh"
+#include "voigt.cuh"
 
 // engine._gather: flat C-order index, clamped like jnp.take(mode='clip')
 __device__ inline int flat_index(const FlightParams& p, int i, int j, int k) {
   const int f = (i * p.n[1] + j) * p.n[2] + k;
   return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
+}
+
+// opacity of flat cell f at comoving frequency xf: rhokap H(x, a) plus the
+// dust's rhokapD (engine.py:1111-1121 total_opacity)
+__device__ inline float cell_opacity(const FlightParams& p, int f, float xf) {
+  float rho = p.rhokap[f] * voigt_h(xf, p.a_ref);
+  if (p.rhokapD) rho = rho + p.rhokapD[f];
+  return rho;
 }
 
 // u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot)

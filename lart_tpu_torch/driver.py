@@ -74,18 +74,18 @@ def prepare(par: Params, *, seed: Optional[int] = None,
 
 def chunk_to_host(tallies: Tallies, alive, launched) -> dict:
     """One device->host copy of a chunk's tallies and control scalars."""
-    parts = [tallies.Jin, tallies.Jout, tallies.Jmu,
+    parts = [tallies.Jin, tallies.Jout, tallies.Jabs, tallies.Jmu,
              torch.stack([tallies.nscatt_gas, tallies.nscatt_events,
-                          tallies.W_oor]),
+                          tallies.W_oor, tallies.nscatt_dust]),
              torch.stack([alive, launched])]
     flat = torch.cat([t.reshape(-1).double() for t in parts]).cpu().numpy()
     n = tallies.Jin.numel()
     nmu = tallies.Jmu.numel()
-    s = flat[2 * n + nmu:]
-    return {'Jin': flat[:n], 'Jout': flat[n:2 * n],
-            'Jmu': flat[2 * n:2 * n + nmu], 'nscatt_gas': s[0],
-            'nscatt_events': s[1], 'W_oor': s[2], 'alive': int(s[3]),
-            'launched': int(s[4])}
+    s = flat[3 * n + nmu:]
+    return {'Jin': flat[:n], 'Jout': flat[n:2 * n], 'Jabs': flat[2 * n:3 * n],
+            'Jmu': flat[3 * n:3 * n + nmu], 'nscatt_gas': s[0],
+            'nscatt_events': s[1], 'W_oor': s[2], 'nscatt_dust': s[3],
+            'alive': int(s[4]), 'launched': int(s[5])}
 
 
 def compact_shrink(state: BatchState, B_new: int) -> BatchState:
@@ -125,8 +125,8 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
             for k, cube in out[0].peel.items():
                 peel_acc['peel_' + k] += cube
         h = chunk_to_host(*out)
-        for k in ('Jin', 'Jout', 'Jmu', 'nscatt_gas', 'nscatt_events',
-                  'W_oor'):
+        for k in ('Jin', 'Jout', 'Jabs', 'Jmu', 'nscatt_gas',
+                  'nscatt_dust', 'nscatt_events', 'W_oor'):
             if k in acc:
                 acc[k] += h[k]
         alive, launched = h['alive'], h['launched']

@@ -1,32 +1,41 @@
 """Peeling-off to external observers (kernel K7), with and without Stokes.
 
-Counterpart of make_peel's peel_direct and peel_resonance
-(lart_tpu/instruments/peel.py:62, :446-565) with their sightline optical
+Counterpart of make_peel's peel_direct, peel_resonance and peel_dust
+(lart_tpu/instruments/peel.py:62, :446-654) with their sightline optical
 depth: the lockstep DDA tau_to_edge_cart (:176-356) on a Cartesian grid,
 or the chord through the uniform sphere (:367-382) where the sphere fast
-path applies.  At a photon's birth (direct) and at each resonance
-scattering, every observer receives the lane's weight times the escape
-probability exp(-tau) along the sightline from the event to the grid's
-edge, over 4 pi r^2, times (at a scattering) the phase function toward the
-observer; the deposit goes into (nobs, nxfreq, nxim, nyim) spectral image
-cubes at the TAN pixel of the sightline and the lab-frequency bin of the
-peeled frequency.  With use_stokes a scattering also deposits the
-detector-frame Stokes I, Q, U, V from the lane's Stokes vector and
-reference triad (peeling_resonance_stokes_outside).
+path applies; the opacity of a cell is rhokap H(x, a) plus the dust's
+rhokapD (:232-233).  At a photon's birth (direct) and at each resonance or
+dust scattering, every observer receives the lane's weight times the
+escape probability exp(-tau) along the sightline from the event to the
+grid's edge, over 4 pi r^2, times (at a scattering) the phase function
+toward the observer; the deposit goes into (nobs, nxfreq, nxim, nyim)
+spectral image cubes at the TAN pixel of the sightline and the
+lab-frequency bin of the peeled frequency.  With use_stokes a scattering
+also deposits the detector-frame Stokes I, Q, U, V from the lane's Stokes
+vector and reference triad (peeling_resonance_stokes_outside).  A dust
+scattering peels at the lane's own (comoving) frequency with the
+Henyey-Greenstein phase (1 - g^2) / (1 + g^2 - 2 g cos)^1.5 / 4 pi, or with
+use_stokes through the Mueller table: S11..S34 at the angle to the
+observer, the Stokes vector into the scattering plane and then into the
+detector frame (peeling_dust_[no]stokes_outside, :577-654).
 
 The lanes come from a PeelRecord that the cycle's kernels fill right
 before: K2 refill flags the lanes it launched (the direct peel reads their
-newborn state), and K4 scatter flags the lanes that scattered and keeps
-their pre-scatter direction, triad and Stokes vector with the event's atom
-velocity and xfreq_atom (the resonance peel reads those and the lane's
-unchanged position, cell and weight).  The walk follows the transport's
-boundary ops (escape, periodic, reflect) and, in a moving medium, its
-comoving frequency updates; it stops where tau exceeds 745.2 or after
-2 (nx + ny + nz) + 8 crossings.  The walk draws no random numbers.
+newborn state), and K4 scatter marks each lane's event, EVENT_RESONANCE or
+EVENT_DUST, and keeps its pre-scatter direction, triad and Stokes vector
+with, at a resonance, the event's atom velocity and xfreq_atom (the peel
+reads those and the lane's unchanged position, cell, frequency and its
+weight).  Modes RESONANCE and DUST peel the events of their kind; K7 takes
+both kinds in one launch, mode SCATTERED = RESONANCE | DUST, each pair by
+its lane's kind.  The walk follows the transport's boundary ops (escape,
+periodic, reflect) and, in a moving medium, its comoving frequency updates;
+it stops where tau exceeds 745.2 or after 2 (nx + ny + nz) + 8 crossings.
+The walk draws no random numbers.
 
-peel_dust, peel_conversion_Ha, the stellar direct peel, interior HEALPix
-observers and the clump/AMR sightlines are not ported
-(engine.check_supported names them).
+peel_conversion_Ha, the stellar direct peel, interior HEALPix observers and
+the clump/AMR sightlines are not ported (engine.check_supported names
+them).
 """
 
 from __future__ import annotations
@@ -40,16 +49,23 @@ from typing import Optional
 import torch
 
 from ..kernels import build as kbuild
+from ..physics import mueller as pmueller
 from ..physics.voigt import voigt_plain
 from ..transport.flight import BIG, FlightConsts, div, fma
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
+from ..transport.scatter import (DUST_OFF, EVENT_DUST, EVENT_RESONANCE,
+                                 dust_mode)
 from .observer import build_observers
 
 RAD2DEG = 180.0 / math.pi
+TWOPI = 2.0 * math.pi
 FOURPI = 4.0 * math.pi
 TAU_HUGE = 745.2
-DIRECT, RESONANCE = 0, 1
+# modes; a scatter mode peels the lanes whose record flag, K4's kind of
+# event, it has a bit of
+DIRECT, RESONANCE, DUST = 0, EVENT_RESONANCE, EVENT_DUST
+SCATTERED = RESONANCE | DUST
 
 # order of the record's pointer table (csrc/lart.cuh unpack_record)
 PEEL_RECORD_FIELDS = ('flag', 'kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx',
@@ -119,8 +135,10 @@ class PeelParams(ctypes.Structure):
                 ('w_out', _P),
                 ('nobs', _I), ('nxim', _I), ('nyim', _I), ('nxfreq', _I),
                 ('max_steps', _I), ('chord', _I), ('stokes', _I),
-                ('lab_source', _I), ('dxim', _F), ('dyim', _F),
-                ('E1', _F), ('E2', _F), ('E3', _F)]
+                ('lab_source', _I), ('dust', _I), ('dxim', _F), ('dyim', _F),
+                ('E1', _F), ('E2', _F), ('E3', _F), ('hg_num', _F),
+                ('hg_1pg2', _F), ('hg_2g', _F),
+                ('mueller', pmueller.MuellerC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -138,6 +156,9 @@ class Peel:
     E1: float
     E2: float
     E3: float
+    dust: int = DUST_OFF
+    hgg: float = 0.0             # Henyey-Greenstein g of the dust peel
+    mueller: Optional[pmueller.MuellerTable] = None   # DUST_MUELLER
 
     @classmethod
     def from_config(cls, cfg, meta, grid, uniform_sphere: bool
@@ -151,6 +172,7 @@ class Peel:
         obs_meta, odev = obs
         fc = FlightConsts.from_config(cfg, meta, grid)
         line = cfg.line
+        dust = dust_mode(cfg, meta)
         return cls(grid=fc, obs_meta=obs_meta,
                    pos=odev.pos.contiguous(),
                    rmat=odev.rmat.reshape(-1, 3, 3).contiguous(),
@@ -158,7 +180,19 @@ class Peel:
                    stokes=bool(cfg.par.use_stokes),
                    lab_source=not cfg.par.comoving_source and fc.moving,
                    max_steps=2 * (meta.nx + meta.ny + meta.nz) + 8,
-                   E1=float(line.E1), E2=float(line.E2), E3=float(line.E3))
+                   E1=float(line.E1), E2=float(line.E2), E3=float(line.E3),
+                   dust=dust, hgg=float(cfg.par.hgg),
+                   mueller=pmueller.MuellerTable.for_config(
+                       cfg, grid.rhokap.device) if dust else None)
+
+    @property
+    def scatter_mode(self) -> int:
+        """The mode that peels K4's events: both kinds with dust."""
+        return SCATTERED if self.dust else RESONANCE
+
+    def device_tensors(self):
+        return ((self.pos, self.rmat) + self.grid.device_tensors()
+                + (self.mueller.tensors() if self.mueller else ()))
 
     @property
     def nobs(self) -> int:
@@ -186,9 +220,14 @@ class Peel:
         c.nobs, c.nxim, c.nyim = o.nobs, o.nxim, o.nyim
         c.nxfreq, c.max_steps = self.grid.nxfreq, self.max_steps
         c.chord, c.stokes = int(self.chord), int(self.stokes)
-        c.lab_source = int(self.lab_source)
+        c.lab_source, c.dust = int(self.lab_source), self.dust
         c.dxim, c.dyim = o.dxim, o.dyim
         c.E1, c.E2, c.E3 = self.E1, self.E2, self.E3
+        # the HG constants in f64, then f32, as lart_tpu's weak types
+        g = self.hgg
+        c.hg_num, c.hg_1pg2, c.hg_2g = 1.0 - g * g, 1.0 + g * g, 2.0 * g
+        if self.mueller is not None:
+            c.mueller = self.mueller.c_struct
         return c
 
     def c_params(self, cubes: PeelCubes, pair_out=None) -> PeelParams:
@@ -263,7 +302,7 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
         if stats is not None:
             stats['crossings'] = stats.get('crossings', 0) + idx.numel()
             _visit(stats, g, flat)
-        rho = g.rhokap[flat] * voigt_plain(xf, g.a_ref)
+        rho = g.opacity(flat, xf)
         t = [_face_dist(pos[a], k[a], cell[a], g.amin[a], g.d[a])
              if g.walk[a] else torch.full_like(xf, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
@@ -305,12 +344,13 @@ def _add(cube, idx, ok, w):
     cube.index_add_(0, idx, torch.where(ok, w, torch.zeros_like(w)))
 
 
-def event_frequency(p: Peel, mode: int, s, rec: PeelRecord, pk):
-    """The comoving frequency toward the observer along pk, and at a
-    scattering the observer direction in the event's frame: (xf, cost,
-    cosp, sinp); the last three are None in mode DIRECT."""
+def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
+    """The comoving frequency toward the observer along pk of an event of
+    `kind` (DIRECT, RESONANCE or DUST), and at a scattering the observer
+    direction in the event's frame: (xf, cost, cosp, sinp); the last three
+    are None at a birth, and cosp, sinp without Stokes at a dust event."""
     cell = (s.ic, s.jc, s.kc)
-    if mode == DIRECT:
+    if kind == DIRECT:
         xf = s.xfreq
         if p.lab_source:
             # comoving-source convention (peel.py:453-459)
@@ -329,6 +369,9 @@ def event_frequency(p: Peel, mode: int, s, rec: PeelRecord, pk):
                 + pk[2] * rec.nnz) / sint_safe
         cosp = torch.where(sint == 0.0, one, cosp)
         sinp = torch.where(sint == 0.0, zero, sinp)
+    elif kind == DUST:
+        # the HG phase needs no azimuth; dust scatters coherently
+        return s.xfreq, cost, None, None
     else:
         # azimuth from the propagation-vector geometry
         rho1 = torch.sqrt(torch.clamp_min(1.0 - rec.kz * rec.kz, 0.0)) * sint
@@ -336,8 +379,64 @@ def event_frequency(p: Peel, mode: int, s, rec: PeelRecord, pk):
         cosp = torch.where(rho1 == 0.0, one, inv * (cost * rec.kz - pk[2]))
         sinp = torch.where(rho1 == 0.0, zero,
                            inv * (rec.kx * pk[1] - pk[0] * rec.ky))
+    if kind == DUST:
+        return s.xfreq, cost, cosp, sinp
     xf = rec.xatom + (rec.ux * cosp + rec.uy * sinp) * sint + rec.uz * cost
     return xf, cost, cosp, sinp
+
+
+def detector_qu(p: Peel, o: int, rec: PeelRecord, cosp, sinp, Qobs, Uobs):
+    """(Q, U) of the scattering plane rotated into observer o's detector
+    frame by the peel frame's normal vector (peel.py:540-550, :621-630)."""
+    pnx = -sinp * rec.mx + cosp * rec.nnx
+    pny = -sinp * rec.my + cosp * rec.nny
+    pnz = -sinp * rec.mz + cosp * rec.nnz
+    R = p.rmat[o]
+    cosg = -(R[0, 0] * pnx + R[0, 1] * pny + R[0, 2] * pnz)
+    sing = R[1, 0] * pnx + R[1, 1] * pny + R[1, 2] * pnz
+    cos2g = 2.0 * cosg * cosg - 1.0
+    sin2g = 2.0 * cosg * sing
+    return cos2g * Qobs + sin2g * Uobs, -sin2g * Qobs + cos2g * Uobs
+
+
+def scatter_deposits(p: Peel, kind: int, o: int, rec: PeelRecord, cost,
+                     cosp, sinp, atten, r2, wgt):
+    """The deposits of a scattering toward observer o, by cube: scatt, and
+    with Stokes I, Q, U, V (peel.py:526-561 resonance, :600-648 dust)."""
+    cost2 = cost * cost
+    if not p.stokes:
+        if kind == RESONANCE:
+            phase = 0.75 * p.E1 * (cost2 + 1.0) + p.E2
+            return {'scatt': phase / (FOURPI * r2) * atten * wgt}
+        g = p.hgg
+        den = torch.pow(1.0 + g * g - 2.0 * g * cost, 1.5)
+        phase = div(torch.full_like(den, 1.0 - g * g) / den, FOURPI)
+        return {'scatt': phase / r2 * atten * wgt}
+    cos2p = 2.0 * cosp * cosp - 1.0
+    sin2p = 2.0 * cosp * sinp
+    Q0 = cos2p * rec.Q + sin2p * rec.U
+    U0 = -sin2p * rec.Q + cos2p * rec.U
+    if kind == RESONANCE:
+        S22 = 0.75 * p.E1 * (cost2 + 1.0)
+        S11 = S22 + p.E2
+        S12 = 0.75 * p.E1 * (cost2 - 1.0)
+        S33 = 1.5 * p.E1 * cost
+        S44 = 1.5 * p.E3 * cost
+        Iobs = div(S11 + S12 * Q0, FOURPI)
+        Qobs = div(S12 + S22 * Q0, FOURPI)
+        Uobs = div(S33 * U0, FOURPI)
+        Vobs = div(S44 * rec.V, FOURPI)
+    else:
+        S11, S12, S33, S34 = pmueller.interp_S(p.mueller, cost)
+        Iobs = div(S11 + S12 * Q0, TWOPI)
+        Qobs = div(S12 + S11 * Q0, TWOPI)
+        Uobs = div(S33 * U0 + S34 * rec.V, TWOPI)
+        Vobs = div(-S34 * U0 + S33 * rec.V, TWOPI)
+    Qdet, Udet = detector_qu(p, o, rec, cosp, sinp, Qobs, Uobs)
+    w = atten / r2 * wgt
+    wI = w * Iobs
+    return {'scatt': wI, 'I': wI, 'Q': w * Qdet, 'U': w * Udet,
+            'V': w * Vobs}
 
 
 def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
@@ -345,19 +444,22 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
                stats=None) -> None:
     """Plain PyTorch peel of the flagged lanes into `cubes`, in place
     (tau_out, bin_out, w_out as in peel()).  stats, a dict, gains the work
-    the call needed: the flagged lanes with a pair in an image ('seen'),
-    the pairs that walk ('pairs'), their cell crossings ('crossings'), the
-    distinct grid cells read ('cells': those walked and, in a moving
-    medium, the event cells of the pairs in an image) and the distinct cube
-    bins deposited into ('bins')."""
+    the call needed: the flagged lanes with a pair in an image ('seen';
+    'seen_dust' of them at a dust event), the pairs that walk ('pairs'),
+    their cell crossings ('crossings'), the distinct grid cells read
+    ('cells': those walked and, in a moving medium, the event cells of the
+    pairs in an image) and the distinct cube bins deposited into
+    ('bins')."""
     s = state
     g = p.grid
     B = s.batch
     cell = (s.ic, s.jc, s.kc)
-    flag = rec.flag != 0
     obs = p.obs_meta
-    seen = torch.zeros_like(flag)
-    n_bins = 0
+    seen = torch.zeros(B, dtype=torch.bool, device=s.device)
+    seen_dust = torch.zeros_like(seen)
+    bins = []
+    kinds = (DIRECT,) if mode == DIRECT else tuple(
+        k for k in (RESONANCE, DUST) if mode & k)
 
     def put(out, c, ok, w):
         if out is not None:
@@ -366,76 +468,51 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
 
     for o in range(p.nobs):
         pk, r2, img, in_img = obs_geometry(p, o, s.x, s.y, s.z)
-        xf, cost, cosp, sinp = event_frequency(p, mode, s, rec, pk)
-        ixf, okf = freq_bin(p, cell, pk, xf)
-        act = flag & in_img
-        tau = tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, act & okf,
-                          stats)
-        atten = torch.exp(-torch.clamp_max(tau, 700.0))
-        idx = ((o * g.nxfreq + torch.clamp(ixf, 0, g.nxfreq - 1)).long()
-               * (obs.nxim * obs.nyim) + img)
-        ok = act & okf
-        if stats is not None:
-            seen |= act
-            stats['pairs'] = stats.get('pairs', 0) + int(ok.sum())
-            n_bins += int(torch.unique(idx[ok]).numel())
-            if g.moving:
-                _visit(stats, g, g.flat(*(c[act] for c in cell)))
-        put(tau_out, 0, ok, tau)
-        if bin_out is not None:
-            sl = slice(o * B, (o + 1) * B)
-            bin_out[sl] = torch.where(ok, idx, bin_out[sl].long()).to(
-                bin_out.dtype)
-        if mode == DIRECT:
-            w = atten / (FOURPI * r2) * s.wgt
-            _add(cubes.direc, idx, ok, w)
-            if p.stokes:
-                _add(cubes.I, idx, ok, w)
-            put(w_out, 0, ok, w)
-        elif not p.stokes:
-            cost2 = cost * cost
-            phase = 0.75 * p.E1 * (cost2 + 1.0) + p.E2
-            w = phase / (FOURPI * r2) * atten * s.wgt
-            _add(cubes.scatt, idx, ok, w)
-            put(w_out, 0, ok, w)
-        else:
-            cost2 = cost * cost
-            S22 = 0.75 * p.E1 * (cost2 + 1.0)
-            S11 = S22 + p.E2
-            S12 = 0.75 * p.E1 * (cost2 - 1.0)
-            S33 = 1.5 * p.E1 * cost
-            S44 = 1.5 * p.E3 * cost
-            cos2p = 2.0 * cosp * cosp - 1.0
-            sin2p = 2.0 * cosp * sinp
-            Q0 = cos2p * rec.Q + sin2p * rec.U
-            U0 = -sin2p * rec.Q + cos2p * rec.U
-            Iobs = div(S11 + S12 * Q0, FOURPI)
-            Qobs = div(S12 + S22 * Q0, FOURPI)
-            Uobs = div(S33 * U0, FOURPI)
-            Vobs = div(S44 * rec.V, FOURPI)
-            # the peel frame's normal vector, rotated to the detector
-            pnx = -sinp * rec.mx + cosp * rec.nnx
-            pny = -sinp * rec.my + cosp * rec.nny
-            pnz = -sinp * rec.mz + cosp * rec.nnz
-            R = p.rmat[o]
-            cosg = -(R[0, 0] * pnx + R[0, 1] * pny + R[0, 2] * pnz)
-            sing = R[1, 0] * pnx + R[1, 1] * pny + R[1, 2] * pnz
-            cos2g = 2.0 * cosg * cosg - 1.0
-            sin2g = 2.0 * cosg * sing
-            Qdet = cos2g * Qobs + sin2g * Uobs
-            Udet = -sin2g * Qobs + cos2g * Uobs
-            w = atten / r2 * s.wgt
-            wI = w * Iobs
-            _add(cubes.scatt, idx, ok, wI)
-            for c, (cube, wc) in enumerate(((cubes.I, wI),
-                                            (cubes.Q, w * Qdet),
-                                            (cubes.U, w * Udet),
-                                            (cubes.V, w * Vobs))):
-                _add(cube, idx, ok, wc)
-                put(w_out, c, ok, wc)
+        for kind in kinds:
+            flag = rec.flag != 0 if kind == DIRECT else rec.flag == kind
+            if kind == DUST and not bool(flag.any()):
+                continue
+            xf, cost, cosp, sinp = event_frequency(p, kind, s, rec, pk)
+            ixf, okf = freq_bin(p, cell, pk, xf)
+            act = flag & in_img
+            tau = tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, act & okf,
+                              stats)
+            atten = torch.exp(-torch.clamp_max(tau, 700.0))
+            idx = ((o * g.nxfreq + torch.clamp(ixf, 0, g.nxfreq - 1)).long()
+                   * (obs.nxim * obs.nyim) + img)
+            ok = act & okf
+            if stats is not None:
+                seen |= act
+                if kind == DUST:
+                    seen_dust |= act
+                stats['pairs'] = stats.get('pairs', 0) + int(ok.sum())
+                bins.append(idx[ok])
+                if g.moving:
+                    _visit(stats, g, g.flat(*(c[act] for c in cell)))
+            put(tau_out, 0, ok, tau)
+            if bin_out is not None:
+                sl = slice(o * B, (o + 1) * B)
+                bin_out[sl] = torch.where(ok, idx, bin_out[sl].long()).to(
+                    bin_out.dtype)
+            if kind == DIRECT:
+                w = atten / (FOURPI * r2) * s.wgt
+                _add(cubes.direc, idx, ok, w)
+                if p.stokes:
+                    _add(cubes.I, idx, ok, w)
+                put(w_out, 0, ok, w)
+                continue
+            dep = scatter_deposits(p, kind, o, rec, cost, cosp, sinp, atten,
+                                   r2, s.wgt)
+            for name, w in dep.items():
+                _add(getattr(cubes, name), idx, ok, w)
+            for c, name in enumerate(('scatt', 'Q', 'U', 'V')):
+                if name in dep:
+                    put(w_out, c, ok, dep[name])
     if stats is not None:
         stats['seen'] = int(seen.sum())
-        stats['bins'] = n_bins
+        stats['seen_dust'] = int(seen_dust.sum())
+        stats['bins'] = int(torch.unique(torch.cat(bins)).numel()) \
+            if bins else 0
         stats['cells'] = int(stats.pop('visited').sum()) \
             if 'visited' in stats else 0
 
@@ -443,20 +520,21 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
 def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
          tau_out=None, bin_out=None, w_out=None) -> None:
     """Peel the flagged lanes to every observer, in place: kernel K7 for a
-    CUDA state, the plain version for a CPU state.  tau_out (nobs*B f32),
-    bin_out (nobs*B int32) and w_out (4*nobs*B f32), given together or not
-    at all, receive the optical depth, the flat cube index and the deposits
-    of each (observer, lane) pair that deposits: pair t = o*B + lane gets
-    its scatt (resonance) or direc (direct) deposit at w_out[t] and, in a
-    resonance peel with Stokes, its Q, U, V deposits at w_out[t + c*nobs*B],
-    c = 1, 2, 3."""
+    CUDA state, the plain version for a CPU state.  Mode DIRECT peels the
+    lanes whose flag is set; a scatter mode (RESONANCE, DUST or both,
+    SCATTERED) the lanes whose flag, K4's kind of event, it has a bit of.
+    tau_out (nobs*B f32), bin_out (nobs*B int32) and w_out (4*nobs*B f32),
+    given together or not at all, receive the optical depth, the flat cube
+    index and the deposits of each (observer, lane) pair that deposits:
+    pair t = o*B + lane gets its scatt (scattering) or direc (direct)
+    deposit at w_out[t] and, in a scattering with Stokes, its Q, U, V
+    deposits at w_out[t + c*nobs*B], c = 1, 2, 3."""
     if state.device.type == 'cpu':
         peel_plain(state, cubes, rec, p, mode, tau_out, bin_out, w_out)
         return
     out = () if tau_out is None else (tau_out, bin_out, w_out)
-    kbuild.require_cuda('peel', state.x, rec.flag, p.pos, p.rmat,
-                        *(t for _, t in cubes.items()),
-                        *p.grid.device_tensors(), *out)
+    kbuild.require_cuda('peel', state.x, rec.flag, *p.device_tensors(),
+                        *(t for _, t in cubes.items()), *out)
     kbuild.check(kbuild.library().lart_peel(
         state.lane_pointers, rec.pointers, state.batch, mode,
         ctypes.byref(p.grid.c_grid_params),

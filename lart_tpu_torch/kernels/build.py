@@ -38,7 +38,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
 SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
            'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu')
-HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh')
+HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
+           'mueller.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
@@ -52,17 +53,16 @@ _FLIGHT = ctypes.POINTER(FlightParams)      # K5/K6/K7 grid, by pointer
 _ARGTYPES = {
     'lart_voigt_h': [_P, _P, _P, _I, _P],
     'lart_refill_point': [_LANES, _LANES, _I, _P, _I, _U, _U, _F, _F, _F, _I, _I,
-                          _I, _F, _I, _F, _F, _F, _F, _I, _F, _F, _I, _P, _P],
+                          _I, _F, _I, _F, _F, _F, _F, _F, _I, _F, _F, _I, _P,
+                          _P],
     'lart_fly_uniform_slab': [_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _F,
                               _F, _F, _F, _I, _I, _I, _F, _F, _I, _P, _P, _P,
                               _P],
-    'lart_scatter_lya': [_LANES, _LANES, _I, _U, _U, _I, _F, _F, _I, _F, _F,
-                         _I, _F, _F, _F, _P, _I, _I, _I, _F, _F, _F, _F, _F,
-                         _F, _P, _P, _P],
     'lart_fly_cartesian': [_LANES, _I, _I, _FLIGHT, _P],
     'lart_fly_uniform_sphere': [_LANES, _I, _I, _FLIGHT, _P],
     'lart_flight_params_size': [],
     'lart_peel_params_size': [],
+    'lart_scatter_params_size': [],
 }
 
 _lib = None
@@ -135,11 +135,15 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        # instruments.peel imports this module: its struct comes in here
+        # instruments.peel and transport.scatter import this module: their
+        # structs come in here
         from ..instruments.peel import PeelParams
+        from ..transport.scatter import ScatterC
         lib = ctypes.CDLL(str(build()))
         argtypes_of = dict(_ARGTYPES, lart_peel=[
-            _LANES, _LANES, _I, _I, _FLIGHT, ctypes.POINTER(PeelParams), _P])
+            _LANES, _LANES, _I, _I, _FLIGHT, ctypes.POINTER(PeelParams), _P],
+            lart_scatter_lya=[_LANES, _LANES, _I, _U, _U,
+                              ctypes.POINTER(ScatterC), _P])
         for name, argtypes in argtypes_of.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -148,7 +152,9 @@ def library() -> ctypes.CDLL:
                 (lib.lart_flight_params_size, FlightParams,
                  'csrc/lart.cuh and transport/flight.py'),
                 (lib.lart_peel_params_size, PeelParams,
-                 'csrc/peel.cu and instruments/peel.py')):
+                 'csrc/peel.cu and instruments/peel.py'),
+                (lib.lart_scatter_params_size, ScatterC,
+                 'csrc/scatter_lya.cu and transport/scatter.py')):
             if fn() != ctypes.sizeof(struct):
                 raise RuntimeError(f'{struct.__name__}: {where} disagree '
                                    f'on its layout')

@@ -3,7 +3,10 @@
 Counterparts of lart_tpu/physics/samplers.py: vz_envelope (:70) and
 vz_round_xi (:128), the Voigt-conditional parallel atom velocity by
 composite-envelope rejection in masked rounds; rand_resonance_cost (:210),
-the dipole cos(theta); rand_voigt_x (:237), the Voigt input spectrum.  Each
+the dipole cos(theta); rand_voigt_x (:237), the Voigt input spectrum;
+rand_henyey_greenstein (:247), the dust phase function; build_alias_table
+and alias_sample (:266, :287), the categorical draw of the Mueller tables
+(physics/mueller.py).  Each
 takes its uniforms (and the Voigt draw its normal's uniforms) as arguments,
 so the tests feed the JAX functions and these the same numbers, and the
 CUDA kernels' per-lane twins (csrc/samplers.cuh) see the same Philox
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 PI = math.pi
@@ -155,11 +159,57 @@ def rand_resonance_cost(xi: torch.Tensor, E1: float) -> torch.Tensor:
     return torch.clamp(cost, -1.0, 1.0)
 
 
+def box_muller(u_g1: torch.Tensor, u_g2: torch.Tensor) -> torch.Tensor:
+    """A standard normal from two uniforms."""
+    return torch.sqrt(-2.0 * torch.log(u_g1)) * torch.cos(TWOPI * u_g2)
+
+
 def rand_voigt_x(a, u_cauchy: torch.Tensor, u_g1: torch.Tensor,
                  u_g2: torch.Tensor) -> torch.Tensor:
     """Voigt-profile frequency: Cauchy(a) via tan plus a Box-Muller normal
     over sqrt(2) (samplers.py:237-244)."""
     a = torch.as_tensor(a, dtype=torch.float32, device=u_cauchy.device)
     cauchy = torch.tan(PI * u_cauchy - 0.5 * PI)
-    g = torch.sqrt(-2.0 * torch.log(u_g1)) * torch.cos(TWOPI * u_g2)
-    return a * cauchy + g * (1.0 / math.sqrt(2.0))
+    return a * cauchy + box_muller(u_g1, u_g2) * (1.0 / math.sqrt(2.0))
+
+
+def rand_henyey_greenstein(xi: torch.Tensor, g: float) -> torch.Tensor:
+    """Henyey-Greenstein cos(theta) by inversion, isotropic for |g| < 1e-8
+    (samplers.py:247-254); g is rounded to f32 first, as jnp.asarray does."""
+    gs = float(np.float32(g))
+    if abs(gs) < 1e-8:
+        return 2.0 * xi - 1.0
+    g = torch.tensor(gs, dtype=torch.float32, device=xi.device)
+    g2 = g * g
+    q = (1.0 - g2) / (1.0 - g + 2.0 * g * xi)
+    return torch.clamp(((1.0 + g2) - q * q) / (2.0 * g), -1.0, 1.0)
+
+
+def build_alias_table(probs):
+    """Vose alias table (prob, alias) of a categorical pdf, on the host in
+    numpy, the same arrays as samplers.py:266-284."""
+    p = np.asarray(probs, np.float64)
+    n = p.size
+    p = p / p.sum() * n
+    prob = np.zeros(n)
+    alias = np.zeros(n, np.int32)
+    small = [i for i in range(n) if p[i] < 1.0]
+    large = [i for i in range(n) if p[i] >= 1.0]
+    while small and large:
+        s, big = small.pop(), large.pop()
+        prob[s] = p[s]
+        alias[s] = big
+        p[big] = p[big] - (1.0 - p[s])
+        (small if p[big] < 1.0 else large).append(big)
+    for i in large + small:
+        prob[i] = 1.0
+    return prob, alias
+
+
+def alias_sample(prob: torch.Tensor, alias: torch.Tensor, u_bin: torch.Tensor,
+                 u_alias: torch.Tensor) -> torch.Tensor:
+    """Alias-method categorical draw from two uniforms and one gather
+    (samplers.py:287-293); int64 indices."""
+    n = prob.shape[0]
+    idx = torch.clamp_max((u_bin * n).to(torch.int64), n - 1)
+    return torch.where(u_alias >= prob[idx], alias[idx].long(), idx)

@@ -65,6 +65,38 @@ def hubble_params(tau0: float = 100.0, n: int = 17, Vexp: float = 200.0,
     return Params(**base)
 
 
+def dust_params(N_HI: float = 3.4e14, DGR: float = 1.8e6, n: int = 17,
+                nphotons: int = 2000, batch: int = 2048, stokes: bool = True,
+                **kw) -> Params:
+    """A dusty expanding shell like examples/DL2008/DL20e_dust.in (the
+    Dijkstra & Loeb 2008 shell: 0.9 < r < 1, a constant radial outflow of
+    200 km/s, a Gaussian input line, its 231 frequency bins), cut to a CPU's
+    size: an n^3 grid, the shell thickened to 0.6 < r < 1 so that its
+    voxels make a sphere from every direction (at 0.9 the 17^3 shell is one
+    cell thick and a peel-off observer on an axis sees 25% less flux than
+    the mean), N_HI lowered from 1e20 to 3.4e14 (gas tau0 ~ 20) and DGR
+    raised from 1 to 1.8e6, so that the dust's optical depth, 0.16 as
+    written, is ~1 and about two thirds of the photons are absorbed.  The line is
+    narrowed from sigma 200 to 20 km/s and centred on the outflow, x0 =
+    200 km/s / vtherm (12.844 km/s at 1e4 K), so that every photon meets the
+    shell near its line centre and scatters a few times: the per-photon
+    spread of the scatterings stays small enough to compare means to 5% at
+    a few thousand photons (at 200 km/s most photons pass the shell
+    unscattered and a few scatter hundreds of times).  With `stokes` the
+    dust scatters by the Mueller table of Ly-alpha, else by
+    Henyey-Greenstein."""
+    base = dict(nphotons=nphotons, temperature=1e4, N_HI=N_HI, DGR=DGR,
+                velocity_type='constant_radial', Vexp=200.0, rmin=0.6,
+                rmax=1.0, nx=n, ny=n, nz=n, use_stokes=stokes,
+                spectral_type='gaussian', gaussian_sigma_vel=20.0,
+                xfreq0=200.0 / 12.844236, nxfreq=231, xfreq_min=-140.0,
+                xfreq_max=90.0, save_Jin=True, batch_size=batch,
+                fly_substeps=8, scatter_rounds=4, chunk_cycles=16,
+                refill_every=4)
+    base.update(kw)
+    return Params(**base)
+
+
 def peel_params(par: Params, stokes: bool = True, nim: int = 33,
                 **kw) -> Params:
     """par with peel-off at test size: two external observers at distance
@@ -118,6 +150,27 @@ def peel_closure(res) -> list:
 # test_torch_peel_slice.py: the peeled flux of 2000 photons varied by 3.7%
 # over five seeded runs of the two packages)
 PEEL_V_PHOTON = 2.7
+# the same for the dusty shell of dust_params with Stokes, seen from +z:
+# its forward-peaked dust phase function makes the peel vary more
+# (tools/dust_cpu_runs.py spread, eight seeded runs of 2000 photons through
+# the port: Stokes I 1.810 +- 0.127, 9.8 a photon; 4 pi d^2 flux / W_esc
+# 1.000 +- 0.084, 14.1 a photon, the larger, which this holds)
+PEEL_V_DUST = 14.1
+# and of the scatterings per photon there, gas and dust (the same runs:
+# 2.892 +- 0.076 and 1.018 +- 0.018)
+DUST_V_NSCATT, DUST_V_NDUST = 1.4, 0.65
+
+
+def spectra_chi2(a, b, n_a: float, n_b: float):
+    """(chi2/dof, bins) of two spectra's shapes, each normalized to unit
+    sum, over the populated bins, with the counting variance of the n_a and
+    n_b photons that make them (the escaped or absorbed ones: the photon
+    count times W_esc or W_abs)."""
+    p1, p2 = a / a.sum(), b / b.sum()
+    sel = (p1 + p2) > (p1 + p2).max() * 1e-3
+    var = p1 / n_a + p2 / n_b
+    return float(np.sum((p1[sel] - p2[sel]) ** 2 / var[sel])
+                 / max(sel.sum(), 1)), int(sel.sum())
 
 
 def peel_spectra_chi2(r1, r2, o: int, nphotons: int):
@@ -270,6 +323,28 @@ def polarization(rng, kx, ky, kz) -> dict:
     m, n = np.cos(psi) * m + np.sin(psi) * n, np.cos(psi) * n - np.sin(psi) * m
     return dict(Q=stokes[0], U=stokes[1], V=stokes[2], mx=m[0], my=m[1],
                 mz=m[2], nnx=n[0], nny=n[1], nnz=n[2])
+
+
+def dust_state(meta, grid, batch: int, seed: int, xmax: float,
+               device='cpu') -> BatchState:
+    """mixed_state's lanes, all at a scattering, moved into the grid's dusty
+    cells (uniform inside each), with xfreq uniform in [-xmax, xmax] (from
+    the line core, where the gas wins the event split, to the wing, where
+    the dust does) and unit weights."""
+    rng = np.random.default_rng([seed, 2])
+    s = mixed_state(meta, batch, seed, device, phases=(AT_SCATTER,))
+    cells = np.argwhere(grid.rhokapD.cpu().numpy() > 0.0)
+    pick = cells[rng.integers(0, len(cells), batch)]
+    for a, (pos, c, amin, d) in enumerate((
+            ('x', 'ic', meta.xmin, meta.dx), ('y', 'jc', meta.ymin, meta.dy),
+            ('z', 'kc', meta.zmin, meta.dz))):
+        v = amin + (pick[:, a] + rng.uniform(0.05, 0.95, batch)) * d
+        getattr(s, pos).copy_(torch.as_tensor(v, dtype=torch.float32))
+        getattr(s, c).copy_(torch.as_tensor(pick[:, a], dtype=torch.int32))
+    s.xfreq.copy_(torch.as_tensor(rng.uniform(-xmax, xmax, batch),
+                                  dtype=torch.float32))
+    s.wgt.fill_(1.0)
+    return s
 
 
 def clone_state(state: BatchState) -> BatchState:

@@ -11,8 +11,9 @@ once per chunk.
 With save_peeloff the cycle also peels (kernel K7, instruments/peel.py):
 right after a refill, the newborn photons to every observer (the direct
 peel, engine.py:2909-2913), and right after the scatter, each resonance
-event with its pre-scatter direction (:2207-2218); both read the
-PeelRecord that K2 and K4 fill, and deposit into the chunk's f32 cubes.
+and dust scattering with its pre-scatter direction (:2207-2218, :2342-2347),
+both kinds in one launch; both read the PeelRecord that K2 and K4 fill, and
+deposit into the chunk's f32 cubes.
 
 The flight follows lart_tpu's make_fly (engine.py:1057-1066):
 force_generic_kernel takes the generic Cartesian walk K5; otherwise the
@@ -26,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from ..instruments.peel import DIRECT, RESONANCE, Peel, PeelRecord, peel
+from ..instruments.peel import DIRECT, Peel, PeelRecord, peel
 from .fly_cartesian import CartesianFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
@@ -85,12 +86,9 @@ def check_supported(cfg, meta=None) -> None:
         ('use_amr_grid (AMR backend)', par.use_amr_grid),
         ('use_clump_medium (clump backend)', par.use_clump_medium),
         (f'line_type {cfg.line.line_type} (only 1)', cfg.line.line_type != 1),
-        ('dust (DGR > 0)', par.DGR > 0.0),
         ('h2_model', par.h2_model.strip().lower() not in ('', 'none')),
         ('peel-off observers inside the grid (nside > 0, HEALPix)',
          par.save_peeloff and par.nside > 0),
-        ('use_stokes with dust (Mueller tables)',
-         par.use_stokes and par.DGR > 0.0),
         ('calcJ/calcP/calcPnew', par.calcJ or par.calcP or par.calcPnew),
         ('save_all_photons', par.save_all_photons),
         ('checkpoint_file/resume_checkpoint',
@@ -112,14 +110,14 @@ def check_supported(cfg, meta=None) -> None:
         ('profile_dir', bool(par.profile_dir.strip())),
         ('source_geometry other than point',
          par.source_geometry.strip().lower() not in ('point', '')),
-        ('spectral_type other than voigt/monochromatic',
-         par.spectral_type.strip().lower() not in ('voigt',
-                                                   'monochromatic'))) if on]
+        ('spectral_type other than voigt/monochromatic/gaussian',
+         par.spectral_type.strip().lower() not in (
+             'voigt', 'monochromatic', 'gaussian'))) if on]
     if meta is not None:
         missing += [name for name, on in (
             ('non-Cartesian grid', meta.grid_type != 'cartesian'),
             ('non-uniform temperature', not meta.uniform_temperature),
-            ('dust', meta.has_dust), ('atmosphere', bool(meta.atmosphere)),
+            ('atmosphere', bool(meta.atmosphere)),
             ('shearing box', meta.omega_shear != 0.0)) if on]
     if missing:
         raise NotImplementedError('lart_tpu_torch does not port yet: '
@@ -171,7 +169,7 @@ class Chunk:
             self.flight(state, tallies, self.fly_substeps)
             scatter(state, tallies, self.scatter_params, seed, i, rec)
             if p is not None:
-                peel(state, tallies.peel, rec, p, RESONANCE)
+                peel(state, tallies.peel, rec, p, p.scatter_mode)
         alive = (state.phase != DEAD).sum()
         return tallies, alive, state.n_launched[0]
 

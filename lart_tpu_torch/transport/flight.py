@@ -3,8 +3,9 @@ constants of the two 3-D Cartesian flights (kernels K5 fly_cartesian and
 K6 fly_uniform_sphere) with their C layout.
 
 `FlightConsts` carries every constant of lart_tpu's make_fly (engine.py:
-1067-1140) and make_fly_uniform_sphere (:887-908) that this slice needs,
-plus the grid tensors the walk gathers from.  Numbers stay Python floats,
+1067-1140) and make_fly_uniform_sphere (:887-908) that the ported paths
+need, plus the grid tensors the walk gathers from: rhokap, the dust's
+rhokapD where DGR > 0, and the velocities of a moving medium.  Numbers stay Python floats,
 so every operation of a plain version rounds them to f32 where JAX's weak
 types do; the kernels receive the same values as f32 through
 `FlightParams`, whose layout csrc/lart.cuh struct FlightParams repeats.
@@ -38,7 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 class FlightParams(ctypes.Structure):
     """csrc/lart.cuh struct FlightParams, field for field."""
-    _fields_ = [('rhokap', _P), ('vfx', _P), ('vfy', _P), ('vfz', _P),
+    _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
+                ('vfz', _P),
                 ('Jout', _P), ('Jmu', _P), ('W_oor', _P),
                 ('n', _I * 3), ('bc', _I * 3), ('cell0', _I * 3),
                 ('walk', _I * 3), ('moving', _I), ('nxfreq', _I),
@@ -118,6 +120,7 @@ class FlightConsts:
     sphere_rhoD: float
     rhokap: torch.Tensor     # flat (nx*ny*nz,) f32, C order
     vel: Optional[tuple]     # flat (vfx, vfy, vfz); None in a static medium
+    rhokapD: Optional[torch.Tensor] = None   # flat dust opacity, or None
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -143,7 +146,9 @@ class FlightConsts:
             mu_abs=bool(par.xyz_symmetry),
             sphere_R2=meta.sphere_R * meta.sphere_R,
             sphere_rho=meta.sphere_rho, sphere_rhoD=meta.sphere_rhoD,
-            rhokap=grid.rhokap.reshape(-1).contiguous(), vel=vel)
+            rhokap=grid.rhokap.reshape(-1).contiguous(), vel=vel,
+            rhokapD=None if grid.rhokapD is None
+            else grid.rhokapD.reshape(-1).contiguous())
 
     @property
     def moving(self) -> bool:
@@ -155,6 +160,16 @@ class FlightConsts:
         f = (i.long() * ny + j) * nz + k
         return torch.clamp(f, 0, nx * ny * nz - 1)
 
+    def opacity(self, flat, xfreq) -> torch.Tensor:
+        """rhokap H(x, a_ref) + rhokapD of the flat cells `flat` at the
+        comoving frequencies xfreq (engine.py:1111-1121 total_opacity)."""
+        # (kernels.build, which physics.voigt imports, imports this module)
+        from ..physics.voigt import voigt_plain
+        rho = self.rhokap[flat] * voigt_plain(xfreq, self.a_ref)
+        if self.rhokapD is not None:
+            rho = rho + self.rhokapD[flat]
+        return rho
+
     def vel_dot(self, cell, kx, ky, kz) -> torch.Tensor:
         """u . k of the cells `cell` = (i, j, k) (engine.cell_velocity_dot)."""
         f = self.flat(*cell)
@@ -165,6 +180,8 @@ class FlightConsts:
     def _c_params(self) -> FlightParams:
         c = FlightParams()
         c.rhokap = self.rhokap.data_ptr()
+        if self.rhokapD is not None:
+            c.rhokapD = self.rhokapD.data_ptr()
         if self.moving:
             c.vfx, c.vfy, c.vfz = (v.data_ptr() for v in self.vel)
         c.n[:] = self.n
@@ -199,4 +216,5 @@ class FlightConsts:
         return c
 
     def device_tensors(self):
-        return (self.rhokap,) + (self.vel or ())
+        return ((self.rhokap,) + (self.vel or ())
+                + (() if self.rhokapD is None else (self.rhokapD,)))

@@ -1,9 +1,10 @@
 """Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
 
 Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
-for a uniform-temperature grid without dust, H2, line type 8, atmospheres,
-the shearing box, CALCJ/Pnew or all-photons records.  Each step takes one
-lane across one cell: the opacity of its cell is rhokap * H(x, a_ref); the
+for a uniform-temperature grid without H2, line type 8, atmospheres, the
+shearing box, CALCJ/Pnew or all-photons records.  Each step takes one lane
+across one cell: the opacity of its cell is rhokap * H(x, a_ref), plus the
+dust's rhokapD where DGR > 0 (engine.py:1111-1121 total_opacity); the
 lane reaches its tau target (AT_SCATTER) or crosses the nearest face (axis
 tie-break x, y, z), where the boundary op of that axis applies (escape,
 periodic wrap, or reflect about the symmetry plane with the odd-n half
@@ -23,7 +24,6 @@ import dataclasses
 import torch
 
 from ..kernels import build as kbuild
-from ..physics.voigt import voigt_plain
 from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, div, fma,
                      tally_plain)
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
@@ -68,7 +68,7 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             break       # the remaining iterations would change nothing
         pos, dirs = (s.x, s.y, s.z), (s.kx, s.ky, s.kz)
         cell = (s.ic, s.jc, s.kc)
-        rho = p.rhokap[p.flat(*cell)] * voigt_plain(s.xfreq, p.a_ref)
+        rho = p.opacity(p.flat(*cell), s.xfreq)
         t = [_face_dist(pos[a], dirs[a], cell[a], p.amin[a], p.d[a])
              if p.walk[a] else torch.full_like(s.x, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])

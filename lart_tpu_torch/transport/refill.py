@@ -1,9 +1,14 @@
 """Refill: dead lanes are reborn from the photon budget (kernel K2).
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
-:2689) for a point source (source_geometry 'point' or '') with a Voigt or
-monochromatic input spectrum in a uniform-temperature medium, static or
-moving.  A launched lane gets the source position, an isotropic direction,
+:2689) for a point source (source_geometry 'point' or '') with a Voigt,
+monochromatic or Gaussian input spectrum in a uniform-temperature medium,
+static or moving.  The Gaussian (engine.py:2799-2803) is
+xfreq0 + N(0, 1) sigma / vtherm, sigma = gaussian_FWHM_vel / 2.35482 where
+that is set, else gaussian_sigma_vel; the normal comes by Box-Muller from
+block 2 of the lane's uniforms, which no other spectrum reads.  lart_tpu
+divides it by D_loc / Dfreq_ref, the source cell's Doppler width over the
+reference one, which is exactly 1 at uniform temperature.  A launched lane gets the source position, an isotropic direction,
 its birth frequency, the forced-first-scattering phase FFS with its xi
 stashed in tau_target, the birth snapshot, and the unpolarized Stokes
 vector (Q = U = V = 0) with the reference triad m = (cos theta cos phi,
@@ -33,9 +38,13 @@ import torch
 
 from ..kernels import build as kbuild
 from ..physics.rng import STREAM_REFILL, uniforms
-from ..physics.samplers import TWOPI, rand_voigt_x
+from ..physics.samplers import TWOPI, box_muller, rand_voigt_x
 from .flight import div
 from .state import DEAD, FFS, BatchState, Tallies
+
+SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS = 0, 1, 2
+SPECTRA = {'monochromatic': SPECTRUM_MONO, 'voigt': SPECTRUM_VOIGT,
+           'gaussian': SPECTRUM_GAUSS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +56,14 @@ class RefillParams:
     jc: int
     kc: int
     xfreq0: float
-    voigt: bool          # Voigt input spectrum (else monochromatic)
+    spectrum: int        # SPECTRUM_MONO, SPECTRUM_VOIGT or SPECTRUM_GAUSS
     a: float             # Voigt damping parameter of the source cell
     xfreq_min: float
     dxfreq: float
     nxfreq: int
     v_src: tuple = (0.0, 0.0, 0.0)   # the source cell's velocity (f32)
     comoving_source: bool = True
+    sigma_x: float = 0.0     # the Gaussian's sigma in Doppler units
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None) -> 'RefillParams':
@@ -73,10 +83,13 @@ class RefillParams:
         if not meta.static_medium:
             v_src = tuple(float(v[tuple(cells)])
                           for v in (grid.vfx, grid.vfy, grid.vfz))
+        gsig = (par.gaussian_FWHM_vel / 2.3548200450309493
+                if par.gaussian_FWHM_vel > 0 else par.gaussian_sigma_vel)
         return cls(xs=float(pos[0]), ys=float(pos[1]), zs=float(pos[2]),
                    ic=cells[0], jc=cells[1], kc=cells[2],
                    xfreq0=float(par.xfreq0),
-                   voigt=par.spectral_type.strip().lower() == 'voigt',
+                   spectrum=SPECTRA[par.spectral_type.strip().lower()],
+                   sigma_x=gsig / cfg.vtherm,
                    a=float(meta.voigt_a_ref), xfreq_min=meta.xfreq_min,
                    dxfreq=meta.dxfreq, nxfreq=meta.nxfreq, v_src=v_src,
                    comoving_source=bool(par.comoving_source))
@@ -101,9 +114,12 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     kx, ky, kz = sint * cosp, sint * sinp, cost
 
     xfreq = torch.full((B,), p.xfreq0, dtype=torch.float32, device=dev)
-    if p.voigt:
+    if p.spectrum == SPECTRUM_VOIGT:
         a = torch.full((B,), p.a, dtype=torch.float32, device=dev)
         xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0])
+    elif p.spectrum == SPECTRUM_GAUSS:
+        w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
+        xfreq = xfreq + box_muller(w[0], w[1]) * p.sigma_x
 
     # lab-frame source -> comoving frequency; Jin at the lab frequency
     u1 = p.v_src[0] * kx + p.v_src[1] * ky + p.v_src[2] * kz
@@ -158,8 +174,8 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
         int(budget), seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
-        p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, int(p.voigt), p.a,
-        *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,
+        p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, p.spectrum, p.sigma_x,
+        p.a, *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,
         tallies.Jin.data_ptr(),
         kbuild.stream_of(state.x)), 'refill_point')
     kbuild.LAUNCHES['refill_point'] += 1

@@ -1,8 +1,8 @@
-"""Resonant Ly-alpha scattering (kernel K4).
+"""Resonant Ly-alpha scattering and dust events (kernel K4).
 
 Counterpart of make_scatter / scatter (lart_tpu/transport/engine.py:1838,
-:2087) for line_type 1 without dust, H2 or recoil: the redistribute branch
-of :1947-1953, rand_resonance_cost, phi = 2 pi xi, the perpendicular atom
+:2087) for line_type 1 without H2 or recoil: the redistribute branch of
+:1947-1953, rand_resonance_cost, phi = 2 pi xi, the perpendicular atom
 velocity with the core-skip boost (:2197-2205), xfreq_new,
 rotate_direction (:1854) and the next optical depth.
 
@@ -13,10 +13,29 @@ fails the u_par rounds does), and the direction, the reference triad
 (m, n) and the Stokes vector turn together; the triad is re-orthonormalized
 against f32 drift in lart_tpu's order.
 
-With peel-off on, the scatter writes a PeelRecord: the flag of the lanes
-that scattered, and their pre-scatter direction (with use_stokes also the
-triad and Stokes vector) with this event's xfreq_atom and atom velocity
-(:2207-2218), which the resonance peel (kernel K7) reads right after.
+With dust (DGR > 0) an event is a dust event with probability
+kap_D / (kap_HI + kap_D), kap_HI = rk H(x, a) and kap_D the cell's rhokapD
+(the constants sphere_rho and sphere_rhoD on the uniform-sphere fast path;
+:2111-2142).  A dust event absorbs with probability 1 - albedo (the lane
+dies and its weight goes to Jabs at the lab frequency of its cell), unless
+use_reduced_wgt, where nothing is absorbed: the lane's weight times
+1 - albedo goes to Jabs and the scattered lane keeps the weight times the
+albedo (:2278-2281, :2341, :2446-2447).  A dust scattering keeps xfreq and
+turns the direction by Henyey-Greenstein with the resonance branch's
+azimuth (:2330-2333), or, with use_stokes, by the tabulated Mueller matrix:
+cos(theta) from physics.mueller.sample_cost, the azimuth by rejection as
+above with the table's S12/S11 (a lane that fails stays AT_SCATTER), the
+triad turned without re-orthonormalization and the Stokes vector through
+S11, S12, S33, S34 (:2282-2328).  nscatt_dust sums the weight of every
+dust event, absorptions included (:2373-2377).
+
+With peel-off on, the scatter writes a PeelRecord: the kind of each lane's
+event (1 a resonance scattering, 2 a dust scattering, 0 neither), the
+pre-scatter direction (with use_stokes also the triad and Stokes vector)
+and, at a resonance, this event's xfreq_atom and atom velocity
+(:2207-2218), which the peel (kernel K7) reads right after.  A dust peel
+reads the lane's weight after the scatter, which under use_reduced_wgt is
+already the weight times the albedo that lart_tpu peels with (:2342-2347).
 
 Core-skip (local_xcrit, :1872-1905): a lane with |x| < xcrit draws its
 perpendicular speed as sqrt(xcrit^2 - log xi).  core_skip_global takes the
@@ -29,26 +48,62 @@ scatter_rounds rejection rounds of the u_par sampler run per call; a lane
 still rejected stays AT_SCATTER and retries next cycle.  Uniforms come
 from Philox stream STREAM_SCATTER at counter (lane, counter, block): block
 r feeds round r, block `rounds` the angles, block rounds + 1 the next tau,
-and with use_stokes block rounds + 2 + r the azimuth round r (after the
-blocks a lane without Stokes draws, so those draw as before).  Core-skip
-draws nothing new.
+and with use_stokes block rounds + 2 + r the azimuth round r.  The dust
+draws come after every block a lane without dust may draw: block
+D = 2 rounds + 2 the event split, the absorption and the HG cos(theta),
+block D + 1 the Mueller cos(theta), block D + 2 + r its azimuth round r.  So
+a run without dust draws as before; a dust scattering reuses block
+`rounds` (HG's azimuth) and rounds + 1 (its next tau).  Core-skip draws
+nothing new.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
 from ..kernels import build as kbuild
+from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
+from ..physics.voigt import voigt_plain
 from .flight import div
-from .state import AT_SCATTER, FLYING, BatchState, Tallies
+from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
 TINY = 1e-30
 CORE_SKIP_OFF, CORE_SKIP_LOCAL, CORE_SKIP_GLOBAL = 0, 1, 2
+DUST_OFF, DUST_HG, DUST_MUELLER = 0, 1, 2
+# the record's kind of event (PeelRecord.flag)
+EVENT_RESONANCE, EVENT_DUST = 1, 2
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def dust_mode(cfg, meta) -> int:
+    """How dust scatters in a config: not at all, by Henyey-Greenstein, or
+    with use_stokes by the Mueller table (engine.py:1845-1852)."""
+    if not meta.has_dust:
+        return DUST_OFF
+    return DUST_MUELLER if cfg.par.use_stokes else DUST_HG
+
+
+class ScatterC(ctypes.Structure):
+    """csrc/scatter_lya.cu struct ScatterParams, field for field."""
+    _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
+                ('vfz', _P), ('nscatt_gas', _P), ('nscatt_events', _P),
+                ('Jabs', _P), ('nscatt_dust', _P),
+                ('mueller', pmueller.MuellerC),
+                ('rounds', _I), ('stokes', _I), ('core_skip', _I),
+                ('dust', _I), ('reduced_wgt', _I), ('nxfreq', _I),
+                ('n', _I * 3), ('a', _F), ('E1', _F), ('E2', _F), ('E3', _F),
+                ('xcrit', _F), ('xcrit2', _F), ('rk_const', _F),
+                ('rkD_const', _F), ('albedo', _F), ('one_m_albedo', _F),
+                ('hgg', _F), ('xfreq_min', _F), ('dxfreq', _F),
+                ('amin', _F * 3), ('d', _F * 3)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -62,11 +117,24 @@ class ScatterParams:
     core_skip: int = CORE_SKIP_OFF
     xcrit: float = 0.0         # core_skip_global's threshold and its square
     xcrit2: float = 0.0
-    rk_const: float = -1.0     # local: sphere_rho on the sphere fast path
-    rhokap: Optional[torch.Tensor] = None   # local: flat grid, else
+    rk_const: float = -1.0     # > 0: sphere_rho on the sphere fast path
+    rkD_const: float = 0.0     #   and sphere_rhoD there
+    # the flat grid where the scatter gathers it: local core-skip or dust,
+    # off the sphere fast path
+    rhokap: Optional[torch.Tensor] = None
     n: tuple = (1, 1, 1)
     amin: tuple = (0.0, 0.0, 0.0)
     d: tuple = (1.0, 1.0, 1.0)
+    dust: int = DUST_OFF
+    albedo: float = 0.0
+    hgg: float = 0.0
+    reduced_wgt: bool = False
+    rhokapD: Optional[torch.Tensor] = None   # flat, dust off the sphere
+    vel: Optional[tuple] = None   # flat velocities for Jabs, moving medium
+    mueller: Optional[pmueller.MuellerTable] = None   # DUST_MUELLER
+    xfreq_min: float = 0.0     # the Jabs frequency bins
+    dxfreq: float = 1.0
+    nxfreq: int = 0
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None,
@@ -78,7 +146,11 @@ class ScatterParams:
         if par.core_skip:
             mode = CORE_SKIP_GLOBAL if par.core_skip_global \
                 else CORE_SKIP_LOCAL
-        local = mode == CORE_SKIP_LOCAL
+        dust = dust_mode(cfg, meta)
+        gather = (mode == CORE_SKIP_LOCAL or dust) and not uniform_sphere
+
+        def flat(t):
+            return t.reshape(-1).contiguous()
         line = cfg.line
         return cls(a=float(meta.voigt_a_ref), E1=float(line.E1),
                    rounds=int(par.scatter_rounds),
@@ -87,11 +159,67 @@ class ScatterParams:
                    xcrit=float(meta.xcrit), xcrit2=float(meta.xcrit2),
                    rk_const=float(meta.sphere_rho) if uniform_sphere
                    else -1.0,
-                   rhokap=grid.rhokap.reshape(-1).contiguous()
-                   if local and not uniform_sphere else None,
+                   rkD_const=float(meta.sphere_rhoD) if uniform_sphere
+                   else 0.0,
+                   rhokap=flat(grid.rhokap) if gather else None,
                    n=(meta.nx, meta.ny, meta.nz),
                    amin=(meta.xmin, meta.ymin, meta.zmin),
-                   d=(meta.dx, meta.dy, meta.dz))
+                   d=(meta.dx, meta.dy, meta.dz),
+                   dust=dust, albedo=float(par.albedo), hgg=float(par.hgg),
+                   reduced_wgt=bool(par.use_reduced_wgt),
+                   rhokapD=flat(grid.rhokapD) if dust and gather else None,
+                   vel=tuple(flat(v) for v in (grid.vfx, grid.vfy, grid.vfz))
+                   if dust and not meta.static_medium else None,
+                   mueller=pmueller.MuellerTable.for_config(
+                       cfg, grid.rhokap.device) if dust else None,
+                   xfreq_min=meta.xfreq_min, dxfreq=meta.dxfreq,
+                   nxfreq=meta.nxfreq)
+
+    @property
+    def dust_block(self) -> int:
+        """The first Philox block of the dust draws."""
+        return 2 * self.rounds + 2
+
+    def flat(self, s: BatchState) -> torch.Tensor:
+        """The lanes' flat cell index, clamped like jnp.take mode='clip'."""
+        nx, ny, nz = self.n
+        f = (s.ic.long() * ny + s.jc) * nz + s.kc
+        return torch.clamp(f, 0, nx * ny * nz - 1)
+
+    def device_tensors(self):
+        out = tuple(t for t in (self.rhokap, self.rhokapD) if t is not None)
+        out += self.vel or ()
+        return out + (self.mueller.tensors() if self.mueller else ())
+
+    @functools.cached_property
+    def _c_params(self) -> ScatterC:
+        c = ScatterC()
+        for f in ('rhokap', 'rhokapD'):
+            t = getattr(self, f)
+            setattr(c, f, None if t is None else t.data_ptr())
+        if self.vel is not None:
+            c.vfx, c.vfy, c.vfz = (v.data_ptr() for v in self.vel)
+        if self.mueller is not None:
+            c.mueller = self.mueller.c_struct
+        c.rounds, c.stokes, c.core_skip = (self.rounds, int(self.stokes),
+                                           self.core_skip)
+        c.dust, c.reduced_wgt, c.nxfreq = (self.dust, int(self.reduced_wgt),
+                                           self.nxfreq)
+        c.n[:], c.amin[:], c.d[:] = self.n, self.amin, self.d
+        for f in ('a', 'E1', 'E2', 'E3', 'xcrit', 'xcrit2', 'rk_const',
+                  'rkD_const', 'albedo', 'hgg', 'xfreq_min', 'dxfreq'):
+            setattr(c, f, getattr(self, f))
+        # 1 - albedo in f64, then f32, as lart_tpu's weak-typed constant
+        c.one_m_albedo = 1.0 - self.albedo
+        return c
+
+    def c_params(self, tallies: Tallies) -> ScatterC:
+        """The C struct with this call's tally pointers (the launch copies
+        it, so the next call may overwrite them)."""
+        c = self._c_params
+        for f in ('nscatt_gas', 'nscatt_events', 'Jabs', 'nscatt_dust'):
+            setattr(c, f, getattr(tallies, f).data_ptr())
+        return c
 
 
 def local_xcrit(s: BatchState, p: ScatterParams):
@@ -108,9 +236,7 @@ def local_xcrit(s: BatchState, p: ScatterParams):
     if p.rk_const > 0.0:
         rk = torch.full_like(s.x, p.rk_const)
     else:
-        nx, ny, nz = p.n
-        flat = (s.ic.long() * ny + s.jc) * nz + s.kc
-        rk = p.rhokap[torch.clamp(flat, 0, nx * ny * nz - 1)]
+        rk = p.rhokap[p.flat(s)]
     atau = p.a * rk * torch.clamp_min(dl, 0.0)
     # torch has no cbrt: the f64 cube root rounded to f32
     cbrt = torch.pow(atau.double(), 1.0 / 3.0).float()
@@ -132,6 +258,23 @@ def rotate_direction(kx, ky, kz, cost, sint, cosp, sinp):
     return kx2 * norm, ky2 * norm, kz2 * norm
 
 
+def azimuth_rounds(s: BatchState, S12o, u_rounds):
+    """The azimuth by rejection from 1 + S12o (Q cos 2phi + U sin 2phi),
+    one round per block of u_rounds (rounds, 4, B): (accepted, phi)."""
+    pmag = torch.sqrt(s.Q * s.Q + s.U * s.U)
+    acc = torch.zeros_like(s.x, dtype=torch.bool)
+    phi = torch.zeros_like(s.x)
+    for v in u_rounds:
+        phi_p = samplers.TWOPI * v[0]
+        prand = (1.0 + torch.abs(S12o) * pmag) * v[1]
+        pcomp = 1.0 + S12o * (s.Q * torch.cos(2.0 * phi_p)
+                              + s.U * torch.sin(2.0 * phi_p))
+        take = ~acc & (prand <= pcomp)
+        phi = torch.where(take, phi_p, phi)
+        acc = acc | take
+    return acc, phi
+
+
 def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
                   seed: int, counter: int, record=None) -> None:
     """Plain PyTorch scatter of every AT_SCATTER lane, in place; fills
@@ -139,12 +282,25 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     s = state
     lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
     at_sc = s.phase == AT_SCATTER
+    is_dust = torch.zeros_like(at_sc)
+    if p.dust:
+        ud = uniforms(seed, STREAM_SCATTER, lanes, counter, p.dust_block)
+        if p.rk_const > 0.0:
+            rk = torch.full_like(s.x, p.rk_const)
+            kap_D = torch.full_like(s.x, p.rkD_const)
+        else:
+            f = p.flat(s)
+            rk, kap_D = p.rhokap[f], p.rhokapD[f]
+        kap_HI = rk * voigt_plain(s.xfreq, p.a)
+        is_dust = at_sc & (ud[0] <= kap_D / torch.clamp_min(kap_HI + kap_D,
+                                                            TINY))
+    is_res = at_sc & ~is_dust
     env = samplers.vz_envelope(s.xfreq, p.a)
     u = uniforms(seed, STREAM_SCATTER, lanes, counter, range(p.rounds + 2))
     acc = torch.zeros_like(at_sc)
     uz = torch.zeros_like(s.xfreq)
     for r in range(p.rounds):
-        acc, uz = samplers.vz_round_xi(u[r], env, acc, uz, at_sc)
+        acc, uz = samplers.vz_round_xi(u[r], env, acc, uz, is_res)
     xfreq_atom = s.xfreq - uz
 
     xi = u[p.rounds]
@@ -158,24 +314,14 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         S12 = 0.75 * p.E1 * (cost2 - 1.0)
         S33 = 1.5 * p.E1 * cost
         S44 = 1.5 * p.E3 * cost
-        S12o = S12 / torch.clamp_min(S11, TINY)
-        pmag = torch.sqrt(s.Q * s.Q + s.U * s.U)
-        uph = uniforms(seed, STREAM_SCATTER, lanes, counter,
-                       range(p.rounds + 2, 2 * p.rounds + 2))
-        acc_phi = torch.zeros_like(acc)
-        phi = torch.zeros_like(s.x)
-        for r in range(p.rounds):
-            phi_p = samplers.TWOPI * uph[r, 0]
-            prand = (1.0 + torch.abs(S12o) * pmag) * uph[r, 1]
-            pcomp = 1.0 + S12o * (s.Q * torch.cos(2.0 * phi_p)
-                                  + s.U * torch.sin(2.0 * phi_p))
-            take = ~acc_phi & (prand <= pcomp)
-            phi = torch.where(take, phi_p, phi)
-            acc_phi = acc_phi | take
+        acc_phi, phi = azimuth_rounds(
+            s, S12 / torch.clamp_min(S11, TINY),
+            uniforms(seed, STREAM_SCATTER, lanes, counter,
+                     range(p.rounds + 2, 2 * p.rounds + 2)))
         acc = acc & acc_phi
     else:
         phi = samplers.TWOPI * xi[1]
-    do_res = at_sc & acc
+    do_res = is_res & acc
     cosp, sinp = torch.cos(phi), torch.sin(phi)
     phi2 = samplers.TWOPI * xi[2]
     boost = torch.zeros_like(s.xfreq)
@@ -187,39 +333,118 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint
     tau_next = -torch.log(torch.clamp_min(u[p.rounds + 1, 0], 1e-12))
 
+    turned = ('kx', 'ky', 'kz') + (('mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
+                                    'Q', 'U', 'V') if p.stokes else ())
+    if p.stokes:
+        new = stokes_turn(s, cost, sint, cosp, sinp, S11, S12, S22, S33, S44)
+    else:
+        new = rotate_direction(s.kx, s.ky, s.kz, cost, sint, cosp, sinp)
+    dust_sc = absorbed = torch.zeros_like(at_sc)
+    if p.dust:
+        dust_sc, absorbed, dust_new = dust_event(s, tallies, p, seed,
+                                                 counter, ud, is_dust, cosp,
+                                                 sinp)
+    kind = torch.where(do_res, EVENT_RESONANCE,
+                       torch.where(dust_sc, EVENT_DUST, 0))
+
     if record is not None:
-        # the event as the resonance peel sees it: before the turn
-        record.flag.copy_(do_res.to(torch.int32))
-        for f in ('kx', 'ky', 'kz') + (('mx', 'my', 'mz', 'nnx', 'nny',
-                                        'nnz', 'Q', 'U', 'V')
-                                       if p.stokes else ()):
+        # the event as the peel sees it: before the turn
+        record.flag.copy_(kind.to(torch.int32))
+        for f in turned:
             getattr(record, f).copy_(getattr(s, f))
         for f, v in (('xatom', xfreq_atom), ('ux', ux), ('uy', uy),
                      ('uz', uz)):
             getattr(record, f).copy_(v)
 
-    def put(name, new):
+    for name, v in zip(turned, new):
         cur = getattr(s, name)
-        cur.copy_(torch.where(do_res, new, cur))
-
-    if p.stokes:
-        for name, new in zip(('kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx',
-                              'nny', 'nnz', 'Q', 'U', 'V'),
-                             stokes_turn(s, cost, sint, cosp, sinp, S11, S12,
-                                         S22, S33, S44)):
-            put(name, new)
-    else:
-        for name, new in zip(('kx', 'ky', 'kz'),
-                             rotate_direction(s.kx, s.ky, s.kz, cost, sint,
-                                              cosp, sinp)):
-            put(name, new)
-    s.phase.copy_(torch.where(do_res, FLYING, s.phase).to(torch.int32))
-    put('xfreq', xfreq_new)
-    put('tau_target', tau_next)
-    put('tau_run', torch.zeros_like(s.tau_run))
+        v = torch.where(do_res, v, cur)
+        if p.dust and name in dust_new:
+            v = torch.where(dust_sc, dust_new[name], v)
+        cur.copy_(v)
+    done = do_res | dust_sc | absorbed
+    s.phase.copy_(torch.where(absorbed, DEAD,
+                              torch.where(done, FLYING, s.phase))
+                  .to(torch.int32))
+    s.xfreq.copy_(torch.where(do_res, xfreq_new, s.xfreq))
+    if p.dust and p.reduced_wgt:
+        s.wgt.copy_(torch.where(dust_sc, s.wgt * p.albedo, s.wgt))
+    s.tau_target.copy_(torch.where(done, tau_next, s.tau_target))
+    s.tau_run.copy_(torch.where(done, torch.zeros_like(s.tau_run),
+                                s.tau_run))
     tallies.nscatt_gas += torch.where(do_res, s.wgt,
                                       torch.zeros_like(s.wgt)).sum()
     tallies.nscatt_events += do_res.sum(dtype=torch.float32)
+
+
+def dust_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
+               counter: int, ud, is_dust, cosp, sinp):
+    """The dust branch of the plain scatter (engine.py:2270-2381) on the
+    pre-scatter state: Jabs and nscatt_dust are tallied here; returns
+    (scattered, absorbed, the scattered lanes' new direction, and with
+    Stokes triad and Stokes vector, by field name)."""
+    if p.reduced_wgt:
+        absorbed = torch.zeros_like(is_dust)
+    else:
+        absorbed = is_dust & (ud[1] > p.albedo)
+    dust_sc = is_dust & ~absorbed
+    if p.dust == DUST_MUELLER:
+        lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
+        D = p.dust_block
+        um = uniforms(seed, STREAM_SCATTER, lanes, counter, D + 1)
+        cost = pmueller.sample_cost(p.mueller, um[0], um[1], um[2])
+        sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+        S11, S12, S33, S34 = pmueller.interp_S(p.mueller, cost)
+        accp, phi = azimuth_rounds(
+            s, S12 / torch.clamp_min(S11, TINY),
+            uniforms(seed, STREAM_SCATTER, lanes, counter,
+                     range(D + 2, D + 2 + p.rounds)))
+        dust_sc = dust_sc & accp
+        new = mueller_turn(s, cost, sint, torch.cos(phi), torch.sin(phi),
+                           S11, S12, S33, S34)
+    else:
+        cost = samplers.rand_henyey_greenstein(ud[2], p.hgg)
+        sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+        new = dict(zip(('kx', 'ky', 'kz'),
+                       rotate_direction(s.kx, s.ky, s.kz, cost, sint, cosp,
+                                        sinp)))
+    # Jabs at the lab frequency of the lane's cell
+    xlab = s.xfreq
+    if p.vel is not None:
+        f = p.flat(s)
+        xlab = s.xfreq + (p.vel[0][f] * s.kx + p.vel[1][f] * s.ky
+                          + p.vel[2][f] * s.kz)
+    fx = torch.floor(div(xlab - p.xfreq_min, p.dxfreq))
+    ina = (fx >= 0.0) & (fx < p.nxfreq)
+    wab = s.wgt * (1.0 - p.albedo) if p.reduced_wgt else s.wgt
+    absorbing = is_dust & (absorbed | p.reduced_wgt)
+    zero = torch.zeros_like(s.wgt)
+    tallies.Jabs.index_add_(0, torch.clamp(fx, 0, p.nxfreq - 1).long(),
+                            torch.where(absorbing & ina, wab, zero))
+    tallies.nscatt_dust += torch.where(is_dust, s.wgt, zero).sum()
+    return dust_sc, absorbed, new
+
+
+def mueller_turn(s: BatchState, cost, sint, cosp, sinp, S11, S12, S33, S34):
+    """The triad and the Stokes vector after a Mueller dust scattering, by
+    field name (engine.py:2309-2328): turned by phi about k and by theta in
+    the (k, m) plane, not re-orthonormalized."""
+    out = {}
+    for a in 'xyz':
+        m, n, k = (getattr(s, f) for f in ('m' + a, 'nn' + a, 'k' + a))
+        p_ = cosp * m + sinp * n
+        out['nn' + a] = cosp * n - sinp * m
+        out['m' + a] = cost * p_ - sint * k
+        out['k' + a] = sint * p_ + cost * k
+    c2p = 2.0 * cosp * cosp - 1.0
+    s2p = 2.0 * sinp * cosp
+    Q0 = c2p * s.Q + s2p * s.U
+    U0 = -s2p * s.Q + c2p * s.U
+    I1 = torch.clamp_min(S11 + S12 * Q0, TINY)
+    out['Q'] = (S12 + S11 * Q0) / I1
+    out['U'] = (S33 * U0 + S34 * s.V) / I1
+    out['V'] = (-S34 * U0 + S33 * s.V) / I1
+    return out
 
 
 def stokes_turn(s: BatchState, cost, sint, cosp, sinp, S11, S12, S22, S33,
@@ -259,21 +484,17 @@ def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
             seed: int, counter: int, record=None) -> None:
     """Scatter every AT_SCATTER lane, in place: kernel K4 for a CUDA state,
     the plain version for a CPU state.  `record`, a PeelRecord of the
-    batch's size, receives the events for the resonance peel."""
+    batch's size, receives the events for the peel."""
     if state.device.type == 'cpu':
         scatter_plain(state, tallies, p, seed, counter, record)
         return
-    grid = () if p.rhokap is None else (p.rhokap,)
     kbuild.require_cuda('scatter_lya', tallies.nscatt_gas,
-                        tallies.nscatt_events, state.x, *grid,
+                        tallies.nscatt_events, tallies.Jabs,
+                        tallies.nscatt_dust, state.x, *p.device_tensors(),
                         *(() if record is None else (record.flag,)))
     kbuild.check(kbuild.library().lart_scatter_lya(
         state.lane_pointers, None if record is None else record.pointers,
-        state.batch, seed & 0xFFFFFFFF,
-        counter & 0xFFFFFFFF, p.rounds, p.a, p.E1, int(p.stokes), p.E2,
-        p.E3, p.core_skip, p.xcrit,
-        p.xcrit2, p.rk_const, grid[0].data_ptr() if grid else None, *p.n,
-        *p.amin, *p.d, tallies.nscatt_gas.data_ptr(),
-        tallies.nscatt_events.data_ptr(), kbuild.stream_of(state.x)),
+        state.batch, seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
+        ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),
         'scatter_lya')
     kbuild.LAUNCHES['scatter_lya'] += 1

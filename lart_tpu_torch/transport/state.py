@@ -104,6 +104,8 @@ class Tallies:
     nscatt_gas: torch.Tensor     # () f32: scattered weight
     nscatt_events: torch.Tensor  # () f32: unweighted scatter events
     W_oor: torch.Tensor          # () f32: escaped weight outside the grid
+    Jabs: torch.Tensor           # (nxfreq,) f32: dust-absorbed weight
+    nscatt_dust: torch.Tensor    # () f32: weight of the dust events
     peel: Optional[object] = None  # instruments.peel.PeelCubes (peel-off)
 
 
@@ -130,4 +132,5 @@ def zero_tallies(nxfreq: int, nmu: int, device) -> Tallies:
         return torch.zeros((), dtype=torch.float32, device=device)
 
     return Tallies(Jin=z(nxfreq), Jout=z(nxfreq), Jmu=z(nxfreq * nmu),
-                   nscatt_gas=s(), nscatt_events=s(), W_oor=s())
+                   nscatt_gas=s(), nscatt_events=s(), W_oor=s(),
+                   Jabs=z(nxfreq), nscatt_dust=s())

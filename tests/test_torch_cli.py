@@ -204,3 +204,25 @@ def test_port_sources_import_no_jax():
                         top == 'h5py' and fn.name != 'iofile.py'):
                     bad.append(f'{fn.relative_to(ROOT)}:{node.lineno} {m}')
     assert len(files) >= 20 and not bad, bad
+
+
+def test_cli_runs_the_dusty_shell(tmp_path):
+    """examples/DL2008/DL20e_dust.in cut to a CPU's few seconds (17^3, 300
+    photons, N_HI 3.4e14 with DGR 1.8e6 so that a good share is absorbed):
+    the FITS output carries the absorbed spectrum Jabs, which lart_tpu's
+    read_lart and check_flux read, and the weight closes."""
+    import chip_smoke
+    from lart_tpu.analysis import check_flux
+    nml = chip_smoke.namelist_variant(
+        'DL2008/DL20e_dust.in', tmp_path, no_photons='300', N_HI='3.4e14',
+        DGR='1.8e6', nx='17', ny='17', nz='17', batch_size='256')
+    out = tmp_path / 'out.fits'
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    assert r.Jabs is not None and r.Jabs.shape == r.xfreq.shape
+    assert np.all(np.isfinite(r.Jabs)) and r.Jabs.sum() > 0.0
+    w_abs = float(r.header['W_abs'])
+    assert 0.05 < w_abs < 0.95
+    assert float(r.header['Nsc_dust']) > 0.0
+    assert check_flux(r, verbose=False)['W_abs'] == w_abs
+    assert abs(float(r.header['W_esc']) + w_abs - 1.0) < 1e-3

@@ -4,8 +4,9 @@ lart_tpu's make_fly, lane by lane on the CPU.
 The walk draws no random numbers, so one numpy-made state with lanes in
 every phase goes through both, on three grids: a 17^3 Hubble-flow sphere
 folded by xyz_symmetry (reflect on all three axes, comoving frequency
-updates), a 17^3 static sphere with force_generic_kernel (escape), and the
-Neufeld slab with force_generic_kernel (periodic x/y).  Tolerances as in
+updates), a 17^3 static sphere with force_generic_kernel (escape), the
+Neufeld slab with force_generic_kernel (periodic x/y), and the dusty
+expanding shell of testing.dust_params (the opacity adds rhokapD).  Tolerances as in
 test_torch_transport.test_fly_matches_jax_lane_by_lane: lane fields to
 rtol 1e-5 (atol 1e-6), at most 1e-4 of the lanes may differ where an f32
 hit/cross decision or a bin edge flips on a last-ulp difference of the two
@@ -34,6 +35,8 @@ CASES = {
         tau0=100.0, n=17, force_generic_kernel=True),
     'slab_periodic': lambda: testing.slab_params(
         tau0=1e4, force_generic_kernel=True),
+    # the dusty expanding shell: rhokap H(x, a) + rhokapD a cell
+    'shell17_dust': lambda: testing.dust_params(),
 }
 
 

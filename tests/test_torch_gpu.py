@@ -176,3 +176,37 @@ def test_driver_runs_the_peel_kernel(cuda):
     assert abs(res.W_escape + res.W_oor - 1.0) < 1e-5
     for c in testing.peel_closure(res):
         assert abs(c - 1.0) < 0.05, c
+
+
+def test_dust_kernels_match_plain_versions(cuda):
+    """On the DL20e_dust grid: K5 with rhokapD, K2's Gaussian births, K4's
+    dust branch (HG, Mueller +- use_reduced_wgt) with its peel record, and
+    K7 in mode dust +- Stokes (chip_smoke.phase2_dust)."""
+    import chip_smoke
+    chip_smoke.B_MAIN = 8192
+    res = {}
+    chip_smoke.phase2_dust(cuda, res)
+    assert set(res) == {'fly_cartesian', 'refill_point', 'scatter_lya',
+                        'peel'}
+
+
+@pytest.mark.parametrize('stokes', [True, False], ids=['mueller', 'hg'])
+def test_driver_runs_the_dusty_shell(cuda, stokes):
+    """The dusty shell through the driver on the card, one observer: every
+    kernel of the path launched, the weight closes with the absorbed share,
+    and the peel deposits dust events too."""
+    import dataclasses
+
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    par = dataclasses.replace(testing.peel_params(
+        testing.dust_params(nphotons=4000, stokes=stokes), stokes=stokes,
+        nim=17), alpha=(0.0,), beta=(0.0,))
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=1)
+    assert all(kb.LAUNCHES[k] > 0 for k in ('refill_point', 'fly_cartesian',
+                                            'scatter_lya', 'peel'))
+    assert abs(res.W_escape + res.W_absorb + res.W_oor - 1.0) < 1e-5
+    assert 0.2 < res.W_absorb < 0.8 and res.nscatt_dust > 0.5
+    (c,) = testing.peel_closure(res)
+    assert abs(c - 1.0) < 3.0 * (testing.PEEL_V_DUST / 4000) ** 0.5, c

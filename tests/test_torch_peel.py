@@ -1,8 +1,11 @@
 """Peel-off (kernel K7's plain version) against lart_tpu's make_peel on the
 CPU: injected states on a 17-cell periodic slab, a 17^3 Hubble sphere
 folded by reflection (xyz_symmetry), the same sphere unfolded (escape on
-every face, as examples/vel_effect_peel) and a 17^3 uniform sphere (the
-chord), each seen by two observers (one on the +z axis, one oblique).
+every face, as examples/vel_effect_peel), a 17^3 uniform sphere (the
+chord) and the 17^3 dusty expanding shell of testing.dust_params (the
+walk adds rhokapD; the dust peel through the Mueller table with Stokes,
+Henyey-Greenstein without), each seen by two observers (one on the +z
+axis, one oblique).
 
 Per (observer, lane) pair, the optical depth to the edge is held against
 make_peel's own tau_to_edge closure on the same direction and frequency:
@@ -11,8 +14,8 @@ FMA, the plain version rounds twice; the deposit reads exp(-min(tau,
 700))).  At most 1e-3 of the pairs may miss it, where a near tie between
 two faces sends the walks through different cells.
 
-The cubes of peel_direct and peel_resonance (with and without Stokes)
-agree to 1e-5 of their sum.  Lanes are left out of that comparison, and
+The cubes of peel_direct, peel_resonance and peel_dust (with and without
+Stokes) agree to 1e-5 of their sum.  Lanes are left out of that comparison, and
 counted, when a pair misses the tau tolerance or lies on an edge, where
 the f32 rounding of either package (XLA fuses the rotation into the
 observer frame and the frequency shifts into FMAs) moves the deposit into
@@ -56,7 +59,18 @@ CASES = {
         testing.hubble_params(tau0=100.0, n=17, xyz_symmetry=False)), 1.0),
     'sphere17_chord': (lambda: testing.peel_params(
         testing.sphere_params(tau0=100.0, n=17)), 1.0),
+    'shell17_dust': (lambda: testing.peel_params(testing.dust_params()),
+                     1.0),
+    'shell17_dust_hg': (lambda: testing.peel_params(
+        testing.dust_params(stokes=False), stokes=False), 1.0),
 }
+MODES = {'direct': tpeel.DIRECT, 'resonance': tpeel.RESONANCE,
+         'dust': tpeel.DUST}
+# every grid in the modes of a dust-free run; the dusty shell in each mode
+# (the Mueller dust peel with Stokes, and Henyey-Greenstein without)
+CASE_MODES = ([(c, m) for c in sorted(CASES) if c != 'shell17_dust_hg'
+               for m in ('direct', 'resonance')]
+              + [('shell17_dust', 'dust'), ('shell17_dust_hg', 'dust')])
 
 
 def _setup(case):
@@ -67,6 +81,7 @@ def _setup(case):
     p = teng.make_chunk(cfg, meta, grid).peel
     assert p.chord == (case == 'sphere17_chord')
     assert p.lab_source == case.startswith('hubble')
+    assert (p.grid.rhokapD is not None) == case.startswith('shell')
     jobs_meta, jodev = jobs.build_observers(jcfg)
     return cfg, jcfg, meta, jmeta, jgrid, p, jobs_meta, jodev, r_max
 
@@ -142,29 +157,32 @@ def _excluded_lanes(case, mode, s, rec, p, jtau, max_steps, jgrid):
     return bad, n_tau, n_edge
 
 
-@pytest.mark.parametrize('mode', ['direct', 'resonance'])
-@pytest.mark.parametrize('case', sorted(CASES))
+@pytest.mark.parametrize('case,mode', CASE_MODES)
 def test_peel_matches_make_peel(case, mode):
     (cfg, jcfg, meta, jmeta, jgrid, p, jobs_meta, jodev,
      r_max) = _setup(case)
-    m = tpeel.DIRECT if mode == 'direct' else tpeel.RESONANCE
+    m = MODES[mode]
     s = testing.mixed_state(meta, B, seed=61, r_max=r_max)
     rec = testing.peel_record(s, seed=62)
     jtau, max_steps = _jax_tau_closure(jcfg, jmeta, jobs_meta)
     assert max_steps == p.max_steps
     bad, n_tau, n_edge = _excluded_lanes(case, m, s, rec, p, jtau,
                                          max_steps, jgrid)
-    rec.flag.copy_((~bad).to(torch.int32))
+    # the flag a lane's event gets: launched (direct), or K4's kind
+    rec.flag.copy_((~bad).to(torch.int32) * max(m, 1))
 
     cubes = p.zero_cubes('cpu')
     tpeel.peel(s, cubes, rec, p, m)
 
-    pd, pr, _, _ = jpeel.make_peel(jcfg, jmeta, jobs_meta)
+    pd, pr, pdust, _ = jpeel.make_peel(jcfg, jmeta, jobs_meta)
     js = bridge.state_to_jax(s)
     active = jnp.asarray((~bad).numpy())
     zero = jpeel.zero_cubes(jcfg, jmeta, jobs_meta)
     if m == tpeel.DIRECT:
         ref = jax.jit(pd)(zero, jgrid, jodev, js, active)
+    elif m == tpeel.DUST:
+        # the record holds the lane's own direction, triad and Stokes
+        ref = jax.jit(pdust)(zero, jgrid, jodev, js, active)
     else:
         line = jcfg.line
         ev = {k: jnp.full((B,), v, jnp.float32)
@@ -191,10 +209,11 @@ PAIR_CUBES = {(tpeel.DIRECT, False): (('direc', 0),),
               (tpeel.RESONANCE, False): (('scatt', 0),),
               (tpeel.RESONANCE, True): (('scatt', 0), ('I', 0), ('Q', 1),
                                         ('U', 2), ('V', 3))}
+PAIR_CUBES.update({(tpeel.DUST, st): v for (m, st), v in PAIR_CUBES.items()
+                   if m == tpeel.RESONANCE})
 
 
-@pytest.mark.parametrize('mode', ['direct', 'resonance'])
-@pytest.mark.parametrize('case', sorted(CASES))
+@pytest.mark.parametrize('case,mode', CASE_MODES)
 def test_pair_outputs_and_work_add_up(case, mode):
     """The plain version's per-pair outputs (what the card's check holds
     K7 to, pair by pair) add up to its cubes, and its work counts (K7's
@@ -203,11 +222,12 @@ def test_pair_outputs_and_work_add_up(case, mode):
     cfg = make().resolve()
     meta, grid = build_cartesian(cfg)
     p = teng.make_chunk(cfg, meta, grid).peel
-    m = tpeel.DIRECT if mode == 'direct' else tpeel.RESONANCE
+    m = MODES[mode]
     s = testing.mixed_state(meta, 2048, seed=63, r_max=r_max)
     rec = testing.peel_record(s, seed=64)
     rec.flag.copy_(torch.as_tensor(
-        np.random.default_rng(65).random(s.batch) < 0.8, dtype=torch.int32))
+        np.random.default_rng(65).random(s.batch) < 0.8,
+        dtype=torch.int32) * max(m, 1))
     n = p.nobs * s.batch
     tau = torch.full((n,), -1.0)
     bins = torch.full((n,), -1, dtype=torch.int32)
@@ -219,7 +239,7 @@ def test_pair_outputs_and_work_add_up(case, mode):
     dep = bins >= 0
     assert stats['pairs'] == int(dep.sum()) > 0
     assert stats['bins'] == int(torch.unique(bins[dep]).numel())
-    assert 0 < stats['seen'] <= int(rec.flag.sum())
+    assert 0 < stats['seen'] <= int((rec.flag != 0).sum())
     assert bool((tau[dep] >= 0.0).all())
     comps = PAIR_CUBES[(m, p.stokes)]
     for name, c in comps:

@@ -359,6 +359,9 @@ ACCEPTED = {
     'slab_peel/t1tau4.in': {},
     'sphere_peel/t4tau4_peel.in': {},
     'vel_effect_peel/t4NHI2_20_V0200_peel.in': {},
+    'DL2008/DL20e_dust.in': {},
+    'DL2008/DL20e.in': {},
+    'DL2008/DL19e.in': {},
 }
 
 
@@ -390,19 +393,19 @@ def test_check_supported_accepts_the_slice(example):
 
 
 OUT_OF_SLICE = {
-    'dust': dict(DGR=0.01),
+    'save_all_photons': dict(save_all_photons=True),
     'recoil': dict(recoil=True),
     'h2_model': dict(h2_model='lyman_werner'),
     'line_type': dict(line_id='MgII_2796'),
     'peel-off observers': dict(save_peeloff=True, nobs=1, nside=4),
-    'use_stokes': dict(use_stokes=True, DGR=0.01),
+    'out_merge': dict(out_merge=True),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
     'non-uniform temperature': dict(temp_file='temp.fits'),
     'atmospheres': dict(geometry='plane_atmosphere'),
     'shearing box': dict(xy_periodic=True, Omega=1.0),
     'source_geometry other than point': dict(source_geometry='uniform'),
     'spectral_type other than voigt/monochromatic': dict(
-        spectral_type='gaussian'),
+        spectral_type='continuum'),
     '3-D density file': dict(dens_file='dens.fits'),
     '3-D velocity file': dict(velo_file='velo.h5'),
 }
@@ -446,3 +449,33 @@ def test_mixed_state_cells_on_a_3d_grid():
                 assert not bool(old_wrong.any())
             else:
                 assert float(old_wrong.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize('geometry', ['sphere', 'slab'])
+def test_dust_routes_as_lart_tpu(geometry):
+    """With dust a uniform static sphere keeps the chord flight (K6 adds
+    sphere_rhoD; the scatter takes the sphere's constants), while a slab
+    leaves its fast path for the walk (engine.py:663) and the scatter
+    gathers rhokap and rhokapD there."""
+    from lart_tpu_torch.transport.fly_cartesian import CartesianFlight
+    from lart_tpu_torch.transport.fly_sphere import SphereFlight
+    par = (testing.sphere_params(n=9, DGR=50.0) if geometry == 'sphere'
+           else testing.slab_params(nz=9, DGR=50.0))
+    cfg, jcfg = bridge.resolve_both(par)
+    meta, grid = build_cartesian(cfg)
+    jmeta, _ = jcart.build_cartesian(jcfg)
+    assert meta.has_dust
+    ch = teng.make_chunk(cfg, meta, grid)
+    p = ch.scatter_params
+    assert p.dust == scatter.DUST_HG
+    if geometry == 'sphere':
+        assert jeng.uniform_sphere_fastpath(jcfg, jmeta)
+        assert type(ch.flight) is SphereFlight
+        assert ch.flight.sphere_rhoD == meta.sphere_rhoD > 0.0
+        assert p.rk_const == meta.sphere_rho and \
+            p.rkD_const == meta.sphere_rhoD and p.rhokapD is None
+    else:
+        assert not jeng.uniform_slab_fastpath(jcfg, jmeta)
+        assert type(ch.flight) is CartesianFlight
+        assert ch.flight.rhokapD is not None and p.rhokapD is not None
+        assert p.rk_const < 0.0
