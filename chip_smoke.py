@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of lart_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, runs the slab, the uniform
-sphere, the expanding Hubble sphere and the dusty expanding shell end to
-end through the driver and the CLI, without and with peel-off images
-(Stokes), and measures their steady-state rates.
+sphere, the expanding Hubble sphere, the dusty expanding shell and the
+metal lines (line types 2, 4-7) end to end through the driver and the CLI,
+without and with peel-off images (Stokes), and measures their steady-state
+rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
@@ -26,13 +27,24 @@ Phases (one line each, or more):
      launch flags; dust on the 201^3 grid of examples/DL2008/DL20e_dust.in
      as written, with and without Stokes: K5 with rhokapD, K2's Gaussian
      births, K4's dust branch (HG, Mueller +- use_reduced_wgt) with its
-     peel record, K7 in mode dust
+     peel record, K7 in mode dust; the metal lines (line_cases) on the
+     grids of examples/SiII_1193/tau1e+2_V200.in, SiII_1527/
+     t1e5tau1e1_V050.in, FeII_test/FeII_UV1.in, HeI_sphere/t4tau2.in,
+     HeI_coherent_test/pt_tau100_coh.in and lya_HD/
+     sphere_HD_dijkstra2006.in as written and in variants (the Mg II
+     doublet on their grids, geometry sphere for the K6 and K7 chord
+     branches, 1x1x201 slabs for K3): K2 continuum and branch_init_shift
+     (types 2, 4, 5, 6), the line profile in K3, K5, K6 (types 2, 5, 7),
+     K4 types 2, 4, 5, 6, 6 coherent, 7 +- recoil with the peel record, K7
+     type 5 direct and resonance, walk and chord, +- Stokes, recoil
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
      tau0 = 100 uniform sphere with Stokes and a 17^3 Hubble sphere without;
      the 17^3 dusty shell of testing.dust_params with Mueller dust, Stokes
-     and one observer (absorbed weight, spectra, scatterings, peel)
+     and one observer (absorbed weight, spectra, scatterings, peel); 17^3
+     spheres of the Mg II doublet, the Si II multiplet (Stokes, recoil, one
+     observer) and H + D Ly-alpha (testing.line_params)
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
@@ -44,14 +56,21 @@ Phases (one line each, or more):
      photons (weight, and the _peel3D files); examples/DL2008/DL20e_dust.in
      and DL20e.in as written but for their photons and N_HI 1e18 (with
      DGR 100: the dust's tau as written) (W_esc + W_abs + W_oor, the
-     absorbed share, a red-dominated spectrum)
+     absorbed share, a red-dominated spectrum); the metal lines:
+     SiII_1193/tau1e+2_V200.in as written (W_esc + W_oor, the Si II*
+     fluorescent lines above the continuum, the _peel3D file),
+     sphere_HD_dijkstra2006.in with its photons cut to HD_PHOTONS and N_HI
+     to HD_NHI,
+     HeI_sphere/t4tau2.in and SiII_1527/t1e5tau1e1_V050.in as written
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
      then one window of >= 1 s each of t4tau7 as written, vel_effect V0200
      as written, the flagship slab through K5 (force_generic_kernel), and
      the three peel-off examples as written, DL20e_dust as written and with
-     one observer on +z; a torch.profiler breakdown of
+     one observer on +z, SiII_1193/tau1e+2_V200 with its observer,
+     sphere_HD_dijkstra2006 and HeI t4tau2 as written; a torch.profiler
+     breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
@@ -91,6 +110,22 @@ DL_PHOTONS = 10000            # phase 4's cut of the DL2008 examples
 # image
 OBSERVER = dict(save_peeloff=True, nobs=1, distance=1e3, alpha=(0.0,),
                 beta=(0.0,))
+# the metal-line examples (line types 2, 4-7): the slice's main path is
+# SiII_1193 (type 5, fluorescent, continuum, recoil, Stokes, one observer)
+LINE_EXAMPLES = {'SiII_1193': 'SiII_1193/tau1e+2_V200.in',
+                 'SiII_1527': 'SiII_1527/t1e5tau1e1_V050.in',
+                 'FeII_UV1': 'FeII_test/FeII_UV1.in',
+                 'HeI': 'HeI_sphere/t4tau2.in',
+                 'HeI_coherent': 'HeI_coherent_test/pt_tau100_coh.in',
+                 'HD': 'lya_HD/sphere_HD_dijkstra2006.in'}
+# the Mg II 2796/2803 doublet (type 2) on a grid of the Si II examples
+MGII = dict(line_id='MgII_2796', wavelength_min=2790.0,
+            wavelength_max=2810.0)
+# phase 4's cut of sphere_HD_dijkstra2006: as written (N_HI 1.2e19) each
+# photon scatters ~8e5 times, one scattering a cycle, and 2000 photons took
+# 205 s on the card whatever their number; N_HI 1.2e18 cuts that tenfold
+HD_PHOTONS, HD_NHI = 2000, '1.2e18'
+LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
 
 
 def log(phase, msg):
@@ -164,10 +199,16 @@ def kernel_work(name, pre, ch, meta, stats=None):
         sp = ch.scatter_params
         st = 9 if sp.stokes else 0
         grid = min(cells, k) * 4 if sp.rhokap is not None else 0
-        # the record: k, xatom, u (and the triad, Q, U, V with Stokes)
-        rec = (7 + st) * 4 if peel is not None else 0
+        # the record: k, xatom, u (and the triad, Q, U, V with Stokes; the
+        # phase weights E1, E2, E3 of line types 2, 4, 5, 6)
+        lane_E = 3 if sp.line.per_lane_E else 0
+        rec = (7 + st + lane_E) * 4 if peel is not None else 0
         per_lane = (10 + st + 7 + st) * 4 + rec
         flops = sp.rounds * (60 + (40 if sp.stokes else 0)) + 120 + 60 * (st > 0)
+        if sp.line.line_type != 1:
+            # a redistribution's Philox block and its upper level's choice,
+            # a Voigt function of each component (~40 flops each)
+            flops += 40 + 40 * max(sp.line.nup, 2)
         if sp.dust:
             # each lane's event split: its cell's rhokapD (and velocity for
             # Jabs in a moving medium), a Voigt and a Philox block; the
@@ -196,7 +237,9 @@ def kernel_work(name, pre, ch, meta, stats=None):
             seen = stats['seen'] * per_seen
             ncubes = 2 if peel.stokes else 1
         else:
-            seen = ((stats['seen'] - dust) * 4 * (4 + 7 + st)
+            # a resonance reads the record's E1, E2, E3 for line types 2, 4-6
+            lane_E = 3 if g.line.per_lane_E else 0
+            seen = ((stats['seen'] - dust) * 4 * (4 + 7 + st + lane_E)
                     + dust * 4 * (4 + 4 + st))
             ncubes = 5 if peel.stokes else 1
         table = 7 * peel.mueller.n * 4 if dust and peel.mueller else 0
@@ -261,7 +304,10 @@ def phase1():
     name = None
     for n, fn, used in regs:
         if fn:
-            name = fn[:int(n)]
+            # a kernel's two instances (line.cuh kMulti) by their template
+            # argument
+            name = fn[:int(n)] + {'ILb0E': '<false>', 'ILb1E': '<true>'}.get(
+                fn[int(n):int(n) + 5], '')
         elif name:
             per[name] = int(used)
     log(1, f'built {Path(kb.BUILD_INFO["path"]).name} from '
@@ -295,8 +341,25 @@ def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8,
         d = float((u - v).abs().max())
         assert d <= atol, (f, d, atol)
         tal[f] = d
-    assert frac <= MAX_FRAC, frac
+    assert frac <= MAX_FRAC, (frac, state_diff_report(s0, sk, sp))
     return s0, sk, frac, err, tal
+
+
+def state_diff_report(s0, a, b, n=4):
+    """The fields in which states a and b differ, with the count of lanes
+    and, for the first n, the lane's input xfreq and both values."""
+    from lart_tpu_torch.transport.state import INT_FIELDS, LANE_FIELDS
+    out = []
+    for f in LANE_FIELDS:
+        u, v = getattr(a, f), getattr(b, f)
+        bad = (u != v) if f in INT_FIELDS else ~torch.isclose(
+            u, v, rtol=LANE_RTOL, atol=LANE_ATOL, equal_nan=True)
+        idx = bad.nonzero().squeeze(1)[:n].tolist()
+        if idx:
+            out.append(f'{f}: {int(bad.sum())} lanes, e.g. ' + ', '.join(
+                f'lane {i} x0 {float(s0.xfreq[i]):.6g} {float(u[i]):.9g} vs '
+                f'{float(v[i]):.9g}' for i in idx))
+    return '; '.join(out)
 
 
 def _max_err(res, name, err):
@@ -487,6 +550,7 @@ def phase2(dev):
     del grid, ch
     phase2_peel(dev, res)
     phase2_dust(dev, res)
+    phase2_lines(dev, res)
     return res
 
 
@@ -509,7 +573,7 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
     from lart_tpu_torch.instruments import peel as tpeel
     p = ch.peel
     s = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=r_max)
-    rec = testing.peel_record(s, seed + 1)
+    rec = testing.peel_record(s, seed + 1, p.grid.line)
     kind = max(mode, tpeel.RESONANCE)     # the flag of mode's events
     rec.flag.fill_(kind)
     n = p.nobs * B_MAIN
@@ -565,7 +629,8 @@ def record_diff(a, b):
     bad = a.flag != b.flag
     err = 0.0
     for f in PEEL_RECORD_FIELDS[1:]:
-        on = (a.flag != 0) if f not in ('xatom', 'ux', 'uy', 'uz') \
+        on = (a.flag != 0) if f not in ('xatom', 'ux', 'uy', 'uz', 'E1',
+                                        'E2', 'E3') \
             else (a.flag != 0) & (a.flag != DUST)
         u, v = getattr(a, f), getattr(b, f)
         off = on & ~torch.isclose(u, v, rtol=LANE_RTOL, atol=LANE_ATOL)
@@ -726,6 +791,158 @@ def phase2_dust(dev, res):
         del grid, ch
 
 
+def flight_kernel(ch):
+    """The name of the flight kernel of a chunk."""
+    mod = type(ch.flight).__module__.rsplit('.', 1)[-1]
+    return {'fly_slab': 'fly_uniform_slab',
+            'fly_sphere': 'fly_uniform_sphere'}.get(mod, 'fly_cartesian')
+
+
+def line_cases():
+    """(label, Params, checks) of phase 2's metal-line cases: the examples
+    as written (and the variants that reach a branch they do not), each
+    with the kernels it holds against their plain versions: 'k2' the
+    births (continuum, the branch shift), 'fly' the flight's line profile,
+    'k4' the redistribution with and without recoil and its peel record,
+    'k7' the peel in modes direct and resonance."""
+    from lart_tpu_torch import testing
+    ex, B = LINE_EXAMPLES, dict(batch_size=B_MAIN)
+    si, fe, hd = ex['SiII_1193'], ex['FeII_UV1'], ex['HD']
+    slab = dict(tau0=1e4, nz=201, batch=B_MAIN)
+    return (
+        ('SiII_1193 as written (type 5, 101^3, Hubble 200 km/s, continuum, '
+         'recoil, Stokes, 1 observer)', example_params(si, **B),
+         ('k2', 'fly', 'k4', 'k7')),
+        ('SiII_1193 with a Voigt source (the birth shift to a level and a '
+         'branch)', example_params(si, spectral_type='voigt', **B), ('k2',)),
+        ('SiII_1193 without Stokes', example_params(si, use_stokes=False,
+                                                    **B), ('k7',)),
+        ('Mg II 2796 doublet (type 2) on the SiII_1193 grid, Voigt source',
+         example_params(si, spectral_type='voigt', **MGII, **B),
+         ('k2', 'fly', 'k4')),
+        ('SiII_1527 t1e5tau1e1_V050 as written (type 4, 65^3, Hubble 50 km/s)',
+         example_params(ex['SiII_1527'], **B), ('k2', 'k4')),
+        ('FeII_UV1 as written but for recoil (type 5, 101^3 static ball '
+         'without geometry sphere: K5 and the K7 walk; continuum, Stokes, 1 '
+         'observer)', example_params(fe, recoil=True, **B),
+         ('k2', 'fly', 'k7')),
+        ('FeII_UV1 with geometry sphere and recoil (K6, the K7 chord)',
+         example_params(fe, geometry='sphere', recoil=True, **B),
+         ('fly', 'k7')),
+        ('FeII_UV1 with geometry sphere and recoil, without Stokes',
+         example_params(fe, geometry='sphere', recoil=True, use_stokes=False,
+                        **B), ('k7',)),
+        ('Mg II doublet on the FeII_UV1 sphere (K6)',
+         example_params(fe, geometry='sphere', **MGII, **B), ('fly',)),
+        ('HeI t4tau2 as written (type 6, 101^3 sphere)',
+         example_params(ex['HeI'], **B), ('k2', 'fly', 'k4')),
+        ('HeI pt_tau100_coh as written (type 6, HeI_coherent, Stokes)',
+         example_params(ex['HeI_coherent'], save_peeloff=False, **B),
+         ('k4',)),
+        ('sphere_HD_dijkstra2006 as written (type 7, 101^3 reflect)',
+         example_params(hd, **B), ('fly', 'k4')),
+        ('sphere_HD_dijkstra2006 with geometry sphere, without xyz_symmetry '
+         '(K6)', example_params(hd, xyz_symmetry=False, geometry='sphere',
+                                **B), ('fly',)),
+        ('slab 1x1x201 tau 1e4, Mg II doublet', testing.slab_params(
+            line_id='MgII_2796', wavelength_min=2790.0,
+            wavelength_max=2810.0, **slab), ('fly',)),
+        ('slab 1x1x201 tau 1e4, Si II 1190/1193', testing.slab_params(
+            line_id='SiII_1193', wavelength_min=1188.0,
+            wavelength_max=1200.0, **slab), ('fly',)),
+        ('slab 1x1x201 tau 1e4, H + D Ly-alpha (D/H 3e-5)',
+         testing.slab_params(line_id='ly_alpha_HD', D_to_H_ratio=3e-5,
+                             **slab), ('fly',)),
+    )
+
+
+def phase2_lines(dev, res):
+    """The metal lines on the grids of their examples (line_cases): each
+    new branch of K2, K3, K5, K6, K4 and K7 against its plain version at
+    B = B_MAIN, lane by lane (K4 on lanes at a scattering with frequencies
+    around the line's components, testing.line_state; with and without
+    recoil, with its peel record) or pair by pair (K7, with per-lane phase
+    weights in the record)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.physics import line as pline
+    from lart_tpu_torch.transport.engine import make_chunk
+    from lart_tpu_torch.transport.scatter import EVENT_RESONANCE
+    seed = 120
+    for label, par, checks in line_cases():
+        t0 = time.time()
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        lc = ch.scatter_params.line
+        lt = f'line type {lc.line_type}'
+        log(2, f'lines: {label}: {meta.nx}x{meta.ny}x{meta.nz}, '
+               f'{meta.nxfreq} bins, flight {flight_kernel(ch)}, grid built '
+               f'in {time.time() - t0:.1f} s')
+        r_max = None if meta.nx == 1 else 1.0
+        if 'k2' in checks:
+            seed += 1
+            _, _, frac, err, tal = both(meta, seed, refill_step(ch),
+                                        ('Jin',), dev)
+            _max_err(res, 'refill_point' + LINES, err)
+            rp = ch.refill_params
+            log(2, f'  K2 refill_point ({lt}, spectrum {rp.spectrum}, '
+                   f'branch shift {rp.line.branch_init}): lanes differing '
+                   f'{frac:.2e}, max abs err {err:.3e}, Jin max |d| '
+                   f'{tal["Jin"]:.3e}')
+        if 'fly' in checks:
+            seed += 1
+            name = flight_kernel(ch)
+            _, _, frac, err, tal = both(meta, seed, fly_step(ch),
+                                        ('Jout', 'Jmu', 'W_oor'), dev,
+                                        nmu=ch.nmu, r_max=r_max)
+            _max_err(res, name + LINES, err)
+            log(2, f'  {name} ({lt} profile): lanes differing {frac:.2e}, '
+                   f'max abs err {err:.3e}; tallies max |d| {tal}')
+        if 'k4' in checks:
+            sp0 = ch.scatter_params
+            q = pline.line_prof(lc, sp0.a, sp0.Dfreq)
+            offsets = [-d for d in q.dx[:max(lc.nup, 2)]]
+            for recoil in (False, True):
+                seed += 1
+                sp = dataclasses.replace(sp0, recoil=recoil)
+                recs = {}
+                state = testing.line_state(meta, B_MAIN, seed, offsets,
+                                           device=dev)
+                _, sk, frac, err, tal = both(
+                    meta, seed, scatter_step(ch, sp, recs),
+                    ('nscatt_gas', 'nscatt_events'), dev, state=state)
+                n_rec, rerr = record_diff(recs[True], recs[False])
+                assert n_rec <= MAX_FRAC * B_MAIN, n_rec
+                n_res = int((recs[True].flag == EVENT_RESONANCE).sum())
+                assert n_res > 0.5 * B_MAIN, n_res
+                _max_err(res, 'scatter_lya' + LINES, max(err, rerr))
+                log(2, f'  K4 scatter_lya ({lt}, HeI_coherent '
+                       f'{lc.he_coherent}, Stokes {sp.stokes}, recoil '
+                       f'{recoil}): {n_res} of {B_MAIN} lanes scattered, '
+                       f'lanes differing {frac:.2e}, max abs err {err:.3e}; '
+                       f'record lanes differing {n_rec}, max abs err '
+                       f'{rerr:.3e}; tallies max |d| {tal}')
+        if 'k7' in checks:
+            for mname, mode in (('direct', tpeel.DIRECT),
+                                ('resonance', tpeel.RESONANCE)):
+                seed += 2
+                n_bad, n_dep, err, dtau, dw = peel_both(ch, meta, seed, mode,
+                                                        dev, r_max)
+                _max_err(res, 'peel' + LINES, err)
+                p = ch.peel
+                walk = 'chord' if p.chord else 'DDA walk'
+                log(2, f'  K7 peel {mname} ({lt}, {walk}, '
+                       f'Stokes {p.stokes}, recoil {p.recoil}; '
+                       f'{p.obs_meta.nxim}x{p.obs_meta.nyim} x '
+                       f'{meta.nxfreq} bins): {n_dep} of {p.nobs * B_MAIN} '
+                       f'pairs deposit, pairs differing {n_bad}, max |d tau| '
+                       f'{dtau:.3e}, per-pair deposits max rel err {dw:.3e} '
+                       f'(rtol 1e-5, all pairs), cubes max abs err {err:.3e}')
+        del grid, ch
+
+
 def _in_core_fraction(s0, p):
     from lart_tpu_torch.transport.scatter import local_xcrit
     xc, _ = local_xcrit(s0, p)
@@ -877,6 +1094,24 @@ def phase3(dev):
                  'Mueller dust, Stokes peel', par, dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
                                   'scatter_lya', 'peel')), c
+    # the metal lines: 17^3 uniform spheres (testing.line_params) of the
+    # Mg II doublet, the Si II multiplet with Stokes, recoil and one
+    # observer, and H + D Ly-alpha (D/H 3e-3)
+    for case, over in (('doublet', {}),
+                       ('multiplet', dict(spectral_type='voigt',
+                                          use_stokes=True)),
+                       ('hd', dict(D_to_H_ratio=3e-3, tau0=10.0))):
+        par = testing.line_params(case, n=17, nphotons=10_000, batch=4096,
+                                  save_Jmu=True, nmu=8,
+                                  **{'tau0': 20.0, **over})
+        need = ('refill_point', 'fly_uniform_sphere', 'scatter_lya')
+        if case == 'multiplet':
+            par = dataclasses.replace(testing.peel_params(par, nim=17),
+                                      alpha=(0.0,), beta=(0.0,))
+            need += ('peel',)
+        c = spectra_run(f'{testing.LINE_CASES[case][0]} sphere 17^3 tau0 '
+                        f'{par.taumax:g} 1e4 photons{over}', par, dev)
+        assert all(c.get(k) for k in need), c
 
 
 def run_cli(nml, out, device='cuda'):
@@ -985,6 +1220,7 @@ def phase4(tauhomo=1e4, device='cuda'):
 
         peel_cli(tmp, device, total)
         dl2008_cli(tmp, device, total)
+        lines_cli(tmp, device, total)
     return total
 
 
@@ -1078,6 +1314,79 @@ def dl2008_cli(tmp, device, total, nphotons=DL_PHOTONS):
                f'launches {launches}')
 
 
+def fluorescent_excess(res):
+    """The escaped spectrum's mean weight per bin in the Si II* lines (each
+    fluorescent branch's centre, -delE_i / D - Elow / D, +- 3 Doppler
+    widths) over its mean in the continuum (the bins farther than the
+    outflow's speed + 10 Doppler widths from every line centre)."""
+    from lart_tpu_torch.physics import line as pline
+    lc = pline.LineConsts.from_config(res.cfg)
+    D = res.meta.Dfreq_ref
+    q = pline.line_prof(lc, res.meta.voigt_a_ref, D)
+    res_c = [-d for d in q.dx[:lc.nup]]
+    fl_c = [-q.dx[i] - pline.div32(lc.Elow_Hz[i][j], D)
+            for i in range(lc.nup) for j in range(1, lc.ndown[i])]
+    x, J = res.xfreq, res.Jout
+    reach = abs(res.cfg.par.Vexp) / res.cfg.vtherm + 10.0
+    far = np.ones_like(x, dtype=bool)
+    for c in res_c + fl_c:
+        far &= np.abs(x - c) > reach
+    line = np.zeros_like(far)
+    for c in fl_c:
+        line |= np.abs(x - c) < 3.0
+    assert far.sum() >= 10 and line.sum() >= 2, (far.sum(), line.sum())
+    return float(J[line].mean() / J[far].mean()), fl_c
+
+
+def lines_cli(tmp, device, total, hd_photons=HD_PHOTONS):
+    """The metal-line examples through the CLI: SiII_1193/tau1e+2_V200 as
+    written (the weight closes, the Si II* fluorescent lines stand above
+    the continuum, the _peel3D FITS is written), sphere_HD_dijkstra2006
+    with its photons cut to hd_photons and N_HI to HD_NHI (~8e5
+    scatterings a photon as written), HeI t4tau2 and SiII_1527
+    t1e5tau1e1_V050 as written.  The
+    launch counts of these runs go into total['lines']."""
+    from lart_tpu_torch.io.iofile import open_read
+    lines = total.setdefault('lines', {})
+    ex = LINE_EXAMPLES
+    for key, over, fly in (
+            ('SiII_1193', {}, 'fly_cartesian'),
+            ('HD', dict(no_photons=f'{hd_photons:g}', N_HImax=HD_NHI),
+             'fly_cartesian'),
+            ('HeI', {}, 'fly_uniform_sphere'),
+            ('SiII_1527', {}, 'fly_cartesian')):
+        nml = namelist_variant(ex[key], tmp, **over)
+        out = Path(tmp) / f'{key}.fits'
+        rc, res, wall, launches = run_cli(nml, out, device)
+        assert rc == 0
+        x, jout = res.xfreq, res.Jout
+        assert np.all(np.isfinite(jout)) and jout.shape == x.shape
+        w = res.W_escape + res.W_oor
+        assert abs(w - 1.0) < 1e-3, (key, res.W_escape, res.W_oor)
+        need = ('refill_point', fly, 'scatter_lya')
+        extra = ''
+        if key == 'SiII_1193':
+            need += ('peel',)
+            ratio, centres = fluorescent_excess(res)
+            assert ratio > 1.1, (ratio, centres)
+            om = res.obs_meta
+            with open_read(str(Path(tmp) / f'{key}_peel3D.fits')) as f:
+                shape = np.asarray(f['Scattered/data']).shape
+            assert shape == (res.meta.nxfreq, om.nxim, om.nyim), shape
+            extra = (f', Si II* lines at x = '
+                     f'{", ".join(f"{c:.2f}" for c in centres)} stand '
+                     f'{ratio:.3f} x the continuum, _peel3D {shape}')
+        add_launches(total, launches, need)
+        for k, v in launches.items():
+            lines[k] = lines.get(k, 0) + v
+        log(4, f'CLI {Path(ex[key]).name} ({over or "as written"}, '
+               f'{res.nphotons} photons, line type '
+               f'{res.cfg.line.line_type}, FITS): W_esc {res.W_escape:.6f} '
+               f'+ W_oor {res.W_oor:.6f} = {w:.6f}, <N_scatt> '
+               f'{res.nscatt_gas:.2f}{extra}, wall {wall:.1f} s; launches '
+               f'{launches}')
+
+
 def device_ms(calls):
     """Device ms per launch of calls[i](): a sleep holds the stream while
     the host enqueues every call, so the launches run back to back and the
@@ -1126,10 +1435,11 @@ def profile_chunks(p, card, label, n_chunks=4):
            f'profiler [{card}]')
 
 
-def kernel_times(p, card, label, res, names, record=(), reps=20):
+def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
     """Each kernel of the prepared run's cycle against its plain version,
     on one cycle's inputs at the steady-state shapes, beside its bound; the
-    numbers of the kernels named in `record` go into res.  With peel-off
+    numbers of the kernels named in `record` go into res (under the
+    kernel's name + suffix).  With peel-off
     the refill and the scatter write a peel record as on the main path, and
     K7 peels the cycle's scattering events (resonance and, with dust, dust
     events, one launch as the chunk loop makes it)."""
@@ -1157,9 +1467,7 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
     scatter.scatter(post, tl, ch.scatter_params, p.seed, p.cycle, rec)
     torch.cuda.synchronize()
     c = p.cycle
-    fly_name = {'fly_slab': 'fly_uniform_slab', 'fly_sphere':
-                'fly_uniform_sphere'}.get(fmod.__name__.rsplit('.', 1)[-1],
-                                          'fly_cartesian')
+    fly_name = flight_kernel(ch)
     steps = {
         'refill_point': (
             pre_refill,
@@ -1222,12 +1530,39 @@ def kernel_times(p, card, label, res, names, record=(), reps=20):
             k, pre, ch, p.meta))
     for k, (dev_ms, call_ms, plain_ms, bnd) in out.items():
         if k in record:
-            res.setdefault(k, {}).update(ms=dev_ms, plain_ms=plain_ms,
+            res.setdefault(k + suffix, {}).update(ms=dev_ms, plain_ms=plain_ms,
                                          bound_ms=bnd[0], bound_by=bnd[1])
         log(5, f'{label} {k} at B={st.batch}: kernel {dev_ms:.6f} ms on the '
                f'device (back to back), {call_ms:.6f} ms a call with its '
                f'launch; plain {plain_ms:.6f} ms a call; bound {bnd[0]:.6f} '
                f'ms ({bnd[1]}) [{card}]')
+
+
+def branch_shift_share(p, card, label, reps=20):
+    """K2's device ms on the prepared run's state (as its last chunk left
+    it, the state the next refill sees) with and without branch_init_shift
+    (the same line constants but for the flag), in turns with, without, without, with: the shift's share of
+    K2's time."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport import refill
+    from lart_tpu_torch.transport.state import zero_tallies
+    rp = p.chunk.refill_params
+    off = dataclasses.replace(rp, line=dataclasses.replace(
+        rp.line, branch_init=False))
+    tl = zero_tallies(p.meta.nxfreq, 0, p.state.device)
+    pre = testing.clone_state(p.state)
+
+    def run(params):
+        copies = [testing.clone_state(pre) for _ in range(reps)]
+        return device_ms([lambda s=s: refill.refill(s, tl, params, 1, p.cycle,
+                                                    p.budget)
+                          for s in copies])
+    on1, off1, off2, on2 = run(rp), run(off), run(off), run(rp)
+    on, without = 0.5 * (on1 + on2), 0.5 * (off1 + off2)
+    n_dead = int((pre.phase == 0).sum())
+    log(5, f'{label} refill_point with branch_init_shift {on:.6f} ms, '
+           f'without {without:.6f} ms ({n_dead} dead lanes launched): the '
+           f'shift takes {100 * (on - without) / on:.1f}% of K2 [{card}]')
 
 
 def rate_window(label, par, dev, min_s=WINDOW_S):
@@ -1356,6 +1691,45 @@ def phase5(dev, res):
                                               ('peel',) if extra else ()))
         del p
 
+    # the metal lines: the slice's main path, SiII_1193 as written with its
+    # observer (K2 continuum, K5, K4 type 5 with Stokes and recoil, K7);
+    # H + D Ly-alpha as written (K5, K4 type 7); He I 10833 (K6 type 6, K2
+    # with the branch shift); the Mg II doublet on the flagship's slab (K3)
+    ex = LINE_EXAMPLES
+    line_cells = (
+        ('SiII_1193 (type 5, 101^3, Hubble 200 km/s, continuum, recoil, '
+         'Stokes, 100x100 x 240 cube)', 'SiII_1193',
+         example_params(ex['SiII_1193'], **over),
+         ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel'),
+         ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel')),
+        ('sphere_HD_dijkstra2006 (type 7, N_HI 1.2e19, 101^3 reflect, '
+         'D/H 3e-5)', 'HD', example_params(ex['HD'], **over),
+         ('refill_point', 'fly_cartesian', 'scatter_lya'), ()),
+        ('HeI t4tau2 (type 6, tau 100, 101^3 sphere)', 'HeI',
+         example_params(ex['HeI'], **over),
+         ('refill_point', 'fly_uniform_sphere', 'scatter_lya'),
+         ('fly_uniform_sphere',)),
+        ('slab Mg II 2796 (type 2, tau0 1e6, nz 201, Voigt source)',
+         'slab_MgII', testing.slab_params(
+             tau0=1e6, nz=201, nphotons=10 ** 9, batch=B_MAIN,
+             chunk_cycles=32, save_Jmu=False, line_id='MgII_2796',
+             wavelength_min=2790.0, wavelength_max=2810.0),
+         ('refill_point', 'fly_uniform_slab', 'scatter_lya'),
+         ('fly_uniform_slab',)))
+    for label, key, cpar, names, record in line_cells:
+        p, _ = rate_window(label, cpar, dev)
+        card = smi()
+        profile_chunks(p, card, key)
+        if key in ('SiII_1193', 'HeI'):
+            # on the state a chunk leaves, which the next refill sees
+            branch_shift_share(p, card, key)
+        kernel_times(p, card, key, res, names, record=record, suffix=LINES)
+        del p
+    k4 = res['scatter_lya']['ms']
+    log(5, f'flagship K4 scatter_lya (line type 1 instance) {k4:.6f} ms '
+           f'against 0.014728 ms before the metal lines (PR 4, the same '
+           f'measurement): {100 * (k4 / 0.014728 - 1):+.1f}%')
+
 
 KERNELS = {
     'refill_point': ('lart_tpu_torch/csrc/refill.cu',
@@ -1372,6 +1746,23 @@ KERNELS = {
              'lart_tpu/instruments/peel.py:62'),
 }
 INLINES_VOIGT = ('fly_uniform_slab', 'fly_cartesian', 'fly_uniform_sphere')
+# the kernels' metal-line instances on this slice's path (K3's is held
+# against its plain version in phase 2; no metal-line slab runs in phase 4)
+LINE_KERNELS = {
+    'refill_point': 'lart_tpu/transport/engine.py:2923',
+    'fly_cartesian': 'lart_tpu/transport/engine.py:1057',
+    'fly_uniform_sphere': 'lart_tpu/transport/engine.py:887',
+    'scatter_lya': 'lart_tpu/transport/engine.py:1838',
+    'peel': 'lart_tpu/instruments/peel.py:62',
+}
+LINE_INLINES = {
+    'refill_point': 'branch_init_shift (lart_tpu_torch/csrc/line.cuh, '
+                    'replaces lart_tpu/transport/engine.py:2923) in the '
+                    'births of lart_tpu/transport/engine.py:2557',
+    'scatter_lya': 'redistribute and line_profile (lart_tpu_torch/csrc/'
+                   'line.cuh, replace lart_tpu/transport/engine.py:1931, '
+                   ':621)',
+}
 
 
 def main(argv=None):
@@ -1406,6 +1797,17 @@ def main(argv=None):
                            'replaces lart_tpu/physics/voigt.py:23)'}
                if k in INLINES_VOIGT + ('peel',) else {}))
             for k, (src, rep) in KERNELS.items()]}
+        lines = launches.get('lines', {})
+        line['kernels'] += [dict(
+            name=k + LINES, route='cuda', source=KERNELS[k][0], replaces=rep,
+            launches=lines[k], max_abs_err=res[k + LINES]['max_abs_err'],
+            ms=res[k + LINES]['ms'], plain_ms=res[k + LINES]['plain_ms'],
+            bound_ms=res[k + LINES]['bound_ms'],
+            bound_by=res[k + LINES]['bound_by'], library_ms=None,
+            inlines=LINE_INLINES.get(
+                k, 'line_profile (lart_tpu_torch/csrc/line.cuh, replaces '
+                   'lart_tpu/transport/engine.py:621)'))
+            for k, rep in LINE_KERNELS.items()]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

@@ -12,10 +12,12 @@
 // same budget, as the while_loop counts it.  Every expression keeps the JAX
 // order, and the cell faces and advanced positions are fused multiply-adds
 // as XLA computes them (transport/flight.py); the opacity of the current
-// cell is rhokap * H(x, a_ref) (voigt.cuh inlined), plus rhokapD with dust
-// (walk.cuh cell_opacity).  Escapes go to Jout/Jmu with f32 atomics at once (a lane escapes
-// at most once a call), weight outside the frequency grid through one block
-// sum.  Bound: the gathers.  Each crossing reads rhokap (and rhokapD) and, in a moving
+// cell is rhokap times the line's profile (line.cuh: H(x, a_ref) for line
+// type 1, the doublet, multiplet or H+D sum for the others; two kernel
+// instances), plus rhokapD with dust (walk.cuh cell_opacity).  Escapes go
+// to Jout/Jmu with f32 atomics at once (a lane escapes at most once a call),
+// weight outside the frequency grid through one block sum.  Bound: the
+// gathers.  Each crossing reads rhokap (and rhokapD) and, in a moving
 // medium, three velocity components of the old and new cell, 4-byte words
 // scattered over arrays of 4 nx ny nz bytes each (32 MB at 201^3, against a
 // 50 MB L2); the lane state is read and written once a call.
@@ -23,6 +25,7 @@
 #include "voigt.cuh"
 #include "walk.cuh"
 
+template <bool kMulti>
 __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f;
@@ -35,7 +38,7 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
     for (int n = 0; n < max_steps && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
-      const float rho = cell_opacity(p, flat_index(p, cell[0], cell[1], cell[2]), xfreq);
+      const float rho = cell_opacity<kMulti>(p, flat_index(p, cell[0], cell[1], cell[2]), xfreq);
       float t[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
@@ -131,8 +134,13 @@ LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
                                 const FlightParams* p, void* stream) {
   if (B > 0) {
     const int threads = 256;
-    fly_cartesian_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), B, max_steps, *p);
+    const int blocks = (B + threads - 1) / threads;
+    if (p->line.line_type == 1)
+      fly_cartesian_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), B, max_steps, *p);
+    else
+      fly_cartesian_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), B, max_steps, *p);
   }
   return (int)cudaGetLastError();
 }

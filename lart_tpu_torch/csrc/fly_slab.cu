@@ -10,7 +10,9 @@
 // scatter-adds them after the loop; here an escape adds to Jout/Jmu with an
 // f32 atomicAdd at once (a lane escapes at most once), and the weight that
 // falls outside the frequency grid is summed in the block and added with one
-// atomic.  Bound: memory (about 60 bytes a flying lane read and written) and
+// atomic.  The opacity is rho0 times the line's profile (line.cuh: H(x, a)
+// for line type 1, the doublet, multiplet or H+D sum for the others; two
+// kernel instances).  Bound: memory (about 60 bytes a flying lane read and written) and
 // the Voigt function of voigt.cuh, inlined; the Jout atomics are spread over
 // nxfreq bins and are rare next to the lanes that scatter.
 #include "lart.cuh"
@@ -23,11 +25,13 @@ __device__ inline float floor_mod(float a, float b) {
   return r;
 }
 
+template <bool kMulti>
 __global__ void fly_slab_kernel(Lanes s, int B, int max_iter, float zmn, float zmx,
                                 float xmn, float ymn, float Lx, float Ly, float dz, int nz,
                                 float a_ref, float rho0, float xfreq_min, float dxfreq,
                                 int nxfreq, int save_jmu, int nmu, float mu_min, float dmu,
-                                int mu_abs, float* Jout, float* Jmu, float* W_oor) {
+                                int mu_abs, float* Jout, float* Jmu, float* W_oor, float Dfreq,
+                                LineC line) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f;
   int phase = i < B ? s.phase[i] : DEAD;
@@ -39,7 +43,7 @@ __global__ void fly_slab_kernel(Lanes s, int B, int max_iter, float zmn, float z
     float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
     for (int n = 0; n < max_iter && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
-      const float rho = rho0 * voigt_h(xfreq, a_ref);
+      const float rho = rho0 * line_profile<kMulti>(line, xfreq, a_ref, Dfreq);
       const float zsel = kz > 0.0f ? zmx : zmn;
       const bool flat = fabsf(kz) < 1e-12f;
       const float d_exit = flat ? LART_BIG : fmaxf((zsel - z) / kz, 0.0f);
@@ -130,13 +134,23 @@ LART_API int lart_fly_uniform_slab(void* const* lanes, int B, int max_iter, floa
                                    float dz, int nz, float a_ref, float rho0,
                                    float xfreq_min, float dxfreq, int nxfreq, int save_jmu,
                                    int nmu, float mu_min, float dmu, int mu_abs, void* Jout,
-                                   void* Jmu, void* W_oor, void* stream) {
+                                   void* Jmu, void* W_oor, float Dfreq, const LineC* line,
+                                   void* stream) {
   if (B > 0) {
     const int threads = 256;
-    fly_slab_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), B, max_iter, zmn, zmx, xmn, ymn, Lx, Ly, dz, nz, a_ref, rho0,
-        xfreq_min, dxfreq, nxfreq, save_jmu, nmu, mu_min, dmu, mu_abs, (float*)Jout,
-        (float*)Jmu, (float*)W_oor);
+    const int blocks = (B + threads - 1) / threads;
+    if (line->line_type == 1)
+      fly_slab_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), B, max_iter, zmn, zmx, xmn, ymn, Lx, Ly, dz, nz, a_ref, rho0,
+          xfreq_min, dxfreq, nxfreq, save_jmu, nmu, mu_min, dmu, mu_abs, (float*)Jout,
+          (float*)Jmu, (float*)W_oor, Dfreq, *line);
+    else
+      fly_slab_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), B, max_iter, zmn, zmx, xmn, ymn, Lx, Ly, dz, nz, a_ref, rho0,
+          xfreq_min, dxfreq, nxfreq, save_jmu, nmu, mu_min, dmu, mu_abs, (float*)Jout,
+          (float*)Jmu, (float*)W_oor, Dfreq, *line);
   }
   return (int)cudaGetLastError();
 }
+
+LART_API int lart_line_params_size() { return (int)sizeof(LineC); }

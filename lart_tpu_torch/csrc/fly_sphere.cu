@@ -4,7 +4,8 @@
 // Replaces lart_tpu/transport/engine.py:871 sphere_chord and :887
 // make_fly_uniform_sphere / fly.  The opacity along a ray is
 // sphere_rho * H(x, a) + sphere_rhoD on the chord [t_in, t_out] through
-// r < R and zero outside, so one step resolves a whole flight: the lane
+// r < R and zero outside (H the line's profile, line.cuh; two kernel
+// instances, line type 1 and the others), so one step resolves a whole flight: the lane
 // scatters at t_in + (tau_target - tau_run) / rho when the chord holds
 // enough optical depth, and escapes otherwise.  As in K3, one thread loops
 // its own lane until it no longer flies, at most max_iter (= fly_substeps +
@@ -18,6 +19,7 @@
 #include "voigt.cuh"
 #include "walk.cuh"
 
+template <bool kMulti>
 __global__ void fly_sphere_kernel(Lanes s, int B, int max_iter, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f;
@@ -30,7 +32,8 @@ __global__ void fly_sphere_kernel(Lanes s, int B, int max_iter, FlightParams p) 
     float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
     for (int n = 0; n < max_iter && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
-      const float rho = p.sphere_rho * voigt_h(xfreq, p.a_ref) + p.sphere_rhoD;
+      const float rho =
+          p.sphere_rho * line_profile<kMulti>(p.line, xfreq, p.a_ref, p.Dfreq) + p.sphere_rhoD;
       float t_in, t_out;
       sphere_chord(p, x, y, z, kx, ky, kz, t_in, t_out);
       const float dtau_avail = (t_out - t_in) * rho;
@@ -103,8 +106,13 @@ LART_API int lart_fly_uniform_sphere(void* const* lanes, int B, int max_iter,
                                      const FlightParams* p, void* stream) {
   if (B > 0) {
     const int threads = 256;
-    fly_sphere_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), B, max_iter, *p);
+    const int blocks = (B + threads - 1) / threads;
+    if (p->line.line_type == 1)
+      fly_sphere_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), B, max_iter, *p);
+    else
+      fly_sphere_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), B, max_iter, *p);
   }
   return (int)cudaGetLastError();
 }

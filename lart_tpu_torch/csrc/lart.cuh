@@ -102,8 +102,9 @@ inline Lanes unpack_lanes(void* const* p) {
 // The peel record of one cycle, written by K2 (flag: launched by this
 // refill) and by K4 (flag: the kind of event, 1 a resonance and 2 a dust
 // scattering; the pre-scatter direction, and with Stokes its triad and
-// Stokes vector, with a resonance's xfreq_atom and atom velocity), read by
-// K7 right after.  The host passes the pointers in the
+// Stokes vector, with a resonance's xfreq_atom and atom velocity, and its
+// phase weights E1, E2, E3 where they differ from event to event: line
+// types 2, 4, 5, 6), read by K7 right after.  The host passes the pointers in the
 // order of PEEL_RECORD_FIELDS in lart_tpu_torch/instruments/peel.py;
 // unpack_record keeps that order.
 struct PeelRecord {
@@ -124,6 +125,9 @@ struct PeelRecord {
   float* ux;
   float* uy;
   float* uz;
+  float* E1;
+  float* E2;
+  float* E3;
 };
 
 // A null table (peel-off off) gives a record of null pointers.
@@ -147,10 +151,17 @@ inline PeelRecord unpack_record(void* const* p) {
   r.ux = (float*)p[14];
   r.uy = (float*)p[15];
   r.uz = (float*)p[16];
+  r.E1 = (float*)p[17];
+  r.E2 = (float*)p[18];
+  r.E3 = (float*)p[19];
   return r;
 }
 
 #define FFS_TAU_CAP 25.0f
+
+// the line's constants and device functions (LineC, which FlightParams
+// embeds); included here, below the definitions they use
+#include "line.cuh"
 
 // Constants and device pointers of the K5 (fly_cartesian) and K6
 // (fly_uniform_sphere) flights, passed by pointer from the host and by value
@@ -187,6 +198,7 @@ struct FlightParams {
   float sphere_R2;
   float sphere_rho;
   float sphere_rhoD;
+  LineC line;      // the line: its opacity profile (line.cuh)
 };
 
 enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };

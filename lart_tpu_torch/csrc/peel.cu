@@ -5,9 +5,16 @@
 //
 // Replaces lart_tpu/instruments/peel.py:62 make_peel: peel_direct (:446),
 // peel_resonance (:476), peel_dust (:577) and their sightline optical depth
-// tau_to_edge_cart (:176-356; a cell's opacity rhokap H(x, a) + rhokapD) or
-// the sphere chord (:367-382), with obs_geometry (TAN branch), flat_idx and
-// freq_bin (:394-441).  The TPU walks all (observer, lane)
+// tau_to_edge_cart (:176-356; a cell's opacity rhokap times the line's
+// profile, line.cuh, + rhokapD) or the sphere chord (:367-382; its profile's
+// offsets and damping parameters from the host, f64 quotients rounded once
+// as lart_tpu's Python floats give them), with obs_geometry (TAN branch),
+// flat_idx and freq_bin (:394-441).  A resonance peels with the event's
+// phase weights (from the record for line types 2, 4, 5 and 6) and, with
+// recoil, at xfreq - (g_recoil0 / D)(1 - cos theta) (:513-514), the hydrogen
+// constant for a deuterium event of line type 7 too, as lart_tpu's peel
+// takes it.  Two kernel instances (line.cuh kMulti): line type 1, and the
+// others.  The TPU walks all (observer, lane)
 // pairs in one lockstep while_loop over the whole batch until the last pair
 // leaves the grid; here one thread walks one (observer, lane) pair, thread
 // t = o * B + lane, and stops on its own.  The lanes to peel are those the
@@ -52,7 +59,7 @@ enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
 #define LART_RAD2DEG 57.29577951308232f
 #define PEEL_TAU_HUGE 745.2f
 
-// The observers, the line's phase weights and this call's cubes; the host
+// The observers, the chord's line profile and this call's cubes; the host
 // passes it by pointer and the kernel by value.  lart_tpu_torch/instruments/
 // peel.py PeelParams mirrors this layout field for field;
 // lart_peel_params_size() lets it check the size.
@@ -74,16 +81,20 @@ struct PeelParams {
   int stokes;
   int lab_source;  // moving medium without comoving_source
   int dust;        // DUST_OFF, DUST_HG or DUST_MUELLER
-  float dxim, dyim, E1, E2, E3;
+  float dxim, dyim;
   float hg_num, hg_1pg2, hg_2g;  // 1 - g^2, 1 + g^2 and 2 g, rounded from f64
   MuellerTable mueller;          // DUST_MUELLER
+  int recoil;
+  LineProf chord_prof;           // the chord's profile components
 };
 
 // optical depth from pos along k to the grid's edge at comoving frequency xf
+template <bool kMulti>
 __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
                              const int cell0[3], const float k0[3], float xf) {
   if (p.chord) {
-    const float rho = g.sphere_rho * voigt_h(xf, g.a_ref) + g.sphere_rhoD;
+    const float H = kMulti ? line_profile_q(g.line, p.chord_prof, xf) : voigt_h(xf, g.a_ref);
+    const float rho = g.sphere_rho * H + g.sphere_rhoD;
     float t_in, t_out;
     sphere_chord(g, pos0[0], pos0[1], pos0[2], k0[0], k0[1], k0[2], t_in, t_out);
     return (t_out - t_in) * rho;
@@ -93,7 +104,7 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   int cell[3] = {cell0[0], cell0[1], cell0[2]};
   float tau = 0.0f;
   for (int n = 0; n < p.max_steps; ++n) {
-    const float rho = cell_opacity(g, flat_index(g, cell[0], cell[1], cell[2]), xf);
+    const float rho = cell_opacity<kMulti>(g, flat_index(g, cell[0], cell[1], cell[2]), xf);
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -117,6 +128,7 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   return tau;
 }
 
+template <bool kMulti>
 __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightParams g,
                             PeelParams p) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -174,9 +186,12 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
       }
     }
     // dust scatters coherently in the comoving frame
-    xf = kind == PEEL_DUST
-             ? s.xfreq[i]
-             : rec.xatom[i] + (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
+    if (kind == PEEL_DUST) {
+      xf = s.xfreq[i];
+    } else {
+      xf = rec.xatom[i] + (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
+      if (p.recoil) xf = xf - (g.line.g_recoil0 / g.Dfreq) * (1.0f - cost);
+    }
   }
 
   // freq_bin: the lab-frequency bin of xf at the event cell, along pk
@@ -185,7 +200,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
   const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + ix * p.nyim + iy;
 
-  const float tau = tau_to_edge(g, p, pos, cell, pk, xf);
+  const float tau = tau_to_edge<kMulti>(g, p, pos, cell, pk, xf);
   const float atten = expf(-fminf(tau, 700.0f));
   if (p.tau_out) {
     p.tau_out[t] = tau;
@@ -201,6 +216,11 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     return;
   }
   const float cost2 = cost * cost;
+  // the resonance's phase weights: the event's own for line types 2, 4-6
+  const bool lane_E = kMulti && g.line.per_lane_E;
+  const float E1 = lane_E ? rec.E1[i] : g.line.E1s;
+  const float E2 = lane_E ? rec.E2[i] : g.line.E2s;
+  const float E3 = lane_E ? rec.E3[i] : g.line.E3s;
   if (!p.stokes) {
     float w;
     if (kind == PEEL_DUST) {
@@ -208,7 +228,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
       const float phase = p.hg_num / powf(p.hg_1pg2 - p.hg_2g * cost, 1.5f) / LART_FOURPI;
       w = phase / r2 * atten * wgt;
     } else {
-      const float phase = 0.75f * p.E1 * (cost2 + 1.0f) + p.E2;
+      const float phase = 0.75f * E1 * (cost2 + 1.0f) + E2;
       w = phase / (LART_FOURPI * r2) * atten * wgt;
     }
     atomicAdd(&p.scatt[idx], w);
@@ -230,11 +250,11 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     Uobs = (S[2] * U0 + S[3] * V) / LART_TWOPI;
     Vobs = (-S[3] * U0 + S[2] * V) / LART_TWOPI;
   } else {
-    const float S22 = 0.75f * p.E1 * (cost2 + 1.0f);
-    const float S11 = S22 + p.E2;
-    const float S12 = 0.75f * p.E1 * (cost2 - 1.0f);
-    const float S33 = 1.5f * p.E1 * cost;
-    const float S44 = 1.5f * p.E3 * cost;
+    const float S22 = 0.75f * E1 * (cost2 + 1.0f);
+    const float S11 = S22 + E2;
+    const float S12 = 0.75f * E1 * (cost2 - 1.0f);
+    const float S33 = 1.5f * E1 * cost;
+    const float S44 = 1.5f * E3 * cost;
     Iobs = (S11 + S12 * Q0) / LART_FOURPI;
     Qobs = (S12 + S22 * Q0) / LART_FOURPI;
     Uobs = (S33 * U0) / LART_FOURPI;
@@ -269,8 +289,13 @@ LART_API int lart_peel(void* const* lanes, void* const* record, int B, int mode,
   const long long n = (long long)B * p->nobs;
   if (n > 0) {
     const int threads = 128;
-    peel_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), unpack_record(record), B, mode, *g, *p);
+    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    if (g->line.line_type == 1)
+      peel_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), unpack_record(record), B, mode, *g, *p);
+    else
+      peel_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), unpack_record(record), B, mode, *g, *p);
   }
   return (int)cudaGetLastError();
 }

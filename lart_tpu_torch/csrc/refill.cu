@@ -1,9 +1,17 @@
 // K2 refill_point: rebirth of dead lanes for a point source with a Voigt,
-// monochromatic or Gaussian input spectrum, with the forced-first-scattering
-// snapshot, in a static or moving medium of uniform temperature.
+// monochromatic, Gaussian or flat continuum input spectrum, with the
+// forced-first-scattering snapshot, in a static or moving medium of uniform
+// temperature, and the birth shift of a multi-level line.
 //
 // Replaces lart_tpu/transport/engine.py:2557 make_refill / :2689 refill
-// (source_geometry point, spectral_type voigt, monochromatic or gaussian).  The TPU
+// (source_geometry point, spectral_type voigt, monochromatic, gaussian or
+// continuum) and :2923 branch_init_shift (line.cuh), which the TPU runs as a
+// pass of its own over the batch and which here is a device function of the
+// births: a line of type 2, 4, 5 or 6 starts from xfreq0 shifted to a branch
+// by the two uniforms of block 3.  The continuum (engine.py:2804-2807)
+// replaces the frequency, the branch shift included, by xfreq_min + u
+// (xfreq_max - xfreq_min), u from block 2, which only the Gaussian also
+// reads; the D_loc / Dfreq_ref it is divided by is 1 at uniform temperature.  The TPU
 // ranks dead lanes with a cumsum over the whole batch (:2700), a pass the
 // card would need a second kernel for.  Here each warp counts its dead
 // lanes with a ballot and takes a block of tickets from the device photon
@@ -17,7 +25,7 @@
 // (engine.py:2836-2841), and Jin is tallied at the lab frequency xfreq + u1;
 // the source cell's velocity (vsx, vsy, vsz) is 0 in a static medium.
 // The Gaussian spectrum (engine.py:2799-2803) adds a normal times sigma_x,
-// drawn by Box-Muller from block 2, which no other spectrum reads; the
+// drawn by Box-Muller from block 2, which only the continuum also reads; the
 // D_loc / Dfreq_ref it is divided by is 1 at uniform temperature.
 // A launched lane is unpolarized (Q = U = V = 0) with the reference triad
 // m = (cos t cos p, cos t sin p, -sin t), n = (-sin p, cos p, 0) of its
@@ -30,7 +38,7 @@
 #include "philox.cuh"
 #include "samplers.cuh"
 
-enum { SPECTRUM_MONO = 0, SPECTRUM_VOIGT = 1, SPECTRUM_GAUSS = 2 };
+enum { SPECTRUM_MONO = 0, SPECTRUM_VOIGT = 1, SPECTRUM_GAUSS = 2, SPECTRUM_CONT = 3 };
 
 __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launched,
                                     int budget, uint32_t seed, uint32_t counter, float xs,
@@ -38,7 +46,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     float xfreq0, int spectrum, float sigma_x, float a,
                                     float vsx,
                                     float vsy, float vsz, int comoving_source,
-                                    float xfreq_min, float dxfreq, int nxfreq, float* Jin) {
+                                    float xfreq_min, float dxfreq, int nxfreq, float* Jin,
+                                    float xfreq_span, float Dfreq, LineC line) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -67,12 +76,21 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   const float kx = sint * cosp, ky = sint * sinp, kz = cost;
 
   float xfreq = xfreq0;
+  if (line.branch_init) {
+    float w[4];
+    uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 3u, w);
+    xfreq = xfreq + branch_init_shift(line, w[0], w[1], Dfreq);
+  }
   if (spectrum == SPECTRUM_VOIGT) {
     xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0]);
   } else if (spectrum == SPECTRUM_GAUSS) {
     float w[4];
     uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
     xfreq = xfreq + box_muller(w[0], w[1]) * sigma_x;
+  } else if (spectrum == SPECTRUM_CONT) {
+    float w[4];
+    uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
+    xfreq = xfreq_min + w[0] * xfreq_span;
   }
 
   // lab-frame source -> comoving frequency; Jin at the lab frequency
@@ -126,13 +144,14 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                float a,
                                float vsx, float vsy, float vsz, int comoving_source,
                                float xfreq_min, float dxfreq, int nxfreq, void* Jin,
+                               float xfreq_span, float Dfreq, const LineC* line,
                                void* stream) {
   if (B > 0) {
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
         counter, xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz,
-        comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin);
+        comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line);
   }
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,10 @@
-// K4 scatter_lya: resonant scattering of Ly-alpha (line_type 1) and dust events
-// (absorption, Henyey-Greenstein or Mueller-matrix scattering), without H2 or
-// recoil, with or without core-skip, Stokes and the peel record.
+// K4 scatter_lya: resonant scattering of line types 1, 2, 4, 5, 6 and 7 and
+// dust events (absorption, Henyey-Greenstein or Mueller-matrix scattering),
+// without H2, with or without recoil, core-skip, Stokes and the peel record.
 //
 // Replaces lart_tpu/transport/engine.py:1838 make_scatter / :2087 scatter
-// (the line_type 1 branch of redistribute, :1947-1953, and the dust branch,
-// :2111-2142, :2270-2381).  The TPU runs
+// (redistribute, :1931-2086, through line.cuh; the recoil of :2224-2229;
+// and the dust branch, :2111-2142, :2270-2381).  The TPU runs
 // scatter_rounds masked rejection rounds of the u_par sampler over the whole
 // batch; here each thread runs the rounds for its own lane and stops at the
 // first acceptance (the later rounds' uniforms would be ignored anyway).  A
@@ -42,6 +42,16 @@
 // absorption (every dust event under use_reduced_wgt, with the weight times
 // 1 - albedo) adds to Jabs at the lab frequency of the lane's cell by one f32
 // atomic; nscatt_dust sums the weight of every dust event in the block.
+// The line (line.cuh): a redistribution picks the upper level and the
+// downward branch from Philox block 3 rounds + 4 (after every block a lane
+// of line type 1 draws, so a Ly-alpha run draws as before), runs the u_par
+// rounds at that level's frequency and damping, and returns the phase
+// weights E1, E2, E3 of the branch (per lane for types 2, 4, 5, 6, which
+// the peel record then carries), xfreq_atom with the fluorescent shift,
+// the scale of the perpendicular velocity (1 / r_D at a deuterium event)
+// and the recoil constant; with recoil, xfreq_new -= (g0 / D)(1 - cos).
+// The dust split's kap_HI is rk times the line's profile.  The kernel has
+// two instances (line.cuh kMulti): line type 1, and the others.
 // Bound: arithmetic (tan/atan2/log/exp per round, pow/cos/sin after), with
 // the state read and written once (about 60 bytes a scattering lane, 100
 // with Stokes, plus 28 of record, 64 with Stokes); a dust event adds its
@@ -52,6 +62,7 @@
 #include "mueller.cuh"
 #include "philox.cuh"
 #include "samplers.cuh"
+#include "line.cuh"
 #include "voigt.cuh"
 
 enum { CORE_SKIP_OFF = 0, CORE_SKIP_LOCAL = 1, CORE_SKIP_GLOBAL = 2 };
@@ -75,13 +86,16 @@ struct ScatterParams {
   MuellerTable mueller;  // DUST_MUELLER
   int rounds, stokes, core_skip, dust, reduced_wgt, nxfreq;
   int n[3];
-  float a, E1, E2, E3;
+  float a;
   float xcrit, xcrit2;   // CORE_SKIP_GLOBAL
   float rk_const;        // > 0: the uniform sphere's rhokap, else gather
   float rkD_const;       //   and its rhokapD
   float albedo, one_m_albedo, hgg;
   float xfreq_min, dxfreq;
   float amin[3], d[3];
+  float Dfreq;           // Doppler width of every cell (uniform temperature)
+  int recoil;
+  LineC line;
 };
 
 __device__ inline int scatter_cell(const ScatterParams& p, const Lanes& s, int i) {
@@ -288,6 +302,7 @@ __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelReco
   return EVENT_DUST;
 }
 
+template <bool kMulti>
 __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed,
                                    uint32_t counter, ScatterParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -307,7 +322,7 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         rk = p.rhokap[f];
         kD = p.rhokapD[f];
       }
-      const float kap_HI = rk * voigt_h(xfreq, p.a);
+      const float kap_HI = rk * line_profile<kMulti>(p.line, xfreq, p.a, p.Dfreq);
       is_dust = d[0] <= kD / fmaxf(kap_HI + kD, LART_TINY);
     }
     float u[4];
@@ -319,27 +334,23 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
       const float phi = LART_TWOPI * u[1];
       kind = dust_event(p, s, rec, i, seed, counter, d, cosf(phi), sinf(phi), t[0]);
     } else {
-      const VzEnv env = vz_envelope(xfreq, p.a);
-      float uz = 0.0f;
-      bool acc = false;
-      for (int r = 0; r < rounds && !acc; ++r) {
-        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)r, u);
-        acc = vz_round(u, env, &uz);
-      }
+      const Redist r = redistribute<kMulti>(p.line, xfreq, p.a, p.Dfreq, seed, counter, i,
+                                            rounds, 3 * rounds + 4);
+      bool acc = r.acc;
       if (acc) {
         uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, u);
-        const float cost = rand_resonance_cost(u[0], p.E1);
+        const float cost = rand_resonance_cost(u[0], r.E1);
         const float cost2 = cost * cost;
         const float sint = sqrtf(fmaxf(1.0f - cost2, 0.0f));
         float phi = LART_TWOPI * u[1];
         float S11 = 0.0f, S12 = 0.0f, S22 = 0.0f, S33 = 0.0f, S44 = 0.0f;
         if (p.stokes) {
           // the line's scattering matrix (engine.py:2165-2190)
-          S22 = 0.75f * p.E1 * (cost2 + 1.0f);
-          S11 = S22 + p.E2;
-          S12 = 0.75f * p.E1 * (cost2 - 1.0f);
-          S33 = 1.5f * p.E1 * cost;
-          S44 = 1.5f * p.E3 * cost;
+          S22 = 0.75f * r.E1 * (cost2 + 1.0f);
+          S11 = S22 + r.E2;
+          S12 = 0.75f * r.E1 * (cost2 - 1.0f);
+          S33 = 1.5f * r.E1 * cost;
+          S44 = 1.5f * r.E3 * cost;
           acc = azimuth_rounds(s, i, seed, counter, rounds + 2, rounds,
                                S12 / fmaxf(S11, LART_TINY), phi);
         }
@@ -347,15 +358,21 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
           const float cosp = cosf(phi), sinp = sinf(phi);
           const float phi2 = LART_TWOPI * u[2];
           const float uxy = sqrtf(core_boost(p, s, i, xfreq) - logf(u[3]));
-          const float ux = uxy * cosf(phi2), uy = uxy * sinf(phi2);
-          const float xfreq_atom = xfreq - uz;
-          const float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
+          const float ux = uxy * cosf(phi2) * r.perp, uy = uxy * sinf(phi2) * r.perp;
+          const float uz = r.uz, xfreq_atom = r.xatom;
+          float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
+          if (p.recoil) xfreq_new = xfreq_new - (r.g0 / p.Dfreq) * (1.0f - cost);
           if (rec.flag) {
             write_record_dir(rec, s, i, p.stokes);
             rec.xatom[i] = xfreq_atom;
             rec.ux[i] = ux;
             rec.uy[i] = uy;
             rec.uz[i] = uz;
+            if (kMulti && p.line.per_lane_E) {
+              rec.E1[i] = r.E1;
+              rec.E2[i] = r.E2;
+              rec.E3[i] = r.E3;
+            }
           }
           if (p.stokes) {
             stokes_turn(s, i, cost, sint, cosp, sinp, S11, S12, S22, S33, S44);
@@ -389,8 +406,13 @@ LART_API int lart_scatter_lya(void* const* lanes, void* const* record, int B, un
                               unsigned counter, const ScatterParams* p, void* stream) {
   if (B > 0) {
     const int threads = 256;
-    scatter_lya_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), unpack_record(record), B, seed, counter, *p);
+    const int blocks = (B + threads - 1) / threads;
+    if (p->line.line_type == 1)
+      scatter_lya_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), unpack_record(record), B, seed, counter, *p);
+    else
+      scatter_lya_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          unpack_lanes(lanes), unpack_record(record), B, seed, counter, *p);
   }
   return (int)cudaGetLastError();
 }

@@ -14,10 +14,12 @@ __device__ inline int flat_index(const FlightParams& p, int i, int j, int k) {
   return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
 }
 
-// opacity of flat cell f at comoving frequency xf: rhokap H(x, a) plus the
-// dust's rhokapD (engine.py:1111-1121 total_opacity)
+// opacity of flat cell f at comoving frequency xf: rhokap times the line's
+// profile (line.cuh) plus the dust's rhokapD (engine.py:1111-1121
+// total_opacity)
+template <bool kMulti>
 __device__ inline float cell_opacity(const FlightParams& p, int f, float xf) {
-  float rho = p.rhokap[f] * voigt_h(xf, p.a_ref);
+  float rho = p.rhokap[f] * line_profile<kMulti>(p.line, xf, p.a_ref, p.Dfreq);
   if (p.rhokapD) rho = rho + p.rhokapD[f];
   return rho;
 }

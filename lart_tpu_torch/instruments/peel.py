@@ -4,13 +4,17 @@ Counterpart of make_peel's peel_direct, peel_resonance and peel_dust
 (lart_tpu/instruments/peel.py:62, :446-654) with their sightline optical
 depth: the lockstep DDA tau_to_edge_cart (:176-356) on a Cartesian grid,
 or the chord through the uniform sphere (:367-382) where the sphere fast
-path applies; the opacity of a cell is rhokap H(x, a) plus the dust's
-rhokapD (:232-233).  At a photon's birth (direct) and at each resonance or
+path applies; the opacity of a cell is rhokap times the line's profile
+(physics/line.py) plus the dust's rhokapD (:232-233).  lart_tpu's chord
+evaluates the profile with Python floats, so its offsets and damping
+parameters are f64 quotients rounded once (line_prof_f64), where the walk's
+are f32 quotients.  At a photon's birth (direct) and at each resonance or
 dust scattering, every observer receives the lane's weight times the
 escape probability exp(-tau) along the sightline from the event to the
 grid's edge, over 4 pi r^2, times (at a scattering) the phase function
-toward the observer; the deposit goes into (nobs, nxfreq, nxim, nyim)
-spectral image cubes at the TAN pixel of the sightline and the
+toward the observer (the dipole phase of the event's E1, E2, E3, per
+event for line types 2, 4, 5 and 6); the deposit goes into (nobs, nxfreq,
+nxim, nyim) spectral image cubes at the TAN pixel of the sightline and the
 lab-frequency bin of the peeled frequency.  With use_stokes a scattering
 also deposits the detector-frame Stokes I, Q, U, V from the lane's Stokes
 vector and reference triad (peeling_resonance_stokes_outside).  A dust
@@ -18,7 +22,10 @@ scattering peels at the lane's own (comoving) frequency with the
 Henyey-Greenstein phase (1 - g^2) / (1 + g^2 - 2 g cos)^1.5 / 4 pi, or with
 use_stokes through the Mueller table: S11..S34 at the angle to the
 observer, the Stokes vector into the scattering plane and then into the
-detector frame (peeling_dust_[no]stokes_outside, :577-654).
+detector frame (peeling_dust_[no]stokes_outside, :577-654).  With recoil
+a resonance peels at xfreq - (g_recoil0 / D)(1 - cos theta) (:513-514):
+lart_tpu takes the hydrogen constant g_recoil0 for every event, a
+deuterium scattering of line type 7 too, and so does the port.
 
 The lanes come from a PeelRecord that the cycle's kernels fill right
 before: K2 refill flags the lanes it launched (the direct peel reads their
@@ -49,8 +56,8 @@ from typing import Optional
 import torch
 
 from ..kernels import build as kbuild
+from ..physics import line as pline
 from ..physics import mueller as pmueller
-from ..physics.voigt import voigt_plain
 from ..transport.flight import BIG, FlightConsts, div, fma
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
@@ -70,7 +77,7 @@ SCATTERED = RESONANCE | DUST
 # order of the record's pointer table (csrc/lart.cuh unpack_record)
 PEEL_RECORD_FIELDS = ('flag', 'kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx',
                       'nny', 'nnz', 'Q', 'U', 'V', 'xatom', 'ux', 'uy',
-                      'uz')
+                      'uz', 'E1', 'E2', 'E3')
 CUBE_FIELDS = ('scatt', 'direc', 'I', 'Q', 'U', 'V')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -96,6 +103,9 @@ class PeelRecord:
     ux: torch.Tensor
     uy: torch.Tensor
     uz: torch.Tensor
+    E1: torch.Tensor    # a resonance's phase weights, line types 2, 4-6
+    E2: torch.Tensor
+    E3: torch.Tensor
 
     @classmethod
     def zeros(cls, batch: int, device) -> 'PeelRecord':
@@ -136,15 +146,16 @@ class PeelParams(ctypes.Structure):
                 ('nobs', _I), ('nxim', _I), ('nyim', _I), ('nxfreq', _I),
                 ('max_steps', _I), ('chord', _I), ('stokes', _I),
                 ('lab_source', _I), ('dust', _I), ('dxim', _F), ('dyim', _F),
-                ('E1', _F), ('E2', _F), ('E3', _F), ('hg_num', _F),
+                ('hg_num', _F),
                 ('hg_1pg2', _F), ('hg_2g', _F),
-                ('mueller', pmueller.MuellerC)]
+                ('mueller', pmueller.MuellerC), ('recoil', _I),
+                ('chord_prof', pline.LineProfC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Peel:
     """The constants of K7 for one config: the grid it walks (the flights'
-    FlightConsts), the observers, and the line's phase weights."""
+    FlightConsts, with the line's constants), and the observers."""
     grid: FlightConsts
     obs_meta: object             # observer.ObserverSetMeta
     pos: torch.Tensor            # (nobs, 3) f32
@@ -153,12 +164,11 @@ class Peel:
     stokes: bool
     lab_source: bool             # moving medium, comoving_source false
     max_steps: int
-    E1: float
-    E2: float
-    E3: float
     dust: int = DUST_OFF
     hgg: float = 0.0             # Henyey-Greenstein g of the dust peel
     mueller: Optional[pmueller.MuellerTable] = None   # DUST_MUELLER
+    recoil: bool = False
+    chord_prof: Optional[pline.LineProf] = None   # the chord's profile
 
     @classmethod
     def from_config(cls, cfg, meta, grid, uniform_sphere: bool
@@ -171,7 +181,6 @@ class Peel:
             return None
         obs_meta, odev = obs
         fc = FlightConsts.from_config(cfg, meta, grid)
-        line = cfg.line
         dust = dust_mode(cfg, meta)
         return cls(grid=fc, obs_meta=obs_meta,
                    pos=odev.pos.contiguous(),
@@ -180,10 +189,12 @@ class Peel:
                    stokes=bool(cfg.par.use_stokes),
                    lab_source=not cfg.par.comoving_source and fc.moving,
                    max_steps=2 * (meta.nx + meta.ny + meta.nz) + 8,
-                   E1=float(line.E1), E2=float(line.E2), E3=float(line.E3),
                    dust=dust, hgg=float(cfg.par.hgg),
                    mueller=pmueller.MuellerTable.for_config(
-                       cfg, grid.rhokap.device) if dust else None)
+                       cfg, grid.rhokap.device) if dust else None,
+                   recoil=bool(cfg.par.recoil),
+                   chord_prof=pline.line_prof_f64(
+                       cfg.line, meta.voigt_a_ref, meta.Dfreq_ref))
 
     @property
     def scatter_mode(self) -> int:
@@ -222,12 +233,13 @@ class Peel:
         c.chord, c.stokes = int(self.chord), int(self.stokes)
         c.lab_source, c.dust = int(self.lab_source), self.dust
         c.dxim, c.dyim = o.dxim, o.dyim
-        c.E1, c.E2, c.E3 = self.E1, self.E2, self.E3
         # the HG constants in f64, then f32, as lart_tpu's weak types
         g = self.hgg
         c.hg_num, c.hg_1pg2, c.hg_2g = 1.0 - g * g, 1.0 + g * g, 2.0 * g
         if self.mueller is not None:
             c.mueller = self.mueller.c_struct
+        c.recoil = int(self.recoil)
+        c.chord_prof = self.chord_prof.c_struct
         return c
 
     def c_params(self, cubes: PeelCubes, pair_out=None) -> PeelParams:
@@ -286,7 +298,8 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
     the cells walked in its 'visited' mask."""
     g = p.grid
     if p.chord:
-        rho = g.sphere_rho * voigt_plain(xf, g.a_ref) + g.sphere_rhoD
+        rho = (g.sphere_rho * pline.line_profile_q(g.line, p.chord_prof, xf)
+               + g.sphere_rhoD)
         t_in, t_out = sphere_chord(g, *pos, *k)
         return torch.where(active, (t_out - t_in) * rho,
                            torch.zeros_like(xf))
@@ -382,6 +395,10 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
     if kind == DUST:
         return s.xfreq, cost, cosp, sinp
     xf = rec.xatom + (rec.ux * cosp + rec.uy * sinp) * sint + rec.uz * cost
+    if p.recoil:
+        # the hydrogen constant for every event, as lart_tpu's peel
+        xf = xf - pline.div32(p.grid.line.g_recoil0, p.grid.Dfreq) \
+            * (1.0 - cost)
     return xf, cost, cosp, sinp
 
 
@@ -404,9 +421,12 @@ def scatter_deposits(p: Peel, kind: int, o: int, rec: PeelRecord, cost,
     """The deposits of a scattering toward observer o, by cube: scatt, and
     with Stokes I, Q, U, V (peel.py:526-561 resonance, :600-648 dust)."""
     cost2 = cost * cost
+    lc = p.grid.line
+    E1, E2, E3 = (rec.E1, rec.E2, rec.E3) if lc.per_lane_E \
+        else (lc.E1s, lc.E2s, lc.E3s)
     if not p.stokes:
         if kind == RESONANCE:
-            phase = 0.75 * p.E1 * (cost2 + 1.0) + p.E2
+            phase = 0.75 * E1 * (cost2 + 1.0) + E2
             return {'scatt': phase / (FOURPI * r2) * atten * wgt}
         g = p.hgg
         den = torch.pow(1.0 + g * g - 2.0 * g * cost, 1.5)
@@ -417,11 +437,11 @@ def scatter_deposits(p: Peel, kind: int, o: int, rec: PeelRecord, cost,
     Q0 = cos2p * rec.Q + sin2p * rec.U
     U0 = -sin2p * rec.Q + cos2p * rec.U
     if kind == RESONANCE:
-        S22 = 0.75 * p.E1 * (cost2 + 1.0)
-        S11 = S22 + p.E2
-        S12 = 0.75 * p.E1 * (cost2 - 1.0)
-        S33 = 1.5 * p.E1 * cost
-        S44 = 1.5 * p.E3 * cost
+        S22 = 0.75 * E1 * (cost2 + 1.0)
+        S11 = S22 + E2
+        S12 = 0.75 * E1 * (cost2 - 1.0)
+        S33 = 1.5 * E1 * cost
+        S44 = 1.5 * E3 * cost
         Iobs = div(S11 + S12 * Q0, FOURPI)
         Qobs = div(S12 + S22 * Q0, FOURPI)
         Uobs = div(S33 * U0, FOURPI)

@@ -32,14 +32,12 @@ from pathlib import Path
 
 import torch
 
-from ..transport.flight import FlightParams
-
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
 SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
            'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu')
 HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
-           'mueller.cuh')
+           'mueller.cuh', 'line.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
@@ -49,18 +47,10 @@ LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'fly_uniform_slab': 0,
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LANES = ctypes.POINTER(ctypes.c_void_p)    # the lane-field pointer table
-_FLIGHT = ctypes.POINTER(FlightParams)      # K5/K6/K7 grid, by pointer
 _ARGTYPES = {
     'lart_voigt_h': [_P, _P, _P, _I, _P],
-    'lart_refill_point': [_LANES, _LANES, _I, _P, _I, _U, _U, _F, _F, _F, _I, _I,
-                          _I, _F, _I, _F, _F, _F, _F, _F, _I, _F, _F, _I, _P,
-                          _P],
-    'lart_fly_uniform_slab': [_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _F,
-                              _F, _F, _F, _I, _I, _I, _F, _F, _I, _P, _P, _P,
-                              _P],
-    'lart_fly_cartesian': [_LANES, _I, _I, _FLIGHT, _P],
-    'lart_fly_uniform_sphere': [_LANES, _I, _I, _FLIGHT, _P],
     'lart_flight_params_size': [],
+    'lart_line_params_size': [],
     'lart_peel_params_size': [],
     'lart_scatter_params_size': [],
 }
@@ -135,13 +125,27 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     if _lib is None:
-        # instruments.peel and transport.scatter import this module: their
-        # structs come in here
+        # the modules of the kernels import this one: their structs come
+        # in here
         from ..instruments.peel import PeelParams
+        from ..physics.line import LineC
+        from ..transport.flight import FlightParams
         from ..transport.scatter import ScatterC
         lib = ctypes.CDLL(str(build()))
-        argtypes_of = dict(_ARGTYPES, lart_peel=[
-            _LANES, _LANES, _I, _I, _FLIGHT, ctypes.POINTER(PeelParams), _P],
+        flight = ctypes.POINTER(FlightParams)    # K5/K6/K7 grid, by pointer
+        line = ctypes.POINTER(LineC)
+        argtypes_of = dict(
+            _ARGTYPES,
+            lart_refill_point=[_LANES, _LANES, _I, _P, _I, _U, _U, _F, _F, _F,
+                               _I, _I, _I, _F, _I, _F, _F, _F, _F, _F, _I, _F,
+                               _F, _I, _P, _F, _F, line, _P],
+            lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
+                                   _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
+                                   _P, _P, _P, _F, line, _P],
+            lart_fly_cartesian=[_LANES, _I, _I, flight, _P],
+            lart_fly_uniform_sphere=[_LANES, _I, _I, flight, _P],
+            lart_peel=[_LANES, _LANES, _I, _I, flight,
+                       ctypes.POINTER(PeelParams), _P],
             lart_scatter_lya=[_LANES, _LANES, _I, _U, _U,
                               ctypes.POINTER(ScatterC), _P])
         for name, argtypes in argtypes_of.items():
@@ -149,6 +153,8 @@ def library() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         for fn, struct, where in (
+                (lib.lart_line_params_size, LineC,
+                 'csrc/line.cuh and physics/line.py'),
                 (lib.lart_flight_params_size, FlightParams,
                  'csrc/lart.cuh and transport/flight.py'),
                 (lib.lart_peel_params_size, PeelParams,

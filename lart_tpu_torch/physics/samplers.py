@@ -141,9 +141,24 @@ def cbrt(v: torch.Tensor) -> torch.Tensor:
     return torch.pow(v, 1.0 / 3.0)
 
 
-def rand_resonance_cost(xi: torch.Tensor, E1: float) -> torch.Tensor:
-    """Direct inversion of P(mu) = (3/8) E1 mu^2 + (4 - E1)/8, scalar E1."""
+def rand_resonance_cost(xi: torch.Tensor, E1) -> torch.Tensor:
+    """Direct inversion of P(mu) = (3/8) E1 mu^2 + (4 - E1)/8, E1 a float
+    or a per-lane tensor (the kernels' rand_resonance_cost, lane by lane;
+    the division by 3 of a negative E1's root exact, as the kernels')."""
     xi = torch.as_tensor(xi, dtype=torch.float32)
+    if isinstance(E1, torch.Tensor):
+        iso = torch.abs(E1) < 1e-12
+        E1s = torch.where(iso, torch.ones_like(E1), E1)
+        p2 = torch.sqrt(torch.abs((4.0 - E1s) / (3.0 * E1s)))
+        Q = (4.0 * xi - 2.0) / (E1s * (p2 * (p2 * p2)))
+        W = cbrt(Q + torch.sqrt(Q * Q + 1.0))
+        Qc = torch.clamp(Q, -1.0, 1.0)
+        three = torch.full((), 3.0, device=xi.device)
+        cost_neg = 2.0 * p2 * torch.cos((torch.acos(Qc) + 4.0 * PI) / three)
+        cost = torch.where(iso, 2.0 * xi - 1.0,
+                           torch.where(E1 > 0.0, p2 * (W - 1.0 / W),
+                                       cost_neg))
+        return torch.clamp(cost, -1.0, 1.0)
     E1 = float(E1)
     if abs(E1) < 1e-12:
         return torch.clamp(2.0 * xi - 1.0, -1.0, 1.0)

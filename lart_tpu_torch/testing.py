@@ -97,6 +97,68 @@ def dust_params(N_HI: float = 3.4e14, DGR: float = 1.8e6, n: int = 17,
     return Params(**base)
 
 
+# The metal-line cases of the tests and chip_smoke.py: (line_id, the
+# namelist keys of its frequency axis and source), each the line of one
+# committed example (or, for the doublet, of its catalog family) with that
+# example's axis: MgII_2796 over 2790-2810 A (line type 2; no committed
+# doublet example runs without a 3-D density file), SiII_1527 with its
+# continuum (type 4, examples/SiII_1527), SiII_1193 with its continuum and
+# recoil (type 5, examples/SiII_1193), He I 10833 with and without
+# HeI_coherent (type 6, examples/HeI_sphere, HeI_coherent_test) and H + D
+# Ly-alpha with D/H 3e-5 and a monochromatic source (type 7,
+# examples/lya_HD).
+LINE_CASES = {
+    'doublet': ('MgII_2796', dict(wavelength_min=2790.0,
+                                  wavelength_max=2810.0, nwavelength=200)),
+    'fluorescent': ('SiII_1527', dict(wavelength_min=1516.0,
+                                      wavelength_max=1546.0, nwavelength=300,
+                                      spectral_type='continuum')),
+    'multiplet': ('SiII_1193', dict(wavelength_min=1188.0,
+                                    wavelength_max=1200.0, nwavelength=240,
+                                    spectral_type='continuum', recoil=True)),
+    'helium': ('HeI_10833', dict(nvelocity=201, velocity_min=-120.0,
+                                 velocity_max=60.0)),
+    'helium_coherent': ('HeI_10833', dict(nvelocity=201, velocity_min=-120.0,
+                                          velocity_max=60.0,
+                                          HeI_coherent=True)),
+    'hd': ('ly_alpha_HD', dict(D_to_H_ratio=3e-5, xfreq_min=-16.0,
+                               xfreq_max=16.0, nxfreq=201,
+                               spectral_type='monochromatic')),
+}
+
+
+def line_params(case: str, tau0: float = 10.0, n: int = 17,
+                nphotons: int = 2000, batch: int = 2048, **kw) -> Params:
+    """A uniform static sphere (sphere_params: R = 1 in an n^3 box, a
+    central point source, T = 1e4 K) of the metal line of LINE_CASES[case],
+    with that case's frequency axis and spectrum (a Voigt one where the case
+    names none)."""
+    line_id, extra = LINE_CASES[case]
+    base = dict(line_id=line_id, save_Jmu=False, **extra)
+    base.update(kw)
+    return sphere_params(tau0=tau0, n=n, nphotons=nphotons, batch=batch,
+                         **base)
+
+
+def line_state(meta, batch: int, seed: int, offsets, width: float = 4.0,
+               device='cpu') -> BatchState:
+    """mixed_state's lanes, all at a scattering inside the unit ball, with
+    xfreq drawn around the line's components: a normal of sigma `width`
+    about one of `offsets` (Doppler units) picked at random per lane, 10%
+    of the lanes uniform in the far wing (|x| < 300)."""
+    rng = np.random.default_rng([seed, 3])
+    s = mixed_state(meta, batch, seed, device, phases=(AT_SCATTER,),
+                    r_max=0.9)
+    off = np.asarray(offsets, np.float64)[rng.integers(0, len(offsets),
+                                                       batch)]
+    x = np.where(rng.random(batch) < 0.9,
+                 off + rng.normal(0.0, width, batch),
+                 rng.uniform(-300.0, 300.0, batch))
+    s.xfreq.copy_(torch.as_tensor(x, dtype=torch.float32))
+    s.wgt.fill_(1.0)
+    return s
+
+
 def peel_params(par: Params, stokes: bool = True, nim: int = 33,
                 **kw) -> Params:
     """par with peel-off at test size: two external observers at distance
@@ -107,11 +169,14 @@ def peel_params(par: Params, stokes: bool = True, nim: int = 33,
                                alpha=(0.0, 30.0), beta=(0.0, 60.0), **kw)
 
 
-def peel_record(state: BatchState, seed: int):
+def peel_record(state: BatchState, seed: int, line=None):
     """A PeelRecord that flags every lane of `state` with a resonance
     event: the lane's direction, triad and Stokes vector (before the turn),
     xfreq_atom = xfreq - u_par and a thermal atom velocity (u_par, ux, uy)
-    drawn with numpy from `seed`."""
+    drawn with numpy from `seed`; for a line whose phase weights differ
+    from event to event (physics.line.LineConsts `line`, types 2, 4-6),
+    each lane's E1, E2, E3 of a branch of the line picked at random (the
+    doublet's E1 uniform in [0, 1], as its formula spans)."""
     from .instruments.peel import PeelRecord
     rng = np.random.default_rng(seed)
     B, dev = state.batch, state.device
@@ -126,6 +191,18 @@ def peel_record(state: BatchState, seed: int):
     for f, v in zip(('ux', 'uy', 'uz'), u):
         getattr(rec, f).copy_(torch.as_tensor(v, dtype=torch.float32,
                                               device=dev))
+    if line is not None and line.per_lane_E:
+        if line.line_type == 2:
+            E1 = rng.random(B)
+            E = (E1, 1.0 - E1, (E1 + 2.0) / 3.0)
+        else:
+            table = np.array([[v[i][j] for v in (line.E1, line.E2, line.E3)]
+                              for i in range(3) for j in range(
+                                  line.ndown[i])])
+            E = table[rng.integers(0, len(table), B)].T
+        for f, v in zip(('E1', 'E2', 'E3'), E):
+            getattr(rec, f).copy_(torch.as_tensor(v, dtype=torch.float32,
+                                                  device=dev))
     return rec
 
 

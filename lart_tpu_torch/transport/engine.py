@@ -28,10 +28,11 @@ import dataclasses
 from typing import Callable, Optional
 
 from ..instruments.peel import DIRECT, Peel, PeelRecord, peel
+from ..physics.line import LINE_TYPES
 from .fly_cartesian import CartesianFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
-from .refill import RefillParams, refill
+from .refill import SPECTRA, RefillParams, refill
 from .scatter import ScatterParams, scatter
 from .state import DEAD, BatchState, zero_tallies
 
@@ -85,7 +86,9 @@ def check_supported(cfg, meta=None) -> None:
     missing = [name for name, on in (
         ('use_amr_grid (AMR backend)', par.use_amr_grid),
         ('use_clump_medium (clump backend)', par.use_clump_medium),
-        (f'line_type {cfg.line.line_type} (only 1)', cfg.line.line_type != 1),
+        (f'line_type {cfg.line.line_type} (only 1, 2 and 4-7; line type 8 '
+         f'is Lyman-beta with its H-alpha band)',
+         cfg.line.line_type not in LINE_TYPES),
         ('h2_model', par.h2_model.strip().lower() not in ('', 'none')),
         ('peel-off observers inside the grid (nside > 0, HEALPix)',
          par.save_peeloff and par.nside > 0),
@@ -94,7 +97,6 @@ def check_supported(cfg, meta=None) -> None:
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
-        ('recoil', par.recoil),
         ('non-uniform temperature (temp_file)',
          bool((par.temp_file or par.temperature_file).strip())),
         ('3-D density file', _grid_file(par.dens_file or par.density_file)),
@@ -110,9 +112,8 @@ def check_supported(cfg, meta=None) -> None:
         ('profile_dir', bool(par.profile_dir.strip())),
         ('source_geometry other than point',
          par.source_geometry.strip().lower() not in ('point', '')),
-        ('spectral_type other than voigt/monochromatic/gaussian',
-         par.spectral_type.strip().lower() not in (
-             'voigt', 'monochromatic', 'gaussian'))) if on]
+        ('spectral_type other than voigt/monochromatic/gaussian/continuum',
+         par.spectral_type.strip().lower() not in SPECTRA)) if on]
     if meta is not None:
         missing += [name for name, on in (
             ('non-Cartesian grid', meta.grid_type != 'cartesian'),

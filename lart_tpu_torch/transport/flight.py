@@ -1,6 +1,8 @@
 """What the flights share: the escape tally of the plain versions, and the
 constants of the two 3-D Cartesian flights (kernels K5 fly_cartesian and
-K6 fly_uniform_sphere) with their C layout.
+K6 fly_uniform_sphere) with their C layout, the line's constants
+(physics/line.py) among them: a cell's opacity is rhokap times the line's
+profile.
 
 `FlightConsts` carries every constant of lart_tpu's make_fly (engine.py:
 1067-1140) and make_fly_uniform_sphere (:887-908) that the ported paths
@@ -29,6 +31,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..physics import line as pline
+
 BIG = 3.0e38
 TINY = 1e-30
 FFS_TAU_CAP = 25.0    # 1 - exp(-25) == 1 in f32
@@ -49,7 +53,7 @@ class FlightParams(ctypes.Structure):
                 ('d', _F * 3), ('a_ref', _F), ('Dfreq', _F),
                 ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
                 ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
-                ('sphere_rhoD', _F)]
+                ('sphere_rhoD', _F), ('line', pline.LineC)]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -121,6 +125,7 @@ class FlightConsts:
     rhokap: torch.Tensor     # flat (nx*ny*nz,) f32, C order
     vel: Optional[tuple]     # flat (vfx, vfy, vfz); None in a static medium
     rhokapD: Optional[torch.Tensor] = None   # flat dust opacity, or None
+    line: Optional[pline.LineConsts] = None  # the line's opacity profile
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -148,7 +153,8 @@ class FlightConsts:
             sphere_rho=meta.sphere_rho, sphere_rhoD=meta.sphere_rhoD,
             rhokap=grid.rhokap.reshape(-1).contiguous(), vel=vel,
             rhokapD=None if grid.rhokapD is None
-            else grid.rhokapD.reshape(-1).contiguous())
+            else grid.rhokapD.reshape(-1).contiguous(),
+            line=pline.LineConsts.from_config(cfg))
 
     @property
     def moving(self) -> bool:
@@ -160,12 +166,15 @@ class FlightConsts:
         f = (i.long() * ny + j) * nz + k
         return torch.clamp(f, 0, nx * ny * nz - 1)
 
+    def profile(self, xfreq) -> torch.Tensor:
+        """The line's opacity profile H_eff(x) at a_ref and Dfreq."""
+        return pline.line_profile_plain(self.line, xfreq, self.a_ref,
+                                        self.Dfreq)
+
     def opacity(self, flat, xfreq) -> torch.Tensor:
-        """rhokap H(x, a_ref) + rhokapD of the flat cells `flat` at the
+        """rhokap H_eff(x) + rhokapD of the flat cells `flat` at the
         comoving frequencies xfreq (engine.py:1111-1121 total_opacity)."""
-        # (kernels.build, which physics.voigt imports, imports this module)
-        from ..physics.voigt import voigt_plain
-        rho = self.rhokap[flat] * voigt_plain(xfreq, self.a_ref)
+        rho = self.rhokap[flat] * self.profile(xfreq)
         if self.rhokapD is not None:
             rho = rho + self.rhokapD[flat]
         return rho
@@ -198,6 +207,7 @@ class FlightConsts:
         for f in ('a_ref', 'Dfreq', 'xfreq_min', 'dxfreq', 'mu_min', 'dmu',
                   'sphere_R2', 'sphere_rho', 'sphere_rhoD'):
             setattr(c, f, getattr(self, f))
+        c.line = self.line.c_struct
         return c
 
     @property

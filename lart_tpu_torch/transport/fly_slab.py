@@ -1,7 +1,8 @@
 """Closed-form flight through a uniform static slab (kernel K3).
 
 Counterpart of make_fly_uniform_slab / fly (lart_tpu/transport/engine.py:
-671, :699).  The medium is one constant opacity rho0 * H(x, a), periodic in
+671, :699).  The medium is one constant opacity rho0 * H_eff(x), H_eff the
+line's profile (physics/line.py: H(x, a) for line type 1), periodic in
 x and y, escaping through the z faces, so one step resolves a whole
 flight: the lane reaches its tau target (AT_SCATTER) or leaves through a z
 face (escape: Jout, Jmu).  A forced first scattering (FFS) flies the birth
@@ -14,12 +15,13 @@ drains.  The flight draws no random numbers.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
 from ..kernels import build as kbuild
-from ..physics.voigt import voigt_plain
+from ..physics import line as pline
 from .flight import BIG, FFS_TAU_CAP, TINY, div, floor_bin, tally_plain
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
 
@@ -44,6 +46,8 @@ class SlabParams:
     mu_min: float
     dmu: float
     mu_abs: bool         # xyz_symmetry bins |kz|
+    Dfreq: float         # Doppler width (Hz)
+    line: pline.LineConsts
 
     @classmethod
     def from_config(cls, cfg, meta) -> 'SlabParams':
@@ -57,7 +61,8 @@ class SlabParams:
                    nxfreq=meta.nxfreq, save_Jmu=bool(par.save_Jmu),
                    nmu=par.nmu, mu_min=mu_min,
                    dmu=(1.0 - mu_min) / par.nmu,
-                   mu_abs=bool(par.xyz_symmetry))
+                   mu_abs=bool(par.xyz_symmetry), Dfreq=meta.Dfreq_ref,
+                   line=pline.LineConsts.from_config(cfg))
 
     def __call__(self, state: BatchState, tallies: Tallies,
                  max_steps: int) -> None:
@@ -74,7 +79,8 @@ def fly_plain(state: BatchState, tallies: Tallies, p: SlabParams,
         moving = (s.phase == FLYING) | is_ffs
         if not bool(moving.any()):
             break       # the remaining iterations would change nothing
-        rho = p.rho0 * voigt_plain(s.xfreq, p.a_ref)
+        rho = p.rho0 * pline.line_profile_plain(p.line, s.xfreq, p.a_ref,
+                                                p.Dfreq)
 
         zsel = torch.where(s.kz > 0.0, p.zmx, p.zmn).to(torch.float32)
         flat = torch.abs(s.kz) < 1e-12
@@ -148,6 +154,7 @@ def fly(state: BatchState, tallies: Tallies, p: SlabParams,
         p.ymn, p.Lx, p.Ly, p.dz, p.nz, p.a_ref, p.rho0, p.xfreq_min,
         p.dxfreq, p.nxfreq, int(p.save_Jmu), p.nmu, p.mu_min, p.dmu,
         int(p.mu_abs), tallies.Jout.data_ptr(), tallies.Jmu.data_ptr(),
-        tallies.W_oor.data_ptr(), kbuild.stream_of(state.x)),
+        tallies.W_oor.data_ptr(), p.Dfreq, ctypes.byref(p.line.c_struct),
+        kbuild.stream_of(state.x)),
         'fly_uniform_slab')
     kbuild.LAUNCHES['fly_uniform_slab'] += 1

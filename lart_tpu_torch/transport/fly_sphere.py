@@ -2,7 +2,8 @@
 
 Counterpart of sphere_chord / make_fly_uniform_sphere / fly
 (lart_tpu/transport/engine.py:871, :887, :910).  The opacity along a ray is
-sphere_rho * H(x, a) + sphere_rhoD on the chord [t_in, t_out] through
+sphere_rho * H_eff(x) + sphere_rhoD (H_eff the line's profile,
+physics/line.py) on the chord [t_in, t_out] through
 r < R and zero in the vacuum corners of the box, so one step resolves a
 whole flight: the lane scatters at t_in + (tau_target - tau_run) / rho
 (AT_SCATTER) or escapes (Jout, Jmu).  The scatter point's cell is the
@@ -20,7 +21,6 @@ import dataclasses
 import torch
 
 from ..kernels import build as kbuild
-from ..physics.voigt import voigt_plain
 from .flight import (FFS_TAU_CAP, TINY, FlightConsts, div, floor_bin, fma,
                      tally_plain)
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
@@ -51,7 +51,7 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
         moving = (s.phase == FLYING) | is_ffs
         if not bool(moving.any()):
             break       # the remaining iterations would change nothing
-        rho = p.sphere_rho * voigt_plain(s.xfreq, p.a_ref) + p.sphere_rhoD
+        rho = p.sphere_rho * p.profile(s.xfreq) + p.sphere_rhoD
         t_in, t_out = sphere_chord(p, s.x, s.y, s.z, s.kx, s.ky, s.kz)
         dtau_avail = (t_out - t_in) * rho
         tgt = torch.where(is_ffs, torch.full_like(s.tau_target, FFS_TAU_CAP),

@@ -2,11 +2,16 @@
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
 :2689) for a point source (source_geometry 'point' or '') with a Voigt,
-monochromatic or Gaussian input spectrum in a uniform-temperature medium,
-static or moving.  The Gaussian (engine.py:2799-2803) is
-xfreq0 + N(0, 1) sigma / vtherm, sigma = gaussian_FWHM_vel / 2.35482 where
-that is set, else gaussian_sigma_vel; the normal comes by Box-Muller from
-block 2 of the lane's uniforms, which no other spectrum reads.  lart_tpu
+monochromatic, Gaussian or flat continuum input spectrum in a
+uniform-temperature medium, static or moving.  A line of type 2, 4, 5 or 6
+starts from xfreq0 shifted to a branch (branch_init_shift, engine.py:
+2919-2970; physics/line.py) by the two uniforms of block 3; the continuum
+(engine.py:2804-2807) replaces the frequency, that shift included, by
+xfreq_min + u (xfreq_max - xfreq_min), u the first uniform of block 2.
+The Gaussian (engine.py:2799-2803) is xfreq0 + N(0, 1) sigma / vtherm,
+sigma = gaussian_FWHM_vel / 2.35482 where that is set, else
+gaussian_sigma_vel; the normal comes by Box-Muller from block 2 of the
+lane's uniforms, which only the continuum also reads.  lart_tpu
 divides it by D_loc / Dfreq_ref, the source cell's Doppler width over the
 reference one, which is exactly 1 at uniform temperature.  A launched lane gets the source position, an isotropic direction,
 its birth frequency, the forced-first-scattering phase FFS with its xi
@@ -31,20 +36,22 @@ newborn photons (kernel K7, engine.py:2909-2913) runs on exactly those.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..kernels import build as kbuild
+from ..physics import line as pline
 from ..physics.rng import STREAM_REFILL, uniforms
 from ..physics.samplers import TWOPI, box_muller, rand_voigt_x
 from .flight import div
 from .state import DEAD, FFS, BatchState, Tallies
 
-SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS = 0, 1, 2
+SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS, SPECTRUM_CONT = 0, 1, 2, 3
 SPECTRA = {'monochromatic': SPECTRUM_MONO, 'voigt': SPECTRUM_VOIGT,
-           'gaussian': SPECTRUM_GAUSS}
+           'gaussian': SPECTRUM_GAUSS, 'continuum': SPECTRUM_CONT}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +63,7 @@ class RefillParams:
     jc: int
     kc: int
     xfreq0: float
-    spectrum: int        # SPECTRUM_MONO, SPECTRUM_VOIGT or SPECTRUM_GAUSS
+    spectrum: int        # SPECTRUM_MONO, _VOIGT, _GAUSS or _CONT
     a: float             # Voigt damping parameter of the source cell
     xfreq_min: float
     dxfreq: float
@@ -64,6 +71,9 @@ class RefillParams:
     v_src: tuple = (0.0, 0.0, 0.0)   # the source cell's velocity (f32)
     comoving_source: bool = True
     sigma_x: float = 0.0     # the Gaussian's sigma in Doppler units
+    xfreq_span: float = 0.0  # the continuum's xfreq_max - xfreq_min
+    Dfreq: float = 1.0       # Doppler width of the source cell (Hz)
+    line: pline.LineConsts = None
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None) -> 'RefillParams':
@@ -92,7 +102,10 @@ class RefillParams:
                    sigma_x=gsig / cfg.vtherm,
                    a=float(meta.voigt_a_ref), xfreq_min=meta.xfreq_min,
                    dxfreq=meta.dxfreq, nxfreq=meta.nxfreq, v_src=v_src,
-                   comoving_source=bool(par.comoving_source))
+                   comoving_source=bool(par.comoving_source),
+                   xfreq_span=pline.f32(meta.xfreq_max - meta.xfreq_min),
+                   Dfreq=meta.Dfreq_ref,
+                   line=pline.LineConsts.from_config(cfg))
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -114,12 +127,20 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     kx, ky, kz = sint * cosp, sint * sinp, cost
 
     xfreq = torch.full((B,), p.xfreq0, dtype=torch.float32, device=dev)
+    if p.line.branch_init:
+        w = uniforms(seed, STREAM_REFILL, lanes, counter, 3)
+        xfreq = xfreq + pline.branch_init_shift_plain(p.line, w[0], w[1],
+                                                      p.Dfreq)
     if p.spectrum == SPECTRUM_VOIGT:
         a = torch.full((B,), p.a, dtype=torch.float32, device=dev)
         xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0])
     elif p.spectrum == SPECTRUM_GAUSS:
         w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
         xfreq = xfreq + box_muller(w[0], w[1]) * p.sigma_x
+    elif p.spectrum == SPECTRUM_CONT:
+        # replaces xfreq, the branch shift too (engine.py:2804-2807)
+        w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
+        xfreq = p.xfreq_min + w[0] * p.xfreq_span
 
     # lab-frame source -> comoving frequency; Jin at the lab frequency
     u1 = p.v_src[0] * kx + p.v_src[1] * ky + p.v_src[2] * kz
@@ -176,6 +197,7 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         int(budget), seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
         p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, p.spectrum, p.sigma_x,
         p.a, *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,
-        tallies.Jin.data_ptr(),
-        kbuild.stream_of(state.x)), 'refill_point')
+        tallies.Jin.data_ptr(), p.xfreq_span, p.Dfreq,
+        ctypes.byref(p.line.c_struct), kbuild.stream_of(state.x)),
+        'refill_point')
     kbuild.LAUNCHES['refill_point'] += 1

@@ -1,10 +1,12 @@
-"""Resonant Ly-alpha scattering and dust events (kernel K4).
+"""Resonant scattering and dust events (kernel K4).
 
 Counterpart of make_scatter / scatter (lart_tpu/transport/engine.py:1838,
-:2087) for line_type 1 without H2 or recoil: the redistribute branch of
-:1947-1953, rand_resonance_cost, phi = 2 pi xi, the perpendicular atom
-velocity with the core-skip boost (:2197-2205), xfreq_new,
-rotate_direction (:1854) and the next optical depth.
+:2087) for line types 1, 2, 4, 5, 6 and 7 without H2: redistribute
+(:1931-2086, physics/line.py), rand_resonance_cost with the event's E1,
+phi = 2 pi xi, the perpendicular atom velocity with the core-skip boost
+(:2197-2205) scaled by the redistribution's perp_scale, xfreq_new, with
+recoil xfreq_new - (g0 / D)(1 - cos theta) (:2224-2229), rotate_direction
+(:1854) and the next optical depth.
 
 With use_stokes (:2165-2190, :2231-2265, :2486-2496) the azimuth is drawn
 by rejection from 1 + (S12/S11)(Q cos 2phi + U sin 2phi) over
@@ -33,7 +35,8 @@ With peel-off on, the scatter writes a PeelRecord: the kind of each lane's
 event (1 a resonance scattering, 2 a dust scattering, 0 neither), the
 pre-scatter direction (with use_stokes also the triad and Stokes vector)
 and, at a resonance, this event's xfreq_atom and atom velocity
-(:2207-2218), which the peel (kernel K7) reads right after.  A dust peel
+(:2207-2218) and, for line types 2, 4, 5 and 6, its phase weights E1, E2,
+E3, which the peel (kernel K7) reads right after.  A dust peel
 reads the lane's weight after the scatter, which under use_reduced_wgt is
 already the weight times the albedo that lart_tpu peels with (:2342-2347).
 
@@ -54,7 +57,9 @@ D = 2 rounds + 2 the event split, the absorption and the HG cos(theta),
 block D + 1 the Mueller cos(theta), block D + 2 + r its azimuth round r.  So
 a run without dust draws as before; a dust scattering reuses block
 `rounds` (HG's azimuth) and rounds + 1 (its next tau).  Core-skip draws
-nothing new.
+nothing new.  A line of type 2 to 7 draws its upper level and downward
+branch from block 3 rounds + 4, after the last Mueller azimuth block, so
+a Ly-alpha run draws as before.
 """
 
 from __future__ import annotations
@@ -67,10 +72,10 @@ from typing import Optional
 import torch
 
 from ..kernels import build as kbuild
+from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
-from ..physics.voigt import voigt_plain
 from .flight import div
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
@@ -99,21 +104,19 @@ class ScatterC(ctypes.Structure):
                 ('mueller', pmueller.MuellerC),
                 ('rounds', _I), ('stokes', _I), ('core_skip', _I),
                 ('dust', _I), ('reduced_wgt', _I), ('nxfreq', _I),
-                ('n', _I * 3), ('a', _F), ('E1', _F), ('E2', _F), ('E3', _F),
-                ('xcrit', _F), ('xcrit2', _F), ('rk_const', _F),
-                ('rkD_const', _F), ('albedo', _F), ('one_m_albedo', _F),
+                ('n', _I * 3), ('a', _F), ('xcrit', _F), ('xcrit2', _F),
+                ('rk_const', _F), ('rkD_const', _F), ('albedo', _F),
+                ('one_m_albedo', _F),
                 ('hgg', _F), ('xfreq_min', _F), ('dxfreq', _F),
-                ('amin', _F * 3), ('d', _F * 3)]
+                ('amin', _F * 3), ('d', _F * 3), ('Dfreq', _F),
+                ('recoil', _I), ('line', pline.LineC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ScatterParams:
     a: float          # Voigt damping parameter (uniform temperature)
-    E1: float         # dipole weight of the line's phase function
     rounds: int       # rejection rounds per call
     stokes: bool = False       # use_stokes: azimuth, triad and Stokes
-    E2: float = 0.0            # isotropic and circular phase weights
-    E3: float = 1.0
     core_skip: int = CORE_SKIP_OFF
     xcrit: float = 0.0         # core_skip_global's threshold and its square
     xcrit2: float = 0.0
@@ -135,6 +138,9 @@ class ScatterParams:
     xfreq_min: float = 0.0     # the Jabs frequency bins
     dxfreq: float = 1.0
     nxfreq: int = 0
+    line: Optional[pline.LineConsts] = None   # the line (from_config)
+    Dfreq: float = 1.0         # Doppler width of every cell (Hz)
+    recoil: bool = False
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None,
@@ -151,11 +157,9 @@ class ScatterParams:
 
         def flat(t):
             return t.reshape(-1).contiguous()
-        line = cfg.line
-        return cls(a=float(meta.voigt_a_ref), E1=float(line.E1),
+        return cls(a=float(meta.voigt_a_ref),
                    rounds=int(par.scatter_rounds),
-                   stokes=bool(par.use_stokes), E2=float(line.E2),
-                   E3=float(line.E3), core_skip=mode,
+                   stokes=bool(par.use_stokes), core_skip=mode,
                    xcrit=float(meta.xcrit), xcrit2=float(meta.xcrit2),
                    rk_const=float(meta.sphere_rho) if uniform_sphere
                    else -1.0,
@@ -173,7 +177,9 @@ class ScatterParams:
                    mueller=pmueller.MuellerTable.for_config(
                        cfg, grid.rhokap.device) if dust else None,
                    xfreq_min=meta.xfreq_min, dxfreq=meta.dxfreq,
-                   nxfreq=meta.nxfreq)
+                   nxfreq=meta.nxfreq,
+                   line=pline.LineConsts.from_config(cfg),
+                   Dfreq=float(meta.Dfreq_ref), recoil=bool(par.recoil))
 
     @property
     def dust_block(self) -> int:
@@ -206,9 +212,12 @@ class ScatterParams:
         c.dust, c.reduced_wgt, c.nxfreq = (self.dust, int(self.reduced_wgt),
                                            self.nxfreq)
         c.n[:], c.amin[:], c.d[:] = self.n, self.amin, self.d
-        for f in ('a', 'E1', 'E2', 'E3', 'xcrit', 'xcrit2', 'rk_const',
-                  'rkD_const', 'albedo', 'hgg', 'xfreq_min', 'dxfreq'):
+        for f in ('a', 'xcrit', 'xcrit2', 'rk_const',
+                  'rkD_const', 'albedo', 'hgg', 'xfreq_min', 'dxfreq',
+                  'Dfreq'):
             setattr(c, f, getattr(self, f))
+        c.recoil = int(self.recoil)
+        c.line = self.line.c_struct
         # 1 - albedo in f64, then f32, as lart_tpu's weak-typed constant
         c.one_m_albedo = 1.0 - self.albedo
         return c
@@ -283,6 +292,7 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
     at_sc = s.phase == AT_SCATTER
     is_dust = torch.zeros_like(at_sc)
+    lc = p.line
     if p.dust:
         ud = uniforms(seed, STREAM_SCATTER, lanes, counter, p.dust_block)
         if p.rk_const > 0.0:
@@ -291,29 +301,29 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         else:
             f = p.flat(s)
             rk, kap_D = p.rhokap[f], p.rhokapD[f]
-        kap_HI = rk * voigt_plain(s.xfreq, p.a)
+        kap_HI = rk * pline.line_profile_plain(lc, s.xfreq, p.a, p.Dfreq)
         is_dust = at_sc & (ud[0] <= kap_D / torch.clamp_min(kap_HI + kap_D,
                                                             TINY))
     is_res = at_sc & ~is_dust
-    env = samplers.vz_envelope(s.xfreq, p.a)
     u = uniforms(seed, STREAM_SCATTER, lanes, counter, range(p.rounds + 2))
-    acc = torch.zeros_like(at_sc)
-    uz = torch.zeros_like(s.xfreq)
-    for r in range(p.rounds):
-        acc, uz = samplers.vz_round_xi(u[r], env, acc, uz, is_res)
-    xfreq_atom = s.xfreq - uz
+    sel = None if lc.line_type == 1 else uniforms(
+        seed, STREAM_SCATTER, lanes, counter, 3 * p.rounds + 4)
+    red = pline.redistribute_plain(lc, s.xfreq, p.a, p.Dfreq,
+                                   u[:p.rounds], sel, is_res)
+    acc, uz, xfreq_atom = red.acc, red.uz, red.xatom
+    E1, E2, E3 = red.E1, red.E2, red.E3
 
     xi = u[p.rounds]
-    cost = samplers.rand_resonance_cost(xi[0], p.E1)
+    cost = samplers.rand_resonance_cost(xi[0], E1)
     cost2 = cost * cost
     sint = torch.sqrt(torch.clamp_min(1.0 - cost2, 0.0))
     if p.stokes:
         # the line's scattering matrix; the azimuth by rejection
-        S22 = 0.75 * p.E1 * (cost2 + 1.0)
-        S11 = S22 + p.E2
-        S12 = 0.75 * p.E1 * (cost2 - 1.0)
-        S33 = 1.5 * p.E1 * cost
-        S44 = 1.5 * p.E3 * cost
+        S22 = 0.75 * E1 * (cost2 + 1.0)
+        S11 = S22 + E2
+        S12 = 0.75 * E1 * (cost2 - 1.0)
+        S33 = 1.5 * E1 * cost
+        S44 = 1.5 * E3 * cost
         acc_phi, phi = azimuth_rounds(
             s, S12 / torch.clamp_min(S11, TINY),
             uniforms(seed, STREAM_SCATTER, lanes, counter,
@@ -329,8 +339,15 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         xcrit, xcrit2 = local_xcrit(s, p)
         boost = torch.where(torch.abs(s.xfreq) < xcrit, xcrit2, boost)
     uxy = torch.sqrt(boost - torch.log(xi[3]))
-    ux, uy = uxy * torch.cos(phi2), uxy * torch.sin(phi2)
+    ux = uxy * torch.cos(phi2) * red.perp
+    uy = uxy * torch.sin(phi2) * red.perp
     xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint
+    if p.recoil:
+        # (g0 / D)(1 - cos theta), g0 / D an f32 division (engine.py:2228)
+        g0 = torch.as_tensor(red.g0, dtype=torch.float32, device=s.device)
+        xfreq_new = xfreq_new - (g0 / torch.full((), p.Dfreq,
+                                                 device=s.device)) \
+            * (1.0 - cost)
     tau_next = -torch.log(torch.clamp_min(u[p.rounds + 1, 0], 1e-12))
 
     turned = ('kx', 'ky', 'kz') + (('mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
@@ -355,6 +372,9 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         for f, v in (('xatom', xfreq_atom), ('ux', ux), ('uy', uy),
                      ('uz', uz)):
             getattr(record, f).copy_(v)
+        if lc.per_lane_E:
+            for f, v in (('E1', E1), ('E2', E2), ('E3', E3)):
+                getattr(record, f).copy_(torch.where(do_res, v, 0.0))
 
     for name, v in zip(turned, new):
         cur = getattr(s, name)

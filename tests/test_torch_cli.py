@@ -226,3 +226,25 @@ def test_cli_runs_the_dusty_shell(tmp_path):
     assert float(r.header['Nsc_dust']) > 0.0
     assert check_flux(r, verbose=False)['W_abs'] == w_abs
     assert abs(float(r.header['W_esc']) + w_abs - 1.0) < 1e-3
+
+
+def test_cli_runs_the_silicon_multiplet(tmp_path):
+    """examples/SiII_1193/tau1e+2_V200.in (line type 5 with its fluorescent
+    Si II* branches, a continuum source, recoil, Stokes, one observer, the
+    101^3 Hubble sphere) cut to a CPU's few seconds: a 17^3 grid, 300
+    photons, a 17 x 17 image.  The FITS output is read by lart_tpu's
+    read_lart on the example's 240-bin axis, the weight closes, and the
+    _peel3D file is written."""
+    import chip_smoke
+    nml = chip_smoke.namelist_variant(
+        'SiII_1193/tau1e+2_V200.in', tmp_path, no_photons='300', nx='17',
+        ny='17', nz='17', nxim='17', nyim='17', batch_size='512')
+    out = tmp_path / 'out.fits'
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    assert r.Jout.shape == r.xfreq.shape == (240,)
+    assert np.all(np.isfinite(r.Jout)) and r.Jout.sum() > 0.0
+    w = float(r.header['W_esc']) + float(r.header.get('W_oor', 0.0))
+    assert abs(w - 1.0) < 1e-3
+    assert float(r.header['Nsc_gas']) > 0.0
+    assert (tmp_path / 'out_peel3D.fits').exists()

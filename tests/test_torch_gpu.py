@@ -29,9 +29,11 @@ def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
     res = chip_smoke.phase2(cuda)
-    assert set(res) == {'voigt_h', 'refill_point', 'fly_uniform_slab',
-                        'fly_cartesian', 'fly_uniform_sphere',
-                        'scatter_lya', 'peel'}
+    kernels = {'refill_point', 'fly_uniform_slab', 'fly_cartesian',
+               'fly_uniform_sphere', 'scatter_lya', 'peel'}
+    # the metal lines' instances (chip_smoke.phase2_lines) too
+    assert set(res) == kernels | {'voigt_h'} | {
+        k + chip_smoke.LINES for k in kernels}
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -210,3 +212,33 @@ def test_driver_runs_the_dusty_shell(cuda, stokes):
     assert 0.2 < res.W_absorb < 0.8 and res.nscatt_dust > 0.5
     (c,) = testing.peel_closure(res)
     assert abs(c - 1.0) < 3.0 * (testing.PEEL_V_DUST / 4000) ** 0.5, c
+
+
+@pytest.mark.parametrize('case', ['multiplet', 'hd'])
+def test_driver_runs_the_metal_lines(cuda, case):
+    """The Si II multiplet (line type 5: Stokes, recoil, one observer) and
+    H + D Ly-alpha (type 7) through the driver on the card: every kernel of
+    the path launched, the weight closes, the Si II* fluorescent photons
+    escape, the peel closes."""
+    import dataclasses
+
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    over = dict(spectral_type='voigt', use_stokes=True) \
+        if case == 'multiplet' else dict(D_to_H_ratio=3e-3)
+    par = testing.line_params(case, tau0=20.0, n=17, nphotons=10_000,
+                              batch=4096, **over)
+    need = ('refill_point', 'fly_uniform_sphere', 'scatter_lya')
+    if case == 'multiplet':
+        par = dataclasses.replace(testing.peel_params(par, nim=17),
+                                  alpha=(0.0,), beta=(0.0,))
+        need += ('peel',)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=1)
+    assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
+    assert abs(res.W_escape + res.W_oor - 1.0) < 1e-5
+    if case == 'multiplet':
+        share = res.Jout[res.xfreq < -200.0].sum() / res.Jout.sum()
+        assert 0.3 < share < 0.95, share
+        (c,) = testing.peel_closure(res)
+        assert abs(c - 1.0) < 3.0 * (testing.PEEL_V_PHOTON / 10_000) ** 0.5

@@ -394,9 +394,10 @@ def test_check_supported_accepts_the_slice(example):
 
 OUT_OF_SLICE = {
     'save_all_photons': dict(save_all_photons=True),
-    'recoil': dict(recoil=True),
+    'n_devices > 1': dict(n_devices=2),
+    'save_sightline_tau': dict(save_sightline_tau=True),
     'h2_model': dict(h2_model='lyman_werner'),
-    'line_type': dict(line_id='MgII_2796'),
+    'line_type': dict(line_id='ly_beta'),
     'peel-off observers': dict(save_peeloff=True, nobs=1, nside=4),
     'out_merge': dict(out_merge=True),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
@@ -405,7 +406,7 @@ OUT_OF_SLICE = {
     'shearing box': dict(xy_periodic=True, Omega=1.0),
     'source_geometry other than point': dict(source_geometry='uniform'),
     'spectral_type other than voigt/monochromatic': dict(
-        spectral_type='continuum'),
+        spectral_type='voigt0'),
     '3-D density file': dict(dens_file='dens.fits'),
     '3-D velocity file': dict(velo_file='velo.h5'),
 }
