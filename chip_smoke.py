@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of lart_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, runs the slab, the uniform
-sphere, the expanding Hubble sphere, the dusty expanding shell and the
-metal lines (line types 2, 4-7) end to end through the driver and the CLI,
-without and with peel-off images (Stokes), and measures their steady-state
-rates.
+sphere, the expanding Hubble sphere, the dusty expanding shell, the metal
+lines (line types 2, 4-7), Ly-beta with its H-alpha band (line type 8) and
+H2 pumping of Ly-alpha end to end through the driver and the CLI, without
+and with peel-off images (Stokes), and measures their steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
@@ -36,7 +36,14 @@ Phases (one line each, or more):
      branches, 1x1x201 slabs for K3): K2 continuum and branch_init_shift
      (types 2, 4, 5, 6), the line profile in K3, K5, K6 (types 2, 5, 7),
      K4 types 2, 4, 5, 6, 6 coherent, 7 +- recoil with the peel record, K7
-     type 5 direct and resonance, walk and chord, +- Stokes, recoil
+     type 5 direct and resonance, walk and chord, +- Stokes, recoil;
+     Ly-beta and H2 (phase2_lyb_h2) on the 101^3 grids of
+     examples/ly_beta_sphere/t4tau1e4.in, t4tau1e4_dust.in and
+     h2_test/h2_on.in as written (an observer added to h2_on) and of
+     sphere_HD_dijkstra2006 with H2: K2's band, K5 with the H-alpha band
+     (+- dust) and with H2, K4's conversions (+- recoil), the H-alpha
+     band's dust events and the H2 branch (line types 1 and 7), K7's
+     conversion, resonance and H-alpha dust peels and the H2 sightline
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -44,7 +51,8 @@ Phases (one line each, or more):
      the 17^3 dusty shell of testing.dust_params with Mueller dust, Stokes
      and one observer (absorbed weight, spectra, scatterings, peel); 17^3
      spheres of the Mg II doublet, the Si II multiplet (Stokes, recoil, one
-     observer) and H + D Ly-alpha (testing.line_params)
+     observer) and H + D Ly-alpha (testing.line_params); a 17^3 Ly-beta
+     sphere with dust and one observer, and a 17^3 H2 sphere
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
@@ -61,7 +69,10 @@ Phases (one line each, or more):
      fluorescent lines above the continuum, the _peel3D file),
      sphere_HD_dijkstra2006.in with its photons cut to HD_PHOTONS and N_HI
      to HD_NHI,
-     HeI_sphere/t4tau2.in and SiII_1527/t1e5tau1e1_V050.in as written
+     HeI_sphere/t4tau2.in and SiII_1527/t1e5tau1e1_V050.in as written;
+     ly_beta_sphere/t4tau1e4.in, t4tau1e4_dust.in and h2_test/h2_on.in
+     as written (the band budgets, P_down[1], Jout_Ha and peel_Ha; the
+     H2 budget and keywords)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -69,8 +80,8 @@ Phases (one line each, or more):
      as written, the flagship slab through K5 (force_generic_kernel), and
      the three peel-off examples as written, DL20e_dust as written and with
      one observer on +z, SiII_1193/tau1e+2_V200 with its observer,
-     sphere_HD_dijkstra2006 and HeI t4tau2 as written; a torch.profiler
-     breakdown of
+     sphere_HD_dijkstra2006 and HeI t4tau2 as written, t4tau1e4 with its
+     observer and h2_on as written; a torch.profiler breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
@@ -126,6 +137,11 @@ MGII = dict(line_id='MgII_2796', wavelength_min=2790.0,
 # 205 s on the card whatever their number; N_HI 1.2e18 cuts that tenfold
 HD_PHOTONS, HD_NHI = 2000, '1.2e18'
 LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
+# Ly-beta with its H-alpha band (line type 8) and H2 pumping of Ly-alpha:
+# the slice's examples, and the names of their kernel branches in res
+LYB, LYB_DUST = 'ly_beta_sphere/t4tau1e4.in', 'ly_beta_sphere/t4tau1e4_dust.in'
+H2_ON = 'h2_test/h2_on.in'
+LT8, H2 = ' (line type 8)', ' (H2)'
 
 
 def log(phase, msg):
@@ -182,7 +198,8 @@ def kernel_work(name, pre, ch, meta, stats=None):
     crossings are not reported), its tallies written once and, for the
     peel, each cube bin it deposits into written once.  The flops are
     counted per lane (refill, scatter) or per pair and crossing (peel); the
-    flights' are left out, so their bound is their bytes."""
+    flights' are left out, so their bound is their bytes, but for H2's
+    two Voigt functions a step of K5 (stats from its plain version)."""
     from lart_tpu_torch.transport.state import AT_SCATTER, DEAD, FFS, FLYING
     B, ph = pre.batch, pre.phase
     peel = ch.peel
@@ -212,10 +229,20 @@ def kernel_work(name, pre, ch, meta, stats=None):
         if sp.dust:
             # each lane's event split: its cell's rhokapD (and velocity for
             # Jabs in a moving medium), a Voigt and a Philox block; the
-            # Mueller table once; Jabs written once
+            # Mueller table once; Jabs (and line type 8's Jabs_Ha) written
+            # once
             grid += min(cells, k) * 4 * (1 + (3 if sp.vel else 0))
-            grid += (7 * sp.mueller.n * 4 if sp.mueller else 0) + ch.nxfreq * 4
+            grid += (7 * sp.mueller.n * 4 if sp.mueller else 0) \
+                + ch.nxfreq * 4 * (2 if sp.lyb else 1)
             flops += 80
+        if sp.h2 is not None:
+            # the H2 split's two Voigt functions and Philox block, and an
+            # H2 event's line choice (two more) and its u_par rounds
+            flops += 4 * 40 + 40 + sp.rounds * 60
+        if sp.lyb:
+            # the band read, the conversion's frequency
+            per_lane += 4
+            flops += 10
         return B * 4 + flag + k * per_lane + grid, k * flops
     if name == 'peel':
         # the flag of every lane; the position of each flagged lane; the
@@ -229,9 +256,12 @@ def kernel_work(name, pre, ch, meta, stats=None):
         # (mode dust: the record's k, triad, Q, U, V and the lane's xfreq,
         # and the Mueller table with Stokes)
         from lart_tpu_torch.instruments.peel import DIRECT
+        # (a conversion: the record's k and u, line type 8; a dust event
+        # there also the lane's band)
         g = peel.grid
         st = 9 if peel.stokes else 0
         dust = stats.get('seen_dust', 0)
+        conv = stats.get('seen_conv', 0)
         if stats['mode'] == DIRECT:
             per_seen = 4 * (4 + 1 + (3 if peel.lab_source else 0))
             seen = stats['seen'] * per_seen
@@ -239,22 +269,34 @@ def kernel_work(name, pre, ch, meta, stats=None):
         else:
             # a resonance reads the record's E1, E2, E3 for line types 2, 4-6
             lane_E = 3 if g.line.per_lane_E else 0
-            seen = ((stats['seen'] - dust) * 4 * (4 + 7 + st + lane_E)
-                    + dust * 4 * (4 + 4 + st))
+            seen = ((stats['seen'] - dust - conv) * 4 * (4 + 7 + st + lane_E)
+                    + dust * 4 * (4 + 4 + st + (1 if peel.lyb else 0))
+                    + conv * 4 * (4 + 6))
             ncubes = 5 if peel.stokes else 1
         table = 7 * peel.mueller.n * 4 if dust and peel.mueller else 0
         grid = stats['cells'] * 4 * ((4 if g.moving else 1)
                                      + (1 if g.rhokapD is not None else 0))
+        # with H2, two more Voigt functions a crossing
+        per_crossing = 60 + (80 if g.h2 is not None else 0)
         return (B * 4 + stats['lanes'] * 12 + seen + table
                 + grid + stats['bins'] * 4 * ncubes + peel.nobs * 12 * 4,
-                stats.get('crossings', 0) * 60 + stats['pairs'] * 150)
+                stats.get('crossings', 0) * per_crossing
+                + stats['pairs'] * 150)
     k = int(((ph == FLYING) | (ph == FFS)).sum())
-    grid = 0
+    grid = flops = 0
+    spectra = ch.nxfreq * 4 * (1 + ch.nmu)
     if name == 'fly_cartesian':
-        grid = min(cells, k) * 4 * ((4 if ch.flight.moving else 1)
-                                    + (1 if ch.flight.rhokapD is not None
-                                       else 0))
-    return B * 4 + k * (24 + 12) * 4 + grid + ch.nxfreq * 4 * (1 + ch.nmu), 0
+        f = ch.flight
+        grid = min(cells, k) * 4 * ((4 if f.moving else 1)
+                                    + (1 if f.rhokapD is not None else 0))
+        if f.lyb:
+            # each lane's band; Jout_Ha written once
+            grid += k * 4
+            spectra += ch.nxfreq * 4
+        if f.h2 is not None and stats:
+            # the H2 opacity's two Voigt functions each step
+            flops = stats['steps'] * 80
+    return B * 4 + k * (24 + 12) * 4 + grid + spectra, flops
 
 
 def example_params(rel, **over):
@@ -304,10 +346,13 @@ def phase1():
     name = None
     for n, fn, used in regs:
         if fn:
-            # a kernel's two instances (line.cuh kMulti) by their template
-            # argument
-            name = fn[:int(n)] + {'ILb0E': '<false>', 'ILb1E': '<true>'}.get(
-                fn[int(n):int(n) + 5], '')
+            # a kernel's instances (line.cuh kMulti, h2.cuh kH2) by their
+            # template arguments
+            m = re.match(r'I((?:Lb[01]E)+)', fn[int(n):])
+            name = fn[:int(n)] + ('<' + ', '.join(
+                'true' if b == '1' else 'false'
+                for b in re.findall(r'Lb([01])E', m.group(1))) + '>'
+                if m else '')
         elif name:
             per[name] = int(used)
     log(1, f'built {Path(kb.BUILD_INFO["path"]).name} from '
@@ -316,18 +361,18 @@ def phase1():
 
 
 def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8,
-         state=None):
+         state=None, lyb=False, h2=False):
     """step(state, tallies, kernel) through the kernel and through the
-    plain version from one mixed state (or `state`); returns (s0, kernel
-    state, fraction of lanes differing, max abs error of the others,
-    tallies' max |d|)."""
+    plain version from one mixed state (or `state`), with line type 8's
+    (lyb) and H2's tallies where asked; returns (s0, kernel state, fraction
+    of lanes differing, max abs error of the others, tallies' max |d|)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.transport.state import zero_tallies
     s0 = state if state is not None else testing.mixed_state(
         meta, B_MAIN, state_seed, dev, r_max=r_max)
     sk, sp = testing.clone_state(s0), testing.clone_state(s0)
-    tk = zero_tallies(meta.nxfreq, nmu, dev)
-    tp = zero_tallies(meta.nxfreq, nmu, dev)
+    tk = zero_tallies(meta.nxfreq, nmu, dev, lyb, h2)
+    tp = zero_tallies(meta.nxfreq, nmu, dev, lyb, h2)
     step(sk, tk, True)
     step(sp, tp, False)
     torch.cuda.synchronize()
@@ -551,10 +596,11 @@ def phase2(dev):
     phase2_peel(dev, res)
     phase2_dust(dev, res)
     phase2_lines(dev, res)
+    phase2_lyb_h2(dev, res)
     return res
 
 
-def peel_both(ch, meta, seed, mode, dev, r_max=None):
+def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None):
     """K7 and its plain version on one mixed state with a record that
     flags every lane; each (observer, lane) pair's optical depth and cube
     bin are held against each other (a pair differs when its bin differs
@@ -568,11 +614,14 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None):
     such pair must agree.  Then the cubes, without the lanes of differing
     pairs, to 1e-5 of their sum (atomics add in no fixed order).  Returns
     (pairs differing, pairs depositing, max abs error of the cubes, max
-    |d tau| and max |d w| over that scale of the other pairs)."""
+    |d tau| and max |d w| over that scale of the other pairs).  prep(s),
+    where given, changes the state first (the H-alpha band's lanes)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.instruments import peel as tpeel
     p = ch.peel
     s = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=r_max)
+    if prep is not None:
+        prep(s)
     rec = testing.peel_record(s, seed + 1, p.grid.line)
     kind = max(mode, tpeel.RESONANCE)     # the flag of mode's events
     rec.flag.fill_(kind)
@@ -943,6 +992,167 @@ def phase2_lines(dev, res):
         del grid, ch
 
 
+def phase2_lyb_h2(dev, res, batch=None):
+    """Ly-beta (line type 8) on the grids of examples/ly_beta_sphere/
+    t4tau1e4.in and t4tau1e4_dust.in as written (101^3, its observer), and
+    H2 pumping on the grid of examples/h2_test/h2_on.in as written (101^3,
+    core-skip) and of lya_HD/sphere_HD_dijkstra2006.in with H2 added (the
+    kernels' metal-line instance): each new branch against its plain
+    version at B = batch (B_MAIN), lane by lane or pair by pair.  K2's
+    births (band 1); K5 with a third of the flying lanes in the H-alpha
+    band (dust-only opacity, lab frequency, Jout_Ha, W_esc1/2) and with the
+    H2 opacity; K4's conversions and the H-alpha band's dust events, and
+    its H2 branch on lanes around the H2 lines; K7's conversion peel, the
+    H-alpha band's dust peel, the band-1 resonance peel, and the H2
+    sightline with an observer added to h2_on."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport.engine import make_chunk
+    from lart_tpu_torch.transport.scatter import (EVENT_CONVERSION,
+                                                  EVENT_DUST)
+    B = batch or B_MAIN
+    seed = 300
+    fly_tal = ('Jout', 'Jmu', 'W_oor')
+    lyb_fly_tal = fly_tal + ('Jout_Ha', 'W_esc1', 'W_esc2')
+
+    def band2(s):
+        testing.band2_lanes(s, 7, frac=0.35)
+
+    for rel, dust in ((LYB, False), (LYB_DUST, True)):
+        t0 = time.time()
+        cfg = example_params(rel, batch_size=B).resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        what = f'{Path(rel).name} (101^3, DGR {cfg.par.DGR:g})'
+        log(2, f'ly_beta: {what}: grid built in {time.time() - t0:.1f} s')
+        if not dust:
+            seed += 1
+            _, sk, frac, err, tal = both(meta, seed, refill_step(ch),
+                                         ('Jin',), dev)
+            launched = sk.phase != 0
+            assert bool((sk.iband[launched] == 1).all())
+            _max_err(res, 'refill_point' + LT8, err)
+            log(2, f'  K2 refill_point (births in band 1): lanes differing '
+                   f'{frac:.2e}, max abs err {err:.3e}, Jin max |d| '
+                   f'{tal["Jin"]:.3e}')
+        seed += 1
+        s0 = testing.band2_lanes(testing.mixed_state(meta, B, seed, dev,
+                                                     r_max=1.0), seed)
+        _, sk, frac, err, tal = both(meta, seed, fly_step(ch), lyb_fly_tal,
+                                     dev, nmu=ch.nmu, state=s0, lyb=True)
+        _max_err(res, 'fly_cartesian' + LT8, err)
+        log(2, f'  K5 fly_cartesian (line type 8, {int((s0.iband == 2).sum())}'
+               f' lanes in the H-alpha band): lanes differing {frac:.2e}, '
+               f'max abs err {err:.3e}; tallies max |d| {tal}')
+        sp = ch.scatter_params
+        for recoil in ((False, True) if not dust else (False,)):
+            seed += 1
+            recs = {}
+            st = testing.line_state(meta, B, seed, [0.0], width=3.0,
+                                    device=dev)
+            testing.band2_lanes(st, seed, frac=0.35)
+            tals = ('nscatt_gas', 'nscatt_events', 'W_conv') + (
+                ('Jabs', 'Jabs_Ha', 'W_abs1', 'W_abs2', 'nscatt_dust')
+                if dust else ())
+            _, sk, frac, err, tal = both(
+                meta, seed, scatter_step(ch, dataclasses.replace(
+                    sp, recoil=recoil), recs), tals, dev, state=st,
+                lyb=True)
+            n_rec, rerr = record_diff(recs[True], recs[False])
+            assert n_rec <= MAX_FRAC * B, n_rec
+            flag = recs[True].flag
+            n_conv = int((flag == EVENT_CONVERSION).sum())
+            n_dust = int((flag == EVENT_DUST).sum())
+            assert n_conv > 0.02 * B and (n_dust > 0.05 * B) == dust, (
+                n_conv, n_dust)
+            _max_err(res, 'scatter_lya' + LT8, max(err, rerr))
+            log(2, f'  K4 scatter_lya (line type 8, recoil {recoil}): '
+                   f'{n_conv} conversions, {n_dust} dust scatterings, '
+                   f'{int((sk.phase == 0).sum())} absorbed of {B}; lanes '
+                   f'differing {frac:.2e}, max abs err {err:.3e}; record '
+                   f'lanes differing {n_rec}, max abs err {rerr:.3e}; '
+                   f'tallies max |d| {tal}')
+        modes = (('conversion', tpeel.CONVERSION, None),
+                 ('resonance', tpeel.RESONANCE, None)) + (
+            (('dust', tpeel.DUST, band2),) if dust else ())
+        for mname, mode, prep in modes:
+            seed += 2
+            n_bad, n_dep, err, dtau, dw = peel_both(ch, meta, seed, mode,
+                                                    dev, 1.0, prep)
+            _max_err(res, 'peel' + LT8, err)
+            log(2, f'  K7 peel {mname} (line type 8, 51x51 x 121 bins): '
+                   f'{n_dep} of {B} pairs deposit, pairs differing {n_bad}, '
+                   f'max |d tau| {dtau:.3e}, per-pair deposits max rel err '
+                   f'{dw:.3e} (rtol 1e-5, all pairs), cubes max abs err '
+                   f'{err:.3e}')
+        del grid, ch
+
+    for label, par, peel_too in (
+            ('h2_on as written (Ly-alpha, 101^3, tau 1e5, core-skip), one '
+             'observer added for K7', example_params(H2_ON, batch_size=B,
+                                                     **OBSERVER), True),
+            ('sphere_HD_dijkstra2006 with H2 (line type 7, 101^3 reflect)',
+             example_params(LINE_EXAMPLES['HD'], batch_size=B,
+                            h2_model='neufeld', f_H2=0.03,
+                            h2_temperature=8000.0), False)):
+        t0 = time.time()
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        sp = ch.scatter_params
+        lt = f'line type {sp.line.line_type}'
+        key = H2 if sp.line.line_type == 1 else H2 + LINES
+        log(2, f'H2: {label}: grid built in {time.time() - t0:.1f} s')
+        # the two H2 lines' centres, x = dnu / D
+        centres = [float(np.float32(d) / np.float32(sp.Dfreq))
+                   for d in sp.h2.dnu]
+        seed += 1
+        # a third of the lanes in the H2 lines' wings
+        s0 = testing.mixed_state(meta, B, seed, dev, r_max=1.0)
+        rng = np.random.default_rng(seed)
+        near = torch.as_tensor(rng.random(B) < 0.3, device=dev)
+        xh = rng.choice(centres, B) + rng.normal(0.0, 1.5, B)
+        s0.xfreq.copy_(torch.where(near, torch.as_tensor(
+            xh, dtype=torch.float32, device=dev), s0.xfreq))
+        _, _, frac, err, tal = both(meta, seed, fly_step(ch), fly_tal, dev,
+                                    nmu=ch.nmu, state=s0, h2=True)
+        _max_err(res, 'fly_cartesian' + key, err)
+        log(2, f'  K5 fly_cartesian ({lt}, H2 opacity): lanes differing '
+               f'{frac:.2e}, max abs err {err:.3e}; tallies max |d| {tal}')
+        seed += 1
+        recs = {}
+        st = testing.line_state(meta, B, seed, centres + [0.0], width=1.5,
+                                device=dev)
+        _, sk, frac, err, tal = both(
+            meta, seed, scatter_step(ch, sp, recs),
+            ('nscatt_gas', 'nscatt_events', 'W_H2abs', 'W_H2scat',
+             'W_H2pump'), dev, state=st, h2=True)
+        n_rec, rerr = record_diff(recs[True], recs[False])
+        assert n_rec <= MAX_FRAC * B, n_rec
+        n_dead = int((sk.phase == 0).sum())
+        assert n_dead > 0.01 * B, n_dead
+        _max_err(res, 'scatter_lya' + key, max(err, rerr))
+        log(2, f'  K4 scatter_lya ({lt}, H2): {n_dead} of {B} lanes '
+               f'destroyed by H2; lanes differing {frac:.2e}, max abs err '
+               f'{err:.3e}; record lanes differing {n_rec}; tallies max '
+               f'|d| {tal}')
+        if peel_too:
+            for mname, mode in (('direct', tpeel.DIRECT),
+                                ('resonance', tpeel.RESONANCE)):
+                seed += 2
+                n_bad, n_dep, err, dtau, dw = peel_both(ch, meta, seed,
+                                                        mode, dev, 1.0)
+                _max_err(res, 'peel' + key, err)
+                log(2, f'  K7 peel {mname} ({lt}, H2 sightline, '
+                       f'{ch.peel.obs_meta.nxim}x{ch.peel.obs_meta.nyim} x '
+                       f'{meta.nxfreq} bins): {n_dep} of {B} pairs deposit, '
+                       f'pairs differing {n_bad}, max |d tau| {dtau:.3e}, '
+                       f'per-pair deposits max rel err {dw:.3e}, cubes max '
+                       f'abs err {err:.3e}')
+        del grid, ch
+
+
 def _in_core_fraction(s0, p):
     from lart_tpu_torch.transport.scatter import local_xcrit
     xc, _ = local_xcrit(s0, p)
@@ -951,9 +1161,10 @@ def _in_core_fraction(s0, p):
     return frac
 
 
-def spectra_run(label, par, dev):
-    """driver.run on cuda and on cpu; the statistics of the two agree."""
-    from lart_tpu_torch import driver, testing
+def cuda_and_cpu(par, dev):
+    """driver.run of par on the card and on the CPU (one thread): (cuda
+    RunResult, its wall s, its launch counts, cpu RunResult, its wall s)."""
+    from lart_tpu_torch import driver
     from lart_tpu_torch.kernels import build as kb
     kb.reset_launch_counts()
     t0 = time.time()
@@ -968,6 +1179,13 @@ def spectra_run(label, par, dev):
         tc = time.time() - t0
     finally:
         torch.set_num_threads(nthreads)
+    return rg, tg, counts, rc, tc
+
+
+def spectra_run(label, par, dev):
+    """driver.run on cuda and on cpu; the statistics of the two agree."""
+    from lart_tpu_torch import testing
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev)
     chi2, dmu = testing.spectra_agree(
         *testing.run_tallies(rg), *testing.run_tallies(rc), par.nphotons,
         par.nmu)
@@ -1010,22 +1228,9 @@ def dust_run(label, par, dev):
     observer, the peeled flux closure and Stokes I within 3 sigma of their
     per-photon spreads on the dusty shell (testing.DUST_V_*,
     PEEL_V_DUST)."""
-    from lart_tpu_torch import driver, testing
-    from lart_tpu_torch.kernels import build as kb
+    from lart_tpu_torch import testing
     n = par.nphotons
-    kb.reset_launch_counts()
-    t0 = time.time()
-    rg = driver.run(par, device=dev, seed=5)
-    tg = time.time() - t0
-    counts = {k: v for k, v in kb.LAUNCHES.items() if v}
-    nthreads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        t0 = time.time()
-        rc = driver.run(par, device='cpu', seed=6)
-        tc = time.time() - t0
-    finally:
-        torch.set_num_threads(nthreads)
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev)
     for r in (rg, rc):
         w = r.W_escape + r.W_absorb + r.W_oor
         assert abs(w - 1.0) < 1e-3, (r.W_escape, r.W_absorb, r.W_oor)
@@ -1054,6 +1259,68 @@ def dust_run(label, par, dev):
            f' dust {rg.nscatt_dust:.4f} / {rc.nscatt_dust:.4f}; chi2/dof '
            f'Jout {chi2["Jout"]:.2f} Jabs {chi2["Jabs"]:.2f}{peel}; launches '
            f'{counts}')
+    return counts
+
+
+def lyb_run(label, par, dev):
+    """driver.run on cuda and on cpu of a Ly-beta config with one observer:
+    in each, W_esc1 + W_abs1 + W_conv = 1 and W_esc2 + W_abs2 = W_conv to
+    1e-3, W_conv / nscatt_gas within 0.02 of P_down[1] = 0.11834 and the
+    H-alpha cube's flux closure (4 pi d^2 flux / W_esc2) within 3 sigma of
+    testing.PEEL_V_PHOTON; between them W_conv within 3 sigma of its
+    binomial spread and the H-alpha spectra's shapes chi2/dof < 3."""
+    from lart_tpu_torch import testing
+    n = par.nphotons
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev)
+    tol = 3.0 * np.sqrt(testing.PEEL_V_PHOTON / n)
+    ha = []
+    for r in (rg, rc):
+        assert abs(r.W_esc1 + r.W_abs1 + r.W_conv - 1.0) < 1e-3
+        assert abs(r.W_esc2 + r.W_abs2 - r.W_conv) < 1e-3
+        assert abs(r.W_conv / r.nscatt_gas - 0.11834) < 0.02
+        (c,) = testing.peel_closure(r, ('Ha',), r.W_esc2)
+        assert abs(c - 1.0) < tol, c
+        ha.append(c)
+    p = 0.5 * (rg.W_conv + rc.W_conv)
+    assert abs(rg.W_conv - rc.W_conv) <= 3.0 * np.sqrt(2.0 * p * (1 - p) / n)
+    chi2, nb = testing.spectra_chi2(rg.Jout_Ha, rc.Jout_Ha, n * rg.W_esc2,
+                                    n * rc.W_esc2)
+    assert chi2 < 3.0, chi2
+    log(3, f'{label}: W_esc1 + W_abs1 + W_conv cuda {rg.W_esc1:.6f} + '
+           f'{rg.W_abs1:.6f} + {rg.W_conv:.6f} ({tg:.1f} s), cpu '
+           f'{rc.W_esc1:.6f} + {rc.W_abs1:.6f} + {rc.W_conv:.6f} ('
+           f'{tc:.1f} s); W_esc2 + W_abs2 {rg.W_esc2:.6f} + {rg.W_abs2:.6f}'
+           f' / {rc.W_esc2:.6f} + {rc.W_abs2:.6f}; W_conv / nscatt_gas '
+           f'{rg.W_conv / rg.nscatt_gas:.4f} / {rc.W_conv / rc.nscatt_gas:.4f}'
+           f'; Jout_Ha chi2/dof {chi2:.2f} over {nb} bins; 4 pi d^2 Ha flux '
+           f'/ W_esc2 {ha[0]:.4f} / {ha[1]:.4f} (|d - 1| < {tol:.4f}); '
+           f'launches {counts}')
+    return counts
+
+
+def h2_run(label, par, dev):
+    """driver.run on cuda and on cpu of an H2 config: in each, W_esc +
+    W_oor + W_H2abs = 1 to 1e-3; between them W_H2abs within 3 sigma of
+    its binomial spread, the scatterings per photon within 5% and the
+    escaped spectra's shapes chi2/dof < 3."""
+    from lart_tpu_torch import testing
+    n = par.nphotons
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev)
+    for r in (rg, rc):
+        assert abs(r.W_escape + r.W_oor + r.W_H2abs - 1.0) < 1e-3
+    p = 0.5 * (rg.W_H2abs + rc.W_H2abs)
+    assert abs(rg.W_H2abs - rc.W_H2abs) <= 3.0 * np.sqrt(
+        2.0 * p * (1 - p) / n), (rg.W_H2abs, rc.W_H2abs)
+    assert abs(rg.nscatt_gas / rc.nscatt_gas - 1.0) < 0.05
+    chi2, nb = testing.spectra_chi2(rg.Jout, rc.Jout, n * rg.W_escape,
+                                    n * rc.W_escape)
+    assert chi2 < 3.0, chi2
+    log(3, f'{label}: W_esc + W_oor + W_H2abs cuda {rg.W_escape:.6f} + '
+           f'{rg.W_oor:.6f} + {rg.W_H2abs:.6f} ({tg:.1f} s), cpu '
+           f'{rc.W_escape:.6f} + {rc.W_oor:.6f} + {rc.W_H2abs:.6f} ('
+           f'{tc:.1f} s); W_H2pump {rg.W_H2pump} / {rc.W_H2pump}; <N> '
+           f'{rg.nscatt_gas:.3f} / {rc.nscatt_gas:.3f}; Jout chi2/dof '
+           f'{chi2:.2f} over {nb} bins; launches {counts}')
     return counts
 
 
@@ -1112,6 +1379,20 @@ def phase3(dev):
         c = spectra_run(f'{testing.LINE_CASES[case][0]} sphere 17^3 tau0 '
                         f'{par.taumax:g} 1e4 photons{over}', par, dev)
         assert all(c.get(k) for k in need), c
+    # Ly-beta with dust (DGR 1e5: a dust tau of ~0.5) and one observer;
+    # Ly-alpha with H2 pumping (f_H2 30, so that H2 destroys a share)
+    need = ('refill_point', 'fly_cartesian', 'scatter_lya')
+    par = dataclasses.replace(
+        testing.lyb_params(tau0=30.0, n=17, nphotons=5000, batch=4096,
+                           DGR=1e5), save_peeloff=True, nobs=1, nxim=17,
+        nyim=17, distance=1e3, alpha=(0.0,), beta=(0.0,))
+    c = lyb_run('Ly-beta sphere 17^3 tau0 30, DGR 1e5, 5000 photons, one '
+                'observer', par, dev)
+    assert all(c.get(k) for k in need + ('peel',)), c
+    c = h2_run('H2 sphere 17^3 tau0 10, f_H2 30, 4000 photons',
+               testing.h2_params(tau0=10.0, n=17, nphotons=4000, batch=4096,
+                                 f_H2=30.0), dev)
+    assert all(c.get(k) for k in need), c
 
 
 def run_cli(nml, out, device='cuda'):
@@ -1221,6 +1502,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         peel_cli(tmp, device, total)
         dl2008_cli(tmp, device, total)
         lines_cli(tmp, device, total)
+        lyb_h2_cli(tmp, device, total)
     return total
 
 
@@ -1387,6 +1669,67 @@ def lines_cli(tmp, device, total, hd_photons=HD_PHOTONS):
                f'{launches}')
 
 
+def lyb_h2_cli(tmp, device, total):
+    """The slice's examples through the CLI as written (FITS): Ly-beta
+    t4tau1e4.in and t4tau1e4_dust.in (the band budgets close, W_conv /
+    nscatt_gas is P_down[1], the Spectrum keywords, Jout_Ha, Jabs_Ha, J2gam
+    and the _peel3D file's peel_Ha cube are written), and h2_on.in (the
+    weight closes with H2's destroyed share; the H2 keywords).  The launch
+    counts of the Ly-beta runs go into total['lyb'], h2_on's into
+    total['h2']."""
+    from lart_tpu_torch.io.iofile import open_read
+    from lart_tpu_torch.io.writer import read_spectrum
+    for rel, key in ((LYB, 'lyb'), (LYB_DUST, 'lyb'), (H2_ON, 'h2')):
+        nml = namelist_variant(rel, tmp)
+        out = Path(tmp) / (Path(rel).stem + '.fits')
+        rc, res, wall, launches = run_cli(nml, out, device)
+        assert rc == 0
+        spec = read_spectrum(str(out))
+        x, jout = res.xfreq, res.Jout
+        assert np.all(np.isfinite(jout)) and jout.shape == x.shape
+        need = ('refill_point', 'fly_cartesian', 'scatter_lya')
+        if key == 'lyb':
+            need += ('peel',)
+            w1 = res.W_esc1 + res.W_abs1 + res.W_conv
+            w2 = res.W_esc2 + res.W_abs2
+            assert abs(w1 - 1.0) < 1e-3 and abs(w2 - res.W_conv) < 1e-3, (
+                w1, w2, res.W_conv)
+            pconv = res.W_conv / res.nscatt_gas
+            assert abs(pconv - 0.11834) < 0.02, pconv
+            assert float(spec['W_conv']) == res.W_conv
+            with open_read(str(out)) as f:
+                assert {'Jout_Ha', 'Jabs_Ha', 'J2gam'} <= set(f.keys())
+                ha = np.asarray(f['Jout_Ha/data'])
+            with open_read(str(Path(tmp) / f'{Path(rel).stem}_peel3D.fits')
+                           ) as f:
+                cube = np.asarray(f['peel_Ha/data'])
+            om = res.obs_meta
+            assert cube.shape == (res.meta.nxfreq, om.nxim, om.nyim)
+            assert ha.sum() > 0.0 and cube.sum() > 0.0
+            extra = (f'W_esc1 {res.W_esc1:.6f} + W_abs1 {res.W_abs1:.6f} + '
+                     f'W_conv {res.W_conv:.6f} = {w1:.6f}, W_esc2 '
+                     f'{res.W_esc2:.6f} + W_abs2 {res.W_abs2:.6e} = W_conv '
+                     f'to {abs(w2 - res.W_conv):.1e}, W_conv / nscatt_gas '
+                     f'{pconv:.5f}, peel_Ha {cube.shape}')
+        else:
+            w = res.W_escape + res.W_oor + res.W_H2abs
+            assert abs(w - 1.0) < 1e-3, (res.W_escape, res.W_oor,
+                                         res.W_H2abs)
+            assert str(spec['H2MODEL']).strip() == 'neufeld'
+            assert float(spec['H2ABS']) == res.W_H2abs > 0.0
+            extra = (f'W_esc {res.W_escape:.6f} + W_oor {res.W_oor:.6f} + '
+                     f'W_H2abs {res.W_H2abs:.6f} = {w:.6f}, W_H2scat '
+                     f'{res.W_H2scat:.6f}, W_H2pump {res.W_H2pump}')
+        add_launches(total, launches, need)
+        sub = total.setdefault(key, {})
+        for k, v in launches.items():
+            sub[k] = sub.get(k, 0) + v
+        log(4, f'CLI {Path(rel).name} as written ({res.nphotons} photons, '
+               f'{res.meta.nx}^3, line type {res.cfg.line.line_type}, FITS):'
+               f' {extra}, <N_scatt> {res.nscatt_gas:.2f}, wall {wall:.1f} '
+               f's; launches {launches}')
+
+
 def device_ms(calls):
     """Device ms per launch of calls[i](): a sleep holds the stream while
     the host enqueues every call, so the launches run back to back and the
@@ -1450,7 +1793,7 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
     from lart_tpu_torch.transport.state import zero_tallies
     ch, st = p.chunk, p.state
     fmod = sys.modules[type(ch.flight).__module__]
-    tl = zero_tallies(p.meta.nxfreq, 0, st.device)
+    tl = zero_tallies(p.meta.nxfreq, 0, st.device, ch.lyb, ch.h2)
 
     def new_record():
         return None if ch.peel is None else tpeel.PeelRecord.zeros(
@@ -1513,7 +1856,8 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
                       bound(*kernel_work(k, post, ch, p.meta, stats)))
             log(5, f'{label} peel work: {stats["lanes"]} scattered lanes '
                    f'({stats["seen"]} with a pair in an image, '
-                   f'{stats["seen_dust"]} of them at a dust event), '
+                   f'{stats["seen_dust"]} of them at a dust event, '
+                   f'{stats["seen_conv"]} at a conversion), '
                    f'{stats["pairs"]} (observer, lane) pairs walked, '
                    f'{stats.get("crossings", 0)} cell crossings over '
                    f'{stats["cells"]} distinct cells, {stats["bins"]} '
@@ -1526,8 +1870,13 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
         call_ms, plain_ms = turns(
             lambda: kern(work), lambda: plain(work), reps,
             lambda: testing.copy_state_(work, pre))
+        stats = {}
+        if k == 'fly_cartesian':
+            # the steps the walk takes on these inputs (its H2 flops)
+            fmod.fly_plain(testing.clone_state(pre), tl, ch.flight,
+                           ch.fly_substeps, stats=stats)
         out[k] = dev_ms, call_ms, plain_ms, bound(*kernel_work(
-            k, pre, ch, p.meta))
+            k, pre, ch, p.meta, stats))
     for k, (dev_ms, call_ms, plain_ms, bnd) in out.items():
         if k in record:
             res.setdefault(k + suffix, {}).update(ms=dev_ms, plain_ms=plain_ms,
@@ -1725,10 +2074,32 @@ def phase5(dev, res):
             branch_shift_share(p, card, key)
         kernel_times(p, card, key, res, names, record=record, suffix=LINES)
         del p
-    k4 = res['scatter_lya']['ms']
-    log(5, f'flagship K4 scatter_lya (line type 1 instance) {k4:.6f} ms '
-           f'against 0.014728 ms before the metal lines (PR 4, the same '
-           f'measurement): {100 * (k4 / 0.014728 - 1):+.1f}%')
+
+    # this slice's examples as written: Ly-beta t4tau1e4.in with its
+    # observer (K5 with the H-alpha band, K4's conversions, K7's conversion
+    # peel), and h2_on.in (K5 and K4 with H2, core-skip)
+    slice_cells = (
+        ('t4tau1e4 (Ly-beta, type 8, 101^3, tau0 1e4, 51x51 x 121 cube)',
+         'lyb', example_params(LYB, **over),
+         ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel'),
+         ('fly_cartesian', 'scatter_lya', 'peel'), LT8),
+        ('h2_on (Ly-alpha + H2 f_H2 0.03, 101^3, tau 1e5, core-skip)', 'h2',
+         example_params(H2_ON, **over),
+         ('refill_point', 'fly_cartesian', 'scatter_lya'),
+         ('fly_cartesian', 'scatter_lya'), H2))
+    for label, key, cpar, names, record, suffix in slice_cells:
+        p, _ = rate_window(label, cpar, dev)
+        card = smi()
+        profile_chunks(p, card, key)
+        kernel_times(p, card, key, res, names, record=record, suffix=suffix)
+        del p
+    for name, was in (('scatter_lya', 0.014622), ('fly_uniform_slab',
+                                                   0.010883)):
+        ms = res[name]['ms']
+        log(5, f'flagship {name} (line type 1 instance) {ms:.6f} ms against '
+               f'{was:.6f} ms before the line-type-8 and H2 branches (the '
+               f'same measurement):'
+               f' {100 * (ms / was - 1):+.1f}%')
 
 
 KERNELS = {
@@ -1762,6 +2133,21 @@ LINE_INLINES = {
     'scatter_lya': 'redistribute and line_profile (lart_tpu_torch/csrc/'
                    'line.cuh, replace lart_tpu/transport/engine.py:1931, '
                    ':621)',
+}
+
+
+# the kernels with this slice's branches, and the TPU functions they replace
+SLICE_KERNELS = (
+    ('fly_cartesian', 'lart_tpu/transport/engine.py:1057'),
+    ('scatter_lya', 'lart_tpu/transport/engine.py:1838'),
+    ('peel', 'lart_tpu/instruments/peel.py:62'))
+SLICE_INLINES = {
+    LT8: 'redistribute with the 3p -> 2s conversion (lart_tpu_torch/csrc/'
+         'line.cuh, replaces lart_tpu/transport/engine.py:2053) and the '
+         'H-alpha band\'s dust-only opacity (lart_tpu_torch/csrc/walk.cuh, '
+         'replaces lart_tpu/transport/engine.py:1121)',
+    H2: 'h2_kappa and h2_line_weight (lart_tpu_torch/csrc/h2.cuh, replace '
+        'lart_tpu/physics/h2.py:109,123)',
 }
 
 
@@ -1808,6 +2194,21 @@ def main(argv=None):
                 k, 'line_profile (lart_tpu_torch/csrc/line.cuh, replaces '
                    'lart_tpu/transport/engine.py:621)'))
             for k, rep in LINE_KERNELS.items()]
+        # this slice's branches: line type 8 in the metal-line instances,
+        # H2 in the instances built with it (launches of the examples'
+        # runs in phase 4)
+        for suffix, key, kernels in ((LT8, 'lyb', SLICE_KERNELS),
+                                     (H2, 'h2', SLICE_KERNELS[:2])):
+            counts = launches.get(key, {})
+            line['kernels'] += [dict(
+                name=k + suffix, route='cuda', source=KERNELS[k][0],
+                replaces=rep, launches=counts[k],
+                max_abs_err=res[k + suffix]['max_abs_err'],
+                ms=res[k + suffix]['ms'], plain_ms=res[k + suffix]['plain_ms'],
+                bound_ms=res[k + suffix]['bound_ms'],
+                bound_by=res[k + suffix]['bound_by'], library_ms=None,
+                inlines=SLICE_INLINES[suffix])
+                for k, rep in kernels]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

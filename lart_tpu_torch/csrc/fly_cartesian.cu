@@ -3,8 +3,8 @@
 // boundaries and the comoving frequency update of a moving medium.
 //
 // Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
-// Cartesian DDA without H2, line type 8, atmospheres, the shearing box,
-// CALCJ/Pnew or all-photons records; uniform temperature).  The TPU runs a
+// Cartesian DDA without atmospheres, the shearing box, CALCJ/Pnew or
+// all-photons records; uniform temperature).  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch; here
 // one thread walks its own lane, at most max_steps crossings (the loop
 // condition n < max_steps, no "+ 2" as in the slab), so a forced first
@@ -14,23 +14,34 @@
 // as XLA computes them (transport/flight.py); the opacity of the current
 // cell is rhokap times the line's profile (line.cuh: H(x, a_ref) for line
 // type 1, the doublet, multiplet or H+D sum for the others; two kernel
-// instances), plus rhokapD with dust (walk.cuh cell_opacity).  Escapes go
+// instances), plus rhokap times the H2 multiplier with H2 pumping (h2.cuh,
+// the instances with kH2) and rhokapD with dust (walk.cuh cell_opacity).
+// Line type 8 (engine.py:1276-1283, :1312-1340, :1466-1495): a lane of the
+// H-alpha band sees the dust only (rhokapD R_Ha, or nothing), keeps its
+// lab frequency across cells and escapes into Jout_Ha at it; each band's
+// escaped weight, out-of-grid escapes included, goes to W_esc1 or W_esc2
+// by a block sum, and W_esc1 also takes each completed forced first
+// scattering's escaped fraction whose birth bin is on the grid.  Escapes go
 // to Jout/Jmu with f32 atomics at once (a lane escapes at most once a call),
 // weight outside the frequency grid through one block sum.  Bound: the
 // gathers.  Each crossing reads rhokap (and rhokapD) and, in a moving
 // medium, three velocity components of the old and new cell, 4-byte words
 // scattered over arrays of 4 nx ny nz bytes each (32 MB at 201^3, against a
-// 50 MB L2); the lane state is read and written once a call.
+// 50 MB L2); the lane state is read and written once a call.  H2 adds two
+// Voigt functions (~80 flops) a crossing and no bytes.
 #include "lart.cuh"
 #include "voigt.cuh"
 #include "walk.cuh"
 
-template <bool kMulti>
+template <bool kMulti, bool kH2>
 __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float oor = 0.0f;
+  float oor = 0.0f, esc1 = 0.0f, esc2 = 0.0f;
+  const bool lyb = kMulti && p.line.line_type == 8;
   int phase = i < B ? s.phase[i] : DEAD;
   if (phase == FLYING || phase == FFS) {
+    // the H-alpha band (line type 8), constant through a flight
+    const bool b2 = lyb && s.iband[i] == 2;
     float pos[3] = {s.x[i], s.y[i], s.z[i]};
     float dir[3] = {s.kx[i], s.ky[i], s.kz[i]};
     int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
@@ -38,7 +49,8 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
     for (int n = 0; n < max_steps && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
-      const float rho = cell_opacity<kMulti>(p, flat_index(p, cell[0], cell[1], cell[2]), xfreq);
+      const int f = flat_index(p, cell[0], cell[1], cell[2]);
+      const float rho = b2 ? band2_opacity(p, f) : cell_opacity<kMulti, kH2>(p, f, xfreq);
       float t[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
@@ -73,7 +85,9 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         const float bxfreq = s.bxfreq[i];
         const float u_b = p.moving ? vel_dot(p, bcell, bdir) : 0.0f;
         const float wgt_esc = wgt * expf(-tau0);
-        oor += tally_out(p, bxfreq + u_b, bdir[2], wgt_esc);
+        const float w_oor = tally_out(p, p.Jout, bxfreq + u_b, bdir[2], wgt_esc);
+        oor += w_oor;
+        if (lyb && w_oor == 0.0f) esc1 += wgt_esc;
         const float wgt1 = -expm1f(-tau0);
         phase = tau0 <= 0.0f ? DEAD : FLYING;
         pos[0] = s.bx[i];
@@ -92,12 +106,19 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         continue;
       }
       if (escaped && phase == FLYING) {
-        // escape, binned at the lab frequency of the cell being left
-        oor += tally_out(p, xfreq + u_old, dir[2], wgt);
+        // escape, binned at the lab frequency of the cell being left (the
+        // H-alpha band's frequency is a lab one)
+        if (b2) {
+          oor += tally_out(p, p.Jout_Ha, xfreq, dir[2], wgt);
+          esc2 += wgt;
+        } else {
+          oor += tally_out(p, p.Jout, xfreq + u_old, dir[2], wgt);
+          if (lyb) esc1 += wgt;
+        }
         phase = DEAD;
       } else if (hit) {
         phase = AT_SCATTER;
-      } else if (!escaped && p.moving) {
+      } else if (!escaped && p.moving && !b2) {
         // comoving frequency on a cell change: x' = (x + u1) D1/D2 - u2
         const float u2 = vel_dot(p, ncell, ndir);
         xfreq = (xfreq + u_old) * p.Dfreq / p.Dfreq - u2;
@@ -126,6 +147,10 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     s.tau_run[i] = tau_run;
   }
   block_sum_atomic(oor, p.W_oor);
+  if (lyb) {
+    block_sum_atomic(esc1, p.W_esc1);
+    block_sum_atomic(esc2, p.W_esc2);
+  }
 }
 
 LART_API int lart_flight_params_size() { return (int)sizeof(FlightParams); }
@@ -135,12 +160,17 @@ LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
   if (B > 0) {
     const int threads = 256;
     const int blocks = (B + threads - 1) / threads;
-    if (p->line.line_type == 1)
-      fly_cartesian_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          unpack_lanes(lanes), B, max_steps, *p);
+    const Lanes s = unpack_lanes(lanes);
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
+    if (!multi && !h2)
+      fly_cartesian_kernel<false, false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
+    else if (!multi)
+      fly_cartesian_kernel<false, true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
+    else if (!h2)
+      fly_cartesian_kernel<true, false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
     else
-      fly_cartesian_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          unpack_lanes(lanes), B, max_steps, *p);
+      fly_cartesian_kernel<true, true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
   }
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,7 @@ __global__ void fly_sphere_kernel(Lanes s, int B, int max_iter, FlightParams p) 
         const float tau0 = tau_n;
         const float bxfreq = s.bxfreq[i], bkz = s.bkz[i];
         const float wgt_esc = wgt * expf(-tau0);
-        oor += tally_out(p, bxfreq, bkz, wgt_esc);
+        oor += tally_out(p, p.Jout, bxfreq, bkz, wgt_esc);
         const float wgt1 = -expm1f(-tau0);
         phase = tau0 <= 0.0f ? DEAD : FLYING;
         x = s.bx[i];
@@ -71,7 +71,7 @@ __global__ void fly_sphere_kernel(Lanes s, int B, int max_iter, FlightParams p) 
         continue;
       }
       if (!hit) {  // escape at the (lab == comoving) frequency
-        oor += tally_out(p, xfreq, kz, wgt);
+        oor += tally_out(p, p.Jout, xfreq, kz, wgt);
         phase = DEAD;
       } else {
         phase = AT_SCATTER;

@@ -57,9 +57,10 @@ struct Lanes {
   float* nnx;
   float* nny;
   float* nnz;
+  int* iband;  // 1 the resonance line, 2 the H-alpha band (line type 8)
 };
 
-#define LART_N_LANE_FIELDS 33
+#define LART_N_LANE_FIELDS 34
 
 inline Lanes unpack_lanes(void* const* p) {
   Lanes s;
@@ -96,12 +97,14 @@ inline Lanes unpack_lanes(void* const* p) {
   s.nnx = (float*)p[30];
   s.nny = (float*)p[31];
   s.nnz = (float*)p[32];
+  s.iband = (int*)p[33];
   return s;
 }
 
 // The peel record of one cycle, written by K2 (flag: launched by this
-// refill) and by K4 (flag: the kind of event, 1 a resonance and 2 a dust
-// scattering; the pre-scatter direction, and with Stokes its triad and
+// refill) and by K4 (flag: the kind of event, 1 a resonance, 2 a dust
+// scattering and 4 a Ly-beta resonance that converts to H-alpha; the
+// pre-scatter direction, and with Stokes its triad and
 // Stokes vector, with a resonance's xfreq_atom and atom velocity, and its
 // phase weights E1, E2, E3 where they differ from event to event: line
 // types 2, 4, 5, 6), read by K7 right after.  The host passes the pointers in the
@@ -160,8 +163,9 @@ inline PeelRecord unpack_record(void* const* p) {
 #define FFS_TAU_CAP 25.0f
 
 // the line's constants and device functions (LineC, which FlightParams
-// embeds); included here, below the definitions they use
+// embeds), and H2's (H2C); included here, below the definitions they use
 #include "line.cuh"
+#include "h2.cuh"
 
 // Constants and device pointers of the K5 (fly_cartesian) and K6
 // (fly_uniform_sphere) flights, passed by pointer from the host and by value
@@ -176,6 +180,9 @@ struct FlightParams {
   float* Jout;
   float* Jmu;
   float* W_oor;
+  float* Jout_Ha;  // line type 8: the H-alpha band's escapes, and each
+  float* W_esc1;   //   band's escaped weight; null otherwise
+  float* W_esc2;
   int n[3];        // nx, ny, nz
   int bc[3];       // BC_ESCAPE, BC_PERIODIC, BC_REFLECT per axis
   int cell0[3];    // i0, j0, k0: reflect restarts in cell0 - 1
@@ -198,7 +205,9 @@ struct FlightParams {
   float sphere_R2;
   float sphere_rho;
   float sphere_rhoD;
+  float R_Ha;      // cext_dust_Ha / cext_dust: the H-alpha band's dust
   LineC line;      // the line: its opacity profile (line.cuh)
+  H2C h2;          // H2 pumping (the instances with kH2 read it)
 };
 
 enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };
@@ -208,13 +217,14 @@ __device__ inline int clamp_floor(float v, int n) {
 }
 
 // Escape tally at lab frequency xfreq_lab and direction cosine kz: adds w to
-// Jout (and Jmu) when the bin is on the frequency grid, else returns w, the
-// weight the caller sums into W_oor.
-__device__ inline float tally_out(const FlightParams& p, float xfreq_lab, float kz,
-                                  float w) {
+// the spectrum J (Jout, or Jout_Ha for the H-alpha band) and Jmu when the
+// bin is on the frequency grid, else returns w, the weight the caller sums
+// into W_oor.
+__device__ inline float tally_out(const FlightParams& p, float* J, float xfreq_lab,
+                                  float kz, float w) {
   const float fx = floorf((xfreq_lab - p.xfreq_min) / p.dxfreq);
   if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return w;
-  atomicAdd(&p.Jout[(int)fx], w);
+  atomicAdd(&J[(int)fx], w);
   if (p.save_jmu) {
     const float mu = p.mu_abs ? fabsf(kz) : kz;
     atomicAdd(&p.Jmu[(int)fx * p.nmu + clamp_floor((mu - p.mu_min) / p.dmu, p.nmu)], w);

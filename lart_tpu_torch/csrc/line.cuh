@@ -1,6 +1,6 @@
 // The resonance line on the device: its constants (LineC), its opacity
 // profile, its frequency redistribution at a scattering, and the birth
-// shift of a multi-level line, for line types 1, 2, 4, 5, 6 and 7.
+// shift of a multi-level line, for line types 1, 2, 4, 5, 6, 7 and 8.
 //
 // Replaces lart_tpu/transport/engine.py:621 line_profile (with the profile
 // wrappers of lart_tpu/physics/voigt.py:121-142), make_scatter's
@@ -56,6 +56,7 @@ struct LineC {
   float perp_D;             // 1 / ratio_Dfreq_HD
   float E1s, E2s, E3s;      // the line's own weights (types 1 and 7)
   float g_recoil0, g_recoil0_D;
+  float P_conv;             // type 8: P_down of the 3p -> 2s channel
 };
 
 // The profile's components at one cell: offsets dx (Doppler units) and
@@ -155,9 +156,10 @@ __device__ inline float branch_init_shift(const LineC& L, float u0, float u1, fl
 
 // What a redistribution gives a lane: whether a u_par round accepted, u_par,
 // xfreq_atom (with the fluorescent shift), the phase weights, the scale of
-// the perpendicular velocity and the recoil constant.
+// the perpendicular velocity and the recoil constant; for line type 8,
+// whether the scattering converts the photon to H-alpha.
 struct Redist {
-  bool acc;
+  bool acc, conv;
   float uz, xatom, E1, E2, E3, perp, g0;
 };
 
@@ -183,7 +185,9 @@ __device__ inline void he_coherent_E(float D2v, float Dx2, float Dx3, float& E1,
 // stream, and every line type but 1 draws block sel_block (after every block
 // a lane of earlier slices draws): its first uniform picks the upper level
 // (types 2, 5, 6; H or D in type 7) or, in type 4, the downward branch, its
-// second the downward branch of types 5 and 6.  A round stops the lane at
+// second the downward branch of types 5 and 6; in type 8 its first decides
+// the conversion (the downward channel 3p -> 2s, whose phase weights the
+// scattering then takes).  A round stops the lane at
 // its first acceptance; the later rounds' uniforms would be ignored anyway.
 template <bool kMulti>
 __device__ inline Redist redistribute(const LineC& L, float x, float a, float D, uint32_t seed,
@@ -194,6 +198,7 @@ __device__ inline Redist redistribute(const LineC& L, float x, float a, float D,
   r.E3 = L.E3s;
   r.perp = 1.0f;
   r.g0 = L.g_recoil0;
+  r.conv = false;
   const int lt = kMulti ? L.line_type : 1;
   float sel[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   LineProf q;
@@ -260,6 +265,12 @@ __device__ inline Redist redistribute(const LineC& L, float x, float a, float D,
     r.E1 = (2.0f * qK * qH + qH * qH) / fmaxf(qK * qK + 2.0f * qH * qH, LART_TINY);
     r.E2 = 1.0f - r.E1;
     r.E3 = (r.E1 + 2.0f) / 3.0f;
+  } else if (lt == 8) {
+    r.conv = sel[0] < L.P_conv;
+    const int b = r.conv ? 1 : 0;
+    r.E1 = L.E1[b];
+    r.E2 = L.E2[b];
+    r.E3 = L.E3[b];
   } else if (lt == 4 || lt == 5 || lt == 6) {
     // type 4: sel[0] picks the branch; types 5, 6: sel[1], for levels with
     // more than one branch

@@ -4,7 +4,8 @@
 // chord).
 //
 // Replaces lart_tpu/instruments/peel.py:62 make_peel: peel_direct (:446),
-// peel_resonance (:476), peel_dust (:577) and their sightline optical depth
+// peel_resonance (:476), peel_dust (:577), peel_conversion_Ha (:656) and
+// their sightline optical depth
 // tau_to_edge_cart (:176-356; a cell's opacity rhokap times the line's
 // profile, line.cuh, + rhokapD) or the sphere chord (:367-382; its profile's
 // offsets and damping parameters from the host, f64 quotients rounded once
@@ -13,8 +14,17 @@
 // phase weights (from the record for line types 2, 4, 5 and 6) and, with
 // recoil, at xfreq - (g_recoil0 / D)(1 - cos theta) (:513-514), the hydrogen
 // constant for a deuterium event of line type 7 too, as lart_tpu's peel
-// takes it.  Two kernel instances (line.cuh kMulti): line type 1, and the
-// others.  The TPU walks all (observer, lane)
+// takes it.  With H2 pumping the walk's opacity adds rhokap times the H2
+// multiplier (h2.cuh, :229-231).  Line type 8: K4 marks a scattering that
+// converts to H-alpha EVENT_CONVERSION, and its pair peels the newborn
+// photon (peel_conversion_Ha): the atom velocity's projection as its
+// frequency, no recoil, the conversion channel's dipole phase, the
+// H-alpha band's dust-only sightline (rhokapD R_Ha, :234-241; nothing to
+// walk without dust), into the Ha cube; a dust event of a lane in the
+// H-alpha band peels along that sightline at its lab frequency with
+// hgg_Ha into Ha.  Four kernel instances: line type 1 or the others
+// (line.cuh kMulti), each with H2 or without (kH2).  The TPU walks all
+// (observer, lane)
 // pairs in one lockstep while_loop over the whole batch until the last pair
 // leaves the grid; here one thread walks one (observer, lane) pair, thread
 // t = o * B + lane, and stops on its own.  The lanes to peel are those the
@@ -51,8 +61,8 @@
 #include "walk.cuh"
 
 // modes; a scatter mode is a mask of the record's kinds of event (K4's
-// EVENT_RESONANCE = 1, EVENT_DUST = 2)
-enum { PEEL_DIRECT = 0, PEEL_RESONANCE = 1, PEEL_DUST = 2 };
+// EVENT_RESONANCE = 1, EVENT_DUST = 2, EVENT_CONVERSION = 4)
+enum { PEEL_DIRECT = 0, PEEL_RESONANCE = 1, PEEL_DUST = 2, PEEL_CONVERSION = 4 };
 enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
 
 #define LART_FOURPI 12.566370614359172f
@@ -72,26 +82,31 @@ struct PeelParams {
   float* Q;
   float* U;
   float* V;
+  float* Ha;       // line type 8: the H-alpha band's cube, else null
   float* tau_out;  // optional (nobs * B): tau of each depositing pair
   int* bin_out;    // optional (nobs * B): its flat cube index
-  float* w_out;    // optional (4 * nobs * B): its deposits, I (scatt or
-                   //   direc), then Q, U, V of a Stokes resonance peel
+  float* w_out;    // optional (4 * nobs * B): its deposits, I (scatt, Ha
+                   //   or direc), then Q, U, V of a Stokes resonance peel
   int nobs, nxim, nyim, nxfreq, max_steps;
   int chord;       // uniform sphere: tau is one chord
   int stokes;
   int lab_source;  // moving medium without comoving_source
   int dust;        // DUST_OFF, DUST_HG or DUST_MUELLER
   float dxim, dyim;
-  float hg_num, hg_1pg2, hg_2g;  // 1 - g^2, 1 + g^2 and 2 g, rounded from f64
+  float hg_num, hg_1pg2, hg_2g;  // 1 - g^2, 1 + g^2 and 2 g (f64 rounded
+                                 //   once; line type 8: f32 operations)
   MuellerTable mueller;          // DUST_MUELLER
   int recoil;
   LineProf chord_prof;           // the chord's profile components
+  float hg_num_Ha, hg_1pg2_Ha, hg_2g_Ha;  // the H-alpha band's (type 8)
 };
 
-// optical depth from pos along k to the grid's edge at comoving frequency xf
-template <bool kMulti>
+// optical depth from pos along k to the grid's edge at comoving frequency
+// xf; band2: the H-alpha band's dust-only opacity (0 without dust)
+template <bool kMulti, bool kH2>
 __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
-                             const int cell0[3], const float k0[3], float xf) {
+                             const int cell0[3], const float k0[3], float xf, bool band2) {
+  if (band2 && !g.rhokapD) return 0.0f;
   if (p.chord) {
     const float H = kMulti ? line_profile_q(g.line, p.chord_prof, xf) : voigt_h(xf, g.a_ref);
     const float rho = g.sphere_rho * H + g.sphere_rhoD;
@@ -104,7 +119,8 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   int cell[3] = {cell0[0], cell0[1], cell0[2]};
   float tau = 0.0f;
   for (int n = 0; n < p.max_steps; ++n) {
-    const float rho = cell_opacity<kMulti>(g, flat_index(g, cell[0], cell[1], cell[2]), xf);
+    const int f = flat_index(g, cell[0], cell[1], cell[2]);
+    const float rho = band2 ? band2_opacity(g, f) : cell_opacity<kMulti, kH2>(g, f, xf);
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -128,7 +144,7 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   return tau;
 }
 
-template <bool kMulti>
+template <bool kMulti, bool kH2>
 __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightParams g,
                             PeelParams p) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -155,7 +171,12 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   const int iy = (int)floorf(atan2f(-oky, okz) * LART_RAD2DEG / p.dyim + 0.5f * (float)p.nyim);
   if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return;
 
-  // the comoving frequency toward the observer
+  // the comoving frequency toward the observer; a conversion's photon and
+  // a dust event of a lane in the H-alpha band see the dust only, and the
+  // latter's frequency is a lab one
+  const bool conv = kMulti && mode != PEEL_DIRECT && kind == PEEL_CONVERSION;
+  const bool b2 = kMulti && mode != PEEL_DIRECT && kind == PEEL_DUST &&
+                  g.line.line_type == 8 && s.iband[i] == 2;
   float xf, cost = 0.0f, cosp = 1.0f, sinp = 0.0f;
   if (mode == PEEL_DIRECT) {
     xf = s.xfreq[i];
@@ -169,7 +190,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
     if (kind == PEEL_DUST && !p.stokes) {
       // HG needs no azimuth
-    } else if (p.stokes) {
+    } else if (p.stokes && !conv) {
       // azimuth relative to the (m, n) triad
       const float ss = fmaxf(sint, 1e-20f);
       if (sint != 0.0f) {
@@ -185,9 +206,12 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
         sinp = inv * (kx * pk[1] - pk[0] * ky);
       }
     }
-    // dust scatters coherently in the comoving frame
+    // dust scatters coherently in the comoving frame; the H-alpha photon
+    // leaves the atom's line centre, with no recoil
     if (kind == PEEL_DUST) {
       xf = s.xfreq[i];
+    } else if (conv) {
+      xf = (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
     } else {
       xf = rec.xatom[i] + (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
       if (p.recoil) xf = xf - (g.line.g_recoil0 / g.Dfreq) * (1.0f - cost);
@@ -195,12 +219,12 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   }
 
   // freq_bin: the lab-frequency bin of xf at the event cell, along pk
-  const float xr = g.moving ? xf + vel_dot(g, cell, pk) : xf;
+  const float xr = g.moving && !b2 ? xf + vel_dot(g, cell, pk) : xf;
   const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
   if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
   const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + ix * p.nyim + iy;
 
-  const float tau = tau_to_edge<kMulti>(g, p, pos, cell, pk, xf);
+  const float tau = tau_to_edge<kMulti, kH2>(g, p, pos, cell, pk, xf, conv || b2);
   const float atten = expf(-fminf(tau, 700.0f));
   if (p.tau_out) {
     p.tau_out[t] = tau;
@@ -216,6 +240,14 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     return;
   }
   const float cost2 = cost * cost;
+  if (conv) {
+    // the dipole phase of the 3p -> 2s channel
+    const float phase = 0.75f * g.line.E1[1] * (cost2 + 1.0f) + g.line.E2[1];
+    const float w = phase / (LART_FOURPI * r2) * atten * wgt;
+    atomicAdd(&p.Ha[idx], w);
+    if (p.w_out) p.w_out[t] = w;
+    return;
+  }
   // the resonance's phase weights: the event's own for line types 2, 4-6
   const bool lane_E = kMulti && g.line.per_lane_E;
   const float E1 = lane_E ? rec.E1[i] : g.line.E1s;
@@ -225,13 +257,15 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     float w;
     if (kind == PEEL_DUST) {
       // Henyey-Greenstein (1 - g^2) / (1 + g^2 - 2 g cos)^1.5 / 4 pi
-      const float phase = p.hg_num / powf(p.hg_1pg2 - p.hg_2g * cost, 1.5f) / LART_FOURPI;
+      const float phase = b2 ? p.hg_num_Ha / powf(p.hg_1pg2_Ha - p.hg_2g_Ha * cost, 1.5f) /
+                                   LART_FOURPI
+                             : p.hg_num / powf(p.hg_1pg2 - p.hg_2g * cost, 1.5f) / LART_FOURPI;
       w = phase / r2 * atten * wgt;
     } else {
       const float phase = 0.75f * E1 * (cost2 + 1.0f) + E2;
       w = phase / (LART_FOURPI * r2) * atten * wgt;
     }
-    atomicAdd(&p.scatt[idx], w);
+    atomicAdd(&(b2 ? p.Ha : p.scatt)[idx], w);
     if (p.w_out) p.w_out[t] = w;
     return;
   }
@@ -290,12 +324,18 @@ LART_API int lart_peel(void* const* lanes, void* const* record, int B, int mode,
   if (n > 0) {
     const int threads = 128;
     const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    if (g->line.line_type == 1)
-      peel_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          unpack_lanes(lanes), unpack_record(record), B, mode, *g, *p);
+    const Lanes s = unpack_lanes(lanes);
+    const PeelRecord r = unpack_record(record);
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool multi = g->line.line_type != 1, h2 = g->h2.n_lines > 0;
+    if (!multi && !h2)
+      peel_kernel<false, false><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
+    else if (!multi)
+      peel_kernel<false, true><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
+    else if (!h2)
+      peel_kernel<true, false><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
     else
-      peel_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          unpack_lanes(lanes), unpack_record(record), B, mode, *g, *p);
+      peel_kernel<true, true><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
   }
   return (int)cudaGetLastError();
 }

@@ -29,9 +29,10 @@
 // D_loc / Dfreq_ref it is divided by is 1 at uniform temperature.
 // A launched lane is unpolarized (Q = U = V = 0) with the reference triad
 // m = (cos t cos p, cos t sin p, -sin t), n = (-sin p, cos p, 0) of its
-// direction (engine.py:2863-2873).  With peel-off on, the record's flag is
-// written on every lane: 1 where this call launched, else 0; K7 then peels
-// exactly those lanes (engine.py:2909-2913).
+// direction (engine.py:2863-2873), in the resonance line's band (iband 1,
+// engine.py:2888; line type 8's conversions move it to 2).  With peel-off
+// on, the record's flag is written on every lane: 1 where this call
+// launched, else 0; K7 then peels exactly those lanes (engine.py:2909-2913).
 // Bound: one pass over the state (about 130 bytes a launched lane written,
 // 4 a lane read), memory-bound; the ticket atomics are one per warp.
 #include "lart.cuh"
@@ -134,6 +135,7 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   s.nnx[i] = -sinp;
   s.nny[i] = cosp;
   s.nnz[i] = 0.0f;
+  s.iband[i] = 1;  // the resonance line's band (engine.py:2888)
 }
 
 // record: the PeelRecord pointer table, or null with peel-off off

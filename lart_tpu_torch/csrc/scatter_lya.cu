@@ -1,10 +1,12 @@
-// K4 scatter_lya: resonant scattering of line types 1, 2, 4, 5, 6 and 7 and
-// dust events (absorption, Henyey-Greenstein or Mueller-matrix scattering),
-// without H2, with or without recoil, core-skip, Stokes and the peel record.
+// K4 scatter_lya: resonant scattering of line types 1, 2, 4, 5, 6, 7 and 8,
+// dust events (absorption, Henyey-Greenstein or Mueller-matrix scattering)
+// and H2 pumping events, with or without recoil, core-skip, Stokes and the
+// peel record.
 //
 // Replaces lart_tpu/transport/engine.py:1838 make_scatter / :2087 scatter
 // (redistribute, :1931-2086, through line.cuh; the recoil of :2224-2229;
-// and the dust branch, :2111-2142, :2270-2381).  The TPU runs
+// the dust branch, :2111-2142, :2270-2381; the H2 branch, :2383-2435; the
+// Ly-beta conversion, :2510-2528).  The TPU runs
 // scatter_rounds masked rejection rounds of the u_par sampler over the whole
 // batch; here each thread runs the rounds for its own lane and stops at the
 // first acceptance (the later rounds' uniforms would be ignored anyway).  A
@@ -58,6 +60,24 @@
 // cell's two opacities, a few table reads and one Jabs atomic, and the
 // Jabs atomics of a shell's absorptions land on the few dozen bins of the
 // line, where they serialize.
+// H2 pumping (the instances with kH2; h2.cuh): the event split draws block
+// H = 3 rounds + 5 (after every block an earlier slice draws, so a run
+// without H2 draws as before): an H2 event with probability kap_H2 /
+// (kap_HI + kap_H2 + kap_D), kap_H2 = rk h2_kappa, then the dust split on
+// the rest.  An H2 event picks its line by h2_line_weight, is destroyed with
+// probability 1 - p_scat (the lane dies, W_H2abs), else draws u_par on the
+// H2 line from blocks H + 2 + r (x_h2 = (x - dnu / D) ratio, the line's
+// damping), an isotropic direction from blocks H and H + 1, and the
+// frequency x_h2' / ratio + dnu / D (W_H2scat, nscatt_gas); W_H2pump sums
+// each H2 event's weight by line.  It costs two Voigt functions at the
+// split, two more at the line choice, and the u_par rounds.
+// Line type 8 (the kMulti instance): a resonance converts to H-alpha where
+// the redistribution's conversion draw says (line.cuh): no recoil, the band
+// set to 2, the lab frequency (x_new - x_atom) + u.k of the new direction,
+// W_conv; the record marks it EVENT_CONVERSION.  A lane of the H-alpha band
+// meets dust only: each of its events is a dust event with albedo_Ha and
+// hgg_Ha, its absorptions going to Jabs_Ha at its lab frequency; W_abs1 and
+// W_abs2 sum each band's absorbed weight by block sums.
 #include "lart.cuh"
 #include "mueller.cuh"
 #include "philox.cuh"
@@ -67,7 +87,7 @@
 
 enum { CORE_SKIP_OFF = 0, CORE_SKIP_LOCAL = 1, CORE_SKIP_GLOBAL = 2 };
 enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
-enum { EVENT_RESONANCE = 1, EVENT_DUST = 2 };
+enum { EVENT_RESONANCE = 1, EVENT_DUST = 2, EVENT_CONVERSION = 4 };
 
 // The scatter's constants, grid and tallies; the host passes it by pointer
 // and the kernel by value.  lart_tpu_torch/transport/scatter.py ScatterC
@@ -96,6 +116,15 @@ struct ScatterParams {
   float Dfreq;           // Doppler width of every cell (uniform temperature)
   int recoil;
   LineC line;
+  H2C h2;                // H2 pumping (the kH2 instances)
+  float* Jabs_Ha;        // line type 8: the H-alpha band's absorbed
+  float* W_conv;         //   spectrum, the conversions' weight and each
+  float* W_abs1;         //   band's absorbed weight
+  float* W_abs2;
+  float* W_H2abs;        // H2: destroyed, scattered and pumped (2) weight
+  float* W_H2scat;
+  float* W_H2pump;
+  float albedo_Ha, one_m_albedo_Ha, hgg_Ha;
 };
 
 __device__ inline int scatter_cell(const ScatterParams& p, const Lanes& s, int i) {
@@ -244,24 +273,31 @@ __device__ inline void mueller_turn(const Lanes& s, int i, float cost, float sin
   s.V[i] = (-S[3] * U0 + S[2] * V) / I1;
 }
 
+// u . k of lane i's cell along its direction (moving medium)
+__device__ inline float lane_vel_dot(const ScatterParams& p, const Lanes& s, int i) {
+  const int f = scatter_cell(p, s, i);
+  return p.vfx[f] * s.kx[i] + p.vfy[f] * s.ky[i] + p.vfz[f] * s.kz[i];
+}
+
 // A dust event of lane i (engine.py:2270-2381): absorption or scattering,
 // the Jabs deposit; returns EVENT_DUST where the lane scattered, else 0.
-// d is block D's uniforms, cosp/sinp the resonance azimuth (HG's).
+// d is block D's uniforms, cosp/sinp the resonance azimuth (HG's); b2 marks
+// a lane of the H-alpha band (line type 8: its albedo and g, Jabs_Ha at its
+// lab frequency); wabs receives the absorbed weight.
 __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelRecord& rec,
                           int i, uint32_t seed, uint32_t counter, const float d[4],
-                          float cosp, float sinp, float tau_u) {
+                          float cosp, float sinp, float tau_u, bool b2, float& wabs) {
   const float wgt = s.wgt[i];
-  const bool absorbed = !p.reduced_wgt && d[1] > p.albedo;
+  const float albedo = b2 ? p.albedo_Ha : p.albedo;
+  const bool absorbed = !p.reduced_wgt && d[1] > albedo;
   if (absorbed || p.reduced_wgt) {
     // Jabs at the lab frequency of the lane's cell
     float xlab = s.xfreq[i];
-    if (p.vfx) {
-      const int f = scatter_cell(p, s, i);
-      xlab = xlab + (p.vfx[f] * s.kx[i] + p.vfy[f] * s.ky[i] + p.vfz[f] * s.kz[i]);
-    }
+    if (p.vfx && !b2) xlab = xlab + lane_vel_dot(p, s, i);
+    const float wab = p.reduced_wgt ? wgt * (b2 ? p.one_m_albedo_Ha : p.one_m_albedo) : wgt;
+    wabs = wab;
     const float fx = floorf((xlab - p.xfreq_min) / p.dxfreq);
-    if (fx >= 0.0f && fx < (float)p.nxfreq)
-      atomicAdd(&p.Jabs[(int)fx], p.reduced_wgt ? wgt * p.one_m_albedo : wgt);
+    if (fx >= 0.0f && fx < (float)p.nxfreq) atomicAdd(&(b2 ? p.Jabs_Ha : p.Jabs)[(int)fx], wab);
   }
   if (absorbed) {
     // dead, with the next optical depth drawn as for any event (engine.py:
@@ -282,7 +318,7 @@ __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelReco
                         phi))
       return 0;  // stays AT_SCATTER
   } else {
-    cost = rand_henyey_greenstein(d[2], p.hgg);
+    cost = rand_henyey_greenstein(d[2], b2 ? p.hgg_Ha : p.hgg);
   }
   const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
   if (rec.flag) write_record_dir(rec, s, i, p.stokes);
@@ -296,44 +332,137 @@ __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelReco
     s.kz[i] = kz;
   }
   s.phase[i] = FLYING;
-  if (p.reduced_wgt) s.wgt[i] = wgt * p.albedo;
+  if (p.reduced_wgt) s.wgt[i] = wgt * albedo;
   s.tau_target[i] = -logf(fmaxf(tau_u, 1e-12f));
   s.tau_run[i] = 0.0f;
   return EVENT_DUST;
 }
 
-template <bool kMulti>
+// What an H2 event adds to the tallies.
+struct H2Tally {
+  float abs, scat, pump0, pump1;
+};
+
+// An H2 event of lane i (engine.py:2383-2435): hu is block H's uniforms
+// (the split, the line, the destruction, the cosine); returns the weight
+// scattered back to Ly-alpha (0 if destroyed or if the u_par rounds fail,
+// where the lane stays AT_SCATTER).
+__device__ float h2_event(const ScatterParams& p, const Lanes& s, int i, uint32_t seed,
+                          uint32_t counter, const float hu[4], H2Tally& t) {
+  const int H = 3 * p.rounds + 5;
+  const float xfreq = s.xfreq[i], wgt = s.wgt[i], D = p.Dfreq;
+  const float w0 = h2_line_weight(p.h2, 0, xfreq, D), w1 = h2_line_weight(p.h2, 1, xfreq, D);
+  const int il = hu[1] * fmaxf(w0 + w1, LART_TINY) > w0 ? 1 : 0;
+  if (il) {
+    t.pump1 = wgt;
+  } else {
+    t.pump0 = wgt;
+  }
+  float v[4];
+  if (hu[2] > p.h2.p_scat[il]) {
+    // fluorescent destruction; the next optical depth drawn as for any event
+    t.abs = wgt;
+    uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(p.rounds + 1), v);
+    s.phase[i] = DEAD;
+    s.tau_target[i] = -logf(fmaxf(v[0], 1e-12f));
+    s.tau_run[i] = 0.0f;
+    return 0.0f;
+  }
+  // u_par on the H2 line, in its Doppler units
+  const float ratio = h2_ratio(p.h2, D);
+  const float dx_l = p.h2.dnu[il] / D;
+  const float x_h2 = (xfreq - dx_l) * ratio;
+  const VzEnv env = vz_envelope(x_h2, p.h2.a_damp[il]);
+  float uz = 0.0f;
+  bool acc = false;
+  for (int k = 0; k < p.rounds && !acc; ++k) {
+    uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(H + 2 + k), v);
+    acc = vz_round(v, env, &uz);
+  }
+  if (!acc) return 0.0f;
+  // an isotropic direction and the atom's perpendicular velocity
+  float hv[4];
+  uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(H + 1), hv);
+  const float cost = 2.0f * hu[3] - 1.0f;
+  const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+  const float phi = LART_TWOPI * hv[0], phi2 = LART_TWOPI * hv[1];
+  const float uxy = sqrtf(-logf(hv[2]));
+  const float ux = uxy * cosf(phi2), uy = uxy * sinf(phi2);
+  const float cosp = cosf(phi), sinp = sinf(phi);
+  const float x_new = (x_h2 - uz) + uz * cost + (ux * cosp + uy * sinp) * sint;
+  float kx = s.kx[i], ky = s.ky[i], kz = s.kz[i];
+  rotate_direction(kx, ky, kz, cost, sint, cosp, sinp);
+  s.kx[i] = kx;
+  s.ky[i] = ky;
+  s.kz[i] = kz;
+  uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(p.rounds + 1), v);
+  s.phase[i] = FLYING;
+  s.xfreq[i] = x_new / ratio + dx_l;
+  s.tau_target[i] = -logf(fmaxf(v[0], 1e-12f));
+  s.tau_run[i] = 0.0f;
+  t.scat = wgt;
+  return wgt;
+}
+
+template <bool kMulti, bool kH2>
 __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed,
                                    uint32_t counter, ScatterParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float w_sum = 0.0f, n_sum = 0.0f, wd_sum = 0.0f;
+  float conv_w = 0.0f, abs1 = 0.0f, abs2 = 0.0f;  // line type 8
+  H2Tally h2t = {0.0f, 0.0f, 0.0f, 0.0f};
   int kind = 0;
   const int rounds = p.rounds;
+  const bool lyb = kMulti && p.line.line_type == 8;
   if (i < B && s.phase[i] == AT_SCATTER) {
     const float xfreq = s.xfreq[i];
-    bool is_dust = false;
-    float d[4];
-    if (p.dust) {
-      // the event split: dust with probability kap_D / (kap_HI + kap_D)
-      uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(2 * rounds + 2), d);
+    // the H-alpha band (line type 8) meets dust only; without dust it
+    // stays as it is
+    const bool b2 = lyb && s.iband[i] == 2;
+    bool is_dust = false, is_h2 = false;
+    float d[4], hu[4];
+    if (b2) {
+      is_dust = p.dust != DUST_OFF;
+      if (is_dust)
+        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(2 * rounds + 2), d);
+    } else if (p.dust || kH2) {
       float rk = p.rk_const, kD = p.rkD_const;
       if (!(rk > 0.0f)) {
         const int f = scatter_cell(p, s, i);
         rk = p.rhokap[f];
-        kD = p.rhokapD[f];
+        kD = p.dust ? p.rhokapD[f] : 0.0f;
       }
       const float kap_HI = rk * line_profile<kMulti>(p.line, xfreq, p.a, p.Dfreq);
-      is_dust = d[0] <= kD / fmaxf(kap_HI + kD, LART_TINY);
+      if (kH2) {
+        // the H2 split: H2 with probability kap_H2 / (kap_HI + kap_H2 + kap_D)
+        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(3 * rounds + 5), hu);
+        const float kap_H2 = rk * h2_kappa(p.h2, xfreq, p.Dfreq);
+        float ktot = kap_HI + kap_H2;
+        if (p.dust) ktot = ktot + kD;
+        is_h2 = hu[0] * fmaxf(ktot, LART_TINY) <= kap_H2;
+      }
+      if (p.dust && !is_h2) {
+        // the dust split: dust with probability kap_D / (kap_HI + kap_D)
+        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(2 * rounds + 2), d);
+        is_dust = d[0] <= kD / fmaxf(kap_HI + kD, LART_TINY);
+      }
     }
     float u[4];
-    if (is_dust) {
+    if (kH2 && is_h2) {
+      w_sum = h2_event(p, s, i, seed, counter, hu, h2t);
+    } else if (is_dust) {
       wd_sum = s.wgt[i];
-      float t[4];
+      float t[4], wab = 0.0f;
       uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, u);
       uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), t);
       const float phi = LART_TWOPI * u[1];
-      kind = dust_event(p, s, rec, i, seed, counter, d, cosf(phi), sinf(phi), t[0]);
-    } else {
+      kind = dust_event(p, s, rec, i, seed, counter, d, cosf(phi), sinf(phi), t[0], b2, wab);
+      if (b2) {
+        abs2 = wab;
+      } else {
+        abs1 = wab;
+      }
+    } else if (!b2) {
       const Redist r = redistribute<kMulti>(p.line, xfreq, p.a, p.Dfreq, seed, counter, i,
                                             rounds, 3 * rounds + 4);
       bool acc = r.acc;
@@ -361,7 +490,8 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
           const float ux = uxy * cosf(phi2) * r.perp, uy = uxy * sinf(phi2) * r.perp;
           const float uz = r.uz, xfreq_atom = r.xatom;
           float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
-          if (p.recoil) xfreq_new = xfreq_new - (r.g0 / p.Dfreq) * (1.0f - cost);
+          // no recoil at a conversion (engine.py:2224-2229)
+          if (p.recoil && !r.conv) xfreq_new = xfreq_new - (r.g0 / p.Dfreq) * (1.0f - cost);
           if (rec.flag) {
             write_record_dir(rec, s, i, p.stokes);
             rec.xatom[i] = xfreq_atom;
@@ -385,12 +515,21 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
           }
           uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), u);
           s.phase[i] = FLYING;
-          s.xfreq[i] = xfreq_new;
+          if (lyb && r.conv) {
+            // 3p -> 2s: the H-alpha photon at the atom's line centre, its lab
+            // frequency along the new direction (engine.py:2510-2528)
+            const float u_new = p.vfx ? lane_vel_dot(p, s, i) : 0.0f;
+            s.xfreq[i] = xfreq_new - xfreq_atom + u_new;
+            s.iband[i] = 2;
+            conv_w = s.wgt[i];
+          } else {
+            s.xfreq[i] = xfreq_new;
+          }
           s.tau_target[i] = -logf(fmaxf(u[0], 1e-12f));
           s.tau_run[i] = 0.0f;
           w_sum = s.wgt[i];
           n_sum = 1.0f;
-          kind = EVENT_RESONANCE;
+          kind = r.conv ? EVENT_CONVERSION : EVENT_RESONANCE;
         }
       }
     }
@@ -399,6 +538,19 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
   block_sum_atomic(w_sum, p.nscatt_gas);
   block_sum_atomic(n_sum, p.nscatt_events);
   if (p.dust) block_sum_atomic(wd_sum, p.nscatt_dust);
+  if (kH2) {
+    block_sum_atomic(h2t.abs, p.W_H2abs);
+    block_sum_atomic(h2t.scat, p.W_H2scat);
+    block_sum_atomic(h2t.pump0, p.W_H2pump);
+    block_sum_atomic(h2t.pump1, p.W_H2pump + 1);
+  }
+  if (lyb) {
+    block_sum_atomic(conv_w, p.W_conv);
+    if (p.dust) {
+      block_sum_atomic(abs1, p.W_abs1);
+      block_sum_atomic(abs2, p.W_abs2);
+    }
+  }
 }
 
 // record: the PeelRecord pointer table, or null with peel-off off
@@ -407,12 +559,18 @@ LART_API int lart_scatter_lya(void* const* lanes, void* const* record, int B, un
   if (B > 0) {
     const int threads = 256;
     const int blocks = (B + threads - 1) / threads;
-    if (p->line.line_type == 1)
-      scatter_lya_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          unpack_lanes(lanes), unpack_record(record), B, seed, counter, *p);
+    const Lanes s = unpack_lanes(lanes);
+    const PeelRecord r = unpack_record(record);
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
+    if (!multi && !h2)
+      scatter_lya_kernel<false, false><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
+    else if (!multi)
+      scatter_lya_kernel<false, true><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
+    else if (!h2)
+      scatter_lya_kernel<true, false><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
     else
-      scatter_lya_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          unpack_lanes(lanes), unpack_record(record), B, seed, counter, *p);
+      scatter_lya_kernel<true, true><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
   }
   return (int)cudaGetLastError();
 }

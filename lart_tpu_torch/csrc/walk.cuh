@@ -15,13 +15,22 @@ __device__ inline int flat_index(const FlightParams& p, int i, int j, int k) {
 }
 
 // opacity of flat cell f at comoving frequency xf: rhokap times the line's
-// profile (line.cuh) plus the dust's rhokapD (engine.py:1111-1121
+// profile (line.cuh), plus rhokap times the H2 multiplier in the instances
+// with H2 (h2.cuh), plus the dust's rhokapD (engine.py:1106-1121
 // total_opacity)
-template <bool kMulti>
+template <bool kMulti, bool kH2>
 __device__ inline float cell_opacity(const FlightParams& p, int f, float xf) {
-  float rho = p.rhokap[f] * line_profile<kMulti>(p.line, xf, p.a_ref, p.Dfreq);
+  const float rk = p.rhokap[f];
+  float rho = rk * line_profile<kMulti>(p.line, xf, p.a_ref, p.Dfreq);
+  if (kH2) rho = rho + rk * h2_kappa(p.h2, xf, p.Dfreq);
   if (p.rhokapD) rho = rho + p.rhokapD[f];
   return rho;
+}
+
+// the H-alpha band's opacity (line type 8): the dust's, scaled to H-alpha
+// (engine.py:1121-1126), and none without dust
+__device__ inline float band2_opacity(const FlightParams& p, int f) {
+  return p.rhokapD ? p.rhokapD[f] * p.R_Ha : 0.0f;
 }
 
 // u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot)

@@ -33,7 +33,8 @@ from .config import Params
 from .grid.cartesian import build_cartesian
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
-from .transport.state import DEAD, BatchState, Tallies, init_state
+from .transport.state import (DEAD, H2_SCALARS, LYB_SCALARS, BatchState,
+                              Tallies, init_state)
 from .utils.device import resolve_device
 
 SHRINK_LADDER = (4096, 512)
@@ -72,20 +73,34 @@ def prepare(par: Params, *, seed: Optional[int] = None,
     return p
 
 
+# the optional tallies (line type 8, H2) in the order chunk_to_host reads
+EXTRA_TALLIES = ('Jout_Ha', 'Jabs_Ha') + LYB_SCALARS + H2_SCALARS \
+    + ('W_H2pump',)
+
+
 def chunk_to_host(tallies: Tallies, alive, launched) -> dict:
-    """One device->host copy of a chunk's tallies and control scalars."""
+    """One device->host copy of a chunk's tallies and control scalars
+    (the optional ones of line type 8 and H2 where the chunk has them)."""
+    extra = [(k, getattr(tallies, k)) for k in EXTRA_TALLIES
+             if getattr(tallies, k) is not None]
     parts = [tallies.Jin, tallies.Jout, tallies.Jabs, tallies.Jmu,
              torch.stack([tallies.nscatt_gas, tallies.nscatt_events,
                           tallies.W_oor, tallies.nscatt_dust]),
-             torch.stack([alive, launched])]
+             torch.stack([alive, launched])] + [t for _, t in extra]
     flat = torch.cat([t.reshape(-1).double() for t in parts]).cpu().numpy()
     n = tallies.Jin.numel()
     nmu = tallies.Jmu.numel()
     s = flat[3 * n + nmu:]
-    return {'Jin': flat[:n], 'Jout': flat[n:2 * n], 'Jabs': flat[2 * n:3 * n],
-            'Jmu': flat[3 * n:3 * n + nmu], 'nscatt_gas': s[0],
-            'nscatt_events': s[1], 'W_oor': s[2], 'nscatt_dust': s[3],
-            'alive': int(s[4]), 'launched': int(s[5])}
+    out = {'Jin': flat[:n], 'Jout': flat[n:2 * n],
+           'Jabs': flat[2 * n:3 * n], 'Jmu': flat[3 * n:3 * n + nmu],
+           'nscatt_gas': s[0], 'nscatt_events': s[1], 'W_oor': s[2],
+           'nscatt_dust': s[3], 'alive': int(s[4]), 'launched': int(s[5])}
+    at = 6
+    for k, t in extra:
+        m = t.numel()
+        out[k] = s[at] if t.dim() == 0 else s[at:at + m]
+        at += m
+    return out
 
 
 def compact_shrink(state: BatchState, B_new: int) -> BatchState:
@@ -112,6 +127,12 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
            'nscatt_dust': 0.0, 'nscatt_events': 0.0, 'W_oor': 0.0}
     if par.save_Jmu:
         acc['Jmu'] = np.zeros(meta.nxfreq * par.nmu)
+    # line type 8's and H2's tallies (driver.py:171-174, :295-298, :313-317)
+    extra = ((('Jout_Ha', 'Jabs_Ha') + LYB_SCALARS if p.chunk.lyb else ())
+             + (H2_SCALARS + ('W_H2pump',) if p.chunk.h2 else ()))
+    for k in extra:
+        acc[k] = np.zeros(2 if k == 'W_H2pump' else meta.nxfreq) \
+            if k in ('Jout_Ha', 'Jabs_Ha', 'W_H2pump') else 0.0
     peel = p.chunk.peel
     peel_acc = {} if peel is None else {
         'peel_' + k: torch.zeros_like(v, dtype=torch.float64)
@@ -126,7 +147,7 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
                 peel_acc['peel_' + k] += cube
         h = chunk_to_host(*out)
         for k in ('Jin', 'Jout', 'Jabs', 'Jmu', 'nscatt_gas',
-                  'nscatt_dust', 'nscatt_events', 'W_oor'):
+                  'nscatt_dust', 'nscatt_events', 'W_oor', *extra):
             if k in acc:
                 acc[k] += h[k]
         alive, launched = h['alive'], h['launched']

@@ -40,9 +40,24 @@ periodic, reflect) and, in a moving medium, its comoving frequency updates;
 it stops where tau exceeds 745.2 or after 2 (nx + ny + nz) + 8 crossings.
 The walk draws no random numbers.
 
-peel_conversion_Ha, the stellar direct peel, interior HEALPix observers and
-the clump/AMR sightlines are not ported (engine.check_supported names
-them).
+With H2 pumping the sightline's opacity adds rhokap times the H2
+multiplier (:229-231).  For line type 8 (Ly-beta) the record marks a
+scattering that converts to H-alpha EVENT_CONVERSION: instead of the
+resonance, the peel casts the newborn H-alpha photon (peel_conversion_Ha,
+:656-694), emitted at the atom's line centre, so its frequency toward the
+observer is the atom velocity's projection alone, with no recoil, the
+dipole phase of the conversion channel's E1, E2, and the dust-only
+sightline of the H-alpha band (rhokapD R_Ha, :234-241; none without dust,
+where the walk is skipped); it deposits into the Ha cube.  A dust event of
+a lane in the H-alpha band peels with hgg_Ha along that dust-only
+sightline at its own frequency, already a lab one (freq_bin, :430-441),
+into the Ha cube (:577-651); its band is the lane's, which a dust event
+keeps.  With line type 8, lart_tpu's g is a per-lane f32 array, so both
+bands' Henyey-Greenstein constants are f32 operations on the f32 g, where
+without it they are f64 ones rounded once.
+
+The stellar direct peel, interior HEALPix observers and the clump/AMR
+sightlines are not ported (engine.check_supported names them).
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels import build as kbuild
@@ -61,8 +77,8 @@ from ..physics import mueller as pmueller
 from ..transport.flight import BIG, FlightConsts, div, fma
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
-from ..transport.scatter import (DUST_OFF, EVENT_DUST, EVENT_RESONANCE,
-                                 dust_mode)
+from ..transport.scatter import (DUST_OFF, EVENT_CONVERSION, EVENT_DUST,
+                                 EVENT_RESONANCE, dust_mode)
 from .observer import build_observers
 
 RAD2DEG = 180.0 / math.pi
@@ -71,14 +87,15 @@ FOURPI = 4.0 * math.pi
 TAU_HUGE = 745.2
 # modes; a scatter mode peels the lanes whose record flag, K4's kind of
 # event, it has a bit of
-DIRECT, RESONANCE, DUST = 0, EVENT_RESONANCE, EVENT_DUST
-SCATTERED = RESONANCE | DUST
+DIRECT, RESONANCE, DUST, CONVERSION = (0, EVENT_RESONANCE, EVENT_DUST,
+                                       EVENT_CONVERSION)
+SCATTERED = RESONANCE | DUST | CONVERSION
 
 # order of the record's pointer table (csrc/lart.cuh unpack_record)
 PEEL_RECORD_FIELDS = ('flag', 'kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx',
                       'nny', 'nnz', 'Q', 'U', 'V', 'xatom', 'ux', 'uy',
                       'uz', 'E1', 'E2', 'E3')
-CUBE_FIELDS = ('scatt', 'direc', 'I', 'Q', 'U', 'V')
+CUBE_FIELDS = ('scatt', 'direc', 'I', 'Q', 'U', 'V', 'Ha')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -123,13 +140,15 @@ class PeelRecord:
 @dataclasses.dataclass(eq=False)
 class PeelCubes:
     """Flat (nobs*nxfreq*nxim*nyim,) f32 cubes of one chunk (PeelCubes,
-    lart_tpu/instruments/peel.py:35-45); I, Q, U, V with use_stokes."""
+    lart_tpu/instruments/peel.py:35-45); I, Q, U, V with use_stokes, Ha
+    (the H-alpha band) with line type 8."""
     scatt: torch.Tensor
     direc: torch.Tensor
     I: Optional[torch.Tensor] = None
     Q: Optional[torch.Tensor] = None
     U: Optional[torch.Tensor] = None
     V: Optional[torch.Tensor] = None
+    Ha: Optional[torch.Tensor] = None
 
     def items(self):
         """(name, tensor) of the cubes present."""
@@ -141,15 +160,29 @@ class PeelParams(ctypes.Structure):
     """csrc/peel.cu struct PeelParams, field for field."""
     _fields_ = [('obs_pos', _P), ('obs_rmat', _P),
                 ('scatt', _P), ('direc', _P), ('I', _P), ('Q', _P),
-                ('U', _P), ('V', _P), ('tau_out', _P), ('bin_out', _P),
-                ('w_out', _P),
+                ('U', _P), ('V', _P), ('Ha', _P), ('tau_out', _P),
+                ('bin_out', _P), ('w_out', _P),
                 ('nobs', _I), ('nxim', _I), ('nyim', _I), ('nxfreq', _I),
                 ('max_steps', _I), ('chord', _I), ('stokes', _I),
                 ('lab_source', _I), ('dust', _I), ('dxim', _F), ('dyim', _F),
                 ('hg_num', _F),
                 ('hg_1pg2', _F), ('hg_2g', _F),
                 ('mueller', pmueller.MuellerC), ('recoil', _I),
-                ('chord_prof', pline.LineProfC)]
+                ('chord_prof', pline.LineProfC), ('hg_num_Ha', _F),
+                ('hg_1pg2_Ha', _F), ('hg_2g_Ha', _F)]
+
+
+def hg_consts(g: float, f32_ops: bool):
+    """(1 - g^2, 1 + g^2, 2 g) of the Henyey-Greenstein peel: in f64 and
+    rounded once where lart_tpu's g is a Python float, else f32 operations
+    on the f32 g (line type 8's per-lane array)."""
+    if not f32_ops:
+        return pline.f32(1.0 - g * g), pline.f32(1.0 + g * g), \
+            pline.f32(2.0 * g)
+    g = np.float32(g)
+    g2 = g * g
+    return (float(np.float32(1.0) - g2), float(np.float32(1.0) + g2),
+            float(np.float32(2.0) * g))
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -169,6 +202,7 @@ class Peel:
     mueller: Optional[pmueller.MuellerTable] = None   # DUST_MUELLER
     recoil: bool = False
     chord_prof: Optional[pline.LineProf] = None   # the chord's profile
+    hgg_Ha: float = 0.0          # line type 8: the H-alpha band's g
 
     @classmethod
     def from_config(cls, cfg, meta, grid, uniform_sphere: bool
@@ -194,12 +228,24 @@ class Peel:
                        cfg, grid.rhokap.device) if dust else None,
                    recoil=bool(cfg.par.recoil),
                    chord_prof=pline.line_prof_f64(
-                       cfg.line, meta.voigt_a_ref, meta.Dfreq_ref))
+                       cfg.line, meta.voigt_a_ref, meta.Dfreq_ref),
+                   hgg_Ha=float(cfg.par.hgg_Ha))
+
+    @property
+    def lyb(self) -> bool:
+        """Line type 8: conversions and the H-alpha band peel too."""
+        return self.grid.line.line_type == 8
 
     @property
     def scatter_mode(self) -> int:
-        """The mode that peels K4's events: both kinds with dust."""
-        return SCATTERED if self.dust else RESONANCE
+        """The mode that peels K4's events: the resonances, with dust the
+        dust events, with line type 8 the conversions."""
+        return (RESONANCE | (DUST if self.dust else 0)
+                | (CONVERSION if self.lyb else 0))
+
+    def hg(self, band2: bool = False):
+        """(1 - g^2, 1 + g^2, 2 g) of a band's Henyey-Greenstein peel."""
+        return hg_consts(self.hgg_Ha if band2 else self.hgg, self.lyb)
 
     def device_tensors(self):
         return ((self.pos, self.rmat) + self.grid.device_tensors()
@@ -221,7 +267,8 @@ class Peel:
         st = self.stokes
         return PeelCubes(scatt=z(), direc=z(), I=z() if st else None,
                          Q=z() if st else None, U=z() if st else None,
-                         V=z() if st else None)
+                         V=z() if st else None,
+                         Ha=z() if self.lyb else None)
 
     @functools.cached_property
     def _c_params(self) -> PeelParams:
@@ -233,9 +280,8 @@ class Peel:
         c.chord, c.stokes = int(self.chord), int(self.stokes)
         c.lab_source, c.dust = int(self.lab_source), self.dust
         c.dxim, c.dyim = o.dxim, o.dyim
-        # the HG constants in f64, then f32, as lart_tpu's weak types
-        g = self.hgg
-        c.hg_num, c.hg_1pg2, c.hg_2g = 1.0 - g * g, 1.0 + g * g, 2.0 * g
+        c.hg_num, c.hg_1pg2, c.hg_2g = self.hg()
+        c.hg_num_Ha, c.hg_1pg2_Ha, c.hg_2g_Ha = self.hg(True)
         if self.mueller is not None:
             c.mueller = self.mueller.c_struct
         c.recoil = int(self.recoil)
@@ -281,22 +327,30 @@ def obs_geometry(p: Peel, o: int, x, y, z):
     return (pkx, pky, pkz), r2, img, in_img
 
 
-def freq_bin(p: Peel, cell, pk, xf):
+def freq_bin(p: Peel, cell, pk, xf, band2=None):
     """Lab-frequency bin of the comoving frequency xf at the event cell,
-    seen along pk (freq_bin, peel.py:430-441; uniform temperature)."""
+    seen along pk (freq_bin, peel.py:430-441; uniform temperature); where
+    the mask band2 is set, xf is a lab frequency already."""
     g = p.grid
     xr = xf + g.vel_dot(cell, *pk) if g.moving else xf
+    if band2 is not None:
+        xr = torch.where(band2, xf, xr)
     ixf = torch.floor(div(xr - g.xfreq_min, g.dxfreq)).to(torch.int32)
     return ixf, (ixf >= 0) & (ixf < g.nxfreq)
 
 
-def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
+def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
     """Optical depth from pos along k to the grid's edge for the `active`
     lanes (0 elsewhere): the chord through the uniform sphere, or the
-    lockstep DDA of tau_to_edge_cart with its early exit.  stats, a dict,
-    gains the count of cell crossings walked under 'crossings' and marks
-    the cells walked in its 'visited' mask."""
+    lockstep DDA of tau_to_edge_cart with its early exit; where the mask
+    band2 is set, the H-alpha band's dust-only opacity (0 without dust, and
+    nothing walked).  stats, a dict, gains the count of cell crossings
+    walked under 'crossings' and marks the cells walked in its 'visited'
+    mask."""
     g = p.grid
+    if band2 is not None and g.rhokapD is None:
+        active = active & ~band2
+        band2 = None
     if p.chord:
         rho = (g.sphere_rho * pline.line_profile_q(g.line, p.chord_prof, xf)
                + g.sphere_rhoD)
@@ -308,6 +362,7 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
     idx = active.nonzero().squeeze(1)
     pos, cell, k = ([v[idx] for v in vs] for vs in (pos, cell, k))
     xf, acc = xf[idx], tau[idx]
+    b2 = None if band2 is None else band2[idx]
     for _ in range(p.max_steps):
         if idx.numel() == 0:
             break
@@ -315,7 +370,7 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
         if stats is not None:
             stats['crossings'] = stats.get('crossings', 0) + idx.numel()
             _visit(stats, g, flat)
-        rho = g.opacity(flat, xf)
+        rho = g.opacity(flat, xf, b2)
         t = [_face_dist(pos[a], k[a], cell[a], g.amin[a], g.d[a])
              if g.walk[a] else torch.full_like(xf, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
@@ -340,6 +395,8 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None):
         tau[idx[done]] = acc[done]
         keep = ~done
         idx, xf, acc = idx[keep], xf[keep], acc[keep]
+        if b2 is not None:
+            b2 = b2[keep]
         pos, cell, k = ([v[keep] for v in vs] for vs in (npos, ncell, ndir))
     tau[idx] = acc      # the pairs still live after max_steps
     return tau
@@ -359,9 +416,12 @@ def _add(cube, idx, ok, w):
 
 def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
     """The comoving frequency toward the observer along pk of an event of
-    `kind` (DIRECT, RESONANCE or DUST), and at a scattering the observer
-    direction in the event's frame: (xf, cost, cosp, sinp); the last three
-    are None at a birth, and cosp, sinp without Stokes at a dust event."""
+    `kind` (DIRECT, RESONANCE, DUST or CONVERSION), and at a scattering the
+    observer direction in the event's frame: (xf, cost, cosp, sinp); the
+    last three are None at a birth, and cosp, sinp without Stokes at a dust
+    event.  The H-alpha photon of a conversion leaves the atom's line
+    centre: its frequency is the atom velocity's projection alone, with no
+    recoil (peel.py:680-682), its azimuth the geometric one."""
     cell = (s.ic, s.jc, s.kc)
     if kind == DIRECT:
         xf = s.xfreq
@@ -374,7 +434,7 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
     cost = rec.kx * pk[0] + rec.ky * pk[1] + rec.kz * pk[2]
     sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
     zero, one = torch.zeros_like(cost), torch.ones_like(cost)
-    if p.stokes:
+    if p.stokes and kind != CONVERSION:
         # azimuth relative to the (m, n) triad
         sint_safe = torch.clamp_min(sint, 1e-20)
         cosp = (pk[0] * rec.mx + pk[1] * rec.my + pk[2] * rec.mz) / sint_safe
@@ -394,6 +454,9 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
                            inv * (rec.kx * pk[1] - pk[0] * rec.ky))
     if kind == DUST:
         return s.xfreq, cost, cosp, sinp
+    if kind == CONVERSION:
+        return ((rec.ux * cosp + rec.uy * sinp) * sint + rec.uz * cost, cost,
+                cosp, sinp)
     xf = rec.xatom + (rec.ux * cosp + rec.uy * sinp) * sint + rec.uz * cost
     if p.recoil:
         # the hydrogen constant for every event, as lart_tpu's peel
@@ -417,21 +480,34 @@ def detector_qu(p: Peel, o: int, rec: PeelRecord, cosp, sinp, Qobs, Uobs):
 
 
 def scatter_deposits(p: Peel, kind: int, o: int, rec: PeelRecord, cost,
-                     cosp, sinp, atten, r2, wgt):
+                     cosp, sinp, atten, r2, wgt, band2=None):
     """The deposits of a scattering toward observer o, by cube: scatt, and
-    with Stokes I, Q, U, V (peel.py:526-561 resonance, :600-648 dust)."""
+    with Stokes I, Q, U, V (peel.py:526-561 resonance, :600-648 dust); a
+    conversion's, and a dust event's of the H-alpha band (the mask band2),
+    go to Ha (:642-651, :689-693)."""
     cost2 = cost * cost
     lc = p.grid.line
     E1, E2, E3 = (rec.E1, rec.E2, rec.E3) if lc.per_lane_E \
         else (lc.E1s, lc.E2s, lc.E3s)
+    if kind == CONVERSION:
+        # the dipole phase of the 3p -> 2s channel
+        phase = 0.75 * lc.E1[0][1] * (cost2 + 1.0) + lc.E2[0][1]
+        return {'Ha': phase / (FOURPI * r2) * atten * wgt}
     if not p.stokes:
         if kind == RESONANCE:
             phase = 0.75 * E1 * (cost2 + 1.0) + E2
             return {'scatt': phase / (FOURPI * r2) * atten * wgt}
-        g = p.hgg
-        den = torch.pow(1.0 + g * g - 2.0 * g * cost, 1.5)
-        phase = div(torch.full_like(den, 1.0 - g * g) / den, FOURPI)
-        return {'scatt': phase / r2 * atten * wgt}
+
+        def hg_phase(num, one_p, two_g):
+            den = torch.pow(one_p - two_g * cost, 1.5)
+            return div(torch.full_like(den, num) / den, FOURPI)
+        w = hg_phase(*p.hg()) / r2 * atten * wgt
+        if band2 is None:
+            return {'scatt': w}
+        w2 = hg_phase(*p.hg(True)) / r2 * atten * wgt
+        zero = torch.zeros_like(w)
+        return {'scatt': torch.where(band2, zero, w),
+                'Ha': torch.where(band2, w2, zero)}
     cos2p = 2.0 * cosp * cosp - 1.0
     sin2p = 2.0 * cosp * sinp
     Q0 = cos2p * rec.Q + sin2p * rec.U
@@ -465,7 +541,8 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
     """Plain PyTorch peel of the flagged lanes into `cubes`, in place
     (tau_out, bin_out, w_out as in peel()).  stats, a dict, gains the work
     the call needed: the flagged lanes with a pair in an image ('seen';
-    'seen_dust' of them at a dust event), the pairs that walk ('pairs'),
+    'seen_dust' of them at a dust event, 'seen_conv' at a conversion),
+    the pairs that walk ('pairs'),
     their cell crossings ('crossings'), the distinct grid cells read
     ('cells': those walked and, in a moving medium, the event cells of the
     pairs in an image) and the distinct cube bins deposited into
@@ -477,9 +554,13 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
     obs = p.obs_meta
     seen = torch.zeros(B, dtype=torch.bool, device=s.device)
     seen_dust = torch.zeros_like(seen)
+    seen_conv = torch.zeros_like(seen)
     bins = []
     kinds = (DIRECT,) if mode == DIRECT else tuple(
-        k for k in (RESONANCE, DUST) if mode & k)
+        k for k in (RESONANCE, DUST, CONVERSION) if mode & k)
+    # a dust event keeps its lane's band; a conversion's photon is H-alpha
+    lane_b2 = s.iband == 2 if p.lyb else None
+    all_b2 = torch.ones_like(seen)
 
     def put(out, c, ok, w):
         if out is not None:
@@ -490,13 +571,14 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
         pk, r2, img, in_img = obs_geometry(p, o, s.x, s.y, s.z)
         for kind in kinds:
             flag = rec.flag != 0 if kind == DIRECT else rec.flag == kind
-            if kind == DUST and not bool(flag.any()):
+            if kind in (DUST, CONVERSION) and not bool(flag.any()):
                 continue
             xf, cost, cosp, sinp = event_frequency(p, kind, s, rec, pk)
-            ixf, okf = freq_bin(p, cell, pk, xf)
+            b2 = lane_b2 if kind == DUST else None
+            ixf, okf = freq_bin(p, cell, pk, xf, b2)
             act = flag & in_img
             tau = tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, act & okf,
-                              stats)
+                              stats, all_b2 if kind == CONVERSION else b2)
             atten = torch.exp(-torch.clamp_max(tau, 700.0))
             idx = ((o * g.nxfreq + torch.clamp(ixf, 0, g.nxfreq - 1)).long()
                    * (obs.nxim * obs.nyim) + img)
@@ -505,6 +587,8 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
                 seen |= act
                 if kind == DUST:
                     seen_dust |= act
+                if kind == CONVERSION:
+                    seen_conv |= act
                 stats['pairs'] = stats.get('pairs', 0) + int(ok.sum())
                 bins.append(idx[ok])
                 if g.moving:
@@ -522,15 +606,20 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
                 put(w_out, 0, ok, w)
                 continue
             dep = scatter_deposits(p, kind, o, rec, cost, cosp, sinp, atten,
-                                   r2, s.wgt)
+                                   r2, s.wgt, b2)
             for name, w in dep.items():
                 _add(getattr(cubes, name), idx, ok, w)
-            for c, name in enumerate(('scatt', 'Q', 'U', 'V')):
+            # a pair's first deposit: scatt, or Ha (at most one is not 0)
+            first = [dep[n] for n in ('scatt', 'Ha') if n in dep]
+            put(w_out, 0, ok, first[0] if len(first) == 1
+                else first[0] + first[1])
+            for c, name in enumerate(('Q', 'U', 'V'), 1):
                 if name in dep:
                     put(w_out, c, ok, dep[name])
     if stats is not None:
         stats['seen'] = int(seen.sum())
         stats['seen_dust'] = int(seen_dust.sum())
+        stats['seen_conv'] = int(seen_conv.sum())
         stats['bins'] = int(torch.unique(torch.cat(bins)).numel()) \
             if bins else 0
         stats['cells'] = int(stats.pop('visited').sum()) \
@@ -541,13 +630,14 @@ def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
          tau_out=None, bin_out=None, w_out=None) -> None:
     """Peel the flagged lanes to every observer, in place: kernel K7 for a
     CUDA state, the plain version for a CPU state.  Mode DIRECT peels the
-    lanes whose flag is set; a scatter mode (RESONANCE, DUST or both,
-    SCATTERED) the lanes whose flag, K4's kind of event, it has a bit of.
+    lanes whose flag is set; a scatter mode (RESONANCE, DUST, CONVERSION or
+    a union of them, SCATTERED all three) the lanes whose flag, K4's kind
+    of event, it has a bit of.
     tau_out (nobs*B f32), bin_out (nobs*B int32) and w_out (4*nobs*B f32),
     given together or not at all, receive the optical depth, the flat cube
     index and the deposits of each (observer, lane) pair that deposits:
-    pair t = o*B + lane gets its scatt (scattering) or direc (direct)
-    deposit at w_out[t] and, in a scattering with Stokes, its Q, U, V
+    pair t = o*B + lane gets its scatt (scattering), Ha (conversion, the
+    H-alpha band's dust event) or direc (direct) deposit at w_out[t] and, in a scattering with Stokes, its Q, U, V
     deposits at w_out[t + c*nobs*B], c = 1, 2, 3."""
     if state.device.type == 'cpu':
         peel_plain(state, cubes, rec, p, mode, tau_out, bin_out, w_out)

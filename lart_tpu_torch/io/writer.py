@@ -1,10 +1,12 @@
 """Main output file with the LaRT section schema (HDF5 or FITS).
 
 Port of write_output / output_filename (lart_tpu/io/writer.py:40-64,
-:102-287): the Spectrum section with its keywords and the Jmu section, and
-with peel-off one _peel3D file per observer (Scattered/Direct cubes with
-spectral + TAN WCS keywords, RadialI, Stokes I/Q/U/V cubes and their
-Stokes_radial profiles; write_output_peeling_3D, :288-407) and, with
+:102-287): the Spectrum section with its keywords (H2 pumping's, and line
+type 8's band budgets, among them), the Jmu section, line type 8's
+Jout_Ha, Jabs_Ha and J2gam sections, and with peel-off one _peel3D file
+per observer (Scattered/Direct cubes with spectral + TAN WCS keywords,
+RadialI, Stokes I/Q/U/V cubes and their Stokes_radial profiles, the
+H-alpha band's peel_Ha cube; write_output_peeling_3D, :288-407) and, with
 save_peeloff_2D, one _peel2D file of frequency-integrated images (:66-99).
 It writes through the port's io/iofile.py, so the files have LaRT's schema
 and lart_tpu's readers read them.  FITS needs only numpy (io/minifits.py);
@@ -97,6 +99,9 @@ def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
     if 'I' in res.peel:
         for nm in 'IQUV':
             cubes[f'Stokes_{nm}'] = res.peel[nm][iobs]
+    if 'Ha' in res.peel:
+        # ly_beta band-2 H-alpha peel cube (write_output_rect.f90:1180-1185)
+        cubes['peel_Ha'] = res.peel['Ha'][iobs]
     wcs = {
         'CTYPE1': 'WAVE', 'CUNIT1': 'Angstrom',
         'CRPIX1': 1.0, 'CRVAL1': float(res.wavelength[0]),
@@ -116,7 +121,8 @@ def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
     px, py, pz = (float(v) for v in obs.pos_host[iobs])
     wcs.update(OBSX=px, OBSY=py, OBSZ=pz)
     with open_write(filename, par.file_format) as f:
-        for name in ('Scattered', 'Direct'):
+        for name in ('Scattered', 'Direct') + (
+                ('peel_Ha',) if 'peel_Ha' in cubes else ()):
             g = f.create_group(name)
             g.create_dataset('data', data=np.asarray(cubes[name], bp))
             _put_attrs(g, dict(wcs, EXTNAME=name))
@@ -194,6 +200,26 @@ def _write_basic(filename: str, res: RunResult) -> str:
             'calc_P': par.calcP, 'calc_Pnew': par.calcPnew,
             'calc_J': par.calcJ,
         })
+        if par.h2_model.strip().lower() not in ('', 'none'):
+            pump = res.W_H2pump if res.W_H2pump is not None else (0.0, 0.0)
+            _put_attrs(g, {
+                'H2MODEL': par.h2_model, 'H2FH2': par.f_H2,
+                'H2TEMP': par.h2_temperature, 'H2NLINE': 2,
+                'H2ABS': res.W_H2abs, 'H2SCAT': res.W_H2scat,
+                'H2PUMP1': float(pump[0]), 'H2PUMP2': float(pump[1])})
+        if res.Jout_Ha is not None:
+            for name in ('Jout_Ha', 'Jabs_Ha'):
+                gh = f.create_group(name)
+                gh.create_dataset('data',
+                                  data=np.asarray(getattr(res, name), bp))
+                _put_attrs(gh, {'EXTNAME': name})
+            _put_attrs(g, {k: getattr(res, k) for k in (
+                'W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2')})
+        if res.J2gam is not None:
+            g2 = f.create_group('J2gam')
+            g2.create_dataset('y', data=res.y_2gam)
+            g2.create_dataset('data', data=np.asarray(res.J2gam, bp))
+            _put_attrs(g2, {'EXTNAME': 'J2gam'})
         if res.Jmu is not None:
             gm = f.create_group('Jmu')
             gm.create_dataset('data', data=np.asarray(res.Jmu, bp))

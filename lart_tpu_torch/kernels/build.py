@@ -37,7 +37,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
 SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
            'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu')
 HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
-           'mueller.cuh', 'line.cuh')
+           'mueller.cuh', 'line.cuh', 'h2.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 

@@ -7,7 +7,7 @@ Counterparts of lart_tpu/transport/engine.py line_profile (:621, with the
 profile wrappers of lart_tpu/physics/voigt.py:121-142), make_scatter's
 redistribute with _vz and _branch_select (:1907-2086), and
 branch_init_shift (:2919-2970), for line types 1, 2, 4, 5, 6 (with and
-without HeI_coherent) and 7:
+without HeI_coherent), 7 and 8:
 
 - 1 (a singlet): H(x, a);
 - 2 (a doublet): H(x + dHK, a) / 3 + 2 H(x, a) / 3, dHK = DnuHK_Hz / D; at
@@ -25,7 +25,11 @@ without HeI_coherent) and 7:
 - 7 (H + D): H(x, a) + (D/H) r H(x_D, a a_D / a_H), x_D = (x - dHD) r with
   r the ratio of the Doppler widths; a deuterium event samples in D
   Doppler units and scales back, its perpendicular velocity by 1 / r, its
-  recoil constant g_recoil0_D.
+  recoil constant g_recoil0_D;
+- 8 (Ly-beta): H(x, a), redistributed as type 1 (do_resonance8,
+  engine.py:2053-2065); a scattering also draws its downward channel, the
+  3p -> 2s one (H-alpha) with probability P_down[1] (`P_conv`), and takes
+  that channel's phase weights.
 
 `LineConsts` holds the constants as lart_tpu's weak types round them: each
 f64 quantity of lines.Line (sums and ratios taken in f64 first, as Python
@@ -53,7 +57,7 @@ from . import samplers
 from .voigt import voigt_plain
 
 MAX_LEVELS = 3         # upper levels, and downward branches of each
-LINE_TYPES = (1, 2, 4, 5, 6, 7)
+LINE_TYPES = (1, 2, 4, 5, 6, 7, 8)
 TINY = 1e-30
 THIRD, TWO_THIRDS = 1.0 / 3.0, 2.0 / 3.0
 
@@ -78,7 +82,7 @@ class LineC(ctypes.Structure):
                 ('dnu_HD_Hz', _F), ('ratio_Dfreq_HD', _F),
                 ('ratio_voigta_HD', _F), ('nD_HD', _F), ('perp_D', _F),
                 ('E1s', _F), ('E2s', _F), ('E3s', _F), ('g_recoil0', _F),
-                ('g_recoil0_D', _F)]
+                ('g_recoil0_D', _F), ('P_conv', _F)]
 
 
 class LineProfC(ctypes.Structure):
@@ -135,6 +139,7 @@ class LineConsts:
     E3s: float = 1.0
     g_recoil0: float = 0.0
     g_recoil0_D: float = 0.0
+    P_conv: float = 0.0      # type 8: P_down of the 3p -> 2s channel
 
     @classmethod
     def from_config(cls, cfg) -> 'LineConsts':
@@ -144,7 +149,7 @@ class LineConsts:
         lt = line.line_type
         if lt not in LINE_TYPES:
             raise NotImplementedError(f'line_type {lt}')
-        brs = line.branches if lt in (4, 5, 6) else ()
+        brs = line.branches if lt in (4, 5, 6, 8) else ()
         nup = line.nup
         P_cum, Elow, E1, E2, E3 = [], [], [], [], []
         for br in brs:
@@ -190,7 +195,8 @@ class LineConsts:
             perp_D=f32(1.0 / line.ratio_Dfreq_HD) if hd else 1.0,
             E1s=f32(line.E1), E2s=f32(line.E2), E3s=f32(line.E3),
             g_recoil0=f32(line.g_recoil0),
-            g_recoil0_D=f32(line.g_recoil0_D) if hd else 0.0)
+            g_recoil0_D=f32(line.g_recoil0_D) if hd else 0.0,
+            P_conv=f32(brs[0].P_down[1]) if lt == 8 else 0.0)
 
     @property
     def per_lane_E(self) -> bool:
@@ -211,7 +217,7 @@ class LineConsts:
             getattr(c, f)[:] = getattr(self, f)
         for f in ('DnuHK_Hz', 'dnu_HD_Hz', 'ratio_Dfreq_HD',
                   'ratio_voigta_HD', 'nD_HD', 'perp_D', 'E1s', 'E2s', 'E3s',
-                  'g_recoil0', 'g_recoil0_D'):
+                  'g_recoil0', 'g_recoil0_D', 'P_conv'):
             setattr(c, f, getattr(self, f))
         return c
 
@@ -370,7 +376,8 @@ class Redistribution:
     accepted, u_par, xfreq_atom (with the fluorescent shift), the phase
     weights E1, E2, E3 (floats for types 1 and 7, else tensors), the
     perpendicular velocity's scale and the recoil constant (floats, or
-    tensors for type 7)."""
+    tensors for type 7), and for type 8 whether each lane converts to
+    H-alpha."""
     acc: torch.Tensor
     uz: torch.Tensor
     xatom: torch.Tensor
@@ -379,6 +386,7 @@ class Redistribution:
     E3: object
     perp: object = 1.0
     g0: object = 0.0
+    conv: Optional[torch.Tensor] = None
 
 
 def redistribute_plain(lc: LineConsts, x: torch.Tensor, a: float, D: float,
@@ -387,7 +395,8 @@ def redistribute_plain(lc: LineConsts, x: torch.Tensor, a: float, D: float,
     """make_scatter's redistribute (engine.py:1931-2086) on the uniforms
     u_rounds (rounds, 4, B), one block a u_par round, and sel (4, B): sel[0]
     picks the upper level (types 2, 5, 6; H or D in type 7) or, in type 4,
-    the downward branch, sel[1] the downward branch of types 5 and 6."""
+    the downward branch, sel[1] the downward branch of types 5 and 6; in
+    type 8 sel[0] < P_conv converts the photon."""
     lt = lc.line_type
     q = line_prof(lc, a, D)
     x0, va = x, q.a[0]
@@ -437,6 +446,13 @@ def redistribute_plain(lc: LineConsts, x: torch.Tensor, a: float, D: float,
     if lt == 1:
         return Redistribution(acc, uz, xatom, lc.E1s, lc.E2s, lc.E3s,
                               g0=lc.g_recoil0)
+    if lt == 8:
+        conv = sel[0] < lc.P_conv
+        idown = conv.to(torch.int64)
+        return Redistribution(acc, uz, xatom,
+                              *(_pick(idown, v[0][:2]) for v in (lc.E1, lc.E2,
+                                                                 lc.E3)),
+                              g0=lc.g_recoil0, conv=conv)
     if lt == 2:
         qH, qK = xatom + q.dx[1], xatom
         E1 = (2.0 * qK * qH + qH * qH) / torch.clamp_min(

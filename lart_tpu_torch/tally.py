@@ -3,9 +3,11 @@
 Port of RunResult / spectral_axes / normalize (lart_tpu/tally.py:22-259),
 which cannot be imported here: lart_tpu/tally.py imports the grid module,
 which imports jax.  Only the outputs of the ported path are carried: the
-spectra Jin/Jout/Jabs, Jmu, the scattering counts, the weight budget and
-the peel-off cubes (scattered, direct, Stokes I/Q/U/V).  CALCJ/P maps, the
-ly_beta and H2 sections come with their features.  The arithmetic is lart_tpu's, on host float64.
+spectra Jin/Jout/Jabs, Jmu, the scattering counts, the weight budget, the
+peel-off cubes (scattered, direct, Stokes I/Q/U/V, H-alpha), line type 8's
+H-alpha spectra, band budgets and two-photon spectrum, and H2 pumping's
+per-photon weights.  CALCJ/P maps come with their feature.  The
+arithmetic is lart_tpu's, on host float64.
 """
 
 from __future__ import annotations
@@ -44,10 +46,42 @@ class RunResult:
     # peel cubes: name -> (nobs, nxfreq, nxim, nyim), normalized
     peel: Optional[dict] = None
     obs_meta: object = None      # instruments.observer.ObserverSetMeta
+    # H2 pumping, per photon (0 and None without it)
+    W_H2abs: float = 0.0
+    W_H2scat: float = 0.0
+    W_H2pump: Optional[np.ndarray] = None
+    # line type 8: the H-alpha band's spectra, the analytic two-photon
+    # spectrum of the 2s decays, and the band budgets per photon
+    Jout_Ha: Optional[np.ndarray] = None
+    Jabs_Ha: Optional[np.ndarray] = None
+    J2gam: Optional[np.ndarray] = None
+    y_2gam: Optional[np.ndarray] = None
+    W_conv: float = 0.0
+    W_esc1: float = 0.0
+    W_abs1: float = 0.0
+    W_esc2: float = 0.0
+    W_abs2: float = 0.0
 
     @property
     def line(self):
         return self.cfg.line
+
+
+def twophoton_dAdy(y):
+    """Nussbaumer & Schmutz (1984) two-photon decay spectrum fit
+    (twophoton_dAdy, line_mod.f90:1274-1294)."""
+    y = np.asarray(y, np.float64)
+    w = y * (1.0 - y)
+    out = np.zeros_like(w)
+    pos = w > 0
+    w4 = (4.0 * w[pos]) ** 0.8
+    out[pos] = 202.0 * (w[pos] * (1.0 - w4)
+                        + 0.88 * w[pos] ** 1.53 * w4)
+    return out
+
+
+# numpy 2 renamed trapz
+_trapezoid = getattr(np, 'trapezoid', None) or np.trapz
 
 
 def spectral_axes(cfg: ResolvedConfig, meta: GridMeta):
@@ -62,9 +96,10 @@ def spectral_axes(cfg: ResolvedConfig, meta: GridMeta):
 def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
               nphotons: int, exetime_s: float = 0.0,
               obs_meta=None) -> RunResult:
-    """raw: dict with f64 arrays Jin/Jout/Jabs (and Jmu, and the flat peel
-    cubes peel_scatt, peel_direc, peel_I, ...) and scalars
-    nscatt_gas/nscatt_dust/nscatt_events/W_oor."""
+    """raw: dict with f64 arrays Jin/Jout/Jabs (and Jmu, the flat peel
+    cubes peel_scatt, peel_direc, peel_I, ..., line type 8's Jout_Ha and
+    Jabs_Ha, H2's W_H2pump) and scalars nscatt_gas/nscatt_dust/
+    nscatt_events/W_oor (and W_conv, W_esc1, ..., W_H2abs, W_H2scat)."""
     par = cfg.par
     xfreq, velocity, wavelength = spectral_axes(cfg, meta)
 
@@ -115,6 +150,16 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
     if 'Jmu' in raw:
         Jmu = raw['Jmu'].reshape(meta.nxfreq, par.nmu) * par.nmu / denom
 
+    # ly_beta's analytic two-photon spectrum (write_output_rect.f90:84-111):
+    # J2gam(y) = 2 * W_conv_per_photon * P(y), the Nussbaumer & Schmutz fit
+    J2gam = y_2gam = None
+    if 'W_conv' in raw and par.ny_2gam > 0:
+        y_2gam = (np.arange(par.ny_2gam) + 0.5) / par.ny_2gam
+        yy = np.linspace(0.0, 1.0, 10001)
+        A = _trapezoid(twophoton_dAdy(yy), yy)
+        J2gam = 2.0 * (raw['W_conv'] / nphotons) \
+            * twophoton_dAdy(y_2gam) / A
+
     return RunResult(
         cfg=cfg, meta=meta, nphotons=nphotons,
         xfreq=xfreq, velocity=velocity, wavelength=wavelength,
@@ -125,5 +170,12 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
         nscatt_events=raw.get('nscatt_events', 0.0) / nphotons,
         W_oor=raw.get('W_oor', 0.0) / nphotons,
         exetime_s=exetime_s, Jmu=Jmu, peel=peel, obs_meta=obs_meta,
+        Jout_Ha=raw['Jout_Ha'] / denom if 'Jout_Ha' in raw else None,
+        Jabs_Ha=raw['Jabs_Ha'] / denom if 'Jabs_Ha' in raw else None,
+        J2gam=J2gam, y_2gam=y_2gam,
+        W_H2pump=raw['W_H2pump'] / nphotons if 'W_H2pump' in raw else None,
+        **{k: raw.get(k, 0.0) / nphotons for k in (
+            'W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2', 'W_H2abs',
+            'W_H2scat')},
         W_escape=float(np.sum(raw['Jout'])) / nphotons,
         W_absorb=float(np.sum(raw.get('Jabs', 0.0))) / nphotons)

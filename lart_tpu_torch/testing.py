@@ -159,6 +159,53 @@ def line_state(meta, batch: int, seed: int, offsets, width: float = 4.0,
     return s
 
 
+def lyb_params(tau0: float = 30.0, n: int = 17, nphotons: int = 400,
+               batch: int = 512, DGR: float = 0.0, **kw) -> Params:
+    """A Ly-beta sphere like examples/ly_beta_sphere/t4tau1e4.in (line type
+    8 with its 3p -> 2s conversion to H-alpha: a static uniform sphere of R
+    = 1 at T = 1e4 K, a monochromatic central source at x = 0, 121
+    frequency bins), cut to a CPU's size: an n^3 grid, tau0 lowered from
+    1e4, and, where DGR > 0, dust in both bands (the example's 1e-3 is a
+    dust tau of ~1e-6: the tests raise it to reach the dust branches)."""
+    base = dict(line_id='ly_beta', spectral_type='monochromatic',
+                xfreq0=0.0, DGR=DGR, save_Jmu=False)
+    base.update(kw)
+    return sphere_params(tau0=tau0, n=n, nphotons=nphotons, batch=batch,
+                         **base)
+
+
+def h2_params(tau0: float = 10.0, n: int = 17, nphotons: int = 400,
+              batch: int = 512, **kw) -> Params:
+    """Ly-alpha with the Neufeld two-line H2 pumping, like
+    examples/h2_test/h2_on.in (f_H2 0.03, T_H2 8000 K, a Voigt source,
+    core-skip, 241 bins over |x| < 12, a uniform sphere at T = 1e4 K), cut
+    to a CPU's size: an n^3 grid and tau0 lowered from 1e5."""
+    base = dict(h2_model='neufeld', f_H2=0.03, h2_temperature=8000.0,
+                core_skip=True, xfreq_min=-12.0, xfreq_max=12.0, nxfreq=241,
+                save_Jmu=False)
+    base.update(kw)
+    return sphere_params(tau0=tau0, n=n, nphotons=nphotons, batch=batch,
+                         **base)
+
+
+def band2_lanes(state: BatchState, seed: int, frac: float = 0.3,
+                xmax: float = 10.0) -> BatchState:
+    """state with a share `frac` of its FLYING and AT_SCATTER lanes moved
+    to the H-alpha band of line type 8 (iband 2), their frequencies
+    (already lab ones there) uniform in [-xmax, xmax]; in place."""
+    rng = np.random.default_rng([seed, 4])
+    B = state.batch
+    ph = state.phase.cpu().numpy()
+    pick = ((ph == FLYING) | (ph == AT_SCATTER)) & (rng.random(B) < frac)
+    dev = state.device
+    on = torch.as_tensor(pick, device=dev)
+    state.iband.copy_(torch.where(on, 2, state.iband).to(torch.int32))
+    x = torch.as_tensor(rng.uniform(-xmax, xmax, B), dtype=torch.float32,
+                        device=dev)
+    state.xfreq.copy_(torch.where(on, x, state.xfreq))
+    return state
+
+
 def peel_params(par: Params, stokes: bool = True, nim: int = 33,
                 **kw) -> Params:
     """par with peel-off at test size: two external observers at distance
@@ -206,19 +253,21 @@ def peel_record(state: BatchState, seed: int, line=None):
     return rec
 
 
-def peel_closure(res) -> list:
+def peel_closure(res, cubes=('scatt', 'direc'), w_esc=None) -> list:
     """Per observer of a RunResult with peel-off (either package's): 4 pi
-    d^2 times its peeled flux (scattered + direct, over the image and the
-    spectrum, undone of the cubes' normalization) over the escaped weight.
-    Where the source and the medium are isotropic (a central source in a
-    uniform sphere) each is 1 up to the Monte Carlo error."""
+    d^2 times its peeled flux (over the image and the spectrum of the
+    `cubes`, scattered + direct by default, undone of the cubes'
+    normalization) over the escaped weight (W_escape, or w_esc: the
+    H-alpha band's W_esc2 for its cube Ha).  Where the source and the
+    medium are isotropic (a central source in a uniform sphere) each is 1
+    up to the Monte Carlo error."""
     par, om = res.cfg.par, res.obs_meta
     bin_unit = res.meta.dwave if par.intensity_unit == 1 else res.meta.dxfreq
     d2c = par.distance2cm if par.distance2cm > 0.0 else 1.0
     scale = om.steradian_pix * bin_unit * d2c ** 2 * 4.0 * np.pi \
-        * om.distance ** 2 / res.W_escape
-    return [float(res.peel['scatt'][o].sum() + res.peel['direc'][o].sum())
-            * scale for o in range(om.nobs)]
+        * om.distance ** 2 / (res.W_escape if w_esc is None else w_esc)
+    return [float(sum(res.peel[c][o].sum() for c in cubes)) * scale
+            for o in range(om.nobs)]
 
 
 # the per-photon variance of a peeled flux, in units of its mean squared:
@@ -361,7 +410,8 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
     fields = dict(phase=phase, x=x, y=y, z=z, kx=kx, ky=ky, kz=kz,
                   ic=ic, jc=jc, kc=kc,
                   xfreq=xfreq, wgt=rng.uniform(0.5, 1.0, batch),
-                  tau_target=tau_target, tau_run=tau_run)
+                  tau_target=tau_target, tau_run=tau_run,
+                  iband=np.ones(batch))
     bx, by, bz = _positions(rng, meta, batch, r_max)
     birth = dict(bx=bx, by=by, bz=bz, bxfreq=rng.normal(0.0, 3.0, batch))
     bcost = rng.uniform(-1.0, 1.0, batch)

@@ -11,15 +11,17 @@ once per chunk.
 With save_peeloff the cycle also peels (kernel K7, instruments/peel.py):
 right after a refill, the newborn photons to every observer (the direct
 peel, engine.py:2909-2913), and right after the scatter, each resonance
-and dust scattering with its pre-scatter direction (:2207-2218, :2342-2347),
-both kinds in one launch; both read the PeelRecord that K2 and K4 fill, and
+and dust scattering with its pre-scatter direction (:2207-2218, :2342-2347)
+and, for line type 8, each conversion's H-alpha photon (:2205-2222), every
+kind in one launch; both read the PeelRecord that K2 and K4 fill, and
 deposit into the chunk's f32 cubes.
 
 The flight follows lart_tpu's make_fly (engine.py:1057-1066):
 force_generic_kernel takes the generic Cartesian walk K5; otherwise the
 uniform slab takes K3, the uniform sphere K6, and every other Cartesian
-grid K5.  `check_supported` names whatever a config asks for that is not
-ported.
+grid K5; line type 8 and H2 pumping always fly K5, as lart_tpu sends
+them off both fast paths (engine.py:665-666, :865-866).  `check_supported`
+names whatever a config asks for that is not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import dataclasses
 from typing import Callable, Optional
 
 from ..instruments.peel import DIRECT, Peel, PeelRecord, peel
+from ..physics.h2 import h2_on
 from ..physics.line import LINE_TYPES
 from .fly_cartesian import CartesianFlight
 from .fly_slab import SlabParams
@@ -49,8 +52,7 @@ def uniform_slab_fastpath(cfg, meta) -> bool:
             and meta.bc_z == 'escape'
             and not meta.has_dust and not meta.atmosphere
             and meta.omega_shear == 0.0
-            and cfg.line.line_type != 8
-            and par.h2_model.strip().lower() in ('', 'none')
+            and cfg.line.line_type != 8 and not h2_on(par)
             and not (par.calcJ or par.calcPnew)
             and not par.save_all_photons)
 
@@ -65,8 +67,7 @@ def uniform_sphere_fastpath(cfg, meta) -> bool:
             and meta.bc_x == 'escape' and meta.bc_y == 'escape'
             and meta.bc_z == 'escape'
             and not meta.atmosphere and meta.omega_shear == 0.0
-            and cfg.line.line_type != 8
-            and par.h2_model.strip().lower() in ('', 'none')
+            and cfg.line.line_type != 8 and not h2_on(par)
             and not (par.calcJ or par.calcPnew)
             and not par.save_all_photons)
 
@@ -86,10 +87,8 @@ def check_supported(cfg, meta=None) -> None:
     missing = [name for name, on in (
         ('use_amr_grid (AMR backend)', par.use_amr_grid),
         ('use_clump_medium (clump backend)', par.use_clump_medium),
-        (f'line_type {cfg.line.line_type} (only 1, 2 and 4-7; line type 8 '
-         f'is Lyman-beta with its H-alpha band)',
+        (f'line_type {cfg.line.line_type} (only 1, 2 and 4-8)',
          cfg.line.line_type not in LINE_TYPES),
-        ('h2_model', par.h2_model.strip().lower() not in ('', 'none')),
         ('peel-off observers inside the grid (nside > 0, HEALPix)',
          par.save_peeloff and par.nside > 0),
         ('calcJ/calcP/calcPnew', par.calcJ or par.calcP or par.calcPnew),
@@ -152,10 +151,13 @@ class Chunk:
     nxfreq: int
     nmu: int
     peel: Optional[Peel] = None     # the observers of save_peeloff
+    lyb: bool = False               # line type 8: the H-alpha tallies
+    h2: bool = False                # H2 pumping: its tallies
 
     def __call__(self, state: BatchState, seed: int, cycle0: int,
                  budget: int, n_cycles=None):
-        tallies = zero_tallies(self.nxfreq, self.nmu, state.device)
+        tallies = zero_tallies(self.nxfreq, self.nmu, state.device, self.lyb,
+                               self.h2)
         p, rec = self.peel, None
         if p is not None:
             tallies.peel = p.zero_cubes(state.device)
@@ -187,4 +189,5 @@ def make_chunk(cfg, meta, grid) -> Chunk:
                  refill_every=max(1, par.refill_every),
                  fly_substeps=par.fly_substeps, nxfreq=meta.nxfreq,
                  nmu=par.nmu if par.save_Jmu else 0,
-                 peel=Peel.from_config(cfg, meta, grid, sphere))
+                 peel=Peel.from_config(cfg, meta, grid, sphere),
+                 lyb=cfg.line.line_type == 8, h2=h2_on(par))

@@ -7,10 +7,14 @@ profile.
 `FlightConsts` carries every constant of lart_tpu's make_fly (engine.py:
 1067-1140) and make_fly_uniform_sphere (:887-908) that the ported paths
 need, plus the grid tensors the walk gathers from: rhokap, the dust's
-rhokapD where DGR > 0, and the velocities of a moving medium.  Numbers stay Python floats,
-so every operation of a plain version rounds them to f32 where JAX's weak
-types do; the kernels receive the same values as f32 through
-`FlightParams`, whose layout csrc/lart.cuh struct FlightParams repeats.
+rhokapD where DGR > 0, and the velocities of a moving medium.  With H2
+pumping a cell's opacity adds rhokap times the H2 multiplier
+(physics/h2.py), and for line type 8 a lane of the H-alpha band sees
+only the dust, rhokapD R_Ha (engine.py:1106-1128 total_opacity).
+Numbers stay Python floats, so every operation of a plain version rounds
+them to f32 where JAX's weak types do; the kernels receive the same values
+as f32 through `FlightParams`, whose layout csrc/lart.cuh struct
+FlightParams repeats.
 
 XLA fuses a multiply that feeds an add into one fused multiply-add on the
 CPU.  Where that rounding reaches a lane's fate (a cell face, a position
@@ -31,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..physics import h2 as ph2
 from ..physics import line as pline
 
 BIG = 3.0e38
@@ -46,6 +51,7 @@ class FlightParams(ctypes.Structure):
     _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
                 ('vfz', _P),
                 ('Jout', _P), ('Jmu', _P), ('W_oor', _P),
+                ('Jout_Ha', _P), ('W_esc1', _P), ('W_esc2', _P),
                 ('n', _I * 3), ('bc', _I * 3), ('cell0', _I * 3),
                 ('walk', _I * 3), ('moving', _I), ('nxfreq', _I),
                 ('save_jmu', _I), ('nmu', _I), ('mu_abs', _I),
@@ -53,7 +59,8 @@ class FlightParams(ctypes.Structure):
                 ('d', _F * 3), ('a_ref', _F), ('Dfreq', _F),
                 ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
                 ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
-                ('sphere_rhoD', _F), ('line', pline.LineC)]
+                ('sphere_rhoD', _F), ('R_Ha', _F), ('line', pline.LineC),
+                ('h2', ph2.H2C)]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -82,17 +89,25 @@ def floor_bin(v: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp(torch.floor(v), 0, n - 1).long()
 
 
-def tally_plain(tallies, p, mask, xfreq_lab, wgt, kz) -> torch.Tensor:
-    """Add wgt to Jout (and Jmu) at lab frequency xfreq_lab for the masked
-    lanes whose bin is on the frequency grid; return the masked weight that
+def freq_floor(p, xfreq_lab: torch.Tensor):
+    """(floor of the frequency bin, whether it is on the grid) of lab
+    frequencies; `p` has the bin fields xfreq_min, dxfreq and nxfreq."""
+    fx = torch.floor(div(xfreq_lab - p.xfreq_min, p.dxfreq))
+    return fx, (fx >= 0.0) & (fx < p.nxfreq)
+
+
+def tally_plain(tallies, p, mask, xfreq_lab, wgt, kz, J=None
+                ) -> torch.Tensor:
+    """Add wgt to the spectrum J (Jout by default; Jout_Ha for the
+    H-alpha band) and Jmu at lab frequency xfreq_lab for the masked lanes
+    whose bin is on the frequency grid; return the masked weight that
     falls outside it (W_oor).  `p` has the bin fields xfreq_min, dxfreq,
     nxfreq, save_Jmu, nmu, mu_min, dmu and mu_abs."""
-    fx = torch.floor(div(xfreq_lab - p.xfreq_min, p.dxfreq))
-    in_rng = (fx >= 0.0) & (fx < p.nxfreq)
+    fx, in_rng = freq_floor(p, xfreq_lab)
     zero = torch.zeros_like(wgt)
     w = torch.where(mask & in_rng, wgt, zero)
     ix = floor_bin(fx, p.nxfreq)
-    tallies.Jout.index_add_(0, ix, w)
+    (tallies.Jout if J is None else J).index_add_(0, ix, w)
     if p.save_Jmu:
         mu = torch.abs(kz) if p.mu_abs else kz
         tallies.Jmu.index_add_(
@@ -126,6 +141,8 @@ class FlightConsts:
     vel: Optional[tuple]     # flat (vfx, vfy, vfz); None in a static medium
     rhokapD: Optional[torch.Tensor] = None   # flat dust opacity, or None
     line: Optional[pline.LineConsts] = None  # the line's opacity profile
+    h2: Optional[ph2.H2Consts] = None        # H2 pumping, or None
+    R_Ha: float = 0.0        # cext_dust_Ha / cext_dust (line type 8)
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -154,11 +171,19 @@ class FlightConsts:
             rhokap=grid.rhokap.reshape(-1).contiguous(), vel=vel,
             rhokapD=None if grid.rhokapD is None
             else grid.rhokapD.reshape(-1).contiguous(),
-            line=pline.LineConsts.from_config(cfg))
+            line=pline.LineConsts.from_config(cfg),
+            h2=ph2.H2Consts.from_config(cfg),
+            R_Ha=(par.cext_dust_Ha / par.cext_dust if par.cext_dust > 0
+                  else 0.0))
 
     @property
     def moving(self) -> bool:
         return self.vel is not None
+
+    @property
+    def lyb(self) -> bool:
+        """Line type 8: lanes of the H-alpha band fly too."""
+        return self.line.line_type == 8
 
     def flat(self, i, j, k) -> torch.Tensor:
         """engine._gather's flat index, clamped like jnp.take mode='clip'."""
@@ -171,12 +196,21 @@ class FlightConsts:
         return pline.line_profile_plain(self.line, xfreq, self.a_ref,
                                         self.Dfreq)
 
-    def opacity(self, flat, xfreq) -> torch.Tensor:
-        """rhokap H_eff(x) + rhokapD of the flat cells `flat` at the
-        comoving frequencies xfreq (engine.py:1111-1121 total_opacity)."""
-        rho = self.rhokap[flat] * self.profile(xfreq)
+    def opacity(self, flat, xfreq, band2=None) -> torch.Tensor:
+        """rhokap H_eff(x) (+ rhokap H2(x)) + rhokapD of the flat cells
+        `flat` at the comoving frequencies xfreq (engine.py:1111-1128
+        total_opacity); where the mask band2 is set, rhokapD R_Ha, or 0
+        without dust."""
+        rk = self.rhokap[flat]
+        rho = rk * self.profile(xfreq)
+        if self.h2 is not None:
+            rho = rho + rk * ph2.h2_kappa_plain(self.h2, xfreq, self.Dfreq)
         if self.rhokapD is not None:
             rho = rho + self.rhokapD[flat]
+        if band2 is not None:
+            rho2 = torch.zeros_like(rho) if self.rhokapD is None \
+                else self.rhokapD[flat] * self.R_Ha
+            rho = torch.where(band2, rho2, rho)
         return rho
 
     def vel_dot(self, cell, kx, ky, kz) -> torch.Tensor:
@@ -205,9 +239,11 @@ class FlightConsts:
         c.neg_amin[:] = [-a for a in self.amin]
         c.d[:] = self.d
         for f in ('a_ref', 'Dfreq', 'xfreq_min', 'dxfreq', 'mu_min', 'dmu',
-                  'sphere_R2', 'sphere_rho', 'sphere_rhoD'):
+                  'sphere_R2', 'sphere_rho', 'sphere_rhoD', 'R_Ha'):
             setattr(c, f, getattr(self, f))
         c.line = self.line.c_struct
+        if self.h2 is not None:
+            c.h2 = self.h2.c_struct
         return c
 
     @property
@@ -223,6 +259,10 @@ class FlightConsts:
         c.Jout = tallies.Jout.data_ptr()
         c.Jmu = tallies.Jmu.data_ptr()
         c.W_oor = tallies.W_oor.data_ptr()
+        if self.lyb:
+            c.Jout_Ha, c.W_esc1, c.W_esc2 = (
+                getattr(tallies, f).data_ptr()
+                for f in ('Jout_Ha', 'W_esc1', 'W_esc2'))
         return c
 
     def device_tensors(self):

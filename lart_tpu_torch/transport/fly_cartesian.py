@@ -1,10 +1,11 @@
 """Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
 
 Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
-for a uniform-temperature grid without H2, line type 8, atmospheres, the
-shearing box, CALCJ/Pnew or all-photons records.  Each step takes one lane
-across one cell: the opacity of its cell is rhokap * H(x, a_ref), plus the
-dust's rhokapD where DGR > 0 (engine.py:1111-1121 total_opacity); the
+for a uniform-temperature grid without atmospheres, the shearing box,
+CALCJ/Pnew or all-photons records.  Each step takes one lane across one
+cell: the opacity of its cell is rhokap * H(x, a_ref), plus rhokap times
+the H2 multiplier with H2 pumping and the dust's rhokapD where DGR > 0
+(engine.py:1106-1128 total_opacity); the
 lane reaches its tau target (AT_SCATTER) or crosses the nearest face (axis
 tie-break x, y, z), where the boundary op of that axis applies (escape,
 periodic wrap, or reflect about the symmetry plane with the odd-n half
@@ -14,6 +15,14 @@ cell being left, a completed forced first scattering at the birth cell's
 lab frequency along the birth direction.  At most max_steps crossings a
 call (the while_loop's n < max_steps); a lane that completes its FFS
 restarts from birth within the same budget.  No random numbers are drawn.
+
+For line type 8 (engine.py:1276-1283, :1312-1340, :1466-1495) a lane of
+the H-alpha band (iband 2) sees the dust only, rhokapD R_Ha (nothing
+without dust), keeps its frequency, which is already a lab one, across
+cells, and escapes into Jout_Ha at that frequency; each band's escaped
+weight sums into W_esc1 or W_esc2, out-of-grid escapes included, and
+W_esc1 also takes the escaped fraction of each completed forced first
+scattering whose birth bin is on the grid.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ import torch
 
 from ..kernels import build as kbuild
 from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, div, fma,
-                     tally_plain)
+                     freq_floor, tally_plain)
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
 
 
@@ -57,18 +66,25 @@ def _cross_axis(p: FlightConsts, a: int, idx, pos, k):
 
 
 def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
-              max_steps: int) -> None:
-    """Plain PyTorch walk of every FLYING/FFS lane, in place."""
+              max_steps: int, stats=None) -> None:
+    """Plain PyTorch walk of every FLYING/FFS lane, in place; stats, a
+    dict, gains the steps the lanes took (cell crossings and hits) under
+    'steps'."""
     s = state
     oor = torch.zeros_like(s.wgt)
+    zero = torch.zeros_like(s.wgt)
+    # the band of each lane (constant through a flight)
+    b2 = s.iband == 2 if p.lyb else None
     for _ in range(max_steps):
         is_ffs = s.phase == FFS
         moving = (s.phase == FLYING) | is_ffs
         if not bool(moving.any()):
             break       # the remaining iterations would change nothing
+        if stats is not None:
+            stats['steps'] = stats.get('steps', 0) + int(moving.sum())
         pos, dirs = (s.x, s.y, s.z), (s.kx, s.ky, s.kz)
         cell = (s.ic, s.jc, s.kc)
-        rho = p.opacity(p.flat(*cell), s.xfreq)
+        rho = p.opacity(p.flat(*cell), s.xfreq, b2)
         t = [_face_dist(pos[a], dirs[a], cell[a], p.amin[a], p.d[a])
              if p.walk[a] else torch.full_like(s.x, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
@@ -93,8 +109,11 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             ndir[a] = torch.where(ca, k2, dirs[a])
             escaped = escaped | (ca & esc)
 
-        # comoving frequency update on a cell change (engine.py:1276-1295)
+        # comoving frequency update on a cell change (engine.py:1276-1295);
+        # the H-alpha band's frequency is a lab one
         changed = crossed & ~escaped
+        if p.lyb:
+            changed = changed & ~b2
         if p.moving:
             u1 = p.vel_dot(cell, *dirs)
             u2 = p.vel_dot(ncell, *ndir)
@@ -108,7 +127,16 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
 
         # escape at the lab frequency of the cell being left
         esc_fly = escaped & (s.phase == FLYING)
-        oor = oor + tally_plain(tallies, p, esc_fly, s.xfreq + u1, s.wgt, s.kz)
+        if p.lyb:
+            oor = oor + tally_plain(tallies, p, esc_fly & ~b2, s.xfreq + u1,
+                                    s.wgt, s.kz)
+            oor = oor + tally_plain(tallies, p, esc_fly & b2, s.xfreq,
+                                    s.wgt, s.kz, tallies.Jout_Ha)
+            tallies.W_esc1 += torch.where(esc_fly & ~b2, s.wgt, zero).sum()
+            tallies.W_esc2 += torch.where(esc_fly & b2, s.wgt, zero).sum()
+        else:
+            oor = oor + tally_plain(tallies, p, esc_fly, s.xfreq + u1, s.wgt,
+                                    s.kz)
         # forced first scattering done: the escaped fraction at the birth
         # lab frequency, restart from birth with wgt *= 1 - exp(-tau0)
         ffs_done = (escaped & is_ffs) | (hit & is_ffs)
@@ -116,6 +144,9 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
         wgt_esc = s.wgt * torch.exp(-tau0)
         oor = oor + tally_plain(tallies, p, ffs_done, s.bxfreq + u_b,
                                 wgt_esc, s.bkz)
+        if p.lyb:
+            inb = freq_floor(p, s.bxfreq + u_b)[1]
+            tallies.W_esc1 += torch.where(ffs_done & inb, wgt_esc, zero).sum()
         wgt1 = -torch.expm1(-tau0)
         ffs_vacuum = ffs_done & (tau0 <= 0.0)
         phase_new = torch.where(
@@ -162,7 +193,9 @@ def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
         fly_plain(state, tallies, p, max_steps)
         return
     kbuild.require_cuda('fly_cartesian', tallies.Jout, tallies.Jmu,
-                        tallies.W_oor, state.x, *p.device_tensors())
+                        tallies.W_oor, state.x, *p.device_tensors(),
+                        *((tallies.Jout_Ha, tallies.W_esc1, tallies.W_esc2)
+                          if p.lyb else ()))
     kbuild.check(kbuild.library().lart_fly_cartesian(
         state.lane_pointers, state.batch, max_steps,
         ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),

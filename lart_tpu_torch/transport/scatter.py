@@ -1,7 +1,8 @@
 """Resonant scattering and dust events (kernel K4).
 
 Counterpart of make_scatter / scatter (lart_tpu/transport/engine.py:1838,
-:2087) for line types 1, 2, 4, 5, 6 and 7 without H2: redistribute
+:2087) for line types 1, 2, 4, 5, 6, 7 and 8, with and without H2
+pumping: redistribute
 (:1931-2086, physics/line.py), rand_resonance_cost with the event's E1,
 phi = 2 pi xi, the perpendicular atom velocity with the core-skip boost
 (:2197-2205) scaled by the redistribution's perp_scale, xfreq_new, with
@@ -60,6 +61,32 @@ a run without dust draws as before; a dust scattering reuses block
 nothing new.  A line of type 2 to 7 draws its upper level and downward
 branch from block 3 rounds + 4, after the last Mueller azimuth block, so
 a Ly-alpha run draws as before.
+
+H2 pumping (engine.py:2111-2150, :2383-2435, :2480-2485): an event is an
+H2 one with probability kap_H2 / (kap_HI + kap_H2 + kap_D), kap_H2 = rk
+times the H2 multiplier; the dust split then runs on the rest.  An H2
+event picks its line by the two lines' weights, is destroyed with
+probability 1 - p_scat of that line (the lane dies, W_H2abs), else draws
+u_par on the H2 line (x_h2 = (x - dnu / D) ratio, that line's damping;
+a lane that fails the rounds stays AT_SCATTER), an isotropic direction
+and the frequency x_h2' / ratio + dnu / D; W_H2pump sums the weight of
+every H2 event by line, W_H2scat and nscatt_gas that of the scattered
+ones.  Its uniforms take the blocks after every block an earlier slice
+draws: H = 3 rounds + 5 the split, the line, the destruction and the
+cosine, H + 1 the azimuth, the atom's perpendicular angle and speed,
+H + 2 + r its u_par round r; so a run without H2 draws as before.
+
+Line type 8 (Ly-beta; engine.py:2053-2065, :2143-2150, :2270-2372,
+:2510-2528): a resonance redistributes as type 1 and converts to H-alpha
+with probability P_down[1] (the first uniform of block 3 rounds + 4,
+physics/line.py); a conversion takes no recoil, and sets the lane's band
+to 2 with the lab frequency (x_new - x_atom) + u.k of the new direction,
+W_conv summing its weight.  A lane of the H-alpha band only meets dust:
+its events are dust events with albedo_Ha and hgg_Ha, an absorption
+going to Jabs_Ha at its (lab) frequency; W_abs1 and W_abs2 sum each
+band's absorbed weight.  The peel record marks a conversion
+EVENT_CONVERSION (the peel then casts the newborn H-alpha photon, not the
+resonance).
 """
 
 from __future__ import annotations
@@ -69,21 +96,23 @@ import dataclasses
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels import build as kbuild
+from ..physics import h2 as ph2
 from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
-from .flight import div
+from .flight import div, freq_floor
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
 TINY = 1e-30
 CORE_SKIP_OFF, CORE_SKIP_LOCAL, CORE_SKIP_GLOBAL = 0, 1, 2
 DUST_OFF, DUST_HG, DUST_MUELLER = 0, 1, 2
 # the record's kind of event (PeelRecord.flag)
-EVENT_RESONANCE, EVENT_DUST = 1, 2
+EVENT_RESONANCE, EVENT_DUST, EVENT_CONVERSION = 1, 2, 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -109,7 +138,11 @@ class ScatterC(ctypes.Structure):
                 ('one_m_albedo', _F),
                 ('hgg', _F), ('xfreq_min', _F), ('dxfreq', _F),
                 ('amin', _F * 3), ('d', _F * 3), ('Dfreq', _F),
-                ('recoil', _I), ('line', pline.LineC)]
+                ('recoil', _I), ('line', pline.LineC), ('h2', ph2.H2C),
+                ('Jabs_Ha', _P), ('W_conv', _P), ('W_abs1', _P),
+                ('W_abs2', _P), ('W_H2abs', _P), ('W_H2scat', _P),
+                ('W_H2pump', _P), ('albedo_Ha', _F),
+                ('one_m_albedo_Ha', _F), ('hgg_Ha', _F)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -141,6 +174,9 @@ class ScatterParams:
     line: Optional[pline.LineConsts] = None   # the line (from_config)
     Dfreq: float = 1.0         # Doppler width of every cell (Hz)
     recoil: bool = False
+    h2: Optional[ph2.H2Consts] = None   # H2 pumping
+    albedo_Ha: float = 0.0     # line type 8: the H-alpha band's dust
+    hgg_Ha: float = 0.0
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None,
@@ -153,7 +189,10 @@ class ScatterParams:
             mode = CORE_SKIP_GLOBAL if par.core_skip_global \
                 else CORE_SKIP_LOCAL
         dust = dust_mode(cfg, meta)
-        gather = (mode == CORE_SKIP_LOCAL or dust) and not uniform_sphere
+        h2 = ph2.H2Consts.from_config(cfg)
+        gather = (mode == CORE_SKIP_LOCAL or dust or h2 is not None) \
+            and not uniform_sphere
+        lt8 = cfg.line.line_type == 8
 
         def flat(t):
             return t.reshape(-1).contiguous()
@@ -173,24 +212,51 @@ class ScatterParams:
                    reduced_wgt=bool(par.use_reduced_wgt),
                    rhokapD=flat(grid.rhokapD) if dust and gather else None,
                    vel=tuple(flat(v) for v in (grid.vfx, grid.vfy, grid.vfz))
-                   if dust and not meta.static_medium else None,
+                   if (dust or lt8) and not meta.static_medium else None,
                    mueller=pmueller.MuellerTable.for_config(
                        cfg, grid.rhokap.device) if dust else None,
                    xfreq_min=meta.xfreq_min, dxfreq=meta.dxfreq,
                    nxfreq=meta.nxfreq,
                    line=pline.LineConsts.from_config(cfg),
-                   Dfreq=float(meta.Dfreq_ref), recoil=bool(par.recoil))
+                   Dfreq=float(meta.Dfreq_ref), recoil=bool(par.recoil),
+                   h2=h2, albedo_Ha=float(par.albedo_Ha),
+                   hgg_Ha=float(par.hgg_Ha))
 
     @property
     def dust_block(self) -> int:
         """The first Philox block of the dust draws."""
         return 2 * self.rounds + 2
 
+    @property
+    def h2_block(self) -> int:
+        """The first Philox block of the H2 draws."""
+        return 3 * self.rounds + 5
+
+    @property
+    def lyb(self) -> bool:
+        """Line type 8: Ly-beta with its H-alpha band."""
+        return self.line.line_type == 8
+
+    def one_m_albedo(self, band2: bool = False) -> float:
+        """1 - albedo of a band, rounded as lart_tpu rounds it: in f64
+        and once to f32 where the albedo is a Python float, in f32 from the
+        f32 albedo where line type 8 makes it a per-lane array."""
+        a = self.albedo_Ha if band2 else self.albedo
+        if not self.lyb:
+            return pline.f32(1.0 - a)
+        return float(np.float32(1.0) - np.float32(a))
+
     def flat(self, s: BatchState) -> torch.Tensor:
         """The lanes' flat cell index, clamped like jnp.take mode='clip'."""
         nx, ny, nz = self.n
         f = (s.ic.long() * ny + s.jc) * nz + s.kc
         return torch.clamp(f, 0, nx * ny * nz - 1)
+
+    def vel_dot(self, s: BatchState) -> torch.Tensor:
+        """u . k of each lane's cell along its direction (moving medium)."""
+        f = self.flat(s)
+        return (self.vel[0][f] * s.kx + self.vel[1][f] * s.ky
+                + self.vel[2][f] * s.kz)
 
     def device_tensors(self):
         out = tuple(t for t in (self.rhokap, self.rhokapD) if t is not None)
@@ -218,17 +284,28 @@ class ScatterParams:
             setattr(c, f, getattr(self, f))
         c.recoil = int(self.recoil)
         c.line = self.line.c_struct
-        # 1 - albedo in f64, then f32, as lart_tpu's weak-typed constant
-        c.one_m_albedo = 1.0 - self.albedo
+        c.one_m_albedo = self.one_m_albedo()
+        if self.h2 is not None:
+            c.h2 = self.h2.c_struct
+        c.albedo_Ha, c.hgg_Ha = self.albedo_Ha, self.hgg_Ha
+        c.one_m_albedo_Ha = self.one_m_albedo(True)
         return c
 
     def c_params(self, tallies: Tallies) -> ScatterC:
         """The C struct with this call's tally pointers (the launch copies
         it, so the next call may overwrite them)."""
         c = self._c_params
-        for f in ('nscatt_gas', 'nscatt_events', 'Jabs', 'nscatt_dust'):
+        for f in ('nscatt_gas', 'nscatt_events', 'Jabs', 'nscatt_dust') \
+                + self.tally_fields:
             setattr(c, f, getattr(tallies, f).data_ptr())
         return c
+
+    @property
+    def tally_fields(self) -> tuple:
+        """The tallies of line type 8 and H2 this scatter adds to."""
+        return ((('Jabs_Ha', 'W_conv', 'W_abs1', 'W_abs2') if self.lyb
+                 else ())
+                + (('W_H2abs', 'W_H2scat', 'W_H2pump') if self.h2 else ()))
 
 
 def local_xcrit(s: BatchState, p: ScatterParams):
@@ -291,20 +368,37 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     s = state
     lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
     at_sc = s.phase == AT_SCATTER
-    is_dust = torch.zeros_like(at_sc)
+    zero = torch.zeros_like(s.wgt)
+    is_dust = is_h2 = torch.zeros_like(at_sc)
     lc = p.line
-    if p.dust:
-        ud = uniforms(seed, STREAM_SCATTER, lanes, counter, p.dust_block)
+    b2 = s.iband == 2 if p.lyb else None
+    if p.dust or p.h2 is not None:
         if p.rk_const > 0.0:
             rk = torch.full_like(s.x, p.rk_const)
             kap_D = torch.full_like(s.x, p.rkD_const)
         else:
             f = p.flat(s)
-            rk, kap_D = p.rhokap[f], p.rhokapD[f]
+            rk = p.rhokap[f]
+            kap_D = p.rhokapD[f] if p.dust else None
         kap_HI = rk * pline.line_profile_plain(lc, s.xfreq, p.a, p.Dfreq)
-        is_dust = at_sc & (ud[0] <= kap_D / torch.clamp_min(kap_HI + kap_D,
-                                                            TINY))
-    is_res = at_sc & ~is_dust
+    if p.h2 is not None:
+        # the H2 event split (engine.py:2121-2130)
+        hu = uniforms(seed, STREAM_SCATTER, lanes, counter, p.h2_block)
+        kap_H2 = rk * ph2.h2_kappa_plain(p.h2, s.xfreq, p.Dfreq)
+        ktot = kap_HI + kap_H2
+        if p.dust:
+            ktot = ktot + kap_D
+        is_h2 = at_sc & (hu[0] * torch.clamp_min(ktot, TINY) <= kap_H2)
+    ud = None
+    if p.dust:
+        ud = uniforms(seed, STREAM_SCATTER, lanes, counter, p.dust_block)
+        is_dust = at_sc & ~is_h2 & (
+            ud[0] <= kap_D / torch.clamp_min(kap_HI + kap_D, TINY))
+    if p.lyb:
+        # every event of the H-alpha band is a dust event
+        is_dust = torch.where(b2, at_sc, is_dust)
+        is_h2 = is_h2 & ~b2
+    is_res = at_sc & ~is_dust & ~is_h2
     u = uniforms(seed, STREAM_SCATTER, lanes, counter, range(p.rounds + 2))
     sel = None if lc.line_type == 1 else uniforms(
         seed, STREAM_SCATTER, lanes, counter, 3 * p.rounds + 4)
@@ -342,12 +436,16 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     ux = uxy * torch.cos(phi2) * red.perp
     uy = uxy * torch.sin(phi2) * red.perp
     xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint
+    conv = red.conv if p.lyb else None
     if p.recoil:
-        # (g0 / D)(1 - cos theta), g0 / D an f32 division (engine.py:2228)
+        # (g0 / D)(1 - cos theta), g0 / D an f32 division (engine.py:2228);
+        # none at a conversion
         g0 = torch.as_tensor(red.g0, dtype=torch.float32, device=s.device)
-        xfreq_new = xfreq_new - (g0 / torch.full((), p.Dfreq,
-                                                 device=s.device)) \
+        shifted = xfreq_new - (g0 / torch.full((), p.Dfreq,
+                                               device=s.device)) \
             * (1.0 - cost)
+        xfreq_new = shifted if conv is None else torch.where(
+            conv, xfreq_new, shifted)
     tau_next = -torch.log(torch.clamp_min(u[p.rounds + 1, 0], 1e-12))
 
     turned = ('kx', 'ky', 'kz') + (('mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
@@ -360,8 +458,15 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     if p.dust:
         dust_sc, absorbed, dust_new = dust_event(s, tallies, p, seed,
                                                  counter, ud, is_dust, cosp,
-                                                 sinp)
-    kind = torch.where(do_res, EVENT_RESONANCE,
+                                                 sinp, b2)
+    h2_sc = h2_destroy = torch.zeros_like(at_sc)
+    if p.h2 is not None:
+        h2_sc, h2_destroy, h2_new = h2_event(s, tallies, p, seed, counter,
+                                             hu, is_h2)
+    res_kind = torch.full_like(s.phase, EVENT_RESONANCE)
+    if conv is not None:
+        res_kind = torch.where(conv, EVENT_CONVERSION, res_kind)
+    kind = torch.where(do_res, res_kind,
                        torch.where(dust_sc, EVENT_DUST, 0))
 
     if record is not None:
@@ -381,32 +486,100 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         v = torch.where(do_res, v, cur)
         if p.dust and name in dust_new:
             v = torch.where(dust_sc, dust_new[name], v)
+        if p.h2 is not None and name in h2_new:
+            v = torch.where(h2_sc, h2_new[name], v)
         cur.copy_(v)
-    done = do_res | dust_sc | absorbed
-    s.phase.copy_(torch.where(absorbed, DEAD,
+    done = do_res | dust_sc | absorbed | h2_sc | h2_destroy
+    s.phase.copy_(torch.where(absorbed | h2_destroy, DEAD,
                               torch.where(done, FLYING, s.phase))
                   .to(torch.int32))
-    s.xfreq.copy_(torch.where(do_res, xfreq_new, s.xfreq))
+    xf = torch.where(do_res, xfreq_new, s.xfreq)
+    if p.h2 is not None:
+        xf = torch.where(h2_sc, h2_new['xfreq'], xf)
+    if conv is not None:
+        # 3p -> 2s: the H-alpha photon's lab frequency along the new
+        # direction (engine.py:2510-2528)
+        did_conv = do_res & conv
+        u_new = p.vel_dot(s) if p.vel is not None else zero
+        xf = torch.where(did_conv, xfreq_new - xfreq_atom + u_new, xf)
+        s.iband.copy_(torch.where(did_conv, 2, s.iband).to(torch.int32))
+        tallies.W_conv += torch.where(did_conv, s.wgt, zero).sum()
+    s.xfreq.copy_(xf)
     if p.dust and p.reduced_wgt:
-        s.wgt.copy_(torch.where(dust_sc, s.wgt * p.albedo, s.wgt))
+        s.wgt.copy_(torch.where(dust_sc, s.wgt * dust_new['albedo'], s.wgt))
     s.tau_target.copy_(torch.where(done, tau_next, s.tau_target))
     s.tau_run.copy_(torch.where(done, torch.zeros_like(s.tau_run),
                                 s.tau_run))
-    tallies.nscatt_gas += torch.where(do_res, s.wgt,
-                                      torch.zeros_like(s.wgt)).sum()
+    tallies.nscatt_gas += torch.where(do_res, s.wgt, zero).sum()
     tallies.nscatt_events += do_res.sum(dtype=torch.float32)
 
 
+def h2_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
+             counter: int, hu, is_h2):
+    """The H2 branch of the plain scatter (engine.py:2383-2435) on the
+    pre-scatter state, hu the uniforms of block h2_block: W_H2abs,
+    W_H2scat, W_H2pump and the scattered weight in nscatt_gas are tallied
+    here; returns (scattered, destroyed, the scattered lanes' new
+    direction and frequency by field name)."""
+    lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
+    h = p.h2
+    hv = uniforms(seed, STREAM_SCATTER, lanes, counter, p.h2_block + 1)
+    zero = torch.zeros_like(s.wgt)
+    w0, w1 = ph2.h2_line_weights_plain(h, s.xfreq, p.Dfreq)
+    sel2 = hu[1] * torch.clamp_min(w0 + w1, TINY) > w0
+
+    def pick(v):
+        return torch.where(sel2, v[1], v[0])
+    destroy = is_h2 & (hu[2] > pick(h.p_scat))
+    sc = is_h2 & ~destroy
+    ratio = ph2.h2_ratio(h, p.Dfreq)
+    dx_l = div(pick(h.dnu), p.Dfreq)
+    x_h2 = (s.xfreq - dx_l) * ratio
+    env = samplers.vz_envelope(x_h2, pick(h.a_damp))
+    acc, uz = torch.zeros_like(sc), zero
+    for v in uniforms(seed, STREAM_SCATTER, lanes, counter,
+                      range(p.h2_block + 2, p.h2_block + 2 + p.rounds)):
+        acc, uz = samplers.vz_round_xi(v, env, acc, uz, sc)
+    sc = sc & acc
+    cost = 2.0 * hu[3] - 1.0
+    sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+    phi = samplers.TWOPI * hv[0]
+    phi2 = samplers.TWOPI * hv[1]
+    uxy = torch.sqrt(-torch.log(hv[2]))
+    ux, uy = uxy * torch.cos(phi2), uxy * torch.sin(phi2)
+    cosp, sinp = torch.cos(phi), torch.sin(phi)
+    x_new = (x_h2 - uz) + uz * cost + (ux * cosp + uy * sinp) * sint
+    new = dict(zip(('kx', 'ky', 'kz'), rotate_direction(
+        s.kx, s.ky, s.kz, cost, sint, cosp, sinp)))
+    new['xfreq'] = div(x_new, ratio) + dx_l
+    tallies.W_H2abs += torch.where(destroy, s.wgt, zero).sum()
+    tallies.W_H2scat += torch.where(sc, s.wgt, zero).sum()
+    tallies.W_H2pump.index_add_(0, sel2.long(),
+                                torch.where(is_h2, s.wgt, zero))
+    tallies.nscatt_gas += torch.where(sc, s.wgt, zero).sum()
+    return sc, destroy, new
+
+
 def dust_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
-               counter: int, ud, is_dust, cosp, sinp):
+               counter: int, ud, is_dust, cosp, sinp, b2=None):
     """The dust branch of the plain scatter (engine.py:2270-2381) on the
-    pre-scatter state: Jabs and nscatt_dust are tallied here; returns
-    (scattered, absorbed, the scattered lanes' new direction, and with
-    Stokes triad and Stokes vector, by field name)."""
+    pre-scatter state: Jabs (and, line type 8, Jabs_Ha, W_abs1, W_abs2 of
+    the bands; b2 marks the H-alpha band's lanes) and nscatt_dust are
+    tallied here; returns (scattered, absorbed, the scattered lanes' new
+    direction, and with Stokes triad and Stokes vector, by field name, with
+    the albedo of each lane under 'albedo')."""
+    if b2 is None:
+        albedo, one_m = p.albedo, p.one_m_albedo()
+    else:
+        def band(v1, v2):
+            return torch.where(b2, float(np.float32(v2)),
+                               float(np.float32(v1))).to(torch.float32)
+        albedo = band(p.albedo, p.albedo_Ha)
+        one_m = band(p.one_m_albedo(), p.one_m_albedo(True))
     if p.reduced_wgt:
         absorbed = torch.zeros_like(is_dust)
     else:
-        absorbed = is_dust & (ud[1] > p.albedo)
+        absorbed = is_dust & (ud[1] > albedo)
     dust_sc = is_dust & ~absorbed
     if p.dust == DUST_MUELLER:
         lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
@@ -424,25 +597,41 @@ def dust_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
                            S11, S12, S33, S34)
     else:
         cost = samplers.rand_henyey_greenstein(ud[2], p.hgg)
+        if b2 is not None:
+            cost = torch.where(b2, samplers.rand_henyey_greenstein(
+                ud[2], p.hgg_Ha), cost)
         sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
         new = dict(zip(('kx', 'ky', 'kz'),
                        rotate_direction(s.kx, s.ky, s.kz, cost, sint, cosp,
                                         sinp)))
+    new['albedo'] = albedo
     # Jabs at the lab frequency of the lane's cell
     xlab = s.xfreq
     if p.vel is not None:
-        f = p.flat(s)
-        xlab = s.xfreq + (p.vel[0][f] * s.kx + p.vel[1][f] * s.ky
-                          + p.vel[2][f] * s.kz)
-    fx = torch.floor(div(xlab - p.xfreq_min, p.dxfreq))
-    ina = (fx >= 0.0) & (fx < p.nxfreq)
-    wab = s.wgt * (1.0 - p.albedo) if p.reduced_wgt else s.wgt
-    absorbing = is_dust & (absorbed | p.reduced_wgt)
+        xlab = s.xfreq + p.vel_dot(s)
     zero = torch.zeros_like(s.wgt)
-    tallies.Jabs.index_add_(0, torch.clamp(fx, 0, p.nxfreq - 1).long(),
-                            torch.where(absorbing & ina, wab, zero))
+    wab = s.wgt * one_m if p.reduced_wgt else s.wgt
+    absorbing = is_dust & (absorbed | p.reduced_wgt)
+    if b2 is None:
+        _bin_add(tallies.Jabs, p, xlab, torch.where(absorbing, wab, zero))
+    else:
+        # the H-alpha band's frequency is a lab one already
+        _bin_add(tallies.Jabs, p, xlab,
+                 torch.where(absorbing & ~b2, wab, zero))
+        _bin_add(tallies.Jabs_Ha, p, s.xfreq,
+                 torch.where(absorbing & b2, wab, zero))
+        tallies.W_abs1 += torch.where(absorbing & ~b2, wab, zero).sum()
+        tallies.W_abs2 += torch.where(absorbing & b2, wab, zero).sum()
     tallies.nscatt_dust += torch.where(is_dust, s.wgt, zero).sum()
     return dust_sc, absorbed, new
+
+
+def _bin_add(J, p: ScatterParams, xlab, w) -> None:
+    """Add w into the spectrum J at the bins of the lab frequencies xlab,
+    the lanes off the frequency grid left out."""
+    fx, ina = freq_floor(p, xlab)
+    J.index_add_(0, torch.clamp(fx, 0, p.nxfreq - 1).long(),
+                 torch.where(ina, w, torch.zeros_like(w)))
 
 
 def mueller_turn(s: BatchState, cost, sint, cosp, sinp, S11, S12, S33, S34):
@@ -511,6 +700,7 @@ def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
     kbuild.require_cuda('scatter_lya', tallies.nscatt_gas,
                         tallies.nscatt_events, tallies.Jabs,
                         tallies.nscatt_dust, state.x, *p.device_tensors(),
+                        *(getattr(tallies, f) for f in p.tally_fields),
                         *(() if record is None else (record.flag,)))
     kbuild.check(kbuild.library().lart_scatter_lya(
         state.lane_pointers, None if record is None else record.pointers,

@@ -4,9 +4,14 @@ Counterparts of BatchState / Tallies / init_state / zero_tallies
 (lart_tpu/transport/engine.py:47-146, :222-264), cut to the fields the
 ported paths read and write: the lane's position, direction, cell,
 frequency, weight and optical depths, the forced-first-scattering birth
-snapshot, and the Stokes parameters with the reference triad (m, n, k)
-that polarized peel-off carries (engine.py:80-90).  The shear,
-all-photons and band fields come with the features that use them.
+snapshot, the Stokes parameters with the reference triad (m, n, k)
+that polarized peel-off carries (engine.py:80-90), and the photon's band
+(engine.py:98-99: 1 the resonance line, 2 the H-alpha photon a Ly-beta
+scattering converts to, line type 8).  The shear and all-photons fields
+come with the features that use them.  The Ly-beta tallies (Jout_Ha,
+Jabs_Ha and the band budgets) exist only for line type 8 and the H2
+tallies only with H2 pumping on, so a run without them carries and
+reads what it did before.
 
 Unlike the JAX pytrees these are mutable: refill, fly and scatter update
 the tensors in place (kernels and plain versions alike), so one batch
@@ -31,8 +36,12 @@ LANE_FIELDS = ('phase', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'ic', 'jc', 'kc',
                'xfreq', 'wgt', 'tau_target', 'tau_run',
                'bx', 'by', 'bz', 'bic', 'bjc', 'bkc',
                'bxfreq', 'bkx', 'bky', 'bkz',
-               'Q', 'U', 'V', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz')
-INT_FIELDS = frozenset({'phase', 'ic', 'jc', 'kc', 'bic', 'bjc', 'bkc'})
+               'Q', 'U', 'V', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
+               'iband')
+INT_FIELDS = frozenset({'phase', 'ic', 'jc', 'kc', 'bic', 'bjc', 'bkc',
+                        'iband'})
+LYB_SCALARS = ('W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2')
+H2_SCALARS = ('W_H2abs', 'W_H2scat')
 
 
 @dataclasses.dataclass(eq=False)
@@ -73,6 +82,7 @@ class BatchState:
     nnx: torch.Tensor
     nny: torch.Tensor
     nnz: torch.Tensor
+    iband: torch.Tensor          # int32: 1 the line, 2 H-alpha (type 8)
     n_launched: torch.Tensor     # int32 (1,)
 
     @property
@@ -107,6 +117,22 @@ class Tallies:
     Jabs: torch.Tensor           # (nxfreq,) f32: dust-absorbed weight
     nscatt_dust: torch.Tensor    # () f32: weight of the dust events
     peel: Optional[object] = None  # instruments.peel.PeelCubes (peel-off)
+    # line type 8: the H-alpha band's escaped and dust-absorbed spectra,
+    # the 3p -> 2s conversion weight, and each band's escaped and absorbed
+    # weight (() f32 each; W_esc1 counts the forced first scatterings'
+    # escaped fractions)
+    Jout_Ha: Optional[torch.Tensor] = None
+    Jabs_Ha: Optional[torch.Tensor] = None
+    W_conv: Optional[torch.Tensor] = None
+    W_esc1: Optional[torch.Tensor] = None
+    W_abs1: Optional[torch.Tensor] = None
+    W_esc2: Optional[torch.Tensor] = None
+    W_abs2: Optional[torch.Tensor] = None
+    # H2 pumping: the weight destroyed, scattered back to Ly-alpha, and
+    # pumped in each of the two lines ((2,) f32)
+    W_H2abs: Optional[torch.Tensor] = None
+    W_H2scat: Optional[torch.Tensor] = None
+    W_H2pump: Optional[torch.Tensor] = None
 
 
 def init_state(batch: int, device) -> BatchState:
@@ -119,18 +145,27 @@ def init_state(batch: int, device) -> BatchState:
     fields = {f: (zi() if f in INT_FIELDS else zf()) for f in LANE_FIELDS}
     for f in ('kz', 'bkz', 'mx', 'nny'):
         fields[f] = zf(1.0)
+    fields['iband'] = zi() + 1
     return BatchState(**fields,
                       n_launched=torch.zeros((1,), dtype=torch.int32,
                                              device=device))
 
 
-def zero_tallies(nxfreq: int, nmu: int, device) -> Tallies:
+def zero_tallies(nxfreq: int, nmu: int, device, lyb: bool = False,
+                 h2: bool = False) -> Tallies:
+    """Zero tallies; `lyb` adds line type 8's, `h2` H2 pumping's."""
     def z(n):
         return torch.zeros((n,), dtype=torch.float32, device=device)
 
     def s():
         return torch.zeros((), dtype=torch.float32, device=device)
 
+    extra = {}
+    if lyb:
+        extra.update(Jout_Ha=z(nxfreq), Jabs_Ha=z(nxfreq),
+                     **{k: s() for k in LYB_SCALARS})
+    if h2:
+        extra.update(W_H2pump=z(2), **{k: s() for k in H2_SCALARS})
     return Tallies(Jin=z(nxfreq), Jout=z(nxfreq), Jmu=z(nxfreq * nmu),
                    nscatt_gas=s(), nscatt_events=s(), W_oor=s(),
-                   Jabs=z(nxfreq), nscatt_dust=s())
+                   Jabs=z(nxfreq), nscatt_dust=s(), **extra)

@@ -248,3 +248,58 @@ def test_cli_runs_the_silicon_multiplet(tmp_path):
     assert abs(w - 1.0) < 1e-3
     assert float(r.header['Nsc_gas']) > 0.0
     assert (tmp_path / 'out_peel3D.fits').exists()
+
+
+def test_cli_runs_the_lyman_beta_dusty_sphere(tmp_path):
+    """examples/ly_beta_sphere/t4tau1e4_dust.in (line type 8: Ly-beta with
+    its H-alpha band, one observer with the peel_Ha cube) cut to a CPU's
+    few seconds: a 17^3 grid, tau0 30, 300 photons, a 17 x 17 image, and
+    DGR raised from 1e-3 to 1e5 (as written the dust's tau is ~1e-6).  The
+    FITS output carries Jout_Ha, Jabs_Ha, the two-photon spectrum and the
+    band budgets, which lart_tpu's read_lart reads; the budgets close and
+    the _peel3D file holds the peel_Ha cube."""
+    import chip_smoke
+    from lart_tpu.io.iofile import open_read
+    nml = chip_smoke.namelist_variant(
+        'ly_beta_sphere/t4tau1e4_dust.in', tmp_path, no_photons='300',
+        taumax='30.0', DGR='1.0e5', nx='17', ny='17', nz='17', nxim='17',
+        nyim='17', batch_size='512')
+    out = tmp_path / 'out.fits'
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    h = r.header
+    assert r.Jout_Ha.shape == r.Jabs_Ha.shape == r.xfreq.shape
+    assert r.Jout_Ha.sum() > 0.0 and r.Jabs_Ha.sum() > 0.0
+    assert r.J2gam.shape == r.y_2gam.shape and r.J2gam.sum() > 0.0
+    w = {k: float(h[k]) for k in ('W_conv', 'W_esc1', 'W_abs1', 'W_esc2',
+                                  'W_abs2')}
+    assert abs(w['W_esc1'] + w['W_abs1'] + w['W_conv'] - 1.0) < 1e-3
+    assert abs(w['W_esc2'] + w['W_abs2'] - w['W_conv']) < 1e-3
+    with open_read(str(tmp_path / 'out_peel3D.fits')) as f:
+        assert {'Scattered', 'Direct', 'peel_Ha'} <= set(f.keys())
+        ha = np.asarray(f['peel_Ha/data'])
+    assert ha.shape == (r.xfreq.size, 17, 17) and ha.sum() > 0.0
+
+
+def test_cli_runs_the_h2_example(tmp_path):
+    """examples/h2_test/h2_on.in (Ly-alpha with the Neufeld H2 pumping,
+    core-skip) cut to a CPU's few seconds: a 17^3 grid, tau 10, 200
+    photons, f_H2 raised from 0.03 to 30 so that H2 destroys a share.  The
+    FITS output's Spectrum keywords carry the H2 model, fraction,
+    temperature and the per-photon destroyed, scattered and pumped weights,
+    which read_lart reads; the weight closes with the destroyed share."""
+    import chip_smoke
+    nml = chip_smoke.namelist_variant(
+        'h2_test/h2_on.in', tmp_path, no_photons='200', taumax='10.0',
+        f_H2='30.0', nx='17', ny='17', nz='17', batch_size='512')
+    out = tmp_path / 'out.fits'
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    h = r.header
+    assert str(h['H2MODEL']).strip() == 'neufeld' and int(h['H2NLINE']) == 2
+    assert float(h['H2FH2']) == 30.0 and float(h['H2TEMP']) == 8000.0
+    assert float(h['H2ABS']) > 0.0
+    assert float(h['H2PUMP1']) + float(h['H2PUMP2']) >= float(h['H2ABS'])
+    w = float(h['W_esc']) + float(h.get('W_oor', 0.0)) + float(h['H2ABS'])
+    assert abs(w - 1.0) < 1e-3
+    assert r.Jout.shape == r.xfreq.shape == (241,)

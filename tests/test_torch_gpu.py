@@ -25,15 +25,23 @@ def cuda():
     return torch.device('cuda')
 
 
+LYB_H2_KEYS = {'refill_point (line type 8)', 'fly_cartesian (line type 8)',
+               'scatter_lya (line type 8)', 'peel (line type 8)',
+               'fly_cartesian (H2)', 'scatter_lya (H2)', 'peel (H2)',
+               'fly_cartesian (H2) (line types 2, 4-7)',
+               'scatter_lya (H2) (line types 2, 4-7)'}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
     res = chip_smoke.phase2(cuda)
     kernels = {'refill_point', 'fly_uniform_slab', 'fly_cartesian',
                'fly_uniform_sphere', 'scatter_lya', 'peel'}
-    # the metal lines' instances (chip_smoke.phase2_lines) too
+    # the metal lines' instances (chip_smoke.phase2_lines), and line type
+    # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
-        k + chip_smoke.LINES for k in kernels}
+        k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -242,3 +250,32 @@ def test_driver_runs_the_metal_lines(cuda, case):
         assert 0.3 < share < 0.95, share
         (c,) = testing.peel_closure(res)
         assert abs(c - 1.0) < 3.0 * (testing.PEEL_V_PHOTON / 10_000) ** 0.5
+
+
+@pytest.mark.parametrize('case', ['lyb', 'lyb_dust', 'h2'])
+def test_driver_runs_lyb_and_h2(cuda, case):
+    import numpy as np
+
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    if case == 'h2':
+        par = testing.h2_params(tau0=10.0, n=17, nphotons=2000, batch=2048,
+                                f_H2=30.0)
+    else:
+        par = testing.peel_params(testing.lyb_params(
+            tau0=30.0, n=17, nphotons=2000, batch=2048,
+            DGR=1e5 if case == 'lyb_dust' else 0.0), stokes=False, nim=17)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=3)
+    need = ('refill_point', 'fly_cartesian', 'scatter_lya') + (
+        () if case == 'h2' else ('peel',))
+    assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
+    assert np.all(np.isfinite(res.Jout))
+    if case == 'h2':
+        assert abs(res.W_escape + res.W_oor + res.W_H2abs - 1.0) < 1e-3
+        assert res.W_H2abs > 0.0
+    else:
+        assert abs(res.W_esc1 + res.W_abs1 + res.W_conv - 1.0) < 1e-3
+        assert abs(res.W_esc2 + res.W_abs2 - res.W_conv) < 1e-3
+        assert float(res.peel['Ha'].sum()) > 0.0
+        assert (res.W_abs2 > 0.0) == (case == 'lyb_dust')

@@ -21,6 +21,10 @@ import chip_smoke
 from lart_tpu_torch.config import Params
 cfg = Params.from_namelist('examples/sphere_peel/t4tau4_peel.in').resolve()
 assert cfg.par.use_stokes and cfg.par.save_peeloff
+# the H2 table comes from the data file, with nothing of lart_tpu imported
+from lart_tpu_torch.physics import h2
+cfg = Params.from_namelist('examples/h2_test/h2_on.in').resolve()
+assert h2.H2Consts.from_config(cfg).strength[1] > 0.0
 print(len(names))
 """
 

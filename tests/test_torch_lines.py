@@ -313,10 +313,14 @@ def test_continuum_births_match_make_refill():
 
 
 def test_check_supported_names_what_is_not_ported():
-    for over, name in (({'line_id': 'ly_beta'}, 'line_type 8'),
-                       ({'h2_model': 'uniform'}, 'h2_model')):
-        cfg = testing.sphere_params(n=5, **over).resolve()
-        with pytest.raises(NotImplementedError, match=name):
-            teng.check_supported(cfg)
+    """Ly-beta (line type 8) and H2 pumping are ported: check_supported
+    passes them, and every metal-line case; a feature still unported is
+    still named."""
+    for over in ({'line_id': 'ly_beta'}, {'h2_model': 'neufeld'},
+                 {'line_id': 'ly_beta', 'DGR': 1e-3}):
+        teng.check_supported(testing.sphere_params(n=5, **over).resolve())
     for case in testing.LINE_CASES:
         teng.check_supported(testing.line_params(case, n=5).resolve())
+    cfg = testing.sphere_params(n=5, line_id='ly_beta', calcJ=True).resolve()
+    with pytest.raises(NotImplementedError, match='calcJ'):
+        teng.check_supported(cfg)

@@ -362,6 +362,9 @@ ACCEPTED = {
     'DL2008/DL20e_dust.in': {},
     'DL2008/DL20e.in': {},
     'DL2008/DL19e.in': {},
+    'ly_beta_sphere/t4tau1e4.in': {},
+    'ly_beta_sphere/t4tau1e4_dust.in': {},
+    'h2_test/h2_on.in': {},
 }
 
 
@@ -396,8 +399,6 @@ OUT_OF_SLICE = {
     'save_all_photons': dict(save_all_photons=True),
     'n_devices > 1': dict(n_devices=2),
     'save_sightline_tau': dict(save_sightline_tau=True),
-    'h2_model': dict(h2_model='lyman_werner'),
-    'line_type': dict(line_id='ly_beta'),
     'peel-off observers': dict(save_peeloff=True, nobs=1, nside=4),
     'out_merge': dict(out_merge=True),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
