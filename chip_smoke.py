@@ -142,6 +142,12 @@ LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
 LYB, LYB_DUST = 'ly_beta_sphere/t4tau1e4.in', 'ly_beta_sphere/t4tau1e4_dust.in'
 H2_ON = 'h2_test/h2_on.in'
 LT8, H2 = ' (line type 8)', ' (H2)'
+# the octree AMR backend (K8 and the AMR branches of K2, K4, K7): the
+# slice's examples, the base of make_amr_sphere's 3.06M-leaf sphere, phase
+# 4's cut of jellyfish_pt (tau_pole 2.9e7 as written: a long drain tail),
+# and the names of the AMR branches in res
+AMR_SPHERE, JELLY = 'amr_sphere/amr_sphere.in', 'jellyfish_rmhd/jellyfish_pt.in'
+AMR_BIG, JELLY_TAU, AMR = 128, 1e4, ' (AMR)'
 
 
 def log(phase, msg):
@@ -210,7 +216,11 @@ def kernel_work(name, pre, ch, meta, stats=None):
         return B * 8, B * 40
     if name == 'refill_point':
         k = int((ph == DEAD).sum())
-        return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4, k * 60
+        # on the AMR grid the source's node, read once: a fine-map voxel or
+        # the descent's levels, its leaf's physics
+        amr = 0 if ch.refill_params.amr is None \
+            else (ch.refill_params.amr.levelmax + 1) * 20 + 32
+        return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4 + amr, k * 60
     if name == 'scatter_lya':
         k = int((ph == AT_SCATTER).sum())
         sp = ch.scatter_params
@@ -243,6 +253,14 @@ def kernel_work(name, pre, ch, meta, stats=None):
             # the band read, the conversion's frequency
             per_lane += 4
             flops += 10
+        if sp.amr is not None:
+            # each lane's node: its leaf id (and, local core-skip, its
+            # centre and half-width), and at non-uniform temperature the
+            # leaf's a and D
+            from lart_tpu_torch.transport.scatter import CORE_SKIP_LOCAL
+            grid += min(cells, k) * 4 * (
+                1 + (4 if sp.core_skip == CORE_SKIP_LOCAL else 0)
+                + (0 if sp.amr.uniform_temperature else 2))
         return B * 4 + flag + k * per_lane + grid, k * flops
     if name == 'peel':
         # the flag of every lane; the position of each flagged lane; the
@@ -276,6 +294,12 @@ def kernel_work(name, pre, ch, meta, stats=None):
         table = 7 * peel.mueller.n * 4 if dust and peel.mueller else 0
         grid = stats['cells'] * 4 * ((4 if g.moving else 1)
                                      + (1 if g.rhokapD is not None else 0))
+        if g.amr is not None:
+            # the AMR walk: each distinct node's centre, half-width, leaf id
+            # and neighbor row, and one fine-map voxel or its children; each
+            # leaf's a and D at non-uniform temperature
+            grid += stats['nodes'] * (44 + (4 if g.amr.nf else 32)) \
+                + stats['cells'] * (0 if g.amr.uniform_temperature else 8)
         # with H2, two more Voigt functions a crossing
         per_crossing = 60 + (80 if g.h2 is not None else 0)
         return (B * 4 + stats['lanes'] * 12 + seen + table
@@ -285,6 +309,25 @@ def kernel_work(name, pre, ch, meta, stats=None):
     k = int(((ph == FLYING) | (ph == FFS)).sum())
     grid = flops = 0
     spectra = ch.nxfreq * 4 * (1 + ch.nmu)
+    if name == 'fly_amr':
+        # each distinct node the lanes stood in, read once: its centre and
+        # half-width, leaf id and neighbor row (44 B), with the octant
+        # descent its children (32 B), else one fine-map voxel (4 B), and
+        # its leaf's physics (rhokap, rhokapD, the velocity, a and D: 4-32
+        # B); the lane state read and written once; a Voigt function (~40
+        # flops, two more with H2) and ~40 flops of faces and hops a step
+        f = ch.flight
+        a = f.amr
+        nodes = int(stats['nodes'].sum())
+        leaf = 4 * (1 + (f.rhokapD is not None) + 3 * f.moving
+                    + 2 * (not a.uniform_temperature))
+        per_node = 44 + (4 if a.nf else 32) + leaf
+        flops = stats['steps'] * (80 + (80 if f.h2 is not None else 0))
+        if f.lyb:
+            grid += k * 4
+            spectra += ch.nxfreq * 4
+        return B * 4 + k * (24 + 12) * 4 + nodes * per_node + grid + spectra, \
+            flops
     if name == 'fly_cartesian':
         f = ch.flight
         grid = min(cells, k) * 4 * ((4 if f.moving else 1)
@@ -597,10 +640,12 @@ def phase2(dev):
     phase2_dust(dev, res)
     phase2_lines(dev, res)
     phase2_lyb_h2(dev, res)
+    phase2_amr(dev, res)
     return res
 
 
-def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None):
+def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None,
+              state_fn=None):
     """K7 and its plain version on one mixed state with a record that
     flags every lane; each (observer, lane) pair's optical depth and cube
     bin are held against each other (a pair differs when its bin differs
@@ -615,11 +660,13 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None):
     pairs, to 1e-5 of their sum (atomics add in no fixed order).  Returns
     (pairs differing, pairs depositing, max abs error of the cubes, max
     |d tau| and max |d w| over that scale of the other pairs).  prep(s),
-    where given, changes the state first (the H-alpha band's lanes)."""
+    where given, changes the state first (the H-alpha band's lanes);
+    state_fn(seed), where given, makes the state (an AMR grid's)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.instruments import peel as tpeel
     p = ch.peel
-    s = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=r_max)
+    s = state_fn(seed) if state_fn is not None else testing.mixed_state(
+        meta, B_MAIN, seed, dev, r_max=r_max)
     if prep is not None:
         prep(s)
     rec = testing.peel_record(s, seed + 1, p.grid.line)
@@ -843,8 +890,8 @@ def phase2_dust(dev, res):
 def flight_kernel(ch):
     """The name of the flight kernel of a chunk."""
     mod = type(ch.flight).__module__.rsplit('.', 1)[-1]
-    return {'fly_slab': 'fly_uniform_slab',
-            'fly_sphere': 'fly_uniform_sphere'}.get(mod, 'fly_cartesian')
+    return {'fly_slab': 'fly_uniform_slab', 'fly_sphere': 'fly_uniform_sphere',
+            'fly_amr': 'fly_amr'}.get(mod, 'fly_cartesian')
 
 
 def line_cases():
@@ -1161,31 +1208,32 @@ def _in_core_fraction(s0, p):
     return frac
 
 
-def cuda_and_cpu(par, dev):
-    """driver.run of par on the card and on the CPU (one thread): (cuda
-    RunResult, its wall s, its launch counts, cpu RunResult, its wall s)."""
+def cuda_and_cpu(par, dev, amr_data=None):
+    """driver.run of par (with amr_data, an AMR grid's leaves) on the card
+    and on the CPU (one thread): (cuda RunResult, its wall s, its launch
+    counts, cpu RunResult, its wall s)."""
     from lart_tpu_torch import driver
     from lart_tpu_torch.kernels import build as kb
     kb.reset_launch_counts()
     t0 = time.time()
-    rg = driver.run(par, device=dev, seed=5)
+    rg = driver.run(par, device=dev, seed=5, amr_data=amr_data)
     tg = time.time() - t0
     counts = {k: v for k, v in kb.LAUNCHES.items() if v}
     nthreads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         t0 = time.time()
-        rc = driver.run(par, device='cpu', seed=6)
+        rc = driver.run(par, device='cpu', seed=6, amr_data=amr_data)
         tc = time.time() - t0
     finally:
         torch.set_num_threads(nthreads)
     return rg, tg, counts, rc, tc
 
 
-def spectra_run(label, par, dev):
+def spectra_run(label, par, dev, amr_data=None):
     """driver.run on cuda and on cpu; the statistics of the two agree."""
     from lart_tpu_torch import testing
-    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev)
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev, amr_data)
     chi2, dmu = testing.spectra_agree(
         *testing.run_tallies(rg), *testing.run_tallies(rc), par.nphotons,
         par.nmu)
@@ -1393,6 +1441,7 @@ def phase3(dev):
                testing.h2_params(tau0=10.0, n=17, nphotons=4000, batch=4096,
                                  f_H2=30.0), dev)
     assert all(c.get(k) for k in need), c
+    amr_phase3(dev)
 
 
 def run_cli(nml, out, device='cuda'):
@@ -1503,6 +1552,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         dl2008_cli(tmp, device, total)
         lines_cli(tmp, device, total)
         lyb_h2_cli(tmp, device, total)
+        amr_runs(tmp, device, total)
     return total
 
 
@@ -1730,6 +1780,296 @@ def lyb_h2_cli(tmp, device, total):
                f's; launches {launches}')
 
 
+def amr_leaves(name):
+    """The leaf dict of an AMR grid of this slice, made in-process (the
+    card's machine has no h5py): 'sphere48k' is make_amr_sphere(32, 1),
+    which examples/amr_sphere/amr_sphere.h5 holds column for column,
+    'sphere3M' make_amr_sphere(AMR_BIG, 1), 'gaps' the 48k sphere with 5% of
+    its finest leaves dropped (gap cells), 'jellyfish' the leaves of
+    examples/jellyfish_rmhd/mk_amr.py (testing.jellyfish_amr)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.amr import make_amr_sphere
+    if name == 'jellyfish':
+        return testing.jellyfish_amr()
+    if name == 'sphere3M':
+        return make_amr_sphere(AMR_BIG, 1)
+    leaves = make_amr_sphere(32, 1)
+    return testing.amr_gaps(leaves, 0.05, 1) if name == 'gaps' else leaves
+
+
+def amr_chunk(par, data, dev):
+    """(meta, chunk, seconds, builder) of par's AMR grid built on dev from
+    the leaves data; builder is 'native' where the C++ octree builder
+    built the tree."""
+    from lart_tpu_torch.grid.amr import build_amr
+    from lart_tpu_torch.transport.engine import make_chunk
+    cfg = par.resolve()
+    t0 = time.time()
+    r = build_amr(cfg, data=data, device=dev)
+    ch = make_chunk(cfg, r.meta, r.dev)
+    return r.meta, ch, time.time() - t0, r.tree.builder
+
+
+def phase2_amr(dev, res, batch=None):
+    """The octree AMR backend: K8 and the AMR branches of K2, K4 and K7
+    against their plain versions at B = batch (B_MAIN), lane by lane or
+    pair by pair, from mixed AMR states (lanes in leaves, in gap cells and
+    on node faces; testing.amr_state).  The grids: the 3.06M-leaf sphere
+    (make_amr_sphere(AMR_BIG, 1), 256^3 fine map) with its fine map and
+    with the octant descent, K4 with local core-skip and K7 with an
+    observer on +z; the jellyfish_pt grid as written (non-uniform T, a
+    moving medium, dust, core-skip, its observer), with the fine map and
+    with the descent; and the 48k-leaf sphere with 5% gap cells in the
+    Mg II doublet (K8's and K4's kMulti instances) and with H2 (kH2)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.instruments import peel as tpeel
+    B = batch or B_MAIN
+    seed = 600
+    fly_tal = ('Jout', 'Jmu', 'W_oor')
+    t0 = time.time()
+    big = amr_leaves('sphere3M')
+    log(2, f'AMR: {len(big["x"])} leaves of make_amr_sphere({AMR_BIG}, 1) '
+           f'in {time.time() - t0:.1f} s')
+    jelly, gaps = amr_leaves('jellyfish'), amr_leaves('gaps')
+    cases = (
+        ('sphere3M', 'the 3.06M-leaf sphere, fine map, tau 1e7 with local '
+         'core-skip, one observer', AMR_SPHERE, big,
+         dict(core_skip=True, taumax=1e7, **OBSERVER),
+         ('fly', 'refill', 'scatter', 'direct', 'resonance')),
+        ('sphere3M descent', 'the 3.06M-leaf sphere, octant descent, one '
+         'observer', AMR_SPHERE, big,
+         dict(amr_fine_lookup_max=0, **OBSERVER),
+         ('fly', 'refill', 'resonance')),
+        ('jellyfish', 'jellyfish_pt as written: 8e3 / 3e5 K, vy, dust, '
+         'core-skip, its observer', JELLY, jelly, {},
+         ('fly', 'refill', 'scatter', 'direct', 'resonance', 'dust')),
+        ('jellyfish descent', 'jellyfish_pt, octant descent', JELLY, jelly,
+         dict(amr_fine_lookup_max=0), ('fly', 'scatter', 'resonance')),
+        ('sphere48k gaps Mg II', 'the 48k sphere with 5% gap cells, Mg II '
+         '2796 (kMulti)', AMR_SPHERE, gaps, MGII, ('fly', 'scatter')),
+        ('sphere48k gaps H2', 'the 48k sphere with 5% gap cells, H2 f_H2 '
+         '0.03 (kH2)', AMR_SPHERE, gaps,
+         dict(h2_model='neufeld', f_H2=0.03, h2_temperature=8000.0),
+         ('fly', 'scatter')))
+    for label, what, rel, leaves, over, steps in cases:
+        par = example_params(rel, batch_size=B, **over)
+        meta, ch, t_build, builder = amr_chunk(par, leaves, dev)
+        amr = ch.flight.amr
+        assert builder == 'native', builder
+        lt = ch.scatter_params.line.line_type
+        key = AMR if lt == 1 and not ch.h2 else AMR + (H2 if ch.h2 else LINES)
+        log(2, f'AMR {label} ({what}): {meta.nx} nodes, levelmax '
+               f'{meta.levelmax}, fine map {amr.nf}^3, uniform T '
+               f'{meta.uniform_temperature}, static {meta.static_medium}, '
+               f'dust {meta.has_dust}; built by the {builder} octree '
+               f'builder in {t_build:.1f} s')
+
+        def state(sd, phases=(0, 1, 2, 3)):
+            return testing.amr_state(meta, amr, B, sd, dev, phases=phases)
+        for step in steps:
+            seed += 2
+            if step == 'fly':
+                s0 = state(seed)
+                gap = int((amr.leaf(s0.ic) < 0).sum())
+                _, sk, frac, err, tal = both(meta, seed, fly_step(ch),
+                                             fly_tal, dev, nmu=ch.nmu,
+                                             state=s0, h2=ch.h2)
+                moved = int((sk.ic != s0.ic).sum())
+                _max_err(res, 'fly_amr', err)
+                log(2, f'  K8 fly_amr ({"kH2" if ch.h2 else "kMulti" if lt != 1 else "line type 1"}): '
+                       f'{gap} lanes start in gap cells, {moved} change '
+                       f'node; lanes differing {frac:.2e}, max abs err '
+                       f'{err:.3e}; tallies max |d| {tal}')
+            elif step == 'refill':
+                s0 = state(seed)
+                _, sk, frac, err, tal = both(meta, seed, refill_step(ch),
+                                             ('Jin',), dev, state=s0)
+                born = (s0.phase == 0) & (sk.phase != 0)
+                src = amr.find_cell(*(torch.full((1,), v, device=dev)
+                                      for v in (ch.refill_params.xs,
+                                                ch.refill_params.ys,
+                                                ch.refill_params.zs)))
+                assert bool((sk.ic[born] == src).all())
+                _max_err(res, 'refill_point' + AMR, err)
+                log(2, f'  K2 refill_point (AMR birth node {int(src)}): '
+                       f'{int(born.sum())} births; lanes differing '
+                       f'{frac:.2e}, max abs err {err:.3e}; Jin max |d| '
+                       f'{tal["Jin"]:.3e}')
+            elif step == 'scatter':
+                s0 = state(seed, phases=(3,))
+                recs = {}
+                tals = ('nscatt_gas', 'nscatt_events') + (
+                    ('Jabs', 'nscatt_dust') if ch.scatter_params.dust
+                    else ()) + (('W_H2abs', 'W_H2scat', 'W_H2pump')
+                                if ch.h2 else ())
+                _, sk, frac, err, tal = both(
+                    meta, seed, scatter_step(ch, recs=recs if ch.peel
+                                             else None), tals, dev,
+                    state=s0, h2=ch.h2)
+                sp = ch.scatter_params
+                core = ''
+                if sp.core_skip:
+                    core = f', {_in_core_fraction(s0, sp):.4f} in the core'
+                n_rec, rerr = record_diff(recs[True], recs[False]) \
+                    if recs else (0, 0.0)
+                assert n_rec <= MAX_FRAC * B, n_rec
+                _max_err(res, 'scatter_lya' + key, max(err, rerr))
+                log(2, f'  K4 scatter_lya (AMR gathers{core}): '
+                       f'{int((sk.phase == 0).sum())} of {B} lanes dead '
+                       f'after; lanes differing {frac:.2e}, max abs err '
+                       f'{err:.3e}; record lanes differing {n_rec}; '
+                       f'tallies max |d| {tal}')
+            else:
+                mode = {'direct': tpeel.DIRECT,
+                        'resonance': tpeel.RESONANCE,
+                        'dust': tpeel.DUST}[step]
+                n_bad, n_dep, err, dtau, dw = peel_both(
+                    ch, meta, seed, mode, dev, state_fn=state)
+                _max_err(res, 'peel' + AMR, err)
+                log(2, f'  K7 peel {step} (AMR sightline, '
+                       f'{ch.peel.obs_meta.nxim}x{ch.peel.obs_meta.nyim} x '
+                       f'{meta.nxfreq} bins): {n_dep} of {B_MAIN} pairs '
+                       f'deposit, pairs differing {n_bad}, max |d tau| '
+                       f'{dtau:.3e}, per-pair deposits max rel err {dw:.3e}'
+                       f', cubes max abs err {err:.3e}')
+        del ch
+    del big
+
+
+def amr_phase3(dev):
+    """driver.run on cuda and on cpu of a 16-base AMR sphere (tau 20, 1e4
+    photons) and of the jellyfish_pt grid cut to taumax 10 and 8000
+    photons, its dust raised 1e8-fold (a dust tau ~0.3; the moving,
+    non-uniform-temperature medium, core-skip, a 21 x 21 observer): the
+    statistical gates of ROADMAP, and the weight closure with the dust's
+    absorption.  A jellyfish_pt photon's scatterings spread widely (disk or
+    halo), so <N> needs these photons for the 5% gate to stand well beyond
+    the spread of two runs."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.amr import make_amr_sphere
+    need = ('refill_point', 'fly_amr', 'scatter_lya')
+    c = spectra_run('AMR sphere make_amr_sphere(16, 1) tau0 20 1e4 photons',
+                    testing.amr_params(16, 1, tau0=20.0, nphotons=10_000,
+                                       batch=4096), dev,
+                    amr_data=make_amr_sphere(16, 1))
+    assert all(c.get(k) for k in need), c
+    par = example_params(JELLY, taumax=10.0, nphotons=8000, batch_size=4096,
+                         nxim=21, nyim=21, dxim=0.15, dyim=0.15,
+                         distance=100.0, cext_dust=1.6e-13,
+                         xfreq_min=-80.0, xfreq_max=80.0, nxfreq=320)
+    n = par.nphotons
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev, amr_leaves('jellyfish'))
+    for r in (rg, rc):
+        w = r.W_escape + r.W_absorb + r.W_oor
+        assert abs(w - 1.0) < 1e-3, (r.W_escape, r.W_absorb, r.W_oor)
+        assert float(r.peel['scatt'].sum()) > 0.0
+    p = 0.5 * (rg.W_absorb + rc.W_absorb)
+    assert abs(rg.W_absorb - rc.W_absorb) <= 3 * np.sqrt(2 * p * (1 - p) / n)
+    assert abs(rg.nscatt_gas / rc.nscatt_gas - 1.0) < 0.05
+    chi2, nb = testing.spectra_chi2(rg.Jout, rc.Jout, n * rg.W_escape,
+                                    n * rc.W_escape)
+    assert chi2 < 3.0, chi2
+    assert all(counts.get(k) for k in need + ('peel',)), counts
+    log(3, f'jellyfish_pt (taumax 10, {n} photons, its observer): W_esc + '
+           f'W_abs + W_oor cuda {rg.W_escape:.6f} + {rg.W_absorb:.6f} + '
+           f'{rg.W_oor:.6f} ({tg:.1f} s), cpu {rc.W_escape:.6f} + '
+           f'{rc.W_absorb:.6f} + {rc.W_oor:.6f} ({tc:.1f} s); <N> '
+           f'{rg.nscatt_gas:.3f} / {rc.nscatt_gas:.3f}; Jout chi2/dof '
+           f'{chi2:.2f} over {nb} bins; launches {counts}')
+
+
+def amr_runs(tmp, device, total):
+    """The slice's examples through driver.run with the leaves in memory
+    (amr_data: the card's machine has no h5py), FITS written and read back:
+    examples/amr_sphere/amr_sphere.in as written (its leaves are
+    make_amr_sphere(32, 1)); its Cartesian twin, the same sphere on a 64^3
+    grid, for the AMR-vs-Cartesian <N_scatt> ratio (the reference recorded
+    0.985); jellyfish_pt.in with taumax cut to JELLY_TAU, its observer's
+    _peel3D file.  Launch counts go into total['amr']."""
+    from lart_tpu_torch import driver
+    from lart_tpu_torch.io.writer import read_spectrum, write_output
+    from lart_tpu_torch.kernels import build as kb
+
+    def run(label, par, leaves, need):
+        out = Path(tmp) / (label + '.fits')
+        par.file_format, par.out_file = 'fits', str(out)
+        kb.reset_launch_counts()
+        t0 = time.time()
+        r = driver.run(par, device=device, amr_data=leaves)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        write_output(par.out_file, r)
+        spec = read_spectrum(str(out))
+        launches = dict(kb.LAUNCHES)
+        add_launches(total, launches, need)
+        if leaves is not None:
+            sub = total.setdefault('amr', {})
+            for k, v in launches.items():
+                sub[k] = sub.get(k, 0) + v
+        jout = np.asarray(spec['Jout'], np.float64)
+        assert np.all(np.isfinite(jout)) and jout.shape == r.xfreq.shape
+        assert float(spec['W_esc']) == r.W_escape
+        w = r.W_escape + r.W_absorb + r.W_oor
+        assert abs(w - 1.0) < 1e-3, (r.W_escape, r.W_absorb, r.W_oor)
+        log(4, f'{label}: {r.nphotons} photons, W_esc {r.W_escape:.6f} + '
+               f'W_abs {r.W_absorb:.6f} + W_oor {r.W_oor:.6f} = {w:.6f}, '
+               f'<N_scatt> {r.nscatt_gas:.2f}, wall {wall:.1f} s; launches '
+               f'{launches}')
+        return r
+
+    need = ('refill_point', 'fly_amr', 'scatter_lya')
+    ra = run('amr_sphere', example_params(AMR_SPHERE), amr_leaves(
+        'sphere48k'), need)
+    rc = run('amr_sphere_cartesian_twin', example_params(
+        AMR_SPHERE, use_amr_grid=False, rmax=1.0, nx=64, ny=64, nz=64,
+        xmax=1.0, ymax=1.0, zmax=1.0), None,
+        ('refill_point', 'scatter_lya'))
+    ratio = ra.nscatt_gas / rc.nscatt_gas
+    assert abs(ratio - 1.0) < 0.05, ratio
+    log(4, f'AMR-vs-Cartesian <N_scatt> ratio {ratio:.4f} (AMR '
+           f'{ra.nscatt_gas:.2f}, Cartesian 64^3 {rc.nscatt_gas:.2f})')
+    rj = run('jellyfish_pt', example_params(JELLY, taumax=JELLY_TAU),
+             amr_leaves('jellyfish'), need + ('peel',))
+    om = rj.obs_meta
+    from lart_tpu_torch.io.iofile import open_read
+    with open_read(str(Path(tmp) / 'jellyfish_pt_peel3D.fits')) as f:
+        cube = np.asarray(f['Scattered/data'])
+    assert cube.shape == (rj.meta.nxfreq, om.nxim, om.nyim) and cube.sum() > 0
+    log(4, f'jellyfish_pt (taumax {JELLY_TAU:g} of tau_pole 2.9e7 as '
+           f'written): _peel3D scatt cube {cube.shape}, sum {cube.sum():.4e}')
+
+
+def amr_phase5(dev, res):
+    """Steady-state windows of the AMR cells with their profiles and kernel
+    times: amr_sphere.in as written, the 3.06M-leaf sphere with its fine
+    map and with the octant descent, jellyfish_pt as written with its
+    observer.  K8's numbers come from the 3.06M-leaf sphere's fine map, the
+    AMR branches of K2, K4 and K7 from jellyfish_pt."""
+    over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
+    big = amr_leaves('sphere3M')
+    names = ('refill_point', 'fly_amr', 'scatter_lya')
+    cells = (
+        ('amr_sphere (48000 leaves, levels 5-6, 64^3 fine map, tau 1e4)',
+         'amr_sphere', example_params(AMR_SPHERE, **over),
+         amr_leaves('sphere48k'), names, (), ''),
+        ('sphere3M (3058784 leaves, levels 7-8, 256^3 fine map, tau 1e4)',
+         'sphere3M', example_params(AMR_SPHERE, **over), big, names,
+         ('fly_amr',), ''),
+        ('sphere3M_descent (the same, octant descent)', 'sphere3M_descent',
+         example_params(AMR_SPHERE, amr_fine_lookup_max=0, **over), big,
+         names, (), ''),
+        ('jellyfish_pt (4432 leaves, 8e3 / 3e5 K, vy, dust, core-skip, '
+         '101x101 x 121 cube)', 'jellyfish', example_params(JELLY, **over),
+         amr_leaves('jellyfish'), names + ('peel',),
+         ('refill_point', 'scatter_lya', 'peel'), AMR))
+    for label, key, cpar, leaves, kn, record, suffix in cells:
+        p, _ = rate_window(label, cpar, dev, amr_data=leaves)
+        card = smi()
+        profile_chunks(p, card, key)
+        kernel_times(p, card, key, res, kn, record=record, suffix=suffix)
+        del p
+
+
 def device_ms(calls):
     """Device ms per launch of calls[i](): a sleep holds the stream while
     the host enqueues every call, so the launches run back to back and the
@@ -1871,8 +2211,9 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
             lambda: kern(work), lambda: plain(work), reps,
             lambda: testing.copy_state_(work, pre))
         stats = {}
-        if k == 'fly_cartesian':
-            # the steps the walk takes on these inputs (its H2 flops)
+        if k in ('fly_cartesian', 'fly_amr'):
+            # the steps the walk takes on these inputs (its H2 flops; K8's
+            # distinct nodes)
             fmod.fly_plain(testing.clone_state(pre), tl, ch.flight,
                            ch.fly_substeps, stats=stats)
         out[k] = dev_ms, call_ms, plain_ms, bound(*kernel_work(
@@ -1914,14 +2255,14 @@ def branch_shift_share(p, card, label, reps=20):
            f'shift takes {100 * (on - without) / on:.1f}% of K2 [{card}]')
 
 
-def rate_window(label, par, dev, min_s=WINDOW_S):
+def rate_window(label, par, dev, min_s=WINDOW_S, amr_data=None):
     """Steady-state rate: 3 warm-up chunks, then whole chunks until at least
     min_s seconds have passed (host clock between two synchronisations);
     all gas scatterings over all the window's time.  Returns the prepared
     run and the rate."""
     from lart_tpu_torch import driver
     t0 = time.time()
-    p = driver.prepare(par, seed=12345, device=dev)
+    p = driver.prepare(par, seed=12345, device=dev, amr_data=amr_data)
     t_prep = time.time() - t0
     for _ in range(3):
         driver.chunk_to_host(*p.run_chunk())
@@ -2100,6 +2441,7 @@ def phase5(dev, res):
                f'{was:.6f} ms before the line-type-8 and H2 branches (the '
                f'same measurement):'
                f' {100 * (ms / was - 1):+.1f}%')
+    amr_phase5(dev, res)
 
 
 KERNELS = {
@@ -2149,6 +2491,12 @@ SLICE_INLINES = {
     H2: 'h2_kappa and h2_line_weight (lart_tpu_torch/csrc/h2.cuh, replace '
         'lart_tpu/physics/h2.py:109,123)',
 }
+
+
+AMR_KERNEL = ('lart_tpu_torch/csrc/fly_amr.cu',
+              'lart_tpu/transport/engine.py:1507')
+AMR_INLINES = ('amr_find_cell and amr_descend_from_face (lart_tpu_torch/csrc/'
+               'amr.cuh, replace lart_tpu/transport/engine.py:548, :359)')
 
 
 def main(argv=None):
@@ -2209,6 +2557,27 @@ def main(argv=None):
                 bound_by=res[k + suffix]['bound_by'], library_ms=None,
                 inlines=SLICE_INLINES[suffix])
                 for k, rep in kernels]
+        # this slice's kernel K8 (its numbers from the 3.06M-leaf sphere)
+        # and the AMR branches of K2, K4 and K7 (from jellyfish_pt), with
+        # the launches of phase 4's AMR runs
+        counts = launches['amr']
+        line['kernels'].append(dict(
+            name='fly_amr', route='cuda', source=AMR_KERNEL[0],
+            replaces=AMR_KERNEL[1], launches=counts['fly_amr'],
+            max_abs_err=res['fly_amr']['max_abs_err'],
+            ms=res['fly_amr']['ms'], plain_ms=res['fly_amr']['plain_ms'],
+            bound_ms=res['fly_amr']['bound_ms'],
+            bound_by=res['fly_amr']['bound_by'], library_ms=None,
+            inlines=AMR_INLINES))
+        line['kernels'] += [dict(
+            name=k + AMR, route='cuda', source=KERNELS[k][0],
+            replaces=KERNELS[k][1], launches=counts[k],
+            max_abs_err=res[k + AMR]['max_abs_err'], ms=res[k + AMR]['ms'],
+            plain_ms=res[k + AMR]['plain_ms'],
+            bound_ms=res[k + AMR]['bound_ms'],
+            bound_by=res[k + AMR]['bound_by'], library_ms=None,
+            inlines=AMR_INLINES)
+            for k in ('refill_point', 'scatter_lya', 'peel')]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

@@ -32,6 +32,15 @@ def grid_from_jax(meta, grid, device='cpu'):
                             for f in dataclasses.fields(GridDevice)})
 
 
+def amr_from_jax(meta, dev, device='cpu'):
+    """lart_tpu (GridMeta, grid.octree.AmrDevice) of an AMR grid -> the
+    port's GridMeta and AmrDevice, every array read through numpy."""
+    from .grid.octree import AmrDevice
+    m = GridMeta(**dataclasses.asdict(meta))
+    return m, AmrDevice(**{f.name: _tensor(getattr(dev, f.name), device)
+                           for f in dataclasses.fields(AmrDevice)})
+
+
 def state_from_jax(state, device='cpu') -> BatchState:
     """lart_tpu BatchState (one device) -> the port's lane fields."""
     return BatchState(**{f: _tensor(getattr(state, f), device)

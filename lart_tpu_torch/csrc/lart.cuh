@@ -166,9 +166,11 @@ inline PeelRecord unpack_record(void* const* p) {
 // embeds), and H2's (H2C); included here, below the definitions they use
 #include "line.cuh"
 #include "h2.cuh"
+// the octree AMR grid (AmrGrid, which FlightParams embeds) and its lookups
+#include "amr.cuh"
 
-// Constants and device pointers of the K5 (fly_cartesian) and K6
-// (fly_uniform_sphere) flights, passed by pointer from the host and by value
+// Constants and device pointers of the K5 (fly_cartesian), K6
+// (fly_uniform_sphere) and K8 (fly_amr) flights, passed by pointer from the host and by value
 // to the kernel.  lart_tpu_torch/transport/flight.py FlightParams mirrors this
 // layout field for field; lart_flight_params_size() lets it check the size.
 struct FlightParams {
@@ -208,6 +210,8 @@ struct FlightParams {
   float R_Ha;      // cext_dust_Ha / cext_dust: the H-alpha band's dust
   LineC line;      // the line: its opacity profile (line.cuh)
   H2C h2;          // H2 pumping (the instances with kH2 read it)
+  AmrGrid amr;     // the octree (K7's AMR sightline, K8): rhokap, rhokapD
+                   //   and the velocities are then per leaf; ncells 0 else
 };
 
 enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };

@@ -1,7 +1,9 @@
 // K7 peel: peeling-off to external observers at a photon's birth (direct) and
 // at each resonance or dust scattering, with and without Stokes, on a
-// Cartesian grid (the DDA sightline) or on the uniform-sphere fast path (one
-// chord).
+// Cartesian grid (the DDA sightline), on the uniform-sphere fast path (one
+// chord) or on the octree AMR grid (the node walk of K8, csrc/amr.cuh; the
+// event cell's leaf velocity and, at non-uniform temperature, its Doppler
+// width in freq_bin and the recoil).
 //
 // Replaces lart_tpu/instruments/peel.py:62 make_peel: peel_direct (:446),
 // peel_resonance (:476), peel_dust (:577), peel_conversion_Ha (:656) and
@@ -101,12 +103,60 @@ struct PeelParams {
   float hg_num_Ha, hg_1pg2_Ha, hg_2g_Ha;  // the H-alpha band's (type 8)
 };
 
+// the AMR sightline (peel.py:242-290): node by node as K8 walks, the
+// exit face, the snap to its plane, the neighbor hop and the descent, with
+// K8's comoving update in a moving medium or at non-uniform temperature
+template <bool kMulti, bool kH2>
+__device__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const float pos0[3],
+                                 int ic, const float k[3], float xf, bool band2) {
+  const AmrGrid& a = g.amr;
+  const bool update = g.moving || a.Dfreq != nullptr;
+  float pos[3] = {pos0[0], pos0[1], pos0[2]};
+  float tau = 0.0f;
+  for (int n = 0; n < max_steps; ++n) {
+    const int il = amr_leaf(a, ic);
+    float a_c, D_c;
+    leaf_a_D(g, il, a_c, D_c);
+    const float rho =
+        band2 ? leaf_band2_opacity(g, il) : leaf_opacity<kMulti, kH2>(g, il, xf, a_c, D_c);
+    const int c = amr_clip_cell(a, ic);
+    const float cen[3] = {__ldg(&a.node_cx[c]), __ldg(&a.node_cy[c]), __ldg(&a.node_cz[c])};
+    const float h = __ldg(&a.node_ch[c]);
+    float t[3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) t[q] = node_face_dist(pos[q], k[q], cen[q], h);
+    const float dmin = fminf(fminf(t[0], t[1]), t[2]);
+    const int axis = dmin == t[0] ? 0 : (dmin == t[1] ? 1 : 2);
+    const int face = axis * 2 + (k[axis] > 0.0f ? 0 : 1);
+    tau = tau + dmin * rho;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) pos[q] = fmaf(dmin, k[q], pos[q]);
+    pos[axis] = cen[axis] + (k[axis] > 0.0f ? h : -h);
+    const int nb = __ldg(&a.neighbor[c * 6 + face]);
+    if (nb < 0) break;
+    const int icn = amr_descend_from_face(a, nb, face, pos[0], pos[1], pos[2]);
+    if (update) {
+      const float u1 = g.moving ? leaf_vel_dot(g, il, k) : 0.0f;
+      const int il2 = amr_leaf(a, icn);
+      float a2, D2;
+      leaf_a_D(g, il2, a2, D2);
+      const float u2 = g.moving ? leaf_vel_dot(g, il2, k) : 0.0f;
+      xf = (xf + u1) * D_c / D2 - u2;
+    }
+    ic = icn;
+    if (!(tau < PEEL_TAU_HUGE)) break;
+  }
+  return tau;
+}
+
 // optical depth from pos along k to the grid's edge at comoving frequency
 // xf; band2: the H-alpha band's dust-only opacity (0 without dust)
 template <bool kMulti, bool kH2>
 __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
                              const int cell0[3], const float k0[3], float xf, bool band2) {
   if (band2 && !g.rhokapD) return 0.0f;
+  if (g.amr.ncells)
+    return tau_to_edge_amr<kMulti, kH2>(g, p.max_steps, pos0, cell0[0], k0, xf, band2);
   if (p.chord) {
     const float H = kMulti ? line_profile_q(g.line, p.chord_prof, xf) : voigt_h(xf, g.a_ref);
     const float rho = g.sphere_rho * H + g.sphere_rhoD;
@@ -154,6 +204,12 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (mode == PEEL_DIRECT ? kind == 0 : (kind & mode) == 0) return;
   const float pos[3] = {s.x[i], s.y[i], s.z[i]};
   const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
+  // the event cell's leaf, damping and Doppler width on the AMR grid (the
+  // reference values elsewhere)
+  const bool amr = g.amr.ncells != 0;
+  const int il = amr ? amr_leaf(g.amr, cell[0]) : -1;
+  float a_c = g.a_ref, D_c = g.Dfreq;
+  if (amr) leaf_a_D(g, il, a_c, D_c);
 
   // obs_geometry: the unit direction to the observer and its TAN pixel
   const float* op = p.obs_pos + 3 * o;
@@ -182,7 +238,8 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     xf = s.xfreq[i];
     if (p.lab_source) {
       const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
-      xf = xf + vel_dot(g, cell, k) - vel_dot(g, cell, pk);
+      xf = amr ? xf + leaf_vel_dot(g, il, k) - leaf_vel_dot(g, il, pk)
+               : xf + vel_dot(g, cell, k) - vel_dot(g, cell, pk);
     }
   } else {
     const float kx = rec.kx[i], ky = rec.ky[i], kz = rec.kz[i];
@@ -214,12 +271,15 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
       xf = (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
     } else {
       xf = rec.xatom[i] + (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
-      if (p.recoil) xf = xf - (g.line.g_recoil0 / g.Dfreq) * (1.0f - cost);
+      if (p.recoil) xf = xf - (g.line.g_recoil0 / D_c) * (1.0f - cost);
     }
   }
 
-  // freq_bin: the lab-frequency bin of xf at the event cell, along pk
-  const float xr = g.moving && !b2 ? xf + vel_dot(g, cell, pk) : xf;
+  // freq_bin: the lab-frequency bin of xf at the event cell, along pk, at
+  // its Doppler width (D / Dfreq_ref is 1 at uniform temperature)
+  float xr = xf;
+  if (g.moving && !b2) xr = xf + (amr ? leaf_vel_dot(g, il, pk) : vel_dot(g, cell, pk));
+  if (!b2) xr = xr * (D_c / g.Dfreq);
   const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
   if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
   const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + ix * p.nyim + iy;

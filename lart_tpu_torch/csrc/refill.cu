@@ -33,6 +33,13 @@
 // engine.py:2888; line type 8's conversions move it to 2).  With peel-off
 // on, the record's flag is written on every lane: 1 where this call
 // launched, else 0; K7 then peels exactly those lanes (engine.py:2909-2913).
+// On the AMR grid (engine.py:2755-2775, :2839) each launched lane finds the
+// source's node itself (csrc/amr.cuh amr_find_cell: one fine-map gather or
+// the octant descent from the root) and reads its leaf's velocity and, at
+// non-uniform temperature, its damping a_loc, which the Voigt spectrum
+// draws with, and Doppler width D_loc: the Gaussian and the continuum are
+// divided by D_loc / Dfreq_ref and Jin is tallied at (x + u1) D_loc /
+// Dfreq_ref.
 // Bound: one pass over the state (about 130 bytes a launched lane written,
 // 4 a lane read), memory-bound; the ticket atomics are one per warp.
 #include "lart.cuh"
@@ -48,7 +55,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     float vsx,
                                     float vsy, float vsz, int comoving_source,
                                     float xfreq_min, float dxfreq, int nxfreq, float* Jin,
-                                    float xfreq_span, float Dfreq, LineC line) {
+                                    float xfreq_span, float Dfreq, LineC line, AmrGrid amr,
+                                    const float* vfx, const float* vfy, const float* vfz) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -65,6 +73,27 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   if (rec.flag && i < B) rec.flag[i] = launch ? 1 : 0;
   if (!launch) return;
 
+  // the source cell: on the AMR grid the deepest node holding the source
+  // (amr_find_cell, engine.py:2755-2758) with its leaf's damping, Doppler
+  // width and velocity (the reference values and none in a gap)
+  float a_loc = a, D_loc = Dfreq;
+  if (amr.ncells) {
+    ic = amr_find_cell(amr, xs, ys, zs);
+    jc = kc = 0;
+    const int il = amr_leaf(amr, ic);
+    if (amr.voigt_a) {
+      a_loc = leaf_gather(amr.voigt_a, il, a);
+      D_loc = leaf_gather(amr.Dfreq, il, Dfreq);
+    }
+    if (vfx) {
+      vsx = leaf_gather(vfx, il, 0.0f);
+      vsy = leaf_gather(vfy, il, 0.0f);
+      vsz = leaf_gather(vfz, il, 0.0f);
+    }
+  }
+  // D_loc / Dfreq_ref: exactly 1 at uniform temperature
+  const float ratio = D_loc / Dfreq;
+
   float u[4], v[4];
   uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 0u, u);
   uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 1u, v);
@@ -80,24 +109,24 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   if (line.branch_init) {
     float w[4];
     uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 3u, w);
-    xfreq = xfreq + branch_init_shift(line, w[0], w[1], Dfreq);
+    xfreq = xfreq + branch_init_shift(line, w[0], w[1], D_loc);
   }
   if (spectrum == SPECTRUM_VOIGT) {
-    xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0]);
+    xfreq = xfreq + rand_voigt_x(a_loc, u[2], u[3], v[0]);
   } else if (spectrum == SPECTRUM_GAUSS) {
     float w[4];
     uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
-    xfreq = xfreq + box_muller(w[0], w[1]) * sigma_x;
+    xfreq = (xfreq + box_muller(w[0], w[1]) * sigma_x) / ratio;
   } else if (spectrum == SPECTRUM_CONT) {
     float w[4];
     uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
-    xfreq = xfreq_min + w[0] * xfreq_span;
+    xfreq = (xfreq_min + w[0] * xfreq_span) / ratio;
   }
 
   // lab-frame source -> comoving frequency; Jin at the lab frequency
   const float u1 = vsx * kx + vsy * ky + vsz * kz;
   if (!comoving_source) xfreq = xfreq - u1;
-  const float fx = floorf((xfreq + u1 - xfreq_min) / dxfreq);
+  const float fx = floorf(((xfreq + u1) * ratio - xfreq_min) / dxfreq);
   if (fx >= 0.0f && fx < (float)nxfreq) atomicAdd(&Jin[(int)fx], 1.0f);
 
   s.phase[i] = FFS;
@@ -138,7 +167,9 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   s.iband[i] = 1;  // the resonance line's band (engine.py:2888)
 }
 
-// record: the PeelRecord pointer table, or null with peel-off off
+// record: the PeelRecord pointer table, or null with peel-off off; amr: the
+// octree, or null on a Cartesian grid, with vfx/vfy/vfz its per-leaf
+// velocities (null in a static medium)
 LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                void* n_launched, int budget, unsigned seed,
                                unsigned counter, float xs, float ys, float zs, int ic,
@@ -147,13 +178,15 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                float vsx, float vsy, float vsz, int comoving_source,
                                float xfreq_min, float dxfreq, int nxfreq, void* Jin,
                                float xfreq_span, float Dfreq, const LineC* line,
-                               void* stream) {
+                               const AmrGrid* amr, const float* vfx, const float* vfy,
+                               const float* vfz, void* stream) {
   if (B > 0) {
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
         counter, xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz,
-        comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line);
+        comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line,
+        amr ? *amr : AmrGrid{}, vfx, vfy, vfz);
   }
   return (int)cudaGetLastError();
 }

@@ -125,30 +125,46 @@ struct ScatterParams {
   float* W_H2scat;
   float* W_H2pump;
   float albedo_Ha, one_m_albedo_Ha, hgg_Ha;
+  AmrGrid amr;           // the octree: rhokap, rhokapD and the velocities are
+                         //   then per leaf; ncells 0 on a Cartesian grid
 };
 
+// the index of lane i's cell into the grid arrays: the flat cell, or on the
+// AMR grid its node's leaf (-1 in a gap, where cell_gather() gives 0)
 __device__ inline int scatter_cell(const ScatterParams& p, const Lanes& s, int i) {
+  if (p.amr.ncells) return amr_leaf(p.amr, s.ic[i]);
   const int f = (s.ic[i] * p.n[1] + s.jc[i]) * p.n[2] + s.kc[i];
   return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
 }
 
-// the in-core boost xcrit^2 of lane i, or 0 outside the core
+__device__ inline float cell_gather(const float* a, int f) { return f >= 0 ? a[f] : 0.0f; }
+
+// the in-core boost xcrit^2 of lane i, or 0 outside the core; a_c its cell's
+// damping parameter
 __device__ inline float core_boost(const ScatterParams& c, const Lanes& s, int i,
-                                   float xfreq) {
+                                   float xfreq, float a_c) {
   if (c.core_skip == CORE_SKIP_OFF) return 0.0f;
   float xc = c.xcrit, xc2 = c.xcrit2;
   if (c.core_skip == CORE_SKIP_LOCAL) {
     const float pos[3] = {s.x[i], s.y[i], s.z[i]};
-    const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
     float dl = 0.0f;
+    if (c.amr.ncells) {
+      // the distance to the node's nearest face (engine.py:1880-1887)
+      const int n = amr_clip_cell(c.amr, s.ic[i]);
+      const float h = c.amr.node_ch[n];
+      dl = h - fmaxf(fmaxf(fabsf(pos[0] - c.amr.node_cx[n]), fabsf(pos[1] - c.amr.node_cy[n])),
+                     fabsf(pos[2] - c.amr.node_cz[n]));
+    } else {
+      const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float f = c.amin[k] + (float)cell[k] * c.d[k];
-      const float dla = fminf(pos[k] - f, f + c.d[k] - pos[k]);
-      dl = k == 0 ? dla : fminf(dl, dla);
+      for (int k = 0; k < 3; ++k) {
+        const float f = c.amin[k] + (float)cell[k] * c.d[k];
+        const float dla = fminf(pos[k] - f, f + c.d[k] - pos[k]);
+        dl = k == 0 ? dla : fminf(dl, dla);
+      }
     }
-    const float rk = c.rk_const > 0.0f ? c.rk_const : c.rhokap[scatter_cell(c, s, i)];
-    const float atau = c.a * rk * fmaxf(dl, 0.0f);
+    const float rk = c.rk_const > 0.0f ? c.rk_const : cell_gather(c.rhokap, scatter_cell(c, s, i));
+    const float atau = a_c * rk * fmaxf(dl, 0.0f);
     xc = atau > 1.0f ? cbrtf(atau) / 5.0f : 0.0f;
     xc2 = xc * xc;
   }
@@ -276,7 +292,8 @@ __device__ inline void mueller_turn(const Lanes& s, int i, float cost, float sin
 // u . k of lane i's cell along its direction (moving medium)
 __device__ inline float lane_vel_dot(const ScatterParams& p, const Lanes& s, int i) {
   const int f = scatter_cell(p, s, i);
-  return p.vfx[f] * s.kx[i] + p.vfy[f] * s.ky[i] + p.vfz[f] * s.kz[i];
+  return cell_gather(p.vfx, f) * s.kx[i] + cell_gather(p.vfy, f) * s.ky[i] +
+         cell_gather(p.vfz, f) * s.kz[i];
 }
 
 // A dust event of lane i (engine.py:2270-2381): absorption or scattering,
@@ -286,7 +303,8 @@ __device__ inline float lane_vel_dot(const ScatterParams& p, const Lanes& s, int
 // lab frequency); wabs receives the absorbed weight.
 __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelRecord& rec,
                           int i, uint32_t seed, uint32_t counter, const float d[4],
-                          float cosp, float sinp, float tau_u, bool b2, float& wabs) {
+                          float cosp, float sinp, float tau_u, bool b2, float ratio,
+                          float& wabs) {
   const float wgt = s.wgt[i];
   const float albedo = b2 ? p.albedo_Ha : p.albedo;
   const bool absorbed = !p.reduced_wgt && d[1] > albedo;
@@ -294,6 +312,8 @@ __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelReco
     // Jabs at the lab frequency of the lane's cell
     float xlab = s.xfreq[i];
     if (p.vfx && !b2) xlab = xlab + lane_vel_dot(p, s, i);
+    // at the cell's Doppler width: D / Dfreq_ref, 1 at uniform temperature
+    if (!b2) xlab = xlab * ratio;
     const float wab = p.reduced_wgt ? wgt * (b2 ? p.one_m_albedo_Ha : p.one_m_albedo) : wgt;
     wabs = wab;
     const float fx = floorf((xlab - p.xfreq_min) / p.dxfreq);
@@ -348,9 +368,9 @@ struct H2Tally {
 // scattered back to Ly-alpha (0 if destroyed or if the u_par rounds fail,
 // where the lane stays AT_SCATTER).
 __device__ float h2_event(const ScatterParams& p, const Lanes& s, int i, uint32_t seed,
-                          uint32_t counter, const float hu[4], H2Tally& t) {
+                          uint32_t counter, const float hu[4], float D, H2Tally& t) {
   const int H = 3 * p.rounds + 5;
-  const float xfreq = s.xfreq[i], wgt = s.wgt[i], D = p.Dfreq;
+  const float xfreq = s.xfreq[i], wgt = s.wgt[i];
   const float w0 = h2_line_weight(p.h2, 0, xfreq, D), w1 = h2_line_weight(p.h2, 1, xfreq, D);
   const int il = hu[1] * fmaxf(w0 + w1, LART_TINY) > w0 ? 1 : 0;
   if (il) {
@@ -416,6 +436,15 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
   const bool lyb = kMulti && p.line.line_type == 8;
   if (i < B && s.phase[i] == AT_SCATTER) {
     const float xfreq = s.xfreq[i];
+    // the cell's damping and Doppler width: per leaf on an AMR grid at
+    // non-uniform temperature (the reference values in a gap)
+    float a_c = p.a, D_c = p.Dfreq;
+    if (p.amr.voigt_a) {
+      const int il = amr_leaf(p.amr, s.ic[i]);
+      a_c = leaf_gather(p.amr.voigt_a, il, p.a);
+      D_c = leaf_gather(p.amr.Dfreq, il, p.Dfreq);
+    }
+    const float ratio = D_c / p.Dfreq;
     // the H-alpha band (line type 8) meets dust only; without dust it
     // stays as it is
     const bool b2 = lyb && s.iband[i] == 2;
@@ -429,14 +458,14 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
       float rk = p.rk_const, kD = p.rkD_const;
       if (!(rk > 0.0f)) {
         const int f = scatter_cell(p, s, i);
-        rk = p.rhokap[f];
-        kD = p.dust ? p.rhokapD[f] : 0.0f;
+        rk = cell_gather(p.rhokap, f);
+        kD = p.dust ? cell_gather(p.rhokapD, f) : 0.0f;
       }
-      const float kap_HI = rk * line_profile<kMulti>(p.line, xfreq, p.a, p.Dfreq);
+      const float kap_HI = rk * line_profile<kMulti>(p.line, xfreq, a_c, D_c);
       if (kH2) {
         // the H2 split: H2 with probability kap_H2 / (kap_HI + kap_H2 + kap_D)
         uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(3 * rounds + 5), hu);
-        const float kap_H2 = rk * h2_kappa(p.h2, xfreq, p.Dfreq);
+        const float kap_H2 = rk * h2_kappa(p.h2, xfreq, D_c);
         float ktot = kap_HI + kap_H2;
         if (p.dust) ktot = ktot + kD;
         is_h2 = hu[0] * fmaxf(ktot, LART_TINY) <= kap_H2;
@@ -449,21 +478,22 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
     }
     float u[4];
     if (kH2 && is_h2) {
-      w_sum = h2_event(p, s, i, seed, counter, hu, h2t);
+      w_sum = h2_event(p, s, i, seed, counter, hu, D_c, h2t);
     } else if (is_dust) {
       wd_sum = s.wgt[i];
       float t[4], wab = 0.0f;
       uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, u);
       uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), t);
       const float phi = LART_TWOPI * u[1];
-      kind = dust_event(p, s, rec, i, seed, counter, d, cosf(phi), sinf(phi), t[0], b2, wab);
+      kind = dust_event(p, s, rec, i, seed, counter, d, cosf(phi), sinf(phi), t[0], b2, ratio,
+                        wab);
       if (b2) {
         abs2 = wab;
       } else {
         abs1 = wab;
       }
     } else if (!b2) {
-      const Redist r = redistribute<kMulti>(p.line, xfreq, p.a, p.Dfreq, seed, counter, i,
+      const Redist r = redistribute<kMulti>(p.line, xfreq, a_c, D_c, seed, counter, i,
                                             rounds, 3 * rounds + 4);
       bool acc = r.acc;
       if (acc) {
@@ -486,12 +516,12 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         if (acc) {
           const float cosp = cosf(phi), sinp = sinf(phi);
           const float phi2 = LART_TWOPI * u[2];
-          const float uxy = sqrtf(core_boost(p, s, i, xfreq) - logf(u[3]));
+          const float uxy = sqrtf(core_boost(p, s, i, xfreq, a_c) - logf(u[3]));
           const float ux = uxy * cosf(phi2) * r.perp, uy = uxy * sinf(phi2) * r.perp;
           const float uz = r.uz, xfreq_atom = r.xatom;
           float xfreq_new = xfreq_atom + uz * cost + (ux * cosp + uy * sinp) * sint;
           // no recoil at a conversion (engine.py:2224-2229)
-          if (p.recoil && !r.conv) xfreq_new = xfreq_new - (r.g0 / p.Dfreq) * (1.0f - cost);
+          if (p.recoil && !r.conv) xfreq_new = xfreq_new - (r.g0 / D_c) * (1.0f - cost);
           if (rec.flag) {
             write_record_dir(rec, s, i, p.stokes);
             rec.xatom[i] = xfreq_atom;
@@ -519,7 +549,7 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
             // 3p -> 2s: the H-alpha photon at the atom's line centre, its lab
             // frequency along the new direction (engine.py:2510-2528)
             const float u_new = p.vfx ? lane_vel_dot(p, s, i) : 0.0f;
-            s.xfreq[i] = xfreq_new - xfreq_atom + u_new;
+            s.xfreq[i] = (xfreq_new - xfreq_atom + u_new) * ratio;
             s.iband[i] = 2;
             conv_w = s.wgt[i];
           } else {

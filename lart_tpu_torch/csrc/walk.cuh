@@ -1,8 +1,9 @@
 // Grid helpers shared by the flights and the peel-off sightlines: the flat
-// gather index, a cell's opacity, the fluid velocity along a direction, the distance to a
-// cell's exit face, the boundary op of a crossing (K5 fly_cartesian and the
-// K7 peel walk, so both follow one set of conventions), and the chord
-// through the uniform sphere (K6 fly_uniform_sphere and the K7 chord).
+// gather index, a cell's opacity (on the AMR grid a leaf's), the fluid
+// velocity along a direction, the distance to a cell's exit face, the
+// boundary op of a crossing (K5 fly_cartesian and the K7 peel walk, so both
+// follow one set of conventions), and the chord through the uniform sphere
+// (K6 fly_uniform_sphere and the K7 chord).
 #pragma once
 
 #include "lart.cuh"
@@ -31,6 +32,41 @@ __device__ inline float cell_opacity(const FlightParams& p, int f, float xf) {
 // (engine.py:1121-1126), and none without dust
 __device__ inline float band2_opacity(const FlightParams& p, int f) {
   return p.rhokapD ? p.rhokapD[f] * p.R_Ha : 0.0f;
+}
+
+// the AMR grid's per-leaf physics (engine.py:297-356): leaf il's damping and
+// Doppler width (the reference values at uniform temperature and in a gap),
+// its opacity at comoving frequency xf (0 gas and dust in a gap), the
+// H-alpha band's, and the fluid velocity along k (0 in a gap)
+__device__ inline void leaf_a_D(const FlightParams& p, int il, float& a, float& D) {
+  a = p.amr.voigt_a ? leaf_gather(p.amr.voigt_a, il, p.a_ref) : p.a_ref;
+  D = p.amr.Dfreq ? leaf_gather(p.amr.Dfreq, il, p.Dfreq) : p.Dfreq;
+}
+
+template <bool kMulti, bool kH2>
+__device__ inline float leaf_opacity(const FlightParams& p, int il, float xf, float a,
+                                     float D) {
+  const float rk = leaf_gather(p.rhokap, il, 0.0f);
+  float rho = rk * line_profile<kMulti>(p.line, xf, a, D);
+  if (kH2) rho = rho + rk * h2_kappa(p.h2, xf, D);
+  if (p.rhokapD) rho = rho + leaf_gather(p.rhokapD, il, 0.0f);
+  return rho;
+}
+
+__device__ inline float leaf_band2_opacity(const FlightParams& p, int il) {
+  return p.rhokapD ? leaf_gather(p.rhokapD, il, 0.0f) * p.R_Ha : 0.0f;
+}
+
+__device__ inline float leaf_vel_dot(const FlightParams& p, int il, const float k[3]) {
+  return leaf_gather(p.vfx, il, 0.0f) * k[0] + leaf_gather(p.vfy, il, 0.0f) * k[1] +
+         leaf_gather(p.vfz, il, 0.0f) * k[2];
+}
+
+// distance to an octree node's exit face along one axis (engine.py:
+// 1571-1576): c the node's centre, h its half-width
+__device__ inline float node_face_dist(float pos, float k, float c, float h) {
+  if (fabsf(k) < 1e-12f) return LART_BIG;
+  return fmaxf((c + (k > 0.0f ? h : -h) - pos) / k, 0.0f);
 }
 
 // u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot)

@@ -1,12 +1,13 @@
 """Top-level simulation driver of the port.
 
 Counterpart of prepare / run (lart_tpu/driver.py:50-377): resolve the
-config, build the grid, then loop chunks of refill/fly/scatter cycles on
-one device, adding each chunk's f32 tallies into f64 accumulators on the
-host, and normalize.  One host read per chunk: the tallies and the
-loop-control scalars travel back together.  The peel-off cubes (up to
-millions of bins) stay on the device: each chunk's f32 cubes are added
-into f64 accumulators there, as lart_tpu adds them on the host
+config, build the grid (Cartesian, or the AMR octree from par.amr_file or
+from a leaf list passed in memory), then loop chunks of refill/fly/scatter
+cycles on one device, adding each chunk's f32 tallies into f64
+accumulators on the host, and normalize.  One host read per chunk: the
+tallies and the loop-control scalars travel back together.  The peel-off
+cubes (up to millions of bins) stay on the device: each chunk's f32 cubes
+are added into f64 accumulators there, as lart_tpu adds them on the host
 (driver.py:182-195, :324-335), and the host reads them once at the end.
 
 Tail control as in lart_tpu (driver.py:218-269): once the photon budget is
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from .config import Params
+from .grid.amr import build_amr
 from .grid.cartesian import build_cartesian
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
@@ -57,12 +59,20 @@ class Prepared:
         return out
 
 
-def prepare(par: Params, *, seed: Optional[int] = None,
-            device=None) -> Prepared:
+def prepare(par: Params, *, seed: Optional[int] = None, device=None,
+            amr_data: Optional[dict] = None) -> Prepared:
+    """Resolve, build the grid (the octree with use_amr_grid: from
+    par.amr_file, or from the leaf dict amr_data, grid.amr.build_amr's
+    data), the chunk and an empty batch on `device`."""
     cfg = par.resolve()
     check_supported(cfg)
     dev = resolve_device(device)
-    meta, grid = build_cartesian(cfg, device=dev)
+    if cfg.par.use_amr_grid:
+        # build_amr sets rmax and the box on cfg.par (driver.py:78-81)
+        built = build_amr(cfg, data=amr_data, device=dev)
+        meta, grid = built.meta, built.dev
+    else:
+        meta, grid = build_cartesian(cfg, device=dev)
     p = Prepared()
     p.cfg, p.meta, p.grid, p.device = cfg, meta, grid, dev
     p.chunk = make_chunk(cfg, meta, grid)
@@ -112,12 +122,15 @@ def compact_shrink(state: BatchState, B_new: int) -> BatchState:
 
 def run(par: Params, *, seed: Optional[int] = None, device=None,
         progress: Optional[Callable[[int, int, int], None]] = None,
-        max_chunks: int = 1_000_000) -> RunResult:
+        max_chunks: int = 1_000_000,
+        amr_data: Optional[dict] = None) -> RunResult:
     """Run a Monte Carlo transport simulation on `device` ('cuda' when
     None; raises if CUDA is missing).
 
-    progress : optional callback(launched, nphotons, alive)"""
-    p = prepare(par, seed=seed, device=device)
+    progress : optional callback(launched, nphotons, alive)
+    amr_data : with use_amr_grid, the leaf list in memory in place of
+        par.amr_file (build_amr's data: x, y, z, level, nH, T, ...)"""
+    p = prepare(par, seed=seed, device=device, amr_data=amr_data)
     cfg, meta = p.cfg, p.meta
     par = cfg.par
     B = par.batch_size

@@ -56,8 +56,12 @@ keeps.  With line type 8, lart_tpu's g is a per-lane f32 array, so both
 bands' Henyey-Greenstein constants are f32 operations on the f32 g, where
 without it they are f64 ones rounded once.
 
-The stellar direct peel, interior HEALPix observers and the clump/AMR
-sightlines are not ported (engine.check_supported names them).
+On the octree AMR grid the sightline walks node by node as the flight
+K8 does (peel.py:242-290: the exit face, the neighbor hop, the descent),
+with each leaf's opacity and, at non-uniform temperature, its damping and
+Doppler width, which also set the event's lab-frequency bin and recoil.
+The stellar direct peel, interior HEALPix observers and the clump
+sightline are not ported (engine.check_supported names them).
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ import torch
 from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics import mueller as pmueller
-from ..transport.flight import BIG, FlightConsts, div, fma
+from ..transport.flight import BIG, FlightConsts, div, doppler_ratio, fma
+from ..transport.fly_amr import AmrFlight, _comoving, exit_face, hop
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
 from ..transport.scatter import (DUST_OFF, EVENT_CONVERSION, EVENT_DUST,
@@ -214,7 +219,9 @@ class Peel:
         if obs is None:
             return None
         obs_meta, odev = obs
-        fc = FlightConsts.from_config(cfg, meta, grid)
+        amr = meta.grid_type == 'amr'
+        fc = AmrFlight.from_amr(cfg, meta, grid) if amr \
+            else FlightConsts.from_config(cfg, meta, grid)
         dust = dust_mode(cfg, meta)
         return cls(grid=fc, obs_meta=obs_meta,
                    pos=odev.pos.contiguous(),
@@ -327,12 +334,22 @@ def obs_geometry(p: Peel, o: int, x, y, z):
     return (pkx, pky, pkz), r2, img, in_img
 
 
+def cell_D(p: Peel, cell):
+    """The Doppler width of the event cells: the reference float, or per
+    lane on an AMR grid at non-uniform temperature."""
+    g = p.grid
+    if g.amr is None:
+        return g.Dfreq
+    return g.amr.a_D(g.amr.leaf(cell[0]), g.a_ref, g.Dfreq)[1]
+
+
 def freq_bin(p: Peel, cell, pk, xf, band2=None):
     """Lab-frequency bin of the comoving frequency xf at the event cell,
-    seen along pk (freq_bin, peel.py:430-441; uniform temperature); where
-    the mask band2 is set, xf is a lab frequency already."""
+    seen along pk, at the cell's Doppler width (freq_bin, peel.py:430-441);
+    where the mask band2 is set, xf is a lab frequency already."""
     g = p.grid
     xr = xf + g.vel_dot(cell, *pk) if g.moving else xf
+    xr = xr * doppler_ratio(cell_D(p, cell), g.Dfreq)
     if band2 is not None:
         xr = torch.where(band2, xf, xr)
     ixf = torch.floor(div(xr - g.xfreq_min, g.dxfreq)).to(torch.int32)
@@ -357,6 +374,8 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
         t_in, t_out = sphere_chord(g, *pos, *k)
         return torch.where(active, (t_out - t_in) * rho,
                            torch.zeros_like(xf))
+    if g.amr is not None:
+        return _tau_amr(p, pos, cell[0], k, xf, active, stats, band2)
     # the walk runs on the live pairs only, compacted after every crossing
     tau = torch.zeros_like(xf)
     idx = active.nonzero().squeeze(1)
@@ -402,12 +421,64 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
     return tau
 
 
+def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None):
+    """tau_to_edge's AMR sightline (peel.py:242-290): node by node, the
+    exit face, the neighbor hop and the descent of the flight (K8), with
+    its comoving update in a moving medium or at non-uniform temperature;
+    stats as in tau_to_edge, the cells being leaves, and its mask 'nodes'
+    marks the nodes walked."""
+    g = p.grid
+    amr = g.amr
+    update = g.moving or not amr.uniform_temperature
+    tau = torch.zeros_like(xf)
+    idx = active.nonzero().squeeze(1)
+    pos, k = ([v[idx] for v in vs] for vs in (pos, k))
+    ic, xf, acc = ic[idx], xf[idx], tau[idx]
+    b2 = None if band2 is None else band2[idx]
+    for _ in range(p.max_steps):
+        if idx.numel() == 0:
+            break
+        il = amr.leaf(ic)
+        if stats is not None:
+            stats['crossings'] = stats.get('crossings', 0) + idx.numel()
+            _visit(stats, g, il)
+            if 'nodes' not in stats:
+                stats['nodes'] = torch.zeros(amr.dev.ncells, dtype=torch.bool,
+                                             device=ic.device)
+            stats['nodes'][ic.long()] = True
+        a_c, D_c = amr.a_D(il, g.a_ref, g.Dfreq)
+        rho = g.leaf_opacity(il, xf, a_c, D_c, b2)
+        box = g.node_box(ic)
+        dmin, axis, face = exit_face(pos, k, box)
+        acc = acc + dmin * rho
+        npos = [torch.where(axis == a, box[a] + torch.where(
+            k[a] > 0, box[3], -box[3]), fma(dmin, k[a], pos[a]))
+            for a in range(3)]
+        _, esc, icn = hop(g, ic, face, npos)
+        if update:
+            il2 = amr.leaf(icn)
+            D2 = amr.a_D(il2, g.a_ref, g.Dfreq)[1]
+            xf = torch.where(esc, xf, _comoving(
+                xf, g.leaf_vel_dot(il, *k), D_c, D2,
+                g.leaf_vel_dot(il2, *k)))
+        done = esc | ~(acc < TAU_HUGE)
+        tau[idx[done]] = acc[done]
+        keep = ~done
+        idx, xf, acc, ic = idx[keep], xf[keep], acc[keep], icn[keep]
+        if b2 is not None:
+            b2 = b2[keep]
+        pos, k = [v[keep] for v in npos], [v[keep] for v in k]
+    tau[idx] = acc      # the pairs still live after max_steps
+    return tau
+
+
 def _visit(stats, g, flat):
-    """Mark the flat cells in stats['visited'], a mask of the grid."""
+    """Mark the flat cells (AMR: the leaves, a gap's -1 left out) in
+    stats['visited'], a mask of the grid."""
     if 'visited' not in stats:
         stats['visited'] = torch.zeros(g.rhokap.numel(), dtype=torch.bool,
                                        device=g.rhokap.device)
-    stats['visited'][flat] = True
+    stats['visited'][flat[flat >= 0]] = True
 
 
 def _add(cube, idx, ok, w):
@@ -459,9 +530,12 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
                 cosp, sinp)
     xf = rec.xatom + (rec.ux * cosp + rec.uy * sinp) * sint + rec.uz * cost
     if p.recoil:
-        # the hydrogen constant for every event, as lart_tpu's peel
-        xf = xf - pline.div32(p.grid.line.g_recoil0, p.grid.Dfreq) \
-            * (1.0 - cost)
+        # the hydrogen constant for every event, as lart_tpu's peel, over
+        # the cell's Doppler width
+        D = cell_D(p, cell)
+        g0D = pline.div32(p.grid.line.g_recoil0, D) if not isinstance(
+            D, torch.Tensor) else torch.full_like(D, p.grid.line.g_recoil0) / D
+        xf = xf - g0D * (1.0 - cost)
     return xf, cost, cosp, sinp
 
 
@@ -624,6 +698,8 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
             if bins else 0
         stats['cells'] = int(stats.pop('visited').sum()) \
             if 'visited' in stats else 0
+        stats['nodes'] = int(stats.pop('nodes').sum()) \
+            if 'nodes' in stats else 0
 
 
 def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,

@@ -298,6 +298,23 @@ def open_read(path: str, file_format: str = 'auto') -> IoReader:
     return IoReader(path, file_format)
 
 
+def read_hdf5_columns(path: str, names, key: str):
+    """The datasets `names` of an HDF5 file that holds them at its root or
+    in its first group holding `key` (the generic-AMR leaf list,
+    lart_tpu/grid/amr.py:25-52), and the attributes of that group updated
+    by the file's own: (columns dict, attributes dict)."""
+    import h5py
+    with h5py.File(path, 'r') as f:
+        src = f
+        if key not in f:
+            for k in f.keys():
+                if key in f[k]:
+                    src = f[k]
+                    break
+        cols = {n: np.asarray(src[n]) for n in names if n in src}
+        return cols, dict(src.attrs) | dict(f.attrs)
+
+
 # --------------------------------------------------------------------------
 # converter (the analogue of python/lart_io.py's CLI)
 # --------------------------------------------------------------------------

@@ -243,8 +243,11 @@ def mul32(a: float, b: float) -> float:
 def line_prof(lc: LineConsts, a: float, D: float) -> LineProf:
     """The profile's components at a cell of damping a and Doppler width D
     (Hz): f32 operations on the f32 constants, as the flights, the scatter
-    and the walk take them (line.cuh line_prof)."""
-    dx, aa = [0.0] * MAX_LEVELS, [f32(a)] * MAX_LEVELS
+    and the walk take them (line.cuh line_prof).  A per-lane tensor a (an
+    AMR grid at non-uniform temperature, line types 1 and 8) is the damping
+    of every component."""
+    a0 = a if isinstance(a, torch.Tensor) else f32(a)
+    dx, aa = [0.0] * MAX_LEVELS, [a0] * MAX_LEVELS
     lt = lc.line_type
     if lt == 2:
         dx[1] = div32(lc.DnuHK_Hz, D)

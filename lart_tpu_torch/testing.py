@@ -431,6 +431,114 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
                                                     device=device))
 
 
+def amr_state(meta, amr, batch: int, seed: int, device='cpu',
+              phases=(DEAD, FFS, FLYING, AT_SCATTER),
+              r_max: Optional[float] = None,
+              face_frac: float = 0.1) -> BatchState:
+    """mixed_state's lanes on the AMR grid `amr` (a flight.AmrGrid): each
+    lane's cell and birth cell the node amr_find_cell gives its position
+    (jc = kc = 0), and a share face_frac of the lanes moved onto a face of
+    their node (the walk then crosses a zero-length step)."""
+    rng = np.random.default_rng([seed, 3])
+    s = mixed_state(meta, batch, seed, device, phases, r_max)
+    for f in ('jc', 'kc', 'bjc', 'bkc'):
+        getattr(s, f).zero_()
+    s.ic.copy_(amr.find_cell(s.x, s.y, s.z))
+    d = amr.dev
+    c = s.ic.long()
+    on = torch.as_tensor(rng.random(batch) < face_frac, device=device)
+    axis = torch.as_tensor(rng.integers(0, 3, batch), device=device)
+    up = torch.as_tensor(rng.random(batch) < 0.5, device=device)
+    for a, (pos, cen) in enumerate(((s.x, d.node_cx), (s.y, d.node_cy),
+                                    (s.z, d.node_cz))):
+        face = cen[c] + torch.where(up, d.node_ch[c], -d.node_ch[c])
+        pos.copy_(torch.where(on & (axis == a), face, pos))
+    s.ic.copy_(amr.find_cell(s.x, s.y, s.z))
+    ffs = s.phase == FFS
+    for f in ('x', 'y', 'z', 'ic'):
+        getattr(s, 'b' + f).copy_(torch.where(ffs, getattr(s, f),
+                                              getattr(s, 'b' + f)))
+    s.bic.copy_(torch.where(ffs, s.ic, amr.find_cell(s.bx, s.by, s.bz)))
+    return s
+
+
+def amr_params(n_base: int = 16, levels_extra: int = 1, tau0: float = 100.0,
+               nphotons: int = 2000, batch: int = 4096, **kw) -> Params:
+    """A uniform AMR sphere (grid.amr.make_amr_sphere, passed in memory as
+    amr_data): Ly-alpha, T = 1e4 K, R = 1, a central point source with a
+    Voigt input spectrum (examples/amr_sphere at a smaller base)."""
+    base = dict(nphotons=nphotons, use_amr_grid=True, geometry='sphere',
+                taumax=tau0, temperature=1e4, spectral_type='voigt',
+                source_geometry='point', save_Jmu=True, nmu=8,
+                batch_size=batch, fly_substeps=8, scatter_rounds=4,
+                chunk_cycles=16, refill_every=4)
+    base.update(kw)
+    return Params(**base)
+
+
+def amr_gaps(data: dict, frac: float = 0.05, seed: int = 0) -> dict:
+    """The leaf dict without a share frac of its finest-level leaves: each
+    one dropped leaves a gap cell, a missing octant of its parent node,
+    which carries no gas (engine.py:279-287)."""
+    rng = np.random.default_rng(seed)
+    lev = np.asarray(data['level'])
+    drop = (lev == lev.max()) & (rng.random(len(lev)) < frac)
+    return {k: v[~drop] if isinstance(v, np.ndarray) and v.shape == lev.shape
+            else v for k, v in data.items()}
+
+
+def jellyfish_amr(base: int = 16, levels_extra: int = 2,
+                  boxsize: float = 4.0) -> dict:
+    """The leaf list of examples/jellyfish_rmhd/mk_amr.py (an exponential
+    gas disk with a ram-pressure-stripped tail in a 4 kpc box, refined two
+    levels where dense; T 8e3 K in the disk and 3e5 K outside; vy; xHI,
+    n_e, ndust and emissivity columns), as the dict build_amr takes."""
+    import math
+
+    def density(x, y, z):
+        r = np.sqrt(x ** 2 + y ** 2)
+        disk = np.exp(-r / 0.8) * np.exp(-np.abs(z) / 0.15)
+        tail = (0.15 * np.exp(-((x / 0.5) ** 2 + (z / 0.4) ** 2))
+                * np.exp(-np.maximum(-y, 0) / 2.0) * (y < 0.2)
+                * (1.0 + 0.5 * np.cos(7.0 * y) * np.cos(5.0 * x)))
+        return disk + tail + 1e-4
+
+    lev0 = int(round(math.log2(base)))
+    h0 = boxsize / base
+    xs = (np.arange(base) + 0.5) * h0 - boxsize / 2
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing='ij')
+    cells = np.stack([X.ravel(), Y.ravel(), Z.ravel(),
+                      np.full(base ** 3, lev0, float)], axis=1)
+    for lev in range(lev0, lev0 + levels_extra):
+        h = boxsize / 2.0 ** lev
+        at = cells[:, 3] == lev
+        rho = density(cells[:, 0], cells[:, 1], cells[:, 2])
+        split = at & (rho > 0.3 * 2.0 ** (lev - lev0))
+        keep = cells[~split]
+        parents = cells[split]
+        kids = []
+        for di, dj, dk in np.ndindex(2, 2, 2):
+            off = (np.array([di, dj, dk]) - 0.5) * h / 2
+            k = parents.copy()
+            k[:, :3] += off
+            k[:, 3] += 1
+            kids.append(k)
+        cells = np.concatenate([keep] + kids) if len(parents) else keep
+    x, y, z, lev = cells.T
+    nH = density(x, y, z)
+    T = np.where(nH > 0.3, 8.0e3, 3.0e5)
+    xHI = np.where(nH > 0.3, 0.9, 1e-4)
+    n_e = nH * (1.0 - xHI) * 1.2
+    return {'x': x, 'y': y, 'z': z, 'level': lev.astype(np.int32),
+            'nH': nH, 'T': T, 'vx': np.zeros_like(nH),
+            'vy': np.where(y < 0, -80.0 * np.exp(np.minimum(y, 0)), 10.0 * y),
+            'vz': np.zeros_like(nH), 'xHI': xHI, 'n_e': n_e,
+            'ndust': 6.0e-3 * nH * xHI,
+            'emissivity': n_e * nH * (1.0 - xHI) * 4.1e-25,
+            'boxlen': boxsize,
+            'origin': (-boxsize / 2, -boxsize / 2, -boxsize / 2)}
+
+
 def polarization(rng, kx, ky, kz) -> dict:
     """Random Stokes (Q, U, V) inside the unit ball and a random reference
     triad (m, n) of each direction k: m, n, k orthonormal, n = k x m."""

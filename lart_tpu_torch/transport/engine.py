@@ -16,8 +16,9 @@ and, for line type 8, each conversion's H-alpha photon (:2205-2222), every
 kind in one launch; both read the PeelRecord that K2 and K4 fill, and
 deposit into the chunk's f32 cubes.
 
-The flight follows lart_tpu's make_fly (engine.py:1057-1066):
-force_generic_kernel takes the generic Cartesian walk K5; otherwise the
+The flight follows lart_tpu's make_fly (engine.py:1057-1066): an AMR grid
+takes the octree walk K8; force_generic_kernel the generic Cartesian walk
+K5; otherwise the
 uniform slab takes K3, the uniform sphere K6, and every other Cartesian
 grid K5; line type 8 and H2 pumping always fly K5, as lart_tpu sends
 them off both fast paths (engine.py:665-666, :865-866).  `check_supported`
@@ -32,6 +33,7 @@ from typing import Callable, Optional
 from ..instruments.peel import DIRECT, Peel, PeelRecord, peel
 from ..physics.h2 import h2_on
 from ..physics.line import LINE_TYPES
+from .fly_amr import AmrFlight
 from .fly_cartesian import CartesianFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
@@ -84,8 +86,11 @@ def check_supported(cfg, meta=None) -> None:
     lart_tpu_torch does not port yet."""
     par = cfg.par
     geom = par.geometry.strip().lower()
+    amr = par.use_amr_grid
     missing = [name for name, on in (
-        ('use_amr_grid (AMR backend)', par.use_amr_grid),
+        ("amr_type 'ramses' (the RAMSES snapshot reader)",
+         amr and par.amr_type.strip().lower() == 'ramses'),
+        ("ion_model 'solar_cie'", amr and par.ion_model == 'solar_cie'),
         ('use_clump_medium (clump backend)', par.use_clump_medium),
         (f'line_type {cfg.line.line_type} (only 1, 2 and 4-8)',
          cfg.line.line_type not in LINE_TYPES),
@@ -96,7 +101,7 @@ def check_supported(cfg, meta=None) -> None:
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
-        ('non-uniform temperature (temp_file)',
+        ('non-uniform temperature on a Cartesian grid (temp_file)',
          bool((par.temp_file or par.temperature_file).strip())),
         ('3-D density file', _grid_file(par.dens_file or par.density_file)),
         ('3-D velocity file', _grid_file(par.velo_file or par.velocity_file)),
@@ -115,8 +120,13 @@ def check_supported(cfg, meta=None) -> None:
          par.spectral_type.strip().lower() not in SPECTRA)) if on]
     if meta is not None:
         missing += [name for name, on in (
-            ('non-Cartesian grid', meta.grid_type != 'cartesian'),
-            ('non-uniform temperature', not meta.uniform_temperature),
+            (f'grid_type {meta.grid_type!r}',
+             meta.grid_type not in ('cartesian', 'amr')),
+            ('non-uniform temperature on a Cartesian grid',
+             not meta.uniform_temperature and meta.grid_type != 'amr'),
+            ('non-uniform temperature with line types other than 1 or with '
+             'H2 pumping', not meta.uniform_temperature
+             and (cfg.line.line_type != 1 or h2_on(par))),
             ('atmosphere', bool(meta.atmosphere)),
             ('shearing box', meta.omega_shear != 0.0)) if on]
     if missing:
@@ -126,7 +136,10 @@ def check_supported(cfg, meta=None) -> None:
 
 def make_fly(cfg, meta, grid) -> Callable:
     """The flight of lart_tpu's make_fly (engine.py:1057-1066), as a
-    callable flight(state, tallies, max_steps)."""
+    callable flight(state, tallies, max_steps): on an AMR grid (grid an
+    AmrDevice) the octree walk K8."""
+    if meta.grid_type == 'amr':
+        return AmrFlight.from_amr(cfg, meta, grid)
     if not cfg.par.force_generic_kernel:
         if uniform_slab_fastpath(cfg, meta):
             return SlabParams.from_config(cfg, meta)
@@ -143,7 +156,7 @@ class Chunk:
     the Philox counter of the refill and scatter draws, so a run is
     reproducible from (seed, cycle index) whatever the device."""
     refill_params: RefillParams
-    flight: Callable     # SlabParams, SphereFlight or CartesianFlight
+    flight: Callable     # SlabParams, Sphere-, Cartesian- or AmrFlight
     scatter_params: ScatterParams
     n_cycles: int
     refill_every: int

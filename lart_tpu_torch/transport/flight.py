@@ -46,6 +46,16 @@ BC_CODES = {'escape': 0, 'periodic': 1, 'reflect': 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+class AmrC(ctypes.Structure):
+    """csrc/amr.cuh struct AmrGrid, field for field."""
+    _fields_ = [('children', _P), ('node_cx', _P), ('node_cy', _P),
+                ('node_cz', _P), ('node_ch', _P), ('ileaf', _P),
+                ('neighbor', _P), ('fine_map', _P), ('Dfreq', _P),
+                ('voigt_a', _P), ('ncells', _I), ('levelmax', _I),
+                ('nf', _I), ('xmin', _F), ('ymin', _F), ('zmin', _F),
+                ('dxf', _F)]
+
+
 class FlightParams(ctypes.Structure):
     """csrc/lart.cuh struct FlightParams, field for field."""
     _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
@@ -60,7 +70,7 @@ class FlightParams(ctypes.Structure):
                 ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
                 ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
                 ('sphere_rhoD', _F), ('R_Ha', _F), ('line', pline.LineC),
-                ('h2', ph2.H2C)]
+                ('h2', ph2.H2C), ('amr', AmrC)]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -82,6 +92,13 @@ def div(a: torch.Tensor, b: float) -> torch.Tensor:
     a 0-d tensor on a's device is divided by exactly (torch.full runs on the
     device: no copy, no wait)."""
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
+
+
+def doppler_ratio(D, D_ref: float):
+    """D / D_ref, a cell's Doppler width over the reference one, as
+    lart_tpu's f32 division: per lane where D is a tensor (an AMR grid at
+    non-uniform temperature), else exactly 1.0 (D is D_ref)."""
+    return div(D, D_ref) if isinstance(D, torch.Tensor) else 1.0
 
 
 def floor_bin(v: torch.Tensor, n: int) -> torch.Tensor:
@@ -143,6 +160,7 @@ class FlightConsts:
     line: Optional[pline.LineConsts] = None  # the line's opacity profile
     h2: Optional[ph2.H2Consts] = None        # H2 pumping, or None
     R_Ha: float = 0.0        # cext_dust_Ha / cext_dust (line type 8)
+    amr: Optional['AmrGrid'] = None   # the octree, on an AMR grid
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -244,6 +262,8 @@ class FlightConsts:
         c.line = self.line.c_struct
         if self.h2 is not None:
             c.h2 = self.h2.c_struct
+        if self.amr is not None:
+            c.amr = self.amr.c_struct
         return c
 
     @property
@@ -267,4 +287,130 @@ class FlightConsts:
 
     def device_tensors(self):
         return ((self.rhokap,) + (self.vel or ())
-                + (() if self.rhokapD is None else (self.rhokapD,)))
+                + (() if self.rhokapD is None else (self.rhokapD,))
+                + (() if self.amr is None else self.amr.dev.tensors()))
+
+
+# --------------------------------------------------------------------------
+# the octree AMR grid (csrc/amr.cuh), plain versions
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AmrGrid:
+    """The AMR grid as the walks read it: the device arrays (AmrDevice) and
+    the box's corner, its fine voxel width and levelmax.  A lane's cell
+    index ic is an octree node; its leaf is ileaf[ic], -1 in a gap cell,
+    which has no gas, no dust, no velocity, and the reference Doppler width
+    and damping (engine.py:279-356)."""
+    dev: object              # grid.octree.AmrDevice
+    levelmax: int
+    amin: tuple              # (xmin, ymin, zmin) of the box
+    dxf: float               # the fine voxel's width, rounded to f32
+
+    @classmethod
+    def from_meta(cls, meta, dev) -> 'AmrGrid':
+        nf = max(dev.nf, 1)
+        return cls(dev=dev, levelmax=int(meta.levelmax),
+                   amin=(float(meta.xmin), float(meta.ymin),
+                         float(meta.zmin)),
+                   dxf=float(np.float32((meta.xmax - meta.xmin) / nf)))
+
+    @property
+    def nf(self) -> int:
+        return self.dev.nf
+
+    @property
+    def uniform_temperature(self) -> bool:
+        return self.dev.Dfreq is None
+
+    @functools.cached_property
+    def c_struct(self) -> AmrC:
+        d, c = self.dev, AmrC()
+        for f in ('children', 'node_cx', 'node_cy', 'node_cz', 'node_ch',
+                  'ileaf', 'neighbor', 'fine_map', 'Dfreq', 'voigt_a'):
+            t = getattr(d, f)
+            setattr(c, f, None if t is None else t.data_ptr())
+        c.ncells, c.levelmax, c.nf = d.ncells, self.levelmax, d.nf
+        c.xmin, c.ymin, c.zmin = self.amin
+        c.dxf = self.dxf
+        return c
+
+    def leaf(self, ic: torch.Tensor) -> torch.Tensor:
+        """_leaf_of: the leaf id of node ic (clamped), -1 for a gap."""
+        return self.dev.ileaf[torch.clamp(ic.long(), 0, self.dev.ncells - 1)]
+
+    @staticmethod
+    def gather(arr: Optional[torch.Tensor], il: torch.Tensor,
+               default: float) -> torch.Tensor:
+        """_leaf_gather: arr[il], `default` in a gap (or without arr)."""
+        d = torch.full(il.shape, default, dtype=torch.float32,
+                       device=il.device)
+        if arr is None:
+            return d
+        return torch.where(il >= 0, arr[torch.clamp_min(il, 0).long()], d)
+
+    def a_D(self, il: torch.Tensor, a_ref: float, D_ref: float):
+        """(voigt_a, Dfreq) of the leaves il: the reference values as
+        Python floats at uniform temperature, else per-lane tensors."""
+        if self.uniform_temperature:
+            return a_ref, D_ref
+        return (self.gather(self.dev.voigt_a, il, a_ref),
+                self.gather(self.dev.Dfreq, il, D_ref))
+
+    def _fine(self, x, y, z) -> torch.Tensor:
+        nf = self.nf
+        idx = [floor_bin(div(v - lo, self.dxf), nf)
+               for v, lo in zip((x, y, z), self.amin)]
+        return self.dev.fine_map.reshape(-1)[(idx[0] * nf + idx[1]) * nf
+                                             + idx[2]]
+
+    def _descend(self, cur, x, y, z, axis=None, fbit=None) -> torch.Tensor:
+        """levelmax + 1 octant steps from the nodes cur; where `axis` (per
+        lane, 0-2) is given, that axis' octant bit is fbit."""
+        d = self.dev
+        pos = (x, y, z)
+        centres = (d.node_cx, d.node_cy, d.node_cz)
+        cur = cur.long()
+        for _ in range(self.levelmax + 1):
+            c = torch.clamp(cur, 0, d.ncells - 1)
+            io = torch.zeros_like(cur)
+            for a in range(3):
+                b = (pos[a] >= centres[a][c]).long()
+                if axis is not None:
+                    b = torch.where(axis == a, fbit, b)
+                io = io + (b << a)
+            child = d.children.reshape(-1)[c * 8 + io].long()
+            stop = (d.ileaf[c] >= 0) | (child < 0)
+            cur = torch.where(stop, cur, child)
+        return cur.to(torch.int32)
+
+    def find_cell(self, x, y, z) -> torch.Tensor:
+        """amr_find_cell (engine.py:548-578): the deepest node holding each
+        point, one fine-map gather or the descent from the root."""
+        if self.dev.fine_map is not None:
+            return self._fine(x, y, z)
+        return self._descend(torch.zeros_like(x, dtype=torch.long), x, y, z)
+
+    def descend_from_face(self, nb, face, x, y, z) -> torch.Tensor:
+        """amr_descend_from_face (engine.py:359-418): the cell entered
+        across `face` (0 +x, 1 -x, ... 5 -z) from neighbor node nb at the
+        face point (x, y, z)."""
+        axis = torch.div(face, 2, rounding_mode='floor')
+        d = self.dev
+        if d.fine_map is not None:
+            half = float(np.float32(0.5) * np.float32(self.dxf))
+            sgn = torch.where(face % 2 == 0, 1.0, -1.0)
+            nudge = half * sgn
+            zero = torch.zeros_like(x)
+            c = torch.clamp(nb.long(), 0, d.ncells - 1)
+            nch = d.node_ch[c]
+            pad = float(np.float32(0.25) * np.float32(self.dxf))
+            q = []
+            for a, (v, cen) in enumerate(zip((x, y, z), (d.node_cx, d.node_cy,
+                                                         d.node_cz))):
+                v = v + torch.where(axis == a, nudge, zero)
+                nc = cen[c]
+                q.append(torch.minimum(torch.maximum(v, nc - nch + pad),
+                                       nc + nch - pad))
+            return self._fine(*q)
+        return self._descend(nb, x, y, z, axis.long(), (face % 2).long())

@@ -2,8 +2,9 @@
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
 :2689) for a point source (source_geometry 'point' or '') with a Voigt,
-monochromatic, Gaussian or flat continuum input spectrum in a
-uniform-temperature medium, static or moving.  A line of type 2, 4, 5 or 6
+monochromatic, Gaussian or flat continuum input spectrum in a medium
+static or moving, on a Cartesian grid of uniform temperature or on the
+octree AMR grid.  A line of type 2, 4, 5 or 6
 starts from xfreq0 shifted to a branch (branch_init_shift, engine.py:
 2919-2970; physics/line.py) by the two uniforms of block 3; the continuum
 (engine.py:2804-2807) replaces the frequency, that shift included, by
@@ -24,6 +25,13 @@ drawn frequency is a lab-frame one: unless comoving_source, the lane's
 comoving frequency is xfreq - u1 with u1 = v(source cell) . k
 (engine.py:2836-2841); Jin is tallied at the lab frequency xfreq + u1.
 
+On the octree AMR grid (engine.py:2755-2775, :2839) the source cell is
+the node amr_find_cell gives the source position, found per lane (K2 does
+it on the card); its leaf's velocity gives u1 and, at non-uniform
+temperature, its damping the Voigt spectrum's a and its Doppler width
+D_loc the Gaussian's and the continuum's divisor D_loc / Dfreq_ref and
+Jin's lab frequency (x + u1) D_loc / Dfreq_ref.
+
 `refill_plain` ranks dead lanes by a cumsum, as the JAX version does;
 kernel K2 (csrc/refill.cu) hands out tickets by warp instead, so when the
 budget runs out the two may launch different dead lanes, always the same
@@ -39,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,7 +56,7 @@ from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics.rng import STREAM_REFILL, uniforms
 from ..physics.samplers import TWOPI, box_muller, rand_voigt_x
-from .flight import div
+from .flight import AmrGrid, div, doppler_ratio
 from .state import DEAD, FFS, BatchState, Tallies
 
 SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS, SPECTRUM_CONT = 0, 1, 2, 3
@@ -75,6 +84,8 @@ class RefillParams:
     xfreq_span: float = 0.0  # the continuum's xfreq_max - xfreq_min
     Dfreq: float = 1.0       # Doppler width of the source cell (Hz)
     line: pline.LineConsts = None
+    amr: Optional[AmrGrid] = None    # the octree, on an AMR grid
+    vel: Optional[tuple] = None      # its per-leaf velocities (moving)
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None) -> 'RefillParams':
@@ -83,17 +94,24 @@ class RefillParams:
         par = cfg.par
         f32 = np.float32
         pos = [f32(par.xs_point), f32(par.ys_point), f32(par.zs_point)]
-        cells = []
-        for p, amin, d, n in zip(pos, (meta.xmin, meta.ymin, meta.zmin),
-                                 (meta.dx, meta.dy, meta.dz),
-                                 (meta.nx, meta.ny, meta.nz)):
-            # f32 cell index with the edge clamp, as the JAX refill computes it
-            c = np.floor((p - f32(amin)) / f32(d))
-            cells.append(int(min(max(c, 0), n - 1)))
-        v_src = (0.0, 0.0, 0.0)
-        if not meta.static_medium:
-            v_src = tuple(float(v[tuple(cells)])
-                          for v in (grid.vfx, grid.vfy, grid.vfz))
+        cells, v_src, amr, vel = [0, 0, 0], (0.0, 0.0, 0.0), None, None
+        if meta.grid_type == 'amr':
+            # the births find their node themselves (amr_find_cell)
+            amr = AmrGrid.from_meta(meta, grid)
+            if not meta.static_medium:
+                vel = (grid.vfx, grid.vfy, grid.vfz)
+        else:
+            for a, (p, amin, d, n) in enumerate(zip(
+                    pos, (meta.xmin, meta.ymin, meta.zmin),
+                    (meta.dx, meta.dy, meta.dz),
+                    (meta.nx, meta.ny, meta.nz))):
+                # f32 cell index with the edge clamp, as the JAX refill
+                # computes it
+                c = np.floor((p - f32(amin)) / f32(d))
+                cells[a] = int(min(max(c, 0), n - 1))
+            if not meta.static_medium:
+                v_src = tuple(float(v[tuple(cells)])
+                              for v in (grid.vfx, grid.vfy, grid.vfz))
         gsig = (par.gaussian_FWHM_vel / 2.3548200450309493
                 if par.gaussian_FWHM_vel > 0 else par.gaussian_sigma_vel)
         return cls(xs=float(pos[0]), ys=float(pos[1]), zs=float(pos[2]),
@@ -106,7 +124,7 @@ class RefillParams:
                    comoving_source=bool(par.comoving_source),
                    xfreq_span=pline.f32(meta.xfreq_max - meta.xfreq_min),
                    Dfreq=meta.Dfreq_ref,
-                   line=pline.LineConsts.from_config(cfg))
+                   line=pline.LineConsts.from_config(cfg), amr=amr, vel=vel)
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -120,6 +138,21 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     n_new = launch.sum(dtype=torch.int32)
 
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
+    # the source cell (on the AMR grid its node, amr_find_cell), its
+    # damping, Doppler width and velocity (engine.py:2755-2775)
+    a_loc, D_loc, v_src = p.a, p.Dfreq, p.v_src
+    cell = (p.ic, p.jc, p.kc)
+    if p.amr is not None:
+        src = [torch.full((B,), v, dtype=torch.float32, device=dev)
+               for v in (p.xs, p.ys, p.zs)]
+        ic = p.amr.find_cell(*src)
+        il = p.amr.leaf(ic)
+        cell = (ic, 0, 0)
+        a_loc, D_loc = p.amr.a_D(il, p.a, p.Dfreq)
+        if p.vel is not None:
+            v_src = tuple(p.amr.gather(v, il, 0.0) for v in p.vel)
+    # D_loc / Dfreq_ref, exactly 1 at uniform temperature
+    ratio = doppler_ratio(D_loc, p.Dfreq)
     u, v = uniforms(seed, STREAM_REFILL, lanes, counter, range(2))
     cost = 2.0 * u[0] - 1.0
     sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
@@ -131,23 +164,24 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     if p.line.branch_init:
         w = uniforms(seed, STREAM_REFILL, lanes, counter, 3)
         xfreq = xfreq + pline.branch_init_shift_plain(p.line, w[0], w[1],
-                                                      p.Dfreq)
+                                                      D_loc)
     if p.spectrum == SPECTRUM_VOIGT:
-        a = torch.full((B,), p.a, dtype=torch.float32, device=dev)
+        a = a_loc if isinstance(a_loc, torch.Tensor) else torch.full(
+            (B,), a_loc, dtype=torch.float32, device=dev)
         xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0])
     elif p.spectrum == SPECTRUM_GAUSS:
         w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
-        xfreq = xfreq + box_muller(w[0], w[1]) * p.sigma_x
+        xfreq = (xfreq + box_muller(w[0], w[1]) * p.sigma_x) / ratio
     elif p.spectrum == SPECTRUM_CONT:
         # replaces xfreq, the branch shift too (engine.py:2804-2807)
         w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
-        xfreq = p.xfreq_min + w[0] * p.xfreq_span
+        xfreq = (p.xfreq_min + w[0] * p.xfreq_span) / ratio
 
     # lab-frame source -> comoving frequency; Jin at the lab frequency
-    u1 = p.v_src[0] * kx + p.v_src[1] * ky + p.v_src[2] * kz
+    u1 = v_src[0] * kx + v_src[1] * ky + v_src[2] * kz
     if not p.comoving_source:
         xfreq = xfreq - u1
-    fx = torch.floor(div(xfreq + u1 - p.xfreq_min, p.dxfreq))
+    fx = torch.floor(div((xfreq + u1) * ratio - p.xfreq_min, p.dxfreq))
     inj = launch & (fx >= 0.0) & (fx < p.nxfreq)
     tallies.Jin.index_add_(0, torch.clamp(fx, 0, p.nxfreq - 1).long(),
                            inj.to(torch.float32))
@@ -161,7 +195,7 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     for nm, val in (('x', p.xs), ('y', p.ys), ('z', p.zs)):
         put(nm, val)
         put('b' + nm, val)
-    for nm, val in (('ic', p.ic), ('jc', p.jc), ('kc', p.kc)):
+    for nm, val in zip(('ic', 'jc', 'kc'), cell):
         put(nm, val)
         put('b' + nm, val)
     for nm, val in (('kx', kx), ('ky', ky), ('kz', kz), ('xfreq', xfreq)):
@@ -191,7 +225,8 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         raise ValueError('photon budget + batch must stay below 2^31')
     kbuild.require_cuda('refill_point', tallies.Jin, state.n_launched,
                         *(getattr(state, f) for f in ('phase', 'x')),
-                        *(() if record is None else (record.flag,)))
+                        *(() if record is None else (record.flag,)),
+                        *(() if p.amr is None else p.amr.dev.tensors()))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
@@ -199,6 +234,10 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, p.spectrum, p.sigma_x,
         p.a, *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,
         tallies.Jin.data_ptr(), p.xfreq_span, p.Dfreq,
-        ctypes.byref(p.line.c_struct), kbuild.stream_of(state.x)),
+        ctypes.byref(p.line.c_struct),
+        None if p.amr is None else ctypes.byref(p.amr.c_struct),
+        *(v.data_ptr() if v is not None else None
+          for v in (p.vel or (None,) * 3)),
+        kbuild.stream_of(state.x)),
         'refill_point')
     kbuild.LAUNCHES['refill_point'] += 1

@@ -41,6 +41,15 @@ E3, which the peel (kernel K7) reads right after.  A dust peel
 reads the lane's weight after the scatter, which under use_reduced_wgt is
 already the weight times the albedo that lart_tpu peels with (:2342-2347).
 
+On the octree AMR grid a lane's cell is an octree node: rhokap, rhokapD
+and the velocities are its leaf's (none in a gap cell), the local
+core-skip's dl is the distance to the node's nearest face (:1880-1887),
+and at non-uniform temperature the leaf's damping a and Doppler width D
+replace the reference ones in the profile, the redistribution, the
+recoil, and the lab frequency (x + u) D / Dfreq_ref of Jabs and of a
+conversion's H-alpha photon (line type 1 only; check_supported refuses
+the other line types and H2 at non-uniform temperature).
+
 Core-skip (local_xcrit, :1872-1905): a lane with |x| < xcrit draws its
 perpendicular speed as sqrt(xcrit^2 - log xi).  core_skip_global takes the
 grid's xcrit; the local one is cbrt(a rk dl) / 5 where a rk dl > 1, dl the
@@ -105,7 +114,7 @@ from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
-from .flight import div, freq_floor
+from .flight import AmrC, AmrGrid, div, doppler_ratio, freq_floor
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
 TINY = 1e-30
@@ -142,7 +151,7 @@ class ScatterC(ctypes.Structure):
                 ('Jabs_Ha', _P), ('W_conv', _P), ('W_abs1', _P),
                 ('W_abs2', _P), ('W_H2abs', _P), ('W_H2scat', _P),
                 ('W_H2pump', _P), ('albedo_Ha', _F),
-                ('one_m_albedo_Ha', _F), ('hgg_Ha', _F)]
+                ('one_m_albedo_Ha', _F), ('hgg_Ha', _F), ('amr', AmrC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -177,6 +186,7 @@ class ScatterParams:
     h2: Optional[ph2.H2Consts] = None   # H2 pumping
     albedo_Ha: float = 0.0     # line type 8: the H-alpha band's dust
     hgg_Ha: float = 0.0
+    amr: Optional[AmrGrid] = None   # the octree: the arrays are per leaf
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None,
@@ -193,6 +203,8 @@ class ScatterParams:
         gather = (mode == CORE_SKIP_LOCAL or dust or h2 is not None) \
             and not uniform_sphere
         lt8 = cfg.line.line_type == 8
+        amr = AmrGrid.from_meta(meta, grid) if meta.grid_type == 'amr' \
+            else None
 
         def flat(t):
             return t.reshape(-1).contiguous()
@@ -220,7 +232,7 @@ class ScatterParams:
                    line=pline.LineConsts.from_config(cfg),
                    Dfreq=float(meta.Dfreq_ref), recoil=bool(par.recoil),
                    h2=h2, albedo_Ha=float(par.albedo_Ha),
-                   hgg_Ha=float(par.hgg_Ha))
+                   hgg_Ha=float(par.hgg_Ha), amr=amr)
 
     @property
     def dust_block(self) -> int:
@@ -247,20 +259,37 @@ class ScatterParams:
         return float(np.float32(1.0) - np.float32(a))
 
     def flat(self, s: BatchState) -> torch.Tensor:
-        """The lanes' flat cell index, clamped like jnp.take mode='clip'."""
+        """The lanes' flat cell index, clamped like jnp.take mode='clip'
+        (on the AMR grid, the leaf of the lane's node, -1 in a gap)."""
+        if self.amr is not None:
+            return self.amr.leaf(s.ic)
         nx, ny, nz = self.n
         f = (s.ic.long() * ny + s.jc) * nz + s.kc
         return torch.clamp(f, 0, nx * ny * nz - 1)
 
+    def gather(self, arr: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+        """arr at the lanes' cells f = flat(s) (0 in an AMR gap)."""
+        return arr[f] if self.amr is None else self.amr.gather(arr, f, 0.0)
+
+    def lane_a_D(self, s: BatchState):
+        """(damping, Doppler width) of each lane's cell: the reference
+        floats, or per-lane tensors on an AMR grid at non-uniform
+        temperature."""
+        if self.amr is None:
+            return self.a, self.Dfreq
+        return self.amr.a_D(self.amr.leaf(s.ic), self.a, self.Dfreq)
+
     def vel_dot(self, s: BatchState) -> torch.Tensor:
         """u . k of each lane's cell along its direction (moving medium)."""
         f = self.flat(s)
-        return (self.vel[0][f] * s.kx + self.vel[1][f] * s.ky
-                + self.vel[2][f] * s.kz)
+        return (self.gather(self.vel[0], f) * s.kx
+                + self.gather(self.vel[1], f) * s.ky
+                + self.gather(self.vel[2], f) * s.kz)
 
     def device_tensors(self):
         out = tuple(t for t in (self.rhokap, self.rhokapD) if t is not None)
         out += self.vel or ()
+        out += () if self.amr is None else self.amr.dev.tensors()
         return out + (self.mueller.tensors() if self.mueller else ())
 
     @functools.cached_property
@@ -287,6 +316,8 @@ class ScatterParams:
         c.one_m_albedo = self.one_m_albedo()
         if self.h2 is not None:
             c.h2 = self.h2.c_struct
+        if self.amr is not None:
+            c.amr = self.amr.c_struct
         c.albedo_Ha, c.hgg_Ha = self.albedo_Ha, self.hgg_Ha
         c.one_m_albedo_Ha = self.one_m_albedo(True)
         return c
@@ -313,17 +344,25 @@ def local_xcrit(s: BatchState, p: ScatterParams):
     if p.core_skip == CORE_SKIP_GLOBAL:
         return (torch.full_like(s.x, p.xcrit),
                 torch.full_like(s.x, p.xcrit2))
-    dl = None
-    for pos, c, amin, d in zip((s.x, s.y, s.z), (s.ic, s.jc, s.kc), p.amin,
-                               p.d):
-        f = amin + c.to(torch.float32) * d
-        dla = torch.minimum(pos - f, f + d - pos)
-        dl = dla if dl is None else torch.minimum(dl, dla)
+    if p.amr is not None:
+        # the distance to the node's nearest face (engine.py:1880-1887)
+        d = p.amr.dev
+        c = torch.clamp(s.ic.long(), 0, d.ncells - 1)
+        dl = d.node_ch[c] - torch.maximum(torch.maximum(
+            torch.abs(s.x - d.node_cx[c]), torch.abs(s.y - d.node_cy[c])),
+            torch.abs(s.z - d.node_cz[c]))
+    else:
+        dl = None
+        for pos, c, amin, d in zip((s.x, s.y, s.z), (s.ic, s.jc, s.kc),
+                                   p.amin, p.d):
+            f = amin + c.to(torch.float32) * d
+            dla = torch.minimum(pos - f, f + d - pos)
+            dl = dla if dl is None else torch.minimum(dl, dla)
     if p.rk_const > 0.0:
         rk = torch.full_like(s.x, p.rk_const)
     else:
-        rk = p.rhokap[p.flat(s)]
-    atau = p.a * rk * torch.clamp_min(dl, 0.0)
+        rk = p.gather(p.rhokap, p.flat(s))
+    atau = p.lane_a_D(s)[0] * rk * torch.clamp_min(dl, 0.0)
     # torch has no cbrt: the f64 cube root rounded to f32
     cbrt = torch.pow(atau.double(), 1.0 / 3.0).float()
     xc = torch.where(atau > 1.0, div(cbrt, 5.0), torch.zeros_like(atau))
@@ -372,19 +411,22 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     is_dust = is_h2 = torch.zeros_like(at_sc)
     lc = p.line
     b2 = s.iband == 2 if p.lyb else None
+    # the cell's damping and Doppler width; D / Dfreq_ref, 1 at uniform T
+    a_c, D_c = p.lane_a_D(s)
+    ratio = doppler_ratio(D_c, p.Dfreq)
     if p.dust or p.h2 is not None:
         if p.rk_const > 0.0:
             rk = torch.full_like(s.x, p.rk_const)
             kap_D = torch.full_like(s.x, p.rkD_const)
         else:
             f = p.flat(s)
-            rk = p.rhokap[f]
-            kap_D = p.rhokapD[f] if p.dust else None
-        kap_HI = rk * pline.line_profile_plain(lc, s.xfreq, p.a, p.Dfreq)
+            rk = p.gather(p.rhokap, f)
+            kap_D = p.gather(p.rhokapD, f) if p.dust else None
+        kap_HI = rk * pline.line_profile_plain(lc, s.xfreq, a_c, D_c)
     if p.h2 is not None:
         # the H2 event split (engine.py:2121-2130)
         hu = uniforms(seed, STREAM_SCATTER, lanes, counter, p.h2_block)
-        kap_H2 = rk * ph2.h2_kappa_plain(p.h2, s.xfreq, p.Dfreq)
+        kap_H2 = rk * ph2.h2_kappa_plain(p.h2, s.xfreq, D_c)
         ktot = kap_HI + kap_H2
         if p.dust:
             ktot = ktot + kap_D
@@ -402,7 +444,7 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     u = uniforms(seed, STREAM_SCATTER, lanes, counter, range(p.rounds + 2))
     sel = None if lc.line_type == 1 else uniforms(
         seed, STREAM_SCATTER, lanes, counter, 3 * p.rounds + 4)
-    red = pline.redistribute_plain(lc, s.xfreq, p.a, p.Dfreq,
+    red = pline.redistribute_plain(lc, s.xfreq, a_c, D_c,
                                    u[:p.rounds], sel, is_res)
     acc, uz, xfreq_atom = red.acc, red.uz, red.xatom
     E1, E2, E3 = red.E1, red.E2, red.E3
@@ -441,9 +483,9 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         # (g0 / D)(1 - cos theta), g0 / D an f32 division (engine.py:2228);
         # none at a conversion
         g0 = torch.as_tensor(red.g0, dtype=torch.float32, device=s.device)
-        shifted = xfreq_new - (g0 / torch.full((), p.Dfreq,
-                                               device=s.device)) \
-            * (1.0 - cost)
+        Dt = D_c if isinstance(D_c, torch.Tensor) else torch.full(
+            (), D_c, device=s.device)
+        shifted = xfreq_new - (g0 / Dt) * (1.0 - cost)
         xfreq_new = shifted if conv is None else torch.where(
             conv, xfreq_new, shifted)
     tau_next = -torch.log(torch.clamp_min(u[p.rounds + 1, 0], 1e-12))
@@ -458,11 +500,11 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     if p.dust:
         dust_sc, absorbed, dust_new = dust_event(s, tallies, p, seed,
                                                  counter, ud, is_dust, cosp,
-                                                 sinp, b2)
+                                                 sinp, b2, ratio)
     h2_sc = h2_destroy = torch.zeros_like(at_sc)
     if p.h2 is not None:
         h2_sc, h2_destroy, h2_new = h2_event(s, tallies, p, seed, counter,
-                                             hu, is_h2)
+                                             hu, is_h2, D_c)
     res_kind = torch.full_like(s.phase, EVENT_RESONANCE)
     if conv is not None:
         res_kind = torch.where(conv, EVENT_CONVERSION, res_kind)
@@ -501,7 +543,8 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         # direction (engine.py:2510-2528)
         did_conv = do_res & conv
         u_new = p.vel_dot(s) if p.vel is not None else zero
-        xf = torch.where(did_conv, xfreq_new - xfreq_atom + u_new, xf)
+        xf = torch.where(did_conv, (xfreq_new - xfreq_atom + u_new) * ratio,
+                         xf)
         s.iband.copy_(torch.where(did_conv, 2, s.iband).to(torch.int32))
         tallies.W_conv += torch.where(did_conv, s.wgt, zero).sum()
     s.xfreq.copy_(xf)
@@ -515,25 +558,26 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
 
 
 def h2_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
-             counter: int, hu, is_h2):
+             counter: int, hu, is_h2, D: float):
     """The H2 branch of the plain scatter (engine.py:2383-2435) on the
     pre-scatter state, hu the uniforms of block h2_block: W_H2abs,
     W_H2scat, W_H2pump and the scattered weight in nscatt_gas are tallied
     here; returns (scattered, destroyed, the scattered lanes' new
-    direction and frequency by field name)."""
+    direction and frequency by field name).  D is the cells' Doppler
+    width."""
     lanes = torch.arange(s.batch, dtype=torch.int64, device=s.device)
     h = p.h2
     hv = uniforms(seed, STREAM_SCATTER, lanes, counter, p.h2_block + 1)
     zero = torch.zeros_like(s.wgt)
-    w0, w1 = ph2.h2_line_weights_plain(h, s.xfreq, p.Dfreq)
+    w0, w1 = ph2.h2_line_weights_plain(h, s.xfreq, D)
     sel2 = hu[1] * torch.clamp_min(w0 + w1, TINY) > w0
 
     def pick(v):
         return torch.where(sel2, v[1], v[0])
     destroy = is_h2 & (hu[2] > pick(h.p_scat))
     sc = is_h2 & ~destroy
-    ratio = ph2.h2_ratio(h, p.Dfreq)
-    dx_l = div(pick(h.dnu), p.Dfreq)
+    ratio = ph2.h2_ratio(h, D)
+    dx_l = div(pick(h.dnu), D)
     x_h2 = (s.xfreq - dx_l) * ratio
     env = samplers.vz_envelope(x_h2, pick(h.a_damp))
     acc, uz = torch.zeros_like(sc), zero
@@ -561,13 +605,14 @@ def h2_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
 
 
 def dust_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
-               counter: int, ud, is_dust, cosp, sinp, b2=None):
+               counter: int, ud, is_dust, cosp, sinp, b2=None, ratio=1.0):
     """The dust branch of the plain scatter (engine.py:2270-2381) on the
     pre-scatter state: Jabs (and, line type 8, Jabs_Ha, W_abs1, W_abs2 of
     the bands; b2 marks the H-alpha band's lanes) and nscatt_dust are
     tallied here; returns (scattered, absorbed, the scattered lanes' new
     direction, and with Stokes triad and Stokes vector, by field name, with
-    the albedo of each lane under 'albedo')."""
+    the albedo of each lane under 'albedo').  ratio is D / Dfreq_ref of the
+    lanes' cells."""
     if b2 is None:
         albedo, one_m = p.albedo, p.one_m_albedo()
     else:
@@ -609,6 +654,7 @@ def dust_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
     xlab = s.xfreq
     if p.vel is not None:
         xlab = s.xfreq + p.vel_dot(s)
+    xlab = xlab * ratio
     zero = torch.zeros_like(s.wgt)
     wab = s.wgt * one_m if p.reduced_wgt else s.wgt
     absorbing = is_dust & (absorbed | p.reduced_wgt)

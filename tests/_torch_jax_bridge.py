@@ -44,6 +44,15 @@ def grid_to_jax(meta: GridMeta, grid: GridDevice):
                                 for k, v in leaves.items()}))
 
 
+def amr_to_jax(meta: GridMeta, dev):
+    """The port's AMR grid (GridMeta, AmrDevice) -> lart_tpu's."""
+    from lart_tpu.grid.octree import AmrDevice as JAmrDevice
+    return (jcart.GridMeta(**dataclasses.asdict(meta)),
+            JAmrDevice(**{f: None if getattr(dev, f) is None
+                          else jnp.asarray(getattr(dev, f).cpu().numpy())
+                          for f in JAmrDevice._fields}))
+
+
 def state_to_jax(state: BatchState):
     """The port's state -> lart_tpu BatchState; the fields the port does
     not carry take lart_tpu's init_state values."""

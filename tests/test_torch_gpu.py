@@ -32,16 +32,23 @@ LYB_H2_KEYS = {'refill_point (line type 8)', 'fly_cartesian (line type 8)',
                'scatter_lya (H2) (line types 2, 4-7)'}
 
 
+# K8 and the AMR branches of K2, K4 and K7 (chip_smoke.phase2_amr)
+AMR_KEYS = {'fly_amr', 'refill_point (AMR)', 'scatter_lya (AMR)',
+            'peel (AMR)', 'scatter_lya (AMR) (line types 2, 4-7)',
+            'scatter_lya (AMR) (H2)'}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
+    chip_smoke.AMR_BIG = 32      # the AMR sphere of 48k leaves, not 3.06M
     res = chip_smoke.phase2(cuda)
     kernels = {'refill_point', 'fly_uniform_slab', 'fly_cartesian',
                'fly_uniform_sphere', 'scatter_lya', 'peel'}
     # the metal lines' instances (chip_smoke.phase2_lines), and line type
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
-        k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS
+        k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -279,3 +286,36 @@ def test_driver_runs_lyb_and_h2(cuda, case):
         assert abs(res.W_esc2 + res.W_abs2 - res.W_conv) < 1e-3
         assert float(res.peel['Ha'].sum()) > 0.0
         assert (res.W_abs2 > 0.0) == (case == 'lyb_dust')
+
+
+@pytest.mark.parametrize('case', ['sphere', 'jellyfish'])
+def test_driver_runs_the_amr_kernels(cuda, case):
+    """driver.run on the AMR grid with the leaves in memory (amr_data):
+    K2's AMR births, K8, K4's AMR gathers and, on the jellyfish grid (its
+    observer, non-uniform T, a moving medium, dust), K7's AMR sightline."""
+    import dataclasses
+
+    import numpy as np
+
+    import chip_smoke
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.grid.amr import make_amr_sphere
+    from lart_tpu_torch.kernels import build as kb
+    if case == 'sphere':
+        par, leaves = testing.amr_params(16, 1, tau0=20.0, nphotons=4000,
+                                         batch=2048), make_amr_sphere(16, 1)
+    else:
+        par = dataclasses.replace(
+            chip_smoke.example_params(chip_smoke.JELLY), taumax=10.0,
+            nphotons=2000, batch_size=2048, nxim=21, nyim=21, dxim=0.15,
+            dyim=0.15, distance=100.0, cext_dust=1.6e-13, xfreq_min=-80.0,
+            xfreq_max=80.0, nxfreq=320)
+        leaves = testing.jellyfish_amr()
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=3, amr_data=leaves)
+    need = ('refill_point', 'fly_amr', 'scatter_lya') + (
+        ('peel',) if case == 'jellyfish' else ())
+    assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
+    assert np.all(np.isfinite(res.Jout))
+    assert abs(res.W_escape + res.W_absorb + res.W_oor - 1.0) < 1e-3
+    assert (res.W_absorb > 0.0) == (case == 'jellyfish')

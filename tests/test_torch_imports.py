@@ -1,5 +1,6 @@
 """The port stands alone: every module of lart_tpu_torch, and
-chip_smoke.py, imports with lart_tpu and jax made unimportable."""
+chip_smoke.py, imports with lart_tpu and jax made unimportable, and builds
+an AMR grid with its own octree builder."""
 
 import os
 import subprocess
@@ -25,6 +26,11 @@ assert cfg.par.use_stokes and cfg.par.save_peeloff
 from lart_tpu_torch.physics import h2
 cfg = Params.from_namelist('examples/h2_test/h2_on.in').resolve()
 assert h2.H2Consts.from_config(cfg).strength[1] > 0.0
+# the AMR grid: the octree by the port's own C++ builder, the fine map
+from lart_tpu_torch import testing
+from lart_tpu_torch.grid.amr import build_amr, make_amr_sphere
+r = build_amr(testing.amr_params(8, 1).resolve(), data=make_amr_sphere(8, 1))
+assert r.tree.builder == 'native' and r.dev.fine_map is not None
 print(len(names))
 """
 
@@ -35,4 +41,4 @@ def test_port_imports_without_lart_tpu_and_jax():
     proc = subprocess.run([sys.executable, '-c', CODE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25
+    assert int(proc.stdout.split()[-1]) >= 28
