@@ -2,16 +2,17 @@
 """Smoke test of lart_tpu_torch on one NVIDIA GPU: builds the CUDA kernels,
 holds each against its plain PyTorch version, runs the slab, the uniform
 sphere, the expanding Hubble sphere, the dusty expanding shell, the metal
-lines (line types 2, 4-7), Ly-beta with its H-alpha band (line type 8) and
-H2 pumping of Ly-alpha end to end through the driver and the CLI, without
-and with peel-off images (Stokes), and measures their steady-state rates.
+lines (line types 2, 4-7), Ly-beta with its H-alpha band (line type 8),
+H2 pumping of Ly-alpha, the octree AMR grid and the clump media end to end
+through the driver and the CLI, without and with peel-off images
+(Stokes), and measures their steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
 
 Phases (one line each, or more):
   0  card name and power limit (nvidia-smi), torch / CUDA / nvcc versions
-  1  build K1-K7 from lart_tpu_torch/csrc with nvcc (one per source, in
+  1  build K1-K10 from lart_tpu_torch/csrc with nvcc (one per source, in
      parallel)
   2  each kernel and branch against its plain version on the card at
      B = 131072: K1-K4 on the flagship slab; K5 on the 201^3 Hubble grid of
@@ -43,7 +44,16 @@ Phases (one line each, or more):
      sphere_HD_dijkstra2006 with H2: K2's band, K5 with the H-alpha band
      (+- dust) and with H2, K4's conversions (+- recoil), the H-alpha
      band's dust events and the H2 branch (line types 1 and 7), K7's
-     conversion, resonance and H-alpha dust peels and the H2 sightline
+     conversion, resonance and H-alpha dust peels and the H2 sightline;
+     the AMR backend (phase2_amr); the clump backend (phase2_clump): K9 on
+     examples/clump_sphere/clumps_overlap.in as written (overlap mode), in
+     non-overlap mode, with clump_sigma_v and clump_temperature 9e4 (dust,
+     Stokes), in Mg II (kMulti); K10 on that population with
+     clump_dense_max 0 (overlap form), on examples/bicone/bicone_clump.in
+     (non-overlap) and on the 1.48M-clump population (FCOV1); K9 on 1000
+     overlapping clumps whose rays cross more chords than its list holds
+     (MANY_CHORDS); K2's clump births, K4's owner draw and clump frame,
+     K7's clump sightline
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -52,7 +62,9 @@ Phases (one line each, or more):
      and one observer (absorbed weight, spectra, scatterings, peel); 17^3
      spheres of the Mg II doublet, the Si II multiplet (Stokes, recoil, one
      observer) and H + D Ly-alpha (testing.line_params); a 17^3 Ly-beta
-     sphere with dust and one observer, and a 17^3 H2 sphere
+     sphere with dust and one observer, and a 17^3 H2 sphere; the AMR
+     sphere and jellyfish_pt; the 40-clump sphere of testing.clump_params
+     in its dense (K9) and CSR (K10) forms, one population in both runs
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
@@ -72,7 +84,10 @@ Phases (one line each, or more):
      HeI_sphere/t4tau2.in and SiII_1527/t1e5tau1e1_V050.in as written;
      ly_beta_sphere/t4tau1e4.in, t4tau1e4_dust.in and h2_test/h2_on.in
      as written (the band budgets, P_down[1], Jout_Ha and peel_Ha; the
-     H2 budget and keywords)
+     H2 budget and keywords); the AMR examples (amr_runs);
+     clumps_overlap.in as written, through K10 (clump_dense_max 0: the
+     <N_scatt> ratio K10 / K9 held at 1 +- 5%) and with one observer on +z,
+     and bicone_clump.in with save_clump_info off (W_esc + W_oor = 1)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -81,7 +96,9 @@ Phases (one line each, or more):
      the three peel-off examples as written, DL20e_dust as written and with
      one observer on +z, SiII_1193/tau1e+2_V200 with its observer,
      sphere_HD_dijkstra2006 and HeI t4tau2 as written, t4tau1e4 with its
-     observer and h2_on as written; a torch.profiler breakdown of
+     observer and h2_on as written, the AMR cells, clumps_overlap.in,
+     bicone_clump.in, the 1.48M-clump population and clumps_overlap.in
+     with one observer on +z; a torch.profiler breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
@@ -134,8 +151,9 @@ MGII = dict(line_id='MgII_2796', wavelength_min=2790.0,
             wavelength_max=2810.0)
 # phase 4's cut of sphere_HD_dijkstra2006: as written (N_HI 1.2e19) each
 # photon scatters ~8e5 times, one scattering a cycle, and 2000 photons took
-# 205 s on the card whatever their number; N_HI 1.2e18 cuts that tenfold
-HD_PHOTONS, HD_NHI = 2000, '1.2e18'
+# 205 s on the card whatever their number; N_HI 6e17 cuts that ~twentyfold,
+# which keeps the whole script well inside its time limit
+HD_PHOTONS, HD_NHI = 2000, '6e17'
 LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
 # Ly-beta with its H-alpha band (line type 8) and H2 pumping of Ly-alpha:
 # the slice's examples, and the names of their kernel branches in res
@@ -148,6 +166,18 @@ LT8, H2 = ' (line type 8)', ' (H2)'
 # and the names of the AMR branches in res
 AMR_SPHERE, JELLY = 'amr_sphere/amr_sphere.in', 'jellyfish_rmhd/jellyfish_pt.in'
 AMR_BIG, JELLY_TAU, AMR = 128, 1e4, ' (AMR)'
+# the clump backend (K9, K10 and the clump branches of K2, K4, K7): the
+# slice's examples, the population at the scale of the reference's
+# clump_fcov1 run (R 1, f_cov 1, radius 9.5e-4, N_HI 1e18: 1,477,378 clumps
+# on a 192^3 CSR grid), and the names of the clump branches in res
+CLUMPS_OVERLAP, BICONE = ('clump_sphere/clumps_overlap.in',
+                          'bicone/bicone_clump.in')
+FCOV1 = dict(clump_N_clumps=-1.0, clump_f_cov=1.0, clump_radius=9.5e-4,
+             clump_tau0=-1.0, clump_NHI=1e18)
+CLUMP = ' (clump)'
+# a dense population whose rays cross more chords than K9's list holds
+MANY_CHORDS = dict(clump_allow_overlap=True, clump_N_clumps=1000,
+                   clump_radius=0.2, clump_tau0=0.3)
 
 
 def log(phase, msg):
@@ -220,7 +250,18 @@ def kernel_work(name, pre, ch, meta, stats=None):
         # the descent's levels, its leaf's physics
         amr = 0 if ch.refill_params.amr is None \
             else (ch.refill_params.amr.levelmax + 1) * 20 + 32
-        return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4 + amr, k * 60
+        # on a clump medium the source's clump, read once: every clump's
+        # centre and radius^2 (dense) or the CSR row and its candidates'
+        # (and the clump's velocity); a containment test of ~9 flops each
+        # (3 differences, a dot product of 5, a compare)
+        cl = ch.refill_params.clump
+        clump = flops = 0
+        if cl is not None:
+            m = cl.n if cl.dense else cl.K
+            clump = m * 16 + (0 if cl.dense else cl.K * 4) + 12 * cl.moving
+            flops = m * 9
+        return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4 + amr + clump, \
+            k * (60 + flops)
     if name == 'scatter_lya':
         k = int((ph == AT_SCATTER).sum())
         sp = ch.scatter_params
@@ -261,6 +302,22 @@ def kernel_work(name, pre, ch, meta, stats=None):
             grid += min(cells, k) * 4 * (
                 1 + (4 if sp.core_skip == CORE_SKIP_LOCAL else 0)
                 + (0 if sp.amr.uniform_temperature else 2))
+        if sp.clump is not None:
+            # each lane's clump: its rhokap (rhokapD, velocity); the owner
+            # draw (overlap mode) reads every clump's centre, radius^2 and
+            # opacity once (dense) or each distinct CSR row and candidate,
+            # and needs one pass of ~13 flops over them (the containment
+            # test's 9, the masked opacity, the running sum, the compare;
+            # the kernel's second pass is not counted); the frame shift
+            # ~10 flops
+            cl = sp.clump
+            grid += min(cl.n, k) * 4 * (1 + cl.has_dust + 3 * cl.moving)
+            flops += 10
+            if cl.overlap:
+                m = cl.n if cl.dense else cl.K
+                grid += min(cl.n, m if cl.dense else k * m) * 20 \
+                    + (0 if cl.dense else min(cl.cg_n ** 3, k) * cl.K * 4)
+                flops += m * 13
         return B * 4 + flag + k * per_lane + grid, k * flops
     if name == 'peel':
         # the flag of every lane; the position of each flagged lane; the
@@ -302,6 +359,15 @@ def kernel_work(name, pre, ch, meta, stats=None):
                 + stats['cells'] * (0 if g.amr.uniform_temperature else 8)
         # with H2, two more Voigt functions a crossing
         per_crossing = 60 + (80 if g.h2 is not None else 0)
+        if g.clump is not None:
+            # the clump sightline: each distinct CSR cell's row of K
+            # candidates, each distinct candidate's centre, radius^2 and
+            # opacity (the stats' cells are the clumps); a crossing tests K
+            # chords (~17 flops each: 3 differences, two dot products of 5,
+            # the radius, the discriminant's fma, a compare; the clipping
+            # and the profile of a crossed one are not counted)
+            grid += stats['csr'] * g.clump.K * 4 + stats['cells'] * 16
+            per_crossing = 40 + 17 * g.clump.K
         return (B * 4 + stats['lanes'] * 12 + seen + table
                 + grid + stats['bins'] * 4 * ncubes + peel.nobs * 12 * 4,
                 stats.get('crossings', 0) * per_crossing
@@ -328,6 +394,32 @@ def kernel_work(name, pre, ch, meta, stats=None):
             spectra += ch.nxfreq * 4
         return B * 4 + k * (24 + 12) * 4 + nodes * per_node + grid + spectra, \
             flops
+    if name == 'fly_clump_dense':
+        # the lane state read and written once; every clump's centre,
+        # radius^2, opacity (rhokapD, velocity) read once; ~17 flops a clump
+        # a lane-step (the chord test against all N: 3 differences, two dot
+        # products of 5, the radius, the discriminant's fma, a compare), a
+        # profile a step (one a crossed chord in a moving medium), and on a
+        # crossed chord its clipping and weight (~10 flops) and 13
+        # evaluations of F (~6 flops each)
+        cl = ch.flight.clump
+        per_clump = 4 * (5 + cl.has_dust + 3 * cl.moving)
+        flops = stats['steps'] * (17 * cl.n + 40) + stats['chords'] * (
+            10 + 13 * 6 + (40 if cl.moving else 0))
+        return B * 4 + k * (24 + 12) * 4 + cl.n * per_clump + spectra, flops
+    if name == 'fly_clump_csr':
+        # the lane state read and written once; each distinct CSR cell's
+        # row of K candidates and each distinct candidate's centre,
+        # radius^2, opacity (rhokapD, velocity) read once; ~17 flops a
+        # candidate a lane-step (its chord test; the profile of a crossed
+        # one in overlap mode is not counted)
+        from lart_tpu_torch.transport.fly_clump import csr_work
+        cl = ch.flight.clump
+        w = csr_work(stats, cl)
+        per_clump = 4 * (5 + cl.has_dust + 3 * cl.moving)
+        return (B * 4 + k * (24 + 12) * 4 + w['cells'] * cl.K * 4
+                + w['clumps'] * per_clump + spectra,
+                stats['steps'] * (17 * cl.K + 40))
     if name == 'fly_cartesian':
         f = ch.flight
         grid = min(cells, k) * 4 * ((4 if f.moving else 1)
@@ -641,6 +733,7 @@ def phase2(dev):
     phase2_lines(dev, res)
     phase2_lyb_h2(dev, res)
     phase2_amr(dev, res)
+    phase2_clump(dev, res)
     return res
 
 
@@ -717,16 +810,18 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None,
     return n_bad, n_dep, err, dtau, dw_rel
 
 
-def record_diff(a, b):
+def record_diff(a, b, dust_xatom=False):
     """(lanes whose peel records differ, max abs error of the others): the
     flag exactly, the event fields of the flagged lanes to rtol/atol; a
-    dust event's (flag 2) are its direction, triad and Stokes vector."""
+    dust event's (flag 2) are its direction, triad and Stokes vector, and
+    with dust_xatom (a clump medium) its frequency in xatom."""
     from lart_tpu_torch.instruments.peel import DUST, PEEL_RECORD_FIELDS
     bad = a.flag != b.flag
     err = 0.0
     for f in PEEL_RECORD_FIELDS[1:]:
         on = (a.flag != 0) if f not in ('xatom', 'ux', 'uy', 'uz', 'E1',
                                         'E2', 'E3') \
+            or (f == 'xatom' and dust_xatom) \
             else (a.flag != 0) & (a.flag != DUST)
         u, v = getattr(a, f), getattr(b, f)
         off = on & ~torch.isclose(u, v, rtol=LANE_RTOL, atol=LANE_ATOL)
@@ -890,6 +985,8 @@ def phase2_dust(dev, res):
 def flight_kernel(ch):
     """The name of the flight kernel of a chunk."""
     mod = type(ch.flight).__module__.rsplit('.', 1)[-1]
+    if mod == 'fly_clump':
+        return 'fly_clump_dense' if ch.flight.clump.dense else 'fly_clump_csr'
     return {'fly_slab': 'fly_uniform_slab', 'fly_sphere': 'fly_uniform_sphere',
             'fly_amr': 'fly_amr'}.get(mod, 'fly_cartesian')
 
@@ -1211,19 +1308,22 @@ def _in_core_fraction(s0, p):
 def cuda_and_cpu(par, dev, amr_data=None):
     """driver.run of par (with amr_data, an AMR grid's leaves) on the card
     and on the CPU (one thread): (cuda RunResult, its wall s, its launch
-    counts, cpu RunResult, its wall s)."""
+    counts, cpu RunResult, its wall s).  The runs draw from the seeds 5 and
+    6; a clump population is built from one seed, 82, in both."""
     from lart_tpu_torch import driver
     from lart_tpu_torch.kernels import build as kb
     kb.reset_launch_counts()
     t0 = time.time()
-    rg = driver.run(par, device=dev, seed=5, amr_data=amr_data)
+    rg = driver.run(par, device=dev, seed=5, amr_data=amr_data,
+                    clump_seed=82)
     tg = time.time() - t0
     counts = {k: v for k, v in kb.LAUNCHES.items() if v}
     nthreads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         t0 = time.time()
-        rc = driver.run(par, device='cpu', seed=6, amr_data=amr_data)
+        rc = driver.run(par, device='cpu', seed=6, amr_data=amr_data,
+                        clump_seed=82)
         tc = time.time() - t0
     finally:
         torch.set_num_threads(nthreads)
@@ -1374,8 +1474,10 @@ def h2_run(label, par, dev):
 
 def phase3(dev):
     from lart_tpu_torch import testing
-    c = spectra_run('slab tau0=100 1e4 photons', testing.slab_params(
-        tau0=100.0, nz=101, nphotons=10_000, batch=4096), dev)
+    # the slab and the Stokes peel sphere at tau0 50: their CPU runs cost
+    # ~0.6 s a unit of tau0 there
+    c = spectra_run('slab tau0=50 1e4 photons', testing.slab_params(
+        tau0=50.0, nz=101, nphotons=10_000, batch=4096), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_uniform_slab',
                                   'scatter_lya')), c
     c = spectra_run('sphere 33^3 tau0=100 1e4 photons', testing.sphere_params(
@@ -1388,9 +1490,9 @@ def phase3(dev):
     assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
                                   'scatter_lya')), c
     # peel-off to two observers (+z and oblique), 17 x 17 images
-    c = spectra_run('sphere 17^3 tau0=100 1e4 photons, Stokes peel',
+    c = spectra_run('sphere 17^3 tau0=50 1e4 photons, Stokes peel',
                     testing.peel_params(testing.sphere_params(
-                        tau0=100.0, n=17, nphotons=10_000, batch=4096),
+                        tau0=50.0, n=17, nphotons=10_000, batch=4096),
                         nim=17), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_uniform_sphere',
                                   'scatter_lya', 'peel')), c
@@ -1442,6 +1544,7 @@ def phase3(dev):
                                  f_H2=30.0), dev)
     assert all(c.get(k) for k in need), c
     amr_phase3(dev)
+    clump_phase3(dev)
 
 
 def run_cli(nml, out, device='cuda'):
@@ -1553,6 +1656,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         lines_cli(tmp, device, total)
         lyb_h2_cli(tmp, device, total)
         amr_runs(tmp, device, total)
+        clump_cli(tmp, device, total)
     return total
 
 
@@ -2070,6 +2174,298 @@ def amr_phase5(dev, res):
         del p
 
 
+# --------------------------------------------------------------------------
+# the clump backend: K9 fly_clump_dense, K10 fly_clump_csr and the clump
+# branches of K2, K4 and K7
+# --------------------------------------------------------------------------
+
+def clump_params(name, **over):
+    """The Params of a clump population of this slice: 'overlap' is
+    examples/clump_sphere/clumps_overlap.in as written (195 overlapping
+    clumps: K9), 'bicone' examples/bicone/bicone_clump.in (6837 clumps: K10
+    in non-overlap mode; save_clump_info off, as the card has no h5py),
+    'fcov1' the 1,477,378-clump sphere at the scale of the reference's
+    clump_fcov1 run (FCOV1: K10 far beyond the L2), 'sphere40' the 40-clump
+    sphere of testing.clump_params."""
+    from lart_tpu_torch import testing
+    if name == 'overlap':
+        return example_params(CLUMPS_OVERLAP, **over)
+    if name == 'bicone':
+        return example_params(BICONE, **{'save_clump_info': False, **over})
+    if name == 'fcov1':
+        return testing.clump_params(**{**FCOV1, **over})
+    return testing.clump_params(**over)
+
+
+def clump_chunk(par, dev):
+    """(meta, chunk, build seconds) of par's clump population, built from
+    the drivers' seed iseed + 77 on dev."""
+    from lart_tpu_torch.grid.clump import build_clumps
+    from lart_tpu_torch.transport.engine import make_chunk
+    cfg = par.resolve()
+    t0 = time.time()
+    meta, cmeta, grid = build_clumps(cfg, seed=cfg.par.iseed + 77, device=dev)
+    return meta, make_chunk(cfg, meta, grid, cmeta), time.time() - t0
+
+
+def phase2_clump(dev, res, batch=None):
+    """The clump backend: K9 and K10 in every mode and the clump branches
+    of K2, K4 and K7 against their plain versions at B = batch (B_MAIN),
+    lane by lane or pair by pair, from mixed clump states (lanes in the
+    vacuum, inside clumps and within two nudges of a clump's surface, in
+    every phase; testing.clump_state).  The populations: clumps_overlap.in
+    as written (K9 in overlap mode, K2's dense clump_find, K4's dense owner
+    draw, K7's clump sightline with an observer on +z), its population in
+    non-overlap mode (owner_at), with clump_sigma_v 30 km/s, clump
+    temperature 9e4 K, dust and Stokes (K4's frame shift and Jabs, the peel
+    record, K7's dust peel), in the Mg II doublet (the kMulti instances),
+    and through the CSR walker (clump_dense_max 0: K10's overlap form, K2's
+    CSR clump_find, K4's CSR owner draw); bicone_clump.in (K10 in
+    non-overlap mode, K7 on 6837 clumps); the 1.48M-clump population (K10
+    beyond the L2); 1000 overlapping clumps (MANY_CHORDS: K9's second path,
+    F recomputed from every clump, on the rays that cross more than its
+    list of chords)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport.fly_clump import CHORDS, crossed_chords
+    B = batch or B_MAIN
+    seed = 700
+    fly_tal = ('Jout', 'Jmu', 'W_oor')
+    hot = dict(clump_sigma_v=30.0, clump_temperature=9e4, DGR=3e-3,
+               use_stokes=True, **OBSERVER)
+    cases = (
+        ('overlap', 'clumps_overlap.in as written, one observer (K9 '
+         'overlap)', clump_params('overlap', **OBSERVER),
+         ('fly', 'refill', 'scatter', 'direct', 'resonance')),
+        ('overlap non-overlap', 'its population walked in non-overlap mode '
+         '(owner_at)', clump_params('overlap', clump_allow_overlap=False),
+         ('fly', 'scatter')),
+        ('overlap hot', 'clumps_overlap.in with clump_sigma_v 30, '
+         'clump_temperature 9e4, DGR 3e-3, Stokes, one observer',
+         clump_params('overlap', **hot),
+         ('fly', 'scatter', 'resonance', 'dust')),
+        ('overlap Mg II', 'clumps_overlap.in in Mg II 2796 (kMulti)',
+         clump_params('overlap', **MGII), ('fly', 'scatter')),
+        ('overlap CSR', 'clumps_overlap.in through the CSR walker '
+         '(clump_dense_max 0: K10 overlap form)',
+         clump_params('overlap', clump_dense_max=0),
+         ('fly', 'refill', 'scatter')),
+        ('overlap CSR hot', 'the CSR walker with clump_sigma_v 30, '
+         'clump_temperature 9e4', clump_params(
+             'overlap', clump_dense_max=0, clump_sigma_v=30.0,
+             clump_temperature=9e4), ('fly', 'scatter')),
+        ('bicone', 'bicone_clump.in as written, one observer (K10 '
+         'non-overlap)', clump_params('bicone', **OBSERVER),
+         ('fly', 'refill', 'scatter', 'direct', 'resonance')),
+        ('bicone Mg II', 'bicone_clump.in in Mg II 2796 (kMulti)',
+         clump_params('bicone', **MGII), ('fly',)),
+        ('fcov1', 'the 1.48M-clump population (K10 beyond the L2)',
+         clump_params('fcov1'), ('fly', 'refill')),
+        ('many chords', '1000 overlapping clumps of radius 0.2 (f_cov 30): '
+         f'rays crossing more than K9\'s {CHORDS}-chord list',
+         clump_params('sphere40', **MANY_CHORDS), ('fly',)))
+    for label, what, par, steps in cases:
+        par.batch_size = B
+        meta, ch, t_build = clump_chunk(par, dev)
+        cl = ch.flight.clump
+        lt = ch.scatter_params.line.line_type
+        multi = '' if lt == 1 else LINES
+        fly_name = 'fly_clump_dense' if cl.dense else 'fly_clump_csr'
+        log(2, f'clumps {label} ({what}): {cl.n} clumps, CSR {cl.cg_n}^3 x '
+               f'K {cl.K}, dense {cl.dense}, overlap {cl.overlap}, static '
+               f'{not cl.moving}, r_loc {cl.r_loc:.6f}, dust {cl.has_dust}; '
+               f'built in {t_build:.1f} s')
+
+        def state(sd, phases=(0, 1, 2, 3)):
+            return testing.clump_state(meta, cl, B, sd, dev, phases=phases)
+        for step in steps:
+            seed += 2
+            if step == 'fly':
+                s0 = state(seed)
+                inside = int((s0.ic >= 0).sum())
+                # the lanes whose rays cross more chords than K9's list
+                # holds: K9 recomputes their F from every clump
+                n_over = int((crossed_chords(ch.flight, s0) > CHORDS).sum()) \
+                    if cl.dense else 0
+                assert n_over > 0.3 * B or label != 'many chords', n_over
+                _, sk, frac, err, tal = both(meta, seed, fly_step(ch),
+                                             fly_tal, dev, nmu=ch.nmu,
+                                             state=s0)
+                _max_err(res, fly_name + multi, err)
+                log(2, f'  {"K9" if cl.dense else "K10"} {fly_name} '
+                       f'({"kMulti" if multi else "line type 1"}): {inside} '
+                       f'lanes start in a clump, {n_over} cross more than '
+                       f'{CHORDS} chords, '
+                       f'{int((sk.phase == 3).sum())} at a scattering after; '
+                       f'lanes differing {frac:.2e}, max abs err {err:.3e}; '
+                       f'tallies max |d| {tal}')
+            elif step == 'refill':
+                s0 = state(seed)
+                _, sk, frac, err, tal = both(meta, seed, refill_step(ch),
+                                             ('Jin',), dev, state=s0)
+                born = (s0.phase == 0) & (sk.phase != 0)
+                rp = ch.refill_params
+                src = int(cl.find(*(torch.full((1,), v, device=dev)
+                                    for v in (rp.xs, rp.ys, rp.zs))))
+                assert bool((sk.ic[born] == src).all())
+                _max_err(res, 'refill_point' + CLUMP, err)
+                log(2, f'  K2 refill_point (birth clump {src}, '
+                       f'{"dense" if cl.dense else "CSR"} clump_find): '
+                       f'{int(born.sum())} births; lanes differing '
+                       f'{frac:.2e}, max abs err {err:.3e}; Jin max |d| '
+                       f'{tal["Jin"]:.3e}')
+                # the source moved to clump 7's centre: births in a clump
+                c7 = [float(v[7]) for v in (cl.dev.x, cl.dev.y, cl.dev.z)]
+                ch7 = dataclasses.replace(ch, refill_params=dataclasses.replace(
+                    rp, xs=c7[0], ys=c7[1], zs=c7[2]))
+                _, sk, frac, err, tal = both(meta, seed, refill_step(ch7),
+                                             ('Jin',), dev, state=s0)
+                born = (s0.phase == 0) & (sk.phase != 0)
+                assert bool((sk.ic[born] == 7).all()) or cl.overlap
+                assert bool((sk.ic[born] >= 0).all())
+                _max_err(res, 'refill_point' + CLUMP, err)
+                log(2, f'  K2 refill_point, the source at clump 7\'s centre: '
+                       f'{int(born.sum())} births in clump '
+                       f'{int(sk.ic[born][0])}; lanes differing {frac:.2e}, '
+                       f'max abs err {err:.3e}')
+            elif step == 'scatter':
+                s0 = state(seed, phases=(3,))
+                recs = {}
+                sp = ch.scatter_params
+                tals = ('nscatt_gas', 'nscatt_events') + (
+                    ('Jabs', 'nscatt_dust') if sp.dust else ())
+                _, sk, frac, err, tal = both(
+                    meta, seed, scatter_step(ch, recs=recs if ch.peel
+                                             else None), tals, dev,
+                    state=s0)
+                n_rec, rerr = record_diff(recs[True], recs[False],
+                                          dust_xatom=True) \
+                    if recs else (0, 0.0)
+                assert n_rec <= MAX_FRAC * B, n_rec
+                owners = int((sk.ic != s0.ic).sum())
+                _max_err(res, 'scatter_lya' + CLUMP + multi, max(err, rerr))
+                log(2, f'  K4 scatter_lya (clump owner '
+                       f'{"draw" if cl.overlap else "from the flight"}: '
+                       f'{owners} lanes changed clump; frame shift '
+                       f'{cl.shift}, dust {bool(sp.dust)}, Stokes '
+                       f'{sp.stokes}): {int((sk.phase == 2).sum())} of {B} '
+                       f'lanes scattered; lanes differing {frac:.2e}, max '
+                       f'abs err {err:.3e}; record lanes differing {n_rec}; '
+                       f'tallies max |d| {tal}')
+            else:
+                mode = {'direct': tpeel.DIRECT,
+                        'resonance': tpeel.RESONANCE,
+                        'dust': tpeel.DUST}[step]
+                n_bad, n_dep, err, dtau, dw = peel_both(
+                    ch, meta, seed, mode, dev, state_fn=state)
+                _max_err(res, 'peel' + CLUMP, err)
+                log(2, f'  K7 peel {step} (clump sightline, '
+                       f'{ch.peel.max_steps} CSR cells at most, '
+                       f'{ch.peel.obs_meta.nxim}x{ch.peel.obs_meta.nyim} x '
+                       f'{meta.nxfreq} bins): {n_dep} of {B} pairs deposit, '
+                       f'pairs differing {n_bad}, max |d tau| {dtau:.3e}, '
+                       f'per-pair deposits max rel err {dw:.3e}, cubes max '
+                       f'abs err {err:.3e}')
+        del ch
+
+
+def clump_phase3(dev):
+    """driver.run on cuda and on cpu of the 40-clump sphere
+    (testing.clump_params, 2e4 photons, Jmu on) in its dense form (K9,
+    overlap mode: the owner draw) and its CSR form (K10, non-overlap):
+    ROADMAP's statistical gates."""
+    from lart_tpu_torch import testing
+    for label, over, fly in (
+            ('dense (K9, overlap)', dict(clump_allow_overlap=True),
+             'fly_clump_dense'),
+            ('CSR (K10, non-overlap)', dict(clump_dense_max=0),
+             'fly_clump_csr')):
+        par = testing.clump_params(nphotons=20_000, batch=4096,
+                                   save_Jmu=True, nmu=8, **over)
+        c = spectra_run(f'40-clump sphere {label}, 2e4 photons', par, dev)
+        assert all(c.get(k) for k in ('refill_point', fly,
+                                      'scatter_lya')), c
+
+
+def clump_cli(tmp, device, total):
+    """The slice's examples through the CLI, FITS written and read back:
+    clumps_overlap.in as written (K9), the same population through the CSR
+    walker (clump_dense_max 0: K10) with the <N_scatt> ratio K10 / K9,
+    clumps_overlap.in with one observer on +z (K7's clump sightline; 2e4
+    photons), and bicone_clump.in with save_clump_info off (K10 in
+    non-overlap mode).  Each run's own launch counts go into
+    total['clump'][label]."""
+    from lart_tpu_torch.io.writer import read_spectrum
+
+    def run(label, rel, need, **over):
+        nml = namelist_variant(rel, tmp, **over)
+        out = Path(tmp) / (label + '.fits')
+        rc, res, wall, launches = run_cli(nml, out, device)
+        assert rc == 0
+        spec = read_spectrum(str(out))
+        jout = np.asarray(spec['Jout'], np.float64)
+        assert np.all(np.isfinite(jout)) and jout.shape == res.xfreq.shape
+        assert float(spec['W_esc']) == res.W_escape
+        w = res.W_escape + res.W_absorb + res.W_oor
+        assert abs(w - 1.0) < 1e-3, (res.W_escape, res.W_absorb, res.W_oor)
+        add_launches(total, launches, need)
+        total.setdefault('clump', {})[label] = dict(launches)
+        log(4, f'CLI {label} ({res.nphotons} photons, FITS): W_esc '
+               f'{res.W_escape:.6f} + W_oor {res.W_oor:.6f} = {w:.6f}, '
+               f'<N_scatt> {res.nscatt_gas:.4f}, wall {wall:.1f} s; '
+               f'launches {launches}')
+        return res
+
+    need = ('refill_point', 'scatter_lya')
+    r9 = run('clumps_overlap', CLUMPS_OVERLAP, need + ('fly_clump_dense',))
+    r10 = run('clumps_overlap_csr', CLUMPS_OVERLAP,
+              need + ('fly_clump_csr',), clump_dense_max=0)
+    ratio = r10.nscatt_gas / r9.nscatt_gas
+    assert abs(ratio - 1.0) < 0.05, ratio
+    log(4, f'clumps_overlap <N_scatt> K10 / K9 {ratio:.4f} (CSR '
+           f'{r10.nscatt_gas:.4f}, dense {r9.nscatt_gas:.4f})')
+    rp = run('clumps_overlap_peel', CLUMPS_OVERLAP,
+             need + ('fly_clump_dense', 'peel'), nphotons='2e4',
+             save_peeloff='.true.', nobs=1, distance='1e3',
+             **{'alpha(1)': '0.0', 'beta(1)': '0.0'})
+    om = rp.obs_meta
+    from lart_tpu_torch.io.iofile import open_read
+    with open_read(str(Path(tmp) / 'clumps_overlap_peel_peel3D.fits')) as f:
+        cube = np.asarray(f['Scattered/data'])
+    assert cube.shape == (rp.meta.nxfreq, om.nxim, om.nyim) and cube.sum() > 0
+    run('bicone_clump', BICONE, need + ('fly_clump_csr',),
+        save_clump_info='.false.')
+
+
+def clump_phase5(dev, res):
+    """Steady-state windows of the clump cells with their profiles and
+    kernel times: clumps_overlap.in as written (K9; K2's and K4's clump
+    branches), bicone_clump.in (K10 non-overlap), the 1.48M-clump
+    population (K10 beyond the L2, its row of the kernel table) and
+    clumps_overlap.in with one observer on +z (K7's clump sightline)."""
+    over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
+    names = ('refill_point', 'scatter_lya')
+    cells = (
+        ('clumps_overlap (195 overlapping clumps, tau0 10, K9)', 'overlap',
+         clump_params('overlap', **over), names + ('fly_clump_dense',),
+         ('fly_clump_dense', ('refill_point', CLUMP),
+          ('scatter_lya', CLUMP))),
+        ('bicone_clump (6837 clumps, tau0 1e3, K10 non-overlap)', 'bicone',
+         clump_params('bicone', **over), names + ('fly_clump_csr',), ()),
+        ('fcov1 (1477378 clumps, N_HI 1e18, K10 non-overlap)', 'fcov1',
+         clump_params('fcov1', **over), names + ('fly_clump_csr',),
+         ('fly_clump_csr',)),
+        ('clumps_overlap_peel (the same, one observer on +z)',
+         'overlap_peel', clump_params('overlap', **over, **OBSERVER),
+         names + ('fly_clump_dense', 'peel'), (('peel', CLUMP),)))
+    for label, key, cpar, kn, record in cells:
+        p, _ = rate_window(label, cpar, dev)
+        card = smi()
+        profile_chunks(p, card, key)
+        kernel_times(p, card, key, res, kn, record=record)
+        del p
+
+
 def device_ms(calls):
     """Device ms per launch of calls[i](): a sleep holds the stream while
     the host enqueues every call, so the launches run back to back and the
@@ -2122,7 +2518,7 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
     """Each kernel of the prepared run's cycle against its plain version,
     on one cycle's inputs at the steady-state shapes, beside its bound; the
     numbers of the kernels named in `record` go into res (under the
-    kernel's name + suffix).  With peel-off
+    kernel's name + suffix, or + s for an entry (name, s)).  With peel-off
     the refill and the scatter write a peel record as on the main path, and
     K7 peels the cycle's scattering events (resonance and, with dust, dust
     events, one launch as the chunk loop makes it)."""
@@ -2207,21 +2603,27 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
         copies = [testing.clone_state(pre) for _ in range(reps)]
         dev_ms = device_ms([lambda s=s: kern(s) for s in copies])
         del copies
+        # the clump flights' plain versions take ~0.1-1 s a call: 4 a turn
         call_ms, plain_ms = turns(
             lambda: kern(work), lambda: plain(work), reps,
-            lambda: testing.copy_state_(work, pre))
+            lambda: testing.copy_state_(work, pre),
+            plain_reps=4 if k.startswith('fly_clump') else None)
         stats = {}
-        if k in ('fly_cartesian', 'fly_amr'):
+        if k in ('fly_cartesian', 'fly_amr', 'fly_clump_dense',
+                 'fly_clump_csr'):
             # the steps the walk takes on these inputs (its H2 flops; K8's
-            # distinct nodes)
+            # distinct nodes; K9's crossed chords; K10's distinct cells)
             fmod.fly_plain(testing.clone_state(pre), tl, ch.flight,
                            ch.fly_substeps, stats=stats)
         out[k] = dev_ms, call_ms, plain_ms, bound(*kernel_work(
             k, pre, ch, p.meta, stats))
+    keys = dict((r, r + suffix) if isinstance(r, str) else (r[0], ''.join(r))
+                for r in record if r is not None)
     for k, (dev_ms, call_ms, plain_ms, bnd) in out.items():
-        if k in record:
-            res.setdefault(k + suffix, {}).update(ms=dev_ms, plain_ms=plain_ms,
-                                         bound_ms=bnd[0], bound_by=bnd[1])
+        if k in keys:
+            res.setdefault(keys[k], {}).update(ms=dev_ms, plain_ms=plain_ms,
+                                               bound_ms=bnd[0],
+                                               bound_by=bnd[1])
         log(5, f'{label} {k} at B={st.batch}: kernel {dev_ms:.6f} ms on the '
                f'device (back to back), {call_ms:.6f} ms a call with its '
                f'launch; plain {plain_ms:.6f} ms a call; bound {bnd[0]:.6f} '
@@ -2442,6 +2844,7 @@ def phase5(dev, res):
                f'same measurement):'
                f' {100 * (ms / was - 1):+.1f}%')
     amr_phase5(dev, res)
+    clump_phase5(dev, res)
 
 
 KERNELS = {
@@ -2497,6 +2900,22 @@ AMR_KERNEL = ('lart_tpu_torch/csrc/fly_amr.cu',
               'lart_tpu/transport/engine.py:1507')
 AMR_INLINES = ('amr_find_cell and amr_descend_from_face (lart_tpu_torch/csrc/'
                'amr.cuh, replace lart_tpu/transport/engine.py:548, :359)')
+CLUMP_KERNELS = {
+    'fly_clump_dense': ('lart_tpu_torch/csrc/fly_clump.cu',
+                        'lart_tpu/transport/engine.py:3076'),
+    'fly_clump_csr': ('lart_tpu_torch/csrc/fly_clump.cu',
+                      'lart_tpu/transport/engine.py:3342')}
+# the phase 4 run whose launches the kernels line gives for each clump
+# kernel: the slice's main path clumps_overlap.in as written (K9, K2, K4),
+# the same with one observer (K7), and bicone_clump.in (K10)
+CLUMP_PATHS = {'fly_clump_dense': 'clumps_overlap',
+               'refill_point': 'clumps_overlap',
+               'scatter_lya': 'clumps_overlap',
+               'peel': 'clumps_overlap_peel',
+               'fly_clump_csr': 'bicone_clump'}
+CLUMP_INLINES = ('clump_find, clump_owner and clump_cell_tau (lart_tpu_torch/'
+                 'csrc/clump.cuh, replace lart_tpu/transport/engine.py:421, '
+                 ':487 and lart_tpu/instruments/peel.py:86)')
 
 
 def main(argv=None):
@@ -2515,9 +2934,12 @@ def main(argv=None):
     if 1 in phases:
         phase1()
     res = phase2(dev) if 2 in phases else {}
+    log('-', f'phases 0-2 {time.time() - t_start:.1f} s')
     if 3 in phases:
         phase3(dev)
+        log('-', f'phases 0-3 {time.time() - t_start:.1f} s')
     launches = phase4() if 4 in phases else {}
+    log('-', f'phases 0-4 {time.time() - t_start:.1f} s')
     if 5 in phases:
         phase5(dev, res)
     if phases >= {2, 4, 5}:
@@ -2577,6 +2999,29 @@ def main(argv=None):
             bound_ms=res[k + AMR]['bound_ms'],
             bound_by=res[k + AMR]['bound_by'], library_ms=None,
             inlines=AMR_INLINES)
+            for k in ('refill_point', 'scatter_lya', 'peel')]
+        # this slice's kernels K9 (its numbers from clumps_overlap) and K10
+        # (from the 1.48M-clump population), and the clump branches of K2
+        # and K4 (clumps_overlap) and K7 (clumps_overlap with its
+        # observer); the launches are each path's own phase 4 run's
+        counts = launches['clump']
+        line['kernels'] += [dict(
+            name=k, route='cuda', source=src, replaces=rep,
+            launches=counts[CLUMP_PATHS[k]][k], path=CLUMP_PATHS[k],
+            max_abs_err=res[k]['max_abs_err'],
+            ms=res[k]['ms'], plain_ms=res[k]['plain_ms'],
+            bound_ms=res[k]['bound_ms'], bound_by=res[k]['bound_by'],
+            library_ms=None, inlines=CLUMP_INLINES)
+            for k, (src, rep) in CLUMP_KERNELS.items()]
+        line['kernels'] += [dict(
+            name=k + CLUMP, route='cuda', source=KERNELS[k][0],
+            replaces=KERNELS[k][1], launches=counts[CLUMP_PATHS[k]][k],
+            path=CLUMP_PATHS[k],
+            max_abs_err=res[k + CLUMP]['max_abs_err'],
+            ms=res[k + CLUMP]['ms'], plain_ms=res[k + CLUMP]['plain_ms'],
+            bound_ms=res[k + CLUMP]['bound_ms'],
+            bound_by=res[k + CLUMP]['bound_by'], library_ms=None,
+            inlines=CLUMP_INLINES)
             for k in ('refill_point', 'scatter_lya', 'peel')]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)

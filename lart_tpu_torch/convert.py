@@ -41,6 +41,16 @@ def amr_from_jax(meta, dev, device='cpu'):
                            for f in dataclasses.fields(AmrDevice)})
 
 
+def clump_from_jax(meta, cmeta, dev, device='cpu'):
+    """lart_tpu (GridMeta, ClumpMeta, ClumpDevice) of a clump medium ->
+    the port's, every array read through numpy."""
+    from .grid.clump import ClumpDevice, ClumpMeta
+    m = GridMeta(**dataclasses.asdict(meta))
+    return m, ClumpMeta(**dataclasses.asdict(cmeta)), ClumpDevice(**{
+        f.name: _tensor(getattr(dev, f.name), device)
+        for f in dataclasses.fields(ClumpDevice)})
+
+
 def state_from_jax(state, device='cpu') -> BatchState:
     """lart_tpu BatchState (one device) -> the port's lane fields."""
     return BatchState(**{f: _tensor(getattr(state, f), device)

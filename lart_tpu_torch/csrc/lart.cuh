@@ -168,9 +168,11 @@ inline PeelRecord unpack_record(void* const* p) {
 #include "h2.cuh"
 // the octree AMR grid (AmrGrid, which FlightParams embeds) and its lookups
 #include "amr.cuh"
+// the clump medium (ClumpGrid, which FlightParams embeds) and its lookups
+#include "clump.cuh"
 
 // Constants and device pointers of the K5 (fly_cartesian), K6
-// (fly_uniform_sphere) and K8 (fly_amr) flights, passed by pointer from the host and by value
+// (fly_uniform_sphere), K8 (fly_amr) and K9/K10 (fly_clump) flights, passed by pointer from the host and by value
 // to the kernel.  lart_tpu_torch/transport/flight.py FlightParams mirrors this
 // layout field for field; lart_flight_params_size() lets it check the size.
 struct FlightParams {
@@ -212,6 +214,7 @@ struct FlightParams {
   H2C h2;          // H2 pumping (the instances with kH2 read it)
   AmrGrid amr;     // the octree (K7's AMR sightline, K8): rhokap, rhokapD
                    //   and the velocities are then per leaf; ncells 0 else
+  ClumpGrid clump; // the clumps (K7's clump sightline, K9, K10); n 0 else
 };
 
 enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };

@@ -48,6 +48,16 @@
 // crossings.  Deposits go into the flat (nobs, nxfreq, nxim, nyim) cubes by
 // f32 atomicAdd, so the sums come in no fixed order.  No random numbers.
 //
+// On a clump medium (peel.py:86-170, :358-363; csrc/clump.cuh) the
+// sightline walks the CSR grid cell by cell, at most 3 cg_n + 8 cells: a
+// cell's optical depth is the sum of its candidates' chord overlaps clipped
+// to the cell segment plus 1e-6 R (clump_cell_tau), each clump at its local
+// frequency of the global peel frequency with its velocity over r_loc; the
+// event's bin and recoil take D_cl and the event clump's velocity.  lart_tpu
+// hands the sightline a resonance's frequency in the owner's units and
+// treats it as global; the port follows.  A dust event on clumps peels at the
+// record's xatom, the lane's frequency in the owner's units (K4 shifts the
+// lane's back).
 // Bound: a dependent gather walk, one rhokap (and, moving, two velocity)
 // reads and one Voigt evaluation per crossing, ~1e2 flops a crossing; the
 // grid (up to 201^3 x 4 fields, 130 MB) does not fit the 50 MB L2, so a long
@@ -149,12 +159,34 @@ __device__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const flo
   return tau;
 }
 
+// the clump sightline (tau_to_edge_clump, peel.py:86-170): CSR cell by
+// cell, each cell's candidates' chord overlaps at the global frequency xf,
+// to the cube's faces, tau 745.2 or max_steps cells
+template <bool kMulti>
+__device__ float tau_to_edge_clump(const FlightParams& g, int max_steps, const float pos0[3],
+                                   const float k[3], float xf) {
+  const ClumpGrid& c = g.clump;
+  float pos[3] = {pos0[0], pos0[1], pos0[2]};
+  float tau = 0.0f;
+  for (int n = 0; n < max_steps; ++n) {
+    int cell;
+    const float t_end = clump_cell_exit(c, pos, k, cell) + c.eps_peel;
+    tau = tau + clump_cell_tau<kMulti>(c, g.line, cell, pos, k, xf, t_end, CLUMP_U_DIV);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) pos[a] = fmaf(t_end, k[a], pos[a]);
+    if (fabsf(pos[0]) >= c.R || fabsf(pos[1]) >= c.R || fabsf(pos[2]) >= c.R) break;
+    if (!(tau < PEEL_TAU_HUGE)) break;
+  }
+  return tau;
+}
+
 // optical depth from pos along k to the grid's edge at comoving frequency
 // xf; band2: the H-alpha band's dust-only opacity (0 without dust)
 template <bool kMulti, bool kH2>
 __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
                              const int cell0[3], const float k0[3], float xf, bool band2) {
   if (band2 && !g.rhokapD) return 0.0f;
+  if (g.clump.n) return tau_to_edge_clump<kMulti>(g, p.max_steps, pos0, k0, xf);
   if (g.amr.ncells)
     return tau_to_edge_amr<kMulti, kH2>(g, p.max_steps, pos0, cell0[0], k0, xf, band2);
   if (p.chord) {
@@ -206,10 +238,11 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
   // the event cell's leaf, damping and Doppler width on the AMR grid (the
   // reference values elsewhere)
-  const bool amr = g.amr.ncells != 0;
+  const bool amr = g.amr.ncells != 0, clump = g.clump.n != 0;
   const int il = amr ? amr_leaf(g.amr, cell[0]) : -1;
   float a_c = g.a_ref, D_c = g.Dfreq;
   if (amr) leaf_a_D(g, il, a_c, D_c);
+  if (clump) D_c = g.clump.D_cl;
 
   // obs_geometry: the unit direction to the observer and its TAN pixel
   const float* op = p.obs_pos + 3 * o;
@@ -238,8 +271,10 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     xf = s.xfreq[i];
     if (p.lab_source) {
       const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
-      xf = amr ? xf + leaf_vel_dot(g, il, k) - leaf_vel_dot(g, il, pk)
-               : xf + vel_dot(g, cell, k) - vel_dot(g, cell, pk);
+      xf = clump ? xf + clump_vel_dot(g.clump, cell[0], k, CLUMP_U_SCALE) -
+                       clump_vel_dot(g.clump, cell[0], pk, CLUMP_U_SCALE)
+           : amr ? xf + leaf_vel_dot(g, il, k) - leaf_vel_dot(g, il, pk)
+                 : xf + vel_dot(g, cell, k) - vel_dot(g, cell, pk);
     }
   } else {
     const float kx = rec.kx[i], ky = rec.ky[i], kz = rec.kz[i];
@@ -266,7 +301,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
     // dust scatters coherently in the comoving frame; the H-alpha photon
     // leaves the atom's line centre, with no recoil
     if (kind == PEEL_DUST) {
-      xf = s.xfreq[i];
+      xf = clump ? rec.xatom[i] : s.xfreq[i];
     } else if (conv) {
       xf = (rec.ux[i] * cosp + rec.uy[i] * sinp) * sint + rec.uz[i] * cost;
     } else {
@@ -278,7 +313,9 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   // freq_bin: the lab-frequency bin of xf at the event cell, along pk, at
   // its Doppler width (D / Dfreq_ref is 1 at uniform temperature)
   float xr = xf;
-  if (g.moving && !b2) xr = xf + (amr ? leaf_vel_dot(g, il, pk) : vel_dot(g, cell, pk));
+  if (g.moving && !b2)
+    xr = xf + (clump ? clump_vel_dot(g.clump, cell[0], pk, CLUMP_U_SCALE)
+                     : amr ? leaf_vel_dot(g, il, pk) : vel_dot(g, cell, pk));
   if (!b2) xr = xr * (D_c / g.Dfreq);
   const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
   if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;

@@ -40,6 +40,11 @@
 // draws with, and Doppler width D_loc: the Gaussian and the continuum are
 // divided by D_loc / Dfreq_ref and Jin is tallied at (x + u1) D_loc /
 // Dfreq_ref.
+// On a clump medium (engine.py:2750-2772) each launched lane finds its
+// birth clump itself (csrc/clump.cuh clump_find: the dense scan over all
+// clumps, or the CSR cell's candidates; -1 in the vacuum); the spectrum is
+// drawn at the reference a and D (photons carry global frequencies) and u1
+// is the birth clump's velocity along k in reference units.
 // Bound: one pass over the state (about 130 bytes a launched lane written,
 // 4 a lane read), memory-bound; the ticket atomics are one per warp.
 #include "lart.cuh"
@@ -56,7 +61,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     float vsy, float vsz, int comoving_source,
                                     float xfreq_min, float dxfreq, int nxfreq, float* Jin,
                                     float xfreq_span, float Dfreq, LineC line, AmrGrid amr,
-                                    const float* vfx, const float* vfy, const float* vfz) {
+                                    ClumpGrid clump, const float* vfx, const float* vfy,
+                                    const float* vfz) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -77,7 +83,10 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   // (amr_find_cell, engine.py:2755-2758) with its leaf's damping, Doppler
   // width and velocity (the reference values and none in a gap)
   float a_loc = a, D_loc = Dfreq;
-  if (amr.ncells) {
+  if (clump.n) {
+    ic = clump_find(clump, xs, ys, zs);
+    jc = kc = 0;
+  } else if (amr.ncells) {
     ic = amr_find_cell(amr, xs, ys, zs);
     jc = kc = 0;
     const int il = amr_leaf(amr, ic);
@@ -124,7 +133,9 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   }
 
   // lab-frame source -> comoving frequency; Jin at the lab frequency
-  const float u1 = vsx * kx + vsy * ky + vsz * kz;
+  const float kdir[3] = {kx, ky, kz};
+  const float u1 = clump.n ? clump_vel_dot(clump, ic, kdir, CLUMP_U_SCALE)
+                           : vsx * kx + vsy * ky + vsz * kz;
   if (!comoving_source) xfreq = xfreq - u1;
   const float fx = floorf(((xfreq + u1) * ratio - xfreq_min) / dxfreq);
   if (fx >= 0.0f && fx < (float)nxfreq) atomicAdd(&Jin[(int)fx], 1.0f);
@@ -169,7 +180,7 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
 
 // record: the PeelRecord pointer table, or null with peel-off off; amr: the
 // octree, or null on a Cartesian grid, with vfx/vfy/vfz its per-leaf
-// velocities (null in a static medium)
+// velocities (null in a static medium); clump: the clumps, or null
 LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                void* n_launched, int budget, unsigned seed,
                                unsigned counter, float xs, float ys, float zs, int ic,
@@ -178,15 +189,16 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                float vsx, float vsy, float vsz, int comoving_source,
                                float xfreq_min, float dxfreq, int nxfreq, void* Jin,
                                float xfreq_span, float Dfreq, const LineC* line,
-                               const AmrGrid* amr, const float* vfx, const float* vfy,
-                               const float* vfz, void* stream) {
+                               const AmrGrid* amr, const ClumpGrid* clump,
+                               const float* vfx, const float* vfy, const float* vfz,
+                               void* stream) {
   if (B > 0) {
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
         counter, xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz,
         comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line,
-        amr ? *amr : AmrGrid{}, vfx, vfy, vfz);
+        amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz);
   }
   return (int)cudaGetLastError();
 }

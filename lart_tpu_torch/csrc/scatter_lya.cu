@@ -78,6 +78,20 @@
 // meets dust only: each of its events is a dust event with albedo_Ha and
 // hgg_Ha, its absorptions going to Jabs_Ha at its lab frequency; W_abs1 and
 // W_abs2 sum each band's absorbed weight by block sums.
+// On a clump medium (engine.py:2087-2105, :2533-2540; csrc/clump.cuh) a
+// lane's cell is its clump.  In overlap mode the owner is drawn first among
+// the clumps that contain the point, by opacity at each clump's local
+// frequency (clump_owner: all clumps, or the CSR cell's candidates), from
+// the first uniform of block 4 rounds + 7 (after every block an earlier
+// slice draws, so the other grids draw as before).  Then, in a moving
+// medium or at a clump temperature other than the reference one, the lane's
+// frequency in memory becomes (x - u) r_loc in the owner's frame and
+// Doppler units for the whole event (the dust split on the clump's rhokap
+// and rhokapD, the profile, redistribution and recoil at a_cl and D_cl, Jabs
+// at (x_loc + u) D_cl / Dfreq_ref), and at the end x' / r_loc + u' with u'
+// along the new direction, on every lane that was AT_SCATTER.  A dust event's
+// record keeps that local frequency in xatom for K7.  The owner draw costs
+// two passes over the clumps (or candidates) that contain the point.
 #include "lart.cuh"
 #include "mueller.cuh"
 #include "philox.cuh"
@@ -127,11 +141,14 @@ struct ScatterParams {
   float albedo_Ha, one_m_albedo_Ha, hgg_Ha;
   AmrGrid amr;           // the octree: rhokap, rhokapD and the velocities are
                          //   then per leaf; ncells 0 on a Cartesian grid
+  ClumpGrid clump;       // the clumps: rhokap, rhokapD and the velocities are
+                         //   then per clump; n 0 on the other grids
 };
 
 // the index of lane i's cell into the grid arrays: the flat cell, or on the
 // AMR grid its node's leaf (-1 in a gap, where cell_gather() gives 0)
 __device__ inline int scatter_cell(const ScatterParams& p, const Lanes& s, int i) {
+  if (p.clump.n) return s.ic[i];
   if (p.amr.ncells) return amr_leaf(p.amr, s.ic[i]);
   const int f = (s.ic[i] * p.n[1] + s.jc[i]) * p.n[2] + s.kc[i];
   return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
@@ -289,8 +306,13 @@ __device__ inline void mueller_turn(const Lanes& s, int i, float cost, float sin
   s.V[i] = (-S[3] * U0 + S[2] * V) / I1;
 }
 
-// u . k of lane i's cell along its direction (moving medium)
+// u . k of lane i's cell along its direction (moving medium; a clump's in
+// reference units, cell_velocity_dot)
 __device__ inline float lane_vel_dot(const ScatterParams& p, const Lanes& s, int i) {
+  if (p.clump.n) {
+    const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
+    return clump_vel_dot(p.clump, s.ic[i], k, CLUMP_U_SCALE);
+  }
   const int f = scatter_cell(p, s, i);
   return cell_gather(p.vfx, f) * s.kx[i] + cell_gather(p.vfy, f) * s.ky[i] +
          cell_gather(p.vfz, f) * s.kz[i];
@@ -341,7 +363,11 @@ __device__ int dust_event(const ScatterParams& p, const Lanes& s, const PeelReco
     cost = rand_henyey_greenstein(d[2], b2 ? p.hgg_Ha : p.hgg);
   }
   const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
-  if (rec.flag) write_record_dir(rec, s, i, p.stokes);
+  if (rec.flag) {
+    write_record_dir(rec, s, i, p.stokes);
+    // the peel's frequency in the owner's units (the lane's is shifted back)
+    if (p.clump.n) rec.xatom[i] = s.xfreq[i];
+  }
   if (p.dust == DUST_MUELLER) {
     mueller_turn(s, i, cost, sint, cosf(phi), sinf(phi), S);
   } else {
@@ -434,15 +460,33 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
   int kind = 0;
   const int rounds = p.rounds;
   const bool lyb = kMulti && p.line.line_type == 8;
-  if (i < B && s.phase[i] == AT_SCATTER) {
+  const ClumpGrid& cl = p.clump;
+  const bool at_sc = i < B && s.phase[i] == AT_SCATTER;
+  if (at_sc) {
+    if (cl.n) {
+      // the owner (overlap mode), then the owner's frame and units
+      const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
+      if (cl.overlap) {
+        float o[4];
+        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(4 * rounds + 7), o);
+        const float pos[3] = {s.x[i], s.y[i], s.z[i]};
+        s.ic[i] = clump_owner<kMulti>(cl, p.line, pos, k, s.xfreq[i], o[0]);
+      }
+      if (cl.shift)
+        s.xfreq[i] = (s.xfreq[i] - clump_vel_dot(cl, s.ic[i], k, CLUMP_U_SCALE)) * cl.r_loc;
+    }
     const float xfreq = s.xfreq[i];
     // the cell's damping and Doppler width: per leaf on an AMR grid at
-    // non-uniform temperature (the reference values in a gap)
+    // non-uniform temperature (the reference values in a gap), the clumps'
     float a_c = p.a, D_c = p.Dfreq;
     if (p.amr.voigt_a) {
       const int il = amr_leaf(p.amr, s.ic[i]);
       a_c = leaf_gather(p.amr.voigt_a, il, p.a);
       D_c = leaf_gather(p.amr.Dfreq, il, p.Dfreq);
+    }
+    if (cl.n) {
+      a_c = cl.a_cl;
+      D_c = cl.D_cl;
     }
     const float ratio = D_c / p.Dfreq;
     // the H-alpha band (line type 8) meets dust only; without dust it
@@ -563,6 +607,11 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         }
       }
     }
+  }
+  if (at_sc && cl.n && cl.shift) {
+    // back into global units along the new direction (engine.py:2533-2540)
+    const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
+    s.xfreq[i] = s.xfreq[i] * cl.inv_r_loc + clump_vel_dot(cl, s.ic[i], k, CLUMP_U_SCALE);
   }
   if (rec.flag && i < B) rec.flag[i] = kind;
   block_sum_atomic(w_sum, p.nscatt_gas);

@@ -1,8 +1,10 @@
 """Top-level simulation driver of the port.
 
 Counterpart of prepare / run (lart_tpu/driver.py:50-377): resolve the
-config, build the grid (Cartesian, or the AMR octree from par.amr_file or
-from a leaf list passed in memory), then loop chunks of refill/fly/scatter
+config, build the grid (Cartesian, the AMR octree from par.amr_file or
+from a leaf list passed in memory, or the clump population with its CSR
+grid, from the seed (seed or iseed) + 77 as lart_tpu's, written to
+<out>_clumps.h5 with save_clump_info), then loop chunks of refill/fly/scatter
 cycles on one device, adding each chunk's f32 tallies into f64
 accumulators on the host, and normalize.  One host read per chunk: the
 tallies and the loop-control scalars travel back together.  The peel-off
@@ -33,6 +35,7 @@ import torch
 from .config import Params
 from .grid.amr import build_amr
 from .grid.cartesian import build_cartesian
+from .grid.clump import build_clumps, save_clumps
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
 from .transport.state import (DEAD, H2_SCALARS, LYB_SCALARS, BatchState,
@@ -60,14 +63,23 @@ class Prepared:
 
 
 def prepare(par: Params, *, seed: Optional[int] = None, device=None,
-            amr_data: Optional[dict] = None) -> Prepared:
+            amr_data: Optional[dict] = None,
+            clump_seed: Optional[int] = None) -> Prepared:
     """Resolve, build the grid (the octree with use_amr_grid: from
     par.amr_file, or from the leaf dict amr_data, grid.amr.build_amr's
-    data), the chunk and an empty batch on `device`."""
+    data; the clumps with use_clump_medium, from clump_seed, else from
+    (seed or iseed) + 77), the chunk and an empty batch on `device`."""
     cfg = par.resolve()
     check_supported(cfg)
     dev = resolve_device(device)
-    if cfg.par.use_amr_grid:
+    cmeta = None
+    if cfg.par.use_clump_medium:
+        if clump_seed is None:
+            clump_seed = (seed or cfg.par.iseed) + 77
+        meta, cmeta, grid = build_clumps(cfg, seed=clump_seed, device=dev)
+        if cfg.par.save_clump_info:
+            _save_clump_info(cfg, grid, cmeta)
+    elif cfg.par.use_amr_grid:
         # build_amr sets rmax and the box on cfg.par (driver.py:78-81)
         built = build_amr(cfg, data=amr_data, device=dev)
         meta, grid = built.meta, built.dev
@@ -75,12 +87,33 @@ def prepare(par: Params, *, seed: Optional[int] = None, device=None,
         meta, grid = build_cartesian(cfg, device=dev)
     p = Prepared()
     p.cfg, p.meta, p.grid, p.device = cfg, meta, grid, dev
-    p.chunk = make_chunk(cfg, meta, grid)
+    p.chunk = make_chunk(cfg, meta, grid, cmeta)
     p.budget = int(cfg.par.nphotons)
     p.seed = int(seed if seed is not None else cfg.par.iseed)
     p.state = init_state(cfg.par.batch_size, dev)
     p.cycle = 0
     return p
+
+
+def _save_clump_info(cfg, grid, cmeta) -> None:
+    """write_clumps_info as lart_tpu's driver writes it (driver.py:60-77):
+    the population beside the output file, velocities in km/s."""
+    import os
+    from .config import vtherm_total
+    from .io.writer import output_filename
+    par = cfg.par
+    base, _ = os.path.splitext(output_filename(par))
+
+    def host(*ts):
+        return np.stack([t.cpu().numpy() for t in ts], axis=1)
+    T_cl = par.clump_temperature if par.clump_temperature > 0 \
+        else par.temperature
+    save_clumps(base + '_clumps.h5', host(grid.x, grid.y, grid.z),
+                grid.radius.cpu().numpy(), rhokap=grid.rhokap.cpu().numpy(),
+                vel=host(grid.vx, grid.vy, grid.vz)
+                * vtherm_total(par, cfg.line, T_cl),
+                sphere_R=par.rmax, rmin=max(par.rmin, 0.0),
+                attrs={'F_VOL': cmeta.f_vol, 'F_COV': cmeta.f_cov})
 
 
 # the optional tallies (line type 8, H2) in the order chunk_to_host reads
@@ -123,14 +156,18 @@ def compact_shrink(state: BatchState, B_new: int) -> BatchState:
 def run(par: Params, *, seed: Optional[int] = None, device=None,
         progress: Optional[Callable[[int, int, int], None]] = None,
         max_chunks: int = 1_000_000,
-        amr_data: Optional[dict] = None) -> RunResult:
+        amr_data: Optional[dict] = None,
+        clump_seed: Optional[int] = None) -> RunResult:
     """Run a Monte Carlo transport simulation on `device` ('cuda' when
     None; raises if CUDA is missing).
 
     progress : optional callback(launched, nphotons, alive)
     amr_data : with use_amr_grid, the leaf list in memory in place of
-        par.amr_file (build_amr's data: x, y, z, level, nH, T, ...)"""
-    p = prepare(par, seed=seed, device=device, amr_data=amr_data)
+        par.amr_file (build_amr's data: x, y, z, level, nH, T, ...)
+    clump_seed : with use_clump_medium, the population's seed in place of
+        (seed or iseed) + 77"""
+    p = prepare(par, seed=seed, device=device, amr_data=amr_data,
+                clump_seed=clump_seed)
     cfg, meta = p.cfg, p.meta
     par = cfg.par
     B = par.batch_size

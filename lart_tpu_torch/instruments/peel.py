@@ -60,8 +60,17 @@ On the octree AMR grid the sightline walks node by node as the flight
 K8 does (peel.py:242-290: the exit face, the neighbor hop, the descent),
 with each leaf's opacity and, at non-uniform temperature, its damping and
 Doppler width, which also set the event's lab-frequency bin and recoil.
-The stellar direct peel, interior HEALPix observers and the clump
-sightline are not ported (engine.check_supported names them).
+On a clump medium (peel.py:86-170, :358-363) the sightline walks the CSR
+grid cell by cell, at most 3 cg_n + 8 cells: a cell's optical depth is the
+sum of its candidates' chord overlaps, clipped to the cell segment plus
+1e-6 R, each clump at its local frequency of the peel's frequency (its
+velocity over r_loc); the event's bin and recoil take the clumps' Doppler
+width D_cl and the event clump's velocity.  lart_tpu hands the sightline a
+resonance's frequency in the owner's units and treats it as global; the
+port follows.  A dust event on clumps peels at the frequency K4's record
+keeps in xatom, the lane's in the owner's units.  The stellar direct peel
+and interior HEALPix observers are not ported (engine.check_supported
+names them).
 """
 
 from __future__ import annotations
@@ -78,8 +87,10 @@ import torch
 from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics import mueller as pmueller
-from ..transport.flight import BIG, FlightConsts, div, doppler_ratio, fma
+from ..transport.flight import (BIG, FlightConsts, chord_det, div,
+                                doppler_ratio, f32, fma)
 from ..transport.fly_amr import AmrFlight, _comoving, exit_face, hop
+from ..transport.fly_clump import ClumpFlight
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
 from ..transport.scatter import (DUST_OFF, EVENT_CONVERSION, EVENT_DUST,
@@ -210,18 +221,24 @@ class Peel:
     hgg_Ha: float = 0.0          # line type 8: the H-alpha band's g
 
     @classmethod
-    def from_config(cls, cfg, meta, grid, uniform_sphere: bool
+    def from_config(cls, cfg, meta, grid, uniform_sphere: bool, cmeta=None
                     ) -> Optional['Peel']:
         """None without save_peeloff; `uniform_sphere` is
         engine.uniform_sphere_fastpath(cfg, meta) (lart_tpu takes the chord
-        there whatever the flight)."""
+        there whatever the flight); on a clump medium grid is the
+        ClumpDevice and cmeta its ClumpMeta."""
         obs = build_observers(cfg, grid.rhokap.device)
         if obs is None:
             return None
         obs_meta, odev = obs
-        amr = meta.grid_type == 'amr'
-        fc = AmrFlight.from_amr(cfg, meta, grid) if amr \
-            else FlightConsts.from_config(cfg, meta, grid)
+        max_steps = 2 * (meta.nx + meta.ny + meta.nz) + 8
+        if meta.grid_type == 'clump':
+            fc = ClumpFlight.from_clumps(cfg, meta, cmeta, grid)
+            max_steps = 3 * cmeta.cg_n + 8
+        elif meta.grid_type == 'amr':
+            fc = AmrFlight.from_amr(cfg, meta, grid)
+        else:
+            fc = FlightConsts.from_config(cfg, meta, grid)
         dust = dust_mode(cfg, meta)
         return cls(grid=fc, obs_meta=obs_meta,
                    pos=odev.pos.contiguous(),
@@ -229,7 +246,7 @@ class Peel:
                    chord=bool(uniform_sphere),
                    stokes=bool(cfg.par.use_stokes),
                    lab_source=not cfg.par.comoving_source and fc.moving,
-                   max_steps=2 * (meta.nx + meta.ny + meta.nz) + 8,
+                   max_steps=max_steps,
                    dust=dust, hgg=float(cfg.par.hgg),
                    mueller=pmueller.MuellerTable.for_config(
                        cfg, grid.rhokap.device) if dust else None,
@@ -335,9 +352,12 @@ def obs_geometry(p: Peel, o: int, x, y, z):
 
 
 def cell_D(p: Peel, cell):
-    """The Doppler width of the event cells: the reference float, or per
-    lane on an AMR grid at non-uniform temperature."""
+    """The Doppler width of the event cells: the reference float, the
+    clumps' (f32) on a clump medium, or per lane on an AMR grid at
+    non-uniform temperature."""
     g = p.grid
+    if g.clump is not None:
+        return f32(g.clump.D_cl)
     if g.amr is None:
         return g.Dfreq
     return g.amr.a_D(g.amr.leaf(cell[0]), g.a_ref, g.Dfreq)[1]
@@ -349,7 +369,8 @@ def freq_bin(p: Peel, cell, pk, xf, band2=None):
     where the mask band2 is set, xf is a lab frequency already."""
     g = p.grid
     xr = xf + g.vel_dot(cell, *pk) if g.moving else xf
-    xr = xr * doppler_ratio(cell_D(p, cell), g.Dfreq)
+    xr = xr * (g.clump.d_ratio if g.clump is not None
+               else doppler_ratio(cell_D(p, cell), g.Dfreq))
     if band2 is not None:
         xr = torch.where(band2, xf, xr)
     ixf = torch.floor(div(xr - g.xfreq_min, g.dxfreq)).to(torch.int32)
@@ -376,6 +397,8 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
                            torch.zeros_like(xf))
     if g.amr is not None:
         return _tau_amr(p, pos, cell[0], k, xf, active, stats, band2)
+    if g.clump is not None:
+        return _tau_clump(p, pos, k, xf, active, stats)
     # the walk runs on the live pairs only, compacted after every crossing
     tau = torch.zeros_like(xf)
     idx = active.nonzero().squeeze(1)
@@ -472,6 +495,59 @@ def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None):
     return tau
 
 
+def _tau_clump(p: Peel, pos, k, xf, active, stats=None):
+    """tau_to_edge's clump sightline (peel.py:86-170): CSR cell by cell,
+    each cell's candidates' chord overlaps clipped to the cell segment (plus
+    the nudge) at their local frequencies, summed in table order, to the
+    cube's faces, tau 745.2 or max_steps cells; stats as in tau_to_edge, the
+    cells being the candidate clumps read, and its mask 'csr' marks the CSR
+    cells walked."""
+    g = p.grid
+    cl = g.clump
+    tau = torch.zeros_like(xf)
+    idx = active.nonzero().squeeze(1)
+    pos, k = [v[idx] for v in pos], [v[idx] for v in k]
+    xf, acc = xf[idx], tau[idx]
+    for _ in range(p.max_steps):
+        if idx.numel() == 0:
+            break
+        cell, t_cell = cl.cell_exit(pos, k)
+        t_end = t_cell + cl.eps_peel
+        if stats is not None:
+            stats['crossings'] = stats.get('crossings', 0) + idx.numel()
+            if 'csr' not in stats:
+                stats['csr'] = torch.zeros(cl.cg_n ** 3, dtype=torch.bool,
+                                           device=xf.device)
+            stats['csr'][cell] = True
+        dtau = torch.zeros_like(xf)
+        for q in range(cl.K):
+            cand = cl.candidate(cell, q)
+            qx, qy, qz, qr2 = cl.centre(cand)
+            eb, edet = chord_det(pos[0] - qx, pos[1] - qy, pos[2] - qz, *k,
+                                 qr2)
+            sq = torch.sqrt(torch.clamp_min(edet, 0.0))
+            t0 = torch.minimum(torch.clamp_min(-eb - sq, 0.0), t_end)
+            t1 = torch.minimum(torch.clamp_min(-eb + sq, 0.0), t_end)
+            u = cl.vel_dot(cand, *k, form='div') if cl.moving else None
+            kq = cl.kappa(g.line, cand, cl.local_x(xf, u))
+            ok = (cand >= 0) & (edet > 0.0)
+            if stats is not None:
+                _visit(stats, g, cand[ok])
+            dtau = fma(torch.where(ok, kq, torch.zeros_like(kq)), t1 - t0,
+                       dtau)
+        acc = acc + dtau
+        pos = [fma(t_end, k[a], pos[a]) for a in range(3)]
+        out = ((torch.abs(pos[0]) >= cl.R) | (torch.abs(pos[1]) >= cl.R)
+               | (torch.abs(pos[2]) >= cl.R))
+        done = out | ~(acc < TAU_HUGE)
+        tau[idx[done]] = acc[done]
+        keep = ~done
+        idx, xf, acc = idx[keep], xf[keep], acc[keep]
+        pos, k = [v[keep] for v in pos], [v[keep] for v in k]
+    tau[idx] = acc      # the pairs still live after max_steps
+    return tau
+
+
 def _visit(stats, g, flat):
     """Mark the flat cells (AMR: the leaves, a gap's -1 left out) in
     stats['visited'], a mask of the grid."""
@@ -514,8 +590,9 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
         cosp = torch.where(sint == 0.0, one, cosp)
         sinp = torch.where(sint == 0.0, zero, sinp)
     elif kind == DUST:
-        # the HG phase needs no azimuth; dust scatters coherently
-        return s.xfreq, cost, None, None
+        # the HG phase needs no azimuth; dust scatters coherently (on a
+        # clump medium at the record's frequency in the owner's units)
+        return _dust_x(p, s, rec), cost, None, None
     else:
         # azimuth from the propagation-vector geometry
         rho1 = torch.sqrt(torch.clamp_min(1.0 - rec.kz * rec.kz, 0.0)) * sint
@@ -524,7 +601,7 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
         sinp = torch.where(rho1 == 0.0, zero,
                            inv * (rec.kx * pk[1] - pk[0] * rec.ky))
     if kind == DUST:
-        return s.xfreq, cost, cosp, sinp
+        return _dust_x(p, s, rec), cost, cosp, sinp
     if kind == CONVERSION:
         return ((rec.ux * cosp + rec.uy * sinp) * sint + rec.uz * cost, cost,
                 cosp, sinp)
@@ -537,6 +614,12 @@ def event_frequency(p: Peel, kind: int, s, rec: PeelRecord, pk):
             D, torch.Tensor) else torch.full_like(D, p.grid.line.g_recoil0) / D
         xf = xf - g0D * (1.0 - cost)
     return xf, cost, cosp, sinp
+
+
+def _dust_x(p: Peel, s, rec: PeelRecord):
+    """A dust event's frequency: the lane's, or on a clump medium the
+    record's (the lane's in the owner's units before K4 shifted it back)."""
+    return rec.xatom if p.grid.clump is not None else s.xfreq
 
 
 def detector_qu(p: Peel, o: int, rec: PeelRecord, cosp, sinp, Qobs, Uobs):
@@ -700,6 +783,7 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
             if 'visited' in stats else 0
         stats['nodes'] = int(stats.pop('nodes').sum()) \
             if 'nodes' in stats else 0
+        stats['csr'] = int(stats.pop('csr').sum()) if 'csr' in stats else 0
 
 
 def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,

@@ -35,15 +35,17 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
 SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
-           'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu', 'fly_amr.cu')
+           'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu', 'fly_amr.cu',
+           'fly_clump.cu')
 HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
-           'mueller.cuh', 'line.cuh', 'h2.cuh', 'amr.cuh')
+           'mueller.cuh', 'line.cuh', 'h2.cuh', 'amr.cuh', 'clump.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
 LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'fly_uniform_slab': 0,
             'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0,
-            'peel': 0, 'fly_amr': 0}
+            'peel': 0, 'fly_amr': 0, 'fly_clump_dense': 0,
+            'fly_clump_csr': 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LANES = ctypes.POINTER(ctypes.c_void_p)    # the lane-field pointer table
@@ -54,6 +56,7 @@ _ARGTYPES = {
     'lart_peel_params_size': [],
     'lart_scatter_params_size': [],
     'lart_amr_grid_size': [],
+    'lart_clump_grid_size': [],
 }
 
 _lib = None
@@ -130,7 +133,7 @@ def library() -> ctypes.CDLL:
         # in here
         from ..instruments.peel import PeelParams
         from ..physics.line import LineC
-        from ..transport.flight import AmrC, FlightParams
+        from ..transport.flight import AmrC, ClumpC, FlightParams
         from ..transport.scatter import ScatterC
         lib = ctypes.CDLL(str(build()))
         flight = ctypes.POINTER(FlightParams)    # K5-K8 grid, by pointer
@@ -140,13 +143,16 @@ def library() -> ctypes.CDLL:
             lart_refill_point=[_LANES, _LANES, _I, _P, _I, _U, _U, _F, _F, _F,
                                _I, _I, _I, _F, _I, _F, _F, _F, _F, _F, _I, _F,
                                _F, _I, _P, _F, _F, line,
-                               ctypes.POINTER(AmrC), _P, _P, _P, _P],
+                               ctypes.POINTER(AmrC), ctypes.POINTER(ClumpC),
+                               _P, _P, _P, _P],
             lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
                                    _P, _P, _P, _F, line, _P],
             lart_fly_cartesian=[_LANES, _I, _I, flight, _P],
             lart_fly_uniform_sphere=[_LANES, _I, _I, flight, _P],
             lart_fly_amr=[_LANES, _I, _I, flight, _P],
+            lart_fly_clump_dense=[_LANES, _I, _I, flight, _P],
+            lart_fly_clump_csr=[_LANES, _I, _I, flight, _P],
             lart_peel=[_LANES, _LANES, _I, _I, flight,
                        ctypes.POINTER(PeelParams), _P],
             lart_scatter_lya=[_LANES, _LANES, _I, _U, _U,
@@ -160,6 +166,8 @@ def library() -> ctypes.CDLL:
                  'csrc/line.cuh and physics/line.py'),
                 (lib.lart_amr_grid_size, AmrC,
                  'csrc/amr.cuh and transport/flight.py'),
+                (lib.lart_clump_grid_size, ClumpC,
+                 'csrc/clump.cuh and transport/flight.py'),
                 (lib.lart_flight_params_size, FlightParams,
                  'csrc/lart.cuh and transport/flight.py'),
                 (lib.lart_peel_params_size, PeelParams,

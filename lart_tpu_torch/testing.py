@@ -539,6 +539,61 @@ def jellyfish_amr(base: int = 16, levels_extra: int = 2,
             'origin': (-boxsize / 2, -boxsize / 2, -boxsize / 2)}
 
 
+def clump_params(nphotons: int = 4000, batch: int = 2048, **kw) -> Params:
+    """The 40-clump sphere of lart_tpu's tests/test_clump_overlap.py
+    (_base_par): Ly-alpha, T = 1e4 K, R = 1, 40 clumps of radius 0.15 at
+    tau0 5, a central point source with a Voigt input spectrum, the
+    frequency axis +-30."""
+    base = dict(nphotons=nphotons, use_clump_medium=True, geometry='sphere',
+                rmax=1.0, xmax=1.0, ymax=1.0, zmax=1.0, clump_radius=0.15,
+                clump_N_clumps=40, clump_tau0=5.0, temperature=1e4,
+                xfreq_min=-30.0, xfreq_max=30.0, batch_size=batch,
+                chunk_cycles=16)
+    base.update(kw)
+    return Params(**base)
+
+
+def clump_state(meta, cl, batch: int, seed: int, device='cpu',
+                phases=(DEAD, FFS, FLYING, AT_SCATTER),
+                in_frac: float = 0.3, edge_frac: float = 0.1) -> BatchState:
+    """mixed_state's lanes on the clump medium `cl` (a flight.ClumpGrid):
+    a share in_frac of them moved inside a clump, a share edge_frac onto a
+    clump's surface within two nudges (eps_csr) of it, the rest where
+    mixed_state put them (mostly in the vacuum); each lane's cell and birth
+    cell the clump clump_find gives its position (jc = kc = 0)."""
+    rng = np.random.default_rng([seed, 5])
+    s = mixed_state(meta, batch, seed, device)
+    d = cl.dev
+    cx, cy, cz = (np.asarray(v.cpu().numpy(), np.float64)
+                  for v in (d.x, d.y, d.z))
+    rad = np.asarray(d.radius.cpu().numpy(), np.float64)
+    pick = rng.integers(0, cl.n, batch)
+    v = rng.normal(size=(3, batch))
+    v /= np.linalg.norm(v, axis=0)
+    kind = rng.random(batch)
+    inner = rad[pick] * 0.95 * rng.random(batch) ** (1.0 / 3.0)
+    edge = rad[pick] + rng.uniform(-2.0, 2.0, batch) * cl.eps_csr
+    dist = np.where(kind < in_frac, inner, edge)
+    move = kind < in_frac + edge_frac
+    for f, c, comp in (('x', cx, v[0]), ('y', cy, v[1]), ('z', cz, v[2])):
+        new = torch.as_tensor((c[pick] + dist * comp).astype(np.float32),
+                              device=device)
+        getattr(s, f).copy_(torch.where(torch.as_tensor(move, device=device),
+                                        new, getattr(s, f)))
+    for f in ('jc', 'kc', 'bjc', 'bkc'):
+        getattr(s, f).zero_()
+    s.ic.copy_(cl.find(s.x, s.y, s.z))
+    ffs = s.phase == FFS
+    for f in ('x', 'y', 'z', 'ic'):
+        getattr(s, 'b' + f).copy_(torch.where(ffs, getattr(s, f),
+                                              getattr(s, 'b' + f)))
+    s.bic.copy_(torch.where(ffs, s.ic, cl.find(s.bx, s.by, s.bz)))
+    if phases != (DEAD, FFS, FLYING, AT_SCATTER):
+        s.phase.copy_(torch.as_tensor(rng.choice(np.asarray(phases, np.int32),
+                                                 batch), device=device))
+    return s
+
+
 def polarization(rng, kx, ky, kz) -> dict:
     """Random Stokes (Q, U, V) inside the unit ball and a random reference
     triad (m, n) of each direction k: m, n, k orthonormal, n = k x m."""

@@ -16,7 +16,9 @@ and, for line type 8, each conversion's H-alpha photon (:2205-2222), every
 kind in one launch; both read the PeelRecord that K2 and K4 fill, and
 deposit into the chunk's f32 cubes.
 
-The flight follows lart_tpu's make_fly (engine.py:1057-1066): an AMR grid
+The flight follows lart_tpu's make_fly (engine.py:1057-1066): a clump
+medium takes the dense clump flight K9 where the population has at most
+clump_dense_max clumps, else the CSR clump walker K10; an AMR grid
 takes the octree walk K8; force_generic_kernel the generic Cartesian walk
 K5; otherwise the
 uniform slab takes K3, the uniform sphere K6, and every other Cartesian
@@ -35,6 +37,7 @@ from ..physics.h2 import h2_on
 from ..physics.line import LINE_TYPES
 from .fly_amr import AmrFlight
 from .fly_cartesian import CartesianFlight
+from .fly_clump import ClumpFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
 from .refill import SPECTRA, RefillParams, refill
@@ -87,11 +90,14 @@ def check_supported(cfg, meta=None) -> None:
     par = cfg.par
     geom = par.geometry.strip().lower()
     amr = par.use_amr_grid
+    clump = par.use_clump_medium
     missing = [name for name, on in (
         ("amr_type 'ramses' (the RAMSES snapshot reader)",
          amr and par.amr_type.strip().lower() == 'ramses'),
         ("ion_model 'solar_cie'", amr and par.ion_model == 'solar_cie'),
-        ('use_clump_medium (clump backend)', par.use_clump_medium),
+        # lart_tpu's clump flights carry no H2 opacity (its scatter would
+        # draw H2 events the flights never saw)
+        ('H2 pumping on a clump medium', clump and h2_on(par)),
         (f'line_type {cfg.line.line_type} (only 1, 2 and 4-8)',
          cfg.line.line_type not in LINE_TYPES),
         ('peel-off observers inside the grid (nside > 0, HEALPix)',
@@ -121,7 +127,7 @@ def check_supported(cfg, meta=None) -> None:
     if meta is not None:
         missing += [name for name, on in (
             (f'grid_type {meta.grid_type!r}',
-             meta.grid_type not in ('cartesian', 'amr')),
+             meta.grid_type not in ('cartesian', 'amr', 'clump')),
             ('non-uniform temperature on a Cartesian grid',
              not meta.uniform_temperature and meta.grid_type != 'amr'),
             ('non-uniform temperature with line types other than 1 or with '
@@ -134,10 +140,13 @@ def check_supported(cfg, meta=None) -> None:
                                   + '; '.join(missing))
 
 
-def make_fly(cfg, meta, grid) -> Callable:
+def make_fly(cfg, meta, grid, cmeta=None) -> Callable:
     """The flight of lart_tpu's make_fly (engine.py:1057-1066), as a
-    callable flight(state, tallies, max_steps): on an AMR grid (grid an
+    callable flight(state, tallies, max_steps): on a clump medium (grid a
+    ClumpDevice, cmeta its ClumpMeta) K9 or K10, on an AMR grid (grid an
     AmrDevice) the octree walk K8."""
+    if meta.grid_type == 'clump':
+        return ClumpFlight.from_clumps(cfg, meta, cmeta, grid)
     if meta.grid_type == 'amr':
         return AmrFlight.from_amr(cfg, meta, grid)
     if not cfg.par.force_generic_kernel:
@@ -156,7 +165,7 @@ class Chunk:
     the Philox counter of the refill and scatter draws, so a run is
     reproducible from (seed, cycle index) whatever the device."""
     refill_params: RefillParams
-    flight: Callable     # SlabParams, Sphere-, Cartesian- or AmrFlight
+    flight: Callable     # SlabParams, Sphere-, Cartesian-, Amr- or ClumpFlight
     scatter_params: ScatterParams
     n_cycles: int
     refill_every: int
@@ -190,17 +199,20 @@ class Chunk:
         return tallies, alive, state.n_launched[0]
 
 
-def make_chunk(cfg, meta, grid) -> Chunk:
+def make_chunk(cfg, meta, grid, cmeta=None) -> Chunk:
+    """The chunk of a grid (on a clump medium grid is the ClumpDevice and
+    cmeta its ClumpMeta)."""
     check_supported(cfg, meta)
     par = cfg.par
     sphere = uniform_sphere_fastpath(cfg, meta)
-    return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid),
-                 flight=make_fly(cfg, meta, grid),
+    return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid,
+                                                        cmeta),
+                 flight=make_fly(cfg, meta, grid, cmeta),
                  scatter_params=ScatterParams.from_config(cfg, meta, grid,
-                                                          sphere),
+                                                          sphere, cmeta),
                  n_cycles=par.chunk_cycles,
                  refill_every=max(1, par.refill_every),
                  fly_substeps=par.fly_substeps, nxfreq=meta.nxfreq,
                  nmu=par.nmu if par.save_Jmu else 0,
-                 peel=Peel.from_config(cfg, meta, grid, sphere),
+                 peel=Peel.from_config(cfg, meta, grid, sphere, cmeta),
                  lyb=cfg.line.line_type == 8, h2=h2_on(par))

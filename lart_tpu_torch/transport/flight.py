@@ -37,6 +37,7 @@ import torch
 
 from ..physics import h2 as ph2
 from ..physics import line as pline
+from ..physics.line import f32
 
 BIG = 3.0e38
 TINY = 1e-30
@@ -56,6 +57,17 @@ class AmrC(ctypes.Structure):
                 ('dxf', _F)]
 
 
+class ClumpC(ctypes.Structure):
+    """csrc/clump.cuh struct ClumpGrid, field for field."""
+    _fields_ = [('x', _P), ('y', _P), ('z', _P), ('r2', _P), ('rhokap', _P),
+                ('rhokapD', _P), ('vx', _P), ('vy', _P), ('vz', _P),
+                ('table', _P), ('n', _I), ('dense', _I), ('overlap', _I),
+                ('shift', _I), ('cg_n', _I), ('K', _I), ('R', _F), ('cg_dx', _F),
+                ('inv_cg_dx', _F), ('eps_dense', _F), ('eps_csr', _F),
+                ('eps_peel', _F), ('r_loc', _F), ('inv_r_loc', _F),
+                ('vr', _F), ('vscale', _F), ('a_cl', _F), ('D_cl', _F)]
+
+
 class FlightParams(ctypes.Structure):
     """csrc/lart.cuh struct FlightParams, field for field."""
     _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
@@ -70,7 +82,7 @@ class FlightParams(ctypes.Structure):
                 ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
                 ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
                 ('sphere_rhoD', _F), ('R_Ha', _F), ('line', pline.LineC),
-                ('h2', ph2.H2C), ('amr', AmrC)]
+                ('h2', ph2.H2C), ('amr', AmrC), ('clump', ClumpC)]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -161,6 +173,7 @@ class FlightConsts:
     h2: Optional[ph2.H2Consts] = None        # H2 pumping, or None
     R_Ha: float = 0.0        # cext_dust_Ha / cext_dust (line type 8)
     amr: Optional['AmrGrid'] = None   # the octree, on an AMR grid
+    clump: Optional['ClumpGrid'] = None   # the clumps, on a clump medium
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -264,6 +277,8 @@ class FlightConsts:
             c.h2 = self.h2.c_struct
         if self.amr is not None:
             c.amr = self.amr.c_struct
+        if self.clump is not None:
+            c.clump = self.clump.c_struct
         return c
 
     @property
@@ -288,7 +303,8 @@ class FlightConsts:
     def device_tensors(self):
         return ((self.rhokap,) + (self.vel or ())
                 + (() if self.rhokapD is None else (self.rhokapD,))
-                + (() if self.amr is None else self.amr.dev.tensors()))
+                + (() if self.amr is None else self.amr.dev.tensors())
+                + (() if self.clump is None else self.clump.dev.tensors()))
 
 
 # --------------------------------------------------------------------------
@@ -414,3 +430,221 @@ class AmrGrid:
                                        nc + nch - pad))
             return self._fine(*q)
         return self._descend(nb, x, y, z, axis.long(), (face % 2).long())
+
+
+# --------------------------------------------------------------------------
+# the clump medium (csrc/clump.cuh), plain versions
+# --------------------------------------------------------------------------
+
+def recip32(c: float) -> float:
+    """The f32 reciprocal of the f32 c: XLA divides by a constant as a
+    multiply by it (x / c == x * recip32(c) in lart_tpu's CPU closures)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def dot3(a1, b1, a2, b2, a3, b3):
+    """a1 b1 + a2 b2 + a3 b3 as XLA contracts it on the CPU:
+    fma(a3, b3, fma(a1, b1, a2 b2)); the kernels compute the same fmaf
+    chain."""
+    return fma(a3, b3, fma(a1, b1, a2 * b2))
+
+
+def chord_det(px, py, pz, kx, ky, kz, r2):
+    """(b, det) of the ray p + t k against a sphere of radius^2 r2 about
+    the origin of p: b = p.k, det = b^2 - (|p|^2 - r2); the chord is
+    [-b - sqrt(det), -b + sqrt(det)] where det > 0 (engine.py:3130-3135)."""
+    b = dot3(px, kx, py, ky, pz, kz)
+    c = dot3(px, px, py, py, pz, pz) - r2
+    return b, fma(b, b, -c)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ClumpGrid:
+    """The clump medium as the walks read it (lart_tpu's ClumpDevice with
+    ClumpMeta and the clump branches of engine.py:290-545): the device
+    arrays, the CSR grid (cg_n^3 cells of width cg_dx over [-R, R]^3, K
+    candidates a row; lart_tpu divides by cg_dx as XLA divides by a
+    constant, a multiply by the f32 reciprocal inv_cg_dx), whether
+    populations up to clump_dense_max take the
+    dense forms (flight K9, clump_find's argmax, the owner draw over all
+    clumps), overlap mode, the nudges of the three walks (dense flight
+    1e-6 R + 1e-7, CSR walker 1e-4 cg_dx / cg_n + 1e-6 R, peel 1e-6 R,
+    each rounded to f32), and the clumps' own Doppler units: r_loc =
+    Dfreq_ref / Dfreq_cl scales a global frequency into a clump's, vr =
+    1 / r_loc and vscale = Dfreq_cl / Dfreq_ref scale a clump velocity
+    into reference units (the flights use vr, cell_velocity_dot vscale, the
+    peel and the owner draw divide by r_loc, that is multiply by inv_r_loc,
+    as the scatter's shift back does), a_cl and D_cl the clumps'
+    damping and Doppler width.  A lane's cell index ic is its clump, -1 in
+    the vacuum between clumps, which has no gas, dust or velocity."""
+    dev: object              # grid.clump.ClumpDevice
+    n: int
+    cg_n: int
+    cg_dx: float
+    K: int
+    R: float
+    dense: bool
+    overlap: bool
+    moving: bool
+    eps_dense: float
+    eps_csr: float
+    eps_peel: float
+    r_loc: float
+    vr: float
+    vscale: float
+    a_cl: float
+    D_cl: float
+    D_ref: float             # the reference Doppler width
+
+    @classmethod
+    def from_meta(cls, cfg, meta, cmeta, dev) -> 'ClumpGrid':
+        par = cfg.par
+        R = meta.xmax
+        has_cl = meta.Dfreq_cl > 0
+        r_loc = meta.Dfreq_ref / meta.Dfreq_cl if has_cl else 1.0
+        return cls(
+            dev=dev, n=int(cmeta.n_clumps), cg_n=int(cmeta.cg_n),
+            cg_dx=float(cmeta.cg_dx), K=int(cmeta.K), R=float(R),
+            dense=cmeta.n_clumps <= par.clump_dense_max,
+            overlap=bool(par.clump_allow_overlap),
+            moving=not meta.static_medium,
+            eps_dense=f32(1e-6 * R + 1e-7),
+            eps_csr=f32(1e-4 * float(cmeta.cg_dx) / max(cmeta.cg_n, 1)
+                        + 1e-6 * R),
+            eps_peel=f32(1e-6 * R), r_loc=r_loc, vr=1.0 / r_loc,
+            vscale=meta.Dfreq_cl / meta.Dfreq_ref if has_cl else 1.0,
+            a_cl=meta.voigt_a_cl if has_cl else meta.voigt_a_ref,
+            D_cl=meta.Dfreq_cl if has_cl else meta.Dfreq_ref,
+            D_ref=meta.Dfreq_ref)
+
+    @property
+    def shift(self) -> bool:
+        """The scatter moves a lane into its clump's frame and Doppler units
+        and back (engine.py:2102, :2538): in a moving medium or where the
+        clumps' temperature is not the reference one."""
+        return self.moving or self.r_loc != 1.0
+
+    @property
+    def d_ratio(self) -> float:
+        """D_cl / Dfreq_ref as lart_tpu's f32 division of cell_Dfreq by the
+        reference width: a clump's lab frequency is (x + u) d_ratio."""
+        return float(np.float32(self.D_cl) / np.float32(self.D_ref))
+
+    @property
+    def has_dust(self) -> bool:
+        return self.dev.rhokapD is not None
+
+    @functools.cached_property
+    def c_struct(self) -> ClumpC:
+        d, c = self.dev, ClumpC()
+        for f in ('x', 'y', 'z', 'r2', 'rhokap', 'rhokapD', 'vx', 'vy', 'vz',
+                  'table'):
+            t = getattr(d, f)
+            if f in ('vx', 'vy', 'vz') and not self.moving:
+                t = None
+            setattr(c, f, None if t is None else t.data_ptr())
+        c.n, c.dense, c.overlap = self.n, int(self.dense), int(self.overlap)
+        c.shift = int(self.shift)
+        c.cg_n, c.K = self.cg_n, self.K
+        for f in ('R', 'cg_dx', 'eps_dense', 'eps_csr', 'eps_peel', 'r_loc',
+                  'vr', 'vscale', 'a_cl', 'D_cl'):
+            setattr(c, f, getattr(self, f))
+        c.inv_cg_dx, c.inv_r_loc = recip32(self.cg_dx), recip32(self.r_loc)
+        return c
+
+    @staticmethod
+    def gather(arr: Optional[torch.Tensor], ic: torch.Tensor,
+               default: float = 0.0) -> torch.Tensor:
+        """_leaf_gather of a per-clump array: arr[ic], `default` where ic <
+        0 (the vacuum) or without arr."""
+        d = torch.full(ic.shape, default, dtype=torch.float32,
+                       device=ic.device)
+        if arr is None:
+            return d
+        return torch.where(ic >= 0, arr[torch.clamp_min(ic, 0).long()], d)
+
+    def csr_cell(self, x, y, z):
+        """(ci, cj, ck) of the CSR cells holding the points, clamped, and
+        the flat cell (ci cg_n + cj) cg_n + ck, int64."""
+        idx = [floor_bin((v + self.R) * recip32(self.cg_dx), self.cg_n)
+               for v in (x, y, z)]
+        return idx, (idx[0] * self.cg_n + idx[1]) * self.cg_n + idx[2]
+
+    def face_dist(self, pos, k, idx):
+        """fd of engine.py:3398-3405: the distance along k to the exit face
+        of CSR cell index idx on one axis (BIG where k is flat)."""
+        flat = torch.abs(k) < 1e-12
+        face = fma(torch.where(k > 0.0, idx + 1, idx).to(torch.float32),
+                   self.cg_dx, -self.R)
+        t = (face - pos) / torch.where(flat, torch.ones_like(k), k)
+        return torch.where(flat, torch.full_like(k, BIG),
+                           torch.clamp_min(t, 0.0))
+
+    def cell_exit(self, pos, k):
+        """(flat CSR cell, distance to its exit face) of the points pos
+        along k."""
+        idx, cell = self.csr_cell(*pos)
+        t = [self.face_dist(pos[a], k[a], idx[a]) for a in range(3)]
+        return cell, torch.minimum(torch.minimum(t[0], t[1]), t[2])
+
+    def candidate(self, cell: torch.Tensor, q: int) -> torch.Tensor:
+        """The q-th candidate clump of the cells (-1 pads), int64."""
+        flat = self.dev.table.reshape(-1)
+        return flat[torch.clamp(cell * self.K + q, 0, flat.numel() - 1)].long()
+
+    def centre(self, ic):
+        """(x, y, z, r2) of clumps ic (0 in the vacuum)."""
+        d = self.dev
+        return tuple(self.gather(a, ic) for a in (d.x, d.y, d.z, d.r2))
+
+    def find(self, x, y, z) -> torch.Tensor:
+        """clump_find (engine.py:421-450): the first clump containing each
+        point, -1 in the vacuum; over all clumps (the dense argmax) or the
+        CSR cell's candidates in table order."""
+        d = self.dev
+        if self.dense:
+            px = x[:, None] - d.x[None, :]
+            py = y[:, None] - d.y[None, :]
+            pz = z[:, None] - d.z[None, :]
+            hit = dot3(px, px, py, py, pz, pz) < d.r2[None, :]
+            first = torch.argmax(hit.to(torch.int8), dim=1)
+            return torch.where(hit.any(dim=1), first,
+                               torch.full_like(first, -1)).to(torch.int32)
+        _, cell = self.csr_cell(x, y, z)
+        out = torch.full(x.shape, -1, dtype=torch.int64, device=x.device)
+        for q in range(self.K):
+            cand = self.candidate(cell, q)
+            qx, qy, qz, qr2 = self.centre(cand)
+            ex, ey, ez = x - qx, y - qy, z - qz
+            hit = (cand >= 0) & (dot3(ex, ex, ey, ey, ez, ez) < qr2)
+            out = torch.where((out < 0) & hit, cand, out)
+        return out.to(torch.int32)
+
+    def vel_dot(self, ic, kx, ky, kz, form: str = 'scale') -> torch.Tensor:
+        """A clump's bulk velocity along k, in reference Doppler units: u.k
+        times vscale (form 'scale', cell_velocity_dot), times vr ('vr', the
+        flights) or over r_loc ('div', the peel and the owner draw); 0 in
+        the vacuum and in a static medium."""
+        if not self.moving:
+            return torch.zeros_like(kx)
+        d = self.dev
+        u = dot3(self.gather(d.vx, ic), kx, self.gather(d.vy, ic), ky,
+                 self.gather(d.vz, ic), kz)
+        if form == 'div':
+            return u * recip32(self.r_loc)
+        return u * f32(self.vscale if form == 'scale' else self.vr)
+
+    def local_x(self, xfreq, u=None) -> torch.Tensor:
+        """A clump's local frequency of the global xfreq: (x - u) r_loc."""
+        return (xfreq if u is None else xfreq - u) * f32(self.r_loc)
+
+    def kappa(self, lc, ic, x_loc) -> torch.Tensor:
+        """rhokap H_eff(x_loc; a_cl, D_cl) (+ rhokapD) of clumps ic at
+        their local frequencies x_loc (0 in the vacuum)."""
+        from ..physics import line as pline
+        d = self.dev
+        k = self.gather(d.rhokap, ic) * pline.line_profile_plain(
+            lc, x_loc, f32(self.a_cl), f32(self.D_cl))
+        if self.has_dust:
+            k = k + self.gather(d.rhokapD, ic)
+        return k

@@ -32,6 +32,13 @@ temperature, its damping the Voigt spectrum's a and its Doppler width
 D_loc the Gaussian's and the continuum's divisor D_loc / Dfreq_ref and
 Jin's lab frequency (x + u1) D_loc / Dfreq_ref.
 
+On a clump medium (engine.py:2750-2772) the birth cell is the clump
+clump_find gives the source position (-1 in the vacuum between clumps),
+found per lane (K2 does it on the card, csrc/clump.cuh); photons carry
+global frequencies, so the spectrum is drawn at the reference damping and
+Doppler width, and u1 is the birth clump's bulk velocity along k in
+reference units (cell_velocity_dot: u.k times Dfreq_cl / Dfreq_ref).
+
 `refill_plain` ranks dead lanes by a cumsum, as the JAX version does;
 kernel K2 (csrc/refill.cu) hands out tickets by warp instead, so when the
 budget runs out the two may launch different dead lanes, always the same
@@ -56,7 +63,7 @@ from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics.rng import STREAM_REFILL, uniforms
 from ..physics.samplers import TWOPI, box_muller, rand_voigt_x
-from .flight import AmrGrid, div, doppler_ratio
+from .flight import AmrGrid, ClumpGrid, div, doppler_ratio
 from .state import DEAD, FFS, BatchState, Tallies
 
 SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS, SPECTRUM_CONT = 0, 1, 2, 3
@@ -86,16 +93,22 @@ class RefillParams:
     line: pline.LineConsts = None
     amr: Optional[AmrGrid] = None    # the octree, on an AMR grid
     vel: Optional[tuple] = None      # its per-leaf velocities (moving)
+    clump: Optional[ClumpGrid] = None   # the clumps, on a clump medium
 
     @classmethod
-    def from_config(cls, cfg, meta, grid=None) -> 'RefillParams':
+    def from_config(cls, cfg, meta, grid=None, cmeta=None) -> 'RefillParams':
         """Constants of a config that engine.check_supported accepted; the
-        source cell's velocity comes from `grid` in a moving medium."""
+        source cell's velocity comes from `grid` in a moving medium (on a
+        clump medium grid is the ClumpDevice and cmeta its ClumpMeta)."""
         par = cfg.par
         f32 = np.float32
         pos = [f32(par.xs_point), f32(par.ys_point), f32(par.zs_point)]
         cells, v_src, amr, vel = [0, 0, 0], (0.0, 0.0, 0.0), None, None
-        if meta.grid_type == 'amr':
+        clump = None
+        if meta.grid_type == 'clump':
+            # the births find their clump themselves (clump_find)
+            clump = ClumpGrid.from_meta(cfg, meta, cmeta, grid)
+        elif meta.grid_type == 'amr':
             # the births find their node themselves (amr_find_cell)
             amr = AmrGrid.from_meta(meta, grid)
             if not meta.static_medium:
@@ -124,7 +137,8 @@ class RefillParams:
                    comoving_source=bool(par.comoving_source),
                    xfreq_span=pline.f32(meta.xfreq_max - meta.xfreq_min),
                    Dfreq=meta.Dfreq_ref,
-                   line=pline.LineConsts.from_config(cfg), amr=amr, vel=vel)
+                   line=pline.LineConsts.from_config(cfg), amr=amr, vel=vel,
+                   clump=clump)
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -138,13 +152,16 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     n_new = launch.sum(dtype=torch.int32)
 
     lanes = torch.arange(B, dtype=torch.int64, device=dev)
-    # the source cell (on the AMR grid its node, amr_find_cell), its
-    # damping, Doppler width and velocity (engine.py:2755-2775)
+    # the source cell (on the AMR grid its node, amr_find_cell; on a clump
+    # medium its clump, clump_find), its damping, Doppler width and
+    # velocity (engine.py:2750-2775)
     a_loc, D_loc, v_src = p.a, p.Dfreq, p.v_src
     cell = (p.ic, p.jc, p.kc)
-    if p.amr is not None:
-        src = [torch.full((B,), v, dtype=torch.float32, device=dev)
-               for v in (p.xs, p.ys, p.zs)]
+    src = [torch.full((B,), v, dtype=torch.float32, device=dev)
+           for v in (p.xs, p.ys, p.zs)]
+    if p.clump is not None:
+        cell = (p.clump.find(*src), 0, 0)
+    elif p.amr is not None:
         ic = p.amr.find_cell(*src)
         il = p.amr.leaf(ic)
         cell = (ic, 0, 0)
@@ -178,7 +195,10 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
         xfreq = (p.xfreq_min + w[0] * p.xfreq_span) / ratio
 
     # lab-frame source -> comoving frequency; Jin at the lab frequency
-    u1 = v_src[0] * kx + v_src[1] * ky + v_src[2] * kz
+    if p.clump is not None:
+        u1 = p.clump.vel_dot(cell[0].long(), kx, ky, kz, 'scale')
+    else:
+        u1 = v_src[0] * kx + v_src[1] * ky + v_src[2] * kz
     if not p.comoving_source:
         xfreq = xfreq - u1
     fx = torch.floor(div((xfreq + u1) * ratio - p.xfreq_min, p.dxfreq))
@@ -226,7 +246,8 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
     kbuild.require_cuda('refill_point', tallies.Jin, state.n_launched,
                         *(getattr(state, f) for f in ('phase', 'x')),
                         *(() if record is None else (record.flag,)),
-                        *(() if p.amr is None else p.amr.dev.tensors()))
+                        *(() if p.amr is None else p.amr.dev.tensors()),
+                        *(() if p.clump is None else p.clump.dev.tensors()))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
@@ -236,6 +257,7 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         tallies.Jin.data_ptr(), p.xfreq_span, p.Dfreq,
         ctypes.byref(p.line.c_struct),
         None if p.amr is None else ctypes.byref(p.amr.c_struct),
+        None if p.clump is None else ctypes.byref(p.clump.c_struct),
         *(v.data_ptr() if v is not None else None
           for v in (p.vel or (None,) * 3)),
         kbuild.stream_of(state.x)),

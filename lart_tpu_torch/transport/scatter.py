@@ -50,6 +50,21 @@ recoil, and the lab frequency (x + u) D / Dfreq_ref of Jabs and of a
 conversion's H-alpha photon (line type 1 only; check_supported refuses
 the other line types and H2 at non-uniform temperature).
 
+On a clump medium (engine.py:2087-2105, :2533-2540) a lane's cell is its
+clump: in overlap mode the scatter first draws the owner among the clumps
+containing the point, opacity-weighted at each clump's local frequency
+(clump_sample_owner, csrc/clump.cuh), from the first uniform of Philox
+block 4 rounds + 7, after every block an earlier slice draws, so the other
+grids draw as before; in non-overlap mode the flight's clump is the owner.
+Then, in a moving medium or where the clumps' temperature is not the
+reference one, the lane's frequency moves into the owner's frame and
+Doppler units, (x - u) r_loc, before the event split, and back, x' / r_loc
++ u' with u' along the new direction, afterwards, on every lane that was
+AT_SCATTER; the profile, the redistribution, the recoil and Jabs take the
+clumps' a_cl and D_cl, the event split each clump's rhokap and rhokapD.  A
+dust event's record keeps the lane's frequency in the owner's units for the
+peel (xatom), as lart_tpu peels it before the shift back.
+
 Core-skip (local_xcrit, :1872-1905): a lane with |x| < xcrit draws its
 perpendicular speed as sqrt(xcrit^2 - log xi).  core_skip_global takes the
 grid's xcrit; the local one is cbrt(a rk dl) / 5 where a rk dl > 1, dl the
@@ -114,7 +129,8 @@ from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
-from .flight import AmrC, AmrGrid, div, doppler_ratio, freq_floor
+from .flight import (AmrC, AmrGrid, ClumpC, ClumpGrid, div, doppler_ratio,
+                     dot3, f32, freq_floor, recip32)
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
 TINY = 1e-30
@@ -151,7 +167,8 @@ class ScatterC(ctypes.Structure):
                 ('Jabs_Ha', _P), ('W_conv', _P), ('W_abs1', _P),
                 ('W_abs2', _P), ('W_H2abs', _P), ('W_H2scat', _P),
                 ('W_H2pump', _P), ('albedo_Ha', _F),
-                ('one_m_albedo_Ha', _F), ('hgg_Ha', _F), ('amr', AmrC)]
+                ('one_m_albedo_Ha', _F), ('hgg_Ha', _F), ('amr', AmrC),
+                ('clump', ClumpC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -187,12 +204,14 @@ class ScatterParams:
     albedo_Ha: float = 0.0     # line type 8: the H-alpha band's dust
     hgg_Ha: float = 0.0
     amr: Optional[AmrGrid] = None   # the octree: the arrays are per leaf
+    clump: Optional[ClumpGrid] = None   # the clumps: the arrays per clump
 
     @classmethod
-    def from_config(cls, cfg, meta, grid=None,
-                    uniform_sphere=False) -> 'ScatterParams':
+    def from_config(cls, cfg, meta, grid=None, uniform_sphere=False,
+                    cmeta=None) -> 'ScatterParams':
         """Constants of a config that engine.check_supported accepted;
-        `uniform_sphere` is engine.uniform_sphere_fastpath(cfg, meta)."""
+        `uniform_sphere` is engine.uniform_sphere_fastpath(cfg, meta); on a
+        clump medium grid is the ClumpDevice and cmeta its ClumpMeta."""
         par = cfg.par
         mode = CORE_SKIP_OFF
         if par.core_skip:
@@ -205,9 +224,15 @@ class ScatterParams:
         lt8 = cfg.line.line_type == 8
         amr = AmrGrid.from_meta(meta, grid) if meta.grid_type == 'amr' \
             else None
+        clump = ClumpGrid.from_meta(cfg, meta, cmeta, grid) \
+            if meta.grid_type == 'clump' else None
 
         def flat(t):
             return t.reshape(-1).contiguous()
+        vel = None
+        if (dust or lt8) and not meta.static_medium:
+            vel = (grid.vx, grid.vy, grid.vz) if clump is not None else \
+                tuple(flat(v) for v in (grid.vfx, grid.vfy, grid.vfz))
         return cls(a=float(meta.voigt_a_ref),
                    rounds=int(par.scatter_rounds),
                    stokes=bool(par.use_stokes), core_skip=mode,
@@ -223,8 +248,7 @@ class ScatterParams:
                    dust=dust, albedo=float(par.albedo), hgg=float(par.hgg),
                    reduced_wgt=bool(par.use_reduced_wgt),
                    rhokapD=flat(grid.rhokapD) if dust and gather else None,
-                   vel=tuple(flat(v) for v in (grid.vfx, grid.vfy, grid.vfz))
-                   if (dust or lt8) and not meta.static_medium else None,
+                   vel=vel,
                    mueller=pmueller.MuellerTable.for_config(
                        cfg, grid.rhokap.device) if dust else None,
                    xfreq_min=meta.xfreq_min, dxfreq=meta.dxfreq,
@@ -232,7 +256,7 @@ class ScatterParams:
                    line=pline.LineConsts.from_config(cfg),
                    Dfreq=float(meta.Dfreq_ref), recoil=bool(par.recoil),
                    h2=h2, albedo_Ha=float(par.albedo_Ha),
-                   hgg_Ha=float(par.hgg_Ha), amr=amr)
+                   hgg_Ha=float(par.hgg_Ha), amr=amr, clump=clump)
 
     @property
     def dust_block(self) -> int:
@@ -243,6 +267,11 @@ class ScatterParams:
     def h2_block(self) -> int:
         """The first Philox block of the H2 draws."""
         return 3 * self.rounds + 5
+
+    @property
+    def owner_block(self) -> int:
+        """The Philox block of the clump owner draw (overlap mode)."""
+        return 4 * self.rounds + 7
 
     @property
     def lyb(self) -> bool:
@@ -260,7 +289,10 @@ class ScatterParams:
 
     def flat(self, s: BatchState) -> torch.Tensor:
         """The lanes' flat cell index, clamped like jnp.take mode='clip'
-        (on the AMR grid, the leaf of the lane's node, -1 in a gap)."""
+        (on the AMR grid, the leaf of the lane's node, -1 in a gap; on a
+        clump medium its clump, -1 in the vacuum)."""
+        if self.clump is not None:
+            return s.ic.long()
         if self.amr is not None:
             return self.amr.leaf(s.ic)
         nx, ny, nz = self.n
@@ -268,19 +300,27 @@ class ScatterParams:
         return torch.clamp(f, 0, nx * ny * nz - 1)
 
     def gather(self, arr: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-        """arr at the lanes' cells f = flat(s) (0 in an AMR gap)."""
+        """arr at the lanes' cells f = flat(s) (0 in an AMR gap or in the
+        vacuum between clumps)."""
+        if self.clump is not None:
+            return self.clump.gather(arr, f)
         return arr[f] if self.amr is None else self.amr.gather(arr, f, 0.0)
 
     def lane_a_D(self, s: BatchState):
         """(damping, Doppler width) of each lane's cell: the reference
         floats, or per-lane tensors on an AMR grid at non-uniform
-        temperature."""
+        temperature; the clumps' own on a clump medium."""
+        if self.clump is not None:
+            return f32(self.clump.a_cl), f32(self.clump.D_cl)
         if self.amr is None:
             return self.a, self.Dfreq
         return self.amr.a_D(self.amr.leaf(s.ic), self.a, self.Dfreq)
 
     def vel_dot(self, s: BatchState) -> torch.Tensor:
-        """u . k of each lane's cell along its direction (moving medium)."""
+        """u . k of each lane's cell along its direction (moving medium;
+        a clump's in reference units, cell_velocity_dot)."""
+        if self.clump is not None:
+            return self.clump.vel_dot(s.ic.long(), s.kx, s.ky, s.kz, 'scale')
         f = self.flat(s)
         return (self.gather(self.vel[0], f) * s.kx
                 + self.gather(self.vel[1], f) * s.ky
@@ -290,6 +330,7 @@ class ScatterParams:
         out = tuple(t for t in (self.rhokap, self.rhokapD) if t is not None)
         out += self.vel or ()
         out += () if self.amr is None else self.amr.dev.tensors()
+        out += () if self.clump is None else self.clump.dev.tensors()
         return out + (self.mueller.tensors() if self.mueller else ())
 
     @functools.cached_property
@@ -318,6 +359,8 @@ class ScatterParams:
             c.h2 = self.h2.c_struct
         if self.amr is not None:
             c.amr = self.amr.c_struct
+        if self.clump is not None:
+            c.clump = self.clump.c_struct
         c.albedo_Ha, c.hgg_Ha = self.albedo_Ha, self.hgg_Ha
         c.one_m_albedo_Ha = self.one_m_albedo(True)
         return c
@@ -411,9 +454,12 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     is_dust = is_h2 = torch.zeros_like(at_sc)
     lc = p.line
     b2 = s.iband == 2 if p.lyb else None
+    cl = p.clump
+    if cl is not None:
+        clump_frame_in(s, p, seed, counter, lanes, at_sc)
     # the cell's damping and Doppler width; D / Dfreq_ref, 1 at uniform T
     a_c, D_c = p.lane_a_D(s)
-    ratio = doppler_ratio(D_c, p.Dfreq)
+    ratio = cl.d_ratio if cl is not None else doppler_ratio(D_c, p.Dfreq)
     if p.dust or p.h2 is not None:
         if p.rk_const > 0.0:
             rk = torch.full_like(s.x, p.rk_const)
@@ -516,6 +562,9 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
         record.flag.copy_(kind.to(torch.int32))
         for f in turned:
             getattr(record, f).copy_(getattr(s, f))
+        if cl is not None:
+            # a dust event peels at the lane's frequency in the owner's units
+            xfreq_atom = torch.where(dust_sc, s.xfreq, xfreq_atom)
         for f, v in (('xatom', xfreq_atom), ('ux', ux), ('uy', uy),
                      ('uz', uz)):
             getattr(record, f).copy_(v)
@@ -555,6 +604,86 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
                                 s.tau_run))
     tallies.nscatt_gas += torch.where(do_res, s.wgt, zero).sum()
     tallies.nscatt_events += do_res.sum(dtype=torch.float32)
+    if cl is not None and cl.shift:
+        # back into global units along the new direction (engine.py:
+        # 2533-2540), on every lane that was AT_SCATTER
+        u_out = cl.vel_dot(s.ic.long(), s.kx, s.ky, s.kz, 'scale')
+        s.xfreq.copy_(torch.where(
+            at_sc, s.xfreq * recip32(cl.r_loc) + u_out, s.xfreq))
+
+
+def clump_owner_plain(cl: ClumpGrid, lc, pos, k, xfreq, xi) -> torch.Tensor:
+    """clump_sample_owner (engine.py:487-545) at the points pos along k at
+    the global frequencies xfreq, with the uniforms xi: the first clump
+    whose running sum of opacities (index order, each clump at its local
+    frequency, 0 where it does not contain the point) reaches xi times the
+    total, over all clumps (dense; no gas: the first containing clump, else
+    -1) or over the CSR cell's candidates (no gas: the first candidate)."""
+    d = cl.dev
+    if cl.dense:
+        cands = torch.arange(cl.n, device=xfreq.device)[None, :].expand(
+            xfreq.shape[0], cl.n)
+        qx, qy, qz, qr2 = d.x[None, :], d.y[None, :], d.z[None, :], \
+            d.r2[None, :]
+    else:
+        _, cell = cl.csr_cell(*pos)
+        cands = torch.stack([cl.candidate(cell, q) for q in range(cl.K)], 1)
+        qx, qy, qz, qr2 = cl.centre(cands)
+    ex, ey, ez = (v[:, None] - c for v, c in zip(pos, (qx, qy, qz)))
+    contains = dot3(ex, ex, ey, ey, ez, ez) < qr2
+    if not cl.dense:
+        contains = contains & (cands >= 0)
+    if cl.moving:
+        u = cl.vel_dot(cands, *(v[:, None] for v in k), form='div')
+        kq = cl.kappa(lc, cands, cl.local_x(xfreq[:, None], u))
+    else:
+        # one profile a lane: every clump sees the same local frequency
+        prof = pline.line_profile_plain(lc, cl.local_x(xfreq), f32(cl.a_cl),
+                                        f32(cl.D_cl))[:, None]
+        kq = cl.gather(d.rhokap, cands) * prof
+        if cl.has_dust:
+            kq = kq + cl.gather(d.rhokapD, cands)
+    kq = torch.where(contains, kq, torch.zeros_like(kq))
+    cum = _running_sum(kq)
+    tot = cum[:, -1]
+    pick = torch.argmax((cum >= (xi * tot)[:, None]).to(torch.int8), dim=1)
+    owner = torch.gather(cands, 1, pick[:, None])[:, 0]
+    if cl.dense:
+        first = torch.argmax(contains.to(torch.int8), dim=1)
+        none = torch.where(contains.any(dim=1), first, torch.full_like(first,
+                                                                       -1))
+    else:
+        none = cands[:, 0]
+    return torch.where(tot > 0.0, owner, none).to(torch.int32)
+
+
+def _running_sum(kq: torch.Tensor) -> torch.Tensor:
+    """The running sums of kq (B, m) along its columns in index order, one
+    f32 add at a time."""
+    out, acc = [], torch.zeros_like(kq[:, 0])
+    for j in range(kq.shape[1]):
+        acc = acc + kq[:, j]
+        out.append(acc)
+    return torch.stack(out, 1)
+
+
+def clump_frame_in(s: BatchState, p: ScatterParams, seed: int, counter: int,
+                   lanes, at_sc) -> None:
+    """The clump branch before the event split (engine.py:2087-2105): the
+    owner drawn in overlap mode, then the lane's frequency in the owner's
+    frame and Doppler units, on the AT_SCATTER lanes."""
+    cl = p.clump
+    if cl.overlap:
+        # the AT_SCATTER lanes only: a lane's draw depends on no other
+        idx = at_sc.nonzero().squeeze(1)
+        xi = uniforms(seed, STREAM_SCATTER, lanes[idx], counter,
+                      p.owner_block)[0]
+        sub = [v[idx] for v in (s.x, s.y, s.z, s.kx, s.ky, s.kz, s.xfreq)]
+        s.ic[idx] = clump_owner_plain(cl, p.line, sub[:3], sub[3:6], sub[6],
+                                      xi)
+    if cl.shift:
+        u_in = cl.vel_dot(s.ic.long(), s.kx, s.ky, s.kz, 'scale')
+        s.xfreq.copy_(torch.where(at_sc, cl.local_x(s.xfreq, u_in), s.xfreq))
 
 
 def h2_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
@@ -650,7 +779,8 @@ def dust_event(s: BatchState, tallies: Tallies, p: ScatterParams, seed: int,
                        rotate_direction(s.kx, s.ky, s.kz, cost, sint, cosp,
                                         sinp)))
     new['albedo'] = albedo
-    # Jabs at the lab frequency of the lane's cell
+    # Jabs at the lab frequency of the lane's cell (a clump's: x_loc + u in
+    # reference units, times D_cl / Dfreq_ref, as lart_tpu)
     xlab = s.xfreq
     if p.vel is not None:
         xlab = s.xfreq + p.vel_dot(s)

@@ -53,6 +53,18 @@ def amr_to_jax(meta: GridMeta, dev):
                           for f in JAmrDevice._fields}))
 
 
+def clump_to_jax(meta: GridMeta, cmeta, dev):
+    """The port's clump medium (GridMeta, ClumpMeta, ClumpDevice) ->
+    lart_tpu's."""
+    from lart_tpu.grid import clump as jclump
+    return (jcart.GridMeta(**dataclasses.asdict(meta)),
+            jclump.ClumpMeta(**dataclasses.asdict(cmeta)),
+            jclump.ClumpDevice(**{
+                f: None if getattr(dev, f) is None
+                else jnp.asarray(getattr(dev, f).cpu().numpy())
+                for f in jclump.ClumpDevice._fields}))
+
+
 def state_to_jax(state: BatchState):
     """The port's state -> lart_tpu BatchState; the fields the port does
     not carry take lart_tpu's init_state values."""

@@ -325,3 +325,32 @@ def test_cli_runs_the_amr_sphere(tmp_path):
     assert abs(float(r.header['W_esc']) - 1.0) < 1e-3
     assert r.Jout.shape == r.xfreq.shape and np.all(np.isfinite(r.Jout))
     assert r.Jout.sum() > 0.0
+
+
+def test_cli_runs_the_bicone_clumps(tmp_path):
+    """examples/bicone/bicone_clump.in (6837 clumps in non-overlap mode:
+    the CSR walker, K10's plain version) cut to a CPU's few seconds: its
+    clumps' tau0 1e3 cut to 1 and 200 photons.  read_lart reads the FITS
+    output, the weight closes, and the population the run saved
+    (save_clump_info, <out>_clumps.h5) is the one lart_tpu builds from the
+    same seed, as lart_tpu's load_clumps reads it."""
+    pytest.importorskip('h5py')
+    import chip_smoke
+    from lart_tpu.config import Params as JParams
+    from lart_tpu.grid import clump as jclump
+    nml = chip_smoke.namelist_variant(
+        'bicone/bicone_clump.in', tmp_path, no_photons='200',
+        clump_tau0='1.0', batch_size='1024')
+    out = tmp_path / 'out.fits'
+    assert cli.main([str(nml), str(out), '--device', 'cpu']) == 0
+    r = read_lart(str(out))
+    assert float(r.header['nphotons']) == 200.0
+    assert abs(float(r.header['W_esc']) + float(r.header.get('W_oor', 0.0))
+               - 1.0) < 1e-3
+    assert r.Jout.shape == r.xfreq.shape == (121,)
+    assert np.all(np.isfinite(r.Jout)) and r.Jout.sum() > 0.0
+    pop = jclump.load_clumps(str(tmp_path / 'out_clumps.h5'))
+    jpar = JParams.from_namelist(str(nml))
+    _, jc, jd = jclump.build_clumps(jpar.resolve(), seed=jpar.iseed + 77)
+    assert pop['attrs']['N_CLUMPS'] == jc.n_clumps == 6837
+    np.testing.assert_array_equal(pop['pos'][:, 0], np.asarray(jd.x))

@@ -38,17 +38,28 @@ AMR_KEYS = {'fly_amr', 'refill_point (AMR)', 'scatter_lya (AMR)',
             'scatter_lya (AMR) (H2)'}
 
 
+# K9, K10 and the clump branches of K2, K4 and K7 (chip_smoke.phase2_clump)
+CLUMP_KEYS = {'fly_clump_dense', 'fly_clump_csr', 'refill_point (clump)',
+              'scatter_lya (clump)', 'peel (clump)',
+              'fly_clump_dense (line types 2, 4-7)',
+              'fly_clump_csr (line types 2, 4-7)',
+              'scatter_lya (clump) (line types 2, 4-7)'}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
     chip_smoke.AMR_BIG = 32      # the AMR sphere of 48k leaves, not 3.06M
+    # ~37k clumps of radius 6e-3, not the 1.48M population
+    chip_smoke.FCOV1 = dict(chip_smoke.FCOV1, clump_radius=6e-3)
     res = chip_smoke.phase2(cuda)
     kernels = {'refill_point', 'fly_uniform_slab', 'fly_cartesian',
                'fly_uniform_sphere', 'scatter_lya', 'peel'}
     # the metal lines' instances (chip_smoke.phase2_lines), and line type
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
-        k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS
+        k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
+        | CLUMP_KEYS
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -319,3 +330,28 @@ def test_driver_runs_the_amr_kernels(cuda, case):
     assert np.all(np.isfinite(res.Jout))
     assert abs(res.W_escape + res.W_absorb + res.W_oor - 1.0) < 1e-3
     assert (res.W_absorb > 0.0) == (case == 'jellyfish')
+
+
+@pytest.mark.parametrize('dense_max', [1024, 0])
+def test_driver_runs_the_clump_kernels(cuda, dense_max):
+    """driver.run on the 40-clump sphere with one observer on +z: K2's
+    clump births, K9 (overlap mode, the owner draw in K4) or K10
+    (non-overlap), K4's clump frame in a moving medium with a clump
+    temperature of 9e4 K, K7's clump sightline."""
+    import numpy as np
+
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    par = testing.clump_params(
+        nphotons=4000, clump_allow_overlap=dense_max > 0,
+        clump_dense_max=dense_max, clump_sigma_v=20.0,
+        clump_temperature=9e4, save_peeloff=True, nobs=1, nxim=17,
+        nyim=17, distance=1e3, alpha=(0.0,), beta=(0.0,))
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=3)
+    fly = 'fly_clump_dense' if dense_max else 'fly_clump_csr'
+    need = ('refill_point', fly, 'scatter_lya', 'peel')
+    assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
+    assert np.all(np.isfinite(res.Jout))
+    assert abs(res.W_escape + res.W_oor - 1.0) < 1e-3
+    assert float(res.peel['scatt'].sum()) > 0.0

@@ -1,6 +1,7 @@
 """The port stands alone: every module of lart_tpu_torch, and
-chip_smoke.py, imports with lart_tpu and jax made unimportable, and builds
-an AMR grid with its own octree builder."""
+chip_smoke.py, imports with lart_tpu and jax made unimportable, builds an
+AMR grid with its own octree builder and a clump population with its own
+copy of build_clumps."""
 
 import os
 import subprocess
@@ -31,6 +32,13 @@ from lart_tpu_torch import testing
 from lart_tpu_torch.grid.amr import build_amr, make_amr_sphere
 r = build_amr(testing.amr_params(8, 1).resolve(), data=make_amr_sphere(8, 1))
 assert r.tree.builder == 'native' and r.dev.fine_map is not None
+# the clump population and the chunk of the CSR walker
+from lart_tpu_torch.grid.clump import build_clumps
+from lart_tpu_torch.transport.engine import make_chunk
+cfg = testing.clump_params(clump_dense_max=0).resolve()
+m, c, d = build_clumps(cfg, seed=1, device='cpu')
+assert c.n_clumps == 40 and d.table.shape == (c.cg_n ** 3, c.K)
+assert not make_chunk(cfg, m, d, c).flight.clump.dense
 print(len(names))
 """
 
@@ -41,4 +49,4 @@ def test_port_imports_without_lart_tpu_and_jax():
     proc = subprocess.run([sys.executable, '-c', CODE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 28
+    assert int(proc.stdout.split()[-1]) >= 30
