@@ -5,14 +5,16 @@ sphere, the expanding Hubble sphere, the dusty expanding shell, the metal
 lines (line types 2, 4-7), Ly-beta with its H-alpha band (line type 8),
 H2 pumping of Ly-alpha, the octree AMR grid and the clump media end to end
 through the driver and the CLI, without and with peel-off images
-(Stokes), and measures their steady-state rates.
+(Stokes), the interior all-sky observer with its HEALPix maps and the
+sight-line tau maps (CIV_test.in, the standalone sightline tool), and
+measures their steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
 
 Phases (one line each, or more):
   0  card name and power limit (nvidia-smi), torch / CUDA / nvcc versions
-  1  build K1-K10 from lart_tpu_torch/csrc with nvcc (one per source, in
+  1  build K1-K11 from lart_tpu_torch/csrc with nvcc (one per source, in
      parallel)
   2  each kernel and branch against its plain version on the card at
      B = 131072: K1-K4 on the flagship slab; K5 on the 201^3 Hubble grid of
@@ -53,7 +55,16 @@ Phases (one line each, or more):
      (non-overlap) and on the 1.48M-clump population (FCOV1); K9 on 1000
      overlapping clumps whose rays cross more chords than its list holds
      (MANY_CHORDS); K2's clump births, K4's owner draw and clump frame,
-     K7's clump sightline
+     K7's clump sightline; the interior observer and the sight-line maps
+     (phase2_inside): K7's interior mode (HEALPix pixel, capped sightline)
+     on examples/healpix_CIV/CIV_test.in's 101x101x51 grid with save_peeloff
+     on (the slice's main path), on the sphere_peel grid (chord), the 48k
+     AMR sphere and the DL20e_dust shell (dust peel); K11 on CIV_test's
+     whole nside-64 map (6.05M rays), on sightline_car.in as written, on
+     the 201^3 Hubble grid (TAN and interior), the AMR sphere,
+     clumps_overlap.in and the 1.48M-clump population; K2's
+     exponential-cylinder births on CIV_test's grid, the Hubble grid and
+     the AMR sphere
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -64,7 +75,9 @@ Phases (one line each, or more):
      observer) and H + D Ly-alpha (testing.line_params); a 17^3 Ly-beta
      sphere with dust and one observer, and a 17^3 H2 sphere; the AMR
      sphere and jellyfish_pt; the 40-clump sphere of testing.clump_params
-     in its dense (K9) and CSR (K10) forms, one population in both runs
+     in its dense (K9) and CSR (K10) forms, one population in both runs;
+     an interior observer at the centre of a 17^3 shell with
+     save_sightline_tau (the all-sky map's isotropy, the tau maps)
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
@@ -87,7 +100,11 @@ Phases (one line each, or more):
      H2 budget and keywords); the AMR examples (amr_runs);
      clumps_overlap.in as written, through K10 (clump_dense_max 0: the
      <N_scatt> ratio K10 / K9 held at 1 +- 5%) and with one observer on +z,
-     and bicone_clump.in with save_clump_info off (W_esc + W_oor = 1)
+     and bicone_clump.in with save_clump_info off (W_esc + W_oor = 1);
+     CIV_test.in with save_peeloff (1e5 photons: <N_scatt> beside RUNLOG's
+     14.54, the _peel3D/_peel2D HEALPix maps with NSIDE 64, the _tau
+     file) and the sightline tool on both examples/sightline_tau inputs
+     (N_gas against the analytic chord of their sphere)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -98,7 +115,8 @@ Phases (one line each, or more):
      sphere_HD_dijkstra2006 and HeI t4tau2 as written, t4tau1e4 with its
      observer and h2_on as written, the AMR cells, clumps_overlap.in,
      bicone_clump.in, the 1.48M-clump population and clumps_overlap.in
-     with one observer on +z; a torch.profiler breakdown of
+     with one observer on +z, CIV_test.in with save_peeloff (and K11's ms
+     for one whole nside-64 map); a torch.profiler breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
@@ -151,9 +169,9 @@ MGII = dict(line_id='MgII_2796', wavelength_min=2790.0,
             wavelength_max=2810.0)
 # phase 4's cut of sphere_HD_dijkstra2006: as written (N_HI 1.2e19) each
 # photon scatters ~8e5 times, one scattering a cycle, and 2000 photons took
-# 205 s on the card whatever their number; N_HI 6e17 cuts that ~twentyfold,
+# 205 s on the card whatever their number; N_HI 3e17 cuts that ~fortyfold,
 # which keeps the whole script well inside its time limit
-HD_PHOTONS, HD_NHI = 2000, '6e17'
+HD_PHOTONS, HD_NHI = 2000, '3e17'
 LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
 # Ly-beta with its H-alpha band (line type 8) and H2 pumping of Ly-alpha:
 # the slice's examples, and the names of their kernel branches in res
@@ -175,6 +193,16 @@ CLUMPS_OVERLAP, BICONE = ('clump_sphere/clumps_overlap.in',
 FCOV1 = dict(clump_N_clumps=-1.0, clump_f_cov=1.0, clump_radius=9.5e-4,
              clump_tau0=-1.0, clump_NHI=1e18)
 CLUMP = ' (clump)'
+# the interior all-sky observer, the sight-line maps and the exponential
+# cylinder source: the slice's main path CIV_test.in (the repo's only
+# all-sky example, run with save_peeloff on), the standalone sightline
+# tool's two examples, <N_scatt> of examples/RUNLOG.md:21 (2000 photons,
+# peel-off on), and the names of the slice's branches in res
+CIV = 'healpix_CIV/CIV_test.in'
+SL_CAR = 'sightline_tau/sightline_car.in'
+SL_INSIDE = 'sightline_tau/sightline_inside.in'
+CIV_NSCATT, CIV_NSIDE = 14.54, 64
+INSIDE, EXPCYL = ' (interior)', ' (exponential_cylinder)'
 # a dense population whose rays cross more chords than K9's list holds
 MANY_CHORDS = dict(clump_allow_overlap=True, clump_N_clumps=1000,
                    clump_radius=0.2, clump_tau0=0.3)
@@ -260,6 +288,15 @@ def kernel_work(name, pre, ch, meta, stats=None):
             m = cl.n if cl.dense else cl.K
             clump = m * 16 + (0 if cl.dense else cl.K * 4) + 12 * cl.moving
             flops = m * 9
+        # an extended source (exponential_cylinder): the log-log table read
+        # once, and each launched lane's ~11-step binary search, the
+        # interpolation, exp, log, cos, sin and log1p (~60 flops), its
+        # Cartesian cell (~10) and, moving, its velocity (12 B)
+        src = ch.refill_params.source
+        if src is not None:
+            clump += src.table.n * 8 + (k * 12 if ch.refill_params.vel
+                                        else 0)
+            flops += 11 * 4 + 70
         return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4 + amr + clump, \
             k * (60 + flops)
     if name == 'scatter_lya':
@@ -432,6 +469,26 @@ def kernel_work(name, pre, ch, meta, stats=None):
             # the H2 opacity's two Voigt functions each step
             flops = stats['steps'] * 80
     return B * 4 + k * (24 + 12) * 4 + grid + spectra, flops
+
+
+def sightline_work(sl, stats):
+    """(bytes, flops) of K11's maps: the maps written once (4 B a ray),
+    the observers and the column frequencies read once, each distinct cell
+    read once (rhokap; rhokapD with dust; the velocity in a moving medium;
+    a clump's centre, radius^2 and opacities), ~20 flops a column crossing
+    (N_gas, tau_dust) and, a tau_gas crossing, 20 and ~40 a Voigt component
+    of the line's profile (two for a doublet), plus ~60 a ray to build it
+    (the TAN inverse or the HEALPix centre, the box clip)."""
+    g = sl.grid
+    per_cell = 4 * (1 + (g.rhokapD is not None) + 3 * g.moving)
+    if g.clump is not None:
+        per_cell = 4 * (5 + g.clump.has_dust + 3 * g.clump.moving)
+    ncomp = {1: 1, 2: 2, 7: 2}.get(g.line.line_type, g.line.nup)
+    nbytes = (sl.nobs * sl.ncol * sl.npix * 4 + sl.nobs * 48
+              + sl.grid.nxfreq * 4 + stats['cells'] * per_cell)
+    flops = (stats['col'] * 20 + stats['gas'] * (20 + 40 * ncomp)
+             + stats['rays'] * 60)
+    return nbytes, flops
 
 
 def example_params(rel, **over):
@@ -734,6 +791,7 @@ def phase2(dev):
     phase2_lyb_h2(dev, res)
     phase2_amr(dev, res)
     phase2_clump(dev, res)
+    phase2_inside(dev, res)
     return res
 
 
@@ -1474,14 +1532,15 @@ def h2_run(label, par, dev):
 
 def phase3(dev):
     from lart_tpu_torch import testing
-    # the slab and the Stokes peel sphere at tau0 50: their CPU runs cost
-    # ~0.6 s a unit of tau0 there
-    c = spectra_run('slab tau0=50 1e4 photons', testing.slab_params(
-        tau0=50.0, nz=101, nphotons=10_000, batch=4096), dev)
+    # the slab, the spheres and the peel spheres at tau0 20-50: their CPU
+    # runs cost ~0.6 s a unit of tau0 there (more on a slow host), and the
+    # script's time limit covers every phase
+    c = spectra_run('slab tau0=20 1e4 photons', testing.slab_params(
+        tau0=20.0, nz=101, nphotons=10_000, batch=4096), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_uniform_slab',
                                   'scatter_lya')), c
-    c = spectra_run('sphere 33^3 tau0=100 1e4 photons', testing.sphere_params(
-        tau0=100.0, n=33, nphotons=10_000, batch=4096), dev)
+    c = spectra_run('sphere 33^3 tau0=40 1e4 photons', testing.sphere_params(
+        tau0=40.0, n=33, nphotons=10_000, batch=4096), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_uniform_sphere',
                                   'scatter_lya')), c
     c = spectra_run('Hubble sphere 33^3 xyz_symmetry Vexp 200 tau0=100 '
@@ -1490,15 +1549,15 @@ def phase3(dev):
     assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
                                   'scatter_lya')), c
     # peel-off to two observers (+z and oblique), 17 x 17 images
-    c = spectra_run('sphere 17^3 tau0=50 1e4 photons, Stokes peel',
+    c = spectra_run('sphere 17^3 tau0=20 1e4 photons, Stokes peel',
                     testing.peel_params(testing.sphere_params(
-                        tau0=50.0, n=17, nphotons=10_000, batch=4096),
+                        tau0=20.0, n=17, nphotons=10_000, batch=4096),
                         nim=17), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_uniform_sphere',
                                   'scatter_lya', 'peel')), c
-    c = spectra_run('Hubble sphere 17^3 xyz_symmetry tau0=100 1e4 photons, '
+    c = spectra_run('Hubble sphere 17^3 xyz_symmetry tau0=50 1e4 photons, '
                     'peel without Stokes', testing.peel_params(
-                        testing.hubble_params(tau0=100.0, n=17,
+                        testing.hubble_params(tau0=50.0, n=17,
                                               nphotons=10_000, batch=4096),
                         stokes=False, nim=17), dev)
     assert all(c.get(k) for k in ('refill_point', 'fly_cartesian',
@@ -1545,6 +1604,7 @@ def phase3(dev):
     assert all(c.get(k) for k in need), c
     amr_phase3(dev)
     clump_phase3(dev)
+    inside_phase3(dev)
 
 
 def run_cli(nml, out, device='cuda'):
@@ -1657,6 +1717,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         lyb_h2_cli(tmp, device, total)
         amr_runs(tmp, device, total)
         clump_cli(tmp, device, total)
+        inside_cli(tmp, device, total)
     return total
 
 
@@ -2466,6 +2527,384 @@ def clump_phase5(dev, res):
         del p
 
 
+def civ_params(**over):
+    """examples/healpix_CIV/CIV_test.in with save_peeloff on (as written it
+    sets none, so lart_tpu writes neither maps nor tau files for it) and
+    the keys of `over` replaced."""
+    return example_params(CIV, save_peeloff=True, **over)
+
+
+def sightline_both(sl):
+    """K11 and its plain version on the card, every (observer, column,
+    pixel) ray: (rays differing, rays, max abs err of the optical-depth
+    columns over the others, max rel err of the N_gas column, the plain
+    version's work stats)."""
+    from lart_tpu_torch.instruments import sightline as tsl
+    k = tsl.sightline(sl)
+    torch.cuda.synchronize()
+    stats = {}
+    p = tsl.sightline_plain(sl, stats)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(k).all()) and float(p.max()) > 0.0
+    bad = ~torch.isclose(k, p, rtol=LANE_RTOL, atol=LANE_ATOL)
+    n_bad = int(bad.sum())
+    good = ~bad
+    tau = good[:, 1:]
+    err = float((k[:, 1:] - p[:, 1:]).abs()[tau].max()) if bool(
+        tau.any()) else 0.0
+    ng = good[:, 0]
+    rel = float(((k[:, 0] - p[:, 0]).abs() / p[:, 0].abs().clamp_min(1e-30))
+                [ng].max()) if bool(ng.any()) else 0.0
+    assert n_bad <= MAX_FRAC * k.numel(), (n_bad, k.numel())
+    return n_bad, k.numel(), err, rel, stats
+
+
+def phase2_inside(dev, res):
+    """The interior all-sky observer, the sight-line maps and the
+    exponential-cylinder source against their plain versions at B =
+    B_MAIN: K7's interior mode (HEALPix pixel, capped sightline) on
+    CIV_test's 101x101x51 grid (the DDA, line type 2), on the sphere_peel
+    grid (the chord) and the 48k-leaf AMR sphere (the node walk), and on
+    the dusty DL20e_dust shell (Henyey-Greenstein dust peel); K11 on
+    CIV_test's whole nside-64 map (49152 pixels x 123 columns, 6.05M rays),
+    on sightline_car.in as written (65x65 TAN), on the 201^3 Hubble grid of
+    vel_effect_peel (TAN and interior: the comoving updates), on the 48k
+    AMR sphere (TAN), on clumps_overlap.in and on the 1.48M-clump
+    population (TAN); K2's exponential-cylinder births on CIV_test's grid,
+    on that Hubble grid (each birth's cell velocity) and on the AMR
+    sphere."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.instruments.sightline import Sightline
+    from lart_tpu_torch.transport.engine import make_chunk
+    modes = {'direct': tpeel.DIRECT, 'resonance': tpeel.RESONANCE,
+             'dust': tpeel.DUST}
+    inner = dict(obsx=(0.3,), obsy=(0.1,), obsz=(-0.2,), nside=64)
+    expcyl = dict(source_geometry='exponential_cylinder', source_rscale=0.3,
+                  source_zscale=0.2)
+    seed = 900
+
+    def cart(par):
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        return cfg, meta, grid, make_chunk(cfg, meta, grid)
+
+    def peel_cases(label, meta, ch, steps, r_max=None, state_fn=None):
+        nonlocal seed
+        om = ch.peel.obs_meta
+        assert om.inside and om.nxim == om.npix and om.nyim == 1
+        for step in steps:
+            seed += 2
+            n_bad, n_dep, err, dtau, dw = peel_both(
+                ch, meta, seed, modes[step], dev, r_max, state_fn=state_fn)
+            _max_err(res, 'peel' + INSIDE, err)
+            log(2, f'K7 peel {step}, interior observer at '
+                   f'{tuple(float(v) for v in om.pos_host[0])}, {label} '
+                   f'(nside {om.nside}, {om.npix} pixels x {meta.nxfreq} '
+                   f'bins): {n_dep} of {B_MAIN} pairs deposit, pairs '
+                   f'differing {n_bad}, max |d tau| {dtau:.3e}, per-pair '
+                   f'deposits max rel err {dw:.3e}, cubes max abs err '
+                   f'{err:.3e}')
+
+    def sightline_case(label, cfg, meta, grid, cmeta=None):
+        t0 = time.time()
+        sl = Sightline.from_config(cfg, meta, grid, cmeta)
+        n_bad, n, err, rel, st = sightline_both(sl)
+        _max_err(res, 'sightline', err)
+        om = sl.obs_meta
+        rays = f'HEALPix nside {om.nside}' if om.inside \
+            else f'TAN {om.nxim}x{om.nyim}'
+        log(2, f'K11 sightline, {label} ({rays}, '
+               f'{sl.ncol} columns, {n} rays, {st["rays"]} in the box, '
+               f'{st["gas"] + st["col"]} crossings over {st["cells"]} '
+               f'distinct cells): rays differing {n_bad}, max abs err '
+               f'{err:.3e} (tau), N_gas max rel err {rel:.3e} '
+               f'({time.time() - t0:.1f} s)')
+
+    # CIV_test, the slice's main path: K7 interior (DDA), K11's whole map,
+    # K2's births
+    t0 = time.time()
+    cfg, meta, grid, ch = cart(civ_params(batch_size=B_MAIN))
+    log(2, f'CIV_test.in with save_peeloff: {meta.nx}x{meta.ny}x{meta.nz} '
+           f'grid, line type {cfg.line.line_type}, {meta.nxfreq} bins, '
+           f'source {cfg.par.source_geometry}, built in '
+           f'{time.time() - t0:.1f} s')
+    peel_cases('CIV_test (101x101x51 DDA, C IV doublet)', meta, ch,
+               ('direct', 'resonance'))
+    sightline_case('CIV_test as written', cfg, meta, grid)
+    s0, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',),
+                                  dev)
+    born = (s0.phase == 0) & (sk.phase != 0)
+    _max_err(res, 'refill_point' + EXPCYL, err)
+    log(2, f'K2 refill_point (exponential_cylinder, rscale '
+           f'{cfg.par.source_rscale}, zscale {cfg.par.source_zscale}, table '
+           f'{ch.refill_params.source.table.n} knots): {int(born.sum())} '
+           f'births, birth radius max '
+           f'{float(torch.hypot(sk.bx, sk.by)[born].max()):.4f}, |z| max '
+           f'{float(sk.bz[born].abs().max()):.4f}; lanes differing '
+           f'{frac:.2e}, max abs err {err:.3e}; Jin max |d| '
+           f'{tal["Jin"]:.3e}')
+    del ch, grid
+
+    # the chord and the dusty shell
+    cfg, meta, grid, ch = cart(example_params(
+        PEEL_EXAMPLES['sphere_peel'], use_stokes=False, batch_size=B_MAIN,
+        **inner))
+    assert ch.peel.chord
+    peel_cases('sphere_peel grid (the chord)', meta, ch,
+               ('direct', 'resonance'), r_max=1.0)
+    cfg, meta, grid, ch = cart(example_params(
+        DL20E_DUST, use_stokes=False, save_peeloff=True, batch_size=B_MAIN,
+        **inner))
+    assert ch.peel.dust
+    peel_cases('DL20e_dust grid (201^3 dusty shell, Henyey-Greenstein)',
+               meta, ch, ('direct', 'resonance', 'dust'), r_max=1.0)
+    del ch, grid
+
+    # sightline_car.in as written
+    par = example_params(SL_CAR, save_peeloff=True)
+    cfg = par.resolve()
+    meta, grid = build_cartesian(cfg, device=dev)
+    sightline_case('sightline_car.in as written', cfg, meta, grid)
+
+    # the 201^3 Hubble grid: K11 TAN and interior, K2's births with each
+    # cell's velocity
+    for label, over in (('TAN', {}), ('interior', dict(
+            inner, nside=16))):
+        par = example_params(PEEL_EXAMPLES['vel_effect_peel'], nxfreq=21,
+                             **over)
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        sightline_case(f'vel_effect_peel 201^3 Hubble grid, {label}', cfg,
+                       meta, grid)
+    cfg, meta, grid, ch = cart(example_params(
+        PEEL_EXAMPLES['vel_effect_peel'], batch_size=B_MAIN,
+        comoving_source=False, **expcyl))
+    assert ch.refill_params.vel is not None
+    seed += 2
+    _, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',), dev,
+                                 r_max=1.0)
+    _max_err(res, 'refill_point' + EXPCYL, err)
+    log(2, f'K2 refill_point (exponential_cylinder on the Hubble grid, '
+           f'lab-frame source): lanes differing {frac:.2e}, max abs err '
+           f'{err:.3e}; Jin max |d| {tal["Jin"]:.3e}')
+    del ch, grid
+
+    # the 48k-leaf AMR sphere: K7 interior, K11 TAN, K2's births
+    amr_inner = dict(inner, obsx=(0.2,), obsy=(0.1,), obsz=(-0.1,))
+    data = amr_leaves('sphere48k')
+    meta, ch, _, _ = amr_chunk(example_params(
+        AMR_SPHERE, batch_size=B_MAIN, save_peeloff=True, **amr_inner),
+        data, dev)
+
+    def amr_state(sd):
+        return testing.amr_state(meta, ch.flight.amr, B_MAIN, sd, dev)
+    peel_cases('amr_sphere (48k leaves, the node walk)', meta, ch,
+               ('direct', 'resonance'), state_fn=amr_state)
+    from lart_tpu_torch.grid.amr import build_amr
+    par = example_params(AMR_SPHERE, nxfreq=21, **OBSERVER)
+    cfg = par.resolve()
+    r = build_amr(cfg, data=data, device=dev)
+    sightline_case('amr_sphere (48k leaves)', cfg, r.meta, r.dev)
+    meta, ch, _, _ = amr_chunk(example_params(
+        AMR_SPHERE, batch_size=B_MAIN, **expcyl), data, dev)
+    seed += 2
+    _, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',), dev,
+                                 state=amr_state(seed))
+    _max_err(res, 'refill_point' + EXPCYL, err)
+    log(2, f'K2 refill_point (exponential_cylinder on the AMR sphere: each '
+           f'birth finds its node): lanes differing {frac:.2e}, max abs err '
+           f'{err:.3e}; Jin max |d| {tal["Jin"]:.3e}')
+    del ch, r, data
+
+    # clumps: clumps_overlap.in and the 1.48M-clump population, TAN
+    from lart_tpu_torch.grid.clump import build_clumps
+    for label, par in (('clumps_overlap.in', clump_params(
+            'overlap', nxfreq=21, **OBSERVER)),
+            # a 65 x 65 image: the plain CSR walk on 129 x 129 rays of 23
+            # columns took ~20 s of the script's time limit
+            ('the 1.48M-clump population', clump_params(
+                'fcov1', nxfreq=21, **dict(OBSERVER, nxim=65, nyim=65)))):
+        cfg = par.resolve()
+        meta, cmeta, grid = build_clumps(cfg, seed=cfg.par.iseed + 77,
+                                         device=dev)
+        sightline_case(f'{label} ({cmeta.n_clumps} clumps)', cfg, meta,
+                       grid, cmeta)
+        del grid
+
+
+def inside_phase3(dev):
+    """driver.run on cuda and on cpu with an interior observer at the
+    centre of a 17^3 shell (r 0.5-1, tau 2, a central point source; lart_tpu's
+    tests/test_healpix.py:95 shell, where the 1/r^2 weights stay bounded),
+    with save_sightline_tau: the spectra, the all-sky scattered map's
+    isotropy and total, and the tau maps of K11 and its plain version."""
+    from lart_tpu_torch import testing
+    par = testing.sphere_params(tau0=2.0, n=17, nphotons=4000, batch=4096,
+                                save_Jmu=True, nmu=8, rmin=0.5,
+                                save_peeloff=True, nside=2,
+                                save_sightline_tau=True)
+    rg, tg, counts, rc, tc = cuda_and_cpu(par, dev)
+    assert all(counts.get(k) for k in ('refill_point', 'fly_cartesian',
+                                       'scatter_lya', 'peel', 'sightline'))
+    chi2, dmu = testing.spectra_agree(
+        *testing.run_tallies(rg), *testing.run_tallies(rc), par.nphotons,
+        par.nmu)
+    sky = [r.peel['scatt'][0].sum(axis=0)[:, 0] for r in (rg, rc)]
+    iso = [float(m.std() / m.mean()) for m in sky]
+    tot = float(sky[0].sum() / sky[1].sum())
+    assert min(float(m.min()) for m in sky) > 0 and max(iso) < 0.15, iso
+    assert abs(tot - 1.0) < 0.1, tot
+    for k in ('tau_gas', 'N_gas', 'tau_dust'):
+        np.testing.assert_allclose(rg.sightline[0][k], rc.sightline[0][k],
+                                   rtol=1e-5, atol=1e-6)
+    log(3, f'interior observer at the centre of a 17^3 shell (tau 2, '
+           f'nside 2, {par.nphotons} photons, save_sightline_tau): <N> cuda '
+           f'{rg.nscatt_gas:.3f} ({tg:.1f} s) cpu {rc.nscatt_gas:.3f} '
+           f'({tc:.1f} s), chi2/dof {chi2:.2f}, Jmu max |d| {dmu:.4f}; '
+           f'all-sky scattered map rel spread cuda {iso[0]:.4f} cpu '
+           f'{iso[1]:.4f}, total cuda / cpu {tot:.4f}; tau maps equal to '
+           f'1e-5; launches {counts}')
+
+
+def inside_cli(tmp, device, total):
+    """The slice's main path through the CLI, FITS written and read back:
+    CIV_test.in as written with save_peeloff on (1e5 photons; the C IV
+    doublet, the exponential cylinder, the interior observer at (-8.5, 0,
+    0) kpc, nside 64, save_sightline_tau): W_esc + W_oor = 1, <N_scatt>
+    beside examples/RUNLOG.md's 14.54 (2000 photons), the _peel3D and
+    _peel2D HEALPix maps (121, 49152) with NSIDE 64, the _tau file; and
+    the standalone sightline tool on both sightline_tau examples as
+    written, N_gas held against the analytic chord of their uniform
+    sphere.  Their launch counts go into total['inside']."""
+    from lart_tpu_torch.instruments import sightline as tsl
+    from lart_tpu_torch.io.iofile import open_read
+    from lart_tpu_torch.kernels import build as kb
+    from lart_tpu_torch.tools import make_sightline_tau as tool
+    nml = namelist_variant(CIV, tmp, save_peeloff='.true.',
+                           save_peeloff_2D='.true.')
+    out = Path(tmp) / 'CIV_test.fits'
+    rc, res, wall, launches = run_cli(nml, out, device)
+    assert rc == 0
+    w = res.W_escape + res.W_oor
+    assert abs(w - 1.0) < 1e-3, (res.W_escape, res.W_oor)
+    ratio = res.nscatt_gas / CIV_NSCATT
+    assert abs(ratio - 1.0) < 0.1, res.nscatt_gas
+    need = ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+            'sightline')
+    add_launches(total, launches, need)
+    total['inside'] = dict(launches)
+    om = res.obs_meta
+    assert om.inside and om.nside == CIV_NSIDE, om
+    shapes = {}
+    for suffix in ('_peel3D', '_peel2D'):
+        with open_read(str(Path(tmp) / f'CIV_test{suffix}.fits')) as f:
+            for name in ('Scattered', 'Direct'):
+                a = np.asarray(f[f'{name}/data'])
+                attrs = f[name].attrs
+                assert np.all(np.isfinite(a)) and a.sum() > 0, (suffix, name)
+                assert int(attrs['NSIDE']) == om.nside and str(
+                    attrs['PIXTYPE']).strip() == 'HEALPIX', (suffix, attrs)
+                shapes[suffix] = a.shape
+    assert shapes['_peel3D'] == (res.meta.nxfreq, om.npix)
+    assert shapes['_peel2D'] == (om.npix, 1)
+    with open_read(str(Path(tmp) / 'CIV_test_tau.fits')) as f:
+        tau = np.asarray(f['tau_gas/data'])
+        ngas = np.asarray(f['N_gas/data'])
+    assert tau.shape == (res.meta.nxfreq, om.npix, 1)
+    assert np.all(np.isfinite(tau))
+    assert float(ngas.min()) > 0.0
+    log(4, f'CLI CIV_test.in with save_peeloff ({res.nphotons} photons, '
+           f'FITS): W_esc {res.W_escape:.6f} + W_oor {res.W_oor:.6f} = '
+           f'{w:.6f}, <N_scatt> {res.nscatt_gas:.4f} (RUNLOG 14.54 at 2000 '
+           f'photons: ratio {ratio:.4f}), _peel3D {shapes["_peel3D"]}, '
+           f'_peel2D {shapes["_peel2D"]}, NSIDE {om.nside}, _tau '
+           f'{tau.shape}, N_gas '
+           f'{float(ngas.min()):.4e}-{float(ngas.max()):.4e}, wall '
+           f'{wall:.1f} s; launches {launches}')
+
+    for rel in (SL_CAR, SL_INSIDE):
+        nml = namelist_variant(rel, tmp)
+        fn = Path(tmp) / (Path(rel).stem + '_tau.fits')
+        kb.reset_launch_counts()
+        t0 = time.time()
+        assert tool.main([str(nml), str(fn), '--device', device]) == 0
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        assert kb.LAUNCHES['sightline'] == 1
+        total['sightline_tool'] = total.get('sightline_tool', 0) + 1
+        with open_read(str(fn)) as f:
+            ngas = np.asarray(f['N_gas/data'], np.float64).reshape(-1)
+            tau = np.asarray(f['tau_gas/data'])
+        # the analytic chord of the uniform sphere (R = 1 about the
+        # origin), times the column density a unit length inside it
+        from lart_tpu_torch.config import Params
+        from lart_tpu_torch.grid.cartesian import build_cartesian
+        par = Params.from_namelist(str(nml))
+        par.save_peeloff = True
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=device)
+        sl = tsl.Sightline.from_config(cfg, meta, grid)
+        c = float(grid.rhokap.max()) * meta.Dfreq_ref / cfg.line.cross0
+        _, k, hit, _ = tsl.ray_origins(sl, 0)
+        o = sl.pos[0].double().cpu().numpy()
+        kk = k.double().cpu().numpy()
+        if sl.obs_meta.inside:
+            ov = -(o[:, None] * kk).sum(0)
+            L = -ov + np.sqrt(ov ** 2 - ((o ** 2).sum() - 1.0))
+            sel = np.ones_like(L, bool)
+        else:
+            b2 = (np.cross(o, kk.T) ** 2).sum(1)
+            L = 2.0 * np.sqrt(np.maximum(1.0 - b2, 0.0))
+            sel = b2 < 0.64
+        dev_rel = np.abs(ngas[sel] / (c * L[sel]) - 1.0)
+        tot = ngas[sel].sum() / (c * L[sel]).sum()
+        assert dev_rel.max() < 0.05 and abs(tot - 1.0) < 5e-3, (
+            dev_rel.max(), tot)
+        log(4, f'sightline tool {Path(rel).name} as written ({device}, '
+               f'FITS): tau_gas {tau.shape}, N_gas against the analytic '
+               f'chord of the uniform sphere on {int(sel.sum())} pixels: '
+               f'max rel dev {dev_rel.max():.4f} (voxelized sphere), sum '
+               f'ratio {tot:.6f}; wall {wall:.1f} s')
+
+
+def inside_phase5(dev, res):
+    """CIV_test.in with save_peeloff as written but for its budget (1e9
+    photons): its steady-state window with the profile and the kernel
+    times of K2 (exponential_cylinder), K5 and K4 (C IV doublet) and K7
+    (interior), and K11's ms for one whole nside-64 map against its plain
+    version and its bound."""
+    from lart_tpu_torch.instruments import sightline as tsl
+    over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
+    p, _ = rate_window('CIV_test with save_peeloff (C IV doublet, '
+                       'exponential cylinder, interior observer nside 64)',
+                       civ_params(**over), dev)
+    card = smi()
+    profile_chunks(p, card, 'CIV_test')
+    kernel_times(p, card, 'CIV_test', res, ('refill_point', 'fly_cartesian',
+                                            'scatter_lya', 'peel'),
+                 record=(('refill_point', EXPCYL), ('peel', INSIDE)))
+    sl = tsl.Sightline.from_config(p.cfg, p.meta, p.grid)
+    stats = {}
+    tsl.sightline_plain(sl, stats)
+    ms = device_ms([lambda: tsl.sightline(sl)] * 5)
+    call_ms, plain_ms = turns(lambda: tsl.sightline(sl),
+                              lambda: tsl.sightline_plain(sl), 3,
+                              plain_reps=1)
+    bnd = bound(*sightline_work(sl, stats))
+    res.setdefault('sightline', {}).update(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bnd[0],
+                                           bound_by=bnd[1])
+    log(5, f'CIV_test sightline (one whole map: {sl.npix} pixels x '
+           f'{sl.ncol} columns, {stats["rays"]} rays, '
+           f'{stats["gas"] + stats["col"]} crossings over {stats["cells"]} '
+           f'distinct cells): kernel {ms:.6f} ms on the device, '
+           f'{call_ms:.6f} ms a call; plain {plain_ms:.6f} ms a call; bound '
+           f'{bnd[0]:.6f} ms ({bnd[1]}) [{card}]')
+    del p
+
+
 def device_ms(calls):
     """Device ms per launch of calls[i](): a sleep holds the stream while
     the host enqueues every call, so the launches run back to back and the
@@ -2603,11 +3042,11 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
         copies = [testing.clone_state(pre) for _ in range(reps)]
         dev_ms = device_ms([lambda s=s: kern(s) for s in copies])
         del copies
-        # the clump flights' plain versions take ~0.1-1 s a call: 4 a turn
+        # the plain versions take 5 ms to 1 s a call (more on a slow host):
+        # 2 a turn keep the script inside its time limit
         call_ms, plain_ms = turns(
             lambda: kern(work), lambda: plain(work), reps,
-            lambda: testing.copy_state_(work, pre),
-            plain_reps=4 if k.startswith('fly_clump') else None)
+            lambda: testing.copy_state_(work, pre), plain_reps=2)
         stats = {}
         if k in ('fly_cartesian', 'fly_amr', 'fly_clump_dense',
                  'fly_clump_csr'):
@@ -2845,6 +3284,7 @@ def phase5(dev, res):
                f' {100 * (ms / was - 1):+.1f}%')
     amr_phase5(dev, res)
     clump_phase5(dev, res)
+    inside_phase5(dev, res)
 
 
 KERNELS = {
@@ -2916,6 +3356,24 @@ CLUMP_PATHS = {'fly_clump_dense': 'clumps_overlap',
 CLUMP_INLINES = ('clump_find, clump_owner and clump_cell_tau (lart_tpu_torch/'
                  'csrc/clump.cuh, replace lart_tpu/transport/engine.py:421, '
                  ':487 and lart_tpu/instruments/peel.py:86)')
+
+
+SIGHTLINE_KERNEL = ('lart_tpu_torch/csrc/sightline.cu',
+                    'lart_tpu/instruments/sightline.py:31')
+INSIDE_INLINES = {
+    'sightline': 'pix2vec_ring (lart_tpu_torch/csrc/healpix.cuh, replaces '
+                 'lart_tpu/instruments/healpix.py:69), amr_find_cell, '
+                 'amr_descend_from_face and clump_cell_exit (amr.cuh, '
+                 'clump.cuh), line_profile (line.cuh)',
+    'peel': 'vec2pix_ring (lart_tpu_torch/csrc/healpix.cuh, replaces '
+            'lart_tpu/instruments/healpix.py:30) in the interior '
+            'obs_geometry (lart_tpu/instruments/peel.py:394-415) with the '
+            'capped sightline',
+    'refill_point': 'radius_loglog (lart_tpu_torch/csrc/refill.cu, replaces '
+                    'lart_tpu/physics/sources.py:478) in gen_position\'s '
+                    'exponential_cylinder (lart_tpu/transport/engine.py:'
+                    '2629-2637)',
+}
 
 
 def main(argv=None):
@@ -3023,6 +3481,28 @@ def main(argv=None):
             bound_by=res[k + CLUMP]['bound_by'], library_ms=None,
             inlines=CLUMP_INLINES)
             for k in ('refill_point', 'scatter_lya', 'peel')]
+        # this slice's kernel K11 (its numbers from CIV_test's whole
+        # nside-64 map) and the interior branch of K7 and the
+        # exponential-cylinder births of K2 (CIV_test's window), with the
+        # launches of phase 4's CIV_test run
+        counts = launches['inside']
+        line['kernels'].append(dict(
+            name='sightline', route='cuda', source=SIGHTLINE_KERNEL[0],
+            replaces=SIGHTLINE_KERNEL[1], launches=counts['sightline'],
+            path='CIV_test', max_abs_err=res['sightline']['max_abs_err'],
+            ms=res['sightline']['ms'], plain_ms=res['sightline']['plain_ms'],
+            bound_ms=res['sightline']['bound_ms'],
+            bound_by=res['sightline']['bound_by'], library_ms=None,
+            inlines=INSIDE_INLINES['sightline']))
+        line['kernels'] += [dict(
+            name=k + suffix, route='cuda', source=KERNELS[k][0],
+            replaces=KERNELS[k][1], launches=counts[k], path='CIV_test',
+            max_abs_err=res[k + suffix]['max_abs_err'],
+            ms=res[k + suffix]['ms'], plain_ms=res[k + suffix]['plain_ms'],
+            bound_ms=res[k + suffix]['bound_ms'],
+            bound_by=res[k + suffix]['bound_by'], library_ms=None,
+            inlines=INSIDE_INLINES[k])
+            for k, suffix in (('peel', INSIDE), ('refill_point', EXPCYL))]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

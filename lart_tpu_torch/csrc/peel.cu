@@ -11,7 +11,7 @@
 // tau_to_edge_cart (:176-356; a cell's opacity rhokap times the line's
 // profile, line.cuh, + rhokapD) or the sphere chord (:367-382; its profile's
 // offsets and damping parameters from the host, f64 quotients rounded once
-// as lart_tpu's Python floats give them), with obs_geometry (TAN branch),
+// as lart_tpu's Python floats give them), with obs_geometry (TAN and HEALPix),
 // flat_idx and freq_bin (:394-441).  A resonance peels with the event's
 // phase weights (from the record for line types 2, 4, 5 and 6) and, with
 // recoil, at xfreq - (g_recoil0 / D)(1 - cos theta) (:513-514), the hydrogen
@@ -58,6 +58,14 @@
 // treats it as global; the port follows.  A dust event on clumps peels at the
 // record's xatom, the lane's frequency in the owner's units (K4 shifts the
 // lane's back).
+// An interior all-sky observer (nside > 0; peel.py:394-415, healpix.cuh)
+// bins a pair at the HEALPix RING pixel of its arrival direction -pk, drops
+// a pair within r^2 <= 1e-12 of the observer, and caps the sightline at the
+// distance r to the observer (raytrace_to_dist): the DDA and AMR walks end
+// with a partial step min(dmin, cap - trav), the last one where dmin >=
+// cap - trav, and the chord is cut at the cap (:378-380).  The flat bin is
+// (o nxfreq + ixf) npix + ipix.  Clumps, Stokes and line type 8 with an
+// interior observer are vetoed (config.py:494-503).
 // Bound: a dependent gather walk, one rhokap (and, moving, two velocity)
 // reads and one Voigt evaluation per crossing, ~1e2 flops a crossing; the
 // grid (up to 201^3 x 4 fields, 130 MB) does not fit the 50 MB L2, so a long
@@ -67,6 +75,7 @@
 // mode reads and writes once (the flag, the lane and record fields it
 // reads, each distinct grid cell walked, each distinct cube bin of the 1-5
 // cubes it writes), whichever is larger.
+#include "healpix.cuh"
 #include "lart.cuh"
 #include "mueller.cuh"
 #include "voigt.cuh"
@@ -111,18 +120,21 @@ struct PeelParams {
   int recoil;
   LineProf chord_prof;           // the chord's profile components
   float hg_num_Ha, hg_1pg2_Ha, hg_2g_Ha;  // the H-alpha band's (type 8)
+  int inside;      // interior all-sky observers: HEALPix maps, capped walks
+  int nside;       // their HEALPix resolution (nxim = 12 nside^2, nyim = 1)
 };
+
 
 // the AMR sightline (peel.py:242-290): node by node as K8 walks, the
 // exit face, the snap to its plane, the neighbor hop and the descent, with
 // K8's comoving update in a moving medium or at non-uniform temperature
 template <bool kMulti, bool kH2>
 __device__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const float pos0[3],
-                                 int ic, const float k[3], float xf, bool band2) {
+                                 int ic, const float k[3], float xf, bool band2, float cap) {
   const AmrGrid& a = g.amr;
   const bool update = g.moving || a.Dfreq != nullptr;
   float pos[3] = {pos0[0], pos0[1], pos0[2]};
-  float tau = 0.0f;
+  float tau = 0.0f, trav = 0.0f;
   for (int n = 0; n < max_steps; ++n) {
     const int il = amr_leaf(a, ic);
     float a_c, D_c;
@@ -138,7 +150,11 @@ __device__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const flo
     const float dmin = fminf(fminf(t[0], t[1]), t[2]);
     const int axis = dmin == t[0] ? 0 : (dmin == t[1] ? 1 : 2);
     const int face = axis * 2 + (k[axis] > 0.0f ? 0 : 1);
-    tau = tau + dmin * rho;
+    bool hit;
+    const float dstep = capped_step(dmin, cap, trav, hit);
+    tau = tau + dstep * rho;
+    trav = trav + dstep;
+    if (hit) break;
 #pragma unroll
     for (int q = 0; q < 3; ++q) pos[q] = fmaf(dmin, k[q], pos[q]);
     pos[axis] = cen[axis] + (k[axis] > 0.0f ? h : -h);
@@ -181,25 +197,31 @@ __device__ float tau_to_edge_clump(const FlightParams& g, int max_steps, const f
 }
 
 // optical depth from pos along k to the grid's edge at comoving frequency
-// xf; band2: the H-alpha band's dust-only opacity (0 without dust)
+// xf; band2: the H-alpha band's dust-only opacity (0 without dust); cap >=
+// 0: the path length where the integration stops (an interior observer)
 template <bool kMulti, bool kH2>
 __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
-                             const int cell0[3], const float k0[3], float xf, bool band2) {
+                             const int cell0[3], const float k0[3], float xf, bool band2,
+                             float cap) {
   if (band2 && !g.rhokapD) return 0.0f;
   if (g.clump.n) return tau_to_edge_clump<kMulti>(g, p.max_steps, pos0, k0, xf);
   if (g.amr.ncells)
-    return tau_to_edge_amr<kMulti, kH2>(g, p.max_steps, pos0, cell0[0], k0, xf, band2);
+    return tau_to_edge_amr<kMulti, kH2>(g, p.max_steps, pos0, cell0[0], k0, xf, band2, cap);
   if (p.chord) {
     const float H = kMulti ? line_profile_q(g.line, p.chord_prof, xf) : voigt_h(xf, g.a_ref);
     const float rho = g.sphere_rho * H + g.sphere_rhoD;
     float t_in, t_out;
     sphere_chord(g, pos0[0], pos0[1], pos0[2], k0[0], k0[1], k0[2], t_in, t_out);
+    if (cap >= 0.0f) {
+      t_out = fminf(t_out, fmaxf(cap, t_in));
+      t_in = fminf(t_in, t_out);
+    }
     return (t_out - t_in) * rho;
   }
   float pos[3] = {pos0[0], pos0[1], pos0[2]};
   float k[3] = {k0[0], k0[1], k0[2]};
   int cell[3] = {cell0[0], cell0[1], cell0[2]};
-  float tau = 0.0f;
+  float tau = 0.0f, trav = 0.0f;
   for (int n = 0; n < p.max_steps; ++n) {
     const int f = flat_index(g, cell[0], cell[1], cell[2]);
     const float rho = band2 ? band2_opacity(g, f) : cell_opacity<kMulti, kH2>(g, f, xf);
@@ -209,7 +231,11 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
       t[a] = g.walk[a] ? face_dist(pos[a], k[a], cell[a], g.amin[a], g.d[a]) : LART_BIG;
     const float dmin = fminf(fminf(t[0], t[1]), t[2]);
     const int axis = dmin == t[0] ? 0 : (dmin == t[1] ? 1 : 2);
-    tau = tau + dmin * rho;
+    bool hit;
+    const float dstep = capped_step(dmin, cap, trav, hit);
+    tau = tau + dstep * rho;
+    trav = trav + dstep;
+    if (hit) break;
 #pragma unroll
     for (int a = 0; a < 3; ++a) pos[a] = fmaf(dmin, k[a], pos[a]);
     const int old_cell[3] = {cell[0], cell[1], cell[2]};
@@ -244,7 +270,9 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (amr) leaf_a_D(g, il, a_c, D_c);
   if (clump) D_c = g.clump.D_cl;
 
-  // obs_geometry: the unit direction to the observer and its TAN pixel
+  // obs_geometry: the unit direction to the observer and its pixel, TAN
+  // (external) or the HEALPix pixel of the arrival direction -pk with the
+  // sightline capped at the observer (interior)
   const float* op = p.obs_pos + 3 * o;
   const float* R = p.obs_rmat + 9 * o;
   float pk[3] = {op[0] - pos[0], op[1] - pos[1], op[2] - pos[2]};
@@ -253,12 +281,23 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   pk[0] = pk[0] / r;
   pk[1] = pk[1] / r;
   pk[2] = pk[2] / r;
-  const float okx = R[0] * pk[0] + R[1] * pk[1] + R[2] * pk[2];
-  const float oky = R[3] * pk[0] + R[4] * pk[1] + R[5] * pk[2];
-  const float okz = R[6] * pk[0] + R[7] * pk[1] + R[8] * pk[2];
-  const int ix = (int)floorf(atan2f(-okx, okz) * LART_RAD2DEG / p.dxim + 0.5f * (float)p.nxim);
-  const int iy = (int)floorf(atan2f(-oky, okz) * LART_RAD2DEG / p.dyim + 0.5f * (float)p.nyim);
-  if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return;
+  int img;
+  float cap = -1.0f;
+  if (p.inside) {
+    if (!(r2 > 1e-12f)) return;
+    img = vec2pix_ring(p.nside, -pk[0], -pk[1], -pk[2]);
+    cap = r;
+  } else {
+    const float okx = R[0] * pk[0] + R[1] * pk[1] + R[2] * pk[2];
+    const float oky = R[3] * pk[0] + R[4] * pk[1] + R[5] * pk[2];
+    const float okz = R[6] * pk[0] + R[7] * pk[1] + R[8] * pk[2];
+    const int ix =
+        (int)floorf(atan2f(-okx, okz) * LART_RAD2DEG / p.dxim + 0.5f * (float)p.nxim);
+    const int iy =
+        (int)floorf(atan2f(-oky, okz) * LART_RAD2DEG / p.dyim + 0.5f * (float)p.nyim);
+    if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return;
+    img = ix * p.nyim + iy;
+  }
 
   // the comoving frequency toward the observer; a conversion's photon and
   // a dust event of a lane in the H-alpha band see the dust only, and the
@@ -319,9 +358,9 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (!b2) xr = xr * (D_c / g.Dfreq);
   const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
   if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
-  const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + ix * p.nyim + iy;
+  const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + img;
 
-  const float tau = tau_to_edge<kMulti, kH2>(g, p, pos, cell, pk, xf, conv || b2);
+  const float tau = tau_to_edge<kMulti, kH2>(g, p, pos, cell, pk, xf, conv || b2, cap);
   const float atten = expf(-fminf(tau, 700.0f));
   if (p.tau_out) {
     p.tau_out[t] = tau;

@@ -45,13 +45,63 @@
 // clumps, or the CSR cell's candidates; -1 in the vacuum); the spectrum is
 // drawn at the reference a and D (photons carry global frequencies) and u1
 // is the birth clump's velocity along k in reference units.
+// The exponential_cylinder source (engine.py:2629-2637 gen_position with
+// _zexp :2569-2575, lart_tpu/physics/sources.py:478 sample_radius_loglog)
+// draws each launched lane's position from the uniforms of block 4, after
+// every earlier block, so a point source draws as before: the cylindrical
+// radius by a binary search of the f32 log-log inverse-CDF table (at most
+// 2049 knots, read through the L1 by __ldg) and jnp.interp's arithmetic
+// (the clamps at the ends, fp[i-1] + (x - xp[i-1]) / dx df as one fused
+// multiply-add), the azimuth, and z from the truncated exponential (or
+// uniform over the box); with xyz_symmetry their absolute values.  The
+// lane's cell is then its own: on a Cartesian grid clip(floor((x - amin) /
+// d)) per axis, with its velocity gathered in a moving medium; on the AMR
+// grid and the clump medium the lookups above run at the lane's position.
 // Bound: one pass over the state (about 130 bytes a launched lane written,
-// 4 a lane read), memory-bound; the ticket atomics are one per warp.
+// 4 a lane read), memory-bound; the ticket atomics are one per warp; an
+// extended source adds ~11 dependent table reads a lane (L1/L2-resident).
 #include "lart.cuh"
 #include "philox.cuh"
 #include "samplers.cuh"
 
 enum { SPECTRUM_MONO = 0, SPECTRUM_VOIGT = 1, SPECTRUM_GAUSS = 2, SPECTRUM_CONT = 3 };
+#define SOURCE_P_FLOOR 9.999999960041972e-13f  // f32(1e-12)
+#define BLOCK_SOURCE 4u
+
+// An extended source (exponential_cylinder); n 0: the point source.
+// lart_tpu_torch/transport/refill.py SourceC mirrors it field for field.
+struct SourceC {
+  const float* log_p;  // (n,) f32 logs of the f32 cumulative probabilities
+  const float* log_r;  // (n,) f32 logs of the f32 radii
+  int n;
+  int zexp;            // z from the truncated exponential, else uniform
+  float neg_zs, zexp_c;
+  float zmin, zrange;
+  int abs_xyz;         // xyz_symmetry
+  int cells[3];        // the Cartesian grid a birth's cell is found in
+  float amin[3];
+  float d[3];
+};
+
+// sample_radius_loglog: jnp.interp(log(max(u, 1e-12)), log_p, log_r), exp
+__device__ inline float radius_loglog(const SourceC& src, float u) {
+  const float x = logf(fmaxf(u, SOURCE_P_FLOOR));
+  int lo = 0, hi = src.n;  // searchsorted(side='right'): #knots <= x
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(&src.log_p[mid]) <= x)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int i = min(max(lo, 1), src.n - 1);
+  const float xp0 = __ldg(&src.log_p[i - 1]), xp1 = __ldg(&src.log_p[i]);
+  const float fp0 = __ldg(&src.log_r[i - 1]), fp1 = __ldg(&src.log_r[i]);
+  float f = fmaf((x - xp0) / (xp1 - xp0), fp1 - fp0, fp0);
+  if (x < __ldg(&src.log_p[0])) f = __ldg(&src.log_r[0]);
+  if (x > __ldg(&src.log_p[src.n - 1])) f = __ldg(&src.log_r[src.n - 1]);
+  return expf(f);
+}
 
 __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launched,
                                     int budget, uint32_t seed, uint32_t counter, float xs,
@@ -62,7 +112,7 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     float xfreq_min, float dxfreq, int nxfreq, float* Jin,
                                     float xfreq_span, float Dfreq, LineC line, AmrGrid amr,
                                     ClumpGrid clump, const float* vfx, const float* vfy,
-                                    const float* vfz) {
+                                    const float* vfz, SourceC src) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -83,6 +133,44 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   // (amr_find_cell, engine.py:2755-2758) with its leaf's damping, Doppler
   // width and velocity (the reference values and none in a gap)
   float a_loc = a, D_loc = Dfreq;
+  if (src.n) {
+    // an extended source: the lane's own position and, on a Cartesian grid,
+    // its cell (and that cell's velocity)
+    float w[4];
+    uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, BLOCK_SOURCE, w);
+    const float rp = radius_loglog(src, w[0]);
+    const float phi = LART_TWOPI * w[1];
+    xs = rp * cosf(phi);
+    ys = rp * sinf(phi);
+    if (src.zexp) {
+      const float zmag = src.neg_zs * log1pf(-(w[2] * src.zexp_c));
+      zs = w[3] < 0.5f ? -zmag : zmag;
+    } else {
+      zs = fmaf(w[2], src.zrange, src.zmin);
+    }
+    if (src.abs_xyz) {
+      xs = fabsf(xs);
+      ys = fabsf(ys);
+      zs = fabsf(zs);
+    }
+    if (!clump.n && !amr.ncells) {
+      const float pos[3] = {xs, ys, zs};
+      int c[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        c[q] = (int)fminf(fmaxf(floorf((pos[q] - src.amin[q]) / src.d[q]), 0.0f),
+                          (float)(src.cells[q] - 1));
+      ic = c[0];
+      jc = c[1];
+      kc = c[2];
+      if (vfx) {
+        const int f = (ic * src.cells[1] + jc) * src.cells[2] + kc;
+        vsx = __ldg(&vfx[f]);
+        vsy = __ldg(&vfy[f]);
+        vsz = __ldg(&vfz[f]);
+      }
+    }
+  }
   if (clump.n) {
     ic = clump_find(clump, xs, ys, zs);
     jc = kc = 0;
@@ -180,7 +268,9 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
 
 // record: the PeelRecord pointer table, or null with peel-off off; amr: the
 // octree, or null on a Cartesian grid, with vfx/vfy/vfz its per-leaf
-// velocities (null in a static medium); clump: the clumps, or null
+// velocities (null in a static medium; an extended source on a moving
+// Cartesian grid: the cells' velocities); clump: the clumps, or null;
+// source: the extended source, or null for the point source
 LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                void* n_launched, int budget, unsigned seed,
                                unsigned counter, float xs, float ys, float zs, int ic,
@@ -191,14 +281,17 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                float xfreq_span, float Dfreq, const LineC* line,
                                const AmrGrid* amr, const ClumpGrid* clump,
                                const float* vfx, const float* vfy, const float* vfz,
-                               void* stream) {
+                               const SourceC* source, void* stream) {
   if (B > 0) {
     const int threads = 256;
     refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
         unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
         counter, xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz,
         comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line,
-        amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz);
+        amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz,
+        source ? *source : SourceC{});
   }
   return (int)cudaGetLastError();
 }
+
+LART_API int lart_source_params_size() { return (int)sizeof(SourceC); }

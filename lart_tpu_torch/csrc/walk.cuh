@@ -82,6 +82,20 @@ __device__ inline float face_dist(float pos, float k, int idx, float amin, float
   return fmaxf((face - pos) / k, 0.0f);
 }
 
+// the step of a walk from path length trav with the next face dmin away:
+// min(dmin, cap - trav), and whether it reaches the cap (dmin >= cap -
+// trav); cap < 0: no cap (an interior observer's sightline stops at the
+// observer: peel.py:260-265, sightline.py:89-95)
+__device__ inline float capped_step(float dmin, float cap, float trav, bool& hit) {
+  if (cap < 0.0f) {
+    hit = false;
+    return dmin;
+  }
+  const float dleft = fmaxf(cap - trav, 0.0f);
+  hit = dmin >= dleft;
+  return fminf(dmin, dleft);
+}
+
 // boundary op after stepping cell index idx along axis a (engine.py:
 // 1081-1104); returns whether the lane escaped.  Reflect mirrors the
 // position to -amin, restarts in cell cell0 - 1 and flips k; its upper face

@@ -11,6 +11,9 @@ tallies and the loop-control scalars travel back together.  The peel-off
 cubes (up to millions of bins) stay on the device: each chunk's f32 cubes
 are added into f64 accumulators there, as lart_tpu adds them on the host
 (driver.py:182-195, :324-335), and the host reads them once at the end.
+With save_sightline_tau and observers, the sight-line maps of every
+observer (instruments/sightline.py, kernel K11) are computed after the
+transport on the same device (driver.py:370-376) and ride in the result.
 
 Tail control as in lart_tpu (driver.py:218-269): once the photon budget is
 launched, chunks grow by the drain factor (boost), and the batch shrinks
@@ -36,6 +39,7 @@ from .config import Params
 from .grid.amr import build_amr
 from .grid.cartesian import build_cartesian
 from .grid.clump import build_clumps, save_clumps
+from .instruments.sightline import make_maps
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
 from .transport.state import (DEAD, H2_SCALARS, LYB_SCALARS, BatchState,
@@ -50,8 +54,8 @@ class Prepared:
     """Everything run() builds before the chunk loop, exposed so a
     benchmark drives the production path without repeating the set-up."""
 
-    __slots__ = ('cfg', 'meta', 'grid', 'device', 'budget', 'seed', 'state',
-                 'chunk', 'cycle')
+    __slots__ = ('cfg', 'meta', 'grid', 'cmeta', 'device', 'budget', 'seed',
+                 'state', 'chunk', 'cycle')
 
     def run_chunk(self, n_cycles: Optional[int] = None):
         """Advance the batch by one chunk; returns device tensors
@@ -86,7 +90,7 @@ def prepare(par: Params, *, seed: Optional[int] = None, device=None,
     else:
         meta, grid = build_cartesian(cfg, device=dev)
     p = Prepared()
-    p.cfg, p.meta, p.grid, p.device = cfg, meta, grid, dev
+    p.cfg, p.meta, p.grid, p.cmeta, p.device = cfg, meta, grid, cmeta, dev
     p.chunk = make_chunk(cfg, meta, grid, cmeta)
     p.budget = int(cfg.par.nphotons)
     p.seed = int(seed if seed is not None else cfg.par.iseed)
@@ -216,6 +220,9 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
     else:
         raise RuntimeError(f'batch did not drain in {max_chunks} chunks')
     acc.update({k: v.cpu().numpy() for k, v in peel_acc.items()})
-    return normalize(cfg, meta, acc, nphotons, exetime_s=time.time() - t0,
-                     obs_meta=None if peel is None else peel.obs_meta)
+    res = normalize(cfg, meta, acc, nphotons, exetime_s=time.time() - t0,
+                    obs_meta=None if peel is None else peel.obs_meta)
+    if par.save_sightline_tau and peel is not None:
+        res.sightline = make_maps(cfg, meta, p.grid, p.cmeta)
+    return res
 

@@ -7,7 +7,12 @@ gamma) or by coordinates (obsx, obsy, obsz); the rotation matrix grid ->
 observer; the auto field of view from the 8 box vertices (or the sphere
 radius); the steradian of a pixel.  Host numpy in float64; the positions
 and rotation matrices go to the device as f32, as lart_tpu places them.
-Interior HEALPix observers (nside > 0) are not ported.
+With nside > 0 (observer.py:59-84, observer_create_inside, reference
+src/observer_heal.f90:10-75) the observers sit inside the grid and see the
+whole sky in HEALPix RING maps: the first obsx/obsy/obsz triple (a NaN
+component taken as 0) and every further finite triple, identity rotation
+matrices, nxim = npix and nyim = 1 (so every cube keeps its layout), and
+4 pi / npix steradian a pixel.
 """
 
 
@@ -60,8 +65,7 @@ def build_observers(cfg: ResolvedConfig, device='cpu'
     if not par.save_peeloff:
         return None
     if par.nside > 0:
-        raise NotImplementedError('interior HEALPix observers (nside > 0) '
-                                  'are not ported to lart_tpu_torch')
+        return _build_inside(par, device)
 
     def arr(t, n):
         out = list(t) + [float('nan')] * (n - len(t))
@@ -198,6 +202,36 @@ def build_observers(cfg: ResolvedConfig, device='cpu'
         dxim=float(dxim), dyim=float(dyim), distance=float(distance),
         steradian_pix=float(dxim * dyim * DEG2RAD ** 2),
         pos_host=positions)
+    dev = ObserverDevice(
+        pos=torch.as_tensor(positions, dtype=torch.float32, device=device),
+        rmat=torch.as_tensor(rmats, dtype=torch.float32, device=device))
+    return meta, dev
+
+
+def _build_inside(par, device) -> Tuple[ObserverSetMeta, ObserverDevice]:
+    """Interior all-sky observers (nside > 0): HEALPix RING maps."""
+    from .healpix import nside2npix
+    nside = par.nside
+    npix = nside2npix(nside)
+
+    def fin_or(t, d):
+        v = t[0] if t else float('nan')
+        return float(v) if _fin(v) else d
+    xs = [fin_or(par.obsx, 0.0)]
+    ys = [fin_or(par.obsy, 0.0)]
+    zs = [fin_or(par.obsz, 0.0)]
+    # additional finite coordinate triples -> more interior observers
+    for i in range(1, min(len(par.obsx), len(par.obsy), len(par.obsz))):
+        if _fin(par.obsx[i]) and _fin(par.obsy[i]) and _fin(par.obsz[i]):
+            xs.append(par.obsx[i])
+            ys.append(par.obsy[i])
+            zs.append(par.obsz[i])
+    positions = np.stack([np.array([x, y, z]) for x, y, z in zip(xs, ys, zs)])
+    rmats = np.broadcast_to(np.eye(3), (len(xs), 3, 3)).copy()
+    meta = ObserverSetMeta(
+        nobs=len(xs), nxim=npix, nyim=1, dxim=0.0, dyim=0.0, distance=0.0,
+        steradian_pix=4.0 * math.pi / npix, inside=True, nside=nside,
+        npix=npix, pos_host=positions)
     dev = ObserverDevice(
         pos=torch.as_tensor(positions, dtype=torch.float32, device=device),
         rmat=torch.as_tensor(rmats, dtype=torch.float32, device=device))

@@ -68,9 +68,17 @@ velocity over r_loc); the event's bin and recoil take the clumps' Doppler
 width D_cl and the event clump's velocity.  lart_tpu hands the sightline a
 resonance's frequency in the owner's units and treats it as global; the
 port follows.  A dust event on clumps peels at the frequency K4's record
-keeps in xatom, the lane's in the owner's units.  The stellar direct peel
-and interior HEALPix observers are not ported (engine.check_supported
-names them).
+keeps in xatom, the lane's in the owner's units.
+
+An interior all-sky observer (nside > 0; peel.py:394-415) bins a pair at
+the HEALPix RING pixel (healpix.vec2pix_ring) of its arrival direction -pk,
+drops a pair within r^2 <= 1e-12 of the observer, and caps the sightline
+at the distance r to the observer (the raytrace_to_dist contract): the DDA
+and AMR walks end with a partial step at the cap, the chord is cut there.
+The flat bin is (o nxfreq + ixf) npix + ipix, as the TAN one with nxim =
+npix, nyim = 1.  Clumps, Stokes and line type 8 with an interior observer
+are vetoed (config.py:494-503).  The stellar direct peel is not ported
+(engine.check_supported names it).
 """
 
 from __future__ import annotations
@@ -87,14 +95,15 @@ import torch
 from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics import mueller as pmueller
-from ..transport.flight import (BIG, FlightConsts, chord_det, div,
-                                doppler_ratio, f32, fma)
+from ..transport.flight import (BIG, FlightConsts, capped_step, chord_det,
+                                div, doppler_ratio, f32, fma)
 from ..transport.fly_amr import AmrFlight, _comoving, exit_face, hop
 from ..transport.fly_clump import ClumpFlight
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
 from ..transport.scatter import (DUST_OFF, EVENT_CONVERSION, EVENT_DUST,
                                  EVENT_RESONANCE, dust_mode)
+from .healpix import vec2pix_ring
 from .observer import build_observers
 
 RAD2DEG = 180.0 / math.pi
@@ -185,7 +194,8 @@ class PeelParams(ctypes.Structure):
                 ('hg_1pg2', _F), ('hg_2g', _F),
                 ('mueller', pmueller.MuellerC), ('recoil', _I),
                 ('chord_prof', pline.LineProfC), ('hg_num_Ha', _F),
-                ('hg_1pg2_Ha', _F), ('hg_2g_Ha', _F)]
+                ('hg_1pg2_Ha', _F), ('hg_2g_Ha', _F), ('inside', _I),
+                ('nside', _I)]
 
 
 def hg_consts(g: float, f32_ops: bool):
@@ -310,6 +320,7 @@ class Peel:
             c.mueller = self.mueller.c_struct
         c.recoil = int(self.recoil)
         c.chord_prof = self.chord_prof.c_struct
+        c.inside, c.nside = int(o.inside), o.nside
         return c
 
     def c_params(self, cubes: PeelCubes, pair_out=None) -> PeelParams:
@@ -330,13 +341,19 @@ class Peel:
 # --------------------------------------------------------------------------
 
 def obs_geometry(p: Peel, o: int, x, y, z):
-    """Unit direction pk toward observer o, r^2, the flat TAN pixel and
-    whether it is in the image (obs_geometry, peel.py:394-425)."""
+    """Unit direction pk toward observer o, r^2, the flat pixel and whether
+    the pair is in the image (obs_geometry, peel.py:394-425): the TAN pixel
+    of an external observer, or for an interior one the HEALPix RING pixel
+    of the arrival direction -pk, a pair within r^2 <= 1e-12 of the
+    observer dropped (its 1/r^2 weight diverges)."""
     obs = p.obs_meta
     pkx, pky, pkz = p.pos[o, 0] - x, p.pos[o, 1] - y, p.pos[o, 2] - z
     r2 = pkx * pkx + pky * pky + pkz * pkz
     r = torch.sqrt(torch.clamp_min(r2, 1e-30))
     pkx, pky, pkz = pkx / r, pky / r, pkz / r
+    if obs.inside:
+        ipix = vec2pix_ring(obs.nside, -pkx, -pky, -pkz)
+        return (pkx, pky, pkz), r2, ipix.long(), r2 > np.float32(1e-12)
     R = p.rmat[o]
     kx = R[0, 0] * pkx + R[0, 1] * pky + R[0, 2] * pkz
     ky = R[1, 0] * pkx + R[1, 1] * pky + R[1, 2] * pkz
@@ -349,6 +366,14 @@ def obs_geometry(p: Peel, o: int, x, y, z):
     img = (torch.clamp(ix, 0, obs.nxim - 1) * obs.nyim
            + torch.clamp(iy, 0, obs.nyim - 1))
     return (pkx, pky, pkz), r2, img, in_img
+
+
+def obs_cap(p: Peel, r2):
+    """The sightline's cap: for an interior observer the distance to it
+    (the tau integration stops there), else None."""
+    if not p.obs_meta.inside:
+        return None
+    return torch.sqrt(torch.clamp_min(r2, 1e-30))
 
 
 def cell_D(p: Peel, cell):
@@ -377,14 +402,18 @@ def freq_bin(p: Peel, cell, pk, xf, band2=None):
     return ixf, (ixf >= 0) & (ixf < g.nxfreq)
 
 
-def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
+def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None,
+                cap=None):
     """Optical depth from pos along k to the grid's edge for the `active`
     lanes (0 elsewhere): the chord through the uniform sphere, or the
     lockstep DDA of tau_to_edge_cart with its early exit; where the mask
     band2 is set, the H-alpha band's dust-only opacity (0 without dust, and
-    nothing walked).  stats, a dict, gains the count of cell crossings
-    walked under 'crossings' and marks the cells walked in its 'visited'
-    mask."""
+    nothing walked).  With cap (per pair, an interior observer's distance)
+    the integration stops at that path length instead of the edge (the
+    raytrace_to_dist contract, peel.py:176-183): the chord is cut there
+    (:378-380), the DDA and AMR walks end with a partial step.  stats, a
+    dict, gains the count of cell crossings walked under 'crossings' and
+    marks the cells walked in its 'visited' mask."""
     g = p.grid
     if band2 is not None and g.rhokapD is None:
         active = active & ~band2
@@ -393,11 +422,16 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
         rho = (g.sphere_rho * pline.line_profile_q(g.line, p.chord_prof, xf)
                + g.sphere_rhoD)
         t_in, t_out = sphere_chord(g, *pos, *k)
+        if cap is not None:
+            t_out = torch.minimum(t_out, torch.maximum(cap, t_in))
+            t_in = torch.minimum(t_in, t_out)
         return torch.where(active, (t_out - t_in) * rho,
                            torch.zeros_like(xf))
     if g.amr is not None:
-        return _tau_amr(p, pos, cell[0], k, xf, active, stats, band2)
+        return _tau_amr(p, pos, cell[0], k, xf, active, stats, band2, cap)
     if g.clump is not None:
+        # clumps with an interior observer are vetoed (config.py:494-503)
+        assert cap is None
         return _tau_clump(p, pos, k, xf, active, stats)
     # the walk runs on the live pairs only, compacted after every crossing
     tau = torch.zeros_like(xf)
@@ -405,6 +439,8 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
     pos, cell, k = ([v[idx] for v in vs] for vs in (pos, cell, k))
     xf, acc = xf[idx], tau[idx]
     b2 = None if band2 is None else band2[idx]
+    cap = None if cap is None else cap[idx]
+    trav = torch.zeros_like(acc)
     for _ in range(p.max_steps):
         if idx.numel() == 0:
             break
@@ -417,7 +453,9 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
              if g.walk[a] else torch.full_like(xf, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
         axis = torch.where(dmin == t[0], 0, torch.where(dmin == t[1], 1, 2))
-        acc = acc + dmin * rho
+        dstep, hit_cap = capped_step(dmin, cap, trav)
+        acc = acc + dstep * rho
+        trav = trav + dstep
         npos = [fma(dmin, k[a], pos[a]) for a in range(3)]
         ncell, ndir = list(cell), list(k)
         esc = torch.zeros_like(xf, dtype=torch.bool)
@@ -433,23 +471,26 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None):
             u2 = g.vel_dot(ncell, *ndir)
             xf = torch.where(esc, xf,
                              div((xf + u1) * g.Dfreq, g.Dfreq) - u2)
-        done = esc | ~(acc < TAU_HUGE)
+        done = esc | hit_cap | ~(acc < TAU_HUGE)
         tau[idx[done]] = acc[done]
         keep = ~done
-        idx, xf, acc = idx[keep], xf[keep], acc[keep]
+        idx, xf, acc, trav = idx[keep], xf[keep], acc[keep], trav[keep]
         if b2 is not None:
             b2 = b2[keep]
+        if cap is not None:
+            cap = cap[keep]
         pos, cell, k = ([v[keep] for v in vs] for vs in (npos, ncell, ndir))
     tau[idx] = acc      # the pairs still live after max_steps
     return tau
 
 
-def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None):
+def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None,
+             cap=None):
     """tau_to_edge's AMR sightline (peel.py:242-290): node by node, the
     exit face, the neighbor hop and the descent of the flight (K8), with
-    its comoving update in a moving medium or at non-uniform temperature;
-    stats as in tau_to_edge, the cells being leaves, and its mask 'nodes'
-    marks the nodes walked."""
+    its comoving update in a moving medium or at non-uniform temperature,
+    to the cap where one is given; stats as in tau_to_edge, the cells being
+    leaves, and its mask 'nodes' marks the nodes walked."""
     g = p.grid
     amr = g.amr
     update = g.moving or not amr.uniform_temperature
@@ -458,6 +499,8 @@ def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None):
     pos, k = ([v[idx] for v in vs] for vs in (pos, k))
     ic, xf, acc = ic[idx], xf[idx], tau[idx]
     b2 = None if band2 is None else band2[idx]
+    cap = None if cap is None else cap[idx]
+    trav = torch.zeros_like(acc)
     for _ in range(p.max_steps):
         if idx.numel() == 0:
             break
@@ -473,7 +516,9 @@ def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None):
         rho = g.leaf_opacity(il, xf, a_c, D_c, b2)
         box = g.node_box(ic)
         dmin, axis, face = exit_face(pos, k, box)
-        acc = acc + dmin * rho
+        dstep, hit_cap = capped_step(dmin, cap, trav)
+        acc = acc + dstep * rho
+        trav = trav + dstep
         npos = [torch.where(axis == a, box[a] + torch.where(
             k[a] > 0, box[3], -box[3]), fma(dmin, k[a], pos[a]))
             for a in range(3)]
@@ -484,12 +529,15 @@ def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None):
             xf = torch.where(esc, xf, _comoving(
                 xf, g.leaf_vel_dot(il, *k), D_c, D2,
                 g.leaf_vel_dot(il2, *k)))
-        done = esc | ~(acc < TAU_HUGE)
+        done = esc | hit_cap | ~(acc < TAU_HUGE)
         tau[idx[done]] = acc[done]
         keep = ~done
         idx, xf, acc, ic = idx[keep], xf[keep], acc[keep], icn[keep]
+        trav = trav[keep]
         if b2 is not None:
             b2 = b2[keep]
+        if cap is not None:
+            cap = cap[keep]
         pos, k = [v[keep] for v in npos], [v[keep] for v in k]
     tau[idx] = acc      # the pairs still live after max_steps
     return tau
@@ -726,6 +774,7 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
 
     for o in range(p.nobs):
         pk, r2, img, in_img = obs_geometry(p, o, s.x, s.y, s.z)
+        cap = obs_cap(p, r2)
         for kind in kinds:
             flag = rec.flag != 0 if kind == DIRECT else rec.flag == kind
             if kind in (DUST, CONVERSION) and not bool(flag.any()):
@@ -735,7 +784,8 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
             ixf, okf = freq_bin(p, cell, pk, xf, b2)
             act = flag & in_img
             tau = tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, act & okf,
-                              stats, all_b2 if kind == CONVERSION else b2)
+                              stats, all_b2 if kind == CONVERSION else b2,
+                              cap)
             atten = torch.exp(-torch.clamp_max(tau, 700.0))
             idx = ((o * g.nxfreq + torch.clamp(ixf, 0, g.nxfreq - 1)).long()
                    * (obs.nxim * obs.nyim) + img)

@@ -8,6 +8,11 @@ per observer (Scattered/Direct cubes with spectral + TAN WCS keywords,
 RadialI, Stokes I/Q/U/V cubes and their Stokes_radial profiles, the
 H-alpha band's peel_Ha cube; write_output_peeling_3D, :288-407) and, with
 save_peeloff_2D, one _peel2D file of frequency-integrated images (:66-99).
+An interior observer's files hold all-sky HEALPix RING maps: _peel3D its
+Scattered and Direct (nxfreq, npix) maps, _peel2D their frequency
+integrals, with the PIXTYPE, ORDERING, NSIDE and NPIX keywords (:91-93,
+:313-340).  With save_sightline_tau one _tau file per observer holds its
+sight-line maps (:45-50; instruments/sightline.py).
 It writes through the port's io/iofile.py, so the files have LaRT's schema
 and lart_tpu's readers read them.  FITS needs only numpy (io/minifits.py);
 HDF5 needs h5py.  Merging into an existing output (out_merge) is not
@@ -44,6 +49,13 @@ def write_output(filename: str, res: RunResult) -> str:
     _peel3D/_peel2D files beside it (write_output_outside,
     write_output_rect.f90:24-46)."""
     out = _write_basic(filename, res)
+    if res.sightline is not None:
+        from ..instruments.sightline import write_sightline_tau
+        base, ext = os.path.splitext(filename)
+        for k, maps in enumerate(res.sightline):
+            suffix = '' if len(res.sightline) == 1 else f'_{k + 1:03d}'
+            write_sightline_tau(f'{base}{suffix}_tau{ext}', maps, res.cfg,
+                                res.meta)
     if res.peel is not None:
         base, ext = os.path.splitext(filename)
         nobs = res.obs_meta.nobs
@@ -75,6 +87,10 @@ def write_output_peeling_2D(filename: str, res: RunResult, iobs: int) -> str:
     if 'I' in res.peel:
         pairs += [(f'Stokes_{nm}', nm) for nm in 'IQUV']
     hk = {'nphotons': float(res.nphotons), 'I_unit': par.intensity_unit}
+    obs = res.obs_meta
+    if obs.inside:
+        hk.update(PIXTYPE='HEALPIX', ORDERING='RING', NSIDE=obs.nside,
+                  NPIX=obs.npix)
     with open_write(filename, par.file_format) as f:
         for name, key in pairs:
             g = f.create_group(name)
@@ -102,6 +118,8 @@ def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
     if 'Ha' in res.peel:
         # ly_beta band-2 H-alpha peel cube (write_output_rect.f90:1180-1185)
         cubes['peel_Ha'] = res.peel['Ha'][iobs]
+    if obs.inside:
+        return _write_healpix_3D(filename, res, cubes)
     wcs = {
         'CTYPE1': 'WAVE', 'CUNIT1': 'Angstrom',
         'CRPIX1': 1.0, 'CRVAL1': float(res.wavelength[0]),
@@ -144,6 +162,24 @@ def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
             for nm, arr in zip(('radius', 'I', 'Q', 'U', 'V', 'pol'), prof):
                 g.create_dataset(nm, data=arr)
             _put_attrs(g, {'EXTNAME': 'Stokes_radial'})
+    return filename
+
+
+def _write_healpix_3D(filename: str, res: RunResult, cubes) -> str:
+    """An interior observer's all-sky HEALPix RING maps (nxfreq, npix)
+    (write_output_heal.f90's peel sections; lart_tpu/io/writer.py:
+    313-340)."""
+    par, meta, obs = res.cfg.par, res.meta, res.obs_meta
+    hk = {'PIXTYPE': 'HEALPIX', 'ORDERING': 'RING', 'NSIDE': obs.nside,
+          'NPIX': obs.npix, 'Xfreq1': meta.xfreq_min,
+          'Xfreq2': meta.xfreq_max, 'Dxfreq': meta.dxfreq,
+          'I_unit': par.intensity_unit, 'nphotons': float(res.nphotons)}
+    with open_write(filename, par.file_format) as f:
+        for name in ('Scattered', 'Direct'):
+            g = f.create_group(name)
+            g.create_dataset('data', data=np.asarray(
+                cubes[name].reshape(meta.nxfreq, obs.npix), _bitpix(par)))
+            _put_attrs(g, dict(hk, EXTNAME=name))
     return filename
 
 

@@ -36,16 +36,17 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'cuda_kernels'
 SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
            'fly_cartesian.cu', 'fly_sphere.cu', 'peel.cu', 'fly_amr.cu',
-           'fly_clump.cu')
+           'fly_clump.cu', 'sightline.cu')
 HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
-           'mueller.cuh', 'line.cuh', 'h2.cuh', 'amr.cuh', 'clump.cuh')
+           'mueller.cuh', 'line.cuh', 'h2.cuh', 'amr.cuh', 'clump.cuh',
+           'healpix.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
 LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'fly_uniform_slab': 0,
             'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0,
             'peel': 0, 'fly_amr': 0, 'fly_clump_dense': 0,
-            'fly_clump_csr': 0}
+            'fly_clump_csr': 0, 'sightline': 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LANES = ctypes.POINTER(ctypes.c_void_p)    # the lane-field pointer table
@@ -57,6 +58,8 @@ _ARGTYPES = {
     'lart_scatter_params_size': [],
     'lart_amr_grid_size': [],
     'lart_clump_grid_size': [],
+    'lart_sightline_params_size': [],
+    'lart_source_params_size': [],
 }
 
 _lib = None
@@ -132,8 +135,10 @@ def library() -> ctypes.CDLL:
         # the modules of the kernels import this one: their structs come
         # in here
         from ..instruments.peel import PeelParams
+        from ..instruments.sightline import SightParams
         from ..physics.line import LineC
         from ..transport.flight import AmrC, ClumpC, FlightParams
+        from ..transport.refill import SourceC
         from ..transport.scatter import ScatterC
         lib = ctypes.CDLL(str(build()))
         flight = ctypes.POINTER(FlightParams)    # K5-K8 grid, by pointer
@@ -144,7 +149,7 @@ def library() -> ctypes.CDLL:
                                _I, _I, _I, _F, _I, _F, _F, _F, _F, _F, _I, _F,
                                _F, _I, _P, _F, _F, line,
                                ctypes.POINTER(AmrC), ctypes.POINTER(ClumpC),
-                               _P, _P, _P, _P],
+                               _P, _P, _P, ctypes.POINTER(SourceC), _P],
             lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
                                    _P, _P, _P, _F, line, _P],
@@ -156,7 +161,8 @@ def library() -> ctypes.CDLL:
             lart_peel=[_LANES, _LANES, _I, _I, flight,
                        ctypes.POINTER(PeelParams), _P],
             lart_scatter_lya=[_LANES, _LANES, _I, _U, _U,
-                              ctypes.POINTER(ScatterC), _P])
+                              ctypes.POINTER(ScatterC), _P],
+            lart_sightline=[flight, ctypes.POINTER(SightParams), _P])
         for name, argtypes in argtypes_of.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -173,7 +179,11 @@ def library() -> ctypes.CDLL:
                 (lib.lart_peel_params_size, PeelParams,
                  'csrc/peel.cu and instruments/peel.py'),
                 (lib.lart_scatter_params_size, ScatterC,
-                 'csrc/scatter_lya.cu and transport/scatter.py')):
+                 'csrc/scatter_lya.cu and transport/scatter.py'),
+                (lib.lart_sightline_params_size, SightParams,
+                 'csrc/sightline.cu and instruments/sightline.py'),
+                (lib.lart_source_params_size, SourceC,
+                 'csrc/refill.cu and transport/refill.py')):
             if fn() != ctypes.sizeof(struct):
                 raise RuntimeError(f'{struct.__name__}: {where} disagree '
                                    f'on its layout')

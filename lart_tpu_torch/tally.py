@@ -46,6 +46,8 @@ class RunResult:
     # peel cubes: name -> (nobs, nxfreq, nxim, nyim), normalized
     peel: Optional[dict] = None
     obs_meta: object = None      # instruments.observer.ObserverSetMeta
+    # per observer {'tau_gas', 'N_gas', 'tau_dust'} (save_sightline_tau)
+    sightline: Optional[list] = None
     # H2 pumping, per photon (0 and None without it)
     W_H2abs: float = 0.0
     W_H2scat: float = 0.0

@@ -44,6 +44,9 @@ from .refill import SPECTRA, RefillParams, refill
 from .scatter import ScatterParams, scatter
 from .state import DEAD, BatchState, zero_tallies
 
+# the ported source geometries
+SOURCES = ('point', '', 'exponential_cylinder')
+
 
 def uniform_slab_fastpath(cfg, meta) -> bool:
     """True when the medium is one constant-opacity static slab, periodic
@@ -100,8 +103,6 @@ def check_supported(cfg, meta=None) -> None:
         ('H2 pumping on a clump medium', clump and h2_on(par)),
         (f'line_type {cfg.line.line_type} (only 1, 2 and 4-8)',
          cfg.line.line_type not in LINE_TYPES),
-        ('peel-off observers inside the grid (nside > 0, HEALPix)',
-         par.save_peeloff and par.nside > 0),
         ('calcJ/calcP/calcPnew', par.calcJ or par.calcP or par.calcPnew),
         ('save_all_photons', par.save_all_photons),
         ('checkpoint_file/resume_checkpoint',
@@ -117,11 +118,19 @@ def check_supported(cfg, meta=None) -> None:
          par.Omega != 0.0 and par.xy_periodic),
         ('out_merge', par.out_merge),
         ('save_input_grid', par.save_input_grid),
-        ('save_sightline_tau', par.save_sightline_tau),
+        # lart_tpu's AMR sightline has no interior branch: its rays would
+        # be TAN rays of width 0 (ROADMAP queue 3)
+        ('save_sightline_tau with an interior observer (nside > 0) on an '
+         'AMR grid', par.save_sightline_tau and par.save_peeloff
+         and par.nside > 0 and amr),
         ('metrics_file', bool(par.metrics_file.strip())),
         ('profile_dir', bool(par.profile_dir.strip())),
-        ('source_geometry other than point',
-         par.source_geometry.strip().lower() not in ('point', '')),
+        # the stellar direct peel (peel.py:709, PERF.md row 13)
+        ('peel-off of a stellar_illumination source (the stellar direct '
+         'peel)', par.save_peeloff
+         and par.source_geometry.strip().lower() == 'stellar_illumination'),
+        ('source_geometry other than point and exponential_cylinder',
+         par.source_geometry.strip().lower() not in SOURCES),
         ('spectral_type other than voigt/monochromatic/gaussian/continuum',
          par.spectral_type.strip().lower() not in SPECTRA)) if on]
     if meta is not None:

@@ -106,6 +106,18 @@ def div(a: torch.Tensor, b: float) -> torch.Tensor:
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def capped_step(dmin, cap, trav):
+    """(step, whether it reaches the cap) of a walk from path length trav
+    with the next face dmin away: the step stops at the cap, and the walk
+    with it where dmin >= cap - trav (lart_tpu's peel.py:260-265 and
+    sightline.py:89-95, an interior observer's sightline); without a cap
+    (None) the step is dmin."""
+    if cap is None:
+        return dmin, torch.zeros_like(dmin, dtype=torch.bool)
+    dleft = torch.clamp_min(cap - trav, 0.0)
+    return torch.minimum(dmin, dleft), dmin >= dleft
+
+
 def doppler_ratio(D, D_ref: float):
     """D / D_ref, a cell's Doppler width over the reference one, as
     lart_tpu's f32 division: per lane where D is a tensor (an AMR grid at

@@ -1,7 +1,8 @@
 """Refill: dead lanes are reborn from the photon budget (kernel K2).
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
-:2689) for a point source (source_geometry 'point' or '') with a Voigt,
+:2689) for a point source (source_geometry 'point' or '') or an
+exponential cylinder (see below) with a Voigt,
 monochromatic, Gaussian or flat continuum input spectrum in a medium
 static or moving, on a Cartesian grid of uniform temperature or on the
 octree AMR grid.  A line of type 2, 4, 5 or 6
@@ -48,12 +49,25 @@ number.  A launched lane draws its uniforms from Philox at counter
 With peel-off on, the refill also writes the flag of a PeelRecord: 1 on
 the lanes it launched, 0 elsewhere, so that the direct peel of the
 newborn photons (kernel K7, engine.py:2909-2913) runs on exactly those.
+
+The exponential_cylinder source (gen_position, engine.py:2629-2637) draws
+each birth's position from the uniforms of block 4, after every earlier
+block, so a point source draws as before: the cylindrical radius from
+the log-log table of physics/sources.py (u0), the azimuth 2 pi u1, and
+z from the truncated exponential in |z| up to zmax (_zexp, :2569-2575;
+magnitude u2, sign u3) or, with source_zscale <= 0, uniform over the box
+(zmin + zrange u2); with xyz_symmetry the position's absolute values
+(:2722-2723).  The birth cell is then the lane's own: on a Cartesian grid
+clip(floor((x - xmin) / dx)) per axis (:2759-2765), its velocity gathered
+per lane in a moving medium; on the AMR grid and the clump medium the
+lookups above run at the lane's position.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -63,12 +77,88 @@ from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics.rng import STREAM_REFILL, uniforms
 from ..physics.samplers import TWOPI, box_muller, rand_voigt_x
-from .flight import AmrGrid, ClumpGrid, div, doppler_ratio
+from ..physics.sources import (RadialTable, build_sources, sample_radius_loglog,
+                               zexp, zexp_consts)
+from .flight import AmrGrid, ClumpGrid, div, doppler_ratio, fma
 from .state import DEAD, FFS, BatchState, Tallies
 
 SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS, SPECTRUM_CONT = 0, 1, 2, 3
 SPECTRA = {'monochromatic': SPECTRUM_MONO, 'voigt': SPECTRUM_VOIGT,
            'gaussian': SPECTRUM_GAUSS, 'continuum': SPECTRUM_CONT}
+BLOCK_SOURCE = 4     # the Philox block of an extended source's position
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class SourceC(ctypes.Structure):
+    """csrc/refill.cu struct SourceC, field for field."""
+    _fields_ = [('log_p', _P), ('log_r', _P), ('n', _I), ('zexp', _I),
+                ('neg_zs', _F), ('zexp_c', _F), ('zmin', _F), ('zrange', _F),
+                ('abs_xyz', _I), ('cells', _I * 3), ('amin', _F * 3),
+                ('d', _F * 3)]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ExpCylinder:
+    """The exponential_cylinder source: the radius table, the z law
+    (zexp (-zs, c) of the truncated exponential, or None for uniform z in
+    [zmin, zmin + zrange)), xyz_symmetry, and the Cartesian grid's cells
+    (n, amin, d) a birth's cell is found in."""
+    table: RadialTable
+    zexp: Optional[tuple]
+    zmin: float
+    zrange: float
+    abs_xyz: bool
+    n: tuple
+    amin: tuple
+    d: tuple
+
+    @classmethod
+    def from_config(cls, cfg, meta, device) -> Optional['ExpCylinder']:
+        table = build_sources(cfg, device)
+        if table is None:
+            return None
+        par = cfg.par
+        return cls(table=table,
+                   zexp=zexp_consts(par) if par.source_zscale > 0 else None,
+                   zmin=meta.zmin, zrange=meta.zmax - meta.zmin,
+                   abs_xyz=bool(par.xyz_symmetry),
+                   n=(meta.nx, meta.ny, meta.nz),
+                   amin=(meta.xmin, meta.ymin, meta.zmin),
+                   d=(meta.dx, meta.dy, meta.dz))
+
+    def position(self, w):
+        """The birth positions (x, y, z) of block-4 uniforms w (4, B)."""
+        rp = sample_radius_loglog(w[0], self.table)
+        phi = TWOPI * w[1]
+        x, y = rp * torch.cos(phi), rp * torch.sin(phi)
+        z = zexp(w[2], w[3], *self.zexp) if self.zexp is not None \
+            else fma(w[2], self.zrange, self.zmin)
+        if self.abs_xyz:
+            x, y, z = torch.abs(x), torch.abs(y), torch.abs(z)
+        return x, y, z
+
+    def cells(self, pos):
+        """The Cartesian cells (ic, jc, kc) holding the positions, clipped
+        to the grid (engine.py:2759-2765)."""
+        return tuple(torch.clamp(torch.floor(div(v - np.float32(a), d)), 0,
+                                 n - 1).to(torch.int32)
+                     for v, a, d, n in zip(pos, self.amin, self.d, self.n))
+
+    @functools.cached_property
+    def c_struct(self) -> SourceC:
+        c = SourceC()
+        c.log_p, c.log_r = (t.data_ptr() for t in self.table.tensors())
+        c.n = self.table.n
+        c.zexp = int(self.zexp is not None)
+        if self.zexp is not None:
+            c.neg_zs, c.zexp_c = self.zexp
+        c.zmin, c.zrange = self.zmin, self.zrange
+        c.abs_xyz = int(self.abs_xyz)
+        c.cells[:] = self.n
+        c.amin[:] = self.amin
+        c.d[:] = self.d
+        return c
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +182,10 @@ class RefillParams:
     Dfreq: float = 1.0       # Doppler width of the source cell (Hz)
     line: pline.LineConsts = None
     amr: Optional[AmrGrid] = None    # the octree, on an AMR grid
-    vel: Optional[tuple] = None      # its per-leaf velocities (moving)
+    vel: Optional[tuple] = None      # per-leaf velocities (AMR), or per
+    #   cell for an extended source on a moving Cartesian grid
     clump: Optional[ClumpGrid] = None   # the clumps, on a clump medium
+    source: Optional[ExpCylinder] = None    # an exponential_cylinder source
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None, cmeta=None) -> 'RefillParams':
@@ -105,6 +197,8 @@ class RefillParams:
         pos = [f32(par.xs_point), f32(par.ys_point), f32(par.zs_point)]
         cells, v_src, amr, vel = [0, 0, 0], (0.0, 0.0, 0.0), None, None
         clump = None
+        source = ExpCylinder.from_config(
+            cfg, meta, 'cpu' if grid is None else grid.rhokap.device)
         if meta.grid_type == 'clump':
             # the births find their clump themselves (clump_find)
             clump = ClumpGrid.from_meta(cfg, meta, cmeta, grid)
@@ -122,9 +216,13 @@ class RefillParams:
                 # computes it
                 c = np.floor((p - f32(amin)) / f32(d))
                 cells[a] = int(min(max(c, 0), n - 1))
-            if not meta.static_medium:
+            if not meta.static_medium and source is None:
                 v_src = tuple(float(v[tuple(cells)])
                               for v in (grid.vfx, grid.vfy, grid.vfz))
+            elif not meta.static_medium:
+                # each birth gathers its own cell's velocity
+                vel = tuple(v.reshape(-1).contiguous()
+                            for v in (grid.vfx, grid.vfy, grid.vfz))
         gsig = (par.gaussian_FWHM_vel / 2.3548200450309493
                 if par.gaussian_FWHM_vel > 0 else par.gaussian_sigma_vel)
         return cls(xs=float(pos[0]), ys=float(pos[1]), zs=float(pos[2]),
@@ -138,7 +236,7 @@ class RefillParams:
                    xfreq_span=pline.f32(meta.xfreq_max - meta.xfreq_min),
                    Dfreq=meta.Dfreq_ref,
                    line=pline.LineConsts.from_config(cfg), amr=amr, vel=vel,
-                   clump=clump)
+                   clump=clump, source=source)
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -159,6 +257,16 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     cell = (p.ic, p.jc, p.kc)
     src = [torch.full((B,), v, dtype=torch.float32, device=dev)
            for v in (p.xs, p.ys, p.zs)]
+    if p.source is not None:
+        # an extended source: each birth's own position (block 4)
+        src = list(p.source.position(uniforms(seed, STREAM_REFILL, lanes,
+                                              counter, BLOCK_SOURCE)))
+        if p.clump is None and p.amr is None:
+            cell = p.source.cells(src)
+            if p.vel is not None:
+                f = (cell[0].long() * p.source.n[1] + cell[1]) \
+                    * p.source.n[2] + cell[2]
+                v_src = tuple(v[f] for v in p.vel)
     if p.clump is not None:
         cell = (p.clump.find(*src), 0, 0)
     elif p.amr is not None:
@@ -212,7 +320,7 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
                                                       device=dev), cur))
 
     put('phase', FFS)
-    for nm, val in (('x', p.xs), ('y', p.ys), ('z', p.zs)):
+    for nm, val in zip(('x', 'y', 'z'), src):
         put(nm, val)
         put('b' + nm, val)
     for nm, val in zip(('ic', 'jc', 'kc'), cell):
@@ -247,7 +355,10 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
                         *(getattr(state, f) for f in ('phase', 'x')),
                         *(() if record is None else (record.flag,)),
                         *(() if p.amr is None else p.amr.dev.tensors()),
-                        *(() if p.clump is None else p.clump.dev.tensors()))
+                        *(() if p.clump is None else p.clump.dev.tensors()),
+                        *(() if p.source is None
+                          else p.source.table.tensors()),
+                        *(p.vel or ()))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
@@ -260,6 +371,7 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         None if p.clump is None else ctypes.byref(p.clump.c_struct),
         *(v.data_ptr() if v is not None else None
           for v in (p.vel or (None,) * 3)),
+        None if p.source is None else ctypes.byref(p.source.c_struct),
         kbuild.stream_of(state.x)),
         'refill_point')
     kbuild.LAUNCHES['refill_point'] += 1

@@ -65,6 +65,24 @@ def clump_to_jax(meta: GridMeta, cmeta, dev):
                 for f in jclump.ClumpDevice._fields}))
 
 
+def observers_to_jax(meta, pos, rmat):
+    """The port's observer set (ObserverSetMeta and the f32 positions and
+    rotation matrices) -> lart_tpu's (ObserverSetMeta, ObserverDevice),
+    through numpy, so both packages peel to the same observers."""
+    from lart_tpu.instruments import observer as jobs
+    return (jobs.ObserverSetMeta(**dataclasses.asdict(meta)),
+            jobs.ObserverDevice(pos=jnp.asarray(pos.cpu().numpy()),
+                                rmat=jnp.asarray(rmat.cpu().numpy())))
+
+
+def sources_to_jax(table):
+    """The port's radial source table (physics/sources.py RadialTable) ->
+    lart_tpu's SourceTables with its f32 knots r_p, r_r."""
+    from lart_tpu.physics.sources import SourceTables
+    return SourceTables(r_p=jnp.asarray(table.p.cpu().numpy()),
+                        r_r=jnp.asarray(table.r.cpu().numpy()))
+
+
 def state_to_jax(state: BatchState):
     """The port's state -> lart_tpu BatchState; the fields the port does
     not carry take lart_tpu's init_state values."""

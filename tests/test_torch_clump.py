@@ -318,8 +318,12 @@ def test_check_supported_on_clumps():
     cfg, jcfg, meta, cmeta, dev, _ = _build(h2_model='neufeld', f_H2=0.03)
     with pytest.raises(NotImplementedError, match='H2 pumping on a clump'):
         teng.make_chunk(cfg, meta, dev, cmeta)
-    par = _par(save_sightline_tau=True, save_peeloff=True)
-    with pytest.raises(NotImplementedError, match='save_sightline_tau'):
+    # sight-line maps on clumps are ported (K11); the source geometries
+    # but point and exponential_cylinder are not
+    teng.check_supported(_par(save_sightline_tau=True,
+                              save_peeloff=True).resolve())
+    par = _par(source_geometry='exponential_sphere')
+    with pytest.raises(NotImplementedError, match='source_geometry'):
         teng.check_supported(par.resolve())
 
 

@@ -46,6 +46,12 @@ CLUMP_KEYS = {'fly_clump_dense', 'fly_clump_csr', 'refill_point (clump)',
               'scatter_lya (clump) (line types 2, 4-7)'}
 
 
+# K11 and the interior branch of K7 and the exponential-cylinder births of
+# K2 (chip_smoke.phase2_inside)
+INSIDE_KEYS = {'sightline', 'peel (interior)',
+               'refill_point (exponential_cylinder)'}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
@@ -59,7 +65,7 @@ def test_kernels_match_plain_versions(cuda):
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
-        | CLUMP_KEYS
+        | CLUMP_KEYS | INSIDE_KEYS
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -355,3 +361,33 @@ def test_driver_runs_the_clump_kernels(cuda, dense_max):
     assert np.all(np.isfinite(res.Jout))
     assert abs(res.W_escape + res.W_oor - 1.0) < 1e-3
     assert float(res.peel['scatt'].sum()) > 0.0
+
+
+def test_driver_runs_the_interior_observer(cuda):
+    """driver.run with an interior all-sky observer and save_sightline_tau
+    on examples/healpix_CIV/CIV_test.in cut (33x33x17, nside 16, 2000
+    photons): K2's exponential-cylinder births, K5, K4, K7's interior mode
+    and K11 launched; the weight closes, the HEALPix maps and the tau maps
+    are finite."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from lart_tpu_torch import driver
+    from lart_tpu_torch.config import Params
+    from lart_tpu_torch.kernels import build as kb
+    par = Params.from_namelist(str(Path(__file__).resolve().parents[1]
+                                   / 'examples/healpix_CIV/CIV_test.in'))
+    par.save_peeloff = True
+    par.nx, par.ny, par.nz, par.nside, par.nphotons = 33, 33, 17, 16, 2000
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=3)
+    need = ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+            'sightline')
+    assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
+    assert abs(res.W_escape + res.W_oor - 1.0) < 1e-3
+    assert res.peel['scatt'].shape == (1, res.meta.nxfreq, 3072, 1)
+    assert float(res.peel['direc'].sum()) > 0.0
+    m = res.sightline[0]
+    assert m['tau_gas'].shape == (res.meta.nxfreq, 3072, 1)
+    assert np.all(np.isfinite(m['tau_gas'])) and float(m['N_gas'].min()) > 0

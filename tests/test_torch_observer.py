@@ -18,6 +18,7 @@ from lart_tpu.instruments import observer as jobs
 from lart_tpu_torch import testing
 from lart_tpu_torch.config import Params
 from lart_tpu_torch.instruments import observer as tobs
+from lart_tpu_torch.transport import engine as teng
 
 import _torch_jax_bridge as bridge
 
@@ -83,6 +84,13 @@ def test_no_observers_without_save_peeloff():
 
 
 def test_interior_observer_is_not_ported():
+    """The one interior-observer path still refused: sight-line maps on an
+    AMR grid (lart_tpu's AMR sightline has no interior branch); the
+    observers themselves are built, as lart_tpu builds them."""
     par = testing.sphere_params(n=9, save_peeloff=True, nside=4)
+    meta, dev = tobs.build_observers(par.resolve())
+    assert meta.inside and meta.npix == 192 and meta.nxim == 192
+    assert tuple(dev.pos.shape) == (1, 3)
+    par.save_sightline_tau, par.use_amr_grid = True, True
     with pytest.raises(NotImplementedError, match='nside'):
-        tobs.build_observers(par.resolve())
+        teng.check_supported(par.resolve())

@@ -398,8 +398,12 @@ def test_check_supported_accepts_the_slice(example):
 OUT_OF_SLICE = {
     'save_all_photons': dict(save_all_photons=True),
     'n_devices > 1': dict(n_devices=2),
-    'save_sightline_tau': dict(save_sightline_tau=True),
-    'peel-off observers': dict(save_peeloff=True, nobs=1, nside=4),
+    # lart_tpu's AMR sightline has no interior branch
+    'save_sightline_tau': dict(save_sightline_tau=True, save_peeloff=True,
+                               nside=4, use_amr_grid=True),
+    # the stellar direct peel
+    'peel-off observers': dict(save_peeloff=True, nobs=1,
+                               source_geometry='stellar_illumination'),
     'out_merge': dict(out_merge=True),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
     'non-uniform temperature': dict(temp_file='temp.fits'),
