@@ -64,7 +64,16 @@ Phases (one line each, or more):
      the 201^3 Hubble grid (TAN and interior), the AMR sphere,
      clumps_overlap.in and the 1.48M-clump population; K2's
      exponential-cylinder births on CIV_test's grid, the Hubble grid and
-     the AMR sphere
+     the AMR sphere; the volume and table sources (phase2_sources): K2's
+     volume instance on examples/HeI_sphere_cont/t4tau2.in as written
+     (uniform_sphere, continuum), with voigt0 and continuum+gaussian, a
+     point source with voigt0, and every analytic geometry on the 201^3
+     grid of vel_effect/t4NHI2_20_V0200.in (xyz_symmetry); the radial
+     instance on SSH_MUSE/halo_0053.in as written (ssh), exponential_sphere
+     and a sersic m = 4; the alias instance on many_stars/stars1.in as
+     written, density1/density2 on a 65^3 cut of halo_0053, the jellyfish
+     leaves' emissivity, the 1-D profile of emiss_1D_AlII/AlII_ex.in and a
+     205^3 = 8.6M-cell table
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -104,7 +113,12 @@ Phases (one line each, or more):
      CIV_test.in with save_peeloff (1e5 photons: <N_scatt> beside RUNLOG's
      14.54, the _peel3D/_peel2D HEALPix maps with NSIDE 64, the _tau
      file) and the sightline tool on both examples/sightline_tau inputs
-     (N_gas against the analytic chord of their sphere)
+     (N_gas against the analytic chord of their sphere); the volume and
+     table sources (sources_cli, testing.SOURCE_CASES): t4tau2.in and
+     HeI_coherent_test/un_tau100_coh.in as written, stars1.in cut to 2e4
+     photons and taumax 3e3, halo_0053.in cut to taumax 1e4,
+     jellyfish_emiss.in to 3e3, AlII_ex.in without its temp_file (the
+     weight budget against the birth weights, <N_scatt>)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -116,7 +130,9 @@ Phases (one line each, or more):
      observer and h2_on as written, the AMR cells, clumps_overlap.in,
      bicone_clump.in, the 1.48M-clump population and clumps_overlap.in
      with one observer on +z, CIV_test.in with save_peeloff (and K11's ms
-     for one whole nside-64 map); a torch.profiler breakdown of
+     for one whole nside-64 map), t4tau2.in, stars1.in and halo_0053.in as
+     written (K2's volume, alias and radial instances); a torch.profiler
+     breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
 Any failure raises and exits non-zero.  Before the last line it prints one
@@ -203,6 +219,9 @@ SL_CAR = 'sightline_tau/sightline_car.in'
 SL_INSIDE = 'sightline_tau/sightline_inside.in'
 CIV_NSCATT, CIV_NSIDE = 14.54, 64
 INSIDE, EXPCYL = ' (interior)', ' (exponential_cylinder)'
+# the volume and table sources: the Hubble grid the analytic geometries are
+# held on (xyz_symmetry), and phase 5's three windows
+VEL_EFFECT = 'vel_effect/t4NHI2_20_V0200.in'
 # a dense population whose rays cross more chords than K9's list holds
 MANY_CHORDS = dict(clump_allow_overlap=True, clump_N_clumps=1000,
                    clump_radius=0.2, clump_tau0=0.3)
@@ -272,7 +291,7 @@ def kernel_work(name, pre, ch, meta, stats=None):
     if name == 'voigt_h':
         # H(x, a) of every lane's xfreq: 4 bytes in and out, ~40 flops
         return B * 8, B * 40
-    if name == 'refill_point':
+    if name.startswith('refill_'):
         k = int((ph == DEAD).sum())
         # on the AMR grid the source's node, read once: a fine-map voxel or
         # the descent's levels, its leaf's physics
@@ -288,15 +307,32 @@ def kernel_work(name, pre, ch, meta, stats=None):
             m = cl.n if cl.dense else cl.K
             clump = m * 16 + (0 if cl.dense else cl.K * 4) + 12 * cl.moving
             flops = m * 9
-        # an extended source (exponential_cylinder): the log-log table read
-        # once, and each launched lane's ~11-step binary search, the
-        # interpolation, exp, log, cos, sin and log1p (~60 flops), its
-        # Cartesian cell (~10) and, moving, its velocity (12 B)
+        # an extended source: its instance's draws for each launched lane
+        # (a Philox block and its trig, ~60 flops; its Cartesian cell, ~10;
+        # moving, the cell's velocity, 12 B) and the tables it reads once:
+        # the radial table's knots (each lane's ~11-step binary search, the
+        # interpolation, exp and log, ~50 flops), or each distinct alias bin
+        # a lane drew (its probability and alias, its star's position, its
+        # leaf's centre and half-size or its profile knots, its weight;
+        # a second Philox block, ~60 flops)
         src = ch.refill_params.source
         if src is not None:
-            clump += src.table.n * 8 + (k * 12 if ch.refill_params.vel
-                                        else 0)
-            flops += 11 * 4 + 70
+            from lart_tpu_torch.transport.refill import (GEOM_LEAVES,
+                                                         GEOM_PROFILE,
+                                                         GEOM_STARS)
+            clump += k * 12 if ch.refill_params.vel else 0
+            flops += 70
+            t = src.tabs
+            if src.table is not None:
+                clump += src.table.n * 8
+                flops += 11 * 4
+            elif t is not None and t.prob is not None:
+                entry = {GEOM_STARS: 12, GEOM_LEAVES: 16,
+                         GEOM_PROFILE: 16}.get(src.geom, 0) \
+                    + (4 if t.wgt is not None else 0) \
+                    * (2 if src.geom == GEOM_PROFILE else 1)
+                clump += min(k, t.nbin) * (8 + entry)
+                flops += 60 + (30 if src.geom == GEOM_PROFILE else 10)
         return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4 + amr + clump, \
             k * (60 + flops)
     if name == 'scatter_lya':
@@ -538,12 +574,12 @@ def phase1():
     name = None
     for n, fn, used in regs:
         if fn:
-            # a kernel's instances (line.cuh kMulti, h2.cuh kH2) by their
-            # template arguments
-            m = re.match(r'I((?:Lb[01]E)+)', fn[int(n):])
+            # a kernel's instances (line.cuh kMulti, h2.cuh kH2, refill.cu
+            # kSrc) by their template arguments
+            m = re.match(r'I((?:L[bi]\d+E)+)', fn[int(n):])
             name = fn[:int(n)] + ('<' + ', '.join(
-                'true' if b == '1' else 'false'
-                for b in re.findall(r'Lb([01])E', m.group(1))) + '>'
+                ('true' if v == '1' else 'false') if t == 'b' else v
+                for t, v in re.findall(r'L([bi])(\d+)E', m.group(1))) + '>'
                 if m else '')
         elif name:
             per[name] = int(used)
@@ -792,6 +828,7 @@ def phase2(dev):
     phase2_amr(dev, res)
     phase2_clump(dev, res)
     phase2_inside(dev, res)
+    phase2_sources(dev, res)
     return res
 
 
@@ -1718,6 +1755,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         amr_runs(tmp, device, total)
         clump_cli(tmp, device, total)
         inside_cli(tmp, device, total)
+        sources_cli(tmp, device, total)
     return total
 
 
@@ -2636,8 +2674,8 @@ def phase2_inside(dev, res):
     s0, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',),
                                   dev)
     born = (s0.phase == 0) & (sk.phase != 0)
-    _max_err(res, 'refill_point' + EXPCYL, err)
-    log(2, f'K2 refill_point (exponential_cylinder, rscale '
+    _max_err(res, 'refill_radial' + EXPCYL, err)
+    log(2, f'K2 refill_radial (exponential_cylinder, rscale '
            f'{cfg.par.source_rscale}, zscale {cfg.par.source_zscale}, table '
            f'{ch.refill_params.source.table.n} knots): {int(born.sum())} '
            f'births, birth radius max '
@@ -2685,8 +2723,8 @@ def phase2_inside(dev, res):
     seed += 2
     _, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',), dev,
                                  r_max=1.0)
-    _max_err(res, 'refill_point' + EXPCYL, err)
-    log(2, f'K2 refill_point (exponential_cylinder on the Hubble grid, '
+    _max_err(res, 'refill_radial' + EXPCYL, err)
+    log(2, f'K2 refill_radial (exponential_cylinder on the Hubble grid, '
            f'lab-frame source): lanes differing {frac:.2e}, max abs err '
            f'{err:.3e}; Jin max |d| {tal["Jin"]:.3e}')
     del ch, grid
@@ -2712,8 +2750,8 @@ def phase2_inside(dev, res):
     seed += 2
     _, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',), dev,
                                  state=amr_state(seed))
-    _max_err(res, 'refill_point' + EXPCYL, err)
-    log(2, f'K2 refill_point (exponential_cylinder on the AMR sphere: each '
+    _max_err(res, 'refill_radial' + EXPCYL, err)
+    log(2, f'K2 refill_radial (exponential_cylinder on the AMR sphere: each '
            f'birth finds its node): lanes differing {frac:.2e}, max abs err '
            f'{err:.3e}; Jin max |d| {tal["Jin"]:.3e}')
     del ch, r, data
@@ -2732,6 +2770,247 @@ def phase2_inside(dev, res):
         sightline_case(f'{label} ({cmeta.n_clumps} clumps)', cfg, meta,
                        grid, cmeta)
         del grid
+
+
+def sources_chunk(par, dev, amr_data=None):
+    """(cfg, meta, grid, chunk) of par on dev, its table source built from
+    the grid's host data (driver.prepare's host_data): the Cartesian
+    grid's rhokap, or the AMR leaves' emissivity column."""
+    from lart_tpu_torch.grid.amr import build_amr
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.transport.engine import make_chunk
+    cfg = par.resolve()
+    hd = {}
+    if amr_data is not None:
+        built = build_amr(cfg, data=amr_data, device=dev)
+        meta, grid = built.meta, built.dev
+        hd['emissivity'] = built.emissivity
+    else:
+        meta, grid = build_cartesian(cfg, device=dev, host_out=hd)
+    return cfg, meta, grid, make_chunk(cfg, meta, grid, host_data=hd)
+
+
+def phase2_sources(dev, res):
+    """The volume and table sources against their plain versions at B =
+    B_MAIN, lane by lane, each K2 instance from a mixed state: the volume
+    instance on t4tau2.in as written (uniform_sphere, continuum, He I),
+    with voigt0 and continuum+gaussian, and a point source with voigt0;
+    every analytic geometry on the 201^3 Hubble grid of
+    vel_effect/t4NHI2_20_V0200.in (each birth's cell velocity, folded by
+    xyz_symmetry); the radial instance on
+    halo_0053.in as written (ssh, its velocity field) and with
+    exponential_sphere and a sersic m = 4; the alias instance on
+    stars1.in as written (composite weights), density1 and density2 on a
+    65^3 cut of halo_0053's grid, the jellyfish AMR leaves' emissivity, the
+    1-D profile of AlII_ex.in and density1 over 205^3 = 8.6M cells (a
+    table beyond 2^23 bins).  Each instance's max abs err goes into res
+    under its name."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport.engine import make_chunk
+    from lart_tpu_torch.transport.state import DEAD
+    seed = 1100
+
+    def case(label, cfg, meta, ch, state=None, weighted=False):
+        nonlocal seed
+        seed += 2
+        rp = ch.refill_params
+        s0, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',),
+                                      dev, state=state)
+        born = s0.phase == DEAD
+        _max_err(res, rp.kernel, err)
+        pos = torch.stack([sk.x[born], sk.y[born], sk.z[born]])
+        assert bool(torch.isfinite(pos).all())
+        box = torch.tensor([[meta.xmin], [meta.ymin], [meta.zmin]],
+                           device=dev), torch.tensor(
+            [[meta.xmax], [meta.ymax], [meta.zmax]], device=dev)
+        inside = float(((pos >= box[0] - 1e-6) & (pos <= box[1] + 1e-6))
+                       .all(0).float().mean())
+        w = sk.wgt[born].double()
+        if weighted:
+            assert float(w.std()) > 0.0, 'composite weights all equal'
+        log(2, f'K2 {rp.kernel} ({label}): {int(born.sum())} births, '
+               f'{100 * inside:.2f}% inside the box, weight mean '
+               f'{float(w.mean()):.6f} (min {float(w.min()):.4g}, max '
+               f'{float(w.max()):.4g}); lanes differing {frac:.2e}, max abs err {err:.3e}; Jin max '
+               f'|d| {tal["Jin"]:.3e}')
+
+    # the volume instance: t4tau2.in as written and its spectra
+    t4 = dict(batch_size=B_MAIN)
+    cfg, meta, grid, ch = sources_chunk(testing.source_params(
+        't4tau2', ROOT, **t4), dev)
+    assert ch.refill_params.kernel == 'refill_volume'
+    case('t4tau2.in as written: uniform_sphere, continuum, He I', cfg, meta,
+         ch)
+    for label, over in (
+            ('t4tau2 with voigt0 at temperature0 3e4', dict(
+                spectral_type='voigt0', temperature0=3e4)),
+            ('t4tau2 with continuum+gaussian, EW_line 20', dict(
+                spectral_type='continuum+gaussian', EW_line=20.0)),
+            ('t4tau2 with a point source, voigt0', dict(
+                spectral_type='voigt0', source_geometry='point'))):
+        c2 = testing.source_params('t4tau2', ROOT, **t4, **over).resolve()
+        case(label, c2, meta, make_chunk(c2, meta, grid))
+    del ch, grid
+
+    # every analytic geometry on the 201^3 Hubble grid
+    hub = dict(batch_size=B_MAIN, comoving_source=False)
+    cfg, meta, grid, ch = sources_chunk(example_params(
+        VEL_EFFECT, source_geometry='uniform_sphere',
+        **hub), dev)
+    assert ch.refill_params.vel is not None and cfg.par.xyz_symmetry
+    case('uniform_sphere on the Hubble grid', cfg, meta, ch)
+    for sg, over in (('cylinder', {}), ('uniform', {}), ('uniform_xy', {}),
+                     ('uniform_xy', dict(source_rmax=0.5)),
+                     ('gaussian', dict(source_zscale=0.3)),
+                     ('exponential', dict(source_zscale=0.3))):
+        c2 = example_params(VEL_EFFECT,
+                            source_geometry=sg, **hub, **over).resolve()
+        case(f'{sg} {over or ""} on the Hubble grid', c2, meta,
+             make_chunk(c2, meta, grid))
+    del ch, grid
+
+    # the radial instance: halo_0053.in as written (ssh), its grid with an
+    # exponential sphere and a sersic m = 4
+    cfg, meta, grid, ch = sources_chunk(example_params(
+        'SSH_MUSE/halo_0053.in', batch_size=B_MAIN), dev)
+    assert ch.refill_params.kernel == 'refill_radial'
+    case(f'halo_0053.in as written: ssh, table '
+         f'{ch.refill_params.source.table.n} knots', cfg, meta, ch)
+    for sg, over in (('exponential_sphere', dict(source_rscale=0.2)),
+                     ('sersic', dict(sersic_m=4.0, Reff=0.3))):
+        c2 = example_params('SSH_MUSE/halo_0053.in', batch_size=B_MAIN,
+                            source_geometry=sg, **over).resolve()
+        case(f'{sg} on the halo_0053 grid', c2, meta,
+             make_chunk(c2, meta, grid))
+    del ch, grid
+
+    # the alias instance
+    cfg, meta, grid, ch = sources_chunk(testing.source_params(
+        'stars1', ROOT, cut=False, batch_size=B_MAIN), dev)
+    assert ch.refill_params.kernel == 'refill_alias'
+    case(f'stars1.in as written: {ch.refill_params.source.tabs.nbin} stars,'
+         f' composite weights', cfg, meta, ch, weighted=True)
+    del ch, grid
+    for emiss, method in (('density1', 1), ('density2', 0)):
+        cfg, meta, grid, ch = sources_chunk(example_params(
+            'SSH_MUSE/halo_0053.in', batch_size=B_MAIN, nx=65, ny=65, nz=65,
+            source_geometry='diffuse_emissivity', emiss_file=emiss,
+            sampling_method=method), dev)
+        case(f'{emiss} on a 65^3 cut of the halo_0053 grid, '
+             f'sampling_method {method}', cfg, meta, ch,
+             weighted=method > 0)
+    data = amr_leaves('jellyfish')
+    cfg, meta, grid, ch = sources_chunk(testing.source_params(
+        'jellyfish_emiss', ROOT, batch_size=B_MAIN), dev, data)
+    case(f'jellyfish_emiss: {grid.leaf_cx.numel()} AMR leaves\' emissivity',
+         cfg, meta, ch, state=testing.amr_state(
+             meta, ch.flight.amr, B_MAIN, seed + 1, dev), weighted=True)
+    del ch, grid, data
+    cfg, meta, grid, ch = sources_chunk(testing.source_params(
+        'AlII', ROOT, batch_size=B_MAIN), dev)
+    case(f'AlII_ex.in without temp_file: the 1-D profile, '
+         f'{ch.refill_params.source.tabs.nbin} bins', cfg, meta, ch,
+         weighted=True)
+    del ch, grid
+    t0 = time.time()
+    cfg, meta, grid, ch = sources_chunk(testing.source_params(
+        't4tau2', ROOT, batch_size=B_MAIN, nx=205, ny=205, nz=205,
+        source_geometry='diffuse_emissivity', emiss_file='density1'), dev)
+    nbin = ch.refill_params.source.tabs.nbin
+    assert nbin > 2 ** 23
+    case(f'density1 over 205^3 = {nbin} cells (set-up {time.time() - t0:.1f}'
+         f' s)', cfg, meta, ch)
+    del ch, grid
+
+
+def source_variant(name, tmp, **over):
+    """testing.SOURCE_CASES[name] rewritten into tmp (namelist_variant): its
+    files made absolute, its cut and `over` applied."""
+    from lart_tpu_torch import testing
+    rel, cut = testing.SOURCE_CASES[name]
+    keys = dict(testing.source_files(ROOT / 'examples' / rel), **cut, **over)
+    return namelist_variant(rel, tmp, **{
+        k: f"'{v}'" if isinstance(v, str) else f'{v:g}'
+        for k, v in keys.items()})
+
+
+# each source case's K2 instance and the rest of its path (phase 4)
+SOURCE_PATHS = {
+    't4tau2': ('refill_volume', 'fly_uniform_sphere', 'scatter_lya'),
+    'un_tau100_coh': ('refill_volume', 'fly_uniform_sphere', 'scatter_lya',
+                      'peel'),
+    'stars1': ('refill_alias', 'fly_cartesian', 'scatter_lya', 'peel'),
+    'halo_0053': ('refill_radial', 'fly_cartesian', 'scatter_lya', 'peel',
+                  'sightline'),
+    'jellyfish_emiss': ('refill_alias', 'fly_amr', 'scatter_lya', 'peel'),
+    'AlII': ('refill_alias', 'fly_cartesian', 'scatter_lya', 'peel',
+             'sightline'),
+}
+
+
+def sources_cli(tmp, device, total):
+    """The volume and table sources' examples, FITS written and read back:
+    through the CLI t4tau2.in and un_tau100_coh.in as written, stars1.in
+    cut to 2e4 photons and taumax 3e3, halo_0053.in cut to taumax 1e4 and
+    AlII_ex.in without its temp_file (xfreq +-20); jellyfish_emiss.in cut
+    to taumax 3e3 (xfreq +-80) through driver.run with its leaves in
+    memory (the card's machine has no h5py) (testing.SOURCE_CASES).
+    The weight budget W_esc + W_abs + W_oor against the birth weights'
+    sum over the photons (1, or Jin's sum where a table's composite weights
+    bias the births), <N_scatt> for PERF.md beside lart_tpu's CPU runs of
+    the same cuts (tools/sources_cpu_runs.py).  Each run's launch counts go
+    into total['sources'][name]."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.io.iofile import open_read
+    from lart_tpu_torch.io.writer import read_spectrum, write_output
+    from lart_tpu_torch.kernels import build as kb
+    sub = total.setdefault('sources', {})
+    for name in SOURCE_PATHS:
+        out = Path(tmp) / (name + '.fits')
+        if name == 'jellyfish_emiss':
+            par = testing.source_params(name, ROOT, file_format='fits',
+                                        out_file=str(out))
+            kb.reset_launch_counts()
+            t0 = time.time()
+            res = driver.run(par, device=device,
+                             amr_data=amr_leaves('jellyfish'))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(kb.LAUNCHES)
+            write_output(par.out_file, res)
+        else:
+            nml = source_variant(name, tmp)
+            rc, res, wall, launches = run_cli(nml, out, device)
+            assert rc == 0
+        spec = read_spectrum(str(out))
+        jout = np.asarray(spec['Jout'], np.float64)
+        assert np.all(np.isfinite(jout)) and jout.shape == res.xfreq.shape
+        add_launches(total, launches, SOURCE_PATHS[name])
+        sub[name] = launches
+        w = res.W_escape + res.W_absorb + res.W_oor
+        par = res.cfg.par
+        weighted = par.sampling_method > 0 and par.source_geometry.strip() \
+            in ('star_file', 'diffuse_emissivity')
+        w_birth = testing.birth_weight(res) if weighted else 1.0
+        assert abs(w - w_birth) < 1e-3, (name, w, w_birth)
+        extra = ''
+        if par.save_peeloff:
+            with open_read(str(Path(tmp) / f'{name}_peel3D.fits')) as f:
+                cube = np.asarray(f['Scattered/data'])
+            assert np.all(np.isfinite(cube)) and cube.sum() > 0
+            extra += f', _peel3D {cube.shape}'
+        if par.save_sightline_tau:
+            with open_read(str(Path(tmp) / f'{name}_tau.fits')) as f:
+                tau = np.asarray(f['tau_gas/data'])
+            assert np.all(np.isfinite(tau))
+            extra += f', _tau {tau.shape}'
+        log(4, f'{name} ({res.nphotons} photons, '
+               f'{par.source_geometry.strip()}, '
+               f'{par.spectral_type.strip()}, FITS): W_esc '
+               f'{res.W_escape:.6f} + W_abs {res.W_absorb:.6f} + W_oor '
+               f'{res.W_oor:.6f} = {w:.6f} against the birth weights '
+               f'{w_birth:.6f}, <N_scatt> {res.nscatt_gas:.4f}{extra}, wall '
+               f'{wall:.1f} s; launches {launches}')
 
 
 def inside_phase3(dev):
@@ -2791,7 +3070,7 @@ def inside_cli(tmp, device, total):
     assert abs(w - 1.0) < 1e-3, (res.W_escape, res.W_oor)
     ratio = res.nscatt_gas / CIV_NSCATT
     assert abs(ratio - 1.0) < 0.1, res.nscatt_gas
-    need = ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+    need = ('refill_radial', 'fly_cartesian', 'scatter_lya', 'peel',
             'sightline')
     add_launches(total, launches, need)
     total['inside'] = dict(launches)
@@ -2882,9 +3161,9 @@ def inside_phase5(dev, res):
                        civ_params(**over), dev)
     card = smi()
     profile_chunks(p, card, 'CIV_test')
-    kernel_times(p, card, 'CIV_test', res, ('refill_point', 'fly_cartesian',
+    kernel_times(p, card, 'CIV_test', res, ('refill_radial', 'fly_cartesian',
                                             'scatter_lya', 'peel'),
-                 record=(('refill_point', EXPCYL), ('peel', INSIDE)))
+                 record=(('refill_radial', EXPCYL), ('peel', INSIDE)))
     sl = tsl.Sightline.from_config(p.cfg, p.meta, p.grid)
     stats = {}
     tsl.sightline_plain(sl, stats)
@@ -2903,6 +3182,38 @@ def inside_phase5(dev, res):
            f'{call_ms:.6f} ms a call; plain {plain_ms:.6f} ms a call; bound '
            f'{bnd[0]:.6f} ms ({bnd[1]}) [{card}]')
     del p
+
+
+def sources_phase5(dev, res):
+    """The volume and table sources' three windows, each as written but
+    for its budget (1e9 photons): t4tau2.in (K2's volume instance, K6 in
+    He I), stars1.in (the alias instance with composite weights, K5, K4
+    with Stokes, K7) and halo_0053.in (the radial instance with the ssh
+    table, K5 in its velocity field with dust, K4, K7): the rate, the
+    profile, and each kernel's time against its plain version's and its
+    bound (K7's, 80% of the peel cells' device time in the profile, is not
+    timed against its plain walk here: ~1 s a call at 201^3); each K2
+    instance's numbers go into res under its name."""
+    from lart_tpu_torch import testing
+    over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
+    cells = (
+        ('t4tau2 (He I, uniform_sphere, continuum, 65^3 sphere, tau 100)',
+         't4tau2', testing.source_params('t4tau2', ROOT, cut=False, **over),
+         ('refill_volume', 'fly_uniform_sphere', 'scatter_lya')),
+        ('stars1 (6 stars, composite weights, 201^3 cube, tau 1e5, '
+         'core-skip, Stokes, 129x129 x 201 cube)', 'stars1',
+         testing.source_params('stars1', ROOT, cut=False, **over),
+         ('refill_alias', 'fly_cartesian', 'scatter_lya')),
+        ('halo_0053 (ssh source and velocity field, 201^3, tau 2e6, dust, '
+         'Stokes, 129x129 x 401 cube)', 'halo_0053',
+         example_params('SSH_MUSE/halo_0053.in', **over),
+         ('refill_radial', 'fly_cartesian', 'scatter_lya')))
+    for label, key, par, names in cells:
+        p, _ = rate_window(label, par, dev)
+        card = smi()
+        profile_chunks(p, card, key)
+        kernel_times(p, card, key, res, names, record=(names[0],))
+        del p
 
 
 def device_ms(calls):
@@ -2987,7 +3298,7 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
     c = p.cycle
     fly_name = flight_kernel(ch)
     steps = {
-        'refill_point': (
+        ch.refill_params.kernel: (
             pre_refill,
             lambda s: refill.refill(s, tl, ch.refill_params, 1, c, p.budget,
                                     scratch),
@@ -3285,6 +3596,7 @@ def phase5(dev, res):
     amr_phase5(dev, res)
     clump_phase5(dev, res)
     inside_phase5(dev, res)
+    sources_phase5(dev, res)
 
 
 KERNELS = {
@@ -3369,11 +3681,30 @@ INSIDE_INLINES = {
             'lart_tpu/instruments/healpix.py:30) in the interior '
             'obs_geometry (lart_tpu/instruments/peel.py:394-415) with the '
             'capped sightline',
-    'refill_point': 'radius_loglog (lart_tpu_torch/csrc/refill.cu, replaces '
+    'refill_radial': 'radius_loglog (lart_tpu_torch/csrc/refill.cu, replaces '
                     'lart_tpu/physics/sources.py:478) in gen_position\'s '
                     'exponential_cylinder (lart_tpu/transport/engine.py:'
                     '2629-2637)',
 }
+
+
+# K2's instances of the volume and table sources: each one's path and the
+# TPU function it replaces
+SOURCE_KERNELS = {
+    'refill_volume': ('t4tau2', 'lart_tpu/transport/engine.py:2590'),
+    'refill_radial': ('halo_0053', 'lart_tpu/transport/engine.py:2624'),
+    'refill_alias': ('stars1', 'lart_tpu/transport/engine.py:2638')}
+SOURCE_INLINES = {
+    'refill_volume': 'gen_position\'s analytic volumes with _iso_sphere and '
+                     '_zexp (lart_tpu/transport/engine.py:2563-2623), the '
+                     'voigt0 and continuum+gaussian spectra (:2783, :2808)',
+    'refill_radial': 'radius_loglog (replaces lart_tpu/physics/sources.py:'
+                     '478) with the sersic/ssh and exponential tables '
+                     '(sources.py:92, :77) and _iso_sphere',
+    'refill_alias': 'the alias draw of a star, cell, leaf or profile bin '
+                    '(replaces lart_tpu/physics/samplers.py:287 and '
+                    'lart_tpu/physics/sources.py:486 sample_alias_linear) '
+                    'with its composite weight (engine.py:2638-2685)'}
 
 
 def main(argv=None):
@@ -3495,14 +3826,27 @@ def main(argv=None):
             bound_by=res['sightline']['bound_by'], library_ms=None,
             inlines=INSIDE_INLINES['sightline']))
         line['kernels'] += [dict(
-            name=k + suffix, route='cuda', source=KERNELS[k][0],
-            replaces=KERNELS[k][1], launches=counts[k], path='CIV_test',
+            name=k + suffix, route='cuda', source=KERNELS[base][0],
+            replaces=KERNELS[base][1], launches=counts[k], path='CIV_test',
             max_abs_err=res[k + suffix]['max_abs_err'],
             ms=res[k + suffix]['ms'], plain_ms=res[k + suffix]['plain_ms'],
             bound_ms=res[k + suffix]['bound_ms'],
             bound_by=res[k + suffix]['bound_by'], library_ms=None,
             inlines=INSIDE_INLINES[k])
-            for k, suffix in (('peel', INSIDE), ('refill_point', EXPCYL))]
+            for k, suffix, base in (('peel', INSIDE, 'peel'),
+                                    ('refill_radial', EXPCYL, 'refill_point'))]
+        # this slice's K2 instances: the volume one on t4tau2.in, the radial
+        # one on halo_0053.in, the alias one on stars1.in (phase 5's windows
+        # and each path's phase 4 launches)
+        counts = launches['sources']
+        line['kernels'] += [dict(
+            name=k, route='cuda', source=KERNELS['refill_point'][0],
+            replaces=rep, launches=counts[path][k], path=path,
+            max_abs_err=res[k]['max_abs_err'], ms=res[k]['ms'],
+            plain_ms=res[k]['plain_ms'], bound_ms=res[k]['bound_ms'],
+            bound_by=res[k]['bound_by'], library_ms=None,
+            inlines=SOURCE_INLINES[k])
+            for k, (path, rep) in SOURCE_KERNELS.items()]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

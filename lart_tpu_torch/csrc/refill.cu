@@ -1,11 +1,12 @@
-// K2 refill_point: rebirth of dead lanes for a point source with a Voigt,
-// monochromatic, Gaussian or flat continuum input spectrum, with the
-// forced-first-scattering snapshot, in a static or moving medium of uniform
-// temperature, and the birth shift of a multi-level line.
+// K2 refill: rebirth of dead lanes for a point source or an extended one
+// (the instances below) with a Voigt, voigt0, monochromatic, Gaussian, flat
+// continuum or continuum+gaussian input spectrum, with the
+// forced-first-scattering snapshot and the birth weight, in a static or
+// moving medium, and the birth shift of a multi-level line.
 //
 // Replaces lart_tpu/transport/engine.py:2557 make_refill / :2689 refill
-// (source_geometry point, spectral_type voigt, monochromatic, gaussian or
-// continuum) and :2923 branch_init_shift (line.cuh), which the TPU runs as a
+// (every source_geometry but the illuminations, every spectral_type but
+// line_prof_file) and :2923 branch_init_shift (line.cuh), which the TPU runs as a
 // pass of its own over the batch and which here is a device function of the
 // births: a line of type 2, 4, 5 or 6 starts from xfreq0 shifted to a branch
 // by the two uniforms of block 3.  The continuum (engine.py:2804-2807)
@@ -45,42 +46,108 @@
 // clumps, or the CSR cell's candidates; -1 in the vacuum); the spectrum is
 // drawn at the reference a and D (photons carry global frequencies) and u1
 // is the birth clump's velocity along k in reference units.
-// The exponential_cylinder source (engine.py:2629-2637 gen_position with
-// _zexp :2569-2575, lart_tpu/physics/sources.py:478 sample_radius_loglog)
-// draws each launched lane's position from the uniforms of block 4, after
-// every earlier block, so a point source draws as before: the cylindrical
-// radius by a binary search of the f32 log-log inverse-CDF table (at most
-// 2049 knots, read through the L1 by __ldg) and jnp.interp's arithmetic
-// (the clamps at the ends, fp[i-1] + (x - xp[i-1]) / dx df as one fused
-// multiply-add), the azimuth, and z from the truncated exponential (or
-// uniform over the box); with xyz_symmetry their absolute values.  The
-// lane's cell is then its own: on a Cartesian grid clip(floor((x - amin) /
-// d)) per axis, with its velocity gathered in a moving medium; on the AMR
-// grid and the clump medium the lookups above run at the lane's position.
+// The extended sources (engine.py:2577-2687 gen_position) draw each launched
+// lane's position from the uniforms of block 4 and, where they need more,
+// the words of block 5, after every earlier block, so a point source draws as
+// before.  K2 has one template instance per family (kSrc), so the point
+// source's code stays as it was:
+// - SRC_POINT: the point source with a monochromatic, Voigt, Gaussian or
+//   continuum spectrum (the flagship's);
+// - SRC_RADIAL: the exponential cylinder, exponential sphere, sersic and ssh
+//   (lart_tpu/physics/sources.py:478 sample_radius_loglog): the radius by a
+//   binary search of the f32 log-log inverse-CDF table (at most 2049 knots,
+//   read through the L1 by __ldg) and jnp.interp's arithmetic (the clamps at
+//   the ends, fp[i-1] + (x - xp[i-1]) / dx df as one fused multiply-add),
+//   then the cylinder's azimuth and z (the truncated exponential _zexp
+//   :2569-2575, or uniform over the box) or a point on the sphere
+//   (_iso_sphere :2563);
+// - SRC_VOLUME: the uniform sphere (radius powf(u, 1/3) rmax), cylinder,
+//   box, xy disk or box, the Gaussian slab (a normal by Box-Muller from
+//   block 5) and the exponential slab; a point source with the voigt0 or
+//   continuum+gaussian spectrum also runs here;
+// - SRC_ALIAS: the alias draw (lart_tpu/physics/sources.py:486
+//   sample_alias_linear, lart_tpu/physics/samplers.py:287 alias_sample) of a
+//   star, a Cartesian cell (a uniform point in it), an AMR leaf (centre +
+//   (2u - 1) half-size) or a 1-D profile's bin (the linear density's inverse
+//   CDF within it, the radius put on the sphere), with its composite weight.
+//   The bin is (bits n) >> 32 of 32 random bits, so every bin of a table of
+//   millions of cells is reachable and equally likely before its alias.
+// With xyz_symmetry every non-point position is taken in absolute value.
+// The lane's cell is then its own: on a Cartesian grid clip(floor((x -
+// amin) / d)) per axis, with its velocity gathered in a moving medium; on
+// the AMR grid and the clump medium the lookups above run at the lane's
+// position.  The birth weight (1, or the table's composite weight) goes into
+// the lane's wgt and into Jin (engine.py:2843-2850, :2876).
+// The voigt0 spectrum (engine.py:2783) draws a Voigt x at the source
+// temperature's damping va0 scaled by Dfreq0 / D_loc; continuum+gaussian
+// (:2808) the line, xfreq0 + a Box-Muller normal sigma_x, with probability
+// f_line (the third uniform of block 2), else the flat continuum (the
+// fourth), divided by D_loc / Dfreq_ref.
 // Bound: one pass over the state (about 130 bytes a launched lane written,
-// 4 a lane read), memory-bound; the ticket atomics are one per warp; an
-// extended source adds ~11 dependent table reads a lane (L1/L2-resident).
+// 4 a lane read), memory-bound; the ticket atomics are one per warp; a
+// radial table adds ~11 dependent table reads a lane (L1/L2-resident), an
+// alias table two to four (the bin's probability and alias, its entry).
 #include "lart.cuh"
 #include "philox.cuh"
 #include "samplers.cuh"
 
-enum { SPECTRUM_MONO = 0, SPECTRUM_VOIGT = 1, SPECTRUM_GAUSS = 2, SPECTRUM_CONT = 3 };
+enum {
+  SPECTRUM_MONO = 0,
+  SPECTRUM_VOIGT = 1,
+  SPECTRUM_GAUSS = 2,
+  SPECTRUM_CONT = 3,
+  SPECTRUM_VOIGT0 = 4,
+  SPECTRUM_CONT_GAUSS = 5
+};
+enum { SRC_POINT = 0, SRC_RADIAL = 1, SRC_VOLUME = 2, SRC_ALIAS = 3 };
+enum {
+  GEOM_POINT = 0,
+  GEOM_EXP_CYLINDER,
+  GEOM_RADIAL_SPHERE,
+  GEOM_UNIFORM_SPHERE,
+  GEOM_CYLINDER,
+  GEOM_BOX,
+  GEOM_XY_DISK,
+  GEOM_XY_BOX,
+  GEOM_GAUSSIAN,
+  GEOM_EXPONENTIAL,
+  GEOM_STARS,
+  GEOM_CELLS,
+  GEOM_LEAVES,
+  GEOM_PROFILE
+};
 #define SOURCE_P_FLOOR 9.999999960041972e-13f  // f32(1e-12)
+#define SOURCE_TINY_DP 1.0000000031710769e-30f  // f32(1e-30)
 #define BLOCK_SOURCE 4u
+#define BLOCK_SOURCE2 5u
 
-// An extended source (exponential_cylinder); n 0: the point source.
-// lart_tpu_torch/transport/refill.py SourceC mirrors it field for field.
+// An extended source, or a point source of the voigt0 or continuum+gaussian
+// spectrum; lart_tpu_torch/transport/refill.py SourceC mirrors it field for
+// field.
 struct SourceC {
+  int geom;
   const float* log_p;  // (n,) f32 logs of the f32 cumulative probabilities
   const float* log_r;  // (n,) f32 logs of the f32 radii
   int n;
   int zexp;            // z from the truncated exponential, else uniform
   float neg_zs, zexp_c;
-  float zmin, zrange;
+  float rmax;          // the uniform sphere's, cylinder's or disk's radius
+  float zgauss;        // source_zscale / sqrt(2)
   int abs_xyz;         // xyz_symmetry
   int cells[3];        // the Cartesian grid a birth's cell is found in
-  float amin[3];
+  float amin[3];       // the box's lower corner
   float d[3];
+  float span[3];       // the box's extent
+  const float* prob;   // (nbin,) alias table
+  const int* alias;
+  int nbin;
+  const float* wgt;    // composite weight of each bin (of each knot), or null
+  const float* px;     // stars: x y z; leaves: cx cy cz ch; profile: axis,
+  const float* py;     //   density
+  const float* pz;
+  const float* ph;
+  float va0, dfreq0;   // voigt0: the source's damping and Doppler width
+  float f_line;        // continuum+gaussian: the line's share
 };
 
 // sample_radius_loglog: jnp.interp(log(max(u, 1e-12)), log_p, log_r), exp
@@ -103,6 +170,115 @@ __device__ inline float radius_loglog(const SourceC& src, float u) {
   return expf(f);
 }
 
+__device__ inline void iso_sphere(float rp, float xi1, float xi2, float& x, float& y,
+                                  float& z) {
+  const float cost = 2.0f * xi1 - 1.0f;
+  const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+  const float phi = LART_TWOPI * xi2;
+  x = rp * sint * cosf(phi);
+  y = rp * sint * sinf(phi);
+  z = rp * cost;
+}
+
+__device__ inline float source_zexp(const SourceC& src, float u_a, float u_b) {
+  const float zmag = src.neg_zs * log1pf(-(u_a * src.zexp_c));
+  return u_b < 0.5f ? -zmag : zmag;
+}
+
+// the birth position of lane i of an extended source (blocks 4 and 5); returns
+// its weight
+template <int kSrc>
+__device__ inline float source_position(const SourceC& src, uint32_t seed, uint32_t i,
+                                        uint32_t counter, float& xs, float& ys, float& zs) {
+  float w[4];
+  float wgt = 1.0f;
+  uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_SOURCE, w);
+  const int g = src.geom;
+  if (kSrc == SRC_RADIAL) {
+    const float rp = radius_loglog(src, w[0]);
+    if (g == GEOM_RADIAL_SPHERE) {
+      iso_sphere(rp, w[1], w[2], xs, ys, zs);
+    } else {
+      const float phi = LART_TWOPI * w[1];
+      xs = rp * cosf(phi);
+      ys = rp * sinf(phi);
+      zs = src.zexp ? source_zexp(src, w[2], w[3]) : fmaf(w[2], src.span[2], src.amin[2]);
+    }
+  } else if (kSrc == SRC_VOLUME) {
+    if (g == GEOM_POINT) return 1.0f;
+    if (g == GEOM_UNIFORM_SPHERE) {
+      iso_sphere(powf(w[0], 1.0f / 3.0f) * src.rmax, w[1], w[2], xs, ys, zs);
+    } else if (g == GEOM_CYLINDER || g == GEOM_XY_DISK) {
+      const float rp = sqrtf(w[0]) * src.rmax;
+      const float phi = LART_TWOPI * w[1];
+      xs = rp * cosf(phi);
+      ys = rp * sinf(phi);
+      zs = g == GEOM_CYLINDER ? fmaf(w[2], src.span[2], src.amin[2]) : 0.0f;
+    } else {
+      xs = fmaf(w[0], src.span[0], src.amin[0]);
+      ys = fmaf(w[1], src.span[1], src.amin[1]);
+      if (g == GEOM_BOX) {
+        zs = fmaf(w[2], src.span[2], src.amin[2]);
+      } else if (g == GEOM_XY_BOX) {
+        zs = 0.0f;
+      } else if (g == GEOM_GAUSSIAN) {
+        float v[4];
+        uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_SOURCE2, v);
+        zs = src.zgauss * box_muller(v[0], v[1]);
+      } else {
+        zs = source_zexp(src, w[2], w[3]);
+      }
+    }
+  } else if (kSrc == SRC_ALIAS) {
+    // the bin from 32 random bits, its alias by the uniform of the next word
+    uint32_t c[4] = {i, counter, BLOCK_SOURCE2, 0u};
+    philox4x32_10(c, seed, STREAM_REFILL);
+    int idx = (int)(((uint64_t)c[0] * (uint64_t)src.nbin) >> 32);
+    if (u01_from_bits(c[1]) >= __ldg(&src.prob[idx])) idx = __ldg(&src.alias[idx]);
+    if (g == GEOM_PROFILE) {
+      // sample_alias_linear: the linear density's inverse CDF in the bin
+      const float xi = u01_from_bits(c[2]);
+      const float x0 = __ldg(&src.px[idx]), x1 = __ldg(&src.px[idx + 1]);
+      const float p0 = __ldg(&src.py[idx]), p1 = __ldg(&src.py[idx + 1]);
+      const float dp = p1 - p0;
+      const float root = sqrtf(fmaxf(p0 * p0 + (p1 * p1 - p0 * p0) * xi, 0.0f));
+      const float r = fabsf(dp) > SOURCE_TINY_DP
+                          ? (root - p0) * (x1 - x0) / (dp == 0.0f ? 1.0f : dp) + x0
+                          : x0 + xi * (x1 - x0);
+      if (src.wgt) {
+        const float w0 = __ldg(&src.wgt[idx]), w1 = __ldg(&src.wgt[idx + 1]);
+        wgt = (w1 - w0) / fmaxf(x1 - x0, SOURCE_TINY_DP) * (r - x0) + w0;
+      }
+      iso_sphere(r, w[1], w[2], xs, ys, zs);
+    } else {
+      if (src.wgt) wgt = __ldg(&src.wgt[idx]);
+      if (g == GEOM_STARS) {
+        xs = __ldg(&src.px[idx]);
+        ys = __ldg(&src.py[idx]);
+        zs = __ldg(&src.pz[idx]);
+      } else if (g == GEOM_LEAVES) {
+        const float ch = __ldg(&src.ph[idx]);
+        xs = fmaf(2.0f * w[1] - 1.0f, ch, __ldg(&src.px[idx]));
+        ys = fmaf(2.0f * w[2] - 1.0f, ch, __ldg(&src.py[idx]));
+        zs = fmaf(2.0f * w[3] - 1.0f, ch, __ldg(&src.pz[idx]));
+      } else {
+        const int nz = src.cells[2], nyz = src.cells[1] * nz;
+        const int c0 = idx / nyz, c1 = (idx / nz) % src.cells[1], c2 = idx % nz;
+        xs = fmaf((float)c0 + w[1], src.d[0], src.amin[0]);
+        ys = fmaf((float)c1 + w[2], src.d[1], src.amin[1]);
+        zs = fmaf((float)c2 + w[3], src.d[2], src.amin[2]);
+      }
+    }
+  }
+  if (src.abs_xyz) {
+    xs = fabsf(xs);
+    ys = fabsf(ys);
+    zs = fabsf(zs);
+  }
+  return wgt;
+}
+
+template <int kSrc>
 __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launched,
                                     int budget, uint32_t seed, uint32_t counter, float xs,
                                     float ys, float zs, int ic, int jc, int kc,
@@ -133,27 +309,12 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   // (amr_find_cell, engine.py:2755-2758) with its leaf's damping, Doppler
   // width and velocity (the reference values and none in a gap)
   float a_loc = a, D_loc = Dfreq;
-  if (src.n) {
+  float wgt = 1.0f;  // the birth weight: 1 but for a composite-biased table
+  if (kSrc != SRC_POINT) {
     // an extended source: the lane's own position and, on a Cartesian grid,
     // its cell (and that cell's velocity)
-    float w[4];
-    uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, BLOCK_SOURCE, w);
-    const float rp = radius_loglog(src, w[0]);
-    const float phi = LART_TWOPI * w[1];
-    xs = rp * cosf(phi);
-    ys = rp * sinf(phi);
-    if (src.zexp) {
-      const float zmag = src.neg_zs * log1pf(-(w[2] * src.zexp_c));
-      zs = w[3] < 0.5f ? -zmag : zmag;
-    } else {
-      zs = fmaf(w[2], src.zrange, src.zmin);
-    }
-    if (src.abs_xyz) {
-      xs = fabsf(xs);
-      ys = fabsf(ys);
-      zs = fabsf(zs);
-    }
-    if (!clump.n && !amr.ncells) {
+    wgt = source_position<kSrc>(src, seed, (uint32_t)i, counter, xs, ys, zs);
+    if (src.geom != GEOM_POINT && !clump.n && !amr.ncells) {
       const float pos[3] = {xs, ys, zs};
       int c[3];
 #pragma unroll
@@ -218,6 +379,14 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
     float w[4];
     uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
     xfreq = (xfreq_min + w[0] * xfreq_span) / ratio;
+  } else if (kSrc != SRC_POINT && spectrum == SPECTRUM_VOIGT0) {
+    xfreq = xfreq + rand_voigt_x(src.va0, u[2], u[3], v[0]) * (src.dfreq0 / D_loc);
+  } else if (kSrc != SRC_POINT && spectrum == SPECTRUM_CONT_GAUSS) {
+    float w[4];
+    uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 2u, w);
+    xfreq = (w[2] < src.f_line ? xfreq + box_muller(w[0], w[1]) * sigma_x
+                               : xfreq_min + w[3] * xfreq_span) /
+            ratio;
   }
 
   // lab-frame source -> comoving frequency; Jin at the lab frequency
@@ -226,7 +395,7 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                            : vsx * kx + vsy * ky + vsz * kz;
   if (!comoving_source) xfreq = xfreq - u1;
   const float fx = floorf(((xfreq + u1) * ratio - xfreq_min) / dxfreq);
-  if (fx >= 0.0f && fx < (float)nxfreq) atomicAdd(&Jin[(int)fx], 1.0f);
+  if (fx >= 0.0f && fx < (float)nxfreq) atomicAdd(&Jin[(int)fx], wgt);
 
   s.phase[i] = FFS;
   s.x[i] = xs;
@@ -239,7 +408,7 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   s.jc[i] = jc;
   s.kc[i] = kc;
   s.xfreq[i] = xfreq;
-  s.wgt[i] = 1.0f;
+  s.wgt[i] = wgt;
   // the FFS restart draws tau = -log(1 - xi*wgt1): xi waits in tau_target
   s.tau_target[i] = v[1];
   s.tau_run[i] = 0.0f;
@@ -284,12 +453,26 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                const SourceC* source, void* stream) {
   if (B > 0) {
     const int threads = 256;
-    refill_point_kernel<<<(B + threads - 1) / threads, threads, 0, (cudaStream_t)stream>>>(
-        unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed,
-        counter, xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz,
-        comoving_source, xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line,
-        amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz,
-        source ? *source : SourceC{});
+    const int blocks = (B + threads - 1) / threads;
+    const SourceC src = source ? *source : SourceC{};
+    const int family = !source                     ? SRC_POINT
+                       : src.geom >= GEOM_STARS    ? SRC_ALIAS
+                       : src.geom == GEOM_EXP_CYLINDER || src.geom == GEOM_RADIAL_SPHERE
+                           ? SRC_RADIAL
+                           : SRC_VOLUME;
+#define LART_REFILL(K)                                                                      \
+  refill_point_kernel<K><<<blocks, threads, 0, (cudaStream_t)stream>>>(                     \
+      unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed, counter, \
+      xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz, comoving_source,  \
+      xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line,                     \
+      amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz, src)
+    switch (family) {
+      case SRC_POINT: LART_REFILL(SRC_POINT); break;
+      case SRC_RADIAL: LART_REFILL(SRC_RADIAL); break;
+      case SRC_VOLUME: LART_REFILL(SRC_VOLUME); break;
+      default: LART_REFILL(SRC_ALIAS); break;
+    }
+#undef LART_REFILL
   }
   return (int)cudaGetLastError();
 }

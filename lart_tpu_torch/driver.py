@@ -77,6 +77,10 @@ def prepare(par: Params, *, seed: Optional[int] = None, device=None,
     check_supported(cfg)
     dev = resolve_device(device)
     cmeta = None
+    # what a table source is built from (lart_tpu's host_data,
+    # driver.py:83-97): the Cartesian grid's host rhokap, the AMR grid's
+    # emissivity column; nothing on a clump medium
+    host_data = {}
     if cfg.par.use_clump_medium:
         if clump_seed is None:
             clump_seed = (seed or cfg.par.iseed) + 77
@@ -87,11 +91,13 @@ def prepare(par: Params, *, seed: Optional[int] = None, device=None,
         # build_amr sets rmax and the box on cfg.par (driver.py:78-81)
         built = build_amr(cfg, data=amr_data, device=dev)
         meta, grid = built.meta, built.dev
+        if built.emissivity is not None:
+            host_data['emissivity'] = built.emissivity
     else:
-        meta, grid = build_cartesian(cfg, device=dev)
+        meta, grid = build_cartesian(cfg, device=dev, host_out=host_data)
     p = Prepared()
     p.cfg, p.meta, p.grid, p.cmeta, p.device = cfg, meta, grid, cmeta, dev
-    p.chunk = make_chunk(cfg, meta, grid, cmeta)
+    p.chunk = make_chunk(cfg, meta, grid, cmeta, host_data)
     p.budget = int(cfg.par.nphotons)
     p.seed = int(seed if seed is not None else cfg.par.iseed)
     p.state = init_state(cfg.par.batch_size, dev)

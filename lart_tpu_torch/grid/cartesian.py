@@ -104,9 +104,13 @@ def _cell_centers(n, amin, d):
     return amin + (np.arange(n) + 0.5) * d
 
 
-def build_cartesian(cfg: ResolvedConfig, device='cpu'):
+def build_cartesian(cfg: ResolvedConfig, device='cpu',
+                    host_out: Optional[dict] = None):
     """Build (GridMeta, GridDevice) on `device`.  Mirrors grid_create
-    ordering (lart_tpu/grid/cartesian.py:134-571, the same numpy f64 body)."""
+    ordering (lart_tpu/grid/cartesian.py:134-571, the same numpy f64 body).
+    host_out, if given, receives the host f64 copy of the gas opacity
+    ('rhokap'), which a diffuse_emissivity source of emiss_file 'density1'
+    or 'density2' draws from (lart_tpu/grid/cartesian.py:562-563)."""
     par, line = cfg.par, cfg.line
     nx, ny, nz = par.nx, par.ny, par.nz
     dx, dy, dz = cfg.dx, cfg.dy, cfg.dz
@@ -513,6 +517,9 @@ def build_cartesian(cfg: ResolvedConfig, device='cpu'):
         geometry_JPa=geometry_JPa, nbin_JPa=nbin_JPa,
         dr_JPa=float(dr_JPa), roff_JPa=float(roff_JPa),
         atmosphere=atm, omega_shear=float(omega_shear))
+
+    if host_out is not None:
+        host_out['rhokap'] = np.asarray(rhokap, np.float64)
 
     def f32(x):
         return None if x is None else \

@@ -43,7 +43,8 @@ HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
-LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'fly_uniform_slab': 0,
+LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'refill_radial': 0,
+            'refill_volume': 0, 'refill_alias': 0, 'fly_uniform_slab': 0,
             'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0,
             'peel': 0, 'fly_amr': 0, 'fly_clump_dense': 0,
             'fly_clump_csr': 0, 'sightline': 0}

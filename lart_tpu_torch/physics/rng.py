@@ -44,15 +44,28 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def uniforms(seed: int, stream: int, lane: torch.Tensor, counter: int,
-             blocks) -> torch.Tensor:
-    """f32 uniforms in [1e-12, 1) for int64 lane indices `lane` (B,):
-    (4, B) for one block index, (nblocks, 4, B) for a range of them."""
+def words(seed: int, stream: int, lane: torch.Tensor, counter: int,
+          blocks) -> torch.Tensor:
+    """The 32-bit words (int64 tensors) of Philox blocks for int64 lane
+    indices `lane` (B,): (4, B) for one block index, (nblocks, 4, B) for a
+    range of them."""
     blk = torch.as_tensor(blocks, dtype=torch.int64, device=lane.device)
     c2 = (blk & _MASK32).reshape(-1, 1).expand(-1, lane.shape[0])
     c0 = lane.expand_as(c2)
     z = torch.zeros_like(c2)
-    words = philox4x32(c0, z + (counter & _MASK32), c2, z, seed, stream)
-    u = torch.stack(words, dim=1).bitwise_right_shift(8).to(torch.float32)
-    u = torch.clamp_min(u * (2.0 ** -24), 1e-12)
-    return u[0] if blk.dim() == 0 else u
+    w = torch.stack(philox4x32(c0, z + (counter & _MASK32), c2, z, seed,
+                               stream), dim=1)
+    return w[0] if blk.dim() == 0 else w
+
+
+def to_uniform(w: torch.Tensor) -> torch.Tensor:
+    """f32 uniforms in [1e-12, 1) of 32-bit words: the top 24 bits."""
+    u = w.bitwise_right_shift(8).to(torch.float32)
+    return torch.clamp_min(u * (2.0 ** -24), 1e-12)
+
+
+def uniforms(seed: int, stream: int, lane: torch.Tensor, counter: int,
+             blocks) -> torch.Tensor:
+    """f32 uniforms in [1e-12, 1) for int64 lane indices `lane` (B,):
+    (4, B) for one block index, (nblocks, 4, B) for a range of them."""
+    return to_uniform(words(seed, stream, lane, counter, blocks))

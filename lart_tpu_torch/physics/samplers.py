@@ -201,15 +201,17 @@ def rand_henyey_greenstein(xi: torch.Tensor, g: float) -> torch.Tensor:
 
 
 def build_alias_table(probs):
-    """Vose alias table (prob, alias) of a categorical pdf, on the host in
-    numpy, the same arrays as samplers.py:266-284."""
+    """Vose alias table (prob, alias) of a categorical pdf, on the host,
+    the same arrays as samplers.py:266-284 (the same f64 operations on
+    Python floats, which a table of millions of cells builds in seconds)."""
     p = np.asarray(probs, np.float64)
     n = p.size
     p = p / p.sum() * n
-    prob = np.zeros(n)
-    alias = np.zeros(n, np.int32)
-    small = [i for i in range(n) if p[i] < 1.0]
-    large = [i for i in range(n) if p[i] >= 1.0]
+    small = np.flatnonzero(p < 1.0).tolist()
+    large = np.flatnonzero(p >= 1.0).tolist()
+    p = p.tolist()
+    prob = [0.0] * n
+    alias = [0] * n
     while small and large:
         s, big = small.pop(), large.pop()
         prob[s] = p[s]
@@ -218,7 +220,7 @@ def build_alias_table(probs):
         (small if p[big] < 1.0 else large).append(big)
     for i in large + small:
         prob[i] = 1.0
-    return prob, alias
+    return np.asarray(prob, np.float64), np.asarray(alias, np.int32)
 
 
 def alias_sample(prob: torch.Tensor, alias: torch.Tensor, u_bin: torch.Tensor,

@@ -1,20 +1,31 @@
-"""Table-driven source samplers: the exponential cylinder's radius.
+"""Table-driven source samplers: radial laws, star particles, emissivity
+fields and 1-D emissivity profiles.
 
-Port of the part of lart_tpu/physics/sources.py that the
-exponential_cylinder source needs: _monotone_pr (:69), inv_cdf_rexp (:77;
-the inverse CDF of p(r) dr = r exp(-r) dr, the table equivalent of the
-reference's rand_r1exp, src/random_mt.f90:1227-1260), the table of
-build_sources (:241-243) and the log-log radius draw sample_radius_loglog
-(:478).  The table is built on the host in f64 with scipy's gammainc, as
-lart_tpu builds it, and lives on the device in f32 (SourceTables'
-jnp.asarray).  The draw is jnp.interp of log(max(u, 1e-12)) over the f32
-logs of the f32 knots (jax's _interp: the knot i = clip(searchsorted(xp, x,
-'right'), 1, n - 1), fp[i-1] + (x - xp[i-1]) / dx df contracted into one
-fused multiply-add, the end values outside the table), then exp.  The logs
-of the knots are taken once here, by torch.log on the table's device: the
-kernel (K2, csrc/refill.cu) and the plain version read the same ones.
-The other source geometries (spheres, Sersic, star files, emissivity
-fields, illumination) are not ported (engine.check_supported names them).
+Port of the host builders of lart_tpu/physics/sources.py with the same
+numpy f64 bodies: _monotone_pr (:69), inv_cdf_rexp (:77; the inverse CDF
+of p(r) dr = r^k exp(-r) dr, the table equivalent of the reference's
+rand_r1exp/rand_r2exp, src/random_mt.f90:1227-1260),
+sersic_deprojected_cumulative (:92; its trapezoid sums written out as
+np.trapezoid computes them, so an older numpy gives the same table),
+_composite_bias (:132), read_stars (:146), build_emiss_profile_1d (:190)
+and build_sources (:226-297) but for the line-profile file, with the
+log-log radius draw sample_radius_loglog (:478) and the 1-D profile draw
+sample_alias_linear (:486) as plain PyTorch.
+
+The tables live on the device in f32 (integers in int32), as lart_tpu's
+SourceTables' jnp.asarray puts them there.  The radius draw is
+jnp.interp of log(max(u, 1e-12)) over the f32 logs of the f32 knots
+(jax's _interp: the knot i = clip(searchsorted(xp, x, 'right'), 1, n - 1),
+fp[i-1] + (x - xp[i-1]) / dx df contracted into one fused multiply-add,
+the end values outside the table), then exp.  The logs of the knots are
+taken once here, by torch.log on the table's device: the kernel (K2,
+csrc/refill.cu) and the plain version read the same ones.
+
+The categorical draws (stars, emitting cells or leaves, profile bins) take
+their bin from 32 random bits, (bits * n) >> 32, where lart_tpu takes
+min(int(u n), n - 1) of an f32 uniform: with 2^24 distinct uniforms a
+table of millions of cells would leave bins unequally likely, and beyond
+2^24 bins unreachable (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -27,8 +38,13 @@ import numpy as np
 import torch
 
 from ..transport.flight import fma
+from .samplers import build_alias_table
 
 P_FLOOR = float(np.float32(1e-12))     # jnp.maximum(u, 1e-12), weak f32
+TINY_DP = float(np.float32(1e-30))     # sample_alias_linear's flat-bin test
+
+# the geometries whose births a table drives
+RADIAL = ('exponential_sphere', 'exponential_cylinder', 'sersic', 'ssh')
 
 
 def _monotone_pr(cdf: np.ndarray, r: np.ndarray):
@@ -50,6 +66,118 @@ def inv_cdf_rexp(k: int, rmax: float, n: int = 2048):
     p0 = p[0] * 1e-12
     r0 = rr[0] * (p0 / p[0]) ** (1.0 / (k + 1))
     return np.concatenate([[p0], p]), np.concatenate([[r0], rr])
+
+
+def _trapezoid(f: np.ndarray, t: np.ndarray) -> float:
+    """np.trapezoid(f, t) in its own operations (numpy >= 2.0 has it)."""
+    return (np.diff(t) * (f[1:] + f[:-1]) / 2.0).sum()
+
+
+def sersic_deprojected_cumulative(m: float, rmax: float,
+                                  n_r: int = 200, n_t: int = 1024):
+    """(p, r) knots of the normalized cumulative 3-D luminosity of a
+    Sersic-m surface brightness exp(-b (R/Re)^(1/m)), r in units of Re: the
+    inverse Abel integral nu(s) = (b / (pi m)) int_0^inf (s cosh t)^(1/m -
+    1) exp(-b (s cosh t)^(1/m)) dt, then L(<r) = int_0^r 4 pi s^2 nu ds
+    (reference src/random_sersic.f90:20-126)."""
+    # Ciotti & Bertin (1999) asymptotic b(m)
+    b = 2.0 * m - 1.0 / 3.0 + 4.0 / (405.0 * m) + 46.0 / (25515.0 * m * m)
+    x_cut = (700.0 / b) ** m                      # exp(-700) underflow bound
+    s = np.geomspace(min(1e-4, rmax * 1e-4), rmax, n_r)
+    nu = np.empty(n_r)
+    for i, si in enumerate(s):
+        tmax = np.arccosh(max(x_cut / si, 1.0 + 1e-12))
+        t = np.linspace(0.0, tmax, n_t)
+        x = si * np.cosh(t)
+        f = x ** (1.0 / m - 1.0) * np.exp(-b * x ** (1.0 / m))
+        nu[i] = (b / (math.pi * m)) * _trapezoid(f, t)
+    integrand = 4.0 * math.pi * s * s * nu
+    L = np.concatenate([[0.0], np.cumsum(
+        0.5 * (integrand[1:] + integrand[:-1]) * np.diff(s))])
+    # the innermost shell: the cumulative goes as s^(1/m + 2) there
+    L = L + integrand[0] * s[0] / (1.0 / m + 3.0)
+    cdf = L / L[-1]
+    p, rr = _monotone_pr(cdf, s)
+    p0 = p[0] * 1e-12
+    r0 = rr[0] * (p0 / p[0]) ** (1.0 / (1.0 / m + 2.0))
+    return np.concatenate([[p0], p]), np.concatenate([[r0], rr])
+
+
+def _composite_bias(prob: np.ndarray, f_comp: float):
+    """The natural pdf mixed with a uniform over its support: (biased
+    prob, weight) (read_text_data.f90:403-414)."""
+    prob = prob / prob.sum()
+    mask = prob > 0
+    ncount = int(mask.sum())
+    wgt = np.ones_like(prob)
+    biased = prob.copy()
+    biased[mask] = prob[mask] * (1.0 - f_comp) + f_comp / ncount
+    wgt[mask] = prob[mask] / biased[mask]
+    return biased, wgt
+
+
+def read_stars(path: str, sampling_method: int, f_composite: float):
+    """A star-particle file, text columns x y z luminosity: (x, y, z,
+    alias prob, alias, composite weight or None) (read_stars,
+    read_text_data.f90:346-415)."""
+    dat = np.loadtxt(path, ndmin=2)
+    x, y, z, lum = dat[:, 0], dat[:, 1], dat[:, 2], np.maximum(dat[:, 3], 0.0)
+    prob = lum / lum.sum()
+    wgt = None
+    if sampling_method > 0:
+        prob, wgt = _composite_bias(prob, f_composite)
+    pr, al = build_alias_table(prob)
+    return x, y, z, pr, al, wgt
+
+
+def build_emiss_profile_1d(path: str, xmax: float, spherical: bool,
+                           sampling_method: int, f_composite: float):
+    """A 1-D emissivity profile (axis, density knots) truncated at xmax:
+    (axis, density of the draw, alias prob, alias over the bins, weight at
+    each knot or None); spherical profiles are weighted by r^2, a bin's
+    probability is its trapezoid (read_text_data.f90:143-344)."""
+    dat = np.loadtxt(path, ndmin=2)
+    ax, pr = dat[:, 0].astype(np.float64), np.maximum(dat[:, 1], 0.0)
+    if spherical:
+        pr = pr * ax * ax
+    keep = np.searchsorted(ax, xmax, side='left')
+    if keep < len(ax):
+        # truncate at the box edge, interpolating the last knot
+        pr_edge = np.interp(xmax, ax, pr, left=0.0, right=0.0)
+        ax = np.concatenate([ax[:keep], [xmax]])
+        pr = np.concatenate([pr[:keep], [pr_edge]])
+    pbin = 0.5 * (pr[:-1] + pr[1:]) * np.diff(ax)
+    psum = pbin.sum()
+    pbin = pbin / psum
+    pr = pr / psum
+    wgt = None
+    if sampling_method > 0:
+        f1 = 1.0 - f_composite
+        support = (pbin > 0)
+        width = np.diff(ax)
+        wsum = width[support].sum()
+        pcomp = np.where(support, width / wsum, 0.0)
+        pbin = np.where(support, pbin * f1 + f_composite * pcomp, pbin)
+        dens_mix = pr * f1 + f_composite / wsum
+        wgt = np.where(dens_mix > 0, pr / np.where(dens_mix > 0, dens_mix, 1),
+                       1.0)
+        pr = dens_mix
+    pal, al = build_alias_table(pbin)
+    return ax, pr, pal, al, wgt
+
+
+def emiss_kind(par) -> str:
+    """What a diffuse_emissivity source draws from: 'profile' (a 1-D
+    .txt/.dat file), 'grid' (a 3-D FITS/HDF5 file), 'density1'/'density2'
+    (the gas opacity or its square) or 'column' (the grid's own emissivity,
+    an AMR file's column)."""
+    src = par.emiss_file.strip()
+    ext = src.rsplit('.', 1)[-1].lower() if '.' in src else ''
+    if ext in ('txt', 'dat'):
+        return 'profile'
+    if ext in ('fits', 'h5', 'hdf5'):
+        return 'grid'
+    return src if src in ('density1', 'density2') else 'column'
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -77,16 +205,97 @@ class RadialTable:
         return self.log_p, self.log_r
 
 
-def build_sources(cfg, device) -> Optional[RadialTable]:
-    """The radial table of an exponential_cylinder source (the radius in
-    units of source_rscale up to source_rmax, times source_rscale), or
-    None for a point source."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class SourceTables:
+    """A source's device tables (lart_tpu's SourceTables, one kind at a
+    time): the radial knots (kind 'radial'); the stars' positions (x, y, z)
+    and their alias table (kind 'stars'); the alias table over the flat
+    C-order cells or the leaf ids (kind 'cells' or 'leaves'); the profile's
+    knots, axis and density, with the alias table over its bins (kind
+    'profile').  wgt is the composite weight of each star, cell or leaf, or
+    of each profile knot; None without composite bias."""
+    kind: str
+    table: Optional[RadialTable] = None
+    x: Optional[torch.Tensor] = None
+    y: Optional[torch.Tensor] = None
+    z: Optional[torch.Tensor] = None
+    prob: Optional[torch.Tensor] = None
+    alias: Optional[torch.Tensor] = None
+    wgt: Optional[torch.Tensor] = None
+    axis: Optional[torch.Tensor] = None
+    dens: Optional[torch.Tensor] = None
+
+    @property
+    def nbin(self) -> int:
+        return 0 if self.prob is None else self.prob.numel()
+
+    def tensors(self):
+        return tuple(v for v in (
+            *(self.table.tensors() if self.table is not None else ()),
+            self.x, self.y, self.z, self.prob, self.alias, self.wgt,
+            self.axis, self.dens) if v is not None)
+
+
+def build_sources(cfg, meta, host_data=None, device='cpu'
+                  ) -> Optional[SourceTables]:
+    """The device tables of the config's source, or None where its
+    position has a closed form.  host_data may carry 'rhokap', the host
+    (nx, ny, nz) gas opacity of a Cartesian grid (emiss_file 'density1'
+    or 'density2'), and 'emissivity', the AMR grid's column per leaf."""
     par = cfg.par
     sg = par.source_geometry.strip().lower()
-    if sg != 'exponential_cylinder':
+    host_data = host_data or {}
+
+    def f32(v):
+        return None if v is None else torch.as_tensor(
+            np.asarray(v, np.float64), dtype=torch.float32, device=device)
+
+    def i32(v):
+        return torch.as_tensor(np.asarray(v, np.int32), device=device)
+
+    if sg in RADIAL:
+        if sg in ('sersic', 'ssh'):
+            p, r = sersic_deprojected_cumulative(
+                par.sersic_m, par.source_rmax / par.Reff)
+            scale = par.Reff
+        else:
+            k = 1 if sg == 'exponential_cylinder' else 2
+            p, r = inv_cdf_rexp(k, par.source_rmax / par.source_rscale)
+            scale = par.source_rscale
+        return SourceTables(kind='radial', table=RadialTable.from_knots(
+            p, r * scale, device))
+    if sg == 'star_file':
+        x, y, z, pr, al, wgt = read_stars(par.star_file, par.sampling_method,
+                                          par.f_composite)
+        return SourceTables(kind='stars', x=f32(x), y=f32(y), z=f32(z),
+                            prob=f32(pr), alias=i32(al), wgt=f32(wgt))
+    if sg != 'diffuse_emissivity':
         return None
-    p, r = inv_cdf_rexp(1, par.source_rmax / par.source_rscale)
-    return RadialTable.from_knots(p, r * par.source_rscale, device)
+    kind = emiss_kind(par)
+    if kind == 'profile':
+        xmax = min(meta.xmax, meta.ymax, meta.zmax)
+        spherical = par.geometry.strip() != 'plane_atmosphere'
+        ax, prd, pal, al, wgt = build_emiss_profile_1d(
+            par.emiss_file.strip(), xmax, spherical, par.sampling_method,
+            par.f_composite)
+        return SourceTables(kind='profile', axis=f32(ax), dens=f32(prd),
+                            prob=f32(pal), alias=i32(al), wgt=f32(wgt))
+    em = host_data.get('emissivity')
+    if em is None and kind in ('density1', 'density2'):
+        rk = np.asarray(host_data['rhokap'], np.float64)
+        em = rk if kind == 'density1' else rk * rk
+    if em is None:
+        raise ValueError(
+            'diffuse_emissivity needs emiss_file or grid emissivity')
+    prob = np.asarray(em, np.float64).reshape(-1)
+    wgt = None
+    if par.sampling_method > 0:
+        prob, wgt = _composite_bias(prob, par.f_composite)
+    else:
+        prob = prob / prob.sum()
+    pr, al = build_alias_table(prob)
+    return SourceTables(kind='leaves' if meta.grid_type == 'amr' else 'cells',
+                        prob=f32(pr), alias=i32(al), wgt=f32(wgt))
 
 
 def sample_radius_loglog(u: torch.Tensor, tab: RadialTable) -> torch.Tensor:
@@ -103,6 +312,36 @@ def sample_radius_loglog(u: torch.Tensor, tab: RadialTable) -> torch.Tensor:
     f = torch.where(x < xp[0], fp[0], f)
     f = torch.where(x > xp[-1], fp[-1], f)
     return torch.exp(f)
+
+
+def alias_bin(prob: torch.Tensor, alias: torch.Tensor, bits: torch.Tensor,
+              u_alias: torch.Tensor) -> torch.Tensor:
+    """The alias draw of a bin from 32 random bits (int64 tensor < 2^32)
+    and a uniform: the bin (bits * n) >> 32, or its alias where u_alias >=
+    its probability (samplers.py:287-293 with the integer bin); int64."""
+    n = prob.numel()
+    idx = (bits * n) >> 32
+    return torch.where(u_alias >= prob[idx], alias[idx].long(), idx)
+
+
+def sample_alias_linear(tabs: SourceTables, idx: torch.Tensor,
+                        xi: torch.Tensor):
+    """The profile's coordinate in bin idx, the linear density's inverse
+    CDF of xi (uniform where the bin is flat), and its interpolated
+    composite weight (or 1) (sample_alias_linear, sources.py:486): (x,
+    wgt)."""
+    x0, x1 = tabs.axis[idx], tabs.axis[idx + 1]
+    p0, p1 = tabs.dens[idx], tabs.dens[idx + 1]
+    dp = p1 - p0
+    root = torch.sqrt(torch.clamp_min(p0 * p0 + (p1 * p1 - p0 * p0) * xi,
+                                      0.0))
+    x = torch.where(torch.abs(dp) > TINY_DP,
+                    (root - p0) * (x1 - x0) / torch.where(dp == 0, 1.0, dp)
+                    + x0, x0 + xi * (x1 - x0))
+    if tabs.wgt is None:
+        return x, torch.ones_like(x)
+    w0, w1 = tabs.wgt[idx], tabs.wgt[idx + 1]
+    return x, (w1 - w0) / torch.clamp_min(x1 - x0, TINY_DP) * (x - x0) + w0
 
 
 def zexp_consts(par):

@@ -95,6 +95,23 @@ def spectral_axes(cfg: ResolvedConfig, meta: GridMeta):
     return xfreq, velocity, wavelength
 
 
+def spectrum_denom(cfg, meta, nphotons) -> float:
+    """What normalize divides the spectra Jin, Jout and Jabs by: the
+    photons times the bin width times the emitting area and 2 pi sr."""
+    par = cfg.par
+    bin_unit = meta.dwave if par.intensity_unit == 1 else meta.dxfreq
+    distance2cm = par.distance2cm if par.distance2cm > 0.0 else 1.0
+    if par.xy_periodic:
+        # slab: unit luminosity spread over 2 faces x 2pi sr
+        return nphotons * bin_unit * TWOPI * 2.0
+    if par.geometry.strip().lower() == 'sphere':
+        area = FOURPI * par.rmax ** 2 * distance2cm ** 2
+    else:
+        area = (meta.xmax * meta.ymax + meta.ymax * meta.zmax
+                + meta.zmax * meta.xmax) * 8.0 * distance2cm ** 2
+    return nphotons * bin_unit * TWOPI * area
+
+
 def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
               nphotons: int, exetime_s: float = 0.0,
               obs_meta=None) -> RunResult:
@@ -107,18 +124,7 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
 
     bin_unit = meta.dwave if par.intensity_unit == 1 else meta.dxfreq
     distance2cm = par.distance2cm if par.distance2cm > 0.0 else 1.0
-
-    if par.xy_periodic:
-        # slab: unit luminosity spread over 2 faces x 2pi sr
-        denom = nphotons * bin_unit * TWOPI * 2.0
-    else:
-        if par.geometry.strip().lower() == 'sphere':
-            area = FOURPI * par.rmax ** 2 * distance2cm ** 2
-        else:
-            area = (meta.xmax * meta.ymax + meta.ymax * meta.zmax
-                    + meta.zmax * meta.xmax) * 8.0 * distance2cm ** 2
-        denom = nphotons * bin_unit * TWOPI * area
-
+    denom = spectrum_denom(cfg, meta, nphotons)
     Jout = raw['Jout'] / denom
     Jin = raw.get('Jin')
     Jin = Jin / denom if Jin is not None else None

@@ -10,6 +10,7 @@ and so jax).
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -537,6 +538,74 @@ def jellyfish_amr(base: int = 16, levels_extra: int = 2,
             'emissivity': n_e * nH * (1.0 - xHI) * 4.1e-25,
             'boxlen': boxsize,
             'origin': (-boxsize / 2, -boxsize / 2, -boxsize / 2)}
+
+
+# the volume and table sources' examples and the cuts chip_smoke.py phase 4
+# and tools/sources_cpu_runs.py run them at: name -> (namelist under
+# examples/, the keys replaced)
+SOURCE_CASES = {
+    # He I 10833 in a 65^3 sphere at tau 100, uniform_sphere, continuum
+    't4tau2': ('HeI_sphere_cont/t4tau2.in', {}),
+    # the coherent He I sphere at tau 100, uniform_sphere, Stokes peel-off
+    'un_tau100_coh': ('HeI_coherent_test/un_tau100_coh.in', {}),
+    # star_file with composite weights in a 201^3 cube; as written (tau
+    # 1e5, its local core-skip idle at a tau of 0.47 a cell) each photon
+    # scatters ~1.6e5 times, one scattering a cycle, and the drain of 2e4
+    # photons took 150 s on the card (46 s at tau 1e4)
+    'stars1': ('many_stars/stars1.in', {'nphotons': 20000,
+                                        'taumax': 3e3}),
+    # the ssh Sersic source and velocity field, dust, Stokes, tau maps
+    'halo_0053': ('SSH_MUSE/halo_0053.in', {'taumax': 1e4}),
+    # diffuse_emissivity over the AMR leaves' emissivity column; the AMR
+    # build ignores velocity_min/max (ROADMAP queue 3), so xfreq +-80 keeps
+    # every birth of the 3e5 K leaves in the band, where Jin counts it
+    'jellyfish_emiss': ('jellyfish_rmhd/jellyfish_emiss.in',
+                        {'taumax': 3e3, 'xfreq_min': -80.0,
+                         'xfreq_max': 80.0}),
+    # the 1-D emissivity profile in a 101^3 sphere (its temp_file needs the
+    # per-cell temperature, not ported); xfreq +-20 holds every birth in
+    # the band, where Jin counts it (the automatic band at T 1e4 leaves
+    # ~1e-3 of the births outside, which escape outside it)
+    'AlII': ('emiss_1D_AlII/AlII_ex.in', {'temp_file': '',
+                                          'xfreq_min': -20.0,
+                                          'xfreq_max': 20.0}),
+}
+# the namelist keys that name a file beside the namelist
+SOURCE_FILES = ('star_file', 'emiss_file', 'dens_file', 'temp_file')
+
+
+def source_files(path) -> dict:
+    """The file keys of the namelist at path that name files beside it,
+    made absolute (the namelists give them relative to their folder)."""
+    par = Params.from_namelist(str(path))
+    out = {}
+    for k in SOURCE_FILES:
+        v = getattr(par, k).strip()
+        if v and (Path(path).parent / v).is_file():
+            out[k] = str((Path(path).parent / v).resolve())
+    return out
+
+
+def source_params(name: str, root, cut: bool = True, **over) -> Params:
+    """SOURCE_CASES[name] under the repository root `root` as Params, its
+    files made absolute, its cut (unless cut is False: as written) and
+    `over` applied."""
+    rel, cuts = SOURCE_CASES[name]
+    path = Path(root) / 'examples' / rel
+    par = Params.from_namelist(str(path))
+    for k, v in {**source_files(path), **(cuts if cut else {}),
+                 **over}.items():
+        setattr(par, k, v)
+    return par
+
+
+def birth_weight(res) -> float:
+    """The sum of a run's birth weights over its photons (either package's
+    RunResult): its Jin, the births that fall in the frequency band, with
+    tally.normalize's division undone (not for a continuum spectrum with
+    continuum_normalize)."""
+    from .tally import spectrum_denom
+    return float(np.sum(res.Jin)) * spectrum_denom(res.cfg, res.meta, 1)
 
 
 def clump_params(nphotons: int = 4000, batch: int = 2048, **kw) -> Params:

@@ -40,12 +40,16 @@ from .fly_cartesian import CartesianFlight
 from .fly_clump import ClumpFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
-from .refill import SPECTRA, RefillParams, refill
+from ..physics.sources import emiss_kind
+from .refill import GEOMETRIES, SPECTRA, RefillParams, refill
 from .scatter import ScatterParams, scatter
 from .state import DEAD, BatchState, zero_tallies
 
-# the ported source geometries
-SOURCES = ('point', '', 'exponential_cylinder')
+# the ported source geometries: every one of gen_position's but the
+# illuminations (engine.py:2577-2687)
+SOURCES = tuple(GEOMETRIES)
+ILLUMINATIONS = ('plane_illumination', 'stellar_illumination',
+                 'point_illumination')
 
 
 def uniform_slab_fastpath(cfg, meta) -> bool:
@@ -94,6 +98,9 @@ def check_supported(cfg, meta=None) -> None:
     geom = par.geometry.strip().lower()
     amr = par.use_amr_grid
     clump = par.use_clump_medium
+    sg = par.source_geometry.strip().lower()
+    st = par.spectral_type.strip().lower()
+    emiss = emiss_kind(par) if sg == 'diffuse_emissivity' else None
     missing = [name for name, on in (
         ("amr_type 'ramses' (the RAMSES snapshot reader)",
          amr and par.amr_type.strip().lower() == 'ramses'),
@@ -127,12 +134,22 @@ def check_supported(cfg, meta=None) -> None:
         ('profile_dir', bool(par.profile_dir.strip())),
         # the stellar direct peel (peel.py:709, PERF.md row 13)
         ('peel-off of a stellar_illumination source (the stellar direct '
-         'peel)', par.save_peeloff
-         and par.source_geometry.strip().lower() == 'stellar_illumination'),
-        ('source_geometry other than point and exponential_cylinder',
-         par.source_geometry.strip().lower() not in SOURCES),
-        ('spectral_type other than voigt/monochromatic/gaussian/continuum',
-         par.spectral_type.strip().lower() not in SPECTRA)) if on]
+         'peel)', par.save_peeloff and sg == 'stellar_illumination'),
+        (f'source_geometry {sg!r} (the illumination samplers)',
+         sg in ILLUMINATIONS),
+        (f'source_geometry {sg!r}',
+         sg not in SOURCES and sg not in ILLUMINATIONS),
+        ("spectral_type 'line_prof_file' (the line-profile file)",
+         st == 'line_prof_file'),
+        (f'spectral_type {st!r}', st not in SPECTRA
+         and st != 'line_prof_file'),
+        ('a 3-D FITS/HDF5 emiss_file (the 3-D grid reader)',
+         emiss == 'grid'),
+        # lart_tpu hands build_sources no rhokap there (driver.py:90-95)
+        ("emiss_file 'density1'/'density2' on an AMR grid or a clump "
+         'medium', emiss in ('density1', 'density2') and (amr or clump)),
+        ('a 1-D emissivity profile in a plane_atmosphere',
+         emiss == 'profile' and geom == 'plane_atmosphere')) if on]
     if meta is not None:
         missing += [name for name, on in (
             (f'grid_type {meta.grid_type!r}',
@@ -208,14 +225,16 @@ class Chunk:
         return tallies, alive, state.n_launched[0]
 
 
-def make_chunk(cfg, meta, grid, cmeta=None) -> Chunk:
+def make_chunk(cfg, meta, grid, cmeta=None, host_data=None) -> Chunk:
     """The chunk of a grid (on a clump medium grid is the ClumpDevice and
-    cmeta its ClumpMeta)."""
+    cmeta its ClumpMeta); host_data holds what a table source is built
+    from (physics/sources.py build_sources: the Cartesian grid's host
+    'rhokap', the AMR grid's 'emissivity')."""
     check_supported(cfg, meta)
     par = cfg.par
     sphere = uniform_sphere_fastpath(cfg, meta)
     return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid,
-                                                        cmeta),
+                                                        cmeta, host_data),
                  flight=make_fly(cfg, meta, grid, cmeta),
                  scatter_params=ScatterParams.from_config(cfg, meta, grid,
                                                           sphere, cmeta),

@@ -1,11 +1,12 @@
 """Refill: dead lanes are reborn from the photon budget (kernel K2).
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
-:2689) for a point source (source_geometry 'point' or '') or an
-exponential cylinder (see below) with a Voigt,
-monochromatic, Gaussian or flat continuum input spectrum in a medium
-static or moving, on a Cartesian grid of uniform temperature or on the
-octree AMR grid.  A line of type 2, 4, 5 or 6
+:2689) for a point source (source_geometry 'point' or '') or any extended
+source of gen_position but the illuminations (see below) with a Voigt,
+voigt0, monochromatic, Gaussian, flat continuum or continuum+gaussian
+input spectrum in a medium static or moving, on a Cartesian grid of
+uniform temperature, on the octree AMR grid or in a clump medium.  A line
+of type 2, 4, 5 or 6
 starts from xfreq0 shifted to a branch (branch_init_shift, engine.py:
 2919-2970; physics/line.py) by the two uniforms of block 3; the continuum
 (engine.py:2804-2807) replaces the frequency, that shift included, by
@@ -50,17 +51,50 @@ With peel-off on, the refill also writes the flag of a PeelRecord: 1 on
 the lanes it launched, 0 elsewhere, so that the direct peel of the
 newborn photons (kernel K7, engine.py:2909-2913) runs on exactly those.
 
-The exponential_cylinder source (gen_position, engine.py:2629-2637) draws
-each birth's position from the uniforms of block 4, after every earlier
-block, so a point source draws as before: the cylindrical radius from
-the log-log table of physics/sources.py (u0), the azimuth 2 pi u1, and
-z from the truncated exponential in |z| up to zmax (_zexp, :2569-2575;
-magnitude u2, sign u3) or, with source_zscale <= 0, uniform over the box
-(zmin + zrange u2); with xyz_symmetry the position's absolute values
+The extended sources (gen_position, engine.py:2577-2687) draw each
+birth's position from the uniforms of block 4 and, where they need more,
+the words of block 5, after every earlier block, so a point source draws
+as before.  K2 has one instance per family of sources:
+- radial table (`exponential_cylinder`, `exponential_sphere`, `sersic`,
+  `ssh`): the radius from the log-log table of physics/sources.py (u0),
+  then for the cylinder the azimuth 2 pi u1 and z from the truncated
+  exponential in |z| up to zmax (_zexp, :2569-2575; magnitude u2, sign
+  u3) or, with source_zscale <= 0, uniform over the box (zmin + zrange
+  u2); for the others a point on the sphere of that radius (_iso_sphere,
+  :2563: cos theta 2 u1 - 1, azimuth 2 pi u2);
+- analytic volume: `uniform_sphere`/`sphere` (radius u0^(1/3) rmax,
+  powf as samplers.cbrt, on the sphere of u1, u2), `uniform_cylinder`/
+  `cylinder` (radius sqrt(u0) rmax, azimuth 2 pi u1, z uniform over the
+  box from u2), `uniform` (the box from u0, u1, u2), `uniform_xy` (the
+  disk of radius source_rmax, or the box, from u0, u1 at z = 0),
+  `gaussian` (x, y over the box, z = source_zscale / sqrt(2) times a
+  normal drawn by Box-Muller from words 0 and 1 of block 5), `exponential`
+  (x, y over the box, z from _zexp); this instance also runs a point
+  source whose spectrum is `voigt0` or `continuum+gaussian`;
+- alias table (`star_file`, `diffuse_emissivity`): the bin from word 0 of
+  block 5 as (bits n) >> 32 and its alias where the uniform of word 1
+  reaches its probability (physics/sources.py alias_bin); a star's
+  position, a uniform point in a Cartesian cell (the flat C-order index
+  idx: ic = idx // (ny nz), jc = (idx // nz) % ny, kc = idx % nz, then
+  xmin + (ic + u1) dx, ...) or an AMR leaf (its centre + (2 u - 1) its
+  half-size, u1, u2, u3), or the radius of a 1-D profile
+  (sample_alias_linear: the linear density's inverse CDF within the bin
+  of the uniform of word 2) on the sphere of u1, u2.
+With xyz_symmetry every non-point position is taken in absolute value
 (:2722-2723).  The birth cell is then the lane's own: on a Cartesian grid
 clip(floor((x - xmin) / dx)) per axis (:2759-2765), its velocity gathered
 per lane in a moving medium; on the AMR grid and the clump medium the
 lookups above run at the lane's position.
+
+The birth weight (engine.py:2876, :2843-2850) is the star's, cell's or
+leaf's composite weight, or the profile's weight interpolated at the drawn
+radius, where sampling_method > 0 biased the table, else 1; it is written
+into the lane's wgt and added into Jin.  The voigt0 spectrum (:2783)
+draws a Voigt x at the source temperature's damping va0 and scales it by
+Dfreq0 / D_loc; continuum+gaussian (:2808) takes the line with probability
+f_line = EW_vel / (EW_vel + dv_range) (the uniform of word 2 of block 2)
+as xfreq0 + a Box-Muller normal (words 0, 1) times sigma_x, else the flat
+continuum (word 3), all divided by D_loc / Dfreq_ref.
 """
 
 from __future__ import annotations
@@ -68,75 +102,241 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..config import vtherm_total
+from ..constants import FOURPI, SPEEDC, UM2KM
 from ..kernels import build as kbuild
 from ..physics import line as pline
-from ..physics.rng import STREAM_REFILL, uniforms
-from ..physics.samplers import TWOPI, box_muller, rand_voigt_x
-from ..physics.sources import (RadialTable, build_sources, sample_radius_loglog,
-                               zexp, zexp_consts)
+from ..physics.rng import STREAM_REFILL, to_uniform, uniforms, words
+from ..physics.samplers import TWOPI, box_muller, cbrt, rand_voigt_x
+from ..physics.sources import (SourceTables, alias_bin, build_sources,
+                               emiss_kind, sample_alias_linear,
+                               sample_radius_loglog, zexp, zexp_consts)
 from .flight import AmrGrid, ClumpGrid, div, doppler_ratio, fma
 from .state import DEAD, FFS, BatchState, Tallies
 
 SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS, SPECTRUM_CONT = 0, 1, 2, 3
+SPECTRUM_VOIGT0, SPECTRUM_CONT_GAUSS = 4, 5
 SPECTRA = {'monochromatic': SPECTRUM_MONO, 'voigt': SPECTRUM_VOIGT,
-           'gaussian': SPECTRUM_GAUSS, 'continuum': SPECTRUM_CONT}
+           'gaussian': SPECTRUM_GAUSS, 'continuum': SPECTRUM_CONT,
+           'voigt0': SPECTRUM_VOIGT0,
+           'continuum+gaussian': SPECTRUM_CONT_GAUSS}
 BLOCK_SOURCE = 4     # the Philox block of an extended source's position
+BLOCK_SOURCE2 = 5    # its normal (gaussian) or its alias draw
+
+# K2's instances (csrc/refill.cu kSrc), each counted under its own name
+FAMILY_POINT, FAMILY_RADIAL, FAMILY_VOLUME, FAMILY_ALIAS = 0, 1, 2, 3
+REFILL_KERNELS = ('refill_point', 'refill_radial', 'refill_volume',
+                  'refill_alias')
+(GEOM_POINT, GEOM_EXP_CYLINDER, GEOM_RADIAL_SPHERE, GEOM_UNIFORM_SPHERE,
+ GEOM_CYLINDER, GEOM_BOX, GEOM_XY_DISK, GEOM_XY_BOX, GEOM_GAUSSIAN,
+ GEOM_EXPONENTIAL, GEOM_STARS, GEOM_CELLS, GEOM_LEAVES,
+ GEOM_PROFILE) = range(14)
+GEOMETRIES = {
+    'point': GEOM_POINT, '': GEOM_POINT,
+    'exponential_cylinder': GEOM_EXP_CYLINDER,
+    'exponential_sphere': GEOM_RADIAL_SPHERE, 'sersic': GEOM_RADIAL_SPHERE,
+    'ssh': GEOM_RADIAL_SPHERE,
+    'uniform_sphere': GEOM_UNIFORM_SPHERE, 'sphere': GEOM_UNIFORM_SPHERE,
+    'uniform_cylinder': GEOM_CYLINDER, 'cylinder': GEOM_CYLINDER,
+    'uniform': GEOM_BOX, 'uniform_xy': GEOM_XY_BOX,
+    'gaussian': GEOM_GAUSSIAN, 'exponential': GEOM_EXPONENTIAL,
+    'star_file': GEOM_STARS, 'diffuse_emissivity': GEOM_CELLS}
+
+
+def family_of(geom: int) -> int:
+    if geom in (GEOM_EXP_CYLINDER, GEOM_RADIAL_SPHERE):
+        return FAMILY_RADIAL
+    if geom >= GEOM_STARS:
+        return FAMILY_ALIAS
+    return FAMILY_VOLUME
+
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class SourceC(ctypes.Structure):
     """csrc/refill.cu struct SourceC, field for field."""
-    _fields_ = [('log_p', _P), ('log_r', _P), ('n', _I), ('zexp', _I),
-                ('neg_zs', _F), ('zexp_c', _F), ('zmin', _F), ('zrange', _F),
-                ('abs_xyz', _I), ('cells', _I * 3), ('amin', _F * 3),
-                ('d', _F * 3)]
+    _fields_ = [('geom', _I), ('log_p', _P), ('log_r', _P), ('n', _I),
+                ('zexp', _I), ('neg_zs', _F), ('zexp_c', _F), ('rmax', _F),
+                ('zgauss', _F), ('abs_xyz', _I), ('cells', _I * 3),
+                ('amin', _F * 3), ('d', _F * 3), ('span', _F * 3),
+                ('prob', _P), ('alias', _P), ('nbin', _I), ('wgt', _P),
+                ('px', _P), ('py', _P), ('pz', _P), ('ph', _P),
+                ('va0', _F), ('dfreq0', _F), ('f_line', _F)]
+
+
+def iso_sphere(rp, xi1, xi2):
+    """A point on the sphere of radius rp from two uniforms (_iso_sphere,
+    engine.py:2563)."""
+    cost = 2.0 * xi1 - 1.0
+    sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+    phi = TWOPI * xi2
+    return rp * sint * torch.cos(phi), rp * sint * torch.sin(phi), rp * cost
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class ExpCylinder:
-    """The exponential_cylinder source: the radius table, the z law
-    (zexp (-zs, c) of the truncated exponential, or None for uniform z in
-    [zmin, zmin + zrange)), xyz_symmetry, and the Cartesian grid's cells
-    (n, amin, d) a birth's cell is found in."""
-    table: RadialTable
+class Source:
+    """An extended source (or a point source in the volume instance): its
+    geometry, its tables (physics/sources.py SourceTables), the radius of
+    the uniform sphere, cylinder and disk, the z laws (zexp (-zs, c) of
+    the truncated exponential, or None for uniform z over the box; the
+    Gaussian's zscale / sqrt(2)), xyz_symmetry, the box (amin, span) and the
+    Cartesian grid's cells (n, amin, d) a birth's cell is found in, and
+    on the AMR grid the leaves' centres and half-sizes; the constants of
+    the voigt0 and continuum+gaussian spectra ride here too."""
+    geom: int
+    tabs: Optional[SourceTables]
+    rmax: float
     zexp: Optional[tuple]
-    zmin: float
-    zrange: float
+    zgauss: float
     abs_xyz: bool
     n: tuple
     amin: tuple
     d: tuple
+    span: tuple
+    leaves: Optional[tuple] = None
+    va0: float = 0.0
+    dfreq0: float = 1.0
+    f_line: float = 0.0
+
+    @property
+    def family(self) -> int:
+        return family_of(self.geom)
+
+    @property
+    def table(self):
+        """The radial table, or None."""
+        return None if self.tabs is None else self.tabs.table
 
     @classmethod
-    def from_config(cls, cfg, meta, device) -> Optional['ExpCylinder']:
-        table = build_sources(cfg, device)
-        if table is None:
+    def from_config(cls, cfg, meta, grid=None, host_data=None,
+                    device='cpu') -> Optional['Source']:
+        """The config's source, or None for a point source with one of the
+        spectra the point instance draws (monochromatic, voigt, gaussian,
+        continuum)."""
+        par, line = cfg.par, cfg.line
+        sg = par.source_geometry.strip().lower()
+        st = par.spectral_type.strip().lower()
+        geom = GEOMETRIES[sg]
+        if geom == GEOM_POINT and SPECTRA[st] < SPECTRUM_VOIGT0:
             return None
-        par = cfg.par
-        return cls(table=table,
-                   zexp=zexp_consts(par) if par.source_zscale > 0 else None,
-                   zmin=meta.zmin, zrange=meta.zmax - meta.zmin,
-                   abs_xyz=bool(par.xyz_symmetry),
+        if sg == 'uniform_xy' and par.source_rmax > 0:
+            geom = GEOM_XY_DISK
+        leaves = None
+        if geom == GEOM_CELLS:
+            if emiss_kind(par) == 'profile':
+                geom = GEOM_PROFILE
+            elif meta.grid_type == 'amr':
+                geom = GEOM_LEAVES
+                leaves = (grid.leaf_cx, grid.leaf_cy, grid.leaf_cz,
+                          grid.leaf_ch)
+        tabs = build_sources(cfg, meta, host_data, device)
+        zexp_c = zexp_consts(par) if geom in (
+            GEOM_EXP_CYLINDER, GEOM_EXPONENTIAL) and par.source_zscale > 0 \
+            else None
+        rmax = par.source_rmax if geom == GEOM_XY_DISK else (
+            par.source_rmax if par.source_rmax > 0 else par.rmax)
+        va0, dfreq0, f_line = 0.0, 1.0, 0.0
+        if st == 'voigt0':
+            # the source temperature's Doppler width and damping
+            # (generate_photon.f90:249-252, setup.f90:140-142)
+            T0 = par.temperature0 if par.temperature0 > 0 \
+                else par.temperature
+            vth0 = vtherm_total(par, line, T0)
+            dfreq0 = par.Dfreq0 if par.Dfreq0 > 0 \
+                else vth0 / (line.wavelength0 * UM2KM)
+            va0 = par.voigt_a0 if par.voigt_a0 > 0 \
+                else (line.damping / FOURPI) / dfreq0
+        elif st == 'continuum+gaussian':
+            # the line's share of the flat continuum + Gaussian line by its
+            # equivalent width (generate_photon.f90:275-305)
+            ew_vel = par.EW_line / (line.wavelength0 * 1e4) * SPEEDC
+            dv_range = (meta.xfreq_max - meta.xfreq_min) * cfg.vtherm
+            f_line = ew_vel / (ew_vel + dv_range)
+        f32 = np.float32
+        return cls(geom=geom, tabs=tabs, rmax=float(f32(rmax)),
+                   zexp=zexp_c,
+                   zgauss=float(f32(par.source_zscale / math.sqrt(2.0))),
+                   abs_xyz=bool(par.xyz_symmetry) and geom != GEOM_POINT,
                    n=(meta.nx, meta.ny, meta.nz),
                    amin=(meta.xmin, meta.ymin, meta.zmin),
-                   d=(meta.dx, meta.dy, meta.dz))
+                   d=(meta.dx, meta.dy, meta.dz),
+                   span=(meta.xmax - meta.xmin, meta.ymax - meta.ymin,
+                         meta.zmax - meta.zmin),
+                   leaves=leaves, va0=float(f32(va0)),
+                   dfreq0=float(f32(dfreq0)), f_line=float(f32(f_line)))
 
-    def position(self, w):
-        """The birth positions (x, y, z) of block-4 uniforms w (4, B)."""
-        rp = sample_radius_loglog(w[0], self.table)
-        phi = TWOPI * w[1]
-        x, y = rp * torch.cos(phi), rp * torch.sin(phi)
-        z = zexp(w[2], w[3], *self.zexp) if self.zexp is not None \
-            else fma(w[2], self.zrange, self.zmin)
+    def _box(self, u, axis):
+        return fma(u, self.span[axis], self.amin[axis])
+
+    def position(self, seed, lanes, counter, point):
+        """The birth positions (x, y, z) and weights (None: all 1) of
+        lanes, from the uniforms of block 4 (and words of block 5); point
+        is the point source's (x, y, z)."""
+        g = self.geom
+        if g == GEOM_POINT:
+            return (*point, None)
+        w = uniforms(seed, STREAM_REFILL, lanes, counter, BLOCK_SOURCE)
+        wgt = None
+        if g in (GEOM_EXP_CYLINDER, GEOM_RADIAL_SPHERE):
+            rp = sample_radius_loglog(w[0], self.table)
+            if g == GEOM_RADIAL_SPHERE:
+                x, y, z = iso_sphere(rp, w[1], w[2])
+            else:
+                phi = TWOPI * w[1]
+                x, y = rp * torch.cos(phi), rp * torch.sin(phi)
+                z = zexp(w[2], w[3], *self.zexp) if self.zexp is not None \
+                    else self._box(w[2], 2)
+        elif g == GEOM_UNIFORM_SPHERE:
+            x, y, z = iso_sphere(cbrt(w[0]) * self.rmax, w[1], w[2])
+        elif g in (GEOM_CYLINDER, GEOM_XY_DISK):
+            rp = torch.sqrt(w[0]) * self.rmax
+            phi = TWOPI * w[1]
+            x, y = rp * torch.cos(phi), rp * torch.sin(phi)
+            z = self._box(w[2], 2) if g == GEOM_CYLINDER \
+                else torch.zeros_like(rp)
+        elif g in (GEOM_BOX, GEOM_XY_BOX, GEOM_GAUSSIAN, GEOM_EXPONENTIAL):
+            x, y = self._box(w[0], 0), self._box(w[1], 1)
+            if g == GEOM_BOX:
+                z = self._box(w[2], 2)
+            elif g == GEOM_XY_BOX:
+                z = torch.zeros_like(x)
+            elif g == GEOM_GAUSSIAN:
+                v = uniforms(seed, STREAM_REFILL, lanes, counter,
+                             BLOCK_SOURCE2)
+                z = self.zgauss * box_muller(v[0], v[1])
+            else:
+                z = zexp(w[2], w[3], *self.zexp)
+        else:
+            t = self.tabs
+            bits = words(seed, STREAM_REFILL, lanes, counter, BLOCK_SOURCE2)
+            idx = alias_bin(t.prob, t.alias, bits[0], to_uniform(bits[1]))
+            if g == GEOM_PROFILE:
+                rp, wgt = sample_alias_linear(t, idx, to_uniform(bits[2]))
+                x, y, z = iso_sphere(rp, w[1], w[2])
+            else:
+                if t.wgt is not None:
+                    wgt = t.wgt[idx]
+                if g == GEOM_STARS:
+                    x, y, z = t.x[idx], t.y[idx], t.z[idx]
+                elif g == GEOM_LEAVES:
+                    cx, cy, cz, ch = (v[idx] for v in self.leaves)
+                    x, y, z = (fma(2.0 * u - 1.0, ch, c)
+                               for u, c in zip(w[1:], (cx, cy, cz)))
+                else:
+                    nx, ny, nz = self.n
+                    c = (idx // (ny * nz), (idx // nz) % ny, idx % nz)
+                    x, y, z = (fma(ci.float() + u, d, a) for ci, u, d, a in
+                               zip(c, w[1:], self.d, self.amin))
         if self.abs_xyz:
             x, y, z = torch.abs(x), torch.abs(y), torch.abs(z)
-        return x, y, z
+        return x, y, z, wgt
 
     def cells(self, pos):
         """The Cartesian cells (ic, jc, kc) holding the positions, clipped
@@ -148,17 +348,38 @@ class ExpCylinder:
     @functools.cached_property
     def c_struct(self) -> SourceC:
         c = SourceC()
-        c.log_p, c.log_r = (t.data_ptr() for t in self.table.tensors())
-        c.n = self.table.n
+        c.geom = self.geom
+        if self.table is not None:
+            c.log_p, c.log_r = (t.data_ptr() for t in self.table.tensors())
+            c.n = self.table.n
         c.zexp = int(self.zexp is not None)
         if self.zexp is not None:
             c.neg_zs, c.zexp_c = self.zexp
-        c.zmin, c.zrange = self.zmin, self.zrange
+        c.rmax, c.zgauss = self.rmax, self.zgauss
         c.abs_xyz = int(self.abs_xyz)
         c.cells[:] = self.n
         c.amin[:] = self.amin
         c.d[:] = self.d
+        c.span[:] = self.span
+        t = self.tabs
+        if t is not None and t.prob is not None:
+            c.prob, c.alias = t.prob.data_ptr(), t.alias.data_ptr()
+            c.nbin = t.nbin
+            c.wgt = None if t.wgt is None else t.wgt.data_ptr()
+            # the stars' positions, the leaves' centres and half-sizes, or
+            # the profile's axis and density
+            pts = {'stars': (t.x, t.y, t.z, None),
+                   'leaves': self.leaves or (None,) * 4,
+                   'profile': (t.axis, t.dens, None, None)}.get(
+                       t.kind, (None,) * 4)
+            c.px, c.py, c.pz, c.ph = (None if v is None else v.data_ptr()
+                                      for v in pts)
+        c.va0, c.dfreq0, c.f_line = self.va0, self.dfreq0, self.f_line
         return c
+
+    def tensors(self):
+        return (() if self.tabs is None else self.tabs.tensors()) \
+            + (self.leaves or ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,14 +391,15 @@ class RefillParams:
     jc: int
     kc: int
     xfreq0: float
-    spectrum: int        # SPECTRUM_MONO, _VOIGT, _GAUSS or _CONT
+    spectrum: int        # SPECTRUM_MONO, _VOIGT, ... or _CONT_GAUSS
     a: float             # Voigt damping parameter of the source cell
     xfreq_min: float
     dxfreq: float
     nxfreq: int
     v_src: tuple = (0.0, 0.0, 0.0)   # the source cell's velocity (f32)
     comoving_source: bool = True
-    sigma_x: float = 0.0     # the Gaussian's sigma in Doppler units
+    sigma_x: float = 0.0     # the Gaussian's (or the continuum+gaussian
+    #   line's) sigma in Doppler units
     xfreq_span: float = 0.0  # the continuum's xfreq_max - xfreq_min
     Dfreq: float = 1.0       # Doppler width of the source cell (Hz)
     line: pline.LineConsts = None
@@ -185,20 +407,31 @@ class RefillParams:
     vel: Optional[tuple] = None      # per-leaf velocities (AMR), or per
     #   cell for an extended source on a moving Cartesian grid
     clump: Optional[ClumpGrid] = None   # the clumps, on a clump medium
-    source: Optional[ExpCylinder] = None    # an exponential_cylinder source
+    source: Optional[Source] = None    # an extended source, or None for
+    #   the point instance
+
+    @property
+    def kernel(self) -> str:
+        """The name of K2's instance that launches these births."""
+        return REFILL_KERNELS[FAMILY_POINT if self.source is None
+                              else self.source.family]
 
     @classmethod
-    def from_config(cls, cfg, meta, grid=None, cmeta=None) -> 'RefillParams':
+    def from_config(cls, cfg, meta, grid=None, cmeta=None,
+                    host_data=None) -> 'RefillParams':
         """Constants of a config that engine.check_supported accepted; the
         source cell's velocity comes from `grid` in a moving medium (on a
-        clump medium grid is the ClumpDevice and cmeta its ClumpMeta)."""
+        clump medium grid is the ClumpDevice and cmeta its ClumpMeta);
+        host_data is build_sources' (physics/sources.py)."""
         par = cfg.par
         f32 = np.float32
         pos = [f32(par.xs_point), f32(par.ys_point), f32(par.zs_point)]
         cells, v_src, amr, vel = [0, 0, 0], (0.0, 0.0, 0.0), None, None
         clump = None
-        source = ExpCylinder.from_config(
-            cfg, meta, 'cpu' if grid is None else grid.rhokap.device)
+        source = Source.from_config(
+            cfg, meta, grid, host_data,
+            'cpu' if grid is None else grid.rhokap.device)
+        extended = source is not None and source.geom != GEOM_POINT
         if meta.grid_type == 'clump':
             # the births find their clump themselves (clump_find)
             clump = ClumpGrid.from_meta(cfg, meta, cmeta, grid)
@@ -216,7 +449,7 @@ class RefillParams:
                 # computes it
                 c = np.floor((p - f32(amin)) / f32(d))
                 cells[a] = int(min(max(c, 0), n - 1))
-            if not meta.static_medium and source is None:
+            if not meta.static_medium and not extended:
                 v_src = tuple(float(v[tuple(cells)])
                               for v in (grid.vfx, grid.vfy, grid.vfz))
             elif not meta.static_medium:
@@ -225,6 +458,9 @@ class RefillParams:
                             for v in (grid.vfx, grid.vfy, grid.vfz))
         gsig = (par.gaussian_FWHM_vel / 2.3548200450309493
                 if par.gaussian_FWHM_vel > 0 else par.gaussian_sigma_vel)
+        if par.spectral_type.strip().lower() == 'continuum+gaussian':
+            gsig = (par.gaussian_FWHM_vel if par.gaussian_FWHM_vel > 0
+                    else 150.0) / 2.3548200450309493
         return cls(xs=float(pos[0]), ys=float(pos[1]), zs=float(pos[2]),
                    ic=cells[0], jc=cells[1], kc=cells[2],
                    xfreq0=float(par.xfreq0),
@@ -243,6 +479,11 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
                  seed: int, counter: int, budget: int, record=None) -> None:
     """Plain PyTorch refill, in place; `record.flag` marks the launched
     lanes when a PeelRecord is given."""
+    if int(state.n_launched[0]) >= budget:
+        # the budget is launched: no lane is reborn (the drain tail)
+        if record is not None:
+            record.flag.zero_()
+        return
     B, dev = state.batch, state.device
     dead = state.phase == DEAD
     rank = torch.cumsum(dead.to(torch.int32), 0) - 1
@@ -257,11 +498,12 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     cell = (p.ic, p.jc, p.kc)
     src = [torch.full((B,), v, dtype=torch.float32, device=dev)
            for v in (p.xs, p.ys, p.zs)]
+    wgt = None     # the birth weight: 1 but for a composite-biased table
     if p.source is not None:
-        # an extended source: each birth's own position (block 4)
-        src = list(p.source.position(uniforms(seed, STREAM_REFILL, lanes,
-                                              counter, BLOCK_SOURCE)))
-        if p.clump is None and p.amr is None:
+        # an extended source: each birth's own position (blocks 4, 5)
+        *src, wgt = p.source.position(seed, lanes, counter, src)
+        if p.clump is None and p.amr is None \
+                and p.source.geom != GEOM_POINT:
             cell = p.source.cells(src)
             if p.vel is not None:
                 f = (cell[0].long() * p.source.n[1] + cell[1]) \
@@ -301,6 +543,19 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
         # replaces xfreq, the branch shift too (engine.py:2804-2807)
         w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
         xfreq = (p.xfreq_min + w[0] * p.xfreq_span) / ratio
+    elif p.spectrum == SPECTRUM_VOIGT0:
+        # a Voigt x at the source temperature, in local Doppler units
+        dl = D_loc if isinstance(D_loc, torch.Tensor) else torch.full(
+            (), D_loc, dtype=torch.float32, device=dev)
+        scale = torch.div(torch.full((), p.source.dfreq0,
+                                     dtype=torch.float32, device=dev), dl)
+        xfreq = xfreq + rand_voigt_x(p.source.va0, u[2], u[3], v[0]) * scale
+    elif p.spectrum == SPECTRUM_CONT_GAUSS:
+        # the line with probability f_line, else the flat continuum
+        w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
+        xfreq = torch.where(w[2] < p.source.f_line,
+                            xfreq + box_muller(w[0], w[1]) * p.sigma_x,
+                            p.xfreq_min + w[3] * p.xfreq_span) / ratio
 
     # lab-frame source -> comoving frequency; Jin at the lab frequency
     if p.clump is not None:
@@ -312,7 +567,8 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     fx = torch.floor(div((xfreq + u1) * ratio - p.xfreq_min, p.dxfreq))
     inj = launch & (fx >= 0.0) & (fx < p.nxfreq)
     tallies.Jin.index_add_(0, torch.clamp(fx, 0, p.nxfreq - 1).long(),
-                           inj.to(torch.float32))
+                           inj.to(torch.float32) if wgt is None
+                           else torch.where(inj, wgt, 0.0))
 
     def put(name, value):
         cur = getattr(state, name)
@@ -329,7 +585,7 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     for nm, val in (('kx', kx), ('ky', ky), ('kz', kz), ('xfreq', xfreq)):
         put(nm, val)
         put('b' + nm, val)
-    put('wgt', 1.0)
+    put('wgt', 1.0 if wgt is None else wgt)
     put('tau_target', v[1])
     put('tau_run', 0.0)
     for nm, val in (('Q', 0.0), ('U', 0.0), ('V', 0.0), ('mx', cost * cosp),
@@ -351,13 +607,13 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         return
     if budget + state.batch >= 2 ** 31:
         raise ValueError('photon budget + batch must stay below 2^31')
-    kbuild.require_cuda('refill_point', tallies.Jin, state.n_launched,
+    name = p.kernel
+    kbuild.require_cuda(name, tallies.Jin, state.n_launched,
                         *(getattr(state, f) for f in ('phase', 'x')),
                         *(() if record is None else (record.flag,)),
                         *(() if p.amr is None else p.amr.dev.tensors()),
                         *(() if p.clump is None else p.clump.dev.tensors()),
-                        *(() if p.source is None
-                          else p.source.table.tensors()),
+                        *(() if p.source is None else p.source.tensors()),
                         *(p.vel or ()))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
@@ -373,5 +629,5 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
           for v in (p.vel or (None,) * 3)),
         None if p.source is None else ctypes.byref(p.source.c_struct),
         kbuild.stream_of(state.x)),
-        'refill_point')
-    kbuild.LAUNCHES['refill_point'] += 1
+        name)
+    kbuild.LAUNCHES[name] += 1

@@ -348,8 +348,9 @@ def test_check_supported_on_amr():
     teng.check_supported(_jelly_par().resolve())
     for over, what in ((dict(amr_type='ramses'), 'ramses'),
                        (dict(ion_model='solar_cie'), 'solar_cie'),
-                       (dict(source_geometry='diffuse_emissivity'),
-                        'source_geometry')):
+                       # lart_tpu hands build_sources no rhokap on AMR
+                       (dict(source_geometry='diffuse_emissivity',
+                             emiss_file='density1'), 'density1')):
         par = testing.amr_params(**over)
         with pytest.raises(NotImplementedError, match=what):
             teng.check_supported(par.resolve())

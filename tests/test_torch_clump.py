@@ -318,12 +318,14 @@ def test_check_supported_on_clumps():
     cfg, jcfg, meta, cmeta, dev, _ = _build(h2_model='neufeld', f_H2=0.03)
     with pytest.raises(NotImplementedError, match='H2 pumping on a clump'):
         teng.make_chunk(cfg, meta, dev, cmeta)
-    # sight-line maps on clumps are ported (K11); the source geometries
-    # but point and exponential_cylinder are not
+    # sight-line maps on clumps are ported (K11), and the source geometries;
+    # an emissivity drawn from the gas opacity is not (lart_tpu hands
+    # build_sources no rhokap on a clump medium)
     teng.check_supported(_par(save_sightline_tau=True,
                               save_peeloff=True).resolve())
-    par = _par(source_geometry='exponential_sphere')
-    with pytest.raises(NotImplementedError, match='source_geometry'):
+    teng.check_supported(_par(source_geometry='exponential_sphere').resolve())
+    par = _par(source_geometry='diffuse_emissivity', emiss_file='density2')
+    with pytest.raises(NotImplementedError, match='clump medium'):
         teng.check_supported(par.resolve())
 
 

@@ -49,7 +49,11 @@ CLUMP_KEYS = {'fly_clump_dense', 'fly_clump_csr', 'refill_point (clump)',
 # K11 and the interior branch of K7 and the exponential-cylinder births of
 # K2 (chip_smoke.phase2_inside)
 INSIDE_KEYS = {'sightline', 'peel (interior)',
-               'refill_point (exponential_cylinder)'}
+               'refill_radial (exponential_cylinder)'}
+
+
+# K2's instances of the volume and table sources (chip_smoke.phase2_sources)
+SOURCE_KEYS = {'refill_volume', 'refill_radial', 'refill_alias'}
 
 
 def test_kernels_match_plain_versions(cuda):
@@ -65,7 +69,86 @@ def test_kernels_match_plain_versions(cuda):
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
-        | CLUMP_KEYS | INSIDE_KEYS
+        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS
+
+
+# a source of each K2 instance on a 17^3 sphere: (overrides, instance)
+SOURCES = {
+    'uniform_sphere_continuum': (dict(source_geometry='uniform_sphere',
+                                      spectral_type='continuum'),
+                                 'refill_volume'),
+    'gaussian_voigt0': (dict(source_geometry='gaussian', source_zscale=0.3,
+                             spectral_type='voigt0', temperature0=3e4),
+                        'refill_volume'),
+    'exponential_continuum_gaussian': (dict(
+        source_geometry='exponential', source_zscale=0.3,
+        spectral_type='continuum+gaussian', EW_line=10.0), 'refill_volume'),
+    'sersic': (dict(source_geometry='sersic', sersic_m=4.0, Reff=0.3),
+               'refill_radial'),
+    'ssh_moving': (dict(source_geometry='ssh', source_rscale=0.1,
+                        velocity_type='ssh', rpeak=0.1, Vpeak=300.0,
+                        DeltaV=-50.0, comoving_source=False),
+                   'refill_radial'),
+    'star_file': (dict(source_geometry='star_file'), 'refill_alias'),
+    'density1': (dict(source_geometry='diffuse_emissivity',
+                      emiss_file='density1', velocity_type='ssh',
+                      rpeak=0.1, Vpeak=300.0, DeltaV=-50.0), 'refill_alias'),
+    'profile': (dict(source_geometry='diffuse_emissivity'), 'refill_alias'),
+}
+
+
+def _source_params(case, **kw):
+    from pathlib import Path
+
+    from lart_tpu_torch import testing
+    ex = Path(__file__).resolve().parents[1] / 'examples'
+    over, _ = SOURCES[case]
+    files = {'star_file': str(ex / 'many_stars/stars_list.txt')} \
+        if case == 'star_file' else {'emiss_file': str(
+            ex / 'emiss_1D_AlII/AlII_emiss_profile.txt')} \
+        if case == 'profile' else {}
+    return testing.sphere_params(tau0=10.0, n=17, **{**over, **files, **kw})
+
+
+@pytest.mark.parametrize('case', sorted(SOURCES))
+def test_source_births_match_plain(cuda, case):
+    """K2's volume, radial and alias instances against their plain
+    version lane by lane on a mixed state, Jin to 1e-5 of its sum."""
+    import chip_smoke
+
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport.state import DEAD
+    chip_smoke.B_MAIN = 8192
+    par = _source_params(case, batch_size=8192)
+    cfg, meta, grid, ch = chip_smoke.sources_chunk(par, cuda)
+    assert ch.refill_params.kernel == SOURCES[case][1]
+    s0 = testing.mixed_state(meta, 8192, 5, cuda)
+    _, sk, frac, err, _ = chip_smoke.both(meta, 5, chip_smoke.refill_step(ch),
+                                          ('Jin',), cuda, state=s0)
+    assert frac == 0.0 and err == 0.0
+    born = s0.phase == DEAD
+    assert bool(torch.isfinite(sk.x[born]).all())
+
+
+@pytest.mark.parametrize('case', ['uniform_sphere_continuum', 'sersic',
+                                  'star_file'])
+def test_driver_runs_the_source_instances(cuda, case):
+    """driver.run through each instance: its launches, and the weight
+    budget against the birth weights (1 but for the star file's composite
+    weights, whose Jin holds their sum)."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    par = _source_params(case, nphotons=2000, batch_size=2048)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=2)
+    assert kb.LAUNCHES[SOURCES[case][1]] > 0, kb.LAUNCHES
+    assert kb.LAUNCHES['refill_point'] == 0
+    w = res.W_escape + res.W_oor
+    if case == 'star_file':
+        w_birth = testing.birth_weight(res)
+        assert abs(w - w_birth) < 1e-3, (w, w_birth)
+    else:
+        assert abs(w - 1.0) < 1e-3, w
 
 
 def test_driver_runs_the_kernels(cuda):
@@ -382,7 +465,7 @@ def test_driver_runs_the_interior_observer(cuda):
     par.nx, par.ny, par.nz, par.nside, par.nphotons = 33, 33, 17, 16, 2000
     kb.reset_launch_counts()
     res = driver.run(par, device=cuda, seed=3)
-    need = ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+    need = ('refill_radial', 'fly_cartesian', 'scatter_lya', 'peel',
             'sightline')
     assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
     assert abs(res.W_escape + res.W_oor - 1.0) < 1e-3

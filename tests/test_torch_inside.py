@@ -231,7 +231,7 @@ def test_exponential_cylinder_table_and_radius():
     par = _civ()
     cfg, jcfg = bridge.resolve_both(par)
     jt = jsrc.build_sources(jcfg, None)
-    tt = tsrc.build_sources(cfg, 'cpu')
+    tt = tsrc.build_sources(cfg, None, device='cpu').table
     assert torch.equal(tt.p, torch.as_tensor(np.asarray(jt.r_p)))
     assert torch.equal(tt.r, torch.as_tensor(np.asarray(jt.r_r)))
     assert tt.n == 2049

@@ -409,9 +409,12 @@ OUT_OF_SLICE = {
     'non-uniform temperature': dict(temp_file='temp.fits'),
     'atmospheres': dict(geometry='plane_atmosphere'),
     'shearing box': dict(xy_periodic=True, Omega=1.0),
-    'source_geometry other than point': dict(source_geometry='uniform'),
+    # the illumination samplers and the line-profile file (ROADMAP queue 1
+    # item 4)
+    'source_geometry other than point': dict(
+        source_geometry='plane_illumination'),
     'spectral_type other than voigt/monochromatic': dict(
-        spectral_type='voigt0'),
+        spectral_type='line_prof_file'),
     '3-D density file': dict(dens_file='dens.fits'),
     '3-D velocity file': dict(velo_file='velo.h5'),
 }
