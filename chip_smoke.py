@@ -6,8 +6,10 @@ lines (line types 2, 4-7), Ly-beta with its H-alpha band (line type 8),
 H2 pumping of Ly-alpha, the octree AMR grid and the clump media end to end
 through the driver and the CLI, without and with peel-off images
 (Stokes), the interior all-sky observer with its HEALPix maps and the
-sight-line tau maps (CIV_test.in, the standalone sightline tool), and
-measures their steady-state rates.
+sight-line tau maps (CIV_test.in, the standalone sightline tool), the
+volume and table sources, and the per-cell temperature with the 3-D
+density cubes (AlII_ex.in, FeII_turb, Prochaska), and measures their
+steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
@@ -72,8 +74,15 @@ Phases (one line each, or more):
      instance on SSH_MUSE/halo_0053.in as written (ssh), exponential_sphere
      and a sersic m = 4; the alias instance on many_stars/stars1.in as
      written, density1/density2 on a 65^3 cut of halo_0053, the jellyfish
-     leaves' emissivity, the 1-D profile of emiss_1D_AlII/AlII_ex.in and a
-     205^3 = 8.6M-cell table
+     leaves' emissivity and a 205^3 = 8.6M-cell table; the per-cell
+     temperature (phase2_temperature): on emiss_1D_AlII/AlII_ex.in as
+     written (the slice's main path: its 1-D temperature profile) K2's
+     alias instance, K5, K4 (+- local core-skip), K7 and K11 at each cell's
+     a and D, on the 201^3 Hubble grid with a 1e3-1e5 K temperature cube in
+     Mg II (the kMulti instances, with an observer: K2's point instance,
+     K5, K4, K7, K11) and on h2_on.in's grid with that cube (kH2: K2, K5,
+     K4), and jellyfish_pt's leaves at their own temperature in Mg II and
+     with H2 (K8's kMulti and kH2 instances, K2, K4, K7)
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -89,8 +98,8 @@ Phases (one line each, or more):
      save_sightline_tau (the all-sky map's isotropy, the tau maps)
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
-     (tauhomo 1e4, B = 131072); examples/sphere/t4tau7.in cut to the
-     Dijkstra acceptance case (taumax 1e5, 2e4 photons; shape chi2/dof,
+     (tauhomo 1e4, 5e4 photons, B = 131072); examples/sphere/t4tau7.in cut to the
+     Dijkstra acceptance case (taumax 1e5, 1e4 photons; shape chi2/dof,
      peak position, W_esc); examples/vel_effect/t4NHI2_20_V0200.in at its
      201^3 grid cut to N_HI 2e18 and 1e4 photons (W_esc + W_oor); the
      peel-off examples as written but for their photons: slab_peel 1e4,
@@ -117,8 +126,14 @@ Phases (one line each, or more):
      table sources (sources_cli, testing.SOURCE_CASES): t4tau2.in and
      HeI_coherent_test/un_tau100_coh.in as written, stars1.in cut to 2e4
      photons and taumax 3e3, halo_0053.in cut to taumax 1e4,
-     jellyfish_emiss.in to 3e3, AlII_ex.in without its temp_file (the
-     weight budget against the birth weights, <N_scatt>)
+     jellyfish_emiss.in to 3e3 (the weight budget against the birth
+     weights, <N_scatt>); the per-cell temperature and the 3-D cubes
+     (temperature_cli): AlII_ex.in as written (the budget against the
+     birth weights summed on the device, <N_scatt> beside lart_tpu's CPU
+     run, the _peel3D and _tau files), FeII_turb/FeII_UV1_V100.in with its
+     65^3 turbulent cube as FITS and photons cut, Prochaska/MgII_a.in with
+     its 150^3 gz-FITS cube and photons cut, jellyfish_pt's leaves in
+     Mg II cut to taumax 1e3
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -131,7 +146,9 @@ Phases (one line each, or more):
      bicone_clump.in, the 1.48M-clump population and clumps_overlap.in
      with one observer on +z, CIV_test.in with save_peeloff (and K11's ms
      for one whole nside-64 map), t4tau2.in, stars1.in and halo_0053.in as
-     written (K2's volume, alias and radial instances); a torch.profiler
+     written (K2's volume, alias and radial instances), AlII_ex.in as
+     written (the per-cell instances, and K11's ms for its whole map) and
+     jellyfish_pt in Mg II (K8's kMulti instance per leaf); a torch.profiler
      breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
@@ -167,7 +184,7 @@ PEEL_EXAMPLES = {'slab_peel': 'slab_peel/t1tau4.in',
                  'sphere_peel': 'sphere_peel/t4tau4_peel.in',
                  'vel_effect_peel': 'vel_effect_peel/t4NHI2_20_V0200_peel.in'}
 DL20E_DUST, DL20E = 'DL2008/DL20e_dust.in', 'DL2008/DL20e.in'
-DL_PHOTONS = 10000            # phase 4's cut of the DL2008 examples
+DL_PHOTONS = 5000             # phase 4's cut of the DL2008 examples
 # one external observer on the +z axis; DL20e_dust.in sets its 129 x 129
 # image
 OBSERVER = dict(save_peeloff=True, nobs=1, distance=1e3, alpha=(0.0,),
@@ -188,6 +205,10 @@ MGII = dict(line_id='MgII_2796', wavelength_min=2790.0,
 # 205 s on the card whatever their number; N_HI 3e17 cuts that ~fortyfold,
 # which keeps the whole script well inside its time limit
 HD_PHOTONS, HD_NHI = 2000, '3e17'
+# phase 4's cuts of slab/t1tau6.in at tauhomo 1e4 (1e5 photons as written:
+# 32-35 s of the script's budget) and of the Dijkstra case (2e4 photons
+# before PR 12: 66-91 s by the host)
+SLAB_PHOTONS, DIJKSTRA_PHOTONS = 5e4, 10000
 LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
 # Ly-beta with its H-alpha band (line type 8) and H2 pumping of Ly-alpha:
 # the slice's examples, and the names of their kernel branches in res
@@ -199,7 +220,7 @@ LT8, H2 = ' (line type 8)', ' (H2)'
 # 4's cut of jellyfish_pt (tau_pole 2.9e7 as written: a long drain tail),
 # and the names of the AMR branches in res
 AMR_SPHERE, JELLY = 'amr_sphere/amr_sphere.in', 'jellyfish_rmhd/jellyfish_pt.in'
-AMR_BIG, JELLY_TAU, AMR = 128, 1e4, ' (AMR)'
+AMR_BIG, JELLY_TAU, AMR = 128, 3e3, ' (AMR)'
 # the clump backend (K9, K10 and the clump branches of K2, K4, K7): the
 # slice's examples, the population at the scale of the reference's
 # clump_fcov1 run (R 1, f_cov 1, radius 9.5e-4, N_HI 1e18: 1,477,378 clumps
@@ -222,6 +243,18 @@ INSIDE, EXPCYL = ' (interior)', ' (exponential_cylinder)'
 # the volume and table sources: the Hubble grid the analytic geometries are
 # held on (xyz_symmetry), and phase 5's three windows
 VEL_EFFECT = 'vel_effect/t4NHI2_20_V0200.in'
+# the per-cell temperature and the 3-D grid files: the names of the
+# per-cell (Cartesian) and per-leaf (AMR) instances in res, the seed of the
+# 1e3-1e5 K temperature cubes, the main path's kernels, lart_tpu's
+# <N_scatt> of AlII_ex.in as written on the CPU with its photons
+# (tools/temperature_cpu_runs.py AlII 100000 3), and phase 4's cuts
+TEMP, LEAF_T = ' (per-cell T)', ' (per-leaf T)'
+T_CUBE_SEED = 12
+TEMP_PATH = ('refill_alias', 'fly_cartesian', 'scatter_lya', 'peel',
+             'sightline')
+ALII_CPU = (1.2130, 100000)
+FEII_PHOTONS, MGII_A_PHOTONS = 100000, 20000
+JELLY_T_TAU, JELLY_T_PHOTONS = 1e3, 4000
 # a dense population whose rays cross more chords than K9's list holds
 MANY_CHORDS = dict(clump_allow_overlap=True, clump_N_clumps=1000,
                    clump_radius=0.2, clump_tau0=0.3)
@@ -292,6 +325,7 @@ def kernel_work(name, pre, ch, meta, stats=None):
         # H(x, a) of every lane's xfreq: 4 bytes in and out, ~40 flops
         return B * 8, B * 40
     if name.startswith('refill_'):
+        from lart_tpu_torch.transport.refill import GEOM_POINT
         k = int((ph == DEAD).sum())
         # on the AMR grid the source's node, read once: a fine-map voxel or
         # the descent's levels, its leaf's physics
@@ -333,6 +367,11 @@ def kernel_work(name, pre, ch, meta, stats=None):
                     * (2 if src.geom == GEOM_PROFILE else 1)
                 clump += min(k, t.nbin) * (8 + entry)
                 flops += 60 + (30 if src.geom == GEOM_PROFILE else 10)
+        # a Cartesian grid at non-uniform temperature: each birth cell's a
+        # and D (the point source's one cell)
+        if ch.refill_params.cell_D is not None:
+            clump += 8 * (min(k, cells) if src is not None
+                          and src.geom != GEOM_POINT else 1)
         return B * 4 + flag + k * 33 * 4 + ch.nxfreq * 4 + amr + clump, \
             k * (60 + flops)
     if name == 'scatter_lya':
@@ -375,6 +414,10 @@ def kernel_work(name, pre, ch, meta, stats=None):
             grid += min(cells, k) * 4 * (
                 1 + (4 if sp.core_skip == CORE_SKIP_LOCAL else 0)
                 + (0 if sp.amr.uniform_temperature else 2))
+        if sp.cell_D is not None:
+            # a Cartesian grid at non-uniform temperature: each lane's cell's
+            # a and D
+            grid += min(cells, k) * 8
         if sp.clump is not None:
             # each lane's clump: its rhokap (rhokapD, velocity); the owner
             # draw (overlap mode) reads every clump's centre, radius^2 and
@@ -423,7 +466,9 @@ def kernel_work(name, pre, ch, meta, stats=None):
             ncubes = 5 if peel.stokes else 1
         table = 7 * peel.mueller.n * 4 if dust and peel.mueller else 0
         grid = stats['cells'] * 4 * ((4 if g.moving else 1)
-                                     + (1 if g.rhokapD is not None else 0))
+                                     + (1 if g.rhokapD is not None else 0)
+                                     + (2 if g.amr is None
+                                        and g.cell_D is not None else 0))
         if g.amr is not None:
             # the AMR walk: each distinct node's centre, half-width, leaf id
             # and neighbor row, and one fine-map voxel or its children; each
@@ -495,8 +540,11 @@ def kernel_work(name, pre, ch, meta, stats=None):
                 stats['steps'] * (17 * cl.K + 40))
     if name == 'fly_cartesian':
         f = ch.flight
+        # rhokap (rhokapD, the velocity; at non-uniform temperature a and
+        # D) of each distinct cell, at least the lanes' own
         grid = min(cells, k) * 4 * ((4 if f.moving else 1)
-                                    + (1 if f.rhokapD is not None else 0))
+                                    + (1 if f.rhokapD is not None else 0)
+                                    + (2 if f.cell_D is not None else 0))
         if f.lyb:
             # each lane's band; Jout_Ha written once
             grid += k * 4
@@ -514,9 +562,11 @@ def sightline_work(sl, stats):
     a clump's centre, radius^2 and opacities), ~20 flops a column crossing
     (N_gas, tau_dust) and, a tau_gas crossing, 20 and ~40 a Voigt component
     of the line's profile (two for a doublet), plus ~60 a ray to build it
-    (the TAN inverse or the HEALPix centre, the box clip)."""
+    (the TAN inverse or the HEALPix centre, the box clip); at non-uniform
+    temperature each cell's a and D (8 B) too."""
     g = sl.grid
-    per_cell = 4 * (1 + (g.rhokapD is not None) + 3 * g.moving)
+    per_cell = 4 * (1 + (g.rhokapD is not None) + 3 * g.moving
+                    + 2 * (g.amr is None and g.cell_D is not None))
     if g.clump is not None:
         per_cell = 4 * (5 + g.clump.has_dust + 3 * g.clump.moving)
     ncomp = {1: 1, 2: 2, 7: 2}.get(g.line.line_type, g.line.nup)
@@ -829,6 +879,7 @@ def phase2(dev):
     phase2_clump(dev, res)
     phase2_inside(dev, res)
     phase2_sources(dev, res)
+    phase2_temperature(dev, res)
     return res
 
 
@@ -1682,7 +1733,8 @@ def phase4(tauhomo=1e4, device='cuda'):
     with tempfile.TemporaryDirectory() as tmp:
         # the Neufeld slab
         nml = namelist_variant('slab/t1tau6.in', tmp, tauhomo=f'{tauhomo:g}',
-                               batch_size=B_MAIN)
+                               batch_size=B_MAIN,
+                               nphotons=f'{SLAB_PHOTONS:g}')
         out = Path(tmp) / 't1tau4.fits'
         rc, res, wall, launches = run_cli(nml, out, device)
         assert rc == 0
@@ -1699,7 +1751,7 @@ def phase4(tauhomo=1e4, device='cuda'):
 
         # the Dijkstra sphere acceptance case dijkstra_tau1e5_T1e4
         nml = namelist_variant('sphere/t4tau7.in', tmp, taumax='1e5',
-                               nphotons=20000)
+                               nphotons=DIJKSTRA_PHOTONS)
         out = Path(tmp) / 'dijkstra.fits'
         rc, res, wall, launches = run_cli(nml, out, device)
         assert rc == 0
@@ -1756,6 +1808,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         clump_cli(tmp, device, total)
         inside_cli(tmp, device, total)
         sources_cli(tmp, device, total)
+        temperature_cli(tmp, device, total)
     return total
 
 
@@ -2906,12 +2959,6 @@ def phase2_sources(dev, res):
          cfg, meta, ch, state=testing.amr_state(
              meta, ch.flight.amr, B_MAIN, seed + 1, dev), weighted=True)
     del ch, grid, data
-    cfg, meta, grid, ch = sources_chunk(testing.source_params(
-        'AlII', ROOT, batch_size=B_MAIN), dev)
-    case(f'AlII_ex.in without temp_file: the 1-D profile, '
-         f'{ch.refill_params.source.tabs.nbin} bins', cfg, meta, ch,
-         weighted=True)
-    del ch, grid
     t0 = time.time()
     cfg, meta, grid, ch = sources_chunk(testing.source_params(
         't4tau2', ROOT, batch_size=B_MAIN, nx=205, ny=205, nz=205,
@@ -2943,16 +2990,14 @@ SOURCE_PATHS = {
     'halo_0053': ('refill_radial', 'fly_cartesian', 'scatter_lya', 'peel',
                   'sightline'),
     'jellyfish_emiss': ('refill_alias', 'fly_amr', 'scatter_lya', 'peel'),
-    'AlII': ('refill_alias', 'fly_cartesian', 'scatter_lya', 'peel',
-             'sightline'),
 }
 
 
 def sources_cli(tmp, device, total):
     """The volume and table sources' examples, FITS written and read back:
     through the CLI t4tau2.in and un_tau100_coh.in as written, stars1.in
-    cut to 2e4 photons and taumax 3e3, halo_0053.in cut to taumax 1e4 and
-    AlII_ex.in without its temp_file (xfreq +-20); jellyfish_emiss.in cut
+    cut to 2e4 photons and taumax 3e3, halo_0053.in cut to taumax 1e4
+    (AlII_ex.in runs as written in temperature_cli); jellyfish_emiss.in cut
     to taumax 3e3 (xfreq +-80) through driver.run with its leaves in
     memory (the card's machine has no h5py) (testing.SOURCE_CASES).
     The weight budget W_esc + W_abs + W_oor against the birth weights'
@@ -3214,6 +3259,396 @@ def sources_phase5(dev, res):
         profile_chunks(p, card, key)
         kernel_times(p, card, key, res, names, record=(names[0],))
         del p
+
+
+# --------------------------------------------------------------------------
+# the per-cell temperature and the 3-D grid files
+# --------------------------------------------------------------------------
+
+def temperature_cube(tmp, n, seed=T_CUBE_SEED):
+    """A FITS (n, n, n) temperature cube in tmp, 1e3-1e5 K log-uniform cell
+    by cell from a seed (testing.temperature_cube; the card's machine has
+    no h5py)."""
+    from lart_tpu_torch import testing
+    return testing.write_cube(Path(tmp) / f'T{n}.fits',
+                              testing.temperature_cube(n, seed))
+
+
+def birth_tally():
+    """A context that sums the weight of every lane K2 launches (its
+    birth weight) on the device, around the chunk loop's refill: the
+    budget W_esc + W_abs + W_oor closes against this sum, the births
+    outside the frequency band included (Jin counts those inside it)."""
+    import contextlib
+    from lart_tpu_torch.transport import engine
+
+    @contextlib.contextmanager
+    def ctx():
+        total = []
+        refill = engine.refill
+
+        def counted(state, tallies, p, seed, counter, budget, record=None):
+            dead = state.phase == 0
+            refill(state, tallies, p, seed, counter, budget, record)
+            total.append(torch.where(dead & (state.phase != 0), state.wgt,
+                                     0.0).double().sum())
+        engine.refill = counted
+        try:
+            yield total
+        finally:
+            engine.refill = refill
+    return ctx()
+
+
+def phase2_temperature(dev, res, batch=None):
+    """The per-cell temperature against the plain versions at B = batch
+    (B_MAIN), lane by lane, pair by pair or ray by ray: on
+    emiss_1D_AlII/AlII_ex.in as written (101^3, its 1-D temperature
+    profile: the slice's main path) K2's alias instance with each birth's
+    cell's a and D, K5 (the static D1/D2 update, the escape bin at D /
+    D_ref), K4 (and with local core-skip at the cell's a), K7 direct and
+    resonance, K11's whole map; on the 201^3 Hubble grid of
+    vel_effect/t4NHI2_20_V0200.in with a 1e3-1e5 K temperature cube (FITS)
+    in Mg II 2796 (the kMulti instances: the doublet's offsets dnu / D per
+    cell), with one observer: K2's point instance at its cell's a and D,
+    K5, K4, K7, K11; on h2_test/h2_on.in's 101^3 grid with that cube (the
+    kH2 instances): K2, K5, K4; and jellyfish_pt's leaves at their own
+    temperature in Mg II and with H2 (K8's kMulti and kH2 instances, K2,
+    K4, K7 with its observer)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.instruments import sightline as tsl
+    from lart_tpu_torch.transport.engine import make_chunk
+    from lart_tpu_torch.transport.scatter import ScatterParams
+    B = batch or B_MAIN
+    seed = 1200
+    fly_tal = ('Jout', 'Jmu', 'W_oor')
+
+    def fly(meta, ch, key, what, r_max=None, state=None):
+        nonlocal seed
+        seed += 1
+        s0, sk, frac, err, tal = both(meta, seed, fly_step(ch), fly_tal, dev,
+                                      nmu=ch.nmu, r_max=r_max, state=state,
+                                      h2=ch.h2)
+        kept = (s0.phase == 2) & (sk.phase == 2)
+        moved = kept & ((sk.ic != s0.ic) | (sk.jc != s0.jc)
+                        | (sk.kc != s0.kc))
+        shifted = int((moved & (sk.xfreq != s0.xfreq)).sum())
+        assert shifted > 0, 'no comoving update on a cell change'
+        _max_err(res, flight_kernel(ch) + key, err)
+        log(2, f'  {flight_kernel(ch)} ({what}): {int(moved.sum())} lanes '
+               f'changed cell, {shifted} of them their frequency; lanes '
+               f'differing {frac:.2e}, max abs err {err:.3e}; tallies max '
+               f'|d| {tal}')
+
+    def births(meta, ch, key, what, state=None):
+        nonlocal seed
+        seed += 1
+        _, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',),
+                                     dev, state=state)
+        name = ch.refill_params.kernel
+        _max_err(res, name + key, err)
+        log(2, f'  K2 {name} ({what}): lanes differing {frac:.2e}, max abs '
+               f'err {err:.3e}, Jin max |d| {tal["Jin"]:.3e}')
+
+    def scatter(meta, ch, key, what, sp=None, state=None, r_max=None,
+                tals=('nscatt_gas', 'nscatt_events')):
+        nonlocal seed
+        seed += 1
+        recs = {}
+        _, sk, frac, err, tal = both(
+            meta, seed, scatter_step(ch, sp, recs if ch.peel else None),
+            tals, dev, state=state, r_max=r_max, h2=ch.h2)
+        rerr = n_rec = 0
+        if ch.peel is not None:
+            n_rec, rerr = record_diff(recs[True], recs[False])
+            assert n_rec <= MAX_FRAC * B, n_rec
+        _max_err(res, 'scatter_lya' + key, max(err, rerr))
+        log(2, f'  K4 scatter_lya ({what}): lanes differing {frac:.2e}, max '
+               f'abs err {err:.3e}; record lanes differing {n_rec}; tallies '
+               f'max |d| {tal}')
+
+    def peel(meta, ch, key, what, r_max=None, state_fn=None,
+             modes=('direct', 'resonance')):
+        nonlocal seed
+        for mname in modes:
+            seed += 2
+            n_bad, n_dep, err, dtau, dw = peel_both(
+                ch, meta, seed, getattr(tpeel, mname.upper()), dev, r_max,
+                state_fn=state_fn)
+            _max_err(res, 'peel' + key, err)
+            log(2, f'  K7 peel {mname} ({what}): {n_dep} pairs deposit, '
+                   f'pairs differing {n_bad}, max |d tau| {dtau:.3e}, '
+                   f'per-pair deposits max rel err {dw:.3e}, cubes max abs '
+                   f'err {err:.3e}')
+
+    def sightline(cfg, meta, grid, key, what):
+        sl = tsl.Sightline.from_config(cfg, meta, grid)
+        assert sl.comoving
+        n_bad, n, err, nerr, stats = sightline_both(sl)
+        _max_err(res, 'sightline' + key, max(err, nerr))
+        log(2, f'  K11 sightline ({what}: {sl.npix} pixels x {sl.ncol} '
+               f'columns): rays differing {n_bad} of {n}, max abs err '
+               f'{err:.3e}, N_gas max rel err {nerr:.3e}')
+
+    # the slice's main path: AlII_ex.in as written
+    t0 = time.time()
+    cfg, meta, grid, ch = sources_chunk(testing.source_params(
+        'AlII', ROOT, batch_size=B), dev)
+    assert not meta.uniform_temperature and ch.refill_params.cell_D \
+        is not None and flight_kernel(ch) == 'fly_cartesian'
+    D = grid.Dfreq
+    log(2, f'AlII_ex.in as written (101^3, T from the 1-D profile, '
+           f'D_cell / D_ref {float(D.min()) / meta.Dfreq_ref:.4f}-'
+           f'{float(D.max()) / meta.Dfreq_ref:.4f}): built in '
+           f'{time.time() - t0:.1f} s')
+    R = cfg.par.rmax
+    births(meta, ch, TEMP, 'the 1-D emissivity profile, each birth at its '
+                           'cell\'s a and D')
+    fly(meta, ch, TEMP, 'static, line type 1', R)
+    scatter(meta, ch, TEMP, 'line type 1, recoil', r_max=R)
+    c2 = testing.source_params('AlII', ROOT, batch_size=B, core_skip=True,
+                               taumax=1e6).resolve()
+    m2, g2 = build_cartesian(c2, device=dev)
+    sp2 = ScatterParams.from_config(c2, m2, g2)
+    scatter(m2, ch, TEMP, 'local core-skip at the cell\'s a, tau 1e6', sp2,
+            r_max=R)
+    del g2, sp2
+    peel(meta, ch, TEMP, 'the DDA at each cell\'s a and D, 120x120', R)
+    sightline(cfg, meta, grid, TEMP, 'AlII_ex.in\'s map')
+    del ch, grid
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the Mg II doublet on the 201^3 Hubble grid with a T cube
+        t0 = time.time()
+        tfile = temperature_cube(tmp, 201)
+        par = example_params(VEL_EFFECT, batch_size=B, temp_file=tfile,
+                             nwavelength=100, nxim=33, nyim=33, **MGII,
+                             **OBSERVER)
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        log(2, f'the 201^3 Hubble grid in Mg II 2796 with a 1e3-1e5 K '
+               f'temperature cube: built in {time.time() - t0:.1f} s')
+        births(meta, ch, TEMP, 'the point source at its cell\'s a and D, '
+                               'Mg II (the branch shift at D_src)')
+        fly(meta, ch, TEMP, 'Hubble, Mg II (kMulti)', 1.0)
+        sp = ch.scatter_params
+        q = pline_prof(sp)
+        st = testing.line_state(meta, B, seed + 7, [0.0, -q.dx[1]],
+                                width=3.0, device=dev)
+        scatter(meta, ch, TEMP, 'Mg II, recoil off', state=st)
+        peel(meta, ch, TEMP, 'Mg II, the walk in the Hubble flow', 1.0)
+        sightline(cfg, meta, grid, TEMP, 'Mg II, Hubble, 33x33')
+        del ch, grid
+
+        # H2 pumping on h2_on.in's grid with a T cube (the kH2 instances)
+        tfile = temperature_cube(tmp, 101)
+        cfg = example_params(H2_ON, batch_size=B, temp_file=tfile).resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        ch = make_chunk(cfg, meta, grid)
+        sp = ch.scatter_params
+        births(meta, ch, TEMP, 'h2_on with the T cube')
+        fly(meta, ch, TEMP, 'h2_on with the T cube, H2 opacity (kH2)', 1.0)
+        centres = [float(np.float32(d) / np.float32(sp.Dfreq))
+                   for d in sp.h2.dnu]
+        st = testing.line_state(meta, B, seed + 9, centres + [0.0],
+                                width=1.5, device=dev)
+        scatter(meta, ch, TEMP, 'h2_on with the T cube, H2 (kH2), local '
+                                'core-skip', state=st,
+                tals=('nscatt_gas', 'nscatt_events', 'W_H2abs', 'W_H2scat',
+                      'W_H2pump'))
+        del ch, grid
+
+    # jellyfish_pt's leaves at their own temperature: Mg II and H2
+    jelly = amr_leaves('jellyfish')
+    for what, over in (('Mg II 2796 (kMulti)', MGII),
+                       ('H2 f_H2 0.03 (kH2)', dict(
+                           h2_model='neufeld', f_H2=0.03,
+                           h2_temperature=8000.0))):
+        par = example_params(JELLY, batch_size=B, **over)
+        meta, ch, t_build, _ = amr_chunk(par, jelly, dev)
+        amr = ch.flight.amr
+        assert not meta.uniform_temperature
+        log(2, f'jellyfish_pt\'s leaves (8e3 / 3e5 K) in {what}: built in '
+               f'{t_build:.1f} s')
+
+        def state(sd):
+            return testing.amr_state(meta, amr, B, sd, dev)
+        births(meta, ch, LEAF_T, f'jellyfish, {what}', state(seed + 11))
+        fly(meta, ch, LEAF_T, f'jellyfish, {what}', state=state(seed + 13))
+        scatter(meta, ch, LEAF_T, f'jellyfish, {what}',
+                state=testing.amr_state(meta, amr, B, seed + 15, dev,
+                                        phases=(3,)))
+        peel(meta, ch, LEAF_T, f'jellyfish, {what}, its observer',
+             state_fn=state, modes=('resonance',))
+        del ch
+
+
+def pline_prof(sp):
+    """The line's components at the reference a and D of ScatterParams sp."""
+    from lart_tpu_torch.physics import line as pline
+    return pline.line_prof(sp.line, sp.a, sp.Dfreq)
+
+
+def temperature_cli(tmp, device, total):
+    """The per-cell temperature and the 3-D cubes through the CLI, FITS
+    written and read back: emiss_1D_AlII/AlII_ex.in as written (the
+    slice's main path: W_esc + W_abs + W_oor against the birth weights
+    summed on the device, <N_scatt> beside lart_tpu's CPU run of it,
+    tools/temperature_cpu_runs.py, the _peel3D and _tau files);
+    FeII_turb/FeII_UV1_V100.in with its Mach-10 65^3 density cube written
+    as FITS from testing.turb_cube (the card has no h5py to read the
+    example's HDF5 cube), photons cut to FEII_PHOTONS; Prochaska/MgII_a.in
+    as written but for its photons (MGII_A_PHOTONS), its 150^3 r^-2 cube
+    written as gz FITS from testing.prochaska_dens; and jellyfish_pt's
+    leaves at their own temperature in Mg II through driver.run (taumax
+    JELLY_T_TAU, JELLY_T_PHOTONS photons).  Each run's launches go into
+    total['temperature'][name]."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.io.iofile import open_read
+    from lart_tpu_torch.io.writer import read_spectrum, write_output
+    from lart_tpu_torch.kernels import build as kb
+    sub = total.setdefault('temperature', {})
+
+    def check(name, res, out, w_birth, extra=''):
+        spec = read_spectrum(str(out))
+        jout = np.asarray(spec['Jout'], np.float64)
+        assert np.all(np.isfinite(jout)) and jout.shape == res.xfreq.shape
+        w = res.W_escape + res.W_absorb + res.W_oor
+        assert abs(w - w_birth) < 1e-3, (name, w, w_birth)
+        return (f'W_esc {res.W_escape:.6f} + W_abs {res.W_absorb:.6f} + '
+                f'W_oor {res.W_oor:.6f} = {w:.6f} against the birth weights '
+                f'{w_birth:.6f}, <N_scatt> {res.nscatt_gas:.4f}{extra}')
+
+    # AlII_ex.in as written
+    name = 'AlII'
+    nml = source_variant(name, tmp)
+    out = Path(tmp) / 'AlII.fits'
+    with birth_tally() as born:
+        rc, res, wall, launches = run_cli(nml, out, device)
+    assert rc == 0 and not res.meta.uniform_temperature
+    w_birth = float(torch.stack(born).sum()) / res.nphotons
+    with open_read(str(Path(tmp) / 'AlII_peel3D.fits')) as f:
+        cube = np.asarray(f['Scattered/data'])
+    with open_read(str(Path(tmp) / 'AlII_tau.fits')) as f:
+        tau = np.asarray(f['tau_gas/data'])
+    assert np.all(np.isfinite(cube)) and cube.sum() > 0
+    assert np.all(np.isfinite(tau)) and tau.max() > 0
+    ratio = res.nscatt_gas / ALII_CPU[0]
+    assert abs(ratio - 1.0) < 0.05, (res.nscatt_gas, ALII_CPU)
+    msg = check(name, res, out, w_birth, f' (lart_tpu on the CPU '
+                f'{ALII_CPU[0]} with {ALII_CPU[1]} photons: ratio '
+                f'{ratio:.4f}), Jin\'s sum {testing.birth_weight(res):.6f}, '
+                f'_peel3D {cube.shape}, _tau {tau.shape} max '
+                f'{float(tau.max()):.4g}')
+    add_launches(total, launches, TEMP_PATH)
+    sub[name] = launches
+    log(4, f'CLI AlII_ex.in as written ({res.nphotons} photons, 101^3, T '
+           f'8900-7100 K, FITS): {msg}, wall {wall:.1f} s; launches '
+           f'{launches}')
+
+    # FeII_UV1_V100.in with its turbulent cube as FITS
+    cube = testing.write_cube(Path(tmp) / 'turb_cube.fits',
+                              testing.turb_cube())
+    nml = namelist_variant('FeII_turb/FeII_UV1_V100.in', tmp,
+                           dens_file=f"'{cube}'",
+                           no_photons=f'{FEII_PHOTONS:g}')
+    out = Path(tmp) / 'FeII_UV1_V100.fits'
+    rc, res, wall, launches = run_cli(nml, out, device)
+    assert rc == 0 and res.cfg.line.line_type == 5
+    msg = check('FeII_UV1_V100', res, out, 1.0)
+    add_launches(total, launches, ('refill_point', 'fly_cartesian',
+                                   'scatter_lya', 'peel'))
+    sub['FeII_UV1_V100'] = launches
+    log(4, f'CLI FeII_turb/FeII_UV1_V100.in (photons cut to {res.nphotons}, '
+           f'the lognormal Mach-10 65^3 cube as FITS, Fe II UV1 type 5, '
+           f'Hubble 100 km/s, Stokes, FITS): {msg}, wall {wall:.1f} s; '
+           f'launches {launches}')
+
+    # Prochaska/MgII_a.in with its r^-2 cube as gz FITS
+    cube = testing.write_cube(Path(tmp) / 'MgII_a_dens.fits.gz',
+                              testing.prochaska_dens())
+    nml = namelist_variant('Prochaska/MgII_a.in', tmp, dens_file=f"'{cube}'",
+                           no_photons=f'{MGII_A_PHOTONS:g}')
+    out = Path(tmp) / 'MgII_a.fits'
+    rc, res, wall, launches = run_cli(nml, out, device)
+    assert rc == 0 and res.cfg.line.line_type == 2
+    msg = check('MgII_a', res, out, 1.0)
+    add_launches(total, launches, ('refill_volume', 'fly_cartesian',
+                                   'scatter_lya'))
+    sub['MgII_a'] = launches
+    log(4, f'CLI Prochaska/MgII_a.in (photons cut to {res.nphotons}, the '
+           f'150^3 r^-2 cube as gz FITS, Mg II doublet, Hubble 1000 km/s, '
+           f'FITS): {msg}, wall {wall:.1f} s; launches {launches}')
+
+    # jellyfish_pt's leaves at their own temperature in Mg II
+    par = example_params(JELLY, taumax=JELLY_T_TAU, nphotons=JELLY_T_PHOTONS,
+                         file_format='fits',
+                         out_file=str(Path(tmp) / 'jelly_mg.fits'), **MGII)
+    kb.reset_launch_counts()
+    t0 = time.time()
+    res = driver.run(par, device=device, amr_data=amr_leaves('jellyfish'))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(kb.LAUNCHES)
+    write_output(par.out_file, res)
+    msg = check('jellyfish Mg II', res, par.out_file, 1.0)
+    add_launches(total, launches, ('refill_point', 'fly_amr', 'scatter_lya',
+                                   'peel'))
+    sub['jellyfish_mg'] = launches
+    log(4, f'jellyfish_pt in Mg II 2796 (leaves at 8e3 / 3e5 K, taumax '
+           f'{JELLY_T_TAU:g}, {res.nphotons} photons, its observer): {msg}, '
+           f'wall {wall:.1f} s; launches {launches}')
+
+
+def temperature_phase5(dev, res):
+    """AlII_ex.in as written but for its budget (1e9 photons): its
+    steady-state window, the profile, the kernel times of K2's alias
+    instance, K5, K4 and K7 at each cell's a and D against their plain
+    versions and bounds, and K11's ms for AlII_ex.in's whole map; and a
+    window of jellyfish_pt's leaves in Mg II (K8's kMulti instance at each
+    leaf's a and D)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.instruments import sightline as tsl
+    over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
+    p, _ = rate_window('AlII_ex.in as written (Al II 1671, 101^3, T 8900-'
+                       '7100 K, diffuse_emissivity, recoil, one observer '
+                       '120x120 x 121)',
+                       testing.source_params('AlII', ROOT, **over), dev)
+    card = smi()
+    profile_chunks(p, card, 'AlII')
+    kernel_times(p, card, 'AlII', res, ('refill_alias', 'fly_cartesian',
+                                        'scatter_lya', 'peel'),
+                 record=('refill_alias', 'fly_cartesian', 'scatter_lya',
+                         'peel'), suffix=TEMP)
+    sl = tsl.Sightline.from_config(p.cfg, p.meta, p.grid)
+    stats = {}
+    tsl.sightline_plain(sl, stats)
+    ms = device_ms([lambda: tsl.sightline(sl)] * 5)
+    call_ms, plain_ms = turns(lambda: tsl.sightline(sl),
+                              lambda: tsl.sightline_plain(sl), 3,
+                              plain_reps=1)
+    bnd = bound(*sightline_work(sl, stats))
+    res.setdefault('sightline' + TEMP, {}).update(
+        ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+    log(5, f'AlII sightline (one whole map: {sl.npix} pixels x {sl.ncol} '
+           f'columns, {stats["rays"]} rays, {stats["gas"] + stats["col"]} '
+           f'crossings over {stats["cells"]} distinct cells): kernel '
+           f'{ms:.6f} ms on the device, {call_ms:.6f} ms a call; plain '
+           f'{plain_ms:.6f} ms a call; bound {bnd[0]:.6f} ms ({bnd[1]}) '
+           f'[{card}]')
+    del p
+    p, _ = rate_window('jellyfish_pt in Mg II 2796 (4432 leaves at 8e3 / '
+                       '3e5 K, its observer)',
+                       example_params(JELLY, **over, **MGII), dev,
+                       amr_data=amr_leaves('jellyfish'))
+    card = smi()
+    profile_chunks(p, card, 'jellyfish_mg')
+    kernel_times(p, card, 'jellyfish_mg', res, ('fly_amr',),
+                 record=('fly_amr',), suffix=LEAF_T)
+    del p
 
 
 def device_ms(calls):
@@ -3597,6 +4032,7 @@ def phase5(dev, res):
     clump_phase5(dev, res)
     inside_phase5(dev, res)
     sources_phase5(dev, res)
+    temperature_phase5(dev, res)
 
 
 KERNELS = {
@@ -3705,6 +4141,19 @@ SOURCE_INLINES = {
                     '(replaces lart_tpu/physics/samplers.py:287 and '
                     'lart_tpu/physics/sources.py:486 sample_alias_linear) '
                     'with its composite weight (engine.py:2638-2685)'}
+
+
+# the per-cell instances: the TPU function each replaces, and the gathers
+# it gained
+TEMP_REPLACES = {
+    'refill_alias': 'lart_tpu/transport/engine.py:2771',
+    'fly_cartesian': 'lart_tpu/transport/engine.py:1141',
+    'scatter_lya': 'lart_tpu/transport/engine.py:2087',
+    'peel': 'lart_tpu/instruments/peel.py:62',
+    'sightline': 'lart_tpu/instruments/sightline.py:31'}
+TEMP_INLINES = ('cell_voigt_a and cell_Dfreq (lart_tpu_torch/csrc/walk.cuh '
+                'cell_a_D, replace lart_tpu/transport/engine.py:297, :309) '
+                'with the comoving update ((x + u1) D1) / D2 - u2')
 
 
 def main(argv=None):
@@ -3847,6 +4296,32 @@ def main(argv=None):
             bound_by=res[k]['bound_by'], library_ms=None,
             inlines=SOURCE_INLINES[k])
             for k, (path, rep) in SOURCE_KERNELS.items()]
+        # this slice's per-cell instances on the main path AlII_ex.in as
+        # written (phase 5's window, phase 4's launches), and K8's kMulti
+        # instance at each leaf's temperature (jellyfish_pt in Mg II)
+        counts = launches['temperature']
+        line['kernels'] += [dict(
+            name=k + TEMP, route='cuda',
+            source=(SIGHTLINE_KERNEL if k == 'sightline'
+                    else KERNELS['refill_point' if k.startswith('refill')
+                                 else k])[0],
+            replaces=TEMP_REPLACES[k], launches=counts['AlII'][k],
+            path='AlII', max_abs_err=res[k + TEMP]['max_abs_err'],
+            ms=res[k + TEMP]['ms'], plain_ms=res[k + TEMP]['plain_ms'],
+            bound_ms=res[k + TEMP]['bound_ms'],
+            bound_by=res[k + TEMP]['bound_by'], library_ms=None,
+            inlines=TEMP_INLINES)
+            for k in TEMP_PATH]
+        line['kernels'].append(dict(
+            name='fly_amr' + LEAF_T, route='cuda', source=AMR_KERNEL[0],
+            replaces=AMR_KERNEL[1],
+            launches=counts['jellyfish_mg']['fly_amr'], path='jellyfish_mg',
+            max_abs_err=res['fly_amr' + LEAF_T]['max_abs_err'],
+            ms=res['fly_amr' + LEAF_T]['ms'],
+            plain_ms=res['fly_amr' + LEAF_T]['plain_ms'],
+            bound_ms=res['fly_amr' + LEAF_T]['bound_ms'],
+            bound_by=res['fly_amr' + LEAF_T]['bound_by'], library_ms=None,
+            inlines=TEMP_INLINES))
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

@@ -4,7 +4,7 @@
 //
 // Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
 // Cartesian DDA without atmospheres, the shearing box, CALCJ/Pnew or
-// all-photons records; uniform temperature).  The TPU runs a
+// all-photons records).  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch; here
 // one thread walks its own lane, at most max_steps crossings (the loop
 // condition n < max_steps, no "+ 2" as in the slab), so a forced first
@@ -12,20 +12,29 @@
 // same budget, as the while_loop counts it.  Every expression keeps the JAX
 // order, and the cell faces and advanced positions are fused multiply-adds
 // as XLA computes them (transport/flight.py); the opacity of the current
-// cell is rhokap times the line's profile (line.cuh: H(x, a_ref) for line
-// type 1, the doublet, multiplet or H+D sum for the others; two kernel
-// instances), plus rhokap times the H2 multiplier with H2 pumping (h2.cuh,
-// the instances with kH2) and rhokapD with dust (walk.cuh cell_opacity).
+// cell is rhokap times the line's profile at the cell's damping a and
+// Doppler width D (line.cuh: H(x, a) for line type 1, the doublet,
+// multiplet or H+D sum for the others; two kernel instances; a and D the
+// reference ones at uniform temperature, else gathered from the per-cell
+// arrays cell_a and cell_D, walk.cuh cell_a_D), plus rhokap times the H2
+// multiplier with H2 pumping (h2.cuh, the instances with kH2) and rhokapD
+// with dust (walk.cuh cell_opacity).
 // Line type 8 (engine.py:1276-1283, :1312-1340, :1466-1495): a lane of the
 // H-alpha band sees the dust only (rhokapD R_Ha, or nothing), keeps its
 // lab frequency across cells and escapes into Jout_Ha at it; each band's
 // escaped weight, out-of-grid escapes included, goes to W_esc1 or W_esc2
 // by a block sum, and W_esc1 also takes each completed forced first
-// scattering's escaped fraction whose birth bin is on the grid.  Escapes go
-// to Jout/Jmu with f32 atomics at once (a lane escapes at most once a call),
-// weight outside the frequency grid through one block sum.  Bound: the
+// scattering's escaped fraction whose birth bin is on the grid.  In a moving
+// medium or at non-uniform temperature a cell change updates the comoving
+// frequency, x' = ((x + u1) D1) / D2 - u2 (two roundings, in lart_tpu's
+// order); an escape is binned at (x + u) D / D_ref of the cell left, a
+// completed forced first scattering at (x_b + u_b) D_b / D_ref of its birth
+// cell.  Escapes go to Jout/Jmu with f32 atomics at once (a lane escapes at
+// most once a call), weight outside the frequency grid through one block
+// sum.  Bound: the
 // gathers.  Each crossing reads rhokap (and rhokapD) and, in a moving
-// medium, three velocity components of the old and new cell, 4-byte words
+// medium, three velocity components of the old and new cell, and at
+// non-uniform temperature a and D of the cell and D of the next, 4-byte words
 // scattered over arrays of 4 nx ny nz bytes each (32 MB at 201^3, against a
 // 50 MB L2); the lane state is read and written once a call.  H2 adds two
 // Voigt functions (~80 flops) a crossing and no bytes.
@@ -50,7 +59,10 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     for (int n = 0; n < max_steps && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
       const int f = flat_index(p, cell[0], cell[1], cell[2]);
-      const float rho = b2 ? band2_opacity(p, f) : cell_opacity<kMulti, kH2>(p, f, xfreq);
+      float a_c, D_c;
+      cell_a_D(p, f, a_c, D_c);
+      const float rho =
+          b2 ? band2_opacity(p, f) : cell_opacity<kMulti, kH2>(p, f, xfreq, a_c, D_c);
       float t[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
@@ -84,8 +96,10 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         const float bdir[3] = {s.bkx[i], s.bky[i], s.bkz[i]};
         const float bxfreq = s.bxfreq[i];
         const float u_b = p.moving ? vel_dot(p, bcell, bdir) : 0.0f;
+        const float D_b = cell_D_of(p, flat_index(p, bcell[0], bcell[1], bcell[2]));
         const float wgt_esc = wgt * expf(-tau0);
-        const float w_oor = tally_out(p, p.Jout, bxfreq + u_b, bdir[2], wgt_esc);
+        const float w_oor =
+            tally_out(p, p.Jout, (bxfreq + u_b) * (D_b / p.Dfreq), bdir[2], wgt_esc);
         oor += w_oor;
         if (lyb && w_oor == 0.0f) esc1 += wgt_esc;
         const float wgt1 = -expm1f(-tau0);
@@ -112,16 +126,18 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
           oor += tally_out(p, p.Jout_Ha, xfreq, dir[2], wgt);
           esc2 += wgt;
         } else {
-          oor += tally_out(p, p.Jout, xfreq + u_old, dir[2], wgt);
+          oor += tally_out(p, p.Jout, (xfreq + u_old) * (D_c / p.Dfreq), dir[2], wgt);
           if (lyb) esc1 += wgt;
         }
         phase = DEAD;
       } else if (hit) {
         phase = AT_SCATTER;
-      } else if (!escaped && p.moving && !b2) {
-        // comoving frequency on a cell change: x' = (x + u1) D1/D2 - u2
-        const float u2 = vel_dot(p, ncell, ndir);
-        xfreq = (xfreq + u_old) * p.Dfreq / p.Dfreq - u2;
+      } else if (!escaped && (p.moving || p.cell_D) && !b2) {
+        // comoving frequency on a cell change, in a moving medium or at
+        // non-uniform temperature: x' = (x + u1) D1/D2 - u2
+        const float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
+        const float D2 = cell_D_of(p, flat_index(p, ncell[0], ncell[1], ncell[2]));
+        xfreq = (xfreq + u_old) * D_c / D2 - u2;
       }
 #pragma unroll
       for (int a = 0; a < 3; ++a) {

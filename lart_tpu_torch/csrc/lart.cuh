@@ -181,6 +181,8 @@ struct FlightParams {
   const float* vfx;     // velocity in thermal units; null in a static medium
   const float* vfy;
   const float* vfz;
+  const float* cell_a;  // per-cell damping and Doppler width, the layout of
+  const float* cell_D;  //   rhokap, at non-uniform temperature; null else
   float* Jout;
   float* Jmu;
   float* W_oor;
@@ -201,7 +203,7 @@ struct FlightParams {
   float neg_amin[3];
   float d[3];      // dx, dy, dz
   float a_ref;     // Voigt damping parameter (uniform temperature)
-  float Dfreq;     // Doppler width of every cell (uniform temperature)
+  float Dfreq;     // the reference Doppler width (every cell's at uniform T)
   float xfreq_min;
   float dxfreq;
   float mu_min;

@@ -43,7 +43,10 @@
 // (mueller.cuh) and the detector-frame rotation.  A pair
 // whose pixel is outside the image or whose lab-frequency bin is outside the
 // grid walks nothing.  The walk follows the flight's boundary ops and, in a
-// moving medium, its comoving frequency update (walk.cuh, shared with K5);
+// moving medium or at non-uniform temperature, its comoving frequency update
+// ((x + u1) D1) / D2 - u2 (walk.cuh, shared with K5): a cell's opacity then
+// takes the cell's damping and Doppler width, and the event's bin and recoil
+// the event cell's D (peel.py:225-226, :336-340, :434-436, :486);
 // it stops where tau exceeds 745.2 or after max_steps = 2 (nx+ny+nz) + 8
 // crossings.  Deposits go into the flat (nobs, nxfreq, nxim, nyim) cubes by
 // f32 atomicAdd, so the sums come in no fixed order.  No random numbers.
@@ -224,7 +227,10 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   float tau = 0.0f, trav = 0.0f;
   for (int n = 0; n < p.max_steps; ++n) {
     const int f = flat_index(g, cell[0], cell[1], cell[2]);
-    const float rho = band2 ? band2_opacity(g, f) : cell_opacity<kMulti, kH2>(g, f, xf);
+    float a_c, D_c;
+    cell_a_D(g, f, a_c, D_c);
+    const float rho =
+        band2 ? band2_opacity(g, f) : cell_opacity<kMulti, kH2>(g, f, xf, a_c, D_c);
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -242,10 +248,12 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
     const float old_k[3] = {k[0], k[1], k[2]};
     const bool esc = cross_axis(g, axis, cell[axis], pos[axis], k[axis]);
     if (esc) break;
-    if (g.moving) {
-      const float u1 = vel_dot(g, old_cell, old_k);
-      const float u2 = vel_dot(g, cell, k);
-      xf = (xf + u1) * g.Dfreq / g.Dfreq - u2;
+    if (g.moving || g.cell_D) {
+      // the comoving update (peel.py:336-340), at each cell's D
+      const float u1 = g.moving ? vel_dot(g, old_cell, old_k) : 0.0f;
+      const float u2 = g.moving ? vel_dot(g, cell, k) : 0.0f;
+      const float D2 = cell_D_of(g, flat_index(g, cell[0], cell[1], cell[2]));
+      xf = (xf + u1) * D_c / D2 - u2;
     }
     if (!(tau < PEEL_TAU_HUGE)) break;
   }
@@ -269,6 +277,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   float a_c = g.a_ref, D_c = g.Dfreq;
   if (amr) leaf_a_D(g, il, a_c, D_c);
   if (clump) D_c = g.clump.D_cl;
+  if (!amr && !clump && g.cell_D) cell_a_D(g, flat_index(g, cell[0], cell[1], cell[2]), a_c, D_c);
 
   // obs_geometry: the unit direction to the observer and its pixel, TAN
   // (external) or the HEALPix pixel of the arrival direction -pk with the

@@ -40,7 +40,10 @@
 // non-uniform temperature, its damping a_loc, which the Voigt spectrum
 // draws with, and Doppler width D_loc: the Gaussian and the continuum are
 // divided by D_loc / Dfreq_ref and Jin is tallied at (x + u1) D_loc /
-// Dfreq_ref.
+// Dfreq_ref.  A Cartesian grid at non-uniform temperature does the same
+// with the birth cell's a and D: the point source's (its fixed cell's, a
+// and D_src from the host), an extended source's per lane from the grid's
+// per-cell arrays; they also set the branch shift's offsets dnu / D_loc.
 // On a clump medium (engine.py:2750-2772) each launched lane finds its
 // birth clump itself (csrc/clump.cuh clump_find: the dense scan over all
 // clumps, or the CSR cell's candidates; -1 in the vacuum); the spectrum is
@@ -286,9 +289,10 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     float vsx,
                                     float vsy, float vsz, int comoving_source,
                                     float xfreq_min, float dxfreq, int nxfreq, float* Jin,
-                                    float xfreq_span, float Dfreq, LineC line, AmrGrid amr,
-                                    ClumpGrid clump, const float* vfx, const float* vfy,
-                                    const float* vfz, SourceC src) {
+                                    float xfreq_span, float Dfreq, float D_src, LineC line,
+                                    AmrGrid amr, ClumpGrid clump, const float* vfx,
+                                    const float* vfy, const float* vfz, const float* cell_a,
+                                    const float* cell_D, SourceC src) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -307,8 +311,9 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
 
   // the source cell: on the AMR grid the deepest node holding the source
   // (amr_find_cell, engine.py:2755-2758) with its leaf's damping, Doppler
-  // width and velocity (the reference values and none in a gap)
-  float a_loc = a, D_loc = Dfreq;
+  // width and velocity (the reference values and none in a gap); the point
+  // source's Cartesian cell's a and D_src (engine.py:2771-2775)
+  float a_loc = a, D_loc = D_src;
   float wgt = 1.0f;  // the birth weight: 1 but for a composite-biased table
   if (kSrc != SRC_POINT) {
     // an extended source: the lane's own position and, on a Cartesian grid,
@@ -324,11 +329,16 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
       ic = c[0];
       jc = c[1];
       kc = c[2];
+      const int f = (ic * src.cells[1] + jc) * src.cells[2] + kc;
       if (vfx) {
-        const int f = (ic * src.cells[1] + jc) * src.cells[2] + kc;
         vsx = __ldg(&vfx[f]);
         vsy = __ldg(&vfy[f]);
         vsz = __ldg(&vfz[f]);
+      }
+      if (cell_D) {
+        // the birth cell's damping and Doppler width (non-uniform T)
+        a_loc = __ldg(&cell_a[f]);
+        D_loc = __ldg(&cell_D[f]);
       }
     }
   }
@@ -439,7 +449,11 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
 // octree, or null on a Cartesian grid, with vfx/vfy/vfz its per-leaf
 // velocities (null in a static medium; an extended source on a moving
 // Cartesian grid: the cells' velocities); clump: the clumps, or null;
-// source: the extended source, or null for the point source
+// source: the extended source, or null for the point source; a and D_src
+// the point source's cell's damping and Doppler width (the reference ones
+// at uniform temperature and on AMR and clump grids), cell_a and cell_D an
+// extended source's per-cell ones on a Cartesian grid at non-uniform
+// temperature (null else)
 LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                void* n_launched, int budget, unsigned seed,
                                unsigned counter, float xs, float ys, float zs, int ic,
@@ -447,9 +461,10 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                float a,
                                float vsx, float vsy, float vsz, int comoving_source,
                                float xfreq_min, float dxfreq, int nxfreq, void* Jin,
-                               float xfreq_span, float Dfreq, const LineC* line,
-                               const AmrGrid* amr, const ClumpGrid* clump,
-                               const float* vfx, const float* vfy, const float* vfz,
+                               float xfreq_span, float Dfreq, float D_src,
+                               const LineC* line, const AmrGrid* amr,
+                               const ClumpGrid* clump, const float* vfx, const float* vfy,
+                               const float* vfz, const float* cell_a, const float* cell_D,
                                const SourceC* source, void* stream) {
   if (B > 0) {
     const int threads = 256;
@@ -464,8 +479,9 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
   refill_point_kernel<K><<<blocks, threads, 0, (cudaStream_t)stream>>>(                     \
       unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed, counter, \
       xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz, comoving_source,  \
-      xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, *line,                     \
-      amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz, src)
+      xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, D_src, *line,              \
+      amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz, cell_a, cell_D,   \
+      src)
     switch (family) {
       case SRC_POINT: LART_REFILL(SRC_POINT); break;
       case SRC_RADIAL: LART_REFILL(SRC_RADIAL); break;

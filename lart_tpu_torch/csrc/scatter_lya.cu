@@ -143,6 +143,8 @@ struct ScatterParams {
                          //   then per leaf; ncells 0 on a Cartesian grid
   ClumpGrid clump;       // the clumps: rhokap, rhokapD and the velocities are
                          //   then per clump; n 0 on the other grids
+  const float* cell_a;   // a Cartesian grid at non-uniform temperature: each
+  const float* cell_D;   //   cell's damping and Doppler width (flat); null else
 };
 
 // the index of lane i's cell into the grid arrays: the flat cell, or on the
@@ -476,8 +478,9 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         s.xfreq[i] = (s.xfreq[i] - clump_vel_dot(cl, s.ic[i], k, CLUMP_U_SCALE)) * cl.r_loc;
     }
     const float xfreq = s.xfreq[i];
-    // the cell's damping and Doppler width: per leaf on an AMR grid at
-    // non-uniform temperature (the reference values in a gap), the clumps'
+    // the cell's damping and Doppler width: per leaf on an AMR grid and per
+    // cell on a Cartesian one at non-uniform temperature (the reference
+    // values in a gap), the clumps'
     float a_c = p.a, D_c = p.Dfreq;
     if (p.amr.voigt_a) {
       const int il = amr_leaf(p.amr, s.ic[i]);
@@ -487,6 +490,12 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
     if (cl.n) {
       a_c = cl.a_cl;
       D_c = cl.D_cl;
+    }
+    if (p.cell_D) {
+      // a Cartesian cell's own (engine.py:2107-2108)
+      const int f = scatter_cell(p, s, i);
+      a_c = __ldg(&p.cell_a[f]);
+      D_c = __ldg(&p.cell_D[f]);
     }
     const float ratio = D_c / p.Dfreq;
     // the H-alpha band (line type 8) meets dust only; without dust it

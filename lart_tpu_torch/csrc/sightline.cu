@@ -23,9 +23,11 @@
 // the crossed coordinate), at most 8 2^levelmax + 16 nodes; the clump CSR
 // walk (a cell's candidates' chord overlaps clipped to the cell segment
 // plus 1e-6 R, summed in table order, fmaf each), at most 3 cg_n + 8 cells.
-// In a moving medium (on the AMR grid also at non-uniform temperature) a
-// tau_gas ray starts at its entry cell's comoving frequency xf0 D_ref / D1
-// - u1 and follows the comoving update at each crossing.  No tau cutoff:
+// At non-uniform temperature a cell's profile and N_gas take the cell's
+// damping and Doppler width (:65-67, rhokap D_cell / cross0).  In a moving
+// medium or at non-uniform temperature a tau_gas ray starts at its entry
+// cell's comoving frequency xf0 D_ref / D1 - u1 and follows the comoving
+// update at each crossing.  No tau cutoff:
 // lart_tpu has none here.  The TPU walks every ray of a column in one
 // lockstep while_loop until the last leaves; here a ray stops on its own,
 // and its sum runs in the same order either way.
@@ -133,16 +135,21 @@ __device__ float sl_walk_cart(const FlightParams& g, const SightParams& p, int m
   int cell[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) cell[a] = clamp_floor((pos[a] - g.amin[a]) / g.d[a], g.n[a]);
-  const bool update = mode == SL_MODE_GAS && p.comoving && g.moving;
-  if (update) xf = xf - vel_dot(g, cell, k);
+  // a tau_gas ray's entry cell's comoving frequency xf0 D_ref / D1 - u1
+  const bool update = mode == SL_MODE_GAS && p.comoving && (g.moving || g.cell_D);
+  if (update) {
+    if (g.cell_D) xf = xf * (g.Dfreq / cell_D_of(g, flat_index(g, cell[0], cell[1], cell[2])));
+    xf = xf - (g.moving ? vel_dot(g, cell, k) : 0.0f);
+  }
   float tau = 0.0f, trav = 0.0f;
   for (int n = 0; n < p.max_steps; ++n) {
     const int f = flat_index(g, cell[0], cell[1], cell[2]);
     const float rk = __ldg(&g.rhokap[f]);
-    const float rho = mode == SL_MODE_GAS
-                          ? rk * line_profile<kMulti>(g.line, xf, g.a_ref, g.Dfreq)
-                          : mode == SL_MODE_NGAS ? rk * g.Dfreq / p.cross0
-                                                 : (g.rhokapD ? __ldg(&g.rhokapD[f]) : 0.0f);
+    float a_c, D_c;
+    cell_a_D(g, f, a_c, D_c);
+    const float rho = mode == SL_MODE_GAS ? rk * line_profile<kMulti>(g.line, xf, a_c, D_c)
+                      : mode == SL_MODE_NGAS ? rk * D_c / p.cross0
+                                             : (g.rhokapD ? __ldg(&g.rhokapD[f]) : 0.0f);
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) t[a] = face_dist(pos[a], k[a], cell[a], g.amin[a], g.d[a]);
@@ -158,10 +165,10 @@ __device__ float sl_walk_cart(const FlightParams& g, const SightParams& p, int m
 #pragma unroll
     for (int a = 0; a < 3; ++a) pos[a] = fmaf(dmin, k[a], pos[a]);
     if (update) {
-      const float u1 = vel_dot(g, cell, k);
+      const float u1 = g.moving ? vel_dot(g, cell, k) : 0.0f;
       cell[axis] = nidx;
-      const float u2 = vel_dot(g, cell, k);
-      xf = (xf + u1) * g.Dfreq / g.Dfreq - u2;
+      const float u2 = g.moving ? vel_dot(g, cell, k) : 0.0f;
+      xf = (xf + u1) * D_c / cell_D_of(g, flat_index(g, cell[0], cell[1], cell[2])) - u2;
     } else {
       cell[axis] = nidx;
     }

@@ -15,15 +15,32 @@ __device__ inline int flat_index(const FlightParams& p, int i, int j, int k) {
   return min(max(f, 0), p.n[0] * p.n[1] * p.n[2] - 1);
 }
 
-// opacity of flat cell f at comoving frequency xf: rhokap times the line's
-// profile (line.cuh), plus rhokap times the H2 multiplier in the instances
-// with H2 (h2.cuh), plus the dust's rhokapD (engine.py:1106-1121
-// total_opacity)
+// damping a and Doppler width D of flat Cartesian cell f (engine.py:297-317
+// cell_voigt_a / cell_Dfreq): the cell's own at non-uniform temperature,
+// else the reference values
+__device__ inline void cell_a_D(const FlightParams& p, int f, float& a, float& D) {
+  if (p.cell_D) {
+    a = __ldg(&p.cell_a[f]);
+    D = __ldg(&p.cell_D[f]);
+  } else {
+    a = p.a_ref;
+    D = p.Dfreq;
+  }
+}
+
+__device__ inline float cell_D_of(const FlightParams& p, int f) {
+  return p.cell_D ? __ldg(&p.cell_D[f]) : p.Dfreq;
+}
+
+// opacity of flat cell f at comoving frequency xf and the cell's damping a
+// and Doppler width D: rhokap times the line's profile (line.cuh), plus
+// rhokap times the H2 multiplier in the instances with H2 (h2.cuh), plus
+// the dust's rhokapD (engine.py:1106-1121 total_opacity)
 template <bool kMulti, bool kH2>
-__device__ inline float cell_opacity(const FlightParams& p, int f, float xf) {
+__device__ inline float cell_opacity(const FlightParams& p, int f, float xf, float a, float D) {
   const float rk = p.rhokap[f];
-  float rho = rk * line_profile<kMulti>(p.line, xf, p.a_ref, p.Dfreq);
-  if (kH2) rho = rho + rk * h2_kappa(p.h2, xf, p.Dfreq);
+  float rho = rk * line_profile<kMulti>(p.line, xf, a, D);
+  if (kH2) rho = rho + rk * h2_kappa(p.h2, xf, D);
   if (p.rhokapD) rho = rho + p.rhokapD[f];
   return rho;
 }
@@ -69,10 +86,11 @@ __device__ inline float node_face_dist(float pos, float k, float c, float h) {
   return fmaxf((c + (k > 0.0f ? h : -h) - pos) / k, 0.0f);
 }
 
-// u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot)
+// u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot), as
+// XLA contracts the sum of products: fma(vz, kz, fma(vx, kx, vy ky))
 __device__ inline float vel_dot(const FlightParams& p, const int c[3], const float k[3]) {
   const int f = flat_index(p, c[0], c[1], c[2]);
-  return p.vfx[f] * k[0] + p.vfy[f] * k[1] + p.vfz[f] * k[2];
+  return fmaf(p.vfz[f], k[2], fmaf(p.vfx[f], k[0], p.vfy[f] * k[1]));
 }
 
 // distance to the exit face along one axis (engine.py:1075-1079)

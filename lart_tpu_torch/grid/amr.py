@@ -11,9 +11,10 @@ The octree and its neighbor table come from grid/octree.py; the per-leaf
 neutral fraction, scatterer and dust densities follow the reference's
 ionization, ion and dust models (physics_amr_mod.f90:34-173), the opacity is
 normalized by the +z pole traversal from the box centre, and
-velocity_type replaces the file's velocities by an analytic field.  The
-RAMSES reader (amr_type 'ramses') and the solar-CIE ion model are not ported
-(engine.check_supported names them).
+velocity_type replaces the file's velocities by an analytic field; the
+solar-CIE ion model takes its ion densities from grid/ion_data.py.  The
+RAMSES reader (amr_type 'ramses') is not ported (engine.check_supported
+names it).
 """
 
 from __future__ import annotations
@@ -199,7 +200,11 @@ def build_amr(cfg: ResolvedConfig, data: Optional[dict] = None,
     if 'n_ion' in data:
         n_scat = np.asarray(data['n_ion'], np.float64)
     elif par.ion_model == 'solar_cie':
-        raise NotImplementedError("ion_model 'solar_cie' is not ported")
+        from .ion_data import solar_ion_density
+        Z = data.get('metallicity')
+        Zv = np.asarray(Z, np.float64) if Z is not None else \
+            np.full_like(T, max(par.metallicity_global, 0.0))
+        n_scat = solar_ion_density(nH, Zv, T, line.ion_id)
     else:
         n_scat = nH * xHI
     rhokap = n_scat * line.cross0 / Dfreq * distance2cm

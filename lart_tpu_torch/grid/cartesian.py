@@ -2,9 +2,8 @@
 
 Port of lart_tpu/grid/cartesian.py, which cannot be imported here because
 it imports jax.numpy (:19).  The numpy body of build_cartesian (:134-571)
-is carried over unchanged apart from two inputs that are not ported yet:
-3-D FITS/HDF5 density/temperature grids and 3-D velocity cubes raise
-NotImplementedError (1-D text profiles work).  GridMeta has the same
+is carried over unchanged; 3-D FITS/HDF5 density, temperature and
+velocity cubes are read by io/reader.py.  GridMeta has the same
 fields as the JAX one; GridDevice holds torch tensors on one device.
 """
 
@@ -20,6 +19,7 @@ from scipy.special import wofz
 
 from ..config import ResolvedConfig
 from ..constants import FOURPI, SPEEDC, UM2KM
+from ..io.reader import read_3d_any, read_velocity_any
 
 
 def _voigt0(a: np.ndarray) -> np.ndarray:
@@ -143,9 +143,14 @@ def build_cartesian(cfg: ResolvedConfig, device='cpu',
         return path.rsplit('.', 1)[-1].lower() in ('txt', 'dat')
 
     def grid_3d(path, what):
-        raise NotImplementedError(
-            f'{what} file {path}: 3-D FITS/HDF5 grid files are not ported '
-            f'to lart_tpu_torch yet')
+        """3-D FITS/HDF5 grid array (read_3D, read_grid_data.f90:21-140);
+        must match the declared (nx, ny, nz)."""
+        arr = read_3d_any(path)
+        if arr.shape != (nx, ny, nz):
+            raise ValueError(
+                f'{what} file {path}: shape {arr.shape} != grid '
+                f'({nx}, {ny}, {nz})')
+        return arr
 
     # --- (1) temperature and Doppler widths
     T = np.full((nx, ny, nz), par.temperature, np.float64)
@@ -327,9 +332,16 @@ def build_cartesian(cfg: ResolvedConfig, device='cpu',
             vfy = fac * Y
             vfz = fac * Z
     elif velo_file:
-        raise NotImplementedError(
-            f'velocity file {velo_file}: 3-D velocity cubes are not ported '
-            f'to lart_tpu_torch yet')
+        # 3-component (x,y,z,3) velocity cube in km/s (read_velocity,
+        # read_grid_data.f90:142-244; stored (nz,ny,nx,3) on disk)
+        v3 = read_velocity_any(velo_file)
+        if v3.shape != (nx, ny, nz, 3):
+            raise ValueError(
+                f'velocity file {velo_file}: shape {v3.shape} != '
+                f'({nx}, {ny}, {nz}, 3)')
+        vfx = v3[..., 0] / vt
+        vfy = v3[..., 1] / vt
+        vfz = v3[..., 2] / vt
     elif vtype:
         vfx = np.zeros_like(rho)
         vfy = np.zeros_like(rho)

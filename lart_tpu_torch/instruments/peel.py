@@ -36,9 +36,12 @@ reads those and the lane's unchanged position, cell, frequency and its
 weight).  Modes RESONANCE and DUST peel the events of their kind; K7 takes
 both kinds in one launch, mode SCATTERED = RESONANCE | DUST, each pair by
 its lane's kind.  The walk follows the transport's boundary ops (escape,
-periodic, reflect) and, in a moving medium, its comoving frequency updates;
-it stops where tau exceeds 745.2 or after 2 (nx + ny + nz) + 8 crossings.
-The walk draws no random numbers.
+periodic, reflect) and, in a moving medium or at non-uniform temperature,
+its comoving frequency updates ((x + u1) D1) / D2 - u2; at non-uniform
+temperature a cell's opacity takes its own damping and Doppler width, and
+the event's bin and recoil the event cell's D (peel.py:225-226, :336-340,
+:434-436, :486); it stops where tau exceeds 745.2 or after 2 (nx + ny +
+nz) + 8 crossings.  The walk draws no random numbers.
 
 With H2 pumping the sightline's opacity adds rhokap times the H2
 multiplier (:229-231).  For line type 8 (Ly-beta) the record marks a
@@ -96,8 +99,8 @@ from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..transport.flight import (BIG, FlightConsts, capped_step, chord_det,
-                                div, doppler_ratio, f32, fma)
-from ..transport.fly_amr import AmrFlight, _comoving, exit_face, hop
+                                comoving, div, doppler_ratio, f32, fma)
+from ..transport.fly_amr import AmrFlight, exit_face, hop
 from ..transport.fly_clump import ClumpFlight
 from ..transport.fly_cartesian import _cross_axis, _face_dist
 from ..transport.fly_sphere import sphere_chord
@@ -378,13 +381,13 @@ def obs_cap(p: Peel, r2):
 
 def cell_D(p: Peel, cell):
     """The Doppler width of the event cells: the reference float, the
-    clumps' (f32) on a clump medium, or per lane on an AMR grid at
-    non-uniform temperature."""
+    clumps' (f32) on a clump medium, or per lane on a Cartesian or AMR grid
+    at non-uniform temperature."""
     g = p.grid
     if g.clump is not None:
         return f32(g.clump.D_cl)
     if g.amr is None:
-        return g.Dfreq
+        return g.cell_a_D(g.flat(*cell))[1]
     return g.amr.a_D(g.amr.leaf(cell[0]), g.a_ref, g.Dfreq)[1]
 
 
@@ -466,11 +469,14 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None,
             npos[a] = torch.where(ca, p2, npos[a])
             ndir[a] = torch.where(ca, k2, k[a])
             esc = esc | (ca & e)
-        if g.moving:
-            u1 = g.vel_dot(cell, *k)
-            u2 = g.vel_dot(ncell, *ndir)
-            xf = torch.where(esc, xf,
-                             div((xf + u1) * g.Dfreq, g.Dfreq) - u2)
+        if g.moving or not g.uniform_temperature:
+            # the comoving update at each cell's D (peel.py:336-340)
+            zero = torch.zeros_like(xf)
+            u1 = g.vel_dot(cell, *k) if g.moving else zero
+            u2 = g.vel_dot(ncell, *ndir) if g.moving else zero
+            D1 = g.cell_a_D(flat)[1]
+            D2 = g.cell_a_D(g.flat(*ncell))[1]
+            xf = torch.where(esc, xf, comoving(xf, u1, D1, D2, u2))
         done = esc | hit_cap | ~(acc < TAU_HUGE)
         tau[idx[done]] = acc[done]
         keep = ~done
@@ -526,7 +532,7 @@ def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None,
         if update:
             il2 = amr.leaf(icn)
             D2 = amr.a_D(il2, g.a_ref, g.Dfreq)[1]
-            xf = torch.where(esc, xf, _comoving(
+            xf = torch.where(esc, xf, comoving(
                 xf, g.leaf_vel_dot(il, *k), D_c, D2,
                 g.leaf_vel_dot(il2, *k)))
         done = esc | hit_cap | ~(acc < TAU_HUGE)

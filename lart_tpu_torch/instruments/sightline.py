@@ -18,8 +18,9 @@ observer's ray along -v for each HEALPix pixel centre v (pix2vec_ring in
 f32, healpix.py), starting that far inside the boundary where v leaves
 the box and walking back toward the observer, capped at that distance
 ('from the distant universe toward Earth').  The start and the direction
-then go to f32.  In a moving medium (or at non-uniform temperature on the
-AMR grid) a tau_gas ray starts at the comoving frequency of its entry
+then go to f32.  In a moving medium or at non-uniform temperature (where
+each cell's opacity and N_gas take its own damping and Doppler width,
+:65-67) a tau_gas ray starts at the comoving frequency of its entry
 cell, xf0 D_ref / D1 - u1 (:226-238), and its frequency follows the
 comoving update (xf + u1) D1 / D2 - u2 at every crossing.
 
@@ -60,9 +61,9 @@ import torch
 
 from ..kernels import build as kbuild
 from ..physics import line as pline
-from ..transport.flight import (FlightConsts, capped_step, chord_det, div,
-                                f32, fma)
-from ..transport.fly_amr import AmrFlight, _comoving, exit_face, hop
+from ..transport.flight import (FlightConsts, capped_step, chord_det,
+                                comoving, div, f32, fma)
+from ..transport.fly_amr import AmrFlight, exit_face, hop
 from ..transport.fly_cartesian import _face_dist
 from ..transport.fly_clump import ClumpFlight
 from .healpix import pix2vec_ring
@@ -245,11 +246,14 @@ def ray_origins(sl: Sightline, o: int):
 # --------------------------------------------------------------------------
 
 def _cart_rho(g: FlightConsts, sl: Sightline, mode, flat, xf):
-    """A Cartesian cell's opacity of each ray's column: rhokap H(x),
-    rhokap D / cross0, or rhokapD (0 without dust)."""
+    """A Cartesian cell's opacity of each ray's column: rhokap H(x; a, D),
+    rhokap D / cross0, or rhokapD (0 without dust), at the cell's damping a
+    and Doppler width D."""
     rk = g.rhokap[flat]
-    gas = rk * g.profile(xf)
-    ngas = div(rk * f32(g.Dfreq), sl.cross0)
+    a, D = g.cell_a_D(flat)
+    gas = rk * pline.line_profile_plain(g.line, xf, a, D)
+    ngas = div(rk * (D if isinstance(D, torch.Tensor) else f32(D)),
+               sl.cross0)
     dust = g.rhokapD[flat] if g.rhokapD is not None else torch.zeros_like(rk)
     return torch.where(mode == MODE_GAS, gas,
                        torch.where(mode == MODE_NGAS, ngas, dust))
@@ -278,10 +282,14 @@ def _walk_cart(sl: Sightline, pos, k, xf, mode, cap, stats=None):
     cell = [torch.clamp(torch.floor(div(pos[a] - f32(g.amin[a]), g.d[a])), 0,
                         g.n[a] - 1).to(torch.int64) for a in range(3)]
     if sl.comoving:
-        # the entry cell's comoving frequency of a tau_gas column
-        gas = mode == MODE_GAS
-        xf = torch.where(gas, xf - g.vel_dot(cell, *k), xf) if g.moving \
-            else xf
+        # the entry cell's comoving frequency of a tau_gas column,
+        # xf0 D_ref / D1 - u1 (:226-238)
+        D1 = g.cell_a_D(g.flat(*cell))[1]
+        xf0 = xf * (torch.full_like(D1, g.Dfreq) / D1) \
+            if isinstance(D1, torch.Tensor) else xf
+        if g.moving:
+            xf0 = xf0 - g.vel_dot(cell, *k)
+        xf = torch.where(mode == MODE_GAS, xf0, xf)
     acc, trav = tau.clone(), torch.zeros_like(tau)
     for _ in range(sl.max_steps):
         if idx.numel() == 0:
@@ -304,12 +312,15 @@ def _walk_cart(sl: Sightline, pos, k, xf, mode, cap, stats=None):
             out = out | (c2 < 0) | (c2 >= g.n[a])
             ncell.append(c2)
         pos = [fma(dmin, k[a], pos[a]) for a in range(3)]
-        if sl.comoving and g.moving:
+        if sl.comoving:
             nc = [torch.clamp(c, 0, g.n[a] - 1) for a, c in enumerate(ncell)]
-            u1 = g.vel_dot(cell, *k)
-            u2 = g.vel_dot(nc, *k)
+            zero = torch.zeros_like(xf)
+            u1 = g.vel_dot(cell, *k) if g.moving else zero
+            u2 = g.vel_dot(nc, *k) if g.moving else zero
+            D1 = g.cell_a_D(flat)[1]
+            D2 = g.cell_a_D(g.flat(*nc))[1]
             upd = (mode == MODE_GAS) & ~out
-            xf = torch.where(upd, div((xf + u1) * g.Dfreq, g.Dfreq) - u2, xf)
+            xf = torch.where(upd, comoving(xf, u1, D1, D2, u2), xf)
         done = out | hit_cap
         tau[idx[done]] = acc[done]
         keep = ~done
@@ -361,7 +372,7 @@ def _walk_amr(sl: Sightline, pos, k, xf, mode, stats=None):
             il2 = amr.leaf(icn)
             D2 = amr.a_D(il2, g.a_ref, g.Dfreq)[1]
             upd = (mode == MODE_GAS) & ~esc
-            xf = torch.where(upd, _comoving(
+            xf = torch.where(upd, comoving(
                 xf, g.leaf_vel_dot(il, *k), D_c, D2,
                 g.leaf_vel_dot(il2, *k)), xf)
         done = esc

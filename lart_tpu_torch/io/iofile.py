@@ -315,6 +315,40 @@ def read_hdf5_columns(path: str, names, key: str):
         return cols, dict(src.attrs) | dict(f.attrs)
 
 
+def write_hdf5_array(path: str, arr: np.ndarray, name: str = 'data'
+                     ) -> None:
+    """An HDF5 file holding one dataset at its root."""
+    import h5py
+    with h5py.File(path, 'w') as f:
+        f.create_dataset(name, data=arr)
+
+
+def read_hdf5_array(path: str, ndim=None) -> np.ndarray:
+    """An array of an HDF5 file as f64 (lart_tpu/io/reader.py:51-67,
+    :77-85): with ndim None the first dataset found depth-first, else the
+    first dataset of ndim dimensions at the root."""
+    import h5py
+    with h5py.File(path, 'r') as f:
+        if ndim is not None:
+            for k in f:
+                if isinstance(f[k], h5py.Dataset) and f[k].ndim == ndim:
+                    return np.asarray(f[k], np.float64)
+            raise ValueError(f'no {ndim}-D dataset in {path}')
+
+        def first_dataset(g):
+            for k in g:
+                if isinstance(g[k], h5py.Dataset):
+                    return np.asarray(g[k], np.float64)
+                got = first_dataset(g[k])
+                if got is not None:
+                    return got
+            return None
+        arr = first_dataset(f)
+        if arr is None:
+            raise ValueError(f'no dataset found in {path}')
+        return arr
+
+
 # --------------------------------------------------------------------------
 # converter (the analogue of python/lart_io.py's CLI)
 # --------------------------------------------------------------------------

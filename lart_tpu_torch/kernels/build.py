@@ -148,9 +148,10 @@ def library() -> ctypes.CDLL:
             _ARGTYPES,
             lart_refill_point=[_LANES, _LANES, _I, _P, _I, _U, _U, _F, _F, _F,
                                _I, _I, _I, _F, _I, _F, _F, _F, _F, _F, _I, _F,
-                               _F, _I, _P, _F, _F, line,
+                               _F, _I, _P, _F, _F, _F, line,
                                ctypes.POINTER(AmrC), ctypes.POINTER(ClumpC),
-                               _P, _P, _P, ctypes.POINTER(SourceC), _P],
+                               _P, _P, _P, _P, _P, ctypes.POINTER(SourceC),
+                               _P],
             lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
                                    _P, _P, _P, _F, line, _P],

@@ -229,23 +229,42 @@ def _div(t: torch.Tensor, b: float) -> torch.Tensor:
     return t / torch.full((), b, dtype=t.dtype, device=t.device)
 
 
-def div32(a: float, b: float) -> float:
+def div32(a, b):
     """a / b of two f32 values, in f32, correctly rounded (the kernels'
-    division and XLA's)."""
+    division and XLA's); a tensor where either is a per-lane tensor (a
+    cell's Doppler width at non-uniform temperature)."""
+    if isinstance(b, torch.Tensor):
+        return (a if isinstance(a, torch.Tensor)
+                else torch.full_like(b, f32(a))) / b
+    if isinstance(a, torch.Tensor):
+        return _div(a, f32(b))
     return float(np.float32(a) / np.float32(b))
 
 
-def mul32(a: float, b: float) -> float:
-    """a * b of two f32 values, in f32."""
+def mul32(a, b):
+    """a * b of two f32 values, in f32 (per lane where either is a
+    tensor)."""
+    if isinstance(a, torch.Tensor):
+        return a * (b if isinstance(b, torch.Tensor) else f32(b))
+    if isinstance(b, torch.Tensor):
+        return f32(a) * b
     return float(np.float32(a) * np.float32(b))
+
+
+def lanes_like(v, like: torch.Tensor) -> torch.Tensor:
+    """v, an f32 constant or a per-lane tensor, as a tensor of like's
+    shape."""
+    if isinstance(v, torch.Tensor):
+        return v.expand_as(like)
+    return torch.full_like(like, v)
 
 
 def line_prof(lc: LineConsts, a: float, D: float) -> LineProf:
     """The profile's components at a cell of damping a and Doppler width D
     (Hz): f32 operations on the f32 constants, as the flights, the scatter
-    and the walk take them (line.cuh line_prof).  A per-lane tensor a (an
-    AMR grid at non-uniform temperature, line types 1 and 8) is the damping
-    of every component."""
+    and the walk take them (line.cuh line_prof).  a and D may be per-lane
+    tensors (a Cartesian or AMR grid at non-uniform temperature): the
+    offsets and dampings are then per lane."""
     a0 = a if isinstance(a, torch.Tensor) else f32(a)
     dx, aa = [0.0] * MAX_LEVELS, [a0] * MAX_LEVELS
     lt = lc.line_type
@@ -315,9 +334,10 @@ def branch_select(xi: torch.Tensor, P_cum, ndown: int) -> torch.Tensor:
 
 
 def _pick(idx: torch.Tensor, vals) -> torch.Tensor:
-    """vals[idx] of a short tuple of f32 constants (_branch_consts)."""
-    out = torch.full(idx.shape, vals[0], dtype=torch.float32,
-                     device=idx.device)
+    """vals[idx] of a short tuple of f32 constants or per-lane tensors
+    (_branch_consts)."""
+    out = vals[0] if isinstance(vals[0], torch.Tensor) else torch.full(
+        idx.shape, vals[0], dtype=torch.float32, device=idx.device)
     for i in range(1, len(vals)):
         out = torch.where(idx == i, vals[i], out)
     return out
@@ -423,7 +443,7 @@ def redistribute_plain(lc: LineConsts, x: torch.Tensor, a: float, D: float,
             iup = torch.where(hit, i, iup)
             chosen = chosen | hit
         x0 = x
-        va = torch.full_like(x, q.a[0])
+        va = lanes_like(q.a[0], x)
         for i in range(1, lc.nup):
             x0 = torch.where(iup == i, x + q.dx[i], x0)
             va = torch.where(iup == i, q.a[i], va)
@@ -433,7 +453,7 @@ def redistribute_plain(lc: LineConsts, x: torch.Tensor, a: float, D: float,
         pD = lc.nD_HD * voigt_plain(x_D, q.a[1])
         is_H = sel[0] < pH / (pH + pD)
         x0 = torch.where(is_H, x, x_D)
-        va = torch.where(is_H, q.a[0], torch.full_like(x, q.a[1]))
+        va = torch.where(is_H, q.a[0], lanes_like(q.a[1], x))
     env = samplers.vz_envelope(x0, va)
     acc = torch.zeros_like(active)
     uz = torch.zeros_like(x)

@@ -284,6 +284,10 @@ def build_sources(cfg, meta, host_data=None, device='cpu'
     if em is None and kind in ('density1', 'density2'):
         rk = np.asarray(host_data['rhokap'], np.float64)
         em = rk if kind == 'density1' else rk * rk
+    if em is None and kind == 'grid':
+        # a 3-D FITS/HDF5 emissivity cube (sources.py:268-270)
+        from ..io.reader import read_3d_any
+        em = read_3d_any(par.emiss_file.strip())
     if em is None:
         raise ValueError(
             'diffuse_emissivity needs emiss_file or grid emissivity')

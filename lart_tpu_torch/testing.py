@@ -562,13 +562,9 @@ SOURCE_CASES = {
     'jellyfish_emiss': ('jellyfish_rmhd/jellyfish_emiss.in',
                         {'taumax': 3e3, 'xfreq_min': -80.0,
                          'xfreq_max': 80.0}),
-    # the 1-D emissivity profile in a 101^3 sphere (its temp_file needs the
-    # per-cell temperature, not ported); xfreq +-20 holds every birth in
-    # the band, where Jin counts it (the automatic band at T 1e4 leaves
-    # ~1e-3 of the births outside, which escape outside it)
-    'AlII': ('emiss_1D_AlII/AlII_ex.in', {'temp_file': '',
-                                          'xfreq_min': -20.0,
-                                          'xfreq_max': 20.0}),
+    # the 1-D emissivity profile in a 101^3 sphere with its 1-D temperature
+    # profile (8900 K at the centre to 7100 K at the edge), as written
+    'AlII': ('emiss_1D_AlII/AlII_ex.in', {}),
 }
 # the namelist keys that name a file beside the namelist
 SOURCE_FILES = ('star_file', 'emiss_file', 'dens_file', 'temp_file')
@@ -597,6 +593,74 @@ def source_params(name: str, root, cut: bool = True, **over) -> Params:
                  **over}.items():
         setattr(par, k, v)
     return par
+
+
+def turb_cube(n: int = 65, mach: float = 10.0, b: float = 0.4,
+              seed: int = 20260820) -> np.ndarray:
+    """The lognormal Mach-10 density cube of the FeII_turb examples, (n, n,
+    n) f32 with <rho> = 1: the numpy body of examples/FeII_turb/
+    mk_turb_cube.py make_cube (a Gaussian random field of k^-11/3 power,
+    exponentiated with sigma^2 = ln(1 + (b M)^2)), without its h5py
+    writer."""
+    rng = np.random.default_rng(seed)
+    k = np.fft.fftfreq(n) * n
+    kx, ky, kz = np.meshgrid(k, k, k, indexing='ij')
+    kk = np.sqrt(kx ** 2 + ky ** 2 + kz ** 2)
+    kk[0, 0, 0] = 1.0
+    amp = kk ** (-11.0 / 6.0)
+    amp[0, 0, 0] = 0.0
+    phase = rng.standard_normal((n, n, n)) \
+        + 1j * rng.standard_normal((n, n, n))
+    g = np.fft.ifftn(amp * phase).real
+    g = (g - g.mean()) / g.std()
+    sigma = np.sqrt(np.log(1.0 + (b * mach) ** 2))
+    rho = np.exp(sigma * g - 0.5 * sigma ** 2)
+    return rho.astype(np.float32)
+
+
+def prochaska_dens(n0: float = 0.1, abund: float = 10.0 ** (-5.47),
+                   rinner: float = 1.0, router: float = 20.0,
+                   n: int = 150) -> np.ndarray:
+    """The r^-2 wind of the Prochaska examples, (n, n, n) f32 in (x, y, z):
+    n_ion = abund n0 (rinner / r)^2 between rinner and router, 0 elsewhere
+    (examples/Prochaska/mk_model.py make_dens, which writes its transpose
+    as a FITS primary HDU)."""
+    nion0 = abund * n0
+    ax = (np.arange(n) + 0.5) / (n / 2.0) * router - router
+    X, Y, Zc = np.meshgrid(ax, ax, ax, indexing='ij')
+    r = np.sqrt(X * X + Y * Y + Zc * Zc)
+    dens = np.zeros((n, n, n), np.float32)
+    shell = (r >= rinner) & (r <= router)
+    dens[shell] = nion0 * (rinner / r[shell]) ** 2
+    return dens
+
+
+def temperature_cube(n: int, seed: int, t_min: float = 1e3,
+                     t_max: float = 1e5) -> np.ndarray:
+    """A (n, n, n) temperature cube [K], log-uniform between t_min and
+    t_max cell by cell, from a seed: every crossing changes the Doppler
+    width by up to a factor 10."""
+    rng = np.random.default_rng([seed, 12])
+    return np.exp(rng.uniform(np.log(t_min), np.log(t_max),
+                              (n, n, n))).astype(np.float32)
+
+
+def write_cube(path, arr: np.ndarray) -> str:
+    """Write an (x, y, z[, 3]) array as a grid file the readers take back:
+    HDF5 (first dataset, h5py) where path ends in .h5, else a FITS primary
+    HDU (minifits; .gz compresses), stored (z, y, x) (a velocity cube
+    (z, y, x, 3))."""
+    path = str(path)
+    a = np.asarray(arr)
+    disk = np.ascontiguousarray(np.transpose(a, (2, 1, 0, 3)) if a.ndim == 4
+                                else a.T)
+    if path.endswith('.h5'):
+        from .io.iofile import write_hdf5_array
+        write_hdf5_array(path, disk)
+    else:
+        from .io.minifits import HDU, write_hdus
+        write_hdus(path, [HDU(data=disk)])
+    return path
 
 
 def birth_weight(res) -> float:

@@ -84,13 +84,6 @@ def uniform_sphere_fastpath(cfg, meta) -> bool:
             and not par.save_all_photons)
 
 
-def _grid_file(path: str) -> bool:
-    """A 3-D FITS/HDF5 grid file (1-D .txt/.dat profiles are ported)."""
-    path = path.strip()
-    return bool(path) and path.rsplit('.', 1)[-1].lower() not in ('txt',
-                                                                  'dat')
-
-
 def check_supported(cfg, meta=None) -> None:
     """Raise NotImplementedError naming every requested feature that
     lart_tpu_torch does not port yet."""
@@ -104,7 +97,6 @@ def check_supported(cfg, meta=None) -> None:
     missing = [name for name, on in (
         ("amr_type 'ramses' (the RAMSES snapshot reader)",
          amr and par.amr_type.strip().lower() == 'ramses'),
-        ("ion_model 'solar_cie'", amr and par.ion_model == 'solar_cie'),
         # lart_tpu's clump flights carry no H2 opacity (its scatter would
         # draw H2 events the flights never saw)
         ('H2 pumping on a clump medium', clump and h2_on(par)),
@@ -115,10 +107,6 @@ def check_supported(cfg, meta=None) -> None:
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
-        ('non-uniform temperature on a Cartesian grid (temp_file)',
-         bool((par.temp_file or par.temperature_file).strip())),
-        ('3-D density file', _grid_file(par.dens_file or par.density_file)),
-        ('3-D velocity file', _grid_file(par.velo_file or par.velocity_file)),
         (f'geometry {geom!r} (atmospheres)',
          geom in ('plane_atmosphere', 'spherical_atmosphere')),
         ('shearing box (Omega with xy_periodic)',
@@ -143,8 +131,10 @@ def check_supported(cfg, meta=None) -> None:
          st == 'line_prof_file'),
         (f'spectral_type {st!r}', st not in SPECTRA
          and st != 'line_prof_file'),
-        ('a 3-D FITS/HDF5 emiss_file (the 3-D grid reader)',
-         emiss == 'grid'),
+        # lart_tpu would read the cube as a column of leaves or clumps
+        # (sources.py:264-270)
+        ('a 3-D FITS/HDF5 emiss_file on an AMR grid or a clump medium',
+         emiss == 'grid' and (amr or clump)),
         # lart_tpu hands build_sources no rhokap there (driver.py:90-95)
         ("emiss_file 'density1'/'density2' on an AMR grid or a clump "
          'medium', emiss in ('density1', 'density2') and (amr or clump)),
@@ -154,11 +144,6 @@ def check_supported(cfg, meta=None) -> None:
         missing += [name for name, on in (
             (f'grid_type {meta.grid_type!r}',
              meta.grid_type not in ('cartesian', 'amr', 'clump')),
-            ('non-uniform temperature on a Cartesian grid',
-             not meta.uniform_temperature and meta.grid_type != 'amr'),
-            ('non-uniform temperature with line types other than 1 or with '
-             'H2 pumping', not meta.uniform_temperature
-             and (cfg.line.line_type != 1 or h2_on(par))),
             ('atmosphere', bool(meta.atmosphere)),
             ('shearing box', meta.omega_shear != 0.0)) if on]
     if missing:

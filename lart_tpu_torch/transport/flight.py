@@ -71,7 +71,7 @@ class ClumpC(ctypes.Structure):
 class FlightParams(ctypes.Structure):
     """csrc/lart.cuh struct FlightParams, field for field."""
     _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
-                ('vfz', _P),
+                ('vfz', _P), ('cell_a', _P), ('cell_D', _P),
                 ('Jout', _P), ('Jmu', _P), ('W_oor', _P),
                 ('Jout_Ha', _P), ('W_esc1', _P), ('W_esc2', _P),
                 ('n', _I * 3), ('bc', _I * 3), ('cell0', _I * 3),
@@ -97,12 +97,14 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.double() * d(b) + d(c)).float()
 
 
-def div(a: torch.Tensor, b: float) -> torch.Tensor:
+def div(a: torch.Tensor, b) -> torch.Tensor:
     """a / b with b rounded to f32, correctly rounded as the kernels divide.
     On CUDA, torch multiplies by the f32 reciprocal of a Python-scalar
     divisor, which moves a bin edge or a cell index by one ulp now and then;
     a 0-d tensor on a's device is divided by exactly (torch.full runs on the
-    device: no copy, no wait)."""
+    device: no copy, no wait).  A per-lane tensor b divides lane by lane."""
+    if isinstance(b, torch.Tensor):
+        return a / b
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
@@ -118,10 +120,17 @@ def capped_step(dmin, cap, trav):
     return torch.minimum(dmin, dleft), dmin >= dleft
 
 
+def comoving(xf, u1, D1, D2, u2):
+    """(xf + u1) D1 / D2 - u2 in lart_tpu's order of f32 operations (the
+    comoving frequency on a cell change, engine.py:1286-1295): two
+    roundings, never one ratio D1 / D2."""
+    return div((xf + u1) * D1, D2) - u2
+
+
 def doppler_ratio(D, D_ref: float):
     """D / D_ref, a cell's Doppler width over the reference one, as
-    lart_tpu's f32 division: per lane where D is a tensor (an AMR grid at
-    non-uniform temperature), else exactly 1.0 (D is D_ref)."""
+    lart_tpu's f32 division: per lane where D is a tensor (a Cartesian or
+    AMR grid at non-uniform temperature), else exactly 1.0 (D is D_ref)."""
     return div(D, D_ref) if isinstance(D, torch.Tensor) else 1.0
 
 
@@ -186,6 +195,10 @@ class FlightConsts:
     R_Ha: float = 0.0        # cext_dust_Ha / cext_dust (line type 8)
     amr: Optional['AmrGrid'] = None   # the octree, on an AMR grid
     clump: Optional['ClumpGrid'] = None   # the clumps, on a clump medium
+    # a Cartesian grid at non-uniform temperature: each cell's damping and
+    # Doppler width, flat (nx*ny*nz,) f32; None at uniform temperature
+    cell_a: Optional[torch.Tensor] = None
+    cell_D: Optional[torch.Tensor] = None
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -214,6 +227,10 @@ class FlightConsts:
             rhokap=grid.rhokap.reshape(-1).contiguous(), vel=vel,
             rhokapD=None if grid.rhokapD is None
             else grid.rhokapD.reshape(-1).contiguous(),
+            cell_a=None if grid.voigt_a is None
+            else grid.voigt_a.reshape(-1).contiguous(),
+            cell_D=None if grid.Dfreq is None
+            else grid.Dfreq.reshape(-1).contiguous(),
             line=pline.LineConsts.from_config(cfg),
             h2=ph2.H2Consts.from_config(cfg),
             R_Ha=(par.cext_dust_Ha / par.cext_dust if par.cext_dust > 0
@@ -228,6 +245,18 @@ class FlightConsts:
         """Line type 8: lanes of the H-alpha band fly too."""
         return self.line.line_type == 8
 
+    @property
+    def uniform_temperature(self) -> bool:
+        return self.cell_D is None
+
+    def cell_a_D(self, flat):
+        """(voigt_a, Dfreq) of the flat cells `flat` (cell_voigt_a /
+        cell_Dfreq, engine.py:297-317): the reference values as Python
+        floats at uniform temperature, else per-lane gathers."""
+        if self.cell_D is None:
+            return self.a_ref, self.Dfreq
+        return self.cell_a[flat], self.cell_D[flat]
+
     def flat(self, i, j, k) -> torch.Tensor:
         """engine._gather's flat index, clamped like jnp.take mode='clip'."""
         nx, ny, nz = self.n
@@ -241,13 +270,14 @@ class FlightConsts:
 
     def opacity(self, flat, xfreq, band2=None) -> torch.Tensor:
         """rhokap H_eff(x) (+ rhokap H2(x)) + rhokapD of the flat cells
-        `flat` at the comoving frequencies xfreq (engine.py:1111-1128
-        total_opacity); where the mask band2 is set, rhokapD R_Ha, or 0
-        without dust."""
+        `flat` at the comoving frequencies xfreq, at each cell's damping and
+        Doppler width (engine.py:1111-1128 total_opacity); where the mask
+        band2 is set, rhokapD R_Ha, or 0 without dust."""
         rk = self.rhokap[flat]
-        rho = rk * self.profile(xfreq)
+        a, D = self.cell_a_D(flat)
+        rho = rk * pline.line_profile_plain(self.line, xfreq, a, D)
         if self.h2 is not None:
-            rho = rho + rk * ph2.h2_kappa_plain(self.h2, xfreq, self.Dfreq)
+            rho = rho + rk * ph2.h2_kappa_plain(self.h2, xfreq, D)
         if self.rhokapD is not None:
             rho = rho + self.rhokapD[flat]
         if band2 is not None:
@@ -257,10 +287,13 @@ class FlightConsts:
         return rho
 
     def vel_dot(self, cell, kx, ky, kz) -> torch.Tensor:
-        """u . k of the cells `cell` = (i, j, k) (engine.cell_velocity_dot)."""
+        """u . k of the cells `cell` = (i, j, k) (engine.cell_velocity_dot),
+        as XLA contracts its sum of products (dot3): where a metal line's
+        thermal speed is small, u reaches hundreds of Doppler units and
+        the comoving update cancels them to a few ulps of u."""
         f = self.flat(*cell)
         vx, vy, vz = self.vel
-        return vx[f] * kx + vy[f] * ky + vz[f] * kz
+        return dot3(vx[f], kx, vy[f], ky, vz[f], kz)
 
     @functools.cached_property
     def _c_params(self) -> FlightParams:
@@ -270,6 +303,8 @@ class FlightConsts:
             c.rhokapD = self.rhokapD.data_ptr()
         if self.moving:
             c.vfx, c.vfy, c.vfz = (v.data_ptr() for v in self.vel)
+        if self.cell_D is not None:
+            c.cell_a, c.cell_D = self.cell_a.data_ptr(), self.cell_D.data_ptr()
         c.n[:] = self.n
         c.bc[:] = [BC_CODES[b] for b in self.bc]
         c.cell0[:] = self.cell0
@@ -315,6 +350,7 @@ class FlightConsts:
     def device_tensors(self):
         return ((self.rhokap,) + (self.vel or ())
                 + (() if self.rhokapD is None else (self.rhokapD,))
+                + (() if self.cell_D is None else (self.cell_a, self.cell_D))
                 + (() if self.amr is None else self.amr.dev.tensors())
                 + (() if self.clump is None else self.clump.dev.tensors()))
 

@@ -35,16 +35,9 @@ import torch
 from ..kernels import build as kbuild
 from ..physics import h2 as ph2
 from ..physics import line as pline
-from .flight import (BIG, FFS_TAU_CAP, TINY, AmrGrid, FlightConsts, div,
+from .flight import (BIG, FFS_TAU_CAP, TINY, AmrGrid, FlightConsts, comoving,
                      doppler_ratio, fma, freq_floor, tally_plain)
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
-
-
-def _comoving(xf, u1, D1, D2, u2):
-    """(xf + u1) D1 / D2 - u2 in lart_tpu's order of f32 operations."""
-    v = (xf + u1) * D1
-    v = v / D2 if isinstance(D2, torch.Tensor) else div(v, D2)
-    return v - u2
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -208,7 +201,7 @@ def fly_plain(state: BatchState, tallies: Tallies, p: AmrFlight,
             _, D2 = amr.a_D(il2, p.a_ref, p.Dfreq)
             u2 = p.leaf_vel_dot(il2, *dirs)
             xfreq_new = torch.where(
-                changed, _comoving(s.xfreq, u1, D_c, D2, u2), s.xfreq)
+                changed, comoving(s.xfreq, u1, D_c, D2, u2), s.xfreq)
         else:
             xfreq_new = s.xfreq
 

@@ -1,18 +1,22 @@
 """Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
 
 Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
-for a uniform-temperature grid without atmospheres, the shearing box,
-CALCJ/Pnew or all-photons records.  Each step takes one lane across one
-cell: the opacity of its cell is rhokap * H(x, a_ref), plus rhokap times
-the H2 multiplier with H2 pumping and the dust's rhokapD where DGR > 0
+for a grid without atmospheres, the shearing box, CALCJ/Pnew or
+all-photons records.  Each step takes one lane across one cell: the
+opacity of its cell is rhokap * H_eff(x; a, D) at the cell's damping a and
+Doppler width D (the reference ones at uniform temperature, each cell's
+own from a temp_file: engine.py:297-317), plus rhokap times the H2
+multiplier with H2 pumping and the dust's rhokapD where DGR > 0
 (engine.py:1106-1128 total_opacity); the
 lane reaches its tau target (AT_SCATTER) or crosses the nearest face (axis
 tie-break x, y, z), where the boundary op of that axis applies (escape,
 periodic wrap, or reflect about the symmetry plane with the odd-n half
-cell).  In a moving medium a cell change shifts the comoving frequency,
-x' = (x + u1) D1/D2 - u2; an escape is binned at the lab frequency of the
-cell being left, a completed forced first scattering at the birth cell's
-lab frequency along the birth direction.  At most max_steps crossings a
+cell).  In a moving medium or at non-uniform temperature a cell change
+shifts the comoving frequency, x' = (x + u1) D1/D2 - u2 (two f32
+roundings, D1/D2 never folded into one ratio); an escape is binned at the
+lab frequency (x + u) D / D_ref of the cell being left, a completed forced
+first scattering at the birth cell's along the birth direction.  At
+most max_steps crossings a
 call (the while_loop's n < max_steps); a lane that completes its FFS
 restarts from birth within the same budget.  No random numbers are drawn.
 
@@ -33,8 +37,8 @@ import dataclasses
 import torch
 
 from ..kernels import build as kbuild
-from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, div, fma,
-                     freq_floor, tally_plain)
+from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, comoving,
+                     doppler_ratio, fma, freq_floor, tally_plain)
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
 
 
@@ -84,7 +88,9 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             stats['steps'] = stats.get('steps', 0) + int(moving.sum())
         pos, dirs = (s.x, s.y, s.z), (s.kx, s.ky, s.kz)
         cell = (s.ic, s.jc, s.kc)
-        rho = p.opacity(p.flat(*cell), s.xfreq, b2)
+        flat = p.flat(*cell)
+        D_c = p.cell_a_D(flat)[1]
+        rho = p.opacity(flat, s.xfreq, b2)
         t = [_face_dist(pos[a], dirs[a], cell[a], p.amin[a], p.d[a])
              if p.walk[a] else torch.full_like(s.x, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
@@ -109,43 +115,49 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             ndir[a] = torch.where(ca, k2, dirs[a])
             escaped = escaped | (ca & esc)
 
-        # comoving frequency update on a cell change (engine.py:1276-1295);
-        # the H-alpha band's frequency is a lab one
+        # comoving frequency update on a cell change, in a moving medium or
+        # at non-uniform temperature (engine.py:1276-1295); the H-alpha
+        # band's frequency is a lab one
         changed = crossed & ~escaped
         if p.lyb:
             changed = changed & ~b2
         if p.moving:
             u1 = p.vel_dot(cell, *dirs)
             u2 = p.vel_dot(ncell, *ndir)
-            xfreq_new = torch.where(
-                changed, div((s.xfreq + u1) * p.Dfreq, p.Dfreq) - u2,
-                s.xfreq)
             u_b = p.vel_dot((s.bic, s.bjc, s.bkc), s.bkx, s.bky, s.bkz)
         else:
-            u1 = u_b = torch.zeros_like(s.xfreq)
+            u1 = u2 = u_b = torch.zeros_like(s.xfreq)
+        if p.moving or not p.uniform_temperature:
+            D2 = p.cell_a_D(p.flat(*ncell))[1]
+            xfreq_new = torch.where(
+                changed, comoving(s.xfreq, u1, D_c, D2, u2), s.xfreq)
+        else:
             xfreq_new = s.xfreq
 
-        # escape at the lab frequency of the cell being left
+        # escape at the lab frequency of the cell being left,
+        # (x + u) D_cell / D_ref
         esc_fly = escaped & (s.phase == FLYING)
+        xlab = (s.xfreq + u1) * doppler_ratio(D_c, p.Dfreq)
         if p.lyb:
-            oor = oor + tally_plain(tallies, p, esc_fly & ~b2, s.xfreq + u1,
+            oor = oor + tally_plain(tallies, p, esc_fly & ~b2, xlab,
                                     s.wgt, s.kz)
             oor = oor + tally_plain(tallies, p, esc_fly & b2, s.xfreq,
                                     s.wgt, s.kz, tallies.Jout_Ha)
             tallies.W_esc1 += torch.where(esc_fly & ~b2, s.wgt, zero).sum()
             tallies.W_esc2 += torch.where(esc_fly & b2, s.wgt, zero).sum()
         else:
-            oor = oor + tally_plain(tallies, p, esc_fly, s.xfreq + u1, s.wgt,
-                                    s.kz)
+            oor = oor + tally_plain(tallies, p, esc_fly, xlab, s.wgt, s.kz)
         # forced first scattering done: the escaped fraction at the birth
-        # lab frequency, restart from birth with wgt *= 1 - exp(-tau0)
+        # lab frequency (x_b + u_b) D_b / D_ref, restart from birth with
+        # wgt *= 1 - exp(-tau0)
         ffs_done = (escaped & is_ffs) | (hit & is_ffs)
         tau0 = tau_n
         wgt_esc = s.wgt * torch.exp(-tau0)
-        oor = oor + tally_plain(tallies, p, ffs_done, s.bxfreq + u_b,
-                                wgt_esc, s.bkz)
+        D_b = p.cell_a_D(p.flat(s.bic, s.bjc, s.bkc))[1]
+        xlab_b = (s.bxfreq + u_b) * doppler_ratio(D_b, p.Dfreq)
+        oor = oor + tally_plain(tallies, p, ffs_done, xlab_b, wgt_esc, s.bkz)
         if p.lyb:
-            inb = freq_floor(p, s.bxfreq + u_b)[1]
+            inb = freq_floor(p, xlab_b)[1]
             tallies.W_esc1 += torch.where(ffs_done & inb, wgt_esc, zero).sum()
         wgt1 = -torch.expm1(-tau0)
         ffs_vacuum = ffs_done & (tau0 <= 0.0)

@@ -4,8 +4,8 @@ Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
 :2689) for a point source (source_geometry 'point' or '') or any extended
 source of gen_position but the illuminations (see below) with a Voigt,
 voigt0, monochromatic, Gaussian, flat continuum or continuum+gaussian
-input spectrum in a medium static or moving, on a Cartesian grid of
-uniform temperature, on the octree AMR grid or in a clump medium.  A line
+input spectrum in a medium static or moving, on a Cartesian grid, on the
+octree AMR grid or in a clump medium.  A line
 of type 2, 4, 5 or 6
 starts from xfreq0 shifted to a branch (branch_init_shift, engine.py:
 2919-2970; physics/line.py) by the two uniforms of block 3; the continuum
@@ -32,7 +32,11 @@ the node amr_find_cell gives the source position, found per lane (K2 does
 it on the card); its leaf's velocity gives u1 and, at non-uniform
 temperature, its damping the Voigt spectrum's a and its Doppler width
 D_loc the Gaussian's and the continuum's divisor D_loc / Dfreq_ref and
-Jin's lab frequency (x + u1) D_loc / Dfreq_ref.
+Jin's lab frequency (x + u1) D_loc / Dfreq_ref.  A Cartesian grid at
+non-uniform temperature (a temp_file) does the same with the birth cell's
+a and D (engine.py:2771-2775): the point source's fixed cell's, an
+extended source's per birth from the grid's per-cell arrays; D_loc also
+sets the branch shift's offsets.
 
 On a clump medium (engine.py:2750-2772) the birth cell is the clump
 clump_find gives the source position (-1 in the vacuum between clumps),
@@ -401,7 +405,7 @@ class RefillParams:
     sigma_x: float = 0.0     # the Gaussian's (or the continuum+gaussian
     #   line's) sigma in Doppler units
     xfreq_span: float = 0.0  # the continuum's xfreq_max - xfreq_min
-    Dfreq: float = 1.0       # Doppler width of the source cell (Hz)
+    Dfreq: float = 1.0       # the reference Doppler width (Hz)
     line: pline.LineConsts = None
     amr: Optional[AmrGrid] = None    # the octree, on an AMR grid
     vel: Optional[tuple] = None      # per-leaf velocities (AMR), or per
@@ -409,6 +413,12 @@ class RefillParams:
     clump: Optional[ClumpGrid] = None   # the clumps, on a clump medium
     source: Optional[Source] = None    # an extended source, or None for
     #   the point instance
+    D_src: float = 1.0       # the point source's cell's Doppler width (Hz)
+    grid_n: tuple = (1, 1, 1)   # (nx, ny, nz) of a Cartesian grid
+    # a Cartesian grid at non-uniform temperature: each cell's damping and
+    # Doppler width, flat; None at uniform temperature
+    cell_a: Optional[torch.Tensor] = None
+    cell_D: Optional[torch.Tensor] = None
 
     @property
     def kernel(self) -> str:
@@ -427,7 +437,8 @@ class RefillParams:
         f32 = np.float32
         pos = [f32(par.xs_point), f32(par.ys_point), f32(par.zs_point)]
         cells, v_src, amr, vel = [0, 0, 0], (0.0, 0.0, 0.0), None, None
-        clump = None
+        clump = cell_a = cell_D = None
+        a_src, D_src = float(meta.voigt_a_ref), float(meta.Dfreq_ref)
         source = Source.from_config(
             cfg, meta, grid, host_data,
             'cpu' if grid is None else grid.rhokap.device)
@@ -456,6 +467,14 @@ class RefillParams:
                 # each birth gathers its own cell's velocity
                 vel = tuple(v.reshape(-1).contiguous()
                             for v in (grid.vfx, grid.vfy, grid.vfz))
+            if grid is not None and grid.Dfreq is not None:
+                # non-uniform temperature: the source cell's a and D
+                # (engine.py:2771-2775), each birth's own for an extended
+                # source
+                cell_a = grid.voigt_a.reshape(-1).contiguous()
+                cell_D = grid.Dfreq.reshape(-1).contiguous()
+                a_src = float(grid.voigt_a[tuple(cells)])
+                D_src = float(grid.Dfreq[tuple(cells)])
         gsig = (par.gaussian_FWHM_vel / 2.3548200450309493
                 if par.gaussian_FWHM_vel > 0 else par.gaussian_sigma_vel)
         if par.spectral_type.strip().lower() == 'continuum+gaussian':
@@ -466,13 +485,15 @@ class RefillParams:
                    xfreq0=float(par.xfreq0),
                    spectrum=SPECTRA[par.spectral_type.strip().lower()],
                    sigma_x=gsig / cfg.vtherm,
-                   a=float(meta.voigt_a_ref), xfreq_min=meta.xfreq_min,
+                   a=a_src, xfreq_min=meta.xfreq_min,
                    dxfreq=meta.dxfreq, nxfreq=meta.nxfreq, v_src=v_src,
                    comoving_source=bool(par.comoving_source),
                    xfreq_span=pline.f32(meta.xfreq_max - meta.xfreq_min),
                    Dfreq=meta.Dfreq_ref,
                    line=pline.LineConsts.from_config(cfg), amr=amr, vel=vel,
-                   clump=clump, source=source)
+                   clump=clump, source=source, D_src=D_src,
+                   grid_n=(meta.nx, meta.ny, meta.nz), cell_a=cell_a,
+                   cell_D=cell_D)
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -511,6 +532,12 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
                 v_src = tuple(v[f] for v in p.vel)
     if p.clump is not None:
         cell = (p.clump.find(*src), 0, 0)
+    elif p.cell_D is not None:
+        # the birth cell's a and D at non-uniform temperature
+        # (engine.py:2771-2775)
+        f = (torch.as_tensor(cell[0], device=dev).long() * p.grid_n[1]
+             + cell[1]) * p.grid_n[2] + cell[2]
+        a_loc, D_loc = p.cell_a[f], p.cell_D[f]
     elif p.amr is not None:
         ic = p.amr.find_cell(*src)
         il = p.amr.leaf(ic)
@@ -533,8 +560,10 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
         xfreq = xfreq + pline.branch_init_shift_plain(p.line, w[0], w[1],
                                                       D_loc)
     if p.spectrum == SPECTRUM_VOIGT:
-        a = a_loc if isinstance(a_loc, torch.Tensor) else torch.full(
-            (B,), a_loc, dtype=torch.float32, device=dev)
+        a = torch.broadcast_to(a_loc, (B,)) if isinstance(
+            a_loc, torch.Tensor) else torch.full((B,), a_loc,
+                                                dtype=torch.float32,
+                                                device=dev)
         xfreq = xfreq + rand_voigt_x(a, u[2], u[3], v[0])
     elif p.spectrum == SPECTRUM_GAUSS:
         w = uniforms(seed, STREAM_REFILL, lanes, counter, 2)
@@ -614,19 +643,22 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
                         *(() if p.amr is None else p.amr.dev.tensors()),
                         *(() if p.clump is None else p.clump.dev.tensors()),
                         *(() if p.source is None else p.source.tensors()),
-                        *(p.vel or ()))
+                        *(p.vel or ()),
+                        *(() if p.cell_D is None else (p.cell_a, p.cell_D)))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
         int(budget), seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
         p.xs, p.ys, p.zs, p.ic, p.jc, p.kc, p.xfreq0, p.spectrum, p.sigma_x,
         p.a, *p.v_src, int(p.comoving_source), p.xfreq_min, p.dxfreq, p.nxfreq,
-        tallies.Jin.data_ptr(), p.xfreq_span, p.Dfreq,
+        tallies.Jin.data_ptr(), p.xfreq_span, p.Dfreq, p.D_src,
         ctypes.byref(p.line.c_struct),
         None if p.amr is None else ctypes.byref(p.amr.c_struct),
         None if p.clump is None else ctypes.byref(p.clump.c_struct),
         *(v.data_ptr() if v is not None else None
           for v in (p.vel or (None,) * 3)),
+        *((None, None) if p.cell_D is None
+          else (p.cell_a.data_ptr(), p.cell_D.data_ptr())),
         None if p.source is None else ctypes.byref(p.source.c_struct),
         kbuild.stream_of(state.x)),
         name)

@@ -41,14 +41,17 @@ E3, which the peel (kernel K7) reads right after.  A dust peel
 reads the lane's weight after the scatter, which under use_reduced_wgt is
 already the weight times the albedo that lart_tpu peels with (:2342-2347).
 
+At non-uniform temperature the damping a and Doppler width D of the
+lane's cell (engine.py:2107-2108; a Cartesian cell's, gathered from the
+grid's per-cell arrays, or an AMR leaf's) replace the reference ones in
+the local core-skip's a rk dl, the event split, the profile, the
+redistribution (every line type's offsets dnu / D), H2's x_h2 and ratio,
+the recoil, and the lab frequency (x + u) D / Dfreq_ref of Jabs and of a
+conversion's H-alpha photon.
+
 On the octree AMR grid a lane's cell is an octree node: rhokap, rhokapD
-and the velocities are its leaf's (none in a gap cell), the local
-core-skip's dl is the distance to the node's nearest face (:1880-1887),
-and at non-uniform temperature the leaf's damping a and Doppler width D
-replace the reference ones in the profile, the redistribution, the
-recoil, and the lab frequency (x + u) D / Dfreq_ref of Jabs and of a
-conversion's H-alpha photon (line type 1 only; check_supported refuses
-the other line types and H2 at non-uniform temperature).
+and the velocities are its leaf's (none in a gap cell), and the local
+core-skip's dl is the distance to the node's nearest face (:1880-1887).
 
 On a clump medium (engine.py:2087-2105, :2533-2540) a lane's cell is its
 clump: in overlap mode the scatter first draws the owner among the clumps
@@ -168,7 +171,7 @@ class ScatterC(ctypes.Structure):
                 ('W_abs2', _P), ('W_H2abs', _P), ('W_H2scat', _P),
                 ('W_H2pump', _P), ('albedo_Ha', _F),
                 ('one_m_albedo_Ha', _F), ('hgg_Ha', _F), ('amr', AmrC),
-                ('clump', ClumpC)]
+                ('clump', ClumpC), ('cell_a', _P), ('cell_D', _P)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -205,6 +208,10 @@ class ScatterParams:
     hgg_Ha: float = 0.0
     amr: Optional[AmrGrid] = None   # the octree: the arrays are per leaf
     clump: Optional[ClumpGrid] = None   # the clumps: the arrays per clump
+    # a Cartesian grid at non-uniform temperature: each cell's damping and
+    # Doppler width, flat; None at uniform temperature
+    cell_a: Optional[torch.Tensor] = None
+    cell_D: Optional[torch.Tensor] = None
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None, uniform_sphere=False,
@@ -229,6 +236,8 @@ class ScatterParams:
 
         def flat(t):
             return t.reshape(-1).contiguous()
+        cart_T = meta.grid_type == 'cartesian' and grid is not None \
+            and grid.Dfreq is not None
         vel = None
         if (dust or lt8) and not meta.static_medium:
             vel = (grid.vx, grid.vy, grid.vz) if clump is not None else \
@@ -256,7 +265,9 @@ class ScatterParams:
                    line=pline.LineConsts.from_config(cfg),
                    Dfreq=float(meta.Dfreq_ref), recoil=bool(par.recoil),
                    h2=h2, albedo_Ha=float(par.albedo_Ha),
-                   hgg_Ha=float(par.hgg_Ha), amr=amr, clump=clump)
+                   hgg_Ha=float(par.hgg_Ha), amr=amr, clump=clump,
+                   cell_a=flat(grid.voigt_a) if cart_T else None,
+                   cell_D=flat(grid.Dfreq) if cart_T else None)
 
     @property
     def dust_block(self) -> int:
@@ -308,10 +319,13 @@ class ScatterParams:
 
     def lane_a_D(self, s: BatchState):
         """(damping, Doppler width) of each lane's cell: the reference
-        floats, or per-lane tensors on an AMR grid at non-uniform
-        temperature; the clumps' own on a clump medium."""
+        floats, or per-lane tensors on a Cartesian or AMR grid at
+        non-uniform temperature; the clumps' own on a clump medium."""
         if self.clump is not None:
             return f32(self.clump.a_cl), f32(self.clump.D_cl)
+        if self.cell_D is not None:
+            f = self.flat(s)
+            return self.cell_a[f], self.cell_D[f]
         if self.amr is None:
             return self.a, self.Dfreq
         return self.amr.a_D(self.amr.leaf(s.ic), self.a, self.Dfreq)
@@ -327,7 +341,8 @@ class ScatterParams:
                 + self.gather(self.vel[2], f) * s.kz)
 
     def device_tensors(self):
-        out = tuple(t for t in (self.rhokap, self.rhokapD) if t is not None)
+        out = tuple(t for t in (self.rhokap, self.rhokapD, self.cell_a,
+                                self.cell_D) if t is not None)
         out += self.vel or ()
         out += () if self.amr is None else self.amr.dev.tensors()
         out += () if self.clump is None else self.clump.dev.tensors()
@@ -336,7 +351,7 @@ class ScatterParams:
     @functools.cached_property
     def _c_params(self) -> ScatterC:
         c = ScatterC()
-        for f in ('rhokap', 'rhokapD'):
+        for f in ('rhokap', 'rhokapD', 'cell_a', 'cell_D'):
             t = getattr(self, f)
             setattr(c, f, None if t is None else t.data_ptr())
         if self.vel is not None:

@@ -346,16 +346,22 @@ def test_check_supported_on_amr():
     """AMR runs through the port; what it does not port is named."""
     teng.check_supported(testing.amr_params().resolve())
     teng.check_supported(_jelly_par().resolve())
+    # the solar-CIE ion model is ported (grid/ion_data.py)
+    teng.check_supported(testing.amr_params(ion_model='solar_cie').resolve())
     for over, what in ((dict(amr_type='ramses'), 'ramses'),
-                       (dict(ion_model='solar_cie'), 'solar_cie'),
+                       # lart_tpu would read a 3-D cube as the leaves'
+                       (dict(source_geometry='diffuse_emissivity',
+                             emiss_file='emiss.fits'), '3-D FITS/HDF5'),
                        # lart_tpu hands build_sources no rhokap on AMR
                        (dict(source_geometry='diffuse_emissivity',
                              emiss_file='density1'), 'density1')):
         par = testing.amr_params(**over)
         with pytest.raises(NotImplementedError, match=what):
             teng.check_supported(par.resolve())
-    cfg, _, _, meta, dev = _build('jellyfish', line_id='MgII_2796')
-    with pytest.raises(NotImplementedError, match='non-uniform temperature'):
+    # the leaves' own temperature with a metal line or H2 is ported
+    for over in (dict(line_id='MgII_2796'), dict(h2_model='neufeld')):
+        cfg, _, _, meta, dev = _build('jellyfish', **over)
+        assert not meta.uniform_temperature
         teng.check_supported(cfg, meta)
 
 

@@ -17,6 +17,17 @@ from lart_tpu_torch import __main__ as cli
 
 ROOT = Path(__file__).resolve().parents[1]
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """The in-process runs in one torch thread: under Tier-1's six workers
+    torch's default pool oversubscribes the cores, and the peel-file case
+    took 829 s of a whole run against 16 s alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 NAMELIST = """&parameters
  par%nphotons = 2000
  par%temperature = 1e4

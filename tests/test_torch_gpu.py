@@ -56,6 +56,14 @@ INSIDE_KEYS = {'sightline', 'peel (interior)',
 SOURCE_KEYS = {'refill_volume', 'refill_radial', 'refill_alias'}
 
 
+# the per-cell temperature on Cartesian grids and the per-leaf one in the
+# kMulti and kH2 instances on the octree (chip_smoke.phase2_temperature)
+TEMP_KEYS = {k + ' (per-cell T)' for k in (
+    'refill_alias', 'refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+    'sightline')} | {k + ' (per-leaf T)' for k in (
+        'refill_point', 'fly_amr', 'scatter_lya', 'peel')}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
@@ -69,7 +77,7 @@ def test_kernels_match_plain_versions(cuda):
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
-        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS
+        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS
 
 
 # a source of each K2 instance on a 17^3 sphere: (overrides, instance)
@@ -149,6 +157,30 @@ def test_driver_runs_the_source_instances(cuda, case):
         assert abs(w - w_birth) < 1e-3, (w, w_birth)
     else:
         assert abs(w - 1.0) < 1e-3, w
+
+
+@pytest.mark.parametrize('line', ['lya', 'mg', 'h2'])
+def test_driver_runs_the_temperature_cube(cuda, tmp_path, line):
+    """driver.run on a 17^3 Hubble sphere whose temperature comes from a
+    1e3-1e5 K FITS cube: K5, K4 and K2 launch at each cell's a and D, and
+    the weight closes."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    over = {'lya': {}, 'mg': dict(line_id='MgII_2796', wavelength_min=2790.0,
+                                  wavelength_max=2810.0, save_Jmu=False),
+            'h2': dict(h2_model='neufeld', f_H2=0.03, xfreq_min=-12.0,
+                       xfreq_max=12.0, save_Jmu=False)}[line]
+    cube = testing.write_cube(tmp_path / 'T.fits',
+                              testing.temperature_cube(17, 3))
+    par = testing.hubble_params(tau0=10.0, n=17, nphotons=2000,
+                                batch_size=2048, temp_file=cube, **over)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=2)
+    assert not res.meta.uniform_temperature
+    for k in ('refill_point', 'fly_cartesian', 'scatter_lya'):
+        assert kb.LAUNCHES[k] > 0, kb.LAUNCHES
+    w = res.W_escape + res.W_absorb + res.W_oor + (res.W_H2abs or 0.0)
+    assert abs(w - 1.0) < 1e-3, w
 
 
 def test_driver_runs_the_kernels(cuda):

@@ -1,7 +1,9 @@
 """The port stands alone: every module of lart_tpu_torch, and
 chip_smoke.py, imports with lart_tpu and jax made unimportable, builds an
 AMR grid with its own octree builder and a clump population with its own
-copy of build_clumps."""
+copy of build_clumps, and builds a Cartesian grid from FITS temperature
+and density cubes with astropy unimportable too (io/reader.py reads them
+through the port's minifits)."""
 
 import os
 import subprocess
@@ -39,6 +41,17 @@ cfg = testing.clump_params(clump_dense_max=0).resolve()
 m, c, d = build_clumps(cfg, seed=1, device='cpu')
 assert c.n_clumps == 40 and d.table.shape == (c.cg_n ** 3, c.K)
 assert not make_chunk(cfg, m, d, c).flight.clump.dense
+# the 3-D grid files as FITS through the port's minifits, without astropy
+sys.modules['astropy'] = None
+import os, tempfile
+from lart_tpu_torch.grid.cartesian import build_cartesian
+d = tempfile.mkdtemp()
+T = testing.write_cube(os.path.join(d, 'T.fits'),
+                       testing.temperature_cube(9, 1))
+rho = testing.write_cube(os.path.join(d, 'rho.fits.gz'), testing.turb_cube(9))
+m, g = build_cartesian(testing.sphere_params(
+    n=9, temp_file=T, dens_file=rho).resolve())
+assert not m.uniform_temperature and g.Dfreq is not None
 print(len(names))
 """
 
@@ -49,4 +62,4 @@ def test_port_imports_without_lart_tpu_and_jax():
     proc = subprocess.run([sys.executable, '-c', CODE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 30
+    assert int(proc.stdout.split()[-1]) >= 32

@@ -332,6 +332,9 @@ def test_check_supported_names_the_refused_sources():
     for sg in ok:
         teng.check_supported(testing.sphere_params(
             source_geometry=sg, emiss_file='density1').resolve())
+    teng.check_supported(testing.sphere_params(
+        source_geometry='diffuse_emissivity', emiss_file='cube.fits'
+    ).resolve())
     for st in ('voigt0', 'continuum+gaussian'):
         teng.check_supported(testing.sphere_params(
             spectral_type=st).resolve())
@@ -340,8 +343,10 @@ def test_check_supported_names_the_refused_sources():
         (dict(source_geometry='point_illumination'), 'illumination'),
         (dict(source_geometry='stellar_illumination'), 'illumination'),
         (dict(spectral_type='line_prof_file'), 'line-profile file'),
-        (dict(source_geometry='diffuse_emissivity',
-              emiss_file='cube.fits'), '3-D FITS/HDF5 emiss_file'),
+        # a 3-D cube is read on a Cartesian grid (io/reader.py), but
+        # lart_tpu would read it as the leaves' emissivity on the octree
+        (dict(source_geometry='diffuse_emissivity', emiss_file='cube.fits',
+              use_amr_grid=True), '3-D FITS/HDF5 emiss_file'),
         (dict(source_geometry='diffuse_emissivity', emiss_file='density2',
               use_amr_grid=True), "'density1'/'density2' on an AMR grid"),
         (dict(source_geometry='diffuse_emissivity', emiss_file='density1',

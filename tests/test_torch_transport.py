@@ -406,7 +406,6 @@ OUT_OF_SLICE = {
                                source_geometry='stellar_illumination'),
     'out_merge': dict(out_merge=True),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
-    'non-uniform temperature': dict(temp_file='temp.fits'),
     'atmospheres': dict(geometry='plane_atmosphere'),
     'shearing box': dict(xy_periodic=True, Omega=1.0),
     # the illumination samplers and the line-profile file (ROADMAP queue 1
@@ -415,8 +414,15 @@ OUT_OF_SLICE = {
         source_geometry='plane_illumination'),
     'spectral_type other than voigt/monochromatic': dict(
         spectral_type='line_prof_file'),
-    '3-D density file': dict(dens_file='dens.fits'),
-    '3-D velocity file': dict(velo_file='velo.h5'),
+    # the 3-D grid files are read (io/reader.py); a 3-D emissivity cube on
+    # the octree or the clumps is not: lart_tpu would read it as leaves or
+    # clumps
+    '3-D density file': dict(use_amr_grid=True,
+                             source_geometry='diffuse_emissivity',
+                             emiss_file='emiss.fits'),
+    '3-D velocity file': dict(use_clump_medium=True,
+                              source_geometry='diffuse_emissivity',
+                              emiss_file='emiss.h5'),
 }
 
 
