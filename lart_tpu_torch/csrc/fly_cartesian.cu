@@ -3,8 +3,8 @@
 // boundaries and the comoving frequency update of a moving medium.
 //
 // Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
-// Cartesian DDA without atmospheres, the shearing box, CALCJ/Pnew or
-// all-photons records).  The TPU runs a
+// Cartesian DDA without the shearing box, CALCJ/Pnew or all-photons
+// records).  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch; here
 // one thread walks its own lane, at most max_steps crossings (the loop
 // condition n < max_steps, no "+ 2" as in the slab), so a forced first
@@ -31,7 +31,14 @@
 // completed forced first scattering at (x_b + u_b) D_b / D_ref of its birth
 // cell.  Escapes go to Jout/Jmu with f32 atomics at once (a lane escapes at
 // most once a call), weight outside the frequency grid through one block
-// sum.  Bound: the
+// sum.  In an exoplanet atmosphere (engine.py:1259-1272, :1302-1310,
+// :1322-1333, :1378-1382) a FLYING lane that leaves a plane atmosphere
+// through its bottom z face, or enters a masked core cell of a spherical
+// one (the mask, one byte a cell, read on each crossing), is destroyed
+// into Jabs2 at the lab frequency of the cell it leaves (W_oor off the
+// grid); a forced first scattering's birth ray that enters the core ends
+// with the optical depth FFS_TAU_CAP and restarts from birth, one that
+// leaves through the bottom completes as any escape.  Bound: the
 // gathers.  Each crossing reads rhokap (and rhokapD) and, in a moving
 // medium, three velocity components of the old and new cell, and at
 // non-uniform temperature a and D of the cell and D of the next, 4-byte words
@@ -84,14 +91,20 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
       const float tau_n = hit ? tgt : tau_run + dtau;
       bool escaped = false;
       if (!hit) escaped = cross_axis(p, axis, ncell[axis], npos[axis], ndir[axis]);
+      // an atmosphere's destruction: the bottom face of a plane one, a
+      // masked core cell of a spherical one
+      const bool bottom = p.atmosphere == 1 && escaped && axis == 2 && ncell[2] < 0;
+      const bool hitmask = p.mask && !hit && !escaped &&
+                           p.mask[flat_index(p, ncell[0], ncell[1], ncell[2])] != 0;
       // velocity of the cell being left, along the direction flown
       const float u_old = p.moving ? vel_dot(p, cell, dir) : 0.0f;
 
-      if (is_ffs && (escaped || hit)) {
+      if (is_ffs && (escaped || hit || hitmask)) {
         // forced first scattering done: the escaped fraction at the birth
         // lab frequency (birth cell, birth direction), then restart from
-        // birth with wgt *= 1 - exp(-tau0)
-        const float tau0 = tau_n;
+        // birth with wgt *= 1 - exp(-tau0); a birth ray ending in the core
+        // escapes nothing
+        const float tau0 = hitmask ? FFS_TAU_CAP : tau_n;
         const int bcell[3] = {s.bic[i], s.bjc[i], s.bkc[i]};
         const float bdir[3] = {s.bkx[i], s.bky[i], s.bkz[i]};
         const float bxfreq = s.bxfreq[i];
@@ -119,7 +132,18 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         tau_target = -log1pf(-fminf(tau_target, 0.99999f) * wgt1);
         continue;
       }
-      if (escaped && phase == FLYING) {
+      if (phase == FLYING && (bottom || hitmask)) {
+        // destroyed into Jabs2 at the lab frequency of the cell being left;
+        // a lane entering the core takes the cell's comoving frequency, as
+        // lart_tpu's state does
+        oor += tally_bin(p, p.Jabs2, (xfreq + u_old) * (D_c / p.Dfreq), wgt);
+        phase = DEAD;
+        if (hitmask && (p.moving || p.cell_D)) {
+          const float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
+          const float D2 = cell_D_of(p, flat_index(p, ncell[0], ncell[1], ncell[2]));
+          xfreq = (xfreq + u_old) * D_c / D2 - u2;
+        }
+      } else if (escaped && phase == FLYING) {
         // escape, binned at the lab frequency of the cell being left (the
         // H-alpha band's frequency is a lab one)
         if (b2) {

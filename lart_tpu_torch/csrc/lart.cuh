@@ -131,6 +131,10 @@ struct PeelRecord {
   float* E1;
   float* E2;
   float* E3;
+  // a stellar source's newborn (K2, with peel-off): its one limb-darkened
+  // surface sample, cos theta and vphi, read by K7's PEEL_STELLAR pairs
+  float* limb_cost;
+  float* limb_vphi;
 };
 
 // A null table (peel-off off) gives a record of null pointers.
@@ -157,6 +161,8 @@ inline PeelRecord unpack_record(void* const* p) {
   r.E1 = (float*)p[17];
   r.E2 = (float*)p[18];
   r.E3 = (float*)p[19];
+  r.limb_cost = (float*)p[20];
+  r.limb_vphi = (float*)p[21];
   return r;
 }
 
@@ -189,6 +195,9 @@ struct FlightParams {
   float* Jout_Ha;  // line type 8: the H-alpha band's escapes, and each
   float* W_esc1;   //   band's escaped weight; null otherwise
   float* W_esc2;
+  float* Jabs2;    // an exoplanet atmosphere's destroyed weight, else null
+  const unsigned char* mask;  // a spherical atmosphere's masked core cells
+                              //   (the layout of rhokap), else null
   int n[3];        // nx, ny, nz
   int bc[3];       // BC_ESCAPE, BC_PERIODIC, BC_REFLECT per axis
   int cell0[3];    // i0, j0, k0: reflect restarts in cell0 - 1
@@ -198,6 +207,8 @@ struct FlightParams {
   int save_jmu;
   int nmu;
   int mu_abs;      // xyz_symmetry bins |kz|
+  int atmosphere;  // 1 a plane atmosphere (its bottom face destroys), 2 a
+                   //   spherical one (its masked core destroys), else 0
   float amin[3];   // xmin, ymin, zmin
   float amax[3];   // amin + n d
   float neg_amin[3];
@@ -238,6 +249,15 @@ __device__ inline float tally_out(const FlightParams& p, float* J, float xfreq_l
     const float mu = p.mu_abs ? fabsf(kz) : kz;
     atomicAdd(&p.Jmu[(int)fx * p.nmu + clamp_floor((mu - p.mu_min) / p.dmu, p.nmu)], w);
   }
+  return 0.0f;
+}
+
+// Adds w to the spectrum J at lab frequency xfreq_lab when the bin is on
+// the frequency grid, else returns w (the caller's W_oor share).
+__device__ inline float tally_bin(const FlightParams& p, float* J, float xfreq_lab, float w) {
+  const float fx = floorf((xfreq_lab - p.xfreq_min) / p.dxfreq);
+  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return w;
+  atomicAdd(&J[(int)fx], w);
   return 0.0f;
 }
 

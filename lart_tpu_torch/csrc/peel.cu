@@ -69,6 +69,26 @@
 // cap - trav, and the chord is cut at the cap (:378-380).  The flat bin is
 // (o nxfreq + ixf) npix + ipix.  Clumps, Stokes and line type 8 with an
 // interior observer are vetoed (config.py:494-503).
+// In a spherical atmosphere (peel.py:326-333) a Cartesian sightline that
+// enters a masked core cell is opaque: tau becomes 2 x 745.2 and the walk
+// ends (the crossing is taken even where an interior observer's cap ends
+// the step, as lart_tpu takes it).
+// Mode PEEL_STELLAR (peel.py:700-836 peel_direct_stellar; the reference's
+// peeling_direct_stellar_illumination1, stellar_illumination.f90:953-1164)
+// peels a stellar source's newborns in place of PEEL_DIRECT: a pair builds
+// the point of the stellar disk facing its observer from the photon's one
+// limb-darkened surface sample (cos theta, vphi), which K2 drew into the
+// record so that every observer reads the same one and K7 draws nothing;
+// it takes the TAN pixel of the star-point to observer ray and, where the
+// ray crosses the atmosphere sphere (lart_tpu's corrected test r.k < 0 and
+// det >= 0, peel.py:780-789), walks it from the entry point (the entry
+// cell clip(floor) on a Cartesian grid, amr_find_cell on the AMR grid, 0
+// on clumps) at the newborn's lab frequency shifted into the entry cell's
+// comoving frame; it deposits 1 / d_so^2 exp(-min(tau, 700)) into Direct
+// (and I with Stokes), and the unattenuated 1 / d_so^2 into Direct0, at
+// the newborn's lab-frequency bin.  A pair outside the image or the
+// frequency grid walks nothing; most pairs of an observer that does not
+// look at the star through the planet fall outside the image.
 // Bound: a dependent gather walk, one rhokap (and, moving, two velocity)
 // reads and one Voigt evaluation per crossing, ~1e2 flops a crossing; the
 // grid (up to 201^3 x 4 fields, 130 MB) does not fit the 50 MB L2, so a long
@@ -85,8 +105,15 @@
 #include "walk.cuh"
 
 // modes; a scatter mode is a mask of the record's kinds of event (K4's
-// EVENT_RESONANCE = 1, EVENT_DUST = 2, EVENT_CONVERSION = 4)
-enum { PEEL_DIRECT = 0, PEEL_RESONANCE = 1, PEEL_DUST = 2, PEEL_CONVERSION = 4 };
+// EVENT_RESONANCE = 1, EVENT_DUST = 2, EVENT_CONVERSION = 4); PEEL_STELLAR
+// peels a stellar source's newborns
+enum {
+  PEEL_DIRECT = 0,
+  PEEL_RESONANCE = 1,
+  PEEL_DUST = 2,
+  PEEL_CONVERSION = 4,
+  PEEL_STELLAR = 8
+};
 enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
 
 #define LART_FOURPI 12.566370614359172f
@@ -107,6 +134,7 @@ struct PeelParams {
   float* U;
   float* V;
   float* Ha;       // line type 8: the H-alpha band's cube, else null
+  float* direc0;   // the unattenuated stellar disk (save_direc0), else null
   float* tau_out;  // optional (nobs * B): tau of each depositing pair
   int* bin_out;    // optional (nobs * B): its flat cube index
   float* w_out;    // optional (4 * nobs * B): its deposits, I (scatt, Ha
@@ -125,6 +153,9 @@ struct PeelParams {
   float hg_num_Ha, hg_1pg2_Ha, hg_2g_Ha;  // the H-alpha band's (type 8)
   int inside;      // interior all-sky observers: HEALPix maps, capped walks
   int nside;       // their HEALPix resolution (nxim = 12 nside^2, nyim = 1)
+  // PEEL_STELLAR: the star's distance (on the -z axis) and radius, the
+  // atmosphere sphere's radius and its square
+  float star_D, star_R, atm_R, atm_R2;
 };
 
 
@@ -241,13 +272,18 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
     const float dstep = capped_step(dmin, cap, trav, hit);
     tau = tau + dstep * rho;
     trav = trav + dstep;
-    if (hit) break;
+    if (hit && !g.mask) break;
 #pragma unroll
     for (int a = 0; a < 3; ++a) pos[a] = fmaf(dmin, k[a], pos[a]);
     const int old_cell[3] = {cell[0], cell[1], cell[2]};
     const float old_k[3] = {k[0], k[1], k[2]};
     const bool esc = cross_axis(g, axis, cell[axis], pos[axis], k[axis]);
-    if (esc) break;
+    // a sightline into the masked core is opaque (peel.py:326-333)
+    if (!esc && g.mask && g.mask[flat_index(g, cell[0], cell[1], cell[2])]) {
+      tau = 2.0f * PEEL_TAU_HUGE;
+      break;
+    }
+    if (esc || hit) break;
     if (g.moving || g.cell_D) {
       // the comoving update (peel.py:336-340), at each cell's D
       const float u1 = g.moving ? vel_dot(g, old_cell, old_k) : 0.0f;
@@ -260,6 +296,115 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
   return tau;
 }
 
+// PEEL_STELLAR's pair (observer o, lane i): cell and il the newborn's cell
+// and AMR leaf, D_c its Doppler width
+template <bool kMulti, bool kH2>
+__device__ void peel_stellar(const Lanes& s, const PeelRecord& rec, int i, int o, long long t,
+                             const FlightParams& g, const PeelParams& p, const int cell[3],
+                             int il, float D_c) {
+  const bool amr = g.amr.ncells != 0, clump = g.clump.n != 0;
+  // the newborn's lab frequency in reference Doppler units and its bin
+  float xr = s.xfreq[i];
+  if (g.moving) {
+    const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
+    xr = xr + (clump ? clump_vel_dot(g.clump, cell[0], k, CLUMP_U_SCALE)
+               : amr ? leaf_vel_dot(g, il, k) : vel_dot(g, cell, k));
+  }
+  xr = xr * (D_c / g.Dfreq);
+  const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
+  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
+  // the star -> observer axis, the star at (0, 0, -D)
+  const float* op = p.obs_pos + 3 * o;
+  const float* R = p.obs_rmat + 9 * o;
+  float k0x = op[0], k0y = op[1], k0z = op[2] + p.star_D;
+  const float d_so2 = k0x * k0x + k0y * k0y + k0z * k0z;
+  const float d_so = sqrtf(d_so2);
+  k0x = k0x / d_so;
+  k0y = k0y / d_so;
+  k0z = k0z / d_so;
+  const float cosvt0 = p.star_R / d_so;
+  // the point of the disk facing the observer, from the photon's sample
+  const float cost = rec.limb_cost[i], vphi = rec.limb_vphi[i];
+  const float cosvp = cosf(vphi), sinvp = sinf(vphi);
+  const float c0c = cosvt0 * cost;
+  const float cosvt =
+      cost * sqrtf(1.0f - cosvt0 * cosvt0 + c0c * c0c) + cosvt0 * (1.0f - cost * cost);
+  const float sinvt = sqrtf(fmaxf(1.0f - cosvt * cosvt, 0.0f));
+  const float kr0 = sqrtf(fmaxf(k0x * k0x + k0y * k0y, 0.0f));
+  float xx, yy, zz;
+  if (kr0 < 1e-11f) {
+    xx = sinvt * cosvp;
+    yy = sinvt * sinvp;
+    zz = (k0z > 0.0f ? 1.0f : (k0z < 0.0f ? -1.0f : 0.0f)) * cosvt;
+  } else {
+    const float kr0s = fmaxf(kr0, 1e-11f);
+    xx = cosvt * k0x + sinvt * (k0z * k0x * cosvp - k0y * sinvp) / kr0s;
+    yy = cosvt * k0y + sinvt * (k0z * k0y * cosvp + k0x * sinvp) / kr0s;
+    zz = cosvt * k0z - sinvt * cosvp * kr0;
+  }
+  xx = p.star_R * xx;
+  yy = p.star_R * yy;
+  zz = p.star_R * zz - p.star_D;
+  float pk[3] = {op[0] - xx, op[1] - yy, op[2] - zz};
+  const float rr = sqrtf(pk[0] * pk[0] + pk[1] * pk[1] + pk[2] * pk[2]);
+  pk[0] = pk[0] / rr;
+  pk[1] = pk[1] / rr;
+  pk[2] = pk[2] / rr;
+  // the TAN pixel of the star-point -> observer ray
+  const float okx = R[0] * pk[0] + R[1] * pk[1] + R[2] * pk[2];
+  const float oky = R[3] * pk[0] + R[4] * pk[1] + R[5] * pk[2];
+  const float okz = R[6] * pk[0] + R[7] * pk[1] + R[8] * pk[2];
+  const int ix = (int)floorf(atan2f(-okx, okz) * LART_RAD2DEG / p.dxim + 0.5f * (float)p.nxim);
+  const int iy = (int)floorf(atan2f(-oky, okz) * LART_RAD2DEG / p.dyim + 0.5f * (float)p.nyim);
+  if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return;
+  const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + ix * p.nyim + iy;
+  // the atmosphere sphere's crossing (lart_tpu's test r.k < 0, det >= 0)
+  const float r_dot_k = xx * pk[0] + yy * pk[1] + zz * pk[2];
+  const float rr2 = xx * xx + yy * yy + zz * zz;
+  const float det = r_dot_k * r_dot_k - (rr2 - p.atm_R2);
+  float tau = 0.0f, atten = 1.0f;
+  if (r_dot_k < 0.0f && det >= 0.0f) {
+    const float dist = -r_dot_k - sqrtf(fmaxf(det, 0.0f));
+    const float e[3] = {xx + pk[0] * dist, yy + pk[1] * dist, zz + pk[2] * dist};
+    int ec[3] = {0, 0, 0};
+    float xf = xr;
+    if (amr) {
+      ec[0] = amr_find_cell(g.amr, e[0], e[1], e[2]);
+    } else if (!clump) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        ec[a] = (int)fminf(fmaxf(floorf((e[a] - g.amin[a]) / g.d[a]), 0.0f),
+                           (float)(g.n[a] - 1));
+    }
+    if (!clump && (g.moving || g.cell_D || g.amr.Dfreq)) {
+      // the lab frequency into the entry cell's comoving frame
+      float D2, u2 = 0.0f;
+      if (amr) {
+        const int il2 = amr_leaf(g.amr, ec[0]);
+        float a2;
+        leaf_a_D(g, il2, a2, D2);
+        if (g.moving) u2 = leaf_vel_dot(g, il2, pk);
+      } else {
+        D2 = cell_D_of(g, flat_index(g, ec[0], ec[1], ec[2]));
+        if (g.moving) u2 = vel_dot(g, ec, pk);
+      }
+      xf = xr * g.Dfreq / D2 - u2;
+    }
+    tau = tau_to_edge<kMulti, kH2>(g, p, e, ec, pk, xf, false, -1.0f);
+    atten = expf(-fminf(tau, 700.0f));
+  }
+  const float w0 = 1.0f / d_so2;
+  const float w = w0 * atten;
+  atomicAdd(&p.direc[idx], w);
+  if (p.direc0) atomicAdd(&p.direc0[idx], w0);
+  if (p.stokes) atomicAdd(&p.I[idx], w);
+  if (p.tau_out) {
+    p.tau_out[t] = tau;
+    p.bin_out[t] = idx;
+    p.w_out[t] = w;
+  }
+}
+
 template <bool kMulti, bool kH2>
 __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightParams g,
                             PeelParams p) {
@@ -267,7 +412,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (t >= (long long)B * p.nobs) return;
   const int o = (int)(t / B), i = (int)(t % B);
   const int kind = rec.flag[i];
-  if (mode == PEEL_DIRECT ? kind == 0 : (kind & mode) == 0) return;
+  if (mode == PEEL_DIRECT || mode == PEEL_STELLAR ? kind == 0 : (kind & mode) == 0) return;
   const float pos[3] = {s.x[i], s.y[i], s.z[i]};
   const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
   // the event cell's leaf, damping and Doppler width on the AMR grid (the
@@ -278,6 +423,10 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (amr) leaf_a_D(g, il, a_c, D_c);
   if (clump) D_c = g.clump.D_cl;
   if (!amr && !clump && g.cell_D) cell_a_D(g, flat_index(g, cell[0], cell[1], cell[2]), a_c, D_c);
+  if (mode == PEEL_STELLAR) {
+    peel_stellar<kMulti, kH2>(s, rec, i, o, t, g, p, cell, il, D_c);
+    return;
+  }
 
   // obs_geometry: the unit direction to the observer and its pixel, TAN
   // (external) or the HEALPix pixel of the arrival direction -pk with the

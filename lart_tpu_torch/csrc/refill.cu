@@ -5,8 +5,9 @@
 // moving medium, and the birth shift of a multi-level line.
 //
 // Replaces lart_tpu/transport/engine.py:2557 make_refill / :2689 refill
-// (every source_geometry but the illuminations, every spectral_type but
-// line_prof_file) and :2923 branch_init_shift (line.cuh), which the TPU runs as a
+// (every source_geometry and spectral_type) with lart_tpu/physics/
+// sources.py:322-474 (the illumination samplers) and :2923
+// branch_init_shift (line.cuh), which the TPU runs as a
 // pass of its own over the batch and which here is a device function of the
 // births: a line of type 2, 4, 5 or 6 starts from xfreq0 shifted to a branch
 // by the two uniforms of block 3.  The continuum (engine.py:2804-2807)
@@ -86,6 +87,28 @@
 // (:2808) the line, xfreq0 + a Box-Muller normal sigma_x, with probability
 // f_line (the third uniform of block 2), else the flat continuum (the
 // fourth), divided by D_loc / Dfreq_ref.
+// SRC_ILLUM, the illuminations (engine.py:2707-2719, lart_tpu/physics/
+// sources.py:354-474): a stellar or point illumination draws its birth by
+// masked rejection rounds, round r from the four uniforms of block 6 + r, at
+// most 8 rounds and the fallback after them (the sub-planet point aiming
+// at the centre, straight down the axis); the lane's direction is the
+// sampler's, not the isotropic draw, and its weight the limb weight.  Each
+// launched lane's flux factor and its rejected rounds are summed by a warp
+// shuffle into one atomicAdd a warp (engine.py:2900-2908): the TPU's two
+// sums over the batch.  plane_illumination (engine.py:2645-2660) births at
+// the top face of a plane atmosphere beaming -z, else on the disk of
+// radius rmax at zmin beaming +z.  With peel-off on, a stellar source's
+// lane also draws its one limb-darkened surface sample (cos theta by
+// sample_limb_cost's rounds, two a block from block 14, and vphi from block
+// 18) into the record, so that K7's PEEL_STELLAR pairs of every observer
+// read the same one (lart_tpu/instruments/peel.py:732-737) and K7 draws
+// nothing.  The line_prof_file spectrum (engine.py:2826-2834), in every
+// instance: the alias bin of the profile from the 32 bits of word 0 of
+// block 2 (its alias by word 1), uniform within the bin by word 2, divided
+// by D_loc / Dfreq_ref; it replaces the frequency, a branch shift too.  A
+// plane atmosphere's 1-D emissivity profile (engine.py:2661-2667,
+// GEOM_PROFILE_PLANE in the alias instance) puts the drawn height at a
+// uniform point of the box's x-y extent.
 // Bound: one pass over the state (about 130 bytes a launched lane written,
 // 4 a lane read), memory-bound; the ticket atomics are one per warp; a
 // radial table adds ~11 dependent table reads a lane (L1/L2-resident), an
@@ -100,9 +123,10 @@ enum {
   SPECTRUM_GAUSS = 2,
   SPECTRUM_CONT = 3,
   SPECTRUM_VOIGT0 = 4,
-  SPECTRUM_CONT_GAUSS = 5
+  SPECTRUM_CONT_GAUSS = 5,
+  SPECTRUM_LINE_PROF = 6
 };
-enum { SRC_POINT = 0, SRC_RADIAL = 1, SRC_VOLUME = 2, SRC_ALIAS = 3 };
+enum { SRC_POINT = 0, SRC_RADIAL = 1, SRC_VOLUME = 2, SRC_ALIAS = 3, SRC_ILLUM = 4 };
 enum {
   GEOM_POINT = 0,
   GEOM_EXP_CYLINDER,
@@ -117,12 +141,26 @@ enum {
   GEOM_STARS,
   GEOM_CELLS,
   GEOM_LEAVES,
-  GEOM_PROFILE
+  GEOM_PROFILE,
+  GEOM_PROFILE_PLANE,
+  GEOM_STELLAR,
+  GEOM_POINT_ILLUM,
+  GEOM_PLANE_ILLUM
 };
 #define SOURCE_P_FLOOR 9.999999960041972e-13f  // f32(1e-12)
 #define SOURCE_TINY_DP 1.0000000031710769e-30f  // f32(1e-30)
+#define BLOCK_SPECTRUM 2u
 #define BLOCK_SOURCE 4u
 #define BLOCK_SOURCE2 5u
+#define BLOCK_ILLUM 6u   // round r of an illumination sampler: block 6 + r
+#define BLOCK_LIMB 14u   // the stellar peel's limb rounds, two a block, then vphi
+#define ILLUM_ROUNDS 8
+// the limb-darkening polynomial (lart_tpu/physics/sources.py:302), its
+// norm c0/2 + c1/3 + c2/4 rounded to f32
+#define LIMB_C0 0.55f
+#define LIMB_C1 0.12f
+#define LIMB_C2 0.33f
+#define LIMB_NORM 0.3975f
 
 // An extended source, or a point source of the voigt0 or continuum+gaussian
 // spectrum; lart_tpu_torch/transport/refill.py SourceC mirrors it field for
@@ -151,7 +189,186 @@ struct SourceC {
   const float* ph;
   float va0, dfreq0;   // voigt0: the source's damping and Doppler width
   float f_line;        // continuum+gaussian: the line's share
+  // the illuminations: the star (radius Rs at distance Dsp), the
+  // atmosphere's radius (the plane disk's) and its square, the cone
+  // bounds (1 - cosvt_max, cosvt_max, 1 - cost_max, cost_max), a birth's
+  // flux factor, the limb model and its rejection envelope; the point
+  // source's wall distance and cone (1 - costm, costm), the face it lights
+  // (the plane's too) and the box's x, y bounds, whether it is below;
+  // the plane disk's azimuth range (< 0: the plane atmosphere's top face)
+  float Rs, Dsp, atm_r, atm_r2;
+  float cosvt_c1, cosvt_max, cost_c1, cost_max;
+  float flux_fac1;
+  int limb;
+  float limb_pmax;
+  float dist_wall, costm_c1, costm, zface;
+  float ibox[4];
+  int below;
+  float dphi;
 };
+
+// the line_prof_file spectrum's table (lart_tpu_torch/physics/sources.py
+// LineProfTable; transport/refill.py ProfC): alias probabilities and
+// aliases of its n bins, and their n + 1 edges in xfreq units
+struct ProfC {
+  const float* prob;
+  const int* alias;
+  const float* edges;
+  int n;
+};
+
+// the limb weight of an illumination birth at cos_ang (sources.py:304-320)
+__device__ inline float limb_poly(float mu) {
+  return (LIMB_C0 + LIMB_C1 * mu + LIMB_C2 * mu * mu) * mu / LIMB_NORM / 2.0f;
+}
+
+__device__ inline float limb_wgt(int model, float ca) {
+  if (model <= 0) return 1.0f;
+  if (model == 1) return 2.0f * ca;
+  if (model == 2) return ca * (1.5f * ca + 1.0f);
+  return limb_poly(ca);
+}
+
+// sample_limb_cost (sources.py:322-351): round r's two uniforms are words
+// 2 (r % 2) and 2 (r % 2) + 1 of block BLOCK_LIMB + r / 2; models 0 and 1
+// read the first uniform alone
+__device__ inline float limb_cost(const SourceC& src, uint32_t seed, uint32_t i,
+                                  uint32_t counter) {
+  float w[4];
+  uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_LIMB, w);
+  if (src.limb <= 0) return w[0];
+  if (src.limb == 1) return sqrtf(w[0]);
+  for (int r = 0; r < ILLUM_ROUNDS; ++r) {
+    if (r > 0 && (r & 1) == 0)
+      uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_LIMB + (uint32_t)(r >> 1), w);
+    const float mu = w[2 * (r & 1)], xi1 = w[2 * (r & 1) + 1];
+    const float pdf = src.limb == 2 ? mu * (1.5f * mu + 1.0f) : limb_poly(mu);
+    if (xi1 * src.limb_pmax < pdf) return mu;
+  }
+  return 1.0f;
+}
+
+// an illumination's birth of lane i: position, direction, weight; ff and
+// nrej get its flux factor and rejected rounds (stellar and point)
+__device__ inline float illuminate(const SourceC& src, uint32_t seed, uint32_t i,
+                                   uint32_t counter, float& xs, float& ys, float& zs,
+                                   float& kx, float& ky, float& kz, float& ff,
+                                   float& nrej) {
+  float wgt = 1.0f;
+  if (src.geom == GEOM_PLANE_ILLUM) {
+    if (src.dphi < 0.0f) {
+      xs = 0.0f;
+      ys = 0.0f;
+      kz = -1.0f;
+    } else {
+      float w[4];
+      uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_SOURCE, w);
+      const float rp = sqrtf(w[0]) * src.atm_r;
+      const float phi = src.dphi * w[1];
+      xs = rp * cosf(phi);
+      ys = rp * sinf(phi);
+      kz = 1.0f;
+    }
+    zs = src.zface;
+    kx = 0.0f;
+    ky = 0.0f;
+  } else if (src.geom == GEOM_STELLAR) {
+    bool acc = false;
+    float ca = 1.0f;
+    for (int r = 0; r < ILLUM_ROUNDS && !acc; ++r) {
+      float u[4];
+      uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_ILLUM + (uint32_t)r, u);
+      const float cosvt = src.cosvt_c1 * u[0] + src.cosvt_max;
+      const float sinvt = sqrtf(fmaxf(1.0f - cosvt * cosvt, 0.0f));
+      const float vphi = LART_TWOPI * u[1];
+      const float x0 = sinvt * cosf(vphi), y0 = sinvt * sinf(vphi), z0 = cosvt;
+      const float x = src.Rs * x0, y = src.Rs * y0, z = src.Rs * z0 - src.Dsp;
+      const float rr = sqrtf(x * x + y * y + z * z);
+      const float kx0 = -x / rr, ky0 = -y / rr, kz0 = -z / rr;
+      const float cost = src.cost_c1 * u[2] + src.cost_max;
+      const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+      const float phi = LART_TWOPI * u[3];
+      const float cosp = cosf(phi), sinp = sinf(phi);
+      const float kr = sqrtf(fmaxf(kx0 * kx0 + ky0 * ky0, 1e-24f));
+      const float dx = cost * kx0 + sint * (kz0 * kx0 * cosp - ky0 * sinp) / kr;
+      const float dy = cost * ky0 + sint * (kz0 * ky0 * cosp + kx0 * sinp) / kr;
+      const float dz = cost * kz0 - sint * cosp * kr;
+      const float r_dot_k = x * dx + y * dy + z * dz;
+      const float det = r_dot_k * r_dot_k - (rr * rr - src.atm_r2);
+      const float cos_ang = x0 * dx + y0 * dy + z0 * dz;
+      if (cos_ang >= 0.0f && det >= 0.0f) {
+        const float dist = -r_dot_k - sqrtf(fmaxf(det, 0.0f));
+        xs = x + dx * dist;
+        ys = y + dy * dist;
+        zs = z + dz * dist;
+        kx = dx;
+        ky = dy;
+        kz = dz;
+        ca = cos_ang;
+        acc = true;
+      } else {
+        nrej = nrej + 1.0f;
+      }
+    }
+    if (!acc) {
+      // stragglers: aim at the planet centre from the sub-planet point
+      xs = 0.0f;
+      ys = 0.0f;
+      zs = -src.atm_r;
+      kx = 0.0f;
+      ky = 0.0f;
+      kz = 1.0f;
+    }
+    wgt = limb_wgt(src.limb, ca);
+    ff = src.flux_fac1 * wgt;
+  } else {
+    bool acc = false;
+    float cz = 1.0f;
+    for (int r = 0; r < ILLUM_ROUNDS && !acc; ++r) {
+      float u[4];
+      uniforms4(seed, STREAM_REFILL, i, counter, BLOCK_ILLUM + (uint32_t)r, u);
+      const float cost = u[0] * src.costm_c1 + src.costm;
+      const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+      const float phi = LART_TWOPI * u[1];
+      const float dx = sint * cosf(phi), dy = sint * sinf(phi);
+      const float dist = src.dist_wall / cost;
+      const float x = dist * dx, y = dist * dy;
+      if (x >= src.ibox[0] && x <= src.ibox[1] && y >= src.ibox[2] && y <= src.ibox[3]) {
+        xs = x;
+        ys = y;
+        kx = dx;
+        ky = dy;
+        cz = cost;
+        acc = true;
+      } else {
+        nrej = nrej + 1.0f;
+      }
+    }
+    if (!acc) {
+      // stragglers: straight down the axis
+      xs = 0.0f;
+      ys = 0.0f;
+      kx = 0.0f;
+      ky = 0.0f;
+    }
+    zs = src.zface;
+    kz = src.below ? cz : -cz;
+    ff = src.flux_fac1 * wgt;
+  }
+  if (src.abs_xyz) {
+    xs = fabsf(xs);
+    ys = fabsf(ys);
+    zs = fabsf(zs);
+  }
+  return wgt;
+}
+
+// the sum of v over the warp, added to *dst by its lane 0 (every lane of
+// the warp must call it)
+__device__ inline void warp_sum_atomic(float v, float* dst) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0 && v != 0.0f) atomicAdd(dst, v);
+}
 
 // sample_radius_loglog: jnp.interp(log(max(u, 1e-12)), log_p, log_r), exp
 __device__ inline float radius_loglog(const SourceC& src, float u) {
@@ -238,7 +455,7 @@ __device__ inline float source_position(const SourceC& src, uint32_t seed, uint3
     philox4x32_10(c, seed, STREAM_REFILL);
     int idx = (int)(((uint64_t)c[0] * (uint64_t)src.nbin) >> 32);
     if (u01_from_bits(c[1]) >= __ldg(&src.prob[idx])) idx = __ldg(&src.alias[idx]);
-    if (g == GEOM_PROFILE) {
+    if (g == GEOM_PROFILE || g == GEOM_PROFILE_PLANE) {
       // sample_alias_linear: the linear density's inverse CDF in the bin
       const float xi = u01_from_bits(c[2]);
       const float x0 = __ldg(&src.px[idx]), x1 = __ldg(&src.px[idx + 1]);
@@ -252,7 +469,14 @@ __device__ inline float source_position(const SourceC& src, uint32_t seed, uint3
         const float w0 = __ldg(&src.wgt[idx]), w1 = __ldg(&src.wgt[idx + 1]);
         wgt = (w1 - w0) / fmaxf(x1 - x0, SOURCE_TINY_DP) * (r - x0) + w0;
       }
-      iso_sphere(r, w[1], w[2], xs, ys, zs);
+      if (g == GEOM_PROFILE_PLANE) {
+        // the height of a plane atmosphere, at a uniform point of the box
+        xs = fmaf(w[0], src.span[0], src.amin[0]);
+        ys = fmaf(w[1], src.span[1], src.amin[1]);
+        zs = r;
+      } else {
+        iso_sphere(r, w[1], w[2], xs, ys, zs);
+      }
     } else {
       if (src.wgt) wgt = __ldg(&src.wgt[idx]);
       if (g == GEOM_STARS) {
@@ -292,7 +516,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     float xfreq_span, float Dfreq, float D_src, LineC line,
                                     AmrGrid amr, ClumpGrid clump, const float* vfx,
                                     const float* vfy, const float* vfz, const float* cell_a,
-                                    const float* cell_D, SourceC src) {
+                                    const float* cell_D, SourceC src, ProfC lp,
+                                    float* flux_factor, float* nrejected) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -307,6 +532,18 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   base = __shfl_sync(full, base, 0);
   const bool launch = dead && base + __popc(mask & ((1u << lane) - 1u)) < budget;
   if (rec.flag && i < B) rec.flag[i] = launch ? 1 : 0;
+  // an illumination's beamed direction, flux factor and rejected rounds
+  float kdx = 0.0f, kdy = 0.0f, kdz = 1.0f, ff = 0.0f, nrej = 0.0f;
+  float wgt = 1.0f;  // the birth weight: 1 but for a composite-biased table
+  if (kSrc == SRC_ILLUM) {
+    if (launch)
+      wgt = illuminate(src, seed, (uint32_t)i, counter, xs, ys, zs, kdx, kdy, kdz, ff, nrej);
+    // every lane of the warp is here: one shuffle sum and one atomic a warp
+    if (flux_factor) {
+      warp_sum_atomic(ff, flux_factor);
+      warp_sum_atomic(nrej, nrejected);
+    }
+  }
   if (!launch) return;
 
   // the source cell: on the AMR grid the deepest node holding the source
@@ -314,11 +551,11 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   // width and velocity (the reference values and none in a gap); the point
   // source's Cartesian cell's a and D_src (engine.py:2771-2775)
   float a_loc = a, D_loc = D_src;
-  float wgt = 1.0f;  // the birth weight: 1 but for a composite-biased table
   if (kSrc != SRC_POINT) {
-    // an extended source: the lane's own position and, on a Cartesian grid,
-    // its cell (and that cell's velocity)
-    wgt = source_position<kSrc>(src, seed, (uint32_t)i, counter, xs, ys, zs);
+    // an extended source: the lane's own position (an illumination's
+    // above) and, on a Cartesian grid, its cell (and that cell's velocity)
+    if (kSrc != SRC_ILLUM)
+      wgt = source_position<kSrc>(src, seed, (uint32_t)i, counter, xs, ys, zs);
     if (src.geom != GEOM_POINT && !clump.n && !amr.ncells) {
       const float pos[3] = {xs, ys, zs};
       int c[3];
@@ -366,12 +603,35 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 0u, u);
   uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, 1u, v);
 
-  // isotropic direction
-  const float cost = 2.0f * u[0] - 1.0f;
-  const float sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
-  const float phi = LART_TWOPI * u[1];
-  const float cosp = cosf(phi), sinp = sinf(phi);
-  const float kx = sint * cosp, ky = sint * sinp, kz = cost;
+  float cost, sint, cosp, sinp, kx, ky, kz;
+  if (kSrc == SRC_ILLUM) {
+    // beamed: the sampler's direction and its triad (engine.py:2740-2749)
+    kx = kdx;
+    ky = kdy;
+    kz = kdz;
+    cost = kz;
+    sint = sqrtf(fmaxf(1.0f - kz * kz, 0.0f));
+    const float safe = fmaxf(sint, 1e-20f);
+    cosp = sint > 0.0f ? kx / safe : 1.0f;
+    sinp = sint > 0.0f ? ky / safe : 0.0f;
+    if (rec.limb_cost && src.geom == GEOM_STELLAR) {
+      // the stellar direct peel's one surface sample of this photon
+      float w[4];
+      uniforms4(seed, STREAM_REFILL, (uint32_t)i, counter, BLOCK_LIMB + ILLUM_ROUNDS / 2, w);
+      rec.limb_cost[i] = limb_cost(src, seed, (uint32_t)i, counter);
+      rec.limb_vphi[i] = LART_TWOPI * w[0];
+    }
+  } else {
+    // isotropic direction
+    cost = 2.0f * u[0] - 1.0f;
+    sint = sqrtf(fmaxf(1.0f - cost * cost, 0.0f));
+    const float phi = LART_TWOPI * u[1];
+    cosp = cosf(phi);
+    sinp = sinf(phi);
+    kx = sint * cosp;
+    ky = sint * sinp;
+    kz = cost;
+  }
 
   float xfreq = xfreq0;
   if (line.branch_init) {
@@ -397,6 +657,14 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
     xfreq = (w[2] < src.f_line ? xfreq + box_muller(w[0], w[1]) * sigma_x
                                : xfreq_min + w[3] * xfreq_span) /
             ratio;
+  } else if (spectrum == SPECTRUM_LINE_PROF) {
+    // the profile's alias bin from 32 bits, uniform within it
+    uint32_t c[4] = {(uint32_t)i, counter, BLOCK_SPECTRUM, 0u};
+    philox4x32_10(c, seed, STREAM_REFILL);
+    int idx = (int)(((uint64_t)c[0] * (uint64_t)lp.n) >> 32);
+    if (u01_from_bits(c[1]) >= __ldg(&lp.prob[idx])) idx = __ldg(&lp.alias[idx]);
+    const float lo = __ldg(&lp.edges[idx]), hi = __ldg(&lp.edges[idx + 1]);
+    xfreq = (lo + u01_from_bits(c[2]) * (hi - lo)) / ratio;
   }
 
   // lab-frame source -> comoving frequency; Jin at the lab frequency
@@ -465,12 +733,15 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                const LineC* line, const AmrGrid* amr,
                                const ClumpGrid* clump, const float* vfx, const float* vfy,
                                const float* vfz, const float* cell_a, const float* cell_D,
-                               const SourceC* source, void* stream) {
+                               const SourceC* source, const ProfC* prof,
+                               void* flux_factor, void* nrejected, void* stream) {
   if (B > 0) {
     const int threads = 256;
     const int blocks = (B + threads - 1) / threads;
     const SourceC src = source ? *source : SourceC{};
+    const ProfC lp = prof ? *prof : ProfC{};
     const int family = !source                     ? SRC_POINT
+                       : src.geom >= GEOM_STELLAR  ? SRC_ILLUM
                        : src.geom >= GEOM_STARS    ? SRC_ALIAS
                        : src.geom == GEOM_EXP_CYLINDER || src.geom == GEOM_RADIAL_SPHERE
                            ? SRC_RADIAL
@@ -481,11 +752,12 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
       xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz, comoving_source,  \
       xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, D_src, *line,              \
       amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz, cell_a, cell_D,   \
-      src)
+      src, lp, (float*)flux_factor, (float*)nrejected)
     switch (family) {
       case SRC_POINT: LART_REFILL(SRC_POINT); break;
       case SRC_RADIAL: LART_REFILL(SRC_RADIAL); break;
       case SRC_VOLUME: LART_REFILL(SRC_VOLUME); break;
+      case SRC_ILLUM: LART_REFILL(SRC_ILLUM); break;
       default: LART_REFILL(SRC_ALIAS); break;
     }
 #undef LART_REFILL

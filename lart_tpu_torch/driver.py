@@ -6,11 +6,13 @@ from a leaf list passed in memory, or the clump population with its CSR
 grid, from the seed (seed or iseed) + 77 as lart_tpu's, written to
 <out>_clumps.h5 with save_clump_info), then loop chunks of refill/fly/scatter
 cycles on one device, adding each chunk's f32 tallies into f64
-accumulators on the host, and normalize.  One host read per chunk: the
+accumulators on the host (an atmosphere's Jabs2, an illumination's flux
+factor and rejected draws among them), and normalize.  One host read per chunk: the
 tallies and the loop-control scalars travel back together.  The peel-off
 cubes (up to millions of bins) stay on the device: each chunk's f32 cubes
 are added into f64 accumulators there, as lart_tpu adds them on the host
-(driver.py:182-195, :324-335), and the host reads them once at the end.
+(driver.py:182-195, :324-335; a stellar source's Direct0 with
+save_direc0 too), and the host reads them once at the end.
 With save_sightline_tau and observers, the sight-line maps of every
 observer (instruments/sightline.py, kernel K11) are computed after the
 transport on the same device (driver.py:370-376) and ride in the result.
@@ -42,8 +44,8 @@ from .grid.clump import build_clumps, save_clumps
 from .instruments.sightline import make_maps
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
-from .transport.state import (DEAD, H2_SCALARS, LYB_SCALARS, BatchState,
-                              Tallies, init_state)
+from .transport.state import (DEAD, H2_SCALARS, ILLUM_SCALARS,
+                              LYB_SCALARS, BatchState, Tallies, init_state)
 from .utils.device import resolve_device
 
 SHRINK_LADDER = (4096, 512)
@@ -126,14 +128,17 @@ def _save_clump_info(cfg, grid, cmeta) -> None:
                 attrs={'F_VOL': cmeta.f_vol, 'F_COV': cmeta.f_cov})
 
 
-# the optional tallies (line type 8, H2) in the order chunk_to_host reads
+# the optional tallies (line type 8, H2, an atmosphere, an illumination)
+# in the order chunk_to_host reads
 EXTRA_TALLIES = ('Jout_Ha', 'Jabs_Ha') + LYB_SCALARS + H2_SCALARS \
-    + ('W_H2pump',)
+    + ('W_H2pump', 'Jabs2') + ILLUM_SCALARS
+ARRAY_TALLIES = ('Jout_Ha', 'Jabs_Ha', 'Jabs2')
 
 
 def chunk_to_host(tallies: Tallies, alive, launched) -> dict:
     """One device->host copy of a chunk's tallies and control scalars
-    (the optional ones of line type 8 and H2 where the chunk has them)."""
+    (the optional ones of line type 8, H2, an atmosphere and an
+    illumination where the chunk has them)."""
     extra = [(k, getattr(tallies, k)) for k in EXTRA_TALLIES
              if getattr(tallies, k) is not None]
     parts = [tallies.Jin, tallies.Jout, tallies.Jabs, tallies.Jmu,
@@ -187,12 +192,16 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
            'nscatt_dust': 0.0, 'nscatt_events': 0.0, 'W_oor': 0.0}
     if par.save_Jmu:
         acc['Jmu'] = np.zeros(meta.nxfreq * par.nmu)
-    # line type 8's and H2's tallies (driver.py:171-174, :295-298, :313-317)
+    # line type 8's, H2's, an atmosphere's and an illumination's tallies
+    # (driver.py:163-174, :295-317)
     extra = ((('Jout_Ha', 'Jabs_Ha') + LYB_SCALARS if p.chunk.lyb else ())
-             + (H2_SCALARS + ('W_H2pump',) if p.chunk.h2 else ()))
+             + (H2_SCALARS + ('W_H2pump',) if p.chunk.h2 else ())
+             + (('Jabs2',) if p.chunk.atmosphere else ())
+             + (ILLUM_SCALARS if p.chunk.refill_params.illumination
+                else ()))
     for k in extra:
         acc[k] = np.zeros(2 if k == 'W_H2pump' else meta.nxfreq) \
-            if k in ('Jout_Ha', 'Jabs_Ha', 'W_H2pump') else 0.0
+            if k in ARRAY_TALLIES + ('W_H2pump',) else 0.0
     peel = p.chunk.peel
     peel_acc = {} if peel is None else {
         'peel_' + k: torch.zeros_like(v, dtype=torch.float64)

@@ -80,8 +80,27 @@ at the distance r to the observer (the raytrace_to_dist contract): the DDA
 and AMR walks end with a partial step at the cap, the chord is cut there.
 The flat bin is (o nxfreq + ixf) npix + ipix, as the TAN one with nxim =
 npix, nyim = 1.  Clumps, Stokes and line type 8 with an interior observer
-are vetoed (config.py:494-503).  The stellar direct peel is not ported
-(engine.check_supported names it).
+are vetoed (config.py:494-503).
+
+In a spherical atmosphere (peel.py:326-333) the Cartesian sightline that
+enters a masked core cell is opaque: its optical depth becomes 2 x 745.2
+and the walk ends (the crossing is taken even where an interior
+observer's cap ends the step, as lart_tpu takes it).
+
+A stellar_illumination source peels its newborn photons in mode STELLAR
+(peel_direct_stellar, peel.py:700-836; the reference's
+peeling_direct_stellar_illumination1, stellar_illumination.f90:953-1164)
+in place of DIRECT: each (observer, lane) pair builds the point of the
+stellar disk facing the observer from the lane's one limb-darkened
+surface sample (cos theta, vphi) that K2 wrote into the record, takes the
+TAN pixel of the star-point to observer ray, and, where that ray crosses
+the atmosphere sphere (lart_tpu's corrected test r.k < 0 and det >= 0),
+walks it from its entry point (the entry cell clip(floor) on a Cartesian
+grid, amr_find_cell on the AMR grid, 0 on clumps) at the newborn's lab
+frequency shifted into the entry cell's comoving frame; it deposits 1 /
+d_so^2 exp(-min(tau, 700)) into Direct (and I with Stokes), and the
+unattenuated 1 / d_so^2 into Direct0 with save_direc0, at the lab
+frequency bin of the newborn.
 """
 
 from __future__ import annotations
@@ -114,16 +133,17 @@ TWOPI = 2.0 * math.pi
 FOURPI = 4.0 * math.pi
 TAU_HUGE = 745.2
 # modes; a scatter mode peels the lanes whose record flag, K4's kind of
-# event, it has a bit of
+# event, it has a bit of; STELLAR peels a stellar source's newborns
 DIRECT, RESONANCE, DUST, CONVERSION = (0, EVENT_RESONANCE, EVENT_DUST,
                                        EVENT_CONVERSION)
 SCATTERED = RESONANCE | DUST | CONVERSION
+STELLAR = 8
 
 # order of the record's pointer table (csrc/lart.cuh unpack_record)
 PEEL_RECORD_FIELDS = ('flag', 'kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx',
                       'nny', 'nnz', 'Q', 'U', 'V', 'xatom', 'ux', 'uy',
-                      'uz', 'E1', 'E2', 'E3')
-CUBE_FIELDS = ('scatt', 'direc', 'I', 'Q', 'U', 'V', 'Ha')
+                      'uz', 'E1', 'E2', 'E3', 'limb_cost', 'limb_vphi')
+CUBE_FIELDS = ('scatt', 'direc', 'I', 'Q', 'U', 'V', 'Ha', 'direc0')
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -151,6 +171,10 @@ class PeelRecord:
     E1: torch.Tensor    # a resonance's phase weights, line types 2, 4-6
     E2: torch.Tensor
     E3: torch.Tensor
+    # a stellar source's newborn: its limb-darkened surface sample (cos
+    # theta, vphi), which K2 draws and every observer's pair reads
+    limb_cost: torch.Tensor
+    limb_vphi: torch.Tensor
 
     @classmethod
     def zeros(cls, batch: int, device) -> 'PeelRecord':
@@ -177,6 +201,7 @@ class PeelCubes:
     U: Optional[torch.Tensor] = None
     V: Optional[torch.Tensor] = None
     Ha: Optional[torch.Tensor] = None
+    direc0: Optional[torch.Tensor] = None   # the unattenuated stellar disk
 
     def items(self):
         """(name, tensor) of the cubes present."""
@@ -188,7 +213,8 @@ class PeelParams(ctypes.Structure):
     """csrc/peel.cu struct PeelParams, field for field."""
     _fields_ = [('obs_pos', _P), ('obs_rmat', _P),
                 ('scatt', _P), ('direc', _P), ('I', _P), ('Q', _P),
-                ('U', _P), ('V', _P), ('Ha', _P), ('tau_out', _P),
+                ('U', _P), ('V', _P), ('Ha', _P), ('direc0', _P),
+                ('tau_out', _P),
                 ('bin_out', _P), ('w_out', _P),
                 ('nobs', _I), ('nxim', _I), ('nyim', _I), ('nxfreq', _I),
                 ('max_steps', _I), ('chord', _I), ('stokes', _I),
@@ -198,7 +224,8 @@ class PeelParams(ctypes.Structure):
                 ('mueller', pmueller.MuellerC), ('recoil', _I),
                 ('chord_prof', pline.LineProfC), ('hg_num_Ha', _F),
                 ('hg_1pg2_Ha', _F), ('hg_2g_Ha', _F), ('inside', _I),
-                ('nside', _I)]
+                ('nside', _I), ('star_D', _F), ('star_R', _F),
+                ('atm_R', _F), ('atm_R2', _F)]
 
 
 def hg_consts(g: float, f32_ops: bool):
@@ -232,6 +259,11 @@ class Peel:
     recoil: bool = False
     chord_prof: Optional[pline.LineProf] = None   # the chord's profile
     hgg_Ha: float = 0.0          # line type 8: the H-alpha band's g
+    # a stellar_illumination source: (distance to the star, its radius,
+    # the atmosphere's radius) of the stellar direct peel, and whether it
+    # fills Direct0 (save_direc0)
+    stellar: Optional[tuple] = None
+    direc0: bool = False
 
     @classmethod
     def from_config(cls, cfg, meta, grid, uniform_sphere: bool, cmeta=None
@@ -253,6 +285,12 @@ class Peel:
         else:
             fc = FlightConsts.from_config(cfg, meta, grid)
         dust = dust_mode(cfg, meta)
+        par = cfg.par
+        stellar = None
+        if par.source_geometry.strip().lower() == 'stellar_illumination':
+            stellar = (par.distance_star_to_planet, par.stellar_radius,
+                       par.rmax if par.rmax > 0
+                       else min(meta.xmax, meta.ymax, meta.zmax))
         return cls(grid=fc, obs_meta=obs_meta,
                    pos=odev.pos.contiguous(),
                    rmat=odev.rmat.reshape(-1, 3, 3).contiguous(),
@@ -266,12 +304,19 @@ class Peel:
                    recoil=bool(cfg.par.recoil),
                    chord_prof=pline.line_prof_f64(
                        cfg.line, meta.voigt_a_ref, meta.Dfreq_ref),
-                   hgg_Ha=float(cfg.par.hgg_Ha))
+                   hgg_Ha=float(cfg.par.hgg_Ha), stellar=stellar,
+                   direc0=stellar is not None and bool(par.save_direc0))
 
     @property
     def lyb(self) -> bool:
         """Line type 8: conversions and the H-alpha band peel too."""
         return self.grid.line.line_type == 8
+
+    @property
+    def direct_mode(self) -> int:
+        """The mode that peels K2's newborns: STELLAR for a stellar
+        source, else DIRECT."""
+        return DIRECT if self.stellar is None else STELLAR
 
     @property
     def scatter_mode(self) -> int:
@@ -305,7 +350,8 @@ class Peel:
         return PeelCubes(scatt=z(), direc=z(), I=z() if st else None,
                          Q=z() if st else None, U=z() if st else None,
                          V=z() if st else None,
-                         Ha=z() if self.lyb else None)
+                         Ha=z() if self.lyb else None,
+                         direc0=z() if self.direc0 else None)
 
     @functools.cached_property
     def _c_params(self) -> PeelParams:
@@ -324,6 +370,9 @@ class Peel:
         c.recoil = int(self.recoil)
         c.chord_prof = self.chord_prof.c_struct
         c.inside, c.nside = int(o.inside), o.nside
+        if self.stellar is not None:
+            c.star_D, c.star_R, c.atm_R = self.stellar
+            c.atm_R2 = self.stellar[2] * self.stellar[2]
         return c
 
     def c_params(self, cubes: PeelCubes, pair_out=None) -> PeelParams:
@@ -357,6 +406,13 @@ def obs_geometry(p: Peel, o: int, x, y, z):
     if obs.inside:
         ipix = vec2pix_ring(obs.nside, -pkx, -pky, -pkz)
         return (pkx, pky, pkz), r2, ipix.long(), r2 > np.float32(1e-12)
+    return (pkx, pky, pkz), r2, *tan_pixel(p, o, pkx, pky, pkz)
+
+
+def tan_pixel(p: Peel, o: int, pkx, pky, pkz):
+    """(flat TAN pixel, whether it is in the image) of the unit directions
+    pk toward external observer o (peel.py:416-425)."""
+    obs = p.obs_meta
     R = p.rmat[o]
     kx = R[0, 0] * pkx + R[0, 1] * pky + R[0, 2] * pkz
     ky = R[1, 0] * pkx + R[1, 1] * pky + R[1, 2] * pkz
@@ -368,7 +424,7 @@ def obs_geometry(p: Peel, o: int, x, y, z):
     in_img = (ix >= 0) & (ix < obs.nxim) & (iy >= 0) & (iy < obs.nyim)
     img = (torch.clamp(ix, 0, obs.nxim - 1) * obs.nyim
            + torch.clamp(iy, 0, obs.nyim - 1))
-    return (pkx, pky, pkz), r2, img, in_img
+    return img, in_img
 
 
 def obs_cap(p: Peel, r2):
@@ -391,14 +447,21 @@ def cell_D(p: Peel, cell):
     return g.amr.a_D(g.amr.leaf(cell[0]), g.a_ref, g.Dfreq)[1]
 
 
+def lab_freq(p: Peel, cell, k, xf):
+    """The lab frequency in reference Doppler units of the comoving
+    frequency xf at the cells `cell` along k: (xf + u.k) D / D_ref."""
+    g = p.grid
+    xr = xf + g.vel_dot(cell, *k) if g.moving else xf
+    return xr * (g.clump.d_ratio if g.clump is not None
+                 else doppler_ratio(cell_D(p, cell), g.Dfreq))
+
+
 def freq_bin(p: Peel, cell, pk, xf, band2=None):
     """Lab-frequency bin of the comoving frequency xf at the event cell,
     seen along pk, at the cell's Doppler width (freq_bin, peel.py:430-441);
     where the mask band2 is set, xf is a lab frequency already."""
     g = p.grid
-    xr = xf + g.vel_dot(cell, *pk) if g.moving else xf
-    xr = xr * (g.clump.d_ratio if g.clump is not None
-               else doppler_ratio(cell_D(p, cell), g.Dfreq))
+    xr = lab_freq(p, cell, pk, xf)
     if band2 is not None:
         xr = torch.where(band2, xf, xr)
     ixf = torch.floor(div(xr - g.xfreq_min, g.dxfreq)).to(torch.int32)
@@ -469,6 +532,10 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None,
             npos[a] = torch.where(ca, p2, npos[a])
             ndir[a] = torch.where(ca, k2, k[a])
             esc = esc | (ca & e)
+        if g.mask is not None:
+            # a sightline into the masked core is opaque (peel.py:326-333)
+            acc = torch.where(~esc & g.masked(g.flat(*ncell)),
+                              torch.full_like(acc, 2.0 * TAU_HUGE), acc)
         if g.moving or not g.uniform_temperature:
             # the comoving update at each cell's D (peel.py:336-340)
             zero = torch.zeros_like(xf)
@@ -758,6 +825,10 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
     ('cells': those walked and, in a moving medium, the event cells of the
     pairs in an image) and the distinct cube bins deposited into
     ('bins')."""
+    if mode == STELLAR:
+        peel_stellar_plain(state, cubes, rec, p, tau_out, bin_out, w_out,
+                           stats)
+        return
     s = state
     g = p.grid
     B = s.batch
@@ -842,11 +913,131 @@ def peel_plain(state, cubes: PeelCubes, rec: PeelRecord, p: Peel,
         stats['csr'] = int(stats.pop('csr').sum()) if 'csr' in stats else 0
 
 
+def entry_cells(p: Peel, ex, ey, ez):
+    """The cells of the entry points (ex, ey, ez) of the stellar peel
+    (peel.py:790-802): clip(floor) per axis on a Cartesian grid,
+    amr_find_cell's node on the AMR grid (j, k 0), 0 on clumps."""
+    g = p.grid
+    if g.amr is not None:
+        ic = g.amr.find_cell(ex, ey, ez)
+        zero = torch.zeros_like(ic)
+        return ic, zero, zero.clone()
+    if g.clump is not None:
+        zero = torch.zeros_like(ex, dtype=torch.int32)
+        return zero, zero.clone(), zero.clone()
+    return tuple(torch.clamp(torch.floor(div(v - np.float32(a), d)), 0,
+                             n - 1).to(torch.int32)
+                 for v, a, d, n in zip((ex, ey, ez), g.amin, g.d, g.n))
+
+
+def peel_stellar_plain(s, cubes: PeelCubes, rec: PeelRecord, p: Peel,
+                       tau_out=None, bin_out=None, w_out=None,
+                       stats=None) -> None:
+    """Plain PyTorch stellar direct peel (mode STELLAR, peel.py:709-836) of
+    the lanes K2 launched: tau_out, bin_out, w_out and stats as in
+    peel_plain ('seen' counts the pairs in an image and the band,
+    'crossing' those of them whose ray crosses the atmosphere)."""
+    g = p.grid
+    B = s.batch
+    obs = p.obs_meta
+    Dsp, Rs, Rmax = p.stellar
+    cell = (s.ic, s.jc, s.kc)
+    flag = rec.flag != 0
+    # the newborn's lab frequency in reference Doppler units, its bin
+    xr = lab_freq(p, cell, (s.kx, s.ky, s.kz), s.xfreq)
+    ixf = torch.floor(div(xr - g.xfreq_min, g.dxfreq)).to(torch.int32)
+    okf = (ixf >= 0) & (ixf < g.nxfreq)
+    # the one surface sample of each photon, shared by the observers
+    cost = rec.limb_cost
+    cosvp, sinvp = torch.cos(rec.limb_vphi), torch.sin(rec.limb_vphi)
+    update = g.clump is None and (g.moving or not (
+        g.uniform_temperature if g.amr is None
+        else g.amr.uniform_temperature))
+    seen = crossing = 0
+    bins = []
+    for o in range(p.nobs):
+        ox, oy, oz = p.pos[o, 0], p.pos[o, 1], p.pos[o, 2]
+        # the star -> observer axis, the star at (0, 0, -D)
+        k0x, k0y, k0z = ox, oy, oz + Dsp
+        d_so2 = k0x * k0x + k0y * k0y + k0z * k0z
+        d_so = torch.sqrt(d_so2)
+        k0x, k0y, k0z = k0x / d_so, k0y / d_so, k0z / d_so
+        cosvt0 = torch.full_like(d_so, Rs) / d_so
+        c0c = cosvt0 * cost
+        cosvt = cost * torch.sqrt(1.0 - cosvt0 * cosvt0 + c0c * c0c) \
+            + cosvt0 * (1.0 - cost * cost)
+        sinvt = torch.sqrt(torch.clamp_min(1.0 - cosvt * cosvt, 0.0))
+        kr0 = torch.sqrt(torch.clamp_min(k0x * k0x + k0y * k0y, 0.0))
+        pol = kr0 < 1e-11
+        kr0s = torch.clamp_min(kr0, 1e-11)
+        xx = torch.where(pol, sinvt * cosvp,
+                         cosvt * k0x + sinvt * (k0z * k0x * cosvp
+                                                - k0y * sinvp) / kr0s)
+        yy = torch.where(pol, sinvt * sinvp,
+                         cosvt * k0y + sinvt * (k0z * k0y * cosvp
+                                                + k0x * sinvp) / kr0s)
+        zz = torch.where(pol, torch.sign(k0z) * cosvt,
+                         cosvt * k0z - sinvt * cosvp * kr0)
+        xx, yy, zz = Rs * xx, Rs * yy, Rs * zz - Dsp
+        pkx, pky, pkz = ox - xx, oy - yy, oz - zz
+        rr = torch.sqrt(pkx * pkx + pky * pky + pkz * pkz)
+        pk = (pkx / rr, pky / rr, pkz / rr)
+        img, in_img = tan_pixel(p, o, *pk)
+        # the atmosphere sphere's crossing (lart_tpu's corrected test)
+        r_dot_k = xx * pk[0] + yy * pk[1] + zz * pk[2]
+        rr2 = xx * xx + yy * yy + zz * zz
+        det = r_dot_k * r_dot_k - (rr2 - Rmax * Rmax)
+        crosses = (r_dot_k < 0.0) & (det >= 0.0)
+        dist = -r_dot_k - torch.sqrt(torch.clamp_min(det, 0.0))
+        entry = (xx + pk[0] * dist, yy + pk[1] * dist, zz + pk[2] * dist)
+        ecell = entry_cells(p, *entry)
+        xf_in = xr
+        if update:
+            # the lab frequency into the entry cell's comoving frame
+            u2 = g.vel_dot(ecell, *pk) if g.moving else 0.0
+            xf_in = div(xr * g.Dfreq, cell_D(p, ecell)) - u2
+        act = flag & in_img
+        ok = act & okf
+        walk = ok & crosses
+        tau = tau_to_edge(p, entry, ecell, pk, xf_in, walk, stats)
+        atten = torch.where(crosses, torch.exp(-torch.clamp_max(tau, 700.0)),
+                            torch.ones_like(tau))
+        w0 = torch.full_like(d_so2, 1.0) / d_so2
+        w = w0 * atten
+        idx = ((o * g.nxfreq + torch.clamp(ixf, 0, g.nxfreq - 1)).long()
+               * (obs.nxim * obs.nyim) + img)
+        _add(cubes.direc, idx, ok, w)
+        if cubes.direc0 is not None:
+            _add(cubes.direc0, idx, ok, w0.expand_as(w))
+        if p.stokes:
+            _add(cubes.I, idx, ok, w)
+        if tau_out is not None:
+            sl = slice(o * B, (o + 1) * B)
+            tau_out[sl] = torch.where(ok, tau, tau_out[sl])
+            bin_out[sl] = torch.where(ok, idx, bin_out[sl].long()).to(
+                bin_out.dtype)
+            w_out[sl] = torch.where(ok, w, w_out[sl])
+        seen += int(ok.sum())
+        crossing += int(walk.sum())
+        bins.append(idx[ok])
+    if stats is not None:
+        stats['seen'] = seen
+        stats['crossing'] = crossing
+        stats['pairs'] = crossing
+        stats['bins'] = int(torch.unique(torch.cat(bins)).numel())
+        stats['cells'] = int(stats.pop('visited').sum()) \
+            if 'visited' in stats else 0
+        stats['nodes'] = int(stats.pop('nodes').sum()) \
+            if 'nodes' in stats else 0
+        stats['csr'] = int(stats.pop('csr').sum()) if 'csr' in stats else 0
+
+
 def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
          tau_out=None, bin_out=None, w_out=None) -> None:
     """Peel the flagged lanes to every observer, in place: kernel K7 for a
     CUDA state, the plain version for a CPU state.  Mode DIRECT peels the
-    lanes whose flag is set; a scatter mode (RESONANCE, DUST, CONVERSION or
+    lanes whose flag is set, STELLAR those of a stellar source with their
+    record's surface sample; a scatter mode (RESONANCE, DUST, CONVERSION or
     a union of them, SCATTERED all three) the lanes whose flag, K4's kind
     of event, it has a bit of.
     tau_out (nobs*B f32), bin_out (nobs*B int32) and w_out (4*nobs*B f32),
@@ -861,9 +1052,10 @@ def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
     out = () if tau_out is None else (tau_out, bin_out, w_out)
     kbuild.require_cuda('peel', state.x, rec.flag, *p.device_tensors(),
                         *(t for _, t in cubes.items()), *out)
+    name = 'peel_stellar' if mode == STELLAR else 'peel'
     kbuild.check(kbuild.library().lart_peel(
         state.lane_pointers, rec.pointers, state.batch, mode,
         ctypes.byref(p.grid.c_grid_params),
         ctypes.byref(p.c_params(cubes, out)),
-        kbuild.stream_of(state.x)), 'peel')
-    kbuild.LAUNCHES['peel'] += 1
+        kbuild.stream_of(state.x)), name)
+    kbuild.LAUNCHES[name] += 1

@@ -1,12 +1,14 @@
 """Main output file with the LaRT section schema (HDF5 or FITS).
 
 Port of write_output / output_filename (lart_tpu/io/writer.py:40-64,
-:102-287): the Spectrum section with its keywords (H2 pumping's, and line
-type 8's band budgets, among them), the Jmu section, line type 8's
+:102-287): the Spectrum section with its keywords (H2 pumping's, line
+type 8's band budgets and an illumination's flux_factor and nrejected
+among them) and an atmosphere's Jabs2, the Jmu section, line type 8's
 Jout_Ha, Jabs_Ha and J2gam sections, and with peel-off one _peel3D file
 per observer (Scattered/Direct cubes with spectral + TAN WCS keywords,
 RadialI, Stokes I/Q/U/V cubes and their Stokes_radial profiles, the
-H-alpha band's peel_Ha cube; write_output_peeling_3D, :288-407) and, with
+H-alpha band's peel_Ha cube, a stellar source's Direct0 cube;
+write_output_peeling_3D, :288-407) and, with
 save_peeloff_2D, one _peel2D file of frequency-integrated images (:66-99).
 An interior observer's files hold all-sky HEALPix RING maps: _peel3D its
 Scattered and Direct (nxfreq, npix) maps, _peel2D their frequency
@@ -118,6 +120,10 @@ def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
     if 'Ha' in res.peel:
         # ly_beta band-2 H-alpha peel cube (write_output_rect.f90:1180-1185)
         cubes['peel_Ha'] = res.peel['Ha'][iobs]
+    if 'direc0' in res.peel:
+        # the unattenuated stellar direct cube (write_output_rect.f90:
+        # 1170-1173)
+        cubes['Direct0'] = res.peel['direc0'][iobs]
     if obs.inside:
         return _write_healpix_3D(filename, res, cubes)
     wcs = {
@@ -139,8 +145,8 @@ def write_output_peeling_3D(filename: str, res: RunResult, iobs: int) -> str:
     px, py, pz = (float(v) for v in obs.pos_host[iobs])
     wcs.update(OBSX=px, OBSY=py, OBSZ=pz)
     with open_write(filename, par.file_format) as f:
-        for name in ('Scattered', 'Direct') + (
-                ('peel_Ha',) if 'peel_Ha' in cubes else ()):
+        for name in ('Scattered', 'Direct') + tuple(
+                n for n in ('peel_Ha', 'Direct0') if n in cubes):
             g = f.create_group(name)
             g.create_dataset('data', data=np.asarray(cubes[name], bp))
             _put_attrs(g, dict(wcs, EXTNAME=name))
@@ -199,6 +205,8 @@ def _write_basic(filename: str, res: RunResult) -> str:
             g.create_dataset('Jabs', data=np.asarray(res.Jabs, bp))
         if par.save_Jin and res.Jin is not None:
             g.create_dataset('Jin', data=np.asarray(res.Jin, bp))
+        if res.Jabs2 is not None:
+            g.create_dataset('Jabs2', data=np.asarray(res.Jabs2, bp))
         _put_attrs(g, {
             'ExeTime': res.exetime_s / 60.0,
             'Nprocs': 1,
@@ -236,6 +244,9 @@ def _write_basic(filename: str, res: RunResult) -> str:
             'calc_P': par.calcP, 'calc_Pnew': par.calcPnew,
             'calc_J': par.calcJ,
         })
+        if res.flux_factor:
+            _put_attrs(g, {'flux_factor': res.flux_factor,
+                           'nrejected': res.nrejected})
         if par.h2_model.strip().lower() not in ('', 'none'):
             pump = res.W_H2pump if res.W_H2pump is not None else (0.0, 0.0)
             _put_attrs(g, {

@@ -16,7 +16,9 @@ version, which rounds every operation separately.
 
 Every C entry point returns cudaGetLastError() after its launch; `check`
 raises if it is not 0.  LAUNCHES counts the launches of each kernel in this
-process: a wrapper adds one where it launches its kernel, and nowhere else.
+process: a wrapper adds one where it launches its kernel, and nowhere else
+(K7 in mode PEEL_STELLAR under 'peel_stellar', its other modes under
+'peel').
 """
 
 from __future__ import annotations
@@ -44,9 +46,10 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
 LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'refill_radial': 0,
-            'refill_volume': 0, 'refill_alias': 0, 'fly_uniform_slab': 0,
+            'refill_volume': 0, 'refill_alias': 0, 'refill_illum': 0,
+            'fly_uniform_slab': 0,
             'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0,
-            'peel': 0, 'fly_amr': 0, 'fly_clump_dense': 0,
+            'peel': 0, 'peel_stellar': 0, 'fly_amr': 0, 'fly_clump_dense': 0,
             'fly_clump_csr': 0, 'sightline': 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -139,7 +142,7 @@ def library() -> ctypes.CDLL:
         from ..instruments.sightline import SightParams
         from ..physics.line import LineC
         from ..transport.flight import AmrC, ClumpC, FlightParams
-        from ..transport.refill import SourceC
+        from ..transport.refill import ProfC, SourceC
         from ..transport.scatter import ScatterC
         lib = ctypes.CDLL(str(build()))
         flight = ctypes.POINTER(FlightParams)    # K5-K8 grid, by pointer
@@ -151,7 +154,7 @@ def library() -> ctypes.CDLL:
                                _F, _I, _P, _F, _F, _F, line,
                                ctypes.POINTER(AmrC), ctypes.POINTER(ClumpC),
                                _P, _P, _P, _P, _P, ctypes.POINTER(SourceC),
-                               _P],
+                               ctypes.POINTER(ProfC), _P, _P, _P],
             lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
                                    _P, _P, _P, _F, line, _P],

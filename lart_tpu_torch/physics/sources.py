@@ -7,10 +7,27 @@ of p(r) dr = r^k exp(-r) dr, the table equivalent of the reference's
 rand_r1exp/rand_r2exp, src/random_mt.f90:1227-1260),
 sersic_deprojected_cumulative (:92; its trapezoid sums written out as
 np.trapezoid computes them, so an older numpy gives the same table),
-_composite_bias (:132), read_stars (:146), build_emiss_profile_1d (:190)
-and build_sources (:226-297) but for the line-profile file, with the
+_composite_bias (:132), read_stars (:146), read_line_prof (:159; the
+alias table over a line-profile file's bins and their edges),
+build_emiss_profile_1d (:190) and build_sources (:226-297), with the
 log-log radius draw sample_radius_loglog (:478) and the 1-D profile draw
 sample_alias_linear (:486) as plain PyTorch.
+
+The illumination sources (:300-474) draw by masked rejection rounds: the
+limb-darkened cos theta of a point of the stellar surface
+(sample_limb_cost), a finite star at distance D lighting the atmosphere
+sphere (sample_stellar_illumination) and a point source on the z axis
+lighting the box's near face (sample_point_illumination).  Their plain
+versions here take their uniforms as tensors, (n_rounds, k, B), round r's
+k uniforms in row r as lart_tpu's fold_in(key, r) draws them: every round
+is computed for every lane, a lane keeps the first round it accepts, a
+lane that accepts none takes the fallback (the sub-planet point aiming at
+the centre, or straight down the axis), and nrejected counts the rounds a
+lane rejected before its first acceptance.  Each operation rounds to f32
+on its own, as kernel K2 (csrc/refill.cu, built with --fmad=false)
+computes it; lart_tpu's closures fuse some products into their sums, so
+the two agree to an ulp but for the lanes within an ulp of a test's
+edge.
 
 The tables live on the device in f32 (integers in int32), as lart_tpu's
 SourceTables' jnp.asarray puts them there.  The radius draw is
@@ -37,8 +54,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..transport.flight import fma
-from .samplers import build_alias_table
+from ..constants import SPEEDC
+from ..transport.flight import div, fma
+from .samplers import TWOPI, build_alias_table
 
 P_FLOOR = float(np.float32(1e-12))     # jnp.maximum(u, 1e-12), weak f32
 TINY_DP = float(np.float32(1e-30))     # sample_alias_linear's flat-bin test
@@ -128,6 +146,70 @@ def read_stars(path: str, sampling_method: int, f_composite: float):
         prob, wgt = _composite_bias(prob, f_composite)
     pr, al = build_alias_table(prob)
     return x, y, z, pr, al, wgt
+
+
+def read_line_prof(path: str, cfg):
+    """A line-profile file: (alias prob, alias, bin edges in xfreq units)
+    (setup_line_profile, setup.f90:651-746).  Two columns: frequency [Hz]
+    (line_prof_file_type 0) or wavelength [Angstrom] (1), and the profile
+    density (negatives clipped)."""
+    par, line = cfg.par, cfg.line
+    dat = np.loadtxt(path, ndmin=2)
+    xf, pdf = dat[:, 0].astype(np.float64), np.maximum(dat[:, 1], 0.0)
+    lam_A = line.wavelength0 * 1e4          # um -> Angstrom
+    lam_km = line.wavelength0 * 1e-9        # um -> km
+    if par.line_prof_file_type == 0:
+        xf = (xf - SPEEDC / lam_km) / cfg.Dfreq_ref
+    elif par.line_prof_file_type == 1:
+        xf = -(xf - lam_A) / lam_A * (SPEEDC / cfg.vtherm)
+    else:
+        raise ValueError(f'line_prof_file_type {par.line_prof_file_type}')
+    if xf[-1] < xf[0]:
+        xf, pdf = xf[::-1].copy(), pdf[::-1].copy()
+    n = len(xf)
+    edges = np.empty(n + 1)
+    edges[1:-1] = 0.5 * (xf[:-1] + xf[1:])
+    edges[0] = xf[0] - 0.5 * (xf[1] - xf[0])
+    edges[-1] = xf[-1] + 0.5 * (xf[-1] - xf[-2])
+    pbin = pdf * np.diff(edges)
+    pbin = pbin / pbin.sum()
+    pr, al = build_alias_table(pbin)
+    return pr, al, edges
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LineProfTable:
+    """The line_prof_file spectrum's device tables (lart_tpu's lp_prob,
+    lp_alias, lp_edges): f32 alias probabilities, int32 aliases and the
+    f32 bin edges in xfreq units."""
+    prob: torch.Tensor
+    alias: torch.Tensor
+    edges: torch.Tensor
+
+    @classmethod
+    def from_config(cls, cfg, device) -> 'LineProfTable':
+        pr, al, edges = read_line_prof(cfg.par.line_prof_file, cfg)
+        return cls(prob=torch.as_tensor(pr, dtype=torch.float32,
+                                        device=device),
+                   alias=torch.as_tensor(np.asarray(al, np.int32),
+                                         device=device),
+                   edges=torch.as_tensor(edges, dtype=torch.float32,
+                                         device=device))
+
+    @property
+    def n(self) -> int:
+        return self.prob.numel()
+
+    def tensors(self):
+        return self.prob, self.alias, self.edges
+
+    def sample(self, bits: torch.Tensor, u_alias: torch.Tensor,
+               u: torch.Tensor) -> torch.Tensor:
+        """The bin by alias_bin, then uniform within it: lo + u (hi - lo)
+        (engine.py:2826-2834, before the division by D_loc / D_ref)."""
+        idx = alias_bin(self.prob, self.alias, bits, u_alias)
+        lo, hi = self.edges[idx], self.edges[idx + 1]
+        return lo + u * (hi - lo)
 
 
 def build_emiss_profile_1d(path: str, xmax: float, spherical: bool,
@@ -364,3 +446,263 @@ def zexp(u_a: torch.Tensor, u_b: torch.Tensor, neg_zs: float, c: float
     u_b (negative below 0.5)."""
     zmag = neg_zs * torch.log1p(-(u_a * c))
     return torch.where(u_b < 0.5, -zmag, zmag)
+
+
+# --------------------------------------------------------------------------
+# the illumination sources (sources.py:300-474), plain versions
+# --------------------------------------------------------------------------
+
+# limb darkening polynomial I(mu)/I(0) = c0 + c1 mu + c2 mu^2 (the Sun at
+# 200 nm; stellar_illumination.f90:48-55)
+LIMB_COEFF = (0.55, 0.12, 0.33)
+N_ROUNDS = 8          # the rejection rounds of every illumination sampler
+LIMB_NORM = LIMB_COEFF[0] / 2.0 + LIMB_COEFF[1] / 3.0 + LIMB_COEFF[2] / 4.0
+
+
+def _limb_poly(mu):
+    """(c0 + c1 mu + c2 mu^2) mu / norm / 2 in lart_tpu's order of f32
+    operations, on a tensor."""
+    c0, c1, c2 = LIMB_COEFF
+    t = (c0 + c1 * mu + c2 * mu * mu) * mu
+    return div(div(t, LIMB_NORM), 2.0)
+
+
+def limb_pmax(limb_model: int) -> float:
+    """The rejection envelope of sample_limb_cost: 2.5 (Eddington), the
+    polynomial at mu = 1 in f32 operations (models >= 3)."""
+    if limb_model == 2:
+        return 2.5
+    f = np.float32
+    c0, c1, c2 = (f(c) for c in LIMB_COEFF)
+    one = f(1.0)
+    return float((c0 + c1 * one + c2 * one * one) * one / f(LIMB_NORM)
+                 / f(2.0))
+
+
+def limb_wgt(limb_model: int, cos_ang: torch.Tensor) -> torch.Tensor:
+    """The photon weight of the limb-darkening law at cos_ang
+    (_limb_wgt, sources.py:304-320)."""
+    if limb_model <= 0:
+        return torch.ones_like(cos_ang)
+    if limb_model == 1:          # Lambertian
+        return 2.0 * cos_ang
+    if limb_model == 2:          # Eddington
+        return cos_ang * (1.5 * cos_ang + 1.0)
+    return _limb_poly(cos_ang)
+
+
+def sample_limb_cost(limb_model: int, xi: torch.Tensor) -> torch.Tensor:
+    """cos theta of emission from the stellar surface under the limb law
+    (sample_limb_cost, sources.py:322-351), weight 1: xi (n_rounds, 2, B);
+    models 0 and 1 read xi[0, 0] alone (u and sqrt(u)), the others reject
+    xi[r, 0] where xi[r, 1] pmax >= pdf(xi[r, 0]), 1 where every round
+    rejects."""
+    if limb_model <= 0:
+        return xi[0, 0].clone()
+    if limb_model == 1:
+        return torch.sqrt(xi[0, 0])
+    pmax = limb_pmax(limb_model)
+    acc = torch.zeros_like(xi[0, 0], dtype=torch.bool)
+    out = torch.ones_like(xi[0, 0])
+    for rnd in range(xi.shape[0]):
+        mu = xi[rnd, 0]
+        pdf = mu * (1.5 * mu + 1.0) if limb_model == 2 else _limb_poly(mu)
+        take = ~acc & (xi[rnd, 1] * pmax < pdf)
+        out = torch.where(take, mu, out)
+        acc = acc | take
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Illumination:
+    """The constants of an illumination source: 'stellar' (a star of
+    radius Rs at distance D on the -z axis lighting the atmosphere sphere
+    of radius rmax: the cone bounds cosvt_max and cost_max and the flux
+    factor of a birth, flux_fac1; the limb model), 'point' (a point on
+    the z axis at zs lighting the box's near face: dist_wall, costm,
+    flux_fac1, the face zface and the box's x, y bounds) or 'plane'
+    (plane_illumination: the top face of a plane atmosphere beaming -z,
+    else the disk of radius rmax at zmin beaming +z over the azimuth
+    dphi).  Values are f64 Python floats that the samplers round to f32
+    where they use them, as lart_tpu's weak types do."""
+    kind: str
+    flux_fac1: float = 0.0
+    Rs: float = 0.0
+    D: float = 0.0
+    rmax: float = 0.0
+    cosvt_max: float = 0.0
+    cost_max: float = 0.0
+    limb: int = 0
+    dist_wall: float = 0.0
+    costm: float = 0.0
+    below: bool = False
+    zface: float = 0.0
+    box: tuple = (0.0, 0.0, 0.0, 0.0)    # xmin, xmax, ymin, ymax
+    top: bool = False        # plane: the top face of a plane atmosphere
+    dphi: float = 0.0
+
+    @classmethod
+    def from_config(cls, cfg, meta) -> Optional['Illumination']:
+        par = cfg.par
+        sg = par.source_geometry.strip().lower()
+        if sg == 'stellar_illumination':
+            Rs, D = par.stellar_radius, par.distance_star_to_planet
+            rmax = par.rmax if par.rmax > 0 else meta.xmax
+            cosvt_max = (Rs - rmax) / D
+            cost_max = math.sqrt(max(1.0 - (rmax / (D - Rs)) ** 2, 0.0))
+            return cls(kind='stellar', Rs=Rs, D=D, rmax=rmax,
+                       cosvt_max=cosvt_max, cost_max=cost_max,
+                       flux_fac1=(1.0 - cosvt_max) * (1.0 - cost_max) / 2.0,
+                       limb=int(par.stellar_limb_darkening))
+        if sg == 'point_illumination':
+            dist_wall = abs(par.zs_point) - meta.zmax
+            alpha = meta.xmax / dist_wall
+            beta = meta.ymax / dist_wall
+            below = par.zs_point < 0.0
+            return cls(kind='point', dist_wall=dist_wall,
+                       flux_fac1=math.atan(alpha * beta / math.sqrt(
+                           1.0 + alpha ** 2 + beta ** 2)) / math.pi,
+                       costm=dist_wall / math.sqrt(
+                           dist_wall ** 2 + meta.xmax ** 2 + meta.ymax ** 2),
+                       below=below, zface=meta.zmin if below else meta.zmax,
+                       box=(meta.xmin, meta.xmax, meta.ymin, meta.ymax))
+        if sg == 'plane_illumination':
+            top = par.geometry.strip().lower() == 'plane_atmosphere'
+            return cls(kind='plane', top=top,
+                       zface=par.zmax if top else meta.zmin,
+                       rmax=meta.xmax if par.rmax <= 0 else par.rmax,
+                       dphi=0.5 * math.pi if par.xy_symmetry
+                       else 2.0 * math.pi)
+        return None
+
+    @property
+    def n_uniforms(self) -> int:
+        """Uniforms a rejection round reads."""
+        return 4 if self.kind == 'stellar' else 2
+
+
+def sample_stellar_illumination(il: Illumination, xi: torch.Tensor):
+    """Births on the atmosphere sphere lit by a finite star
+    (sample_stellar_illumination, sources.py:354-418; the reference's
+    random_stellar_illumination1, stellar_illumination.f90:313-470) from
+    xi (n_rounds, 4, B): (x, y, z, kx, ky, kz, wgt, flux_factor,
+    nrejected)."""
+    c1 = 1.0 - il.cosvt_max
+    t1 = 1.0 - il.cost_max
+    rmax2 = il.rmax * il.rmax
+    shape = xi[0, 0]
+    acc = torch.zeros_like(shape, dtype=torch.bool)
+    nrej = torch.zeros_like(shape)
+    x_, y_, z_, kx_, ky_, kz_, ca_ = (torch.zeros_like(shape)
+                                      for _ in range(7))
+    for rnd in range(xi.shape[0]):
+        u = xi[rnd]
+        cosvt = c1 * u[0] + il.cosvt_max
+        sinvt = torch.sqrt(torch.clamp_min(1.0 - cosvt * cosvt, 0.0))
+        vphi = TWOPI * u[1]
+        x0 = sinvt * torch.cos(vphi)
+        y0 = sinvt * torch.sin(vphi)
+        z0 = cosvt
+        x = il.Rs * x0
+        y = il.Rs * y0
+        z = il.Rs * z0 - il.D
+        rr = torch.sqrt(x * x + y * y + z * z)
+        kx0, ky0, kz0 = -x / rr, -y / rr, -z / rr
+        cost = t1 * u[2] + il.cost_max
+        sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+        phi = TWOPI * u[3]
+        cosp, sinp = torch.cos(phi), torch.sin(phi)
+        kr = torch.sqrt(torch.clamp_min(kx0 * kx0 + ky0 * ky0, 1e-24))
+        kx = cost * kx0 + sint * (kz0 * kx0 * cosp - ky0 * sinp) / kr
+        ky = cost * ky0 + sint * (kz0 * ky0 * cosp + kx0 * sinp) / kr
+        kz = cost * kz0 - sint * cosp * kr
+        r_dot_k = x * kx + y * ky + z * kz
+        det = r_dot_k * r_dot_k - (rr * rr - rmax2)
+        cos_ang = x0 * kx + y0 * ky + z0 * kz
+        ok = (cos_ang >= 0.0) & (det >= 0.0)
+        dist = -r_dot_k - torch.sqrt(torch.clamp_min(det, 0.0))
+        take = ~acc & ok
+        x_ = torch.where(take, x + kx * dist, x_)
+        y_ = torch.where(take, y + ky * dist, y_)
+        z_ = torch.where(take, z + kz * dist, z_)
+        kx_ = torch.where(take, kx, kx_)
+        ky_ = torch.where(take, ky, ky_)
+        kz_ = torch.where(take, kz, kz_)
+        ca_ = torch.where(take, cos_ang, ca_)
+        nrej = nrej + (~acc & ~ok).to(nrej.dtype)
+        acc = acc | ok
+    # stragglers: aim at the planet centre from the sub-planet point
+    strag = ~acc
+    zero, one = torch.zeros_like(shape), torch.ones_like(shape)
+    x_ = torch.where(strag, zero, x_)
+    y_ = torch.where(strag, zero, y_)
+    z_ = torch.where(strag, torch.full_like(shape, -il.rmax), z_)
+    kx_ = torch.where(strag, zero, kx_)
+    ky_ = torch.where(strag, zero, ky_)
+    kz_ = torch.where(strag, one, kz_)
+    ca_ = torch.where(strag, one, ca_)
+    wgt = limb_wgt(il.limb, ca_)
+    return x_, y_, z_, kx_, ky_, kz_, wgt, il.flux_fac1 * wgt, nrej
+
+
+def sample_point_illumination(il: Illumination, xi: torch.Tensor):
+    """Births on the box's near z face lit by a point source on the z axis
+    (sample_point_illumination, sources.py:421-474; the reference's
+    random_point_illumination, point_illumination.f90:15-120) from xi
+    (n_rounds, 2, B): (x, y, z, kx, ky, kz, wgt, flux_factor,
+    nrejected)."""
+    xmin, xmax, ymin, ymax = (float(np.float32(v)) for v in il.box)
+    c1 = 1.0 - il.costm
+    dw = torch.full((), il.dist_wall, dtype=xi.dtype, device=xi.device)
+    shape = xi[0, 0]
+    acc = torch.zeros_like(shape, dtype=torch.bool)
+    nrej = torch.zeros_like(shape)
+    x_, y_, kx_, ky_ = (torch.zeros_like(shape) for _ in range(4))
+    cz_ = torch.ones_like(shape)
+    for rnd in range(xi.shape[0]):
+        u = xi[rnd]
+        cost = u[0] * c1 + il.costm
+        sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+        phi = TWOPI * u[1]
+        kx = sint * torch.cos(phi)
+        ky = sint * torch.sin(phi)
+        dist = dw / cost
+        x = dist * kx
+        y = dist * ky
+        ok = (x >= xmin) & (x <= xmax) & (y >= ymin) & (y <= ymax)
+        take = ~acc & ok
+        x_ = torch.where(take, x, x_)
+        y_ = torch.where(take, y, y_)
+        kx_ = torch.where(take, kx, kx_)
+        ky_ = torch.where(take, ky, ky_)
+        cz_ = torch.where(take, cost, cz_)
+        nrej = nrej + (~acc & ~ok).to(nrej.dtype)
+        acc = acc | ok
+    # stragglers: straight down the axis
+    strag = ~acc
+    zero = torch.zeros_like(shape)
+    x_ = torch.where(strag, zero, x_)
+    y_ = torch.where(strag, zero, y_)
+    kx_ = torch.where(strag, zero, kx_)
+    ky_ = torch.where(strag, zero, ky_)
+    cz_ = torch.where(strag, torch.ones_like(shape), cz_)
+    z = torch.full_like(shape, il.zface)
+    kz = cz_ if il.below else -cz_
+    wgt = torch.ones_like(shape)
+    return x_, y_, z, kx_, ky_, kz, wgt, il.flux_fac1 * wgt, nrej
+
+
+def sample_plane_illumination(il: Illumination, u0: torch.Tensor,
+                              u1: torch.Tensor):
+    """plane_illumination's births (gen_position, engine.py:2645-2660;
+    random_plane_illumination, generate_photon.f90:729-813): (x, y, z,
+    kz); the top face's centre of a plane atmosphere beaming -z, else a
+    uniform point of the disk of radius rmax at zmin (azimuth dphi u1)
+    beaming +z."""
+    if il.top:
+        zero = torch.zeros_like(u0)
+        return zero, zero.clone(), torch.full_like(u0, il.zface), -1.0
+    rp = torch.sqrt(u0) * il.rmax
+    phi = il.dphi * u1
+    return (rp * torch.cos(phi), rp * torch.sin(phi),
+            torch.full_like(u0, il.zface), 1.0)

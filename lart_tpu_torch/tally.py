@@ -6,7 +6,8 @@ which imports jax.  Only the outputs of the ported path are carried: the
 spectra Jin/Jout/Jabs, Jmu, the scattering counts, the weight budget, the
 peel-off cubes (scattered, direct, Stokes I/Q/U/V, H-alpha), line type 8's
 H-alpha spectra, band budgets and two-photon spectrum, and H2 pumping's
-per-photon weights.  CALCJ/P maps come with their feature.  The
+per-photon weights, an exoplanet atmosphere's Jabs2 and an
+illumination's flux factor.  CALCJ/P maps come with their feature.  The
 arithmetic is lart_tpu's, on host float64.
 """
 
@@ -63,6 +64,12 @@ class RunResult:
     W_abs1: float = 0.0
     W_esc2: float = 0.0
     W_abs2: float = 0.0
+    # an exoplanet atmosphere's destroyed weight (normalized like Jout),
+    # an illumination's flux factor sum / (nphotons + nrejected) and its
+    # rejected draws
+    Jabs2: Optional[np.ndarray] = None
+    flux_factor: float = 0.0
+    nrejected: float = 0.0
 
     @property
     def line(self):
@@ -131,6 +138,13 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
     Jabs = raw.get('Jabs')
     Jabs = Jabs / denom if (Jabs is not None and par.DGR > 0.0
                             and par.save_Jabs) else None
+    Jabs2 = raw['Jabs2'] / denom if 'Jabs2' in raw else None
+    flux_factor = 0.0
+    if 'flux_factor' in raw:
+        # the transit flux factor, sum(flux_factor) / (nphotons +
+        # nrejected) (output_sum_rect.f90:17-18)
+        flux_factor = raw['flux_factor'] / (nphotons
+                                            + raw.get('nrejected', 0.0))
 
     if (par.spectral_type.strip() in ('continuum', 'continuum+gaussian')
             and par.continuum_normalize and Jin is not None):
@@ -181,6 +195,8 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
         Jout_Ha=raw['Jout_Ha'] / denom if 'Jout_Ha' in raw else None,
         Jabs_Ha=raw['Jabs_Ha'] / denom if 'Jabs_Ha' in raw else None,
         J2gam=J2gam, y_2gam=y_2gam,
+        Jabs2=Jabs2, flux_factor=flux_factor,
+        nrejected=raw.get('nrejected', 0.0),
         W_H2pump=raw['W_H2pump'] / nphotons if 'W_H2pump' in raw else None,
         **{k: raw.get(k, 0.0) / nphotons for k in (
             'W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2', 'W_H2abs',

@@ -10,6 +10,7 @@ and so jax).
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 from typing import Optional
 
@@ -565,9 +566,94 @@ SOURCE_CASES = {
     # the 1-D emissivity profile in a 101^3 sphere with its 1-D temperature
     # profile (8900 K at the centre to 7100 K at the edge), as written
     'AlII': ('emiss_1D_AlII/AlII_ex.in', {}),
+    # the WASP-52b-like escaping atmosphere lit by its star: a 101^3
+    # spherical atmosphere with 1-D density, temperature and velocity
+    # profiles, a masked core (r <= 0.55), stellar illumination with
+    # Eddington limb darkening, the line_prof_file spectrum, recoil,
+    # save_Jin and one observer in the xy plane (129^2 x 101), as written
+    'a090': ('star_planet/star_planet_a090.in', {}),
+    # the same with its observer on +z, behind the planet, and Direct0:
+    # the transit shadow (the namelists' observers never see it)
+    'a090_transit': ('star_planet/star_planet_a090.in',
+                     {'beta': (0.0,), 'save_direc0': True}),
+    # a 65^3 spherical atmosphere at tau 1e4 with a masked core, static
+    # at uniform T, stellar illumination, a Voigt spectrum, as written
+    'wasp52b': ('atmosphere/wasp52b_like.in', {}),
 }
 # the namelist keys that name a file beside the namelist
-SOURCE_FILES = ('star_file', 'emiss_file', 'dens_file', 'temp_file')
+SOURCE_FILES = ('star_file', 'emiss_file', 'dens_file', 'temp_file',
+                'velo_file', 'line_prof_file')
+
+
+def plane_atmosphere_params(nphotons: int = 2000, nz: int = 32,
+                            taumax: float = 1e3, **kw) -> Params:
+    """The plane atmosphere of lart_tpu's tests/test_atmosphere.py
+    (test_plane_atmosphere_thick_conserves): a 1 x 1 x nz column at taumax,
+    T = 1e4 K, lit from the top by plane_illumination with a Voigt
+    spectrum; its bottom face destroys (Jabs2)."""
+    kw = dict(dict(nphotons=nphotons, geometry='plane_atmosphere', nx=1,
+                   ny=1, nz=nz, xmax=1, ymax=1, zmax=1, taumax=taumax,
+                   temperature=1e4, xfreq_min=-40.0, xfreq_max=40.0,
+                   source_geometry='plane_illumination',
+                   spectral_type='voigt', batch_size=1024,
+                   chunk_cycles=16), **kw)
+    return Params(**kw)
+
+
+def stellar_params(nphotons: int = 1500, n: int = 25, **kw) -> Params:
+    """The transit case of lart_tpu's tests/test_atmosphere.py
+    (test_stellar_disk_direct_peel_transit): an n^3 spherical atmosphere
+    (rmax 1, no core) at taumax 50, lit by a star of radius 2 at distance
+    50 with Eddington limb darkening, a monochromatic spectrum, and one
+    observer on +z behind the planet with Direct0."""
+    kw = dict(dict(nphotons=nphotons, geometry='spherical_atmosphere',
+                   nx=n, ny=n, nz=n, xmax=1, ymax=1, zmax=1, rmax=1.0,
+                   rmin=0.0, taumax=50.0, temperature=1e4,
+                   xfreq_min=-20.0, xfreq_max=20.0,
+                   source_geometry='stellar_illumination',
+                   stellar_radius=2.0, distance_star_to_planet=50.0,
+                   stellar_limb_darkening=2, spectral_type='monochromatic',
+                   save_peeloff=True, save_peeloff_3D=True, save_direc0=True,
+                   obsx=(0.0,), obsy=(0.0,), obsz=(2000.0,), nxim=33,
+                   nyim=33, batch_size=1024, chunk_cycles=16), **kw)
+    return Params(**kw)
+
+
+def transit(res, o: int = 0):
+    """(depth, its sigma, pairs in the image) of a stellar run's
+    observer o: 1 - sum(Direct) / sum(Direct0), the mean attenuation over
+    the pairs in the image, sigma from the spread of a pair's attenuation
+    (in [0, 1]: at most sqrt(d (1 - d) / n)))."""
+    d0 = float(res.peel['direc0'][o].sum())
+    d1 = float(res.peel['direc'][o].sum())
+    pos = np.asarray(res.obs_meta.pos_host[o], np.float64)
+    D = res.cfg.par.distance_star_to_planet
+    w0 = 1.0 / ((pos + np.array([0.0, 0.0, D])) ** 2).sum()
+    bin_unit = res.meta.dwave if res.cfg.par.intensity_unit == 1 \
+        else res.meta.dxfreq
+    d2cm = res.cfg.par.distance2cm if res.cfg.par.distance2cm > 0 else 1.0
+    scale = (res.nphotons * res.obs_meta.steradian_pix * bin_unit
+             * d2cm ** 2)
+    n_in = d0 * scale / w0
+    depth = 1.0 - d1 / d0 if d0 > 0 else 0.0
+    return depth, math.sqrt(max(depth * (1.0 - depth), 1e-12)
+                            / max(n_in, 1.0)), n_in
+
+
+def atmosphere_budget(res) -> dict:
+    """A run's budget per photon (either package's RunResult): the
+    escaped W_esc, the destroyed W_abs2 (Jabs2's sum with normalize's
+    division undone), W_oor, the Jabs2 share of their sum, and the birth
+    weights in the band (Jin's sum)."""
+    from .tally import spectrum_denom
+    den = spectrum_denom(res.cfg, res.meta, 1)
+    w_abs2 = float(np.sum(res.Jabs2)) * den if res.Jabs2 is not None \
+        else 0.0
+    tot = res.W_escape + w_abs2 + res.W_oor
+    return {'W_esc': res.W_escape, 'W_abs2': w_abs2, 'W_oor': res.W_oor,
+            'total': tot, 'share': w_abs2 / tot if tot > 0 else 0.0,
+            'birth': birth_weight(res) if res.Jin is not None else None,
+            'N': res.nscatt_gas, 'ff': res.flux_factor}
 
 
 def source_files(path) -> dict:

@@ -10,7 +10,8 @@ once per chunk.
 
 With save_peeloff the cycle also peels (kernel K7, instruments/peel.py):
 right after a refill, the newborn photons to every observer (the direct
-peel, engine.py:2909-2913), and right after the scatter, each resonance
+peel, engine.py:2909-2913; for a stellar_illumination source the stellar
+direct peel, mode STELLAR, peel.py:700-836), and right after the scatter, each resonance
 and dust scattering with its pre-scatter direction (:2207-2218, :2342-2347)
 and, for line type 8, each conversion's H-alpha photon (:2205-2222), every
 kind in one launch; both read the PeelRecord that K2 and K4 fill, and
@@ -32,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from ..instruments.peel import DIRECT, Peel, PeelRecord, peel
+from ..instruments.peel import Peel, PeelRecord, peel
 from ..physics.h2 import h2_on
 from ..physics.line import LINE_TYPES
 from .fly_amr import AmrFlight
@@ -45,11 +46,9 @@ from .refill import GEOMETRIES, SPECTRA, RefillParams, refill
 from .scatter import ScatterParams, scatter
 from .state import DEAD, BatchState, zero_tallies
 
-# the ported source geometries: every one of gen_position's but the
-# illuminations (engine.py:2577-2687)
+# the ported source geometries: every one of gen_position's, and the
+# illuminations (engine.py:2577-2719)
 SOURCES = tuple(GEOMETRIES)
-ILLUMINATIONS = ('plane_illumination', 'stellar_illumination',
-                 'point_illumination')
 
 
 def uniform_slab_fastpath(cfg, meta) -> bool:
@@ -88,7 +87,6 @@ def check_supported(cfg, meta=None) -> None:
     """Raise NotImplementedError naming every requested feature that
     lart_tpu_torch does not port yet."""
     par = cfg.par
-    geom = par.geometry.strip().lower()
     amr = par.use_amr_grid
     clump = par.use_clump_medium
     sg = par.source_geometry.strip().lower()
@@ -107,8 +105,6 @@ def check_supported(cfg, meta=None) -> None:
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
-        (f'geometry {geom!r} (atmospheres)',
-         geom in ('plane_atmosphere', 'spherical_atmosphere')),
         ('shearing box (Omega with xy_periodic)',
          par.Omega != 0.0 and par.xy_periodic),
         ('out_merge', par.out_merge),
@@ -120,31 +116,20 @@ def check_supported(cfg, meta=None) -> None:
          and par.nside > 0 and amr),
         ('metrics_file', bool(par.metrics_file.strip())),
         ('profile_dir', bool(par.profile_dir.strip())),
-        # the stellar direct peel (peel.py:709, PERF.md row 13)
-        ('peel-off of a stellar_illumination source (the stellar direct '
-         'peel)', par.save_peeloff and sg == 'stellar_illumination'),
-        (f'source_geometry {sg!r} (the illumination samplers)',
-         sg in ILLUMINATIONS),
-        (f'source_geometry {sg!r}',
-         sg not in SOURCES and sg not in ILLUMINATIONS),
-        ("spectral_type 'line_prof_file' (the line-profile file)",
-         st == 'line_prof_file'),
-        (f'spectral_type {st!r}', st not in SPECTRA
-         and st != 'line_prof_file'),
+        (f'source_geometry {sg!r}', sg not in SOURCES),
+        (f'spectral_type {st!r}', st not in SPECTRA),
         # lart_tpu would read the cube as a column of leaves or clumps
         # (sources.py:264-270)
         ('a 3-D FITS/HDF5 emiss_file on an AMR grid or a clump medium',
          emiss == 'grid' and (amr or clump)),
         # lart_tpu hands build_sources no rhokap there (driver.py:90-95)
         ("emiss_file 'density1'/'density2' on an AMR grid or a clump "
-         'medium', emiss in ('density1', 'density2') and (amr or clump)),
-        ('a 1-D emissivity profile in a plane_atmosphere',
-         emiss == 'profile' and geom == 'plane_atmosphere')) if on]
+         'medium', emiss in ('density1', 'density2') and (amr or clump))
+    ) if on]
     if meta is not None:
         missing += [name for name, on in (
             (f'grid_type {meta.grid_type!r}',
              meta.grid_type not in ('cartesian', 'amr', 'clump')),
-            ('atmosphere', bool(meta.atmosphere)),
             ('shearing box', meta.omega_shear != 0.0)) if on]
     if missing:
         raise NotImplementedError('lart_tpu_torch does not port yet: '
@@ -186,11 +171,18 @@ class Chunk:
     peel: Optional[Peel] = None     # the observers of save_peeloff
     lyb: bool = False               # line type 8: the H-alpha tallies
     h2: bool = False                # H2 pumping: its tallies
+    atmosphere: bool = False        # an exoplanet atmosphere: Jabs2
+
+    def zero_tallies(self, device):
+        """The chunk's zero tallies: those of its line, H2, atmosphere and
+        illumination."""
+        return zero_tallies(self.nxfreq, self.nmu, device, self.lyb,
+                            self.h2, self.atmosphere,
+                            self.refill_params.illumination)
 
     def __call__(self, state: BatchState, seed: int, cycle0: int,
                  budget: int, n_cycles=None):
-        tallies = zero_tallies(self.nxfreq, self.nmu, state.device, self.lyb,
-                               self.h2)
+        tallies = self.zero_tallies(state.device)
         p, rec = self.peel, None
         if p is not None:
             tallies.peel = p.zero_cubes(state.device)
@@ -201,7 +193,7 @@ class Chunk:
                 refill(state, tallies, self.refill_params, seed, i, budget,
                        rec)
                 if p is not None:
-                    peel(state, tallies.peel, rec, p, DIRECT)
+                    peel(state, tallies.peel, rec, p, p.direct_mode)
             self.flight(state, tallies, self.fly_substeps)
             scatter(state, tallies, self.scatter_params, seed, i, rec)
             if p is not None:
@@ -228,4 +220,5 @@ def make_chunk(cfg, meta, grid, cmeta=None, host_data=None) -> Chunk:
                  fly_substeps=par.fly_substeps, nxfreq=meta.nxfreq,
                  nmu=par.nmu if par.save_Jmu else 0,
                  peel=Peel.from_config(cfg, meta, grid, sphere, cmeta),
-                 lyb=cfg.line.line_type == 8, h2=h2_on(par))
+                 lyb=cfg.line.line_type == 8, h2=h2_on(par),
+                 atmosphere=bool(meta.atmosphere))

@@ -74,9 +74,11 @@ class FlightParams(ctypes.Structure):
                 ('vfz', _P), ('cell_a', _P), ('cell_D', _P),
                 ('Jout', _P), ('Jmu', _P), ('W_oor', _P),
                 ('Jout_Ha', _P), ('W_esc1', _P), ('W_esc2', _P),
+                ('Jabs2', _P), ('mask', _P),
                 ('n', _I * 3), ('bc', _I * 3), ('cell0', _I * 3),
                 ('walk', _I * 3), ('moving', _I), ('nxfreq', _I),
                 ('save_jmu', _I), ('nmu', _I), ('mu_abs', _I),
+                ('atmosphere', _I),
                 ('amin', _F * 3), ('amax', _F * 3), ('neg_amin', _F * 3),
                 ('d', _F * 3), ('a_ref', _F), ('Dfreq', _F),
                 ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
@@ -149,7 +151,8 @@ def freq_floor(p, xfreq_lab: torch.Tensor):
 def tally_plain(tallies, p, mask, xfreq_lab, wgt, kz, J=None
                 ) -> torch.Tensor:
     """Add wgt to the spectrum J (Jout by default; Jout_Ha for the
-    H-alpha band) and Jmu at lab frequency xfreq_lab for the masked lanes
+    H-alpha band, Jabs2 for an atmosphere's destruction, kz None: no Jmu)
+    and Jmu at lab frequency xfreq_lab for the masked lanes
     whose bin is on the frequency grid; return the masked weight that
     falls outside it (W_oor).  `p` has the bin fields xfreq_min, dxfreq,
     nxfreq, save_Jmu, nmu, mu_min, dmu and mu_abs."""
@@ -158,7 +161,7 @@ def tally_plain(tallies, p, mask, xfreq_lab, wgt, kz, J=None
     w = torch.where(mask & in_rng, wgt, zero)
     ix = floor_bin(fx, p.nxfreq)
     (tallies.Jout if J is None else J).index_add_(0, ix, w)
-    if p.save_Jmu:
+    if p.save_Jmu and kz is not None:
         mu = torch.abs(kz) if p.mu_abs else kz
         tallies.Jmu.index_add_(
             0, ix * p.nmu + floor_bin(div(mu - p.mu_min, p.dmu), p.nmu), w)
@@ -199,6 +202,11 @@ class FlightConsts:
     # Doppler width, flat (nx*ny*nz,) f32; None at uniform temperature
     cell_a: Optional[torch.Tensor] = None
     cell_D: Optional[torch.Tensor] = None
+    # an exoplanet atmosphere (engine.py:1259-1272): 1 a plane one, whose
+    # bottom z face destroys, 2 a spherical one, whose masked core cells
+    # (flat bool, the layout of rhokap; None without rmin) destroy
+    atmosphere: int = 0
+    mask: Optional[torch.Tensor] = None
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
@@ -234,7 +242,10 @@ class FlightConsts:
             line=pline.LineConsts.from_config(cfg),
             h2=ph2.H2Consts.from_config(cfg),
             R_Ha=(par.cext_dust_Ha / par.cext_dust if par.cext_dust > 0
-                  else 0.0))
+                  else 0.0),
+            atmosphere=int(meta.atmosphere),
+            mask=None if meta.atmosphere != 2 or grid.mask is None
+            else grid.mask.reshape(-1).contiguous())
 
     @property
     def moving(self) -> bool:
@@ -305,6 +316,9 @@ class FlightConsts:
             c.vfx, c.vfy, c.vfz = (v.data_ptr() for v in self.vel)
         if self.cell_D is not None:
             c.cell_a, c.cell_D = self.cell_a.data_ptr(), self.cell_D.data_ptr()
+        if self.mask is not None:
+            c.mask = self.mask.data_ptr()
+        c.atmosphere = self.atmosphere
         c.n[:] = self.n
         c.bc[:] = [BC_CODES[b] for b in self.bc]
         c.cell0[:] = self.cell0
@@ -345,10 +359,20 @@ class FlightConsts:
             c.Jout_Ha, c.W_esc1, c.W_esc2 = (
                 getattr(tallies, f).data_ptr()
                 for f in ('Jout_Ha', 'W_esc1', 'W_esc2'))
+        if self.atmosphere:
+            c.Jabs2 = tallies.Jabs2.data_ptr()
         return c
+
+    def masked(self, flat) -> torch.Tensor:
+        """Whether the flat cells lie in a spherical atmosphere's masked
+        core (False without one)."""
+        if self.mask is None:
+            return torch.zeros_like(flat, dtype=torch.bool)
+        return self.mask[flat]
 
     def device_tensors(self):
         return ((self.rhokap,) + (self.vel or ())
+                + (() if self.mask is None else (self.mask,))
                 + (() if self.rhokapD is None else (self.rhokapD,))
                 + (() if self.cell_D is None else (self.cell_a, self.cell_D))
                 + (() if self.amr is None else self.amr.dev.tensors())

@@ -1,8 +1,8 @@
 """Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
 
 Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
-for a grid without atmospheres, the shearing box, CALCJ/Pnew or
-all-photons records.  Each step takes one lane across one cell: the
+for a grid without the shearing box, CALCJ/Pnew or all-photons
+records.  Each step takes one lane across one cell: the
 opacity of its cell is rhokap * H_eff(x; a, D) at the cell's damping a and
 Doppler width D (the reference ones at uniform temperature, each cell's
 own from a temp_file: engine.py:297-317), plus rhokap times the H2
@@ -27,6 +27,15 @@ cells, and escapes into Jout_Ha at that frequency; each band's escaped
 weight sums into W_esc1 or W_esc2, out-of-grid escapes included, and
 W_esc1 also takes the escaped fraction of each completed forced first
 scattering whose birth bin is on the grid.
+
+In an exoplanet atmosphere (engine.py:1259-1272, :1302-1310, :1322-1333,
+:1378-1382) a FLYING lane that leaves a plane atmosphere (1) through its
+bottom z face, or that enters a masked core cell of a spherical one (2),
+is destroyed: its weight goes to Jabs2 at the lab frequency of the cell
+it leaves (W_oor off the frequency grid), not to Jout.  A forced first
+scattering's birth ray that enters the core ends there with the optical
+depth FFS_TAU_CAP (no escaped fraction) and restarts from birth; one that
+leaves through the bottom face completes as any escape does.
 """
 
 from __future__ import annotations
@@ -138,6 +147,24 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
         # (x + u) D_cell / D_ref
         esc_fly = escaped & (s.phase == FLYING)
         xlab = (s.xfreq + u1) * doppler_ratio(D_c, p.Dfreq)
+        ffs_done = (escaped & is_ffs) | (hit & is_ffs)
+        dead_atm = None
+        if p.atmosphere:
+            # the bottom face of a plane atmosphere, the masked core of a
+            # spherical one: the lane is destroyed into Jabs2
+            bottom = escaped & (axis == 2) & (ncell[2] < 0) \
+                if p.atmosphere == 1 else torch.zeros_like(escaped)
+            hitmask = crossed & ~escaped & p.masked(p.flat(*ncell))
+            mask_fly = hitmask & (s.phase == FLYING)
+            mask_ffs = hitmask & is_ffs
+            # a birth ray ending in the core escapes nothing
+            tau_n = torch.where(mask_ffs, torch.full_like(tau_n, FFS_TAU_CAP),
+                                tau_n)
+            ffs_done = ffs_done | mask_ffs
+            dead_atm = (esc_fly & bottom) | mask_fly
+            esc_fly = esc_fly & ~bottom
+            oor = oor + tally_plain(tallies, p, dead_atm, xlab, s.wgt, None,
+                                    tallies.Jabs2)
         if p.lyb:
             oor = oor + tally_plain(tallies, p, esc_fly & ~b2, xlab,
                                     s.wgt, s.kz)
@@ -150,7 +177,6 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
         # forced first scattering done: the escaped fraction at the birth
         # lab frequency (x_b + u_b) D_b / D_ref, restart from birth with
         # wgt *= 1 - exp(-tau0)
-        ffs_done = (escaped & is_ffs) | (hit & is_ffs)
         tau0 = tau_n
         wgt_esc = s.wgt * torch.exp(-tau0)
         D_b = p.cell_a_D(p.flat(s.bic, s.bjc, s.bkc))[1]
@@ -161,8 +187,9 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             tallies.W_esc1 += torch.where(ffs_done & inb, wgt_esc, zero).sum()
         wgt1 = -torch.expm1(-tau0)
         ffs_vacuum = ffs_done & (tau0 <= 0.0)
+        dead_now = esc_fly if dead_atm is None else esc_fly | dead_atm
         phase_new = torch.where(
-            esc_fly | ffs_vacuum, DEAD,
+            dead_now | ffs_vacuum, DEAD,
             torch.where(ffs_done, FLYING,
                         torch.where(hit & ~is_ffs, AT_SCATTER, s.phase))
         ).to(torch.int32)
@@ -207,7 +234,8 @@ def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
     kbuild.require_cuda('fly_cartesian', tallies.Jout, tallies.Jmu,
                         tallies.W_oor, state.x, *p.device_tensors(),
                         *((tallies.Jout_Ha, tallies.W_esc1, tallies.W_esc2)
-                          if p.lyb else ()))
+                          if p.lyb else ()),
+                        *((tallies.Jabs2,) if p.atmosphere else ()))
     kbuild.check(kbuild.library().lart_fly_cartesian(
         state.lane_pointers, state.batch, max_steps,
         ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),

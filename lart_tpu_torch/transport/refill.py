@@ -1,11 +1,11 @@
 """Refill: dead lanes are reborn from the photon budget (kernel K2).
 
 Counterpart of make_refill / refill (lart_tpu/transport/engine.py:2557,
-:2689) for a point source (source_geometry 'point' or '') or any extended
-source of gen_position but the illuminations (see below) with a Voigt,
-voigt0, monochromatic, Gaussian, flat continuum or continuum+gaussian
-input spectrum in a medium static or moving, on a Cartesian grid, on the
-octree AMR grid or in a clump medium.  A line
+:2689) for a point source (source_geometry 'point' or ''), any extended
+source of gen_position or an illumination (see below) with a Voigt,
+voigt0, monochromatic, Gaussian, flat continuum, continuum+gaussian or
+line_prof_file input spectrum in a medium static or moving, on a Cartesian
+grid, on the octree AMR grid or in a clump medium.  A line
 of type 2, 4, 5 or 6
 starts from xfreq0 shifted to a branch (branch_init_shift, engine.py:
 2919-2970; physics/line.py) by the two uniforms of block 3; the continuum
@@ -93,7 +93,28 @@ lookups above run at the lane's position.
 The birth weight (engine.py:2876, :2843-2850) is the star's, cell's or
 leaf's composite weight, or the profile's weight interpolated at the drawn
 radius, where sampling_method > 0 biased the table, else 1; it is written
-into the lane's wgt and added into Jin.  The voigt0 spectrum (:2783)
+into the lane's wgt and added into Jin.  A plane atmosphere's 1-D profile
+(GEOM_PROFILE_PLANE, engine.py:2661-2667) draws the height and puts it at
+a uniform point of the box's x-y extent (u0, u1).
+
+The illuminations are K2's fifth instance, `refill_illum` (engine.py:
+2707-2719, physics/sources.py's samplers): stellar_illumination and
+point_illumination draw position and direction by their rejection rounds,
+round r from the four uniforms of block BLOCK_ILLUM + r, the birth weight
+being the limb weight; their flux factors and rejected rounds over the
+launched lanes go into the tallies flux_factor and nrejected
+(engine.py:2900-2908).  plane_illumination (engine.py:2645-2660) births at
+the top face of a plane atmosphere beaming -z, else on the disk of radius
+rmax at zmin (u0, u1 of block 4) beaming +z.  A beamed birth's triad is
+its direction's (cos theta = kz, cos phi = kx / sin theta; engine.py:
+2740-2749).  With peel-off, a stellar source's birth also draws its one
+limb-darkened surface sample for the stellar direct peel (cos theta by
+sample_limb_cost's rounds, two a block from BLOCK_LIMB, vphi from the
+block after them) into the record's limb_cost and limb_vphi.  The
+line_prof_file spectrum (engine.py:2826-2834), in every instance, is the
+profile's alias bin from the 32 bits of word 0 of block 2 (its alias by
+word 1), uniform within the bin by word 2, divided by D_loc / Dfreq_ref;
+it replaces the frequency, a branch shift too.  The voigt0 spectrum (:2783)
 draws a Voigt x at the source temperature's damping va0 and scales it by
 Dfreq0 / D_loc; continuum+gaussian (:2808) takes the line with probability
 f_line = EW_vel / (EW_vel + dv_range) (the uniform of word 2 of block 2)
@@ -118,29 +139,40 @@ from ..kernels import build as kbuild
 from ..physics import line as pline
 from ..physics.rng import STREAM_REFILL, to_uniform, uniforms, words
 from ..physics.samplers import TWOPI, box_muller, cbrt, rand_voigt_x
-from ..physics.sources import (SourceTables, alias_bin, build_sources,
-                               emiss_kind, sample_alias_linear,
-                               sample_radius_loglog, zexp, zexp_consts)
+from ..physics.sources import (N_ROUNDS, Illumination, LineProfTable,
+                               SourceTables, alias_bin, build_sources,
+                               emiss_kind, limb_pmax, sample_alias_linear,
+                               sample_limb_cost, sample_plane_illumination,
+                               sample_point_illumination,
+                               sample_radius_loglog,
+                               sample_stellar_illumination, zexp,
+                               zexp_consts)
 from .flight import AmrGrid, ClumpGrid, div, doppler_ratio, fma
 from .state import DEAD, FFS, BatchState, Tallies
 
 SPECTRUM_MONO, SPECTRUM_VOIGT, SPECTRUM_GAUSS, SPECTRUM_CONT = 0, 1, 2, 3
-SPECTRUM_VOIGT0, SPECTRUM_CONT_GAUSS = 4, 5
+SPECTRUM_VOIGT0, SPECTRUM_CONT_GAUSS, SPECTRUM_LINE_PROF = 4, 5, 6
 SPECTRA = {'monochromatic': SPECTRUM_MONO, 'voigt': SPECTRUM_VOIGT,
            'gaussian': SPECTRUM_GAUSS, 'continuum': SPECTRUM_CONT,
            'voigt0': SPECTRUM_VOIGT0,
-           'continuum+gaussian': SPECTRUM_CONT_GAUSS}
+           'continuum+gaussian': SPECTRUM_CONT_GAUSS,
+           'line_prof_file': SPECTRUM_LINE_PROF}
+BLOCK_SPECTRUM = 2   # the spectrum's uniforms (and the profile's alias bits)
 BLOCK_SOURCE = 4     # the Philox block of an extended source's position
 BLOCK_SOURCE2 = 5    # its normal (gaussian) or its alias draw
+BLOCK_ILLUM = 6      # round r of an illumination sampler: block 6 + r
+BLOCK_LIMB = 14      # the stellar peel's limb rounds (two a block) and vphi
 
 # K2's instances (csrc/refill.cu kSrc), each counted under its own name
-FAMILY_POINT, FAMILY_RADIAL, FAMILY_VOLUME, FAMILY_ALIAS = 0, 1, 2, 3
+FAMILY_POINT, FAMILY_RADIAL, FAMILY_VOLUME, FAMILY_ALIAS, FAMILY_ILLUM = \
+    range(5)
 REFILL_KERNELS = ('refill_point', 'refill_radial', 'refill_volume',
-                  'refill_alias')
+                  'refill_alias', 'refill_illum')
 (GEOM_POINT, GEOM_EXP_CYLINDER, GEOM_RADIAL_SPHERE, GEOM_UNIFORM_SPHERE,
  GEOM_CYLINDER, GEOM_BOX, GEOM_XY_DISK, GEOM_XY_BOX, GEOM_GAUSSIAN,
  GEOM_EXPONENTIAL, GEOM_STARS, GEOM_CELLS, GEOM_LEAVES,
- GEOM_PROFILE) = range(14)
+ GEOM_PROFILE, GEOM_PROFILE_PLANE, GEOM_STELLAR, GEOM_POINT_ILLUM,
+ GEOM_PLANE_ILLUM) = range(18)
 GEOMETRIES = {
     'point': GEOM_POINT, '': GEOM_POINT,
     'exponential_cylinder': GEOM_EXP_CYLINDER,
@@ -150,12 +182,17 @@ GEOMETRIES = {
     'uniform_cylinder': GEOM_CYLINDER, 'cylinder': GEOM_CYLINDER,
     'uniform': GEOM_BOX, 'uniform_xy': GEOM_XY_BOX,
     'gaussian': GEOM_GAUSSIAN, 'exponential': GEOM_EXPONENTIAL,
-    'star_file': GEOM_STARS, 'diffuse_emissivity': GEOM_CELLS}
+    'star_file': GEOM_STARS, 'diffuse_emissivity': GEOM_CELLS,
+    'stellar_illumination': GEOM_STELLAR,
+    'point_illumination': GEOM_POINT_ILLUM,
+    'plane_illumination': GEOM_PLANE_ILLUM}
 
 
 def family_of(geom: int) -> int:
     if geom in (GEOM_EXP_CYLINDER, GEOM_RADIAL_SPHERE):
         return FAMILY_RADIAL
+    if geom >= GEOM_STELLAR:
+        return FAMILY_ILLUM
     if geom >= GEOM_STARS:
         return FAMILY_ALIAS
     return FAMILY_VOLUME
@@ -172,7 +209,18 @@ class SourceC(ctypes.Structure):
                 ('amin', _F * 3), ('d', _F * 3), ('span', _F * 3),
                 ('prob', _P), ('alias', _P), ('nbin', _I), ('wgt', _P),
                 ('px', _P), ('py', _P), ('pz', _P), ('ph', _P),
-                ('va0', _F), ('dfreq0', _F), ('f_line', _F)]
+                ('va0', _F), ('dfreq0', _F), ('f_line', _F),
+                ('Rs', _F), ('Dsp', _F), ('atm_r', _F), ('atm_r2', _F),
+                ('cosvt_c1', _F), ('cosvt_max', _F), ('cost_c1', _F),
+                ('cost_max', _F), ('flux_fac1', _F), ('limb', _I),
+                ('limb_pmax', _F), ('dist_wall', _F), ('costm_c1', _F),
+                ('costm', _F), ('zface', _F), ('ibox', _F * 4),
+                ('below', _I), ('dphi', _F)]
+
+
+class ProfC(ctypes.Structure):
+    """csrc/refill.cu struct ProfC: the line_prof_file spectrum's table."""
+    _fields_ = [('prob', _P), ('alias', _P), ('edges', _P), ('n', _I)]
 
 
 def iso_sphere(rp, xi1, xi2):
@@ -208,6 +256,7 @@ class Source:
     va0: float = 0.0
     dfreq0: float = 1.0
     f_line: float = 0.0
+    illum: Optional[Illumination] = None   # an illumination's constants
 
     @property
     def family(self) -> int:
@@ -223,19 +272,23 @@ class Source:
                     device='cpu') -> Optional['Source']:
         """The config's source, or None for a point source with one of the
         spectra the point instance draws (monochromatic, voigt, gaussian,
-        continuum)."""
+        continuum, line_prof_file)."""
         par, line = cfg.par, cfg.line
         sg = par.source_geometry.strip().lower()
         st = par.spectral_type.strip().lower()
         geom = GEOMETRIES[sg]
-        if geom == GEOM_POINT and SPECTRA[st] < SPECTRUM_VOIGT0:
+        if geom == GEOM_POINT and SPECTRA[st] not in (SPECTRUM_VOIGT0,
+                                                      SPECTRUM_CONT_GAUSS):
             return None
         if sg == 'uniform_xy' and par.source_rmax > 0:
             geom = GEOM_XY_DISK
         leaves = None
         if geom == GEOM_CELLS:
             if emiss_kind(par) == 'profile':
-                geom = GEOM_PROFILE
+                # a 1-D profile: the radius of a sphere, or the height of
+                # a plane atmosphere (engine.py:2661-2667)
+                geom = GEOM_PROFILE_PLANE if par.geometry.strip().lower() \
+                    == 'plane_atmosphere' else GEOM_PROFILE
             elif meta.grid_type == 'amr':
                 geom = GEOM_LEAVES
                 leaves = (grid.leaf_cx, grid.leaf_cy, grid.leaf_cz,
@@ -274,7 +327,8 @@ class Source:
                    span=(meta.xmax - meta.xmin, meta.ymax - meta.ymin,
                          meta.zmax - meta.zmin),
                    leaves=leaves, va0=float(f32(va0)),
-                   dfreq0=float(f32(dfreq0)), f_line=float(f32(f_line)))
+                   dfreq0=float(f32(dfreq0)), f_line=float(f32(f_line)),
+                   illum=Illumination.from_config(cfg, meta))
 
     def _box(self, u, axis):
         return fma(u, self.span[axis], self.amin[axis])
@@ -324,6 +378,9 @@ class Source:
             if g == GEOM_PROFILE:
                 rp, wgt = sample_alias_linear(t, idx, to_uniform(bits[2]))
                 x, y, z = iso_sphere(rp, w[1], w[2])
+            elif g == GEOM_PROFILE_PLANE:
+                z, wgt = sample_alias_linear(t, idx, to_uniform(bits[2]))
+                x, y = self._box(w[0], 0), self._box(w[1], 1)
             else:
                 if t.wgt is not None:
                     wgt = t.wgt[idx]
@@ -341,6 +398,43 @@ class Source:
         if self.abs_xyz:
             x, y, z = torch.abs(x), torch.abs(y), torch.abs(z)
         return x, y, z, wgt
+
+    def illuminate(self, seed, lanes, counter):
+        """An illumination's births (sources.py:354-474, engine.py:
+        2645-2660, :2707-2719): (x, y, z, (kx, ky, kz), wgt, flux factor,
+        nrejected), the last two None for plane_illumination; the rounds
+        of the stellar and point samplers read blocks BLOCK_ILLUM + r, the
+        plane's disk words 0 and 1 of block 4."""
+        il = self.illum
+        if il.kind == 'plane':
+            w = uniforms(seed, STREAM_REFILL, lanes, counter, BLOCK_SOURCE)
+            x, y, z, kz = sample_plane_illumination(il, w[0], w[1])
+            zero = torch.zeros_like(x)
+            k = (zero, zero.clone(), torch.full_like(x, kz))
+            wgt = ff = nrej = None
+        else:
+            xi = uniforms(seed, STREAM_REFILL, lanes, counter,
+                          range(BLOCK_ILLUM, BLOCK_ILLUM + N_ROUNDS))
+            sampler = sample_stellar_illumination if il.kind == 'stellar' \
+                else sample_point_illumination
+            x, y, z, kx, ky, kz, wgt, ff, nrej = sampler(
+                il, xi[:, :il.n_uniforms])
+            k = (kx, ky, kz)
+        if self.abs_xyz:
+            x, y, z = torch.abs(x), torch.abs(y), torch.abs(z)
+        return x, y, z, k, wgt, ff, nrej
+
+    def limb_sample(self, seed, lanes, counter):
+        """The stellar direct peel's one limb-darkened surface sample of
+        each lane, (cos theta, vphi) (peel.py:732-737): the rounds of
+        sample_limb_cost from blocks BLOCK_LIMB.. (two a block), vphi = 2
+        pi u from word 0 of block BLOCK_LIMB + 4."""
+        w = uniforms(seed, STREAM_REFILL, lanes, counter,
+                     range(BLOCK_LIMB, BLOCK_LIMB + N_ROUNDS // 2 + 1))
+        xi = torch.stack([w[r // 2, 2 * (r % 2):2 * (r % 2) + 2]
+                          for r in range(N_ROUNDS)])
+        return (sample_limb_cost(self.illum.limb, xi),
+                TWOPI * w[N_ROUNDS // 2, 0])
 
     def cells(self, pos):
         """The Cartesian cells (ic, jc, kc) holding the positions, clipped
@@ -379,6 +473,18 @@ class Source:
             c.px, c.py, c.pz, c.ph = (None if v is None else v.data_ptr()
                                       for v in pts)
         c.va0, c.dfreq0, c.f_line = self.va0, self.dfreq0, self.f_line
+        il = self.illum
+        if il is not None:
+            c.Rs, c.Dsp, c.atm_r, c.atm_r2 = il.Rs, il.D, il.rmax, \
+                il.rmax * il.rmax
+            c.cosvt_c1, c.cosvt_max = 1.0 - il.cosvt_max, il.cosvt_max
+            c.cost_c1, c.cost_max = 1.0 - il.cost_max, il.cost_max
+            c.flux_fac1, c.limb = il.flux_fac1, il.limb
+            c.limb_pmax = limb_pmax(il.limb) if il.limb >= 2 else 1.0
+            c.dist_wall, c.costm_c1, c.costm = il.dist_wall, \
+                1.0 - il.costm, il.costm
+            c.zface, c.ibox[:], c.below = il.zface, il.box, int(il.below)
+            c.dphi = il.dphi if not il.top else -1.0
         return c
 
     def tensors(self):
@@ -419,6 +525,7 @@ class RefillParams:
     # Doppler width, flat; None at uniform temperature
     cell_a: Optional[torch.Tensor] = None
     cell_D: Optional[torch.Tensor] = None
+    lp: Optional[LineProfTable] = None   # the line_prof_file spectrum
 
     @property
     def kernel(self) -> str:
@@ -439,9 +546,8 @@ class RefillParams:
         cells, v_src, amr, vel = [0, 0, 0], (0.0, 0.0, 0.0), None, None
         clump = cell_a = cell_D = None
         a_src, D_src = float(meta.voigt_a_ref), float(meta.Dfreq_ref)
-        source = Source.from_config(
-            cfg, meta, grid, host_data,
-            'cpu' if grid is None else grid.rhokap.device)
+        device = 'cpu' if grid is None else grid.rhokap.device
+        source = Source.from_config(cfg, meta, grid, host_data, device)
         extended = source is not None and source.geom != GEOM_POINT
         if meta.grid_type == 'clump':
             # the births find their clump themselves (clump_find)
@@ -493,7 +599,26 @@ class RefillParams:
                    line=pline.LineConsts.from_config(cfg), amr=amr, vel=vel,
                    clump=clump, source=source, D_src=D_src,
                    grid_n=(meta.nx, meta.ny, meta.nz), cell_a=cell_a,
-                   cell_D=cell_D)
+                   cell_D=cell_D,
+                   lp=LineProfTable.from_config(cfg, device)
+                   if par.spectral_type.strip().lower() == 'line_prof_file'
+                   else None)
+
+    @functools.cached_property
+    def prof_struct(self) -> Optional[ProfC]:
+        if self.lp is None:
+            return None
+        c = ProfC()
+        c.prob, c.alias, c.edges = (t.data_ptr() for t in self.lp.tensors())
+        c.n = self.lp.n
+        return c
+
+    @property
+    def illumination(self) -> bool:
+        """A stellar or point illumination: the births sum their flux
+        factors and rejected draws."""
+        return self.source is not None and self.source.geom in (
+            GEOM_STELLAR, GEOM_POINT_ILLUM)
 
 
 def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
@@ -520,9 +645,16 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     src = [torch.full((B,), v, dtype=torch.float32, device=dev)
            for v in (p.xs, p.ys, p.zs)]
     wgt = None     # the birth weight: 1 but for a composite-biased table
-    if p.source is not None:
+    kdir = ff = nrej = None     # an illumination's direction, flux, draws
+    if p.source is not None and p.source.family == FAMILY_ILLUM:
+        # an illumination: position, direction and limb weight by the
+        # rejection rounds of blocks 6.. (engine.py:2707-2719)
+        *src, kdir, wgt, ff, nrej = p.source.illuminate(seed, lanes,
+                                                        counter)
+    elif p.source is not None:
         # an extended source: each birth's own position (blocks 4, 5)
         *src, wgt = p.source.position(seed, lanes, counter, src)
+    if p.source is not None:
         if p.clump is None and p.amr is None \
                 and p.source.geom != GEOM_POINT:
             cell = p.source.cells(src)
@@ -548,11 +680,22 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     # D_loc / Dfreq_ref, exactly 1 at uniform temperature
     ratio = doppler_ratio(D_loc, p.Dfreq)
     u, v = uniforms(seed, STREAM_REFILL, lanes, counter, range(2))
-    cost = 2.0 * u[0] - 1.0
-    sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
-    phi = TWOPI * u[1]
-    cosp, sinp = torch.cos(phi), torch.sin(phi)
-    kx, ky, kz = sint * cosp, sint * sinp, cost
+    if kdir is None:
+        # isotropic
+        cost = 2.0 * u[0] - 1.0
+        sint = torch.sqrt(torch.clamp_min(1.0 - cost * cost, 0.0))
+        phi = TWOPI * u[1]
+        cosp, sinp = torch.cos(phi), torch.sin(phi)
+        kx, ky, kz = sint * cosp, sint * sinp, cost
+    else:
+        # beamed: the sampler's direction and its triad (engine.py:
+        # 2740-2749)
+        kx, ky, kz = kdir
+        cost = kz
+        sint = torch.sqrt(torch.clamp_min(1.0 - kz * kz, 0.0))
+        safe = torch.clamp_min(sint, 1e-20)
+        cosp = torch.where(sint > 0, kx / safe, torch.ones_like(kx))
+        sinp = torch.where(sint > 0, ky / safe, torch.zeros_like(ky))
 
     xfreq = torch.full((B,), p.xfreq0, dtype=torch.float32, device=dev)
     if p.line.branch_init:
@@ -585,6 +728,12 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
         xfreq = torch.where(w[2] < p.source.f_line,
                             xfreq + box_muller(w[0], w[1]) * p.sigma_x,
                             p.xfreq_min + w[3] * p.xfreq_span) / ratio
+    elif p.spectrum == SPECTRUM_LINE_PROF:
+        # the profile's alias bin, uniform within it; replaces xfreq, the
+        # branch shift too (engine.py:2826-2834)
+        bits = words(seed, STREAM_REFILL, lanes, counter, BLOCK_SPECTRUM)
+        xfreq = p.lp.sample(bits[0], to_uniform(bits[1]),
+                            to_uniform(bits[2])) / ratio
 
     # lab-frame source -> comoving frequency; Jin at the lab frequency
     if p.clump is not None:
@@ -622,8 +771,20 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
                     ('nny', cosp), ('nnz', 0.0), ('iband', 1)):
         put(nm, val)
     state.n_launched += n_new
+    if ff is not None:
+        # transit bookkeeping over the launched lanes (engine.py:2900-2908)
+        tallies.flux_factor += torch.where(launch, ff, 0.0).sum()
+        tallies.nrejected += torch.where(launch, nrej, 0.0).sum()
     if record is not None:
         record.flag.copy_(launch.to(torch.int32))
+        if p.source is not None and p.source.geom == GEOM_STELLAR:
+            # the stellar direct peel's surface sample, shared by every
+            # observer's pair (peel.py:732-737)
+            cost_s, vphi = p.source.limb_sample(seed, lanes, counter)
+            record.limb_cost.copy_(torch.where(launch, cost_s,
+                                               record.limb_cost))
+            record.limb_vphi.copy_(torch.where(launch, vphi,
+                                               record.limb_vphi))
 
 
 def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
@@ -644,7 +805,10 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
                         *(() if p.clump is None else p.clump.dev.tensors()),
                         *(() if p.source is None else p.source.tensors()),
                         *(p.vel or ()),
-                        *(() if p.cell_D is None else (p.cell_a, p.cell_D)))
+                        *(() if p.cell_D is None else (p.cell_a, p.cell_D)),
+                        *(() if p.lp is None else p.lp.tensors()),
+                        *((tallies.flux_factor, tallies.nrejected)
+                          if p.illumination else ()))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
@@ -660,6 +824,9 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         *((None, None) if p.cell_D is None
           else (p.cell_a.data_ptr(), p.cell_D.data_ptr())),
         None if p.source is None else ctypes.byref(p.source.c_struct),
+        None if p.lp is None else ctypes.byref(p.prof_struct),
+        *((tallies.flux_factor.data_ptr(), tallies.nrejected.data_ptr())
+          if p.illumination else (None, None)),
         kbuild.stream_of(state.x)),
         name)
     kbuild.LAUNCHES[name] += 1

@@ -9,9 +9,11 @@ that polarized peel-off carries (engine.py:80-90), and the photon's band
 (engine.py:98-99: 1 the resonance line, 2 the H-alpha photon a Ly-beta
 scattering converts to, line type 8).  The shear and all-photons fields
 come with the features that use them.  The Ly-beta tallies (Jout_Ha,
-Jabs_Ha and the band budgets) exist only for line type 8 and the H2
-tallies only with H2 pumping on, so a run without them carries and
-reads what it did before.
+Jabs_Ha and the band budgets) exist only for line type 8, the H2
+tallies only with H2 pumping on, Jabs2 only in an exoplanet atmosphere
+and the flux factor and rejected draws only for a stellar or point
+illumination, so a run without them carries and reads what it did
+before.
 
 Unlike the JAX pytrees these are mutable: refill, fly and scatter update
 the tensors in place (kernels and plain versions alike), so one batch
@@ -42,6 +44,7 @@ INT_FIELDS = frozenset({'phase', 'ic', 'jc', 'kc', 'bic', 'bjc', 'bkc',
                         'iband'})
 LYB_SCALARS = ('W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2')
 H2_SCALARS = ('W_H2abs', 'W_H2scat')
+ILLUM_SCALARS = ('flux_factor', 'nrejected')
 
 
 @dataclasses.dataclass(eq=False)
@@ -133,6 +136,13 @@ class Tallies:
     W_H2abs: Optional[torch.Tensor] = None
     W_H2scat: Optional[torch.Tensor] = None
     W_H2pump: Optional[torch.Tensor] = None
+    # an exoplanet atmosphere: the weight destroyed at its bottom face or
+    # in its masked core, by lab frequency (engine.py:121-124)
+    Jabs2: Optional[torch.Tensor] = None
+    # a stellar or point illumination: the births' summed flux factors
+    # and rejected draws (() f32 each; engine.py:119-120)
+    flux_factor: Optional[torch.Tensor] = None
+    nrejected: Optional[torch.Tensor] = None
 
 
 def init_state(batch: int, device) -> BatchState:
@@ -152,8 +162,11 @@ def init_state(batch: int, device) -> BatchState:
 
 
 def zero_tallies(nxfreq: int, nmu: int, device, lyb: bool = False,
-                 h2: bool = False) -> Tallies:
-    """Zero tallies; `lyb` adds line type 8's, `h2` H2 pumping's."""
+                 h2: bool = False, atmosphere: bool = False,
+                 illumination: bool = False) -> Tallies:
+    """Zero tallies; `lyb` adds line type 8's, `h2` H2 pumping's,
+    `atmosphere` Jabs2, `illumination` flux_factor and nrejected
+    (engine.py:240-246)."""
     def z(n):
         return torch.zeros((n,), dtype=torch.float32, device=device)
 
@@ -166,6 +179,10 @@ def zero_tallies(nxfreq: int, nmu: int, device, lyb: bool = False,
                      **{k: s() for k in LYB_SCALARS})
     if h2:
         extra.update(W_H2pump=z(2), **{k: s() for k in H2_SCALARS})
+    if atmosphere:
+        extra.update(Jabs2=z(nxfreq))
+    if illumination:
+        extra.update({k: s() for k in ILLUM_SCALARS})
     return Tallies(Jin=z(nxfreq), Jout=z(nxfreq), Jmu=z(nxfreq * nmu),
                    nscatt_gas=s(), nscatt_events=s(), W_oor=s(),
                    Jabs=z(nxfreq), nscatt_dust=s(), **extra)

@@ -160,3 +160,99 @@ def run_port_cpu(par, seed):
         return driver.run(par, device='cpu', seed=seed)
     finally:
         torch.set_num_threads(nthreads)
+
+
+# --------------------------------------------------------------------------
+# the atmospheres end to end (tests/test_torch_atmosphere*.py)
+# --------------------------------------------------------------------------
+
+def _ff_sigma(par, n):
+    """The sigma of the normalized flux factor sum(ff) / (n + sum(nrej))
+    of n photons, by the delta method from 2^16 births of the port's plain
+    sampler (each birth's flux factor and rejected rounds)."""
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.physics import sources as tsrc
+    cfg = par.resolve()
+    meta = build_cartesian(cfg)[0] if not par.use_amr_grid else None
+    il = tsrc.Illumination.from_config(cfg, meta)
+    m = 1 << 16
+    xi = torch.from_numpy(np.random.default_rng(7).random(
+        (tsrc.N_ROUNDS, il.n_uniforms, m)).astype(np.float32))
+    sampler = tsrc.sample_stellar_illumination if il.kind == 'stellar' \
+        else tsrc.sample_point_illumination
+    out = sampler(il, xi)
+    ff, nrej = out[7].double().numpy(), out[8].double().numpy()
+    r = ff.sum() / (m + nrej.sum())
+    z = ff - r * (1.0 + nrej)
+    return float(z.std() / (1.0 + nrej.mean()) / np.sqrt(n))
+
+
+def atmosphere_against_lart_tpu(name, par, data=None, destroys=True,
+                                illum=True, stellar=False, n_runs=4):
+    """The port's driver.run on the CPU (par's photons in n_runs runs from
+    seeds 3, 4, ...; AMR leaves `data` in memory) against lart_tpu's
+    driver.run at B = 2560 (the leaves written to a generic AMR file): each
+    run's budget W_esc + W_abs2 + W_oor against its birth weights in the
+    band (Jin) to 1e-3; <N_scatt>, the Jabs2 share and the normalized flux
+    factor within 5% or 3 sigma (the runs' spread for <N_scatt>, binomial
+    for the share, _ff_sigma for the flux factor); with a stellar peel,
+    Direct <= Direct0 (1 + 1e-6) in every bin and the transit depth within
+    3 sigma (testing.transit)."""
+    import dataclasses
+    import math
+    import os
+    import tempfile
+    from lart_tpu import driver as jdriver
+    from lart_tpu_torch import driver
+    sub = dataclasses.replace(par, nphotons=par.nphotons // n_runs)
+    runs = [driver.run(sub, device='cpu', seed=3 + i, amr_data=data)
+            for i in range(n_runs)]
+    budgets = [testing.atmosphere_budget(r) for r in runs]
+    jpar = jax_params(par)
+    jpar.batch_size = 2560
+    if data is not None:
+        from lart_tpu.grid.amr import write_generic_amr
+        with tempfile.TemporaryDirectory() as td:
+            jpar.amr_file = os.path.join(td, 's.h5')
+            write_generic_amr(jpar.amr_file, data)
+            jres = jdriver.run(jpar, seed=5)
+    else:
+        jres = jdriver.run(jpar, seed=5)
+    jb = testing.atmosphere_budget(jres)
+    n_port = sum(r.nphotons for r in runs)
+    for b in budgets:
+        assert abs(b['total'] - b['birth']) < 1e-3, (name, b)
+    assert abs(jb['total'] - jb['birth']) < 1e-3, (name, jb)
+    if destroys:
+        assert min(b['W_abs2'] for b in budgets) > 0.0
+    for key in ('N', 'share', 'ff'):
+        v = np.array([b[key] for b in budgets])
+        got, want = float(v.mean()), jb[key]
+        if key == 'share':
+            sig = math.sqrt(want * (1 - want) / jres.nphotons
+                            + got * (1 - got) / n_port)
+        elif key == 'ff':
+            if not illum:
+                continue
+            sig = math.hypot(_ff_sigma(par, n_port),
+                             _ff_sigma(par, jres.nphotons))
+        else:
+            spread = float(v.std(ddof=1)) * math.sqrt(n_port / n_runs)
+            sig = spread * math.sqrt(1.0 / n_port + 1.0 / jres.nphotons)
+        assert abs(got - want) <= max(0.05 * abs(want), 3.0 * sig), \
+            (name, key, got, want, sig)
+    if illum:
+        assert all(r.flux_factor > 0.0 and r.nrejected >= 0.0 for r in runs)
+    if stellar:
+        depths = []
+        for r in runs:
+            d0, d1 = r.peel['direc0'][0], r.peel['direc'][0]
+            assert float(d0.sum()) > 0.0
+            assert np.all(d1 <= d0 * (1 + 1e-6))
+            depths.append(testing.transit(r))
+        depth = float(np.mean([d[0] for d in depths]))
+        sig = math.sqrt(sum(d[1] ** 2 for d in depths)) / len(depths)
+        jdepth, jsig, _ = testing.transit(jres)
+        assert jdepth > 0.02 and depth > 0.02
+        assert abs(depth - jdepth) <= 3.0 * math.hypot(sig, jsig), \
+            (name, depth, sig, jdepth, jsig)

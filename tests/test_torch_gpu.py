@@ -64,6 +64,15 @@ TEMP_KEYS = {k + ' (per-cell T)' for k in (
         'refill_point', 'fly_amr', 'scatter_lya', 'peel')}
 
 
+# the atmospheres and the illuminations: K2's illumination instance (and its
+# point instance with line_prof_file), K5's atmosphere branches, K7's mask
+# walk and PEEL_STELLAR, a090's +z transit on its own (chip_smoke.
+# phase2_atmosphere; its plane-profile case fills refill_alias)
+ATM_KEYS = {'refill_illum', 'refill_point (atmosphere)',
+            'fly_cartesian (atmosphere)', 'peel (stellar)',
+            'peel (stellar, +z)'}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
@@ -77,7 +86,7 @@ def test_kernels_match_plain_versions(cuda):
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
-        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS
+        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS | ATM_KEYS
 
 
 # a source of each K2 instance on a 17^3 sphere: (overrides, instance)
@@ -506,3 +515,30 @@ def test_driver_runs_the_interior_observer(cuda):
     m = res.sightline[0]
     assert m['tau_gas'].shape == (res.meta.nxfreq, 3072, 1)
     assert np.all(np.isfinite(m['tau_gas'])) and float(m['N_gas'].min()) > 0
+
+
+def test_driver_runs_the_atmosphere(cuda):
+    """driver.run on examples/star_planet/star_planet_a090.in cut to 33^3
+    and 2e4 photons with its observer on +z and Direct0: K2's illumination
+    instance, K5 with the masked core, K4 and K7's PEEL_STELLAR launched;
+    the budget W_esc + W_abs2 + W_oor closes on the birth weights, and
+    Direct <= Direct0 in every bin with a transit shadow."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    par = testing.source_params(
+        'a090', Path(__file__).resolve().parents[1], nx=33, ny=33, nz=33,
+        nphotons=20000, beta=(0.0,), save_direc0=True)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=3)
+    need = ('refill_illum', 'fly_cartesian', 'scatter_lya', 'peel_stellar')
+    assert all(kb.LAUNCHES[k] > 0 for k in need), kb.LAUNCHES
+    b = testing.atmosphere_budget(res)
+    assert abs(b['total'] - b['birth']) < 1e-3, b
+    assert b['W_abs2'] > 0.0 and res.flux_factor > 0.0
+    d0, d1 = res.peel['direc0'], res.peel['direc']
+    assert float(d0.sum()) > 0.0 and np.all(d1 <= d0 * (1 + 1e-6))
+    assert testing.transit(res)[0] > 0.0

@@ -57,6 +57,17 @@ from lart_tpu_torch.transport.state import FLYING, DEAD, zero_tallies
 
 import _torch_jax_bridge as bridge
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """The plain versions in one torch thread: under Tier-1's six workers
+    torch's default pool oversubscribes the cores (in a whole run
+    test_h2_off_draws_as_before took 790 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 P_MIN = 1e-3
 KAPPA_RTOL = 2e-6
 TABLES = {

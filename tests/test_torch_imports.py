@@ -1,9 +1,11 @@
 """The port stands alone: every module of lart_tpu_torch, and
 chip_smoke.py, imports with lart_tpu and jax made unimportable, builds an
 AMR grid with its own octree builder and a clump population with its own
-copy of build_clumps, and builds a Cartesian grid from FITS temperature
+copy of build_clumps, builds a Cartesian grid from FITS temperature
 and density cubes with astropy unimportable too (io/reader.py reads them
-through the port's minifits)."""
+through the port's minifits), and builds star_planet_a090.in's
+atmosphere at 9^3 and refills it (the line-profile file, the stellar
+illumination and its peel)."""
 
 import os
 import subprocess
@@ -52,6 +54,19 @@ rho = testing.write_cube(os.path.join(d, 'rho.fits.gz'), testing.turb_cube(9))
 m, g = build_cartesian(testing.sphere_params(
     n=9, temp_file=T, dens_file=rho).resolve())
 assert not m.uniform_temperature and g.Dfreq is not None
+# the atmosphere of star_planet_a090.in (its profiles, the line-profile
+# file, the stellar illumination and its peel) and one refill of it
+import pathlib
+from lart_tpu_torch.transport.refill import refill
+from lart_tpu_torch.transport.state import init_state
+par = testing.source_params('a090', pathlib.Path('.'), nx=9, ny=9, nz=9)
+m, g = build_cartesian(par.resolve())
+ch = make_chunk(par.resolve(), m, g)
+assert ch.refill_params.kernel == 'refill_illum' and ch.peel.stellar
+s = init_state(256, 'cpu')
+t = ch.zero_tallies('cpu')
+refill(s, t, ch.refill_params, 1, 0, 256)
+assert float(t.flux_factor) > 0.0 and t.Jabs2 is not None
 print(len(names))
 """
 

@@ -335,14 +335,18 @@ def test_check_supported_names_the_refused_sources():
     teng.check_supported(testing.sphere_params(
         source_geometry='diffuse_emissivity', emiss_file='cube.fits'
     ).resolve())
-    for st in ('voigt0', 'continuum+gaussian'):
+    for st in ('voigt0', 'continuum+gaussian', 'line_prof_file'):
         teng.check_supported(testing.sphere_params(
             spectral_type=st).resolve())
+    # the illuminations and a plane atmosphere's 1-D emissivity profile
+    # (tests/test_torch_atmosphere.py)
+    for over in (dict(source_geometry='plane_illumination'),
+                 dict(source_geometry='point_illumination'),
+                 dict(source_geometry='stellar_illumination'),
+                 dict(source_geometry='diffuse_emissivity', emiss_file=PROFILE,
+                      geometry='plane_atmosphere')):
+        teng.check_supported(testing.sphere_params(**over).resolve())
     refused = (
-        (dict(source_geometry='plane_illumination'), 'illumination'),
-        (dict(source_geometry='point_illumination'), 'illumination'),
-        (dict(source_geometry='stellar_illumination'), 'illumination'),
-        (dict(spectral_type='line_prof_file'), 'line-profile file'),
         # a 3-D cube is read on a Cartesian grid (io/reader.py), but
         # lart_tpu would read it as the leaves' emissivity on the octree
         (dict(source_geometry='diffuse_emissivity', emiss_file='cube.fits',
@@ -351,8 +355,6 @@ def test_check_supported_names_the_refused_sources():
               use_amr_grid=True), "'density1'/'density2' on an AMR grid"),
         (dict(source_geometry='diffuse_emissivity', emiss_file='density1',
               use_clump_medium=True), 'clump medium'),
-        (dict(source_geometry='diffuse_emissivity', emiss_file=PROFILE,
-              geometry='plane_atmosphere'), 'plane_atmosphere'),
         (dict(source_geometry='ring'), "source_geometry 'ring'"))
     for over, words in refused:
         with pytest.raises(NotImplementedError, match=words):

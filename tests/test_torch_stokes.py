@@ -25,6 +25,17 @@ from lart_tpu_torch.transport.state import (AT_SCATTER, DEAD, FLYING,
 
 import _torch_jax_bridge as bridge
 
+
+@pytest.fixture(autouse=True, scope='module')
+def one_torch_thread():
+    """The plain versions in one torch thread: under Tier-1's six workers
+    torch's default pool oversubscribes the cores (in a whole run
+    test_triad_stays_orthonormal_after_many_scatterings took 470 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 P_MIN = 1e-3
 TRIAD = ('kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz')
 

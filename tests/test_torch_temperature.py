@@ -548,10 +548,10 @@ def test_check_supported_accepts_the_temperature_examples():
     for rel in names:
         teng.check_supported(
             Params.from_namelist(str(ROOT / 'examples' / rel)).resolve())
+    # the star_planet examples' atmosphere, stellar illumination, stellar
+    # peel and line_prof_file are ported too (tests/test_torch_atmosphere.py)
     for path in sorted((ROOT / 'examples/star_planet').glob('*.in')):
-        with pytest.raises(NotImplementedError,
-                           match='atmospheres.*illumination'):
-            teng.check_supported(Params.from_namelist(str(path)).resolve())
+        teng.check_supported(Params.from_namelist(str(path)).resolve())
     # a 3-D emissivity cube on the octree: lart_tpu would read it as leaves
     par = testing.amr_params(16, 1, source_geometry='diffuse_emissivity',
                              emiss_file='emiss.fits')

@@ -401,19 +401,9 @@ OUT_OF_SLICE = {
     # lart_tpu's AMR sightline has no interior branch
     'save_sightline_tau': dict(save_sightline_tau=True, save_peeloff=True,
                                nside=4, use_amr_grid=True),
-    # the stellar direct peel
-    'peel-off observers': dict(save_peeloff=True, nobs=1,
-                               source_geometry='stellar_illumination'),
     'out_merge': dict(out_merge=True),
     'calcJ/calcP/calcPnew': dict(calcJ=True),
-    'atmospheres': dict(geometry='plane_atmosphere'),
     'shearing box': dict(xy_periodic=True, Omega=1.0),
-    # the illumination samplers and the line-profile file (ROADMAP queue 1
-    # item 4)
-    'source_geometry other than point': dict(
-        source_geometry='plane_illumination'),
-    'spectral_type other than voigt/monochromatic': dict(
-        spectral_type='line_prof_file'),
     # the 3-D grid files are read (io/reader.py); a 3-D emissivity cube on
     # the octree or the clumps is not: lart_tpu would read it as leaves or
     # clumps
