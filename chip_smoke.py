@@ -10,7 +10,8 @@ sight-line tau maps (CIV_test.in, the standalone sightline tool), the
 volume and table sources, the per-cell temperature with the 3-D
 density cubes (AlII_ex.in, FeII_turb, Prochaska), and exoplanet
 atmospheres lit by the illumination sources (star_planet_a090.in,
-wasp52b_like.in), and measures their steady-state rates.
+wasp52b_like.in), the TIGRESS shearing box (shear.in) and the CALCJ/
+CALCP/CALCPnew maps, and measures their steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
@@ -93,7 +94,14 @@ Phases (one line each, or more):
      at tau 1e4, plane_illumination's disk; a 1x1x201 plane atmosphere
      (K2's plane_illumination, K5's bottom face, a 1-D emissivity profile
      in the alias instance); point_illumination; stellar births and
-     PEEL_STELLAR on the AMR sphere and on clumps_overlap.in
+     PEEL_STELLAR on the AMR sphere and on clumps_overlap.in; the
+     shearing box and the maps (phase2_shear): K5's shear wrap on
+     tigress_shear/shear.in as written (lanes next to both x faces) and
+     K2's unsheared births there, K5's J1 and Pnew deposits and K4's Pa
+     deposit on t1tau6.in and t4tau7.in as written and a 65^3 box (the
+     three binning geometries; t4tau7 with calcP alone on K6), the maps
+     within 1e-5 of their largest bin, and one 32-cycle chunk against
+     its cycles flushed one at a time (the f64 maps' worst bin)
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -151,7 +159,13 @@ Phases (one line each, or more):
      beside lart_tpu's CPU runs, tools/atmosphere_cpu_runs.py, within 5%
      or 3 sigma), a090 with its observer on +z and Direct0 (Direct <=
      Direct0 in every bin, the transit depth beside lart_tpu's) and a
-     1x1x32 plane atmosphere lit by plane_illumination
+     1x1x32 plane atmosphere lit by plane_illumination; the shearing box
+     and the maps (shear_cli): shear.in as written (W_esc + W_oor
+     against the births summed on the device, <N_scatt> and the Jout rms
+     beside lart_tpu's CPU run, tools/shear_cpu_runs.py), t1tau6.in at
+     tauhomo 1e4 and t4tau7.in at taumax 1e3 with calcJ, calcP and
+     calcPnew (their FITS sections, the slab's Pa closure, each map by
+     chi2/dof < 3 beside lart_tpu's CPU runs)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -169,7 +183,9 @@ Phases (one line each, or more):
      jellyfish_pt in Mg II (K8's kMulti instance per leaf),
      star_planet_a090.in and wasp52b_like.in as written (photons/s too; K2's
      illumination instance, K5's atmosphere branches, PEEL_STELLAR with its
-     in-image pairs, as written and on +z); a torch.profiler
+     in-image pairs, as written and on +z), shear.in as written (K5's
+     shear instance) and t1tau6.in as written with the three maps (K5's
+     deposits, K4's Pa); a torch.profiler
      breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
@@ -484,6 +500,10 @@ def kernel_work(name, pre, ch, meta, stats=None):
                 grid += min(cl.n, m if cl.dense else k * m) * 20 \
                     + (0 if cl.dense else min(cl.cg_n ** 3, k) * cl.K * 4)
                 flops += m * 13
+        if sp.jpa is not None:
+            # Pa written once (f64); rhokap_phys and the bin, ~10 flops
+            grid += ch.jpa[1] * 8
+            flops += 10
         return B * 4 + flag + k * per_lane + grid, k * flops
     if name == 'peel':
         # the flag of every lane; the position of each flagged lane; the
@@ -626,6 +646,12 @@ def kernel_work(name, pre, ch, meta, stats=None):
         if f.h2 is not None and stats:
             # the H2 opacity's two Voigt functions each step
             flops = stats['steps'] * 80
+        if f.omega_shear:
+            # each lane's vfy_shear, read and written
+            grid += k * 8
+        if f.jpa is not None:
+            # J1 and Pnew written once (f64)
+            spectra += 8 * sum(ch.jpa[0::2])
     return B * 4 + k * (24 + 12) * 4 + grid + spectra, flops
 
 
@@ -714,12 +740,13 @@ def phase1():
 
 
 def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8,
-         state=None, lyb=False, h2=False, tallies=None):
+         state=None, lyb=False, h2=False, tallies=None, out=None):
     """step(state, tallies, kernel) through the kernel and through the
     plain version from one mixed state (or `state`), with line type 8's
     (lyb) and H2's tallies where asked (or tallies(dev)'s); returns (s0,
     kernel state, fraction of lanes differing, max abs error of the
-    others, tallies' max |d|)."""
+    others, tallies' max |d|); `out`, a dict, receives both tallies under
+    True (the kernel's) and False."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.transport.state import zero_tallies
     s0 = state if state is not None else testing.mixed_state(
@@ -732,6 +759,8 @@ def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8,
     step(sk, tk, True)
     step(sp, tp, False)
     torch.cuda.synchronize()
+    if out is not None:
+        out.update({True: tk, False: tp})
     frac, err = testing.compare_states(sk, sp, LANE_RTOL, LANE_ATOL)
     tal = {}
     for f in check_tallies:
@@ -959,6 +988,7 @@ def phase2(dev):
     phase2_sources(dev, res)
     phase2_temperature(dev, res)
     phase2_atmosphere(dev, res)
+    phase2_shear(dev, res)
     return res
 
 
@@ -1895,6 +1925,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         sources_cli(tmp, device, total)
         temperature_cli(tmp, device, total)
         atmosphere_cli(tmp, device, total)
+        shear_cli(tmp, device, total)
     return total
 
 
@@ -4144,6 +4175,7 @@ def phase5(dev, res):
     sources_phase5(dev, res)
     temperature_phase5(dev, res)
     atmosphere_phase5(dev, res)
+    shear_phase5(dev, res)
 
 
 # ---------------------------------------------------------------------------
@@ -4443,22 +4475,6 @@ def a090_transit_namelist(tmp, photons=None):
                             **keys)
 
 
-def write_namelist(path, par, keys):
-    """A namelist at path with the Params par's values of keys."""
-    lines = ['&parameters']
-    for k in keys:
-        v = getattr(par, k)
-        if isinstance(v, bool):
-            v = '.true.' if v else '.false.'
-        elif isinstance(v, str):
-            v = f"'{v}'"
-        else:
-            v = f'{v:g}'
-        lines.append(f' par%{k} = {v}')
-    path.write_text('\n'.join(lines + ['/', '']))
-    return path
-
-
 def atm_agree(name, res, cpu):
     """<N_scatt>, the Jabs2 share and the normalized flux factor of the
     port's run against lart_tpu's CPU run: each within 5% or 3 sigma of
@@ -4552,7 +4568,7 @@ def atmosphere_cli(tmp, device, total):
     # the plane atmosphere lit by plane_illumination
     par = testing.plane_atmosphere_params(
         nphotons=ATM_CPU['plane']['photons'], file_format='fits')
-    nml = write_namelist(Path(tmp) / 'plane.in', par, (
+    nml = testing.write_namelist(Path(tmp) / 'plane.in', par, (
         'nphotons', 'geometry', 'nx', 'ny', 'nz', 'xmax', 'ymax', 'zmax',
         'taumax', 'temperature', 'xfreq_min', 'xfreq_max',
         'source_geometry', 'spectral_type', 'batch_size', 'chunk_cycles',
@@ -4675,6 +4691,301 @@ def atmosphere_phase5(dev, res):
                        save_direc0=True, nxim=65, nyim=65, obsx=(0.0,),
                        obsy=(0.0,), obsz=(1e5,), nobs=1), dev, min_s=0.2)
     stellar_times(p, smi(), 'wasp52b on +z', {})
+    del p
+
+
+# ---------------------------------------------------------------------------
+# the shearing box and the CALCJ/CALCP/CALCPnew maps
+# ---------------------------------------------------------------------------
+
+# the slice's main path, the maps' flags, the names of its K5 and K4
+# instances in res, and lart_tpu's CPU figures (tools/shear_cpu_runs.py)
+SHEAR_IN = 'tigress_shear/shear.in'
+JPA_ON = dict(calcJ=True, calcP=True, calcPnew=True)
+SHEAR_K, DEPOSITS, PA = ' (shear)', ' (J1, Pnew)', ' (Pa)'
+MAP_REL = 1e-5           # a kernel's map against its plain version's, of
+#                          the largest bin: atomics add in another order
+SHEAR_CPU = ROOT / 'tools' / 'shear_cpu_runs.json'
+# phase 4's cuts of the maps' examples (tools/shear_cpu_runs.py CUTS) and
+# their photons on the card
+MAP_CUTS = {'slab': ('slab/t1tau6.in', dict(tauhomo='1e4'), SLAB_PHOTONS),
+            'sphere': ('sphere/t4tau7.in', dict(taumax='1e3'), 2e4)}
+
+
+def maps_agree(tk, tp, fields):
+    """{map: max |kernel - plain| over its largest bin}, each within
+    MAP_REL."""
+    out = {}
+    for f in fields:
+        u, v = getattr(tk, f), getattr(tp, f)
+        top = float(v.abs().max())
+        assert top > 0.0, f
+        out[f] = float((u - v).abs().max()) / top
+        assert out[f] <= MAP_REL, (f, out[f])
+    return out
+
+
+def jpa_grids(dev):
+    """The three binning geometries at the card's size, one at a time:
+    t1tau6.in as written (1 x 1 x 129, the z cell), t4tau7.in as written
+    (129^3, radial), a 65^3 uniform box without rmax (the flat cell), each
+    with the three maps, and t4tau7.in with calcP alone (K6 and K4's
+    sphere fast path): (label, meta, chunk, r_max)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.transport.engine import make_chunk
+    for label, par, r_max in (
+            ('t1tau6 as written', example_params(
+                'slab/t1tau6.in', batch_size=B_MAIN, **JPA_ON), None),
+            ('t4tau7 as written', example_params(
+                'sphere/t4tau7.in', batch_size=B_MAIN, **JPA_ON), 1.0),
+            ('a 65^3 box', testing.jpa_params(
+                'box', tau0=1e3, batch=B_MAIN, nx=65, ny=65, nz=65), None),
+            ('t4tau7 with calcP alone', example_params(
+                'sphere/t4tau7.in', batch_size=B_MAIN, calcP=True), 1.0)):
+        cfg = par.resolve()
+        meta, grid = build_cartesian(cfg, device=dev)
+        yield label, meta, make_chunk(cfg, meta, grid), r_max
+
+
+def phase2_shear(dev, res):
+    """The shearing box and the maps against the plain versions at B =
+    B_MAIN: K5's shear wrap on shear.in as written (the slice's main path,
+    32 x 32 x 64, omega_shear 2.2; lanes next to both x faces with a
+    shear-frame velocity each) and K2's unsheared births there; K5's J1
+    and Pnew deposits and K4's Pa deposit in the three geometries
+    (jpa_grids), lanes at 0 differing and the maps within MAP_REL of their
+    largest bin; and one 32-cycle chunk against its cycles one at a time
+    with the atomics' f64 maps (tests/test_torch_precision.py's sphere at
+    B = B_MAIN): the states bitwise equal, the worst bin printed."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.config import Params
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.transport.engine import make_chunk
+    from lart_tpu_torch.transport.fly_cartesian import CartesianFlight
+    from lart_tpu_torch.transport.state import DEAD, LANE_FIELDS
+    seed = 1400
+    t0 = time.time()
+    cfg = example_params(SHEAR_IN, batch_size=B_MAIN).resolve()
+    meta, grid = build_cartesian(cfg, device=dev)
+    ch = make_chunk(cfg, meta, grid)
+    om = meta.omega_shear
+    assert isinstance(ch.flight, CartesianFlight) and om > 0.0
+    log(2, f'shear.in as written: {meta.nx}x{meta.ny}x{meta.nz}, '
+           f'omega_shear {om:.6f} (set-up {time.time() - t0:.1f} s)')
+    for _ in range(2):
+        seed += 10
+        s0 = testing.shear_state(meta, B_MAIN, seed, dev)
+        _, sk, frac, err, tal = both(meta, seed, fly_step(ch),
+                                     ('Jout', 'Jmu', 'W_oor'), dev, state=s0,
+                                     tallies=ch.zero_tallies)
+        assert frac == 0.0, frac
+        moved = sk.vfy_shear - s0.vfy_shear
+        up, down = int((moved > 0.5 * om).sum()), int((moved < -0.5 * om)
+                                                      .sum())
+        assert up > 0 and down > 0, (up, down)
+        _max_err(res, 'fly_cartesian' + SHEAR_K, err)
+        log(2, f'K5 fly_cartesian with the shear wrap, shear.in as written '
+               f'(moving, lanes next to both x faces): {up} lanes wrapped '
+               f'+x, {down} -x, lanes differing {frac:.2e}, max abs err '
+               f'{err:.3e}; tallies max |d| {tal}')
+    seed += 10
+    s0 = testing.shear_state(meta, B_MAIN, seed, dev)
+    _, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',), dev,
+                                 state=s0, tallies=ch.zero_tallies)
+    born = (s0.phase == DEAD) & (sk.phase != DEAD)
+    assert frac == 0.0 and int(born.sum()) > 0
+    assert float(sk.vfy_shear[born].abs().max()) == 0.0
+    _max_err(res, 'refill_point', err)
+    log(2, f'K2 refill_point on shear.in: {int(born.sum())} births, each '
+           f'unsheared; lanes differing {frac:.2e}, max abs err {err:.3e}')
+    del grid, ch
+
+    for label, meta, ch, r_max in jpa_grids(dev):
+        seed += 10
+        geo = f'{label} (geometry_JPa {meta.geometry_JPa}, {meta.nbin_JPa} ' \
+              f'bins)'
+        if ch.jpa[0]:
+            out = {}
+            _, _, frac, err, tal = both(meta, seed, fly_step(ch),
+                                        ('Jout', 'Jmu', 'W_oor'), dev,
+                                        r_max=r_max, tallies=ch.zero_tallies,
+                                        out=out)
+            assert frac == 0.0, frac
+            d = maps_agree(out[True], out[False], ('J1', 'Pnew'))
+            _max_err(res, 'fly_cartesian' + DEPOSITS, err)
+            log(2, f'K5 fly_cartesian with the J1 and Pnew deposits, {geo}: '
+                   f'lanes differing {frac:.2e}, max abs err {err:.3e}; maps '
+                   f'max |d| over their largest bin {d}')
+        else:
+            assert type(ch.flight).__name__ == 'SphereFlight'
+        seed += 10
+        out = {}
+        _, _, frac, err, tal = both(meta, seed, scatter_step(ch),
+                                    ('nscatt_gas', 'nscatt_events'), dev,
+                                    r_max=r_max, tallies=ch.zero_tallies,
+                                    out=out)
+        assert frac == 0.0, frac
+        d = maps_agree(out[True], out[False], ('Pa',))
+        _max_err(res, 'scatter_lya' + PA, err)
+        log(2, f'K4 scatter_lya with the Pa deposit, {geo}'
+               f'{" (rk_const " + str(ch.scatter_params.rk_const) + ")" if ch.scatter_params.rk_const > 0 else ""}: '
+               f'lanes differing {frac:.2e}, max abs err {err:.3e}; Pa max '
+               f'|d| over its largest bin {d["Pa"]:.3e}')
+        del ch
+
+    # the f64 maps of one chunk against its cycles flushed one at a time
+    par = Params(nphotons=1 << 30, geometry='sphere', rmax=1.0, nx=33, ny=33,
+                 nz=33, taumax=1e4, temperature=1e4, core_skip=True,
+                 xfreq_min=-40.0, xfreq_max=40.0, nxfreq=129,
+                 batch_size=B_MAIN, fly_substeps=8, scatter_rounds=4,
+                 chunk_cycles=32, refill_every=4, **JPA_ON)
+    t0 = time.time()
+    s1, prod, s2, acc = testing.chunk_vs_cycles(par, device=dev)
+    for f in LANE_FIELDS:
+        assert torch.equal(getattr(s1, f), getattr(s2, f)), f
+    worst = {}
+    for k in ('Jin', 'J1', 'Pa', 'Pnew', 'Jout'):
+        a, b = prod[k], acc[k]
+        if not b.any():
+            continue
+        tot = abs(a.sum() - b.sum()) / b.sum()
+        worst[k] = float(np.abs(a - b).max() / b.max())
+        assert tot < 2e-5 and worst[k] < 5e-5, (k, tot, worst[k])
+    assert {'Jin', 'J1', 'Pa', 'Pnew'} <= set(worst), worst
+    log(2, f'one 32-cycle chunk against its cycles flushed one at a time '
+           f'(33^3 sphere, tau 1e4, core-skip, the three maps, B={B_MAIN}):'
+           f' states bitwise equal; worst bin over the largest {worst} '
+           f'({time.time() - t0:.1f} s)')
+
+
+def shear_cpu():
+    """lart_tpu's CPU figures (tools/shear_cpu_runs.py)."""
+    return json.loads(SHEAR_CPU.read_text())
+
+
+def within(got, want, sig):
+    """|got - want| <= max(5% of want, 3 sig); the relative difference."""
+    assert abs(got - want) <= max(0.05 * abs(want), 3.0 * sig), \
+        (got, want, sig)
+    return got / want - 1.0
+
+
+def shear_cli(tmp, device, total):
+    """The shearing box and the maps through the CLI, FITS written and read
+    back: shear.in as written (the main path; W_esc + W_oor against the
+    births summed on the device, <N_scatt> and the Jout rms against
+    lart_tpu's CPU run within 5% or 3 sigma), and phase 4's cuts of the
+    slab t1tau6.in and of t4tau7.in with calcJ, calcP and calcPnew on (the
+    Jx_1D, Pa_1D and Pa_1D_new sections with their radius and geom_JPa;
+    on the slab the closure sum(Pa raw rhokap_phys) = the scattered weight;
+    each map against lart_tpu's CPU runs by testing.map_chi2 < 3, J1's
+    spectrum not on the periodic slab: testing.map_keys).  Each
+    run's launches go into total['shear'][name]."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.io.iofile import open_read
+    from lart_tpu_torch.io.writer import read_spectrum
+    sub = total.setdefault('shear', {})
+    cpu = shear_cpu()
+    path = ('refill_point', 'fly_cartesian', 'scatter_lya')
+
+    out = Path(tmp) / 'shear.fits'
+    with birth_tally() as born:
+        rc, res, wall, launches = run_cli(namelist_variant(SHEAR_IN, tmp),
+                                          out, device)
+    assert rc == 0 and res.meta.omega_shear > 0.0
+    spec = read_spectrum(str(out))
+    jout = np.asarray(spec['Jout'], np.float64)
+    assert np.all(np.isfinite(jout)) and jout.shape == spec['Xfreq'].shape
+    w_birth = float(torch.stack(born).sum()) / res.nphotons
+    w = res.W_escape + res.W_oor
+    assert abs(w - w_birth) < 1e-3, (w, w_birth)
+    c = cpu['shear']
+    inv = math.sqrt(1.0 / res.nphotons + 1.0 / c['photons'])
+    dN = within(res.nscatt_gas, c['N'], c['N_spread'] * inv)
+    rms = testing.spectrum_rms(res.xfreq, res.Jout)
+    drms = within(rms, c['rms'], c['rms_spread'] * inv)
+    add_launches(total, launches, path)
+    sub['shear'] = launches
+    log(4, f'CLI shear.in as written ({res.nphotons} photons, 32x32x64, '
+           f'omega_shear {res.meta.omega_shear:.6f}, FITS): W_esc '
+           f'{res.W_escape:.6f} + W_oor {res.W_oor:.6f} = {w:.6f} against '
+           f'the births {w_birth:.6f}; <N_scatt> {res.nscatt_gas:.2f} vs '
+           f'lart_tpu {c["N"]:.2f} ({dN:+.4f}), Jout rms {rms:.4f} vs '
+           f'{c["rms"]:.4f} ({drms:+.4f}; lart_tpu {c["photons"]} photons on '
+           f'the CPU); wall {wall:.1f} s; launches {launches}')
+
+    for name, (rel, cut, photons) in MAP_CUTS.items():
+        out = Path(tmp) / f'{name}_maps.fits'
+        nml = namelist_variant(rel, tmp, batch_size=B_MAIN,
+                               nphotons=f'{photons:g}', calcJ='.true.',
+                               calcP='.true.', calcPnew='.true.', **cut)
+        rc, res, wall, launches = run_cli(nml, out, device)
+        assert rc == 0
+        geom = res.meta.geometry_JPa
+        with open_read(str(out)) as f:
+            for sec, arr in (('Jx_1D', res.J1), ('Pa_1D', res.Pa),
+                             ('Pa_1D_new', res.Pnew)):
+                g = f[sec]
+                got = np.asarray(g['data'], np.float64)
+                assert got.shape == arr.shape and np.all(np.isfinite(got))
+                assert np.allclose(got, arr, rtol=1e-6, atol=0.0), sec
+                assert np.array_equal(np.asarray(g['radius']), res.r_JPa)
+                assert int(g.attrs['geom_JPa']) == geom, sec
+        c = cpu[name]
+        runs = c['runs']
+        n_c = c['photons_per_run']
+        maps = testing.run_maps(res)
+        chi = {k: testing.map_chi2([r[k] for r in runs], n_c, [maps[k]],
+                                   res.nphotons)
+               for k in testing.map_keys(res.meta)}
+        assert max(chi.values()) < 3.0, chi
+        msg = ''
+        if name == 'slab':
+            lhs, rhs = testing.pa_closure(res)
+            assert abs(lhs / rhs - 1.0) < 1e-5, (lhs, rhs)
+            msg = (f'closure sum(Pa raw rhokap_phys) {lhs:.6e} against the '
+                   f'scattered weight {rhs:.6e} ({lhs / rhs - 1.0:+.2e}); ')
+        add_launches(total, launches, path)
+        sub[f'{name}_maps'] = launches
+        log(4, f'CLI {rel} cut ({", ".join(f"{k} {v}" for k, v in cut.items())}'
+               f', {res.nphotons} photons) with the three maps '
+               f'(geometry_JPa {geom}, {res.meta.nbin_JPa} bins; FITS '
+               f'sections Jx_1D {res.J1.shape}, Pa_1D, Pa_1D_new): {msg}'
+               f'maps chi2/dof against lart_tpu\'s CPU runs ({len(runs)} x '
+               f'{n_c} photons) {chi}; sum Pnew / sum Pa '
+               f'{res.Pnew.sum() / res.Pa.sum():.4f} (lart_tpu '
+               f'{np.sum([r["Pnew"] for r in runs]) / np.sum([r["Pa"] for r in runs]):.4f}); '
+               f'<N_scatt> {res.nscatt_gas:.2f}; wall {wall:.1f} s; launches '
+               f'{launches}')
+
+
+def shear_phase5(dev, res):
+    """Two windows: shear.in as written (the main path, budget 1e9) and the
+    flagship slab t1tau6.in as written with the three maps (K5's deposits
+    and K4's Pa), each with its profile and the kernel times of K2, K5 and
+    K4 against their plain versions and bounds; K5's shear instance from
+    the first, K5's deposits and K4's Pa from the second go into the
+    kernels line."""
+    over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
+    p, _ = rate_window('shear.in as written (32x32x64, omega_shear 2.2, '
+                       'Hubble Vexp 10, tau 1e4)',
+                       example_params(SHEAR_IN, **over), dev)
+    card = smi()
+    profile_chunks(p, card, 'shear')
+    kernel_times(p, card, 'shear', res, ('refill_point', 'fly_cartesian',
+                                         'scatter_lya'),
+                 record=(('fly_cartesian', SHEAR_K),))
+    del p
+    p, _ = rate_window('t1tau6.in as written with calcJ, calcP and calcPnew '
+                       '(1x1x129, tau 1e6, via K5)',
+                       example_params('slab/t1tau6.in', **over, **JPA_ON),
+                       dev)
+    card = smi()
+    profile_chunks(p, card, 'slab with the maps')
+    kernel_times(p, card, 'slab with the maps', res,
+                 ('refill_point', 'fly_cartesian', 'scatter_lya'),
+                 record=(('fly_cartesian', DEPOSITS), ('scatter_lya', PA)))
     del p
 
 
@@ -4821,6 +5132,26 @@ ATM_KERNELS = (
      'lart_tpu/instruments/peel.py:709', STELLAR_INLINES),
     ('peel' + STELLAR_Z, 'peel', 'a090_transit', 'peel_stellar',
      'lart_tpu/instruments/peel.py:709', STELLAR_INLINES))
+
+
+# this slice's instances on its main paths: K5's shear wrap on shear.in,
+# K5's deposits and K4's Pa on the slab with the maps (phase 5's windows,
+# phase 4's launches): (name, KERNELS key, phase 4 run, replaces, inlines)
+SHEAR_KERNELS = (
+    ('fly_cartesian' + SHEAR_K, 'fly_cartesian', 'shear',
+     'lart_tpu/transport/engine.py:1250',
+     'the shear wrap of make_fly (engine.py:1250-1257, :1282-1313, '
+     ':1406-1409) in K5\'s kExtra instance'),
+    ('fly_cartesian' + DEPOSITS, 'fly_cartesian', 'slab_maps',
+     'lart_tpu/transport/engine.py:1199',
+     'jpa_bin and rhokap_phys (lart_tpu_torch/csrc/lart.cuh, replace '
+     'lart_tpu/transport/engine.py:581, :606) in the J1 and Pnew deposits of '
+     'make_fly (engine.py:1199-1219), f64 atomics'),
+    ('scatter_lya' + PA, 'scatter_lya', 'slab_maps',
+     'lart_tpu/transport/engine.py:2541',
+     'jpa_bin and rhokap_phys (lart_tpu_torch/csrc/lart.cuh, replace '
+     'lart_tpu/transport/engine.py:581, :606) in the Pa deposit of '
+     'make_scatter (engine.py:2541-2547), f64 atomics'))
 
 
 def main(argv=None):
@@ -5000,6 +5331,16 @@ def main(argv=None):
             plain_ms=res[name]['plain_ms'], bound_ms=res[name]['bound_ms'],
             bound_by=res[name]['bound_by'], library_ms=None, inlines=inl)
             for name, base, path, launch, rep, inl in ATM_KERNELS]
+        # this slice's K5 and K4 instances (shear.in, the slab with the
+        # maps)
+        counts = launches['shear']
+        line['kernels'] += [dict(
+            name=name, route='cuda', source=KERNELS[base][0], replaces=rep,
+            launches=counts[path][base], path=path,
+            max_abs_err=res[name]['max_abs_err'], ms=res[name]['ms'],
+            plain_ms=res[name]['plain_ms'], bound_ms=res[name]['bound_ms'],
+            bound_by=res[name]['bound_by'], library_ms=None, inlines=inl)
+            for name, base, path, rep, inl in SHEAR_KERNELS]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

@@ -3,8 +3,7 @@
 // boundaries and the comoving frequency update of a moving medium.
 //
 // Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
-// Cartesian DDA without the shearing box, CALCJ/Pnew or all-photons
-// records).  The TPU runs a
+// Cartesian DDA without all-photons records).  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch; here
 // one thread walks its own lane, at most max_steps crossings (the loop
 // condition n < max_steps, no "+ 2" as in the slab), so a forced first
@@ -45,15 +44,31 @@
 // scattered over arrays of 4 nx ny nz bytes each (32 MB at 201^3, against a
 // 50 MB L2); the lane state is read and written once a call.  H2 adds two
 // Voigt functions (~80 flops) a crossing and no bytes.
+// The shearing box and the CALCJ/CALCPnew deposits live in the kExtra
+// instances (a run without them keeps its code).  A crossing of the periodic
+// x boundary moves the lane's vfy_shear by -+ omega_shear (engine.py:
+// 1250-1257); the comoving update takes u1 = fma(vfy, ky, u.k) of the old
+// value and u2 of the new one, also in a static medium, the escape the old
+// one (:1282-1313); a completed forced first scattering restarts with vfy 0
+// (:1406-1409).  Each step of a lane through gas (rhoH > 0) adds d wgt to
+// J1 at its cell's bin (lart.cuh jpa_bin) and comoving frequency x D / D_ref
+// (dropped off the frequency grid), and d rhoH wgt / max(rhokap D / cross0,
+// TINY) to Pnew (:1199-1219), each an f64 atomicAdd of the f32 deposit (the
+// reference's f64 maps, define.f90:203-205): the atomics of a step land on
+// the few bins round the source, where they serialize.
 #include "lart.cuh"
 #include "voigt.cuh"
 #include "walk.cuh"
 
-template <bool kMulti, bool kH2>
+template <bool kMulti, bool kH2, bool kExtra>
 __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f, esc1 = 0.0f, esc2 = 0.0f;
   const bool lyb = kMulti && p.line.line_type == 8;
+  // the shearing box and the segment deposits (the kExtra instances)
+  const bool shear = kExtra && p.omega_shear != 0.0f;
+  const JpaBins& q = p.jpa;
+  const bool deposit = kExtra && (q.J1 || q.Pnew);
   int phase = i < B ? s.phase[i] : DEAD;
   if (phase == FLYING || phase == FFS) {
     // the H-alpha band (line type 8), constant through a flight
@@ -63,13 +78,14 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
     float xfreq = s.xfreq[i], wgt = s.wgt[i];
     float tau_target = s.tau_target[i], tau_run = s.tau_run[i];
+    float vfy = shear ? s.vfy_shear[i] : 0.0f;
     for (int n = 0; n < max_steps && (phase == FLYING || phase == FFS); ++n) {
       const bool is_ffs = phase == FFS;
       const int f = flat_index(p, cell[0], cell[1], cell[2]);
-      float a_c, D_c;
+      float a_c, D_c, rhoH = 0.0f;
       cell_a_D(p, f, a_c, D_c);
       const float rho =
-          b2 ? band2_opacity(p, f) : cell_opacity<kMulti, kH2>(p, f, xfreq, a_c, D_c);
+          b2 ? band2_opacity(p, f) : cell_opacity<kMulti, kH2>(p, f, xfreq, a_c, D_c, rhoH);
       float t[3];
 #pragma unroll
       for (int a = 0; a < 3; ++a)
@@ -89,15 +105,42 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         ncell[a] = cell[a];
       }
       const float tau_n = hit ? tgt : tau_run + dtau;
+      if (deposit && rhoH > 0.0f) {
+        // the segment's deposits at its cell's bin (engine.py:1199-1219): J1
+        // at the cell's comoving frequency x D / D_ref, Pnew over
+        // rhokap_phys = rhokap D / cross0
+        const int bp = jpa_bin(q, cell[0], cell[1], cell[2]);
+        if (q.J1) {
+          const float fx = floorf((xfreq * (D_c / p.Dfreq) - p.xfreq_min) / p.dxfreq);
+          if (fx >= 0.0f && fx < (float)p.nxfreq)
+            atomicAdd(&q.J1[(int)fx * q.nbin + bp], (double)(d_adv * wgt));
+        }
+        if (q.Pnew) {
+          const float rkp = p.rhokap[f] * D_c / q.cross0;
+          atomicAdd(&q.Pnew[bp], (double)(d_adv * rhoH * wgt / fmaxf(rkp, LART_TINY)));
+        }
+      }
       bool escaped = false;
       if (!hit) escaped = cross_axis(p, axis, ncell[axis], npos[axis], ndir[axis]);
+      // the shearing box: a periodic x wrap moves vfy by -+ omega_shear
+      // (engine.py:1250-1257)
+      float shear_new = vfy;
+      if (shear && !hit && axis == 0) {
+        const int nxt = cell[0] + (dir[0] > 0.0f ? 1 : -1);
+        if (nxt < 0) shear_new = vfy - p.omega_shear;
+        if (nxt >= p.n[0]) shear_new = vfy + p.omega_shear;
+      }
       // an atmosphere's destruction: the bottom face of a plane one, a
       // masked core cell of a spherical one
       const bool bottom = p.atmosphere == 1 && escaped && axis == 2 && ncell[2] < 0;
       const bool hitmask = p.mask && !hit && !escaped &&
                            p.mask[flat_index(p, ncell[0], ncell[1], ncell[2])] != 0;
-      // velocity of the cell being left, along the direction flown
-      const float u_old = p.moving ? vel_dot(p, cell, dir) : 0.0f;
+      // velocity of the cell being left, along the direction flown (in a
+      // shearing box with the shear frame's, fma(vfy, ky, u): engine.py:
+      // 1288-1290, :1312-1313)
+      float u_old = p.moving ? vel_dot(p, cell, dir) : 0.0f;
+      if (shear) u_old = fmaf(vfy, dir[1], u_old);
+      const bool comoving = p.moving || p.cell_D || shear;
 
       if (is_ffs && (escaped || hit || hitmask)) {
         // forced first scattering done: the escaped fraction at the birth
@@ -128,6 +171,7 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         xfreq = bxfreq;
         wgt = wgt * wgt1;
         tau_run = 0.0f;
+        vfy = 0.0f;  // restarts unsheared (engine.py:1406-1409)
         // xi clamp margin 1e-5 (engine.py:1415-1428)
         tau_target = -log1pf(-fminf(tau_target, 0.99999f) * wgt1);
         continue;
@@ -138,8 +182,9 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         // lart_tpu's state does
         oor += tally_bin(p, p.Jabs2, (xfreq + u_old) * (D_c / p.Dfreq), wgt);
         phase = DEAD;
-        if (hitmask && (p.moving || p.cell_D)) {
-          const float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
+        if (hitmask && comoving) {
+          float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
+          if (shear) u2 = fmaf(shear_new, ndir[1], u2);
           const float D2 = cell_D_of(p, flat_index(p, ncell[0], ncell[1], ncell[2]));
           xfreq = (xfreq + u_old) * D_c / D2 - u2;
         }
@@ -156,10 +201,12 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         phase = DEAD;
       } else if (hit) {
         phase = AT_SCATTER;
-      } else if (!escaped && (p.moving || p.cell_D) && !b2) {
-        // comoving frequency on a cell change, in a moving medium or at
-        // non-uniform temperature: x' = (x + u1) D1/D2 - u2
-        const float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
+      } else if (!escaped && comoving && !b2) {
+        // comoving frequency on a cell change, in a moving medium, at
+        // non-uniform temperature or in a shearing box: x' = (x + u1) D1/D2
+        // - u2
+        float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
+        if (shear) u2 = fmaf(shear_new, ndir[1], u2);
         const float D2 = cell_D_of(p, flat_index(p, ncell[0], ncell[1], ncell[2]));
         xfreq = (xfreq + u_old) * D_c / D2 - u2;
       }
@@ -170,6 +217,7 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         cell[a] = ncell[a];
       }
       tau_run = tau_n;
+      vfy = shear_new;
     }
     s.phase[i] = phase;
     s.x[i] = pos[0];
@@ -185,6 +233,7 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     s.wgt[i] = wgt;
     s.tau_target[i] = tau_target;
     s.tau_run[i] = tau_run;
+    if (shear) s.vfy_shear[i] = vfy;
   }
   block_sum_atomic(oor, p.W_oor);
   if (lyb) {
@@ -203,14 +252,25 @@ LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
     const Lanes s = unpack_lanes(lanes);
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
-    if (!multi && !h2)
-      fly_cartesian_kernel<false, false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else if (!multi)
-      fly_cartesian_kernel<false, true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else if (!h2)
-      fly_cartesian_kernel<true, false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else
-      fly_cartesian_kernel<true, true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
+    const bool extra = p->omega_shear != 0.0f || p->jpa.J1 || p->jpa.Pnew;
+    const int inst = (multi ? 4 : 0) + (h2 ? 2 : 0) + (extra ? 1 : 0);
+    // one instance a combination: the line type (kMulti), H2 (kH2), the
+    // shearing box or the J1/Pnew deposits (kExtra)
+    switch (inst) {
+#define LART_FLY_CARTESIAN(M, H, E)                                                        \
+  case (M ? 4 : 0) + (H ? 2 : 0) + (E ? 1 : 0):                                             \
+    fly_cartesian_kernel<M, H, E><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);       \
+    break;
+      LART_FLY_CARTESIAN(false, false, false)
+      LART_FLY_CARTESIAN(false, false, true)
+      LART_FLY_CARTESIAN(false, true, false)
+      LART_FLY_CARTESIAN(false, true, true)
+      LART_FLY_CARTESIAN(true, false, false)
+      LART_FLY_CARTESIAN(true, false, true)
+      LART_FLY_CARTESIAN(true, true, false)
+      LART_FLY_CARTESIAN(true, true, true)
+#undef LART_FLY_CARTESIAN
+    }
   }
   return (int)cudaGetLastError();
 }

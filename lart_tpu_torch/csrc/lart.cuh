@@ -58,9 +58,10 @@ struct Lanes {
   float* nny;
   float* nnz;
   int* iband;  // 1 the resonance line, 2 the H-alpha band (line type 8)
+  float* vfy_shear;  // the shearing box's shear-frame y-velocity offset
 };
 
-#define LART_N_LANE_FIELDS 34
+#define LART_N_LANE_FIELDS 35
 
 inline Lanes unpack_lanes(void* const* p) {
   Lanes s;
@@ -98,6 +99,7 @@ inline Lanes unpack_lanes(void* const* p) {
   s.nny = (float*)p[31];
   s.nnz = (float*)p[32];
   s.iband = (int*)p[33];
+  s.vfy_shear = (float*)p[34];
   return s;
 }
 
@@ -177,6 +179,37 @@ inline PeelRecord unpack_record(void* const* p) {
 // the clump medium (ClumpGrid, which FlightParams embeds) and its lookups
 #include "clump.cuh"
 
+// The CALCJ/CALCP/CALCPnew maps (engine.py:581-610): their tallies (null
+// where the map is off), f64 sums of f32 deposits as the reference keeps
+// them (define.f90:203-205), and the binning of jpa_bin.  FlightParams and
+// ScatterParams embed it; lart_tpu_torch/transport/jpa.py JpaC mirrors it.
+struct JpaBins {
+  double* J1;    // (nxfreq, nbin): path length a frequency bin (K5)
+  double* Pa;    // (nbin): resonance scatterings per atom (K4)
+  double* Pnew;  // (nbin): the path-length estimate of Pa (K5)
+  int geom;      // -1 the z cell, 1 radial by cell centre, 3 the flat cell
+  int nbin;      // 0: no map
+  int n[3];
+  float amin[3], d[3];
+  float dr, roff;
+  float cross0;  // rhokap_phys = rhokap D / cross0
+};
+
+// jpa_bin (engine.py:581-603) of Cartesian cell (i, j, k): the centre's
+// coordinates and radius as XLA contracts them, fma(i + 0.5, dx, xmin) and
+// the fma chain of the sum of squares
+__device__ inline int jpa_bin(const JpaBins& q, int i, int j, int k) {
+  if (q.geom == -1) return min(max(k, 0), q.nbin - 1);
+  if (q.geom == 1) {
+    const float cx = fmaf((float)i + 0.5f, q.d[0], q.amin[0]);
+    const float cy = fmaf((float)j + 0.5f, q.d[1], q.amin[1]);
+    const float cz = fmaf((float)k + 0.5f, q.d[2], q.amin[2]);
+    const float rr = sqrtf(fmaf(cz, cz, fmaf(cx, cx, cy * cy)));
+    return (int)fminf(fmaxf(floorf((rr - q.roff) / q.dr), 0.0f), (float)(q.nbin - 1));
+  }
+  return min(max((i * q.n[1] + j) * q.n[2] + k, 0), q.nbin - 1);
+}
+
 // Constants and device pointers of the K5 (fly_cartesian), K6
 // (fly_uniform_sphere), K8 (fly_amr) and K9/K10 (fly_clump) flights, passed by pointer from the host and by value
 // to the kernel.  lart_tpu_torch/transport/flight.py FlightParams mirrors this
@@ -228,6 +261,8 @@ struct FlightParams {
   AmrGrid amr;     // the octree (K7's AMR sightline, K8): rhokap, rhokapD
                    //   and the velocities are then per leaf; ncells 0 else
   ClumpGrid clump; // the clumps (K7's clump sightline, K9, K10); n 0 else
+  JpaBins jpa;     // K5's J1 and Pnew deposits (nbin 0: none)
+  float omega_shear;  // the shearing box's jump of vfy_shear at an x wrap
 };
 
 enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };

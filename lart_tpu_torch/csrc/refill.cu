@@ -32,7 +32,8 @@
 // A launched lane is unpolarized (Q = U = V = 0) with the reference triad
 // m = (cos t cos p, cos t sin p, -sin t), n = (-sin p, cos p, 0) of its
 // direction (engine.py:2863-2873), in the resonance line's band (iband 1,
-// engine.py:2888; line type 8's conversions move it to 2).  With peel-off
+// engine.py:2888; line type 8's conversions move it to 2), unsheared
+// (vfy_shear 0, engine.py:2883; one store).  With peel-off
 // on, the record's flag is written on every lane: 1 where this call
 // launched, else 0; K7 then peels exactly those lanes (engine.py:2909-2913).
 // On the AMR grid (engine.py:2755-2775, :2839) each launched lane finds the
@@ -711,6 +712,7 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   s.nny[i] = cosp;
   s.nnz[i] = 0.0f;
   s.iband[i] = 1;  // the resonance line's band (engine.py:2888)
+  s.vfy_shear[i] = 0.0f;  // unsheared (engine.py:2883)
 }
 
 // record: the PeelRecord pointer table, or null with peel-off off; amr: the

@@ -92,6 +92,10 @@
 // along the new direction, on every lane that was AT_SCATTER.  A dust event's
 // record keeps that local frequency in xatom for K7.  The owner draw costs
 // two passes over the clumps (or candidates) that contain the point.
+// With calcP (jpa.Pa non-null) each resonance scattering, a conversion too,
+// in a cell with rhokap_phys = rhokap D / cross0 > 0 adds wgt / rhokap_phys
+// to Pa at the cell's bin (lart.cuh jpa_bin; engine.py:2541-2547) by one f64
+// atomicAdd; rhokap is then the grid's, also on the sphere fast path.
 #include "lart.cuh"
 #include "mueller.cuh"
 #include "philox.cuh"
@@ -145,6 +149,8 @@ struct ScatterParams {
                          //   then per clump; n 0 on the other grids
   const float* cell_a;   // a Cartesian grid at non-uniform temperature: each
   const float* cell_D;   //   cell's damping and Doppler width (flat); null else
+  JpaBins jpa;           // the Pa deposit (jpa.Pa null: none), rhokap the
+                         //   grid's then, also on the sphere fast path
 };
 
 // the index of lane i's cell into the grid arrays: the flat cell, or on the
@@ -612,6 +618,15 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
           s.tau_run[i] = 0.0f;
           w_sum = s.wgt[i];
           n_sum = 1.0f;
+          if (p.jpa.Pa) {
+            // the scatterings per atom at the scattering cell (engine.py:
+            // 2541-2547), rhokap_phys = rhokap D / cross0; a conversion
+            // counts as one
+            const float rkp = p.rhokap[scatter_cell(p, s, i)] * D_c / p.jpa.cross0;
+            if (rkp > 0.0f)
+              atomicAdd(&p.jpa.Pa[jpa_bin(p.jpa, s.ic[i], s.jc[i], s.kc[i])],
+                        (double)(w_sum / fmaxf(rkp, LART_TINY)));
+          }
           kind = r.conv ? EVENT_CONVERSION : EVENT_RESONANCE;
         }
       }

@@ -37,12 +37,21 @@ __device__ inline float cell_D_of(const FlightParams& p, int f) {
 // rhokap times the H2 multiplier in the instances with H2 (h2.cuh), plus
 // the dust's rhokapD (engine.py:1106-1121 total_opacity)
 template <bool kMulti, bool kH2>
-__device__ inline float cell_opacity(const FlightParams& p, int f, float xf, float a, float D) {
+__device__ inline float cell_opacity(const FlightParams& p, int f, float xf, float a, float D,
+                                     float& rhoH) {
   const float rk = p.rhokap[f];
-  float rho = rk * line_profile<kMulti>(p.line, xf, a, D);
+  rhoH = rk * line_profile<kMulti>(p.line, xf, a, D);
+  float rho = rhoH;
   if (kH2) rho = rho + rk * h2_kappa(p.h2, xf, D);
   if (p.rhokapD) rho = rho + p.rhokapD[f];
   return rho;
+}
+
+// the same without its line part rhoH = rhokap H_eff(x)
+template <bool kMulti, bool kH2>
+__device__ inline float cell_opacity(const FlightParams& p, int f, float xf, float a, float D) {
+  float rhoH;
+  return cell_opacity<kMulti, kH2>(p, f, xf, a, D, rhoH);
 }
 
 // the H-alpha band's opacity (line type 8): the dust's, scaled to H-alpha

@@ -7,7 +7,8 @@ grid, from the seed (seed or iseed) + 77 as lart_tpu's, written to
 <out>_clumps.h5 with save_clump_info), then loop chunks of refill/fly/scatter
 cycles on one device, adding each chunk's f32 tallies into f64
 accumulators on the host (an atmosphere's Jabs2, an illumination's flux
-factor and rejected draws among them), and normalize.  One host read per chunk: the
+factor and rejected draws, and the CALCJ/CALCP/CALCPnew maps J1, Pa and
+Pnew among them; driver.py:176-181), and normalize.  One host read per chunk: the
 tallies and the loop-control scalars travel back together.  The peel-off
 cubes (up to millions of bins) stay on the device: each chunk's f32 cubes
 are added into f64 accumulators there, as lart_tpu adds them on the host
@@ -27,6 +28,18 @@ long last chunk runs after its last photon died are paid for, while a
 chunk's one host read costs little.  PERF.md holds the runs that compare
 caps of 8, 256 and 1024: on an H100 they differ by less than the spread
 of the tail's length from run to run, and on the CPU 8 is the fastest.
+In the drain the flights also take up to MAX_STEP_BOOST times
+fly_substeps crossings a cycle, by the batch's lanes over the alive ones:
+a lane left alone that flies far (a far-wing photon streaming nearly
+along x through a shearing box's periodic x and y, ~1 / |kz| crossings)
+then needs as many fewer cycles, each of which costs its launches
+however few lanes fly (shear.in as written drained for 276 s on an H100
+with fly_substeps a cycle: PERF.md, PR 14).  lart_tpu keeps fly_substeps;
+a flight that stops at the step limit resumes the next cycle, so only
+the cycle indices of the tail's draws change, not their law.  Once the
+budget is launched the chunks run without their refills (and the direct
+peels after them), which would launch nothing: the same results, a
+launch fewer every refill_every cycles of the tail.
 """
 
 from __future__ import annotations
@@ -45,11 +58,13 @@ from .instruments.sightline import make_maps
 from .tally import RunResult, normalize
 from .transport.engine import check_supported, make_chunk
 from .transport.state import (DEAD, H2_SCALARS, ILLUM_SCALARS,
-                              LYB_SCALARS, BatchState, Tallies, init_state)
+                              JPA_TALLIES, LYB_SCALARS, BatchState, Tallies,
+                              init_state)
 from .utils.device import resolve_device
 
 SHRINK_LADDER = (4096, 512)
 MAX_BOOST = 8
+MAX_STEP_BOOST = 64
 
 
 class Prepared:
@@ -59,11 +74,16 @@ class Prepared:
     __slots__ = ('cfg', 'meta', 'grid', 'cmeta', 'device', 'budget', 'seed',
                  'state', 'chunk', 'cycle')
 
-    def run_chunk(self, n_cycles: Optional[int] = None):
-        """Advance the batch by one chunk; returns device tensors
-        (tallies, alive, launched)."""
+    def run_chunk(self, n_cycles: Optional[int] = None,
+                  fly_substeps: Optional[int] = None,
+                  refill_on: bool = True):
+        """Advance the batch by one chunk (its flights fly_substeps
+        crossings a cycle, the config's by default; without refills where
+        refill_on is False); returns device tensors (tallies, alive,
+        launched)."""
         n = n_cycles or self.chunk.n_cycles
-        out = self.chunk(self.state, self.seed, self.cycle, self.budget, n)
+        out = self.chunk(self.state, self.seed, self.cycle, self.budget, n,
+                         fly_substeps, refill_on)
         self.cycle += n
         return out
 
@@ -128,17 +148,16 @@ def _save_clump_info(cfg, grid, cmeta) -> None:
                 attrs={'F_VOL': cmeta.f_vol, 'F_COV': cmeta.f_cov})
 
 
-# the optional tallies (line type 8, H2, an atmosphere, an illumination)
-# in the order chunk_to_host reads
+# the optional tallies (line type 8, H2, an atmosphere, an illumination,
+# the CALCJ/CALCP/CALCPnew maps) in the order chunk_to_host reads
 EXTRA_TALLIES = ('Jout_Ha', 'Jabs_Ha') + LYB_SCALARS + H2_SCALARS \
-    + ('W_H2pump', 'Jabs2') + ILLUM_SCALARS
-ARRAY_TALLIES = ('Jout_Ha', 'Jabs_Ha', 'Jabs2')
+    + ('W_H2pump', 'Jabs2') + ILLUM_SCALARS + JPA_TALLIES
 
 
 def chunk_to_host(tallies: Tallies, alive, launched) -> dict:
     """One device->host copy of a chunk's tallies and control scalars
-    (the optional ones of line type 8, H2, an atmosphere and an
-    illumination where the chunk has them)."""
+    (the optional ones of line type 8, H2, an atmosphere, an illumination
+    and the J1, Pa and Pnew maps where the chunk has them)."""
     extra = [(k, getattr(tallies, k)) for k in EXTRA_TALLIES
              if getattr(tallies, k) is not None]
     parts = [tallies.Jin, tallies.Jout, tallies.Jabs, tallies.Jmu,
@@ -192,25 +211,24 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
            'nscatt_dust': 0.0, 'nscatt_events': 0.0, 'W_oor': 0.0}
     if par.save_Jmu:
         acc['Jmu'] = np.zeros(meta.nxfreq * par.nmu)
-    # line type 8's, H2's, an atmosphere's and an illumination's tallies
-    # (driver.py:163-174, :295-317)
-    extra = ((('Jout_Ha', 'Jabs_Ha') + LYB_SCALARS if p.chunk.lyb else ())
-             + (H2_SCALARS + ('W_H2pump',) if p.chunk.h2 else ())
-             + (('Jabs2',) if p.chunk.atmosphere else ())
-             + (ILLUM_SCALARS if p.chunk.refill_params.illumination
-                else ()))
-    for k in extra:
-        acc[k] = np.zeros(2 if k == 'W_H2pump' else meta.nxfreq) \
-            if k in ARRAY_TALLIES + ('W_H2pump',) else 0.0
+    # line type 8's, H2's, an atmosphere's and an illumination's tallies,
+    # and the J1, Pa and Pnew maps (driver.py:163-181, :295-317)
+    extra = {k: v for k, v in p.chunk.zero_tallies('cpu').__dict__.items()
+             if k in EXTRA_TALLIES and v is not None}
+    for k, v in extra.items():
+        acc[k] = np.zeros(v.numel()) if v.dim() else 0.0
     peel = p.chunk.peel
     peel_acc = {} if peel is None else {
         'peel_' + k: torch.zeros_like(v, dtype=torch.float64)
         for k, v in peel.zero_cubes(p.device).items()}
 
     t0 = time.time()
-    cur_B, boost = B, 1
+    cur_B, boost, steps, launched = B, 1, par.fly_substeps, 0
     for _ in range(max_chunks):
-        out = p.run_chunk(par.chunk_cycles * boost)
+        # once the budget is launched a refill launches nothing: the drain
+        # leaves out its launches (host time, most of a tail's cycle)
+        out = p.run_chunk(par.chunk_cycles * boost, steps,
+                          launched < nphotons)
         if peel is not None:
             for k, cube in out[0].peel.items():
                 peel_acc['peel_' + k] += cube
@@ -232,6 +250,8 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
                 if cur_B > Bt and alive <= Bt:
                     p.state = compact_shrink(p.state, Bt)
                     cur_B = Bt
+            steps = par.fly_substeps * int(np.clip(cur_B // max(alive, 1),
+                                                   1, MAX_STEP_BOOST))
     else:
         raise RuntimeError(f'batch did not drain in {max_chunks} chunks')
     acc.update({k: v.cpu().numpy() for k, v in peel_acc.items()})

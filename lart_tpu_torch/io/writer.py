@@ -4,7 +4,9 @@ Port of write_output / output_filename (lart_tpu/io/writer.py:40-64,
 :102-287): the Spectrum section with its keywords (H2 pumping's, line
 type 8's band budgets and an illumination's flux_factor and nrejected
 among them) and an atmosphere's Jabs2, the Jmu section, line type 8's
-Jout_Ha, Jabs_Ha and J2gam sections, and with peel-off one _peel3D file
+Jout_Ha, Jabs_Ha and J2gam sections, the CALCJ/CALCP/CALCPnew maps'
+Jx_1D, Pa_1D (Pa_3D on the flat-cell geometry) and Pa_1D_new sections with
+their bin centres (radius) and geom_JPa, and with peel-off one _peel3D file
 per observer (Scattered/Direct cubes with spectral + TAN WCS keywords,
 RadialI, Stokes I/Q/U/V cubes and their Stokes_radial profiles, the
 H-alpha band's peel_Ha cube, a stellar source's Direct0 cube;
@@ -267,6 +269,21 @@ def _write_basic(filename: str, res: RunResult) -> str:
             g2.create_dataset('y', data=res.y_2gam)
             g2.create_dataset('data', data=np.asarray(res.J2gam, bp))
             _put_attrs(g2, {'EXTNAME': 'J2gam'})
+        # the CALCJ/CALCP/CALCPnew maps (write_output_rect.f90; lart_tpu/
+        # io/writer.py:253-267): Pa_3D on the flat-cell geometry 3
+        for arr, ext in ((res.J1, 'Jx_1D'),
+                         (res.Pa, 'Pa_1D' if meta.geometry_JPa != 3
+                          else 'Pa_3D'),
+                         (res.Pnew, 'Pa_1D_new')):
+            if arr is None:
+                continue
+            gp = f.create_group(ext)
+            data = arr.reshape(meta.nx, meta.ny, meta.nz) \
+                if ext == 'Pa_3D' else arr
+            gp.create_dataset('data', data=np.asarray(data, bp))
+            if res.r_JPa is not None and ext != 'Pa_3D':
+                gp.create_dataset('radius', data=res.r_JPa)
+            _put_attrs(gp, {'EXTNAME': ext, 'geom_JPa': meta.geometry_JPa})
         if res.Jmu is not None:
             gm = f.create_group('Jmu')
             gm.create_dataset('data', data=np.asarray(res.Jmu, bp))

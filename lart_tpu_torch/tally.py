@@ -6,9 +6,10 @@ which imports jax.  Only the outputs of the ported path are carried: the
 spectra Jin/Jout/Jabs, Jmu, the scattering counts, the weight budget, the
 peel-off cubes (scattered, direct, Stokes I/Q/U/V, H-alpha), line type 8's
 H-alpha spectra, band budgets and two-photon spectrum, and H2 pumping's
-per-photon weights, an exoplanet atmosphere's Jabs2 and an
-illumination's flux factor.  CALCJ/P maps come with their feature.  The
-arithmetic is lart_tpu's, on host float64.
+per-photon weights, an exoplanet atmosphere's Jabs2, an
+illumination's flux factor, and the CALCJ/CALCP/CALCPnew maps J1, Pa and
+Pnew over each bin's cells with their bin centres r_JPa (lart_tpu/tally.py:
+99-122, :211-230).  The arithmetic is lart_tpu's, on host float64.
 """
 
 from __future__ import annotations
@@ -70,6 +71,13 @@ class RunResult:
     Jabs2: Optional[np.ndarray] = None
     flux_factor: float = 0.0
     nrejected: float = 0.0
+    # CALCJ/CALCP/CALCPnew: the mean intensity (nxfreq, nbin), the
+    # scatterings per atom and their path-length estimate (nbin), and the
+    # bins' centres (z, radius or flat cell index)
+    J1: Optional[np.ndarray] = None
+    Pa: Optional[np.ndarray] = None
+    Pnew: Optional[np.ndarray] = None
+    r_JPa: Optional[np.ndarray] = None
 
     @property
     def line(self):
@@ -87,6 +95,57 @@ def twophoton_dAdy(y):
     out[pos] = 202.0 * (w[pos] * (1.0 - w4)
                         + 0.88 * w[pos] ** 1.53 * w4)
     return out
+
+
+def _jpa_counts(meta: GridMeta):
+    """Cells per CALCJ/P bin + bin-center coordinates (ncount_sph/
+    ncount_plane, grid_mod_car.f90:1300-1440) of a grid that bins them."""
+    g = meta.geometry_JPa
+    if g == -1:
+        z = meta.zmin + (np.arange(meta.nz) + 0.5) * meta.dz
+        return np.full(meta.nz, meta.nx * meta.ny, np.float64), z
+    if g == 1:
+        xs = meta.xmin + (np.arange(meta.nx) + 0.5) * meta.dx
+        ys = meta.ymin + (np.arange(meta.ny) + 0.5) * meta.dy
+        zs = meta.zmin + (np.arange(meta.nz) + 0.5) * meta.dz
+        X, Y, Z = np.meshgrid(xs, ys, zs, indexing='ij')
+        rr = np.sqrt(X ** 2 + Y ** 2 + Z ** 2)
+        ib = np.floor((rr - meta.roff_JPa) / meta.dr_JPa).astype(int)
+        sel = (ib >= 0) & (ib < meta.nbin_JPa)
+        ncount = np.bincount(ib[sel], minlength=meta.nbin_JPa
+                             ).astype(np.float64)[:meta.nbin_JPa]
+        r = meta.roff_JPa + (np.arange(meta.nbin_JPa) + 0.5) * meta.dr_JPa
+        return ncount, r
+    return np.ones(meta.nbin_JPa, np.float64), \
+        np.arange(meta.nbin_JPa, dtype=np.float64)
+
+
+def jpa_maps(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
+             nphotons: int):
+    """(J1, Pa, Pnew, r_JPa) normalized (output_sum_rect.f90:300-345):
+    over the cell volume, the cells of each bin and the photons; a slab
+    (xy_periodic) per its xy area; None where a map is not in raw."""
+    par = cfg.par
+    if not meta.nbin_JPa or not any(k in raw for k in ('J1', 'Pa', 'Pnew')):
+        return None, None, None, None
+    bin_unit = meta.dwave if par.intensity_unit == 1 else meta.dxfreq
+    distance2cm = par.distance2cm if par.distance2cm > 0.0 else 1.0
+    dVol = meta.dx * meta.dy * meta.dz * distance2cm ** 2
+    ncount, r_JPa = _jpa_counts(meta)
+    if par.xy_periodic:
+        areaJ = (meta.xmax - meta.xmin) * (meta.ymax - meta.ymin) \
+            * distance2cm ** 2
+        facJ = areaJ / (FOURPI * dVol * nphotons * bin_unit)
+        facP = areaJ / (dVol * nphotons)
+    else:
+        facJ = 1.0 / (FOURPI * dVol * nphotons * bin_unit)
+        facP = 1.0 / (dVol * nphotons)
+    nc = np.maximum(ncount, 1)
+    J1 = raw['J1'].reshape(meta.nxfreq, meta.nbin_JPa) / nc * facJ \
+        if 'J1' in raw else None
+    Pa = raw['Pa'] / nc * facP if 'Pa' in raw else None
+    Pnew = raw['Pnew'] / nc * facP if 'Pnew' in raw else None
+    return J1, Pa, Pnew, r_JPa
 
 
 # numpy 2 renamed trapz
@@ -182,6 +241,7 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
         J2gam = 2.0 * (raw['W_conv'] / nphotons) \
             * twophoton_dAdy(y_2gam) / A
 
+    J1, Pa, Pnew, r_JPa = jpa_maps(cfg, meta, raw, nphotons)
     return RunResult(
         cfg=cfg, meta=meta, nphotons=nphotons,
         xfreq=xfreq, velocity=velocity, wavelength=wavelength,
@@ -197,6 +257,7 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
         J2gam=J2gam, y_2gam=y_2gam,
         Jabs2=Jabs2, flux_factor=flux_factor,
         nrejected=raw.get('nrejected', 0.0),
+        J1=J1, Pa=Pa, Pnew=Pnew, r_JPa=r_JPa,
         W_H2pump=raw['W_H2pump'] / nphotons if 'W_H2pump' in raw else None,
         **{k: raw.get(k, 0.0) / nphotons for k in (
             'W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2', 'W_H2abs',

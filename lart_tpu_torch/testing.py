@@ -50,6 +50,192 @@ def sphere_params(tau0: float = 100.0, n: int = 33, nphotons: int = 10_000,
     return Params(**base)
 
 
+def shear_params(Omega: float = 60.0, tau0: float = 100.0,
+                 nphotons: int = 4000, batch: int = 2048, **kw) -> Params:
+    """examples/tigress_shear/shear.in cut as lart_tpu's tests/test_shear.py
+    cuts it: a 16 x 16 x 33 xy-periodic box (xmax = ymax = 0.5 kpc, zmax =
+    1), a Hubble flow of Vexp 1 km/s, tau0 100, Omega in km/s/kpc with q =
+    1 (Omega 60: omega_shear > 1, a jump of several Doppler widths a wrap;
+    shear.in as written sets 28), xfreq +-40."""
+    base = dict(nphotons=nphotons, xy_periodic=True, velocity_type='hubble',
+                Vexp=1.0, nx=16, ny=16, nz=33, xmax=0.5, ymax=0.5, zmax=1.0,
+                taumax=tau0, temperature=1e4, distance_unit='kpc',
+                xfreq_min=-40.0, xfreq_max=40.0, Omega=Omega, q=1.0,
+                batch_size=batch, chunk_cycles=32, fly_substeps=16)
+    base.update(kw)
+    return Params(**base)
+
+
+# the three binning geometries of the CALCJ/CALCP/CALCPnew maps (lart_tpu/
+# grid/cartesian.py:522-536): -1 the z cell of a slab, 1 the radial bin of
+# a sphere's cell centre, 3 the flat cell of a box without rmax
+JPA_GEOMETRIES = {'slab': -1, 'sphere': 1, 'box': 3}
+
+
+def jpa_params(case: str, tau0: float = 10.0, nphotons: int = 2000,
+               batch: int = 2048, **kw) -> Params:
+    """calcJ, calcP and calcPnew on in one of JPA_GEOMETRIES: the slab
+    (1 x 1 x 33), the 17^3 uniform sphere, or a 9^3 uniform box with escape
+    on every face and no rmax; Ly-alpha at T = 1e4 K, xfreq +-20."""
+    maps = dict(calcJ=True, calcP=True, calcPnew=True, xfreq_min=-20.0,
+                xfreq_max=20.0, nxfreq=80)
+    maps.update(kw)
+    if case == 'slab':
+        return slab_params(tau0=tau0, nz=33, nphotons=nphotons, batch=batch,
+                           **maps)
+    if case == 'sphere':
+        return sphere_params(tau0=tau0, n=17, nphotons=nphotons,
+                             batch=batch, **maps)
+    base = dict(nphotons=nphotons, temperature=1e4, taumax=tau0,
+                geometry='box', nx=9, ny=9, nz=9, xmax=1.0, ymax=1.0,
+                zmax=1.0, spectral_type='voigt', source_geometry='point',
+                batch_size=batch, fly_substeps=8, scatter_rounds=4,
+                chunk_cycles=16, refill_every=4)
+    base.update(maps)
+    return Params(**base)
+
+
+def shear_state(meta, batch: int, seed: int, device='cpu') -> BatchState:
+    """mixed_state's lanes with a shear-frame velocity of up to +-3
+    omega_shear each, a quarter of the FLYING lanes moved next to an x face
+    and headed through it (within 1e-3 dx; the periodic wrap moves their
+    vfy_shear)."""
+    s = mixed_state(meta, batch, seed, device)
+    rng = np.random.default_rng([seed, 7])
+    om = max(abs(meta.omega_shear), 1.0)
+    dev = s.device
+    s.vfy_shear.copy_(torch.as_tensor(rng.uniform(-3.0, 3.0, batch) * om,
+                                      dtype=torch.float32, device=dev))
+    sel = torch.as_tensor(rng.random(batch) < 0.25, device=dev) \
+        & (s.phase == FLYING)
+    hi = s.kx > 0.0
+    off = torch.as_tensor(rng.uniform(0.0, 1e-3, batch) * meta.dx,
+                          dtype=torch.float32, device=dev)
+    x = torch.where(hi, meta.xmax - off, meta.xmin + off).to(s.x.dtype)
+    s.x.copy_(torch.where(sel, x, s.x))
+    s.ic.copy_(torch.where(sel, torch.where(hi, meta.nx - 1, 0),
+                           s.ic).to(s.ic.dtype))
+    s.tau_run.copy_(torch.where(sel, torch.zeros_like(s.tau_run), s.tau_run))
+    return s
+
+
+def write_namelist(path, par: Params, keys) -> Path:
+    """A namelist at path (a pathlib.Path) with the Params par's values of
+    keys, one par%key = value a line."""
+    lines = ['&parameters']
+    for k in keys:
+        v = getattr(par, k)
+        if isinstance(v, bool):
+            v = '.true.' if v else '.false.'
+        elif isinstance(v, str):
+            v = f"'{v}'"
+        else:
+            v = f'{v:g}'
+        lines.append(f' par%{k} = {v}')
+    path.write_text('\n'.join(lines + ['/', '']))
+    return path
+
+
+def spectrum_rms(x, J) -> float:
+    """The rms of the spectrum J on the bin centres x about its mean
+    (lart_tpu's tests/test_shear.py)."""
+    w = np.asarray(J, np.float64) / np.sum(J)
+    mu = (w * x).sum()
+    return float(np.sqrt((w * (x - mu) ** 2).sum()))
+
+
+def pa_closure(res):
+    """(sum of the raw Pa times rhokap_phys, the raw resonance scattered
+    weight) of a run on a uniform grid, whose rhokap_phys = rhokap D /
+    cross0 is one f32 number: the two are equal to f32 rounding, as each
+    scattering adds wgt / rhokap_phys to Pa and wgt to nscatt_gas."""
+    from .tally import jpa_maps
+    meta, cfg = res.meta, res.cfg
+    assert meta.rho_uniform > 0.0 and meta.uniform_temperature
+    f = np.float32
+    rkp = float(f(meta.rho_uniform) * f(meta.Dfreq_ref) / f(cfg.line.cross0))
+    # the normalization's factor of a raw count of 1 in every bin
+    unit = jpa_maps(cfg, meta, {'Pa': np.ones(meta.nbin_JPa)},
+                    res.nphotons)[1]
+    return float(np.sum(res.Pa / unit)) * rkp, res.nscatt_gas * res.nphotons
+
+
+def map_chi2(runs_a, n_a: int, runs_b, n_b: int, floor: float = 1e-3):
+    """chi^2/dof between two sets of runs of one map (each run's map
+    normalized per photon, n_a and n_b photons a run) over the bins above
+    floor times the largest mean: a bin's variance from one photon is c
+    times its mean, c pooled over the bins from the runs' spread about
+    their set's mean (a bin sums many photons' deposits, so its variance
+    grows with its mean; the pooled c has many degrees of freedom where
+    one bin's spread over a few runs has few).  At least one set holds two
+    runs."""
+    A, B = np.atleast_2d(runs_a), np.atleast_2d(runs_b)
+    ma, mb = A.mean(axis=0), B.mean(axis=0)
+    m = 0.5 * (ma + mb)
+    sel = m > floor * m.max()
+    num = den = 0.0
+    for R, n, mu in ((A, n_a, ma), (B, n_b, mb)):
+        if len(R) > 1:
+            num += float((n * (R - mu) ** 2)[:, sel].sum())
+            den += (len(R) - 1) * float(mu[sel].sum())
+    var = (num / den) * m[sel] * (1.0 / (len(A) * n_a)
+                                  + 1.0 / (len(B) * n_b))
+    return float(((ma - mb)[sel] ** 2 / var).mean())
+
+
+def run_maps(res) -> dict:
+    """A run's normalized Pa and Pnew, and J1 summed over frequency
+    (J1_bins) and over bins (J1_freq)."""
+    return {'Pa': res.Pa, 'Pnew': res.Pnew, 'J1_bins': res.J1.sum(axis=0),
+            'J1_freq': res.J1.sum(axis=1)}
+
+
+def map_keys(meta) -> tuple:
+    """The maps of run_maps that map_chi2 can compare: J1's spectrum not on
+    an xy-periodic slab, where a grazing wing photon streams through the
+    periodic box for a path without bound (the per-photon path length,
+    ~1 / |kz|, has no finite variance), a run's J1 in a wing bin a few
+    photons' flights (a single one put 5% of the peak into a bin at x =
+    2.7 that the other package's runs left at 0.5%)."""
+    return ('Pa', 'Pnew', 'J1_bins') + (
+        () if meta.bc_x == 'periodic' else ('J1_freq',))
+
+
+def chunk_vs_cycles(par, seed: int = 3, device='cpu'):
+    """One chunk of par.chunk_cycles cycles from an empty batch, and the
+    same cycles one at a time (Chunk.__call__'s loop body) into fresh
+    tallies flushed to f64 after each: (the chunk's state, its tallies as
+    f64 numpy, the cycles' state, their summed tallies).  Philox is keyed
+    by (seed, cycle index), so both run the identical histories."""
+    from .grid.cartesian import build_cartesian
+    from .transport.engine import make_chunk
+    from .transport.refill import refill
+    from .transport.scatter import scatter
+    from .transport.state import init_state
+    keys = ('Jout', 'Jin', 'J1', 'Pa', 'Pnew')
+
+    def host(t):
+        return {k: getattr(t, k).double().cpu().numpy() for k in keys
+                if getattr(t, k) is not None}
+    cfg = par.resolve()
+    meta, grid = build_cartesian(cfg, device=device)
+    ch = make_chunk(cfg, meta, grid)
+    n = par.chunk_cycles
+    s1 = init_state(par.batch_size, device)
+    prod = host(ch(s1, seed, 0, par.nphotons, n)[0])
+    s2 = init_state(par.batch_size, device)
+    acc = None
+    for i in range(n):
+        t = ch.zero_tallies(device)
+        if i % ch.refill_every == 0:
+            refill(s2, t, ch.refill_params, seed, i, par.nphotons)
+        ch.flight(s2, t, ch.fly_substeps)
+        scatter(s2, t, ch.scatter_params, seed, i)
+        arrs = host(t)
+        acc = arrs if acc is None else {k: acc[k] + arrs[k] for k in acc}
+    return s1, prod, s2, acc
+
+
 def hubble_params(tau0: float = 100.0, n: int = 17, Vexp: float = 200.0,
                   nphotons: int = 10_000, batch: int = 4096, **kw) -> Params:
     """An expanding Hubble-flow sphere like examples/vel_effect: Ly-alpha,
@@ -413,7 +599,7 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
                   ic=ic, jc=jc, kc=kc,
                   xfreq=xfreq, wgt=rng.uniform(0.5, 1.0, batch),
                   tau_target=tau_target, tau_run=tau_run,
-                  iband=np.ones(batch))
+                  iband=np.ones(batch), vfy_shear=np.zeros(batch))
     bx, by, bz = _positions(rng, meta, batch, r_max)
     birth = dict(bx=bx, by=by, bz=bz, bxfreq=rng.normal(0.0, 3.0, batch))
     bcost = rng.uniform(-1.0, 1.0, batch)

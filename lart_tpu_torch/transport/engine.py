@@ -23,9 +23,14 @@ clump_dense_max clumps, else the CSR clump walker K10; an AMR grid
 takes the octree walk K8; force_generic_kernel the generic Cartesian walk
 K5; otherwise the
 uniform slab takes K3, the uniform sphere K6, and every other Cartesian
-grid K5; line type 8 and H2 pumping always fly K5, as lart_tpu sends
-them off both fast paths (engine.py:665-666, :865-866).  `check_supported`
-names whatever a config asks for that is not ported.
+grid K5; line type 8, H2 pumping, the shearing box and the calcJ and
+calcPnew maps always fly K5, as lart_tpu sends them off both fast paths
+(engine.py:651-668, :854-868).  With calcJ, calcP or calcPnew on a grid
+that bins them (nbin_JPa > 0: Cartesian grids; lart_tpu's AMR and clump
+metas leave it 0, so there the flags run and write no map) the chunk's
+tallies carry the J1, Pa and Pnew maps: K5 adds each segment's J1 and
+Pnew, K4 each resonance scattering's Pa (transport/jpa.py).
+`check_supported` names whatever a config asks for that is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from .fly_cartesian import CartesianFlight
 from .fly_clump import ClumpFlight
 from .fly_slab import SlabParams
 from .fly_sphere import SphereFlight
+from .jpa import JpaBins
 from ..physics.sources import emiss_kind
 from .refill import GEOMETRIES, SPECTRA, RefillParams, refill
 from .scatter import ScatterParams, scatter
@@ -100,13 +106,14 @@ def check_supported(cfg, meta=None) -> None:
         ('H2 pumping on a clump medium', clump and h2_on(par)),
         (f'line_type {cfg.line.line_type} (only 1, 2 and 4-8)',
          cfg.line.line_type not in LINE_TYPES),
-        ('calcJ/calcP/calcPnew', par.calcJ or par.calcP or par.calcPnew),
+        # lart_tpu's AMR flight bins them with jpa_bin, which raises on
+        # the AMR meta's geometry_JPa 0 (engine.py:603, :1604-1606)
+        ('calcJ/calcPnew on an AMR grid', amr and (par.calcJ
+                                                  or par.calcPnew)),
         ('save_all_photons', par.save_all_photons),
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
-        ('shearing box (Omega with xy_periodic)',
-         par.Omega != 0.0 and par.xy_periodic),
         ('out_merge', par.out_merge),
         ('save_input_grid', par.save_input_grid),
         # lart_tpu's AMR sightline has no interior branch: its rays would
@@ -129,8 +136,7 @@ def check_supported(cfg, meta=None) -> None:
     if meta is not None:
         missing += [name for name, on in (
             (f'grid_type {meta.grid_type!r}',
-             meta.grid_type not in ('cartesian', 'amr', 'clump')),
-            ('shearing box', meta.omega_shear != 0.0)) if on]
+             meta.grid_type not in ('cartesian', 'amr', 'clump')),) if on]
     if missing:
         raise NotImplementedError('lart_tpu_torch does not port yet: '
                                   + '; '.join(missing))
@@ -155,9 +161,13 @@ def make_fly(cfg, meta, grid, cmeta=None) -> Callable:
 
 @dataclasses.dataclass(frozen=True)
 class Chunk:
-    """chunk(state, seed, cycle0, budget, n_cycles) runs n_cycles cycles
-    from global cycle index cycle0 and returns (tallies, alive, launched)
-    as device tensors; the state is advanced in place.  The cycle index is
+    """chunk(state, seed, cycle0, budget, n_cycles, fly_substeps,
+    refill_on) runs n_cycles cycles from global cycle index cycle0, the
+    flights taking at most fly_substeps crossings a cycle
+    (self.fly_substeps by default), and returns (tallies, alive, launched)
+    as device tensors; the state is advanced in place.  refill_on False
+    leaves out the refills and their direct peels, which launch nothing
+    once the budget is launched.  The cycle index is
     the Philox counter of the refill and scatter draws, so a run is
     reproducible from (seed, cycle index) whatever the device."""
     refill_params: RefillParams
@@ -172,29 +182,32 @@ class Chunk:
     lyb: bool = False               # line type 8: the H-alpha tallies
     h2: bool = False                # H2 pumping: its tallies
     atmosphere: bool = False        # an exoplanet atmosphere: Jabs2
+    jpa: tuple = (0, 0, 0)          # the sizes of J1, Pa and Pnew
 
     def zero_tallies(self, device):
-        """The chunk's zero tallies: those of its line, H2, atmosphere and
-        illumination."""
+        """The chunk's zero tallies: those of its line, H2, atmosphere,
+        illumination and CALCJ/CALCP/CALCPnew maps."""
         return zero_tallies(self.nxfreq, self.nmu, device, self.lyb,
                             self.h2, self.atmosphere,
-                            self.refill_params.illumination)
+                            self.refill_params.illumination, self.jpa)
 
     def __call__(self, state: BatchState, seed: int, cycle0: int,
-                 budget: int, n_cycles=None):
+                 budget: int, n_cycles=None, fly_substeps=None,
+                 refill_on: bool = True):
         tallies = self.zero_tallies(state.device)
+        steps = fly_substeps or self.fly_substeps
         p, rec = self.peel, None
         if p is not None:
             tallies.peel = p.zero_cubes(state.device)
             rec = PeelRecord.zeros(state.batch, state.device)
         for j in range(n_cycles or self.n_cycles):
             i = cycle0 + j
-            if j % self.refill_every == 0:
+            if refill_on and j % self.refill_every == 0:
                 refill(state, tallies, self.refill_params, seed, i, budget,
                        rec)
                 if p is not None:
                     peel(state, tallies.peel, rec, p, p.direct_mode)
-            self.flight(state, tallies, self.fly_substeps)
+            self.flight(state, tallies, steps)
             scatter(state, tallies, self.scatter_params, seed, i, rec)
             if p is not None:
                 peel(state, tallies.peel, rec, p, p.scatter_mode)
@@ -210,6 +223,7 @@ def make_chunk(cfg, meta, grid, cmeta=None, host_data=None) -> Chunk:
     check_supported(cfg, meta)
     par = cfg.par
     sphere = uniform_sphere_fastpath(cfg, meta)
+    jpa = JpaBins.from_config(cfg, meta)
     return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid,
                                                         cmeta, host_data),
                  flight=make_fly(cfg, meta, grid, cmeta),
@@ -221,4 +235,5 @@ def make_chunk(cfg, meta, grid, cmeta=None, host_data=None) -> Chunk:
                  nmu=par.nmu if par.save_Jmu else 0,
                  peel=Peel.from_config(cfg, meta, grid, sphere, cmeta),
                  lyb=cfg.line.line_type == 8, h2=h2_on(par),
-                 atmosphere=bool(meta.atmosphere))
+                 atmosphere=bool(meta.atmosphere),
+                 jpa=jpa.sizes(meta.nxfreq) if jpa else (0, 0, 0))

@@ -68,6 +68,13 @@ class ClumpC(ctypes.Structure):
                 ('vr', _F), ('vscale', _F), ('a_cl', _F), ('D_cl', _F)]
 
 
+class JpaC(ctypes.Structure):
+    """csrc/lart.cuh struct JpaBins, field for field (transport/jpa.py)."""
+    _fields_ = [('J1', _P), ('Pa', _P), ('Pnew', _P), ('geom', _I),
+                ('nbin', _I), ('n', _I * 3), ('amin', _F * 3), ('d', _F * 3),
+                ('dr', _F), ('roff', _F), ('cross0', _F)]
+
+
 class FlightParams(ctypes.Structure):
     """csrc/lart.cuh struct FlightParams, field for field."""
     _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
@@ -84,7 +91,8 @@ class FlightParams(ctypes.Structure):
                 ('xfreq_min', _F), ('dxfreq', _F), ('mu_min', _F),
                 ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
                 ('sphere_rhoD', _F), ('R_Ha', _F), ('line', pline.LineC),
-                ('h2', ph2.H2C), ('amr', AmrC), ('clump', ClumpC)]
+                ('h2', ph2.H2C), ('amr', AmrC), ('clump', ClumpC),
+                ('jpa', JpaC), ('omega_shear', _F)]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -207,10 +215,19 @@ class FlightConsts:
     # (flat bool, the layout of rhokap; None without rmin) destroy
     atmosphere: int = 0
     mask: Optional[torch.Tensor] = None
+    # the shearing box: the jump of a lane's vfy_shear at a periodic x wrap
+    # (engine.py:1250-1257), 0 without one
+    omega_shear: float = 0.0
+    # the flight's maps, J1 and Pnew (transport/jpa.py JpaBins), or None
+    jpa: Optional[object] = None
 
     @classmethod
     def from_config(cls, cfg, meta, grid) -> 'FlightConsts':
+        from .jpa import JpaBins
         par = cfg.par
+        jpa = JpaBins.from_config(cfg, meta)
+        if jpa is not None and not (jpa.J1 or jpa.Pnew):
+            jpa = None
         n = (meta.nx, meta.ny, meta.nz)
         bc = (meta.bc_x, meta.bc_y, meta.bc_z)
         amin = (meta.xmin, meta.ymin, meta.zmin)
@@ -245,11 +262,20 @@ class FlightConsts:
                   else 0.0),
             atmosphere=int(meta.atmosphere),
             mask=None if meta.atmosphere != 2 or grid.mask is None
-            else grid.mask.reshape(-1).contiguous())
+            else grid.mask.reshape(-1).contiguous(),
+            omega_shear=float(meta.omega_shear), jpa=jpa)
 
     @property
     def moving(self) -> bool:
         return self.vel is not None
+
+    @property
+    def comoving(self) -> bool:
+        """A cell change updates the comoving frequency: in a moving
+        medium, at non-uniform temperature or in a shearing box
+        (engine.py:1282-1283)."""
+        return self.moving or self.cell_D is not None \
+            or self.omega_shear != 0.0
 
     @property
     def lyb(self) -> bool:
@@ -284,9 +310,14 @@ class FlightConsts:
         `flat` at the comoving frequencies xfreq, at each cell's damping and
         Doppler width (engine.py:1111-1128 total_opacity); where the mask
         band2 is set, rhokapD R_Ha, or 0 without dust."""
+        return self.opacity_parts(flat, xfreq, band2)[0]
+
+    def opacity_parts(self, flat, xfreq, band2=None):
+        """(the opacity of `opacity`, its line part rhoH = rhokap H_eff(x),
+        0 where band2 is set) as total_opacity returns them."""
         rk = self.rhokap[flat]
         a, D = self.cell_a_D(flat)
-        rho = rk * pline.line_profile_plain(self.line, xfreq, a, D)
+        rho = rhoH = rk * pline.line_profile_plain(self.line, xfreq, a, D)
         if self.h2 is not None:
             rho = rho + rk * ph2.h2_kappa_plain(self.h2, xfreq, D)
         if self.rhokapD is not None:
@@ -295,7 +326,8 @@ class FlightConsts:
             rho2 = torch.zeros_like(rho) if self.rhokapD is None \
                 else self.rhokapD[flat] * self.R_Ha
             rho = torch.where(band2, rho2, rho)
-        return rho
+            rhoH = torch.where(band2, torch.zeros_like(rhoH), rhoH)
+        return rho, rhoH
 
     def vel_dot(self, cell, kx, ky, kz) -> torch.Tensor:
         """u . k of the cells `cell` = (i, j, k) (engine.cell_velocity_dot),
@@ -340,6 +372,7 @@ class FlightConsts:
             c.amr = self.amr.c_struct
         if self.clump is not None:
             c.clump = self.clump.c_struct
+        c.omega_shear = self.omega_shear
         return c
 
     @property
@@ -361,6 +394,8 @@ class FlightConsts:
                 for f in ('Jout_Ha', 'W_esc1', 'W_esc2'))
         if self.atmosphere:
             c.Jabs2 = tallies.Jabs2.data_ptr()
+        if self.jpa is not None:
+            c.jpa = self.jpa.c_struct(tallies)
         return c
 
     def masked(self, flat) -> torch.Tensor:

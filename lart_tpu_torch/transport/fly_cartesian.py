@@ -1,8 +1,8 @@
 """Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
 
 Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
-for a grid without the shearing box, CALCJ/Pnew or all-photons
-records.  Each step takes one lane across one cell: the
+for a grid without all-photons records.  Each step takes one lane across
+one cell: the
 opacity of its cell is rhokap * H_eff(x; a, D) at the cell's damping a and
 Doppler width D (the reference ones at uniform temperature, each cell's
 own from a temp_file: engine.py:297-317), plus rhokap times the H2
@@ -15,7 +15,20 @@ cell).  In a moving medium or at non-uniform temperature a cell change
 shifts the comoving frequency, x' = (x + u1) D1/D2 - u2 (two f32
 roundings, D1/D2 never folded into one ratio); an escape is binned at the
 lab frequency (x + u) D / D_ref of the cell being left, a completed forced
-first scattering at the birth cell's along the birth direction.  At
+first scattering at the birth cell's along the birth direction.
+
+In a shearing box (omega_shear != 0, engine.py:1250-1313, :1406-1409) a
+crossing of the periodic x boundary moves the lane's shear-frame
+y-velocity vfy_shear by -omega_shear at the low face and +omega_shear at
+the high one; a cell change then updates the comoving frequency with u1 +
+vfy_shear ky and u2 + vfy_shear' ky' (the old and the new value, each an
+fma on u.k, as XLA contracts them), also in a static medium, and an
+escape is binned with the old one; a completed forced first scattering
+restarts with vfy_shear 0 (its escaped fraction takes none).  With calcJ
+or calcPnew (transport/jpa.py) each step of a lane through gas (rhoH > 0)
+deposits its path length d wgt into J1 at the bin of its cell and the
+cell's comoving frequency x D / D_ref, and d rhoH wgt / rhokap_phys into
+Pnew, FFS lanes' birth rays included.  At
 most max_steps crossings a
 call (the while_loop's n < max_steps); a lane that completes its FFS
 restarts from birth within the same budget.  No random numbers are drawn.
@@ -48,6 +61,7 @@ import torch
 from ..kernels import build as kbuild
 from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, comoving,
                      doppler_ratio, fma, freq_floor, tally_plain)
+from .jpa import deposit_segments
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
 
 
@@ -99,7 +113,7 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
         cell = (s.ic, s.jc, s.kc)
         flat = p.flat(*cell)
         D_c = p.cell_a_D(flat)[1]
-        rho = p.opacity(flat, s.xfreq, b2)
+        rho, rhoH = p.opacity_parts(flat, s.xfreq, b2)
         t = [_face_dist(pos[a], dirs[a], cell[a], p.amin[a], p.d[a])
              if p.walk[a] else torch.full_like(s.x, BIG) for a in range(3)]
         dmin = torch.minimum(torch.minimum(t[0], t[1]), t[2])
@@ -112,6 +126,11 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
                             dmin)
         npos = [fma(d_adv, dirs[a], pos[a]) for a in range(3)]
         tau_n = torch.where(hit, tgt, s.tau_run + dtau)
+        if p.jpa is not None:
+            # the segment's J1 and Pnew deposits (engine.py:1199-1219)
+            deposit_segments(p.jpa, tallies, p, moving & (rhoH > 0.0), cell,
+                             s.xfreq, doppler_ratio(D_c, p.Dfreq), d_adv,
+                             rhoH, s.wgt, p.rhokap[flat], D_c)
 
         crossed = moving & ~hit
         escaped = torch.zeros_like(hit)
@@ -124,9 +143,20 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             ndir[a] = torch.where(ca, k2, dirs[a])
             escaped = escaped | (ca & esc)
 
-        # comoving frequency update on a cell change, in a moving medium or
-        # at non-uniform temperature (engine.py:1276-1295); the H-alpha
-        # band's frequency is a lab one
+        # the shearing box: a periodic x wrap moves the lane's shear-frame
+        # y-velocity by -+ omega_shear (engine.py:1250-1257)
+        shear_new = s.vfy_shear
+        if p.omega_shear != 0.0:
+            cx = crossed & (axis == 0)
+            nxt = s.ic + torch.where(s.kx > 0.0, 1, -1).to(s.ic.dtype)
+            shear_new = (s.vfy_shear
+                         - torch.where(cx & (nxt < 0), p.omega_shear, 0.0)
+                         + torch.where(cx & (nxt >= p.n[0]), p.omega_shear,
+                                       0.0))
+
+        # comoving frequency update on a cell change, in a moving medium, at
+        # non-uniform temperature or in a shearing box (engine.py:
+        # 1276-1295); the H-alpha band's frequency is a lab one
         changed = crossed & ~escaped
         if p.lyb:
             changed = changed & ~b2
@@ -136,7 +166,13 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             u_b = p.vel_dot((s.bic, s.bjc, s.bkc), s.bkx, s.bky, s.bkz)
         else:
             u1 = u2 = u_b = torch.zeros_like(s.xfreq)
-        if p.moving or not p.uniform_temperature:
+        if p.omega_shear != 0.0:
+            # the shear frame's velocity along k, old and new (:1288-1290);
+            # the escape takes the old one too (:1312-1313), the forced
+            # first scattering's birth frequency none
+            u1 = fma(s.vfy_shear, s.ky, u1)
+            u2 = fma(shear_new, ndir[1], u2)
+        if p.comoving:
             D2 = p.cell_a_D(p.flat(*ncell))[1]
             xfreq_new = torch.where(
                 changed, comoving(s.xfreq, u1, D_c, D2, u2), s.xfreq)
@@ -207,6 +243,10 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
                               'kz', 'xfreq'),
                              (*npos, *ncell, *ndir, xfreq_new)):
             put(name, new, getattr(s, 'b' + name))
+        if p.omega_shear != 0.0:
+            # a completed forced first scattering restarts unsheared
+            # (engine.py:1406-1409)
+            put('vfy_shear', shear_new, torch.zeros_like(shear_new))
         s.wgt.copy_(torch.where(ffs_done, s.wgt * wgt1, s.wgt))
         s.tau_run.copy_(torch.where(
             ffs_done, torch.zeros_like(tau_n),
@@ -235,7 +275,8 @@ def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
                         tallies.W_oor, state.x, *p.device_tensors(),
                         *((tallies.Jout_Ha, tallies.W_esc1, tallies.W_esc2)
                           if p.lyb else ()),
-                        *((tallies.Jabs2,) if p.atmosphere else ()))
+                        *((tallies.Jabs2,) if p.atmosphere else ()),
+                        *(p.jpa.tallies(tallies) if p.jpa else ()))
     kbuild.check(kbuild.library().lart_fly_cartesian(
         state.lane_pointers, state.batch, max_steps,
         ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),

@@ -19,7 +19,8 @@ divides it by D_loc / Dfreq_ref, the source cell's Doppler width over the
 reference one, which is exactly 1 at uniform temperature.  A launched lane gets the source position, an isotropic direction,
 its birth frequency, the forced-first-scattering phase FFS with its xi
 stashed in tau_target, the birth snapshot, the resonance line's band
-(iband 1; engine.py:2888), and the unpolarized Stokes
+(iband 1; engine.py:2888), no shear-frame velocity (vfy_shear 0;
+engine.py:2883), and the unpolarized Stokes
 vector (Q = U = V = 0) with the reference triad m = (cos theta cos phi,
 cos theta sin phi, -sin theta), n = (-sin phi, cos phi, 0) of its
 direction (engine.py:2863-2873).  In a moving medium the
@@ -768,7 +769,8 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     put('tau_run', 0.0)
     for nm, val in (('Q', 0.0), ('U', 0.0), ('V', 0.0), ('mx', cost * cosp),
                     ('my', cost * sinp), ('mz', -sint), ('nnx', -sinp),
-                    ('nny', cosp), ('nnz', 0.0), ('iband', 1)):
+                    ('nny', cosp), ('nnz', 0.0), ('iband', 1),
+                    ('vfy_shear', 0.0)):
         put(nm, val)
     state.n_launched += n_new
     if ff is not None:

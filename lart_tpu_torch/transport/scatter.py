@@ -103,6 +103,13 @@ draws: H = 3 rounds + 5 the split, the line, the destruction and the
 cosine, H + 1 the azimuth, the atom's perpendicular angle and speed,
 H + 2 + r its u_par round r; so a run without H2 draws as before.
 
+With calcP on a grid that bins it (transport/jpa.py), each resonance
+scattering (a Ly-beta conversion too) in a cell with rhokap_phys =
+rhokap D / cross0 > 0 adds wgt / rhokap_phys to Pa at the bin of its cell
+(engine.py:2541-2547); rhokap is then the grid's, on the uniform-sphere
+fast path too, whose constant sphere_rho only the event split and the
+core-skip take.
+
 Line type 8 (Ly-beta; engine.py:2053-2065, :2143-2150, :2270-2372,
 :2510-2528): a resonance redistributes as type 1 and converts to H-alpha
 with probability P_down[1] (the first uniform of block 3 rounds + 4,
@@ -132,8 +139,9 @@ from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
-from .flight import (AmrC, AmrGrid, ClumpC, ClumpGrid, div, doppler_ratio,
-                     dot3, f32, freq_floor, recip32)
+from .flight import (AmrC, AmrGrid, ClumpC, ClumpGrid, JpaC, div,
+                     doppler_ratio, dot3, f32, freq_floor, recip32)
+from .jpa import JpaBins, deposit_scatterings
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
 TINY = 1e-30
@@ -171,7 +179,8 @@ class ScatterC(ctypes.Structure):
                 ('W_abs2', _P), ('W_H2abs', _P), ('W_H2scat', _P),
                 ('W_H2pump', _P), ('albedo_Ha', _F),
                 ('one_m_albedo_Ha', _F), ('hgg_Ha', _F), ('amr', AmrC),
-                ('clump', ClumpC), ('cell_a', _P), ('cell_D', _P)]
+                ('clump', ClumpC), ('cell_a', _P), ('cell_D', _P),
+                ('jpa', JpaC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -212,6 +221,9 @@ class ScatterParams:
     # Doppler width, flat; None at uniform temperature
     cell_a: Optional[torch.Tensor] = None
     cell_D: Optional[torch.Tensor] = None
+    # the Pa map (calcP on a grid that bins it): rhokap is then the grid's,
+    # also on the sphere fast path, whose voxels Pa divides by
+    jpa: Optional[JpaBins] = None
 
     @classmethod
     def from_config(cls, cfg, meta, grid=None, uniform_sphere=False,
@@ -228,6 +240,9 @@ class ScatterParams:
         h2 = ph2.H2Consts.from_config(cfg)
         gather = (mode == CORE_SKIP_LOCAL or dust or h2 is not None) \
             and not uniform_sphere
+        jpa = JpaBins.from_config(cfg, meta)
+        if jpa is not None and not jpa.Pa:
+            jpa = None
         lt8 = cfg.line.line_type == 8
         amr = AmrGrid.from_meta(meta, grid) if meta.grid_type == 'amr' \
             else None
@@ -250,7 +265,7 @@ class ScatterParams:
                    else -1.0,
                    rkD_const=float(meta.sphere_rhoD) if uniform_sphere
                    else 0.0,
-                   rhokap=flat(grid.rhokap) if gather else None,
+                   rhokap=flat(grid.rhokap) if gather or jpa else None,
                    n=(meta.nx, meta.ny, meta.nz),
                    amin=(meta.xmin, meta.ymin, meta.zmin),
                    d=(meta.dx, meta.dy, meta.dz),
@@ -267,7 +282,7 @@ class ScatterParams:
                    h2=h2, albedo_Ha=float(par.albedo_Ha),
                    hgg_Ha=float(par.hgg_Ha), amr=amr, clump=clump,
                    cell_a=flat(grid.voigt_a) if cart_T else None,
-                   cell_D=flat(grid.Dfreq) if cart_T else None)
+                   cell_D=flat(grid.Dfreq) if cart_T else None, jpa=jpa)
 
     @property
     def dust_block(self) -> int:
@@ -387,6 +402,8 @@ class ScatterParams:
         for f in ('nscatt_gas', 'nscatt_events', 'Jabs', 'nscatt_dust') \
                 + self.tally_fields:
             setattr(c, f, getattr(tallies, f).data_ptr())
+        if self.jpa is not None:
+            c.jpa = self.jpa.c_struct(tallies)
         return c
 
     @property
@@ -619,6 +636,11 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
                                 s.tau_run))
     tallies.nscatt_gas += torch.where(do_res, s.wgt, zero).sum()
     tallies.nscatt_events += do_res.sum(dtype=torch.float32)
+    if p.jpa is not None:
+        # the resonance scatterings per atom, at the scattering cell
+        # (engine.py:2541-2547); a conversion counts as one
+        deposit_scatterings(p.jpa, tallies, do_res, (s.ic, s.jc, s.kc),
+                            s.wgt, p.rhokap[p.flat(s)], D_c)
     if cl is not None and cl.shift:
         # back into global units along the new direction (engine.py:
         # 2533-2540), on every lane that was AT_SCATTER
@@ -892,7 +914,8 @@ def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
                         tallies.nscatt_events, tallies.Jabs,
                         tallies.nscatt_dust, state.x, *p.device_tensors(),
                         *(getattr(tallies, f) for f in p.tally_fields),
-                        *(() if record is None else (record.flag,)))
+                        *(() if record is None else (record.flag,)),
+                        *(p.jpa.tallies(tallies) if p.jpa else ()))
     kbuild.check(kbuild.library().lart_scatter_lya(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,

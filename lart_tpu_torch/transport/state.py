@@ -7,12 +7,17 @@ frequency, weight and optical depths, the forced-first-scattering birth
 snapshot, the Stokes parameters with the reference triad (m, n, k)
 that polarized peel-off carries (engine.py:80-90), and the photon's band
 (engine.py:98-99: 1 the resonance line, 2 the H-alpha photon a Ly-beta
-scattering converts to, line type 8).  The shear and all-photons fields
-come with the features that use them.  The Ly-beta tallies (Jout_Ha,
-Jabs_Ha and the band budgets) exist only for line type 8, the H2
-tallies only with H2 pumping on, Jabs2 only in an exoplanet atmosphere
-and the flux factor and rejected draws only for a stellar or point
-illumination, so a run without them carries and reads what it did
+scattering converts to, line type 8), and the shearing box's
+shear-frame y-velocity vfy_shear (engine.py:91-93), which a periodic x
+wrap moves by -+ omega_shear and a birth or a completed forced first
+scattering sets to 0.  The all-photons fields come with the feature that
+uses them.  The Ly-beta tallies (Jout_Ha, Jabs_Ha and the band budgets)
+exist only for line type 8, the H2 tallies only with H2 pumping on, Jabs2
+only in an exoplanet atmosphere, the flux factor and rejected draws only
+for a stellar or point illumination, and the CALCJ/CALCP/CALCPnew maps
+J1 (nxfreq x nbin, frequency-major), Pa and Pnew (nbin; f64 on the
+device, unlike lart_tpu's f32) only with their flag on a grid that bins
+them (nbin_JPa > 0), so a run without them carries and reads what it did
 before.
 
 Unlike the JAX pytrees these are mutable: refill, fly and scatter update
@@ -39,12 +44,13 @@ LANE_FIELDS = ('phase', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'ic', 'jc', 'kc',
                'bx', 'by', 'bz', 'bic', 'bjc', 'bkc',
                'bxfreq', 'bkx', 'bky', 'bkz',
                'Q', 'U', 'V', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
-               'iband')
+               'iband', 'vfy_shear')
 INT_FIELDS = frozenset({'phase', 'ic', 'jc', 'kc', 'bic', 'bjc', 'bkc',
                         'iband'})
 LYB_SCALARS = ('W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2')
 H2_SCALARS = ('W_H2abs', 'W_H2scat')
 ILLUM_SCALARS = ('flux_factor', 'nrejected')
+JPA_TALLIES = ('J1', 'Pa', 'Pnew')
 
 
 @dataclasses.dataclass(eq=False)
@@ -86,6 +92,7 @@ class BatchState:
     nny: torch.Tensor
     nnz: torch.Tensor
     iband: torch.Tensor          # int32: 1 the line, 2 H-alpha (type 8)
+    vfy_shear: torch.Tensor      # the shearing box's y-velocity offset
     n_launched: torch.Tensor     # int32 (1,)
 
     @property
@@ -143,6 +150,16 @@ class Tallies:
     # and rejected draws (() f32 each; engine.py:119-120)
     flux_factor: Optional[torch.Tensor] = None
     nrejected: Optional[torch.Tensor] = None
+    # CALCJ/CALCP/CALCPnew (engine.py:1199-1219, :2541-2547): the path
+    # length a bin and frequency (J1, index ixfreq * nbin + bin), the
+    # resonance scatterings per atom (Pa) and the path-length estimate of
+    # the same rate (Pnew); f64 sums of f32 deposits, as the reference
+    # keeps them (define.f90:203-205): in f32 a chunk's equal deposits
+    # into one hot bin round alike, 1.05e-3 of the sum of 2^17 of them
+    # (tests/test_torch_precision.py)
+    J1: Optional[torch.Tensor] = None
+    Pa: Optional[torch.Tensor] = None
+    Pnew: Optional[torch.Tensor] = None
 
 
 def init_state(batch: int, device) -> BatchState:
@@ -163,10 +180,12 @@ def init_state(batch: int, device) -> BatchState:
 
 def zero_tallies(nxfreq: int, nmu: int, device, lyb: bool = False,
                  h2: bool = False, atmosphere: bool = False,
-                 illumination: bool = False) -> Tallies:
+                 illumination: bool = False, jpa: tuple = (0, 0, 0)
+                 ) -> Tallies:
     """Zero tallies; `lyb` adds line type 8's, `h2` H2 pumping's,
     `atmosphere` Jabs2, `illumination` flux_factor and nrejected
-    (engine.py:240-246)."""
+    (engine.py:240-246); `jpa`, the sizes of J1, Pa and Pnew, each map
+    whose size is not 0 (engine.py:256-263)."""
     def z(n):
         return torch.zeros((n,), dtype=torch.float32, device=device)
 
@@ -183,6 +202,8 @@ def zero_tallies(nxfreq: int, nmu: int, device, lyb: bool = False,
         extra.update(Jabs2=z(nxfreq))
     if illumination:
         extra.update({k: s() for k in ILLUM_SCALARS})
+    extra.update({k: torch.zeros((n,), dtype=torch.float64, device=device)
+                  for k, n in zip(JPA_TALLIES, jpa) if n})
     return Tallies(Jin=z(nxfreq), Jout=z(nxfreq), Jmu=z(nxfreq * nmu),
                    nscatt_gas=s(), nscatt_events=s(), W_oor=s(),
                    Jabs=z(nxfreq), nscatt_dust=s(), **extra)

@@ -73,6 +73,12 @@ ATM_KEYS = {'refill_illum', 'refill_point (atmosphere)',
             'peel (stellar, +z)'}
 
 
+# K5's shear wrap and J1/Pnew deposits, K4's Pa deposit
+# (chip_smoke.phase2_shear)
+SHEAR_KEYS = {'fly_cartesian (shear)', 'fly_cartesian (J1, Pnew)',
+              'scatter_lya (Pa)'}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
@@ -86,7 +92,8 @@ def test_kernels_match_plain_versions(cuda):
     # 8's and H2's branches (phase2_lyb_h2) too
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
-        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS | ATM_KEYS
+        | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS | ATM_KEYS \
+        | SHEAR_KEYS
 
 
 # a source of each K2 instance on a 17^3 sphere: (overrides, instance)
@@ -542,3 +549,24 @@ def test_driver_runs_the_atmosphere(cuda):
     d0, d1 = res.peel['direc0'], res.peel['direc']
     assert float(d0.sum()) > 0.0 and np.all(d1 <= d0 * (1 + 1e-6))
     assert testing.transit(res)[0] > 0.0
+
+
+def test_driver_runs_the_shear_and_the_maps(cuda):
+    """driver.run on tests/test_shear.py's cut of shear.in (K5's shear
+    wrap, launched; the weight closes) and on the slab with calcJ, calcP
+    and calcPnew (K5's deposits and K4's Pa launched; the closure
+    sum(Pa raw rhokap_phys) = the scattered weight)."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    kb.reset_launch_counts()
+    res = driver.run(testing.shear_params(nphotons=4000), device=cuda,
+                     seed=3)
+    assert kb.LAUNCHES['fly_cartesian'] > 0 and res.meta.omega_shear > 1.0
+    assert abs(res.W_escape + res.W_oor - 1.0) < 1e-3
+    kb.reset_launch_counts()
+    res = driver.run(testing.jpa_params('slab', nphotons=4000), device=cuda,
+                     seed=3)
+    assert kb.LAUNCHES['fly_cartesian'] > 0 and kb.LAUNCHES['scatter_lya'] > 0
+    lhs, rhs = testing.pa_closure(res)
+    assert abs(lhs / rhs - 1.0) < 1e-5, (lhs, rhs)
+    assert res.J1.shape == (res.meta.nxfreq, res.meta.nbin_JPa)

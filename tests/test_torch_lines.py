@@ -321,6 +321,7 @@ def test_check_supported_names_what_is_not_ported():
         teng.check_supported(testing.sphere_params(n=5, **over).resolve())
     for case in testing.LINE_CASES:
         teng.check_supported(testing.line_params(case, n=5).resolve())
-    cfg = testing.sphere_params(n=5, line_id='ly_beta', calcJ=True).resolve()
-    with pytest.raises(NotImplementedError, match='calcJ'):
+    cfg = testing.sphere_params(n=5, line_id='ly_beta',
+                                save_all_photons=True).resolve()
+    with pytest.raises(NotImplementedError, match='save_all_photons'):
         teng.check_supported(cfg)
