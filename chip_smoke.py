@@ -101,7 +101,12 @@ Phases (one line each, or more):
      deposit on t1tau6.in and t4tau7.in as written and a 65^3 box (the
      three binning geometries; t4tau7 with calcP alone on K6), the maps
      within 1e-5 of their largest bin, and one 32-cycle chunk against
-     its cycles flushed one at a time (the f64 maps' worst bin)
+     its cycles flushed one at a time (the f64 maps' worst bin); the
+     all-photons table (phase2_allph): the birth rows of K2's five
+     instances compared by id, the death rows of K4's four instances with
+     the table, K5 with and without it (t4tau7, DL20e_dust with Stokes,
+     shear.in, a plane atmosphere, a090's masked core), K8 on amr_sphere,
+     K9 on clumps_overlap, K10 on bicone_clump
   3  driver.run on cuda and on cpu, statistics agree: the tau0 = 100 slab,
      a 33^3 tau0 = 100 uniform sphere, a 33^3 xyz-symmetric Hubble sphere
      (Vexp 200 km/s, tau0 = 100); with peel-off to two observers, a 17^3
@@ -117,24 +122,26 @@ Phases (one line each, or more):
      save_sightline_tau (the all-sky map's isotropy, the tau maps)
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
-     (tauhomo 1e4, 5e4 photons, B = 131072); examples/sphere/t4tau7.in cut to the
+     (tauhomo 3e3, 5e4 photons, B = 131072); examples/sphere/t4tau7.in cut to the
      Dijkstra acceptance case (taumax 1e5, 1e4 photons; shape chi2/dof,
      peak position, W_esc); examples/vel_effect/t4NHI2_20_V0200.in at its
-     201^3 grid cut to N_HI 2e18 and 1e4 photons (W_esc + W_oor); the
-     peel-off examples as written but for their photons: slab_peel 1e4,
-     sphere_peel 2e4 (flux closure), vel_effect_peel at N_HI 2e18 and 1e4
-     photons (weight, and the _peel3D files); examples/DL2008/DL20e_dust.in
-     and DL20e.in as written but for their photons and N_HI 1e18 (with
-     DGR 100: the dust's tau as written) (W_esc + W_abs + W_oor, the
+     201^3 grid cut to N_HI 5e17 and 1e4 photons (W_esc + W_oor); the
+     peel-off examples as written but for their photons: slab_peel 1e4
+     at taumax 3e3, sphere_peel 2e4 at taumax 2e3 (flux closure),
+     vel_effect_peel at N_HI
+     5e17 and 1e4 photons (weight, and the _peel3D files);
+     examples/DL2008/DL20e_dust.in and DL20e.in as written but for their
+     photons and N_HI 1e18 and 2e17 (DL20e_dust with DGR 100: the dust's
+     tau as written) (W_esc + W_abs + W_oor, the
      absorbed share, a red-dominated spectrum); the metal lines:
      SiII_1193/tau1e+2_V200.in as written (W_esc + W_oor, the Si II*
      fluorescent lines above the continuum, the _peel3D file),
      sphere_HD_dijkstra2006.in with its photons cut to HD_PHOTONS and N_HI
      to HD_NHI,
      HeI_sphere/t4tau2.in and SiII_1527/t1e5tau1e1_V050.in as written;
-     ly_beta_sphere/t4tau1e4.in, t4tau1e4_dust.in and h2_test/h2_on.in
-     as written (the band budgets, P_down[1], Jout_Ha and peel_Ha; the
-     H2 budget and keywords); the AMR examples (amr_runs);
+     ly_beta_sphere/t4tau1e4.in and t4tau1e4_dust.in as written and
+     h2_test/h2_on.in at taumax 1e4 (the band budgets, P_down[1], Jout_Ha
+     and peel_Ha; the H2 budget and keywords); the AMR examples (amr_runs);
      clumps_overlap.in as written, through K10 (clump_dense_max 0: the
      <N_scatt> ratio K10 / K9 held at 1 +- 5%) and with one observer on +z,
      and bicone_clump.in with save_clump_info off (W_esc + W_oor = 1);
@@ -165,7 +172,12 @@ Phases (one line each, or more):
      beside lart_tpu's CPU run, tools/shear_cpu_runs.py), t1tau6.in at
      tauhomo 1e4 and t4tau7.in at taumax 1e3 with calcJ, calcP and
      calcPnew (their FITS sections, the slab's Pa closure, each map by
-     chi2/dof < 3 beside lart_tpu's CPU runs)
+     chi2/dof < 3 beside lart_tpu's CPU runs); save_all_photons
+     (allph_cli): t4tau7.in at taumax 1e5 (1e5 photons) through K5,
+     DL20e_dust.in at its cut with Stokes, amr_sphere.in, clumps_overlap.in
+     and bicone_clump.in (the AllPhotons section read back, the table's
+     closures, <nscatt_gas> and the histograms of xfreq1, xfreq2 and rp
+     beside lart_tpu's CPU runs, tools/allph_cpu_runs.py)
   5  steady-state rates, B = 131072, budget 1e9 so the batch never drains:
      the flagship slab (tau0 = 1e6, nz = 201, chunk_cycles 32; >= 800
      chunks and >= 1 s),
@@ -185,7 +197,10 @@ Phases (one line each, or more):
      illumination instance, K5's atmosphere branches, PEEL_STELLAR with its
      in-image pairs, as written and on +z), shear.in as written (K5's
      shear instance) and t1tau6.in as written with the three maps (K5's
-     deposits, K4's Pa); a torch.profiler
+     deposits, K4's Pa), t4tau7.in as written with save_all_photons (a
+     budget of 1e7: K5's, K2's and K4's kAllph instances) beside
+     t4tau7.in as written, and short windows of amr_sphere.in,
+     clumps_overlap.in and bicone_clump.in with the table; a torch.profiler
      breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
@@ -240,12 +255,12 @@ MGII = dict(line_id='MgII_2796', wavelength_min=2790.0,
             wavelength_max=2810.0)
 # phase 4's cut of sphere_HD_dijkstra2006: as written (N_HI 1.2e19) each
 # photon scatters ~8e5 times, one scattering a cycle, and 2000 photons took
-# 205 s on the card whatever their number; N_HI 3e17 cuts that ~fortyfold,
-# which keeps the whole script well inside its time limit
-HD_PHOTONS, HD_NHI = 2000, '3e17'
-# phase 4's cuts of slab/t1tau6.in at tauhomo 1e4 (1e5 photons as written:
-# 32-35 s of the script's budget) and of the Dijkstra case (2e4 photons
-# before PR 12: 66-91 s by the host)
+# 205 s on the card whatever their number; N_HI 3e17 cut that ~fortyfold
+# (13-17 s), 1e17 cuts it to ~5 s (testing.SOURCE_CASES['sphere_HD_cut'])
+HD_PHOTONS, HD_NHI = 2000, '1e17'
+# phase 4's cuts of slab/t1tau6.in at tauhomo 3e3 (1e5 photons as written;
+# tauhomo 1e4 took 25-27 s: testing.SOURCE_CASES['t1tau6_cut']) and of the
+# Dijkstra case (2e4 photons took 66-91 s by the host)
 SLAB_PHOTONS, DIJKSTRA_PHOTONS = 5e4, 10000
 LINES = ' (line types 2, 4-7)'  # the kernels' metal-line instances in res
 # Ly-beta with its H-alpha band (line type 8) and H2 pumping of Ly-alpha:
@@ -353,7 +368,39 @@ def kernel_work(name, pre, ch, meta, stats=None):
     peel, each cube bin it deposits into written once.  The flops are
     counted per lane (refill, scatter) or per pair and crossing (peel); the
     flights' are left out, so their bound is their bytes, but for H2's
-    two Voigt functions a step of K5 (stats from its plain version)."""
+    two Voigt functions a step of K5 (stats from its plain version).  With
+    the all-photons table the lanes' rows and counts (allph_work) are
+    added."""
+    nbytes, flops = _kernel_work(name, pre, ch, meta, stats)
+    if ch.allph is not None:
+        b, f = allph_work(name, pre, ch, stats)
+        nbytes, flops = nbytes + b, flops + f
+    return nbytes, flops
+
+
+def allph_work(name, pre, ch, stats):
+    """(bytes, flops) the all-photons table adds to kernel `name` on the
+    state `pre`: K2 stores each launched lane's id and two counts and its
+    birth row (rp0, xfreq1), ~25 flops of impact parameter; K4 reads and
+    writes each scattering lane's two counts; a death (stats['deaths'],
+    counted by the plain version on the same inputs) reads the lane's id
+    and counts and writes rp, xfreq2 and the two counts (with Stokes also
+    reads the triad and Q, U, V and writes I, Q, U, V), ~25 flops (~45
+    with Stokes)."""
+    from lart_tpu_torch.transport.state import AT_SCATTER, DEAD
+    stokes = ch.allph.I is not None
+    per_death = 12 + 16 + (36 + 16 if stokes else 0)
+    deaths = (stats or {}).get('deaths', 0)
+    if name.startswith('refill_'):
+        k = int((pre.phase == DEAD).sum())
+        return k * (12 + 8), k * 25
+    if name == 'scatter_lya':
+        k = int((pre.phase == AT_SCATTER).sum())
+        return k * 16 + deaths * per_death, deaths * (45 if stokes else 25)
+    return deaths * per_death, deaths * (45 if stokes else 25)
+
+
+def _kernel_work(name, pre, ch, meta, stats=None):
     from lart_tpu_torch.transport.state import AT_SCATTER, DEAD, FFS, FLYING
     B, ph = pre.batch, pre.phase
     peel = ch.peel
@@ -719,11 +766,16 @@ def phase1():
     from lart_tpu_torch.kernels import build as kb
     t0 = time.time()
     kb.library()
-    regs = re.findall(r"Compiling entry function '_Z(\d+)(\w+)'|Used (\d+) "
-                      r"registers", kb.BUILD_INFO.get('ptxas', ''))
-    per = {}
+    regs = re.findall(r"Compiling entry function '_Z(\d+)(\w+)'|(\d+) bytes "
+                      r"spill stores|Used (\d+) registers",
+                      kb.BUILD_INFO.get('ptxas', ''))
+    per, spills = {}, {}
     name = None
-    for n, fn, used in regs:
+    for n, fn, spill, used in regs:
+        if spill:
+            if name and int(spill):
+                spills[name] = int(spill)
+            continue
         if fn:
             # a kernel's instances (line.cuh kMulti, h2.cuh kH2, refill.cu
             # kSrc) by their template arguments
@@ -734,9 +786,12 @@ def phase1():
                 if m else '')
         elif name:
             per[name] = int(used)
+    secs = {k: round(v, 1) for k, v in
+            kb.BUILD_INFO.get('source_seconds', {}).items()}
     log(1, f'built {Path(kb.BUILD_INFO["path"]).name} from '
            f'{len(kb.SOURCES)} sources in {kb.BUILD_INFO["seconds"]:.1f} s '
-           f'(load {time.time() - t0:.1f} s); ptxas registers: {per}')
+           f'(load {time.time() - t0:.1f} s; each source\'s nvcc, s: {secs});'
+           f' ptxas registers: {per}; spill stores (bytes): {spills or 0}')
 
 
 def both(meta, state_seed, step, check_tallies, dev, r_max=None, nmu=8,
@@ -989,6 +1044,7 @@ def phase2(dev):
     phase2_temperature(dev, res)
     phase2_atmosphere(dev, res)
     phase2_shear(dev, res)
+    phase2_allph(dev, res)
     return res
 
 
@@ -1836,7 +1892,7 @@ def run_cli(nml, out, device='cuda'):
     return rc, caught[0], wall, launches
 
 
-def phase4(tauhomo=1e4, device='cuda'):
+def phase4(tauhomo=3e3, device='cuda'):
     """The main paths, through the CLI's entry point, with launch counts."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.io.writer import read_spectrum
@@ -1895,8 +1951,7 @@ def phase4(tauhomo=1e4, device='cuda'):
                f' tol {xp_tol:.4f}), wall {wall:.1f} s; launches {launches}')
 
         # the expanding Hubble sphere at its full 201^3 grid
-        nml = namelist_variant('vel_effect/t4NHI2_20_V0200.in', tmp,
-                               N_HI='2.0e18', no_photons='1e4')
+        nml = source_variant('vel_effect_cut', tmp)
         out = Path(tmp) / 'vel_effect.fits'
         rc, res, wall, launches = run_cli(nml, out, device)
         assert rc == 0
@@ -1909,7 +1964,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         assert abs(w - 1.0) < 1e-3, (res.W_escape, res.W_oor)
         red = float(jout[x < 0].sum() / jout.sum())
         add(launches, ('refill_point', 'fly_cartesian', 'scatter_lya'))
-        log(4, f'CLI t4NHI2_20_V0200.in (N_HI 2e18, {res.nphotons} photons, '
+        log(4, f'CLI t4NHI2_20_V0200.in (N_HI 5e17, {res.nphotons} photons, '
                f'201^3 reflect, Hubble Vexp 200, FITS): W_esc {res.W_escape:.6f}'
                f' + W_oor {res.W_oor:.6f} = {w:.6f}, share of escaped weight '
                f'at x < 0 (red) {red:.4f}, <N_scatt> {res.nscatt_gas:.2f}, '
@@ -1926,6 +1981,7 @@ def phase4(tauhomo=1e4, device='cuda'):
         temperature_cli(tmp, device, total)
         atmosphere_cli(tmp, device, total)
         shear_cli(tmp, device, total)
+        allph_cli(tmp, device, total)
     return total
 
 
@@ -1945,9 +2001,9 @@ def peel_cli(tmp, device, total):
     from lart_tpu_torch.io.iofile import open_read
     from lart_tpu_torch.io.writer import read_spectrum
     for name, over, fly in (
-            ('slab_peel', dict(no_photons='1e4'), 'fly_uniform_slab'),
-            ('sphere_peel', dict(nphotons='2e4'), 'fly_uniform_sphere'),
-            ('vel_effect_peel', dict(N_HI='2.0e18', no_photons='1e4'),
+            ('slab_peel', cut_of('slab_peel_cut'), 'fly_uniform_slab'),
+            ('sphere_peel', cut_of('sphere_peel_cut'), 'fly_uniform_sphere'),
+            ('vel_effect_peel', cut_of('vel_effect_peel_cut'),
              'fly_cartesian')):
         nml = namelist_variant(PEEL_EXAMPLES[name], tmp, **over)
         out = Path(tmp) / f'{name}.fits'
@@ -1983,21 +2039,30 @@ def peel_cli(tmp, device, total):
 def dl2008_cli(tmp, device, total, nphotons=DL_PHOTONS):
     """The Dijkstra & Loeb (2008) expanding shell as written (201^3, 200
     km/s, a Gaussian line, Stokes) but for its photons and its column, with
-    dust (DL20e_dust.in) and without (DL20e.in): the weight closes and the
+    dust (DL20e_dust.in, with the all-photons table: allph_check) and
+    without (DL20e.in): the weight closes and the
     escaped spectrum is red-dominated (the receding far side of the
-    shell).  N_HI is cut from 1e20 to 1e18 (tau0 5.9e6 to 5.9e4) and DGR
-    raised from 1 to 100, so the dust's optical depth stays 0.16 as
-    written: as written, a few percent of the photons scatter into the
-    shell's line core and random-walk ~tau0 times, and 2000 photons still
-    had 12 alive after 200 s (even with core-skip) on an H100."""
+    shell).  N_HI is cut from 1e20 to 1e18 (tau0 5.9e6 to 5.9e4) with
+    dust, DGR raised from 1 to 100, so the dust's optical depth stays 0.16
+    as written, and to 2e17 without (testing.SOURCE_CASES['DL20e_cut']):
+    as written, a few percent of the photons scatter into the shell's line
+    core and random-walk ~tau0 times, and 2000 photons still had 12 alive
+    after 200 s (even with core-skip) on an H100."""
     for rel in (DL20E_DUST, DL20E):
         over = {'no_photons': f'{nphotons:g}', 'N_HI': '1.0e18'}
         if rel == DL20E_DUST:
-            over['DGR'] = '100.0'
+            # with the all-photons table (testing.SOURCE_CASES[
+            # 'DL20e_dust_allph']): its Stokes columns and absorption deaths
+            over.update(cut_of('DL20e_dust_allph'))
+        else:
+            over.update(cut_of('DL20e_cut'))
         nml = namelist_variant(rel, tmp, **over)
         out = Path(tmp) / (Path(rel).stem + '.fits')
         rc, res, wall, launches = run_cli(nml, out, device)
         assert rc == 0
+        if rel == DL20E_DUST:
+            allph_check('DL20e_dust', res, out, wall, launches, total,
+                        'fly_cartesian')
         x, jout = res.xfreq, res.Jout
         assert np.all(np.isfinite(jout)) and jout.shape == x.shape
         w = res.W_escape + res.W_absorb + res.W_oor
@@ -2011,7 +2076,7 @@ def dl2008_cli(tmp, device, total, nphotons=DL_PHOTONS):
         add_launches(total, launches, ('refill_point', 'fly_cartesian',
                                        'scatter_lya'))
         log(4, f'CLI {Path(rel).name} ({res.nphotons} photons, 201^3, '
-               f'N_HI 1e18, DGR {res.cfg.par.DGR:g}, Stokes, FITS): W_esc {res.W_escape:.6f} + W_abs '
+               f'N_HI {res.cfg.par.N_HI:g}, DGR {res.cfg.par.DGR:g}, Stokes, FITS): W_esc {res.W_escape:.6f} + W_abs '
                f'{res.W_absorb:.6f} + W_oor {res.W_oor:.6f} = {w:.6f}, '
                f'absorbed share {res.W_absorb:.6f}, share of escaped weight '
                f'at x < 0 (red) {red:.4f}, <N_scatt> {res.nscatt_gas:.2f}, '
@@ -2093,7 +2158,8 @@ def lines_cli(tmp, device, total, hd_photons=HD_PHOTONS):
 
 
 def lyb_h2_cli(tmp, device, total):
-    """The slice's examples through the CLI as written (FITS): Ly-beta
+    """The slice's examples through the CLI (FITS), h2_on.in at taumax 1e4,
+    the others as written: Ly-beta
     t4tau1e4.in and t4tau1e4_dust.in (the band budgets close, W_conv /
     nscatt_gas is P_down[1], the Spectrum keywords, Jout_Ha, Jabs_Ha, J2gam
     and the _peel3D file's peel_Ha cube are written), and h2_on.in (the
@@ -2103,7 +2169,9 @@ def lyb_h2_cli(tmp, device, total):
     from lart_tpu_torch.io.iofile import open_read
     from lart_tpu_torch.io.writer import read_spectrum
     for rel, key in ((LYB, 'lyb'), (LYB_DUST, 'lyb'), (H2_ON, 'h2')):
-        nml = namelist_variant(rel, tmp)
+        # h2_on.in at taumax 1e4 (testing.SOURCE_CASES['h2_on_cut'])
+        nml = namelist_variant(rel, tmp, **(cut_of('h2_on_cut')
+                                            if key == 'h2' else {}))
         out = Path(tmp) / (Path(rel).stem + '.fits')
         rc, res, wall, launches = run_cli(nml, out, device)
         assert rc == 0
@@ -2147,7 +2215,9 @@ def lyb_h2_cli(tmp, device, total):
         sub = total.setdefault(key, {})
         for k, v in launches.items():
             sub[k] = sub.get(k, 0) + v
-        log(4, f'CLI {Path(rel).name} as written ({res.nphotons} photons, '
+        log(4, f'CLI {Path(rel).name} '
+               f'{"at taumax 1e4" if key == "h2" else "as written"} '
+               f'({res.nphotons} photons, '
                f'{res.meta.nx}^3, line type {res.cfg.line.line_type}, FITS):'
                f' {extra}, <N_scatt> {res.nscatt_gas:.2f}, wall {wall:.1f} '
                f's; launches {launches}')
@@ -2355,7 +2425,8 @@ def amr_runs(tmp, device, total):
     """The slice's examples through driver.run with the leaves in memory
     (amr_data: the card's machine has no h5py), FITS written and read back:
     examples/amr_sphere/amr_sphere.in as written (its leaves are
-    make_amr_sphere(32, 1)); its Cartesian twin, the same sphere on a 64^3
+    make_amr_sphere(32, 1)) with the all-photons table (allph_check); its
+    Cartesian twin, the same sphere on a 64^3
     grid, for the AMR-vs-Cartesian <N_scatt> ratio (the reference recorded
     0.985); jellyfish_pt.in with taumax cut to JELLY_TAU, its observer's
     _peel3D file.  Launch counts go into total['amr']."""
@@ -2366,6 +2437,7 @@ def amr_runs(tmp, device, total):
     def run(label, par, leaves, need):
         out = Path(tmp) / (label + '.fits')
         par.file_format, par.out_file = 'fits', str(out)
+        table = par.save_all_photons
         kb.reset_launch_counts()
         t0 = time.time()
         r = driver.run(par, device=device, amr_data=leaves)
@@ -2375,7 +2447,11 @@ def amr_runs(tmp, device, total):
         spec = read_spectrum(str(out))
         launches = dict(kb.LAUNCHES)
         add_launches(total, launches, need)
-        if leaves is not None:
+        if table:
+            # the table's checks; its launches (K8's kAllph instance) go
+            # into total['allph'], not total['amr']
+            allph_check(label, r, out, wall, launches, total, 'fly_amr')
+        if leaves is not None and not table:
             sub = total.setdefault('amr', {})
             for k, v in launches.items():
                 sub[k] = sub.get(k, 0) + v
@@ -2391,8 +2467,9 @@ def amr_runs(tmp, device, total):
         return r
 
     need = ('refill_point', 'fly_amr', 'scatter_lya')
-    ra = run('amr_sphere', example_params(AMR_SPHERE), amr_leaves(
-        'sphere48k'), need)
+    # with the all-photons table (testing.SOURCE_CASES['amr_sphere_allph'])
+    ra = run('amr_sphere', example_params(AMR_SPHERE, save_all_photons=True),
+             amr_leaves('sphere48k'), need)
     rc = run('amr_sphere_cartesian_twin', example_params(
         AMR_SPHERE, use_amr_grid=False, rmax=1.0, nx=64, ny=64, nz=64,
         xmax=1.0, ymax=1.0, zmax=1.0), None,
@@ -3087,15 +3164,24 @@ def phase2_sources(dev, res):
     del ch, grid
 
 
+def cut_of(name):
+    """The keys testing.SOURCE_CASES[name] replaces, as namelist_variant
+    takes them."""
+    from lart_tpu_torch import testing
+    return {k: ('.true.' if v else '.false.') if isinstance(v, bool)
+            else f'{v:g}' for k, v in testing.SOURCE_CASES[name][1].items()}
+
+
 def source_variant(name, tmp, **over):
     """testing.SOURCE_CASES[name] rewritten into tmp (namelist_variant): its
     files made absolute, its cut and `over` applied."""
     from lart_tpu_torch import testing
     rel, cut = testing.SOURCE_CASES[name]
-    keys = dict(testing.source_files(ROOT / 'examples' / rel), **cut, **over)
+    keys = {**testing.source_files(ROOT / 'examples' / rel), **cut, **over}
     return namelist_variant(rel, tmp, **{
-        k: f"'{v}'" if isinstance(v, str) else f'{v:g}'
-        for k, v in keys.items()})
+        k: f"'{v}'" if isinstance(v, str) else (
+            ('.true.' if v else '.false.') if isinstance(v, bool)
+            else f'{v:g}') for k, v in keys.items()})
 
 
 # each source case's K2 instance and the rest of its path (phase 4)
@@ -3853,9 +3939,11 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
     from lart_tpu_torch.instruments import peel as tpeel
     from lart_tpu_torch.physics.voigt import voigt, voigt_plain
     from lart_tpu_torch.transport import refill, scatter
+    from lart_tpu_torch.transport.state import DEAD
     ch, st = p.chunk, p.state
     fmod = sys.modules[type(ch.flight).__module__]
     tl = ch.zero_tallies(st.device)
+    tl.allph = ch.allph     # save_all_photons: the run's table
 
     def new_record():
         return None if ch.peel is None else tpeel.PeelRecord.zeros(
@@ -3939,8 +4027,15 @@ def kernel_times(p, card, label, res, names, record=(), reps=20, suffix=''):
                  'fly_clump_csr'):
             # the steps the walk takes on these inputs (its H2 flops; K8's
             # distinct nodes; K9's crossed chords; K10's distinct cells)
-            fmod.fly_plain(testing.clone_state(pre), tl, ch.flight,
-                           ch.fly_substeps, stats=stats)
+            done = testing.clone_state(pre)
+            fmod.fly_plain(done, tl, ch.flight, ch.fly_substeps, stats=stats)
+            stats['deaths'] = int(((pre.phase != DEAD)
+                                   & (done.phase == DEAD)).sum())
+        elif k == 'scatter_lya' and ch.allph is not None:
+            done = testing.clone_state(pre)
+            scatter.scatter_plain(done, tl, ch.scatter_params, 1, c)
+            stats['deaths'] = int(((pre.phase != DEAD)
+                                   & (done.phase == DEAD)).sum())
         out[k] = dev_ms, call_ms, plain_ms, bound(*kernel_work(
             k, pre, ch, p.meta, stats))
     keys = dict((r, r + suffix) if isinstance(r, str) else (r[0], ''.join(r))
@@ -3983,6 +4078,22 @@ def branch_shift_share(p, card, label, reps=20):
            f'shift takes {100 * (on - without) / on:.1f}% of K2 [{card}]')
 
 
+def window(p, min_s):
+    """(gas scatterings, seconds, chunks) of whole chunks of the prepared
+    run until at least min_s seconds have passed (host clock between two
+    synchronisations)."""
+    from lart_tpu_torch import driver
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nsc, n = 0.0, 0
+    while True:
+        nsc += driver.chunk_to_host(*p.run_chunk())['nscatt_gas']
+        n += 1
+        if time.perf_counter() - t0 >= min_s:
+            break
+    return nsc, time.perf_counter() - t0, n
+
+
 def rate_window(label, par, dev, min_s=WINDOW_S, amr_data=None):
     """Steady-state rate: 3 warm-up chunks, then whole chunks until at least
     min_s seconds have passed (host clock between two synchronisations);
@@ -3995,15 +4106,7 @@ def rate_window(label, par, dev, min_s=WINDOW_S, amr_data=None):
     for _ in range(3):
         driver.chunk_to_host(*p.run_chunk())
     card = smi()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    nsc, n = 0.0, 0
-    while True:
-        nsc += driver.chunk_to_host(*p.run_chunk())['nscatt_gas']
-        n += 1
-        if time.perf_counter() - t0 >= min_s:
-            break
-    dt = time.perf_counter() - t0
+    nsc, dt, n = window(p, min_s)
     cycles = n * par.chunk_cycles
     rate = nsc / dt
     log(5, f'{label} B={par.batch_size} fly_substeps {par.fly_substeps} '
@@ -4176,6 +4279,7 @@ def phase5(dev, res):
     temperature_phase5(dev, res)
     atmosphere_phase5(dev, res)
     shear_phase5(dev, res)
+    allph_phase5(dev, res)
 
 
 # ---------------------------------------------------------------------------
@@ -4859,6 +4963,441 @@ def phase2_shear(dev, res):
            f'({time.time() - t0:.1f} s)')
 
 
+# ---------------------------------------------------------------------------
+# the all-photons table (save_all_photons)
+# ---------------------------------------------------------------------------
+
+ALLPH = ' (all photons)'
+ALLPH_CPU = ROOT / 'tools' / 'allph_cpu_runs.json'
+# allph_cli's runs with save_all_photons (testing.SOURCE_CASES[name +
+# '_allph']) and each one's flight; DL20e_dust runs in dl2008_cli,
+# amr_sphere in amr_runs
+ALLPH_CLI = {'t4tau7': 'fly_cartesian', 'clumps_overlap': 'fly_clump_dense',
+             'bicone_clump': 'fly_clump_csr'}
+
+
+def allph_tallies(ch, nrow):
+    """tallies(dev) of both(): the chunk's zero tallies with a zero table
+    of nrow rows of the chunk's columns (the mixed states' ids reach the
+    batch size)."""
+    from lart_tpu_torch.transport.allph import zero_allph
+    par = ch.allph
+
+    def make(d):
+        t = ch.zero_tallies(d)
+        t.allph = zero_allph(nrow, par.I is not None, par.rmax, d)
+        return t
+    return make
+
+
+def table_diff(tk, tp):
+    """(rows differing, max abs err over the others) of two tables, column
+    by column at the lanes' tolerance."""
+    bad = torch.zeros(tk.n, dtype=torch.bool, device=tk.rp.device)
+    for f in tk.fields:
+        bad |= ~torch.isclose(getattr(tk, f), getattr(tp, f), rtol=LANE_RTOL,
+                              atol=LANE_ATOL)
+    err = 0.0
+    if bool((~bad).any()):
+        err = max(float((getattr(tk, f) - getattr(tp, f)).abs()[~bad].max())
+                  for f in tk.fields)
+    return int(bad.sum()), err
+
+
+def allph_chunk(par, dev, data=None, table=True):
+    """(meta, chunk, grid) of par with save_all_photons on (table): its
+    Cartesian grid, its AMR grid from the leaves `data` (grid None), or its
+    clumps from iseed + 77 (grid None)."""
+    par.save_all_photons = table
+    if data is not None:
+        meta, ch, _, _ = amr_chunk(par, data, dev)
+        return meta, ch, None
+    if par.use_clump_medium:
+        meta, ch, _ = clump_chunk(par, dev)
+        return meta, ch, None
+    _, meta, grid, ch = sources_chunk(par, dev)
+    return meta, ch, grid
+
+
+def phase2_allph(dev, res):
+    """The all-photons table against the plain versions at B = B_MAIN: the
+    birth rows of K2's five instances (t4tau7.in, halo_0053.in, t4tau2.in,
+    stars1.in, star_planet_a090.in; the ids compared by set, each lane's
+    row at the kernel's id against the plain version's row at its own id);
+    the death rows and event counts of K4's four instances with the table
+    (dust absorption on DL20e_dust.in's grid with Stokes, H2 destruction
+    on h2_on.in, line type 8 with dust on t4tau1e4_dust.in, line type 7
+    with H2 on sphere_HD); the death rows of K5 on t4tau7.in, DL20e_dust.in
+    (Stokes), shear.in and a plane atmosphere (and a090's masked core),
+    each also without the table (K5's instances without kAllph); K8 on
+    amr_sphere.in, K9 on clumps_overlap.in, K10 on bicone_clump.in.  Lanes
+    and rows at 0 differing; each new instance's device ms with and without
+    the table on the same inputs."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport.state import DEAD
+    seed = 1500
+    nrow = 2 * B_MAIN
+
+    def timed(step, pre, make_t, plain_t):
+        """device ms of step's kernel with the table and without it."""
+        reps = 10
+        out = []
+        for mk in (make_t, plain_t):
+            t = mk(dev)
+            step(testing.clone_state(pre), t, True)   # loads the instance
+            copies = [testing.clone_state(pre) for _ in range(reps)]
+            out.append(device_ms([lambda s=s: step(s, t, True)
+                                  for s in copies]))
+            del copies
+        return out
+
+    def births(label, meta, ch):
+        nonlocal seed
+        seed += 2
+        s0 = testing.mixed_state(meta, B_MAIN, seed, dev, r_max=1.0)
+        step = refill_step(ch)
+        make = allph_tallies(ch, nrow)
+        sk, sp = testing.clone_state(s0), testing.clone_state(s0)
+        tk, tp = make(dev), make(dev)
+        step(sk, tk, True)
+        step(sp, tp, False)
+        torch.cuda.synchronize()
+        frac, err = testing.compare_states(sk, sp, LANE_RTOL, LANE_ATOL,
+                                           skip=('pid',))
+        assert frac == 0.0, (label, frac)
+        born = (s0.phase == DEAD) & (sk.phase != DEAD)
+        n = int(born.sum())
+        ik, ip = sk.pid[born].long(), sp.pid[born].long()
+        want = torch.arange(n, device=dev)
+        assert torch.equal(torch.sort(ik).values, want), label
+        assert torch.equal(torch.sort(ip).values, want), label
+        assert torch.equal(sk.pid[~born], s0.pid[~born])
+        bad = torch.zeros(n, dtype=torch.bool, device=dev)
+        ak, ap = tk.allph, tp.allph
+        for f in ('rp0', 'xfreq1'):
+            bad |= ~torch.isclose(getattr(ak, f)[ik], getattr(ap, f)[ip],
+                                  rtol=LANE_RTOL, atol=LANE_ATOL)
+        assert int(bad.sum()) == 0, (label, int(bad.sum()))
+        assert torch.equal(ak.xfreq1[ik], sk.xfreq[born])
+        assert float(sk.nsg[born].abs().sum() + sk.nsd[born].abs().sum()) == 0
+        d = float((tk.Jin - tp.Jin).abs().max())
+        assert d <= 1e-5 * max(float(tp.Jin.sum()), 1.0), d
+        name = ch.refill_params.kernel
+        _max_err(res, name + ALLPH, err)
+        ms = timed(step, s0, make, ch.zero_tallies)
+        bnd = bound(*kernel_work(name, s0, ch, meta))
+        log(2, f'K2 {name} with the table ({label}): {n} births, ids '
+               f'0..{n - 1} in both (kernel and plain version by lane: '
+               f'{int((ik != ip).sum())} lanes take another id), rows '
+               f'differing at their ids 0, lanes differing {frac:.2e} (pid '
+               f'left out), max abs err {err:.3e}; device ms with the table '
+               f'{ms[0]:.6f}, without {ms[1]:.6f}; bound {bnd[0]:.6f} ms '
+               f'({bnd[1]})')
+
+    def deaths(label, name, meta, ch, step, tal, state, expect=True):
+        nonlocal seed
+        seed += 2
+        make = allph_tallies(ch, nrow)
+        out = {}
+        s0, sk, frac, err, _ = both(meta, seed, step, tal, dev, state=state,
+                                    tallies=make, out=out)
+        assert frac == 0.0, (label, frac)
+        nd, terr = table_diff(out[True].allph, out[False].allph)
+        assert nd == 0, (label, nd)
+        died = (s0.phase != DEAD) & (sk.phase == DEAD)
+        n_died = int(died.sum())
+        assert n_died > 0 or not expect, label
+        # each dead lane's row, at its id, carries its event counts
+        ids = sk.pid[died].long()
+        assert torch.equal(out[True].allph.nscatt_gas[ids], sk.nsg[died])
+        _max_err(res, name + ALLPH, max(err, terr))
+        ms = timed(step, s0, make, ch.zero_tallies)
+        bnd = ''
+        if name == 'scatter_lya':
+            b = bound(*kernel_work(name, s0, ch, meta, {'deaths': n_died}))
+            bnd = f'; bound {b[0]:.6f} ms ({b[1]})'
+        log(2, f'{name} with the table ({label}): {n_died} lanes died and '
+               f'wrote their rows, rows differing {nd}, lanes differing '
+               f'{frac:.2e}, max abs err {max(err, terr):.3e}; device ms '
+               f'with the table {ms[0]:.6f}, without {ms[1]:.6f}{bnd}')
+
+    fly_tal = ('Jout', 'Jmu', 'W_oor')
+    sc_tal = ('nscatt_gas', 'nscatt_events')
+    # K2's five instances, and K5 / K4 where the grid serves them
+    t0 = time.time()
+    meta, ch, _ = allph_chunk(example_params('sphere/t4tau7.in',
+                                          batch_size=B_MAIN), dev)
+    assert type(ch.flight).__name__ == 'CartesianFlight'
+    log(2, f'all photons: t4tau7.in 129^3 with the table (K5: the table '
+           f'takes it off K6), set-up {time.time() - t0:.1f} s')
+    births('t4tau7.in, the point source', meta, ch)
+    for with_table in (True, False):
+        # lanes in the whole box: the vacuum round the sphere lets them
+        # escape, and forced first scatterings born there die in vacuum
+        st = testing.mixed_state(meta, B_MAIN, seed + 1, dev)
+        if with_table:
+            deaths('t4tau7.in (kAllph)', 'fly_cartesian', meta, ch,
+                   fly_step(ch), fly_tal, st)
+        else:
+            _, _, frac, err, _ = both(meta, seed + 1, fly_step(ch), fly_tal,
+                                      dev, state=st, nmu=ch.nmu)
+            assert frac == 0.0
+            log(2, f'fly_cartesian without the table (t4tau7.in, its '
+                   f'instance without kAllph): lanes differing {frac:.2e}')
+    deaths('t4tau7.in', 'scatter_lya', meta, ch, scatter_step(ch), sc_tal,
+           testing.mixed_state(meta, B_MAIN, seed + 3, dev, r_max=1.0),
+           expect=False)
+    del ch
+    for label, par in (
+            ('halo_0053.in', example_params('SSH_MUSE/halo_0053.in',
+                                            batch_size=B_MAIN)),
+            ('t4tau2.in', testing.source_params('t4tau2', ROOT,
+                                                batch_size=B_MAIN)),
+            ('stars1.in', testing.source_params('stars1', ROOT, cut=False,
+                                                batch_size=B_MAIN)),
+            ('star_planet_a090.in', testing.source_params(
+                'a090', ROOT, batch_size=B_MAIN))):
+        meta, ch, _ = allph_chunk(par, dev)
+        births(label, meta, ch)
+        if label == 'star_planet_a090.in':
+            # the masked core and its escapes (K5 kAllph)
+            deaths(f'{label}, the masked core', 'fly_cartesian', meta, ch,
+                   fly_step(ch), fly_tal,
+                   testing.mixed_state(meta, B_MAIN, seed + 5, dev))
+        del ch
+
+    # K5 and K4 on DL20e_dust.in as written (Stokes: the I, Q, U, V rows;
+    # K4's lanes in the dusty cells, from the line core to the far wing)
+    meta, ch, grid = allph_chunk(example_params(DL20E_DUST,
+                                                batch_size=B_MAIN), dev)
+    assert ch.allph.I is not None
+    deaths('DL20e_dust.in, Stokes (kAllph)', 'fly_cartesian', meta, ch,
+           fly_step(ch), fly_tal,
+           testing.mixed_state(meta, B_MAIN, seed + 7, dev))
+    deaths('DL20e_dust.in, dust absorption, Stokes', 'scatter_lya', meta,
+           ch, scatter_step(ch), sc_tal + ('nscatt_dust', 'Jabs'),
+           testing.dust_state(meta, grid, B_MAIN, seed + 9, 100.0, dev))
+    del ch, grid
+    # K4's other three instances with the table
+    meta, ch, _ = allph_chunk(example_params(H2_ON, batch_size=B_MAIN), dev)
+    sp = ch.scatter_params
+    centres = [float(np.float32(d) / np.float32(sp.Dfreq)) for d in sp.h2.dnu]
+    deaths('h2_on.in, H2 destruction', 'scatter_lya', meta, ch,
+           scatter_step(ch), sc_tal + ('W_H2abs',),
+           testing.line_state(meta, B_MAIN, seed + 11, centres + [0.0],
+                              width=1.5, device=dev))
+    del ch
+    meta, ch, _ = allph_chunk(example_params(LYB_DUST, batch_size=B_MAIN), dev)
+    st = testing.mixed_state(meta, B_MAIN, seed + 13, dev, r_max=1.0)
+    testing.band2_lanes(st, 7, frac=0.35)
+    deaths('t4tau1e4_dust.in, line type 8 with dust', 'scatter_lya', meta,
+           ch, scatter_step(ch), sc_tal + ('Jabs', 'Jabs_Ha'), st,
+           expect=False)
+    del ch
+    meta, ch, _ = allph_chunk(example_params(
+        LINE_EXAMPLES['HD'], batch_size=B_MAIN, h2_model='neufeld',
+        f_H2=0.03, h2_temperature=8000.0), dev)
+    sp = ch.scatter_params
+    centres = [float(np.float32(d) / np.float32(sp.Dfreq)) for d in sp.h2.dnu]
+    deaths('sphere_HD with H2, line type 7', 'scatter_lya', meta, ch,
+           scatter_step(ch), sc_tal + ('W_H2abs',),
+           testing.line_state(meta, B_MAIN, seed + 15, centres + [0.0],
+                              width=1.5, device=dev), expect=False)
+    del ch
+    # K5 on shear.in (its kExtra instance, with and without kAllph) and
+    # a plane atmosphere (its bottom face)
+    for label, par, state_fn in (
+            ('shear.in', example_params(SHEAR_IN, batch_size=B_MAIN),
+             testing.shear_state),
+            ('a 1x1x201 plane atmosphere', testing.plane_atmosphere_params(
+                nz=201, batch_size=B_MAIN), None)):
+        for with_table in (True, False):
+            meta, ch, grid = allph_chunk(par, dev, table=with_table)
+            seed += 2
+            st = state_fn(meta, B_MAIN, seed, dev) if state_fn else \
+                testing.mixed_state(meta, B_MAIN, seed, dev)
+            if with_table:
+                deaths(f'{label} (kAllph)', 'fly_cartesian', meta, ch,
+                       fly_step(ch), fly_tal, st)
+            else:
+                _, _, frac, err, _ = both(meta, seed, fly_step(ch), fly_tal,
+                                          dev, state=st,
+                                          tallies=ch.zero_tallies)
+                assert frac == 0.0
+                log(2, f'fly_cartesian without the table ({label}): lanes '
+                       f'differing {frac:.2e}')
+            del ch, grid
+
+    # K8, K9, K10
+    meta, ch, _ = allph_chunk(example_params('amr_sphere/amr_sphere.in',
+                                          batch_size=B_MAIN), dev,
+                           amr_leaves('sphere48k'))
+    deaths('amr_sphere.in', 'fly_amr', meta, ch, fly_step(ch), fly_tal,
+           testing.amr_state(meta, ch.flight.amr, B_MAIN, seed + 17, dev))
+    del ch
+    for label, name in (('overlap', 'fly_clump_dense'),
+                        ('bicone', 'fly_clump_csr')):
+        meta, ch, _ = allph_chunk(clump_params(label, batch_size=B_MAIN), dev)
+        assert flight_kernel(ch) == name
+        deaths(f'{label} clumps', name, meta, ch, fly_step(ch), fly_tal,
+               testing.clump_state(meta, ch.flight.clump, B_MAIN,
+                                   seed + 19, dev))
+        del ch
+
+
+def allph_check(name, res, out, wall, launches, total, fly):
+    """A phase-4 run with save_all_photons: its AllPhotons section, read
+    back from `out`, is the run's table; the table's closures hold
+    (testing.allph_closures); where lart_tpu's CPU run of the same cut is
+    recorded (tools/allph_cpu_runs.py), <nscatt_gas> agrees within 5% or 3
+    sigma and the histograms of xfreq1, xfreq2 and rp by chi2/dof < 3.
+    The run's launches go into total['allph'][name] (the caller adds them
+    into total)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.io.writer import read_spectrum
+    cpu = json.loads(ALLPH_CPU.read_text())
+    ap = read_spectrum(str(out))['allph']
+    assert ap is not None and set(ap) == set(res.allph), name
+    for k, v in ap.items():
+        assert np.array_equal(v, res.allph[k].astype(np.float32)), k
+    meta, n = res.meta, res.nphotons
+    assert ap['rp'].shape == (n,)
+    summ = testing.allph_summary(ap, testing.allph_edges(
+        meta.xfreq_min, meta.xfreq_max, res.cfg.par.rmax))
+    clos = testing.allph_closures(res, summ)
+    for k, (v, lim) in clos.items():
+        assert v <= lim, (name, k, v, lim)
+    extra = ''
+    if name in cpu:
+        ref = cpu[name]
+        sig = math.hypot(summ['N_spread'] / math.sqrt(n),
+                         ref['N_spread'] / math.sqrt(ref['n']))
+        dn = summ['N'] - ref['N']
+        assert abs(dn) <= max(0.05 * ref['N'], 3.0 * sig), (name, dn, sig)
+        chi = {k: testing.hist_chi2(summ['hist'][k], ref['hist'][k])
+               for k in summ['hist']}
+        for k, (c2, dof) in chi.items():
+            assert dof < 1 or c2 < 3.0, (name, k, c2, dof)
+        extra = (f'; lart_tpu ({ref["n"]} photons on the CPU): table '
+                 f'<nscatt_gas> {ref["N"]:.4f}, |d| {abs(dn):.4f} (3 sigma '
+                 f'{3 * sig:.4f}), chi2/dof ' + ', '.join(
+                     f'{k} {c2:.2f} ({d})' for k, (c2, d) in chi.items()))
+        if summ['sum_I'] is not None and ref.get('sum_I') is not None:
+            # the forced first scatterings' escaped weight, which the rows
+            # do not carry (W - sum I over the photons)
+            ffs, ffs_ref = -clos['I_excess'][0], -ref['closures'][
+                'I_excess'][0]
+            extra += (f', W - sum I a photon {ffs:.6f} (lart_tpu '
+                      f'{ffs_ref:.6f})')
+    assert all(launches[k] > 0 for k in ('refill_point', fly,
+                                         'scatter_lya')), launches
+    total.setdefault('allph', {})[name] = launches
+    log(4, f'{name} with save_all_photons ({n} photons, FITS): AllPhotons '
+           f'{len(ap)} columns x {n} rows, the run\'s table; table '
+           f'<nscatt_gas> {summ["N"]:.4f} (one photon\'s spread '
+           f'{summ["N_spread"]:.4f}), <nscatt_dust> {summ["Nd"]:.4f}, '
+           f'<N_scatt> {res.nscatt_gas:.4f}, rp q95 {summ["rp_q95"]:.4f}; '
+           f'closures ' + ', '.join(f'{k} {v:.3g} (<= {lim:.3g})'
+                                   for k, (v, lim) in clos.items())
+           + f'{extra}, wall {wall:.1f} s; launches {launches}')
+
+
+def allph_cli(tmp, device, total):
+    """The all-photons table through the CLI, FITS written and read back
+    (testing.SOURCE_CASES[name + '_allph']; allph_check): t4tau7.in at the
+    Dijkstra case's taumax 1e5 with its 1e5 photons through K5,
+    clumps_overlap.in (K9) and bicone_clump.in (K10, save_clump_info off)
+    as written.  DL20e_dust.in at its cut (Stokes) and amr_sphere.in run
+    with the table in dl2008_cli and amr_runs."""
+    for name, fly in ALLPH_CLI.items():
+        out = Path(tmp) / f'{name}_allph.fits'
+        rc, res, wall, launches = run_cli(
+            source_variant(name + '_allph', tmp), out, device)
+        assert rc == 0
+        add_launches(total, launches, ('refill_point', fly, 'scatter_lya'))
+        allph_check(name, res, out, wall, launches, total, fly)
+
+
+ALLPH_WINDOW_PHOTONS = 10 ** 7     # the table window's budget: 240 MB
+
+
+def allph_phase5(dev, res):
+    """t4tau7.in as written with save_all_photons (the slice's main path:
+    K5's, K2's and K4's kAllph instances, the death rows in K5's; a
+    budget of ALLPH_WINDOW_PHOTONS, whose table's bytes are printed),
+    then t4tau7.in as written without it (K6) in an adjacent window, and
+    short windows of amr_sphere.in (K8), clumps_overlap.in (K9) and
+    bicone_clump.in (K10) with the table (budgets of 1e7, 2e8, 5e7); each
+    with kernel times against the plain versions and bounds, which go into
+    the kernels line."""
+    over = dict(batch_size=B_MAIN, chunk_cycles=32)
+    p, rate = rate_window(
+        f't4tau7.in as written with save_all_photons (129^3, tau 1e7, '
+        f'core-skip, K5 kAllph; budget {ALLPH_WINDOW_PHOTONS:g})',
+        example_params('sphere/t4tau7.in', save_all_photons=True,
+                       nphotons=ALLPH_WINDOW_PHOTONS, **over), dev)
+    card = smi()
+    assert flight_kernel(p.chunk) == 'fly_cartesian'
+    log(5, f't4tau7 with the table: {p.chunk.allph.n} rows, '
+           f'{p.chunk.allph.nbytes} bytes on the device [{card}]')
+    profile_chunks(p, card, 't4tau7 with the table')
+    names = ('refill_point', 'fly_cartesian', 'scatter_lya')
+    kernel_times(p, card, 't4tau7 with the table', res, names,
+                 record=names, suffix=ALLPH)
+    # K5 with the table (kAllph) and without it on the window's state, in
+    # turns
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport import fly_cartesian as fcart
+    ch, pre = p.chunk, testing.clone_state(p.state)
+    ms = {True: [], False: []}
+    for table in (True, False, False, True):
+        tl = ch.zero_tallies(dev)
+        tl.allph = ch.allph if table else None
+        copies = [testing.clone_state(pre) for _ in range(20)]
+        ms[table].append(device_ms([
+            lambda s=s: fcart.fly(s, tl, ch.flight, ch.fly_substeps)
+            for s in copies]))
+        del copies
+    log(5, f't4tau7 K5 on the window\'s state, in turns: with the table '
+           f'{np.mean(ms[True]):.6f} ms, without {np.mean(ms[False]):.6f} ms '
+           f'({100 * (np.mean(ms[True]) / np.mean(ms[False]) - 1):+.1f}%) '
+           f'[{card}]')
+    p0, _ = rate_window('t4tau7.in as written (K6, no table)',
+                        example_params('sphere/t4tau7.in', nphotons=10 ** 9,
+                                       **over), dev)
+    # the two in turns (as written, with the table, with it, as written):
+    # the host's speed drifts by ~10% from window to window
+    rates = {False: [], True: []}
+    for table in (False, True, True, False):
+        nsc, dt, _ = window(p if table else p0, WINDOW_S)
+        rates[table].append(float(nsc / dt))
+    ratio = np.mean(rates[True]) / np.mean(rates[False])
+    log(5, f't4tau7 with the table (K5) over as written (K6), windows in '
+           f'turns: {[f"{r:.6e}" for r in rates[True]]} against '
+           f'{[f"{r:.6e}" for r in rates[False]]} gas scatterings/s, '
+           f'rate ratio {ratio:.4f} [{card}]')
+    del p, p0
+    # each window's budget holds its photons past the window (the
+    # clumps_overlap photons scatter ~9 times: 4e7 die a second)
+    for label, par, data, fly, budget in (
+            ('amr_sphere.in with save_all_photons (48000 leaves)',
+             example_params('amr_sphere/amr_sphere.in', **over),
+             amr_leaves('sphere48k'), 'fly_amr', ALLPH_WINDOW_PHOTONS),
+            ('clumps_overlap.in with save_all_photons (K9)',
+             clump_params('overlap', **over), None, 'fly_clump_dense',
+             2 * 10 ** 8),
+            ('bicone_clump.in with save_all_photons (K10)',
+             clump_params('bicone', **over), None, 'fly_clump_csr',
+             5 * ALLPH_WINDOW_PHOTONS)):
+        par.save_all_photons, par.nphotons = True, budget
+        p, _ = rate_window(label, par, dev, min_s=0.3, amr_data=data)
+        card = smi()
+        assert flight_kernel(p.chunk) == fly
+        kernel_times(p, card, label.split(' ')[0] + ' with the table', res,
+                     (fly,), record=(fly,), suffix=ALLPH)
+        del p
+
+
 def shear_cpu():
     """lart_tpu's CPU figures (tools/shear_cpu_runs.py)."""
     return json.loads(SHEAR_CPU.read_text())
@@ -5154,6 +5693,27 @@ SHEAR_KERNELS = (
      'make_scatter (engine.py:2541-2547), f64 atomics'))
 
 
+# the instances with the table on phase 4's paths: (KERNELS-like source and
+# the TPU function it replaces, the phase 4 run of its launches)
+ALLPH_KERNELS = {
+    'refill_point': (KERNELS['refill_point'][0],
+                     'lart_tpu/transport/engine.py:2885', 't4tau7'),
+    'fly_cartesian': (KERNELS['fly_cartesian'][0],
+                      'lart_tpu/transport/engine.py:1434', 't4tau7'),
+    'scatter_lya': (KERNELS['scatter_lya'][0],
+                    'lart_tpu/transport/engine.py:2455', 't4tau7'),
+    'fly_amr': (AMR_KERNEL[0], 'lart_tpu/transport/engine.py:1761',
+                'amr_sphere'),
+    'fly_clump_dense': (CLUMP_KERNELS['fly_clump_dense'][0],
+                        'lart_tpu/transport/engine.py:3302',
+                        'clumps_overlap'),
+    'fly_clump_csr': (CLUMP_KERNELS['fly_clump_csr'][0],
+                      'lart_tpu/transport/engine.py:3684', 'bicone_clump')}
+ALLPH_INLINES = ('allph_impact, allph_birth and allph_death (lart_tpu_torch/'
+                 'csrc/allph.cuh, replace lart_tpu/transport/engine.py:172 '
+                 'impact_parameter and :193 allph_record_death)')
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--phases', default='0,1,2,3,4,5')
@@ -5341,6 +5901,19 @@ def main(argv=None):
             plain_ms=res[name]['plain_ms'], bound_ms=res[name]['bound_ms'],
             bound_by=res[name]['bound_by'], library_ms=None, inlines=inl)
             for name, base, path, rep, inl in SHEAR_KERNELS]
+        # this slice's instances with the all-photons table (t4tau7's
+        # window and the K8, K9, K10 windows of phase 5, the launches of
+        # each one's phase 4 run)
+        counts = launches['allph']
+        line['kernels'] += [dict(
+            name=k + ALLPH, route='cuda', source=src, replaces=rep,
+            launches=counts[path][k], path=path,
+            max_abs_err=res[k + ALLPH]['max_abs_err'], ms=res[k + ALLPH]['ms'],
+            plain_ms=res[k + ALLPH]['plain_ms'],
+            bound_ms=res[k + ALLPH]['bound_ms'],
+            bound_by=res[k + ALLPH]['bound_by'], library_ms=None,
+            inlines=ALLPH_INLINES)
+            for k, (src, rep, path) in ALLPH_KERNELS.items()]
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

@@ -5,7 +5,7 @@
 //
 // Replaces lart_tpu/transport/engine.py:1507 make_fly_amr with :548
 // amr_find_cell and :359 amr_descend_from_face (csrc/amr.cuh), without
-// atmospheres, CALCJ/Pnew or all-photons records.  The TPU runs a
+// atmospheres or CALCJ/Pnew.  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch,
 // each a batch of gathers; here one thread walks its own lane, at most
 // max_steps crossings (the loop condition n < max_steps), so a forced first
@@ -26,7 +26,12 @@
 // direction.  Every expression keeps the JAX order; advanced positions are
 // fused multiply-adds as XLA computes them (transport/flight.py).  Escapes
 // go to Jout/Jmu with f32 atomics at once, out-of-grid weight and line type
-// 8's band budgets through block sums.
+// 8's band budgets through block sums.  With save_all_photons (the kAllph
+// instances, the table's pointer non-null; csrc/allph.cuh) a lane that dies
+// writes its death row at once (engine.py:1761-1796): an escape at the lab
+// frequency of the node it leaves (the H-alpha band's own), a forced first
+// scattering born in vacuum at its birth lab frequency; a run without the
+// table runs the instances without it.
 //
 // Bound: dependent gathers.  A crossing reads its node's centre, half-width
 // and leaf id (20 B), its leaf's physics (4-32 B), the neighbor id (4 B),
@@ -42,7 +47,7 @@
 #include "voigt.cuh"
 #include "walk.cuh"
 
-template <bool kMulti, bool kH2>
+template <bool kMulti, bool kH2, bool kAllph>
 __global__ void fly_amr_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f, esc1 = 0.0f, esc2 = 0.0f;
@@ -107,8 +112,8 @@ __global__ void fly_amr_kernel(Lanes s, int B, int max_steps, FlightParams p) {
         const float bxfreq = s.bxfreq[i];
         const float u_b = p.moving ? leaf_vel_dot(p, ilb, bdir) : 0.0f;
         const float wgt_esc = wgt * expf(-tau0);
-        const float w_oor =
-            tally_out(p, p.Jout, (bxfreq + u_b) * (D_b / p.Dfreq), bdir[2], wgt_esc);
+        const float xlab_b = (bxfreq + u_b) * (D_b / p.Dfreq);
+        const float w_oor = tally_out(p, p.Jout, xlab_b, bdir[2], wgt_esc);
         oor += w_oor;
         if (lyb && w_oor == 0.0f) esc1 += wgt_esc;
         const float wgt1 = -expm1f(-tau0);
@@ -124,19 +129,23 @@ __global__ void fly_amr_kernel(Lanes s, int B, int max_steps, FlightParams p) {
         tau_run = 0.0f;
         // xi clamp margin 1e-5 (engine.py:1739-1750)
         tau_target = -log1pf(-fminf(tau_target, 0.99999f) * wgt1);
+        // born in vacuum: dead, its row at the birth lab frequency
+        if (kAllph && phase == DEAD) allph_death(p.allph, s, i, pos, dir, wgt, xlab_b);
         continue;
       }
       if (escaped && phase == FLYING) {
         // escape at the lab frequency of the node being left (the H-alpha
         // band's frequency is a lab one)
+        const float xlab = b2 ? xfreq : (xfreq + u_old) * (D_c / p.Dfreq);
         if (b2) {
-          oor += tally_out(p, p.Jout_Ha, xfreq, dir[2], wgt);
+          oor += tally_out(p, p.Jout_Ha, xlab, dir[2], wgt);
           esc2 += wgt;
         } else {
-          oor += tally_out(p, p.Jout, (xfreq + u_old) * (D_c / p.Dfreq), dir[2], wgt);
+          oor += tally_out(p, p.Jout, xlab, dir[2], wgt);
           if (lyb) esc1 += wgt;
         }
         phase = DEAD;
+        if (kAllph) allph_death(p.allph, s, i, npos, dir, wgt, xlab);
       } else if (hit) {
         phase = AT_SCATTER;
       } else if (!escaped && update && !b2) {
@@ -182,14 +191,24 @@ LART_API int lart_fly_amr(void* const* lanes, int B, int max_steps, const Flight
     const Lanes s = unpack_lanes(lanes);
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
-    if (!multi && !h2)
-      fly_amr_kernel<false, false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else if (!multi)
-      fly_amr_kernel<false, true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else if (!h2)
-      fly_amr_kernel<true, false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else
-      fly_amr_kernel<true, true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
+    const bool allph = p->allph.rp != nullptr;
+    // one instance a combination: the line type (kMulti), H2 (kH2), the
+    // all-photons table (kAllph)
+    switch ((multi ? 4 : 0) + (h2 ? 2 : 0) + (allph ? 1 : 0)) {
+#define LART_FLY_AMR(M, H, A)                                                        \
+  case (M ? 4 : 0) + (H ? 2 : 0) + (A ? 1 : 0):                                       \
+    fly_amr_kernel<M, H, A><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);       \
+    break;
+      LART_FLY_AMR(false, false, false)
+      LART_FLY_AMR(false, false, true)
+      LART_FLY_AMR(false, true, false)
+      LART_FLY_AMR(false, true, true)
+      LART_FLY_AMR(true, false, false)
+      LART_FLY_AMR(true, false, true)
+      LART_FLY_AMR(true, true, false)
+      LART_FLY_AMR(true, true, true)
+#undef LART_FLY_AMR
+    }
   }
   return (int)cudaGetLastError();
 }

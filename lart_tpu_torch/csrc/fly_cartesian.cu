@@ -3,7 +3,7 @@
 // boundaries and the comoving frequency update of a moving medium.
 //
 // Replaces lart_tpu/transport/engine.py:1057 make_fly / :1141 fly (the
-// Cartesian DDA without all-photons records).  The TPU runs a
+// Cartesian DDA with its all-photons death rows).  The TPU runs a
 // lax.while_loop of at most max_steps iterations over the whole batch; here
 // one thread walks its own lane, at most max_steps crossings (the loop
 // condition n < max_steps, no "+ 2" as in the slab), so a forced first
@@ -56,11 +56,20 @@
 // TINY) to Pnew (:1199-1219), each an f64 atomicAdd of the f32 deposit (the
 // reference's f64 maps, define.f90:203-205): the atomics of a step land on
 // the few bins round the source, where they serialize.
+// The all-photons table (save_all_photons, csrc/allph.cuh) lives in the
+// kAllph instances, so a run without it keeps its code: a lane that dies
+// here writes its death row at once (engine.py:1434-1469): an escape and an
+// atmosphere's destruction at the lab frequency of the cell it leaves (the
+// H-alpha band's own frequency), a forced first scattering born in vacuum
+// (tau0 0: it restarts from birth with weight 0 and dies) at its birth lab
+// frequency.  lart_tpu writes the rows after its loop from the final state,
+// which a dead lane no longer changes.  A row is one store a column, only
+// where a lane dies.
 #include "lart.cuh"
 #include "voigt.cuh"
 #include "walk.cuh"
 
-template <bool kMulti, bool kH2, bool kExtra>
+template <bool kMulti, bool kH2, bool kExtra, bool kAllph>
 __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f, esc1 = 0.0f, esc2 = 0.0f;
@@ -69,6 +78,8 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
   const bool shear = kExtra && p.omega_shear != 0.0f;
   const JpaBins& q = p.jpa;
   const bool deposit = kExtra && (q.J1 || q.Pnew);
+  // the all-photons table's death rows (the kAllph instances)
+  const bool allph = kAllph;
   int phase = i < B ? s.phase[i] : DEAD;
   if (phase == FLYING || phase == FFS) {
     // the H-alpha band (line type 8), constant through a flight
@@ -154,8 +165,8 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         const float u_b = p.moving ? vel_dot(p, bcell, bdir) : 0.0f;
         const float D_b = cell_D_of(p, flat_index(p, bcell[0], bcell[1], bcell[2]));
         const float wgt_esc = wgt * expf(-tau0);
-        const float w_oor =
-            tally_out(p, p.Jout, (bxfreq + u_b) * (D_b / p.Dfreq), bdir[2], wgt_esc);
+        const float xlab_b = (bxfreq + u_b) * (D_b / p.Dfreq);
+        const float w_oor = tally_out(p, p.Jout, xlab_b, bdir[2], wgt_esc);
         oor += w_oor;
         if (lyb && w_oor == 0.0f) esc1 += wgt_esc;
         const float wgt1 = -expm1f(-tau0);
@@ -174,13 +185,20 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         vfy = 0.0f;  // restarts unsheared (engine.py:1406-1409)
         // xi clamp margin 1e-5 (engine.py:1415-1428)
         tau_target = -log1pf(-fminf(tau_target, 0.99999f) * wgt1);
+        // born in vacuum: dead, its row at the birth lab frequency
+        if (allph && phase == DEAD) allph_death(p.allph, s, i, pos, dir, wgt, xlab_b);
         continue;
       }
+      // the lab frequency of the cell being left (the H-alpha band's is its
+      // own), where an escape or a destruction is binned
+      const float xlab = b2 ? xfreq : (xfreq + u_old) * (D_c / p.Dfreq);
+      if (allph && phase == FLYING && (escaped || hitmask))
+        allph_death(p.allph, s, i, npos, ndir, wgt, xlab);
       if (phase == FLYING && (bottom || hitmask)) {
         // destroyed into Jabs2 at the lab frequency of the cell being left;
         // a lane entering the core takes the cell's comoving frequency, as
         // lart_tpu's state does
-        oor += tally_bin(p, p.Jabs2, (xfreq + u_old) * (D_c / p.Dfreq), wgt);
+        oor += tally_bin(p, p.Jabs2, xlab, wgt);
         phase = DEAD;
         if (hitmask && comoving) {
           float u2 = p.moving ? vel_dot(p, ncell, ndir) : 0.0f;
@@ -192,10 +210,10 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
         // escape, binned at the lab frequency of the cell being left (the
         // H-alpha band's frequency is a lab one)
         if (b2) {
-          oor += tally_out(p, p.Jout_Ha, xfreq, dir[2], wgt);
+          oor += tally_out(p, p.Jout_Ha, xlab, dir[2], wgt);
           esc2 += wgt;
         } else {
-          oor += tally_out(p, p.Jout, (xfreq + u_old) * (D_c / p.Dfreq), dir[2], wgt);
+          oor += tally_out(p, p.Jout, xlab, dir[2], wgt);
           if (lyb) esc1 += wgt;
         }
         phase = DEAD;
@@ -253,22 +271,28 @@ LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
     const bool extra = p->omega_shear != 0.0f || p->jpa.J1 || p->jpa.Pnew;
-    const int inst = (multi ? 4 : 0) + (h2 ? 2 : 0) + (extra ? 1 : 0);
+    const bool allph = p->allph.rp != nullptr;
+    const int inst = (multi ? 8 : 0) + (h2 ? 4 : 0) + (extra ? 2 : 0) + (allph ? 1 : 0);
     // one instance a combination: the line type (kMulti), H2 (kH2), the
-    // shearing box or the J1/Pnew deposits (kExtra)
+    // shearing box or the J1/Pnew deposits (kExtra), the all-photons table
+    // (kAllph)
     switch (inst) {
-#define LART_FLY_CARTESIAN(M, H, E)                                                        \
-  case (M ? 4 : 0) + (H ? 2 : 0) + (E ? 1 : 0):                                             \
-    fly_cartesian_kernel<M, H, E><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);       \
+#define LART_FLY_CARTESIAN(M, H, E, A)                                                   \
+  case (M ? 8 : 0) + (H ? 4 : 0) + (E ? 2 : 0) + (A ? 1 : 0):                             \
+    fly_cartesian_kernel<M, H, E, A><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);  \
     break;
-      LART_FLY_CARTESIAN(false, false, false)
-      LART_FLY_CARTESIAN(false, false, true)
-      LART_FLY_CARTESIAN(false, true, false)
-      LART_FLY_CARTESIAN(false, true, true)
-      LART_FLY_CARTESIAN(true, false, false)
-      LART_FLY_CARTESIAN(true, false, true)
-      LART_FLY_CARTESIAN(true, true, false)
-      LART_FLY_CARTESIAN(true, true, true)
+#define LART_FLY_CARTESIAN_2(M, H, E) \
+  LART_FLY_CARTESIAN(M, H, E, false)  \
+  LART_FLY_CARTESIAN(M, H, E, true)
+      LART_FLY_CARTESIAN_2(false, false, false)
+      LART_FLY_CARTESIAN_2(false, false, true)
+      LART_FLY_CARTESIAN_2(false, true, false)
+      LART_FLY_CARTESIAN_2(false, true, true)
+      LART_FLY_CARTESIAN_2(true, false, false)
+      LART_FLY_CARTESIAN_2(true, false, true)
+      LART_FLY_CARTESIAN_2(true, true, false)
+      LART_FLY_CARTESIAN_2(true, true, true)
+#undef LART_FLY_CARTESIAN_2
 #undef LART_FLY_CARTESIAN
     }
   }

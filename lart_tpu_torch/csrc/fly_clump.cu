@@ -2,8 +2,7 @@
 //
 // K9 replaces lart_tpu/transport/engine.py:3076 make_fly_clump_dense, K10
 // :3342 make_fly_clump (seg_and_next :3380, overlap_segment :3441,
-// overlap_scatter_dist :3510), without atmospheres or all-photons records;
-// csrc/clump.cuh holds the lookups they share with K2, K4 and K7.  Photons
+// overlap_scatter_dist :3510), without atmospheres; csrc/clump.cuh holds the lookups they share with K2, K4 and K7.  Photons
 // carry global frequencies in reference Doppler units; clump n's opacity at
 // a lane is rhokap_n H_eff((x - u_n) r_loc; a_cl, D_cl) (line.cuh, two
 // instances by kMulti) + rhokapD_n.  An escape is binned at the lane's
@@ -14,6 +13,11 @@
 // birth within the same budget.  Every expression keeps lart_tpu's order of
 // f32 operations, with the fused multiply-adds of clump.cuh, as the plain
 // versions (transport/fly_clump.py) compute them.  No random numbers.
+// With save_all_photons (the kAllph instances, the table's pointer non-null;
+// csrc/allph.cuh) a lane that dies writes its death row at once (engine.py:
+// 3302-3327, :3684-3711): an escape at the lane's global frequency, a forced
+// first scattering born in vacuum at its birth frequency; a run without the
+// table runs the instances without it.
 //
 // K9, one thread a lane, resolves a flight in one step: the optical depth to
 // distance t along the ray is F(t) = sum_n k_n |chord_n ^ [0, t]| over all N
@@ -67,8 +71,10 @@ __device__ inline float box_exit(float R, const float pos[3], const float k[3]) 
 
 // The FFS completion of both flights: the escaped fraction at the birth
 // frequency, the restart from birth with wgt *= 1 - exp(-tau0) and the
-// forced target -log(1 - xi wgt1) (engine.py:3227-3306); returns the weight
-// that fell outside the frequency grid.
+// forced target -log(1 - xi wgt1) (engine.py:3227-3306), and where tau0 is 0
+// (born in vacuum) the death row; returns the weight that fell outside the
+// frequency grid.
+template <bool kAllph>
 __device__ inline float ffs_restart(const Lanes& s, int i, const FlightParams& p, float tau0,
                                     int& phase, float pos[3], float dir[3], int& ic,
                                     float& wgt, float& tau_run, float& tau_target) {
@@ -86,6 +92,7 @@ __device__ inline float ffs_restart(const Lanes& s, int i, const FlightParams& p
   tau_run = 0.0f;
   // xi clamp margin 1e-5 (engine.py:3283-3295)
   tau_target = -log1pf(-fminf(tau_target, 0.99999f) * wgt1);
+  if (kAllph && phase == DEAD) allph_death(p.allph, s, i, pos, dir, wgt, s.bxfreq[i]);
   return oor;
 }
 
@@ -123,7 +130,7 @@ __device__ inline float dense_kappa(const ClumpGrid& g, const LineC& line, const
   return kq;
 }
 
-template <bool kMulti>
+template <bool kMulti, bool kAllph>
 __global__ void fly_clump_dense_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   extern __shared__ float sh[];
   const ClumpGrid& g = p.clump;
@@ -183,7 +190,7 @@ __global__ void fly_clump_dense_kernel(Lanes s, int B, int max_steps, FlightPara
       if (is_ffs) {
         // the forced first scattering completes in one pass: tau_tot is the
         // exact optical depth to the edge
-        oor += ffs_restart(s, i, p, fminf(tau_run + tau_tot, FFS_TAU_CAP), phase, pos, dir, ic,
+        oor += ffs_restart<kAllph>(s, i, p, fminf(tau_run + tau_tot, FFS_TAU_CAP), phase, pos, dir, ic,
                            wgt, tau_run, tau_target);
         continue;
       }
@@ -193,6 +200,7 @@ __global__ void fly_clump_dense_kernel(Lanes s, int B, int max_steps, FlightPara
 #pragma unroll
         for (int a = 0; a < 3; ++a) pos[a] = fmaf(t_box + g.eps_dense, dir[a], pos[a]);
         tau_run = tgt;
+        if (kAllph) allph_death(p.allph, s, i, pos, dir, wgt, xfreq);
         continue;
       }
       // F(t) from the list (or, past its end, from every clump)
@@ -257,7 +265,7 @@ __global__ void fly_clump_dense_kernel(Lanes s, int B, int max_steps, FlightPara
   block_sum_atomic(oor, p.W_oor);
 }
 
-template <bool kMulti>
+template <bool kMulti, bool kAllph>
 __global__ void fly_clump_csr_kernel(Lanes s, int B, int max_steps, FlightParams p) {
   const ClumpGrid& g = p.clump;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -370,7 +378,7 @@ __global__ void fly_clump_csr_kernel(Lanes s, int B, int max_steps, FlightParams
       const bool escaped =
           !hit && (fabsf(npos[0]) >= g.R || fabsf(npos[1]) >= g.R || fabsf(npos[2]) >= g.R);
       if (is_ffs && (escaped || hit)) {
-        oor += ffs_restart(s, i, p, tau_n, phase, pos, dir, ic, wgt, tau_run, tau_target);
+        oor += ffs_restart<kAllph>(s, i, p, tau_n, phase, pos, dir, ic, wgt, tau_run, tau_target);
         continue;
       }
       if (hit) {
@@ -380,6 +388,7 @@ __global__ void fly_clump_csr_kernel(Lanes s, int B, int max_steps, FlightParams
         if (escaped) {
           oor += tally_out(p, p.Jout, xfreq, dir[2], wgt);
           phase = DEAD;
+          if (kAllph) allph_death(p.allph, s, i, npos, dir, wgt, xfreq);
         }
       }
 #pragma unroll
@@ -417,14 +426,20 @@ LART_API int lart_fly_clump_dense(void* const* lanes, int B, int max_steps, cons
     const size_t shm = dense_shared_bytes(p->clump);
     cudaStream_t st = (cudaStream_t)stream;
     const Lanes s = unpack_lanes(lanes);
-    if (p->line.line_type == 1) {
-      cudaFuncSetAttribute(fly_clump_dense_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-      fly_clump_dense_kernel<false><<<blocks, threads, shm, st>>>(s, B, max_steps, *p);
-    } else {
-      cudaFuncSetAttribute(fly_clump_dense_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-      fly_clump_dense_kernel<true><<<blocks, threads, shm, st>>>(s, B, max_steps, *p);
+    // one instance a combination: the line type (kMulti), the all-photons
+    // table (kAllph)
+    switch ((p->line.line_type != 1 ? 2 : 0) + (p->allph.rp ? 1 : 0)) {
+#define LART_DENSE(M, A)                                                                  \
+  case (M ? 2 : 0) + (A ? 1 : 0):                                                          \
+    cudaFuncSetAttribute(fly_clump_dense_kernel<M, A>,                                     \
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);           \
+    fly_clump_dense_kernel<M, A><<<blocks, threads, shm, st>>>(s, B, max_steps, *p);     \
+    break;
+      LART_DENSE(false, false)
+      LART_DENSE(false, true)
+      LART_DENSE(true, false)
+      LART_DENSE(true, true)
+#undef LART_DENSE
     }
   }
   return (int)cudaGetLastError();
@@ -438,10 +453,17 @@ LART_API int lart_fly_clump_csr(void* const* lanes, int B, int max_steps, const 
     const int blocks = (B + threads - 1) / threads;
     cudaStream_t st = (cudaStream_t)stream;
     const Lanes s = unpack_lanes(lanes);
-    if (p->line.line_type == 1)
-      fly_clump_csr_kernel<false><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
-    else
-      fly_clump_csr_kernel<true><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);
+    switch ((p->line.line_type != 1 ? 2 : 0) + (p->allph.rp ? 1 : 0)) {
+#define LART_CSR(M, A)                                                              \
+  case (M ? 2 : 0) + (A ? 1 : 0):                                                    \
+    fly_clump_csr_kernel<M, A><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);   \
+    break;
+      LART_CSR(false, false)
+      LART_CSR(false, true)
+      LART_CSR(true, false)
+      LART_CSR(true, true)
+#undef LART_CSR
+    }
   }
   return (int)cudaGetLastError();
 }

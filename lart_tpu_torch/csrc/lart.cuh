@@ -59,9 +59,14 @@ struct Lanes {
   float* nnz;
   int* iband;  // 1 the resonance line, 2 the H-alpha band (line type 8)
   float* vfy_shear;  // the shearing box's shear-frame y-velocity offset
+  // save_all_photons: the photon's id (-1 without one) and its gas and dust
+  // scattering events
+  int* pid;
+  float* nsg;
+  float* nsd;
 };
 
-#define LART_N_LANE_FIELDS 35
+#define LART_N_LANE_FIELDS 38
 
 inline Lanes unpack_lanes(void* const* p) {
   Lanes s;
@@ -100,6 +105,9 @@ inline Lanes unpack_lanes(void* const* p) {
   s.nnz = (float*)p[32];
   s.iband = (int*)p[33];
   s.vfy_shear = (float*)p[34];
+  s.pid = (int*)p[35];
+  s.nsg = (float*)p[36];
+  s.nsd = (float*)p[37];
   return s;
 }
 
@@ -178,6 +186,8 @@ inline PeelRecord unpack_record(void* const* p) {
 #include "amr.cuh"
 // the clump medium (ClumpGrid, which FlightParams embeds) and its lookups
 #include "clump.cuh"
+// the all-photons table (AllPh, which FlightParams embeds) and its rows
+#include "allph.cuh"
 
 // The CALCJ/CALCP/CALCPnew maps (engine.py:581-610): their tallies (null
 // where the map is off), f64 sums of f32 deposits as the reference keeps
@@ -263,6 +273,7 @@ struct FlightParams {
   ClumpGrid clump; // the clumps (K7's clump sightline, K9, K10); n 0 else
   JpaBins jpa;     // K5's J1 and Pnew deposits (nbin 0: none)
   float omega_shear;  // the shearing box's jump of vfy_shear at an x wrap
+  AllPh allph;     // the death rows of K5, K8, K9, K10 (rp null: none)
 };
 
 enum { BC_ESCAPE = 0, BC_PERIODIC = 1, BC_REFLECT = 2 };

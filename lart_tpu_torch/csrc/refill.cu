@@ -110,6 +110,13 @@
 // plane atmosphere's 1-D emissivity profile (engine.py:2661-2667,
 // GEOM_PROFILE_PLANE in the alias instance) puts the drawn height at a
 // uniform point of the box's x-y extent.
+// With save_all_photons (the kAllph instances, the table's pointer non-null;
+// csrc/allph.cuh) a launched lane's ticket is its photon id, pid = pid_base +
+// ticket (pid_base 0 on one card; lart_tpu's n_shard offset), its event
+// counts start at 0, and it writes its birth row: the impact parameter of
+// the birth ray and the comoving birth frequency (engine.py:2884-2899).
+// lart_tpu ranks the dead lanes by a cumsum, so the two assign the same ids
+// to other lanes; a run without the table runs the instances without it.
 // Bound: one pass over the state (about 130 bytes a launched lane written,
 // 4 a lane read), memory-bound; the ticket atomics are one per warp; a
 // radial table adds ~11 dependent table reads a lane (L1/L2-resident), an
@@ -506,7 +513,7 @@ __device__ inline float source_position(const SourceC& src, uint32_t seed, uint3
   return wgt;
 }
 
-template <int kSrc>
+template <int kSrc, bool kAllph>
 __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launched,
                                     int budget, uint32_t seed, uint32_t counter, float xs,
                                     float ys, float zs, int ic, int jc, int kc,
@@ -518,7 +525,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
                                     AmrGrid amr, ClumpGrid clump, const float* vfx,
                                     const float* vfy, const float* vfz, const float* cell_a,
                                     const float* cell_D, SourceC src, ProfC lp,
-                                    float* flux_factor, float* nrejected) {
+                                    float* flux_factor, float* nrejected, AllPh allph,
+                                    int pid_base) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool dead = i < B && s.phase[i] == DEAD;
   const unsigned full = 0xffffffffu;
@@ -713,6 +721,14 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
   s.nnz[i] = 0.0f;
   s.iband[i] = 1;  // the resonance line's band (engine.py:2888)
   s.vfy_shear[i] = 0.0f;  // unsheared (engine.py:2883)
+  if (kAllph) {
+    // the ticket is the photon's id; no events yet; the birth row
+    const int id = pid_base + base + __popc(mask & ((1u << lane) - 1u));
+    s.pid[i] = id;
+    s.nsg[i] = 0.0f;
+    s.nsd[i] = 0.0f;
+    allph_birth(allph, id, xs, ys, zs, kx, ky, kz, xfreq);
+  }
 }
 
 // record: the PeelRecord pointer table, or null with peel-off off; amr: the
@@ -723,7 +739,8 @@ __global__ void refill_point_kernel(Lanes s, PeelRecord rec, int B, int* n_launc
 // the point source's cell's damping and Doppler width (the reference ones
 // at uniform temperature and on AMR and clump grids), cell_a and cell_D an
 // extended source's per-cell ones on a Cartesian grid at non-uniform
-// temperature (null else)
+// temperature (null else); allph: the all-photons table, or null, and
+// pid_base the first photon id of this device
 LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                void* n_launched, int budget, unsigned seed,
                                unsigned counter, float xs, float ys, float zs, int ic,
@@ -736,7 +753,8 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                                const ClumpGrid* clump, const float* vfx, const float* vfy,
                                const float* vfz, const float* cell_a, const float* cell_D,
                                const SourceC* source, const ProfC* prof,
-                               void* flux_factor, void* nrejected, void* stream) {
+                               void* flux_factor, void* nrejected, const AllPh* allph,
+                               int pid_base, void* stream) {
   if (B > 0) {
     const int threads = 256;
     const int blocks = (B + threads - 1) / threads;
@@ -748,20 +766,29 @@ LART_API int lart_refill_point(void* const* lanes, void* const* record, int B,
                        : src.geom == GEOM_EXP_CYLINDER || src.geom == GEOM_RADIAL_SPHERE
                            ? SRC_RADIAL
                            : SRC_VOLUME;
-#define LART_REFILL(K)                                                                      \
-  refill_point_kernel<K><<<blocks, threads, 0, (cudaStream_t)stream>>>(                     \
+    const AllPh table = allph ? *allph : AllPh{};
+    // one instance a source family (kSrc) and all-photons table (kAllph)
+#define LART_REFILL(K, A)                                                                   \
+  refill_point_kernel<K, A><<<blocks, threads, 0, (cudaStream_t)stream>>>(                  \
       unpack_lanes(lanes), unpack_record(record), B, (int*)n_launched, budget, seed, counter, \
       xs, ys, zs, ic, jc, kc, xfreq0, spectrum, sigma_x, a, vsx, vsy, vsz, comoving_source,  \
       xfreq_min, dxfreq, nxfreq, (float*)Jin, xfreq_span, Dfreq, D_src, *line,              \
       amr ? *amr : AmrGrid{}, clump ? *clump : ClumpGrid{}, vfx, vfy, vfz, cell_a, cell_D,   \
-      src, lp, (float*)flux_factor, (float*)nrejected)
+      src, lp, (float*)flux_factor, (float*)nrejected, table, pid_base)
+#define LART_REFILL_FAMILY(K) \
+  if (table.rp0)              \
+    LART_REFILL(K, true);     \
+  else                        \
+    LART_REFILL(K, false);    \
+  break;
     switch (family) {
-      case SRC_POINT: LART_REFILL(SRC_POINT); break;
-      case SRC_RADIAL: LART_REFILL(SRC_RADIAL); break;
-      case SRC_VOLUME: LART_REFILL(SRC_VOLUME); break;
-      case SRC_ILLUM: LART_REFILL(SRC_ILLUM); break;
-      default: LART_REFILL(SRC_ALIAS); break;
+      case SRC_POINT: LART_REFILL_FAMILY(SRC_POINT)
+      case SRC_RADIAL: LART_REFILL_FAMILY(SRC_RADIAL)
+      case SRC_VOLUME: LART_REFILL_FAMILY(SRC_VOLUME)
+      case SRC_ILLUM: LART_REFILL_FAMILY(SRC_ILLUM)
+      default: LART_REFILL_FAMILY(SRC_ALIAS)
     }
+#undef LART_REFILL_FAMILY
 #undef LART_REFILL
   }
   return (int)cudaGetLastError();

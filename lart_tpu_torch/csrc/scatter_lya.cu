@@ -96,6 +96,13 @@
 // in a cell with rhokap_phys = rhokap D / cross0 > 0 adds wgt / rhokap_phys
 // to Pa at the cell's bin (lart.cuh jpa_bin; engine.py:2541-2547) by one f64
 // atomicAdd; rhokap is then the grid's, also on the sphere fast path.
+// With save_all_photons (the kAllph instances, the table's pointer non-null;
+// csrc/allph.cuh) each resonance scattering adds one to the lane's nsg and
+// each dust scattering one to its nsd (events, not weight; engine.py:
+// 2478-2479), and a lane absorbed by dust or destroyed by H2 writes its
+// death row from its state before the event, at the lab frequency (x + u)
+// D / D_ref of its cell (engine.py:2455-2464); a run without the table runs
+// the instances without it.
 #include "lart.cuh"
 #include "mueller.cuh"
 #include "philox.cuh"
@@ -151,6 +158,7 @@ struct ScatterParams {
   const float* cell_D;   //   cell's damping and Doppler width (flat); null else
   JpaBins jpa;           // the Pa deposit (jpa.Pa null: none), rhokap the
                          //   grid's then, also on the sphere fast path
+  AllPh allph;           // the all-photons table (the kAllph instances)
 };
 
 // the index of lane i's cell into the grid arrays: the flat cell, or on the
@@ -458,7 +466,7 @@ __device__ float h2_event(const ScatterParams& p, const Lanes& s, int i, uint32_
   return wgt;
 }
 
-template <bool kMulti, bool kH2>
+template <bool kMulti, bool kH2, bool kAllph>
 __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed,
                                    uint32_t counter, ScatterParams p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -631,6 +639,20 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         }
       }
     }
+    if (kAllph) {
+      if (s.phase[i] == DEAD) {
+        // absorbed or destroyed: the death row from the state before the
+        // event (which moved nothing), at the lab frequency of its cell
+        float xlab = s.xfreq[i];
+        if (p.vfx) xlab = xlab + lane_vel_dot(p, s, i);
+        const float pos[3] = {s.x[i], s.y[i], s.z[i]};
+        const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
+        allph_death(p.allph, s, i, pos, k, s.wgt[i], xlab * ratio);
+      }
+      // the scattering events (a conversion is a resonance event)
+      if (n_sum != 0.0f) s.nsg[i] = s.nsg[i] + 1.0f;
+      if (kind == EVENT_DUST) s.nsd[i] = s.nsd[i] + 1.0f;
+    }
   }
   if (at_sc && cl.n && cl.shift) {
     // back into global units along the new direction (engine.py:2533-2540)
@@ -666,14 +688,24 @@ LART_API int lart_scatter_lya(void* const* lanes, void* const* record, int B, un
     const PeelRecord r = unpack_record(record);
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
-    if (!multi && !h2)
-      scatter_lya_kernel<false, false><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
-    else if (!multi)
-      scatter_lya_kernel<false, true><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
-    else if (!h2)
-      scatter_lya_kernel<true, false><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
-    else
-      scatter_lya_kernel<true, true><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);
+    const bool allph = p->allph.rp != nullptr;
+    // one instance a combination: the line type (kMulti), H2 (kH2), the
+    // all-photons table (kAllph)
+    switch ((multi ? 4 : 0) + (h2 ? 2 : 0) + (allph ? 1 : 0)) {
+#define LART_SCATTER(M, H, A)                                                             \
+  case (M ? 4 : 0) + (H ? 2 : 0) + (A ? 1 : 0):                                            \
+    scatter_lya_kernel<M, H, A><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);   \
+    break;
+      LART_SCATTER(false, false, false)
+      LART_SCATTER(false, false, true)
+      LART_SCATTER(false, true, false)
+      LART_SCATTER(false, true, true)
+      LART_SCATTER(true, false, false)
+      LART_SCATTER(true, false, true)
+      LART_SCATTER(true, true, false)
+      LART_SCATTER(true, true, true)
+#undef LART_SCATTER
+    }
   }
   return (int)cudaGetLastError();
 }

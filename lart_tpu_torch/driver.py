@@ -13,7 +13,11 @@ tallies and the loop-control scalars travel back together.  The peel-off
 cubes (up to millions of bins) stay on the device: each chunk's f32 cubes
 are added into f64 accumulators there, as lart_tpu adds them on the host
 (driver.py:182-195, :324-335; a stellar source's Direct0 with
-save_direc0 too), and the host reads them once at the end.
+save_direc0 too), and the host reads them once at the end.  So does the
+all-photons table of save_all_photons (transport/allph.py): one table on
+the device for the whole run, written in place by the kernels, copied to
+the host once at the end where lart_tpu adds each chunk's table
+(driver.py:169-170, :306-313).
 With save_sightline_tau and observers, the sight-line maps of every
 observer (instruments/sightline.py, kernel K11) are computed after the
 transport on the same device (driver.py:370-376) and ride in the result.
@@ -255,6 +259,8 @@ def run(par: Params, *, seed: Optional[int] = None, device=None,
     else:
         raise RuntimeError(f'batch did not drain in {max_chunks} chunks')
     acc.update({k: v.cpu().numpy() for k, v in peel_acc.items()})
+    if p.chunk.allph is not None:
+        acc['allph'] = p.chunk.allph.to_host()
     res = normalize(cfg, meta, acc, nphotons, exetime_s=time.time() - t0,
                     obs_meta=None if peel is None else peel.obs_meta)
     if par.save_sightline_tau and peel is not None:

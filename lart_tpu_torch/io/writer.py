@@ -16,7 +16,10 @@ An interior observer's files hold all-sky HEALPix RING maps: _peel3D its
 Scattered and Direct (nxfreq, npix) maps, _peel2D their frequency
 integrals, with the PIXTYPE, ORDERING, NSIDE and NPIX keywords (:91-93,
 :313-340).  With save_sightline_tau one _tau file per observer holds its
-sight-line maps (:45-50; instruments/sightline.py).
+sight-line maps (:45-50; instruments/sightline.py).  With
+save_all_photons the main output holds the AllPhotons section (:268-274):
+one f32 column a field of the table (transport/allph.py), a row a photon;
+in FITS a binary table.
 It writes through the port's io/iofile.py, so the files have LaRT's schema
 and lart_tpu's readers read them.  FITS needs only numpy (io/minifits.py);
 HDF5 needs h5py.  Merging into an existing output (out_merge) is not
@@ -284,6 +287,12 @@ def _write_basic(filename: str, res: RunResult) -> str:
             if res.r_JPa is not None and ext != 'Pa_3D':
                 gp.create_dataset('radius', data=res.r_JPa)
             _put_attrs(gp, {'EXTNAME': ext, 'geom_JPa': meta.geometry_JPa})
+        if res.allph:
+            # the all-photons table (write_output_rect.f90:1353-1483)
+            ga = f.create_group('AllPhotons')
+            for nm, arr in res.allph.items():
+                ga.create_dataset(nm, data=np.asarray(arr, np.float32))
+            _put_attrs(ga, {'EXTNAME': 'AllPhotons'})
         if res.Jmu is not None:
             gm = f.create_group('Jmu')
             gm.create_dataset('data', data=np.asarray(res.Jmu, bp))
@@ -307,9 +316,15 @@ def output_filename(par) -> str:
 
 def read_spectrum(filename: str) -> dict:
     """The Spectrum section of an output file: its keywords and its
-    datasets (Xfreq, Jout, ...) in one dict."""
+    datasets (Xfreq, Jout, ...) in one dict, with under 'allph' the
+    AllPhotons section's columns, or None (lart_tpu/io/writer.py:
+    446-450)."""
     with open_read(filename) as f:
         g = f['Spectrum']
         out = dict(g.attrs)
         out.update({k: np.asarray(g[k]) for k in g.keys()})
+        out['allph'] = None
+        if 'AllPhotons' in f.keys():
+            a = f['AllPhotons']
+            out['allph'] = {k: np.asarray(a[k]) for k in a.keys()}
     return out

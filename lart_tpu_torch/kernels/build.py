@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -41,7 +42,7 @@ SOURCES = ('voigt.cu', 'refill.cu', 'fly_slab.cu', 'scatter_lya.cu',
            'fly_clump.cu', 'sightline.cu')
 HEADERS = ('lart.cuh', 'philox.cuh', 'voigt.cuh', 'samplers.cuh', 'walk.cuh',
            'mueller.cuh', 'line.cuh', 'h2.cuh', 'amr.cuh', 'clump.cuh',
-           'healpix.cuh')
+           'healpix.cuh', 'allph.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC', '--fmad=false', '-Xptxas', '-v')
 
@@ -97,16 +98,28 @@ def _digest() -> str:
 
 def _run_all(cmds):
     """Run the commands in parallel; raise with the output of the first
-    that fails.  Returns their stderr, in order."""
+    that fails.  Returns their stderr and each one's wall seconds, in
+    order."""
+    t0 = time.time()
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    outs = [p.communicate() for p in procs]
+    outs, secs = [None] * len(procs), [0.0] * len(procs)
+
+    def wait(i):
+        outs[i] = procs[i].communicate()
+        secs[i] = time.time() - t0
+    threads = [threading.Thread(target=wait, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     for c, p, (so, se) in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f'nvcc failed ({p.returncode}):\n'
                                f'{" ".join(c)}\n{so}{se}')
-    return [se for _, se in outs]
+    return [se for _, se in outs], secs
 
 
 def build() -> Path:
@@ -121,14 +134,16 @@ def build() -> Path:
     t0 = time.time()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
         objs = [os.path.join(tmpdir, s + '.o') for s in SOURCES]
-        ptxas = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', o, str(CSRC / s)]
-                          for s, o in zip(SOURCES, objs)])
+        ptxas, secs = _run_all([[nvcc, *NVCC_FLAGS, '-c', '-o', o,
+                                 str(CSRC / s)]
+                                for s, o in zip(SOURCES, objs)])
         lib = os.path.join(tmpdir, out.name)
         _run_all([[nvcc, '-shared', '-o', lib, *objs]])
         # atomic: a concurrent build never sees half a file
         os.replace(lib, out)
     BUILD_INFO.update(path=str(out), seconds=time.time() - t0,
-                      ptxas=''.join(ptxas))
+                      ptxas=''.join(ptxas),
+                      source_seconds=dict(zip(SOURCES, secs)))
     return out
 
 
@@ -141,7 +156,7 @@ def library() -> ctypes.CDLL:
         from ..instruments.peel import PeelParams
         from ..instruments.sightline import SightParams
         from ..physics.line import LineC
-        from ..transport.flight import AmrC, ClumpC, FlightParams
+        from ..transport.flight import AllPhC, AmrC, ClumpC, FlightParams
         from ..transport.refill import ProfC, SourceC
         from ..transport.scatter import ScatterC
         lib = ctypes.CDLL(str(build()))
@@ -154,7 +169,8 @@ def library() -> ctypes.CDLL:
                                _F, _I, _P, _F, _F, _F, line,
                                ctypes.POINTER(AmrC), ctypes.POINTER(ClumpC),
                                _P, _P, _P, _P, _P, ctypes.POINTER(SourceC),
-                               ctypes.POINTER(ProfC), _P, _P, _P],
+                               ctypes.POINTER(ProfC), _P, _P,
+                               ctypes.POINTER(AllPhC), _I, _P],
             lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
                                    _P, _P, _P, _F, line, _P],

@@ -9,7 +9,9 @@ H-alpha spectra, band budgets and two-photon spectrum, and H2 pumping's
 per-photon weights, an exoplanet atmosphere's Jabs2, an
 illumination's flux factor, and the CALCJ/CALCP/CALCPnew maps J1, Pa and
 Pnew over each bin's cells with their bin centres r_JPa (lart_tpu/tally.py:
-99-122, :211-230).  The arithmetic is lart_tpu's, on host float64.
+99-122, :211-230), and the all-photons table of save_all_photons, its
+columns as the driver copied them (lart_tpu/tally.py:68, :244).  The
+arithmetic is lart_tpu's, on host float64.
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ class RunResult:
     Pa: Optional[np.ndarray] = None
     Pnew: Optional[np.ndarray] = None
     r_JPa: Optional[np.ndarray] = None
+    # save_all_photons: {column: (nphotons,) f64} (transport/allph.py FIELDS)
+    allph: Optional[dict] = None
 
     @property
     def line(self):
@@ -257,7 +261,7 @@ def normalize(cfg: ResolvedConfig, meta: GridMeta, raw: dict,
         J2gam=J2gam, y_2gam=y_2gam,
         Jabs2=Jabs2, flux_factor=flux_factor,
         nrejected=raw.get('nrejected', 0.0),
-        J1=J1, Pa=Pa, Pnew=Pnew, r_JPa=r_JPa,
+        J1=J1, Pa=Pa, Pnew=Pnew, r_JPa=r_JPa, allph=raw.get('allph'),
         W_H2pump=raw['W_H2pump'] / nphotons if 'W_H2pump' in raw else None,
         **{k: raw.get(k, 0.0) / nphotons for k in (
             'W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2', 'W_H2abs',

@@ -612,6 +612,9 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
         birth['b' + k] = np.where(is_ffs, fields[k], birth['b' + k])
     fields.update(birth)
     fields.update(polarization(np.random.default_rng([seed, 1]), kx, ky, kz))
+    # the all-photons bookkeeping: every lane its own id, some events
+    ev = np.random.default_rng([seed, 9]).integers(0, 50, (2, batch))
+    fields.update(pid=np.arange(batch), nsg=ev[0], nsd=ev[1])
     out = {f: torch.as_tensor(np.asarray(fields[f], np.int32 if f in
                                          INT_FIELDS else f32),
                               device=device) for f in LANE_FIELDS}
@@ -765,6 +768,48 @@ SOURCE_CASES = {
     # a 65^3 spherical atmosphere at tau 1e4 with a masked core, static
     # at uniform T, stellar illumination, a Voigt spectrum, as written
     'wasp52b': ('atmosphere/wasp52b_like.in', {}),
+    # save_all_photons (chip_smoke.py phase 4, tools/allph_cpu_runs.py):
+    # t4tau7 at the Dijkstra case's taumax 1e5 (129^3, core-skip) with its
+    # 1e5 photons as written, through K5 (the table takes it off K6): a
+    # drain tail, so the photons cost little beside the tau
+    't4tau7_allph': ('sphere/t4tau7.in', {'taumax': 1e5,
+                                          'save_all_photons': True}),
+    # DL20e_dust at phase 4's cut of the DL2008 shell (5000 photons, N_HI
+    # 1e18 with DGR 100: the dust's tau as written), Stokes: the I, Q, U, V
+    # columns and the absorption deaths
+    'DL20e_dust_allph': ('DL2008/DL20e_dust.in', {
+        'no_photons': 5000.0, 'N_HI': 1e18, 'DGR': 100.0,
+        'save_all_photons': True}),
+    # the AMR sphere (its leaves in memory, make_amr_sphere(32, 1)) and the
+    # overlapping clumps (K9), as written
+    'amr_sphere_allph': ('amr_sphere/amr_sphere.in',
+                         {'save_all_photons': True}),
+    'clumps_overlap_allph': ('clump_sphere/clumps_overlap.in',
+                             {'save_all_photons': True}),
+    # the bicone's 6837 clumps through K10 as written (save_clump_info off:
+    # the card's machine has no h5py)
+    'bicone_clump_allph': ('bicone/bicone_clump.in', {
+        'save_all_photons': True, 'save_clump_info': False}),
+    # chip_smoke.py phase 4's depth cuts of earlier paths, made to give the
+    # table's runs room (drain tails: a run's wall scales with its tau):
+    # the flagship slab at tauhomo 3e3 (1e4 before), vel_effect V0200 and
+    # its peel example at N_HI 5e17 (2e18 before), slab_peel at taumax 3e3
+    # and sphere_peel at 2e3 (as written 1e4), DL20e.in (dust-free) at N_HI
+    # 2e17 (1e18 before; DL20e_dust.in keeps 1e18), sphere_HD at N_HImax
+    # 1e17 (3e17 before), h2_on.in at taumax 1e4 (as written 1e5)
+    't1tau6_cut': ('slab/t1tau6.in', {'tauhomo': 3e3, 'nphotons': 5e4}),
+    'vel_effect_cut': ('vel_effect/t4NHI2_20_V0200.in',
+                       {'N_HI': 5e17, 'no_photons': 1e4}),
+    'vel_effect_peel_cut': ('vel_effect_peel/t4NHI2_20_V0200_peel.in',
+                            {'N_HI': 5e17, 'no_photons': 1e4}),
+    'slab_peel_cut': ('slab_peel/t1tau4.in',
+                      {'no_photons': 1e4, 'taumax': 3e3}),
+    'sphere_peel_cut': ('sphere_peel/t4tau4_peel.in',
+                        {'nphotons': 20000, 'taumax': 2e3}),
+    'DL20e_cut': ('DL2008/DL20e.in', {'no_photons': 5000.0, 'N_HI': 2e17}),
+    'sphere_HD_cut': ('lya_HD/sphere_HD_dijkstra2006.in',
+                      {'no_photons': 2000.0, 'N_HImax': 1e17}),
+    'h2_on_cut': ('h2_test/h2_on.in', {'taumax': 1e4}),
 }
 # the namelist keys that name a file beside the namelist
 SOURCE_FILES = ('star_file', 'emiss_file', 'dens_file', 'temp_file',
@@ -1084,13 +1129,16 @@ def spectra_agree(J1, Jmu1, N1, J2, Jmu2, N2, nphotons: int, nmu: int):
 
 
 def compare_states(a: BatchState, b: BatchState, rtol: float = 1e-5,
-                   atol: float = 1e-6):
-    """(fraction of lanes that differ, max |a - b| over the other lanes).
+                   atol: float = 1e-6, skip: tuple = ()):
+    """(fraction of lanes that differ, max |a - b| over the other lanes),
+    the fields `skip` left out.
 
     A lane differs when an integer field differs or a float field misses
     |a - b| <= atol + rtol |b|."""
     bad = torch.zeros(a.batch, dtype=torch.bool, device=a.device)
     for f in LANE_FIELDS:
+        if f in skip:
+            continue
         u, v = getattr(a, f), getattr(b, f)
         if f in INT_FIELDS:
             bad |= u != v
@@ -1099,7 +1147,7 @@ def compare_states(a: BatchState, b: BatchState, rtol: float = 1e-5,
     good = ~bad
     err = 0.0
     for f in LANE_FIELDS:
-        if f not in INT_FIELDS and bool(good.any()):
+        if f not in INT_FIELDS and f not in skip and bool(good.any()):
             d = (getattr(a, f) - getattr(b, f)).abs()[good]
             err = max(err, float(d.max()))
     return float(bad.float().mean()), err
@@ -1140,3 +1188,84 @@ def shape_chi2(x, J_model, J_analytic, n_eff, atau0=None):
     sigma = np.sqrt(sig_mc ** 2 + sig_sys ** 2)
     chi2 = float(np.sum(((pm[sel] - pa[sel]) / sigma[sel]) ** 2))
     return chi2, chi2_raw, int(sel.sum()), pm, pa
+
+
+# --- the all-photons table (save_all_photons; transport/allph.py)
+# the bins of each column's histogram: the birth frequencies of a Voigt
+# source fill a few Doppler widths of the band, the escapes most of it
+ALLPH_BINS = {'xfreq1': 240, 'xfreq2': 48, 'rp': 24}
+ALLPH_Q = (0.05, 0.5, 0.95)
+
+
+def allph_edges(xfreq_min: float, xfreq_max: float, rmax: float) -> dict:
+    """The histogram edges of the table's xfreq1, xfreq2 (the spectrum's
+    band) and rp ([0, sqrt 3 rmax], the box's corner) columns."""
+    n = ALLPH_BINS
+    return {'xfreq1': np.linspace(xfreq_min, xfreq_max, n['xfreq1'] + 1),
+            'xfreq2': np.linspace(xfreq_min, xfreq_max, n['xfreq2'] + 1),
+            'rp': np.linspace(0.0, np.sqrt(3.0) * rmax, n['rp'] + 1)}
+
+
+def allph_summary(ap: dict, edges: dict) -> dict:
+    """What a run's table says, in a few numbers (either package's
+    {column: (n,)} table): its rows, <nscatt_gas> and one photon's spread,
+    <nscatt_dust>, the share of rows never written (xfreq1 and nscatt_gas
+    both 0), rp's largest value and 95% quantile, rp0's largest, the sums
+    of nscatt_gas and I, the quantiles ALLPH_Q and the histograms over
+    `edges` of xfreq1, xfreq2 and rp."""
+    a = {k: np.asarray(v, np.float64) for k, v in ap.items()}
+    ns = a['nscatt_gas']
+    out = {'n': int(ns.size), 'N': float(ns.mean()),
+           'N_spread': float(ns.std()), 'Nd': float(a['nscatt_dust'].mean()),
+           'zero_rows': float(((a['xfreq1'] == 0.0) & (ns == 0.0)).mean()),
+           'rp_max': float(a['rp'].max()),
+           'rp_q95': float(np.quantile(a['rp'], 0.95)),
+           'rp0_max': float(np.abs(a['rp0']).max()),
+           'sum_nsg': float(ns.sum()),
+           'sum_I': float(a['I'].sum()) if 'I' in a else None,
+           'quantiles': {}, 'hist': {}}
+    for k, e in edges.items():
+        out['quantiles'][k] = [float(q) for q in np.quantile(a[k], ALLPH_Q)]
+        out['hist'][k] = np.histogram(a[k], bins=e)[0].tolist()
+    return out
+
+
+def hist_chi2(h1, h2, min_count: int = 10):
+    """(chi^2/dof, dof) of two histograms of different totals over the
+    bins holding at least min_count counts in all: sum (K1 h1 - K2 h2)^2 /
+    (h1 + h2), K1 = sqrt(n2 / n1), K2 = 1 / K1, with dof the bins less
+    one."""
+    h1, h2 = np.asarray(h1, np.float64), np.asarray(h2, np.float64)
+    use = (h1 + h2) >= min_count
+    n1, n2 = h1[use].sum(), h2[use].sum()
+    k1 = np.sqrt(n2 / n1)
+    chi2 = float(np.sum((k1 * h1[use] - h2[use] / k1) ** 2
+                        / (h1[use] + h2[use])))
+    dof = int(use.sum()) - 1
+    return chi2 / max(dof, 1), dof
+
+
+def allph_closures(res, summary: dict) -> dict:
+    """The checks every run's table passes (either package's RunResult and
+    its allph_summary), as {name: (value, limit)}, each value within its
+    limit: at most 2% of the rows never written; rp0 0 for a source at
+    the centre; rp at most sqrt(3) rmax and its 95% quantile at most rmax;
+    sum nscatt_gas the run's nscatt_events to 1e-5; with Stokes, sum I at
+    most W_esc + W_abs + W_oor (the rows carry the weight after the forced
+    first scattering, which leaves the birth weight's escaped fraction in
+    Jout: engine.py:1390-1392)."""
+    par, n = res.cfg.par, res.nphotons
+    rmax = par.rmax
+    events = res.nscatt_events * n
+    out = {'zero_rows': (summary['zero_rows'], 0.02),
+           'rp_max': (summary['rp_max'], np.sqrt(3.0) * rmax + 1e-4),
+           'rp_q95': (summary['rp_q95'], rmax + 1e-4),
+           'nsg_closure': (abs(summary['sum_nsg'] - events)
+                           / max(events, 1.0), 1e-5)}
+    if (par.xs_point, par.ys_point, par.zs_point) == (0.0, 0.0, 0.0) \
+            and par.source_geometry.strip().lower() in ('', 'point'):
+        out['rp0_max'] = (summary['rp0_max'], 1e-6)
+    if summary['sum_I'] is not None:
+        w = (res.W_escape + (res.W_absorb or 0.0) + res.W_oor) * n
+        out['I_excess'] = ((summary['sum_I'] - w) / n, 1e-6)
+    return out

@@ -29,7 +29,12 @@ calcPnew maps always fly K5, as lart_tpu sends them off both fast paths
 that bins them (nbin_JPa > 0: Cartesian grids; lart_tpu's AMR and clump
 metas leave it 0, so there the flags run and write no map) the chunk's
 tallies carry the J1, Pa and Pnew maps: K5 adds each segment's J1 and
-Pnew, K4 each resonance scattering's Pa (transport/jpa.py).
+Pnew, K4 each resonance scattering's Pa (transport/jpa.py).  With
+save_all_photons the chunk holds the run's all-photons table
+(transport/allph.py; make_chunk, engine.py:3029-3031): one table on the
+device for the whole run, zeroed once, which every chunk's tallies carry
+and K2, K4 and the flights write in place (birth and death rows); it keeps
+the runs off both fast paths, as lart_tpu's does (engine.py:668, :868).
 `check_supported` names whatever a config asks for that is not ported.
 """
 
@@ -41,6 +46,7 @@ from typing import Callable, Optional
 from ..instruments.peel import Peel, PeelRecord, peel
 from ..physics.h2 import h2_on
 from ..physics.line import LINE_TYPES
+from .allph import AllPhotons, zero_allph
 from .fly_amr import AmrFlight
 from .fly_cartesian import CartesianFlight
 from .fly_clump import ClumpFlight
@@ -110,7 +116,6 @@ def check_supported(cfg, meta=None) -> None:
         # the AMR meta's geometry_JPa 0 (engine.py:603, :1604-1606)
         ('calcJ/calcPnew on an AMR grid', amr and (par.calcJ
                                                   or par.calcPnew)),
-        ('save_all_photons', par.save_all_photons),
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
         ('n_devices > 1', par.n_devices > 1),
@@ -183,6 +188,7 @@ class Chunk:
     h2: bool = False                # H2 pumping: its tallies
     atmosphere: bool = False        # an exoplanet atmosphere: Jabs2
     jpa: tuple = (0, 0, 0)          # the sizes of J1, Pa and Pnew
+    allph: Optional[AllPhotons] = None   # save_all_photons: the run's table
 
     def zero_tallies(self, device):
         """The chunk's zero tallies: those of its line, H2, atmosphere,
@@ -195,6 +201,7 @@ class Chunk:
                  budget: int, n_cycles=None, fly_substeps=None,
                  refill_on: bool = True):
         tallies = self.zero_tallies(state.device)
+        tallies.allph = self.allph
         steps = fly_substeps or self.fly_substeps
         p, rec = self.peel, None
         if p is not None:
@@ -224,9 +231,10 @@ def make_chunk(cfg, meta, grid, cmeta=None, host_data=None) -> Chunk:
     par = cfg.par
     sphere = uniform_sphere_fastpath(cfg, meta)
     jpa = JpaBins.from_config(cfg, meta)
+    flight = make_fly(cfg, meta, grid, cmeta)
     return Chunk(refill_params=RefillParams.from_config(cfg, meta, grid,
                                                         cmeta, host_data),
-                 flight=make_fly(cfg, meta, grid, cmeta),
+                 flight=flight,
                  scatter_params=ScatterParams.from_config(cfg, meta, grid,
                                                           sphere, cmeta),
                  n_cycles=par.chunk_cycles,
@@ -236,4 +244,7 @@ def make_chunk(cfg, meta, grid, cmeta=None, host_data=None) -> Chunk:
                  peel=Peel.from_config(cfg, meta, grid, sphere, cmeta),
                  lyb=cfg.line.line_type == 8, h2=h2_on(par),
                  atmosphere=bool(meta.atmosphere),
-                 jpa=jpa.sizes(meta.nxfreq) if jpa else (0, 0, 0))
+                 jpa=jpa.sizes(meta.nxfreq) if jpa else (0, 0, 0),
+                 allph=zero_allph(int(par.nphotons), bool(par.use_stokes),
+                                  par.rmax, flight.rhokap.device)
+                 if par.save_all_photons else None)

@@ -75,6 +75,14 @@ class JpaC(ctypes.Structure):
                 ('dr', _F), ('roff', _F), ('cross0', _F)]
 
 
+class AllPhC(ctypes.Structure):
+    """csrc/allph.cuh struct AllPh, field for field (transport/allph.py
+    builds it)."""
+    _fields_ = [('rp0', _P), ('rp', _P), ('xfreq1', _P), ('xfreq2', _P),
+                ('nsg', _P), ('nsd', _P), ('I', _P), ('Q', _P), ('U', _P),
+                ('V', _P), ('n', _I), ('advance', _I), ('rmax2', _F)]
+
+
 class FlightParams(ctypes.Structure):
     """csrc/lart.cuh struct FlightParams, field for field."""
     _fields_ = [('rhokap', _P), ('rhokapD', _P), ('vfx', _P), ('vfy', _P),
@@ -92,7 +100,7 @@ class FlightParams(ctypes.Structure):
                 ('dmu', _F), ('sphere_R2', _F), ('sphere_rho', _F),
                 ('sphere_rhoD', _F), ('R_Ha', _F), ('line', pline.LineC),
                 ('h2', ph2.H2C), ('amr', AmrC), ('clump', ClumpC),
-                ('jpa', JpaC), ('omega_shear', _F)]
+                ('jpa', JpaC), ('omega_shear', _F), ('allph', AllPhC)]
 
 
 def fma(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -396,6 +404,8 @@ class FlightConsts:
             c.Jabs2 = tallies.Jabs2.data_ptr()
         if self.jpa is not None:
             c.jpa = self.jpa.c_struct(tallies)
+        c.allph = AllPhC() if tallies.allph is None \
+            else tallies.allph.c_struct
         return c
 
     def masked(self, flat) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """The octree AMR flight (kernel K8).
 
 Counterpart of make_fly_amr / fly (lart_tpu/transport/engine.py:1507-1831)
-without atmospheres, CALCJ/Pnew or all-photons records.  A lane's cell
-index ic is an octree node (jc, kc unused).  Each step takes one lane
+without atmospheres or CALCJ/Pnew.  A lane's cell index ic is an octree
+node (jc, kc unused).  Each step takes one lane
 across one node: the node's opacity is its leaf's rhokap times the line's
 profile at the leaf's damping and Doppler width (a gap cell, a missing
 octant of an internal node, has none), plus rhokap times the H2
@@ -23,6 +23,10 @@ numbers are drawn.
 
 With line type 8 each band's escaped weight sums into W_esc1 or W_esc2 and
 the H-alpha band escapes into Jout_Ha at its own (lab) frequency, as K5's.
+With save_all_photons (tallies.allph) a lane that dies writes its death row
+as K5's does (engine.py:1761-1796): an escape at the lab frequency of the
+node it leaves, a forced first scattering born in vacuum at its birth
+node's.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 from ..kernels import build as kbuild
 from ..physics import h2 as ph2
 from ..physics import line as pline
+from .allph import record_deaths
 from .flight import (BIG, FFS_TAU_CAP, TINY, AmrGrid, FlightConsts, comoving,
                      doppler_ratio, fma, freq_floor, tally_plain)
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
@@ -232,6 +237,10 @@ def fly_plain(state: BatchState, tallies: Tallies, p: AmrFlight,
             tallies.W_esc1 += torch.where(ffs_done & inb, wgt_esc, zero).sum()
         wgt1 = -torch.expm1(-tau0)
         ffs_vacuum = ffs_done & (tau0 <= 0.0)
+        if tallies.allph is not None:
+            # the death rows' lab frequencies (engine.py:1761-1767)
+            xf2 = xlab if b2 is None else torch.where(b2, s.xfreq, xlab)
+            xf2 = torch.where(ffs_vacuum, xlab_b, xf2)
         phase_new = torch.where(
             esc_fly | ffs_vacuum, DEAD,
             torch.where(ffs_done, FLYING,
@@ -258,6 +267,8 @@ def fly_plain(state: BatchState, tallies: Tallies, p: AmrFlight,
             ffs_done, torch.zeros_like(tau_n),
             torch.where(moving, tau_n, s.tau_run)))
         s.tau_target.copy_(new_target)
+        if tallies.allph is not None:
+            record_deaths(tallies.allph, s, esc_fly | ffs_vacuum, xf2)
     tallies.W_oor += oor.sum()
 
 
@@ -271,7 +282,9 @@ def fly(state: BatchState, tallies: Tallies, p: AmrFlight,
     kbuild.require_cuda('fly_amr', tallies.Jout, tallies.Jmu, tallies.W_oor,
                         state.x, *p.device_tensors(),
                         *((tallies.Jout_Ha, tallies.W_esc1, tallies.W_esc2)
-                          if p.lyb else ()))
+                          if p.lyb else ()),
+                        *(tallies.allph.tensors()
+                          if tallies.allph is not None else ()))
     kbuild.check(kbuild.library().lart_fly_amr(
         state.lane_pointers, state.batch, max_steps,
         ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),

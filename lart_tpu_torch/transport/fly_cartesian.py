@@ -1,8 +1,7 @@
 """Generic Cartesian flight: the Amanatides-Woo cell walk (kernel K5).
 
-Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141)
-for a grid without all-photons records.  Each step takes one lane across
-one cell: the
+Counterpart of make_fly / fly (lart_tpu/transport/engine.py:1057, :1141).
+Each step takes one lane across one cell: the
 opacity of its cell is rhokap * H_eff(x; a, D) at the cell's damping a and
 Doppler width D (the reference ones at uniform temperature, each cell's
 own from a temp_file: engine.py:297-317), plus rhokap times the H2
@@ -49,6 +48,12 @@ it leaves (W_oor off the frequency grid), not to Jout.  A forced first
 scattering's birth ray that enters the core ends there with the optical
 depth FFS_TAU_CAP (no escaped fraction) and restarts from birth; one that
 leaves through the bottom face completes as any escape does.
+
+With save_all_photons (tallies.allph, transport/allph.py) a lane that dies
+writes its death row (engine.py:1434-1469): an escape and an atmosphere's
+destruction at the lab frequency of the cell it leaves (the H-alpha band's
+own frequency), a forced first scattering born in vacuum at its birth lab
+frequency, each from the lane's state after the step that killed it.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import dataclasses
 import torch
 
 from ..kernels import build as kbuild
+from .allph import record_deaths
 from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, comoving,
                      doppler_ratio, fma, freq_floor, tally_plain)
 from .jpa import deposit_segments
@@ -224,6 +230,10 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
         wgt1 = -torch.expm1(-tau0)
         ffs_vacuum = ffs_done & (tau0 <= 0.0)
         dead_now = esc_fly if dead_atm is None else esc_fly | dead_atm
+        if tallies.allph is not None:
+            # the death rows' lab frequencies (engine.py:1434-1441)
+            xf2 = xlab if b2 is None else torch.where(b2, s.xfreq, xlab)
+            xf2 = torch.where(ffs_vacuum, xlab_b, xf2)
         phase_new = torch.where(
             dead_now | ffs_vacuum, DEAD,
             torch.where(ffs_done, FLYING,
@@ -252,6 +262,8 @@ def fly_plain(state: BatchState, tallies: Tallies, p: FlightConsts,
             ffs_done, torch.zeros_like(tau_n),
             torch.where(moving, tau_n, s.tau_run)))
         s.tau_target.copy_(new_target)
+        if tallies.allph is not None:
+            record_deaths(tallies.allph, s, dead_now | ffs_vacuum, xf2)
     tallies.W_oor += oor.sum()
 
 
@@ -276,7 +288,9 @@ def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
                         *((tallies.Jout_Ha, tallies.W_esc1, tallies.W_esc2)
                           if p.lyb else ()),
                         *((tallies.Jabs2,) if p.atmosphere else ()),
-                        *(p.jpa.tallies(tallies) if p.jpa else ()))
+                        *(p.jpa.tallies(tallies) if p.jpa else ()),
+                        *(tallies.allph.tensors()
+                          if tallies.allph is not None else ()))
     kbuild.check(kbuild.library().lart_fly_cartesian(
         state.lane_pointers, state.batch, max_steps,
         ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),

@@ -2,14 +2,17 @@
 walker (kernel K10).
 
 Counterparts of make_fly_clump_dense (lart_tpu/transport/engine.py:
-3076-3339) and make_fly_clump (:3342-3723) without atmospheres or
-all-photons records.  Photons carry global frequencies in reference Doppler
-units; each clump's opacity is its rhokap times the line's profile at its
+3076-3339) and make_fly_clump (:3342-3723) without atmospheres.  Photons
+carry global frequencies in reference Doppler units; each clump's opacity
+is its rhokap times the line's profile at its
 local frequency (x - u) r_loc, at the clumps' damping a_cl and Doppler width
 D_cl, plus its rhokapD with dust (transport/flight.py ClumpGrid).  An escape
 is binned at the lane's frequency, a completed forced first scattering at its
 birth frequency along its birth direction (no velocity shift: the clumps
-move, the vacuum does not).  No random numbers are drawn.
+move, the vacuum does not).  No random numbers are drawn.  With
+save_all_photons (tallies.allph) a lane that dies writes its death row
+(engine.py:3302-3327, :3684-3711): an escape at its frequency, a forced
+first scattering born in vacuum at its birth frequency.
 
 K9 (populations of at most clump_dense_max clumps) resolves a whole flight
 in one step: the optical depth from the lane to distance t along its ray is
@@ -46,6 +49,7 @@ import torch
 
 from ..kernels import build as kbuild
 from ..physics import line as pline
+from .allph import record_deaths
 from .flight import (BIG, FFS_TAU_CAP, TINY, ClumpGrid, FlightConsts,
                      chord_det, f32, fma, tally_plain)
 from .state import (AT_SCATTER, DEAD, FFS, FLYING, LANE_FIELDS, BatchState,
@@ -201,6 +205,9 @@ def _ffs_and_commit(s: BatchState, tallies: Tallies, p: ClumpFlight,
     flights (engine.py:3227-3306, :3591-3680): returns this step's
     out-of-grid weight, summed."""
     oor = tally_plain(tallies, p, esc_fly, s.xfreq, s.wgt, s.kz)
+    if tallies.allph is not None:
+        # the death rows' frequencies (engine.py:3302-3318)
+        xf2 = torch.where(ffs_done, s.bxfreq, s.xfreq)
     wgt_esc = s.wgt * torch.exp(-tau0)
     oor = oor + tally_plain(tallies, p, ffs_done, s.bxfreq, wgt_esc, s.bkz)
     wgt1 = -torch.expm1(-tau0)
@@ -225,6 +232,8 @@ def _ffs_and_commit(s: BatchState, tallies: Tallies, p: ClumpFlight,
     s.tau_run.copy_(torch.where(ffs_done, torch.zeros_like(tau_n),
                                 torch.where(moving, tau_n, s.tau_run)))
     s.tau_target.copy_(new_target)
+    if tallies.allph is not None:
+        record_deaths(tallies.allph, s, moving & (esc_fly | ffs_vacuum), xf2)
     return oor.sum()
 
 
@@ -459,7 +468,9 @@ def fly(state: BatchState, tallies: Tallies, p: ClumpFlight,
         return
     name = 'fly_clump_dense' if p.clump.dense else 'fly_clump_csr'
     kbuild.require_cuda(name, tallies.Jout, tallies.Jmu, tallies.W_oor,
-                        state.x, *p.device_tensors())
+                        state.x, *p.device_tensors(),
+                        *(tallies.allph.tensors()
+                          if tallies.allph is not None else ()))
     fn = kbuild.library().lart_fly_clump_dense if p.clump.dense \
         else kbuild.library().lart_fly_clump_csr
     kbuild.check(fn(state.lane_pointers, state.batch, max_steps,

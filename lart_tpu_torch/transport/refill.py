@@ -121,6 +121,13 @@ Dfreq0 / D_loc; continuum+gaussian (:2808) takes the line with probability
 f_line = EW_vel / (EW_vel + dv_range) (the uniform of word 2 of block 2)
 as xfreq0 + a Box-Muller normal (words 0, 1) times sigma_x, else the flat
 continuum (word 3), all divided by D_loc / Dfreq_ref.
+
+With save_all_photons (tallies.allph, transport/allph.py) a launched lane
+takes the photon id pid_base + n_launched + its rank among the dead lanes
+(engine.py:2884-2885; K2 gives it its warp ticket, the same set of ids in
+another lane order), starts with no scattering events and writes its birth
+row: the impact parameter of its birth ray and its comoving birth
+frequency (engine.py:2890-2899).
 """
 
 from __future__ import annotations
@@ -148,6 +155,7 @@ from ..physics.sources import (N_ROUNDS, Illumination, LineProfTable,
                                sample_radius_loglog,
                                sample_stellar_illumination, zexp,
                                zexp_consts)
+from .allph import record_births
 from .flight import AmrGrid, ClumpGrid, div, doppler_ratio, fma
 from .state import DEAD, FFS, BatchState, Tallies
 
@@ -527,6 +535,9 @@ class RefillParams:
     cell_a: Optional[torch.Tensor] = None
     cell_D: Optional[torch.Tensor] = None
     lp: Optional[LineProfTable] = None   # the line_prof_file spectrum
+    # save_all_photons: the id of this device's first photon (lart_tpu's
+    # n_shard offset, driver.py:108-118; 0 on one device)
+    pid_base: int = 0
 
     @property
     def kernel(self) -> str:
@@ -764,6 +775,13 @@ def refill_plain(state: BatchState, tallies: Tallies, p: RefillParams,
     for nm, val in (('kx', kx), ('ky', ky), ('kz', kz), ('xfreq', xfreq)):
         put(nm, val)
         put('b' + nm, val)
+    if tallies.allph is not None:
+        # the photon's id by its rank among the dead lanes, no events yet,
+        # and its birth row (engine.py:2884-2899)
+        pid = p.pid_base + state.n_launched[0] + rank
+        for nm, val in (('pid', pid), ('nsg', 0.0), ('nsd', 0.0)):
+            put(nm, val)
+        record_births(tallies.allph, launch, pid, *src, kx, ky, kz, xfreq)
     put('wgt', 1.0 if wgt is None else wgt)
     put('tau_target', v[1])
     put('tau_run', 0.0)
@@ -810,7 +828,9 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
                         *(() if p.cell_D is None else (p.cell_a, p.cell_D)),
                         *(() if p.lp is None else p.lp.tensors()),
                         *((tallies.flux_factor, tallies.nrejected)
-                          if p.illumination else ()))
+                          if p.illumination else ()),
+                        *(tallies.allph.tensors()
+                          if tallies.allph is not None else ()))
     kbuild.check(kbuild.library().lart_refill_point(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, state.n_launched.data_ptr(),
@@ -829,6 +849,8 @@ def refill(state: BatchState, tallies: Tallies, p: RefillParams, seed: int,
         None if p.lp is None else ctypes.byref(p.prof_struct),
         *((tallies.flux_factor.data_ptr(), tallies.nrejected.data_ptr())
           if p.illumination else (None, None)),
+        None if tallies.allph is None
+        else ctypes.byref(tallies.allph.c_struct), p.pid_base,
         kbuild.stream_of(state.x)),
         name)
     kbuild.LAUNCHES[name] += 1

@@ -121,6 +121,12 @@ going to Jabs_Ha at its (lab) frequency; W_abs1 and W_abs2 sum each
 band's absorbed weight.  The peel record marks a conversion
 EVENT_CONVERSION (the peel then casts the newborn H-alpha photon, not the
 resonance).
+
+With save_all_photons (tallies.allph, transport/allph.py) each resonance
+scattering adds one to the lane's nsg and each dust scattering one to its
+nsd (events, not weight), and a lane absorbed by dust or destroyed by H2
+writes its death row from its state before the event at the lab frequency
+(x + u) D / D_ref of its cell (engine.py:2455-2480).
 """
 
 from __future__ import annotations
@@ -139,7 +145,8 @@ from ..physics import line as pline
 from ..physics import mueller as pmueller
 from ..physics import samplers
 from ..physics.rng import STREAM_SCATTER, uniforms
-from .flight import (AmrC, AmrGrid, ClumpC, ClumpGrid, JpaC, div,
+from .allph import count_events, record_deaths
+from .flight import (AllPhC, AmrC, AmrGrid, ClumpC, ClumpGrid, JpaC, div,
                      doppler_ratio, dot3, f32, freq_floor, recip32)
 from .jpa import JpaBins, deposit_scatterings
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
@@ -180,7 +187,7 @@ class ScatterC(ctypes.Structure):
                 ('W_H2pump', _P), ('albedo_Ha', _F),
                 ('one_m_albedo_Ha', _F), ('hgg_Ha', _F), ('amr', AmrC),
                 ('clump', ClumpC), ('cell_a', _P), ('cell_D', _P),
-                ('jpa', JpaC)]
+                ('jpa', JpaC), ('allph', AllPhC)]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -254,7 +261,9 @@ class ScatterParams:
         cart_T = meta.grid_type == 'cartesian' and grid is not None \
             and grid.Dfreq is not None
         vel = None
-        if (dust or lt8) and not meta.static_medium:
+        # the velocities of Jabs, a conversion's lab frequency and a death
+        # row's
+        if (dust or lt8 or par.save_all_photons) and not meta.static_medium:
             vel = (grid.vx, grid.vy, grid.vz) if clump is not None else \
                 tuple(flat(v) for v in (grid.vfx, grid.vfy, grid.vfz))
         return cls(a=float(meta.voigt_a_ref),
@@ -404,6 +413,8 @@ class ScatterParams:
             setattr(c, f, getattr(tallies, f).data_ptr())
         if self.jpa is not None:
             c.jpa = self.jpa.c_struct(tallies)
+        c.allph = AllPhC() if tallies.allph is None \
+            else tallies.allph.c_struct
         return c
 
     @property
@@ -583,6 +594,12 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
     if p.h2 is not None:
         h2_sc, h2_destroy, h2_new = h2_event(s, tallies, p, seed, counter,
                                              hu, is_h2, D_c)
+    if tallies.allph is not None:
+        # absorbed or destroyed: the death rows from the state before the
+        # event, at the lab frequency of the lane's cell (engine.py:
+        # 2455-2464)
+        xl = s.xfreq if p.vel is None else s.xfreq + p.vel_dot(s)
+        record_deaths(tallies.allph, s, absorbed | h2_destroy, xl * ratio)
     res_kind = torch.full_like(s.phase, EVENT_RESONANCE)
     if conv is not None:
         res_kind = torch.where(conv, EVENT_CONVERSION, res_kind)
@@ -636,6 +653,8 @@ def scatter_plain(state: BatchState, tallies: Tallies, p: ScatterParams,
                                 s.tau_run))
     tallies.nscatt_gas += torch.where(do_res, s.wgt, zero).sum()
     tallies.nscatt_events += do_res.sum(dtype=torch.float32)
+    if tallies.allph is not None:
+        count_events(s, do_res, dust_sc)
     if p.jpa is not None:
         # the resonance scatterings per atom, at the scattering cell
         # (engine.py:2541-2547); a conversion counts as one
@@ -915,7 +934,9 @@ def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
                         tallies.nscatt_dust, state.x, *p.device_tensors(),
                         *(getattr(tallies, f) for f in p.tally_fields),
                         *(() if record is None else (record.flag,)),
-                        *(p.jpa.tallies(tallies) if p.jpa else ()))
+                        *(p.jpa.tallies(tallies) if p.jpa else ()),
+                        *(tallies.allph.tensors()
+                          if tallies.allph is not None else ()))
     kbuild.check(kbuild.library().lart_scatter_lya(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,

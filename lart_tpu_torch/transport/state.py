@@ -10,8 +10,10 @@ that polarized peel-off carries (engine.py:80-90), and the photon's band
 scattering converts to, line type 8), and the shearing box's
 shear-frame y-velocity vfy_shear (engine.py:91-93), which a periodic x
 wrap moves by -+ omega_shear and a birth or a completed forced first
-scattering sets to 0.  The all-photons fields come with the feature that
-uses them.  The Ly-beta tallies (Jout_Ha, Jabs_Ha and the band budgets)
+scattering sets to 0, and the all-photons bookkeeping of save_all_photons
+(engine.py:94-98): the photon's id, -1 until a birth with the table on
+gives it one, and its counts of gas and dust scattering events (nsg, nsd),
+0 at that birth.  The Ly-beta tallies (Jout_Ha, Jabs_Ha and the band budgets)
 exist only for line type 8, the H2 tallies only with H2 pumping on, Jabs2
 only in an exoplanet atmosphere, the flux factor and rejected draws only
 for a stellar or point illumination, and the CALCJ/CALCP/CALCPnew maps
@@ -44,9 +46,9 @@ LANE_FIELDS = ('phase', 'x', 'y', 'z', 'kx', 'ky', 'kz', 'ic', 'jc', 'kc',
                'bx', 'by', 'bz', 'bic', 'bjc', 'bkc',
                'bxfreq', 'bkx', 'bky', 'bkz',
                'Q', 'U', 'V', 'mx', 'my', 'mz', 'nnx', 'nny', 'nnz',
-               'iband', 'vfy_shear')
+               'iband', 'vfy_shear', 'pid', 'nsg', 'nsd')
 INT_FIELDS = frozenset({'phase', 'ic', 'jc', 'kc', 'bic', 'bjc', 'bkc',
-                        'iband'})
+                        'iband', 'pid'})
 LYB_SCALARS = ('W_conv', 'W_esc1', 'W_abs1', 'W_esc2', 'W_abs2')
 H2_SCALARS = ('W_H2abs', 'W_H2scat')
 ILLUM_SCALARS = ('flux_factor', 'nrejected')
@@ -93,6 +95,11 @@ class BatchState:
     nnz: torch.Tensor
     iband: torch.Tensor          # int32: 1 the line, 2 H-alpha (type 8)
     vfy_shear: torch.Tensor      # the shearing box's y-velocity offset
+    # save_all_photons: the photon's id (int32, -1 without one) and its gas
+    # and dust scattering events (f32 counts)
+    pid: torch.Tensor
+    nsg: torch.Tensor
+    nsd: torch.Tensor
     n_launched: torch.Tensor     # int32 (1,)
 
     @property
@@ -160,6 +167,10 @@ class Tallies:
     J1: Optional[torch.Tensor] = None
     Pa: Optional[torch.Tensor] = None
     Pnew: Optional[torch.Tensor] = None
+    # save_all_photons: the run's per-photon table (transport/allph.py
+    # AllPhotons), one for the whole run, written in place at each birth
+    # and death
+    allph: Optional[object] = None
 
 
 def init_state(batch: int, device) -> BatchState:
@@ -173,6 +184,7 @@ def init_state(batch: int, device) -> BatchState:
     for f in ('kz', 'bkz', 'mx', 'nny'):
         fields[f] = zf(1.0)
     fields['iband'] = zi() + 1
+    fields['pid'] = zi() - 1
     return BatchState(**fields,
                       n_launched=torch.zeros((1,), dtype=torch.int32,
                                              device=device))

@@ -84,8 +84,9 @@ def sources_to_jax(table):
 
 
 def state_to_jax(state: BatchState):
-    """The port's state -> lart_tpu BatchState; the fields the port does
-    not carry take lart_tpu's init_state values."""
+    """The port's state -> lart_tpu BatchState (the all-photons id and
+    counts among its lane fields); the fields the port does not carry take
+    lart_tpu's init_state values."""
     base = engine.init_state(state.batch)
     return base._replace(
         n_launched=jnp.asarray(state.n_launched.cpu().numpy()),
@@ -114,6 +115,39 @@ def fly_both(jax_fly, jgrid, port_fly, nxfreq, s0, max_steps, nmu=8):
     tl = zero_tallies(nxfreq, nmu, 'cpu')
     port_fly(st, tl, max_steps)
     return st, tl, convert.state_from_jax(js), convert.tallies_from_jax(jt)
+
+
+def allph_to_jax(table):
+    """The port's all-photons table (transport/allph.py AllPhotons) as
+    lart_tpu's AllPhotons."""
+    return engine.AllPhotons(**{f: jnp.asarray(getattr(table, f).numpy())
+                                for f in table.fields})
+
+
+def allph_from_jax(ap) -> dict:
+    """lart_tpu's AllPhotons as {column: (n,) f64 numpy}."""
+    return {f: np.asarray(getattr(ap, f), np.float64) for f in ap._fields
+            if getattr(ap, f) is not None}
+
+
+def fly_both_allph(jax_fly, jgrid, port_fly, nxfreq, s0, max_steps,
+                   stokes, rmax, nmu=8, **flags):
+    """fly_both with the all-photons table: one zero table of s0.batch rows
+    (mixed_state's ids) in each package, and the tallies of `flags` (lyb,
+    atmosphere) in both.  Returns (port state, port table, lart_tpu state,
+    lart_tpu table), the tables as {column: (n,) f64}."""
+    from lart_tpu_torch.transport.allph import zero_allph
+    table = zero_allph(s0.batch, stokes, rmax, 'cpu')
+    js, jt = jax.jit(jax_fly, static_argnums=3)(
+        state_to_jax(s0), jgrid,
+        engine.zero_tallies(nxfreq, nmu=nmu, allph=allph_to_jax(table),
+                            **flags), max_steps)
+    st = testing.clone_state(s0)
+    tl = zero_tallies(nxfreq, nmu, 'cpu', **flags)
+    tl.allph = table
+    port_fly(st, tl, max_steps)
+    return (st, table.to_host(), convert.state_from_jax(js),
+            allph_from_jax(jt.allph))
 
 
 def assert_tallies_close(tl: Tallies, ref: Tallies, rel=1e-5):

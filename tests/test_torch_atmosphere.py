@@ -670,12 +670,13 @@ def test_check_supported_accepts_the_atmosphere_examples():
     # all but amr_ramses/ramses_snap10.in, whose snapshot is not in the
     # repository (the shearing box of tigress_shear/shear.in is ported)
     assert (accepted, len(paths)) == (111, 112)
-    # the shearing box and the maps are ported, save_all_photons not
+    # the shearing box, the maps and the all-photons table are ported,
+    # several devices not
     for over in (dict(xy_periodic=True, Omega=1.0), dict(calcJ=True),
-                 dict(calcP=True)):
+                 dict(calcP=True), dict(save_all_photons=True)):
         teng.check_supported(testing.plane_atmosphere_params(**over)
                              .resolve())
-    for over, words in ((dict(save_all_photons=True), 'save_all_photons'),):
+    for over, words in ((dict(n_devices=2), 'n_devices'),):
         par = testing.plane_atmosphere_params(**over)
         with pytest.raises(NotImplementedError, match=words):
             teng.check_supported(par.resolve())

@@ -79,6 +79,14 @@ SHEAR_KEYS = {'fly_cartesian (shear)', 'fly_cartesian (J1, Pnew)',
               'scatter_lya (Pa)'}
 
 
+# the all-photons table: K2's five instances, K4, K5, K8, K9 and K10 with it
+# (chip_smoke.phase2_allph)
+ALLPH_KEYS = {k + ' (all photons)' for k in (
+    'refill_point', 'refill_radial', 'refill_volume', 'refill_alias',
+    'refill_illum', 'fly_cartesian', 'scatter_lya', 'fly_amr',
+    'fly_clump_dense', 'fly_clump_csr')}
+
+
 def test_kernels_match_plain_versions(cuda):
     import chip_smoke
     chip_smoke.B_MAIN = 8192
@@ -93,7 +101,7 @@ def test_kernels_match_plain_versions(cuda):
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
         | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS | ATM_KEYS \
-        | SHEAR_KEYS
+        | SHEAR_KEYS | ALLPH_KEYS
 
 
 # a source of each K2 instance on a 17^3 sphere: (overrides, instance)
@@ -570,3 +578,36 @@ def test_driver_runs_the_shear_and_the_maps(cuda):
     lhs, rhs = testing.pa_closure(res)
     assert abs(lhs / rhs - 1.0) < 1e-5, (lhs, rhs)
     assert res.J1.shape == (res.meta.nxfreq, res.meta.nbin_JPa)
+
+
+def test_allph_kernels_match_plain_versions(cuda):
+    """The table's birth rows of K2's five instances (by id), the death
+    rows of K4's four instances with it, of K5 (kExtra), K8, K9 and K10
+    against their plain versions (chip_smoke.phase2_allph)."""
+    import chip_smoke
+    chip_smoke.B_MAIN = 8192
+    res = {}
+    chip_smoke.phase2_allph(cuda, res)
+    assert set(res) == ALLPH_KEYS
+
+
+def test_driver_runs_the_allph_table(cuda):
+    """driver.run with save_all_photons on the 17^3 tau 2 sphere with
+    Stokes: K2, K5 and K4 launched with the table, every id written, the
+    closures of testing.allph_closures."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.config import Params
+    from lart_tpu_torch.kernels import build as kb
+    par = Params(nphotons=20000, geometry='sphere', rmax=1.0, nx=17, ny=17,
+                 nz=17, xmax=1, ymax=1, zmax=1, taumax=2.0, temperature=1e4,
+                 xfreq_min=-30.0, xfreq_max=30.0, save_all_photons=True,
+                 use_stokes=True, batch_size=4096, chunk_cycles=16)
+    kb.reset_launch_counts()
+    res = driver.run(par, device=cuda, seed=3)
+    assert all(kb.LAUNCHES[k] > 0 for k in (
+        'refill_point', 'fly_cartesian', 'scatter_lya')), kb.LAUNCHES
+    summ = testing.allph_summary(res.allph, testing.allph_edges(
+        res.meta.xfreq_min, res.meta.xfreq_max, 1.0))
+    for k, (v, lim) in testing.allph_closures(res, summ).items():
+        assert v <= lim, (k, v, lim)
+    assert 0.5 < summ['N'] < 4.0

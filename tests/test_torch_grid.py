@@ -85,8 +85,10 @@ def test_state_and_tallies_round_trip():
         a, b = getattr(st, f), getattr(back, f)
         assert a.dtype == b.dtype, f
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=f)
-    # the fields the port does not carry keep lart_tpu's initial values
-    np.testing.assert_array_equal(np.asarray(js.pid), -1)
+    # the all-photons id and event counts travel too (mixed_state gives
+    # every lane its own id)
+    np.testing.assert_array_equal(np.asarray(js.pid), st.pid.numpy())
+    np.testing.assert_array_equal(np.asarray(js.nsg), st.nsg.numpy())
 
     tl = zero_tallies(meta.nxfreq, 8, 'cpu')
     tl.Jout.copy_(torch.arange(meta.nxfreq, dtype=torch.float32))

@@ -314,14 +314,16 @@ def test_continuum_births_match_make_refill():
 
 def test_check_supported_names_what_is_not_ported():
     """Ly-beta (line type 8) and H2 pumping are ported: check_supported
-    passes them, and every metal-line case; a feature still unported is
-    still named."""
+    passes them, and every metal-line case, and with the all-photons table;
+    a feature still unported is still named."""
     for over in ({'line_id': 'ly_beta'}, {'h2_model': 'neufeld'},
                  {'line_id': 'ly_beta', 'DGR': 1e-3}):
         teng.check_supported(testing.sphere_params(n=5, **over).resolve())
     for case in testing.LINE_CASES:
         teng.check_supported(testing.line_params(case, n=5).resolve())
+    teng.check_supported(testing.sphere_params(
+        n=5, line_id='ly_beta', save_all_photons=True).resolve())
     cfg = testing.sphere_params(n=5, line_id='ly_beta',
-                                save_all_photons=True).resolve()
-    with pytest.raises(NotImplementedError, match='save_all_photons'):
+                                checkpoint_file='ck.h5').resolve()
+    with pytest.raises(NotImplementedError, match='checkpoint_file'):
         teng.check_supported(cfg)
