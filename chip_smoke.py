@@ -11,7 +11,8 @@ volume and table sources, the per-cell temperature with the 3-D
 density cubes (AlII_ex.in, FeII_turb, Prochaska), and exoplanet
 atmospheres lit by the illumination sources (star_planet_a090.in,
 wasp52b_like.in), the TIGRESS shearing box (shear.in) and the CALCJ/
-CALCP/CALCPnew maps, and measures their steady-state rates.
+CALCP/CALCPnew maps, and the run over several ranks (NCCL, gloo), and
+measures their steady-state rates.
 
     python3 chip_smoke.py            # every phase, needs one CUDA device
     python3 chip_smoke.py --phases 0,1,2
@@ -119,7 +120,9 @@ Phases (one line each, or more):
      sphere and jellyfish_pt; the 40-clump sphere of testing.clump_params
      in its dense (K9) and CSR (K10) forms, one population in both runs;
      an interior observer at the centre of a 17^3 shell with
-     save_sightline_tau (the all-sky map's isotropy, the tau maps)
+     save_sightline_tau (the all-sky map's isotropy, the tau maps).  Its
+     own spawned process runs it beside phase 4: its CPU runs take one
+     core, phase 4's launch-bound runs on the card another
   4  the main paths through the CLI (lart_tpu_torch.__main__.main), FITS
      output, launch counts read around each run: examples/slab/t1tau6.in
      (tauhomo 3e3, 5e4 photons, B = 131072); examples/sphere/t4tau7.in cut to the
@@ -173,7 +176,7 @@ Phases (one line each, or more):
      tauhomo 1e4 and t4tau7.in at taumax 1e3 with calcJ, calcP and
      calcPnew (their FITS sections, the slab's Pa closure, each map by
      chi2/dof < 3 beside lart_tpu's CPU runs); save_all_photons
-     (allph_cli): t4tau7.in at taumax 1e5 (1e5 photons) through K5,
+     (allph_cli): t4tau7.in at taumax 1e4 (1e5 photons) through K5,
      DL20e_dust.in at its cut with Stokes, amr_sphere.in, clumps_overlap.in
      and bicone_clump.in (the AllPhotons section read back, the table's
      closures, <nscatt_gas> and the histograms of xfreq1, xfreq2 and rp
@@ -204,6 +207,18 @@ Phases (one line each, or more):
      breakdown of
      each; each kernel's device time against its plain version's at the
      steady-state shapes, beside its bound
+  6  several ranks (phase6): t4tau7.in cut to taumax 1e3 and 2e4 photons
+     with the table and one observer through parallel/launch.run_ranks at
+     one rank over NCCL (launch counts, the all-reduce's among them) and
+     through driver.run in a one-rank NCCL group in this process, each of
+     its chunk all-reduces, drain shrinks and end reduces bit for bit the
+     single-rank path on the same inputs; flagship windows in turns,
+     reduced and plain; the all-reduce's ms on the flagship's buffer
+     against the host and gloo route, beside its bound; two gloo ranks
+     sharing the card on the same config (the drain's 512 rung crossed
+     with both ranks alive, every photon launched, every table id written
+     by one rank, <nscatt_gas>, Jout and the peel flux beside the one-rank
+     run)
 Any failure raises and exits non-zero.  Before the last line it prints one
 JSON object with the kernels of the main paths, and the card's name and
 power limit; the last line is {"ok": true, "device": {...}}.
@@ -214,6 +229,7 @@ import argparse
 import dataclasses
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -1787,6 +1803,16 @@ def h2_run(label, par, dev):
            f'{rg.nscatt_gas:.3f} / {rc.nscatt_gas:.3f}; Jout chi2/dof '
            f'{chi2:.2f} over {nb} bins; launches {counts}')
     return counts
+
+
+def phase3_process(dev):
+    """Phase 3 in a process of its own, spawned, running beside phase 4;
+    it exits non-zero if a check fails."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(1)
+    torch.cuda.set_device(dev)
+    phase3(dev)
 
 
 def phase3(dev):
@@ -4078,16 +4104,18 @@ def branch_shift_share(p, card, label, reps=20):
            f'shift takes {100 * (on - without) / on:.1f}% of K2 [{card}]')
 
 
-def window(p, min_s):
+def window(p, min_s, reduce=True):
     """(gas scatterings, seconds, chunks) of whole chunks of the prepared
     run until at least min_s seconds have passed (host clock between two
-    synchronisations)."""
+    synchronisations); each chunk's tallies all-reduced in a process group
+    unless reduce is False."""
     from lart_tpu_torch import driver
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nsc, n = 0.0, 0
     while True:
-        nsc += driver.chunk_to_host(*p.run_chunk())['nscatt_gas']
+        nsc += driver.chunk_to_host(*p.run_chunk(),
+                                    reduce=reduce)['nscatt_gas']
         n += 1
         if time.perf_counter() - t0 >= min_s:
             break
@@ -5304,8 +5332,8 @@ def allph_check(name, res, out, wall, launches, total, fly):
 
 def allph_cli(tmp, device, total):
     """The all-photons table through the CLI, FITS written and read back
-    (testing.SOURCE_CASES[name + '_allph']; allph_check): t4tau7.in at the
-    Dijkstra case's taumax 1e5 with its 1e5 photons through K5,
+    (testing.SOURCE_CASES[name + '_allph']; allph_check): t4tau7.in at
+    taumax 1e4 with its 1e5 photons through K5,
     clumps_overlap.in (K9) and bicone_clump.in (K10, save_clump_info off)
     as written.  DL20e_dust.in at its cut (Stokes) and amr_sphere.in run
     with the table in dl2008_cli and amr_runs."""
@@ -5528,6 +5556,348 @@ def shear_phase5(dev, res):
     del p
 
 
+# phase 6: several ranks (parallel/).  The config of (a) and (b):
+# t4tau7.in cut to taumax 1e3 and 2e4 photons at B = 4096 a rank, with the
+# table and one observer, so the drain of two ranks crosses the 512 rung
+RANKS_OVER = dict(taumax=1e3, nphotons=20000, batch_size=4096,
+                  save_all_photons=True, **OBSERVER)
+RANKS_SEED = 16
+ALL_REDUCE = ('all_reduce (tally psum)', 'lart_tpu_torch/parallel/reduce.py',
+              'lart_tpu/parallel/mesh.py:69')
+
+
+class CheckedCollectives:
+    """While active, driver.run's collectives (chunk all-reduce, drain
+    shrink, end reduce) also compute the single-rank result on the same
+    inputs and require theirs bit for bit: at one rank the NCCL path is a
+    copy.  Counts what it compared."""
+    names = ('all_reduce_chunk', 'shrink', 'reduce_to_root')
+
+    def __init__(self):
+        self.n = {'chunks': 0, 'shrinks': 0, 'end': 0}
+
+    def all_reduce_chunk(self, flat):
+        from lart_tpu_torch.parallel import reduce as red
+        want = flat.cpu().numpy().copy()
+        got = red.all_reduce_chunk(flat)
+        assert got.tobytes() == want.tobytes(), 'chunk buffer'
+        self.n['chunks'] += 1
+        return got
+
+    def shrink(self, state, B_new):
+        from lart_tpu_torch.parallel import reduce as red
+        from lart_tpu_torch.transport.state import DEAD, LANE_FIELDS
+        order = torch.argsort((state.phase == DEAD).to(torch.int8),
+                              stable=True)
+        want = state.select(order[:B_new])
+        got = red.shrink(state, B_new)
+        for f in LANE_FIELDS:
+            assert torch.equal(getattr(got, f).view(torch.int32),
+                               getattr(want, f).view(torch.int32)), f
+        assert torch.equal(got.n_launched, want.n_launched)
+        self.n['shrinks'] += 1
+        return got
+
+    def reduce_to_root(self, tensors):
+        from lart_tpu_torch.parallel import reduce as red
+        want = [t.cpu().clone() for t in tensors]
+        got = red.reduce_to_root(tensors)
+        for a, b in zip(got, want):
+            assert a.numpy().tobytes() == b.numpy().tobytes(), 'end reduce'
+        self.n['end'] += len(tensors)
+        return got
+
+    def __enter__(self):
+        from lart_tpu_torch import driver
+        self.saved = {k: getattr(driver, k) for k in self.names}
+        for k in self.names:
+            setattr(driver, k, getattr(self, k))
+        return self
+
+    def __exit__(self, *exc):
+        from lart_tpu_torch import driver
+        for k, v in self.saved.items():
+            setattr(driver, k, v)
+
+
+def world1_identity(dev, par, seed=RANKS_SEED):
+    """driver.run of par in this process inside a one-rank NCCL group, its
+    collectives checked bit for bit against the single-rank path on the
+    same inputs (CheckedCollectives); the RunResult and what was
+    compared.  The group is left at the end."""
+    from lart_tpu_torch import driver
+    from lart_tpu_torch.parallel import distributed
+    from lart_tpu_torch.parallel.launch import free_port
+    distributed.initialize(f'127.0.0.1:{free_port()}', 1, 0,
+                           backend='nccl', device=dev)
+    try:
+        assert distributed.backend() == 'nccl'
+        with CheckedCollectives() as chk:
+            res = driver.run(par, device=dev, seed=seed)
+    finally:
+        distributed.shutdown()
+    assert chk.n['chunks'] > 0 and chk.n['end'] > 0, chk.n
+    return res, chk.n
+
+
+def overlapped_window(p, min_s):
+    """window()'s (gas scatterings, seconds, chunks) with each chunk's read
+    taken after the next chunk's launches: the all-reduce, then a copy
+    into pinned memory that does not block the host, then the next
+    chunk's launches, then a wait for the copy alone.  Not the driver's
+    path (its decisions need the chunk's counts before the next chunk):
+    it tells how much of the reduced path's cost is the host's wait at
+    the read."""
+    import torch.distributed as dist
+    from lart_tpu_torch import driver
+    at = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nsc, n, prev = 0.0, 0, None
+    while True:
+        out = p.run_chunk()
+        flat = driver.chunk_flat(*out)
+        dist.all_reduce(flat)
+        host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        if at is None:
+            at = 3 * out[0].Jin.numel() + out[0].Jmu.numel()
+        if prev is not None:
+            prev[0].synchronize()
+            nsc += float(prev[1][at])
+            n += 1
+        prev = (ev, host)
+        if time.perf_counter() - t0 >= min_s:
+            break
+    prev[0].synchronize()
+    nsc += float(prev[1][at])
+    return nsc, time.perf_counter() - t0, n + 1
+
+
+def pinned_read(out):
+    """A chunk's flat buffer all-reduced and read through pinned memory:
+    a copy that does not block the host, then a wait on its event."""
+    import torch.distributed as dist
+    from lart_tpu_torch import driver
+    flat = driver.chunk_flat(*out)
+    dist.all_reduce(flat)
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    ev.synchronize()
+    return host
+
+
+def paired_chunks(p, rounds=200):
+    """Wall ms a chunk of the plain read, the reduced read (driver.
+    chunk_to_host with reduce False and True) and the reduced buffer read
+    through pinned memory (pinned_read), taken in turns chunk by chunk, so
+    that the host's drift between windows falls on all alike; each chunk
+    from its launches to its read, which waits for it."""
+    from lart_tpu_torch import driver
+    reads = {'plain': lambda out: driver.chunk_to_host(*out, reduce=False),
+             'reduced': lambda out: driver.chunk_to_host(*out),
+             'pinned': pinned_read}
+    t = dict.fromkeys(reads, 0.0)
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for mode, read in reads.items():
+            t0 = time.perf_counter()
+            read(p.run_chunk())
+            t[mode] += time.perf_counter() - t0
+    return {m: v / rounds * 1e3 for m, v in t.items()}
+
+
+def all_reduce_times(p, card, reps=200):
+    """The flagship chunk's flat buffer through one
+    torch.distributed.all_reduce as the driver issues it (NCCL): ms of one
+    call between CUDA events with a synchronize after each (the route is
+    itself the one library call: ms and library_ms); through the plain
+    route (the host read and a gloo all-reduce: wall ms a call between
+    synchronizes); the host's cost of one call without a synchronize; the
+    device ms a call back to back (at one rank NCCL's in-place all-reduce
+    puts no work there that the events see); the bound (each byte read
+    and written once at the memory rate).  max_abs_err holds NCCL's
+    result against gloo's: at one rank both are copies, so it checks no
+    sum (phase 6 (b) and tests/test_torch_parallel.py check the sum of
+    two ranks).  Needs a one-rank NCCL group."""
+    import torch.distributed as dist
+    from lart_tpu_torch import driver
+    from lart_tpu_torch.parallel import reduce as red
+    buf = driver.chunk_flat(*p.run_chunk())
+    got = buf.clone()
+    dist.all_reduce(got)
+    gloo = dist.new_group(backend='gloo')
+    host = buf.cpu()
+    dist.all_reduce(host, group=gloo)
+    err = float((got.cpu() - host).abs().max())
+    assert got.cpu().numpy().tobytes() == host.numpy().tobytes(), err
+    for _ in range(10):
+        red.all_reduce_chunk(buf.clone())
+    ms = cuda_time(lambda: dist.all_reduce(buf), reps)
+    b2b = device_ms([lambda: dist.all_reduce(buf) for _ in range(reps)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(buf)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        h = buf.cpu()
+        dist.all_reduce(h, group=gloo)
+    plain = (time.perf_counter() - t0) / reps * 1e3
+    dist.destroy_process_group(gloo)
+    nbytes = 2 * buf.numel() * buf.element_size()
+    b_ms, by = bound(nbytes, 0)
+    log(6, f'all-reduce of the flagship chunk\'s {buf.numel()} f64 '
+           f'({buf.numel() * 8} bytes), NCCL at one rank: {ms:.6f} ms for '
+           f'one call between events with its synchronize; the host '
+           f'{host_us:.3f} us a call without one; back to back {b2b:.6f} ms '
+           f'a call (no device work the events see); the host + gloo '
+           f'{plain:.6f} ms; bound {b_ms:.6f} ms ({by}); max |err| against '
+           f'gloo {err} (one rank: copies, no sum checked) [{card}]')
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=by, library_ms=ms)
+
+
+def phase6(dev, res):
+    """Several ranks: (a) NCCL at one rank.  run_ranks(par, 1) drives the
+    entry point (launch counts read around it); driver.run of the same
+    config inside a one-rank NCCL group, its every chunk all-reduce, drain
+    shrink and end reduce bit for bit the single-rank path on the same
+    inputs; windows of the flagship in turns, reduced and not; the
+    all-reduce's times.  (b) Two gloo ranks sharing the card on the same
+    config: the drain crosses the 512 rung with both ranks alive, every
+    photon launched, every table id written by one rank, <nscatt_gas>
+    within 5% or 3 sigma of (a)'s run and Jout chi2/dof < 3, the peel flux
+    within 3 sigma.  Returns the launches of run_ranks(par, 1)."""
+    from lart_tpu_torch import driver, testing
+    from lart_tpu_torch.kernels import build as kb
+    from lart_tpu_torch.parallel import distributed
+    from lart_tpu_torch.parallel.launch import free_port, run_ranks
+    t_phase = time.time()
+    par = example_params('sphere/t4tau7.in', **RANKS_OVER)
+    n = par.nphotons
+    kb.reset_launch_counts()
+    t0 = time.time()
+    r1 = run_ranks(par, 1, 'cuda', seed=RANKS_SEED)
+    t1 = time.time() - t0
+    launches = dict(kb.LAUNCHES)
+    need = ('refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+            'all_reduce')
+    assert all(launches[k] > 0 for k in need), launches
+    assert r1.nprocs == 1
+    card = smi()
+    log(6, f'(a) run_ranks(t4tau7 at taumax 1e3, {n} photons, table, one '
+           f'observer; 1 rank, NCCL) {t1:.1f} s: <nscatt_gas> '
+           f'{r1.nscatt_gas:.4f}; launches '
+           f'{ {k: v for k, v in launches.items() if v} } [{card}]')
+    t0 = time.time()
+    r0, compared = world1_identity(dev, par)
+    log(6, f'(a) driver.run of the same config in a one-rank NCCL group '
+           f'{time.time() - t0:.1f} s: every collective bit for bit the '
+           f'single-rank path on the same inputs ({compared}); <nscatt_gas> '
+           f'{r0.nscatt_gas:.4f} [{card}]')
+    assert compared['shrinks'] > 0, compared
+    # the flagship in short windows taken in turns, two rounds (the host's
+    # speed drifts by tens of percent between windows): outside any group
+    # ('alone', before the group is made and after it is left), and in a
+    # one-rank NCCL group without the all-reduce ('plain'), through the
+    # driver's reduced read ('reduced') and with each read after the next
+    # chunk's launches ('overlapped'); the wall us a cycle and this
+    # thread's CPU us a chunk, by their medians
+    flag = testing.slab_params(tau0=1e6, nz=201, nphotons=10 ** 9,
+                               batch=B_MAIN, chunk_cycles=32, refill_every=4,
+                               scatter_rounds=4, save_Jmu=False)
+    p = driver.prepare(flag, seed=12345, device=dev)
+    for _ in range(3):
+        driver.chunk_to_host(*p.run_chunk())
+    modes = ('plain', 'reduced', 'overlapped')
+    wall = {m: [] for m in ('alone',) + modes}
+    cpu = {m: [] for m in wall}
+
+    def timed(mode, min_s=WINDOW_S / 2):
+        c0 = time.thread_time()
+        if mode == 'overlapped':
+            nsc, dt, nch = overlapped_window(p, min_s)
+        else:
+            nsc, dt, nch = window(p, min_s, reduce=mode == 'reduced')
+        cpu[mode].append((time.thread_time() - c0) / nch * 1e6)
+        wall[mode].append(dt / nch / flag.chunk_cycles * 1e6)
+        log(6, f'flagship window, {mode}: {nsc:.6e} gas scatterings in '
+               f'{dt:.6f} s over {nch} chunks = {nsc / dt:.6e} /s, '
+               f'{wall[mode][-1]:.3f} us a cycle, this thread\'s CPU '
+               f'{cpu[mode][-1]:.3f} us a chunk [{card}]')
+    timed('alone')
+    distributed.initialize(f'127.0.0.1:{free_port()}', 1, 0,
+                           backend='nccl', device=dev)
+    try:
+        # the collective's first calls, untimed
+        window(p, 0.0)
+        overlapped_window(p, 0.0)
+        for r in range(2):
+            for mode in (modes if r % 2 == 0 else modes[::-1]):
+                timed(mode)
+        ms = paired_chunks(p)
+        log(6, 'flagship, chunks in turns chunk by chunk: ' + '; '.join(
+            f'{m} {v:.6f} ms a chunk (rate {ms["plain"] / v:.4f} x plain)'
+            for m, v in ms.items()) + f' [{card}]')
+        res[ALL_REDUCE[0]] = all_reduce_times(p, card)
+    finally:
+        distributed.shutdown()
+    timed('alone')
+    del p
+    med = {m: (float(np.median(wall[m])), float(np.median(cpu[m])))
+           for m in wall}
+    log(6, 'flagship, medians of the windows in turns: ' + '; '.join(
+        f'{m} {w:.3f} us a cycle (rate {med["plain"][0] / w:.4f} x plain), '
+        f'CPU {c:.3f} us a chunk' for m, (w, c) in med.items())
+        + f' [{card}]')
+    # (b) two gloo ranks on the one card
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = Path(tmp) / 'metrics.jsonl'
+        par2 = example_params('sphere/t4tau7.in', metrics_file=str(metrics),
+                              **RANKS_OVER)
+        t0 = time.time()
+        r2 = run_ranks(par2, 2, 'cuda', seed=RANKS_SEED, shared=True)
+        t2 = time.time() - t0
+        rows = [json.loads(s) for s in metrics.read_text().splitlines()]
+    assert r2.nprocs == 2
+    rung = [r for r in rows[1:] if r['batch'] == 1024]
+    assert rung and rung[0]['alive'] >= 2, rows[-5:]
+    closures = testing.rank_table_closures(r2, rows[-1]['launched'])
+    assert all(v <= lim for v, lim in closures.values()), closures
+    sig = np.hypot(r2.allph['nscatt_gas'].std(),
+                   r0.allph['nscatt_gas'].std()) / np.sqrt(n)
+    for r in (r1, r2):
+        d = abs(r.nscatt_gas - r0.nscatt_gas)
+        assert d < 0.05 * r0.nscatt_gas or d < 3.0 * sig, (
+            r.nscatt_gas, r0.nscatt_gas, sig)
+    chi2, bins = testing.spectra_chi2(r2.Jout, r0.Jout, n * r2.W_escape,
+                                      n * r0.W_escape)
+    assert chi2 < 3.0, (chi2, bins)
+    for r in (r0, r1, r2):
+        assert abs(r.W_escape + r.W_oor - 1.0) < 1e-3, r.W_escape
+    log(6, f'(b) two gloo ranks on one card {t2:.1f} s, {len(rows)} chunks: '
+           f'the 512 rung at chunk {rung[0]["chunk"]} with {rung[0]["alive"]} '
+           f'alive; launched {rows[-1]["launched"]} of {n}; closures '
+           f'{ {k: v for k, (v, _) in closures.items()} }; <nscatt_gas> '
+           f'{r2.nscatt_gas:.4f} against {r0.nscatt_gas:.4f} (3 sigma '
+           f'{3 * sig:.4f}), Jout chi2/dof {chi2:.2f} over {bins} bins '
+           f'[{card}]')
+    tol = 3.0 * np.sqrt(2.0 * testing.PEEL_V_PHOTON / n)
+    f2, f0 = testing.peel_closure(r2)[0], testing.peel_closure(r0)[0]
+    assert abs(f2 - f0) <= tol, (f2, f0, tol)
+    log(6, f'(b) 4 pi d^2 peel flux / W_esc: two ranks {f2:.4f}, one '
+           f'{f0:.4f} (|d| <= {tol:.4f}) [{card}]')
+    log(6, f'phase 6 {time.time() - t_phase:.1f} s')
+    return launches
+
+
 KERNELS = {
     'refill_point': ('lart_tpu_torch/csrc/refill.cu',
                      'lart_tpu/transport/engine.py:2557'),
@@ -5716,7 +6086,7 @@ ALLPH_INLINES = ('allph_impact, allph_birth and allph_death (lart_tpu_torch/'
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument('--phases', default='0,1,2,3,4,5')
+    ap.add_argument('--phases', default='0,1,2,3,4,5,6')
     phases = {int(v) for v in ap.parse_args(argv).phases.split(',')}
     if not torch.cuda.is_available():
         print('chip_smoke: torch.cuda.is_available() is False', file=sys.stderr)
@@ -5731,14 +6101,31 @@ def main(argv=None):
         phase1()
     res = phase2(dev) if 2 in phases else {}
     log('-', f'phases 0-2 {time.time() - t_start:.1f} s')
+    p3 = None
     if 3 in phases:
-        phase3(dev)
-        log('-', f'phases 0-3 {time.time() - t_start:.1f} s')
-    launches = phase4() if 4 in phases else {}
+        p3 = multiprocessing.get_context('spawn').Process(
+            target=phase3_process, args=(dev,))
+        p3.start()
+    try:
+        launches = phase4() if 4 in phases else {}
+        log('-', f'phase 4 (phase 3 beside it) ends at '
+                 f'{time.time() - t_start:.1f} s')
+    except BaseException:
+        if p3 is not None:
+            p3.terminate()
+            p3.join()
+        raise
+    if p3 is not None:
+        p3.join()
+        if p3.exitcode != 0:
+            raise RuntimeError(f'phase 3 failed (exit code {p3.exitcode})')
     log('-', f'phases 0-4 {time.time() - t_start:.1f} s')
     if 5 in phases:
         phase5(dev, res)
-    if phases >= {2, 4, 5}:
+    if 6 in phases:
+        launches['ranks'] = phase6(dev, res)
+        log('-', f'phases 0-6 {time.time() - t_start:.1f} s')
+    if phases >= {2, 4, 5, 6}:
         line = {'kernels': [dict(
             name=k, route='cuda', source=src, replaces=rep,
             launches=launches[k], max_abs_err=res[k]['max_abs_err'],
@@ -5914,6 +6301,17 @@ def main(argv=None):
             bound_by=res[k + ALLPH]['bound_by'], library_ms=None,
             inlines=ALLPH_INLINES)
             for k, (src, rep, path) in ALLPH_KERNELS.items()]
+        # row 20: the per-chunk all-reduce (NCCL, the flagship's buffer;
+        # the launches of run_ranks at one rank in phase 6)
+        name, src, rep = ALL_REDUCE
+        line['kernels'].append(dict(
+            name=name, route='cuda', source=src, replaces=rep,
+            launches=launches['ranks']['all_reduce'], path='ranks',
+            **res[name], via='torch.distributed.all_reduce over NCCL',
+            note='one rank: ms is one call with its synchronize; '
+                 'max_abs_err compares two copies and checks no sum (the '
+                 'sum of two ranks: phase 6 (b), '
+                 'tests/test_torch_parallel.py)'))
         print(json.dumps(line))
     assert not any(m.split('.')[0] in ('jax', 'jaxlib') for m in sys.modules)
     log('-', f'wall {time.time() - t_start:.1f} s')

@@ -1,17 +1,51 @@
 """CLI: python -m lart_tpu_torch input.in [output] [--device cuda|cpu]
 
 Same usage as python -m lart_tpu; the device is CUDA unless --device cpu
-is given, and a CUDA request without a GPU raises.
+is given, and a CUDA request without a GPU raises.  par%n_devices > 1 runs
+that many ranks, one process each (parallel/launch.run_ranks: cuda:r for
+rank r over NCCL, or gloo ranks on the CPU with --device cpu); 0 runs one
+rank a visible card when there are several, else the single-rank path.
+With LART_COORDINATOR, LART_NUM_PROCS and LART_PROC_ID set, this process
+is one rank of a run started one command a rank (parallel/distributed.py),
+on card LART_PROC_ID mod the visible cards.  Rank 0 alone writes the
+output.
 """
 
 import argparse
+import os
 import sys
-import time
+
+import torch
 
 from . import driver
 from .config import Params
 from .io.iofile import default_extension
 from .io.writer import write_output
+from .parallel import distributed
+from .parallel.launch import run_ranks
+from .utils.device import resolve_device
+
+
+def _run(par, device: str):
+    """The run's RunResult on rank 0, None on the other ranks."""
+    progress = driver.PrintProgress(10.0)
+    if any(k in os.environ for k in ('LART_COORDINATOR', 'LART_NUM_PROCS',
+                                     'LART_PROC_ID')):
+        dev = resolve_device(device)
+        if dev.type == 'cuda':
+            dev = torch.device('cuda', int(os.environ.get('LART_PROC_ID', 0))
+                               % torch.cuda.device_count())
+        distributed.initialize(device=dev)
+        try:
+            return driver.run(par, device=dev, progress=progress)
+        finally:
+            distributed.shutdown()
+    n = par.n_devices
+    if n == 0 and device == 'cuda' and torch.cuda.device_count() > 1:
+        n = torch.cuda.device_count()
+    if n > 1:
+        return run_ranks(par, n, device, progress=progress)
+    return driver.run(par, device=device, progress=progress)
 
 
 def main(argv=None) -> int:
@@ -32,16 +66,9 @@ def main(argv=None) -> int:
                 base = base[:-len(ext)]
         par.out_file = base + default_extension(par.file_format)
 
-    t_last = [time.time()]
-
-    def progress(launched, nphotons, alive):
-        now = time.time()
-        if now - t_last[0] > 10.0:
-            print(f"{launched:.5e} photons launched, {alive} lanes alive",
-                  flush=True)
-            t_last[0] = now
-
-    res = driver.run(par, device=args.device, progress=progress)
+    res = _run(par, args.device)
+    if res is None:
+        return 0
     print(f"Average Number of scattering : {res.nscatt_tot:.4e}")
     print(f"Total Execution Time : {res.exetime_s/60.0:.3f} mins")
     fn = write_output(par.out_file, res)

@@ -271,7 +271,7 @@ class Params:
     checkpoint_every: int = 0       # chunks between checkpoints (0 = off)
     resume_checkpoint: bool = False  # load checkpoint_file before running
     metrics_file: str = ''          # JSONL per-chunk step metrics; '' off
-    profile_dir: str = ''           # jax.profiler trace dir; '' disables
+    profile_dir: str = ''           # profiler trace dir; '' disables
     profile_chunks: int = 3         # chunks to trace when profiling
 
     # --- observers (arrays handled in instruments/observer.py)

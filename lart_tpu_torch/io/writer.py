@@ -214,7 +214,7 @@ def _write_basic(filename: str, res: RunResult) -> str:
             g.create_dataset('Jabs2', data=np.asarray(res.Jabs2, bp))
         _put_attrs(g, {
             'ExeTime': res.exetime_s / 60.0,
-            'Nprocs': 1,
+            'Nprocs': res.nprocs,
             'recoil': par.recoil,
             'coreskip': par.core_skip,
             'xyz_sym': par.xyz_symmetry,

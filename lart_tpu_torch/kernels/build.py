@@ -18,7 +18,10 @@ Every C entry point returns cudaGetLastError() after its launch; `check`
 raises if it is not 0.  LAUNCHES counts the launches of each kernel in this
 process: a wrapper adds one where it launches its kernel, and nowhere else
 (K7 in mode PEEL_STELLAR under 'peel_stellar', its other modes under
-'peel').
+'peel'), and 'all_reduce' the per-chunk tally all-reduces across ranks
+(parallel/reduce.py, NCCL or gloo).  A run of several ranks counts in each
+rank's process; parallel/launch.py adds the ranks' counts into the
+caller's.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ LAUNCHES = {'voigt_h': 0, 'refill_point': 0, 'refill_radial': 0,
             'fly_uniform_slab': 0,
             'fly_cartesian': 0, 'fly_uniform_sphere': 0, 'scatter_lya': 0,
             'peel': 0, 'peel_stellar': 0, 'fly_amr': 0, 'fly_clump_dense': 0,
-            'fly_clump_csr': 0, 'sightline': 0}
+            'fly_clump_csr': 0, 'sightline': 0, 'all_reduce': 0}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _LANES = ctypes.POINTER(ctypes.c_void_p)    # the lane-field pointer table

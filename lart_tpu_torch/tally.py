@@ -82,6 +82,7 @@ class RunResult:
     r_JPa: Optional[np.ndarray] = None
     # save_all_photons: {column: (nphotons,) f64} (transport/allph.py FIELDS)
     allph: Optional[dict] = None
+    nprocs: int = 1              # the ranks of the run (the file's Nprocs)
 
     @property
     def line(self):

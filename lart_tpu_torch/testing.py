@@ -19,7 +19,7 @@ import torch
 
 from .config import Params
 from .transport.state import (AT_SCATTER, DEAD, FFS, FLYING, INT_FIELDS,
-                              LANE_FIELDS, BatchState)
+                              LANE_FIELDS, BatchState, init_state)
 
 
 def slab_params(tau0: float = 100.0, nz: int = 101, nphotons: int = 10_000,
@@ -769,10 +769,11 @@ SOURCE_CASES = {
     # at uniform T, stellar illumination, a Voigt spectrum, as written
     'wasp52b': ('atmosphere/wasp52b_like.in', {}),
     # save_all_photons (chip_smoke.py phase 4, tools/allph_cpu_runs.py):
-    # t4tau7 at the Dijkstra case's taumax 1e5 (129^3, core-skip) with its
-    # 1e5 photons as written, through K5 (the table takes it off K6): a
-    # drain tail, so the photons cost little beside the tau
-    't4tau7_allph': ('sphere/t4tau7.in', {'taumax': 1e5,
+    # t4tau7 at taumax 1e4 (1e5 before: 82 s of the card's run; 129^3,
+    # core-skip) with its 1e5 photons as written, through K5 (the table
+    # takes it off K6): a drain tail, so the photons cost little beside
+    # the tau
+    't4tau7_allph': ('sphere/t4tau7.in', {'taumax': 1e4,
                                           'save_all_photons': True}),
     # DL20e_dust at phase 4's cut of the DL2008 shell (5000 photons, N_HI
     # 1e18 with DGR 100: the dust's tau as written), Stokes: the I, Q, U, V
@@ -1269,3 +1270,46 @@ def allph_closures(res, summary: dict) -> dict:
         w = (res.W_escape + (res.W_absorb or 0.0) + res.W_oor) * n
         out['I_excess'] = ((summary['sum_I'] - w) / n, 1e-6)
     return out
+
+
+def shrink_rank(n_lanes: int, alive_share: float, B_new: int, seed: int,
+                device) -> dict:
+    """One rank of a process group on synthetic lanes, through the drain's
+    shrink across ranks (parallel/reduce.shrink): rank r's n_lanes lanes
+    carry the photon ids r * n_lanes + i (and x = id), a seeded share of
+    them alive.  Returns the rank's lanes before and after as numpy
+    {'alive', 'pid', 'x'}, and its n_launched after."""
+    from .parallel.distributed import process_index
+    from .parallel.reduce import shrink
+    rank = process_index()
+    g = torch.Generator().manual_seed(seed + rank)
+    alive = torch.rand(n_lanes, generator=g) < alive_share
+    st = init_state(n_lanes, device)
+    st.phase.copy_(torch.where(alive, FLYING, DEAD))
+    st.pid.copy_(torch.arange(n_lanes, dtype=torch.int32) + rank * n_lanes)
+    st.x.copy_(st.pid.float())
+    st.n_launched.fill_(n_lanes + rank)
+    new = shrink(st, B_new)
+
+    def lanes(s):
+        return {'alive': (s.phase != DEAD).cpu().numpy(),
+                'pid': s.pid.cpu().numpy(), 'x': s.x.cpu().numpy()}
+    return {'before': lanes(st), 'after': lanes(new),
+            'n_launched': int(new.n_launched[0])}
+
+
+def rank_table_closures(res, launched: int) -> dict:
+    """The closures of a run of several ranks with save_all_photons (its
+    RunResult and its launched photons, summed over the ranks), as {name:
+    (value, limit)}: every photon of the budget launched; no row without
+    its birth (xfreq1) or its death (xfreq2); the table's nscatt_gas sums
+    to the run's events to 1e-5.  With n launches over n ids every id
+    then has one birth row, and with n deaths one death row: no two
+    ranks wrote one id."""
+    a, n = res.allph, res.nphotons
+    events = res.nscatt_events * n
+    return {'launched': (abs(launched - n), 0),
+            'unborn': (int((a['xfreq1'] == 0.0).sum()), 0),
+            'undead': (int((a['xfreq2'] == 0.0).sum()), 0),
+            'nsg_closure': (abs(float(a['nscatt_gas'].sum()) - events)
+                            / max(events, 1.0), 1e-5)}

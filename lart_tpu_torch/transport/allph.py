@@ -14,8 +14,9 @@ loop from the final state.
 Unlike lart_tpu, which hands every chunk a fresh nphotons-long table and
 adds the tables on the host in f64 (each id is written once, so the sum is
 the value written), the port keeps one f32 table on the device for the
-whole run: zeroed once, written in place by plain stores, and copied to the
-host once at the end (`to_host`).
+whole run, its columns the rows of one tensor (`table`): zeroed once,
+written in place by plain stores, and copied to the host once at the end
+(in a run of several ranks summed onto rank 0 first, parallel/reduce.py).
 
 The impact parameter is the distance of the ray from the origin, after the
 ray is advanced to the rmax sphere where it starts outside it
@@ -57,6 +58,9 @@ class AllPhotons:
     U: Optional[torch.Tensor] = None
     V: Optional[torch.Tensor] = None
     rmax: float = 0.0        # > 0: rays are advanced to the rmax sphere
+    # the (columns, nphotons) tensor whose rows the columns are
+    table: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                      repr=False)
 
     @property
     def n(self) -> int:
@@ -76,7 +80,7 @@ class AllPhotons:
     def to_host(self) -> dict:
         """{column: (n,) f64 numpy} in one device-to-host copy, as
         lart_tpu's driver accumulates them (driver.py:306-313)."""
-        flat = torch.stack(self.tensors()).cpu().numpy().astype(np.float64)
+        flat = self.table.cpu().numpy().astype(np.float64)
         return dict(zip(self.fields, flat))
 
     @functools.cached_property
@@ -98,7 +102,8 @@ def zero_allph(nphotons: int, stokes: bool, rmax: float,
     cols = FIELDS + (STOKES if stokes else ())
     data = torch.zeros((len(cols), nphotons), dtype=torch.float32,
                        device=device)
-    return AllPhotons(**dict(zip(cols, data.unbind(0))), rmax=float(rmax))
+    return AllPhotons(**dict(zip(cols, data.unbind(0))), rmax=float(rmax),
+                      table=data)
 
 
 def impact_parameter(rmax: float, x, y, z, kx, ky, kz):

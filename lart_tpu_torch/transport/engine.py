@@ -118,7 +118,6 @@ def check_supported(cfg, meta=None) -> None:
                                                   or par.calcPnew)),
         ('checkpoint_file/resume_checkpoint',
          bool(par.checkpoint_file.strip()) or par.resume_checkpoint),
-        ('n_devices > 1', par.n_devices > 1),
         ('out_merge', par.out_merge),
         ('save_input_grid', par.save_input_grid),
         # lart_tpu's AMR sightline has no interior branch: its rays would
@@ -126,8 +125,6 @@ def check_supported(cfg, meta=None) -> None:
         ('save_sightline_tau with an interior observer (nside > 0) on an '
          'AMR grid', par.save_sightline_tau and par.save_peeloff
          and par.nside > 0 and amr),
-        ('metrics_file', bool(par.metrics_file.strip())),
-        ('profile_dir', bool(par.profile_dir.strip())),
         (f'source_geometry {sg!r}', sg not in SOURCES),
         (f'spectral_type {st!r}', st not in SPECTRA),
         # lart_tpu would read the cube as a column of leaves or clumps

@@ -670,16 +670,13 @@ def test_check_supported_accepts_the_atmosphere_examples():
     # all but amr_ramses/ramses_snap10.in, whose snapshot is not in the
     # repository (the shearing box of tigress_shear/shear.in is ported)
     assert (accepted, len(paths)) == (111, 112)
-    # the shearing box, the maps and the all-photons table are ported,
-    # several devices not
+    # the shearing box, the maps, the all-photons table and several
+    # devices are ported
     for over in (dict(xy_periodic=True, Omega=1.0), dict(calcJ=True),
-                 dict(calcP=True), dict(save_all_photons=True)):
+                 dict(calcP=True), dict(save_all_photons=True),
+                 dict(n_devices=2)):
         teng.check_supported(testing.plane_atmosphere_params(**over)
                              .resolve())
-    for over, words in ((dict(n_devices=2), 'n_devices'),):
-        par = testing.plane_atmosphere_params(**over)
-        with pytest.raises(NotImplementedError, match=words):
-            teng.check_supported(par.resolve())
     with pytest.raises(ValueError, match='atmosphere'):
         testing.plane_atmosphere_params(line_id='ly_beta').resolve()
 

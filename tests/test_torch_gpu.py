@@ -611,3 +611,25 @@ def test_driver_runs_the_allph_table(cuda):
     for k, (v, lim) in testing.allph_closures(res, summ).items():
         assert v <= lim, (k, v, lim)
     assert 0.5 < summ['N'] < 4.0
+
+
+def test_nccl_at_one_rank_is_the_single_rank_path(cuda):
+    """driver.run inside a one-rank NCCL group: every chunk's all-reduce,
+    the drain's shrink (B 1024 -> 512) and the end reduce of the peel cube
+    and the table bit for bit the single-rank path on the same inputs
+    (chip_smoke.world1_identity); run_ranks at one rank launches the
+    kernels and the all-reduce, and agrees with it."""
+    import chip_smoke
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.kernels import build as kb
+    from lart_tpu_torch.parallel.launch import run_ranks
+    par = testing.sphere_params(tau0=100.0, n=17, nphotons=5000, batch=1024,
+                                save_all_photons=True, **chip_smoke.OBSERVER)
+    res, compared = chip_smoke.world1_identity(cuda, par, seed=3)
+    assert compared['shrinks'] > 0 and compared['end'] == 3, compared
+    kb.reset_launch_counts()
+    r1 = run_ranks(par, 1, 'cuda', seed=3)
+    assert all(kb.LAUNCHES[k] > 0 for k in (
+        'refill_point', 'fly_cartesian', 'scatter_lya', 'peel',
+        'all_reduce')), kb.LAUNCHES
+    assert r1.nprocs == 1 and abs(r1.nscatt_gas / res.nscatt_gas - 1) < 0.05

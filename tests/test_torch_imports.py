@@ -5,7 +5,8 @@ copy of build_clumps, builds a Cartesian grid from FITS temperature
 and density cubes with astropy unimportable too (io/reader.py reads them
 through the port's minifits), and builds star_planet_a090.in's
 atmosphere at 9^3 and refills it (the line-profile file, the stellar
-illumination and its peel)."""
+illumination and its peel), and finds the ranks' modules (parallel/)
+with their budgets and seeds."""
 
 import os
 import subprocess
@@ -67,6 +68,12 @@ s = init_state(256, 'cpu')
 t = ch.zero_tallies('cpu')
 refill(s, t, ch.refill_params, 1, 0, 256)
 assert float(t.flux_factor) > 0.0 and t.Jabs2 is not None
+# the ranks' modules (parallel/): budgets, seeds and the deal
+for n in ('mesh', 'distributed', 'reduce', 'launch'):
+    assert 'lart_tpu_torch.parallel.' + n in names, n
+from lart_tpu_torch.parallel import mesh
+assert list(mesh.shard_budget(5, 2)) == [3, 2]
+assert len(set(mesh.rank_seeds(1, 4))) == 4
 print(len(names))
 """
 

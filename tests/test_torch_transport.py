@@ -420,7 +420,7 @@ OUT_OF_SLICE = {
 
 
 # the features that were out of the slice and are ported now: accepted
-PORTED = {'shearing box', 'save_all_photons'}
+PORTED = {'shearing box', 'save_all_photons', 'n_devices > 1'}
 
 
 @pytest.mark.parametrize('feature', sorted(OUT_OF_SLICE))
