@@ -4835,6 +4835,9 @@ def atmosphere_phase5(dev, res):
 SHEAR_IN = 'tigress_shear/shear.in'
 JPA_ON = dict(calcJ=True, calcP=True, calcPnew=True)
 SHEAR_K, DEPOSITS, PA = ' (shear)', ' (J1, Pnew)', ' (Pa)'
+# K4's Jabs on a hot dusty state (jabs_hot): phase 2's error alone, since
+# the dusty instances' times and launches are K4's own entry's
+JABS = ' (Jabs)'
 MAP_REL = 1e-5           # a kernel's map against its plain version's, of
 #                          the largest bin: atomics add in another order
 SHEAR_CPU = ROOT / 'tools' / 'shear_cpu_runs.json'
@@ -4860,9 +4863,12 @@ def maps_agree(tk, tp, fields):
 def jpa_grids(dev):
     """The three binning geometries at the card's size, one at a time:
     t1tau6.in as written (1 x 1 x 129, the z cell), t4tau7.in as written
-    (129^3, radial), a 65^3 uniform box without rmax (the flat cell), each
-    with the three maps, and t4tau7.in with calcP alone (K6 and K4's
-    sphere fast path): (label, meta, chunk, r_max)."""
+    (129^3, radial), a 65^3 uniform box without rmax (the flat cell, whose
+    274625 bins exceed the block copies' BLOCK_COPY_BYTES: the warp level
+    alone), each with the three maps, t4tau7.in with calcP alone (K6 and
+    K4's sphere fast path), and testing.jpa_params' 1 x 1 x 33 slab with
+    80 frequency bins, whose J1 fits a block copy: (label, meta, chunk,
+    r_max)."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.grid.cartesian import build_cartesian
     from lart_tpu_torch.transport.engine import make_chunk
@@ -4874,10 +4880,120 @@ def jpa_grids(dev):
             ('a 65^3 box', testing.jpa_params(
                 'box', tau0=1e3, batch=B_MAIN, nx=65, ny=65, nz=65), None),
             ('t4tau7 with calcP alone', example_params(
-                'sphere/t4tau7.in', batch_size=B_MAIN, calcP=True), 1.0)):
+                'sphere/t4tau7.in', batch_size=B_MAIN, calcP=True), 1.0),
+            ('a 1x1x33 slab, 80 frequency bins', testing.jpa_params(
+                'slab', tau0=1e4, batch=B_MAIN), None)):
         cfg = par.resolve()
         meta, grid = build_cartesian(cfg, device=dev)
         yield label, meta, make_chunk(cfg, meta, grid), r_max
+
+
+def deposit_paths(ch, dev):
+    """The path each map's deposits take in a launch of the chunk's K5 and
+    K4 (the wrappers' block plans, transport/jpa.py block_plan): {map:
+    'block copy of n bins' or 'warp level'}."""
+    from lart_tpu_torch.transport import fly_cartesian as tfc
+    from lart_tpu_torch.transport import scatter
+    tl = ch.zero_tallies(dev)
+    plan = []
+    if isinstance(ch.flight, tfc.CartesianFlight) and ch.flight.jpa:
+        plan += zip(('Pnew', 'J1'), tfc.deposit_plan(ch.flight, tl))
+    if ch.scatter_params.jpa is not None:
+        plan.append(('Pa', scatter.deposit_plan(ch.scatter_params, tl)))
+    return {k: f'block copy of {n} bins' if n else 'warp level'
+            for k, n in plan if getattr(tl, k) is not None}
+
+
+def hot_bins(label, meta, ch, r_max, dev, res, seed):
+    """The hot-bin cases of one grid of jpa_grids: every lane in the
+    centre cell (a centred point source's: the slab's z cell, the sphere's
+    central radial bin) through K5's J1 and Pnew deposits and K4's Pa, and
+    with J1 on every lane also in one frequency bin through K5; lanes at 0
+    differing and each map within MAP_REL of its largest bin, with the
+    path each map took (deposit_paths)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport.fly_cartesian import CartesianFlight
+    paths = deposit_paths(ch, dev)
+    k5 = isinstance(ch.flight, CartesianFlight) and ch.flight.jpa
+    xc = meta.xfreq_min + (meta.nxfreq // 2 + 0.5) * meta.dxfreq
+    cases = [('every lane in the centre cell', None)]
+    if k5 and ch.jpa[0]:
+        cases.append(('every lane in the centre cell and one frequency bin',
+                      xc))
+    for what, xf in cases:
+        seed += 10
+        s0 = testing.hot_state(meta, B_MAIN, seed, dev, xfreq=xf)
+        d = {}
+        if k5:
+            out = {}
+            _, _, frac, err, _ = both(meta, seed, fly_step(ch),
+                                      ('Jout', 'Jmu', 'W_oor'), dev,
+                                      r_max=r_max, state=s0,
+                                      tallies=ch.zero_tallies, out=out)
+            assert frac == 0.0, frac
+            d.update(maps_agree(out[True], out[False], [
+                f for f in ('J1', 'Pnew') if getattr(out[False], f)
+                is not None]))
+            _max_err(res, 'fly_cartesian' + DEPOSITS, err)
+        if xf is None:
+            out = {}
+            _, _, frac, err, _ = both(meta, seed, scatter_step(ch),
+                                      ('nscatt_gas', 'nscatt_events'), dev,
+                                      r_max=r_max, state=s0,
+                                      tallies=ch.zero_tallies, out=out)
+            assert frac == 0.0, frac
+            d.update(maps_agree(out[True], out[False], ('Pa',)))
+            _max_err(res, 'scatter_lya' + PA, err)
+        log(2, f'hot bins, {label}, {what}: paths {paths}; lanes differing '
+               f'0; maps max |d| over their largest bin '
+               f'{ {k: float(f"{v:.3e}") for k, v in d.items()} }')
+    return seed
+
+
+def jabs_hot(dev, res, seed):
+    """K4's Jabs deposit on DL20e_dust.in as written (the 201^3 shell,
+    outflow 200 km/s, Mueller dust) with calcP, whose kMaps instance adds
+    Pa through the aggregated path and Jabs by one f32 atomic an
+    absorption: every lane in the shell's densest dust cell at x = 20,
+    where ~1 event in 10 is dust (tau_HI(20) ~ 4 beside the dust's ~0.5)
+    and the absorptions' lab frequencies x + u.k fall on a few dozen bins;
+    lanes at 0 differing, Jabs and Pa within MAP_REL of their largest bin,
+    with Pa's path; the lanes' error under the key of its own 'scatter_lya
+    (Jabs)'."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.transport.engine import make_chunk
+    t0 = time.time()
+    cfg = example_params(DL20E_DUST, batch_size=B_MAIN, calcP=True).resolve()
+    meta, grid = build_cartesian(cfg, device=dev)
+    ch = make_chunk(cfg, meta, grid)
+    cell = np.unravel_index(int(torch.argmax(grid.rhokapD.reshape(-1))),
+                            (meta.nx, meta.ny, meta.nz))
+    s0 = testing.hot_state(meta, B_MAIN, seed, dev, cell=cell, xfreq=20.0)
+    out = {}
+    _, _, frac, err, _ = both(meta, seed, scatter_step(ch),
+                              ('nscatt_gas', 'nscatt_events', 'nscatt_dust'),
+                              dev, state=s0, tallies=ch.zero_tallies, out=out)
+    assert frac == 0.0, frac
+    d = maps_agree(out[True], out[False], ('Jabs', 'Pa'))
+    _max_err(res, 'scatter_lya' + JABS, err)
+    log(2, f'hot bins, K4 scatter_lya\'s Jabs on DL20e_dust as written, '
+           f'every lane in cell {tuple(int(c) for c in cell)} at x = 20: '
+           f'paths '
+           f'{deposit_paths(ch, dev)}; {int((out[False].Jabs != 0).sum())} '
+           f'bins absorbed into, lanes differing 0, max abs err {err:.3e}, '
+           f'max |d| over the largest bin: Jabs {d["Jabs"]:.3e}, Pa '
+           f'{d["Pa"]:.3e} ({time.time() - t0:.1f} s)')
+
+
+def phase2_hot_bins(dev, res):
+    """The hot-bin cases alone (hot_bins on each grid of jpa_grids, then
+    jabs_hot), as phase2_shear runs them."""
+    seed = 1700
+    for label, meta, ch, r_max in jpa_grids(dev):
+        seed = hot_bins(label, meta, ch, r_max, dev, res, seed)
+        del ch
+    jabs_hot(dev, res, seed + 10)
 
 
 def phase2_shear(dev, res):
@@ -4887,9 +5003,11 @@ def phase2_shear(dev, res):
     shear-frame velocity each) and K2's unsheared births there; K5's J1
     and Pnew deposits and K4's Pa deposit in the three geometries
     (jpa_grids), lanes at 0 differing and the maps within MAP_REL of their
-    largest bin; and one 32-cycle chunk against its cycles one at a time
-    with the atomics' f64 maps (tests/test_torch_precision.py's sphere at
-    B = B_MAIN): the states bitwise equal, the worst bin printed."""
+    largest bin, then the grid's hot-bin cases (hot_bins) and K4's Jabs
+    on DL20e_dust (jabs_hot); and one 32-cycle chunk against its cycles
+    one at a time with the atomics' f64 maps (tests/test_torch_precision.py's
+    sphere at B = B_MAIN): the states bitwise equal, the worst bin
+    printed."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.config import Params
     from lart_tpu_torch.grid.cartesian import build_cartesian
@@ -4964,7 +5082,9 @@ def phase2_shear(dev, res):
                f'{" (rk_const " + str(ch.scatter_params.rk_const) + ")" if ch.scatter_params.rk_const > 0 else ""}: '
                f'lanes differing {frac:.2e}, max abs err {err:.3e}; Pa max '
                f'|d| over its largest bin {d["Pa"]:.3e}')
+        seed = hot_bins(label, meta, ch, r_max, dev, res, seed)
         del ch
+    jabs_hot(dev, res, seed + 10)
 
     # the f64 maps of one chunk against its cycles flushed one at a time
     par = Params(nphotons=1 << 30, geometry='sphere', rmax=1.0, nx=33, ny=33,
@@ -5527,13 +5647,51 @@ def shear_cli(tmp, device, total):
                f'{launches}')
 
 
+def maps_cost(p, card, reps=20):
+    """What the maps cost K4 and K5 on one cycle's inputs of the prepared
+    run: each kernel with its maps' pointers and without them (K5's
+    instance without kExtra), back to back on the device, in turns with,
+    without, without, with, on a copy of the run's state (the run's own
+    stays for kernel_times); {kernel: (ms with, ms without)}."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.transport import refill, scatter
+    ch, st = p.chunk, testing.clone_state(p.state)
+    fmod = sys.modules[type(ch.flight).__module__]
+    tl = ch.zero_tallies(st.device)
+    nomap = dataclasses.replace(tl, J1=None, Pa=None, Pnew=None)
+    refill.refill(st, tl, ch.refill_params, p.seed, p.cycle, p.budget)
+    pre_fly = testing.clone_state(st)
+    ch.flight(st, tl, ch.fly_substeps)
+    pre_sc = testing.clone_state(st)
+    c, sp, n = p.cycle, ch.scatter_params, ch.fly_substeps
+    out = {}
+    for name, pre, fns in (
+            ('scatter_lya', pre_sc,
+             {True: lambda s: scatter.scatter(s, tl, sp, 1, c),
+              False: lambda s: scatter.scatter(s, nomap, sp, 1, c)}),
+            ('fly_cartesian', pre_fly,
+             {True: lambda s: fmod.fly(s, tl, ch.flight, n),
+              False: lambda s: fmod.fly(s, nomap, ch.flight, n)})):
+        got = {True: [], False: []}
+        for k in (True, False, False, True):
+            copies = [testing.clone_state(pre) for _ in range(reps)]
+            got[k].append(device_ms([lambda s=s: fns[k](s) for s in copies]))
+            del copies
+        out[name] = (float(np.mean(got[True])), float(np.mean(got[False])))
+        log(5, f'slab with the maps: {name} with its maps {out[name][0]:.6f}'
+               f' ms, without them {out[name][1]:.6f} ms (back to back, in '
+               f'turns): {out[name][0] / out[name][1]:.3f}x [{card}]')
+    return out
+
+
 def shear_phase5(dev, res):
     """Two windows: shear.in as written (the main path, budget 1e9) and the
     flagship slab t1tau6.in as written with the three maps (K5's deposits
     and K4's Pa), each with its profile and the kernel times of K2, K5 and
-    K4 against their plain versions and bounds; K5's shear instance from
-    the first, K5's deposits and K4's Pa from the second go into the
-    kernels line."""
+    K4 against their plain versions and bounds, the second also with K4's
+    and K5's cost of the maps (maps_cost); K5's shear instance from the
+    first, K5's deposits and K4's Pa from the second go into the kernels
+    line."""
     over = dict(batch_size=B_MAIN, nphotons=10 ** 9, chunk_cycles=32)
     p, _ = rate_window('shear.in as written (32x32x64, omega_shear 2.2, '
                        'Hubble Vexp 10, tau 1e4)',
@@ -5550,6 +5708,7 @@ def shear_phase5(dev, res):
                        dev)
     card = smi()
     profile_chunks(p, card, 'slab with the maps')
+    maps_cost(p, card)
     kernel_times(p, card, 'slab with the maps', res,
                  ('refill_point', 'fly_cartesian', 'scatter_lya'),
                  record=(('fly_cartesian', DEPOSITS), ('scatter_lya', PA)))
@@ -6055,12 +6214,14 @@ SHEAR_KERNELS = (
      'lart_tpu/transport/engine.py:1199',
      'jpa_bin and rhokap_phys (lart_tpu_torch/csrc/lart.cuh, replace '
      'lart_tpu/transport/engine.py:581, :606) in the J1 and Pnew deposits of '
-     'make_fly (engine.py:1199-1219), f64 atomics'),
+     'make_fly (engine.py:1199-1219), summed by deposit_aggregated '
+     '(lart.cuh) in f64'),
     ('scatter_lya' + PA, 'scatter_lya', 'slab_maps',
      'lart_tpu/transport/engine.py:2541',
      'jpa_bin and rhokap_phys (lart_tpu_torch/csrc/lart.cuh, replace '
      'lart_tpu/transport/engine.py:581, :606) in the Pa deposit of '
-     'make_scatter (engine.py:2541-2547), f64 atomics'))
+     'make_scatter (engine.py:2541-2547), summed by deposit_aggregated '
+     '(lart.cuh) in f64'))
 
 
 # the instances with the table on phase 4's paths: (KERNELS-like source and

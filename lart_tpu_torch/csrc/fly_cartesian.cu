@@ -53,9 +53,17 @@
 // (:1406-1409).  Each step of a lane through gas (rhoH > 0) adds d wgt to
 // J1 at its cell's bin (lart.cuh jpa_bin) and comoving frequency x D / D_ref
 // (dropped off the frequency grid), and d rhoH wgt / max(rhokap D / cross0,
-// TINY) to Pnew (:1199-1219), each an f64 atomicAdd of the f32 deposit (the
-// reference's f64 maps, define.f90:203-205): the atomics of a step land on
-// the few bins round the source, where they serialize.
+// TINY) to Pnew (:1199-1219), each the f32 deposit summed in f64 (the
+// reference's f64 maps, define.f90:203-205).  The lanes crowd into a few
+// bins round the source (on t1tau6.in 2.0 distinct Pnew bins a warp and
+// 6.5 J1 bins, 99% of Pnew in five), where an atomic a step serialized
+// (0.225 ms against 0.014 without the maps).  So a lane keeps one pending
+// deposit in registers, its bin, frequency bin and two f64 sums, which
+// grows while the lane stays in both bins and goes to the maps by plain
+// atomics when either changes (a lane's own crossings, spread out); the
+// last one goes, where the warp has converged at the end, through the warp
+// level and the block's copies of the maps that fit one (lart.cuh
+// deposit_aggregated; the wrapper's plan).
 // The all-photons table (save_all_photons, csrc/allph.cuh) lives in the
 // kAllph instances, so a run without it keeps its code: a lane that dies
 // here writes its death row at once (engine.py:1434-1469): an escape and an
@@ -69,8 +77,11 @@
 #include "voigt.cuh"
 #include "walk.cuh"
 
+// pnew_slots, j1_slots: the block copies of Pnew and J1 (f64), 0 where the
+// wrapper's plan gives the map none
 template <bool kMulti, bool kH2, bool kExtra, bool kAllph>
-__global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p) {
+__global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams p,
+                                     int pnew_slots, int j1_slots) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   float oor = 0.0f, esc1 = 0.0f, esc2 = 0.0f;
   const bool lyb = kMulti && p.line.line_type == 8;
@@ -78,6 +89,16 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
   const bool shear = kExtra && p.omega_shear != 0.0f;
   const JpaBins& q = p.jpa;
   const bool deposit = kExtra && (q.J1 || q.Pnew);
+  double* pnew_copy = lart_block_copy;
+  double* j1_copy = lart_block_copy + pnew_slots;
+  if (kExtra) {
+    block_copy_zero(pnew_copy, pnew_slots);
+    block_copy_zero(j1_copy, j1_slots);
+  }
+  // the lane's pending deposit: its bin (-1 none) and frequency bin (-1 off
+  // the frequency grid), and its J1 and Pnew sums there
+  int pend_bp = -1, pend_fx = -1;
+  double pend_j1 = 0.0, pend_pn = 0.0;
   // the all-photons table's death rows (the kAllph instances)
   const bool allph = kAllph;
   int phase = i < B ? s.phase[i] : DEAD;
@@ -119,16 +140,28 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
       if (deposit && rhoH > 0.0f) {
         // the segment's deposits at its cell's bin (engine.py:1199-1219): J1
         // at the cell's comoving frequency x D / D_ref, Pnew over
-        // rhokap_phys = rhokap D / cross0
+        // rhokap_phys = rhokap D / cross0; they add to the pending deposit,
+        // which goes to the maps by plain atomics when either bin changes
         const int bp = jpa_bin(q, cell[0], cell[1], cell[2]);
+        int fxi = -1;
         if (q.J1) {
           const float fx = floorf((xfreq * (D_c / p.Dfreq) - p.xfreq_min) / p.dxfreq);
-          if (fx >= 0.0f && fx < (float)p.nxfreq)
-            atomicAdd(&q.J1[(int)fx * q.nbin + bp], (double)(d_adv * wgt));
+          if (fx >= 0.0f && fx < (float)p.nxfreq) fxi = (int)fx;
         }
+        if (bp != pend_bp || fxi != pend_fx) {
+          if (pend_bp >= 0) {
+            if (pend_fx >= 0) atomicAdd(&q.J1[pend_fx * q.nbin + pend_bp], pend_j1);
+            if (q.Pnew) atomicAdd(&q.Pnew[pend_bp], pend_pn);
+          }
+          pend_bp = bp;
+          pend_fx = fxi;
+          pend_j1 = 0.0;
+          pend_pn = 0.0;
+        }
+        if (fxi >= 0) pend_j1 += (double)(d_adv * wgt);
         if (q.Pnew) {
           const float rkp = p.rhokap[f] * D_c / q.cross0;
-          atomicAdd(&q.Pnew[bp], (double)(d_adv * rhoH * wgt / fmaxf(rkp, LART_TINY)));
+          pend_pn += (double)(d_adv * rhoH * wgt / fmaxf(rkp, LART_TINY));
         }
       }
       bool escaped = false;
@@ -253,6 +286,19 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
     s.tau_run[i] = tau_run;
     if (shear) s.vfy_shear[i] = vfy;
   }
+  if (deposit) {
+    // the last pending deposits through the warp level and the block
+    // copies (lart.cuh deposit_aggregated), the copies zeroed at the top
+    double* J1 = q.J1;
+    double* Pnew = q.Pnew;
+    if (pnew_slots || j1_slots) __syncthreads();
+    if (Pnew)
+      deposit_aggregated(pend_bp, pend_pn, [Pnew](int b) { return &Pnew[b]; }, pnew_copy,
+                         pnew_slots);
+    if (J1)
+      deposit_aggregated(pend_bp >= 0 && pend_fx >= 0 ? pend_fx * q.nbin + pend_bp : -1,
+                         pend_j1, [J1](int b) { return &J1[b]; }, j1_copy, j1_slots);
+  }
   block_sum_atomic(oor, p.W_oor);
   if (lyb) {
     block_sum_atomic(esc1, p.W_esc1);
@@ -262,11 +308,16 @@ __global__ void fly_cartesian_kernel(Lanes s, int B, int max_steps, FlightParams
 
 LART_API int lart_flight_params_size() { return (int)sizeof(FlightParams); }
 
+// pnew_slots, j1_slots: the block plan of the Pnew and J1 deposits
+// (transport/fly_cartesian.py deposit_plan), 8 (pnew_slots + j1_slots)
+// bytes of dynamic shared memory a block
 LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
-                                const FlightParams* p, void* stream) {
+                                const FlightParams* p, int pnew_slots, int j1_slots,
+                                void* stream) {
   if (B > 0) {
     const int threads = 256;
     const int blocks = (B + threads - 1) / threads;
+    const size_t smem = 8 * ((size_t)pnew_slots + (size_t)j1_slots);
     const Lanes s = unpack_lanes(lanes);
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
@@ -279,7 +330,8 @@ LART_API int lart_fly_cartesian(void* const* lanes, int B, int max_steps,
     switch (inst) {
 #define LART_FLY_CARTESIAN(M, H, E, A)                                                   \
   case (M ? 8 : 0) + (H ? 4 : 0) + (E ? 2 : 0) + (A ? 1 : 0):                             \
-    fly_cartesian_kernel<M, H, E, A><<<blocks, threads, 0, st>>>(s, B, max_steps, *p);  \
+    fly_cartesian_kernel<M, H, E, A><<<blocks, threads, smem, st>>>(s, B, max_steps, *p,  \
+                                                                    pnew_slots, j1_slots); \
     break;
 #define LART_FLY_CARTESIAN_2(M, H, E) \
   LART_FLY_CARTESIAN(M, H, E, false)  \

@@ -324,3 +324,80 @@ __device__ inline void block_sum_atomic(float v, float* dst) {
   }
   __syncthreads();
 }
+
+// Aggregated map deposits (K4's Pa, K5's J1 and Pnew).  One
+// atomic per deposit serializes in L2 where the lanes crowd into a few
+// bins (the cells round a slab's source: 81x K4's bound, 40x K5's).  So at
+// a point where the warp has converged every lane offers one (key, value),
+// key < 0 for none: the lanes of one key find each other with
+// __match_any_sync, sum over a tree of shuffles, and the lowest of them
+// adds the sum, into the block's private copy of the map in dynamic shared
+// memory where the launch gave it one (the wrapper's block plan: the map's
+// slots, 0 where it does not fit), else into the map.  After the block's
+// deposits each nonzero bin of the copy is added to the map once.  The
+// sums are f64, as the maps are; only their order changes.
+
+// the block's dynamic shared memory, 8-byte aligned; a kernel lays its
+// block copies out in it (f64 first)
+extern __shared__ double lart_block_copy[];
+
+// The sum of v over the lanes `peers` (one key's lanes, from
+// __match_any_sync), a tree over their ranks, at the lowest of them.  The
+// whole warp calls it, converged.
+template <typename T>
+__device__ inline T peer_sum(unsigned peers, T v) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  unsigned up = peers & (0xfffffffeu << lane);  // the peers above this lane
+  while (__any_sync(full, up != 0u)) {
+    const int next = __ffs(up);  // the nearest peer above still summing
+    const T t = __shfl_sync(full, v, next - 1);
+    if (next) v += t;
+    // the lanes of odd rank have been summed by the lane below them
+    up &= ~__ballot_sync(full, rank & 1);
+    rank >>= 1;
+  }
+  return v;
+}
+
+// The warp level: returns true at the one lane of each key >= 0 that adds
+// `sum`, the key's lanes' values summed.  The whole warp calls it,
+// converged; a warp without a deposit leaves at once.
+template <typename T>
+__device__ inline bool warp_aggregate(int key, T v, T& sum) {
+  if (!__any_sync(0xffffffffu, key >= 0)) return false;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  sum = peer_sum(peers, v);
+  return key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1;
+}
+
+// Zero a block copy of n slots.  Every thread of the block calls it; a
+// __syncthreads() must follow before the first deposit into it.
+template <typename T>
+__device__ inline void block_copy_zero(T* copy, int n) {
+  for (int b = threadIdx.x; b < n; b += blockDim.x) copy[b] = T(0);
+}
+
+// Add each nonzero bin b of a block copy of n slots into *at(b).  Every
+// thread of the block calls it, after a __syncthreads() that follows the
+// block's deposits.
+template <typename T, typename At>
+__device__ inline void block_copy_flush(const T* copy, int n, At at) {
+  for (int b = threadIdx.x; b < n; b += blockDim.x) {
+    const T v = copy[b];
+    if (v != T(0)) atomicAdd(at(b), v);
+  }
+}
+
+// One deposit a lane (key < 0: none) into the map whose bin b is *at(b),
+// through the warp level and the block copy `copy` of n slots (n 0: the
+// warp level alone, into the map; a block without a deposit skips the
+// flush).  Every thread of the block calls it; the copy was zeroed before
+// a __syncthreads().
+template <typename T, typename At>
+__device__ inline void deposit_aggregated(int key, T v, At at, T* copy, int n) {
+  T sum;
+  if (warp_aggregate(key, v, sum)) atomicAdd(n ? &copy[key] : at(key), sum);
+  if (n && __syncthreads_or(key >= 0)) block_copy_flush(copy, n, at);
+}

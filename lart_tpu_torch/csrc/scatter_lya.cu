@@ -11,7 +11,14 @@
 // batch; here each thread runs the rounds for its own lane and stops at the
 // first acceptance (the later rounds' uniforms would be ignored anyway).  A
 // lane still rejected after the rounds stays AT_SCATTER and retries next
-// cycle, as on the TPU (`done`, :2438).  Uniforms come from Philox keyed by
+// cycle, as on the TPU (`done`, :2438).  A warp runs as many rounds as its
+// slowest lane (3.51 a warp against 1.27 a lane on the flagship) and both
+// branches of a round, the line core's and the wings', where its lanes
+// mix; so in the line-type-1 instances, dusty ones too, a block takes its
+// lanes core first (core_first_lane), and every lane loads its direction
+// and weight and draws its angle and optical-depth blocks before the
+// rounds, whose latency then covers theirs (PERF.md §6, K4).  The metal
+// lines keep their lanes in order.  Uniforms come from Philox keyed by
 // (seed, STREAM_SCATTER) at counter (lane, cycle, block): block r < rounds
 // feeds round r, block `rounds` the angles and the perpendicular velocity,
 // block rounds+1 the next optical depth.  nscatt_gas (sum of weights) and
@@ -57,9 +64,10 @@
 // Bound: arithmetic (tan/atan2/log/exp per round, pow/cos/sin after), with
 // the state read and written once (about 60 bytes a scattering lane, 100
 // with Stokes, plus 28 of record, 64 with Stokes); a dust event adds its
-// cell's two opacities, a few table reads and one Jabs atomic, and the
-// Jabs atomics of a shell's absorptions land on the few dozen bins of the
-// line, where they serialize.
+// cell's two opacities, a few table reads and one f32 Jabs atomic an
+// absorption, in every instance: on DL20e_dust.in's steady state the
+// absorptions do not crowd, and the aggregated path of the maps
+// (deposit_aggregated) made K4 slower there (PERF.md §6, K4).
 // H2 pumping (the instances with kH2; h2.cuh): the event split draws block
 // H = 3 rounds + 5 (after every block an earlier slice draws, so a run
 // without H2 draws as before): an H2 event with probability kap_H2 /
@@ -94,8 +102,14 @@
 // two passes over the clumps (or candidates) that contain the point.
 // With calcP (jpa.Pa non-null) each resonance scattering, a conversion too,
 // in a cell with rhokap_phys = rhokap D / cross0 > 0 adds wgt / rhokap_phys
-// to Pa at the cell's bin (lart.cuh jpa_bin; engine.py:2541-2547) by one f64
-// atomicAdd; rhokap is then the grid's, also on the sphere fast path.
+// to Pa at the cell's bin (lart.cuh jpa_bin; engine.py:2541-2547), the f32
+// quotient summed in f64; rhokap is then the grid's, also on the sphere
+// fast path.  The scatterings crowd into a few bins (on t1tau6.in 2.0
+// distinct bins a warp, 6.4 a block, 99% in five), where one atomic each
+// serialized (0.227 ms against 0.015 without the map): the deposit waits
+// for the end of the kernel and goes through the warp level and the
+// block's copy of Pa (lart.cuh deposit_aggregated).  A run with calcP runs
+// the kMaps instances, which do so; the others keep no deposit code.
 // With save_all_photons (the kAllph instances, the table's pointer non-null;
 // csrc/allph.cuh) each resonance scattering adds one to the lane's nsg and
 // each dust scattering one to its nsd (events, not weight; engine.py:
@@ -466,10 +480,51 @@ __device__ float h2_event(const ScatterParams& p, const Lanes& s, int i, uint32_
   return wgt;
 }
 
-template <bool kMulti, bool kH2, bool kAllph>
-__global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed,
-                                   uint32_t counter, ScatterParams p) {
+#define K4_THREADS 256
+
+// The lane a thread of the block takes when the block's lanes are put in
+// order, the AT_SCATTER lanes in the line core (|x| <= 1) first and the
+// rest after (each kept in its order): a warp then runs mostly one branch
+// of vz_round, the core's or the wings', where nearly every warp of lanes
+// in their own order ran both.  The math stays keyed by the lane.  Every
+// thread of the block calls it.
+__device__ inline int core_first_lane(const Lanes& s, int B) {
+  __shared__ int perm[K4_THREADS], wcore[K4_THREADS / 32];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool core = i < B && s.phase[i] == AT_SCATTER && fabsf(s.xfreq[i]) <= 1.0f;
+  const unsigned cb = __ballot_sync(0xffffffffu, core);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) wcore[warp] = __popc(cb);
+  __syncthreads();
+  int before = 0, ncore = 0;  // core lanes in the warps before, in all
+  for (int w = 0; w < K4_THREADS / 32; ++w) {
+    if (w < warp) before += wcore[w];
+    ncore += wcore[w];
+  }
+  const unsigned lt = (1u << lane) - 1u;
+  perm[core ? before + __popc(cb & lt) : ncore + (warp * 32 - before) + __popc(~cb & lt)] = i;
+  __syncthreads();
+  return perm[threadIdx.x];
+}
+
+// The kMaps instances run with the Pa map (calcP) and add Pa through the
+// aggregated path; the instances without it keep no deposit code (in a run
+// without the maps the path's code cost K4 2-4%, PERF.md §6, K4).
+// pa_slots: the block copy of Pa (f64), 0 where the wrapper's plan gives it
+// none.  The line-type-1 instances are held to
+// 64 registers, 4 blocks an SM: the whole batch of 131072 lanes in one wave
+// of 528 resident blocks.
+template <bool kMulti, bool kH2, bool kAllph, bool kMaps>
+__global__ void __launch_bounds__(K4_THREADS, kMulti ? 3 : 4)
+    scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed, uint32_t counter,
+                       ScatterParams p, int pa_slots) {
+  // Ly-alpha takes its lanes core first; the metal lines, whose levels
+  // and branches split the rounds otherwise, in their own order
+  const int i = kMulti ? blockIdx.x * blockDim.x + threadIdx.x : core_first_lane(s, B);
+  if (kMaps) block_copy_zero(lart_block_copy, pa_slots);
+  // this lane's Pa deposit, made at the end where the warp has converged
+  int pa_key = -1;
+  double pa_val = 0.0;
   float w_sum = 0.0f, n_sum = 0.0f, wd_sum = 0.0f;
   float conv_w = 0.0f, abs1 = 0.0f, abs2 = 0.0f;  // line type 8
   H2Tally h2t = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -478,7 +533,15 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
   const bool lyb = kMulti && p.line.line_type == 8;
   const ClumpGrid& cl = p.clump;
   const bool at_sc = i < B && s.phase[i] == AT_SCATTER;
+  // the direction and weight a resonance reads after its rounds, loaded
+  // here so that their latency overlaps the rounds (the batch is one wave:
+  // a load where it is used stalls every warp at once)
+  float pkx = 0.0f, pky = 0.0f, pkz = 1.0f, pw = 0.0f;
   if (at_sc) {
+    pkx = s.kx[i];
+    pky = s.ky[i];
+    pkz = s.kz[i];
+    pw = s.wgt[i];
     if (cl.n) {
       // the owner (overlap mode), then the owner's frame and units
       const float k[3] = {s.kx[i], s.ky[i], s.kz[i]};
@@ -560,11 +623,16 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
         abs1 = wab;
       }
     } else if (!b2) {
+      // the angles' and the next optical depth's Philox blocks, drawn
+      // before the rounds so that their integer chains overlap round 0's
+      float ua[4], ut[4];
+      uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, ua);
+      uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), ut);
       const Redist r = redistribute<kMulti>(p.line, xfreq, a_c, D_c, seed, counter, i,
                                             rounds, 3 * rounds + 4);
       bool acc = r.acc;
       if (acc) {
-        uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)rounds, u);
+        for (int k = 0; k < 4; ++k) u[k] = ua[k];
         const float cost = rand_resonance_cost(u[0], r.E1);
         const float cost2 = cost * cost;
         const float sint = sqrtf(fmaxf(1.0f - cost2, 0.0f));
@@ -604,13 +672,13 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
           if (p.stokes) {
             stokes_turn(s, i, cost, sint, cosp, sinp, S11, S12, S22, S33, S44);
           } else {
-            float kx = s.kx[i], ky = s.ky[i], kz = s.kz[i];
+            float kx = pkx, ky = pky, kz = pkz;
             rotate_direction(kx, ky, kz, cost, sint, cosp, sinp);
             s.kx[i] = kx;
             s.ky[i] = ky;
             s.kz[i] = kz;
           }
-          uniforms4(seed, STREAM_SCATTER, (uint32_t)i, counter, (uint32_t)(rounds + 1), u);
+          for (int k = 0; k < 4; ++k) u[k] = ut[k];
           s.phase[i] = FLYING;
           if (lyb && r.conv) {
             // 3p -> 2s: the H-alpha photon at the atom's line centre, its lab
@@ -618,22 +686,23 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
             const float u_new = p.vfx ? lane_vel_dot(p, s, i) : 0.0f;
             s.xfreq[i] = (xfreq_new - xfreq_atom + u_new) * ratio;
             s.iband[i] = 2;
-            conv_w = s.wgt[i];
+            conv_w = pw;
           } else {
             s.xfreq[i] = xfreq_new;
           }
           s.tau_target[i] = -logf(fmaxf(u[0], 1e-12f));
           s.tau_run[i] = 0.0f;
-          w_sum = s.wgt[i];
+          w_sum = pw;
           n_sum = 1.0f;
-          if (p.jpa.Pa) {
+          if (kMaps) {
             // the scatterings per atom at the scattering cell (engine.py:
             // 2541-2547), rhokap_phys = rhokap D / cross0; a conversion
             // counts as one
             const float rkp = p.rhokap[scatter_cell(p, s, i)] * D_c / p.jpa.cross0;
-            if (rkp > 0.0f)
-              atomicAdd(&p.jpa.Pa[jpa_bin(p.jpa, s.ic[i], s.jc[i], s.kc[i])],
-                        (double)(w_sum / fmaxf(rkp, LART_TINY)));
+            if (rkp > 0.0f) {
+              pa_key = jpa_bin(p.jpa, s.ic[i], s.jc[i], s.kc[i]);
+              pa_val = (double)(w_sum / fmaxf(rkp, LART_TINY));
+            }
           }
           kind = r.conv ? EVENT_CONVERSION : EVENT_RESONANCE;
         }
@@ -660,6 +729,14 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
     s.xfreq[i] = s.xfreq[i] * cl.inv_r_loc + clump_vel_dot(cl, s.ic[i], k, CLUMP_U_SCALE);
   }
   if (rec.flag && i < B) rec.flag[i] = kind;
+  if (kMaps) {
+    // the Pa deposit (lart.cuh deposit_aggregated), once the block copy
+    // zeroed at the top is seen zeroed by every thread
+    if (pa_slots) __syncthreads();
+    double* Pa = p.jpa.Pa;
+    deposit_aggregated(pa_key, pa_val, [Pa](int b) { return &Pa[b]; }, lart_block_copy,
+                       pa_slots);
+  }
   block_sum_atomic(w_sum, p.nscatt_gas);
   block_sum_atomic(n_sum, p.nscatt_events);
   if (p.dust) block_sum_atomic(wd_sum, p.nscatt_dust);
@@ -678,32 +755,41 @@ __global__ void scatter_lya_kernel(Lanes s, PeelRecord rec, int B, uint32_t seed
   }
 }
 
-// record: the PeelRecord pointer table, or null with peel-off off
+// record: the PeelRecord pointer table, or null with peel-off off;
+// pa_slots: the slots of the block copy of Pa (transport/scatter.py
+// deposit_plan), 8 bytes each of dynamic shared memory a block
 LART_API int lart_scatter_lya(void* const* lanes, void* const* record, int B, unsigned seed,
-                              unsigned counter, const ScatterParams* p, void* stream) {
+                              unsigned counter, const ScatterParams* p, int pa_slots,
+                              void* stream) {
   if (B > 0) {
-    const int threads = 256;
+    const int threads = K4_THREADS;
     const int blocks = (B + threads - 1) / threads;
+    const size_t smem = 8 * (size_t)pa_slots;
     const Lanes s = unpack_lanes(lanes);
     const PeelRecord r = unpack_record(record);
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = p->line.line_type != 1, h2 = p->h2.n_lines > 0;
-    const bool allph = p->allph.rp != nullptr;
+    const bool allph = p->allph.rp != nullptr, maps = p->jpa.Pa != nullptr;
     // one instance a combination: the line type (kMulti), H2 (kH2), the
-    // all-photons table (kAllph)
-    switch ((multi ? 4 : 0) + (h2 ? 2 : 0) + (allph ? 1 : 0)) {
-#define LART_SCATTER(M, H, A)                                                             \
-  case (M ? 4 : 0) + (H ? 2 : 0) + (A ? 1 : 0):                                            \
-    scatter_lya_kernel<M, H, A><<<blocks, threads, 0, st>>>(s, r, B, seed, counter, *p);   \
+    // all-photons table (kAllph), the Pa map (kMaps)
+    switch ((multi ? 8 : 0) + (h2 ? 4 : 0) + (allph ? 2 : 0) + (maps ? 1 : 0)) {
+#define LART_SCATTER(M, H, A, P)                                                       \
+  case (M ? 8 : 0) + (H ? 4 : 0) + (A ? 2 : 0) + (P ? 1 : 0):                           \
+    scatter_lya_kernel<M, H, A, P>                                                     \
+        <<<blocks, threads, smem, st>>>(s, r, B, seed, counter, *p, pa_slots);             \
     break;
-      LART_SCATTER(false, false, false)
-      LART_SCATTER(false, false, true)
-      LART_SCATTER(false, true, false)
-      LART_SCATTER(false, true, true)
-      LART_SCATTER(true, false, false)
-      LART_SCATTER(true, false, true)
-      LART_SCATTER(true, true, false)
-      LART_SCATTER(true, true, true)
+#define LART_SCATTER_2(M, H, A) \
+  LART_SCATTER(M, H, A, false)  \
+  LART_SCATTER(M, H, A, true)
+      LART_SCATTER_2(false, false, false)
+      LART_SCATTER_2(false, false, true)
+      LART_SCATTER_2(false, true, false)
+      LART_SCATTER_2(false, true, true)
+      LART_SCATTER_2(true, false, false)
+      LART_SCATTER_2(true, false, true)
+      LART_SCATTER_2(true, true, false)
+      LART_SCATTER_2(true, true, true)
+#undef LART_SCATTER_2
 #undef LART_SCATTER
     }
   }

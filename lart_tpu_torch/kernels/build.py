@@ -177,7 +177,7 @@ def library() -> ctypes.CDLL:
             lart_fly_uniform_slab=[_LANES, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _I, _F, _F, _F, _F, _I, _I, _I, _F, _F, _I,
                                    _P, _P, _P, _F, line, _P],
-            lart_fly_cartesian=[_LANES, _I, _I, flight, _P],
+            lart_fly_cartesian=[_LANES, _I, _I, flight, _I, _I, _P],
             lart_fly_uniform_sphere=[_LANES, _I, _I, flight, _P],
             lart_fly_amr=[_LANES, _I, _I, flight, _P],
             lart_fly_clump_dense=[_LANES, _I, _I, flight, _P],
@@ -185,7 +185,7 @@ def library() -> ctypes.CDLL:
             lart_peel=[_LANES, _LANES, _I, _I, flight,
                        ctypes.POINTER(PeelParams), _P],
             lart_scatter_lya=[_LANES, _LANES, _I, _U, _U,
-                              ctypes.POINTER(ScatterC), _P],
+                              ctypes.POINTER(ScatterC), _I, _P],
             lart_sightline=[flight, ctypes.POINTER(SightParams), _P])
         for name, argtypes in argtypes_of.items():
             fn = getattr(lib, name)

@@ -622,6 +622,37 @@ def mixed_state(meta, batch: int, seed: int, device='cpu',
                                                     device=device))
 
 
+def hot_state(meta, batch: int, seed: int, device='cpu', cell=None,
+              xfreq: Optional[float] = None) -> BatchState:
+    """mixed_state's lanes, every one moved to a uniform point inside one
+    cell (the centre cell by default, a centred point source's) with its
+    cell indices, the FFS lanes' birth snapshots with them; with `xfreq`,
+    every lane's frequency (and an FFS lane's birth one) xfreq + U(-w, w),
+    w a quarter of the frequency bin.  Every map deposit of a flight or a
+    scatter then falls into one bin, or one bin and one frequency bin."""
+    s = mixed_state(meta, batch, seed, device)
+    rng = np.random.default_rng([seed, 11])
+    n = (meta.nx, meta.ny, meta.nz)
+    cell = tuple(v // 2 for v in n) if cell is None else cell
+    ffs = s.phase == FFS
+    for ax, (p, c) in enumerate((('x', 'ic'), ('y', 'jc'), ('z', 'kc'))):
+        lo = (meta.xmin, meta.ymin, meta.zmin)[ax]
+        d = (meta.dx, meta.dy, meta.dz)[ax]
+        pos = torch.as_tensor(lo + (cell[ax] + rng.uniform(0.05, 0.95, batch))
+                              * d, dtype=torch.float32, device=device)
+        getattr(s, p).copy_(pos)
+        getattr(s, c).fill_(cell[ax])
+        getattr(s, 'b' + p).copy_(torch.where(ffs, pos, getattr(s, 'b' + p)))
+        getattr(s, 'b' + c).copy_(torch.where(
+            ffs, getattr(s, c), getattr(s, 'b' + c)))
+    if xfreq is not None:
+        x = torch.as_tensor(xfreq + rng.uniform(-0.25, 0.25, batch)
+                            * meta.dxfreq, dtype=torch.float32, device=device)
+        s.xfreq.copy_(x)
+        s.bxfreq.copy_(torch.where(ffs, x, s.bxfreq))
+    return s
+
+
 def amr_state(meta, amr, batch: int, seed: int, device='cpu',
               phases=(DEAD, FFS, FLYING, AT_SCATTER),
               r_max: Optional[float] = None,

@@ -67,7 +67,7 @@ from ..kernels import build as kbuild
 from .allph import record_deaths
 from .flight import (BIG, FFS_TAU_CAP, TINY, FlightConsts, comoving,
                      doppler_ratio, fma, freq_floor, tally_plain)
-from .jpa import deposit_segments
+from .jpa import block_plan, deposit_segments
 from .state import AT_SCATTER, DEAD, FFS, FLYING, BatchState, Tallies
 
 
@@ -276,6 +276,16 @@ class CartesianFlight(FlightConsts):
         fly(state, tallies, self, max_steps)
 
 
+def deposit_plan(p: FlightConsts, tallies: Tallies) -> tuple:
+    """K5's block plan (jpa.block_plan): the slots of the block copies of
+    Pnew (nbin) and J1 (nxfreq x nbin), both f64, Pnew first."""
+    if p.jpa is None:
+        return (0, 0)
+    j1, _, pnew = p.jpa.sizes(p.nxfreq)
+    return block_plan(pnew if tallies.Pnew is not None else 0,
+                      j1 if tallies.J1 is not None else 0)
+
+
 def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
         max_steps: int) -> None:
     """Walk every FLYING/FFS lane, in place: kernel K5 for a CUDA state,
@@ -293,6 +303,6 @@ def fly(state: BatchState, tallies: Tallies, p: FlightConsts,
                           if tallies.allph is not None else ()))
     kbuild.check(kbuild.library().lart_fly_cartesian(
         state.lane_pointers, state.batch, max_steps,
-        ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),
-        'fly_cartesian')
+        ctypes.byref(p.c_params(tallies)), *deposit_plan(p, tallies),
+        kbuild.stream_of(state.x)), 'fly_cartesian')
     kbuild.LAUNCHES['fly_cartesian'] += 1

@@ -25,8 +25,15 @@ f64 map, as the reference keeps them (define.f90:203-205; lart_tpu adds
 in f32, where the many equal deposits of a chunk into one hot bin round
 alike: 1.05e-3 of the sum of 2^17 of them, tests/test_torch_precision.py).
 The plain versions add with index_add_ and divide by a 0-d tensor
-(flight.div), as the kernels' f64 atomics and f32 divisions do, to the
-order of the sums.
+(flight.div), as the kernels' f64 sums and f32 divisions do, to the order
+of the sums.
+
+The kernels add their deposits through csrc/lart.cuh deposit_aggregated:
+the lanes of a warp that deposit into one bin sum first, and a block sums
+into its private copy of a map in shared memory where the copy fits
+BLOCK_COPY_BYTES (block_plan), which the wrapper gives the launch as
+dynamic shared memory; a map that does not fit (J1's nxfreq x nbin, the
+flat-cell geometry on a large grid) takes the warp level alone.
 """
 
 from __future__ import annotations
@@ -38,6 +45,25 @@ import torch
 
 from ..physics.line import f32
 from .flight import TINY, JpaC, div, dot3, fma
+
+
+# The most dynamic shared memory a launch gives its block copies of the
+# maps: 4096 f64 bins (32 KB), under the 48 KB a launch takes without an
+# attribute and small enough for K4's and K5's 3-4 blocks an SM
+BLOCK_COPY_BYTES = 32768
+
+
+def block_plan(*maps) -> tuple:
+    """The slots of each map's block copy: `maps` are the maps' f64 slots
+    in order of priority, and each gets a copy of all its slots where they
+    fit in what the maps before it left of BLOCK_COPY_BYTES, else 0 (its
+    deposits take the warp level alone)."""
+    left, plan = BLOCK_COPY_BYTES, []
+    for n in maps:
+        take = n if 0 < 8 * n <= left else 0
+        left -= 8 * take
+        plan.append(take)
+    return tuple(plan)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -148,7 +148,7 @@ from ..physics.rng import STREAM_SCATTER, uniforms
 from .allph import count_events, record_deaths
 from .flight import (AllPhC, AmrC, AmrGrid, ClumpC, ClumpGrid, JpaC, div,
                      doppler_ratio, dot3, f32, freq_floor, recip32)
-from .jpa import JpaBins, deposit_scatterings
+from .jpa import JpaBins, block_plan, deposit_scatterings
 from .state import AT_SCATTER, DEAD, FLYING, BatchState, Tallies
 
 TINY = 1e-30
@@ -921,6 +921,15 @@ def stokes_turn(s: BatchState, cost, sint, cosp, sinp, S11, S12, S22, S33,
             (S33 * U0) / I1, (S44 * s.V) / I1)
 
 
+def deposit_plan(p: ScatterParams, tallies: Tallies) -> int:
+    """K4's block plan (jpa.block_plan): the slots of the block copy of Pa
+    (f64, nbin), 0 where it does not fit or without the map.  Jabs takes
+    one atomic an absorption in every instance."""
+    if p.jpa is None or tallies.Pa is None:
+        return 0
+    return block_plan(p.jpa.sizes(p.nxfreq)[1])[0]
+
+
 def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
             seed: int, counter: int, record=None) -> None:
     """Scatter every AT_SCATTER lane, in place: kernel K4 for a CUDA state,
@@ -940,6 +949,6 @@ def scatter(state: BatchState, tallies: Tallies, p: ScatterParams,
     kbuild.check(kbuild.library().lart_scatter_lya(
         state.lane_pointers, None if record is None else record.pointers,
         state.batch, seed & 0xFFFFFFFF, counter & 0xFFFFFFFF,
-        ctypes.byref(p.c_params(tallies)), kbuild.stream_of(state.x)),
-        'scatter_lya')
+        ctypes.byref(p.c_params(tallies)), deposit_plan(p, tallies),
+        kbuild.stream_of(state.x)), 'scatter_lya')
     kbuild.LAUNCHES['scatter_lya'] += 1

@@ -73,10 +73,10 @@ ATM_KEYS = {'refill_illum', 'refill_point (atmosphere)',
             'peel (stellar, +z)'}
 
 
-# K5's shear wrap and J1/Pnew deposits, K4's Pa deposit
-# (chip_smoke.phase2_shear)
+# K5's shear wrap and J1/Pnew deposits, K4's Pa deposit and its Jabs on a
+# hot dusty state (chip_smoke.phase2_shear)
 SHEAR_KEYS = {'fly_cartesian (shear)', 'fly_cartesian (J1, Pnew)',
-              'scatter_lya (Pa)'}
+              'scatter_lya (Pa)', 'scatter_lya (Jabs)'}
 
 
 # the all-photons table: K2's five instances, K4, K5, K8, K9 and K10 with it
@@ -578,6 +578,21 @@ def test_driver_runs_the_shear_and_the_maps(cuda):
     lhs, rhs = testing.pa_closure(res)
     assert abs(lhs / rhs - 1.0) < 1e-5, (lhs, rhs)
     assert res.J1.shape == (res.meta.nxfreq, res.meta.nbin_JPa)
+
+
+def test_hot_bin_deposits_match_plain(cuda):
+    """The maps' hot-bin cases of chip_smoke.phase2_shear at B = 8192:
+    every lane in the centre cell of t1tau6.in, t4tau7.in, the 65^3
+    flat-cell box (the warp level alone) and the 1x1x33 slab (J1's block
+    copy), and with J1 also in one frequency bin, through K5's J1 and Pnew
+    deposits and K4's Pa; K4's Jabs on DL20e_dust.in.  Lanes at 0
+    differing, each map within MAP_REL of its largest bin."""
+    import chip_smoke
+    chip_smoke.B_MAIN = 8192
+    res = {}
+    chip_smoke.phase2_hot_bins(cuda, res)
+    assert set(res) == {'fly_cartesian (J1, Pnew)', 'scatter_lya (Pa)',
+                        'scatter_lya (Jabs)'}
 
 
 def test_allph_kernels_match_plain_versions(cuda):
