@@ -32,7 +32,13 @@ Phases (one line each, or more):
      the chord, with and without Stokes; vel_effect_peel: the 201^3 walk
      in the Hubble flow), K4's Stokes branch with its peel record
      (sphere_peel, slab_peel with core-skip) and K2's birth triad and
-     launch flags; dust on the 201^3 grid of examples/DL2008/DL20e_dust.in
+     launch flags; K7 where its deposits crowd (phase2_peel_hot: every
+     lane at one point of the slab_peel grid with dust, Stokes and two
+     observers, in modes direct, resonance and dust, and a thick state
+     whose pairs deposit 0; PEEL_STELLAR on a090 on +z into 64 bins) and
+     where it packs its walks (peel_packed: a quarter of the lanes
+     flagged on slab_peel and CIV_test's interior grid, two calls each);
+     dust on the 201^3 grid of examples/DL2008/DL20e_dust.in
      as written, with and without Stokes: K5 with rhokapD, K2's Gaussian
      births, K4's dust branch (HG, Mueller +- use_reduced_wgt) with its
      peel record, K7 in mode dust; the metal lines (line_cases) on the
@@ -1050,6 +1056,7 @@ def phase2(dev):
                f'lanes differing {frac:.2e}, max abs err {err:.3e}')
     del grid, ch
     phase2_peel(dev, res)
+    phase2_peel_hot(dev, res)
     phase2_dust(dev, res)
     phase2_lines(dev, res)
     phase2_lyb_h2(dev, res)
@@ -1065,7 +1072,8 @@ def phase2(dev):
 
 
 def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None,
-              state_fn=None, rec_prep=None, min_dep=0.05):
+              state_fn=None, rec_prep=None, min_dep=0.05, info=None,
+              share=None, batch=None):
     """K7 and its plain version on one mixed state with a record that
     flags every lane; each (observer, lane) pair's optical depth and cube
     bin are held against each other (a pair differs when its bin differs
@@ -1083,20 +1091,35 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None,
     where given, changes the state first (the H-alpha band's lanes);
     state_fn(seed), where given, makes the state (an AMR grid's);
     rec_prep(rec), where given, changes the record (a stellar source's
-    limb samples); at least a share min_dep of the pairs must deposit."""
+    limb samples); at least a share min_dep of the pairs must deposit.
+    info, a dict where given, gains the plain version's depositing pairs
+    whose deposits are all 0 ('zero'), its distinct bins ('bins') and the
+    most pairs in one bin ('hottest').  With share, the record flags that
+    share of the lanes, scattered among the others, and info gains the
+    count of flagged lanes ('flagged') and, of K7's call, its launches
+    ('launches'), the parity of its lane list ('parity') and the count
+    its first pass listed there ('listed')."""
     from lart_tpu_torch import testing
     from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.kernels import build as kb
     p = ch.peel
+    B = batch or B_MAIN
     s = state_fn(seed) if state_fn is not None else testing.mixed_state(
-        meta, B_MAIN, seed, dev, r_max=r_max)
+        meta, B, seed, dev, r_max=r_max)
     if prep is not None:
         prep(s)
     rec = testing.peel_record(s, seed + 1, p.grid.line)
     if rec_prep is not None:
         rec_prep(rec)
     kind = max(mode, tpeel.RESONANCE)     # the flag of mode's events
-    rec.flag.fill_(kind)
-    n = p.nobs * B_MAIN
+    if share is None:
+        rec.flag.fill_(kind)
+    else:
+        on = np.random.default_rng([seed, 7]).random(B) < share
+        rec.flag.copy_(torch.as_tensor(on.astype(np.int32) * kind,
+                                       device=dev))
+        info['flagged'] = int(on.sum())
+    n = p.nobs * B
     ncomp = 4 if p.stokes and mode not in (tpeel.DIRECT,
                                            tpeel.STELLAR) else 1
 
@@ -1105,14 +1128,25 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None,
         tau = torch.full((n,), -1.0, device=dev)
         bins = torch.full((n,), -1, dtype=torch.int32, device=dev)
         w = torch.zeros((4 * n,), device=dev)
+        before = kb.LAUNCHES['peel']
         (tpeel.peel if kernel else tpeel.peel_plain)(s, cubes, rec, p, mode,
                                                      tau, bins, w)
         torch.cuda.synchronize()
+        if kernel and share is not None:
+            lanes = p.lane_list(s)
+            used = 1 - lanes.parity
+            info.update(launches=kb.LAUNCHES['peel'] - before,
+                        parity=used, listed=int(lanes.order[B + used]))
         return cubes, tau, bins, w.view(4, n)[:ncomp].double()
 
     (ck, tk, bk, wk), (cp, tp, bp, wp) = run(True), run(False)
     bad = (bk != bp) | ~torch.isclose(tk, tp, rtol=LANE_RTOL, atol=LANE_ATOL)
     n_bad, n_dep = int(bad.sum()), int((bp >= 0).sum())
+    if info is not None and n_dep:
+        on = bp >= 0
+        info.update(zero=int((on & (wp == 0).all(0)).sum()),
+                    bins=int(torch.unique(bp[on]).numel()),
+                    hottest=int(torch.bincount(bp[on].long()).max()))
     good = ~bad & (bp >= 0)
     dtau = float((tk - tp).abs()[good].max()) if bool(good.any()) else 0.0
     # the plain version's deposits at the kernel's tau
@@ -1130,7 +1164,7 @@ def peel_both(ch, meta, seed, mode, dev, r_max=None, prep=None,
     dw_rel = float((dw / scale.clamp_min(1e-37))[good].max()) \
         if bool(good.any()) else 0.0
     if n_bad:
-        rec.flag.copy_((~bad.view(p.nobs, B_MAIN).any(0)).to(torch.int32)
+        rec.flag.copy_((~bad.view(p.nobs, B).any(0)).to(torch.int32)
                        * kind)
         ck, cp = run(True)[0], run(False)[0]
     err = 0.0
@@ -1200,9 +1234,168 @@ def phase2_peel(dev, res):
                    f'err {dw:.3e} (rtol 1e-5, all pairs), cubes max abs '
                    f'err {err:.3e} (atol 1e-5 x sum; '
                    f'{time.time() - t1:.1f} s, grid {t_grid:.1f} s)')
+        if name == 'slab_peel' and not over:
+            seed += 2
+            peel_packed('slab_peel, resonance, Stokes', ch, meta, seed,
+                        tpeel.RESONANCE, dev, res)
         if not over:
             seed = k4_k2_with_record(name, ch, meta, dev, r_max, seed, res)
         del grid, ch
+
+
+# K7's hot-bin cases (phase2_peel_hot): the slab_peel grid with dust
+# (DGR 1e5: a dust optical depth of 1.75 through the slab) and two
+# observers, and the lanes' frequency: in the wing at x = 8 (tau ~0.1 from
+# the top cell) or at line centre in the centre cell (tau ~5e3: most
+# deposits 0)
+HOT_PEEL = dict(DGR=1e5, nobs=2, alpha=(0.0, 30.0), beta=(0.0, 60.0))
+HOT_X, HOT = 8.0, ' (hot bins)'
+
+
+def pinned_state(meta, seed, dev, cell, xfreq, k=None,
+                 half=(0.075, 0.075, 1e-4)):
+    """testing.hot_state's lanes in `cell` (the centre cell where None) at
+    xfreq, moved to within half[axis] cell widths of the cell's centre
+    (on the slab_peel grid's cell, 2 wide in x and y, a 0.3-wide square
+    that each observer sees in ~100 pixels); with k, every lane's
+    direction (x, y, z)."""
+    from lart_tpu_torch import testing
+    s = testing.hot_state(meta, B_MAIN, seed, dev, cell=cell, xfreq=xfreq)
+    rng = np.random.default_rng([seed, 5])
+    n = (meta.nx, meta.ny, meta.nz)
+    c = tuple(v // 2 for v in n) if cell is None else cell
+    for ax, f in enumerate('xyz'):
+        lo = (meta.xmin, meta.ymin, meta.zmin)[ax]
+        d = (meta.dx, meta.dy, meta.dz)[ax]
+        getattr(s, f).copy_(torch.as_tensor(
+            lo + (c[ax] + 0.5 + rng.uniform(-half[ax], half[ax], B_MAIN))
+            * d,
+            dtype=torch.float32, device=dev))
+    if k is not None:
+        for f, v in zip(('kx', 'ky', 'kz'), k):
+            getattr(s, f).fill_(v)
+    return s
+
+
+def phase2_peel_hot(dev, res):
+    """K7 where its deposits crowd into few bins: every lane at one point
+    of the slab_peel grid (pinned_state), with Stokes and two observers, at
+    one frequency (a hot state: the top cell, x = 8) in modes direct,
+    resonance and dust, and a thick state (the centre cell at line centre:
+    most pairs' deposits 0, their walks stop at tau 110); PEEL_STELLAR on
+    a090 with its observer on +z, every newborn at one point, frequency
+    and direction, the limb samples 64 points of the disk (64 bins).  A
+    bin takes ~1e3 pairs: the plain version's f32 atomics, in lane order,
+    round a bin of N equal values to ~N 2^-24 of it, so a cube of a few
+    bins would miss the 1e-5 on the plain version's side.
+    0 pairs may differ, and the cubes agree to 1e-5 of their sums
+    (peel_both)."""
+    from lart_tpu_torch import testing
+    from lart_tpu_torch.grid.cartesian import build_cartesian
+    from lart_tpu_torch.instruments import peel as tpeel
+    from lart_tpu_torch.transport.engine import make_chunk
+    cfg = example_params(PEEL_EXAMPLES['slab_peel'], batch_size=B_MAIN,
+                         **HOT_PEEL).resolve()
+    meta, grid = build_cartesian(cfg, device=dev)
+    ch = make_chunk(cfg, meta, grid)
+    assert ch.peel.stokes and ch.peel.nobs == 2 and ch.peel.dust
+    top = (0, 0, meta.nz - 1)
+    seed = 900
+    for label, cell, x, mode in (
+            ('direct, hot', top, HOT_X, tpeel.DIRECT),
+            ('resonance, hot', top, HOT_X, tpeel.RESONANCE),
+            ('dust, hot', top, HOT_X, tpeel.DUST),
+            ('resonance, thick', None, 0.0, tpeel.RESONANCE)):
+        seed += 10
+        info = {}
+        n_bad, n_dep, err, dtau, dw = peel_both(
+            ch, meta, seed, mode, dev, info=info,
+            state_fn=lambda sd, c=cell, x=x: pinned_state(meta, sd, dev, c,
+                                                          x))
+        assert n_bad == 0, (label, n_bad)
+        if label.endswith('thick'):
+            assert info['zero'] > 0.5 * n_dep, info
+        _max_err(res, 'peel' + HOT, err)
+        log(2, f'K7 peel {label} (slab_peel grid, Stokes, dust, 2 observers,'
+               f' every lane at the centre of cell {cell or "centre"}, x '
+               f'{x}): {n_dep} '
+               f'of {ch.peel.nobs * B_MAIN} pairs deposit, {info["zero"]} of'
+               f' them all 0, into {info["bins"]} bins (at most '
+               f'{info["hottest"]} pairs a bin); pairs differing {n_bad}, max'
+               f' |d tau| {dtau:.3e}, per-pair deposits max rel err {dw:.3e}'
+               f', cubes max abs err {err:.3e} (atol 1e-5 x sum)')
+    del ch, grid
+    def limb_points(rec):
+        # 64 points of the disk: cos theta and vphi on an 8 x 8 lattice
+        i = torch.arange(B_MAIN, device=dev)
+        rec.limb_cost.copy_(((i % 8).float() + 0.5) / 8.0)
+        rec.limb_vphi.copy_(((i // 8 % 8).float() + 0.5) * (np.pi / 4.0))
+    cfg = testing.source_params(
+        'a090', ROOT, batch_size=B_MAIN, obsx=(0.0,), obsy=(0.0,),
+        obsz=(1e5,), alpha=(0.0,), beta=(0.0,), nobs=1,
+        save_direc0=True).resolve()
+    meta, grid = build_cartesian(cfg, device=dev)
+    ch = make_chunk(cfg, meta, grid)
+    info = {}
+    seed += 10
+    n_bad, n_dep, err, dtau, dw = peel_both(
+        ch, meta, seed, tpeel.STELLAR, dev, info=info,
+        state_fn=lambda sd: pinned_state(meta, sd, dev, None, 0.0,
+                                         (0.0, 0.0, 1.0)),
+        rec_prep=limb_points)
+    assert n_bad == 0, n_bad
+    _max_err(res, 'peel' + STELLAR_K + HOT, err)
+    log(2, f'K7 peel stellar, hot (a090 on +z, Direct0, every newborn at x '
+           f'0 and k +z, 64 points of the disk): {n_dep} of {B_MAIN} pairs in the image and the band, into '
+           f'{info.get("bins", 0)} bins (at most {info.get("hottest", 0)} '
+           f'pairs a bin); pairs differing {n_bad}, max |d tau| {dtau:.3e}, '
+           f'per-pair deposits max rel err {dw:.3e}, cubes max abs err '
+           f'{err:.3e}')
+
+
+# K7's packed walks (peel_packed): a quarter of the lanes flagged, so that
+# under half are peeled and their pairs fill at least min_pack threads; the
+# batch is PACK_B lanes whatever B_MAIN is (at 8192 no pairs pack)
+PACK_SHARE, PACK_B, PACKED = 0.25, 131072, ' (packed)'
+
+
+def peel_packed(label, ch, meta, seed, mode, dev, res, r_max=None):
+    """K7 where it packs its pairs into full warps (csrc/peel.cu
+    peel_kernel: thread j takes observer j / c and lane order[j % c] of its
+    first pass's list of c lanes): a record flagging PACK_SHARE of PACK_B
+    lanes, scattered among the others, against the plain version
+    (peel_both: 0 pairs differing in tau, bin and deposits, the cubes to
+    1e-5 of their sums), in two calls, so that both counts of the lane list
+    take their turn.  Each call must make both launches, its first pass
+    must list every flagged lane, and that count must pack (peel.packs, the
+    kernel's own test)."""
+    from lart_tpu_torch.instruments import peel as tpeel
+    p = ch.peel
+    p._lanes.clear()        # a new list runs its first pass and samples
+    parities = []
+    for call in range(2):
+        info = {}
+        n_bad, n_dep, err, dtau, dw = peel_both(
+            ch, meta, seed + call, mode, dev, r_max, info=info,
+            min_dep=0.05 * PACK_SHARE, share=PACK_SHARE, batch=PACK_B)
+        assert n_bad == 0, (label, n_bad)
+        assert info['launches'] == 2 and \
+            info['listed'] == info['flagged'], (label, info)
+        assert tpeel.packs(info['listed'], PACK_B, p.nobs,
+                           tpeel.min_pack(dev)), (label, info)
+        parities.append(info['parity'])
+        _max_err(res, 'peel' + PACKED, err)
+        res['peel' + PACKED].setdefault('cases', []).append(
+            f'{label}: {info["listed"]} of {PACK_B} lanes, parity '
+            f'{info["parity"]}, {n_dep} pairs deposit, 0 differing')
+        log(2, f'K7 peel packed, {label} (call {call + 1}): the first pass '
+               f'listed {info["listed"]} of {PACK_B} lanes into count '
+               f'{info["parity"]} ({p.nobs} observer; packed: 2 c < B and '
+               f'c nobs >= {tpeel.min_pack(dev)}); {n_dep} pairs deposit, '
+               f'pairs differing {n_bad}, max |d tau| {dtau:.3e}, per-pair '
+               f'deposits max rel err {dw:.3e}, cubes max abs err '
+               f'{err:.3e} (atol 1e-5 x sum)')
+    assert sorted(parities) == [0, 1], (label, parities)
 
 
 def k4_k2_with_record(name, ch, meta, dev, r_max, seed, res):
@@ -2943,6 +3136,9 @@ def phase2_inside(dev, res):
            f'{time.time() - t0:.1f} s')
     peel_cases('CIV_test (101x101x51 DDA, C IV doublet)', meta, ch,
                ('direct', 'resonance'))
+    seed += 2
+    peel_packed('CIV_test, interior, resonance', ch, meta, seed,
+                tpeel.RESONANCE, dev, res)
     sightline_case('CIV_test as written', cfg, meta, grid)
     s0, sk, frac, err, tal = both(meta, seed, refill_step(ch), ('Jin',),
                                   dev)
@@ -6297,6 +6493,10 @@ def main(argv=None):
                            'replaces lart_tpu/physics/voigt.py:23)'}
                if k in INLINES_VOIGT + ('peel',) else {}))
             for k, (src, rep) in KERNELS.items()]}
+        for entry in line['kernels']:
+            if entry['name'] == 'peel':
+                # K7's packed walks against the plain version (phase 2)
+                entry['packed'] = res['peel' + PACKED]
         lines = launches.get('lines', {})
         line['kernels'] += [dict(
             name=k + LINES, route='cuda', source=KERNELS[k][0], replaces=rep,

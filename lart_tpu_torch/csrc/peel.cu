@@ -47,9 +47,12 @@
 // ((x + u1) D1) / D2 - u2 (walk.cuh, shared with K5): a cell's opacity then
 // takes the cell's damping and Doppler width, and the event's bin and recoil
 // the event cell's D (peel.py:225-226, :336-340, :434-436, :486);
-// it stops where tau exceeds 745.2 or after max_steps = 2 (nx+ny+nz) + 8
-// crossings.  Deposits go into the flat (nobs, nxfreq, nxim, nyim) cubes by
-// f32 atomicAdd, so the sums come in no fixed order.  No random numbers.
+// it stops after max_steps = 2 (nx+ny+nz) + 8 crossings or once tau
+// reaches 110 (PEEL_TAU_STOP: exp(-110) is 0 in f32, so no deposit can
+// change; lart_tpu walks on to 745.2, so such a pair's tau_out is >= 110,
+// not the whole sightline's).  Deposits go into the flat (nobs, nxfreq,
+// nxim, nyim) cubes by f32 atomics, so the sums come in no fixed order.
+// No random numbers.
 //
 // On a clump medium (peel.py:86-170, :358-363; csrc/clump.cuh) the
 // sightline walks the CSR grid cell by cell, at most 3 cg_n + 8 cells: a
@@ -89,8 +92,8 @@
 // the newborn's lab-frequency bin.  A pair outside the image or the
 // frequency grid walks nothing; most pairs of an observer that does not
 // look at the star through the planet fall outside the image.
-// Bound: a dependent gather walk, one rhokap (and, moving, two velocity)
-// reads and one Voigt evaluation per crossing, ~1e2 flops a crossing; the
+// Bound: a dependent gather walk, one rhokap (and, moving, three velocity)
+// reads and one profile evaluation per crossing, ~1e2 flops a crossing; the
 // grid (up to 201^3 x 4 fields, 130 MB) does not fit the 50 MB L2, so a long
 // sightline is latency-bound on its gathers, and a warp waits for its
 // longest pair.  The bound counted in chip_smoke.py is the flops of the
@@ -98,6 +101,26 @@
 // mode reads and writes once (the flag, the lane and record fields it
 // reads, each distinct grid cell walked, each distinct cube bin of the 1-5
 // cubes it writes), whichever is larger.
+// Design for the card (PERF.md row 13, measured there): a walk takes what
+// does not change along it once (the profile and the H2 multiplier at a
+// static medium's uniform temperature) and carries into each crossing what
+// the last one read (the cell's index, a, D and u . k), the same functions
+// of the same inputs, so tau is the same to the bit; it stops at tau 110
+// (in thick media most crossings came after it).  Its arrays are indexed
+// by constants only and its functions forced inline, so they stay in
+// registers (the registers of each instance are those of the kernel
+// before, without spills).  The deposits crowd into the few bins a
+// source's line core fills, most of them 0 in a thick medium: every thread
+// reaches one deposit point, and a pair whose deposits are all 0 adds
+// nothing (summing a warp's or a block's equal bins first lost 1-3% once
+// the zeros were gone: the nonzero deposits are ~1 bin a warp).  Where
+// fewer than half the lanes are peeled (a thin medium's few scatterings)
+// but enough to fill two warps on each multiprocessor, a first launch
+// lists them and the walks run in full warps; fewer packed warps would
+// leave the gathers' latency unhidden, and past half the warps are full
+// enough.  The wrapper runs the first launch only where the count it last
+// sampled packed (instruments/peel.py LaneList), so a state that never
+// packs pays for it on one call in 64.
 #include "healpix.cuh"
 #include "lart.cuh"
 #include "mueller.cuh"
@@ -119,6 +142,12 @@ enum { DUST_OFF = 0, DUST_HG = 1, DUST_MUELLER = 2 };
 #define LART_FOURPI 12.566370614359172f
 #define LART_RAD2DEG 57.29577951308232f
 #define PEEL_TAU_HUGE 745.2f
+// a walk ends once tau >= PEEL_TAU_STOP: exp(-110) underflows f32 to 0,
+// so no deposit of the pair can be nonzero (tau_out is then >= 110, not
+// the whole sightline's)
+#define PEEL_TAU_STOP 110.0f
+#define PEEL_THREADS 128   // a block's pairs (instruments/peel.py THREADS)
+#define PEEL_SELECT_THREADS 1024  // a block of the first pass's lanes
 
 // The observers, the chord's line profile and this call's cubes; the host
 // passes it by pointer and the kernel by value.  lart_tpu_torch/instruments/
@@ -161,20 +190,33 @@ struct PeelParams {
 
 // the AMR sightline (peel.py:242-290): node by node as K8 walks, the
 // exit face, the snap to its plane, the neighbor hop and the descent, with
-// K8's comoving update in a moving medium or at non-uniform temperature
+// K8's comoving update in a moving medium or at non-uniform temperature.
+// A crossing carries the next leaf, its a and D and (moving) its u . k
+// into the next crossing, which read them again before; in a static
+// medium at uniform temperature the line profile and the H2 multiplier at
+// xf are taken once for the walk.  Each is the same function of the same
+// inputs, so tau is the same to the bit.
 template <bool kMulti, bool kH2>
-__device__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const float pos0[3],
+__device__ __forceinline__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const float pos0[3],
                                  int ic, const float k[3], float xf, bool band2, float cap) {
   const AmrGrid& a = g.amr;
-  const bool update = g.moving || a.Dfreq != nullptr;
+  const bool update = !band2 && (g.moving || a.Dfreq != nullptr);
+  const bool hoist = !band2 && !g.moving && !a.voigt_a && !a.Dfreq;
   float pos[3] = {pos0[0], pos0[1], pos0[2]};
   float tau = 0.0f, trav = 0.0f;
+  int il = amr_leaf(a, ic);
+  float a_c, D_c;
+  leaf_a_D(g, il, a_c, D_c);
+  float u1 = update && g.moving ? leaf_vel_dot(g, il, k) : 0.0f;
+  float H = 0.0f, h2m = 0.0f;
+  if (hoist) {
+    H = line_profile<kMulti>(g.line, xf, a_c, D_c);
+    if (kH2) h2m = h2_kappa(g.h2, xf, D_c);
+  }
   for (int n = 0; n < max_steps; ++n) {
-    const int il = amr_leaf(a, ic);
-    float a_c, D_c;
-    leaf_a_D(g, il, a_c, D_c);
-    const float rho =
-        band2 ? leaf_band2_opacity(g, il) : leaf_opacity<kMulti, kH2>(g, il, xf, a_c, D_c);
+    const float rho = band2 ? leaf_band2_opacity(g, il)
+                      : hoist ? leaf_opacity_at<kH2>(g, il, H, h2m)
+                              : leaf_opacity<kMulti, kH2>(g, il, xf, a_c, D_c);
     const int c = amr_clip_cell(a, ic);
     const float cen[3] = {__ldg(&a.node_cx[c]), __ldg(&a.node_cy[c]), __ldg(&a.node_cz[c])};
     const float h = __ldg(&a.node_ch[c]);
@@ -183,37 +225,43 @@ __device__ float tau_to_edge_amr(const FlightParams& g, int max_steps, const flo
     for (int q = 0; q < 3; ++q) t[q] = node_face_dist(pos[q], k[q], cen[q], h);
     const float dmin = fminf(fminf(t[0], t[1]), t[2]);
     const int axis = dmin == t[0] ? 0 : (dmin == t[1] ? 1 : 2);
-    const int face = axis * 2 + (k[axis] > 0.0f ? 0 : 1);
+    // k, pos and cen indexed by constants only, so that they stay in
+    // registers
+    const bool up = axis == 0 ? k[0] > 0.0f : axis == 1 ? k[1] > 0.0f : k[2] > 0.0f;
+    const int face = axis * 2 + (up ? 0 : 1);
     bool hit;
     const float dstep = capped_step(dmin, cap, trav, hit);
     tau = tau + dstep * rho;
     trav = trav + dstep;
     if (hit) break;
 #pragma unroll
-    for (int q = 0; q < 3; ++q) pos[q] = fmaf(dmin, k[q], pos[q]);
-    pos[axis] = cen[axis] + (k[axis] > 0.0f ? h : -h);
+    for (int q = 0; q < 3; ++q)
+      pos[q] = q == axis ? cen[q] + (up ? h : -h) : fmaf(dmin, k[q], pos[q]);
     const int nb = __ldg(&a.neighbor[c * 6 + face]);
     if (nb < 0) break;
-    const int icn = amr_descend_from_face(a, nb, face, pos[0], pos[1], pos[2]);
-    if (update) {
-      const float u1 = g.moving ? leaf_vel_dot(g, il, k) : 0.0f;
-      const int il2 = amr_leaf(a, icn);
+    ic = amr_descend_from_face(a, nb, face, pos[0], pos[1], pos[2]);
+    il = amr_leaf(a, ic);
+    if (!hoist && !band2) {
       float a2, D2;
-      leaf_a_D(g, il2, a2, D2);
-      const float u2 = g.moving ? leaf_vel_dot(g, il2, k) : 0.0f;
-      xf = (xf + u1) * D_c / D2 - u2;
+      leaf_a_D(g, il, a2, D2);
+      if (update) {
+        const float u2 = g.moving ? leaf_vel_dot(g, il, k) : 0.0f;
+        xf = (xf + u1) * D_c / D2 - u2;
+        u1 = u2;
+      }
+      a_c = a2;
+      D_c = D2;
     }
-    ic = icn;
-    if (!(tau < PEEL_TAU_HUGE)) break;
+    if (!(tau < PEEL_TAU_STOP)) break;
   }
   return tau;
 }
 
 // the clump sightline (tau_to_edge_clump, peel.py:86-170): CSR cell by
 // cell, each cell's candidates' chord overlaps at the global frequency xf,
-// to the cube's faces, tau 745.2 or max_steps cells
+// to the cube's faces, tau PEEL_TAU_STOP or max_steps cells
 template <bool kMulti>
-__device__ float tau_to_edge_clump(const FlightParams& g, int max_steps, const float pos0[3],
+__device__ __forceinline__ float tau_to_edge_clump(const FlightParams& g, int max_steps, const float pos0[3],
                                    const float k[3], float xf) {
   const ClumpGrid& c = g.clump;
   float pos[3] = {pos0[0], pos0[1], pos0[2]};
@@ -225,16 +273,21 @@ __device__ float tau_to_edge_clump(const FlightParams& g, int max_steps, const f
 #pragma unroll
     for (int a = 0; a < 3; ++a) pos[a] = fmaf(t_end, k[a], pos[a]);
     if (fabsf(pos[0]) >= c.R || fabsf(pos[1]) >= c.R || fabsf(pos[2]) >= c.R) break;
-    if (!(tau < PEEL_TAU_HUGE)) break;
+    if (!(tau < PEEL_TAU_STOP)) break;
   }
   return tau;
 }
 
 // optical depth from pos along k to the grid's edge at comoving frequency
 // xf; band2: the H-alpha band's dust-only opacity (0 without dust); cap >=
-// 0: the path length where the integration stops (an interior observer)
+// 0: the path length where the integration stops (an interior observer).
+// The DDA carries the next cell's flat index, a, D and (moving) u . k into
+// the next crossing, and in a static medium at uniform temperature takes
+// the line profile (and the H2 multiplier) at xf once: the same functions
+// of the same inputs as each crossing took them, so tau is the same to the
+// bit.
 template <bool kMulti, bool kH2>
-__device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
+__device__ __forceinline__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const float pos0[3],
                              const int cell0[3], const float k0[3], float xf, bool band2,
                              float cap) {
   if (band2 && !g.rhokapD) return 0.0f;
@@ -252,16 +305,30 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
     }
     return (t_out - t_in) * rho;
   }
+  const bool update = !band2 && (g.moving || g.cell_D);
+  const bool hoist = !band2 && !update;
   float pos[3] = {pos0[0], pos0[1], pos0[2]};
   float k[3] = {k0[0], k0[1], k0[2]};
   int cell[3] = {cell0[0], cell0[1], cell0[2]};
   float tau = 0.0f, trav = 0.0f;
+  int f = flat_index(g, cell[0], cell[1], cell[2]);
+  float a_c, D_c;
+  cell_a_D(g, f, a_c, D_c);
+  float u1 = update && g.moving ? vel_dot_at(g, f, k) : 0.0f;
+  float H = 0.0f, h2m = 0.0f;
+  if (hoist) {
+    H = line_profile<kMulti>(g.line, xf, a_c, D_c);
+    if (kH2) h2m = h2_kappa(g.h2, xf, D_c);
+  }
   for (int n = 0; n < p.max_steps; ++n) {
-    const int f = flat_index(g, cell[0], cell[1], cell[2]);
-    float a_c, D_c;
-    cell_a_D(g, f, a_c, D_c);
-    const float rho =
-        band2 ? band2_opacity(g, f) : cell_opacity<kMulti, kH2>(g, f, xf, a_c, D_c);
+    float rho;
+    if (band2) {
+      rho = band2_opacity(g, f);
+    } else if (hoist) {
+      rho = cell_opacity_at<kH2>(g, f, H, h2m);
+    } else {
+      rho = cell_opacity<kMulti, kH2>(g, f, xf, a_c, D_c);
+    }
     float t[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a)
@@ -275,33 +342,79 @@ __device__ float tau_to_edge(const FlightParams& g, const PeelParams& p, const f
     if (hit && !g.mask) break;
 #pragma unroll
     for (int a = 0; a < 3; ++a) pos[a] = fmaf(dmin, k[a], pos[a]);
-    const int old_cell[3] = {cell[0], cell[1], cell[2]};
-    const float old_k[3] = {k[0], k[1], k[2]};
-    const bool esc = cross_axis(g, axis, cell[axis], pos[axis], k[axis]);
+    // cell, pos and k indexed by constants only (registers)
+    const bool esc = axis == 0   ? cross_axis(g, 0, cell[0], pos[0], k[0])
+                     : axis == 1 ? cross_axis(g, 1, cell[1], pos[1], k[1])
+                                 : cross_axis(g, 2, cell[2], pos[2], k[2]);
+    f = flat_index(g, cell[0], cell[1], cell[2]);
     // a sightline into the masked core is opaque (peel.py:326-333)
-    if (!esc && g.mask && g.mask[flat_index(g, cell[0], cell[1], cell[2])]) {
+    if (!esc && g.mask && g.mask[f]) {
       tau = 2.0f * PEEL_TAU_HUGE;
       break;
     }
     if (esc || hit) break;
-    if (g.moving || g.cell_D) {
+    if (update) {
       // the comoving update (peel.py:336-340), at each cell's D
-      const float u1 = g.moving ? vel_dot(g, old_cell, old_k) : 0.0f;
-      const float u2 = g.moving ? vel_dot(g, cell, k) : 0.0f;
-      const float D2 = cell_D_of(g, flat_index(g, cell[0], cell[1], cell[2]));
+      float a2, D2;
+      cell_a_D(g, f, a2, D2);
+      const float u2 = g.moving ? vel_dot_at(g, f, k) : 0.0f;
       xf = (xf + u1) * D_c / D2 - u2;
+      u1 = u2;
+      a_c = a2;
+      D_c = D2;
     }
-    if (!(tau < PEEL_TAU_HUGE)) break;
+    if (!(tau < PEEL_TAU_STOP)) break;
   }
   return tau;
+}
+
+// A pair's deposits: key, the flat cube bin (+ nobs nxfreq nxim nyim for
+// the H-alpha cube), -1 for none, and its components v: Direct (and I)
+// and Direct0 at a birth; scatt (and I), Q, U, V at a scattering, or Ha.
+struct PeelDep {
+  int key = -1;
+  float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  __device__ void set(int k, float a, float b, float c, float e) {
+    key = k;
+    v[0] = a;
+    v[1] = b;
+    v[2] = c;
+    v[3] = e;
+  }
+};
+
+__device__ inline void add_nonzero(float* at, float v) {
+  if (v != 0.0f) atomicAdd(at, v);
+}
+
+// the components v of key into the cubes (a component of 0 adds nothing)
+__device__ inline void peel_add(const PeelParams& p, int mode, int ncomp, int key,
+                                const float v[4]) {
+  const int nbin = p.nobs * p.nxfreq * p.nxim * p.nyim;
+  if (key >= nbin) {
+    add_nonzero(&p.Ha[key - nbin], v[0]);
+  } else if (mode == PEEL_DIRECT || mode == PEEL_STELLAR) {
+    add_nonzero(&p.direc[key], v[0]);
+    if (p.stokes) add_nonzero(&p.I[key], v[0]);
+    if (ncomp > 1) add_nonzero(&p.direc0[key], v[1]);
+  } else {
+    add_nonzero(&p.scatt[key], v[0]);
+    if (ncomp > 1) {
+      add_nonzero(&p.I[key], v[0]);
+      add_nonzero(&p.Q[key], v[1]);
+      add_nonzero(&p.U[key], v[2]);
+      add_nonzero(&p.V[key], v[3]);
+    }
+  }
 }
 
 // PEEL_STELLAR's pair (observer o, lane i): cell and il the newborn's cell
 // and AMR leaf, D_c its Doppler width
 template <bool kMulti, bool kH2>
-__device__ void peel_stellar(const Lanes& s, const PeelRecord& rec, int i, int o, long long t,
-                             const FlightParams& g, const PeelParams& p, const int cell[3],
-                             int il, float D_c) {
+__device__ __forceinline__ PeelDep peel_stellar(const Lanes& s, const PeelRecord& rec, int i, int o,
+                                long long t, const FlightParams& g, const PeelParams& p,
+                                const int cell[3], int il, float D_c) {
+  PeelDep d;
   const bool amr = g.amr.ncells != 0, clump = g.clump.n != 0;
   // the newborn's lab frequency in reference Doppler units and its bin
   float xr = s.xfreq[i];
@@ -312,7 +425,7 @@ __device__ void peel_stellar(const Lanes& s, const PeelRecord& rec, int i, int o
   }
   xr = xr * (D_c / g.Dfreq);
   const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
-  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
+  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return d;
   // the star -> observer axis, the star at (0, 0, -D)
   const float* op = p.obs_pos + 3 * o;
   const float* R = p.obs_rmat + 9 * o;
@@ -356,7 +469,7 @@ __device__ void peel_stellar(const Lanes& s, const PeelRecord& rec, int i, int o
   const float okz = R[6] * pk[0] + R[7] * pk[1] + R[8] * pk[2];
   const int ix = (int)floorf(atan2f(-okx, okz) * LART_RAD2DEG / p.dxim + 0.5f * (float)p.nxim);
   const int iy = (int)floorf(atan2f(-oky, okz) * LART_RAD2DEG / p.dyim + 0.5f * (float)p.nyim);
-  if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return;
+  if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return d;
   const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + ix * p.nyim + iy;
   // the atmosphere sphere's crossing (lart_tpu's test r.k < 0, det >= 0)
   const float r_dot_k = xx * pk[0] + yy * pk[1] + zz * pk[2];
@@ -395,24 +508,26 @@ __device__ void peel_stellar(const Lanes& s, const PeelRecord& rec, int i, int o
   }
   const float w0 = 1.0f / d_so2;
   const float w = w0 * atten;
-  atomicAdd(&p.direc[idx], w);
-  if (p.direc0) atomicAdd(&p.direc0[idx], w0);
-  if (p.stokes) atomicAdd(&p.I[idx], w);
   if (p.tau_out) {
     p.tau_out[t] = tau;
     p.bin_out[t] = idx;
     p.w_out[t] = w;
   }
+  // Direct (and I) w, Direct0 the unattenuated w0
+  d.set(idx, w, w0, 0.0f, 0.0f);
+  return d;
 }
 
+// The deposit of pair t = o B + i (observer o, lane i), t < B nobs: its
+// tau_out, bin_out and w_out written where asked for, its deposits
+// returned (key -1 where it makes none)
 template <bool kMulti, bool kH2>
-__global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightParams g,
-                            PeelParams p) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * p.nobs) return;
+__device__ __forceinline__ PeelDep peel_pair(const Lanes& s, const PeelRecord& rec, int B, int mode,
+                             const FlightParams& g, const PeelParams& p, long long t) {
+  PeelDep d;
   const int o = (int)(t / B), i = (int)(t % B);
   const int kind = rec.flag[i];
-  if (mode == PEEL_DIRECT || mode == PEEL_STELLAR ? kind == 0 : (kind & mode) == 0) return;
+  if (mode == PEEL_DIRECT || mode == PEEL_STELLAR ? kind == 0 : (kind & mode) == 0) return d;
   const float pos[3] = {s.x[i], s.y[i], s.z[i]};
   const int cell[3] = {s.ic[i], s.jc[i], s.kc[i]};
   // the event cell's leaf, damping and Doppler width on the AMR grid (the
@@ -423,10 +538,8 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   if (amr) leaf_a_D(g, il, a_c, D_c);
   if (clump) D_c = g.clump.D_cl;
   if (!amr && !clump && g.cell_D) cell_a_D(g, flat_index(g, cell[0], cell[1], cell[2]), a_c, D_c);
-  if (mode == PEEL_STELLAR) {
-    peel_stellar<kMulti, kH2>(s, rec, i, o, t, g, p, cell, il, D_c);
-    return;
-  }
+  if (mode == PEEL_STELLAR)
+    return peel_stellar<kMulti, kH2>(s, rec, i, o, t, g, p, cell, il, D_c);
 
   // obs_geometry: the unit direction to the observer and its pixel, TAN
   // (external) or the HEALPix pixel of the arrival direction -pk with the
@@ -442,7 +555,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   int img;
   float cap = -1.0f;
   if (p.inside) {
-    if (!(r2 > 1e-12f)) return;
+    if (!(r2 > 1e-12f)) return d;
     img = vec2pix_ring(p.nside, -pk[0], -pk[1], -pk[2]);
     cap = r;
   } else {
@@ -453,7 +566,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
         (int)floorf(atan2f(-okx, okz) * LART_RAD2DEG / p.dxim + 0.5f * (float)p.nxim);
     const int iy =
         (int)floorf(atan2f(-oky, okz) * LART_RAD2DEG / p.dyim + 0.5f * (float)p.nyim);
-    if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return;
+    if (ix < 0 || ix >= p.nxim || iy < 0 || iy >= p.nyim) return d;
     img = ix * p.nyim + iy;
   }
 
@@ -515,7 +628,7 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
                      : amr ? leaf_vel_dot(g, il, pk) : vel_dot(g, cell, pk));
   if (!b2) xr = xr * (D_c / g.Dfreq);
   const float fx = floorf((xr - g.xfreq_min) / g.dxfreq);
-  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return;
+  if (!(fx >= 0.0f && fx < (float)p.nxfreq)) return d;
   const int idx = (o * p.nxfreq + (int)fx) * (p.nxim * p.nyim) + img;
 
   const float tau = tau_to_edge<kMulti, kH2>(g, p, pos, cell, pk, xf, conv || b2, cap);
@@ -528,19 +641,20 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   const float wgt = s.wgt[i];
   if (mode == PEEL_DIRECT) {
     const float w = atten / (LART_FOURPI * r2) * wgt;
-    atomicAdd(&p.direc[idx], w);
-    if (p.stokes) atomicAdd(&p.I[idx], w);
     if (p.w_out) p.w_out[t] = w;
-    return;
+    d.set(idx, w, 0.0f, 0.0f, 0.0f);
+    return d;
   }
+  // the H-alpha cube's bins are keyed past the others'
+  const int nbin = p.nobs * p.nxfreq * p.nxim * p.nyim;
   const float cost2 = cost * cost;
   if (conv) {
     // the dipole phase of the 3p -> 2s channel
     const float phase = 0.75f * g.line.E1[1] * (cost2 + 1.0f) + g.line.E2[1];
     const float w = phase / (LART_FOURPI * r2) * atten * wgt;
-    atomicAdd(&p.Ha[idx], w);
     if (p.w_out) p.w_out[t] = w;
-    return;
+    d.set(nbin + idx, w, 0.0f, 0.0f, 0.0f);
+    return d;
   }
   // the resonance's phase weights: the event's own for line types 2, 4-6
   const bool lane_E = kMulti && g.line.per_lane_E;
@@ -559,9 +673,9 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
       const float phase = 0.75f * E1 * (cost2 + 1.0f) + E2;
       w = phase / (LART_FOURPI * r2) * atten * wgt;
     }
-    atomicAdd(&(b2 ? p.Ha : p.scatt)[idx], w);
     if (p.w_out) p.w_out[t] = w;
-    return;
+    d.set(b2 ? nbin + idx : idx, w, 0.0f, 0.0f, 0.0f);
+    return d;
   }
   // the scattered Stokes vector, rotated to the detector frame
   const float cos2p = 2.0f * cosp * cosp - 1.0f;
@@ -599,37 +713,123 @@ __global__ void peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightPara
   const float Udet = -sin2g * Qobs + cos2g * Uobs;
   const float w = atten / r2 * wgt;
   const float wI = w * Iobs, wQ = w * Qdet, wU = w * Udet, wV = w * Vobs;
-  atomicAdd(&p.scatt[idx], wI);
-  atomicAdd(&p.I[idx], wI);
-  atomicAdd(&p.Q[idx], wQ);
-  atomicAdd(&p.U[idx], wU);
-  atomicAdd(&p.V[idx], wV);
   if (p.w_out) {
     p.w_out[t] = wI;
     p.w_out[n + t] = wQ;
     p.w_out[2 * n + t] = wU;
     p.w_out[3 * n + t] = wV;
   }
+  d.set(idx, wI, wQ, wU, wV);
+  return d;
 }
 
+// K7's first pass where the wrapper gives `order` (B + 2 ints): the lanes
+// the mode peels, each lane's index written at order[ticket], in lane order
+// within a block; a block takes its tickets by one atomic on the count
+// order[B + parity] (a ticket a warp, as K2 takes them, would queue B / 32
+// atomics on one address).  The count is 0 before the launch: the walk of
+// the launch before, of the other parity, zeroed it.
+__global__ void __launch_bounds__(PEEL_SELECT_THREADS)
+    peel_select_kernel(PeelRecord rec, int B, int mode, int* order, int parity) {
+  __shared__ int warp_at[PEEL_SELECT_THREADS / 32];
+  const unsigned full = 0xffffffffu;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  bool on = false;
+  if (i < B) {
+    const int kind = rec.flag[i];
+    on = mode == PEEL_DIRECT || mode == PEEL_STELLAR ? kind != 0 : (kind & mode) != 0;
+  }
+  const unsigned m = __ballot_sync(full, on);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_at[warp] = __popc(m);
+  __syncthreads();
+  if (warp == 0) {
+    // the warps' counts, scanned; the block's base from the count
+    const int own = lane < (int)(blockDim.x >> 5) ? warp_at[lane] : 0;
+    int v = own;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(full, v, off);
+      if (lane >= off) v += u;
+    }
+    const int total = __shfl_sync(full, v, 31);
+    int base = 0;
+    if (lane == 0 && total) base = atomicAdd(&order[B + parity], total);
+    base = __shfl_sync(full, base, 0);
+    if (lane < (int)(blockDim.x >> 5)) warp_at[lane] = base + v - own;
+  }
+  __syncthreads();
+  if (on) order[warp_at[warp] + __popc(m & ((1u << lane) - 1u))] = i;
+}
+
+// K7: one thread a pair, t = o B + lane.  With order (the first pass's
+// list of the c = order[B + parity] lanes to peel), where fewer than half
+// the lanes are peeled but their pairs fill at least min_pack threads,
+// thread j < c nobs takes the pair of observer j / c and lane order[j % c],
+// so that the pairs walk in full warps; where more are peeled the warps
+// are full enough as the lanes lie, and where fewer the packed warps would
+// be too few to hide their gathers' latency.  Every thread, the grid's
+// tail too, reaches the one deposit point, where a pair whose deposits
+// are all 0 adds nothing; ncomp is the count of the mode's components, 1
+// to 4 (PeelDep).
+template <bool kMulti, bool kH2>
+__global__ void __launch_bounds__(PEEL_THREADS)
+    peel_kernel(Lanes s, PeelRecord rec, int B, int mode, FlightParams g, PeelParams p,
+                int ncomp, int* order, int parity, int min_pack) {
+  const long long n = (long long)B * p.nobs;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (order) {
+    const int c = order[B + parity];
+    if (2 * c < B && (long long)c * p.nobs >= min_pack)
+      t = t < (long long)c * p.nobs ? (t / c) * B + order[t % c] : n;
+    // the next launch's count (the launch before read it)
+    if (blockIdx.x == 0 && threadIdx.x == 0) order[B + 1 - parity] = 0;
+  }
+  PeelDep d;
+  if (t < n) d = peel_pair<kMulti, kH2>(s, rec, B, mode, g, p, t);
+  // the cubes start at +0; the loop runs to 4 so that v stays in registers
+  bool zero = true;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) zero = zero && (c >= ncomp || d.v[c] == 0.0f);
+  if (d.key >= 0 && !zero) peel_add(p, mode, ncomp, d.key, d.v);
+}
+
+template <bool kMulti, bool kH2>
+void peel_launch(const Lanes& s, const PeelRecord& r, int B, int mode, const FlightParams& g,
+                 const PeelParams& p, int ncomp, int* order, int parity, int min_pack,
+                 unsigned blocks, cudaStream_t st) {
+  if (order)
+    peel_select_kernel<<<(B + PEEL_SELECT_THREADS - 1) / PEEL_SELECT_THREADS,
+                         PEEL_SELECT_THREADS, 0, st>>>(r, B, mode, order, parity);
+  peel_kernel<kMulti, kH2><<<blocks, PEEL_THREADS, 0, st>>>(s, r, B, mode, g, p, ncomp, order,
+                                                            parity, min_pack);
+}
+
+// ncomp: the mode's components (instruments/peel.py n_components); order:
+// null (one launch), or B + 2 ints for the lanes to peel and two counts,
+// order[B + parity] 0 before the launch (two launches), the other zeroed
+// by it; min_pack the fewest pairs the walk packs into full warps
 LART_API int lart_peel(void* const* lanes, void* const* record, int B, int mode,
-                       const FlightParams* g, const PeelParams* p, void* stream) {
+                       const FlightParams* g, const PeelParams* p, int ncomp, int* order,
+                       int parity, int min_pack, void* stream) {
   const long long n = (long long)B * p->nobs;
   if (n > 0) {
-    const int threads = 128;
-    const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+    const unsigned blocks = (unsigned)((n + PEEL_THREADS - 1) / PEEL_THREADS);
     const Lanes s = unpack_lanes(lanes);
     const PeelRecord r = unpack_record(record);
     cudaStream_t st = (cudaStream_t)stream;
     const bool multi = g->line.line_type != 1, h2 = g->h2.n_lines > 0;
     if (!multi && !h2)
-      peel_kernel<false, false><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
+      peel_launch<false, false>(s, r, B, mode, *g, *p, ncomp, order, parity, min_pack, blocks,
+                                st);
     else if (!multi)
-      peel_kernel<false, true><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
+      peel_launch<false, true>(s, r, B, mode, *g, *p, ncomp, order, parity, min_pack, blocks,
+                               st);
     else if (!h2)
-      peel_kernel<true, false><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
+      peel_launch<true, false>(s, r, B, mode, *g, *p, ncomp, order, parity, min_pack, blocks,
+                               st);
     else
-      peel_kernel<true, true><<<blocks, threads, 0, st>>>(s, r, B, mode, *g, *p);
+      peel_launch<true, true>(s, r, B, mode, *g, *p, ncomp, order, parity, min_pack, blocks,
+                              st);
   }
   return (int)cudaGetLastError();
 }

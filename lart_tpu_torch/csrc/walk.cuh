@@ -54,6 +54,18 @@ __device__ inline float cell_opacity(const FlightParams& p, int f, float xf, flo
   return cell_opacity<kMulti, kH2>(p, f, xf, a, D, rhoH);
 }
 
+// cell_opacity with its line profile H = H_eff(x) and H2 multiplier h2m
+// taken before (a walk whose x, a and D stay the same): the same
+// operations in the same order
+template <bool kH2>
+__device__ inline float cell_opacity_at(const FlightParams& p, int f, float H, float h2m) {
+  const float rk = p.rhokap[f];
+  float rho = rk * H;
+  if (kH2) rho = rho + rk * h2m;
+  if (p.rhokapD) rho = rho + p.rhokapD[f];
+  return rho;
+}
+
 // the H-alpha band's opacity (line type 8): the dust's, scaled to H-alpha
 // (engine.py:1121-1126), and none without dust
 __device__ inline float band2_opacity(const FlightParams& p, int f) {
@@ -79,6 +91,16 @@ __device__ inline float leaf_opacity(const FlightParams& p, int il, float xf, fl
   return rho;
 }
 
+// leaf_opacity with H and h2m taken before, as cell_opacity_at
+template <bool kH2>
+__device__ inline float leaf_opacity_at(const FlightParams& p, int il, float H, float h2m) {
+  const float rk = leaf_gather(p.rhokap, il, 0.0f);
+  float rho = rk * H;
+  if (kH2) rho = rho + rk * h2m;
+  if (p.rhokapD) rho = rho + leaf_gather(p.rhokapD, il, 0.0f);
+  return rho;
+}
+
 __device__ inline float leaf_band2_opacity(const FlightParams& p, int il) {
   return p.rhokapD ? leaf_gather(p.rhokapD, il, 0.0f) * p.R_Ha : 0.0f;
 }
@@ -95,11 +117,15 @@ __device__ inline float node_face_dist(float pos, float k, float c, float h) {
   return fmaxf((c + (k > 0.0f ? h : -h) - pos) / k, 0.0f);
 }
 
-// u . k in thermal units of cell (i, j, k) (engine.cell_velocity_dot), as
-// XLA contracts the sum of products: fma(vz, kz, fma(vx, kx, vy ky))
-__device__ inline float vel_dot(const FlightParams& p, const int c[3], const float k[3]) {
-  const int f = flat_index(p, c[0], c[1], c[2]);
+// u . k in thermal units of flat cell f or cell (i, j, k)
+// (engine.cell_velocity_dot), as XLA contracts the sum of products:
+// fma(vz, kz, fma(vx, kx, vy ky))
+__device__ inline float vel_dot_at(const FlightParams& p, int f, const float k[3]) {
   return fmaf(p.vfz[f], k[2], fmaf(p.vfx[f], k[0], p.vfy[f] * k[1]));
+}
+
+__device__ inline float vel_dot(const FlightParams& p, const int c[3], const float k[3]) {
+  return vel_dot_at(p, flat_index(p, c[0], c[1], c[2]), k);
 }
 
 // distance to the exit face along one axis (engine.py:1075-1079)

@@ -40,8 +40,10 @@ periodic, reflect) and, in a moving medium or at non-uniform temperature,
 its comoving frequency updates ((x + u1) D1) / D2 - u2; at non-uniform
 temperature a cell's opacity takes its own damping and Doppler width, and
 the event's bin and recoil the event cell's D (peel.py:225-226, :336-340,
-:434-436, :486); it stops where tau exceeds 745.2 or after 2 (nx + ny +
-nz) + 8 crossings.  The walk draws no random numbers.
+:434-436, :486); it stops after 2 (nx + ny + nz) + 8 crossings or where
+tau reaches TAU_STOP = 110, beyond which exp(-tau) is 0 in f32 and no
+deposit changes (lart_tpu walks on to 745.2, so a pair's tau is then >=
+110, not the whole sightline's).  The walk draws no random numbers.
 
 With H2 pumping the sightline's opacity adds rhokap times the H2
 multiplier (:229-231).  For line type 8 (Ly-beta) the record marks a
@@ -132,6 +134,10 @@ RAD2DEG = 180.0 / math.pi
 TWOPI = 2.0 * math.pi
 FOURPI = 4.0 * math.pi
 TAU_HUGE = 745.2
+# a sightline ends once tau >= TAU_STOP: exp(-110) underflows f32 to 0, so
+# no deposit of the pair can be nonzero; its tau is then >= 110 (lart_tpu
+# walks on to 745.2)
+TAU_STOP = 110.0
 # modes; a scatter mode peels the lanes whose record flag, K4's kind of
 # event, it has a bit of; STELLAR peels a stellar source's newborns
 DIRECT, RESONANCE, DUST, CONVERSION = (0, EVENT_RESONANCE, EVENT_DUST,
@@ -144,6 +150,14 @@ PEEL_RECORD_FIELDS = ('flag', 'kx', 'ky', 'kz', 'mx', 'my', 'mz', 'nnx',
                       'nny', 'nnz', 'Q', 'U', 'V', 'xatom', 'ux', 'uy',
                       'uz', 'E1', 'E2', 'E3', 'limb_cost', 'limb_vphi')
 CUBE_FIELDS = ('scatt', 'direc', 'I', 'Q', 'U', 'V', 'Ha', 'direc0')
+# the fewest full warps a streaming multiprocessor that K7 packs its pairs
+# into (where under half the lanes are peeled) must get: fewer leave the
+# walks' gathers' latency unhidden
+PACK_WARPS_PER_SM = 2
+# K7's first pass (csrc/peel.cu peel_select_kernel) runs for a mode where
+# the count it last sampled would pack the walk, and on every
+# SAMPLE_EVERY-th call of the mode to sample the count
+SAMPLE_EVERY = 64
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -264,6 +278,9 @@ class Peel:
     # fills Direct0 (save_direc0)
     stellar: Optional[tuple] = None
     direc0: bool = False
+    # K7's list of the lanes to peel on each (device, batch): lane_list
+    _lanes: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @classmethod
     def from_config(cls, cfg, meta, grid, uniform_sphere: bool, cmeta=None
@@ -375,6 +392,13 @@ class Peel:
             c.atm_R2 = self.stellar[2] * self.stellar[2]
         return c
 
+    def lane_list(self, state) -> 'LaneList':
+        """K7's LaneList for the state's device and batch."""
+        key = (state.device, state.batch)
+        if key not in self._lanes:
+            self._lanes[key] = LaneList(state.batch, state.device)
+        return self._lanes[key]
+
     def c_params(self, cubes: PeelCubes, pair_out=None) -> PeelParams:
         """The C struct with this call's cube pointers (the launch copies
         it); pair_out, when given, is (tau_out, bin_out, w_out) of peel()."""
@@ -386,6 +410,78 @@ class Peel:
                         (None,) * 3):
             setattr(c, f, None if t is None else t.data_ptr())
         return c
+
+
+def packs(c: int, batch: int, nobs: int, min_pack: int) -> bool:
+    """Whether K7 packs the walks of c peeled lanes of `batch` into full
+    warps (csrc/peel.cu peel_kernel takes the same test on the card)."""
+    return 2 * c < batch and c * nobs >= min_pack
+
+
+@dataclasses.dataclass(eq=False)
+class PassGate:
+    """Whether K7's first pass runs for one mode: `packs`, what the count
+    last read says (True before any), `calls` so far, and the pinned
+    `count` that a sampling call's copy lands in, with the `event` after
+    it (None once read)."""
+    packs: bool = True
+    calls: int = 0
+    count: Optional[torch.Tensor] = None
+    event: Optional[torch.cuda.Event] = None
+
+
+class LaneList:
+    """K7's list of the lanes to peel on one (device, batch) (csrc/peel.cu
+    peel_select_kernel): `order`, B lanes and two counts, zeroed once; a
+    launch with the list counts into order[B + parity] and zeroes the
+    other count for the next, which takes the other parity.  For each mode
+    a PassGate: the first pass runs where the count last read packs, or
+    none has been read, and on every SAMPLE_EVERY-th call, which copies
+    its count to pinned memory behind the launch; a later call reads it
+    once its event has passed, never waiting for it."""
+
+    def __init__(self, batch: int, device):
+        self.order = torch.zeros((batch + 2,), dtype=torch.int32,
+                                 device=device)
+        self.parity = 0
+        self.gates = {}
+
+    def take(self, mode: int, nobs: int, min_pack: int) -> tuple:
+        """(order or None, parity, sample) of this call's launch in
+        `mode`; sample(stream), where not None, follows the launch."""
+        B = len(self.order) - 2
+        g = self.gates.get(mode)
+        if g is None:
+            g = self.gates[mode] = PassGate(count=torch.zeros(
+                (1,), dtype=torch.int32, pin_memory=True))
+        if g.event is not None and g.event.query():
+            g.packs = packs(int(g.count[0]), B, nobs, min_pack)
+            g.event = None
+        sample = g.calls % SAMPLE_EVERY == 0 and g.event is None
+        g.calls += 1
+        if not (g.packs or sample):
+            return None, 0, None
+        parity = self.parity
+        self.parity = 1 - parity
+
+        def copy(stream):
+            g.count.copy_(self.order[B + parity:B + parity + 1],
+                          non_blocking=True)
+            g.event = torch.cuda.Event()
+            g.event.record(stream)
+        return self.order, parity, copy if sample else None
+
+
+def n_components(p: Peel, mode: int) -> int:
+    """The deposits a pair of `mode` makes at its bin (csrc/peel.cu
+    PeelDep and peel_add): a birth's Direct (and I with Stokes) and,
+    stellar with save_direc0, Direct0; a scattering's scatt (and I) and,
+    with Stokes, Q, U, V (a conversion's or an H-alpha band dust event's
+    Ha alone, its key past the other cubes' n_bins)."""
+    if mode in (DIRECT, STELLAR):
+        return 2 if mode == STELLAR and p.direc0 else 1
+    return 4 if p.stokes else 1
+
 
 
 # --------------------------------------------------------------------------
@@ -544,7 +640,7 @@ def tau_to_edge(p: Peel, pos, cell, k, xf, active, stats=None, band2=None,
             D1 = g.cell_a_D(flat)[1]
             D2 = g.cell_a_D(g.flat(*ncell))[1]
             xf = torch.where(esc, xf, comoving(xf, u1, D1, D2, u2))
-        done = esc | hit_cap | ~(acc < TAU_HUGE)
+        done = esc | hit_cap | ~(acc < TAU_STOP)
         tau[idx[done]] = acc[done]
         keep = ~done
         idx, xf, acc, trav = idx[keep], xf[keep], acc[keep], trav[keep]
@@ -602,7 +698,7 @@ def _tau_amr(p: Peel, pos, ic, k, xf, active, stats=None, band2=None,
             xf = torch.where(esc, xf, comoving(
                 xf, g.leaf_vel_dot(il, *k), D_c, D2,
                 g.leaf_vel_dot(il2, *k)))
-        done = esc | hit_cap | ~(acc < TAU_HUGE)
+        done = esc | hit_cap | ~(acc < TAU_STOP)
         tau[idx[done]] = acc[done]
         keep = ~done
         idx, xf, acc, ic = idx[keep], xf[keep], acc[keep], icn[keep]
@@ -620,7 +716,7 @@ def _tau_clump(p: Peel, pos, k, xf, active, stats=None):
     """tau_to_edge's clump sightline (peel.py:86-170): CSR cell by cell,
     each cell's candidates' chord overlaps clipped to the cell segment (plus
     the nudge) at their local frequencies, summed in table order, to the
-    cube's faces, tau 745.2 or max_steps cells; stats as in tau_to_edge, the
+    cube's faces, tau TAU_STOP or max_steps cells; stats as in tau_to_edge, the
     cells being the candidate clumps read, and its mask 'csr' marks the CSR
     cells walked."""
     g = p.grid
@@ -660,7 +756,7 @@ def _tau_clump(p: Peel, pos, k, xf, active, stats=None):
         pos = [fma(t_end, k[a], pos[a]) for a in range(3)]
         out = ((torch.abs(pos[0]) >= cl.R) | (torch.abs(pos[1]) >= cl.R)
                | (torch.abs(pos[2]) >= cl.R))
-        done = out | ~(acc < TAU_HUGE)
+        done = out | ~(acc < TAU_STOP)
         tau[idx[done]] = acc[done]
         keep = ~done
         idx, xf, acc = idx[keep], xf[keep], acc[keep]
@@ -1032,6 +1128,15 @@ def peel_stellar_plain(s, cubes: PeelCubes, rec: PeelRecord, p: Peel,
         stats['csr'] = int(stats.pop('csr').sum()) if 'csr' in stats else 0
 
 
+@functools.lru_cache(maxsize=None)
+def min_pack(device) -> int:
+    """The fewest pairs K7 packs into full warps on `device` (a CUDA
+    device): PACK_WARPS_PER_SM warps of 32 on each of its streaming
+    multiprocessors."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return PACK_WARPS_PER_SM * 32 * sms
+
+
 def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
          tau_out=None, bin_out=None, w_out=None) -> None:
     """Peel the flagged lanes to every observer, in place: kernel K7 for a
@@ -1041,11 +1146,14 @@ def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
     a union of them, SCATTERED all three) the lanes whose flag, K4's kind
     of event, it has a bit of.
     tau_out (nobs*B f32), bin_out (nobs*B int32) and w_out (4*nobs*B f32),
-    given together or not at all, receive the optical depth, the flat cube
+    given together or not at all, receive the optical depth (>= TAU_STOP,
+    not the whole sightline's, where the walk stopped there), the flat cube
     index and the deposits of each (observer, lane) pair that deposits:
     pair t = o*B + lane gets its scatt (scattering), Ha (conversion, the
     H-alpha band's dust event) or direc (direct) deposit at w_out[t] and, in a scattering with Stokes, its Q, U, V
-    deposits at w_out[t + c*nobs*B], c = 1, 2, 3."""
+    deposits at w_out[t + c*nobs*B], c = 1, 2, 3.  On the card K7 makes
+    two launches where its LaneList runs the first pass (off the chord;
+    each counted in LAUNCHES), one elsewhere."""
     if state.device.type == 'cpu':
         peel_plain(state, cubes, rec, p, mode, tau_out, bin_out, w_out)
         return
@@ -1053,9 +1161,21 @@ def peel(state, cubes: PeelCubes, rec: PeelRecord, p: Peel, mode: int,
     kbuild.require_cuda('peel', state.x, rec.flag, *p.device_tensors(),
                         *(t for _, t in cubes.items()), *out)
     name = 'peel_stellar' if mode == STELLAR else 'peel'
+    n = p.nobs * state.batch
+    assert n < 2 ** 31, f'K7: {n} pairs do not fit an int32 index'
+    # a deposit's key, the flat cube bin (+ n_bins for Ha), is an int32
+    ha = p.lyb and mode not in (DIRECT, STELLAR)
+    assert (2 if ha else 1) * p.n_bins < 2 ** 31, \
+        f'K7: {p.n_bins} cube bins do not fit an int32 key'
+    order, parity, sample = (None, 0, None) if p.chord else \
+        p.lane_list(state).take(mode, p.nobs, min_pack(state.device))
+    stream = torch.cuda.current_stream(state.device)
     kbuild.check(kbuild.library().lart_peel(
         state.lane_pointers, rec.pointers, state.batch, mode,
         ctypes.byref(p.grid.c_grid_params),
-        ctypes.byref(p.c_params(cubes, out)),
-        kbuild.stream_of(state.x)), name)
-    kbuild.LAUNCHES[name] += 1
+        ctypes.byref(p.c_params(cubes, out)), n_components(p, mode),
+        None if order is None else order.data_ptr(), parity,
+        min_pack(state.device), stream.cuda_stream), name)
+    kbuild.LAUNCHES[name] += 1 if order is None else 2
+    if sample is not None:
+        sample(stream)

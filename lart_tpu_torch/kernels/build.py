@@ -18,8 +18,10 @@ Every C entry point returns cudaGetLastError() after its launch; `check`
 raises if it is not 0.  LAUNCHES counts the launches of each kernel in this
 process: a wrapper adds one where it launches its kernel, and nowhere else
 (K7 in mode PEEL_STELLAR under 'peel_stellar', its other modes under
-'peel'), and 'all_reduce' the per-chunk tally all-reduces across ranks
-(parallel/reduce.py, NCCL or gloo).  A run of several ranks counts in each
+'peel': two launches a call where it runs its first pass, which
+instruments/peel.py LaneList decides, one otherwise), and 'all_reduce'
+the per-chunk tally all-reduces across ranks (parallel/reduce.py, NCCL or
+gloo).  A run of several ranks counts in each
 rank's process; parallel/launch.py adds the ranks' counts into the
 caller's.
 """
@@ -183,7 +185,7 @@ def library() -> ctypes.CDLL:
             lart_fly_clump_dense=[_LANES, _I, _I, flight, _P],
             lart_fly_clump_csr=[_LANES, _I, _I, flight, _P],
             lart_peel=[_LANES, _LANES, _I, _I, flight,
-                       ctypes.POINTER(PeelParams), _P],
+                       ctypes.POINTER(PeelParams), _I, _P, _I, _I, _P],
             lart_scatter_lya=[_LANES, _LANES, _I, _U, _U,
                               ctypes.POINTER(ScatterC), _I, _P],
             lart_sightline=[flight, ctypes.POINTER(SightParams), _P])

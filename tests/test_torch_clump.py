@@ -234,8 +234,8 @@ def test_peel_tau_matches_make_peel(case):
         j = jtau(jd, *(jnp.asarray(v.numpy()) for v in (
             s.x, s.y, s.z, s.ic, s.jc, s.kc, *pk, s.xfreq, in_img)),
             p.max_steps)
-        t = torch.clamp_max(t, 700.0)
-        j = torch.clamp_max(torch.as_tensor(np.array(j)), 700.0)
+        t = torch.clamp_max(t, tpeel.TAU_STOP)
+        j = torch.clamp_max(torch.as_tensor(np.array(j)), tpeel.TAU_STOP)
         n_off += int((in_img & ((t - j).abs() > 1e-6 + 1e-5 * j.abs()))
                      .sum())
         n += int(in_img.sum())

@@ -79,6 +79,13 @@ SHEAR_KEYS = {'fly_cartesian (shear)', 'fly_cartesian (J1, Pnew)',
               'scatter_lya (Pa)', 'scatter_lya (Jabs)'}
 
 
+# K7's hot-bin and thick cases: the slab_peel grid's direct, resonance,
+# dust and thick peels, and a090's stellar peel (chip_smoke.phase2_peel_hot);
+# its packed walks on slab_peel and CIV_test (chip_smoke.peel_packed)
+PEEL_HOT_KEYS = {'peel (hot bins)', 'peel (stellar) (hot bins)',
+                 'peel (packed)'}
+
+
 # the all-photons table: K2's five instances, K4, K5, K8, K9 and K10 with it
 # (chip_smoke.phase2_allph)
 ALLPH_KEYS = {k + ' (all photons)' for k in (
@@ -101,7 +108,7 @@ def test_kernels_match_plain_versions(cuda):
     assert set(res) == kernels | {'voigt_h'} | {
         k + chip_smoke.LINES for k in kernels} | LYB_H2_KEYS | AMR_KEYS \
         | CLUMP_KEYS | INSIDE_KEYS | SOURCE_KEYS | TEMP_KEYS | ATM_KEYS \
-        | SHEAR_KEYS | ALLPH_KEYS
+        | SHEAR_KEYS | ALLPH_KEYS | PEEL_HOT_KEYS
 
 
 # a source of each K2 instance on a 17^3 sphere: (overrides, instance)

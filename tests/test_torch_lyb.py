@@ -210,8 +210,8 @@ def test_peel_lyb_matches_make_peel(mode):
     j = jtau(jgrid, *(jnp.asarray(v.numpy()) for v in (
         s.x, s.y, s.z, s.ic, s.jc, s.kc, *pk, xf, in_img)),
         p.max_steps, None, jnp.asarray(band.numpy().astype(np.int32) + 1))
-    t = torch.clamp_max(t, 700.0)
-    j = torch.clamp_max(torch.as_tensor(np.array(j)), 700.0)
+    t = torch.clamp_max(t, tpeel.TAU_STOP)
+    j = torch.clamp_max(torch.as_tensor(np.array(j)), tpeel.TAU_STOP)
     off = in_img & ((t - j).abs() > TAU_ATOL + TAU_RTOL * j.abs())
     edge = in_img & _edge(p, m, s, rec, 0)
     n = int(in_img.sum())

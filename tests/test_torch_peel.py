@@ -9,9 +9,10 @@ axis, one oblique).
 
 Per (observer, lane) pair, the optical depth to the edge is held against
 make_peel's own tau_to_edge closure on the same direction and frequency:
-min(tau, 700) to rtol 1e-5 + atol 1e-6 (XLA fuses tau + d rho into one
-FMA, the plain version rounds twice; the deposit reads exp(-min(tau,
-700))).  At most 1e-3 of the pairs may miss it, where a near tie between
+min(tau, 110) to rtol 1e-5 + atol 1e-6 (XLA fuses tau + d rho into one
+FMA, the plain version rounds twice; the port's walk stops at tau
+peel.TAU_STOP = 110, where lart_tpu walks on, and the deposit exp(-min(tau,
+700)) is 0 in f32 beyond it).  At most 1e-3 of the pairs may miss it, where a near tie between
 two faces sends the walks through different cells.
 
 The cubes of peel_direct, peel_resonance and peel_dust (with and without
@@ -143,8 +144,8 @@ def _excluded_lanes(case, mode, s, rec, p, jtau, max_steps, jgrid):
         t = tpeel.tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, in_img)
         j = jtau(jgrid, *(jnp.asarray(v.numpy()) for v in (
             s.x, s.y, s.z, s.ic, s.jc, s.kc, *pk, xf, in_img)), max_steps)
-        t = torch.clamp_max(t, 700.0)
-        j = torch.clamp_max(torch.as_tensor(np.array(j)), 700.0)
+        t = torch.clamp_max(t, tpeel.TAU_STOP)
+        j = torch.clamp_max(torch.as_tensor(np.array(j)), tpeel.TAU_STOP)
         off = in_img & ((t - j).abs() > TAU_ATOL + TAU_RTOL * j.abs())
         edge = in_img & _edge(p, mode, s, rec, o)
         bad |= off | edge

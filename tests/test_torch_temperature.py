@@ -411,8 +411,8 @@ def test_peel_on_the_temperature_cube(kind, tcube):
         t = tpeel.tau_to_edge(p, (s.x, s.y, s.z), cell, pk, xf, in_img)
         j = jtau(jgrid, *(jnp.asarray(v.numpy()) for v in (
             s.x, s.y, s.z, *cell, *pk, xf, in_img)), max_steps)
-        t = torch.clamp_max(t, 700.0)
-        j = torch.clamp_max(torch.as_tensor(np.array(j)), 700.0)
+        t = torch.clamp_max(t, tpeel.TAU_STOP)
+        j = torch.clamp_max(torch.as_tensor(np.array(j)), tpeel.TAU_STOP)
         off = in_img & ((t - j).abs() > 1e-6 + 1e-5 * j.abs())
         g = p.grid
         xr = (xf.double() + (g.vel_dot(cell, *pk).double() if g.moving

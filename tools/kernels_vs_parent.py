@@ -1,8 +1,9 @@
-"""Time K4 (scatter_lya) and K5 (fly_cartesian) of this tree against the
-same kernels of an earlier checkout, in turns, on the card.
+"""Time K4 (scatter_lya), K5 (fly_cartesian) and K7 (peel) of this tree
+against the same kernels of an earlier checkout, in turns, on the card.
 
     git archive HEAD~1 lart_tpu_torch | tar -x -C build/parent
-    python3 tools/k4_k5_vs_parent.py --parent build/parent [--out FILE]
+    python3 tools/kernels_vs_parent.py --parent build/parent \
+        [--kernels K4,maps,K7] [--out FILE]
 
 --parent is the root of a checkout that holds lart_tpu_torch/.  Its
 package is copied to build/parent_pkg/lart_parent and imported under that
@@ -11,25 +12,38 @@ kernels from its own csrc/ into build/parent_pkg/build/ and calls them
 through its own wrappers and C signatures.  Each state is prepared as
 chip_smoke.py phase 5 does (budget 1e9, B = 131072, chunk_cycles 32) and
 run for one second of whole chunks; one cycle's inputs are taken, the
-state K5 sees (after the refill) and the state K4 sees (after the
-flight).  The parent's chunk is prepared from the same Params and seed,
-and reads the same lane tensors (its lane fields must be among this
+state K5 sees (after the refill), the state K4 sees (after the flight)
+and the scatterings' events with their peel record that K7 peels (after
+the scatter).  The parent's chunk is prepared from the same Params and
+seed, and reads the same lane tensors (its lane fields must be among this
 tree's).  Each kernel is timed back to back on the device
-(chip_smoke.device_ms: a fresh copy of the state a launch, 20 launches
-behind a sleep), the versions in turns A, B, B, A.
+(chip_smoke.device_ms: 20 launches behind a sleep; K4 and K5 on a fresh
+copy of the state a launch), the versions in turns A, B, B, A.
 
 - K4 on the flagship slab (chip_smoke.py phase 5) and on the K4 states of
   t4tau7, DL20e_dust, h2_on, SiII_1193, clumps_overlap and jellyfish_pt,
   each as written: the tree's time over the parent's.
-- t1tau6.in as written with calcJ, calcP and calcPnew: K4 with and
+- maps: t1tau6.in as written with calcJ, calcP and calcPnew: K4 with and
   without the Pa map and K5 with and without J1/Pnew, both versions; the
   distinct bins a warp and a block of K4's resonance scatterings deposit
   Pa into, and Pa.index_add_ of the same (bin, f64 value) pairs, the
   plain atomic path's yardstick.
+- K7 on phase 5's peel-off states (k7_states): the scatterings' peel of
+  slab_peel, sphere_peel, vel_effect_peel, DL20e_dust with one observer on
+  +z, SiII_1193, t4tau1e4, jellyfish_pt with its observer, CIV_test's
+  interior observer, star_planet_a090, AlII_ex, clumps_overlap with one
+  observer on +z and stars1, as written, and the stellar peel of a
+  refill's newborns of a090 with its observer on +z:
+  the tree's time over the parent's, whether the two versions' cubes
+  agree to 1e-5 of their sums, this tree's launches a call (two where its
+  first pass runs) and, where the pass does not run, the tree's time with
+  the pass run on every call beside it: what the pass costs.
 
-Each version's registers a K4 and K5 instance (ptxas) are logged.  The
+Each version's registers, stack frame and spill bytes a K4, K5 and K7
+instance (ptxas) are logged.  The
 numbers are logged with the card's name and power limit and written as
-JSON to --out (chiprun_out/k4_k5_vs_parent.json).
+JSON to --out (kernels_vs_parent.json in the repository's output folder
+by default).
 """
 
 from __future__ import annotations
@@ -52,6 +66,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from lart_tpu_torch.kernels import build as kbuild  # noqa: E402
 
 PARENT_DIR = ROOT / 'build' / 'parent_pkg'
 # the modules that find the repo's data by a path relative to the package:
@@ -80,7 +95,7 @@ def load_parent(root):
 
 def build_both():
     """Build this tree's kernel library and the parent's side by side;
-    returns {version: {kernel instance: registers}} of K4 and K5 (empty
+    returns {version: {kernel instance: registers}} of K4, K5 and K7 (empty
     where the library was built before this process)."""
     mods = {v: importlib.import_module(f'{v}.kernels.build')
             for v in ('lart_tpu_torch', 'lart_parent')}
@@ -104,15 +119,22 @@ def build_both():
 
 
 def registers(ptxas):
-    """{K4 or K5 instance: registers} from ptxas's report."""
+    """{K4, K5 or K7 instance: [registers, stack frame, spill stores, spill
+    loads]} (bytes) from ptxas's report."""
     out, name = {}, None
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
+        keep = name and any(k in name for k in (
+            'scatter_lya', 'fly_cartesian', 'peel_'))
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and keep:
+            out.setdefault(name, [0, 0, 0, 0])[1:] = map(int, m.groups())
         m = re.search(r'Used (\d+) registers', line)
-        if m and name and ('scatter_lya' in name or 'fly_cartesian' in name):
-            out[name] = int(m.group(1))
+        if m and keep:
+            out.setdefault(name, [0, 0, 0, 0])[0] = int(m.group(1))
     return out
 
 
@@ -170,6 +192,41 @@ class Versions:
         return (wrap, lambda s: scatter.scatter(s, tl, sp, 1, c),
                 lambda s: ch.flight(s, tl, n))
 
+    def peel_inputs(self, stellar=False):
+        """(state, record, mode) of one K7 launch as the chunk loop makes it:
+        the scatterings' events of the cycle (K4 on pre_sc writing the peel
+        record; the chunk's scatter mode), or with `stellar` a refill of
+        every lane of the batch (K2 writing the newborns' limb samples;
+        mode STELLAR), as chip_smoke.py stellar_times takes them."""
+        from lart_tpu_torch import testing
+        from lart_tpu_torch.instruments import peel as tpeel
+        from lart_tpu_torch.transport import refill, scatter
+        p, ch = self.p, self.p.chunk
+        tl = self.tallies['this tree']
+        rec = tpeel.PeelRecord.zeros(p.state.batch, p.device)
+        if stellar:
+            st = testing.clone_state(p.state)
+            st.phase.zero_()
+            refill.refill(st, tl, ch.refill_params, p.seed, self.cycle,
+                          10 ** 9, rec)
+            return st, rec, tpeel.STELLAR
+        st = testing.clone_state(self.pre_sc)
+        scatter.scatter(st, tl, ch.scatter_params, p.seed, self.cycle, rec)
+        return st, rec, ch.peel.scatter_mode
+
+    def peel(self, version, state, rec, mode):
+        """(launch, cubes) of a version's K7 on the inputs: launch() peels
+        into cubes, a version's own PeelCubes."""
+        this = version == 'this tree'
+        pkg = 'lart_tpu_torch' if this else 'lart_parent'
+        tpeel = importlib.import_module(f'{pkg}.instruments.peel')
+        pk = (self.p if this else self.q).chunk.peel
+        r = rec if this else tpeel.PeelRecord(**{
+            f: getattr(rec, f) for f in tpeel.PEEL_RECORD_FIELDS})
+        s = state if this else as_parent(state)
+        cubes = pk.zero_cubes(state.device)
+        return (lambda: tpeel.peel(s, cubes, r, pk, mode)), cubes
+
 
 def in_turns(pre, fns, reps=REPS):
     """{name: device ms a launch} of each (wrap, fn) of fns on fresh copies
@@ -197,6 +254,127 @@ def per_group_distinct(keys, ok, size):
               for g in range(0, len(k) - size + 1, size)
               if m[g:g + size].any()]
     return float(np.mean(counts)), int(np.max(counts))
+
+
+def k7_states():
+    """The K7 states compared (label, key, Params, AMR leaves' name,
+    stellar): phase 5's windows with peel-off, each as written."""
+    from lart_tpu_torch import testing
+    ex = cs.PEEL_EXAMPLES
+    return (
+        ('slab_peel as written', 'slab_peel',
+         cs.example_params(ex['slab_peel'], **OVER), None, False),
+        ('sphere_peel as written', 'sphere_peel',
+         cs.example_params(ex['sphere_peel'], **OVER), None, False),
+        ('vel_effect_peel as written', 'vel_effect_peel',
+         cs.example_params(ex['vel_effect_peel'], **OVER), None, False),
+        ('DL20e_dust with one observer on +z', 'DL20e_dust_peel',
+         cs.example_params(cs.DL20E_DUST, **OVER, **cs.OBSERVER), None,
+         False),
+        ('SiII_1193 as written', 'SiII_1193',
+         cs.example_params(cs.LINE_EXAMPLES['SiII_1193'], **OVER), None,
+         False),
+        ('t4tau1e4 as written', 't4tau1e4', cs.example_params(cs.LYB, **OVER),
+         None, False),
+        ('jellyfish_pt as written with its observer', 'jellyfish_pt',
+         cs.example_params(cs.JELLY, **OVER), 'jellyfish', False),
+        ('CIV_test with save_peeloff (interior)', 'CIV_test',
+         cs.civ_params(**OVER), None, False),
+        ('star_planet_a090 as written (resonance peel)', 'a090',
+         testing.source_params('a090', cs.ROOT, **OVER), None, False),
+        ('AlII_ex as written (per-cell T)', 'AlII_ex',
+         testing.source_params('AlII', cs.ROOT, **OVER), None, False),
+        ('clumps_overlap with one observer on +z', 'clumps_overlap_peel',
+         cs.clump_params('overlap', **OVER, **cs.OBSERVER), None, False),
+        ('stars1 as written (Stokes)', 'stars1',
+         testing.source_params('stars1', cs.ROOT, cut=False, **OVER), None,
+         False),
+        ('star_planet_a090 on +z (stellar peel)', 'a090_stellar_z',
+         testing.source_params('a090', cs.ROOT, **OVER, beta=(0.0,),
+                               save_direc0=True), None, True))
+
+
+def peel_turns(fns, reps=REPS):
+    """{name: device ms a launch} of each fn of fns, back to back, in
+    turns: the order of fns, then reversed (each called once before)."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    got = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        got[k].append(cs.device_ms([fns[k]] * reps))
+    return {k: float(np.mean(v)) for k, v in got.items()}
+
+
+def every_call(pk, fn):
+    """fn with K7's first pass on every call: its own lane lists (not
+    those of fn's Peel `pk`), told before each call that their count
+    packs, so that the pass runs; the kernel still packs by the count."""
+    own = {}
+
+    def run():
+        saved = dict(pk._lanes)
+        pk._lanes.clear()
+        pk._lanes.update(own)
+        for lanes in own.values():
+            for gate in lanes.gates.values():
+                gate.packs, gate.event = True, None
+        try:
+            fn()
+        finally:
+            own.update(pk._lanes)
+            pk._lanes.clear()
+            pk._lanes.update(saved)
+    return run
+
+
+def compare_k7(dev, card, only=None):
+    """K7 of both versions on each of k7_states (the keys in `only`, where
+    given): {key: {version: ms, 'ratio': this over parent, 'cubes_rel':
+    the largest difference of the two versions' cubes over their sums,
+    after one launch each, 'launches_a_call': this tree's launches a call
+    once its first call has sampled the first pass's count}}; where that
+    is one launch off the chord, also the time with the first pass run on
+    every call and 'first_pass_ms', what the pass adds."""
+    got = {}
+    for label, key, par, amr, stellar in k7_states():
+        if only and key not in only:
+            continue
+        v = Versions(label, par, dev,
+                     amr_data=cs.amr_leaves(amr) if amr else None)
+        inputs = v.peel_inputs(stellar)
+        runs = {name: v.peel(name, *inputs)
+                for name in ('parent', 'this tree')}
+        for fn, _ in runs.values():
+            fn()
+        torch.cuda.synchronize()
+        rel = 0.0
+        for (_, a), (_, b) in zip(runs['parent'][1].items(),
+                                  runs['this tree'][1].items()):
+            tot = max(float(a.double().abs().sum()), 1e-30)
+            rel = max(rel, float((a - b).abs().max()) / tot)
+        # one more call after the first, which sampled the first pass's
+        # count: whether this tree's calls run it (two launches)
+        n0 = kbuild.LAUNCHES['peel'] + kbuild.LAUNCHES['peel_stellar']
+        runs['this tree'][0]()
+        launches = kbuild.LAUNCHES['peel'] + kbuild.LAUNCHES['peel_stellar'] \
+            - n0
+        torch.cuda.synchronize()
+        fns = {name: fn for name, (fn, _) in runs.items()}
+        if launches == 1 and not v.p.chunk.peel.chord:
+            fns['this tree, first pass every call'] = every_call(
+                v.p.chunk.peel, fns['this tree'])
+        t = peel_turns(fns)
+        t['ratio'] = t['this tree'] / t['parent']
+        t['cubes_rel'] = rel
+        t['launches_a_call'] = launches
+        if 'this tree, first pass every call' in t:
+            t['first_pass_ms'] = t['this tree, first pass every call'] \
+                - t['this tree']
+        got[key] = t
+        log(f'K7 on {label}: {t} [{card}]')
+        del v, runs, inputs
+    return got
 
 
 def flagship_params():
@@ -278,11 +456,14 @@ def compare_maps(dev, card):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--parent', required=True)
+    ap.add_argument('--kernels', default='K4,maps,K7',
+                    help='comma-separated: K4, maps (K4/K5 on t1tau6 with '
+                         'the maps), K7, or K7:key1+key2 (those k7_states)')
     ap.add_argument('--out', default=str(ROOT / 'chiprun_out' /
-                                         'k4_k5_vs_parent.json'))
+                                         'kernels_vs_parent.json'))
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print('k4_k5_vs_parent: no CUDA device', file=sys.stderr)
+        print('kernels_vs_parent: no CUDA device', file=sys.stderr)
         return 2
     from lart_tpu_torch.utils.device import resolve_device
     dev = resolve_device('cuda')
@@ -292,8 +473,19 @@ def main(argv=None):
     card = cs.smi()
     log(f'built both libraries in {time.time() - t0:.1f} s; registers '
         f'{regs}')
-    out = {'card': card, 'registers': regs, 'K4': compare_k4(dev, card),
-           'maps': compare_maps(dev, card)}
+    kinds = dict(k.partition(':')[::2] for k in a.kernels.split(','))
+    out = {'card': card, 'registers': regs}
+    if 'K4' in kinds:
+        out['K4'] = compare_k4(dev, card)
+    if 'maps' in kinds:
+        out['maps'] = compare_maps(dev, card)
+    if 'K7' in kinds:
+        out['K7'] = compare_k7(dev, card, [k for k in kinds['K7'].split('+')
+                                           if k])
+        ratios = [t['ratio'] for t in out['K7'].values()]
+        out['K7_geomean'] = float(np.exp(np.mean(np.log(ratios))))
+        log(f'K7: geometric mean of the ratios {out["K7_geomean"]:.4f} over '
+            f'{len(ratios)} states, the largest {max(ratios):.4f} [{card}]')
     Path(a.out).parent.mkdir(parents=True, exist_ok=True)
     Path(a.out).write_text(json.dumps(out, indent=1))
     log(f'{time.time() - t0:.1f} s [{card}]')
